@@ -1,0 +1,62 @@
+# -*- coding: utf-8 -*-
+"""
+Convert the reference package's ``TransformerLM`` parameters into the
+port's state dict.
+
+The input is the flax parameter tree as plain mappings of arrays
+(numpy arrays, or anything ``numpy.asarray`` reads): either the scanned
+layout (``params['stack']['layers']['block']…`` with a leading
+``n_layers`` axis, the reference default) or the unrolled ``block_i``
+subtrees. Dense ``kernel (in, out)`` becomes ``weight (out, in)``;
+LayerNorm ``scale``/``bias`` and the ``embedding`` table keep their
+shapes. Load the result with ``model.load_state_dict(state)``, which
+casts to the model's dtypes and device.
+"""
+
+import numpy as np
+import torch
+
+__all__ = ['lm_state_from_jax']
+
+_ATTN = (('keys', 'keys_proj'), ('queries', 'queries_proj'),
+         ('values', 'values_proj'), ('composition', 'composition'))
+
+
+def _blocks(stack):
+    if 'layers' in stack:
+        block = stack['layers']['block']
+        n = np.asarray(block['ln1']['scale']).shape[0]
+
+        def take(node, i):
+            if hasattr(node, 'keys'):
+                return {k: take(v, i) for k, v in node.items()}
+            return np.asarray(node)[i]
+        return [take(block, i) for i in range(n)]
+    n = sum(1 for name in stack if name.startswith('block_'))
+    return [stack[f'block_{i}'] for i in range(n)]
+
+
+def _dense(state, prefix, node):
+    state[f'{prefix}.weight'] = np.asarray(node['kernel']).T
+    if 'bias' in node:
+        state[f'{prefix}.bias'] = np.asarray(node['bias'])
+
+
+def lm_state_from_jax(params):
+    """``{name: torch.Tensor}`` for the port's ``TransformerLM`` from the
+    reference ``TransformerLM`` params (``{'params': …}`` or the inner
+    tree)."""
+    p = params['params'] if 'params' in params else params
+    state = {'embedding': np.asarray(p['embed']['embedding']),
+             'ln_f.scale': np.asarray(p['ln_f']['scale']),
+             'ln_f.bias': np.asarray(p['ln_f']['bias'])}
+    for i, blk in enumerate(_blocks(p['stack'])):
+        pre = f'stack.blocks.{i}'
+        for flax_name, port_name in _ATTN:
+            _dense(state, f'{pre}.attn.{port_name}', blk['attn'][flax_name])
+        for ln in ('ln1', 'ln2'):
+            state[f'{pre}.{ln}.scale'] = np.asarray(blk[ln]['scale'])
+            state[f'{pre}.{ln}.bias'] = np.asarray(blk[ln]['bias'])
+        _dense(state, f'{pre}.mlp_in', blk['mlp_in'])
+        _dense(state, f'{pre}.mlp_out', blk['mlp_out'])
+    return {k: torch.tensor(v) for k, v in state.items()}

@@ -1,0 +1,262 @@
+// Flash-attention forward for Hopper (sm_90a), bf16 in, f32 accumulation.
+//
+// Replaces the TPU kernel `_make_fwd_kernel` in
+// distributed_dot_product_tpu/ops/pallas_attention.py (exact softmax mode,
+// causal with a host-int row offset, GQA; no mask, segments, positions,
+// window, ALiBi, dropout or int8 scoring).
+//
+// What bounds it on the H100: at the prefill shape (Tq = 1000 query rows
+// against a 2048-row cache, head dim 96, causal) the work is ~6 GFLOP per
+// layer against ~25 MB of q/k/v/o, so the floor is the HBM read of the
+// operands (~7 us at 3.35 TB/s) with the tensor-core time just under it.
+// The design keeps every score block out of device memory: one block owns a
+// 64-row query tile and loops over 64-column key tiles up to the tile's
+// causal extent (the TPU's sequential K grid axis becomes this in-block
+// loop; tiles wholly in the causal future, including the unfilled tail of
+// a cache buffer, are never loaded). Both products run on the tensor cores
+// through nvcuda::wmma 16x16x16 bf16 fragments with f32 accumulators; the
+// online softmax runs in shared memory, each warp owning 16 query rows so
+// the softmax and the P.V product need only warp-level synchronisation.
+// This is the simple first version: no cp.async/TMA pipelining and no
+// register-resident accumulators, so it runs well below the bound.
+//
+// Numerics follow the TPU kernel: scale*log2(e) is folded into q (rounded
+// back to bf16) so the softmax runs in exp2 units; the running max starts
+// at NEG_BIG (finite), masked logits are -inf, and a row with no
+// attendable key (l == 0) outputs exactly 0.
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <mma.h>
+#include <math.h>
+#include <stdint.h>
+
+using namespace nvcuda;
+using bf16 = __nv_bfloat16;
+
+namespace {
+
+constexpr int kBQ = 64;            // query rows per block: 4 warps x 16
+constexpr int kBK = 64;            // key columns per tile
+constexpr int kWarps = 4;
+constexpr int kThreads = kWarps * 32;
+constexpr float kNegBig = -0.7f * 3.4e38f;
+
+template <int D>
+constexpr size_t smem_bytes() {
+  return sizeof(bf16) * (kBQ * D        // sQ
+                         + 2 * kBK * D  // sK, sV
+                         + kBQ * kBK)   // sP
+         + sizeof(float) * (kBQ * kBK   // sS
+                            + kBQ * D); // sO
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                 const bf16* __restrict__ v, bf16* __restrict__ out,
+                 int tq, int tk, int group, int causal, int causal_offset,
+                 float qscale, int n_qtiles) {
+  static_assert(D % 16 == 0 && D <= 128, "head dim must be 16*n <= 128");
+  constexpr int kChunks = D / 8;   // 16-byte chunks per row
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem);
+  bf16* sK = sQ + kBQ * D;
+  bf16* sV = sK + kBK * D;
+  bf16* sP = sV + kBK * D;
+  float* sS = reinterpret_cast<float*>(sP + kBQ * kBK);
+  float* sO = sS + kBQ * kBK;
+
+  // Late query tiles see the most keys under causal masking: schedule
+  // them first so the short tiles fill the tail of the launch.
+  const int tile = n_qtiles - 1 - static_cast<int>(blockIdx.x);
+  const int bh = blockIdx.y;              // flat (batch, query head)
+  const int bkv = bh / group;             // its kv head (GQA)
+  const int q0 = tile * kBQ;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+
+  const bf16* qb = q + static_cast<size_t>(bh) * tq * D;
+  const bf16* kb = k + static_cast<size_t>(bkv) * tk * D;
+  const bf16* vb = v + static_cast<size_t>(bkv) * tk * D;
+  bf16* ob = out + static_cast<size_t>(bh) * tq * D;
+
+  // Key columns any row of this tile may attend: [0, kv_end).
+  int kv_end = tk;
+  if (causal) {
+    const int rows = (q0 + kBQ < tq ? q0 + kBQ : tq);
+    const long long extent = static_cast<long long>(causal_offset) + rows;
+    kv_end = extent <= 0 ? 0 : (extent < tk ? static_cast<int>(extent) : tk);
+  }
+  const int n_ktiles = (kv_end + kBK - 1) / kBK;
+
+  // q tile, pre-scaled by scale*log2(e) and rounded back to bf16; rows
+  // past tq load as zeros (their outputs are never stored).
+  for (int idx = threadIdx.x; idx < kBQ * kChunks; idx += kThreads) {
+    const int r = idx / kChunks, c = idx % kChunks;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (q0 + r < tq) {
+      val = *reinterpret_cast<const uint4*>(
+          qb + static_cast<size_t>(q0 + r) * D + c * 8);
+      bf16* e = reinterpret_cast<bf16*>(&val);
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        e[i] = __float2bfloat16(__bfloat162float(e[i]) * qscale);
+    }
+    *reinterpret_cast<uint4*>(sQ + r * D + c * 8) = val;
+  }
+  for (int idx = threadIdx.x; idx < kBQ * D; idx += kThreads) sO[idx] = 0.f;
+  __syncthreads();
+
+  // Softmax ownership: lane pair (2r, 2r+1) of warp w holds row
+  // w*16 + r, each lane half of the row's key columns / output features.
+  const int my_row = warp * 16 + (lane >> 1);
+  const int half = lane & 1;
+  const long long row_pos = static_cast<long long>(causal_offset) + q0 + my_row;
+  float m_run = kNegBig;
+  float l_run = 0.f;
+
+  for (int t = 0; t < n_ktiles; ++t) {
+    const int k0 = t * kBK;
+    __syncthreads();   // all warps done with the previous sK/sV
+    for (int idx = threadIdx.x; idx < kBK * kChunks; idx += kThreads) {
+      const int r = idx / kChunks, c = idx % kChunks;
+      uint4 kv = make_uint4(0u, 0u, 0u, 0u);
+      uint4 vv = make_uint4(0u, 0u, 0u, 0u);
+      if (k0 + r < tk) {
+        const size_t off = static_cast<size_t>(k0 + r) * D + c * 8;
+        kv = *reinterpret_cast<const uint4*>(kb + off);
+        vv = *reinterpret_cast<const uint4*>(vb + off);
+      }
+      *reinterpret_cast<uint4*>(sK + r * D + c * 8) = kv;
+      *reinterpret_cast<uint4*>(sV + r * D + c * 8) = vv;
+    }
+    __syncthreads();
+
+    // S = Q K^T for this warp's 16 rows (log2 units: q is pre-scaled).
+#pragma unroll
+    for (int j = 0; j < kBK / 16; ++j) {
+      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
+      wmma::fill_fragment(acc, 0.f);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
+        wmma::load_matrix_sync(a, sQ + warp * 16 * D + kk * 16, D);
+        wmma::load_matrix_sync(b, sK + j * 16 * D + kk * 16, D);
+        wmma::mma_sync(acc, a, b, acc);
+      }
+      wmma::store_matrix_sync(sS + warp * 16 * kBK + j * 16, acc, kBK,
+                              wmma::mem_row_major);
+    }
+    __syncwarp();
+
+    // Online softmax over this tile's 64 columns of my_row.
+    float sv[32];
+    float mx = kNegBig;
+    const float* srow = sS + my_row * kBK + half * 32;
+#pragma unroll
+    for (int c = 0; c < 32; ++c) {
+      const int col = k0 + half * 32 + c;
+      const bool valid = col < tk && (!causal || col <= row_pos);
+      sv[c] = valid ? srow[c] : -INFINITY;
+      mx = fmaxf(mx, sv[c]);
+    }
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    const float m_new = fmaxf(m_run, mx);
+    const float corr = exp2f(m_run - m_new);
+    float psum = 0.f;
+    bf16* prow = sP + my_row * kBK + half * 32;
+#pragma unroll
+    for (int c = 0; c < 32; ++c) {
+      const float p = exp2f(sv[c] - m_new);   // masked: exp2(-inf) = 0
+      prow[c] = __float2bfloat16(p);
+      psum += p;
+    }
+    psum += __shfl_xor_sync(0xffffffffu, psum, 1);
+    l_run = l_run * corr + psum;
+    m_run = m_new;
+    float* orow = sO + my_row * D + half * (D / 2);
+#pragma unroll
+    for (int c = 0; c < D / 2; ++c) orow[c] *= corr;
+    __syncwarp();
+
+    // O += P V for this warp's 16 rows.
+#pragma unroll
+    for (int j = 0; j < D / 16; ++j) {
+      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
+      wmma::load_matrix_sync(acc, sO + warp * 16 * D + j * 16, D,
+                             wmma::mem_row_major);
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk) {
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
+        wmma::load_matrix_sync(a, sP + warp * 16 * kBK + kk * 16, kBK);
+        wmma::load_matrix_sync(b, sV + kk * 16 * D + j * 16, D);
+        wmma::mma_sync(acc, a, b, acc);
+      }
+      wmma::store_matrix_sync(sO + warp * 16 * D + j * 16, acc, D,
+                              wmma::mem_row_major);
+    }
+    __syncwarp();
+  }
+
+  // l == 0 <=> the row attends no key: output exactly 0.
+  if (q0 + my_row < tq) {
+    const float* orow = sO + my_row * D + half * (D / 2);
+    __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(
+        ob + static_cast<size_t>(q0 + my_row) * D + half * (D / 2));
+#pragma unroll
+    for (int c = 0; c < D / 2; c += 2) {
+      const float a = l_run == 0.f ? 0.f : orow[c] / l_run;
+      const float b = l_run == 0.f ? 0.f : orow[c + 1] / l_run;
+      dst[c / 2] = __floats2bfloat162_rn(a, b);
+    }
+  }
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, void* out,
+           int batch_heads, int group, int tq, int tk, int causal,
+           int causal_offset, float qscale, cudaStream_t stream) {
+  const size_t smem = smem_bytes<D>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int n_qtiles = (tq + kBQ - 1) / kBQ;
+  if (n_qtiles == 0 || batch_heads == 0) return 0;
+  dim3 grid(n_qtiles, batch_heads);
+  flash_fwd_kernel<D><<<grid, kThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(out), tq, tk, group,
+      causal, causal_offset, qscale, n_qtiles);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// q (batch_heads, tq, d), k/v (batch_heads / group, tk, d), out like q;
+// all contiguous bf16. Returns a cudaError_t code (0 = launched).
+extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v,
+                              void* out, int batch_heads, int group, int tq,
+                              int tk, int d, int causal, int causal_offset,
+                              float qscale, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (d) {
+    case 32:
+      return launch<32>(q, k, v, out, batch_heads, group, tq, tk, causal,
+                        causal_offset, qscale, s);
+    case 64:
+      return launch<64>(q, k, v, out, batch_heads, group, tq, tk, causal,
+                        causal_offset, qscale, s);
+    case 96:
+      return launch<96>(q, k, v, out, batch_heads, group, tq, tk, causal,
+                        causal_offset, qscale, s);
+    case 128:
+      return launch<128>(q, k, v, out, batch_heads, group, tq, tk, causal,
+                         causal_offset, qscale, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}

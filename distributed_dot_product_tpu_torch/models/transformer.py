@@ -1,0 +1,134 @@
+# -*- coding: utf-8 -*-
+"""
+Transformer stack over the attention module — the port of
+``TransformerBlock``/``TransformerStack`` in
+``distributed_dot_product_tpu/models/transformer.py`` (cached inference:
+``make_decode_caches``/``prefill``/``decode``; the training forward comes
+with the training slice).
+
+Pre-LN blocks, ``x + Attn(LN(x))`` then ``x + MLP(LN(x))``, with flax's
+defaults carried over exactly: LayerNorm with ``epsilon=1e-6`` and
+float32 statistics (``E[x²] − E[x]²`` clipped at 0), float32 scale/bias
+parameters and the output at the module dtype; the MLP activation is
+flax's ``nn.gelu``, the tanh approximation. The reference's
+``scan_layers`` stacks are a parameter layout only; here the stack is a
+plain list of layers (``convert.py`` reads either layout).
+"""
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from distributed_dot_product_tpu_torch.models.attention import (
+    DistributedDotProductAttn,
+)
+from distributed_dot_product_tpu_torch.models.dense import (
+    OwnedDense, default_generator,
+)
+from distributed_dot_product_tpu_torch.utils.comm import (
+    SEQ_AXIS, resolve_device,
+)
+
+__all__ = ['LayerNorm', 'TransformerBlock', 'TransformerStack']
+
+
+class LayerNorm(nn.Module):
+    """flax ``nn.LayerNorm`` (defaults): statistics in float32,
+    ``epsilon=1e-6``, float32 ``scale``/``bias``, output at ``dtype``
+    (float32 when None)."""
+
+    def __init__(self, dim, dtype=None, device='cuda'):
+        super().__init__()
+        dev = resolve_device(device)
+        self.dtype = dtype or torch.float32
+        self.scale = nn.Parameter(torch.ones(dim, device=dev))
+        self.bias = nn.Parameter(torch.zeros(dim, device=dev))
+
+    def forward(self, x):
+        x32 = x.float()
+        mean = x32.mean(dim=-1, keepdim=True)
+        var = ((x32 * x32).mean(dim=-1, keepdim=True)
+               - mean * mean).clamp_min(0.0)
+        y = (x32 - mean) * (torch.rsqrt(var + 1e-6) * self.scale) + self.bias
+        return y.to(self.dtype)
+
+
+class TransformerBlock(nn.Module):
+    """Pre-LN block; ``attn_kwargs`` pass through to
+    :class:`DistributedDotProductAttn` (self-attention: the same tensor
+    feeds keys, queries and values)."""
+
+    def __init__(self, dim, num_heads, mlp_ratio=4, axis_name=SEQ_AXIS,
+                 dtype=None, attn_kwargs=None, device='cuda',
+                 generator=None):
+        super().__init__()
+        dev = resolve_device(device)
+        gen = default_generator(generator)
+        kw = dict(attn_kwargs or {})
+        kw.setdefault('dtype', dtype)
+        kw.setdefault('axis_name', axis_name)
+        self.attn = DistributedDotProductAttn(
+            key_dim=dim, num_heads=num_heads, device=dev, generator=gen,
+            **kw)
+        self.ln1 = LayerNorm(dim, dtype=dtype, device=dev)
+        self.ln2 = LayerNorm(dim, dtype=dtype, device=dev)
+        self.mlp_in = OwnedDense(dim, mlp_ratio * dim, dtype=dtype,
+                                 device=dev, generator=gen)
+        self.mlp_out = OwnedDense(mlp_ratio * dim, dim, dtype=dtype,
+                                  device=dev, generator=gen)
+
+    def _mlp(self, h):
+        return self.mlp_out(F.gelu(self.mlp_in(h), approximate='tanh'))
+
+    def prefill(self, x, cache):
+        h = self.ln1(x)
+        cache, a = self.attn.prefill(h, h, h, cache)
+        x = x + a
+        return cache, x + self._mlp(self.ln2(x))
+
+    def decode(self, x, cache):
+        h = self.ln1(x)
+        cache, a = self.attn.decode(h, h, h, cache)
+        x = x + a
+        return cache, x + self._mlp(self.ln2(x))
+
+
+class TransformerStack(nn.Module):
+    """``n_layers`` blocks with one KV cache each."""
+
+    def __init__(self, dim, num_heads, n_layers=2, mlp_ratio=4,
+                 axis_name=SEQ_AXIS, dtype=None, attn_kwargs=None,
+                 device='cuda', generator=None):
+        super().__init__()
+        dev = resolve_device(device)
+        gen = default_generator(generator)
+        self.blocks = nn.ModuleList(
+            TransformerBlock(dim, num_heads, mlp_ratio=mlp_ratio,
+                             axis_name=axis_name, dtype=dtype,
+                             attn_kwargs=attn_kwargs, device=dev,
+                             generator=gen)
+            for _ in range(n_layers))
+
+    def forward(self, *args, **kwargs):
+        raise NotImplementedError('the training forward of TransformerStack '
+                                  'is ported with the training slice')
+
+    def make_decode_caches(self, batch, t_max, dtype=None, device=None):
+        """One KV cache per layer, a list."""
+        return [block.attn.make_decode_cache(batch, t_max, dtype=dtype,
+                                             device=device)
+                for block in self.blocks]
+
+    def prefill(self, x, caches):
+        out = []
+        for block, cache in zip(self.blocks, caches):
+            cache, x = block.prefill(x, cache)
+            out.append(cache)
+        return out, x
+
+    def decode(self, x, caches):
+        out = []
+        for block, cache in zip(self.blocks, caches):
+            cache, x = block.decode(x, cache)
+            out.append(cache)
+        return out, x

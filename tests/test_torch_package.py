@@ -1,0 +1,125 @@
+# -*- coding: utf-8 -*-
+"""
+Package contracts of the PyTorch port (``distributed_dot_product_tpu_torch``):
+
+- importing it loads no JAX (checked in a fresh interpreter);
+- no module of the port, nor ``chip_smoke.py`` or the port's profile
+  script, imports ``jax``, ``flax`` or the reference package (an AST
+  scan; the port's name begins with the reference's, so names are
+  matched exactly or up to a dot);
+- entry points default to the card and raise without one;
+- CPU calls run the plain versions and leave the kernel launch counters
+  at 0;
+- ``chip_smoke.py`` exits non-zero and prints no result without a card,
+  both in the repository and alone in an empty directory.
+"""
+
+import ast
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import distributed_dot_product_tpu_torch as port
+from distributed_dot_product_tpu_torch.models import decode as tdec
+
+REPO = Path(__file__).resolve().parent.parent
+PORT = REPO / 'distributed_dot_product_tpu_torch'
+BANNED = ('jax', 'flax', 'distributed_dot_product_tpu')
+
+
+def _banned(name):
+    return any(name == b or name.startswith(b + '.') for b in BANNED)
+
+
+def _imports(path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_import_loads_no_jax():
+    code = ('import sys, distributed_dot_product_tpu_torch\n'
+            'bad = [m for m in sys.modules if m in ("jax", "flax") or '
+            'm == "distributed_dot_product_tpu" or '
+            'm.startswith("distributed_dot_product_tpu.")]\n'
+            'assert not bad, bad\n')
+    env = {**os.environ, 'PYTHONPATH': str(REPO)}
+    res = subprocess.run([sys.executable, '-c', code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
+@pytest.mark.parametrize('path', sorted(
+    [p.relative_to(REPO) for p in PORT.rglob('*.py')]
+    + [Path('chip_smoke.py'), Path('scripts/torch_profile_generate.py')]),
+    ids=str)
+def test_no_reference_imports(path):
+    bad = [m for m in _imports(REPO / path) if _banned(m)]
+    assert not bad, f'{path} imports {bad}'
+
+
+def test_banned_name_matching():
+    assert _banned('jax.numpy') and _banned('distributed_dot_product_tpu.ops')
+    assert not _banned('distributed_dot_product_tpu_torch.ops')
+    assert not _banned('jaxlib_free') and not _banned('flaxen')
+
+
+def test_default_device_is_cuda_and_raises_without_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    assert port.resolve_device('cpu') == torch.device('cpu')
+    for build in (lambda: port.resolve_device(),
+                  lambda: port.TransformerLM(64, 32, 4),
+                  lambda: port.OwnedDense(4, 4),
+                  lambda: port.init_cache(1, 1, 4, 4)):
+        with pytest.raises(RuntimeError, match='cuda'):
+            build()
+
+
+def test_cpu_calls_leave_launch_counters_at_zero():
+    port.flash_attention.launches = 0
+    port.flash_decode.launches = 0
+    x = torch.randn((1, 2, 8, 32))
+    port.flash_attention(x, x, x, causal=True)
+    cache = tdec.init_cache(1, 2, 8, 32, dtype=torch.float32, device='cpu')
+    one = torch.randn((1, 2, 1, 32))
+    tdec.decode_step(one, cache, one, one)
+    model = port.TransformerLM(64, 32, 4, n_layers=1, device='cpu')
+    port.greedy_generate(model, torch.zeros((1, 3), dtype=torch.int32), 3, 8)
+    assert port.flash_attention.launches == 0
+    assert port.flash_decode.launches == 0
+
+
+def test_seeded_init_is_reproducible_and_layers_differ():
+    a = port.TransformerLM(64, 32, 4, n_layers=2, device='cpu',
+                           generator=torch.Generator().manual_seed(3))
+    b = port.TransformerLM(64, 32, 4, n_layers=2, device='cpu',
+                           generator=torch.Generator().manual_seed(3))
+    sa, sb = a.state_dict(), b.state_dict()
+    assert all(torch.equal(sa[k], sb[k]) for k in sa)
+    w0 = sa['stack.blocks.0.attn.keys_proj.weight']
+    assert not torch.equal(w0, sa['stack.blocks.1.attn.keys_proj.weight'])
+
+
+def _run_chip_smoke(cwd):
+    env = {k: v for k, v in os.environ.items() if k != 'PYTHONPATH'}
+    env['CUDA_VISIBLE_DEVICES'] = ''
+    return subprocess.run([sys.executable, 'chip_smoke.py'], cwd=cwd,
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+
+
+def test_chip_smoke_fails_without_card(tmp_path):
+    alone = tmp_path / 'alone'
+    alone.mkdir()
+    shutil.copy(REPO / 'chip_smoke.py', alone)
+    for cwd in (REPO, alone):
+        res = _run_chip_smoke(cwd)
+        assert res.returncode != 0
+        assert '"ok"' not in res.stdout
