@@ -5,27 +5,43 @@ Smoke run of the PyTorch / CUDA port on one NVIDIA card.
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
 
-Phases, one JSON line each:
+Phases, one JSON line each (some several):
 
 1. device: the card, torch and CUDA versions;
-2. build: compiles every kernel of the serving path from ``csrc/``;
-3. K1 (flash-attention forward) against its plain PyTorch version at the
-   prefill shape, at ragged shapes with a causal offset (one with GQA)
-   and at a ragged shape without causal masking, in bf16;
-4. K5 (fused decode step) against its plain version at the decode shape
-   with mixed per-row fill: the appended cache must equal the plain
-   append bit for bit, the output must agree within tolerance;
-5. the main path: greedy generation of the full-width TransformerLM
-   (vocab 32768, dim 768, 8 heads, 16 layers, bf16, seeded random
-   weights) for 4 prompts of 1000 tokens, 64 steps, t_max 2048, with the
-   kernel launch counts of that run, then prompt 0 against the same
-   weights run on the CPU in float32 (plain versions).
+2. build: compiles every kernel source in ``csrc/``, one ``nvcc`` each,
+   all started together;
+3. flash_attention: K1 (flash-attention forward) against its plain
+   PyTorch version at the prefill shape, at ragged shapes with a causal
+   offset (one with GQA) and at a ragged shape without causal masking,
+   in bf16;
+4. flash_decode: K5 (fused decode step) against its plain version at the
+   decode shape with mixed per-row fill: the appended cache must equal
+   the plain append bit for bit, the output must agree within tolerance;
+5. main_path (serving): greedy generation of the full-width TransformerLM
+   (vocab 32768, dim 768, 8 heads, 16 layers, bf16 parameters and
+   compute, seeded random weights) for 4 prompts of 1000 tokens, 64
+   steps, t_max 2048, with the kernel launch counts of that run, then
+   prompt 0 against the same weights run on the CPU in float32 (plain
+   versions);
+6. flash_backward: K1's LSE output, K3 (dq) and K4 (dk, dv) against
+   their plain versions in bf16 at the training shape (4 x 8 heads,
+   T 4096, head dim 96, causal), a ragged causal GQA 8:2 self-attention
+   at T 333, Tq 77 over Tk 1077 at causal offset 1000, and a non-causal
+   50 x 300; timings at the training shape;
+7. train_path: five Adam steps (lr 3e-4) of the same model with float32
+   parameters, bf16 compute and remat, on one batch of 4 x 4096 seeded
+   random tokens (loss_chunk 4096): losses, ms per step, tokens/s, peak
+   memory and each step's K1 / K3 / K4 launches;
+8. train_cpu_reference: one step's loss and every parameter's gradient
+   of a 2-layer model at full width (B 1 x T 512), the card (bf16 compute
+   through the kernels) against the same float32 weights on the CPU
+   (float32, plain versions).
 
 Then the card's ``nvidia-smi`` name and power limit, the kernels line
-(``{"kernels": [...]}``: launches on the main path, max error, kernel /
-plain / library / bound times) and, only if every phase passed, the last
-line ``{"ok": true, "device": {...}}``. Exits non-zero on any failure,
-and without a card.
+(``{"kernels": [...]}``: K1, K3, K4 and K5 with their launches on their
+path, max error, kernel / plain / library / bound times) and, only if
+every phase passed, the last line ``{"ok": true, "device": {...}}``.
+Exits non-zero on any failure, and without a card.
 """
 
 import json
@@ -42,15 +58,60 @@ PEAK_HBM_BYTES = 3.35e12      # H100 SXM HBM3 bandwidth
 VOCAB, DIM, HEADS, LAYERS = 32768, 768, 8, 16
 BATCH, PROMPT, STEPS, T_MAX = 4, 1000, 64, 2048
 HEAD_DIM = DIM // HEADS
+# The training configuration: the README's model and Adam learning rate.
+TRAIN_B, TRAIN_T, TRAIN_STEPS, LOSS_CHUNK, LR = 4, 4096, 5, 4096, 3e-4
+REF_LAYERS, REF_T = 2, 512
 
-# bf16 kernel vs float32-weight plain version: the kernel rounds the
-# softmax weights to bf16 for the tensor-core product (K1) and both round
-# the output to bf16, each a relative 2^-8 at most; with unit-normal
-# values (|v| < ~5) that stays under 2e-2 absolute.
+# K5 vs its plain version, absolute: both round the output to bf16, a
+# relative 2^-8 at most; with unit-normal values (|v| < ~5) that stays
+# under 2e-2.
 TOL_BF16 = 2e-2
 # Greedy logits of the bf16 model vs the same weights in float32 on the
 # CPU, max |Δ| over max |logit| at prompt 0's last position.
 TOL_LM_REL = 0.1
+# K1's row logsumexp vs its plain version, absolute (natural-log units):
+# both sum the same float32 exp2 terms of float32 scores that differ only
+# by accumulation order, so |Δ| stays at float32 rounding of lse values
+# of magnitude ~10 (~1e-6); 1e-3 leaves room for the card's exp2f/log2f
+# (2 ulp) and a different summation order over thousands of terms.
+TOL_LSE = 1e-3
+# K1's output and K3 / K4's gradients vs their plain versions, held on
+# each row's own scale: a row (a query row of out and dq, a key row of dk
+# and dv) is compared as ||kernel_r - plain_r|| / ||plain_r||, so a row
+# that attends 4000 keys, whose values are ~100x smaller than a first
+# row's, is held as tightly as that first row. Two readings per tensor:
+# the largest such row error (catches a fault confined to a few rows,
+# such as a dropped tile) and ||kernel - plain|| / ||plain|| over the
+# whole tensor (catches a small error in every row, such as lost
+# accumulator precision). Both versions round p and ds to bf16 before
+# the same products and round the result to bf16 (2^-9 relative), so a
+# sound kernel differs by float32 accumulation order, single bf16 flips
+# and, under GQA, the plain version's per-head bf16 partials; K1's out
+# also by its bf16 softmax weights against the plain version's float32
+# ones. Each limit sits between the sound kernels' readings and those of
+# the same kernels with a planted fault (scripts/torch_planted_faults.py:
+# one diagonal tile dropped past tile 32, or an accumulator rounded to
+# bf16 after every tile). On an H100 the sound kernels read at most
+# ~5.5e-3 on a row and ~2.8e-3 whole (dk under GQA 4:1); every planted
+# fault reads above 1.5e-2 on a row or 4.2e-3 whole in some case.
+# PERF.md lists the readings.
+TOL_ROW_REL = 1e-2
+TOL_NORM_REL = 4e-3
+# One training step of the 2-layer model, bf16 compute on the card vs
+# float32 on the CPU from the same float32 weights. Loss: a mean of 512
+# per-token losses of magnitude ~10 whose bf16 rounding errors (2^-9
+# relative per rounded activation) are independent and average out, so
+# the mean moves by ~1e-4 at most: bound 1e-3. Gradients, per tensor
+# ||g_card - g_cpu|| / ||g_cpu||: each bf16 rounding of an activation on
+# the forward and backward chains adds ~2^-9 relative error, some twenty
+# in series through a block; the attention projections' gradients go
+# through ds = p * (dp - delta), a difference of nearly equal terms at
+# near-uniform attention, which magnifies that error several-fold (to
+# ~2e-2); bound 5e-2.
+TOL_REF_LOSS_REL = 1e-3
+TOL_REF_GRAD_REL = 5e-2
+TRAIN_KERNELS = ('flash_attention', 'flash_attention_dq',
+                 'flash_attention_dkv')
 
 
 def emit(obj):
@@ -90,6 +151,38 @@ def time_ms(torch, fn, flush, reps=30):
     return statistics.median(times)
 
 
+def rel_errs(torch, got, want):
+    """``(largest row error, whole-tensor error)`` of ``got`` against
+    ``want`` (rows along the last axis), in float32: the row error is
+    ``||got_r - want_r|| / max(||want_r||, floor)``, the whole-tensor
+    error the same over every element. ``floor`` is a hundredth of the
+    root-mean-square row norm: a row that is zero in exact arithmetic
+    (causal query row 0's dq, where the one weight is 1 and
+    ``ds = dO.v - rowsum(dO*O)`` cancels; keys no query sees) holds only
+    the kernel's float32 rounding, which must stay small on the tensor's
+    own scale."""
+    diff = (got.float() - want.float()).flatten(0, -2)
+    ref = want.float().flatten(0, -2)
+    vnorm = torch.linalg.vector_norm
+    ref_rows = vnorm(ref, dim=-1)
+    floor = 1e-2 * ref_rows.square().mean().sqrt().clamp_min(1e-30)
+    rows = vnorm(diff, dim=-1) / torch.maximum(ref_rows, floor)
+    whole = vnorm(diff) / vnorm(ref).clamp_min(1e-30)
+    return rows.max().item(), whole.item()
+
+
+def check_rel(errs, what):
+    """Failure messages for ``errs = {tensor: (row, whole)}`` (NaN
+    fails)."""
+    out = []
+    for n, (row, whole) in errs.items():
+        if not row <= TOL_ROW_REL:
+            out.append(f'{what} {n}: row rel err {row} > {TOL_ROW_REL}')
+        if not whole <= TOL_NORM_REL:
+            out.append(f'{what} {n}: rel err {whole} > {TOL_NORM_REL}')
+    return out
+
+
 def bound_ms(flops, nbytes):
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
     return 1e3 * max(t_ops, t_bytes), ('operations' if t_ops > t_bytes
@@ -107,7 +200,7 @@ def phase_flash(torch, ddp, flush, gen):
     F = torch.nn.functional
     dev, bf16 = torch.device('cuda'), torch.bfloat16
     scale = 1.0 / math.sqrt(HEAD_DIM)
-    results, worst = {}, 0.0
+    results, worst, worst_rel = {}, 0.0, 0.0
     # (name, q heads, kv heads, Tq, Tk, filled rows, causal offset or
     # None for no causal mask)
     cases = [('prefill', HEADS, HEADS, PROMPT, T_MAX, PROMPT, 0),
@@ -130,12 +223,15 @@ def phase_flash(torch, ddp, flush, gen):
                                     causal_offset=off, scale=scale)
         torch.cuda.synchronize()
         err = (out.float() - ref.float()).abs().max().item()
+        row_rel, rel = rel_errs(torch, out, ref)
         row = {'phase': 'flash_attention', 'case': name,
                'q': list(q.shape), 'kv': list(k.shape), 'causal': causal,
-               'causal_offset': off,
-               'max_abs_err': err, 'tol': TOL_BF16}
+               'causal_offset': off, 'max_abs_err': err,
+               'max_row_rel_err': row_rel, 'rel_err': rel,
+               'tol': {'row_rel': TOL_ROW_REL, 'rel': TOL_NORM_REL}}
         check(torch.isfinite(out).all().item(), f'K1 {name}: non-finite')
-        check(err <= TOL_BF16, f'K1 {name}: max abs err {err} > {TOL_BF16}')
+        fails = check_rel({'out': (row_rel, rel)}, f'K1 {name}')
+        check(not fails, '; '.join(fails))
         # Bound and library call over the key columns this run needs.
         nb = BATCH * hq
         if causal:
@@ -167,8 +263,9 @@ def phase_flash(torch, ddp, flush, gen):
         if name == 'prefill':
             results = row
         worst = max(worst, err)
+        worst_rel = max(worst_rel, row_rel)
         emit(row)
-    results['max_abs_err'] = worst
+    results.update(max_abs_err=worst, max_row_rel_err=worst_rel)
     return results
 
 
@@ -255,7 +352,8 @@ def phase_main_path(torch, ddp):
     gen = torch.Generator().manual_seed(0)
     t0 = time.perf_counter()
     model = ddp.TransformerLM(VOCAB, DIM, HEADS, n_layers=LAYERS,
-                              dtype=torch.bfloat16, device=dev,
+                              dtype=torch.bfloat16,
+                              param_dtype=torch.bfloat16, device=dev,
                               generator=gen)
     prompts = torch.randint(0, VOCAB, (BATCH, PROMPT), generator=gen
                             ).to(dev)
@@ -331,6 +429,224 @@ def phase_main_path(torch, ddp):
     return launches
 
 
+def causal_pairs(tq, tk, off):
+    """Attended (row, column) pairs of one causal (batch, head) row."""
+    return sum(max(0, min(tk, off + i + 1)) for i in range(tq))
+
+
+def phase_flash_backward(torch, ddp, flush, gen):
+    import importlib
+    fa = importlib.import_module(
+        'distributed_dot_product_tpu_torch.ops.flash_attention')
+    F = torch.nn.functional
+    dev, bf16 = torch.device('cuda'), torch.bfloat16
+    # (name, batch, q heads, kv heads, Tq, Tk, causal offset or None for
+    # no causal mask, head dim): the main path's shapes, then one small
+    # case for each other head dim the kernels are built for.
+    cases = [('train', TRAIN_B, HEADS, HEADS, TRAIN_T, TRAIN_T, 0, HEAD_DIM),
+             ('gqa_ragged', BATCH, HEADS, 2, 333, 333, 0, HEAD_DIM),
+             ('ragged_offset', BATCH, HEADS, HEADS, 77, 1077, 1000,
+              HEAD_DIM),
+             ('full_ragged', BATCH, HEADS, HEADS, 50, 300, None, HEAD_DIM),
+             ('d32_gqa', 2, 4, 1, 130, 130, 0, 32),
+             ('d64_full', 2, 2, 2, 70, 90, None, 64),
+             ('d128_offset', 2, 2, 2, 100, 140, 5, 128)]
+    worst, failures = {}, []
+    # Every case is held and printed before the phase fails, so one run
+    # reads all of them.
+    for name, b, hq, hkv, tq, tk, off, hd in cases:
+        causal = off is not None
+        off = off or 0
+        kw = dict(causal=causal, causal_offset=off)
+        scale = 1.0 / math.sqrt(hd)
+        q = randn(torch, (b, hq, tq, hd), gen, dev, bf16)
+        k = randn(torch, (b, hkv, tk, hd), gen, dev, bf16)
+        v = randn(torch, (b, hkv, tk, hd), gen, dev, bf16)
+        g = randn(torch, (b, hq, tq, hd), gen, dev, bf16)
+        out, lse = fa.flash_attention_with_lse(q, k, v, scale=scale, **kw)
+        out_p, lse_p = fa.flash_attention_plain_lse(q, k, v, scale=scale,
+                                                    **kw)
+        # Both backward versions from the kernel's own (out, lse).
+        grads = fa.flash_attention_backward(q, k, v, out, lse, g,
+                                            scale=scale, **kw)
+        plain = fa.flash_attention_backward_plain(q, k, v, out, lse, g,
+                                                  scale=scale, **kw)
+        torch.cuda.synchronize()
+        got = dict(zip(('out', 'dq', 'dk', 'dv'), (out, *grads)))
+        want = dict(zip(('out', 'dq', 'dk', 'dv'), (out_p, *plain)))
+        err = {n: (got[n].float() - want[n].float()).abs().max().item()
+               for n in got}
+        err['lse'] = (lse - lse_p).abs().max().item()
+        rel = {n: rel_errs(torch, got[n], want[n]) for n in got}
+        emit({'phase': 'flash_backward', 'case': name,
+              'q': list(q.shape), 'kv': list(k.shape), 'causal': causal,
+              'causal_offset': off, 'max_abs_err': err,
+              'max_row_rel_err': {n: e[0] for n, e in rel.items()},
+              'rel_err': {n: e[1] for n, e in rel.items()},
+              'tol': {'lse': TOL_LSE, 'row_rel': TOL_ROW_REL,
+                      'rel': TOL_NORM_REL}})
+        for n, t in (*got.items(), ('lse', lse)):
+            if not torch.isfinite(t).all().item():
+                failures.append(f'{n} {name}: non-finite')
+        if err['lse'] > TOL_LSE:
+            failures.append(f'lse {name}: abs err {err["lse"]} > {TOL_LSE}')
+        failures += check_rel(rel, name)
+        for n, e in err.items():
+            worst[n] = max(worst.get(n, 0.0), e)
+        for n, e in rel.items():
+            worst[n + '_row_rel'] = max(worst.get(n + '_row_rel', 0.0), e[0])
+        if name == 'train':
+            train = (b, hq, hkv, tq, tk, off, kw, scale, q, k, v, g, out, lse)
+    check(not failures, '; '.join(failures))
+
+    # Times at the training shape, with the bound each kernel could
+    # reach: operations on this run's causal pairs, bytes of each
+    # operand read once and each result written once.
+    b, hq, hkv, tq, tk, off, kw, scale, q, k, v, g, out, lse = train
+    nb, d = b * hq, HEAD_DIM
+    pairs = causal_pairs(tq, tk, off) * nb
+    q_bytes, kv_bytes, row_bytes = 2 * nb * tq * d, 2 * b * hkv * tk * d, \
+        4 * nb * tq
+    q2, lse2, delta = fa.flash_attention_bwd_operands(q, out, lse, g, scale)
+    qr, kr, vr = (t.detach().requires_grad_() for t in (q, k, v))
+    o_lib = F.scaled_dot_product_attention(qr, kr, vr, is_causal=True,
+                                           scale=scale)
+    lib_bwd = time_ms(torch, lambda: torch.autograd.grad(
+        o_lib, (qr, kr, vr), g, retain_graph=True), flush)
+    timing = {}
+    for kname, flops, nbytes, fn, plain_fn, lib in (
+            ('flash_attention', 4 * d * pairs,
+             2 * q_bytes + 2 * kv_bytes + row_bytes,
+             lambda: fa.flash_attention_with_lse(q, k, v, scale=scale, **kw),
+             lambda: fa.flash_attention_plain_lse(q, k, v, scale=scale,
+                                                  **kw),
+             lambda: F.scaled_dot_product_attention(
+                 q, k, v, is_causal=True, scale=scale)),
+            ('flash_attention_dq', 6 * d * pairs,
+             3 * q_bytes + 2 * kv_bytes + 2 * row_bytes,
+             lambda: fa.flash_attention_dq(
+                 q2, k, v, g, lse2, delta, scale=scale, **kw),
+             lambda: fa.flash_attention_dq_plain(
+                 q2, k, v, g, lse2, delta, scale=scale, **kw),
+             None),
+            ('flash_attention_dkv', 8 * d * pairs,
+             2 * q_bytes + 4 * kv_bytes + 2 * row_bytes,
+             lambda: fa.flash_attention_dkv(q2, k, v, g, lse2, delta, **kw),
+             lambda: fa.flash_attention_dkv_plain(
+                 q2, k, v, g, lse2, delta, **kw),
+             None)):
+        bms, by = bound_ms(flops, nbytes)
+        timing[kname] = {
+            'ms': time_ms(torch, fn, flush),
+            'plain_ms': time_ms(torch, plain_fn, flush, reps=5),
+            'library_ms': time_ms(torch, lib, flush) if lib else lib_bwd,
+            'bound_ms': bms, 'bound_by': by, 'flops': flops,
+            'bytes': nbytes}
+    emit({'phase': 'flash_backward', 'case': 'train_timing',
+          'library': {'flash_attention': 'sdpa forward, is_causal',
+                      'flash_attention_dq': 'sdpa backward (dq, dk, dv '
+                      'together)',
+                      'flash_attention_dkv': 'sdpa backward (dq, dk, dv '
+                      'together)'},
+          **timing})
+    return worst, timing
+
+
+def phase_train_path(torch, ddp):
+    dev = torch.device('cuda')
+    gen = torch.Generator().manual_seed(3)
+    t0 = time.perf_counter()
+    model = ddp.TransformerLM(VOCAB, DIM, HEADS, n_layers=LAYERS,
+                              dtype=torch.bfloat16, remat=True, device=dev,
+                              generator=gen)
+    optimizer = torch.optim.Adam(model.parameters(), lr=LR,
+                                 betas=(0.9, 0.999), eps=1e-8)
+    step = ddp.make_lm_train_step(model, optimizer, loss_chunk=LOSS_CHUNK)
+    tokens = torch.randint(0, VOCAB, (TRAIN_B, TRAIN_T), generator=gen
+                           ).to(dev)
+    batch = (tokens, ddp.lm_targets(tokens))
+    build_s = time.perf_counter() - t0
+
+    counters = {name: getattr(ddp, name) for name in TRAIN_KERNELS}
+    expected = {'flash_attention': 2 * LAYERS,      # forward + remat
+                'flash_attention_dq': LAYERS, 'flash_attention_dkv': LAYERS}
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms, per_step = [], [], []
+    for _ in range(TRAIN_STEPS):
+        before = {n: fn.launches for n, fn in counters.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = step(batch)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        losses.append(loss.item())
+        per_step.append({n: fn.launches - before[n]
+                         for n, fn in counters.items()})
+    launches = {n: fn.launches for n, fn in counters.items()}
+    median_ms = statistics.median(step_ms[1:])
+    row = {'phase': 'train_path',
+           'params': sum(p.numel() for p in model.parameters()),
+           'model_build_s': build_s, 'batch': [TRAIN_B, TRAIN_T],
+           'losses': losses, 'step_ms': step_ms,
+           'ms_per_step_median_2_5': median_ms,
+           'tokens_per_s': TRAIN_B * TRAIN_T / (median_ms / 1e3),
+           'max_memory_allocated': torch.cuda.max_memory_allocated(),
+           'launches_per_step': per_step,
+           'expected_launches_per_step': expected, 'launches': launches}
+    emit(row)
+    check(all(math.isfinite(x) for x in losses), 'non-finite loss')
+    check(losses[-1] < losses[0],
+          f'loss did not fall: {losses[0]} -> {losses[-1]}')
+    for i, counts in enumerate(per_step):
+        check(counts == expected,
+              f'step {i + 1} launched {counts}, want {expected}')
+    del model, optimizer, step, batch
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_train_cpu_reference(torch, ddp):
+    gen = torch.Generator().manual_seed(4)
+    t0 = time.perf_counter()
+    cpu = ddp.TransformerLM(VOCAB, DIM, HEADS, n_layers=REF_LAYERS,
+                            remat=True, device='cpu', generator=gen)
+    card = ddp.TransformerLM(VOCAB, DIM, HEADS, n_layers=REF_LAYERS,
+                             dtype=torch.bfloat16, remat=True,
+                             device='cuda')
+    card.load_state_dict(cpu.state_dict())
+    tokens = torch.randint(0, VOCAB, (1, REF_T), generator=gen)
+    targets = ddp.lm_targets(tokens)
+    loss, grads = {}, {}
+    for side, m in (('card', card), ('cpu', cpu)):
+        s, c = m.nll_sum(tokens.to(m.device), targets.to(m.device),
+                         chunk=LOSS_CHUNK)
+        value = s / c.clamp_min(1.0)
+        value.backward()
+        loss[side] = value.item()
+        grads[side] = {n: p.grad.float().cpu()
+                       for n, p in m.named_parameters()}
+    loss_rel = abs(loss['card'] - loss['cpu']) / abs(loss['cpu'])
+    grad_rel = {n: (torch.linalg.vector_norm(grads['card'][n] - g)
+                    / torch.linalg.vector_norm(g)).item()
+                for n, g in grads['cpu'].items()}
+    worst = max(grad_rel, key=grad_rel.get)
+    row = {'phase': 'train_cpu_reference', 'layers': REF_LAYERS,
+           'batch': [1, REF_T], 'loss': loss, 'loss_rel_err': loss_rel,
+           'tol_loss_rel': TOL_REF_LOSS_REL,
+           'worst_grad': worst, 'worst_grad_rel_err': grad_rel[worst],
+           'tol_grad_rel': TOL_REF_GRAD_REL, 'grad_rel_err': grad_rel,
+           'seconds': time.perf_counter() - t0}
+    emit(row)
+    check(math.isfinite(loss['card']), 'non-finite card loss')
+    check(loss_rel <= TOL_REF_LOSS_REL,
+          f'loss rel err {loss_rel} > {TOL_REF_LOSS_REL}')
+    check(grad_rel[worst] <= TOL_REF_GRAD_REL,
+          f'{worst}: grad rel err {grad_rel[worst]} > {TOL_REF_GRAD_REL}')
+
+
 def main():
     try:
         import torch
@@ -375,28 +691,60 @@ def main():
         k1 = phase_flash(torch, ddp, flush, gen)
         phase = 'flash_decode'
         k5 = phase_decode(torch, ddp, flush, gen)
+        phase = 'flash_backward'
+        bwd_err, bwd_time = phase_flash_backward(torch, ddp, flush, gen)
         del flush
         phase = 'main_path'
-        launches = phase_main_path(torch, ddp)
+        serve_launches = phase_main_path(torch, ddp)
+        phase = 'train_path'
+        train_launches = phase_train_path(torch, ddp)
+        phase = 'train_cpu_reference'
+        phase_train_cpu_reference(torch, ddp)
     except Exception as exc:   # report the failed phase, then fail
         emit({'phase': phase, 'ok': False,
               'error': f'{type(exc).__name__}: {exc}'})
         raise
 
-    kernels = []
-    for name, row, src, replaces in (
-            ('flash_attention', k1,
-             'distributed_dot_product_tpu_torch/csrc/flash_fwd.cu',
-             'distributed_dot_product_tpu/ops/pallas_attention.py:630'),
-            ('flash_decode', k5,
-             'distributed_dot_product_tpu_torch/csrc/flash_decode.cu',
-             'distributed_dot_product_tpu/ops/pallas_decode.py:107')):
-        kernels.append({
-            'name': name, 'route': 'cuda', 'source': src,
-            'replaces': replaces, 'launches': launches[name],
-            'max_abs_err': row['max_abs_err'], 'ms': row['ms'],
-            'plain_ms': row['plain_ms'], 'bound_ms': row['bound_ms'],
-            'bound_by': row['bound_by'], 'library_ms': row['library_ms']})
+    # K1, K3, K4: launches on the training path (this slice's main path;
+    # K1's serving launches beside them), times at the training shape.
+    # K5: launches and times of the serving path.
+    csrc = 'distributed_dot_product_tpu_torch/csrc/'
+    tpu = 'distributed_dot_product_tpu/ops/'
+    k1_err = max(k1['max_abs_err'], bwd_err['out'])
+    kernels = [
+        dict(name='flash_attention', source=csrc + 'flash_fwd.cu',
+             replaces=tpu + 'pallas_attention.py:630',
+             launches=train_launches['flash_attention'],
+             launches_by_path={
+                 'serve': serve_launches['flash_attention'],
+                 'train': train_launches['flash_attention']},
+             max_abs_err=k1_err, lse_max_abs_err=bwd_err['lse'],
+             max_row_rel_err=max(k1['max_row_rel_err'],
+                                 bwd_err['out_row_rel']),
+             **bwd_time['flash_attention']),
+        dict(name='flash_attention_dq', source=csrc + 'flash_bwd.cu',
+             replaces=tpu + 'pallas_attention.py:1228',
+             launches=train_launches['flash_attention_dq'],
+             max_abs_err=bwd_err['dq'],
+             max_row_rel_err=bwd_err['dq_row_rel'],
+             **bwd_time['flash_attention_dq']),
+        dict(name='flash_attention_dkv', source=csrc + 'flash_bwd.cu',
+             replaces=tpu + 'pallas_attention.py:1319',
+             launches=train_launches['flash_attention_dkv'],
+             max_abs_err=max(bwd_err['dk'], bwd_err['dv']),
+             max_row_rel_err=max(bwd_err['dk_row_rel'],
+                                 bwd_err['dv_row_rel']),
+             **bwd_time['flash_attention_dkv']),
+        dict(name='flash_decode', source=csrc + 'flash_decode.cu',
+             replaces=tpu + 'pallas_decode.py:107',
+             launches=serve_launches['flash_decode'],
+             max_abs_err=k5['max_abs_err'],
+             **{key: k5[key] for key in ('ms', 'plain_ms', 'library_ms',
+                                         'bound_ms', 'bound_by')})]
+    for entry in kernels:
+        entry['route'] = 'cuda'
+        for key in ('flops', 'bytes'):
+            entry.pop(key, None)
     print(smi, flush=True)
     emit({'kernels': kernels})
     emit({'ok': True, 'device': {'platform': 'gpu', 'kind': kind,

@@ -4,13 +4,16 @@ distributed_dot_product_tpu_torch — the PyTorch / CUDA port of
 ``distributed_dot_product_tpu``, built beside it slice by slice and held
 against it on identical inputs and parameters.
 
-This slice serves the package's ``TransformerLM`` by greedy generation on
-one NVIDIA Hopper card: the prefill runs the flash-attention forward
-(``ops/flash_attention.py``, CUDA kernel ``csrc/flash_fwd.cu``) and each
-decode step the fused append + split-K decode kernel
-(``ops/flash_decode.py``, ``csrc/flash_decode.cu``). Every wrapper keeps
-a plain PyTorch version of its kernel, which runs for CPU tensors (the
-tests) and is the card's reference.
+The ported paths serve the package's ``TransformerLM`` by greedy
+generation and train it, on one NVIDIA Hopper card: the prefill and the
+training forward run the flash-attention forward
+(``ops/flash_attention.py``, CUDA kernel ``csrc/flash_fwd.cu``), the
+training backward its dq and dk/dv kernels (``csrc/flash_bwd.cu``), and
+each decode step the fused append + split-K decode kernel
+(``ops/flash_decode.py``, ``csrc/flash_decode.cu``); ``train.py`` holds
+the train step. Every wrapper keeps a plain PyTorch version of its
+kernel, which runs for CPU tensors (the tests) and is the card's
+reference.
 
 Entry points run on the card (``device='cuda'``) unless the caller asks
 for the CPU; without a card they raise. The package imports ``torch``
@@ -22,7 +25,8 @@ from distributed_dot_product_tpu_torch.utils.comm import (  # noqa: F401
 )
 from distributed_dot_product_tpu_torch.ops.rope import rope  # noqa: F401
 from distributed_dot_product_tpu_torch.ops.flash_attention import (  # noqa
-    flash_attention,
+    flash_attention, flash_attention_backward_plain, flash_attention_dkv,
+    flash_attention_dq,
 )
 from distributed_dot_product_tpu_torch.ops.flash_decode import (  # noqa: F401
     flash_decode,
@@ -40,8 +44,11 @@ from distributed_dot_product_tpu_torch.models.transformer import (  # noqa
     LayerNorm, TransformerBlock, TransformerStack,
 )
 from distributed_dot_product_tpu_torch.models.lm import (  # noqa: F401
-    TransformerLM, greedy_generate,
+    TransformerLM, greedy_generate, lm_targets,
+)
+from distributed_dot_product_tpu_torch.train import (  # noqa: F401
+    make_lm_train_step,
 )
 from distributed_dot_product_tpu_torch.convert import (  # noqa: F401
-    lm_state_from_jax,
+    attn_state_from_jax, lm_state_from_jax,
 )

@@ -1,7 +1,7 @@
 # -*- coding: utf-8 -*-
 """
-Convert the reference package's ``TransformerLM`` parameters into the
-port's state dict.
+Convert the reference package's ``TransformerLM`` and
+``DistributedDotProductAttn`` parameters into the port's state dicts.
 
 The input is the flax parameter tree as plain mappings of arrays
 (numpy arrays, or anything ``numpy.asarray`` reads): either the scanned
@@ -10,13 +10,14 @@ layout (``params['stack']['layers']['block']…`` with a leading
 subtrees. Dense ``kernel (in, out)`` becomes ``weight (out, in)``;
 LayerNorm ``scale``/``bias`` and the ``embedding`` table keep their
 shapes. Load the result with ``model.load_state_dict(state)``, which
-casts to the model's dtypes and device.
+casts to the model's dtypes and device. A gradient tree of the reference
+has its params' structure and converts the same way.
 """
 
 import numpy as np
 import torch
 
-__all__ = ['lm_state_from_jax']
+__all__ = ['attn_state_from_jax', 'lm_state_from_jax']
 
 _ATTN = (('keys', 'keys_proj'), ('queries', 'queries_proj'),
          ('values', 'values_proj'), ('composition', 'composition'))
@@ -42,6 +43,25 @@ def _dense(state, prefix, node):
         state[f'{prefix}.bias'] = np.asarray(node['bias'])
 
 
+def _attn(state, prefix, node):
+    for flax_name, port_name in _ATTN:
+        _dense(state, f'{prefix}{port_name}', node[flax_name])
+
+
+def _tensors(state):
+    return {k: torch.tensor(v) for k, v in state.items()}
+
+
+def attn_state_from_jax(params):
+    """``{name: torch.Tensor}`` for the port's
+    ``DistributedDotProductAttn`` from the reference module's params
+    (``{'params': …}`` or the inner tree)."""
+    p = params['params'] if 'params' in params else params
+    state = {}
+    _attn(state, '', p)
+    return _tensors(state)
+
+
 def lm_state_from_jax(params):
     """``{name: torch.Tensor}`` for the port's ``TransformerLM`` from the
     reference ``TransformerLM`` params (``{'params': …}`` or the inner
@@ -52,11 +72,10 @@ def lm_state_from_jax(params):
              'ln_f.bias': np.asarray(p['ln_f']['bias'])}
     for i, blk in enumerate(_blocks(p['stack'])):
         pre = f'stack.blocks.{i}'
-        for flax_name, port_name in _ATTN:
-            _dense(state, f'{pre}.attn.{port_name}', blk['attn'][flax_name])
+        _attn(state, f'{pre}.attn.', blk['attn'])
         for ln in ('ln1', 'ln2'):
             state[f'{pre}.{ln}.scale'] = np.asarray(blk[ln]['scale'])
             state[f'{pre}.{ln}.bias'] = np.asarray(blk[ln]['bias'])
         _dense(state, f'{pre}.mlp_in', blk['mlp_in'])
         _dense(state, f'{pre}.mlp_out', blk['mlp_out'])
-    return {k: torch.tensor(v) for k, v in state.items()}
+    return _tensors(state)

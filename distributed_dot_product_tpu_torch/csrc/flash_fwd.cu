@@ -2,8 +2,9 @@
 //
 // Replaces the TPU kernel `_make_fwd_kernel` in
 // distributed_dot_product_tpu/ops/pallas_attention.py (exact softmax mode,
-// causal with a host-int row offset, GQA; no mask, segments, positions,
-// window, ALiBi, dropout or int8 scoring).
+// causal with a host-int row offset, GQA, the optional row logsumexp that
+// the backward recomputes from; no mask, segments, positions, window,
+// ALiBi, dropout or int8 scoring).
 //
 // What bounds it on the H100: at the prefill shape (Tq = 1000 query rows
 // against a 2048-row cache, head dim 96, causal) the work is ~6 GFLOP per
@@ -23,7 +24,9 @@
 // Numerics follow the TPU kernel: scale*log2(e) is folded into q (rounded
 // back to bf16) so the softmax runs in exp2 units; the running max starts
 // at NEG_BIG (finite), masked logits are -inf, and a row with no
-// attendable key (l == 0) outputs exactly 0.
+// attendable key (l == 0) outputs exactly 0. With a non-null `lse` each
+// row also writes ln2*(m2 + log2(l)), l == 0 counted as 1, as the TPU
+// kernel saves it for the backward; a null `lse` (serving) writes nothing.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -41,6 +44,7 @@ constexpr int kBK = 64;            // key columns per tile
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr float kNegBig = -0.7f * 3.4e38f;
+constexpr float kLn2 = 0.693147180559945309f;
 
 template <int D>
 constexpr size_t smem_bytes() {
@@ -55,8 +59,8 @@ template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, bf16* __restrict__ out,
-                 int tq, int tk, int group, int causal, int causal_offset,
-                 float qscale, int n_qtiles) {
+                 float* __restrict__ lse, int tq, int tk, int group,
+                 int causal, int causal_offset, float qscale, int n_qtiles) {
   static_assert(D % 16 == 0 && D <= 128, "head dim must be 16*n <= 128");
   constexpr int kChunks = D / 8;   // 16-byte chunks per row
   extern __shared__ __align__(128) unsigned char smem[];
@@ -212,13 +216,17 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       const float b = l_run == 0.f ? 0.f : orow[c + 1] / l_run;
       dst[c / 2] = __floats2bfloat162_rn(a, b);
     }
+    if (lse != nullptr && half == 0)
+      lse[static_cast<size_t>(bh) * tq + q0 + my_row] =
+          kLn2 * (m_run + log2f(l_run == 0.f ? 1.f : l_run));
   }
 }
 
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* out,
-           int batch_heads, int group, int tq, int tk, int causal,
-           int causal_offset, float qscale, cudaStream_t stream) {
+           float* lse, int batch_heads, int group, int tq, int tk,
+           int causal, int causal_offset, float qscale,
+           cudaStream_t stream) {
   const size_t smem = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -229,33 +237,36 @@ int launch(const void* q, const void* k, const void* v, void* out,
   dim3 grid(n_qtiles, batch_heads);
   flash_fwd_kernel<D><<<grid, kThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(out), tq, tk, group,
-      causal, causal_offset, qscale, n_qtiles);
+      static_cast<const bf16*>(v), static_cast<bf16*>(out), lse, tq, tk,
+      group, causal, causal_offset, qscale, n_qtiles);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // q (batch_heads, tq, d), k/v (batch_heads / group, tk, d), out like q;
-// all contiguous bf16. Returns a cudaError_t code (0 = launched).
+// all contiguous bf16. lse: null, or (batch_heads, tq) float32. Returns a
+// cudaError_t code (0 = launched).
 extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v,
-                              void* out, int batch_heads, int group, int tq,
-                              int tk, int d, int causal, int causal_offset,
-                              float qscale, void* stream) {
+                              void* out, void* lse, int batch_heads,
+                              int group, int tq, int tk, int d, int causal,
+                              int causal_offset, float qscale,
+                              void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   switch (d) {
     case 32:
-      return launch<32>(q, k, v, out, batch_heads, group, tq, tk, causal,
-                        causal_offset, qscale, s);
+      return launch<32>(q, k, v, out, l, batch_heads, group, tq, tk,
+                        causal, causal_offset, qscale, s);
     case 64:
-      return launch<64>(q, k, v, out, batch_heads, group, tq, tk, causal,
-                        causal_offset, qscale, s);
+      return launch<64>(q, k, v, out, l, batch_heads, group, tq, tk,
+                        causal, causal_offset, qscale, s);
     case 96:
-      return launch<96>(q, k, v, out, batch_heads, group, tq, tk, causal,
-                        causal_offset, qscale, s);
+      return launch<96>(q, k, v, out, l, batch_heads, group, tq, tk,
+                        causal, causal_offset, qscale, s);
     case 128:
-      return launch<128>(q, k, v, out, batch_heads, group, tq, tk, causal,
-                         causal_offset, qscale, s);
+      return launch<128>(q, k, v, out, l, batch_heads, group, tq, tk,
+                         causal, causal_offset, qscale, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -4,10 +4,14 @@ Multi-head dot-product attention module — the port of
 ``DistributedDotProductAttn`` in
 ``distributed_dot_product_tpu/models/attention.py``.
 
-This slice ports the module's constructor validation and its cached
-inference surface (``make_decode_cache``, ``prefill``, ``decode``). The
-sequence-parallel forward (``forward``, the reference's ``__call__``)
-needs the distributed matmuls and comes with the training slice.
+Ported: the constructor validation, the cached inference surface
+(``make_decode_cache``, ``prefill``, ``decode``) and ``forward`` (the
+reference's ``__call__``) for ``softmax_impl='flash'`` on one card — the
+reference's semantics on a 1-wide ``seq`` axis, where the flash branch
+gathers nothing and its causal offset is 0. The other softmax paths, a
+mask, dropout and sequence parallelism across ranks raise
+``NotImplementedError`` naming their ``ROADMAP.md`` item; segment ids
+and the dropout seed are not parameters yet.
 
 The module keeps the reference's K-FIRST convention (scores = K·Qᵀ
 softmaxed over the queries axis): in standard-attention terms its
@@ -34,7 +38,7 @@ from distributed_dot_product_tpu_torch.ops.flash_attention import (
 )
 from distributed_dot_product_tpu_torch.ops.rope import rope
 from distributed_dot_product_tpu_torch.utils.comm import (
-    SEQ_AXIS, resolve_device,
+    SEQ_AXIS, get_world_size, resolve_device,
 )
 
 __all__ = ['DistributedDotProductAttn']
@@ -47,9 +51,9 @@ class DistributedDotProductAttn(nn.Module):
     the same way (same errors for the same bad values). Knobs whose
     inference path is not ported yet (``window``, ``alibi_slopes``,
     ``qk_quant``, ``weight_quant``) raise ``NotImplementedError``.
-    Parameters are created on ``device`` at ``dtype`` (float32 by
-    default), drawn from ``generator`` (see
-    :func:`~..models.dense.default_generator`).
+    Parameters are created on ``device`` at ``param_dtype`` (float32 by
+    default, as in the reference) and computed at ``dtype``, drawn from
+    ``generator`` (see :func:`~..models.dense.default_generator`).
 
     ``decode_impl``: ``None``/``'auto'``/``'kernel'`` run the fused
     decode kernel port (CUDA kernel on the card, its plain version on the
@@ -64,8 +68,8 @@ class DistributedDotProductAttn(nn.Module):
                  ring_layout='contiguous', flash_softmax_mode='exact',
                  dropout_rate=0.0, alibi_slopes=None, qk_quant=None,
                  use_rope=False, rope_base=10000.0, decode_impl=None,
-                 weight_quant=None, dtype=None, device='cuda',
-                 generator=None):
+                 weight_quant=None, dtype=None, param_dtype=torch.float32,
+                 device='cuda', generator=None):
         super().__init__()
         if key_dim % num_heads:
             raise ValueError(
@@ -134,6 +138,9 @@ class DistributedDotProductAttn(nn.Module):
 
         self.num_heads = num_heads
         self.causal = causal
+        self.distributed = distributed
+        self.softmax_impl = softmax_impl
+        self.dropout_rate = dropout_rate
         self.use_rope, self.rope_base = use_rope, rope_base
         self.decode_impl = decode_impl
         self.dtype = dtype or torch.float32
@@ -145,7 +152,8 @@ class DistributedDotProductAttn(nn.Module):
 
         def dense(d_in, d_out):
             return OwnedDense(d_in, d_out, use_bias=add_bias, dtype=dtype,
-                              device=dev, generator=gen)
+                              param_dtype=param_dtype, device=dev,
+                              generator=gen)
         # Same four projections as the reference; under GQA the queries/
         # values projections (the attended side, K-first) emit only
         # kv_heads heads.
@@ -155,11 +163,37 @@ class DistributedDotProductAttn(nn.Module):
                                  kv_heads * (value_dim // num_heads))
         self.composition = dense(value_dim, value_dim)
 
-    def forward(self, keys, queries, values, attn_mask=None, **kwargs):
-        raise NotImplementedError(
-            'the sequence-parallel forward of DistributedDotProductAttn is '
-            'ported with the training slice; this slice serves through '
-            'prefill/decode')
+    def forward(self, keys, queries, values, attn_mask=None):
+        """Attention over ``keys/queries/values (B, T, d·)``, the
+        reference ``__call__`` on one card: the four projections, the
+        head split, RoPE at positions ``arange(T)`` on keys and queries,
+        then :func:`~..ops.flash_attention.flash_attention` with the
+        K-first convention (its query rows are the projected keys, its
+        key/value table the projected queries/values), causal offset 0;
+        the head merge and ``composition``. Returns ``(B, T, value_dim)``.
+        Differentiable: the backward runs the flash gradient kernels."""
+        if self.softmax_impl != 'flash':
+            raise NotImplementedError(
+                f'forward with softmax_impl={self.softmax_impl!r} is not '
+                f"ported yet (ROADMAP.md §1 items 5 and 7); 'flash' is")
+        if attn_mask is not None:
+            raise NotImplementedError(
+                'attn_mask in the flash kernels is not ported yet '
+                '(ROADMAP.md §2 item 1)')
+        if self.dropout_rate:
+            raise NotImplementedError(
+                'attention dropout in the flash kernels is not ported yet '
+                '(ROADMAP.md §2 item 1)')
+        if self.distributed and get_world_size() > 1:
+            raise NotImplementedError(
+                'sequence parallelism across ranks is not ported yet '
+                '(ROADMAP.md §1 items 1-3 and 6); this forward is the '
+                'one-card semantics')
+        keys, queries, values = self._project(keys, queries, values, 0)
+        out = flash_attention(keys, queries, values, causal=self.causal,
+                              causal_offset=0,
+                              scale=1.0 / math.sqrt(self.head_dim))
+        return self._merge_heads(out)
 
     def make_decode_cache(self, batch, t_max, dtype=None, device=None):
         """A KV cache sized for this module's projections (GQA-aware),
@@ -170,13 +204,9 @@ class DistributedDotProductAttn(nn.Module):
             dtype=dtype or self.dtype,
             device=device or self.keys_proj.weight.device)
 
-    def _project_for_decode(self, keys, queries, values, cache):
-        """Shared front half of :meth:`prefill`/:meth:`decode`: the four
-        projections, head split, and RoPE at the true global positions
-        ``cache.length + arange(n)``."""
-        if not self.causal:
-            raise ValueError('cached decoding is autoregressive and '
-                             'requires causal=True')
+    def _project(self, keys, queries, values, start):
+        """Shared front half of every call: the four projections, head
+        split, and RoPE at the global positions ``start + arange(n)``."""
         keys = self.keys_proj(keys)
         queries = self.queries_proj(queries)
         values = self.values_proj(values)
@@ -189,12 +219,18 @@ class DistributedDotProductAttn(nn.Module):
         values = split(values, self._kv_heads,
                        self._value_dim // self.num_heads)
         if self.use_rope:
-            pos = cache.length + torch.arange(n, device=keys.device)
+            pos = start + torch.arange(n, device=keys.device)
             keys = rope(keys, pos, base=self.rope_base)
             queries = rope(queries, pos, base=self.rope_base)
         return keys, queries, values
 
-    def _merge_decode_heads(self, out):
+    def _project_for_decode(self, keys, queries, values, cache):
+        if not self.causal:
+            raise ValueError('cached decoding is autoregressive and '
+                             'requires causal=True')
+        return self._project(keys, queries, values, cache.length)
+
+    def _merge_heads(self, out):
         out = out.transpose(-3, -2)
         out = out.reshape(*out.shape[:-2], self._value_dim)
         return self.composition(out)
@@ -213,7 +249,7 @@ class DistributedDotProductAttn(nn.Module):
         out = flash_attention(keys, cache.k, cache.v, causal=True,
                               causal_offset=start,
                               scale=1.0 / math.sqrt(self.head_dim))
-        return cache, self._merge_decode_heads(out)
+        return cache, self._merge_heads(out)
 
     def decode(self, keys, queries, values, cache):
         """One cached step for the NEW positions ``(B, 1, d·)``: the fused
@@ -224,4 +260,4 @@ class DistributedDotProductAttn(nn.Module):
         cache, out = decode_step(keys, cache, queries, values,
                                  scale=1.0 / math.sqrt(self.head_dim),
                                  impl=self.decode_impl)
-        return cache, self._merge_decode_heads(out)
+        return cache, self._merge_heads(out)

@@ -2,9 +2,9 @@
 """
 Transformer stack over the attention module — the port of
 ``TransformerBlock``/``TransformerStack`` in
-``distributed_dot_product_tpu/models/transformer.py`` (cached inference:
-``make_decode_caches``/``prefill``/``decode``; the training forward comes
-with the training slice).
+``distributed_dot_product_tpu/models/transformer.py``: the training
+forward and the cached inference (``make_decode_caches``/``prefill``/
+``decode``).
 
 Pre-LN blocks, ``x + Attn(LN(x))`` then ``x + MLP(LN(x))``, with flax's
 defaults carried over exactly: LayerNorm with ``epsilon=1e-6`` and
@@ -12,12 +12,16 @@ float32 statistics (``E[x²] − E[x]²`` clipped at 0), float32 scale/bias
 parameters and the output at the module dtype; the MLP activation is
 flax's ``nn.gelu``, the tanh approximation. The reference's
 ``scan_layers`` stacks are a parameter layout only; here the stack is a
-plain list of layers (``convert.py`` reads either layout).
+plain list of layers (``convert.py`` reads either layout), and
+``remat=True`` (the reference's ``nn.remat`` around the scanned block)
+runs each block under ``torch.utils.checkpoint``, so the backward keeps
+only the block inputs and recomputes one block at a time.
 """
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from distributed_dot_product_tpu_torch.models.attention import (
     DistributedDotProductAttn,
@@ -56,16 +60,18 @@ class LayerNorm(nn.Module):
 class TransformerBlock(nn.Module):
     """Pre-LN block; ``attn_kwargs`` pass through to
     :class:`DistributedDotProductAttn` (self-attention: the same tensor
-    feeds keys, queries and values)."""
+    feeds keys, queries and values). Parameters are stored at
+    ``param_dtype`` and computed at ``dtype``."""
 
     def __init__(self, dim, num_heads, mlp_ratio=4, axis_name=SEQ_AXIS,
-                 dtype=None, attn_kwargs=None, device='cuda',
-                 generator=None):
+                 dtype=None, attn_kwargs=None, param_dtype=torch.float32,
+                 device='cuda', generator=None):
         super().__init__()
         dev = resolve_device(device)
         gen = default_generator(generator)
         kw = dict(attn_kwargs or {})
         kw.setdefault('dtype', dtype)
+        kw.setdefault('param_dtype', param_dtype)
         kw.setdefault('axis_name', axis_name)
         self.attn = DistributedDotProductAttn(
             key_dim=dim, num_heads=num_heads, device=dev, generator=gen,
@@ -73,12 +79,19 @@ class TransformerBlock(nn.Module):
         self.ln1 = LayerNorm(dim, dtype=dtype, device=dev)
         self.ln2 = LayerNorm(dim, dtype=dtype, device=dev)
         self.mlp_in = OwnedDense(dim, mlp_ratio * dim, dtype=dtype,
-                                 device=dev, generator=gen)
+                                 param_dtype=param_dtype, device=dev,
+                                 generator=gen)
         self.mlp_out = OwnedDense(mlp_ratio * dim, dim, dtype=dtype,
-                                  device=dev, generator=gen)
+                                  param_dtype=param_dtype, device=dev,
+                                  generator=gen)
 
     def _mlp(self, h):
         return self.mlp_out(F.gelu(self.mlp_in(h), approximate='tanh'))
+
+    def forward(self, x, attn_mask=None):
+        h = self.ln1(x)
+        x = x + self.attn(h, h, h, attn_mask)
+        return x + self._mlp(self.ln2(x))
 
     def prefill(self, x, cache):
         h = self.ln1(x)
@@ -94,24 +107,42 @@ class TransformerBlock(nn.Module):
 
 
 class TransformerStack(nn.Module):
-    """``n_layers`` blocks with one KV cache each."""
+    """``n_layers`` blocks with one KV cache each. The forward mirrors
+    the train-step contract ``(keys, queries, values, attn_mask, ...)``
+    with the first tensor as the block input.
+
+    ``remat=True`` checkpoints each block. ``remat_policy`` (partial
+    rematerialisation) is not ported."""
 
     def __init__(self, dim, num_heads, n_layers=2, mlp_ratio=4,
                  axis_name=SEQ_AXIS, dtype=None, attn_kwargs=None,
-                 device='cuda', generator=None):
+                 remat=False, remat_policy=None,
+                 param_dtype=torch.float32, device='cuda', generator=None):
         super().__init__()
+        if remat_policy is not None:
+            raise NotImplementedError(
+                'remat_policy is not ported yet (ROADMAP.md §1 item 8); '
+                'remat=True recomputes each whole block')
         dev = resolve_device(device)
         gen = default_generator(generator)
+        self.remat = remat
         self.blocks = nn.ModuleList(
             TransformerBlock(dim, num_heads, mlp_ratio=mlp_ratio,
                              axis_name=axis_name, dtype=dtype,
-                             attn_kwargs=attn_kwargs, device=dev,
+                             attn_kwargs=attn_kwargs,
+                             param_dtype=param_dtype, device=dev,
                              generator=gen)
             for _ in range(n_layers))
 
-    def forward(self, *args, **kwargs):
-        raise NotImplementedError('the training forward of TransformerStack '
-                                  'is ported with the training slice')
+    def forward(self, keys, queries=None, values=None, attn_mask=None):
+        # queries/values are accepted for train-step signature parity; a
+        # transformer block is self-attention on one stream.
+        x = keys
+        for block in self.blocks:
+            x = (checkpoint(block, x, attn_mask, use_reentrant=False)
+                 if self.remat and torch.is_grad_enabled()
+                 else block(x, attn_mask))
+        return x
 
     def make_decode_caches(self, batch, t_max, dtype=None, device=None):
         """One KV cache per layer, a list."""

@@ -28,7 +28,7 @@ __all__ = ['load', 'build_all', 'SOURCES']
 
 _CSRC = Path(__file__).resolve().parent.parent / 'csrc'
 _BUILD_DIR = Path(__file__).resolve().parents[2] / 'build' / 'kernels'
-SOURCES = ('flash_fwd', 'flash_decode')
+SOURCES = ('flash_fwd', 'flash_bwd', 'flash_decode')
 _NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
                '-O3', '-shared', '-Xcompiler', '-fPIC')
 

@@ -3,7 +3,8 @@
 """
 Where the time of the PyTorch port's greedy generation goes, on one
 CUDA card: the full-width TransformerLM of ``chip_smoke.py`` (vocab
-32768, dim 768, 8 heads, 16 layers, bf16, seeded random weights), batch
+32768, dim 768, 8 heads, 16 layers, bf16 parameters and compute, seeded
+random weights), batch
 4, prompt 1000, ``t_max`` 2048.
 
     python3 scripts/torch_profile_generate.py [--steps 16] [--out DIR]
@@ -61,7 +62,8 @@ def main():
 
     gen = torch.Generator().manual_seed(0)
     model = ddp.TransformerLM(VOCAB, DIM, HEADS, n_layers=LAYERS,
-                              dtype=torch.bfloat16, device='cuda',
+                              dtype=torch.bfloat16,
+                              param_dtype=torch.bfloat16, device='cuda',
                               generator=gen)
     prompts = torch.randint(0, VOCAB, (BATCH, PROMPT), generator=gen
                             ).to('cuda')

@@ -4,12 +4,12 @@ Package contracts of the PyTorch port (``distributed_dot_product_tpu_torch``):
 
 - importing it loads no JAX (checked in a fresh interpreter);
 - no module of the port, nor ``chip_smoke.py`` or the port's profile
-  script, imports ``jax``, ``flax`` or the reference package (an AST
+  scripts, imports ``jax``, ``flax`` or the reference package (an AST
   scan; the port's name begins with the reference's, so names are
   matched exactly or up to a dot);
 - entry points default to the card and raise without one;
 - CPU calls run the plain versions and leave the kernel launch counters
-  at 0;
+  at 0, serving and training (K1, K3, K4, K5);
 - ``chip_smoke.py`` exits non-zero and prints no result without a card,
   both in the repository and alone in an empty directory.
 """
@@ -58,7 +58,8 @@ def test_import_loads_no_jax():
 
 @pytest.mark.parametrize('path', sorted(
     [p.relative_to(REPO) for p in PORT.rglob('*.py')]
-    + [Path('chip_smoke.py'), Path('scripts/torch_profile_generate.py')]),
+    + [Path('chip_smoke.py'), Path('scripts/torch_profile_generate.py'),
+       Path('scripts/torch_profile_train.py')]),
     ids=str)
 def test_no_reference_imports(path):
     bad = [m for m in _imports(REPO / path) if _banned(m)]
@@ -76,15 +77,25 @@ def test_default_device_is_cuda_and_raises_without_card(monkeypatch):
     assert port.resolve_device('cpu') == torch.device('cpu')
     for build in (lambda: port.resolve_device(),
                   lambda: port.TransformerLM(64, 32, 4),
+                  lambda: port.TransformerLM(64, 32, 4, remat=True,
+                                             dtype=torch.bfloat16),
+                  lambda: port.TransformerStack(32, 4),
+                  lambda: port.TransformerBlock(32, 4),
+                  lambda: port.DistributedDotProductAttn(
+                      32, num_heads=4, softmax_impl='flash'),
                   lambda: port.OwnedDense(4, 4),
                   lambda: port.init_cache(1, 1, 4, 4)):
         with pytest.raises(RuntimeError, match='cuda'):
             build()
 
 
+COUNTED = ('flash_attention', 'flash_attention_dq', 'flash_attention_dkv',
+           'flash_decode')
+
+
 def test_cpu_calls_leave_launch_counters_at_zero():
-    port.flash_attention.launches = 0
-    port.flash_decode.launches = 0
+    for name in COUNTED:
+        getattr(port, name).launches = 0
     x = torch.randn((1, 2, 8, 32))
     port.flash_attention(x, x, x, causal=True)
     cache = tdec.init_cache(1, 2, 8, 32, dtype=torch.float32, device='cpu')
@@ -92,8 +103,32 @@ def test_cpu_calls_leave_launch_counters_at_zero():
     tdec.decode_step(one, cache, one, one)
     model = port.TransformerLM(64, 32, 4, n_layers=1, device='cpu')
     port.greedy_generate(model, torch.zeros((1, 3), dtype=torch.int32), 3, 8)
-    assert port.flash_attention.launches == 0
-    assert port.flash_decode.launches == 0
+    assert all(getattr(port, name).launches == 0 for name in COUNTED)
+
+
+def test_cpu_train_step_leaves_launch_counters_at_zero():
+    for name in COUNTED:
+        getattr(port, name).launches = 0
+    model = port.TransformerLM(64, 32, 4, n_layers=2, remat=True,
+                               device='cpu')
+    step = port.make_lm_train_step(model, torch.optim.Adam(
+        model.parameters(), lr=3e-4), loss_chunk=8)
+    tokens = torch.randint(0, 64, (2, 12), generator=torch.Generator()
+                           .manual_seed(0))
+    rec = port.make_lm_train_step(model, torch.optim.Adam(
+        model.parameters(), lr=3e-4), guard=True)(
+            (tokens, port.lm_targets(tokens)))
+    loss = step((tokens, port.lm_targets(tokens)))
+    assert torch.isfinite(loss) and not bool(rec['bad_step'])
+    assert all(getattr(port, name).launches == 0 for name in COUNTED)
+
+
+def test_train_step_refuses_a_multi_rank_group(monkeypatch):
+    from distributed_dot_product_tpu_torch import train
+    model = port.TransformerLM(64, 32, 4, n_layers=1, device='cpu')
+    monkeypatch.setattr(train, 'get_world_size', lambda: 2)
+    with pytest.raises(NotImplementedError, match='ROADMAP'):
+        port.make_lm_train_step(model, torch.optim.Adam(model.parameters()))
 
 
 def test_seeded_init_is_reproducible_and_layers_differ():
