@@ -17,29 +17,42 @@ Phases, one JSON line each (some several):
 4. flash_decode: K5 (fused decode step) against its plain version at the
    decode shape with mixed per-row fill: the appended cache must equal
    the plain append bit for bit, the output must agree within tolerance;
-5. main_path (serving): greedy generation of the full-width TransformerLM
+5. flash_decode_paged: K5p (the paged decode step) against its plain
+   version at the serving shape (8 slots, 8 heads, head dim 96, page
+   16, t_max 4096, 2048 pages) with a scrambled table and mixed fill:
+   the pool must equal the plain append bit for bit on every page but
+   the sink, the output must agree within tolerance and equal K5's on
+   the same rows gathered into a slab, bit for bit;
+6. serve_path: a seeded burst of 24 requests (prompts of 1..2048 tokens)
+   through the continuous-batching Scheduler over the paged KernelEngine
+   (slots 8, t_max 4096, the TransformerLM's widths, bf16, prefill chunk
+   64; ServeConfig(queue_limit 64, max_new_tokens 256)): terminal states,
+   tokens/s, TTFT and step latency, K5p launches against decode steps;
+   the same burst over the slab engine (K5) must give the same streams;
+   then requests 0 and 1 on a float32 CPU engine with the same weights;
+7. main_path (serving): greedy generation of the full-width TransformerLM
    (vocab 32768, dim 768, 8 heads, 16 layers, bf16 parameters and
    compute, seeded random weights) for 4 prompts of 1000 tokens, 64
    steps, t_max 2048, with the kernel launch counts of that run, then
    prompt 0 against the same weights run on the CPU in float32 (plain
    versions);
-6. flash_backward: K1's LSE output, K3 (dq) and K4 (dk, dv) against
+8. flash_backward: K1's LSE output, K3 (dq) and K4 (dk, dv) against
    their plain versions in bf16 at the training shape (4 x 8 heads,
    T 4096, head dim 96, causal), a ragged causal GQA 8:2 self-attention
    at T 333, Tq 77 over Tk 1077 at causal offset 1000, and a non-causal
    50 x 300; timings at the training shape;
-7. train_path: five Adam steps (lr 3e-4) of the same model with float32
+9. train_path: five Adam steps (lr 3e-4) of the same model with float32
    parameters, bf16 compute and remat, on one batch of 4 x 4096 seeded
    random tokens (loss_chunk 4096): losses, ms per step, tokens/s, peak
    memory and each step's K1 / K3 / K4 launches;
-8. train_cpu_reference: one step's loss and every parameter's gradient
+10. train_cpu_reference: one step's loss and every parameter's gradient
    of a 2-layer model at full width (B 1 x T 512), the card (bf16 compute
    through the kernels) against the same float32 weights on the CPU
    (float32, plain versions).
 
 Then the card's ``nvidia-smi`` name and power limit, the kernels line
-(``{"kernels": [...]}``: K1, K3, K4 and K5 with their launches on their
-path, max error, kernel / plain / library / bound times) and, only if
+(``{"kernels": [...]}``: K1, K3, K4, K5 and K5p with their launches on
+their path, max error, kernel / plain / library / bound times) and, only if
 every phase passed, the last line ``{"ok": true, "device": {...}}``.
 Exits non-zero on any failure, and without a card.
 """
@@ -61,6 +74,15 @@ HEAD_DIM = DIM // HEADS
 # The training configuration: the README's model and Adam learning rate.
 TRAIN_B, TRAIN_T, TRAIN_STEPS, LOSS_CHUNK, LR = 4, 4096, 5, 4096, 3e-4
 REF_LAYERS, REF_T = 2, 512
+# The serving configuration (README "Resilient serving"): KernelEngine(slots
+# 8, t_max 4096) at the TransformerLM's widths, paged, page size 16, the
+# default pool of slots * t_max / page_size pages, prefill chunk 64, and
+# ServeConfig(queue_limit 64, max_new_tokens 256); a seeded burst of 24
+# requests with prompt lengths uniform in 1..2048.
+SERVE_SLOTS, SERVE_T_MAX, SERVE_PAGE, SERVE_CHUNK = 8, 4096, 16, 64
+SERVE_PAGES = SERVE_SLOTS * SERVE_T_MAX // SERVE_PAGE
+SERVE_REQUESTS, SERVE_PROMPT, SERVE_QUEUE, SERVE_NEW = 24, 2048, 64, 256
+SERVE_SEED = 0
 
 # K5 vs its plain version, absolute: both round the output to bf16, a
 # relative 2^-8 at most; with unit-normal values (|v| < ~5) that stays
@@ -344,6 +366,327 @@ def phase_decode(torch, ddp, flush, gen):
            'bound_ms': bms, 'bound_by': by, 'flops': flops, 'bytes': nbytes}
     emit(row)
     return row
+
+
+def paged_case(torch, gen, dev):
+    """The serving shape's paged cache with mixed fill and a scrambled
+    table: (q, k_new, v_new, k_pool, v_pool, valid_to, append_at, table,
+    the sets of distinct pool rows each slot reads). Slots: mid-generation,
+    empty (table row all -1, valid_to -1), frozen (append_at -1), appending
+    on a page boundary, two sharing a 640-row prefix (40 pages), a long
+    and a short one. Unallocated pages and the sink hold large garbage."""
+    bf16, ps, pps = torch.bfloat16, SERVE_PAGE, SERVE_T_MAX // SERVE_PAGE
+    fills = [1500, 0, 778, 2048, 700, 1000, 4000, 5]   # rows before the step
+    active = [True, False, False, True, True, True, True, True]
+    valid_to = [f if a else f - 1 for f, a in zip(fills, active)]
+    append_at = [f if a else -1 for f, a in zip(fills, active)]
+    perm = torch.randperm(SERVE_PAGES, generator=gen).tolist()
+    table = torch.full((SERVE_SLOTS, pps), -1, dtype=torch.int32)
+    shared = perm[:40]
+    nxt = 40
+    for b, (f, a) in enumerate(zip(fills, active)):
+        n = -(-(f + (1 if a else 0)) // ps)
+        own = shared[:n] if b in (4, 5) else []
+        need = n - len(own)
+        table[b, :n] = torch.tensor(own + perm[nxt:nxt + need],
+                                    dtype=torch.int32)
+        nxt += need
+    shape = (SERVE_PAGES + 1, HEADS, ps, HEAD_DIM)
+    k_pool = 30.0 * randn(torch, shape, gen, dev, bf16)
+    v_pool = 30.0 * randn(torch, shape, gen, dev, bf16)
+    rows = [{(int(table[b, c // ps]), c % ps) for c in range(f)}
+            for b, f in enumerate(fills)]
+    filled = sorted(set().union(*rows))
+    pg, r = (torch.tensor(x, device=dev) for x in zip(*filled))
+    unit = (len(filled), HEADS, HEAD_DIM)
+    k_pool[pg, :, r] = randn(torch, unit, gen, dev, bf16)
+    v_pool[pg, :, r] = randn(torch, unit, gen, dev, bf16)
+    shape_q = (SERVE_SLOTS, HEADS, 1, HEAD_DIM)
+    q, kn, vn = (randn(torch, shape_q, gen, dev, bf16) for _ in range(3))
+    vt = torch.tensor(valid_to, dtype=torch.int32, device=dev)
+    ap = torch.tensor(append_at, dtype=torch.int32, device=dev)
+    return q, kn, vn, k_pool, v_pool, vt, ap, table.to(dev), rows
+
+
+def phase_decode_paged(torch, ddp, flush, gen):
+    import importlib
+    fd = importlib.import_module(
+        'distributed_dot_product_tpu_torch.ops.flash_decode')
+    F = torch.nn.functional
+    dev = torch.device('cuda')
+    scale = 1.0 / math.sqrt(HEAD_DIM)
+    q, kn, vn, kp, vp, vt, ap, table, rows = paged_case(torch, gen, dev)
+    k0, v0 = kp.clone(), vp.clone()           # before the step
+    kp2, vp2 = kp.clone(), vp.clone()
+    out, _, _ = fd.flash_decode(q, kn, vn, kp, vp, vt, ap, page_table=table,
+                                scale=scale)
+    ref, _, _ = fd.flash_decode_plain(q, kn, vn, kp2, vp2, vt, ap,
+                                      page_table=table, scale=scale)
+    # K5 on the same rows gathered into a slab.
+    ks, vs = fd.gather_pages(k0, table), fd.gather_pages(v0, table)
+    out5, _, _ = fd.flash_decode(q, kn, vn, ks, vs, vt, ap, scale=scale)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    row_rel, rel = rel_errs(torch, out, ref)
+    pools_same = bool(torch.equal(kp[:-1], kp2[:-1])
+                      and torch.equal(vp[:-1], vp2[:-1]))
+    written = int(((kp != k0).any(dim=(1, 2, 3))).sum().item())
+    k5_same = bool(torch.equal(out, out5))
+    row = {'phase': 'flash_decode_paged', 'case': 'mixed_fill',
+           'valid_to': vt.tolist(), 'append_at': ap.tolist(),
+           'page_size': SERVE_PAGE, 'pages': SERVE_PAGES,
+           'max_abs_err': err, 'max_row_rel_err': row_rel, 'rel_err': rel,
+           'tol': {'abs': TOL_BF16, 'row_rel': TOL_ROW_REL},
+           'pools_bit_identical_but_sink': pools_same,
+           'pages_written': written, 'equals_k5_on_gathered_slab': k5_same}
+    emit(row)
+    check(torch.isfinite(out).all().item(), 'K5p: non-finite output')
+    check(not out[1].any().item(), 'K5p: the empty slot is not exactly 0')
+    check(err <= TOL_BF16, f'K5p: max abs err {err} > {TOL_BF16}')
+    check(row_rel <= TOL_ROW_REL,
+          f'K5p: row rel err {row_rel} > {TOL_ROW_REL}')
+    check(pools_same, 'K5p: pool differs from the plain append')
+    check(k5_same, 'K5p: output differs from K5 on the gathered slab')
+
+    # Bound over this run's inputs: the distinct filled K and V rows read
+    # once (shared prefix rows once), q read, out written, k_new/v_new
+    # read, the appended rows written, the table read.
+    n_rows = len(set().union(*rows))
+    cols = sum(v + 1 for v in vt.tolist() if v >= 0)
+    n_app = sum(a >= 0 for a in ap.tolist())
+    row_b = 2 * HEAD_DIM * HEADS               # one bf16 row of all heads
+    nbytes = (2 * row_b * n_rows + 2 * row_b * SERVE_SLOTS
+              + 2 * row_b * SERVE_SLOTS + 2 * row_b * n_app
+              + 4 * table.numel())
+    flops = 4 * HEAD_DIM * HEADS * cols
+    bms, by = bound_ms(flops, nbytes)
+    mask = (torch.arange(SERVE_T_MAX, device=dev)[None, :]
+            <= vt[:, None].long())[:, None, None, :]
+    row = {'phase': 'flash_decode_paged', 'case': 'serve_shape',
+           'max_abs_err': err,
+           'ms': time_ms(torch, lambda: fd.flash_decode(
+               q, kn, vn, kp, vp, vt, ap, page_table=table, scale=scale),
+               flush),
+           'plain_ms': time_ms(torch, lambda: fd.flash_decode_plain(
+               q, kn, vn, kp2, vp2, vt, ap, page_table=table, scale=scale),
+               flush, reps=10),
+           'library_ms': time_ms(torch, lambda: F.scaled_dot_product_attention(
+               q, ks, vs, attn_mask=mask, scale=scale), flush),
+           'gather_ms': time_ms(torch, lambda: (
+               fd.gather_pages(kp, table), fd.gather_pages(vp, table)),
+               flush),
+           'library': 'sdpa over the slab gathered beforehand (gather_ms '
+                      'apart): no single PyTorch call attends a paged cache',
+           'bound_ms': bms, 'bound_by': by, 'flops': flops, 'bytes': nbytes,
+           'bound_formula': '2*2*d*H_kv*(distinct filled rows) + q, out, '
+                            'k_new, v_new, appended rows (2*d*H each, bf16) '
+                            '+ 4*table entries'}
+    emit(row)
+    return row
+
+
+def serve_burst():
+    """The seeded burst, built as ``examples/serve_lm.py``'s
+    ``build_requests`` does: (id, prompt) with prompt lengths uniform in
+    1..SERVE_PROMPT."""
+    import numpy as np
+    rng = np.random.default_rng(SERVE_SEED)
+    reqs = []
+    for i in range(SERVE_REQUESTS):
+        plen = int(rng.integers(1, SERVE_PROMPT + 1))
+        reqs.append((f'req-{i:03d}',
+                     rng.integers(0, VOCAB, size=plen).astype(np.int32)))
+    return reqs
+
+
+def serve_engine(torch, mode, dtype=None, device='cuda', slots=SERVE_SLOTS):
+    from distributed_dot_product_tpu_torch.serve import KernelEngine
+    paged = (dict(cache_mode='paged', page_size=SERVE_PAGE)
+             if mode == 'paged' else {})
+    return KernelEngine(slots=slots, t_max=SERVE_T_MAX, vocab=VOCAB,
+                        heads=HEADS, head_dim=HEAD_DIM,
+                        prefill_chunk=SERVE_CHUNK, seed=SERVE_SEED,
+                        dtype=dtype or torch.bfloat16, device=device,
+                        **paged)
+
+
+def first_step_logits(torch, engine, prompts):
+    """Logits of each prompt's first decode step: prefill the prompts into
+    slots 0.. and apply the engine's own projection, fused step and head
+    to its caches (what ``step`` computes before its argmax)."""
+    import numpy as np
+    from distributed_dot_product_tpu_torch.models.decode import decode_step
+    active = np.zeros(engine.slots, bool)
+    tokens = np.zeros(engine.slots, np.int64)
+    for i, p in enumerate(prompts):
+        for start in range(0, len(p) - 1, engine.prefill_chunk):
+            engine.prefill(i, p[start:min(start + engine.prefill_chunk,
+                                          len(p) - 1)])
+        active[i], tokens[i] = True, p[-1]
+    if engine.cache_mode == 'paged':
+        engine.prepare_step(active)
+    with torch.inference_mode():
+        q, k, v = engine._project(torch.as_tensor(tokens,
+                                                  device=engine.device))
+        engine.cache, out = decode_step(q, engine.cache, k, v,
+                                        slot_mask=active,
+                                        impl=engine.decode_impl)
+        logits = out.reshape(engine.slots, -1) @ engine._wo
+    return logits[:len(prompts)].float().cpu()
+
+
+def phase_serve_path(torch, ddp):
+    """The burst through the Scheduler over the paged engine (K5p), then
+    over the slab engine (K5) with the same seed, then requests 0 and 1
+    on a float32 CPU engine with the same weights."""
+    import numpy as np
+    from distributed_dot_product_tpu_torch.serve import (
+        RejectedError, Scheduler, ServeConfig,
+    )
+    from distributed_dot_product_tpu_torch.utils.tracing import (
+        MetricsRegistry,
+    )
+    burst = serve_burst()
+    runs = {}
+    for mode in ('paged', 'slab'):
+        t0 = time.perf_counter()
+        engine = serve_engine(torch, mode)
+        # Warm every engine operation, and so build the kernels, before
+        # the watchdog arms: first use would otherwise count as a stall.
+        engine.step(np.zeros(SERVE_SLOTS, np.int32),
+                    np.ones(SERVE_SLOTS, bool))
+        engine.prefill(0, np.zeros(SERVE_CHUNK, np.int32))
+        for i in range(SERVE_SLOTS):
+            engine.reset(i)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        registry = MetricsRegistry()
+        sched = Scheduler(engine, ServeConfig(queue_limit=SERVE_QUEUE,
+                                              max_new_tokens=SERVE_NEW),
+                          registry=registry, fault_injector=False)
+        ddp.flash_decode.launches = 0
+        ddp.flash_decode_paged.launches = 0
+        rejected = {}
+        t0 = time.perf_counter()
+        try:
+            for i, (rid, prompt) in enumerate(burst):
+                try:
+                    sched.submit(prompt, request_id=rid)
+                except RejectedError as e:
+                    rejected[rid] = e.reason.value
+                if i % 4 == 3:
+                    sched.step()
+            results = sched.run_until_idle()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            sched.close()
+        launches = {'flash_decode': ddp.flash_decode.launches,
+                    'flash_decode_paged': ddp.flash_decode_paged.launches}
+        snap = registry.snapshot()
+        counters, hist = snap['counters'], snap['histograms']
+        by_status = {}
+        for r in results.values():
+            by_status[r.status] = by_status.get(r.status, 0) + 1
+        tokens = counters.get('serve.tokens_generated', 0)
+        steps = counters.get('serve.decode_steps', 0)
+        row = {'phase': 'serve_path', 'cache_mode': mode,
+               'engine': {'slots': SERVE_SLOTS, 't_max': SERVE_T_MAX,
+                          'vocab': VOCAB, 'heads': HEADS,
+                          'head_dim': HEAD_DIM, 'prefill_chunk': SERVE_CHUNK,
+                          'page_size': engine.page_size,
+                          'pages': engine.pool.pages if engine.pool else None,
+                          'dtype': 'bfloat16'},
+               'engine_build_and_warm_s': build_s,
+               'requests': len(burst), 'rejected_at_submit': rejected,
+               'terminal': by_status, 'tokens_generated': tokens,
+               'decode_steps': steps, 'wall_s': wall,
+               'tokens_per_s': tokens / wall,
+               'program_seconds': engine.program_seconds,
+               'ttft_s': {k: hist['serve.ttft_seconds'][k]
+                          for k in ('p50', 'p99')},
+               'step_s': {k: hist['serve.step_seconds'][k]
+                          for k in ('p50', 'p99')},
+               'watchdog_stalls': sched.health.stall_events,
+               'launches': launches}
+        emit(row)
+        for rid, _ in burst:
+            r = results.get(rid)
+            check(rid in rejected or (r is not None and r.status in (
+                'completed', 'deadline_expired', 'evicted', 'abandoned',
+                'failed_nan', 'rejected') and (r.status != 'rejected'
+                                               or r.reason is not None)),
+                  f'{mode}: {rid} has no typed terminal state')
+        check(all(np.all((0 <= np.asarray(r.tokens))
+                         & (np.asarray(r.tokens) < VOCAB))
+                  for r in results.values()), f'{mode}: token out of range')
+        own, other = (('flash_decode_paged', 'flash_decode')
+                      if mode == 'paged' else
+                      ('flash_decode', 'flash_decode_paged'))
+        check(launches[own] == steps,
+              f'{mode}: {own} launched {launches[own]} times for {steps} '
+              f'decode steps')
+        check(launches[other] == 0,
+              f'{mode}: {other} launched {launches[other]} times')
+        runs[mode] = (engine, results, row)
+        if mode == 'slab':
+            del engine
+    paged_res, slab_res = runs['paged'][1], runs['slab'][1]
+    same = [rid for rid, r in paged_res.items()
+            if r.status == 'completed' and rid in slab_res
+            and slab_res[rid].status == 'completed']
+    diverged = [rid for rid in same
+                if paged_res[rid].tokens != slab_res[rid].tokens]
+    emit({'phase': 'serve_path', 'case': 'paged_vs_slab',
+          'completed_in_both': len(same), 'diverged': diverged})
+    check(len(same) == len(paged_res) == len(slab_res),
+          'paged and slab runs completed different requests')
+    check(not diverged, f'paged and slab streams differ: {diverged}')
+
+    # Requests 0 and 1 on the CPU in float32 with the same weights.
+    t0 = time.perf_counter()
+    card = runs['paged'][0]
+    cpu = serve_engine(torch, 'slab', dtype=torch.float32, device='cpu',
+                       slots=2)
+    cpu.load_weights({name: getattr(card, f'_{name}').float().cpu()
+                      for name in ('embed', 'wq', 'wk', 'wv', 'wo')})
+    prompts = [p for _, p in burst[:2]]
+    card_logits = first_step_logits(torch, card, prompts)
+    cpu_logits = first_step_logits(torch, cpu, prompts)
+    rel = [((c - g).abs().max() / g.abs().max()).item()
+           for c, g in zip(card_logits, cpu_logits)]
+    cpu = serve_engine(torch, 'slab', dtype=torch.float32, device='cpu',
+                       slots=2)
+    cpu.load_weights({name: getattr(card, f'_{name}').float().cpu()
+                      for name in ('embed', 'wq', 'wk', 'wv', 'wo')})
+    with Scheduler(cpu, ServeConfig(queue_limit=SERVE_QUEUE,
+                                    max_new_tokens=SERVE_NEW,
+                                    watchdog=False),
+                   registry=MetricsRegistry(), fault_injector=False) as ref:
+        for rid, prompt in burst[:2]:
+            ref.submit(prompt, request_id=rid)
+        ref_res = ref.run_until_idle()
+    match = {}
+    for rid, _ in burst[:2]:
+        a, b = ref_res[rid].tokens, paged_res[rid].tokens
+        n = 0
+        while n < min(len(a), len(b)) and a[n] == b[n]:
+            n += 1
+        match[rid] = n
+    row = {'phase': 'serve_cpu_reference', 'requests': [r for r, _ in
+                                                        burst[:2]],
+           'first_step_logits_max_rel_err': rel, 'tol': TOL_LM_REL,
+           'argmax_card': card_logits.argmax(-1).tolist(),
+           'argmax_cpu': cpu_logits.argmax(-1).tolist(),
+           'greedy_prefix_match': match, 'tokens': SERVE_NEW,
+           'seconds': time.perf_counter() - t0}
+    emit(row)
+    for r in rel:
+        check(r <= TOL_LM_REL, f'serve logits rel err {r} > {TOL_LM_REL}')
+    launches_by_path = {mode: runs[mode][2]['launches'] for mode in runs}
+    del runs
+    torch.cuda.empty_cache()
+    return launches_by_path
 
 
 def phase_main_path(torch, ddp):
@@ -691,6 +1034,10 @@ def main():
         k1 = phase_flash(torch, ddp, flush, gen)
         phase = 'flash_decode'
         k5 = phase_decode(torch, ddp, flush, gen)
+        phase = 'flash_decode_paged'
+        k5p = phase_decode_paged(torch, ddp, flush, gen)
+        phase = 'serve_path'
+        serve_path_launches = phase_serve_path(torch, ddp)
         phase = 'flash_backward'
         bwd_err, bwd_time = phase_flash_backward(torch, ddp, flush, gen)
         del flush
@@ -705,9 +1052,11 @@ def main():
               'error': f'{type(exc).__name__}: {exc}'})
         raise
 
-    # K1, K3, K4: launches on the training path (this slice's main path;
-    # K1's serving launches beside them), times at the training shape.
-    # K5: launches and times of the serving path.
+    # K1, K3, K4: launches on the training path (K1's serving launches
+    # beside them), times at the training shape. K5: launches and times of
+    # the greedy serving path (its launches on the slab twin of the
+    # scheduler's run beside them). K5p: launches on the scheduler's paged
+    # run, times at the serving shape.
     csrc = 'distributed_dot_product_tpu_torch/csrc/'
     tpu = 'distributed_dot_product_tpu/ops/'
     k1_err = max(k1['max_abs_err'], bwd_err['out'])
@@ -738,9 +1087,20 @@ def main():
         dict(name='flash_decode', source=csrc + 'flash_decode.cu',
              replaces=tpu + 'pallas_decode.py:107',
              launches=serve_launches['flash_decode'],
+             launches_by_path={
+                 'main_path': serve_launches['flash_decode'],
+                 'serve_path_slab':
+                     serve_path_launches['slab']['flash_decode']},
              max_abs_err=k5['max_abs_err'],
              **{key: k5[key] for key in ('ms', 'plain_ms', 'library_ms',
-                                         'bound_ms', 'bound_by')})]
+                                         'bound_ms', 'bound_by')}),
+        dict(name='flash_decode_paged', source=csrc + 'flash_decode.cu',
+             replaces=tpu + 'pallas_decode.py:310',
+             launches=serve_path_launches['paged']['flash_decode_paged'],
+             max_abs_err=k5p['max_abs_err'],
+             **{key: k5p[key] for key in ('ms', 'plain_ms', 'library_ms',
+                                          'gather_ms', 'library',
+                                          'bound_ms', 'bound_by')})]
     for entry in kernels:
         entry['route'] = 'cuda'
         for key in ('flops', 'bytes'):

@@ -5,11 +5,13 @@ distributed_dot_product_tpu_torch — the PyTorch / CUDA port of
 against it on identical inputs and parameters.
 
 The ported paths serve the package's ``TransformerLM`` by greedy
-generation and train it, on one NVIDIA Hopper card: the prefill and the
-training forward run the flash-attention forward
+generation and train it, and serve request bursts through the
+continuous-batching ``serve.Scheduler`` over the ``serve.KernelEngine``
+(per-slot slab or paged KV cache), on one NVIDIA Hopper card: the
+prefill and the training forward run the flash-attention forward
 (``ops/flash_attention.py``, CUDA kernel ``csrc/flash_fwd.cu``), the
 training backward its dq and dk/dv kernels (``csrc/flash_bwd.cu``), and
-each decode step the fused append + split-K decode kernel
+each decode step the fused append + split-K decode kernel, slab or paged
 (``ops/flash_decode.py``, ``csrc/flash_decode.cu``); ``train.py`` holds
 the train step. Every wrapper keeps a plain PyTorch version of its
 kernel, which runs for CPU tensors (the tests) and is the card's
@@ -29,13 +31,15 @@ from distributed_dot_product_tpu_torch.ops.flash_attention import (  # noqa
     flash_attention_dq,
 )
 from distributed_dot_product_tpu_torch.ops.flash_decode import (  # noqa: F401
-    flash_decode,
+    flash_decode, flash_decode_paged,
 )
 from distributed_dot_product_tpu_torch.models.dense import (  # noqa: F401
     OwnedDense,
 )
 from distributed_dot_product_tpu_torch.models.decode import (  # noqa: F401
-    DecodeCache, append_kv, decode_attention, decode_step, init_cache,
+    DecodeCache, PagedDecodeCache, PagePool, append_kv, append_kv_slots,
+    decode_attention, decode_step, init_cache, init_paged_cache,
+    init_slot_cache,
 )
 from distributed_dot_product_tpu_torch.models.attention import (  # noqa: F401
     DistributedDotProductAttn,
@@ -49,6 +53,9 @@ from distributed_dot_product_tpu_torch.models.lm import (  # noqa: F401
 from distributed_dot_product_tpu_torch.train import (  # noqa: F401
     make_lm_train_step,
 )
+from distributed_dot_product_tpu_torch.serve import (  # noqa: F401
+    KernelEngine, Scheduler, ServeConfig,
+)
 from distributed_dot_product_tpu_torch.convert import (  # noqa: F401
-    attn_state_from_jax, lm_state_from_jax,
+    attn_state_from_jax, engine_state_from_jax, lm_state_from_jax,
 )

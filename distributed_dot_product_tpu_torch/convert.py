@@ -1,7 +1,8 @@
 # -*- coding: utf-8 -*-
 """
 Convert the reference package's ``TransformerLM`` and
-``DistributedDotProductAttn`` parameters into the port's state dicts.
+``DistributedDotProductAttn`` parameters into the port's state dicts, and
+the reference serving ``KernelEngine``'s weights into the port engine's.
 
 The input is the flax parameter tree as plain mappings of arrays
 (numpy arrays, or anything ``numpy.asarray`` reads): either the scanned
@@ -17,7 +18,8 @@ has its params' structure and converts the same way.
 import numpy as np
 import torch
 
-__all__ = ['attn_state_from_jax', 'lm_state_from_jax']
+__all__ = ['attn_state_from_jax', 'engine_state_from_jax',
+           'lm_state_from_jax']
 
 _ATTN = (('keys', 'keys_proj'), ('queries', 'queries_proj'),
          ('values', 'values_proj'), ('composition', 'composition'))
@@ -79,3 +81,16 @@ def lm_state_from_jax(params):
         _dense(state, f'{pre}.mlp_in', blk['mlp_in'])
         _dense(state, f'{pre}.mlp_out', blk['mlp_out'])
     return _tensors(state)
+
+
+def engine_state_from_jax(arrays):
+    """``{'embed', 'wq', 'wk', 'wv', 'wo'}`` tensors for the port's
+    ``KernelEngine.load_weights`` from the reference engine's float
+    weights — a mapping of its ``_embed``, ``_wq``, ``_wk``, ``_wv`` and
+    ``_wo`` arrays (leading underscores optional). The layouts agree
+    (``x @ w`` on both sides), so nothing is transposed."""
+    state = {}
+    for name in ('embed', 'wq', 'wk', 'wv', 'wo'):
+        value = arrays[f'_{name}'] if f'_{name}' in arrays else arrays[name]
+        state[name] = torch.tensor(np.asarray(value))
+    return state

@@ -1,10 +1,11 @@
 // Fused KV-cache decode step for Hopper (sm_90a): in-place append plus
 // split-K flash-decoding attention, bf16 cache, f32 accumulation.
 //
-// Replaces the TPU kernel `_make_decode_kernel` (slab body `kernel_body`)
-// in distributed_dot_product_tpu/ops/pallas_decode.py for one new row per
-// slot (n = 1) without the int8 mirror, window, ALiBi, page table or
-// partial outputs.
+// Replaces the TPU kernel `_make_decode_kernel` in
+// distributed_dot_product_tpu/ops/pallas_decode.py — the slab body
+// `kernel_body` (K5, flash_decode_bf16) and the paged body `kernel_paged`
+// (K5p, flash_decode_paged_bf16) — for one new row per slot (n = 1)
+// without the int8 mirror, window, ALiBi or partial outputs.
 //
 // What bounds it on the H100: one query row per head against the cached
 // prefix is ~1 FLOP per byte of K/V streamed, far below the card's ~295
@@ -26,6 +27,20 @@
 // bits. Numerics follow the TPU kernel: scale*log2(e) folded into q
 // (rounded back to bf16), exp2 softmax, running max from NEG_BIG, and a
 // row with no valid column (valid_to < 0) outputs exactly 0.
+//
+// Paged (K5p): the cache is a pool of (pages + 1, h_kv, page_size, d)
+// pages, and column c of slot b lives at row c % page_size of pool page
+// table[b][c / page_size]. A split block's 128 columns cover 128 /
+// page_size whole pages; the block reads their ids from the table once,
+// into shared memory, and then streams rows in K5's column order with
+// K5's arithmetic, so a paged step is bit-identical to K5 on a slab that
+// holds the same rows. Only the row addresses differ, and each page's
+// rows are contiguous, so a warp still reads contiguous memory. A -1
+// entry is never read: its columns score -inf and an append that lands
+// on it writes nothing. The append is the only write (nothing goes to the
+// pool's sink page); the host allocator copies a shared page before a
+// step could append into it, so no page written here is read by another
+// slot in the same launch.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -53,17 +68,39 @@ __device__ __forceinline__ void load_row(const bf16* src, float* dst) {
   }
 }
 
+// Where a slot's cache column lives. Slab: row `col` of the (slot, head)
+// strip. Paged: row col % page_size of the page the block staged for the
+// column (nullptr for a -1 table entry).
+template <int D, bool PAGED>
+struct Rows {
+  bf16* base;          // slab: the (slot, head) strip; paged: the pool
+  const int* pages;    // paged: this chunk's page ids (shared memory)
+  int c0, hk, h_kv, page_size;
+
+  __device__ __forceinline__ bf16* at(int col) const {
+    if (!PAGED) return base + static_cast<size_t>(col) * D;
+    const int page = pages[(col - c0) / page_size];
+    if (page < 0) return nullptr;
+    return base + ((static_cast<size_t>(page) * h_kv + hk) * page_size +
+                   col % page_size) * D;
+  }
+};
+
 // Grid (n_splits, batch * h_kv). Shared: sQ[group*D], sS[group*kChunk],
-// sRed[4*D], sM[group], sL[group] (floats).
-template <int D>
+// sRed[4*D], sM[group], sL[group] (floats); paged, sPage[kChunk] (ints).
+// Slab: cache_k/cache_v are (batch, h_kv, t_max, D) and page_table is
+// unused. Paged: they are (pages + 1, h_kv, page_size, D) pools and
+// page_table is (batch, t_max / page_size).
+template <int D, bool PAGED>
 __global__ void __launch_bounds__(kThreads)
 decode_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_new,
                     const bf16* __restrict__ v_new, bf16* cache_k,
                     bf16* cache_v, const int* __restrict__ valid_to,
                     const int* __restrict__ append_at,
+                    const int* __restrict__ page_table,
                     float* __restrict__ part_acc, float* __restrict__ part_ml,
-                    int h_kv, int group, int t_max, int n_splits,
-                    float qscale) {
+                    int h_kv, int group, int t_max, int page_size,
+                    int n_splits, float qscale) {
   static_assert(D % 32 == 0 && D <= 256, "head dim must be 32*n <= 256");
   constexpr int PER = D / kLanesPerRow;   // features per lane
   extern __shared__ __align__(16) float smem[];
@@ -72,6 +109,7 @@ decode_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_new,
   float* sRed = sS + group * kChunk;
   float* sM = sRed + 4 * D;
   float* sL = sM + group;
+  __shared__ int sPage[PAGED ? kChunk : 1];
 
   const int split = blockIdx.x;
   const int bh = blockIdx.y;               // flat (batch, kv head)
@@ -83,14 +121,32 @@ decode_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_new,
 
   const bf16* kn = k_new + static_cast<size_t>(bh) * D;
   const bf16* vn = v_new + static_cast<size_t>(bh) * D;
-  bf16* kc = cache_k + static_cast<size_t>(bh) * t_max * D;
-  bf16* vc = cache_v + static_cast<size_t>(bh) * t_max * D;
+  if (PAGED) {
+    // This chunk's page ids, read once from the slot's table row.
+    const int pps = t_max / page_size;
+    const int first = c0 / page_size;
+    for (int i = tid; i < kChunk / page_size; i += kThreads)
+      sPage[i] = first + i < pps
+                     ? page_table[static_cast<size_t>(b) * pps + first + i]
+                     : -1;
+    __syncthreads();
+  }
+  // Slab: the (slot, head) strip; paged: the pool and this chunk's pages.
+  const size_t strip = PAGED ? 0 : static_cast<size_t>(bh) * t_max * D;
+  const Rows<D, PAGED> krows{cache_k + strip, sPage, c0, bh % h_kv, h_kv,
+                             page_size};
+  const Rows<D, PAGED> vrows{cache_v + strip, sPage, c0, bh % h_kv, h_kv,
+                             page_size};
 
   // In-place append by the one block whose chunk holds the column.
   if (ap >= c0 && ap < c0 + kChunk && ap < t_max) {
-    for (int i = tid; i < D; i += kThreads) {
-      kc[static_cast<size_t>(ap) * D + i] = kn[i];
-      vc[static_cast<size_t>(ap) * D + i] = vn[i];
+    bf16* kdst = krows.at(ap);
+    bf16* vdst = vrows.at(ap);
+    if (!PAGED || kdst != nullptr) {
+      for (int i = tid; i < D; i += kThreads) {
+        kdst[i] = kn[i];
+        vdst[i] = vn[i];
+      }
     }
   }
   if (c0 > vt) return;    // wholly past the fill; the merge skips it
@@ -110,13 +166,20 @@ decode_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_new,
   const int sub = tid % kLanesPerRow;      // which quarter of the features
   const int rg = tid / kLanesPerRow;       // row slot within a pass
 
-  // Scores (log2 units) for every valid column and query row.
+  // Scores (log2 units) for every valid column and query row; a column
+  // on a -1 page scores -inf.
   for (int base = 0; base < ncols; base += kRowsPerPass) {
     const int c = base + rg;
     const int col = c0 + c;
     float kf[PER];
+    const bf16* krow = nullptr;
+    bool scored = false;                   // slab: every column < ncols
     if (c < ncols) {
-      const bf16* krow = col == ap ? kn : kc + static_cast<size_t>(col) * D;
+      krow = krows.at(col);
+      scored = !PAGED || krow != nullptr;
+      if (col == ap && scored) krow = kn;
+    }
+    if (scored) {
       load_row<PER>(krow + sub * PER, kf);
     } else {
 #pragma unroll
@@ -129,7 +192,7 @@ decode_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_new,
       for (int i = 0; i < PER; ++i) dot = fmaf(kf[i], qg[i], dot);
       dot += __shfl_xor_sync(0xffffffffu, dot, 1);
       dot += __shfl_xor_sync(0xffffffffu, dot, 2);
-      if (c < ncols && sub == 0) sS[g * kChunk + c] = dot;
+      if (c < ncols && sub == 0) sS[g * kChunk + c] = scored ? dot : -INFINITY;
     }
   }
   __syncthreads();
@@ -167,12 +230,16 @@ decode_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_new,
       const int c = base + rg;
       if (c < ncols) {
         const int col = c0 + c;
-        const bf16* vrow = col == ap ? vn : vc + static_cast<size_t>(col) * D;
-        float vf[PER];
-        load_row<PER>(vrow + sub * PER, vf);
-        const float p = sS[g * kChunk + c];
+        const bf16* vrow = vrows.at(col);
+        const bool held = !PAGED || vrow != nullptr;
+        if (col == ap && held) vrow = vn;
+        if (held) {
+          float vf[PER];
+          load_row<PER>(vrow + sub * PER, vf);
+          const float p = sS[g * kChunk + c];
 #pragma unroll
-        for (int i = 0; i < PER; ++i) acc[i] = fmaf(p, vf[i], acc[i]);
+          for (int i = 0; i < PER; ++i) acc[i] = fmaf(p, vf[i], acc[i]);
+        }
       }
     }
 #pragma unroll
@@ -228,24 +295,25 @@ decode_merge_kernel(const float* __restrict__ part_acc,
   }
 }
 
-template <int D>
+template <int D, bool PAGED>
 int launch(const void* q, const void* k_new, const void* v_new,
            void* cache_k, void* cache_v, const void* valid_to,
-           const void* append_at, void* part_acc, void* part_ml, void* out,
-           int batch, int h, int h_kv, int t_max, float qscale,
-           cudaStream_t stream) {
+           const void* append_at, const void* page_table, void* part_acc,
+           void* part_ml, void* out, int batch, int h, int h_kv, int t_max,
+           int page_size, float qscale, cudaStream_t stream) {
   const int group = h / h_kv;
   const int n_splits = (t_max + kChunk - 1) / kChunk;
   if (batch == 0 || n_splits == 0) return 0;
   const size_t smem =
       sizeof(float) * (group * D + group * kChunk + 4 * D + 2 * group);
   dim3 grid(n_splits, batch * h_kv);
-  decode_split_kernel<D><<<grid, kThreads, smem, stream>>>(
+  decode_split_kernel<D, PAGED><<<grid, kThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k_new),
       static_cast<const bf16*>(v_new), static_cast<bf16*>(cache_k),
       static_cast<bf16*>(cache_v), static_cast<const int*>(valid_to),
-      static_cast<const int*>(append_at), static_cast<float*>(part_acc),
-      static_cast<float*>(part_ml), h_kv, group, t_max, n_splits, qscale);
+      static_cast<const int*>(append_at), static_cast<const int*>(page_table),
+      static_cast<float*>(part_acc), static_cast<float*>(part_ml), h_kv,
+      group, t_max, page_size, n_splits, qscale);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   decode_merge_kernel<D><<<batch * h, kThreads, 0, stream>>>(
@@ -253,6 +321,29 @@ int launch(const void* q, const void* k_new, const void* v_new,
       static_cast<const int*>(valid_to), static_cast<bf16*>(out), h,
       n_splits);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool PAGED>
+int dispatch(const void* q, const void* k_new, const void* v_new,
+             void* cache_k, void* cache_v, const void* valid_to,
+             const void* append_at, const void* page_table, void* part_acc,
+             void* part_ml, void* out, int batch, int h, int h_kv, int t_max,
+             int page_size, int d, float qscale, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define DECODE_CASE(DIM)                                                     \
+  case DIM:                                                                  \
+    return launch<DIM, PAGED>(q, k_new, v_new, cache_k, cache_v, valid_to,   \
+                              append_at, page_table, part_acc, part_ml, out, \
+                              batch, h, h_kv, t_max, page_size, qscale, s);
+  switch (d) {
+    DECODE_CASE(32)
+    DECODE_CASE(64)
+    DECODE_CASE(96)
+    DECODE_CASE(128)
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef DECODE_CASE
 }
 
 }  // namespace
@@ -271,25 +362,24 @@ extern "C" int flash_decode_bf16(const void* q, const void* k_new,
                                  void* part_ml, void* out, int batch, int h,
                                  int h_kv, int t_max, int d, float qscale,
                                  void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (d) {
-    case 32:
-      return launch<32>(q, k_new, v_new, cache_k, cache_v, valid_to,
-                        append_at, part_acc, part_ml, out, batch, h, h_kv,
-                        t_max, qscale, s);
-    case 64:
-      return launch<64>(q, k_new, v_new, cache_k, cache_v, valid_to,
-                        append_at, part_acc, part_ml, out, batch, h, h_kv,
-                        t_max, qscale, s);
-    case 96:
-      return launch<96>(q, k_new, v_new, cache_k, cache_v, valid_to,
-                        append_at, part_acc, part_ml, out, batch, h, h_kv,
-                        t_max, qscale, s);
-    case 128:
-      return launch<128>(q, k_new, v_new, cache_k, cache_v, valid_to,
-                         append_at, part_acc, part_ml, out, batch, h, h_kv,
-                         t_max, qscale, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return dispatch<false>(q, k_new, v_new, cache_k, cache_v, valid_to,
+                         append_at, nullptr, part_acc, part_ml, out, batch, h,
+                         h_kv, t_max, 1, d, qscale, stream);
+}
+
+// The paged step: k_pool/v_pool (pages + 1, h_kv, page_size, d), appended
+// in place through page_table (batch, pages_per_slot) int32 (-1 =
+// unallocated); page_size must divide 128. Other arguments as above.
+extern "C" int flash_decode_paged_bf16(
+    const void* q, const void* k_new, const void* v_new, void* k_pool,
+    void* v_pool, const void* valid_to, const void* append_at,
+    const void* page_table, void* part_acc, void* part_ml, void* out,
+    int batch, int h, int h_kv, int pages_per_slot, int page_size, int d,
+    float qscale, void* stream) {
+  if (page_size < 1 || kChunk % page_size)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch<true>(q, k_new, v_new, k_pool, v_pool, valid_to, append_at,
+                        page_table, part_acc, part_ml, out, batch, h, h_kv,
+                        pages_per_slot * page_size, page_size, d, qscale,
+                        stream);
 }

@@ -1,0 +1,590 @@
+# -*- coding: utf-8 -*-
+"""
+Append-only, schema-versioned JSONL event log — the durable record of
+everything the serving and training loops DO, next to the metrics that
+record what they COST.
+
+Design:
+
+- **One line per event**, JSON, schema-versioned: every record carries
+  ``{"schema": 1, "seq": N, "ts": <unix>, "event": "<name>", ...}``.
+  ``seq`` is a per-log monotonic counter, the authoritative order (and
+  the tiebreak for equal timestamps); ``ts`` comes from an injectable
+  wall clock.
+- **Closed vocabulary**: :data:`EVENT_SCHEMA` names every event and its
+  required fields. Emitting an unknown event or dropping a required
+  field raises immediately — the log is an audited contract, not a
+  printf stream; :func:`validate_file` re-checks the same schema
+  offline. (Copied from ``distributed_dot_product_tpu/obs/events.py``;
+  the vocabulary is the reference's, whole, so both packages' logs
+  read alike.)
+- **Crash-safe flushing**: each emit writes one complete line and
+  flushes the stream, so a crash loses at most the event being written
+  mid-line (a torn tail line is detected, not silently absorbed, by the
+  readers). ``fsync=True`` additionally fsyncs per emit for logs that
+  must survive power loss.
+- **Size-based rotation**: past ``rotate_bytes`` the file rotates
+  through ``path.1 .. path.<keep_rotations>`` (newest = ``.1``);
+  :func:`read_events` reassembles the rotated set in order.
+
+The *active log* is a process-wide slot (:func:`set_active` /
+:func:`activate`): the serving scheduler, the health monitor, the fault
+injectors, and ``utils.tracing.log_step`` / ``log_exception`` all emit
+through :func:`emit`, which no-ops when no log is active — so wiring
+observability into a run is one ``with activate(EventLog(path)):``.
+"""
+
+import contextlib
+import json
+import os
+import threading
+import time
+from typing import Optional
+
+__all__ = ['SCHEMA_VERSION', 'SUPPORTED_SCHEMAS', 'EVENT_SCHEMA',
+           'EventLog', 'emit', 'get_active', 'set_active', 'activate',
+           'open_from_env', 'read_events', 'merge_events',
+           'remove_log', 'validate_record', 'validate_file', 'ENV_VAR']
+
+# v2 added the required `tenant` field on serve.admit / serve.reject
+# (multi-tenant SLO accounting); v1 logs predate tenancy and stay
+# readable — validation exempts them from the v2-only fields.
+SCHEMA_VERSION = 2
+SUPPORTED_SCHEMAS = (1, 2)
+
+ENV_VAR = 'DDP_TPU_EVENT_LOG'
+
+# The complete lifecycle vocabulary: event name -> required fields
+# (beyond the envelope fields schema/seq/ts/event). Extra fields are
+# allowed; missing required fields or unknown names raise at emit AND
+# fail offline validation.
+EVENT_SCHEMA = {
+    # -- serving lifecycle (serve/scheduler.py, serve/admission.py) ----
+    # `reason` values come from admission.RejectReason: queue_full,
+    # deadline_exceeded, prompt_too_long, cache_exhausted (paged
+    # KV-pool exhaustion — static impossibility at submit, or spent
+    # preemption retries stamped on the terminal evict/retire),
+    # prefix_unregistered (unknown/unregistered shared prefix),
+    # no_replica (router-level shed), replica_lost (in-flight stream's
+    # replica died and recovery could not re-place it).
+    # `tenant` (schema >= 2): the tenant label load/SLO accounting
+    # groups by — every admit/reject carries it, so per-tenant goodput
+    # is derivable from the log alone (obs/slo.py).
+    'serve.admit': ('request_id', 'slot', 'tenant'),
+    'serve.reject': ('request_id', 'reason', 'tenant'),
+    'serve.evict': ('request_id', 'slot'),
+    'serve.prefill': ('request_id', 'slot', 'pos'),
+    'serve.decode': ('request_id', 'slot', 'token_index'),
+    'serve.retire': ('request_id', 'status'),
+    'serve.quarantine': ('request_id', 'slot', 'requeued'),
+    # Paged pool ran dry under this slot mid-stream: slot freed, request
+    # requeued (True) or terminally evicted CACHE_EXHAUSTED (False).
+    # A controller drain (serve/control.py) emits the same arc with an
+    # extra `drain: true` — the request requeues onto ANOTHER replica.
+    'serve.preempt': ('request_id', 'slot', 'requeued'),
+    # The degradation rung engaged: the request was admitted with a
+    # CAPPED token budget because pressure crossed `watermark`
+    # (`reason` names the source: queue / page_pool). State-exempt in
+    # the timeline automaton — it precedes the admit/reject verdict.
+    'serve.degrade': ('request_id', 'watermark', 'reason', 'tenant'),
+    # -- disaggregated serving (serve/router.py, serve/replica.py) -----
+    # The router placed a request on a decode replica: `target` names
+    # it, `policy` how it was chosen (prefix / session / load). Lives
+    # in the ROUTER's log; the request's admit→retire lifecycle lives
+    # in the named replica's — reconstruct over the merged labeled set
+    # follows the request across both. (`target`, not `replica`: the
+    # multi-log merge annotates every record with its SOURCE under
+    # `replica`.) A router shed (every replica queue full) is a
+    # `serve.reject` with reason `no_replica`.
+    'router.route': ('request_id', 'target'),
+    # The prefill pool computed a prompt's KV sequence-sharded and
+    # handed it to `target` as whole pool pages
+    # (KernelEngine.adopt_prefix): `pages` moved, `rows` of KV they
+    # cover. Lives in the PREFILL pool's log.
+    'prefill.handoff': ('request_id', 'target', 'pages'),
+    # -- replica failure domains (serve/router.py, serve/replica.py) ---
+    # The router declared a decode replica dead: `target` names it,
+    # `reason` how the loss surfaced (crash / probe_timeout /
+    # handoff_crash), `in_flight` how many ledger entries were live on
+    # it at declaration time. Lives in the ROUTER's log — the dead
+    # replica's own log is torn at the crash point and closes nothing.
+    'replica.lost': ('target', 'reason', 'in_flight'),
+    # One router liveness probe verdict for `target`: `state` is
+    # 'ok' (answered, clears the miss streak) or 'missed' (no answer;
+    # an extra `misses` field carries the consecutive-miss count that
+    # drives the bounded exponential backoff toward declaration).
+    'replica.probe': ('target', 'state'),
+    # A (restarted) replica rejoined the pool through add_replica with
+    # a fresh pool: `target` is its NEW name (names are never reused),
+    # an extra `replicas` field carries the post-join pool size.
+    'replica.rejoin': ('target',),
+    # A stream that was in flight on a lost replica was resolved by the
+    # recovery ledger: requeued=True → re-dispatched to a survivor via
+    # replay-prefill (`target` names it; original-submit TTFT/deadline
+    # anchors preserved, so the survivor's terminal closes the arc);
+    # requeued=False → recovery budget/survivor set exhausted, a
+    # terminal serve.reject reason=replica_lost follows in this log.
+    # Always returns the request to 'queued' in the timeline automaton:
+    # its slot died with the replica.
+    'request.recovered': ('request_id', 'from_replica', 'requeued'),
+    # KV page integrity (router-side verdict): pool page(s) of `target`
+    # (a decode replica or the prefill pool) failed checksum
+    # verification at `site` ('scrub' / 'attach' / 'fork' /
+    # 'handoff_src' / 'handoff_copy'); `pages` lists them. The pages
+    # are quarantined and every prefix built on them invalidated
+    # cluster-wide; request.recovered events (reason=kv_corrupt) for
+    # the victim streams follow in this log. No request_id: corruption
+    # is a page-level event — per-request arcs close through the
+    # recovered/terminal records.
+    'kv.corrupt': ('target', 'pages', 'site'),
+    # The router declared the shared prefill pool dead (probe timeout,
+    # same observational discipline as replica.lost): `target` names
+    # it, `reason` how the loss surfaced. Routing falls back to flat
+    # prefill on the decode replicas — no stream blocks on a dead
+    # pool; rebuild_prefill() restores offload under a fresh name.
+    'prefill.lost': ('target', 'reason'),
+    # -- speculative decoding (serve/scheduler.py spec ticks) ----------
+    # A proposer guessed `proposed` continuation tokens for the slot
+    # this tick (`proposer` names which: ngram/draft/custom).
+    'spec.propose': ('request_id', 'slot', 'proposed'),
+    # One fused verify step resolved the guesses: `accepted` of the
+    # `proposed` survived greedy verification; accepted + 1 tokens
+    # committed (the free token) unless a terminal condition truncated
+    # the commit — the serve.decode events alongside carry the tokens.
+    'spec.verify': ('request_id', 'slot', 'proposed', 'accepted'),
+    # -- training loop (train_loop.py via utils.tracing.log_step) ------
+    'train.step': ('step', 'loss'),
+    'train.bad_step': ('step',),
+    'train.checkpoint_save': ('step', 'seconds'),
+    'train.restore': ('step',),
+    'train.rollback': ('step',),
+    # -- health surface (serve/health.py) ------------------------------
+    'health.liveness': ('state',),
+    'health.readiness': ('state',),
+    # -- fault injection (utils/faults.py) -----------------------------
+    'fault.inject': ('kind',),
+    # -- perf observatory (obs/perf.py, obs/devmon.py) -----------------
+    # One bounded jax.profiler capture began (manual /profile hit or
+    # the scheduler's adaptive ttft-p99 trigger — `trigger` names it).
+    'profile.capture': ('trigger', 'seconds', 'path'),
+    # `perf check` found a per-entry tolerance violation against the
+    # committed baseline (entry = registry name, metric = which gate).
+    'perf.regression': ('entry', 'metric'),
+    # Dispatch-floor accounting: one record per decode tick that ran a
+    # device program. `tick_seconds` is the REAL wall time of the whole
+    # scheduler tick body, `device_seconds` the slice spent inside
+    # compiled-program invocations (engine.program_seconds delta), so
+    # `overhead = tick_seconds - device_seconds` is the host-loop share
+    # ROADMAP item 5 targets. `tokens` counts tokens committed by the
+    # tick. Carries NO request_id: the floor is a per-tick property of
+    # the loop, not of any one stream — timeline reconstruction skips
+    # it, `obs critpath` aggregates it into the dispatch-floor section.
+    'serve.dispatch': ('step', 'tick_seconds', 'device_seconds'),
+    # -- incident layer (obs/anomaly.py, obs/flight.py) ----------------
+    # An online detector flagged a metric stream: `metric` is the
+    # registry family watched, `detector` the detector class that
+    # tripped, `value` the observation that breached. Extra fields
+    # (watch name, threshold/mean/sigma) ride along per detector.
+    'anomaly.detected': ('metric', 'detector', 'value'),
+    # The flight recorder wrote a post-mortem bundle: `trigger` names
+    # the cause (stall / exception / nan_storm / anomaly / sigterm /
+    # http / manual), `path` the bundle directory.
+    'postmortem.dump': ('trigger', 'path'),
+    # -- control plane (serve/control.py) ------------------------------
+    # The controller moved a scheduler knob: `knob` names it
+    # (degrade_watermark / queue_limit), `value` the new setting,
+    # `reason` why (breach:<watch> / pressure:<source>:<val> with
+    # source queue|page_pool / sustained_headroom). Extra fields:
+    # `previous` (the old value),
+    # `target` (the replica, in pool mode) — a run's control history
+    # reconstructs from these records alone.
+    'control.adjust': ('knob', 'value', 'reason'),
+    # The controller resized the decode pool: `direction` up/down,
+    # `replicas` the NEW pool size, `reason` the signal. A scale-down
+    # is always preceded by a control.drain of the victim.
+    'control.scale': ('direction', 'replicas', 'reason'),
+    # A decode replica was drained for removal: every in-flight and
+    # queued request preempted (serve.preempt, requeued=true, in the
+    # TARGET replica's log) and resubmitted through the router —
+    # `requeued` counts them; no stream drops without a typed reason.
+    'control.drain': ('target', 'requeued'),
+    # -- SLO observatory (obs/slo.py) ----------------------------------
+    # `slo check` found goodput below the committed SLO_BASELINE.json
+    # tolerance (`metric` names the gate; `tenant` is present on
+    # per-tenant violations, None on the aggregate one).
+    'slo.violation': ('metric',),
+    # -- swallowed exceptions (utils.tracing.log_exception) ------------
+    'exception': ('context', 'type'),
+}
+
+
+# Flight-recorder tee (obs/flight.py installs it): called with every
+# record an EventLog emits, as ``(record, encoded_line)``. None when no
+# recorder is installed — the disabled path costs exactly one global
+# None-check per emit, no allocation (the spans contract).
+_TEE = None
+
+
+# Fields that became REQUIRED at schema v2: records stamped with an
+# older version are exempt (a pre-tenancy log stays schema-clean), new
+# emits are not.
+_V2_FIELDS = {
+    'serve.admit': ('tenant',),
+    'serve.reject': ('tenant',),
+}
+
+
+def validate_record(rec):
+    """Schema-check one decoded record; returns a list of error strings
+    (empty = valid). Shared by :meth:`EventLog.emit` and the offline
+    validator CLI, so the write-side and read-side contracts cannot
+    drift apart. Records from any :data:`SUPPORTED_SCHEMAS` version
+    validate against THAT version's requirements — old logs don't rot
+    when the vocabulary grows."""
+    errors = []
+    if not isinstance(rec, dict):
+        return [f'record is not an object: {rec!r}']
+    schema = rec.get('schema')
+    if schema not in SUPPORTED_SCHEMAS:
+        errors.append(f'unknown schema version {schema!r} '
+                      f'(supported: {SUPPORTED_SCHEMAS})')
+    event = rec.get('event')
+    if event not in EVENT_SCHEMA:
+        errors.append(f'unknown event {event!r}')
+        return errors
+    for field in ('seq', 'ts'):
+        if field not in rec:
+            errors.append(f'{event}: missing envelope field {field!r}')
+    exempt = (_V2_FIELDS.get(event, ())
+              if isinstance(schema, int) and schema < 2 else ())
+    for field in EVENT_SCHEMA[event]:
+        if field not in rec and field not in exempt:
+            errors.append(f'{event}: missing required field {field!r}')
+    return errors
+
+
+def _json_safe(value):
+    """Strict-JSON field values: non-finite floats become the strings
+    ``'nan'``/``'inf'``/``'-inf'`` (bare ``NaN`` tokens are Python-only
+    — jq / Go / BigQuery consumers reject them, and the bad-step
+    records a fault log exists for are exactly the NaN-bearing ones).
+    Containers are sanitized recursively."""
+    if isinstance(value, float):
+        if value != value:
+            return 'nan'
+        if value in (float('inf'), float('-inf')):
+            return 'inf' if value > 0 else '-inf'
+        return value
+    if isinstance(value, (list, tuple)):
+        return [_json_safe(v) for v in value]
+    if isinstance(value, dict):
+        return {k: _json_safe(v) for k, v in value.items()}
+    return value
+
+
+class EventLog:
+    """Append-only JSONL event sink (see module docstring).
+
+    ``clock`` is injectable (virtual-time tests); ``ts`` is a wall
+    timestamp for operators — ``seq`` is the ordering contract.
+    """
+
+    def __init__(self, path, *, rotate_bytes=16 * 2 ** 20,
+                 keep_rotations=3, fsync=False, clock=time.time):
+        self.path = os.fspath(path)
+        self.rotate_bytes = int(rotate_bytes)
+        self.keep_rotations = int(keep_rotations)
+        self.fsync = fsync
+        self.clock = clock
+        self._lock = threading.Lock()
+        self._rotations = 0             # guarded-by: self._lock
+        os.makedirs(os.path.dirname(os.path.abspath(self.path)),
+                    exist_ok=True)
+        # Reopening an existing log continues its seq series: seq is
+        # the authoritative order, so a second run appending to the
+        # same file must not restart at 0 (read_events sorts by seq —
+        # duplicated values would interleave the two runs' records).
+        self._seq = self._resume_seq()  # guarded-by: self._lock
+        self._fh = open(self.path, 'a', encoding='utf-8')  # guarded-by: self._lock
+        self._size = self._fh.tell()    # guarded-by: self._lock
+
+    def _resume_seq(self):
+        if not os.path.exists(self.path):
+            return 0
+        # A crash-torn tail has no trailing newline; appending onto it
+        # would merge the next record into the torn fragment MID-file,
+        # where readers rightly refuse it. Drop the fragment (it was
+        # never a complete record) before appending.
+        with open(self.path, 'rb+') as f:
+            data = f.read()
+            if data and not data.endswith(b'\n'):
+                last_nl = data.rfind(b'\n')
+                f.truncate(last_nl + 1 if last_nl >= 0 else 0)
+        last = -1
+        with open(self.path, encoding='utf-8') as f:
+            for line in f:
+                try:
+                    seq = json.loads(line).get('seq')
+                except json.JSONDecodeError:
+                    continue        # complete-but-corrupt line
+                if isinstance(seq, int):
+                    last = max(last, seq)
+        return last + 1
+
+    # -- write side -----------------------------------------------------
+    def emit(self, event, **fields):
+        """Append one schema-validated event; returns the full record
+        (envelope included) for callers that also want it in-process."""
+        rec = {'schema': SCHEMA_VERSION, 'seq': None,
+               'ts': self.clock(), 'event': event}
+        rec.update({k: _json_safe(v) for k, v in fields.items()})
+        with self._lock:
+            rec['seq'] = self._seq
+            errors = validate_record(rec)
+            if errors:
+                raise ValueError(
+                    f'invalid event {event!r}: ' + '; '.join(errors))
+            line = json.dumps(rec, separators=(',', ':'),
+                              allow_nan=False, default=str)
+            self._seq += 1
+            self._fh.write(line + '\n')
+            # Flush per line: a crash loses at most the line being
+            # written, and readers (smoke audits tailing a live run)
+            # always see complete records.
+            self._fh.flush()
+            if self.fsync:
+                os.fsync(self._fh.fileno())
+            self._size += len(line) + 1
+            # Tee into the flight recorder's ring (already-encoded line
+            # — no second serialization). Inside the lock so the ring
+            # sees records in the same order the file does.
+            tee = _TEE
+            if tee is not None:
+                tee(rec, line)
+            if self._size >= self.rotate_bytes:
+                self._rotate_locked()
+        return rec
+
+    def _rotate_locked(self):
+        self._fh.close()
+        oldest = f'{self.path}.{self.keep_rotations}'
+        if os.path.exists(oldest):
+            os.remove(oldest)
+        for i in range(self.keep_rotations - 1, 0, -1):
+            src = f'{self.path}.{i}'
+            if os.path.exists(src):
+                os.replace(src, f'{self.path}.{i + 1}')
+        os.replace(self.path, f'{self.path}.1')
+        self._fh = open(self.path, 'a', encoding='utf-8')
+        self._size = 0
+        self._rotations += 1
+
+    @property
+    def rotations(self):
+        with self._lock:
+            return self._rotations
+
+    def files(self):
+        """Existing log files, oldest first (rotated set then the live
+        file) — the read order that makes ``seq`` non-decreasing."""
+        out = [f'{self.path}.{i}'
+               for i in range(self.keep_rotations, 0, -1)
+               if os.path.exists(f'{self.path}.{i}')]
+        if os.path.exists(self.path):
+            out.append(self.path)
+        return out
+
+    def flush(self):
+        with self._lock:
+            self._fh.flush()
+            if self.fsync:
+                os.fsync(self._fh.fileno())
+
+    def close(self):
+        with self._lock:
+            if not self._fh.closed:
+                self._fh.flush()
+                self._fh.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+        return False
+
+
+# -- the process-wide active log ----------------------------------------
+
+_ACTIVE: Optional[EventLog] = None
+_ACTIVE_LOCK = threading.Lock()
+
+
+def get_active() -> Optional[EventLog]:
+    return _ACTIVE
+
+
+def set_active(log: Optional[EventLog]) -> Optional[EventLog]:
+    """Install ``log`` as the process-wide sink; returns the previous
+    one (for restoration)."""
+    global _ACTIVE
+    with _ACTIVE_LOCK:
+        prev, _ACTIVE = _ACTIVE, log
+    return prev
+
+
+@contextlib.contextmanager
+def activate(log: EventLog):
+    """Scoped :func:`set_active` (the normal way to wire a run)."""
+    prev = set_active(log)
+    try:
+        yield log
+    finally:
+        set_active(prev)
+
+
+def emit(event, _log: Optional[EventLog] = None, **fields):
+    """Emit through ``_log``, or the active log, or nowhere (no-op when
+    neither exists) — the call sites sprinkled through serve/train/fault
+    code pay one None-check when logging is off."""
+    log = _log if _log is not None else _ACTIVE
+    if log is None:
+        return None
+    return log.emit(event, **fields)
+
+
+def remove_log(path):
+    """Delete a log AND its rotated set — the fresh-file guarantee a
+    one-shot run wants before opening its EventLog (which otherwise
+    APPENDS, resuming the seq series; a stale previous run would then
+    double every reconstructed timeline). Owns the rotation naming so
+    callers don't hardcode it."""
+    path = os.fspath(path)
+    for p in _log_files(path):
+        os.remove(p)
+
+
+def open_from_env(environ=None) -> Optional[EventLog]:
+    """An :class:`EventLog` at ``$DDP_TPU_EVENT_LOG``, or None when the
+    knob is unset — how shell scripts (scripts/smoke_serve.sh) attach a
+    log without touching python."""
+    env = os.environ if environ is None else environ
+    path = env.get(ENV_VAR)
+    return EventLog(path) if path else None
+
+
+# -- read side ------------------------------------------------------------
+
+def _log_files(path):
+    """Rotated set for ``path`` (oldest first), accepting either the
+    live file or a directory-less prefix."""
+    path = os.fspath(path)
+    rotated = []
+    i = 1
+    while os.path.exists(f'{path}.{i}'):
+        rotated.append(f'{path}.{i}')
+        i += 1
+    out = list(reversed(rotated))
+    if os.path.exists(path):
+        out.append(path)
+    return out
+
+
+def read_events(source):
+    """Decode every event from ``source`` — an :class:`EventLog`, a path
+    (its rotated set is reassembled), or an iterable of already-decoded
+    records. Returns records sorted by ``seq``. A torn tail line (crash
+    mid-write) is tolerated on the LAST line of the newest file only;
+    anywhere else it raises."""
+    if isinstance(source, EventLog):
+        files = source.files()
+    elif isinstance(source, (str, os.PathLike)):
+        files = _log_files(source)
+    else:
+        return sorted(source, key=lambda r: r.get('seq', 0))
+    records = []
+    for fi, fname in enumerate(files):
+        with open(fname, encoding='utf-8') as f:
+            lines = f.read().splitlines()
+        for li, line in enumerate(lines):
+            if not line.strip():
+                continue
+            try:
+                records.append(json.loads(line))
+            except json.JSONDecodeError:
+                last = (fi == len(files) - 1 and li == len(lines) - 1)
+                if not last:
+                    raise ValueError(
+                        f'{fname}:{li + 1}: corrupt event line '
+                        f'(not the crash-torn tail): {line[:80]!r}')
+    return sorted(records, key=lambda r: r.get('seq', 0))
+
+
+def merge_events(sources):
+    """Merge the event streams of several logs — one per serving
+    replica (ROADMAP item 2: a request's prefill and decode happen in
+    different pools, so its lifecycle spans two JSONL files) — into ONE
+    seq-consistent record list.
+
+    ``sources`` is an iterable of log paths (each read through
+    :func:`read_events`, so rotated sets and a crash-torn tail on any
+    source are handled) or ``(replica, path)`` pairs naming the source;
+    bare paths get ``r0, r1, ...`` labels. Every returned record is
+    annotated with its ``replica`` label.
+
+    Ordering contract: within one source, per-source ``seq`` stays
+    authoritative (records of a source never reorder relative to each
+    other, whatever their timestamps — a replica's own clock can
+    stutter). Across sources, heads are merged by ``(ts, source
+    index)`` — a stable k-way merge, so equal timestamps resolve in
+    source order and the merge is deterministic."""
+    streams = []
+    seen_labels = set()
+    for i, src in enumerate(sources):
+        if isinstance(src, (tuple, list)) and len(src) == 2:
+            label, path = src
+        else:
+            label, path = f'r{i}', src
+        if str(label) in seen_labels:
+            # Two sources under one label would collapse into one
+            # indistinguishable replica (and silently interleave their
+            # seq series) — a mislabeled merge is a typed error, not a
+            # corrupted timeline.
+            raise ValueError(
+                f'duplicate replica label {str(label)!r} in '
+                f'merge_events sources — label each source uniquely '
+                f'(replica=path)')
+        seen_labels.add(str(label))
+        recs = read_events(path)
+        for rec in recs:
+            rec.setdefault('replica', str(label))
+        streams.append(recs)
+    merged = []
+    heads = [0] * len(streams)
+    while True:
+        best = None
+        for si, recs in enumerate(streams):
+            if heads[si] >= len(recs):
+                continue
+            key = (recs[heads[si]].get('ts', 0), si)
+            if best is None or key < best:
+                best, bi = key, si
+        if best is None:
+            return merged
+        merged.append(streams[bi][heads[bi]])
+        heads[bi] += 1
+
+
+def validate_file(path):
+    """Offline schema validation over a log's rotated set: returns
+    ``(records, errors)`` where ``errors`` is a list of strings (empty
+    = the log is schema-clean)."""
+    errors = []
+    try:
+        records = read_events(path)
+    except ValueError as e:
+        return [], [str(e)]
+    for rec in records:
+        for err in validate_record(rec):
+            errors.append(f'seq={rec.get("seq")}: {err}')
+    return records, errors

@@ -1,0 +1,278 @@
+# -*- coding: utf-8 -*-
+"""
+Hierarchical host-side wall-time spans — the structured successor of the
+reference ``measure`` decorator (reference functions.py:24-41), grown
+from a per-call print into a nestable tree an operator can read.
+
+Copied from ``distributed_dot_product_tpu/obs/spans.py``; the profiler
+annotation is ``torch.profiler.record_function`` in place of
+``jax.profiler.TraceAnnotation``. Contract:
+
+- Spans time HOST-side work: dispatch, readback, scheduling, I/O.
+- **Zero-overhead disabled path**: when collection is off (the default),
+  :func:`span` returns a shared null context manager — no allocation,
+  no lock, no clock read. Production code can leave spans in place.
+- When enabled, each span additionally enters a
+  ``torch.profiler.record_function`` scope, so a ``torch.profiler``
+  capture shows the same names on the host timeline (the annotation is
+  a no-op outside an active capture).
+- Thread-safe: nesting is tracked per thread (thread-local stacks), the
+  finished-span buffer is shared and lock-protected.
+
+Usage::
+
+    from distributed_dot_product_tpu_torch.obs import span, spanned, enable
+
+    enable(True)                      # or DDP_TPU_SPANS=1
+    with span('train.step', step=i):
+        record = step_fn(...)         # host dispatch + readback
+
+    @spanned('benchmark.compile')
+    def compile_phase(...): ...
+
+    for rec in get_collector().records():
+        print(rec.path, rec.seconds)
+"""
+
+import collections
+import dataclasses
+import functools
+import os
+import threading
+import time
+from typing import Optional, Tuple
+
+__all__ = ['span', 'spanned', 'enable', 'enabled', 'collecting',
+           'get_collector', 'SpanCollector', 'SpanRecord']
+
+ENV_VAR = 'DDP_TPU_SPANS'
+
+
+@dataclasses.dataclass(frozen=True)
+class SpanRecord:
+    """One finished span. ``path`` is the slash-joined ancestry on this
+    thread (``'serve.tick/engine.decode_step'``), ``depth`` its nesting
+    level, ``start`` a ``perf_counter`` timestamp (comparable within the
+    process only)."""
+    name: str
+    path: str
+    start: float
+    seconds: float
+    depth: int
+    thread: str
+    attrs: Tuple[Tuple[str, object], ...] = ()
+    ok: bool = True
+
+    def as_dict(self):
+        return {'name': self.name, 'path': self.path,
+                'start': self.start, 'seconds': self.seconds,
+                'depth': self.depth, 'thread': self.thread,
+                'attrs': dict(self.attrs), 'ok': self.ok}
+
+
+class SpanCollector:
+    """Bounded buffer of finished spans plus per-thread nesting stacks.
+
+    ``registry``: when set, every finished span also observes its
+    duration into ``registry.histogram('span.<name>.seconds')`` — so a
+    metrics snapshot / the Prometheus exporter carries span latency
+    percentiles without a separate pipeline."""
+
+    def __init__(self, *, registry=None, maxlen=65536):
+        self.enabled = False
+        self.registry = registry
+        self._lock = threading.Lock()
+        self._records = collections.deque(maxlen=maxlen)  # guarded-by: self._lock
+        self._tls = threading.local()
+
+    def _stack(self):
+        stack = getattr(self._tls, 'stack', None)
+        if stack is None:
+            stack = self._tls.stack = []
+        return stack
+
+    def add(self, record: SpanRecord):
+        with self._lock:
+            self._records.append(record)
+        reg = self.registry
+        if reg is not None:
+            reg.histogram(f'span.{record.name}.seconds').observe(
+                record.seconds)
+
+    def records(self):
+        with self._lock:
+            return list(self._records)
+
+    def clear(self):
+        with self._lock:
+            self._records.clear()
+
+    def summary(self):
+        """``{name: {'count', 'total_seconds', 'max_seconds'}}`` over the
+        buffered records — the compact form ``benchmark.py
+        --metrics-out`` serializes."""
+        out = {}
+        for rec in self.records():
+            agg = out.setdefault(rec.name, {'count': 0,
+                                            'total_seconds': 0.0,
+                                            'max_seconds': 0.0})
+            agg['count'] += 1
+            agg['total_seconds'] += rec.seconds
+            agg['max_seconds'] = max(agg['max_seconds'], rec.seconds)
+        return out
+
+    def render(self):
+        """Indented one-line-per-span text tree (records are in finish
+        order; depth carries the nesting)."""
+        return '\n'.join(
+            f'{"  " * rec.depth}{rec.name}: {rec.seconds * 1e3:.3f} ms'
+            + ('' if rec.ok else ' [raised]')
+            for rec in self.records())
+
+
+_COLLECTOR = SpanCollector()
+_COLLECTOR.enabled = bool(os.environ.get(ENV_VAR))
+
+
+def get_collector() -> SpanCollector:
+    return _COLLECTOR
+
+
+def enable(on=True, *, registry=None):
+    """Turn span collection on/off process-wide. ``registry`` (optional)
+    mirrors span durations into that metrics registry's histograms."""
+    _COLLECTOR.enabled = bool(on)
+    if registry is not None:
+        _COLLECTOR.registry = registry
+    return _COLLECTOR
+
+
+def enabled() -> bool:
+    return _COLLECTOR.enabled
+
+
+class collecting:
+    """Scoped enablement (tests, ``--metrics-out`` runs)::
+
+        with collecting() as col:
+            ...
+        col.records()
+    """
+
+    def __init__(self, *, registry=None):
+        self._registry = registry
+
+    def __enter__(self):
+        self._prev = (_COLLECTOR.enabled, _COLLECTOR.registry)
+        enable(True, registry=self._registry)
+        return _COLLECTOR
+
+    def __exit__(self, *exc):
+        _COLLECTOR.enabled, _COLLECTOR.registry = self._prev
+        return False
+
+
+class _NullSpan:
+    """The disabled path: a shared, stateless context manager. Also
+    usable as a decorator (``@span('name')`` at import time with spans
+    off): the wrapper re-checks enablement per call, so enabling later
+    still records — the span NAME then falls back to the function's
+    qualname (use :func:`spanned` to pin an explicit name)."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def __call__(self, fn):
+        return spanned()(fn)
+
+
+_NULL_SPAN = _NullSpan()
+
+
+def _trace_annotation(name):
+    """A ``torch.profiler.record_function`` scope for ``name`` (the
+    reference's ``jax.profiler.TraceAnnotation``), or None when the API
+    is unavailable. Imported lazily, like the reference's annotation."""
+    try:
+        import torch.profiler
+        return torch.profiler.record_function(name)
+    except (ImportError, AttributeError):
+        return None
+
+
+class _LiveSpan:
+    """The enabled path. Created only by :func:`span` after the
+    enablement check."""
+
+    __slots__ = ('name', 'attrs', '_col', '_start', '_path', '_depth',
+                 '_ann')
+
+    def __init__(self, name, attrs, col):
+        self.name = name
+        self.attrs = attrs
+        self._col = col
+
+    def __enter__(self):
+        stack = self._col._stack()
+        self._depth = len(stack)
+        stack.append(self.name)
+        self._path = '/'.join(stack)
+        self._ann = _trace_annotation(self.name)
+        if self._ann is not None:
+            self._ann.__enter__()
+        self._start = time.perf_counter()
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        seconds = time.perf_counter() - self._start
+        if self._ann is not None:
+            self._ann.__exit__(exc_type, exc, tb)
+        stack = self._col._stack()
+        if stack and stack[-1] == self.name:
+            stack.pop()
+        self._col.add(SpanRecord(
+            name=self.name, path=self._path, start=self._start,
+            seconds=seconds, depth=self._depth,
+            thread=threading.current_thread().name,
+            attrs=tuple(sorted(self.attrs.items())),
+            ok=exc_type is None))
+        return False
+
+    def __call__(self, fn):
+        return spanned(self.name, **self.attrs)(fn)
+
+
+def span(name, **attrs):
+    """Nestable span context manager (see the module docstring).
+    ``attrs`` are free-form key/values recorded on the span (kept small
+    — they are materialized per finished span)."""
+    col = _COLLECTOR
+    if not col.enabled:
+        return _NULL_SPAN
+    return _LiveSpan(name, attrs, col)
+
+
+def spanned(name=None, **attrs):
+    """Decorator form: wrap every call of ``fn`` in a span. Enablement
+    is re-checked per call, so decorating at import time is free until
+    spans are switched on."""
+
+    def deco(fn):
+        label = name or fn.__qualname__
+
+        @functools.wraps(fn)
+        def wrapper(*args, **kwargs):
+            col = _COLLECTOR
+            if not col.enabled:
+                return fn(*args, **kwargs)
+            with _LiveSpan(label, attrs, col):
+                return fn(*args, **kwargs)
+
+        return wrapper
+
+    return deco

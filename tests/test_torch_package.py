@@ -9,7 +9,8 @@ Package contracts of the PyTorch port (``distributed_dot_product_tpu_torch``):
   matched exactly or up to a dot);
 - entry points default to the card and raise without one;
 - CPU calls run the plain versions and leave the kernel launch counters
-  at 0, serving and training (K1, K3, K4, K5);
+  at 0, serving (greedy generation, and the scheduler over the slab and
+  paged engines) and training (K1, K3, K4, K5, K5p);
 - ``chip_smoke.py`` exits non-zero and prints no result without a card,
   both in the repository and alone in an empty directory.
 """
@@ -59,7 +60,8 @@ def test_import_loads_no_jax():
 @pytest.mark.parametrize('path', sorted(
     [p.relative_to(REPO) for p in PORT.rglob('*.py')]
     + [Path('chip_smoke.py'), Path('scripts/torch_profile_generate.py'),
-       Path('scripts/torch_profile_train.py')]),
+       Path('scripts/torch_profile_train.py'),
+       Path('scripts/torch_profile_serve.py')]),
     ids=str)
 def test_no_reference_imports(path):
     bad = [m for m in _imports(REPO / path) if _banned(m)]
@@ -84,13 +86,18 @@ def test_default_device_is_cuda_and_raises_without_card(monkeypatch):
                   lambda: port.DistributedDotProductAttn(
                       32, num_heads=4, softmax_impl='flash'),
                   lambda: port.OwnedDense(4, 4),
-                  lambda: port.init_cache(1, 1, 4, 4)):
+                  lambda: port.init_cache(1, 1, 4, 4),
+                  lambda: port.init_slot_cache(2, 1, 4, 4),
+                  lambda: port.init_paged_cache(2, 1, 4, 4, pages=2,
+                                                page_size=2),
+                  lambda: port.KernelEngine(2, 8),
+                  lambda: port.KernelEngine(2, 8, cache_mode='paged')):
         with pytest.raises(RuntimeError, match='cuda'):
             build()
 
 
 COUNTED = ('flash_attention', 'flash_attention_dq', 'flash_attention_dkv',
-           'flash_decode')
+           'flash_decode', 'flash_decode_paged')
 
 
 def test_cpu_calls_leave_launch_counters_at_zero():
@@ -103,6 +110,21 @@ def test_cpu_calls_leave_launch_counters_at_zero():
     tdec.decode_step(one, cache, one, one)
     model = port.TransformerLM(64, 32, 4, n_layers=1, device='cpu')
     port.greedy_generate(model, torch.zeros((1, 3), dtype=torch.int32), 3, 8)
+    assert all(getattr(port, name).launches == 0 for name in COUNTED)
+
+
+@pytest.mark.parametrize('cache_mode', ['slab', 'paged'])
+def test_cpu_scheduler_leaves_launch_counters_at_zero(cache_mode):
+    for name in COUNTED:
+        getattr(port, name).launches = 0
+    engine = port.KernelEngine(2, 16, prefill_chunk=4, cache_mode=cache_mode,
+                               page_size=4, device='cpu')
+    with port.Scheduler(engine, port.ServeConfig(watchdog=False),
+                        fault_injector=False) as sched:
+        for prompt in ([1, 2, 3, 4, 5], [6], [7, 8]):
+            sched.submit(prompt)
+        results = sched.run_until_idle()
+    assert {r.status for r in results.values()} == {'completed'}
     assert all(getattr(port, name).launches == 0 for name in COUNTED)
 
 
