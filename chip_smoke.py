@@ -48,13 +48,31 @@ Phases, one JSON line each (some several):
 10. train_cpu_reference: one step's loss and every parameter's gradient
    of a 2-layer model at full width (B 1 x T 512), the card (bf16 compute
    through the kernels) against the same float32 weights on the CPU
-   (float32, plain versions).
+   (float32, plain versions);
+11. flash_features (run after flash_backward): K1/K3/K4 at the flagship
+   module's fold shape (2 x 8 heads, 4096 rows, head dim 64) with a dense
+   mask that has fully masked rows (passed as a column slice of a
+   (B, 1, 4096, 8192) mask, uncopied), with ring-fold kv_offsets (past,
+   diagonal, future) and float32 gradients, against their plain
+   versions; K2 against its plain version and K1, and a large-norm case
+   in which the guard must launch K1; times against bound, plain and
+   SDPA with a boolean mask;
+12. seq_parallel: 4 ranks spawned on the card (gloo with host-staged
+   collectives; NCCL when there is a card per rank) running the
+   flagship DistributedDotProductAttn(key_dim=512, num_heads=8,
+   offset=64): entry() at W = 1 and 4, nt / all / tn times, each
+   strategy's output and gradients at W = 4 against the local module,
+   and three DP x SP train steps (2 x 2, B 4 x T 8192, Adam 1e-3) of
+   'full', 'flash', 'online', bounded 'flash', 'ulysses' and causal
+   'online' with ms per step and each kernel's launches per step.
 
 Then the card's ``nvidia-smi`` name and power limit, the kernels line
-(``{"kernels": [...]}``: K1, K3, K4, K5 and K5p with their launches on
+(``{"kernels": [...]}``: K1, K2, K3, K4, K5 and K5p with their launches on
 their path, max error, kernel / plain / library / bound times) and, only if
 every phase passed, the last line ``{"ok": true, "device": {...}}``.
-Exits non-zero on any failure, and without a card.
+Exits non-zero on any failure, and without a card. ``--phases a,b`` runs
+only the named phases (after device and build) and prints no result
+line.
 """
 
 import json
@@ -895,6 +913,238 @@ def phase_flash_backward(torch, ddp, flush, gen):
     return worst, timing
 
 
+# The sequence-parallel configuration: the flagship module
+# DistributedDotProductAttn(key_dim=512, num_heads=8, offset=64) (head dim
+# 64), trained DP x SP on a 2 x 2 group: global batch 4 x T 8192, so each
+# rank holds 2 x 4096 rows of 8 heads.
+SP_DIM, SP_HEADS, SP_OFFSET = 512, 8, 64
+SP_HEAD_DIM = SP_DIM // SP_HEADS
+SP_DATA, SP_SEQ, SP_B, SP_T = 2, 2, 4, 8192
+SP_TN = SP_T // SP_SEQ
+# K2 vs its plain version and vs K1: the same shift-invariant softmax, the
+# bound's shift only moves where float32 rounds, so the row limits above
+# hold it (its p is rounded to bf16 as K1's is).
+
+
+def _fold_inputs(torch, gen, b, h, tq, tk, d, mask_cols=None, scale=1.0):
+    dev, bf16 = torch.device('cuda'), torch.bfloat16
+    q = scale * randn(torch, (b, h, tq, d), gen, dev, torch.float32)
+    k = scale * randn(torch, (b, h, tk, d), gen, dev, torch.float32)
+    v = randn(torch, (b, h, tk, d), gen, dev, bf16)
+    g = randn(torch, (b, h, tq, d), gen, dev, bf16)
+    mask = None
+    if mask_cols is not None:
+        # A rank's (B, 1, T/N, T) rows with 30% of entries masked and
+        # every 97th row fully masked.
+        mask = torch.rand((b, 1, tq, mask_cols), generator=gen) < 0.3
+        mask[:, :, ::97] = True
+        mask = mask.to(dev)
+    return q.to(bf16), k.to(bf16), v, g, mask
+
+
+def phase_flash_features(torch, ddp, flush, gen):
+    """K1/K3/K4 with a dense mask (fully masked rows), ring-fold
+    kv_offsets and float32 gradients; K2 against its plain version and
+    K1, and a large-norm case where the guard must launch K1."""
+    import importlib
+    fa = importlib.import_module(
+        'distributed_dot_product_tpu_torch.ops.flash_attention')
+    F = torch.nn.functional
+    b, h, tn, d = SP_B // SP_DATA, SP_HEADS, SP_TN, SP_HEAD_DIM
+    scale = 1.0 / math.sqrt(d)
+    worst, failures, rows_out = {}, [], {}
+    q, k, v, g, mask = _fold_inputs(torch, gen, b, h, tn, tn, d,
+                                    mask_cols=SP_T)
+    # (name, causal, causal_offset, kv_offset, mask column block or None,
+    # grad dtype): rank 1's ring folds of the causal 2-rank ring (owner 0
+    # in the past, owner 1 the diagonal, owner 0 seen from rank 0's future
+    # side would be skipped), a masked non-causal fold, and the masked
+    # self-attention of one rank's block.
+    cases = [('fold_past_f32', True, tn, 0, None, torch.float32),
+             ('fold_diag_f32', True, tn, tn, None, torch.float32),
+             ('fold_future', True, 0, tn, None, torch.float32),
+             ('fold_mask_f32', False, tn, 0, 0, torch.float32),
+             ('fold_mask_causal_f32', True, tn, tn, 1, torch.float32),
+             ('mask_bf16', False, 0, 0, 1, None)]
+    neg = fa._LN2 * fa._NEG_BIG
+    for name, causal, co, ko, blk, gdt in cases:
+        m = None if blk is None else mask[..., blk * tn:(blk + 1) * tn]
+        kw = dict(causal=causal, causal_offset=co, kv_offset=ko)
+        out, lse = fa.flash_attention_with_lse(q, k, v, m, scale=scale, **kw)
+        out_p, lse_p = fa.flash_attention_plain_lse(q, k, v, m, scale=scale,
+                                                    **kw)
+        grads = fa.flash_attention_backward(q, k, v, out, lse, g, scale=scale,
+                                            mask=m, grad_dtype=gdt, **kw)
+        plain = fa.flash_attention_backward_plain(
+            q, k, v, out, lse, g, scale=scale, mask=m, grad_dtype=gdt, **kw)
+        torch.cuda.synchronize()
+        got = dict(zip(('out', 'dq', 'dk', 'dv'), (out, *grads)))
+        want = dict(zip(('out', 'dq', 'dk', 'dv'), (out_p, *plain)))
+        err = {n: (got[n].float() - want[n].float()).abs().max().item()
+               for n in got}
+        finite_lse = lse_p > 0.5 * neg
+        err['lse'] = (lse - lse_p)[finite_lse].abs().max().item() \
+            if finite_lse.any() else 0.0
+        rel = {n: rel_errs(torch, got[n], want[n]) for n in got
+               if want[n].abs().max().item() > 0}
+        empty = (~finite_lse)
+        exact_empty = bool((lse[empty] == neg).all().item()
+                           and not out[empty].any().item()
+                           and not grads[0][empty].any().item())
+        dtypes = sorted({str(t.dtype) for t in grads})
+        emit({'phase': 'flash_features', 'case': name, 'q': list(q.shape),
+              'kv': list(k.shape), 'causal': causal, 'causal_offset': co,
+              'kv_offset': ko, 'mask': None if m is None else
+              {'shape': list(m.shape), 'strides': list(m.stride()),
+               'masked_share': m.float().mean().item()},
+              'grad_dtypes': dtypes, 'max_abs_err': err,
+              'max_row_rel_err': {n: e[0] for n, e in rel.items()},
+              'rel_err': {n: e[1] for n, e in rel.items()},
+              'empty_rows': int(empty.sum().item()),
+              'empty_rows_exact': exact_empty,
+              'tol': {'lse': TOL_LSE, 'row_rel': TOL_ROW_REL,
+                      'rel': TOL_NORM_REL}})
+        for n, t in (*got.items(), ('lse', lse)):
+            if not torch.isfinite(t).all().item():
+                failures.append(f'{n} {name}: non-finite')
+        if err['lse'] > TOL_LSE:
+            failures.append(f'lse {name}: abs err {err["lse"]} > {TOL_LSE}')
+        if not exact_empty:
+            failures.append(f'{name}: rows with no attendable key are not '
+                            f'exactly out 0 / lse ln2*NEG_BIG / dq 0')
+        if gdt is not None and dtypes != ['torch.float32']:
+            failures.append(f'{name}: gradients in {dtypes}, want float32')
+        failures += check_rel(rel, name)
+        for n, e in err.items():
+            worst[n] = max(worst.get(n, 0.0), e)
+        if name == 'fold_future' and out.any().item():
+            failures.append('fold_future: output not 0')
+        rows_out[name] = (kw, m, gdt, out, lse)
+
+    # K2: against its plain version and against K1 on unit-normal inputs
+    # (the guard picks K2), then at a large norm (the guard must pick K1).
+    for name, norm, want_k2 in (('bounded', 1.0, True),
+                                ('bounded_large_norm', 4.0, False)):
+        qb, kb, vb, _, _ = _fold_inputs(torch, gen, b, h, tn, tn, d,
+                                        scale=norm)
+        m = mask[..., tn:2 * tn]
+        launches = (ddp.flash_attention.launches,
+                    fa.flash_attention_bounded.launches)
+        out = ddp.flash_attention(qb, kb, vb, m, scale=scale,
+                                  softmax_mode='bounded')
+        torch.cuda.synchronize()
+        took = (ddp.flash_attention.launches - launches[0],
+                fa.flash_attention_bounded.launches - launches[1])
+        mvec = fa.bounded_shift(fa._fold_q(qb, scale), kb)
+        ref = (fa.flash_attention_bounded_plain_lse(qb, kb, vb, m,
+                                                    scale=scale)[0]
+               if want_k2 else fa.flash_attention_plain(qb, kb, vb, m,
+                                                        scale=scale))
+        k1 = fa.flash_attention(qb, kb, vb, m, scale=scale)
+        row, whole = rel_errs(torch, out, ref)
+        row1, whole1 = rel_errs(torch, out, k1)
+        err = (out.float() - ref.float()).abs().max().item()
+        emit({'phase': 'flash_features', 'case': name, 'q': list(qb.shape),
+              'max_bound': mvec.max().item(),
+              'guard': '2*max(bound) <= 100',
+              'launched': {'flash_attention': took[0],
+                           'flash_attention_bounded': took[1]},
+              'max_abs_err': err, 'max_row_rel_err': row, 'rel_err': whole,
+              'vs_k1': {'max_row_rel_err': row1, 'rel_err': whole1},
+              'tol': {'row_rel': TOL_ROW_REL, 'rel': TOL_NORM_REL}})
+        want_took = (0, 1) if want_k2 else (1, 0)
+        if took != want_took:
+            failures.append(f'{name}: launched (K1, K2) = {took}, want '
+                            f'{want_took}')
+        failures += check_rel({'out': (row, whole)}, name)
+        failures += check_rel({'out_vs_k1': (row1, whole1)}, name)
+        worst['bounded' if want_k2 else 'bounded_large'] = err
+        if want_k2:
+            bounded = (qb, kb, vb, m, mvec)
+    check(not failures, '; '.join(failures))
+
+    # Times at the flagship's fold shape: K1 on rank 1's masked causal
+    # diagonal fold, K2 on the same inputs unmasked non-causal (the flash
+    # branch's shape), K3 / K4 with float32 gradients.
+    timing = {}
+    kw, m, gdt, out, lse = rows_out['fold_mask_causal_f32']
+    q2, lse2, delta = fa.flash_attention_bwd_operands(q, out, lse, g, scale)
+    nb = b * h
+    # Operations count the pairs this run's data needs: the causal
+    # diagonal's unmasked pairs (K2: every unmasked pair).
+    pairs = int((~m).expand(b, h, tn, tn).tril().sum().item())
+    mask_bytes = m.numel()                                # read once
+    qb, kb, vb, mb, mvec = bounded
+    pairs_k2 = int((~mb).expand(b, h, tn, tn).sum().item())
+    lib_mask = ~(m | torch.ones(tn, tn, dtype=torch.bool,
+                                device=m.device).triu(1))
+    qr, kr, vr = (t.detach().requires_grad_() for t in (q, k, v))
+    o_lib = F.scaled_dot_product_attention(qr, kr, vr, attn_mask=lib_mask,
+                                           scale=scale)
+    lib_bwd = time_ms(torch, lambda: torch.autograd.grad(
+        o_lib, (qr, kr, vr), g, retain_graph=True), flush)
+    qkv = 2 * nb * tn * d
+    for kname, flops, nbytes, fn, plain_fn, lib in (
+            ('flash_attention', 4 * d * pairs,
+             4 * qkv + mask_bytes + 4 * nb * tn,
+             lambda: fa.flash_attention_with_lse(q, k, v, m, scale=scale,
+                                                 **kw),
+             lambda: fa.flash_attention_plain_lse(q, k, v, m, scale=scale,
+                                                  **kw),
+             lambda: F.scaled_dot_product_attention(q, k, v,
+                                                    attn_mask=lib_mask,
+                                                    scale=scale)),
+            ('flash_attention_bounded', 4 * d * pairs_k2,
+             4 * qkv + mask_bytes + 4 * nb * tn,
+             lambda: fa.flash_attention_bounded(qb, kb, vb, mb, scale=scale,
+                                                mvec=mvec),
+             lambda: fa.flash_attention_bounded_plain_lse(qb, kb, vb, mb,
+                                                          scale=scale),
+             lambda: F.scaled_dot_product_attention(qb, kb, vb,
+                                                    attn_mask=~mb,
+                                                    scale=scale)),
+            ('flash_attention_dq', 6 * d * pairs,
+             4 * qkv + mask_bytes + 8 * nb * tn + 2 * qkv,
+             lambda: fa.flash_attention_dq(q2, k, v, g, lse2, delta, mask=m,
+                                           scale=scale, grad_dtype=gdt, **kw),
+             lambda: fa.flash_attention_dq_plain(q2, k, v, g, lse2, delta,
+                                                 mask=m, scale=scale,
+                                                 grad_dtype=gdt, **kw),
+             None),
+            ('flash_attention_dkv', 8 * d * pairs,
+             4 * qkv + mask_bytes + 8 * nb * tn + 4 * qkv,
+             lambda: fa.flash_attention_dkv(q2, k, v, g, lse2, delta, mask=m,
+                                            grad_dtype=gdt, **kw),
+             lambda: fa.flash_attention_dkv_plain(q2, k, v, g, lse2, delta,
+                                                  mask=m, grad_dtype=gdt,
+                                                  **kw),
+             None)):
+        bms, by = bound_ms(flops, nbytes)
+        timing[kname] = {
+            'ms': time_ms(torch, fn, flush),
+            'plain_ms': time_ms(torch, plain_fn, flush, reps=5),
+            'library_ms': time_ms(torch, lib, flush) if lib else lib_bwd,
+            'bound_ms': bms, 'bound_by': by, 'flops': flops,
+            'bytes': nbytes}
+    # K1 on K2's inputs: the two forwards on the same work, one call.
+    k1_same = time_ms(torch, lambda: fa.flash_attention(qb, kb, vb, mb,
+                                                        scale=scale), flush)
+    emit({'phase': 'flash_features', 'case': 'fold_timing',
+          'shape': [b, h, tn, d], 'pairs': pairs, 'pairs_k2': pairs_k2,
+          'k1_on_k2_inputs_ms': k1_same,
+          'library': {'flash_attention': 'sdpa forward, boolean mask',
+                      'flash_attention_bounded': 'sdpa forward, boolean '
+                      'mask', 'flash_attention_dq': 'sdpa backward (dq, dk, '
+                      'dv together), boolean mask',
+                      'flash_attention_dkv': 'sdpa backward (dq, dk, dv '
+                      'together), boolean mask'},
+          'bound_formula': 'bytes: q, k, v, dO/out read once (bf16), mask '
+                           'bytes, lse/delta; operations: 4/6/8*d per '
+                           'unmasked causal pair (K2: per unmasked pair)',
+          **timing})
+    return worst, timing
+
+
 def phase_train_path(torch, ddp):
     dev = torch.device('cuda')
     gen = torch.Generator().manual_seed(3)
@@ -990,6 +1240,353 @@ def phase_train_cpu_reference(torch, ddp):
           f'{worst}: grad rel err {grad_rel[worst]} > {TOL_REF_GRAD_REL}')
 
 
+# W = 4 ranks of the sequence-parallel phase, all on card 0 over gloo
+# (host-staged collectives) unless there is a card per rank (NCCL).
+SP_RANKS = 4
+SP_LABEL = f'{SP_RANKS} ranks on one card, gloo'
+SP_STEPS = 3
+SP_CHECK_B, SP_CHECK_T = 2, 2048    # distributed vs local, W = 4
+# Distributed vs the local module, W = 4, per tensor (rows as above;
+# weight gradients whole-tensor). The float32 'full' path differs only by
+# float32 summation order over 2048..8192 terms (~1e-6): 1e-4. The bf16
+# kernel paths round the same values to bf16 at different points on the
+# two sides: the ring's per-fold softmax weights and its float32 merge,
+# the bf16 sum of four ranks' cotangents in the gathers' reduce-scatter,
+# the bf16 output of each rank's weight-gradient GEMM before the float32
+# sum over ranks. One such rounding moves a tensor by up to 2^-9 relative
+# (the composition weight's gradient, rounded once more on one side,
+# reads 2.3e-3 whole); a gradient chain holds at most four of them in
+# series: whole 4 * 2^-9 ~ 8e-3, a row 2.5x that (the kernels' own
+# row-to-whole ratio above).
+SP_TOL_F32 = 1e-4
+SP_TOL_BF16_ROW, SP_TOL_BF16 = 2e-2, 8e-3
+# (name, softmax_impl, flash_softmax_mode, causal): the configurations of
+# dryrun_multichip's strategies, the bounded flash mode and a causal ring.
+SP_CONFIGS = (('full', 'full', 'exact', False),
+              ('flash', 'flash', 'exact', False),
+              ('online', 'online', 'exact', False),
+              ('flash_bounded', 'flash', 'bounded', False),
+              ('ulysses', 'ulysses', 'exact', False),
+              ('online_causal', 'online', 'exact', True))
+SP_KERNELS = ('flash_attention', 'flash_attention_bounded',
+              'flash_attention_dq', 'flash_attention_dkv')
+
+
+def sp_expected(name, seq_rank, seq):
+    """Launches per train step of (K1, K2, K3, K4) on a rank: one forward
+    and one backward per step; the ring folds W blocks (rank + 1 under
+    causal masking: the rest lie in its future)."""
+    if name == 'full':
+        return (0, 0, 0, 0)
+    if name.startswith('online'):
+        folds = seq_rank + 1 if name.endswith('causal') else seq
+        return (folds, 0, folds, folds)
+    if name == 'flash_bounded':
+        return (0, 1, 1, 1)
+    return (1, 0, 1, 1)
+
+
+def _sp_module(torch, ddp, impl, mode, causal, dev, seed=0):
+    kernel_path = impl != 'full'
+    return ddp.DistributedDotProductAttn(
+        key_dim=SP_DIM, num_heads=SP_HEADS, offset=SP_OFFSET,
+        softmax_impl=impl, flash_softmax_mode=mode, causal=causal,
+        dtype=torch.bfloat16 if kernel_path else torch.float32, device=dev,
+        generator=torch.Generator().manual_seed(seed))
+
+
+def _sp_wall_ms(torch, ddp, fn, group=None, reps=3):
+    """Median wall time of ``fn`` over ``reps`` calls on every rank at
+    once (a barrier before each; the card synchronised around it): the
+    collectives are host-staged, so the host's clock is the honest one."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        ddp.synchronize(group)
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(times)
+
+
+def _sp_run(torch, ddp, rank, dev):
+    """One rank's part of the seq_parallel phase; returns its numbers."""
+    import importlib
+    comm = importlib.import_module(
+        'distributed_dot_product_tpu_torch.utils.comm')
+    res = {'rank': rank, 'transport': comm.transport(None, dev)}
+    world = comm.get_world_size()
+
+    # entry(): the flagship module, B 1 x T 1024, all-False mask, 'full',
+    # forward at W = 1 (rank 0 alone) and W = 4.
+    model = _sp_module(torch, ddp, 'full', 'exact', False, dev)
+    x = torch.ones((1, 1024, SP_DIM), device=dev)
+    mask = torch.zeros((1, 1024, 1024), dtype=torch.bool, device=dev)
+    mesh1, mesh4 = ddp.seq_mesh(1), ddp.seq_mesh(world)
+    with torch.no_grad():
+        if rank == 0:
+            out1 = ddp.apply_seq_parallel(model, mesh1, x, x, x, mask)
+        out4 = ddp.apply_seq_parallel(model, mesh4, x, x, x, mask)
+        res['entry'] = {
+            'shape': list(out4.shape),
+            'finite': bool(torch.isfinite(out4).all().item()),
+            'ms_w4': _sp_wall_ms(torch, ddp, lambda: ddp.apply_seq_parallel(
+                model, mesh4, x, x, x, mask))}
+        if rank == 0:
+            res['entry']['w4_vs_w1_max_rel'] = (
+                (out4 - out1).abs().max() / out1.abs().max()).item()
+            res['entry']['ms_w1'] = _sp_wall_ms(
+                torch, ddp, lambda: ddp.apply_seq_parallel(
+                    model, mesh1, x, x, x, mask), group=mesh1.seq_group)
+    del model, out4
+
+    # nt / all / tn at the flagship's widths: (B 2, 8 heads, T 8192) over
+    # the W = 4 sequence shards, float32 as on the 'full' path.
+    gen = torch.Generator().manual_seed(100 + rank)
+    tn_local = SP_T // world
+    a = randn(torch, (2, SP_HEADS, tn_local, SP_HEAD_DIM), gen, dev,
+              torch.float32)
+    b = randn(torch, (2, SP_HEADS, tn_local, SP_HEAD_DIM), gen, dev,
+              torch.float32)
+    with torch.no_grad():
+        scores = ddp.distributed_matmul_nt(a, b, SP_OFFSET)
+        res['matmuls'] = {
+            'nt_ms': _sp_wall_ms(torch, ddp, lambda: ddp.distributed_matmul_nt(
+                a, b, SP_OFFSET)),
+            'all_ms': _sp_wall_ms(torch, ddp, lambda: ddp.distributed_matmul_all(
+                scores, b, SP_OFFSET)),
+            'tn_ms': _sp_wall_ms(torch, ddp, lambda: ddp.distributed_matmul_tn(
+                scores, b)),
+            'scores_shape': list(scores.shape)}
+    del a, b, scores
+    torch.cuda.empty_cache()
+
+    # Distributed (W = 4) vs the local module on the gathered tensors.
+    from distributed_dot_product_tpu_torch.utils.comm import all_reduce
+    gen = torch.Generator().manual_seed(7)      # the same on every rank
+    xs = [randn(torch, (SP_CHECK_B, SP_CHECK_T, SP_DIM), gen, dev,
+                torch.float32) for _ in range(4)]
+    cmask = (torch.rand((SP_CHECK_B, SP_CHECK_T, SP_CHECK_T), generator=gen)
+             < 0.3).to(dev)
+    res['vs_local'] = {}
+    for name, impl, mode, causal in SP_CONFIGS:
+        mod = _sp_module(torch, ddp, impl, mode, causal, dev)
+        shards = [ddp.shard_seq(t, mesh4).clone().requires_grad_()
+                  for t in xs[:3]]
+        out = mod(*shards, ddp.shard_seq(cmask, mesh4), group=None)
+        (out.float() * ddp.shard_seq(xs[3], mesh4)).sum().backward()
+        got = {'out': ddp.unshard_seq(out, mesh4)}
+        for n, t in zip(('d_keys', 'd_queries', 'd_values'), shards):
+            got[n] = ddp.unshard_seq(t.grad, mesh4)
+        pgrads = {n: all_reduce(p.grad) for n, p in mod.named_parameters()}
+        if rank == 0:
+            local = _sp_module(torch, ddp, impl, mode, causal, dev)
+            local.distributed = False
+            gx = [t.clone().requires_grad_() for t in xs[:3]]
+            ref = local(*gx, cmask)
+            (ref.float() * xs[3]).sum().backward()
+            want = {'out': ref, 'd_keys': gx[0].grad, 'd_queries': gx[1].grad,
+                    'd_values': gx[2].grad}
+            errs = {n: rel_errs(torch, got[n], want[n]) for n in want}
+            for n, p in local.named_parameters():
+                whole = (torch.linalg.vector_norm(pgrads[n].float()
+                                                  - p.grad.float())
+                         / torch.linalg.vector_norm(p.grad.float())).item()
+                errs[n] = (whole, whole)
+            res['vs_local'][name] = errs
+            del local, ref, gx
+        del mod, out, shards, got, pgrads
+        torch.cuda.empty_cache()
+    del xs, cmask
+
+    # The DP x SP train step on a 2 x 2 group: global B 4 x T 8192,
+    # all-False mask, MSE against zeros, Adam 1e-3, SP_STEPS steps.
+    mesh = ddp.data_seq_mesh(SP_DATA, SP_SEQ)
+    res['seq_rank'], res['data_rank'] = mesh.seq_rank, mesh.data_rank
+    res['seq_transport'] = comm.transport(mesh.seq_group, dev)
+    gen = torch.Generator().manual_seed(3)
+    x = randn(torch, (SP_B, SP_T, SP_DIM), gen, dev, torch.float32)
+    batch = (x, x, x, torch.zeros((SP_B, SP_T, SP_T), dtype=torch.bool,
+                                  device=dev), torch.zeros_like(x))
+    counters = [getattr(ddp, n) for n in SP_KERNELS]
+    res['train'] = {}
+    for name, impl, mode, causal in SP_CONFIGS:
+        mod = _sp_module(torch, ddp, impl, mode, causal, dev, seed=1)
+        opt = torch.optim.Adam(mod.parameters(), lr=1e-3)
+        step = ddp.make_train_step(mod, opt, mesh, data_axis='data')
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        for fn in counters:
+            fn.launches = 0
+        losses, ms, per_step = [], [], []
+        for _ in range(SP_STEPS):
+            before = [fn.launches for fn in counters]
+            torch.cuda.synchronize()
+            ddp.synchronize()
+            t0 = time.perf_counter()
+            loss = step(batch).item()
+            ms.append(1e3 * (time.perf_counter() - t0))
+            losses.append(loss)
+            per_step.append([fn.launches - b for fn, b in
+                             zip(counters, before)])
+        res['train'][name] = {
+            'losses': losses, 'step_ms': ms,
+            'launches_per_step': per_step,
+            'launches': [fn.launches for fn in counters],
+            'expected_per_step': list(sp_expected(name, mesh.seq_rank,
+                                                  SP_SEQ)),
+            'max_memory_allocated': torch.cuda.max_memory_allocated(dev)}
+        del mod, opt, step
+        torch.cuda.empty_cache()
+    return res
+
+
+def _sp_worker(rank, world, init_method, backend, results):
+    """A seq_parallel rank: joins the group, runs :func:`_sp_run`, and
+    reports its numbers or its traceback."""
+    import traceback
+    try:
+        import torch
+        import distributed_dot_product_tpu_torch as ddp
+        torch.set_num_threads(2)
+        dev = torch.device('cuda', rank if backend == 'nccl' else 0)
+        torch.cuda.set_device(dev)
+        ddp.init(backend, init_method, world, rank)
+        results.put((rank, True, _sp_run(torch, ddp, rank, dev)))
+    except Exception:
+        # Reported to the parent, which fails the phase; the rank dies.
+        results.put((rank, False, traceback.format_exc()))
+        raise
+    finally:
+        import torch.distributed as dist
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def phase_seq_parallel(torch, ddp, timeout=600):
+    """W = 4 ranks of the sequence-parallel layer, spawned after the
+    kernels are built: entry() at W = 1 and 4, nt / all / tn, each
+    strategy against the local module, and SP_STEPS DP x SP train steps
+    per strategy with launch counts. A rank that fails or the phase
+    timing out fails the phase."""
+    import multiprocessing as mp
+    import queue
+    import socket
+    torch.cuda.empty_cache()
+    backend = 'nccl' if torch.cuda.device_count() >= SP_RANKS else 'gloo'
+    with socket.socket() as sock:
+        sock.bind(('localhost', 0))
+        port = sock.getsockname()[1]
+    ctx = mp.get_context('spawn')
+    results = ctx.Queue()
+    procs = [ctx.Process(target=_sp_worker, daemon=True,
+                         args=(r, SP_RANKS, f'tcp://localhost:{port}',
+                               backend, results))
+             for r in range(SP_RANKS)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    ranks = {}
+    try:
+        while len(ranks) < SP_RANKS:
+            left = timeout - (time.perf_counter() - t0)
+            try:
+                rank, ok, value = results.get(timeout=max(left, 1))
+            except queue.Empty:
+                raise PhaseError(f'seq_parallel: ranks '
+                                 f'{sorted(set(range(SP_RANKS)) - set(ranks))}'
+                                 f' did not finish within {timeout} s')
+            check(ok, f'seq_parallel rank {rank} failed:\n{value}')
+            ranks[rank] = value
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    seconds = time.perf_counter() - t0
+    r0 = ranks[0]
+    label = (SP_LABEL if backend == 'gloo'
+             else f'{SP_RANKS} ranks on {SP_RANKS} cards, nccl')
+    base = {'phase': 'seq_parallel', 'ranks': SP_RANKS, 'label': label,
+            'transport': r0['transport']}
+    failures = []
+    entry = r0['entry']
+    emit({**base, 'case': 'entry', 'module': {
+        'key_dim': SP_DIM, 'num_heads': SP_HEADS, 'offset': SP_OFFSET,
+        'softmax_impl': 'full'}, 'batch': [1, 1024], **entry,
+        'ms_w4_by_rank': [ranks[r]['entry']['ms_w4'] for r in sorted(ranks)],
+        'tol': SP_TOL_F32})
+    if not all(ranks[r]['entry']['finite'] for r in ranks):
+        failures.append('entry: non-finite output')
+    if not entry['w4_vs_w1_max_rel'] <= SP_TOL_F32:
+        failures.append(f'entry: W=4 vs W=1 rel err '
+                        f'{entry["w4_vs_w1_max_rel"]} > {SP_TOL_F32}')
+    emit({**base, 'case': 'matmuls', 'offset': SP_OFFSET,
+          'shard': [2, SP_HEADS, SP_T // SP_RANKS, SP_HEAD_DIM],
+          'dtype': 'float32', **r0['matmuls'],
+          'by_rank': {k: [ranks[r]['matmuls'][k] for r in sorted(ranks)]
+                      for k in ('nt_ms', 'all_ms', 'tn_ms')}})
+    for name, impl, mode, causal in SP_CONFIGS:
+        errs = r0['vs_local'][name]
+        emit({**base, 'case': 'vs_local', 'strategy': name,
+              'batch': [SP_CHECK_B, SP_CHECK_T], 'mask': 'random 30%',
+              'max_row_rel_err': {n: e[0] for n, e in errs.items()},
+              'rel_err': {n: e[1] for n, e in errs.items()},
+              'tol': ({'row_rel': SP_TOL_F32, 'rel': SP_TOL_F32}
+                      if impl == 'full' else
+                      {'row_rel': SP_TOL_BF16_ROW, 'rel': SP_TOL_BF16})})
+        for n, (row, whole) in errs.items():
+            lim_row, lim = ((SP_TOL_F32, SP_TOL_F32) if impl == 'full'
+                            else (SP_TOL_BF16_ROW, SP_TOL_BF16))
+            if not (row <= lim_row and whole <= lim):
+                failures.append(f'{name} vs local {n}: row {row}, whole '
+                                f'{whole} > ({lim_row}, {lim})')
+    launches = {}
+    for name, impl, mode, causal in SP_CONFIGS:
+        runs = {r: ranks[r]['train'][name] for r in sorted(ranks)}
+        t0r = runs[0]
+        emit({**base, 'case': 'train', 'strategy': name,
+              'mesh': {'data': SP_DATA, 'seq': SP_SEQ},
+              'seq_transport': r0['seq_transport'],
+              'batch': [SP_B, SP_T], 'module': {
+                  'key_dim': SP_DIM, 'num_heads': SP_HEADS,
+                  'offset': SP_OFFSET, 'softmax_impl': impl,
+                  'flash_softmax_mode': mode, 'causal': causal,
+                  'compute': 'float32' if impl == 'full' else 'bfloat16'},
+              'optimizer': 'adam 1e-3', 'losses': t0r['losses'],
+              'step_ms_rank0': t0r['step_ms'],
+              'ms_per_step_median': statistics.median(
+                  max(runs[r]['step_ms'][i] for r in runs)
+                  for i in range(SP_STEPS)),
+              'kernels': list(SP_KERNELS),
+              'launches_per_step': {r: runs[r]['launches_per_step']
+                                    for r in runs},
+              'expected_per_step': {r: runs[r]['expected_per_step']
+                                    for r in runs},
+              'max_memory_allocated': {r: runs[r]['max_memory_allocated']
+                                       for r in runs}})
+        for r, run in runs.items():
+            if not all(math.isfinite(v) for v in run['losses']):
+                failures.append(f'{name} rank {r}: non-finite loss')
+            want = run['expected_per_step']
+            for i, got in enumerate(run['launches_per_step']):
+                if got != want:
+                    failures.append(f'{name} rank {r} step {i + 1}: '
+                                    f'launched {got}, want {want}')
+        if len({tuple(runs[r]['losses']) for r in runs}) != 1:
+            failures.append(f'{name}: ranks report different losses')
+        launches[name] = dict(zip(SP_KERNELS, t0r['launches']))
+    if launches['flash_bounded']['flash_attention_bounded'] < 1:
+        failures.append('flash_bounded: K2 never launched')
+    emit({**base, 'case': 'summary', 'seconds': seconds,
+          'backend': backend})
+    check(not failures, '; '.join(failures))
+    return launches
+
+
 def main():
     try:
         import torch
@@ -1009,7 +1606,15 @@ def main():
               file=sys.stderr)
         return 2
 
+    only = None
+    if '--phases' in sys.argv:
+        only = set(sys.argv[sys.argv.index('--phases') + 1].split(','))
+
+    def want(name):
+        return only is None or name in only
+
     phase = 'device'
+    res = {}
     try:
         smi = subprocess.run(
             ['nvidia-smi', '--query-gpu=name,power.limit',
@@ -1030,59 +1635,100 @@ def main():
         flush = torch.empty(64 * 1024 * 1024, dtype=torch.int32,
                             device='cuda')            # 256 MB > 50 MB L2
         gen = torch.Generator().manual_seed(1)
-        phase = 'flash_attention'
-        k1 = phase_flash(torch, ddp, flush, gen)
-        phase = 'flash_decode'
-        k5 = phase_decode(torch, ddp, flush, gen)
-        phase = 'flash_decode_paged'
-        k5p = phase_decode_paged(torch, ddp, flush, gen)
-        phase = 'serve_path'
-        serve_path_launches = phase_serve_path(torch, ddp)
-        phase = 'flash_backward'
-        bwd_err, bwd_time = phase_flash_backward(torch, ddp, flush, gen)
-        del flush
-        phase = 'main_path'
-        serve_launches = phase_main_path(torch, ddp)
-        phase = 'train_path'
-        train_launches = phase_train_path(torch, ddp)
-        phase = 'train_cpu_reference'
-        phase_train_cpu_reference(torch, ddp)
+        phases = (
+            ('flash_attention', lambda: phase_flash(torch, ddp, flush, gen)),
+            ('flash_decode', lambda: phase_decode(torch, ddp, flush, gen)),
+            ('flash_decode_paged',
+             lambda: phase_decode_paged(torch, ddp, flush, gen)),
+            ('serve_path', lambda: phase_serve_path(torch, ddp)),
+            ('flash_backward',
+             lambda: phase_flash_backward(torch, ddp, flush, gen)),
+            ('flash_features',
+             lambda: phase_flash_features(torch, ddp, flush, gen)),
+            ('main_path', lambda: phase_main_path(torch, ddp)),
+            ('train_path', lambda: phase_train_path(torch, ddp)),
+            ('train_cpu_reference',
+             lambda: phase_train_cpu_reference(torch, ddp)),
+            ('seq_parallel', lambda: phase_seq_parallel(torch, ddp)))
+        for phase, run in phases:
+            if want(phase):
+                res[phase] = run()
+            if phase == 'flash_features':
+                del flush
+                torch.cuda.empty_cache()
     except Exception as exc:   # report the failed phase, then fail
         emit({'phase': phase, 'ok': False,
               'error': f'{type(exc).__name__}: {exc}'})
         raise
+    if only is not None:       # a partial run prints no result line
+        print(smi, flush=True)
+        emit({'phases_run': sorted(res)})
+        return 0
+    k1, k5, k5p = (res['flash_attention'], res['flash_decode'],
+                   res['flash_decode_paged'])
+    serve_path_launches = res['serve_path']
+    bwd_err, bwd_time = res['flash_backward']
+    feat_err, feat_time = res['flash_features']
+    serve_launches = res['main_path']
+    train_launches = res['train_path']
+    sp = res['seq_parallel']
 
-    # K1, K3, K4: launches on the training path (K1's serving launches
-    # beside them), times at the training shape. K5: launches and times of
-    # the greedy serving path (its launches on the slab twin of the
-    # scheduler's run beside them). K5p: launches on the scheduler's paged
-    # run, times at the serving shape.
+    # K1, K3, K4: launches on the training path (beside them the serving
+    # path's and each sequence-parallel strategy's, rank 0 over its
+    # SP_STEPS train steps), times at the training shape. K2: launches on
+    # the bounded flash train steps, times at the flagship's fold shape
+    # (flash_features). K5: launches and times of the greedy serving path
+    # (its launches on the slab twin of the scheduler's run beside them).
+    # K5p: launches on the scheduler's paged run, times at the serving
+    # shape.
     csrc = 'distributed_dot_product_tpu_torch/csrc/'
     tpu = 'distributed_dot_product_tpu/ops/'
-    k1_err = max(k1['max_abs_err'], bwd_err['out'])
+    k1_err = max(k1['max_abs_err'], bwd_err['out'], feat_err['out'])
+
+    def sp_paths(kernel):
+        return {f'seq_parallel_{name}': counts[kernel]
+                for name, counts in sp.items() if counts[kernel]}
     kernels = [
         dict(name='flash_attention', source=csrc + 'flash_fwd.cu',
              replaces=tpu + 'pallas_attention.py:630',
              launches=train_launches['flash_attention'],
              launches_by_path={
                  'serve': serve_launches['flash_attention'],
-                 'train': train_launches['flash_attention']},
-             max_abs_err=k1_err, lse_max_abs_err=bwd_err['lse'],
+                 'train': train_launches['flash_attention'],
+                 **sp_paths('flash_attention')},
+             max_abs_err=k1_err, lse_max_abs_err=max(bwd_err['lse'],
+                                                     feat_err['lse']),
              max_row_rel_err=max(k1['max_row_rel_err'],
                                  bwd_err['out_row_rel']),
+             masked_fold=feat_time['flash_attention'],
              **bwd_time['flash_attention']),
+        dict(name='flash_attention_bounded', source=csrc + 'flash_fwd.cu',
+             replaces=tpu + 'pallas_attention.py:1151',
+             launches=sp['flash_bounded']['flash_attention_bounded'],
+             launches_by_path=sp_paths('flash_attention_bounded'),
+             max_abs_err=feat_err['bounded'],
+             **feat_time['flash_attention_bounded']),
         dict(name='flash_attention_dq', source=csrc + 'flash_bwd.cu',
              replaces=tpu + 'pallas_attention.py:1228',
              launches=train_launches['flash_attention_dq'],
-             max_abs_err=bwd_err['dq'],
+             launches_by_path={
+                 'train': train_launches['flash_attention_dq'],
+                 **sp_paths('flash_attention_dq')},
+             max_abs_err=max(bwd_err['dq'], feat_err['dq']),
              max_row_rel_err=bwd_err['dq_row_rel'],
+             masked_fold_f32=feat_time['flash_attention_dq'],
              **bwd_time['flash_attention_dq']),
         dict(name='flash_attention_dkv', source=csrc + 'flash_bwd.cu',
              replaces=tpu + 'pallas_attention.py:1319',
              launches=train_launches['flash_attention_dkv'],
-             max_abs_err=max(bwd_err['dk'], bwd_err['dv']),
+             launches_by_path={
+                 'train': train_launches['flash_attention_dkv'],
+                 **sp_paths('flash_attention_dkv')},
+             max_abs_err=max(bwd_err['dk'], bwd_err['dv'], feat_err['dk'],
+                             feat_err['dv']),
              max_row_rel_err=max(bwd_err['dk_row_rel'],
                                  bwd_err['dv_row_rel']),
+             masked_fold_f32=feat_time['flash_attention_dkv'],
              **bwd_time['flash_attention_dkv']),
         dict(name='flash_decode', source=csrc + 'flash_decode.cu',
              replaces=tpu + 'pallas_decode.py:107',
@@ -1105,6 +1751,10 @@ def main():
         entry['route'] = 'cuda'
         for key in ('flops', 'bytes'):
             entry.pop(key, None)
+        for extra in ('masked_fold', 'masked_fold_f32'):
+            if extra in entry:
+                entry[extra] = {k: v for k, v in entry[extra].items()
+                                if k not in ('flops', 'bytes')}
     print(smi, flush=True)
     emit({'kernels': kernels})
     emit({'ok': True, 'device': {'platform': 'gpu', 'kind': kind,

@@ -3,15 +3,18 @@
 //
 // Replace the TPU kernels `_make_dq_kernel` (dq) and `_make_dkv_kernel`
 // (dk, dv) in distributed_dot_product_tpu/ops/pallas_attention.py, driven
-// there by `_flash_bwd_impl` (exact softmax mode, causal with a host-int row
-// offset, GQA; no mask, segments, positions, window, ALiBi, dropout or int8
-// scoring, no float32 partials).
+// there by `_flash_bwd_impl`: causal masking with host-int global offsets of
+// query row 0 and key column 0, a dense boolean mask (addressed through
+// strides as in csrc/flash_fwd.cu), GQA, and gradients written in bf16 or,
+// for the ring path that sums W fold partials, in float32 (`grad_dtype`);
+// no segments, positions, window, ALiBi, dropout or int8 scoring. The
+// gradient of K2, the bounded forward, is these kernels from its lse.
 //
 // Both recompute the softmax weights from the forward's row logsumexp
 // instead of storing them: with q2 = q*scale*log2(e) (rounded to bf16),
 // lse2 = max(lse*log2(e), NEG_BIG) and delta = rowsum(dO*O), all three made
 // by the wrapper as the TPU path makes them outside its kernels,
-//   p  = exp2(q2.k^T - lse2)        (causal future and ragged edge: 0)
+//   p  = exp2(q2.k^T - lse2)        (masked, causal future, ragged edge: 0)
 //   ds = p * (dO.v^T - delta)       (rounded to bf16 for the products)
 //   dq = scale * ds.k,  dk = ds^T.q2 / log2(e),  dv = p^T.dO (p in bf16).
 //
@@ -60,6 +63,27 @@ using FragBRow = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16,
 using FragBCol = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16,
                                 wmma::col_major>;
 using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
+
+// A dense boolean mask: byte (b, h, row, col) at
+// ptr + (bh / inner) * so + (bh % inner) * si + row * sr + col.
+struct MaskArgs {
+  const unsigned char* ptr;
+  int inner;
+  long long so, si, sr;
+};
+
+__device__ __forceinline__ const unsigned char* mask_base(const MaskArgs& m,
+                                                          int bh) {
+  return m.ptr + (bh / m.inner) * m.so + (bh % m.inner) * m.si;
+}
+
+__device__ __forceinline__ void store_pair(bf16* dst, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(a, b);
+}
+
+__device__ __forceinline__ void store_pair(float* dst, float a, float b) {
+  *reinterpret_cast<float2*>(dst) = make_float2(a, b);
+}
 
 // Rows [row0, row0 + 64) of a (rows, D) bf16 matrix into shared memory,
 // 16 bytes a thread; rows at or past `limit` load as zeros.
@@ -115,12 +139,12 @@ __device__ __forceinline__ void warp_ab_acc(FragC (&acc)[D / 16],
   }
 }
 
-// Writes one warp's 16 x D accumulator as bf16 rows times `mul`: staged
+// Writes one warp's 16 x D accumulator as OutT rows times `mul`: staged
 // through the warp's own 16 x D float region of shared memory; lanes
 // (2r, 2r+1) write half a row each, rows at or past `limit` are skipped.
-template <int D>
+template <int D, typename OutT>
 __device__ __forceinline__ void store_rows(FragC (&acc)[D / 16], float* stage,
-                                           bf16* dst, int row0, int limit,
+                                           OutT* dst, int row0, int limit,
                                            float mul) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   float* ws = stage + warp * 16 * D;
@@ -132,11 +156,10 @@ __device__ __forceinline__ void store_rows(FragC (&acc)[D / 16], float* stage,
   const int row = row0 + warp * 16 + r;
   if (row < limit) {
     const float* src = ws + r * D + half * (D / 2);
-    __nv_bfloat162* out = reinterpret_cast<__nv_bfloat162*>(
-        dst + static_cast<size_t>(row) * D + half * (D / 2));
+    OutT* out = dst + static_cast<size_t>(row) * D + half * (D / 2);
 #pragma unroll
     for (int c = 0; c < D / 2; c += 2)
-      out[c / 2] = __floats2bfloat162_rn(src[c] * mul, src[c + 1] * mul);
+      store_pair(out + c, src[c] * mul, src[c + 1] * mul);
   }
   __syncwarp();
 }
@@ -148,14 +171,15 @@ constexpr size_t dq_smem_bytes() {
          + sizeof(float) * 2 * kB * kB; // sS, sDP (the epilogue's stage)
 }
 
-template <int D>
+template <int D, bool HasMask, typename OutT>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_kernel(const bf16* __restrict__ q2, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, const bf16* __restrict__ g,
                     const float* __restrict__ lse2,
-                    const float* __restrict__ delta, bf16* __restrict__ dq,
-                    int tq, int tk, int group, int causal, int causal_offset,
-                    float scale, int n_qtiles) {
+                    const float* __restrict__ delta, OutT* __restrict__ dq,
+                    MaskArgs mask, int tq, int tk, int group, int causal,
+                    int causal_offset, int kv_offset, float scale,
+                    int n_qtiles) {
   static_assert(D % 16 == 0 && D <= 128, "head dim must be 16*n <= 128");
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* sQ = reinterpret_cast<bf16*>(smem);
@@ -177,10 +201,12 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q2, const bf16* __restrict__ k,
   const bf16* kb = k + static_cast<size_t>(bkv) * tk * D;
   const bf16* vb = v + static_cast<size_t>(bkv) * tk * D;
 
+  // Row i may attend local key column j when rel + i >= j.
+  const long long rel = static_cast<long long>(causal_offset) - kv_offset;
   int kv_end = tk;
   if (causal) {
     const int rows = (q0 + kB < tq ? q0 + kB : tq);
-    const long long extent = static_cast<long long>(causal_offset) + rows;
+    const long long extent = rel + rows;
     kv_end = extent <= 0 ? 0 : (extent < tk ? static_cast<int>(extent) : tk);
   }
   const int n_ktiles = (kv_end + kB - 1) / kB;
@@ -193,8 +219,11 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q2, const bf16* __restrict__ k,
   const int my_row = warp * 16 + (lane >> 1);
   const int half = lane & 1;
   const bool row_ok = q0 + my_row < tq;
-  const long long row_pos = static_cast<long long>(causal_offset) + q0 +
-                            my_row;
+  const long long row_pos = rel + q0 + my_row;
+  const unsigned char* mrow =
+      (HasMask && row_ok)
+          ? mask_base(mask, bh) + static_cast<long long>(q0 + my_row) * mask.sr
+          : nullptr;
   const float lse_r = row_ok ? lse2[qoff + q0 + my_row] : 0.f;
   const float delta_r = row_ok ? delta[qoff + q0 + my_row] : 0.f;
 
@@ -219,7 +248,8 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q2, const bf16* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < 32; ++c) {
       const int col = k0 + half * 32 + c;
-      const bool valid = row_ok && col < tk && (!causal || col <= row_pos);
+      bool valid = row_ok && col < tk && (!causal || col <= row_pos);
+      if constexpr (HasMask) valid = valid && !mrow[col];
       const float p = valid ? exp2f(srow[c] - lse_r) : 0.f;
       dsrow[c] = __float2bfloat16(p * (dprow[c] - delta_r));
     }
@@ -229,7 +259,7 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q2, const bf16* __restrict__ k,
   }
 
   __syncthreads();   // the stage overlays other warps' score rows
-  store_rows<D>(acc, sS, dq + qoff * D, q0, tq, scale);
+  store_rows<D, OutT>(acc, sS, dq + qoff * D, q0, tq, scale);
 }
 
 template <int D>
@@ -240,14 +270,15 @@ constexpr size_t dkv_smem_bytes() {
                             + 2 * kB);  // sLse, sDelta
 }
 
-template <int D>
+template <int D, bool HasMask, typename OutT>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkv_kernel(const bf16* __restrict__ q2, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, const bf16* __restrict__ g,
                      const float* __restrict__ lse2,
-                     const float* __restrict__ delta, bf16* __restrict__ dk,
-                     bf16* __restrict__ dv, int tq, int tk, int group,
-                     int causal, int causal_offset, int n_qtiles) {
+                     const float* __restrict__ delta, OutT* __restrict__ dk,
+                     OutT* __restrict__ dv, MaskArgs mask, int tq, int tk,
+                     int group, int causal, int causal_offset, int kv_offset,
+                     int n_qtiles) {
   static_assert(D % 16 == 0 && D <= 128, "head dim must be 16*n <= 128");
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* sK = reinterpret_cast<bf16*>(smem);
@@ -271,10 +302,11 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q2, const bf16* __restrict__ k,
   load_tile<D>(sV, v + kvoff, k0, tk);
 
   // First query tile whose rows can see key column k0: row r sees it when
-  // causal_offset + r >= k0.
+  // rel + r >= k0.
+  const long long rel = static_cast<long long>(causal_offset) - kv_offset;
   int qt_begin = 0;
   if (causal) {
-    const long long r_min = static_cast<long long>(k0) - causal_offset;
+    const long long r_min = static_cast<long long>(k0) - rel;
     qt_begin = r_min <= 0 ? 0
              : (r_min >= tq ? n_qtiles : static_cast<int>(r_min / kB));
   }
@@ -296,6 +328,8 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q2, const bf16* __restrict__ k,
   for (int h = 0; h < group; ++h) {
     const size_t qoff = static_cast<size_t>(bkv) * group * tq +
                         static_cast<size_t>(h) * tq;
+    const unsigned char* mbase =
+        HasMask ? mask_base(mask, bkv * group + h) : nullptr;
     for (int qt = qt_begin; qt < n_qtiles; ++qt) {
       const int q0 = qt * kB;
       __syncthreads();   // all warps done with the previous query tile
@@ -320,9 +354,11 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q2, const bf16* __restrict__ k,
 #pragma unroll
       for (int c = 0; c < 32; ++c) {
         const int qc = half * 32 + c;
-        const bool valid = krow_ok && q0 + qc < tq &&
-            (!causal || kpos <= static_cast<long long>(causal_offset) +
-                                    q0 + qc);
+        bool valid = krow_ok && q0 + qc < tq &&
+            (!causal || kpos <= rel + q0 + qc);
+        if constexpr (HasMask)
+          valid = valid &&
+                  !mbase[static_cast<long long>(q0 + qc) * mask.sr + kpos];
         const float p = valid ? exp2f(strow[c] - sLse[qc]) : 0.f;
         prow[c] = __float2bfloat16(p);
         dsrow[c] = __float2bfloat16(p * (dptrow[c] - sDelta[qc]));
@@ -335,97 +371,135 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q2, const bf16* __restrict__ k,
   }
 
   __syncthreads();   // the stage overlays other warps' score rows
-  store_rows<D>(acc_dk, sST, dk + kvoff, k0, tk, kInvLog2e);
-  store_rows<D>(acc_dv, sST, dv + kvoff, k0, tk, 1.f);
+  store_rows<D, OutT>(acc_dk, sST, dk + kvoff, k0, tk, kInvLog2e);
+  store_rows<D, OutT>(acc_dv, sST, dv + kvoff, k0, tk, 1.f);
 }
 
-template <int D>
+template <int D, bool HasMask, typename OutT>
 int launch_dq(const void* q2, const void* k, const void* v, const void* g,
-              const void* lse2, const void* delta, void* dq, int batch_heads,
-              int group, int tq, int tk, int causal, int causal_offset,
+              const void* lse2, const void* delta, void* dq,
+              const MaskArgs& mask, int batch_heads, int group, int tq,
+              int tk, int causal, int causal_offset, int kv_offset,
               float scale, cudaStream_t stream) {
   const size_t smem = dq_smem_bytes<D>();
+  auto kernel = flash_bwd_dq_kernel<D, HasMask, OutT>;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const int n_qtiles = (tq + kB - 1) / kB;
   if (n_qtiles == 0 || batch_heads == 0) return 0;
   dim3 grid(n_qtiles, batch_heads);
-  flash_bwd_dq_kernel<D><<<grid, kThreads, smem, stream>>>(
+  kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const bf16*>(q2), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const bf16*>(g),
       static_cast<const float*>(lse2), static_cast<const float*>(delta),
-      static_cast<bf16*>(dq), tq, tk, group, causal, causal_offset, scale,
-      n_qtiles);
+      static_cast<OutT*>(dq), mask, tq, tk, group, causal, causal_offset,
+      kv_offset, scale, n_qtiles);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
+template <int D, bool HasMask, typename OutT>
 int launch_dkv(const void* q2, const void* k, const void* v, const void* g,
                const void* lse2, const void* delta, void* dk, void* dv,
-               int batch_heads, int group, int tq, int tk, int causal,
-               int causal_offset, cudaStream_t stream) {
+               const MaskArgs& mask, int batch_heads, int group, int tq,
+               int tk, int causal, int causal_offset, int kv_offset,
+               cudaStream_t stream) {
   const size_t smem = dkv_smem_bytes<D>();
+  auto kernel = flash_bwd_dkv_kernel<D, HasMask, OutT>;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const int n_ktiles = (tk + kB - 1) / kB;
   const int n_qtiles = (tq + kB - 1) / kB;
   if (n_ktiles == 0 || batch_heads == 0) return 0;
   dim3 grid(n_ktiles, batch_heads / group);
-  flash_bwd_dkv_kernel<D><<<grid, kThreads, smem, stream>>>(
+  kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const bf16*>(q2), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const bf16*>(g),
       static_cast<const float*>(lse2), static_cast<const float*>(delta),
-      static_cast<bf16*>(dk), static_cast<bf16*>(dv), tq, tk, group, causal,
-      causal_offset, n_qtiles);
+      static_cast<OutT*>(dk), static_cast<OutT*>(dv), mask, tq, tk, group,
+      causal, causal_offset, kv_offset, n_qtiles);
   return static_cast<int>(cudaGetLastError());
+}
+
+MaskArgs mask_args(const void* mask, int inner, long long so, long long si,
+                   long long sr) {
+  return MaskArgs{static_cast<const unsigned char*>(mask),
+                  inner > 0 ? inner : 1, so, si, sr};
 }
 
 }  // namespace
 
 // q2, g (batch_heads, tq, d); k, v (batch_heads / group, tk, d); lse2,
-// delta (batch_heads, tq) float32; dq like q2. All contiguous, bf16 unless
-// stated. Returns a cudaError_t code (0 = launched).
+// delta (batch_heads, tq) float32; dq like q2, in float32 when out_f32 and
+// in bf16 otherwise. mask: null, or bytes addressed as MaskArgs (inner =
+// heads; strides in bytes). All contiguous, bf16 unless stated. Returns a
+// cudaError_t code (0 = launched).
 extern "C" int flash_bwd_dq_bf16(const void* q2, const void* k,
                                  const void* v, const void* g,
                                  const void* lse2, const void* delta,
-                                 void* dq, int batch_heads, int group,
-                                 int tq, int tk, int d, int causal,
-                                 int causal_offset, float scale,
+                                 void* dq, const void* mask, int mask_inner,
+                                 long long mask_so, long long mask_si,
+                                 long long mask_sr, int batch_heads,
+                                 int group, int tq, int tk, int d,
+                                 int causal, int causal_offset,
+                                 int kv_offset, float scale, int out_f32,
                                  void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (d) {
+  const MaskArgs m = mask_args(mask, mask_inner, mask_so, mask_si, mask_sr);
+#define DQ_LAUNCH(D, M, T)                                                  \
+  return launch_dq<D, M, T>(q2, k, v, g, lse2, delta, dq, m, batch_heads,  \
+                            group, tq, tk, causal, causal_offset,          \
+                            kv_offset, scale, s)
 #define DQ_CASE(D)                                                          \
     case D:                                                                 \
-      return launch_dq<D>(q2, k, v, g, lse2, delta, dq, batch_heads, group, \
-                          tq, tk, causal, causal_offset, scale, s);
+      if (mask == nullptr) {                                                \
+        if (out_f32) DQ_LAUNCH(D, false, float);                            \
+        DQ_LAUNCH(D, false, bf16);                                          \
+      }                                                                     \
+      if (out_f32) DQ_LAUNCH(D, true, float);                               \
+      DQ_LAUNCH(D, true, bf16);
+  switch (d) {
     DQ_CASE(32) DQ_CASE(64) DQ_CASE(96) DQ_CASE(128)
-#undef DQ_CASE
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+#undef DQ_CASE
+#undef DQ_LAUNCH
 }
 
-// As above; dk, dv like k, v (each GQA group's query heads summed).
+// As above; dk, dv like k, v (each GQA group's query heads summed), in
+// float32 when out_f32 and in bf16 otherwise.
 extern "C" int flash_bwd_dkv_bf16(const void* q2, const void* k,
                                   const void* v, const void* g,
                                   const void* lse2, const void* delta,
-                                  void* dk, void* dv, int batch_heads,
-                                  int group, int tq, int tk, int d,
-                                  int causal, int causal_offset,
-                                  void* stream) {
+                                  void* dk, void* dv, const void* mask,
+                                  int mask_inner, long long mask_so,
+                                  long long mask_si, long long mask_sr,
+                                  int batch_heads, int group, int tq, int tk,
+                                  int d, int causal, int causal_offset,
+                                  int kv_offset, int out_f32, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (d) {
+  const MaskArgs m = mask_args(mask, mask_inner, mask_so, mask_si, mask_sr);
+#define DKV_LAUNCH(D, M, T)                                                  \
+  return launch_dkv<D, M, T>(q2, k, v, g, lse2, delta, dk, dv, m,           \
+                             batch_heads, group, tq, tk, causal,            \
+                             causal_offset, kv_offset, s)
 #define DKV_CASE(D)                                                          \
     case D:                                                                  \
-      return launch_dkv<D>(q2, k, v, g, lse2, delta, dk, dv, batch_heads,    \
-                           group, tq, tk, causal, causal_offset, s);
+      if (mask == nullptr) {                                                 \
+        if (out_f32) DKV_LAUNCH(D, false, float);                            \
+        DKV_LAUNCH(D, false, bf16);                                          \
+      }                                                                      \
+      if (out_f32) DKV_LAUNCH(D, true, float);                               \
+      DKV_LAUNCH(D, true, bf16);
+  switch (d) {
     DKV_CASE(32) DKV_CASE(64) DKV_CASE(96) DKV_CASE(128)
-#undef DKV_CASE
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+#undef DKV_CASE
+#undef DKV_LAUNCH
 }

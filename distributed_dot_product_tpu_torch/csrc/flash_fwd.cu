@@ -1,10 +1,12 @@
-// Flash-attention forward for Hopper (sm_90a), bf16 in, f32 accumulation.
+// Flash-attention forward for Hopper (sm_90a), bf16 in, f32 accumulation:
+// kernel K1 and its bounded-softmax variant K2.
 //
-// Replaces the TPU kernel `_make_fwd_kernel` in
-// distributed_dot_product_tpu/ops/pallas_attention.py (exact softmax mode,
-// causal with a host-int row offset, GQA, the optional row logsumexp that
-// the backward recomputes from; no mask, segments, positions, window,
-// ALiBi, dropout or int8 scoring).
+// Replaces the TPU kernels `_make_fwd_kernel` (exact softmax, K1) and
+// `_make_fwd_kernel_bounded` (K2) in
+// distributed_dot_product_tpu/ops/pallas_attention.py: causal masking with
+// host-int global offsets of query row 0 and key column 0, a dense boolean
+// mask, GQA, and the optional row logsumexp that the backward recomputes
+// from; no segments, positions, window, ALiBi, dropout or int8 scoring.
 //
 // What bounds it on the H100: at the prefill shape (Tq = 1000 query rows
 // against a 2048-row cache, head dim 96, causal) the work is ~6 GFLOP per
@@ -26,7 +28,28 @@
 // at NEG_BIG (finite), masked logits are -inf, and a row with no
 // attendable key (l == 0) outputs exactly 0. With a non-null `lse` each
 // row also writes ln2*(m2 + log2(l)), l == 0 counted as 1, as the TPU
-// kernel saves it for the backward; a null `lse` (serving) writes nothing.
+// kernel saves it for the backward (a row with no attendable key writes
+// ln2*NEG_BIG, which the ring merge and the backward rely on); a null
+// `lse` (serving) writes nothing.
+//
+// Masks. Causal: row i (global position causal_offset + i) attends column
+// j (global position kv_offset + j) when causal_offset + i >= kv_offset + j;
+// tiles wholly past that are never loaded. Dense mask: a byte per (row,
+// column), nonzero = masked, addressed through strides (batch, head, row;
+// columns contiguous) so that a head-broadcast mask or a column slice of a
+// wider mask needs no copy. Tiles that are wholly masked are still loaded
+// (no per-tile summaries; the TPU's are an optimisation of that target).
+// The mask and bounded flags are template parameters: the unmasked exact
+// instantiation is the code the serving and training paths ran before.
+//
+// K2 (Bounded): the running max is replaced by the per-row bound mvec (the
+// wrapper computes it: ||q2_i|| * max_j ||k_j|| + 1, Cauchy-Schwarz in log2
+// units), so the max reduction and both rescalings drop out. Softmax is
+// shift-invariant, so K2 equals K1 while bound - rowmax stays inside the
+// float32 exponent range; the wrapper runs K1 instead when 2*max(mvec) >
+// 100 (the reference's guard). Built without flush-to-zero (no
+// --use_fast_math, no -ftz): weights down to 2^-149 keep their denormals,
+// as on the TPU, whose normal range also ends at 2^-126.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -46,6 +69,20 @@ constexpr int kThreads = kWarps * 32;
 constexpr float kNegBig = -0.7f * 3.4e38f;
 constexpr float kLn2 = 0.693147180559945309f;
 
+// A dense boolean mask: byte (b, h, row, col) at
+// ptr + (bh / inner) * so + (bh % inner) * si + row * sr + col.
+struct MaskArgs {
+  const unsigned char* ptr;
+  int inner;
+  long long so, si, sr;
+};
+
+__device__ __forceinline__ const unsigned char* mask_row(const MaskArgs& m,
+                                                         int bh, int row) {
+  return m.ptr + (bh / m.inner) * m.so + (bh % m.inner) * m.si +
+         static_cast<long long>(row) * m.sr;
+}
+
 template <int D>
 constexpr size_t smem_bytes() {
   return sizeof(bf16) * (kBQ * D        // sQ
@@ -55,12 +92,14 @@ constexpr size_t smem_bytes() {
                             + kBQ * D); // sO
 }
 
-template <int D>
+template <int D, bool HasMask, bool Bounded>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, bf16* __restrict__ out,
-                 float* __restrict__ lse, int tq, int tk, int group,
-                 int causal, int causal_offset, float qscale, int n_qtiles) {
+                 float* __restrict__ lse, const float* __restrict__ mvec,
+                 MaskArgs mask, int tq, int tk, int group, int causal,
+                 int causal_offset, int kv_offset, float qscale,
+                 int n_qtiles) {
   static_assert(D % 16 == 0 && D <= 128, "head dim must be 16*n <= 128");
   constexpr int kChunks = D / 8;   // 16-byte chunks per row
   extern __shared__ __align__(128) unsigned char smem[];
@@ -85,11 +124,13 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* vb = v + static_cast<size_t>(bkv) * tk * D;
   bf16* ob = out + static_cast<size_t>(bh) * tq * D;
 
+  // Row i may attend local key column j when rel + i >= j.
+  const long long rel = static_cast<long long>(causal_offset) - kv_offset;
   // Key columns any row of this tile may attend: [0, kv_end).
   int kv_end = tk;
   if (causal) {
     const int rows = (q0 + kBQ < tq ? q0 + kBQ : tq);
-    const long long extent = static_cast<long long>(causal_offset) + rows;
+    const long long extent = rel + rows;
     kv_end = extent <= 0 ? 0 : (extent < tk ? static_cast<int>(extent) : tk);
   }
   const int n_ktiles = (kv_end + kBK - 1) / kBK;
@@ -116,8 +157,14 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   // w*16 + r, each lane half of the row's key columns / output features.
   const int my_row = warp * 16 + (lane >> 1);
   const int half = lane & 1;
-  const long long row_pos = static_cast<long long>(causal_offset) + q0 + my_row;
+  const bool row_ok = q0 + my_row < tq;
+  const long long row_pos = rel + q0 + my_row;
+  const unsigned char* mrow =
+      (HasMask && row_ok) ? mask_row(mask, bh, q0 + my_row) : nullptr;
+  // K1: the running max, from NEG_BIG. K2: the row's bound, fixed.
   float m_run = kNegBig;
+  if constexpr (Bounded)
+    m_run = row_ok ? mvec[static_cast<size_t>(bh) * tq + q0 + my_row] : 0.f;
   float l_run = 0.f;
 
   for (int t = 0; t < n_ktiles; ++t) {
@@ -162,13 +209,17 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < 32; ++c) {
       const int col = k0 + half * 32 + c;
-      const bool valid = col < tk && (!causal || col <= row_pos);
+      bool valid = col < tk && (!causal || col <= row_pos);
+      if constexpr (HasMask) valid = valid && mrow != nullptr && !mrow[col];
       sv[c] = valid ? srow[c] : -INFINITY;
-      mx = fmaxf(mx, sv[c]);
+      if constexpr (!Bounded) mx = fmaxf(mx, sv[c]);
     }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    const float m_new = fmaxf(m_run, mx);
-    const float corr = exp2f(m_run - m_new);
+    float m_new = m_run, corr = 1.f;
+    if constexpr (!Bounded) {
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      m_new = fmaxf(m_run, mx);
+      corr = exp2f(m_run - m_new);
+    }
     float psum = 0.f;
     bf16* prow = sP + my_row * kBK + half * 32;
 #pragma unroll
@@ -180,9 +231,11 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     psum += __shfl_xor_sync(0xffffffffu, psum, 1);
     l_run = l_run * corr + psum;
     m_run = m_new;
-    float* orow = sO + my_row * D + half * (D / 2);
+    if constexpr (!Bounded) {
+      float* orow = sO + my_row * D + half * (D / 2);
 #pragma unroll
-    for (int c = 0; c < D / 2; ++c) orow[c] *= corr;
+      for (int c = 0; c < D / 2; ++c) orow[c] *= corr;
+    }
     __syncwarp();
 
     // O += P V for this warp's 16 rows.
@@ -206,7 +259,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 
   // l == 0 <=> the row attends no key: output exactly 0.
-  if (q0 + my_row < tq) {
+  if (row_ok) {
     const float* orow = sO + my_row * D + half * (D / 2);
     __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(
         ob + static_cast<size_t>(q0 + my_row) * D + half * (D / 2));
@@ -222,51 +275,74 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <int D>
+template <int D, bool HasMask, bool Bounded>
 int launch(const void* q, const void* k, const void* v, void* out,
-           float* lse, int batch_heads, int group, int tq, int tk,
-           int causal, int causal_offset, float qscale,
+           float* lse, const float* mvec, const MaskArgs& mask,
+           int batch_heads, int group, int tq, int tk, int causal,
+           int causal_offset, int kv_offset, float qscale,
            cudaStream_t stream) {
   const size_t smem = smem_bytes<D>();
+  auto kernel = flash_fwd_kernel<D, HasMask, Bounded>;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const int n_qtiles = (tq + kBQ - 1) / kBQ;
   if (n_qtiles == 0 || batch_heads == 0) return 0;
   dim3 grid(n_qtiles, batch_heads);
-  flash_fwd_kernel<D><<<grid, kThreads, smem, stream>>>(
+  kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(out), lse, tq, tk,
-      group, causal, causal_offset, qscale, n_qtiles);
+      static_cast<const bf16*>(v), static_cast<bf16*>(out), lse, mvec, mask,
+      tq, tk, group, causal, causal_offset, kv_offset, qscale, n_qtiles);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int dispatch(const void* q, const void* k, const void* v, void* out,
+             float* lse, const float* mvec, const MaskArgs& mask,
+             int batch_heads, int group, int tq, int tk, int causal,
+             int causal_offset, int kv_offset, float qscale,
+             cudaStream_t s) {
+#define FWD_LAUNCH(M, B)                                                     \
+  return launch<D, M, B>(q, k, v, out, lse, mvec, mask, batch_heads, group, \
+                         tq, tk, causal, causal_offset, kv_offset, qscale, s)
+  if (mask.ptr == nullptr) {
+    if (mvec == nullptr) FWD_LAUNCH(false, false);
+    FWD_LAUNCH(false, true);
+  }
+  if (mvec == nullptr) FWD_LAUNCH(true, false);
+  FWD_LAUNCH(true, true);
+#undef FWD_LAUNCH
 }
 
 }  // namespace
 
 // q (batch_heads, tq, d), k/v (batch_heads / group, tk, d), out like q;
-// all contiguous bf16. lse: null, or (batch_heads, tq) float32. Returns a
-// cudaError_t code (0 = launched).
+// all contiguous bf16. lse: null, or (batch_heads, tq) float32. mvec: null
+// (K1, exact softmax), or the (batch_heads, tq) float32 row bounds (K2).
+// mask: null, or bytes addressed as MaskArgs (inner = heads; strides in
+// bytes). Returns a cudaError_t code (0 = launched).
 extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v,
-                              void* out, void* lse, int batch_heads,
-                              int group, int tq, int tk, int d, int causal,
-                              int causal_offset, float qscale,
+                              void* out, void* lse, const void* mvec,
+                              const void* mask, int mask_inner,
+                              long long mask_so, long long mask_si,
+                              long long mask_sr, int batch_heads, int group,
+                              int tq, int tk, int d, int causal,
+                              int causal_offset, int kv_offset, float qscale,
                               void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
+  const float* mv = static_cast<const float*>(mvec);
+  const MaskArgs m{static_cast<const unsigned char*>(mask),
+                   mask_inner > 0 ? mask_inner : 1, mask_so, mask_si,
+                   mask_sr};
   switch (d) {
-    case 32:
-      return launch<32>(q, k, v, out, l, batch_heads, group, tq, tk,
-                        causal, causal_offset, qscale, s);
-    case 64:
-      return launch<64>(q, k, v, out, l, batch_heads, group, tq, tk,
-                        causal, causal_offset, qscale, s);
-    case 96:
-      return launch<96>(q, k, v, out, l, batch_heads, group, tq, tk,
-                        causal, causal_offset, qscale, s);
-    case 128:
-      return launch<128>(q, k, v, out, l, batch_heads, group, tq, tk,
-                         causal, causal_offset, qscale, s);
+#define FWD_CASE(D)                                                       \
+    case D:                                                               \
+      return dispatch<D>(q, k, v, out, l, mv, m, batch_heads, group, tq,  \
+                         tk, causal, causal_offset, kv_offset, qscale, s);
+    FWD_CASE(32) FWD_CASE(64) FWD_CASE(96) FWD_CASE(128)
+#undef FWD_CASE
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -5,11 +5,26 @@ Multi-head dot-product attention module — the port of
 ``distributed_dot_product_tpu/models/attention.py``.
 
 Ported: the constructor validation, the cached inference surface
-(``make_decode_cache``, ``prefill``, ``decode``) and ``forward`` (the
-reference's ``__call__``) for ``softmax_impl='flash'`` on one card — the
-reference's semantics on a 1-wide ``seq`` axis, where the flash branch
-gathers nothing and its causal offset is 0. The other softmax paths, a
-mask, dropout and sequence parallelism across ranks raise
+(``make_decode_cache``, ``prefill``, ``decode``), ``forward`` (the
+reference's ``__call__``) on this rank's time shard ``(B, T/N, d)`` for
+all four softmax strategies across a ``torch.distributed`` process group
+(the reference's ``seq`` mesh axis), and :func:`apply_seq_parallel`:
+
+- ``'full'``: the paper's path — K-first ``matmul_nt(keys, queries,
+  offset)``, the ``1/√dh`` scale, the ``-inf`` mask fill, softmax over
+  the global axis, ``matmul_all``; GQA by repeating heads; causal
+  densified into the mask from this rank's global rows. A fully masked
+  row gives NaN, as in the reference;
+- ``'flash'``: queries and values all-gathered (the gather's gradient is
+  a reduce-scatter), then the flash kernel at ``causal_offset =
+  rank·T/N`` (0 on one rank);
+- ``'online'``: ring attention (:mod:`.ring_attention`);
+- ``'ulysses'``: head all-to-all (:mod:`.ulysses_attention`), the flash
+  path on one rank or one head.
+
+RoPE rotates at the global positions ``rank·T/N + arange(T/N)``.
+``distributed=False`` is the local oracle on any group. Dropout, the
+zigzag ring layout, window, ALiBi and int8 scoring raise
 ``NotImplementedError`` naming their ``ROADMAP.md`` item; segment ids
 and the dropout seed are not parameters yet.
 
@@ -33,15 +48,43 @@ from distributed_dot_product_tpu_torch.models.decode import (
 from distributed_dot_product_tpu_torch.models.dense import (
     OwnedDense, default_generator,
 )
+from distributed_dot_product_tpu_torch.models.ring_attention import (
+    local_attention_reference, ring_attention,
+)
+from distributed_dot_product_tpu_torch.models.ulysses_attention import (
+    ulysses_attention,
+)
 from distributed_dot_product_tpu_torch.ops.flash_attention import (
     flash_attention,
 )
+from distributed_dot_product_tpu_torch.ops.ops import matmul_all, matmul_nt
 from distributed_dot_product_tpu_torch.ops.rope import rope
+from distributed_dot_product_tpu_torch.parallel.mesh import (
+    shard_seq, unshard_seq,
+)
 from distributed_dot_product_tpu_torch.utils.comm import (
-    SEQ_AXIS, get_world_size, resolve_device,
+    SEQ_AXIS, all_gather, get_rank, get_world_size, reduce_scatter,
+    resolve_device,
 )
 
-__all__ = ['DistributedDotProductAttn']
+__all__ = ['DistributedDotProductAttn', 'apply_seq_parallel']
+
+
+class _GatherSeq(torch.autograd.Function):
+    """Tiled all-gather of this rank's shard along the time axis (-2);
+    the gradient is the reduce-scatter of the cotangent back to the
+    shards."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_gather(x, group, dim=-2)
+
+    @staticmethod
+    def backward(ctx, g):
+        w = get_world_size(ctx.group)
+        blocks = torch.stack(g.chunk(w, dim=-2))          # (W, ..., T/N, d)
+        return reduce_scatter(blocks, ctx.group), None
 
 
 class DistributedDotProductAttn(nn.Module):
@@ -107,6 +150,9 @@ class DistributedDotProductAttn(nn.Module):
                              f"'kernel' or 'plain', got {decode_impl!r}")
         if ring_layout == 'zigzag':
             features.check('ring_layout=zigzag', softmax_impl)
+            raise NotImplementedError(
+                "ring_layout='zigzag' is not ported yet (ROADMAP.md §1 item "
+                "7: the kernels take no explicit positions)")
         if flash_softmax_mode == 'bounded':
             features.check('flash_softmax_mode=bounded', softmax_impl)
         value_dim = value_dim if value_dim is not None else key_dim
@@ -140,6 +186,8 @@ class DistributedDotProductAttn(nn.Module):
         self.causal = causal
         self.distributed = distributed
         self.softmax_impl = softmax_impl
+        self.offset, self.impl = offset, impl
+        self.flash_softmax_mode = flash_softmax_mode
         self.dropout_rate = dropout_rate
         self.use_rope, self.rope_base = use_rope, rope_base
         self.decode_impl = decode_impl
@@ -163,37 +211,88 @@ class DistributedDotProductAttn(nn.Module):
                                  kv_heads * (value_dim // num_heads))
         self.composition = dense(value_dim, value_dim)
 
-    def forward(self, keys, queries, values, attn_mask=None):
-        """Attention over ``keys/queries/values (B, T, d·)``, the
-        reference ``__call__`` on one card: the four projections, the
-        head split, RoPE at positions ``arange(T)`` on keys and queries,
-        then :func:`~..ops.flash_attention.flash_attention` with the
-        K-first convention (its query rows are the projected keys, its
-        key/value table the projected queries/values), causal offset 0;
-        the head merge and ``composition``. Returns ``(B, T, value_dim)``.
-        Differentiable: the backward runs the flash gradient kernels."""
-        if self.softmax_impl != 'flash':
-            raise NotImplementedError(
-                f'forward with softmax_impl={self.softmax_impl!r} is not '
-                f"ported yet (ROADMAP.md §1 items 5 and 7); 'flash' is")
-        if attn_mask is not None:
-            raise NotImplementedError(
-                'attn_mask in the flash kernels is not ported yet '
-                '(ROADMAP.md §2 item 1)')
+    def forward(self, keys, queries, values, attn_mask=None, *, group=None):
+        """The reference ``__call__`` on this rank's time shards
+        ``keys/queries/values (B, T/N, d·)`` and boolean ``attn_mask
+        (B, T/N, T)`` (True = masked out; None = no masking) over the
+        sequence group ``group`` (the default process group when None; a
+        process without one is a one-rank group). Returns ``(B, T/N,
+        value_dim)``, differentiable (the kernel paths backpropagate
+        through K3/K4; the collectives a gradient crosses carry their
+        transposes)."""
         if self.dropout_rate:
             raise NotImplementedError(
                 'attention dropout in the flash kernels is not ported yet '
                 '(ROADMAP.md §2 item 1)')
-        if self.distributed and get_world_size() > 1:
-            raise NotImplementedError(
-                'sequence parallelism across ranks is not ported yet '
-                '(ROADMAP.md §1 items 1-3 and 6); this forward is the '
-                'one-card semantics')
-        keys, queries, values = self._project(keys, queries, values, 0)
-        out = flash_attention(keys, queries, values, causal=self.causal,
-                              causal_offset=0,
-                              scale=1.0 / math.sqrt(self.head_dim))
+        distributed = self.distributed
+        world = get_world_size(group) if distributed else 1
+        idx = get_rank(group) if distributed else 0
+        tn = keys.shape[-2]
+        keys, queries, values = self._project(keys, queries, values,
+                                              idx * tn)
+        if attn_mask is not None:
+            attn_mask = attn_mask[..., None, :, :]    # broadcast over heads
+        impl = self.softmax_impl
+        if impl == 'ulysses' and not (distributed and self.num_heads > 1):
+            impl = 'flash'     # no head axis to scatter, or the local oracle
+        scale = 1.0 / math.sqrt(self.head_dim)
+        kv_group = self.num_heads // self._kv_heads
+        if impl == 'flash':
+            q_full, v_full = queries, values
+            if distributed:
+                q_full = _GatherSeq.apply(queries, group)
+                v_full = _GatherSeq.apply(values, group)
+            out = flash_attention(
+                keys, q_full, v_full, attn_mask, causal=self.causal,
+                causal_offset=idx * tn if world > 1 else 0, scale=scale,
+                softmax_mode=self.flash_softmax_mode)
+        elif impl == 'ulysses':
+            out = ulysses_attention(keys, queries, values, attn_mask,
+                                    group=group, causal=self.causal,
+                                    scale=scale,
+                                    softmax_mode=self.flash_softmax_mode)
+        elif impl == 'online':
+            if distributed:
+                out = ring_attention(keys, queries, values, attn_mask,
+                                     group=group, causal=self.causal,
+                                     scale=scale)
+            else:
+                out = local_attention_reference(
+                    keys, queries.repeat_interleave(kv_group, dim=-3),
+                    values.repeat_interleave(kv_group, dim=-3), attn_mask,
+                    causal=self.causal, scale=scale)
+        else:
+            out = self._full(keys, queries, values, attn_mask, group,
+                             distributed, world, idx, kv_group)
         return self._merge_heads(out)
+
+    def _full(self, keys, queries, values, attn_mask, group, distributed,
+              world, idx, kv_group):
+        """The paper's path: ``(B, H, T/N, T)`` score rows from the
+        distributed ``matmul_nt``, the softmax over the global axis, the
+        distributed ``matmul_all``."""
+        if kv_group > 1:
+            queries = queries.repeat_interleave(kv_group, dim=-3)
+            values = values.repeat_interleave(kv_group, dim=-3)
+        if self.causal:
+            tn = keys.shape[-2]
+            t_global = (attn_mask.shape[-1] if attn_mask is not None
+                        else tn * world)
+            rows = idx * tn + torch.arange(tn, device=keys.device)
+            cols = torch.arange(t_global, device=keys.device)
+            future = rows[:, None] < cols[None, :]
+            attn_mask = future if attn_mask is None else attn_mask | future
+        if distributed:
+            scores = matmul_nt(keys, queries, self.offset, group, self.impl)
+        else:
+            scores = torch.matmul(keys, queries.transpose(-1, -2))
+        scores = scores / math.sqrt(self.head_dim)
+        if attn_mask is not None:
+            scores = scores.masked_fill(attn_mask, float('-inf'))
+        attn = torch.softmax(scores, dim=-1)
+        if distributed:
+            return matmul_all(attn, values, self.offset, group, self.impl)
+        return torch.matmul(attn, values)
 
     def make_decode_cache(self, batch, t_max, dtype=None, device=None):
         """A KV cache sized for this module's projections (GQA-aware),
@@ -261,3 +360,20 @@ class DistributedDotProductAttn(nn.Module):
                                  scale=1.0 / math.sqrt(self.head_dim),
                                  impl=self.decode_impl)
         return cache, self._merge_heads(out)
+
+
+def apply_seq_parallel(module, mesh, keys, queries, values, attn_mask=None):
+    """Run ``module`` sequence-parallel over ``mesh``'s seq group on
+    GLOBAL tensors ``(B, T, d·)`` (and a boolean ``(B, T, T)`` mask) that
+    every rank of the group holds alike: each rank takes its time shard
+    (:func:`~..parallel.mesh.shard_seq`; the mask by rows), runs the
+    module on it, and the shards of the output are gathered back into
+    the global ``(B, T, value_dim)`` (:func:`~..parallel.mesh.unshard_seq`,
+    not differentiable — train through
+    :func:`~..train.make_train_step`, or call the module on the shards).
+    The reference's ``apply_seq_parallel`` without the params argument:
+    the module holds its parameters."""
+    shards = [shard_seq(x, mesh) for x in (keys, queries, values)]
+    mask = None if attn_mask is None else shard_seq(attn_mask, mesh)
+    out = module(*shards, mask, group=mesh.seq_group)
+    return unshard_seq(out, mesh)

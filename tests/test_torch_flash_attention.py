@@ -6,6 +6,10 @@ same float32 inputs, made by numpy from a seed. On the CPU the port's
 wrapper runs its plain version — the arithmetic the CUDA kernel
 implements and is held against on the card.
 
+The knobs not ported yet raise; those ported since (``kv_offset``,
+bounded softmax, a dense mask) are held against the reference on the
+same calls.
+
 Tolerance: atol = rtol = 1e-5, float32 rounding of two different
 reduction orders (blockwise online softmax vs one full-row softmax).
 """
@@ -65,6 +69,9 @@ def test_plain_matches_jax(case):
         assert got[..., 3:, :].any()
 
 
+PORTED_KNOBS = ('kv_offset', 'softmax_mode')
+
+
 @pytest.mark.parametrize('kw', [
     dict(kv_offset=3), dict(softmax_mode='bounded'), dict(window=4),
     dict(qk_quant='int8'), dict(dropout_rate=0.1, dropout_seed=1),
@@ -73,15 +80,34 @@ def test_plain_matches_jax(case):
     dict(positions=np.arange(8)),
 ])
 def test_unported_knobs_raise(kw):
+    """Knobs still unported raise; ``kv_offset`` and bounded softmax are
+    ported now and match the reference on the same call."""
     x = torch.zeros((1, 2, 8, 16))
+    if set(kw) & set(PORTED_KNOBS):
+        q, k, v = _inputs(11, 1, 2, 2, 8, 8, 16, None)
+        want = np.asarray(jax_flash_attention(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=True,
+            **kw))
+        got = flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                              torch.from_numpy(v), causal=True, **kw)
+        np.testing.assert_allclose(got.numpy(), want, **TOL)
+        return
     with pytest.raises(NotImplementedError):
         flash_attention(x, x, x, causal='window' in kw, **kw)
 
 
 def test_mask_and_bad_shapes_raise():
+    """A dense mask is ported now (it matches the reference); bad shapes
+    still raise."""
     x = torch.zeros((1, 2, 8, 16))
-    with pytest.raises(NotImplementedError):
-        flash_attention(x, x, x, torch.zeros((8, 8), dtype=torch.bool))
+    q, k, v = _inputs(12, 1, 2, 2, 8, 8, 16, None)
+    mask = np.tril(np.ones((8, 8), bool))
+    want = np.asarray(jax_flash_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(mask)))
+    got = flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                          torch.from_numpy(v), torch.from_numpy(mask))
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    assert not got[..., -1, :].any()       # the last row is fully masked
     with pytest.raises(ValueError):
         flash_attention(x, x, torch.zeros((1, 2, 7, 16)))
     with pytest.raises(ValueError):

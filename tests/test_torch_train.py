@@ -8,7 +8,8 @@ also map the reference's gradient trees):
 
 - ``DistributedDotProductAttn.forward`` (flash, causal, RoPE, GQA on and
   off): output and parameter gradients against the reference module with
-  ``distributed=False``;
+  ``distributed=False``; the 'full' path and a masked flash forward;
+  the flash module on a 2-rank gloo group against the local module;
 - ``lm_targets`` with segments and ``pad_id``;
 - ``TransformerLM.forward`` logits and ``nll_sum`` (a chunk that does not
   divide T, and unchunked): values and parameter gradients;
@@ -112,30 +113,57 @@ def test_attention_forward_and_grads_match_jax(case):
 
 
 def test_attention_forward_refuses_unported_knobs():
-    x = torch.zeros((1, 8, DIM))
-    for kw, call in ((dict(softmax_impl='full'), {}),
-                     (dict(softmax_impl='flash'),
-                      dict(attn_mask=torch.zeros((8, 8), dtype=torch.bool))),
-                     (dict(softmax_impl='flash', dropout_rate=0.1), {})):
-        mod = DistributedDotProductAttn(DIM, num_heads=HEADS, device='cpu',
-                                        **kw)
-        with pytest.raises(NotImplementedError):
-            mod(x, x, x, **call)
-
-
-def test_attention_forward_refuses_a_multi_rank_group(monkeypatch):
-    from distributed_dot_product_tpu_torch.models import attention
+    """Dropout still refuses; the 'full' path and a masked flash forward
+    are ported now and match the reference module (``distributed=False``)
+    on the same inputs."""
     x = torch.zeros((1, 8, DIM))
     mod = DistributedDotProductAttn(DIM, num_heads=HEADS, device='cpu',
-                                    softmax_impl='flash')
-    monkeypatch.setattr(attention, 'get_world_size', lambda: 2)
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
+                                    softmax_impl='flash', dropout_rate=0.1)
+    with pytest.raises(NotImplementedError):
         mod(x, x, x)
-    # distributed=False is the local oracle on any group.
-    local = DistributedDotProductAttn(DIM, num_heads=HEADS, device='cpu',
-                                      softmax_impl='flash',
-                                      distributed=False)
-    assert local(x, x, x).shape == (1, 8, DIM)
+    rng = np.random.default_rng(21)
+    xs = [rng.standard_normal((1, 8, DIM)).astype(np.float32)
+          for _ in range(3)]
+    mask = np.tril(np.ones((1, 8, 8), bool), k=-1)
+    for kw, m in ((dict(softmax_impl='full'), None),
+                  (dict(softmax_impl='flash'), mask)):
+        jm = JaxAttn(DIM, num_heads=HEADS, distributed=False, **kw)
+        jx = [jnp.asarray(a) for a in xs]
+        params = jm.init(jax.random.key(4), *jx)
+        want = jm.apply(params, *jx, None if m is None else jnp.asarray(m))
+        port = DistributedDotProductAttn(DIM, num_heads=HEADS, device='cpu',
+                                         distributed=False, **kw)
+        port.load_state_dict(attn_state_from_jax(_np(params)))
+        got = port(*(torch.from_numpy(a) for a in xs),
+                   None if m is None else torch.from_numpy(m))
+        _close(got, want, what=kw['softmax_impl'])
+
+
+def test_attention_forward_refuses_a_multi_rank_group(tmp_path):
+    """The flash module now runs on a multi-rank group: on a 2-rank gloo
+    group its gathered output and rank-summed gradients equal the local
+    module's on the global tensors."""
+    from torch_dist import GlooGroup
+    rng = np.random.default_rng(22)
+    keys, queries, values, g = (
+        rng.standard_normal((2, 16, DIM)).astype(np.float32)
+        for _ in range(4))
+    kw = dict(key_dim=DIM, num_heads=HEADS, softmax_impl='flash',
+              causal=True, use_rope=True)
+    local = DistributedDotProductAttn(device='cpu', distributed=False, **kw)
+    state = {k: v.detach().numpy() for k, v in local.state_dict().items()}
+    out = local(*(torch.from_numpy(a) for a in (keys, queries, values)))
+    (out * torch.from_numpy(g)).sum().backward()
+    group = GlooGroup(2, str(tmp_path / 'store'))
+    try:
+        res = group.run('module_fwd_grad', kw, state, keys, queries, values,
+                        None, g)
+    finally:
+        group.close()
+    for got_out, grads, _, _ in res:
+        _close(got_out, out.detach().numpy(), what='out')
+        for name, p in local.named_parameters():
+            _close(grads[name], p.grad.numpy(), what=name)
 
 
 def test_lm_targets_match_jax():
