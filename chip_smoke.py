@@ -64,11 +64,29 @@ Phases, one JSON line each (some several):
    strategy's output and gradients at W = 4 against the local module,
    and three DP x SP train steps (2 x 2, B 4 x T 8192, Adam 1e-3) of
    'full', 'flash', 'online', bounded 'flash', 'ulysses' and causal
-   'online' with ms per step and each kernel's launches per step.
+   'online' with ms per step and each kernel's launches per step;
+13. flash_masks (run after flash_features): K1/K3/K4 with ragged packed
+   segments, a causal window of 2048 at kv_offset 2048, dropout 0.1,
+   int8 scoring, and all four at once under GQA 8:4 at head dim 96,
+   against their plain versions (K1's out and lse, K3/K4 in bf16 and
+   float32) at the fold shape 2 x 8 x 4096; the dropout keep pattern
+   bit for bit (v = eye(128), at the origin and near 2^20), int8 scores
+   bit for bit, a wholly cross-segment fold exactly empty; times against
+   bound, plain and SDPA with a boolean mask where one call computes the
+   same function;
+14. flagship: dryrun_multichip's window, gqa_ring (GQA, RoPE, the ring
+   with packed segments, dropout 0.1 and int8 scoring), stack (a 2-layer
+   TransformerStack at dim 768) and lm (the 16-layer TransformerLM on
+   packed segments) stages, 4 ranks on one card as seq_parallel, a 2 x 2
+   data x seq group, global B 4 x T 8192, three Adam steps each (1e-3,
+   the stack 3e-4): ms per step, losses, launches per step against the
+   fold counts, the gradient all-reduce's ms, peak memory; window and gqa_ring at W = 4 against the local module; then
+   greedy generation from the trained LM on rank 0.
 
 Then the card's ``nvidia-smi`` name and power limit, the kernels line
 (``{"kernels": [...]}``: K1, K2, K3, K4, K5 and K5p with their launches on
-their path, max error, kernel / plain / library / bound times) and, only if
+their path, max error, kernel / plain / library / bound times; K1, K3 and
+K4 also per mask variant) and, only if
 every phase passed, the last line ``{"ok": true, "device": {...}}``.
 Exits non-zero on any failure, and without a card. ``--phases a,b`` runs
 only the named phases (after device and build) and prints no result
@@ -1145,6 +1163,282 @@ def phase_flash_features(torch, ddp, flush, gen):
     return worst, timing
 
 
+PEAK_INT8_OPS = 1979e12      # H100 SXM dense int8 tensor-core rate
+# The masks and terms of K1/K3/K4 at the flagship's fold shape (2 x 8
+# heads x 4096 rows, head dim 64) and, all four at once under GQA 8:4, at
+# the LM's head dim 96: (name, q heads, kv heads, head dim, causal,
+# causal offset, kv offset, segments, window, dropout rate, int8).
+MASK_CASES = (
+    ('segments', 8, 8, 64, False, 0, 0, True, None, 0.0, False),
+    ('window', 8, 8, 64, True, 4096, 2048, False, 2048, 0.0, False),
+    ('dropout', 8, 8, 64, True, 0, 0, False, None, 0.1, False),
+    ('int8', 8, 8, 64, False, 0, 0, False, None, 0.0, True),
+    ('all_gqa', 8, 4, 96, True, 0, 0, True, 2048, 0.1, True),
+    # rank 1's causal fold of owner 0 in the recipe's packed layout: its
+    # rows are document 1, the owner's keys document 0 — every row has no
+    # attendable key.
+    ('cross_segment', 8, 8, 64, True, 4096, 0, 'cross', None, 0.1, True))
+MASK_SEED = 12345
+
+
+def ragged_segments(torch, gen, b, t, docs=6):
+    """``(b, 1, t)`` int32 packed-document ids: ``docs`` documents a row,
+    boundaries at random positions, different in every row."""
+    seg = torch.zeros((b, 1, t), dtype=torch.int32)
+    for i in range(b):
+        cuts = torch.randperm(t - 1, generator=gen)[:docs - 1] + 1
+        seg[i, 0, cuts] = 1
+    return seg.cumsum(-1).to(torch.int32)
+
+
+def valid_pairs(torch, tq, tk, causal, co, ko, window, seg):
+    """Attended (row, column) pairs over the batch of one head (the pairs
+    this run's data needs)."""
+    dev = torch.device('cuda')
+    rows = co + torch.arange(tq, device=dev)[:, None]
+    cols = ko + torch.arange(tk, device=dev)[None, :]
+    ok = torch.ones((tq, tk), dtype=torch.bool, device=dev)
+    if causal:
+        ok &= rows >= cols
+        if window is not None:
+            ok &= rows - cols < window
+    if seg is None:
+        return int(ok.sum().item())
+    sq, sk = seg
+    same = sq[:, 0, :, None] == sk[:, 0, None, :]
+    return int((same & ok).sum().item())
+
+
+def bound_mixed(ops_bf16, ops_int8, nbytes):
+    """``bound_ms`` for work split between bf16 and int8 tensor-core
+    products: their times at each peak add up."""
+    t_ops = ops_bf16 / PEAK_BF16_FLOPS + ops_int8 / PEAK_INT8_OPS
+    t_bytes = nbytes / PEAK_HBM_BYTES
+    return 1e3 * max(t_ops, t_bytes), ('operations' if t_ops > t_bytes
+                                       else 'bytes')
+
+
+def phase_flash_masks(torch, ddp, flush, gen):
+    """K1/K3/K4 with segments, a window, dropout and int8 scoring against
+    their plain versions (K1's out and lse, K3/K4 in bf16 and float32),
+    the dropout keep pattern bit for bit, int8 scores bit for bit, a
+    wholly cross-segment fold exactly empty; times against bound, plain
+    and, where one PyTorch call computes the same function, SDPA."""
+    import importlib
+    fa = importlib.import_module(
+        'distributed_dot_product_tpu_torch.ops.flash_attention')
+    F = torch.nn.functional
+    dev, bf16 = torch.device('cuda'), torch.bfloat16
+    b, t = SP_B // SP_DATA, SP_TN
+    neg = fa._LN2 * fa._NEG_BIG
+    worst, failures, timing = {}, [], {}
+    for (name, hq, hkv, d, causal, co, ko, segs, window, rate,
+         int8) in MASK_CASES:
+        scale = 1.0 / math.sqrt(d)
+        q = randn(torch, (b, hq, t, d), gen, dev, bf16)
+        k = randn(torch, (b, hkv, t, d), gen, dev, bf16)
+        v = randn(torch, (b, hkv, t, d), gen, dev, bf16)
+        g = randn(torch, (b, hq, t, d), gen, dev, bf16)
+        seg = None
+        if segs == 'cross':
+            seg = (torch.ones((b, 1, t), dtype=torch.int32, device=dev),
+                   torch.zeros((b, 1, t), dtype=torch.int32, device=dev))
+        elif segs:
+            one = ragged_segments(torch, gen, b, t).to(dev)
+            seg = (one, one)
+        feat = dict(segment_ids=seg, window=window, dropout_rate=rate,
+                    dropout_seed=MASK_SEED if rate else None,
+                    qk_quant='int8' if int8 else None)
+        kw = dict(causal=causal, causal_offset=co, kv_offset=ko, scale=scale)
+        out, lse = fa.flash_attention_with_lse(q, k, v, **kw, **feat)
+        out_p, lse_p = fa.flash_attention_plain_lse(q, k, v, **kw, **feat)
+        got, want = {'out': out}, {'out': out_p}
+        for gdt, tag in ((None, ''), (torch.float32, '_f32')):
+            gk = fa.flash_attention_backward(
+                q, k, v, out, lse, g, causal, co, scale, kv_offset=ko,
+                grad_dtype=gdt, **feat)
+            gp = fa.flash_attention_backward_plain(
+                q, k, v, out, lse, g, causal, co, scale, kv_offset=ko,
+                grad_dtype=gdt, **feat)
+            for n, a, w in zip(('dq', 'dk', 'dv'), gk, gp):
+                got[n + tag], want[n + tag] = a, w
+                if gdt is not None and a.dtype != torch.float32:
+                    failures.append(f'{name}: {n} in {a.dtype}, want '
+                                    f'float32')
+        torch.cuda.synchronize()
+        finite_lse = lse_p > 0.5 * neg
+        err = {n: (got[n].float() - want[n].float()).abs().max().item()
+               for n in got}
+        err['lse'] = ((lse - lse_p)[finite_lse].abs().max().item()
+                      if finite_lse.any() else 0.0)
+        rel = {n: rel_errs(torch, got[n], want[n]) for n in got
+               if want[n].abs().max().item() > 0}
+        empty = ~finite_lse
+        exact_empty = bool((lse[empty] == neg).all().item()
+                           and not out[empty].any().item()
+                           and not got['dq'][empty].any().item()
+                           and not got['dq_f32'][empty].any().item())
+        emit({'phase': 'flash_masks', 'case': name, 'q': list(q.shape),
+              'kv': list(k.shape), 'causal': causal, 'causal_offset': co,
+              'kv_offset': ko, 'segments': None if seg is None else
+              ('cross' if segs == 'cross' else
+               int(seg[0].max().item()) + 1), 'window': window,
+              'dropout_rate': rate, 'qk_quant': feat['qk_quant'],
+              'max_abs_err': err,
+              'max_row_rel_err': {n: e[0] for n, e in rel.items()},
+              'rel_err': {n: e[1] for n, e in rel.items()},
+              'empty_rows': int(empty.sum().item()),
+              'empty_rows_exact': exact_empty,
+              'tol': {'lse': TOL_LSE, 'row_rel': TOL_ROW_REL,
+                      'rel': TOL_NORM_REL}})
+        for n, x in (*got.items(), ('lse', lse)):
+            if not torch.isfinite(x).all().item():
+                failures.append(f'{n} {name}: non-finite')
+        if err['lse'] > TOL_LSE:
+            failures.append(f'lse {name}: abs err {err["lse"]} > {TOL_LSE}')
+        if not exact_empty:
+            failures.append(f'{name}: rows with no attendable key are not '
+                            f'exactly out 0 / lse ln2*NEG_BIG / dq 0')
+        if segs == 'cross':
+            if empty.sum().item() != empty.numel() or any(
+                    x.any().item() for x in got.values()):
+                failures.append(f'{name}: a wholly cross-segment fold is '
+                                f'not exactly empty with zero gradients')
+            continue
+        failures += check_rel(rel, name)
+        for n, e in err.items():
+            worst[n] = max(worst.get(n, 0.0), e)
+
+        # Times: K1 with its lse, K3 and K4 in bf16, at this case's shape.
+        nb = b * hq
+        pairs = hq * valid_pairs(torch, t, t, causal, co, ko, window, seg)
+        q2, lse2, delta = fa.flash_attention_bwd_operands(q, out, lse, g,
+                                                          scale)
+        quant = fa.quant_operands(q, k) if int8 else None
+        bw = dict(causal=causal, causal_offset=co, kv_offset=ko,
+                  segment_ids=seg, window=window, dropout_rate=rate,
+                  dropout_seed=feat['dropout_seed'], quant=quant)
+        el = 1 if int8 else 2              # bytes of a q / k element read
+        q_b, kv_b = nb * t * d, b * hkv * t * d
+        rows_b = 4 * nb * t
+        vec_b = (8 * b * t if seg is not None else 0) + \
+            (4 * (nb + b * hkv) * t if int8 else 0)
+        lib = None
+        if not rate and not int8:
+            allowed = torch.ones((t, t), dtype=torch.bool, device=dev)
+            if causal:
+                r_ = co + torch.arange(t, device=dev)[:, None]
+                c_ = ko + torch.arange(t, device=dev)[None, :]
+                allowed = r_ >= c_
+                if window is not None:
+                    allowed = allowed & (r_ - c_ < window)
+            if seg is not None:
+                allowed = allowed & (seg[0][:, :, :, None]
+                                     == seg[1][:, :, None, :])
+            lib = (lambda al=allowed: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=al, scale=scale))
+        s_ops = 2 * d * pairs              # one product's multiply-adds
+        for kname, ops, nbytes, fn, plain_fn in (
+                ('flash_attention', (s_ops * (1 - int8) + s_ops,
+                                     s_ops * int8),
+                 el * (q_b + kv_b) + 2 * kv_b + 2 * q_b + rows_b + vec_b,
+                 lambda: fa.flash_attention_with_lse(q, k, v, **kw, **feat),
+                 lambda: fa.flash_attention_plain_lse(q, k, v, **kw,
+                                                      **feat)),
+                ('flash_attention_dq', (s_ops * (1 - int8) + 2 * s_ops,
+                                        s_ops * int8),
+                 el * (q_b + kv_b) + 2 * kv_b + 4 * q_b + 2 * rows_b
+                 + vec_b,
+                 lambda: fa.flash_attention_dq(q2, k, v, g, lse2, delta,
+                                               scale=scale, **bw),
+                 lambda: fa.flash_attention_dq_plain(
+                     q2, k, v, g, lse2, delta, scale=scale, **bw)),
+                ('flash_attention_dkv', (s_ops * (1 - int8) + 3 * s_ops,
+                                         s_ops * int8),
+                 el * (q_b + kv_b) + 2 * kv_b + 2 * q_b + 4 * kv_b
+                 + 2 * rows_b + vec_b,
+                 lambda: fa.flash_attention_dkv(q2, k, v, g, lse2, delta,
+                                                scale=scale, **bw),
+                 lambda: fa.flash_attention_dkv_plain(
+                     q2, k, v, g, lse2, delta, scale=scale, **bw))):
+            bms, by = bound_mixed(*ops, nbytes)
+            timing.setdefault(kname, {})[name] = {
+                'ms': time_ms(torch, fn, flush),
+                'plain_ms': time_ms(torch, plain_fn, flush, reps=3),
+                'library_ms': (time_ms(torch, lib, flush)
+                               if lib is not None and kname ==
+                               'flash_attention' else None),
+                'bound_ms': bms, 'bound_by': by}
+        emit({'phase': 'flash_masks', 'case': name + '_timing',
+              'pairs': pairs,
+              'library': ('sdpa forward, boolean mask' if lib is not None
+                          else 'none: no PyTorch call computes the '
+                          'hash dropout or int8 scoring'),
+              **{kn: timing[kn][name] for kn in timing}})
+        del q, k, v, g, out, lse, out_p, lse_p, got, want, q2, lse2, delta
+        torch.cuda.empty_cache()
+
+    # The dropout keep pattern, bit for bit: with v = eye(Tk) the output
+    # row is the row's dropped weights, exactly 0 where an element was
+    # dropped; at Tk = d = 128, once at the origin and once with the
+    # coordinates near 2^20 (they wrap in the hash's multiplies).
+    for co, ko in ((0, 0), (2 ** 20 + 7, 2 ** 20 - 100)):
+        n = 128
+        q = randn(torch, (b, 8, n, n), gen, dev, bf16)
+        k = randn(torch, (b, 8, n, n), gen, dev, bf16)
+        eye = torch.eye(n, dtype=bf16, device=dev).expand(b, 8, n, n)
+        kw = dict(causal_offset=co, kv_offset=ko, dropout_rate=0.1,
+                  dropout_seed=-MASK_SEED)
+        out = fa.flash_attention(q, k, eye, **kw)
+        out_p = fa.flash_attention_plain(q, k, eye, **kw)
+        keep, _ = fa.dropout_keep((b, 8), n, n, co, ko, 0.1, -MASK_SEED,
+                                  dev)
+        same = bool(torch.equal(out != 0, keep)
+                    and torch.equal(out_p != 0, keep))
+        emit({'phase': 'flash_masks', 'case': 'keep_pattern',
+              'offsets': [co, ko], 'shape': list(out.shape),
+              'kept_share': keep.float().mean().item(),
+              'exactly_equal': same})
+        if not same:
+            failures.append(f'keep pattern at offsets {co, ko} differs from '
+                            f'the plain version')
+    # K2 with segments and a window (its Ext instantiation) against its
+    # plain version, the guard picking K2 on unit-normal inputs.
+    q = randn(torch, (b, 8, t, 64), gen, dev, bf16)
+    k = randn(torch, (b, 8, t, 64), gen, dev, bf16)
+    v = randn(torch, (b, 8, t, 64), gen, dev, bf16)
+    one = ragged_segments(torch, gen, b, t).to(dev)
+    kw = dict(causal=True, causal_offset=t, kv_offset=t // 2,
+              window=MASK_CASES[1][8], segment_ids=(one, one))
+    before = fa.flash_attention_bounded.launches
+    out = fa.flash_attention(q, k, v, softmax_mode='bounded', **kw)
+    torch.cuda.synchronize()
+    took = fa.flash_attention_bounded.launches - before
+    ref = fa.flash_attention_bounded_plain_lse(q, k, v, **kw)[0]
+    row, whole = rel_errs(torch, out, ref)
+    emit({'phase': 'flash_masks', 'case': 'bounded_segments_window',
+          'q': list(q.shape), 'k2_launched': took, 'max_row_rel_err': row,
+          'rel_err': whole, 'tol': {'row_rel': TOL_ROW_REL,
+                                    'rel': TOL_NORM_REL}})
+    failures += check_rel({'out': (row, whole)}, 'bounded_segments_window')
+    if took != 1:
+        failures.append(f'bounded_segments_window: K2 launched {took} times')
+    # int8 scores bit for bit: with one key the softmax weight is 1 and
+    # lse = ln2 * score, in float32 on both sides.
+    q = randn(torch, (b, 8, 64, 64), gen, dev, bf16)
+    k = randn(torch, (b, 8, 1, 64), gen, dev, bf16)
+    lse = fa.flash_attention_with_lse(q, k, k, qk_quant='int8')[1]
+    lse_p = fa.flash_attention_plain_lse(q, k, k, qk_quant='int8')[1]
+    same = bool(torch.equal(lse, lse_p))
+    emit({'phase': 'flash_masks', 'case': 'int8_scores_exact',
+          'exactly_equal': same,
+          'max_abs_err': (lse - lse_p).abs().max().item()})
+    if not same:
+        failures.append('int8 scores differ from the plain version')
+    check(not failures, '; '.join(failures))
+    return worst, timing
+
+
 def phase_train_path(torch, ddp):
     dev = torch.device('cuda')
     gen = torch.Generator().manual_seed(3)
@@ -1443,9 +1737,10 @@ def _sp_run(torch, ddp, rank, dev):
     return res
 
 
-def _sp_worker(rank, world, init_method, backend, results):
-    """A seq_parallel rank: joins the group, runs :func:`_sp_run`, and
-    reports its numbers or its traceback."""
+def _sp_worker(rank, world, init_method, backend, results, run='_sp_run'):
+    """A rank of a multi-rank phase: joins the group, runs ``run`` (the
+    name of :func:`_sp_run` or :func:`_flagship_run`), and reports its
+    numbers or its traceback."""
     import traceback
     try:
         import torch
@@ -1454,7 +1749,7 @@ def _sp_worker(rank, world, init_method, backend, results):
         dev = torch.device('cuda', rank if backend == 'nccl' else 0)
         torch.cuda.set_device(dev)
         ddp.init(backend, init_method, world, rank)
-        results.put((rank, True, _sp_run(torch, ddp, rank, dev)))
+        results.put((rank, True, globals()[run](torch, ddp, rank, dev)))
     except Exception:
         # Reported to the parent, which fails the phase; the rank dies.
         results.put((rank, False, traceback.format_exc()))
@@ -1465,12 +1760,11 @@ def _sp_worker(rank, world, init_method, backend, results):
             dist.destroy_process_group()
 
 
-def phase_seq_parallel(torch, ddp, timeout=600):
-    """W = 4 ranks of the sequence-parallel layer, spawned after the
-    kernels are built: entry() at W = 1 and 4, nt / all / tn, each
-    strategy against the local module, and SP_STEPS DP x SP train steps
-    per strategy with launch counts. A rank that fails or the phase
-    timing out fails the phase."""
+def _spawn_ranks(torch, phase, run, timeout):
+    """SP_RANKS processes running ``run``, on card 0 over gloo (host-staged
+    collectives) unless there is a card per rank (NCCL): ``(results by
+    rank, seconds, backend)``. A rank that fails, or the phase timing
+    out, fails the phase; every process is stopped either way."""
     import multiprocessing as mp
     import queue
     import socket
@@ -1483,7 +1777,7 @@ def phase_seq_parallel(torch, ddp, timeout=600):
     results = ctx.Queue()
     procs = [ctx.Process(target=_sp_worker, daemon=True,
                          args=(r, SP_RANKS, f'tcp://localhost:{port}',
-                               backend, results))
+                               backend, results, run))
              for r in range(SP_RANKS)]
     t0 = time.perf_counter()
     for p in procs:
@@ -1495,10 +1789,10 @@ def phase_seq_parallel(torch, ddp, timeout=600):
             try:
                 rank, ok, value = results.get(timeout=max(left, 1))
             except queue.Empty:
-                raise PhaseError(f'seq_parallel: ranks '
+                raise PhaseError(f'{phase}: ranks '
                                  f'{sorted(set(range(SP_RANKS)) - set(ranks))}'
                                  f' did not finish within {timeout} s')
-            check(ok, f'seq_parallel rank {rank} failed:\n{value}')
+            check(ok, f'{phase} rank {rank} failed:\n{value}')
             ranks[rank] = value
     finally:
         for p in procs:
@@ -1506,7 +1800,17 @@ def phase_seq_parallel(torch, ddp, timeout=600):
             if p.is_alive():
                 p.kill()
                 p.join()
-    seconds = time.perf_counter() - t0
+    return ranks, time.perf_counter() - t0, backend
+
+
+def phase_seq_parallel(torch, ddp, timeout=600):
+    """W = 4 ranks of the sequence-parallel layer, spawned after the
+    kernels are built: entry() at W = 1 and 4, nt / all / tn, each
+    strategy against the local module, and SP_STEPS DP x SP train steps
+    per strategy with launch counts. A rank that fails or the phase
+    timing out fails the phase."""
+    ranks, seconds, backend = _spawn_ranks(torch, 'seq_parallel', '_sp_run',
+                                           timeout)
     r0 = ranks[0]
     label = (SP_LABEL if backend == 'gloo'
              else f'{SP_RANKS} ranks on {SP_RANKS} cards, nccl')
@@ -1587,6 +1891,258 @@ def phase_seq_parallel(torch, ddp, timeout=600):
     return launches
 
 
+# The flagship recipe's stages beyond the strategies (dryrun_multichip's
+# window, gqa_ring, stack and lm) at full width on the 2 x 2 group, global
+# B 4 x T 8192, 3 steps each, Adam 1e-3 (the stack at the README's 3e-4:
+# at width 768 Adam's first 1e-3 step overshoots — its loss rose 1.91 ->
+# 3.67 -> 2.38 on the card, and the same on the CPU in float32), MSE
+# against zeros for the module stages; then greedy generation from the
+# trained LM on rank 0.
+FS_STEPS, FS_WINDOW, FS_RATE = 3, 2048, 0.1
+FS_LR = {'window': 1e-3, 'gqa_ring': 1e-3, 'stack': LR, 'lm': 1e-3}
+FS_GEN_PROMPT, FS_GEN_STEPS, FS_GEN_T_MAX = 4, 3, 128
+FS_STAGES = ('window', 'gqa_ring', 'stack', 'lm')
+FS_KERNELS = ('flash_attention', 'flash_attention_dq', 'flash_attention_dkv')
+
+
+def fs_expected(stage, seq_rank):
+    """Launches per train step of (K1, K3, K4) on a rank: the flash
+    stages one per attention layer (the LM's remat recomputes each
+    forward once more); the causal ring folds seq rank + 1 blocks — the
+    wholly cross-segment fold of rank 1 included: it is skipped inside
+    the kernel, not on the host."""
+    if stage == 'gqa_ring':
+        return (seq_rank + 1,) * 3
+    if stage == 'stack':
+        return (2, 2, 2)
+    if stage == 'lm':
+        return (2 * LAYERS, LAYERS, LAYERS)
+    return (1, 1, 1)
+
+
+def _fs_segments(torch, b, t, dev):
+    """The recipe's packed layout: two documents a row, positions
+    ``arange(T)·2 // T``."""
+    return (torch.arange(t, device=dev) * 2 // t).to(torch.int32).expand(
+        b, t).contiguous()
+
+
+def _fs_module(torch, ddp, stage, dev, **over):
+    gen = torch.Generator().manual_seed(5)
+    bf16 = torch.bfloat16
+    if stage == 'stack':
+        return ddp.TransformerStack(
+            DIM, HEADS, n_layers=2, dtype=bf16, device=dev, generator=gen,
+            attn_kwargs=dict(causal=True, softmax_impl='flash',
+                             use_rope=True))
+    if stage == 'lm':
+        return ddp.TransformerLM(VOCAB, DIM, HEADS, n_layers=LAYERS,
+                                 dtype=bf16, remat=True, device=dev,
+                                 generator=gen)
+    kw = dict(key_dim=SP_DIM, num_heads=SP_HEADS, causal=True, dtype=bf16,
+              device=dev, generator=gen)
+    if stage == 'window':
+        kw.update(softmax_impl='flash', window=FS_WINDOW)
+    else:
+        kw.update(num_kv_heads=SP_HEADS // 2, use_rope=True,
+                  softmax_impl='online', qk_quant='int8',
+                  dropout_rate=FS_RATE)
+    kw.update(over)
+    return ddp.DistributedDotProductAttn(**kw)
+
+
+def _flagship_run(torch, ddp, rank, dev):
+    """One rank's part of the flagship phase; returns its numbers."""
+    import importlib
+    comm = importlib.import_module(
+        'distributed_dot_product_tpu_torch.utils.comm')
+    train = importlib.import_module('distributed_dot_product_tpu_torch.train')
+    res = {'rank': rank, 'transport': comm.transport(None, dev)}
+    world = comm.get_world_size()
+
+    # window and gqa_ring at W = 4 against the local module, with the
+    # segments and the dropout of the stage (the same global-coordinate
+    # mask on both sides).
+    mesh4 = ddp.seq_mesh(world)
+    gen = torch.Generator().manual_seed(7)      # the same on every rank
+    xs = [randn(torch, (SP_CHECK_B, SP_CHECK_T, SP_DIM), gen, dev,
+                torch.float32) for _ in range(4)]
+    seg = _fs_segments(torch, SP_CHECK_B, SP_CHECK_T, dev)
+    res['vs_local'] = {}
+    for stage in ('window', 'gqa_ring'):
+        mod = _fs_module(torch, ddp, stage, dev)
+        local = _fs_module(torch, ddp, stage, dev, distributed=False)
+        shards = [ddp.shard_seq(t, mesh4).clone().requires_grad_()
+                  for t in xs[:3]]
+        kw = dict(dropout_seed=3)
+        sseg = ddp.shard_seq(seg, mesh4, seq_axis=-1)
+        out = mod(*shards, None, sseg if stage == 'gqa_ring' else None,
+                  group=None, **kw)
+        (out.float() * ddp.shard_seq(xs[3], mesh4)).sum().backward()
+        got = {'out': ddp.unshard_seq(out, mesh4)}
+        for n, t in zip(('d_keys', 'd_queries', 'd_values'), shards):
+            got[n] = ddp.unshard_seq(t.grad, mesh4)
+        pgrads = {n: comm.all_reduce(p.grad) for n, p in
+                  mod.named_parameters()}
+        if rank == 0:
+            gx = [t.clone().requires_grad_() for t in xs[:3]]
+            ref = local(*gx, None, seg if stage == 'gqa_ring' else None, **kw)
+            (ref.float() * xs[3]).sum().backward()
+            want = {'out': ref, 'd_keys': gx[0].grad,
+                    'd_queries': gx[1].grad, 'd_values': gx[2].grad}
+            errs = {n: rel_errs(torch, got[n], want[n]) for n in want}
+            for n, p in local.named_parameters():
+                whole = (torch.linalg.vector_norm(pgrads[n].float()
+                                                  - p.grad.float())
+                         / torch.linalg.vector_norm(p.grad.float())).item()
+                errs[n] = (whole, whole)
+            res['vs_local'][stage] = errs
+        del mod, local, out, shards, got, pgrads
+        torch.cuda.empty_cache()
+    del xs
+
+    # The stages' DP x SP train steps on the 2 x 2 group.
+    mesh = ddp.data_seq_mesh(SP_DATA, SP_SEQ)
+    res['seq_rank'], res['data_rank'] = mesh.seq_rank, mesh.data_rank
+    gen = torch.Generator().manual_seed(3)
+    seg = _fs_segments(torch, SP_B, SP_T, dev)
+    counters = [getattr(ddp, n) for n in FS_KERNELS]
+    res['train'] = {}
+    for stage in FS_STAGES:
+        model = _fs_module(torch, ddp, stage, dev)
+        opt = torch.optim.Adam(model.parameters(), lr=FS_LR[stage])
+        if stage == 'lm':
+            tokens = torch.randint(0, VOCAB, (SP_B, SP_T),
+                                   generator=gen).to(dev)
+            batch = (tokens, ddp.lm_targets(tokens, seg), seg)
+            step = ddp.make_lm_train_step(model, opt, mesh, data_axis='data',
+                                          loss_chunk=LOSS_CHUNK)
+        else:
+            width = DIM if stage == 'stack' else SP_DIM
+            x = randn(torch, (SP_B, SP_T, width), gen, dev, torch.float32)
+            batch = (x, x, x, None, torch.zeros_like(x))
+            if stage == 'gqa_ring':
+                batch += (seg,)
+            step = ddp.make_train_step(model, opt, mesh, data_axis='data')
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        losses, ms, per_step = [], [], []
+        for i in range(FS_STEPS):
+            for fn in counters:
+                fn.launches = 0
+            torch.cuda.synchronize()
+            ddp.synchronize()
+            t0 = time.perf_counter()
+            loss = step(batch, dropout_seed=i).item()
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+            per_step.append([fn.launches for fn in counters])
+            losses.append(loss)
+        # The step's host-staged gradient all-reduce over both groups,
+        # timed alone on the last step's gradients.
+        params = [p for p in model.parameters() if p.grad is not None]
+        torch.cuda.synchronize()
+        ddp.synchronize()
+        t0 = time.perf_counter()
+        train._sum_grads(params, [mesh.seq_group, mesh.data_group])
+        torch.cuda.synchronize()
+        reduce_ms = 1e3 * (time.perf_counter() - t0)
+        run = {'losses': losses, 'step_ms': ms, 'launches_per_step': per_step,
+               'expected_per_step': list(fs_expected(stage, mesh.seq_rank)),
+               'grad_reduce_ms': reduce_ms,
+               'max_memory_allocated': torch.cuda.max_memory_allocated(dev),
+               'params': sum(p.numel() for p in model.parameters())}
+        if stage == 'lm' and rank == 0:
+            ddp.flash_attention.launches = ddp.flash_decode.launches = 0
+            prompt = batch[0][:, :FS_GEN_PROMPT]
+            t0 = time.perf_counter()
+            out = ddp.greedy_generate(model, prompt, FS_GEN_STEPS,
+                                      FS_GEN_T_MAX)
+            torch.cuda.synchronize()
+            run['generate'] = {
+                'shape': list(out.shape), 'tokens': out.tolist(),
+                'in_vocab': bool(((out >= 0) & (out < VOCAB)).all().item()),
+                'ms': 1e3 * (time.perf_counter() - t0),
+                'launches': {'flash_attention': ddp.flash_attention.launches,
+                             'flash_decode': ddp.flash_decode.launches}}
+        res['train'][stage] = run
+        del model, opt, step, batch
+        torch.cuda.empty_cache()
+    return res
+
+
+def phase_flagship(torch, ddp, timeout=900):
+    """dryrun_multichip's window, gqa_ring, stack and lm stages on a 2 x 2
+    data x seq group of 4 ranks (on one card over gloo, host-staged, as
+    seq_parallel), at full width: ms per step, losses (finite, equal on
+    every rank, falling for the module stages), launches per step against
+    the fold counts, peak memory; window and gqa_ring at W = 4 against
+    the local module; greedy generation from the trained LM."""
+    ranks, seconds, backend = _spawn_ranks(torch, 'flagship',
+                                           '_flagship_run', timeout)
+    r0 = ranks[0]
+    label = (SP_LABEL if backend == 'gloo'
+             else f'{SP_RANKS} ranks on {SP_RANKS} cards, nccl')
+    base = {'phase': 'flagship', 'ranks': SP_RANKS, 'label': label,
+            'transport': r0['transport']}
+    failures = []
+    for stage, errs in r0['vs_local'].items():
+        emit({**base, 'case': 'vs_local', 'stage': stage,
+              'batch': [SP_CHECK_B, SP_CHECK_T],
+              'max_row_rel_err': {n: e[0] for n, e in errs.items()},
+              'rel_err': {n: e[1] for n, e in errs.items()},
+              'tol': {'row_rel': SP_TOL_BF16_ROW, 'rel': SP_TOL_BF16}})
+        for n, (row, whole) in errs.items():
+            if not (row <= SP_TOL_BF16_ROW and whole <= SP_TOL_BF16):
+                failures.append(f'{stage} vs local {n}: row {row}, whole '
+                                f'{whole} > ({SP_TOL_BF16_ROW}, '
+                                f'{SP_TOL_BF16})')
+    launches = {}
+    for stage in FS_STAGES:
+        runs = {r: ranks[r]['train'][stage] for r in sorted(ranks)}
+        t0r = runs[0]
+        emit({**base, 'case': 'train', 'stage': stage,
+              'mesh': {'data': SP_DATA, 'seq': SP_SEQ},
+              'batch': [SP_B, SP_T], 'params': t0r['params'],
+              'optimizer': f'adam {FS_LR[stage]}', 'losses': t0r['losses'],
+              'step_ms_rank0': t0r['step_ms'],
+              'ms_per_step_median': statistics.median(
+                  max(runs[r]['step_ms'][i] for r in runs)
+                  for i in range(FS_STEPS)),
+              'grad_reduce_ms': {r: runs[r]['grad_reduce_ms'] for r in runs},
+              'kernels': list(FS_KERNELS),
+              'launches_per_step': {r: runs[r]['launches_per_step']
+                                    for r in runs},
+              'expected_per_step': {r: runs[r]['expected_per_step']
+                                    for r in runs},
+              'max_memory_allocated': {r: runs[r]['max_memory_allocated']
+                                       for r in runs}})
+        for r, run in runs.items():
+            if not all(math.isfinite(v) for v in run['losses']):
+                failures.append(f'{stage} rank {r}: non-finite loss')
+            for i, got in enumerate(run['launches_per_step']):
+                if got != run['expected_per_step']:
+                    failures.append(f'{stage} rank {r} step {i + 1}: '
+                                    f'launched {got}, want '
+                                    f'{run["expected_per_step"]}')
+        if len({tuple(runs[r]['losses']) for r in runs}) != 1:
+            failures.append(f'{stage}: ranks report different losses')
+        if stage != 'lm' and not t0r['losses'][-1] < t0r['losses'][0]:
+            failures.append(f'{stage}: loss did not fall '
+                            f'({t0r["losses"]})')
+        launches[stage] = {n: sum(s[i] for s in t0r['launches_per_step'])
+                           for i, n in enumerate(FS_KERNELS)}
+    gen = r0['train']['lm']['generate']
+    emit({**base, 'case': 'greedy_generate', 'prompt': FS_GEN_PROMPT,
+          'steps': FS_GEN_STEPS, 't_max': FS_GEN_T_MAX, **gen})
+    if gen['shape'] != [SP_B, FS_GEN_STEPS] or not gen['in_vocab']:
+        failures.append(f'greedy_generate returned {gen["shape"]} '
+                        f'(in vocab: {gen["in_vocab"]})')
+    emit({**base, 'case': 'summary', 'seconds': seconds, 'backend': backend})
+    check(not failures, '; '.join(failures))
+    return launches
+
+
 def main():
     try:
         import torch
@@ -1645,15 +2201,18 @@ def main():
              lambda: phase_flash_backward(torch, ddp, flush, gen)),
             ('flash_features',
              lambda: phase_flash_features(torch, ddp, flush, gen)),
+            ('flash_masks',
+             lambda: phase_flash_masks(torch, ddp, flush, gen)),
             ('main_path', lambda: phase_main_path(torch, ddp)),
             ('train_path', lambda: phase_train_path(torch, ddp)),
             ('train_cpu_reference',
              lambda: phase_train_cpu_reference(torch, ddp)),
-            ('seq_parallel', lambda: phase_seq_parallel(torch, ddp)))
+            ('seq_parallel', lambda: phase_seq_parallel(torch, ddp)),
+            ('flagship', lambda: phase_flagship(torch, ddp)))
         for phase, run in phases:
             if want(phase):
                 res[phase] = run()
-            if phase == 'flash_features':
+            if phase == 'flash_masks':
                 del flush
                 torch.cuda.empty_cache()
     except Exception as exc:   # report the failed phase, then fail
@@ -1669,9 +2228,11 @@ def main():
     serve_path_launches = res['serve_path']
     bwd_err, bwd_time = res['flash_backward']
     feat_err, feat_time = res['flash_features']
+    mask_err, mask_time = res['flash_masks']
     serve_launches = res['main_path']
     train_launches = res['train_path']
     sp = res['seq_parallel']
+    fs = res['flagship']
 
     # K1, K3, K4: launches on the training path (beside them the serving
     # path's and each sequence-parallel strategy's, rank 0 over its
@@ -1680,14 +2241,19 @@ def main():
     # (flash_features). K5: launches and times of the greedy serving path
     # (its launches on the slab twin of the scheduler's run beside them).
     # K5p: launches on the scheduler's paged run, times at the serving
-    # shape.
+    # shape. K1/K3/K4 also carry their segment / window / dropout / int8
+    # variants' times (flash_masks, `masks`) and their launches on the
+    # flagship stages (rank 0 over FS_STEPS train steps).
     csrc = 'distributed_dot_product_tpu_torch/csrc/'
     tpu = 'distributed_dot_product_tpu/ops/'
     k1_err = max(k1['max_abs_err'], bwd_err['out'], feat_err['out'])
 
     def sp_paths(kernel):
-        return {f'seq_parallel_{name}': counts[kernel]
-                for name, counts in sp.items() if counts[kernel]}
+        return {**{f'seq_parallel_{name}': counts[kernel]
+                   for name, counts in sp.items() if counts[kernel]},
+                **{f'flagship_{stage}': counts[kernel]
+                   for stage, counts in fs.items()
+                   if counts.get(kernel)}}
     kernels = [
         dict(name='flash_attention', source=csrc + 'flash_fwd.cu',
              replaces=tpu + 'pallas_attention.py:630',
@@ -1701,6 +2267,8 @@ def main():
              max_row_rel_err=max(k1['max_row_rel_err'],
                                  bwd_err['out_row_rel']),
              masked_fold=feat_time['flash_attention'],
+             masks=mask_time['flash_attention'],
+             masks_max_abs_err={n: mask_err[n] for n in ('out', 'lse')},
              **bwd_time['flash_attention']),
         dict(name='flash_attention_bounded', source=csrc + 'flash_fwd.cu',
              replaces=tpu + 'pallas_attention.py:1151',
@@ -1717,6 +2285,8 @@ def main():
              max_abs_err=max(bwd_err['dq'], feat_err['dq']),
              max_row_rel_err=bwd_err['dq_row_rel'],
              masked_fold_f32=feat_time['flash_attention_dq'],
+             masks=mask_time['flash_attention_dq'],
+             masks_max_abs_err={n: mask_err[n] for n in ('dq', 'dq_f32')},
              **bwd_time['flash_attention_dq']),
         dict(name='flash_attention_dkv', source=csrc + 'flash_bwd.cu',
              replaces=tpu + 'pallas_attention.py:1319',
@@ -1729,6 +2299,9 @@ def main():
              max_row_rel_err=max(bwd_err['dk_row_rel'],
                                  bwd_err['dv_row_rel']),
              masked_fold_f32=feat_time['flash_attention_dkv'],
+             masks=mask_time['flash_attention_dkv'],
+             masks_max_abs_err={n: mask_err[n] for n in
+                                ('dk', 'dv', 'dk_f32', 'dv_f32')},
              **bwd_time['flash_attention_dkv']),
         dict(name='flash_decode', source=csrc + 'flash_decode.cu',
              replaces=tpu + 'pallas_decode.py:107',

@@ -42,7 +42,9 @@ from distributed_dot_product_tpu_torch.ops.ops import (  # noqa: F401
     FullMultiplication, LeftTransposeMultiplication,
     RightTransposeMultiplication, matmul_all, matmul_nt, matmul_tn,
 )
-from distributed_dot_product_tpu_torch.ops.rope import rope  # noqa: F401
+from distributed_dot_product_tpu_torch.ops.rope import (  # noqa: F401
+    rope, rope_seq_parallel,
+)
 from distributed_dot_product_tpu_torch.ops.flash_attention import (  # noqa
     flash_attention, flash_attention_backward_plain, flash_attention_bounded,
     flash_attention_dkv, flash_attention_dq,
@@ -81,4 +83,5 @@ from distributed_dot_product_tpu_torch.serve import (  # noqa: F401
 )
 from distributed_dot_product_tpu_torch.convert import (  # noqa: F401
     attn_state_from_jax, engine_state_from_jax, lm_state_from_jax,
+    stack_state_from_jax,
 )

@@ -1,8 +1,9 @@
 # -*- coding: utf-8 -*-
 """
-Convert the reference package's ``TransformerLM`` and
-``DistributedDotProductAttn`` parameters into the port's state dicts, and
-the reference serving ``KernelEngine``'s weights into the port engine's.
+Convert the reference package's ``TransformerLM``, ``TransformerStack``
+and ``DistributedDotProductAttn`` parameters (GQA's narrower queries /
+values projections included) into the port's state dicts, and the
+reference serving ``KernelEngine``'s weights into the port engine's.
 
 The input is the flax parameter tree as plain mappings of arrays
 (numpy arrays, or anything ``numpy.asarray`` reads): either the scanned
@@ -19,7 +20,7 @@ import numpy as np
 import torch
 
 __all__ = ['attn_state_from_jax', 'engine_state_from_jax',
-           'lm_state_from_jax']
+           'lm_state_from_jax', 'stack_state_from_jax']
 
 _ATTN = (('keys', 'keys_proj'), ('queries', 'queries_proj'),
          ('values', 'values_proj'), ('composition', 'composition'))
@@ -64,6 +65,28 @@ def attn_state_from_jax(params):
     return _tensors(state)
 
 
+def _stack(state, prefix, stack):
+    for i, blk in enumerate(_blocks(stack)):
+        pre = f'{prefix}blocks.{i}'
+        _attn(state, f'{pre}.attn.', blk['attn'])
+        for ln in ('ln1', 'ln2'):
+            state[f'{pre}.{ln}.scale'] = np.asarray(blk[ln]['scale'])
+            state[f'{pre}.{ln}.bias'] = np.asarray(blk[ln]['bias'])
+        _dense(state, f'{pre}.mlp_in', blk['mlp_in'])
+        _dense(state, f'{pre}.mlp_out', blk['mlp_out'])
+
+
+def stack_state_from_jax(params):
+    """``{name: torch.Tensor}`` for the port's ``TransformerStack`` from
+    the reference ``TransformerStack`` params, unrolled (``block_i``) or
+    scanned (``layers/block`` with a leading layer axis), ``{'params':
+    …}`` or the inner tree."""
+    p = params['params'] if 'params' in params else params
+    state = {}
+    _stack(state, '', p)
+    return _tensors(state)
+
+
 def lm_state_from_jax(params):
     """``{name: torch.Tensor}`` for the port's ``TransformerLM`` from the
     reference ``TransformerLM`` params (``{'params': …}`` or the inner
@@ -72,14 +95,7 @@ def lm_state_from_jax(params):
     state = {'embedding': np.asarray(p['embed']['embedding']),
              'ln_f.scale': np.asarray(p['ln_f']['scale']),
              'ln_f.bias': np.asarray(p['ln_f']['bias'])}
-    for i, blk in enumerate(_blocks(p['stack'])):
-        pre = f'stack.blocks.{i}'
-        _attn(state, f'{pre}.attn.', blk['attn'])
-        for ln in ('ln1', 'ln2'):
-            state[f'{pre}.{ln}.scale'] = np.asarray(blk[ln]['scale'])
-            state[f'{pre}.{ln}.bias'] = np.asarray(blk[ln]['bias'])
-        _dense(state, f'{pre}.mlp_in', blk['mlp_in'])
-        _dense(state, f'{pre}.mlp_out', blk['mlp_out'])
+    _stack(state, 'stack.', p['stack'])
     return _tensors(state)
 
 

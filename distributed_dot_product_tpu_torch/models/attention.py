@@ -22,11 +22,23 @@ all four softmax strategies across a ``torch.distributed`` process group
 - ``'ulysses'``: head all-to-all (:mod:`.ulysses_attention`), the flash
   path on one rank or one head.
 
-RoPE rotates at the global positions ``rank·T/N + arange(T/N)``.
-``distributed=False`` is the local oracle on any group. Dropout, the
-zigzag ring layout, window, ALiBi and int8 scoring raise
-``NotImplementedError`` naming their ``ROADMAP.md`` item; segment ids
-and the dropout seed are not parameters yet.
+RoPE rotates at the global positions ``rank·T/N + arange(T/N)`` (what
+:func:`~..ops.rope.rope_seq_parallel` computes). ``distributed=False`` is the
+local oracle on any group. ``window``, ``segment_ids``, dropout and
+``qk_quant='int8'`` follow the reference: the 'full' path densifies
+segments and the window into the mask; the kernel paths take them in the
+kernels (flash: segments as a (local, gathered) pair in the K-first
+layout; online: the ids ride the ring; ulysses: gathered once).
+
+Dropout: with ``dropout_rate > 0`` and not ``deterministic`` the forward
+needs an explicit ``dropout_seed`` (an int; the port has no flax rng).
+Each module salts it with its ``path`` — the tuple of names the same
+module has in the reference's flax tree (``()`` for a module applied on
+its own; a transformer stack sets its blocks' paths) — as the reference
+does: ``seed ^ (crc32('/'.join(path)) & 0x7fffffff)`` in int32, so
+stacked layers sharing one step seed draw distinct masks. The zigzag
+ring layout and ALiBi raise ``NotImplementedError`` naming their
+``ROADMAP.md`` item.
 
 The module keeps the reference's K-FIRST convention (scores = K·Qᵀ
 softmaxed over the queries axis): in standard-attention terms its
@@ -37,6 +49,7 @@ projections, and the flash kernel's query rows are the projected keys.
 """
 
 import math
+import zlib
 
 import torch
 from torch import nn
@@ -55,7 +68,7 @@ from distributed_dot_product_tpu_torch.models.ulysses_attention import (
     ulysses_attention,
 )
 from distributed_dot_product_tpu_torch.ops.flash_attention import (
-    flash_attention,
+    _i32, flash_attention,
 )
 from distributed_dot_product_tpu_torch.ops.ops import matmul_all, matmul_nt
 from distributed_dot_product_tpu_torch.ops.rope import rope
@@ -91,9 +104,9 @@ class DistributedDotProductAttn(nn.Module):
     """Multi-head dot-product attention (K-first convention).
 
     Constructor fields mirror the reference module's and are validated
-    the same way (same errors for the same bad values). Knobs whose
-    inference path is not ported yet (``window``, ``alibi_slopes``,
-    ``qk_quant``, ``weight_quant``) raise ``NotImplementedError``.
+    the same way (same errors for the same bad values). Knobs that are
+    not ported yet (``alibi_slopes``, ``weight_quant``) raise
+    ``NotImplementedError``.
     Parameters are created on ``device`` at ``param_dtype`` (float32 by
     default, as in the reference) and computed at ``dtype``, drawn from
     ``generator`` (see :func:`~..models.dense.default_generator`).
@@ -173,9 +186,10 @@ class DistributedDotProductAttn(nn.Module):
             if head_dim % 2:
                 raise ValueError(
                     f'use_rope needs an even head dim, got {head_dim}')
-        for name, value in (('window', window),
-                            ('alibi_slopes', alibi_slopes),
-                            ('qk_quant', qk_quant),
+        if qk_quant not in (None, 'int8'):
+            raise ValueError(f"qk_quant must be None or 'int8', "
+                             f'got {qk_quant!r}')
+        for name, value in (('alibi_slopes', alibi_slopes),
                             ('weight_quant', weight_quant)):
             if value is not None:
                 raise NotImplementedError(
@@ -183,7 +197,9 @@ class DistributedDotProductAttn(nn.Module):
                     f'yet')
 
         self.num_heads = num_heads
-        self.causal = causal
+        self.causal, self.window, self.qk_quant = causal, window, qk_quant
+        # The module's path in the reference's flax tree (salts dropout).
+        self.path = ()
         self.distributed = distributed
         self.softmax_impl = softmax_impl
         self.offset, self.impl = offset, impl
@@ -211,19 +227,20 @@ class DistributedDotProductAttn(nn.Module):
                                  kv_heads * (value_dim // num_heads))
         self.composition = dense(value_dim, value_dim)
 
-    def forward(self, keys, queries, values, attn_mask=None, *, group=None):
+    def forward(self, keys, queries, values, attn_mask=None,
+                segment_ids=None, deterministic=False, dropout_seed=None,
+                *, group=None):
         """The reference ``__call__`` on this rank's time shards
-        ``keys/queries/values (B, T/N, d·)`` and boolean ``attn_mask
-        (B, T/N, T)`` (True = masked out; None = no masking) over the
-        sequence group ``group`` (the default process group when None; a
-        process without one is a one-rank group). Returns ``(B, T/N,
-        value_dim)``, differentiable (the kernel paths backpropagate
-        through K3/K4; the collectives a gradient crosses carry their
-        transposes)."""
-        if self.dropout_rate:
-            raise NotImplementedError(
-                'attention dropout in the flash kernels is not ported yet '
-                '(ROADMAP.md §2 item 1)')
+        ``keys/queries/values (B, T/N, d·)``, boolean ``attn_mask
+        (B, T/N, T)`` (True = masked out; None = no masking) and int
+        ``segment_ids (B, T/N)`` (packed documents; pairs in different
+        segments do not attend) over the sequence group ``group`` (the
+        default process group when None; a process without one is a
+        one-rank group). ``deterministic`` turns dropout off;
+        ``dropout_seed`` (an int, e.g. the step counter) seeds it.
+        Returns ``(B, T/N, value_dim)``, differentiable (the kernel paths
+        backpropagate through K3/K4; the collectives a gradient crosses
+        carry their transposes)."""
         distributed = self.distributed
         world = get_world_size(group) if distributed else 1
         idx = get_rank(group) if distributed else 0
@@ -237,34 +254,81 @@ class DistributedDotProductAttn(nn.Module):
             impl = 'flash'     # no head axis to scatter, or the local oracle
         scale = 1.0 / math.sqrt(self.head_dim)
         kv_group = self.num_heads // self._kv_heads
+        seg = (None if segment_ids is None
+               else torch.as_tensor(segment_ids).to(torch.int32))
+        drop_rate, drop_seed = self._dropout(deterministic, dropout_seed)
+        feat = dict(window=self.window if self.causal else None,
+                    qk_quant=self.qk_quant, dropout_rate=drop_rate,
+                    dropout_seed=drop_seed)
         if impl == 'flash':
             q_full, v_full = queries, values
+            seg_pair = None
             if distributed:
                 q_full = _GatherSeq.apply(queries, group)
                 v_full = _GatherSeq.apply(values, group)
+            if seg is not None:
+                # K-first: the kernel's query rows are this shard's keys
+                # (local ids), its key columns the gathered queries.
+                seg_kv = all_gather(seg, group, dim=-1) if distributed \
+                    else seg
+                seg_pair = (seg[..., None, :], seg_kv[..., None, :])
             out = flash_attention(
                 keys, q_full, v_full, attn_mask, causal=self.causal,
                 causal_offset=idx * tn if world > 1 else 0, scale=scale,
-                softmax_mode=self.flash_softmax_mode)
+                softmax_mode=self.flash_softmax_mode, segment_ids=seg_pair,
+                **feat)
         elif impl == 'ulysses':
             out = ulysses_attention(keys, queries, values, attn_mask,
                                     group=group, causal=self.causal,
                                     scale=scale,
-                                    softmax_mode=self.flash_softmax_mode)
+                                    softmax_mode=self.flash_softmax_mode,
+                                    segment_ids=seg, **feat)
         elif impl == 'online':
+            seg_ring = None if seg is None else seg[..., None, :]
             if distributed:
                 out = ring_attention(keys, queries, values, attn_mask,
                                      group=group, causal=self.causal,
-                                     scale=scale)
+                                     scale=scale, segment_ids=seg_ring,
+                                     **feat)
+            elif seg_ring is not None or self.qk_quant or drop_rate:
+                # The fused kernel is the local math for segments,
+                # dropout and int8 scoring (the plain oracle has none).
+                out = flash_attention(
+                    keys, queries, values, attn_mask, causal=self.causal,
+                    scale=scale, segment_ids=(
+                        None if seg_ring is None else (seg_ring, seg_ring)),
+                    **feat)
             else:
                 out = local_attention_reference(
                     keys, queries.repeat_interleave(kv_group, dim=-3),
                     values.repeat_interleave(kv_group, dim=-3), attn_mask,
-                    causal=self.causal, scale=scale)
+                    causal=self.causal, scale=scale, window=feat['window'])
         else:
+            if seg is not None:
+                # The parity path builds (T/N, T) rows anyway: segments
+                # densify into the mask (rows local, columns global).
+                seg_full = all_gather(seg, group, dim=-1) if distributed \
+                    else seg
+                dense = (seg[..., :, None] != seg_full[..., None, :])[
+                    ..., None, :, :]
+                attn_mask = dense if attn_mask is None else attn_mask | dense
             out = self._full(keys, queries, values, attn_mask, group,
                              distributed, world, idx, kv_group)
         return self._merge_heads(out)
+
+    def _dropout(self, deterministic, dropout_seed):
+        """``(rate, seed)`` of this call: the reference's per-layer salt
+        ``seed ^ (crc32(path) & 0x7fffffff)`` (int32) over the explicit
+        seed; ``(0.0, None)`` without dropout or when deterministic."""
+        if not self.dropout_rate or deterministic:
+            return 0.0, None
+        if dropout_seed is None:
+            raise ValueError(
+                'this module has dropout_rate > 0: pass dropout_seed=<an '
+                'int, e.g. the step counter> (the port has no flax rng), '
+                'or deterministic=True')
+        salt = zlib.crc32('/'.join(self.path).encode()) & 0x7fffffff
+        return self.dropout_rate, _i32(dropout_seed) ^ salt
 
     def _full(self, keys, queries, values, attn_mask, group, distributed,
               world, idx, kv_group):
@@ -281,6 +345,9 @@ class DistributedDotProductAttn(nn.Module):
             rows = idx * tn + torch.arange(tn, device=keys.device)
             cols = torch.arange(t_global, device=keys.device)
             future = rows[:, None] < cols[None, :]
+            if self.window is not None:
+                future = future | (rows[:, None] - cols[None, :]
+                                   >= self.window)
             attn_mask = future if attn_mask is None else attn_mask | future
         if distributed:
             scores = matmul_nt(keys, queries, self.offset, group, self.impl)
@@ -305,7 +372,9 @@ class DistributedDotProductAttn(nn.Module):
 
     def _project(self, keys, queries, values, start):
         """Shared front half of every call: the four projections, head
-        split, and RoPE at the global positions ``start + arange(n)``."""
+        split, and RoPE at the global positions ``start + arange(n)``
+        (this rank's shard: ``rank·T/N``, the cached paths: the cache
+        length)."""
         keys = self.keys_proj(keys)
         queries = self.queries_proj(queries)
         values = self.values_proj(values)

@@ -72,11 +72,13 @@ class TransformerLM(nn.Module):
     ``normal(1/√dim)``, the dense layers as its ``lecun_normal``. Serving
     a bf16 model: ``dtype=param_dtype=torch.bfloat16``; training:
     float32 parameters under ``dtype=torch.bfloat16``.
-    ``remat``/``remat_policy`` forward to the stack."""
+    ``remat``/``remat_policy`` forward to the stack; ``scan_layers``
+    (default True, the reference's default layout) decides the layers'
+    dropout salt (:class:`~..models.transformer.TransformerStack`)."""
 
     def __init__(self, vocab_size, dim, num_heads, n_layers=2, mlp_ratio=4,
                  axis_name=SEQ_AXIS, dtype=None, attn_kwargs=None,
-                 remat=False, remat_policy=None,
+                 remat=False, remat_policy=None, scan_layers=True,
                  param_dtype=torch.float32, device='cuda', generator=None):
         super().__init__()
         dev = resolve_device(device)
@@ -94,8 +96,9 @@ class TransformerLM(nn.Module):
         self.stack = TransformerStack(
             dim, num_heads, n_layers=n_layers, mlp_ratio=mlp_ratio,
             axis_name=axis_name, dtype=dtype, attn_kwargs=kw,
-            remat=remat, remat_policy=remat_policy,
-            param_dtype=param_dtype, device=dev, generator=gen)
+            remat=remat, remat_policy=remat_policy, scan_layers=scan_layers,
+            path=('stack',), param_dtype=param_dtype, device=dev,
+            generator=gen)
         self.ln_f = LayerNorm(dim, dtype=dtype, device=dev)
 
     @property
@@ -114,16 +117,22 @@ class TransformerLM(nn.Module):
         # gathering first and casting the rows is the same numbers.
         return F.embedding(tokens.long(), self.embedding).to(self.dtype)
 
-    def _hidden(self, tokens):
+    def _hidden(self, tokens, segment_ids, deterministic, dropout_seed,
+                group):
         x = self._embed(tokens)
-        return self.stack(x, x, x)
+        return self.stack(x, x, x, None, segment_ids, deterministic,
+                          dropout_seed, group=group)
 
-    def forward(self, tokens):
+    def forward(self, tokens, segment_ids=None, deterministic=False,
+                dropout_seed=None, *, group=None):
         """Logits ``(B, T, vocab)`` at the compute dtype for
-        ``tokens (B, T)``."""
-        return self._head(self._hidden(tokens))
+        ``tokens (B, T)`` (this rank's shard ``(B, T/N)`` over
+        ``group``)."""
+        return self._head(self._hidden(tokens, segment_ids, deterministic,
+                                       dropout_seed, group))
 
-    def nll_sum(self, tokens, targets, chunk=None):
+    def nll_sum(self, tokens, targets, segment_ids=None, deterministic=False,
+                dropout_seed=None, chunk=None, *, group=None):
         """Summed next-token negative log-likelihood and the count of
         valid targets (``>= 0``), both float32 scalars — the training
         loss primitive (the train step divides them).
@@ -135,7 +144,8 @@ class TransformerLM(nn.Module):
         holds the ``(T, vocab)`` logits; a chunk that does not divide T is
         padded with target −1. ``None`` (or ``chunk >= T``) is one
         unchunked pass."""
-        x = self.ln_f(self._hidden(tokens))
+        x = self.ln_f(self._hidden(tokens, segment_ids, deterministic,
+                                   dropout_seed, group))
         table = self.embedding.float()
         targets = torch.as_tensor(targets, device=x.device).long()
         tn = x.shape[-2]

@@ -11,11 +11,20 @@ defaults carried over exactly: LayerNorm with ``epsilon=1e-6`` and
 float32 statistics (``E[x²] − E[x]²`` clipped at 0), float32 scale/bias
 parameters and the output at the module dtype; the MLP activation is
 flax's ``nn.gelu``, the tanh approximation. The reference's
-``scan_layers`` stacks are a parameter layout only; here the stack is a
-plain list of layers (``convert.py`` reads either layout), and
+``scan_layers`` stacks are a parameter layout; here the stack is a plain
+list of layers (``convert.py`` reads either layout), and ``scan_layers``
+decides only the dropout salt, as the reference's layouts do: unrolled,
+block ``i``'s attention sits at path ``block_i/attn``; scanned, every
+layer's at ``layers/block/attn``, with the seed also XORed with
+``i·0x61C88647`` (int32) so the layers draw distinct masks.
 ``remat=True`` (the reference's ``nn.remat`` around the scanned block)
 runs each block under ``torch.utils.checkpoint``, so the backward keeps
-only the block inputs and recomputes one block at a time.
+only the block inputs and recomputes one block at a time (the dropout
+hash redraws the same mask).
+
+Every forward takes the reference's ``(…, attn_mask, segment_ids,
+deterministic, dropout_seed)`` and ``group=``, the sequence group passed
+to every block's attention.
 """
 
 import torch
@@ -29,6 +38,7 @@ from distributed_dot_product_tpu_torch.models.attention import (
 from distributed_dot_product_tpu_torch.models.dense import (
     OwnedDense, default_generator,
 )
+from distributed_dot_product_tpu_torch.ops.flash_attention import _i32
 from distributed_dot_product_tpu_torch.utils.comm import (
     SEQ_AXIS, resolve_device,
 )
@@ -88,9 +98,12 @@ class TransformerBlock(nn.Module):
     def _mlp(self, h):
         return self.mlp_out(F.gelu(self.mlp_in(h), approximate='tanh'))
 
-    def forward(self, x, attn_mask=None):
+    def forward(self, x, attn_mask=None, segment_ids=None,
+                deterministic=False, dropout_seed=None, *, group=None):
         h = self.ln1(x)
-        x = x + self.attn(h, h, h, attn_mask)
+        x = x + self.attn(h, h, h, attn_mask, segment_ids=segment_ids,
+                          deterministic=deterministic,
+                          dropout_seed=dropout_seed, group=group)
         return x + self._mlp(self.ln2(x))
 
     def prefill(self, x, cache):
@@ -106,18 +119,27 @@ class TransformerBlock(nn.Module):
         return cache, x + self._mlp(self.ln2(x))
 
 
+# The scanned stack's per-layer seed salt (the reference's scan body).
+_LAYER_SALT = 0x61C88647
+
+
 class TransformerStack(nn.Module):
     """``n_layers`` blocks with one KV cache each. The forward mirrors
-    the train-step contract ``(keys, queries, values, attn_mask, ...)``
-    with the first tensor as the block input.
+    the train-step contract ``(keys, queries, values, attn_mask,
+    segment_ids, deterministic, dropout_seed)`` with the first tensor as
+    the block input, and ``group=`` for every block's attention.
 
+    ``scan_layers``: the reference layout whose dropout salt the layers
+    take (see the module docstring); ``path``: the stack's own path in
+    the reference tree (``('stack',)`` inside the language model).
     ``remat=True`` checkpoints each block. ``remat_policy`` (partial
     rematerialisation) is not ported."""
 
     def __init__(self, dim, num_heads, n_layers=2, mlp_ratio=4,
                  axis_name=SEQ_AXIS, dtype=None, attn_kwargs=None,
-                 remat=False, remat_policy=None,
-                 param_dtype=torch.float32, device='cuda', generator=None):
+                 remat=False, remat_policy=None, scan_layers=False,
+                 path=(), param_dtype=torch.float32, device='cuda',
+                 generator=None):
         super().__init__()
         if remat_policy is not None:
             raise NotImplementedError(
@@ -125,7 +147,7 @@ class TransformerStack(nn.Module):
                 'remat=True recomputes each whole block')
         dev = resolve_device(device)
         gen = default_generator(generator)
-        self.remat = remat
+        self.remat, self.scan_layers = remat, scan_layers
         self.blocks = nn.ModuleList(
             TransformerBlock(dim, num_heads, mlp_ratio=mlp_ratio,
                              axis_name=axis_name, dtype=dtype,
@@ -133,15 +155,24 @@ class TransformerStack(nn.Module):
                              param_dtype=param_dtype, device=dev,
                              generator=gen)
             for _ in range(n_layers))
+        for i, block in enumerate(self.blocks):
+            block.attn.path = (*path, 'layers', 'block', 'attn') \
+                if scan_layers else (*path, f'block_{i}', 'attn')
 
-    def forward(self, keys, queries=None, values=None, attn_mask=None):
+    def forward(self, keys, queries=None, values=None, attn_mask=None,
+                segment_ids=None, deterministic=False, dropout_seed=None,
+                *, group=None):
         # queries/values are accepted for train-step signature parity; a
         # transformer block is self-attention on one stream.
         x = keys
-        for block in self.blocks:
-            x = (checkpoint(block, x, attn_mask, use_reentrant=False)
+        for i, block in enumerate(self.blocks):
+            seed = dropout_seed
+            if self.scan_layers and seed is not None:
+                seed = _i32(seed) ^ _i32(i * _LAYER_SALT)
+            args = (x, attn_mask, segment_ids, deterministic, seed)
+            x = (checkpoint(block, *args, group=group, use_reentrant=False)
                  if self.remat and torch.is_grad_enabled()
-                 else block(x, attn_mask))
+                 else block(*args, group=group))
         return x
 
     def make_decode_caches(self, batch, t_max, dtype=None, device=None):

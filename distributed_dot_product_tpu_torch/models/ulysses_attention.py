@@ -12,8 +12,14 @@ the backward is the mirrored exchange (an autograd Function). A dense
 mask ``(..., 1, T/N, T)`` is all-gathered to ``(..., 1, T, T)`` on every
 rank — every rank owns whole attention rows after the scatter.
 
-Segments, window, ALiBi, int8 scoring and dropout are not ported
-(``ROADMAP.md`` §2 item 1) and raise ``NotImplementedError``.
+Segment ids ``(..., T/N)`` are gathered once to ``(..., 1, T)`` (both
+sides of every row the rank owns span the full sequence); the window and
+int8 scoring pass straight through (the kernel sees whole rows, so its
+per-row quantization is the single-device one); dropout runs at the seed
+``dropout_seed + rank·40503`` (int32): after the head scatter every rank
+holds batch × H/N rows whose flat indices repeat across ranks, so a
+shared seed would repeat masks head group to head group. ALiBi raises
+``NotImplementedError`` (``ROADMAP.md`` §2 item 1).
 """
 
 import math
@@ -21,10 +27,10 @@ import math
 import torch
 
 from distributed_dot_product_tpu_torch.ops.flash_attention import (
-    flash_attention,
+    _i32, flash_attention,
 )
 from distributed_dot_product_tpu_torch.utils.comm import (
-    all_gather, all_to_all, get_world_size,
+    all_gather, all_to_all, get_rank, get_world_size,
 )
 
 __all__ = ['ulysses_attention']
@@ -55,17 +61,13 @@ def ulysses_attention(q, k, v, mask=None, *, group=None, causal=False,
     ``group`` (the default group when None). ``q, k, v``: this rank's
     shards ``(..., H, T/N, d)``; ``H`` (and, under GQA, the kv heads) must
     divide by the group width. ``mask``: optional boolean
-    ``(..., 1, T/N, T)`` (a size-1 head axis, as in the reference).
+    ``(..., 1, T/N, T)`` (a size-1 head axis, as in the reference);
+    ``segment_ids``: optional int ``(..., T/N)`` (no head axis).
     Returns ``(..., H, T/N, d_v)``, differentiable in q, k and v."""
-    for name, value in (('segment_ids', segment_ids), ('window', window),
-                        ('alibi_slopes', alibi_slopes),
-                        ('qk_quant', qk_quant),
-                        ('dropout_rate', float(dropout_rate) or None),
-                        ('dropout_seed', dropout_seed)):
-        if value is not None:
-            raise NotImplementedError(
-                f'ulysses_attention({name}=...) is not ported yet '
-                f'(ROADMAP.md §2 item 1)')
+    if alibi_slopes is not None:
+        raise NotImplementedError(
+            'ulysses_attention(alibi_slopes=...) is not ported yet '
+            '(ROADMAP.md §2 item 1)')
     world = get_world_size(group)
     if q.dim() < 3:
         raise ValueError(
@@ -102,8 +104,19 @@ def ulysses_attention(q, k, v, mask=None, *, group=None, causal=False,
                 f'(head axis of size 1, got {mask.shape[-3]}); per-head '
                 f'masks would need their own head scatter')
         full_mask = all_gather(mask, group, dim=-2)
+    seg_pair = None
+    if segment_ids is not None:
+        seg_full = all_gather(torch.as_tensor(segment_ids).to(torch.int32),
+                              group, dim=-1)[..., None, :]
+        seg_pair = (seg_full, seg_full)
+    seed_local = dropout_seed
+    if dropout_rate and dropout_seed is not None:
+        seed_local = _i32(int(dropout_seed) + get_rank(group) * 40503)
     out = flash_attention(scatter_heads(q), scatter_heads(k),
                           scatter_heads(v), full_mask, causal=causal,
-                          scale=scale, softmax_mode=softmax_mode)
+                          scale=scale, softmax_mode=softmax_mode,
+                          segment_ids=seg_pair, window=window,
+                          qk_quant=qk_quant, dropout_rate=dropout_rate,
+                          dropout_seed=seed_local)
     # (..., H/N, T, d_v) -> (..., H, T/N, d_v): the exact inverse.
     return _AllToAll.apply(out, group, t_ax, h_ax)

@@ -12,7 +12,9 @@ Plain PyTorch: O(T·d) elementwise work that needs no kernel.
 
 import torch
 
-__all__ = ['rope']
+from distributed_dot_product_tpu_torch.utils.comm import get_rank
+
+__all__ = ['rope', 'rope_seq_parallel']
 
 
 def rope(x, positions=None, *, base=10000.0, offset=0, dtype=torch.float32):
@@ -38,3 +40,15 @@ def rope(x, positions=None, *, base=10000.0, offset=0, dtype=torch.float32):
     x2 = x[..., d // 2:].to(dtype)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def rope_seq_parallel(x, *, group=None, positions=None, base=10000.0,
+                      dtype=torch.float32):
+    """``rope`` for this rank's ``(..., T/N, d)`` time shard: the global
+    positions default to ``rank·T/N + arange(T/N)`` with ``rank`` this
+    process's rank in ``group`` (contiguous sharding); pass the shard's
+    ``positions`` vector for other layouts."""
+    if positions is None:
+        tn = x.shape[-2]
+        positions = get_rank(group) * tn + torch.arange(tn, device=x.device)
+    return rope(x, positions, base=base, dtype=dtype)

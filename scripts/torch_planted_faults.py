@@ -35,16 +35,16 @@ _ROUND_ACC = ('        for (int e = 0; e < {0}[j].num_elements; ++e)\n'
 # must fail)
 FAULTS = {
     'k1_late_diagonal_tile_dropped': (
-        'flash_fwd.cu', 'for (int t = 0; t < n_ktiles; ++t) {',
-        'for (int t = 0; t < n_ktiles - (tile >= 32 ? 1 : 0); ++t) {',
+        'flash_fwd.cu', 'for (int t = t_begin; t < n_ktiles; ++t) {',
+        'for (int t = t_begin; t < n_ktiles - (tile >= 32 ? 1 : 0); ++t) {',
         ('flash_attention', 'flash_backward')),
     'k1_accumulator_bf16': (
         'flash_fwd.cu', 'orow[c] *= corr;',
         'orow[c] = __bfloat162float(__float2bfloat16(orow[c] * corr));',
         ('flash_attention', 'flash_backward')),
     'k3_late_diagonal_tile_dropped': (
-        'flash_bwd.cu', 'for (int t = 0; t < n_ktiles; ++t) {',
-        'for (int t = 0; t < n_ktiles - (tile >= 32 ? 1 : 0); ++t) {',
+        'flash_bwd.cu', 'for (int t = t_begin; t < n_ktiles; ++t) {',
+        'for (int t = t_begin; t < n_ktiles - (tile >= 32 ? 1 : 0); ++t) {',
         ('flash_backward',)),
     'k3_accumulator_bf16': (
         'flash_bwd.cu',

@@ -6,8 +6,9 @@ same float32 inputs, made by numpy from a seed. On the CPU the port's
 wrapper runs its plain version — the arithmetic the CUDA kernel
 implements and is held against on the card.
 
-The knobs not ported yet raise; those ported since (``kv_offset``,
-bounded softmax, a dense mask) are held against the reference on the
+The knobs not ported yet (ALiBi, explicit positions) raise; those
+ported since (``kv_offset``, bounded softmax, a dense mask, the window,
+int8 scoring, dropout, segments) are held against the reference on the
 same calls.
 
 Tolerance: atol = rtol = 1e-5, float32 rounding of two different
@@ -69,7 +70,8 @@ def test_plain_matches_jax(case):
         assert got[..., 3:, :].any()
 
 
-PORTED_KNOBS = ('kv_offset', 'softmax_mode')
+PORTED_KNOBS = ('kv_offset', 'softmax_mode', 'window', 'qk_quant',
+                'dropout_rate', 'segment_ids')
 
 
 @pytest.mark.parametrize('kw', [
@@ -80,7 +82,8 @@ PORTED_KNOBS = ('kv_offset', 'softmax_mode')
     dict(positions=np.arange(8)),
 ])
 def test_unported_knobs_raise(kw):
-    """Knobs still unported raise; ``kv_offset`` and bounded softmax are
+    """Knobs still unported (ALiBi, positions) raise; ``kv_offset``,
+    bounded softmax, the window, int8 scoring, dropout and segments are
     ported now and match the reference on the same call."""
     x = torch.zeros((1, 2, 8, 16))
     if set(kw) & set(PORTED_KNOBS):

@@ -145,12 +145,25 @@ def test_cpu_train_step_leaves_launch_counters_at_zero():
     assert all(getattr(port, name).launches == 0 for name in COUNTED)
 
 
-def test_train_step_refuses_a_multi_rank_group(monkeypatch):
-    from distributed_dot_product_tpu_torch import train
-    model = port.TransformerLM(64, 32, 4, n_layers=1, device='cpu')
-    monkeypatch.setattr(train, 'get_world_size', lambda: 2)
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        port.make_lm_train_step(model, torch.optim.Adam(model.parameters()))
+def test_train_step_refuses_a_multi_rank_group():
+    """The language model's multi-rank step is ported now: built over a
+    data x seq mesh it trains (here a one-rank mesh, without a process
+    group) and gives the one-card step's loss and parameters; the
+    2 x 2 gloo group is held against JAX in test_torch_flagship.py."""
+    tokens = torch.randint(0, 64, (2, 12), generator=torch.Generator()
+                           .manual_seed(1))
+    batch = (tokens, port.lm_targets(tokens))
+    after = []
+    for mesh in (None, port.data_seq_mesh(1, 1)):
+        model = port.TransformerLM(64, 32, 4, n_layers=1, device='cpu',
+                                   generator=torch.Generator().manual_seed(2))
+        step = port.make_lm_train_step(
+            model, torch.optim.SGD(model.parameters(), lr=0.1), mesh=mesh,
+            data_axis=None if mesh is None else 'data', loss_chunk=8)
+        after.append((step(batch), model.state_dict()))
+    (loss0, s0), (loss1, s1) = after
+    assert torch.equal(loss0, loss1)
+    assert all(torch.equal(s0[k], s1[k]) for k in s0)
 
 
 def test_seeded_init_is_reproducible_and_layers_differ():

@@ -40,6 +40,9 @@ from distributed_dot_product_tpu.models.attention import (
 from distributed_dot_product_tpu.models.ring_attention import (
     zigzag_indices as jax_zigzag_indices,
 )
+from distributed_dot_product_tpu.ops.pallas_attention import (
+    flash_attention as jax_flash_attention,
+)
 from distributed_dot_product_tpu.parallel.mesh import (
     data_seq_mesh, seq_mesh,
 )
@@ -193,15 +196,34 @@ def test_ring_folds_match_the_local_oracle(group, causal):
 
 
 def test_unported_ring_layouts_and_knobs_raise():
+    """The zigzag layout and ALiBi still raise; the window, dropout and
+    int8 scoring are ported (on one rank the ring is one diagonal fold:
+    the reference's flash kernel on the same call), and the plain fold
+    refuses the kernel-only knobs as the reference's does."""
     x = torch.zeros((1, 2, 8, 8))
-    for kw in (dict(layout='zigzag', causal=True), dict(window=4),
-               dict(dropout_rate=0.1, dropout_seed=1), dict(qk_quant='int8')):
+    for kw in (dict(layout='zigzag', causal=True),
+               dict(alibi_slopes=[0.5, 0.25], causal=True)):
         with pytest.raises(NotImplementedError, match='ROADMAP'):
             ring_attention(x, x, x, **kw)
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         DistributedDotProductAttn(DIM, num_heads=HEADS, causal=True,
                                   softmax_impl='online',
                                   ring_layout='zigzag', device='cpu')
+    for kw in (dict(window=4), dict(dropout_rate=0.1, dropout_seed=1),
+               dict(qk_quant='int8')):
+        with pytest.raises(ValueError, match="block_impl='flash'|mask=None"):
+            ring_attention(x, x, x, torch.zeros((1, 2, 8, 8), dtype=bool),
+                           causal=True, block_impl='xla', **kw)
+    rng = np.random.default_rng(13)
+    q, k, v = (rng.standard_normal((1, 2, 16, 8)).astype(np.float32)
+               for _ in range(3))
+    for kw in (dict(window=4, causal=True),
+               dict(dropout_rate=0.1, dropout_seed=1),
+               dict(qk_quant='int8', causal=True)):
+        want = np.asarray(jax_flash_attention(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), **kw))
+        got = ring_attention(*(torch.from_numpy(a) for a in (q, k, v)), **kw)
+        _close(got.numpy(), want, what=str(kw))
     np.testing.assert_array_equal(zigzag_indices(32, 4).numpy(),
                                   np.asarray(jax_zigzag_indices(32, 4)))
 

@@ -113,29 +113,34 @@ def test_attention_forward_and_grads_match_jax(case):
 
 
 def test_attention_forward_refuses_unported_knobs():
-    """Dropout still refuses; the 'full' path and a masked flash forward
-    are ported now and match the reference module (``distributed=False``)
-    on the same inputs."""
+    """Dropout is ported now: with a seed the module matches the
+    reference module (``distributed=False``, path ``()``: no salt) on the
+    same seed, and without one it refuses (the port has no flax rng);
+    the 'full' path and a masked flash forward match the reference too."""
     x = torch.zeros((1, 8, DIM))
     mod = DistributedDotProductAttn(DIM, num_heads=HEADS, device='cpu',
                                     softmax_impl='flash', dropout_rate=0.1)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match='dropout_seed'):
         mod(x, x, x)
     rng = np.random.default_rng(21)
     xs = [rng.standard_normal((1, 8, DIM)).astype(np.float32)
           for _ in range(3)]
     mask = np.tril(np.ones((1, 8, 8), bool), k=-1)
-    for kw, m in ((dict(softmax_impl='full'), None),
-                  (dict(softmax_impl='flash'), mask)):
+    for kw, m, seed in ((dict(softmax_impl='full'), None, None),
+                        (dict(softmax_impl='flash'), mask, None),
+                        (dict(softmax_impl='flash', dropout_rate=0.3), None,
+                         11)):
         jm = JaxAttn(DIM, num_heads=HEADS, distributed=False, **kw)
         jx = [jnp.asarray(a) for a in xs]
         params = jm.init(jax.random.key(4), *jx)
-        want = jm.apply(params, *jx, None if m is None else jnp.asarray(m))
+        want = jm.apply(params, *jx, None if m is None else jnp.asarray(m),
+                        dropout_seed=seed)
         port = DistributedDotProductAttn(DIM, num_heads=HEADS, device='cpu',
                                          distributed=False, **kw)
         port.load_state_dict(attn_state_from_jax(_np(params)))
         got = port(*(torch.from_numpy(a) for a in xs),
-                   None if m is None else torch.from_numpy(m))
+                   None if m is None else torch.from_numpy(m),
+                   dropout_seed=seed)
         _close(got, want, what=kw['softmax_impl'])
 
 

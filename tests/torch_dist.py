@@ -301,3 +301,65 @@ def train_step(rank, world, kw, state, batch, opt, lr, guard=False):
     return res, {n: _np(p) for n, p in mod.state_dict().items()}
 
 
+def _flagship_module(stage, kw, state):
+    import torch
+    from distributed_dot_product_tpu_torch import (
+        DistributedDotProductAttn, TransformerLM, TransformerStack,
+    )
+    cls = {'stack': TransformerStack, 'lm': TransformerLM}.get(
+        stage, DistributedDotProductAttn)
+    mod = cls(device='cpu', **kw)
+    mod.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()})
+    return mod
+
+
+def flagship_step(rank, world, stage, kw, state, batch, seed):
+    """One ``make_train_step`` step of ``dryrun_multichip``'s ``stage``
+    (an attention module or a transformer stack) on a 2 x (world/2)
+    data x seq group, SGD at lr 0 so the parameters' ``.grad`` is the
+    step's summed gradient: the loss and every gradient."""
+    import torch
+    from distributed_dot_product_tpu_torch.parallel.mesh import (
+        data_seq_mesh,
+    )
+    from distributed_dot_product_tpu_torch.train import make_train_step
+    mesh = data_seq_mesh(2, world // 2)
+    mod = _flagship_module(stage, kw, state)
+    step = make_train_step(mod, torch.optim.SGD(mod.parameters(), lr=0.0),
+                           mesh, data_axis='data')
+    loss = step(tuple(None if a is None else _t(a) for a in batch),
+                dropout_seed=seed)
+    return _np(loss), {n: _np(p.grad) for n, p in mod.named_parameters()}
+
+
+def flagship_lm(rank, world, kw, state, batch, prompt, t_max):
+    """``make_lm_train_step`` over the 2 x (world/2) data x seq group on a
+    ``(tokens, targets, segment_ids)`` batch (SGD at lr 0): the loss and
+    every gradient; then ``greedy_generate`` on rank 0."""
+    import torch
+    from distributed_dot_product_tpu_torch.models.lm import greedy_generate
+    from distributed_dot_product_tpu_torch.parallel.mesh import (
+        data_seq_mesh,
+    )
+    from distributed_dot_product_tpu_torch.train import make_lm_train_step
+    mesh = data_seq_mesh(2, world // 2)
+    model = _flagship_module('lm', kw, state)
+    step = make_lm_train_step(model, torch.optim.SGD(model.parameters(),
+                                                     lr=0.0),
+                              mesh, data_axis='data', loss_chunk=8)
+    loss = step(tuple(_t(a) for a in batch))
+    gen = (_np(greedy_generate(model, _t(prompt), 3, t_max)) if rank == 0
+           else None)
+    return (_np(loss), {n: _np(p.grad) for n, p in model.named_parameters()},
+            gen)
+
+
+def rope_shards(rank, world, x):
+    """``rope_seq_parallel`` on this rank's time shard, gathered."""
+    from distributed_dot_product_tpu_torch.ops.rope import rope_seq_parallel
+    from distributed_dot_product_tpu_torch.parallel.mesh import (
+        seq_mesh, shard_seq, unshard_seq,
+    )
+    mesh = seq_mesh(world)
+    out = rope_seq_parallel(shard_seq(_t(x), mesh), group=mesh.seq_group)
+    return _np(unshard_seq(out, mesh))
