@@ -17,12 +17,19 @@ Phases, one JSON line each (some several):
 4. flash_decode: K5 (fused decode step) against its plain version at the
    decode shape with mixed per-row fill: the appended cache must equal
    the plain append bit for bit, the output must agree within tolerance;
+   then its partial outputs (num, m, l) and its window at the
+   sequence-sharded decode shapes (a rank's 8192-column slab in the
+   query's past, the owner's, one wholly in its future whose rows must be
+   exactly empty, a window of 1024 past the slab, and the window on the
+   32768-column local cache);
 5. flash_decode_paged: K5p (the paged decode step) against its plain
    version at the serving shape (8 slots, 8 heads, head dim 96, page
    16, t_max 4096, 2048 pages) with a scrambled table and mixed fill:
    the pool must equal the plain append bit for bit on every page but
    the sink, the output must agree within tolerance and equal K5's on
-   the same rows gathered into a slab, bit for bit;
+   the same rows gathered into a slab, bit for bit; then its partial
+   outputs and window (1024) on the same cache, one slot past its
+   columns and the empty slot exactly empty;
 6. serve_path: a seeded burst of 24 requests (prompts of 1..2048 tokens)
    through the continuous-batching Scheduler over the paged KernelEngine
    (slots 8, t_max 4096, the TransformerLM's widths, bf16, prefill chunk
@@ -80,13 +87,27 @@ Phases, one JSON line each (some several):
    packed segments) stages, 4 ranks on one card as seq_parallel, a 2 x 2
    data x seq group, global B 4 x T 8192, three Adam steps each (1e-3,
    the stack 3e-4): ms per step, losses, launches per step against the
-   fold counts, the gradient all-reduce's ms, peak memory; window and gqa_ring at W = 4 against the local module; then
-   greedy generation from the trained LM on rank 0.
+   fold counts, the gradient all-reduce's ms, peak memory; window and
+   gqa_ring at W = 4 against the local module; then greedy generation
+   from the trained LM on rank 0, and the LM's checkpoint case: its
+   TrainState saved after step 2 (rank 0 writes, every rank barriers;
+   blocking and async), a fresh LM and Adam restored, and step 3 taken
+   again must give the same loss bit for bit;
+15. decode_sharded (run before flagship): the recipe's decode module
+   (key_dim 512, 8 heads on 4 kv heads, causal, RoPE, bf16) on 4 ranks
+   as seq_parallel, batch 4, a global cache of 32768 columns in slabs of
+   8192: every rank prefills the same 24544-token prompt (K1) and takes
+   its slab, then 64 decode_seq_parallel steps (K5 partials on every
+   slab, the flash-decoding merge across the ranks) held against the
+   local twin on rank 0 at each step, one K5 launch per rank per step,
+   the owner rank per step, ms per step and the merge's collectives'
+   ms; then the recipe's own 3-step check on the 2 x 2 group.
 
 Then the card's ``nvidia-smi`` name and power limit, the kernels line
 (``{"kernels": [...]}``: K1, K2, K3, K4, K5 and K5p with their launches on
 their path, max error, kernel / plain / library / bound times; K1, K3 and
-K4 also per mask variant) and, only if
+K4 also per mask variant, K5 and K5p per partials / window variant) and,
+only if
 every phase passed, the last line ``{"ok": true, "device": {...}}``.
 Exits non-zero on any failure, and without a card. ``--phases a,b`` runs
 only the named phases (after device and build) and prints no result
@@ -119,6 +140,16 @@ SERVE_SLOTS, SERVE_T_MAX, SERVE_PAGE, SERVE_CHUNK = 8, 4096, 16, 64
 SERVE_PAGES = SERVE_SLOTS * SERVE_T_MAX // SERVE_PAGE
 SERVE_REQUESTS, SERVE_PROMPT, SERVE_QUEUE, SERVE_NEW = 24, 2048, 64, 256
 SERVE_SEED = 0
+# The sequence-sharded decode configuration: the recipe's decode module
+# (DistributedDotProductAttn(key_dim=512, num_heads=8, num_kv_heads=4,
+# causal=True, use_rope=True), head dim 64, bf16), batch 4, a global cache
+# of 32768 columns over 4 ranks (slabs of 8192), a prompt of 3 * 8192 - 32
+# rows, then 64 decode steps: rank 2 owns the first 32 appends, rank 3 the
+# next 32, ranks 0 and 1 hold full slabs in the query's past.
+DS_B, DS_KV, DS_T, DS_RANKS = 4, 4, 32768, 4
+DS_LOCAL = DS_T // DS_RANKS
+DS_STEPS, DS_WINDOW = 64, 1024
+DS_PROMPT = 3 * DS_LOCAL - DS_STEPS // 2
 
 # K5 vs its plain version, absolute: both round the output to bf16, a
 # relative 2^-8 at most; with unit-normal values (|v| < ~5) that stays
@@ -401,7 +432,127 @@ def phase_decode(torch, ddp, flush, gen):
                q, ck, cv, attn_mask=mask, scale=scale), flush),
            'bound_ms': bms, 'bound_by': by, 'flops': flops, 'bytes': nbytes}
     emit(row)
+    row['variants'] = decode_variants(torch, ddp, flush, gen)
     return row
+
+
+def _filled_slab(torch, gen, dev, t, fill):
+    """A (DS_B, DS_KV, t, 64) bf16 slab: unit-normal rows below ``fill``,
+    large garbage past it that the mask must keep out."""
+    shape = (DS_B, DS_KV, t, 64)
+    x = 30.0 * randn(torch, shape, gen, dev, torch.bfloat16)
+    n = min(max(fill, 0), t)
+    x[:, :, :n] = randn(torch, (DS_B, DS_KV, n, 64), gen, dev,
+                        torch.bfloat16)
+    return x
+
+
+def _decode_errs(torch, got, want):
+    """``({tensor: (row, whole)}, max abs err, finite)`` of a decode
+    kernel's result against its plain version's: the output, or the
+    partials (num, m, l) each on its rows' own scale."""
+    if not isinstance(got, tuple):
+        got, want, names = (got,), (want,), ('out',)
+    else:
+        names = ('num', 'm', 'l')
+    errs = {n: rel_errs(torch, g, w) for n, g, w in zip(names, got, want)}
+    err = max((g.float() - w.float()).abs().max().item()
+              for g, w in zip(got, want))
+    return errs, err, all(torch.isfinite(g).all().item() for g in got)
+
+
+def decode_variants(torch, ddp, flush, gen):
+    """K5's partial outputs and window against their plain versions at the
+    sequence-sharded decode shapes: a rank's 8192-column slab wholly in the
+    query's past, the owner's slab (query inside it), a slab wholly in the
+    future (rows exactly empty: 0, _NEG_BIG, 0), a window of 1024 past the
+    slab; and the window on the local twin's 32768-column cache. Each with
+    ms, plain ms, the bound and SDPA over the same columns."""
+    import importlib
+    fd = importlib.import_module(
+        'distributed_dot_product_tpu_torch.ops.flash_decode')
+    F = torch.nn.functional
+    dev, bf16 = torch.device('cuda'), torch.bfloat16
+    scale = 1.0 / math.sqrt(64)
+    heads = SP_HEADS
+    # name: (slab columns, valid_to, append_at, window, partials)
+    cases = (('partials_past_slab', DS_LOCAL, DS_PROMPT, -1, None, True),
+             ('partials_owner', DS_LOCAL, DS_PROMPT - 2 * DS_LOCAL,
+              DS_PROMPT - 2 * DS_LOCAL, None, True),
+             ('partials_future', DS_LOCAL, DS_PROMPT - 3 * DS_LOCAL, -1, None,
+              True),
+             ('partials_window_past', DS_LOCAL, DS_LOCAL + DS_WINDOW // 2,
+              -1, DS_WINDOW, True),
+             ('window', DS_T, DS_PROMPT, DS_PROMPT, DS_WINDOW, False))
+    out_rows = {}
+    for name, t, vt0, ap0, window, partials in cases:
+        q = randn(torch, (DS_B, heads, 1, 64), gen, dev, bf16)
+        kn = randn(torch, (DS_B, DS_KV, 1, 64), gen, dev, bf16)
+        vn = randn(torch, (DS_B, DS_KV, 1, 64), gen, dev, bf16)
+        fill = vt0 if ap0 == vt0 else vt0 + 1
+        ck = _filled_slab(torch, gen, dev, t, fill)
+        cv = _filled_slab(torch, gen, dev, t, fill)
+        ck2, cv2 = ck.clone(), cv.clone()
+        vt = torch.full((DS_B,), vt0, dtype=torch.int32, device=dev)
+        ap = torch.full((DS_B,), ap0, dtype=torch.int32, device=dev)
+        kw = dict(scale=scale, window=window, partials=partials)
+        got, _, _ = fd.flash_decode(q, kn, vn, ck, cv, vt, ap, **kw)
+        want, _, _ = fd.flash_decode_plain(q, kn, vn, ck2, cv2, vt, ap, **kw)
+        torch.cuda.synchronize()
+        same = bool(torch.equal(ck, ck2) and torch.equal(cv, cv2))
+        errs, err, finite = _decode_errs(torch, got, want)
+        row = {'phase': 'flash_decode', 'case': name, 'slab': [
+            DS_B, DS_KV, t, 64], 'heads': heads, 'valid_to': vt0,
+            'append_at': ap0, 'window': window, 'partials': partials,
+            'max_abs_err': err,
+            'max_row_rel_err': {n: e[0] for n, e in errs.items()},
+            'rel_err': {n: e[1] for n, e in errs.items()},
+            'tol': {'row_rel': TOL_ROW_REL, 'rel': TOL_NORM_REL},
+            'cache_bit_identical': same}
+        check(finite, f'K5 {name}: non-finite output')
+        fails = check_rel(errs, f'K5 {name}')
+        check(not fails, '; '.join(fails))
+        check(same, f'K5 {name}: appended cache differs from the plain '
+                    f'append')
+        if name == 'partials_future':
+            num, m, l = got
+            empty = (not num.any().item() and not l.any().item()
+                     and bool((m == fd._NEG_BIG).all().item()))
+            row['rows_exactly_empty'] = empty
+            check(empty, 'K5 partials_future: rows are not exactly (0, '
+                         '_NEG_BIG, 0)')
+        # The columns this run attends, its bound, and SDPA over them.
+        cols = torch.arange(t, device=dev)
+        lo = 0 if window is None else vt0 - window + 1
+        allowed = (cols <= vt0) & (cols >= lo)
+        n_cols = int(allowed.sum().item())
+        out_bytes = (DS_B * heads * (64 + 2) * 4 if partials
+                     else DS_B * heads * 64 * 2)
+        nbytes = (2 * 2 * 64 * DS_B * DS_KV * n_cols     # K, V rows read
+                  + 2 * 64 * DS_B * heads                # q
+                  + 2 * 2 * 64 * DS_B * DS_KV * 2        # k_new, v_new; row
+                  + out_bytes)
+        flops = 4 * 64 * n_cols * DS_B * heads
+        bms, by = bound_ms(flops, nbytes)
+        mask = allowed[None, None, None, :].expand(DS_B, 1, 1, t)
+        row.update(
+            ms=time_ms(torch, lambda: fd.flash_decode(
+                q, kn, vn, ck, cv, vt, ap, **kw), flush),
+            plain_ms=time_ms(torch, lambda: fd.flash_decode_plain(
+                q, kn, vn, ck2, cv2, vt, ap, **kw), flush, reps=10),
+            library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+                q, ck, cv, attn_mask=mask, scale=scale, enable_gqa=True),
+                flush),
+            library='sdpa (normalised output) over the same columns',
+            bound_ms=bms, bound_by=by, flops=flops, bytes=nbytes,
+            attended_columns=n_cols)
+        emit(row)
+        out_rows[name] = {k: row[k] for k in (
+            'ms', 'plain_ms', 'library_ms', 'bound_ms', 'bound_by',
+            'max_abs_err', 'max_row_rel_err', 'rel_err')}
+        del q, kn, vn, ck, cv, ck2, cv2, got, want
+        torch.cuda.empty_cache()
+    return out_rows
 
 
 def paged_case(torch, gen, dev):
@@ -518,7 +669,94 @@ def phase_decode_paged(torch, ddp, flush, gen):
                             'k_new, v_new, appended rows (2*d*H each, bf16) '
                             '+ 4*table entries'}
     emit(row)
+    row['variants'] = paged_variants(torch, fd, flush, q, kn, vn, k0, v0, vt,
+                                     ap, table, scale)
     return row
+
+
+def paged_variants(torch, fd, flush, q, kn, vn, k0, v0, vt, ap, table, scale):
+    """K5p's partial outputs and window against their plain versions on the
+    serving shape's paged cache (``k0``/``v0`` before the step), with slot
+    6's ``valid_to`` moved past its 4096 columns (the slab wholly in the
+    query's past) and the empty slot 1 (an empty row): ms, plain ms, the
+    bound and SDPA over the gathered slab."""
+    F = torch.nn.functional
+    dev = q.device
+    vt_p, ap_p = vt.clone(), ap.clone()
+    vt_p[6], ap_p[6] = SERVE_T_MAX + 904, -1
+    rows = {}
+    for name, window, partials, v_t, a_p in (
+            ('partials', None, True, vt_p, ap_p),
+            ('window', DS_WINDOW, False, vt, ap),
+            ('partials_window', DS_WINDOW, True, vt_p, ap_p)):
+        kp, vp, kp2, vp2 = k0.clone(), v0.clone(), k0.clone(), v0.clone()
+        kw = dict(page_table=table, scale=scale, window=window,
+                  partials=partials)
+        got, _, _ = fd.flash_decode(q, kn, vn, kp, vp, v_t, a_p, **kw)
+        want, _, _ = fd.flash_decode_plain(q, kn, vn, kp2, vp2, v_t, a_p,
+                                           **kw)
+        torch.cuda.synchronize()
+        same = bool(torch.equal(kp[:-1], kp2[:-1])
+                    and torch.equal(vp[:-1], vp2[:-1]))
+        errs, err, finite = _decode_errs(torch, got, want)
+        if partials:
+            num, m, l = got
+            empty = (not num[1].any().item() and not l[1].any().item()
+                     and bool((m[1] == fd._NEG_BIG).all().item()))
+            check(empty, f'K5p {name}: the empty slot is not exactly '
+                         f'(0, _NEG_BIG, 0)')
+        check(finite, f'K5p {name}: non-finite output')
+        fails = check_rel(errs, f'K5p {name}')
+        check(not fails, '; '.join(fails))
+        check(same, f'K5p {name}: pool differs from the plain append')
+        # Attended columns of each slot (held pages only), the bound over
+        # the distinct rows they read, and SDPA over the gathered slab.
+        ks, vs = fd.gather_pages(k0, table), fd.gather_pages(v0, table)
+        cols = torch.arange(SERVE_T_MAX, device=dev)[None, :]
+        vtl = v_t.long()[:, None]
+        allowed = (cols <= vtl) & (table.long() >= 0).repeat_interleave(
+            SERVE_PAGE, dim=1)
+        if window is not None:
+            allowed &= cols > vtl - window
+        n_cols = int(allowed.sum().item())
+        # Distinct pool rows read (the shared prefix's once).
+        pool_rows = (table.long().repeat_interleave(SERVE_PAGE, dim=1)
+                     * SERVE_PAGE + cols % SERVE_PAGE)[allowed]
+        n_rows = int(torch.unique(pool_rows).numel())
+        row_b = 2 * HEAD_DIM * HEADS
+        out_bytes = (SERVE_SLOTS * HEADS * (HEAD_DIM + 2) * 4 if partials
+                     else row_b * SERVE_SLOTS)
+        nbytes = (2 * row_b * n_rows + row_b * SERVE_SLOTS
+                  + 2 * row_b * SERVE_SLOTS + 2 * row_b * int(
+                      (a_p >= 0).sum().item()) + 4 * table.numel()
+                  + out_bytes)
+        flops = 4 * HEAD_DIM * HEADS * n_cols
+        bms, by = bound_ms(flops, nbytes)
+        mask = allowed[:, None, None, :]
+        row = {'phase': 'flash_decode_paged', 'case': name,
+               'window': window, 'partials': partials,
+               'valid_to': v_t.tolist(), 'max_abs_err': err,
+               'max_row_rel_err': {n: e[0] for n, e in errs.items()},
+               'rel_err': {n: e[1] for n, e in errs.items()},
+               'tol': {'row_rel': TOL_ROW_REL, 'rel': TOL_NORM_REL},
+               'pools_bit_identical_but_sink': same,
+               'ms': time_ms(torch, lambda: fd.flash_decode(
+                   q, kn, vn, kp, vp, v_t, a_p, **kw), flush),
+               'plain_ms': time_ms(torch, lambda: fd.flash_decode_plain(
+                   q, kn, vn, kp2, vp2, v_t, a_p, **kw), flush, reps=10),
+               'library_ms': time_ms(
+                   torch, lambda: F.scaled_dot_product_attention(
+                       q, ks, vs, attn_mask=mask, scale=scale), flush),
+               'library': 'sdpa (normalised output) over the slab gathered '
+                          'beforehand',
+               'bound_ms': bms, 'bound_by': by, 'flops': flops,
+               'bytes': nbytes, 'attended_columns': n_cols,
+               'distinct_rows_read': n_rows}
+        emit(row)
+        rows[name] = {k: row[k] for k in (
+            'ms', 'plain_ms', 'library_ms', 'bound_ms', 'bound_by',
+            'max_abs_err', 'max_row_rel_err', 'rel_err')}
+    return rows
 
 
 def serve_burst():
@@ -1739,8 +1977,8 @@ def _sp_run(torch, ddp, rank, dev):
 
 def _sp_worker(rank, world, init_method, backend, results, run='_sp_run'):
     """A rank of a multi-rank phase: joins the group, runs ``run`` (the
-    name of :func:`_sp_run` or :func:`_flagship_run`), and reports its
-    numbers or its traceback."""
+    name of :func:`_sp_run`, :func:`_ds_run` or :func:`_flagship_run`),
+    and reports its numbers or its traceback."""
     import traceback
     try:
         import torch
@@ -1891,6 +2129,226 @@ def phase_seq_parallel(torch, ddp, timeout=600):
     return launches
 
 
+def _ds_module(torch, ddp, dev, dtype=None, impl=None, key_dim=None,
+               heads=None):
+    """The recipe's decode module at ``key_dim`` (default the flagship's
+    512 over 8 heads; GQA 2:1, causal, RoPE), seeded weights, computing at
+    ``dtype``."""
+    key_dim, heads = key_dim or SP_DIM, heads or SP_HEADS
+    return ddp.DistributedDotProductAttn(
+        key_dim=key_dim, num_heads=heads, num_kv_heads=heads // 2,
+        causal=True, use_rope=True, dtype=dtype, decode_impl=impl,
+        device=dev, generator=torch.Generator().manual_seed(11))
+
+
+DS_COUNTED = ('flash_attention', 'flash_decode', 'flash_decode_paged')
+
+
+def _ds_run(torch, ddp, rank, dev):
+    """One rank's part of the decode_sharded phase; returns its numbers."""
+    import importlib
+    comm = importlib.import_module(
+        'distributed_dot_product_tpu_torch.utils.comm')
+    dec = importlib.import_module(
+        'distributed_dot_product_tpu_torch.models.decode')
+    res = {'rank': rank, 'transport': comm.transport(None, dev)}
+    world = comm.get_world_size()
+    mesh = ddp.seq_mesh(world)
+    bf16 = torch.bfloat16
+    mod = _ds_module(torch, ddp, dev, bf16)
+    gen = torch.Generator().manual_seed(21)      # the same on every rank
+    prompt = randn(torch, (DS_B, DS_PROMPT, SP_DIM), gen, dev, bf16)
+    xs = randn(torch, (DS_B, DS_STEPS, SP_DIM), gen, dev, bf16)
+    with torch.no_grad():
+        # Every rank fills the same local cache by prefill (K1), then
+        # takes its slab; rank 0 keeps the whole cache for the local twin.
+        cache = mod.make_decode_cache(DS_B, DS_T)
+        ddp.flash_attention.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cache, _ = mod.prefill(prompt, prompt, prompt, cache)
+        torch.cuda.synchronize()
+        res['prefill_ms'] = 1e3 * (time.perf_counter() - t0)
+        res['prefill_k1_launches'] = ddp.flash_attention.launches
+        local = (cache._replace(k=cache.k.clone(), v=cache.v.clone())
+                 if rank == 0 else None)
+        slab = ddp.shard_decode_cache(cache, mesh)
+        del cache, prompt
+        torch.cuda.empty_cache()
+
+        # The main path: DS_STEPS sequence-sharded steps, counts at 0
+        # just before and read just after.
+        outs, ms, per_step, owned = [], [], [], []
+        for name in DS_COUNTED:
+            getattr(ddp, name).launches = 0
+        for t in range(DS_STEPS):
+            x = xs[:, t:t + 1]
+            owned.append(rank * DS_LOCAL <= slab.length
+                         < (rank + 1) * DS_LOCAL)
+            before = ddp.flash_decode.launches
+            torch.cuda.synchronize()
+            ddp.synchronize()
+            t0 = time.perf_counter()
+            slab, out = ddp.decode_seq_parallel(mod, mesh, x, x, x, slab)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+            per_step.append(ddp.flash_decode.launches - before)
+            outs.append(out)
+        res['launches'] = {n: getattr(ddp, n).launches for n in DS_COUNTED}
+        res.update(step_ms=ms, launches_per_step=per_step, owned=owned,
+                   length=slab.length)
+
+        # The merge's collectives alone (max, then one sum of numerator
+        # and denominator), on this step's partials.
+        vt = torch.full((DS_B,), slab.length - 1 - rank * DS_LOCAL,
+                        dtype=torch.int32, device=dev)
+        ap = torch.full((DS_B,), -1, dtype=torch.int32, device=dev)
+        q = randn(torch, (DS_B, SP_HEADS, 1, SP_HEAD_DIM), gen, dev, bf16)
+        kv = randn(torch, (DS_B, SP_HEADS // 2, 1, SP_HEAD_DIM), gen, dev,
+                   bf16)
+        parts, _, _ = ddp.flash_decode(q, kv, kv, slab.k, slab.v, vt, ap,
+                                       partials=True)
+        res['merge_ms'] = _sp_wall_ms(
+            torch, ddp, lambda: dec._flash_merge(parts, None, bf16), reps=9)
+
+        # The local twin on rank 0: the unsharded decode (K5 without
+        # partials) over the whole cache, the same tokens.
+        if rank == 0:
+            twin, twin_ms = [], []
+            for t in range(DS_STEPS):
+                x = xs[:, t:t + 1]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                local, out = mod.decode(x, x, x, local)
+                torch.cuda.synchronize()
+                twin_ms.append(1e3 * (time.perf_counter() - t0))
+                twin.append(out)
+            errs = [rel_errs(torch, a, b) for a, b in zip(outs, twin)]
+            res['vs_local'] = {
+                'max_row_rel_err': max(e[0] for e in errs),
+                'max_rel_err': max(e[1] for e in errs),
+                'max_abs_err': max((a.float() - b.float()).abs().max().item()
+                                   for a, b in zip(outs, twin)),
+                'finite': all(torch.isfinite(a).all().item() for a in outs)}
+            res['twin_ms'] = twin_ms
+        gk = comm.all_gather(slab.k, mesh.seq_group)
+        gv = comm.all_gather(slab.v, mesh.seq_group)
+        if rank == 0:
+            res['cache_bit_identical'] = bool(torch.equal(gk, local.k)
+                                              and torch.equal(gv, local.v))
+            del local
+        del gk, gv, slab, outs
+        torch.cuda.empty_cache()
+
+        # The recipe's own check (dryrun_multichip): 3 steps on the 2 x 2
+        # data x seq group, t_cap 8, B 4, sharded against local — float32
+        # through the plain path at the recipe's widths (key_dim 64, head
+        # dim 16), and bf16 through the kernel at head dim 32 (the
+        # smallest the kernel takes).
+        dmesh = ddp.data_seq_mesh(2, world // 2)
+        res['recipe'] = {}
+        for name, dtype, impl, kd in (('float32_plain', torch.float32,
+                                       'plain', 64),
+                                      ('bf16_kernel', bf16, 'kernel', 128)):
+            m = _ds_module(torch, ddp, dev, dtype, impl, key_dim=kd, heads=4)
+            g = torch.Generator().manual_seed(7)
+            xd = randn(torch, (4, 3, kd), g, dev, torch.float32)
+            sc = ddp.shard_decode_cache(m.make_decode_cache(4, 8), dmesh)
+            lc = m.make_decode_cache(4, 8)
+            errs = []
+            for t in range(3):
+                xt = xd[:, t:t + 1]
+                sc, s_out = ddp.decode_seq_parallel(m, dmesh, xt, xt, xt, sc)
+                lc, l_out = m.decode(xt, xt, xt, lc)
+                errs.append(((s_out.float() - l_out.float()).abs().max()
+                             .item(), *rel_errs(torch, s_out, l_out)))
+            res['recipe'][name] = errs
+    return res
+
+
+def phase_decode_sharded(torch, ddp, timeout=600):
+    """The recipe's sequence-sharded decode at full width on 4 ranks (on one
+    card over gloo, host-staged, as seq_parallel; NCCL with a card per
+    rank): prefill, then DS_STEPS steps of decode_seq_parallel against the
+    local twin on rank 0, one K5 launch per rank per step, the owner rank
+    per step; and the recipe's own 3-step check on the 2 x 2 group."""
+    ranks, seconds, backend = _spawn_ranks(torch, 'decode_sharded', '_ds_run',
+                                           timeout)
+    ranks = dict(sorted(ranks.items()))
+    r0 = ranks[0]
+    label = (SP_LABEL if backend == 'gloo'
+             else f'{SP_RANKS} ranks on {SP_RANKS} cards, nccl')
+    base = {'phase': 'decode_sharded', 'ranks': SP_RANKS, 'label': label,
+            'transport': r0['transport']}
+    failures = []
+    owners = [[r for r in sorted(ranks) if ranks[r]['owned'][t]]
+              for t in range(DS_STEPS)]
+    want_owners = [[2]] * (DS_STEPS // 2) + [[3]] * (DS_STEPS // 2)
+    step_ms = statistics.median(max(ranks[r]['step_ms'][t] for r in ranks)
+                                for t in range(DS_STEPS))
+    vs = r0['vs_local']
+    emit({**base, 'case': 'steps', 'module': {
+        'key_dim': SP_DIM, 'num_heads': SP_HEADS,
+        'num_kv_heads': SP_HEADS // 2,
+        'causal': True, 'use_rope': True, 'compute': 'bfloat16'},
+        'batch': DS_B, 't_max_global': DS_T, 'slab': DS_LOCAL,
+        'prompt': DS_PROMPT, 'steps': DS_STEPS,
+        'prefill_ms': {r: ranks[r]['prefill_ms'] for r in ranks},
+        'prefill_k1_launches': {r: ranks[r]['prefill_k1_launches']
+                                for r in ranks},
+        'ms_per_step_median': step_ms,
+        'twin_ms_per_step_median': statistics.median(r0['twin_ms']),
+        'merge_ms': {r: ranks[r]['merge_ms'] for r in ranks},
+        'launches': {r: ranks[r]['launches'] for r in ranks},
+        'k5_launches_per_step': {r: sorted(set(ranks[r]['launches_per_step']))
+                                 for r in ranks},
+        'owner_per_step': [o[0] if len(o) == 1 else o for o in owners],
+        'vs_local': vs, 'tol': {'row_rel': SP_TOL_BF16_ROW,
+                                'rel': SP_TOL_BF16},
+        'cache_bit_identical': r0['cache_bit_identical']})
+    if owners != want_owners:
+        failures.append(f'owners per step {owners}')
+    for r in ranks:
+        if ranks[r]['launches_per_step'] != [1] * DS_STEPS:
+            failures.append(f'rank {r}: K5 launches per step '
+                            f'{ranks[r]["launches_per_step"]}')
+        got = ranks[r]['launches']
+        if got != {'flash_attention': 0, 'flash_decode': DS_STEPS,
+                   'flash_decode_paged': 0}:
+            failures.append(f'rank {r}: launches {got}')
+        if ranks[r]['length'] != DS_PROMPT + DS_STEPS:
+            failures.append(f'rank {r}: length {ranks[r]["length"]}')
+    if not vs['finite']:
+        failures.append('non-finite sharded output')
+    if not (vs['max_row_rel_err'] <= SP_TOL_BF16_ROW
+            and vs['max_rel_err'] <= SP_TOL_BF16):
+        failures.append(f'sharded vs local: row {vs["max_row_rel_err"]}, '
+                        f'whole {vs["max_rel_err"]}')
+    if not r0['cache_bit_identical']:
+        failures.append('gathered slabs differ from the local cache')
+    for name, tol in (('float32_plain', (1e-4, None)),
+                      ('bf16_kernel', (None, (SP_TOL_BF16_ROW,
+                                              SP_TOL_BF16)))):
+        errs = {r: ranks[r]['recipe'][name] for r in ranks}
+        emit({**base, 'case': 'recipe', 'config': name, 'mesh': {
+            'data': 2, 'seq': 2}, 'batch': 4, 't_cap': 8, 'steps': 3,
+            'errs_abs_row_whole': errs,
+            'tol': ({'abs': tol[0]} if tol[0] else
+                    {'row_rel': tol[1][0], 'rel': tol[1][1]})})
+        for r, steps in errs.items():
+            for t, (ab, row, whole) in enumerate(steps):
+                ok = (ab <= tol[0] if tol[0] else
+                      row <= tol[1][0] and whole <= tol[1][1])
+                if not ok:
+                    failures.append(f'recipe {name} rank {r} step {t}: '
+                                    f'abs {ab}, row {row}, whole {whole}')
+    emit({**base, 'case': 'summary', 'seconds': seconds, 'backend': backend})
+    check(not failures, '; '.join(failures))
+    return {'launches_per_rank': DS_STEPS, 'ms_per_step': step_ms,
+            'merge_ms': statistics.median(ranks[r]['merge_ms']
+                                          for r in ranks)}
+
+
 # The flagship recipe's stages beyond the strategies (dryrun_multichip's
 # window, gqa_ring, stack and lm) at full width on the 2 x 2 group, global
 # B 4 x T 8192, 3 steps each, Adam 1e-3 (the stack at the README's 3e-4:
@@ -2038,6 +2496,8 @@ def _flagship_run(torch, ddp, rank, dev):
             ms.append(1e3 * (time.perf_counter() - t0))
             per_step.append([fn.launches for fn in counters])
             losses.append(loss)
+            if stage == 'lm' and i == 1:
+                ckpt = _fs_checkpoint_save(torch, ddp, model, opt)
         # The step's host-staged gradient all-reduce over both groups,
         # timed alone on the last step's gradients.
         params = [p for p in model.parameters() if p.grad is not None]
@@ -2065,10 +2525,74 @@ def _flagship_run(torch, ddp, rank, dev):
                 'ms': 1e3 * (time.perf_counter() - t0),
                 'launches': {'flash_attention': ddp.flash_attention.launches,
                              'flash_decode': ddp.flash_decode.launches}}
+        del model, opt, step
+        torch.cuda.empty_cache()
+        if stage == 'lm':
+            run['checkpoint'] = {**ckpt, **_fs_checkpoint_resume(
+                torch, ddp, mesh, batch, losses[2], dev)}
         res['train'][stage] = run
-        del model, opt, step, batch
+        del batch
         torch.cuda.empty_cache()
     return res
+
+
+# The checkpoint case of the flagship phase: the LM's state after step 2,
+# saved by rank 0 under the checkout's build/ directory (every rank
+# barriers), blocking and async; then a fresh LM and Adam restored from it
+# take step 3 again.
+FS_CKPT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           'build', 'smoke_checkpoints')
+
+
+def _fs_checkpoint_save(torch, ddp, model, opt):
+    import shutil
+    if ddp.get_rank() == 0:
+        shutil.rmtree(FS_CKPT_DIR, ignore_errors=True)
+    ddp.synchronize()
+    state = ddp.TrainState(2, model.state_dict(), opt.state_dict())
+    out = {}
+    for mode in ('blocking', 'async'):
+        torch.cuda.synchronize()
+        ddp.synchronize()
+        t0 = time.perf_counter()
+        ddp.save(os.path.join(FS_CKPT_DIR, mode), state,
+                 blocking=mode == 'blocking')
+        out[f'save_{mode}_ms'] = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    ddp.wait(os.path.join(FS_CKPT_DIR, 'async'))
+    out['async_wait_ms'] = 1e3 * (time.perf_counter() - t0)
+    out['bytes'] = os.path.getsize(os.path.join(
+        FS_CKPT_DIR, 'blocking', 'step_000000002', 'state.pt'))
+    return out
+
+
+def _fs_checkpoint_resume(torch, ddp, mesh, batch, want, dev):
+    import shutil
+    model = ddp.TransformerLM(VOCAB, DIM, HEADS, n_layers=LAYERS,
+                              dtype=torch.bfloat16, remat=True, device=dev,
+                              generator=torch.Generator().manual_seed(99))
+    opt = torch.optim.Adam(model.parameters(), lr=FS_LR['lm'])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    restored = ddp.restore(os.path.join(FS_CKPT_DIR, 'blocking'),
+                           ddp.TrainState(0, model.state_dict(),
+                                          opt.state_dict()))
+    model.load_state_dict(restored.params)
+    opt.load_state_dict(restored.opt_state)
+    torch.cuda.synchronize()
+    restore_ms = 1e3 * (time.perf_counter() - t0)
+    step = ddp.make_lm_train_step(model, opt, mesh, data_axis='data',
+                                  loss_chunk=LOSS_CHUNK)
+    loss = step(batch, dropout_seed=2).item()
+    restored_step = restored.step
+    del model, opt, step, restored
+    ddp.synchronize()
+    if ddp.get_rank() == 0:
+        shutil.rmtree(FS_CKPT_DIR, ignore_errors=True)
+    return {'restore_ms': restore_ms, 'restored_step': restored_step,
+            'step3_loss': want, 'resumed_step3_loss': loss,
+            'bitwise_equal': loss == want,
+            'rel_diff': abs(loss - want) / max(abs(want), 1e-30)}
 
 
 def phase_flagship(torch, ddp, timeout=900):
@@ -2132,6 +2656,19 @@ def phase_flagship(torch, ddp, timeout=900):
                             f'({t0r["losses"]})')
         launches[stage] = {n: sum(s[i] for s in t0r['launches_per_step'])
                            for i, n in enumerate(FS_KERNELS)}
+    cks = {r: ranks[r]['train']['lm']['checkpoint'] for r in sorted(ranks)}
+    emit({**base, 'case': 'checkpoint', 'stage': 'lm',
+          'saved_after_step': 2, 'by_rank': cks,
+          'tol': 'bit for bit (1e-6 relative if a kernel is not '
+                 'deterministic)'})
+    for r, ck in cks.items():
+        if ck['restored_step'] != 2:
+            failures.append(f'checkpoint rank {r}: restored step '
+                            f'{ck["restored_step"]}')
+        if not (ck['bitwise_equal'] or ck['rel_diff'] <= 1e-6):
+            failures.append(f'checkpoint rank {r}: resumed step 3 loss '
+                            f'{ck["resumed_step3_loss"]} vs '
+                            f'{ck["step3_loss"]}')
     gen = r0['train']['lm']['generate']
     emit({**base, 'case': 'greedy_generate', 'prompt': FS_GEN_PROMPT,
           'steps': FS_GEN_STEPS, 't_max': FS_GEN_T_MAX, **gen})
@@ -2208,6 +2745,7 @@ def main():
             ('train_cpu_reference',
              lambda: phase_train_cpu_reference(torch, ddp)),
             ('seq_parallel', lambda: phase_seq_parallel(torch, ddp)),
+            ('decode_sharded', lambda: phase_decode_sharded(torch, ddp)),
             ('flagship', lambda: phase_flagship(torch, ddp)))
         for phase, run in phases:
             if want(phase):
@@ -2232,6 +2770,7 @@ def main():
     serve_launches = res['main_path']
     train_launches = res['train_path']
     sp = res['seq_parallel']
+    ds = res['decode_sharded']
     fs = res['flagship']
 
     # K1, K3, K4: launches on the training path (beside them the serving
@@ -2241,7 +2780,9 @@ def main():
     # (flash_features). K5: launches and times of the greedy serving path
     # (its launches on the slab twin of the scheduler's run beside them).
     # K5p: launches on the scheduler's paged run, times at the serving
-    # shape. K1/K3/K4 also carry their segment / window / dropout / int8
+    # shape. K5 and K5p also carry their partials / window variants
+    # (`variants`), and K5 its launches per rank on the 64 sequence-sharded
+    # steps (decode_sharded). K1/K3/K4 also carry their segment / window / dropout / int8
     # variants' times (flash_masks, `masks`) and their launches on the
     # flagship stages (rank 0 over FS_STEPS train steps).
     csrc = 'distributed_dot_product_tpu_torch/csrc/'
@@ -2309,14 +2850,17 @@ def main():
              launches_by_path={
                  'main_path': serve_launches['flash_decode'],
                  'serve_path_slab':
-                     serve_path_launches['slab']['flash_decode']},
+                     serve_path_launches['slab']['flash_decode'],
+                 'decode_sharded_per_rank': ds['launches_per_rank']},
              max_abs_err=k5['max_abs_err'],
+             variants=k5['variants'],
              **{key: k5[key] for key in ('ms', 'plain_ms', 'library_ms',
                                          'bound_ms', 'bound_by')}),
         dict(name='flash_decode_paged', source=csrc + 'flash_decode.cu',
              replaces=tpu + 'pallas_decode.py:310',
              launches=serve_path_launches['paged']['flash_decode_paged'],
              max_abs_err=k5p['max_abs_err'],
+             variants=k5p['variants'],
              **{key: k5p[key] for key in ('ms', 'plain_ms', 'library_ms',
                                           'gather_ms', 'library',
                                           'bound_ms', 'bound_by')})]

@@ -19,9 +19,12 @@ sequence-parallel flash path run the flash-attention forward
 and bounded softmax), the backward its dq and dk/dv kernels
 (``csrc/flash_bwd.cu``), and each decode step the fused append + split-K
 decode kernel, slab or paged (``ops/flash_decode.py``,
-``csrc/flash_decode.cu``). Every wrapper keeps a plain PyTorch version
-of its kernel, which runs for CPU tensors (the tests) and is the card's
-reference.
+``csrc/flash_decode.cu``) — over a sequence-sharded slab cache its
+partials merged across the ranks (``decode_seq_parallel``). Every
+wrapper keeps a plain PyTorch version of its kernel, which runs for CPU
+tensors (the tests) and is the card's reference. Training state is
+checkpointed by ``utils/checkpoint.py`` and driven through preemption,
+divergence and I/O faults by ``train_loop.run_training``.
 
 Entry points run on the card (``device='cuda'``) unless the caller asks
 for the CPU; without a card they raise. The package imports ``torch``
@@ -33,7 +36,7 @@ from distributed_dot_product_tpu_torch.utils.comm import (  # noqa: F401
     resolve_device, synchronize,
 )
 from distributed_dot_product_tpu_torch.parallel.mesh import (  # noqa: F401
-    data_seq_mesh, seq_mesh, shard_seq, unshard_seq,
+    data_seq_mesh, seq_mesh, shard_decode_cache, shard_seq, unshard_seq,
 )
 from distributed_dot_product_tpu_torch.ops.functions import (  # noqa: F401
     distributed_matmul_all, distributed_matmul_nt, distributed_matmul_tn,
@@ -56,9 +59,9 @@ from distributed_dot_product_tpu_torch.models.dense import (  # noqa: F401
     OwnedDense,
 )
 from distributed_dot_product_tpu_torch.models.decode import (  # noqa: F401
-    DecodeCache, PagedDecodeCache, PagePool, append_kv, append_kv_slots,
-    decode_attention, decode_step, init_cache, init_paged_cache,
-    init_slot_cache,
+    DecodeCache, PagedDecodeCache, PagePool, append_kv, append_kv_sharded,
+    append_kv_slots, decode_attention, decode_step, init_cache,
+    init_paged_cache, init_slot_cache,
 )
 from distributed_dot_product_tpu_torch.models.ring_attention import (  # noqa
     ring_attention,
@@ -67,7 +70,8 @@ from distributed_dot_product_tpu_torch.models.ulysses_attention import (  # noqa
     ulysses_attention,
 )
 from distributed_dot_product_tpu_torch.models.attention import (  # noqa: F401
-    DistributedDotProductAttn, apply_seq_parallel,
+    DistributedDotProductAttn, apply_seq_parallel, decode_seq_parallel,
+    make_decode_step,
 )
 from distributed_dot_product_tpu_torch.models.transformer import (  # noqa
     LayerNorm, TransformerBlock, TransformerStack,
@@ -77,6 +81,13 @@ from distributed_dot_product_tpu_torch.models.lm import (  # noqa: F401
 )
 from distributed_dot_product_tpu_torch.train import (  # noqa: F401
     make_lm_train_step, make_train_step, mse_loss,
+)
+from distributed_dot_product_tpu_torch.utils.checkpoint import (  # noqa
+    CheckpointMismatchError, TrainState, gc_old_steps, latest_step,
+    recover_interrupted, restore, save, wait,
+)
+from distributed_dot_product_tpu_torch.train_loop import (  # noqa: F401
+    TrainLoopConfig, TrainLoopResult, run_training,
 )
 from distributed_dot_product_tpu_torch.serve import (  # noqa: F401
     KernelEngine, Scheduler, ServeConfig,

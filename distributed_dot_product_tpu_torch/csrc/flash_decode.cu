@@ -4,8 +4,9 @@
 // Replaces the TPU kernel `_make_decode_kernel` in
 // distributed_dot_product_tpu/ops/pallas_decode.py — the slab body
 // `kernel_body` (K5, flash_decode_bf16) and the paged body `kernel_paged`
-// (K5p, flash_decode_paged_bf16) — for one new row per slot (n = 1)
-// without the int8 mirror, window, ALiBi or partial outputs.
+// (K5p, flash_decode_paged_bf16) — for one new row per slot (n = 1),
+// with the sliding window and the partial outputs, without the int8
+// mirror or ALiBi.
 //
 // What bounds it on the H100: one query row per head against the cached
 // prefix is ~1 FLOP per byte of K/V streamed, far below the card's ~295
@@ -27,6 +28,18 @@
 // bits. Numerics follow the TPU kernel: scale*log2(e) folded into q
 // (rounded back to bf16), exp2 softmax, running max from NEG_BIG, and a
 // row with no valid column (valid_to < 0) outputs exactly 0.
+//
+// A row attends columns lo..hi: hi is valid_to clamped to the slab (a
+// shard of a sequence-sharded slab sees valid_to >= t_max when the slab
+// lies wholly in the query's past, and valid_to < 0 when it lies wholly
+// in its future), lo is 0, or with a window W the first column with
+// col - valid_to > -W. Splits outside lo..hi return after the append
+// and the merge skips them, so a windowed row streams only its window.
+// With partial outputs the merge writes the folded un-normalised
+// numerator and the base-2 running max and denominator of every query
+// row in float32 instead of dividing (the flash-decoding cross-shard
+// merge rescales and sums them); a row with no column gives numerator
+// 0, max NEG_BIG and denominator 0.
 //
 // Paged (K5p): the cache is a pool of (pages + 1, h_kv, page_size, d)
 // pages, and column c of slot b lives at row c % page_size of pool page
@@ -56,6 +69,13 @@ constexpr int kThreads = 128;
 constexpr int kLanesPerRow = 4;
 constexpr int kRowsPerPass = kThreads / kLanesPerRow;   // 32
 constexpr float kNegBig = -0.7f * 3.4e38f;
+
+// The columns lo..hi a row attends (hi < lo: none), as described above.
+__device__ __forceinline__ void row_span(int vt, int t_max, int window,
+                                         int& lo, int& hi) {
+  hi = vt < t_max - 1 ? vt : t_max - 1;
+  lo = window > 0 && vt - window + 1 > 0 ? vt - window + 1 : 0;
+}
 
 template <int PER>
 __device__ __forceinline__ void load_row(const bf16* src, float* dst) {
@@ -100,7 +120,7 @@ decode_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_new,
                     const int* __restrict__ page_table,
                     float* __restrict__ part_acc, float* __restrict__ part_ml,
                     int h_kv, int group, int t_max, int page_size,
-                    int n_splits, float qscale) {
+                    int n_splits, int window, float qscale) {
   static_assert(D % 32 == 0 && D <= 256, "head dim must be 32*n <= 256");
   constexpr int PER = D / kLanesPerRow;   // features per lane
   extern __shared__ __align__(16) float smem[];
@@ -149,10 +169,14 @@ decode_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_new,
       }
     }
   }
-  if (c0 > vt) return;    // wholly past the fill; the merge skips it
-  const int c_end_fill = vt + 1 < t_max ? vt + 1 : t_max;
-  const int c_end = c0 + kChunk < c_end_fill ? c0 + kChunk : c_end_fill;
-  const int ncols = c_end - c0;            // >= 1 valid columns
+  // Columns cs..cs+ncols-1 of this chunk are attended; a chunk wholly
+  // past the fill or before the window returns, and the merge skips it.
+  int lo, hi;
+  row_span(vt, t_max, window, lo, hi);
+  const int cs = c0 > lo ? c0 : lo;
+  const int c_end = c0 + kChunk - 1 < hi ? c0 + kChunk : hi + 1;
+  if (c_end <= cs) return;
+  const int ncols = c_end - cs;            // >= 1 valid columns
 
   // Query rows of this kv head's group, pre-scaled and rounded to bf16.
   const bf16* qb = q + static_cast<size_t>(bh) * group * D;
@@ -170,7 +194,7 @@ decode_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_new,
   // on a -1 page scores -inf.
   for (int base = 0; base < ncols; base += kRowsPerPass) {
     const int c = base + rg;
-    const int col = c0 + c;
+    const int col = cs + c;
     float kf[PER];
     const bf16* krow = nullptr;
     bool scored = false;                   // slab: every column < ncols
@@ -229,7 +253,7 @@ decode_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_new,
     for (int base = 0; base < ncols; base += kRowsPerPass) {
       const int c = base + rg;
       if (c < ncols) {
-        const int col = c0 + c;
+        const int col = cs + c;
         const bf16* vrow = vrows.at(col);
         const bool held = !PAGED || vrow != nullptr;
         if (col == ap && held) vrow = vn;
@@ -266,41 +290,61 @@ decode_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_new,
   }
 }
 
-// Grid (batch * h): one block per query row merges its active splits.
+// Grid (batch * h): one block per query row merges its active splits
+// (those holding a column of lo..hi) into the bf16 output, or with
+// partial outputs (num != nullptr) into the float32 numerator, max and
+// denominator.
 template <int D>
 __global__ void __launch_bounds__(kThreads)
 decode_merge_kernel(const float* __restrict__ part_acc,
                     const float* __restrict__ part_ml,
                     const int* __restrict__ valid_to, bf16* __restrict__ out,
-                    int h, int n_splits) {
+                    float* __restrict__ num, float* __restrict__ m_out,
+                    float* __restrict__ l_out, int h, int n_splits, int t_max,
+                    int window) {
   const int row = blockIdx.x;              // flat (batch, query head)
-  const int vt = valid_to[row / h];
-  int active = 0;
-  if (vt >= 0) {
-    active = vt / kChunk + 1;
-    if (active > n_splits) active = n_splits;
-  }
+  int lo, hi;
+  row_span(valid_to[row / h], t_max, window, lo, hi);
+  const int first = lo / kChunk;
+  const int last = hi >= lo ? hi / kChunk : first - 1;
   const float* ml = part_ml + static_cast<size_t>(row) * n_splits * 2;
   const float* pa = part_acc + static_cast<size_t>(row) * n_splits * D;
   float m = kNegBig;
-  for (int s = 0; s < active; ++s) m = fmaxf(m, ml[2 * s]);
+  for (int s = first; s <= last; ++s) m = fmaxf(m, ml[2 * s]);
   float l = 0.f;
-  for (int s = 0; s < active; ++s) l += exp2f(ml[2 * s] - m) * ml[2 * s + 1];
+  for (int s = first; s <= last; ++s)
+    l += exp2f(ml[2 * s] - m) * ml[2 * s + 1];
   for (int i = threadIdx.x; i < D; i += kThreads) {
     float a = 0.f;
-    for (int s = 0; s < active; ++s)
+    for (int s = first; s <= last; ++s)
       a += exp2f(ml[2 * s] - m) * pa[static_cast<size_t>(s) * D + i];
-    out[static_cast<size_t>(row) * D + i] =
-        __float2bfloat16(l == 0.f ? 0.f : a / l);
+    if (num != nullptr)
+      num[static_cast<size_t>(row) * D + i] = a;
+    else
+      out[static_cast<size_t>(row) * D + i] =
+          __float2bfloat16(l == 0.f ? 0.f : a / l);
+  }
+  if (num != nullptr && threadIdx.x == 0) {
+    m_out[row] = m;
+    l_out[row] = l;
   }
 }
+
+// Where the merge writes: the bf16 output, or (num != nullptr) the
+// float32 partial numerator (batch*h, D), max and denominator (batch*h).
+struct Outputs {
+  bf16* out;
+  float* num;
+  float* m;
+  float* l;
+};
 
 template <int D, bool PAGED>
 int launch(const void* q, const void* k_new, const void* v_new,
            void* cache_k, void* cache_v, const void* valid_to,
            const void* append_at, const void* page_table, void* part_acc,
-           void* part_ml, void* out, int batch, int h, int h_kv, int t_max,
-           int page_size, float qscale, cudaStream_t stream) {
+           void* part_ml, Outputs o, int batch, int h, int h_kv, int t_max,
+           int page_size, int window, float qscale, cudaStream_t stream) {
   const int group = h / h_kv;
   const int n_splits = (t_max + kChunk - 1) / kChunk;
   if (batch == 0 || n_splits == 0) return 0;
@@ -313,13 +357,13 @@ int launch(const void* q, const void* k_new, const void* v_new,
       static_cast<bf16*>(cache_v), static_cast<const int*>(valid_to),
       static_cast<const int*>(append_at), static_cast<const int*>(page_table),
       static_cast<float*>(part_acc), static_cast<float*>(part_ml), h_kv,
-      group, t_max, page_size, n_splits, qscale);
+      group, t_max, page_size, n_splits, window, qscale);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   decode_merge_kernel<D><<<batch * h, kThreads, 0, stream>>>(
       static_cast<const float*>(part_acc), static_cast<const float*>(part_ml),
-      static_cast<const int*>(valid_to), static_cast<bf16*>(out), h,
-      n_splits);
+      static_cast<const int*>(valid_to), o.out, o.num, o.m, o.l, h, n_splits,
+      t_max, window);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -327,14 +371,15 @@ template <bool PAGED>
 int dispatch(const void* q, const void* k_new, const void* v_new,
              void* cache_k, void* cache_v, const void* valid_to,
              const void* append_at, const void* page_table, void* part_acc,
-             void* part_ml, void* out, int batch, int h, int h_kv, int t_max,
-             int page_size, int d, float qscale, void* stream) {
+             void* part_ml, Outputs o, int batch, int h, int h_kv, int t_max,
+             int page_size, int d, int window, float qscale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define DECODE_CASE(DIM)                                                     \
   case DIM:                                                                  \
     return launch<DIM, PAGED>(q, k_new, v_new, cache_k, cache_v, valid_to,   \
-                              append_at, page_table, part_acc, part_ml, out, \
-                              batch, h, h_kv, t_max, page_size, qscale, s);
+                              append_at, page_table, part_acc, part_ml, o,   \
+                              batch, h, h_kv, t_max, page_size, window,      \
+                              qscale, s);
   switch (d) {
     DECODE_CASE(32)
     DECODE_CASE(64)
@@ -346,6 +391,11 @@ int dispatch(const void* q, const void* k_new, const void* v_new,
 #undef DECODE_CASE
 }
 
+Outputs outputs(void* out, void* num, void* m, void* l) {
+  return Outputs{static_cast<bf16*>(out), static_cast<float*>(num),
+                 static_cast<float*>(m), static_cast<float*>(l)};
+}
+
 }  // namespace
 
 extern "C" int flash_decode_chunk() { return kChunk; }
@@ -353,18 +403,22 @@ extern "C" int flash_decode_chunk() { return kChunk; }
 // q (batch, h, 1, d); k_new/v_new (batch, h_kv, 1, d); cache_k/cache_v
 // (batch, h_kv, t_max, d), appended in place; valid_to/append_at (batch,)
 // int32; part_acc (batch*h, n_splits, d) and part_ml (batch*h, n_splits, 2)
-// f32 scratch; out (batch, h, 1, d). All contiguous, bf16 unless noted.
+// f32 scratch. Outputs: out (batch, h, 1, d) bf16 with num, m, l null; or,
+// partial outputs, out null and num (batch, h, 1, d), m and l (batch, h, 1,
+// 1) f32. window <= 0: no window. All contiguous, bf16 unless noted.
 // Returns a cudaError_t code (0 = launched).
 extern "C" int flash_decode_bf16(const void* q, const void* k_new,
                                  const void* v_new, void* cache_k,
                                  void* cache_v, const void* valid_to,
                                  const void* append_at, void* part_acc,
-                                 void* part_ml, void* out, int batch, int h,
-                                 int h_kv, int t_max, int d, float qscale,
+                                 void* part_ml, void* out, void* num, void* m,
+                                 void* l, int batch, int h, int h_kv,
+                                 int t_max, int d, int window, float qscale,
                                  void* stream) {
   return dispatch<false>(q, k_new, v_new, cache_k, cache_v, valid_to,
-                         append_at, nullptr, part_acc, part_ml, out, batch, h,
-                         h_kv, t_max, 1, d, qscale, stream);
+                         append_at, nullptr, part_acc, part_ml,
+                         outputs(out, num, m, l), batch, h, h_kv, t_max, 1, d,
+                         window, qscale, stream);
 }
 
 // The paged step: k_pool/v_pool (pages + 1, h_kv, page_size, d), appended
@@ -374,12 +428,14 @@ extern "C" int flash_decode_paged_bf16(
     const void* q, const void* k_new, const void* v_new, void* k_pool,
     void* v_pool, const void* valid_to, const void* append_at,
     const void* page_table, void* part_acc, void* part_ml, void* out,
-    int batch, int h, int h_kv, int pages_per_slot, int page_size, int d,
-    float qscale, void* stream) {
+    void* num, void* m, void* l, int batch, int h, int h_kv,
+    int pages_per_slot, int page_size, int d, int window, float qscale,
+    void* stream) {
   if (page_size < 1 || kChunk % page_size)
     return static_cast<int>(cudaErrorInvalidValue);
   return dispatch<true>(q, k_new, v_new, k_pool, v_pool, valid_to, append_at,
-                        page_table, part_acc, part_ml, out, batch, h, h_kv,
-                        pages_per_slot * page_size, page_size, d, qscale,
-                        stream);
+                        page_table, part_acc, part_ml,
+                        outputs(out, num, m, l), batch, h, h_kv,
+                        pages_per_slot * page_size, page_size, d, window,
+                        qscale, stream);
 }

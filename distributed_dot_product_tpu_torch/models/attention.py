@@ -5,7 +5,9 @@ Multi-head dot-product attention module — the port of
 ``distributed_dot_product_tpu/models/attention.py``.
 
 Ported: the constructor validation, the cached inference surface
-(``make_decode_cache``, ``prefill``, ``decode``), ``forward`` (the
+(``make_decode_cache``, ``prefill``, ``decode``, with the module's
+``window``), the sequence-sharded decode (``decode_sharded``,
+:func:`make_decode_step`, :func:`decode_seq_parallel`), ``forward`` (the
 reference's ``__call__``) on this rank's time shard ``(B, T/N, d)`` for
 all four softmax strategies across a ``torch.distributed`` process group
 (the reference's ``seq`` mesh axis), and :func:`apply_seq_parallel`:
@@ -77,10 +79,11 @@ from distributed_dot_product_tpu_torch.parallel.mesh import (
 )
 from distributed_dot_product_tpu_torch.utils.comm import (
     SEQ_AXIS, all_gather, get_rank, get_world_size, reduce_scatter,
-    resolve_device,
+    resolve_device, world_group,
 )
 
-__all__ = ['DistributedDotProductAttn', 'apply_seq_parallel']
+__all__ = ['DistributedDotProductAttn', 'apply_seq_parallel',
+           'make_decode_step', 'decode_seq_parallel']
 
 
 class _GatherSeq(torch.autograd.Function):
@@ -363,11 +366,13 @@ class DistributedDotProductAttn(nn.Module):
 
     def make_decode_cache(self, batch, t_max, dtype=None, device=None):
         """A KV cache sized for this module's projections (GQA-aware),
-        on the module's device unless ``device`` is given."""
+        on the module's device unless ``device`` is given. An int8 module
+        (``qk_quant='int8'``) needs the int8 K mirror, which is not ported
+        yet: this raises ``NotImplementedError``."""
         return init_cache(
             batch, self._kv_heads, t_max, self.head_dim,
             v_head_dim=self._value_dim // self.num_heads,
-            dtype=dtype or self.dtype,
+            dtype=dtype or self.dtype, qk_quant=self.qk_quant,
             device=device or self.keys_proj.weight.device)
 
     def _project(self, keys, queries, values, start):
@@ -408,7 +413,8 @@ class DistributedDotProductAttn(nn.Module):
         projected queries/values to the cache (in place), and compute the
         rows' outputs with the flash kernel over the whole cache buffer —
         causal from global position ``cache.length`` excludes both the
-        future prompt rows and the unfilled tail. Returns
+        future prompt rows and the unfilled tail — with the module's
+        ``window`` and ``qk_quant``, as its forward. Returns
         ``(cache, out (B, n, value_dim))``."""
         keys, queries, values = self._project_for_decode(
             keys, queries, values, cache)
@@ -416,19 +422,80 @@ class DistributedDotProductAttn(nn.Module):
         cache = append_kv(cache, queries, values)
         out = flash_attention(keys, cache.k, cache.v, causal=True,
                               causal_offset=start,
-                              scale=1.0 / math.sqrt(self.head_dim))
+                              scale=1.0 / math.sqrt(self.head_dim),
+                              window=self.window, qk_quant=self.qk_quant)
         return cache, self._merge_heads(out)
 
     def decode(self, keys, queries, values, cache):
         """One cached step for the NEW positions ``(B, 1, d·)``: the fused
-        append + attend (``decode_impl`` selects the implementation).
+        append + attend (``decode_impl`` selects the implementation) with
+        the module's ``window`` (``qk_quant='int8'`` raises
+        ``NotImplementedError`` until the int8 K mirror is ported).
         Returns ``(cache, out (B, 1, value_dim))``."""
         keys, queries, values = self._project_for_decode(
             keys, queries, values, cache)
         cache, out = decode_step(keys, cache, queries, values,
                                  scale=1.0 / math.sqrt(self.head_dim),
+                                 window=self.window, qk_quant=self.qk_quant,
                                  impl=self.decode_impl)
         return cache, self._merge_heads(out)
+
+    def decode_sharded(self, keys, queries, values, cache, *, group=None):
+        """Sequence-sharded :meth:`decode` over the process group
+        ``group`` (the default group when None): ``cache`` is this rank's
+        ``(B, H_kv, t_max/W, d·)`` slab of a global cache sharded on its
+        ``t_max`` axis (:func:`~..parallel.mesh.shard_decode_cache`), with
+        the GLOBAL length; the new positions ``(B, 1, d·)`` and the output
+        are the same on every rank. RoPE rotates at the global positions;
+        the owning rank appends in place, and the ranks' softmax partials
+        merge by the flash-decoding rule (the kernel path: K5 with
+        ``partials=True`` on every slab). Returns ``(cache, out (B, 1,
+        value_dim))``."""
+        keys, queries, values = self._project_for_decode(
+            keys, queries, values, cache)
+        cache, out = decode_step(
+            keys, cache, queries, values,
+            scale=1.0 / math.sqrt(self.head_dim), window=self.window,
+            qk_quant=self.qk_quant,
+            group=world_group() if group is None else group,
+            impl=self.decode_impl)
+        return cache, self._merge_heads(out)
+
+
+def make_decode_step(module, mesh, mesh_axis=None):
+    """The sequence-sharded decode step of ``module`` on ``mesh``'s seq
+    group: ``step(keys, queries, values, cache) -> (cache, out)``, with
+    ``cache`` this rank's slab (:func:`~..parallel.mesh.shard_decode_cache`)
+    and the global length. The reference compiles and caches a
+    ``shard_map``ped step (and donates the cache to it); nothing is traced
+    here, so the step is the module's :meth:`decode_sharded` bound to the
+    group, and the slab is appended in place. ``mesh_axis``, when given,
+    must name the mesh's seq axis."""
+    seq_axis = mesh.axis_names[-1]
+    if mesh_axis not in (None, seq_axis):
+        raise ValueError(f'mesh_axis {mesh_axis!r} is not the mesh\'s seq '
+                         f'axis {seq_axis!r}')
+
+    def step(keys, queries, values, cache):
+        return module.decode_sharded(keys, queries, values, cache,
+                                     group=mesh.seq_group)
+    return step
+
+
+def decode_seq_parallel(module, mesh, keys, queries, values, cache,
+                        mesh_axis=None):
+    """One sequence-sharded decode step: ``keys/queries/values (B, 1, d·)``
+    and the output are the same on every rank of ``mesh``'s seq group,
+    ``cache`` is this rank's slab of the global cache (build the global
+    one with ``module.make_decode_cache(batch, t_max_global)`` and take
+    the slab with :func:`~..parallel.mesh.shard_decode_cache`). Returns
+    ``(cache, out)``; feed the cache back in for the next token. The
+    reference's wrapper keeps an LRU of compiled steps; the port traces
+    nothing, so there is nothing to cache (:func:`make_decode_step`
+    gives the same step bound once). The module holds its parameters:
+    there is no params argument."""
+    return make_decode_step(module, mesh, mesh_axis)(keys, queries, values,
+                                                     cache)
 
 
 def apply_seq_parallel(module, mesh, keys, queries, values, attn_mask=None):

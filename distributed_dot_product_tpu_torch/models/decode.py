@@ -34,10 +34,23 @@ the CUDA kernels on the card, their plain versions on the CPU;
 (gathered) slab view, the reference's portable formulation
 (``impl='xla'`` there).
 
-Not ported yet: the int8 K mirror, sequence-sharded steps and the
-sharded page table, verify-k (``n > 1`` through the kernel, per-slot
-``counts`` above 1), rollback, cross-cache page transfer, windows,
-ALiBi and packed segments — they raise ``NotImplementedError``.
+Sequence-sharded slab decode (the reference's ``axis_name`` steps; here
+``group=``, a ``torch.distributed`` process group): each rank of the
+sequence group holds the ``(B, H_kv, t_max/W, d)`` slab of a global
+cache, ``length`` is the GLOBAL fill, :func:`append_kv_sharded` writes
+the rows a rank owns, and :func:`decode_attention` /
+:func:`decode_step` merge the ranks' softmax partials by the
+flash-decoding rule (:func:`_flash_merge`: max over ranks, rescale, sum).
+Every rank runs every collective of a step, its slab full, empty or
+wholly in the query's future alike. An append past the global capacity
+raises eagerly on every rank and writes nothing.
+
+The sliding ``window`` of the training kernels applies to every decode
+path. Not ported yet: the int8 K mirror (``qk_quant='int8'`` raises
+``NotImplementedError``), the sharded page table, verify-k (``n > 1``
+through the kernel, per-slot ``counts`` above 1), rollback, cross-cache
+page transfer, ALiBi and packed segments — they raise
+``NotImplementedError``.
 """
 
 import math
@@ -50,10 +63,13 @@ import torch
 from distributed_dot_product_tpu_torch.ops.flash_decode import (
     flash_decode, gather_pages,
 )
-from distributed_dot_product_tpu_torch.utils.comm import resolve_device
+from distributed_dot_product_tpu_torch.utils.comm import (
+    all_reduce, all_reduce_max, get_rank, get_world_size, resolve_device,
+)
 
-__all__ = ['DecodeCache', 'init_cache', 'append_kv', 'decode_attention',
-           'decode_step', 'init_slot_cache', 'append_kv_slots',
+__all__ = ['DecodeCache', 'init_cache', 'append_kv', 'append_kv_sharded',
+           'decode_attention', 'decode_step', 'init_slot_cache',
+           'append_kv_slots',
            'reset_slot', 'slots_all_finite', 'PagedDecodeCache',
            'init_paged_cache', 'paged_gather', 'paged_append_kv_slots',
            'paged_append_rows', 'paged_reset_slot', 'paged_copy_attach',
@@ -121,6 +137,45 @@ def _check_room(cache, n):
             f'KV-cache overflow: length {cache.length} + {n} new positions '
             f'exceeds t_max {cache.t_max} — grow the cache or stop the '
             f'generation loop')
+
+
+def _check_global_room(cache, n, world):
+    """The sharded overflow contract: an append past the GLOBAL capacity
+    ``world * t_local`` raises on every rank (the length is replicated),
+    before any write."""
+    if not isinstance(cache.length, (int, np.integer)):
+        raise ValueError(
+            'per-slot lengths (init_slot_cache) are a local serving '
+            'construct; sequence-sharded decode uses the scalar global '
+            'length')
+    cap = world * cache.t_max
+    if cache.length + n > cap:
+        raise ValueError(
+            f'KV-cache overflow: length {cache.length} + {n} new positions '
+            f'exceeds the global capacity {cap} ({world} slabs of '
+            f'{cache.t_max}) — grow the cache or stop the generation loop')
+
+
+def append_kv_sharded(cache: DecodeCache, k_new, v_new, *, group=None):
+    """Sequence-sharded :func:`append_kv`: ``cache`` holds this rank's
+    ``(B, H_kv, t_max/W, d·)`` slab of a global cache sharded over the
+    sequence group ``group`` (the default group when None), rank ``r``
+    holding global columns ``r·t_local ..``; ``cache.length`` is the
+    GLOBAL length. The ``n`` new rows land at global positions
+    ``length ..``, each on the rank that owns it (a prefill chunk may
+    straddle slabs), in place; every rank advances the length. An append
+    past the global capacity raises on every rank and writes nothing."""
+    n = k_new.shape[-2]
+    tl = cache.t_max
+    _check_global_room(cache, n, get_world_size(group))
+    lo, p = get_rank(group) * tl, int(cache.length)
+    a, e = max(p, lo), min(p + n, lo + tl)
+    if a < e:
+        cache.k[:, :, a - lo:e - lo] = k_new[:, :, a - p:e - p].to(
+            cache.k.dtype)
+        cache.v[:, :, a - lo:e - lo] = v_new[:, :, a - p:e - p].to(
+            cache.v.dtype)
+    return cache._replace(length=p + n)
 
 
 def append_kv(cache: DecodeCache, k_new, v_new) -> DecodeCache:
@@ -762,47 +817,97 @@ class PageChecksums:
 
 def decode_attention(q, cache: DecodeCache, *, scale=None, window=None,
                      alibi_slopes=None, segment_ids=None, seg_q=None,
-                     qk_quant=None, axis_name=None, col_valid=None,
+                     qk_quant=None, group=None, col_valid=None,
                      col_offset=None):
     """Masked-softmax attention of ``q (B, H, n, d)`` — the LAST ``n``
     appended positions — against the cache prefix; returns
     ``(B, H, n, d_v)`` in the cache dtype. A per-slot cache masks each
     row against its own length. Float32 scores and weights; a row with no
-    attendable column returns 0."""
-    _unported('decode_attention', window=window, alibi_slopes=alibi_slopes,
-              segment_ids=segment_ids, seg_q=seg_q, qk_quant=qk_quant,
-              axis_name=axis_name, col_valid=col_valid,
-              col_offset=col_offset)
+    attendable column returns 0. ``window``: the training kernels'
+    sliding-window lookback over absolute positions.
+
+    ``group``: sequence-sharded decode (the reference's ``axis_name``):
+    the cache is this rank's slab of a global cache sharded on its
+    ``t_max`` axis over the ranks of ``group`` (see
+    :func:`append_kv_sharded`), ``q`` is the same on every rank and
+    ``cache.length`` is global; each rank scores ``q`` against its slab
+    and the softmax merges across the ranks by the flash-decoding rule
+    (row max over ranks, then the sums of the rescaled numerator and
+    denominator), so the result equals the unsharded one on every rank.
+    ``None``: the local step. ``col_offset``: the global position of the
+    buffer's column 0 (default: ``rank · t_max`` when sharded, else 0);
+    ``col_valid (B, t_max) bool``: columns the buffer holds (the rest are
+    masked whatever their position)."""
+    _unported('decode_attention', alibi_slopes=alibi_slopes,
+              segment_ids=segment_ids, seg_q=seg_q, qk_quant=qk_quant)
     b, h, n, d = q.shape
     h_kv = cache.k.shape[1]
     if h % h_kv:
         raise ValueError(f'query heads {h} must be a multiple of cache '
                          f'kv heads {h_kv}')
-    group = h // h_kv
+    group_size = h // h_kv
     scale = 1.0 / math.sqrt(d) if scale is None else scale
     t_max = cache.t_max
     dev = q.device
-    qg = q.reshape(b, h_kv, group * n, d).float()
+    per_slot = isinstance(cache.length, np.ndarray)
+    if per_slot and group is not None and col_offset is None:
+        raise ValueError(
+            'per-slot lengths (init_slot_cache) are a local serving '
+            'construct; sequence-sharded decode uses the scalar global '
+            'length')
+    if col_offset is None:
+        col_offset = 0 if group is None else get_rank(group) * t_max
+    qg = q.reshape(b, h_kv, group_size * n, d).float()
     s = torch.matmul(qg, cache.k.float().transpose(-1, -2)) * scale
-    s = s.reshape(b, h_kv, group, n, t_max)
-    # Query row i sits at position length - n + i and attends positions
-    # at or before its own; a per-slot cache gives each row its length.
+    s = s.reshape(b, h_kv, group_size, n, t_max)
+    # Query row i sits at global position length - n + i and attends
+    # positions at or before its own (within the window); a per-slot
+    # cache gives each row its length.
     length = torch.as_tensor(cache.length, device=dev).reshape(-1, 1)
     pos_q = length - n + torch.arange(n, device=dev)     # (B | 1, n)
-    pos_k = torch.arange(t_max, device=dev)
-    allowed = pos_k <= pos_q[..., None]                  # (B | 1, n, t_max)
+    pos_k = col_offset + torch.arange(t_max, device=dev)
+    rel = pos_k - pos_q[..., None]                       # (B | 1, n, t_max)
+    allowed = rel <= 0
+    if window is not None:
+        allowed = allowed & (-rel < window)
+    if col_valid is not None:
+        allowed = allowed & torch.as_tensor(
+            col_valid, device=dev).bool()[:, None, :]
     s = s.masked_fill(~allowed[:, None, None], float('-inf'))
-    m = s.amax(dim=-1, keepdim=True).clamp_min(-1e30)          # empty rows
-    p = torch.exp(s - m)
+    m = s.amax(dim=-1, keepdim=True)
+    if group is not None:
+        m = all_reduce_max(m, group)
+    p = torch.exp(s - m.clamp_min(-1e30))                     # empty rows
     denom = p.sum(dim=-1, keepdim=True)
-    p = p / torch.where(denom == 0.0, 1.0, denom)
-    out = torch.matmul(p, cache.v.float()[:, :, None])
-    return out.to(cache.v.dtype).reshape(b, h, n, cache.v.shape[-1])
+    dv = cache.v.shape[-1]
+    if group is None:
+        p = p / torch.where(denom == 0.0, 1.0, denom)
+        out = torch.matmul(p, cache.v.float()[:, :, None])
+        return out.to(cache.v.dtype).reshape(b, h, n, dv)
+    num = torch.matmul(p, cache.v.float()[:, :, None])
+    both = all_reduce(torch.cat([num, denom], dim=-1), group)
+    num, denom = both[..., :dv], both[..., dv:]
+    out = num / torch.where(denom == 0.0, 1.0, denom)
+    return out.to(cache.v.dtype).reshape(b, h, n, dv)
+
+
+def _flash_merge(partials, group, out_dtype):
+    """Flash-decoding merge of the kernel's ``(num, m, l)`` partials
+    (base-2 running max and denominator) over the ranks of ``group``:
+    shift every rank's partials by the row max over the ranks, then sum
+    the numerators and denominators (one collective for both). A rank
+    whose slab holds no attended column contributes ``exp2(_NEG_BIG −
+    m) = 0``; a row no rank attends gives 0."""
+    num, m, l = partials
+    corr = torch.exp2(m - all_reduce_max(m, group))
+    both = all_reduce(torch.cat([num * corr, l * corr], dim=-1), group)
+    num, den = both[..., :-1], both[..., -1:]
+    return (num / torch.where(den == 0.0, 1.0, den)).to(out_dtype)
 
 
 def decode_step(q, cache, k_new, v_new, *, slot_mask=None, counts=None,
                 scale=None, window=None, alibi_slopes=None, segment_ids=None,
-                seg_q=None, qk_quant=None, axis_name=None, impl=None,
+                seg_q=None, qk_quant=None, group=None, impl=None,
                 interpret=None):
     """One fused decode step: append ``k_new``/``v_new`` ``(B, H_kv, 1,
     d)`` to the cache (in place) AND attend ``q (B, H, 1, d)`` against
@@ -810,16 +915,25 @@ def decode_step(q, cache, k_new, v_new, *, slot_mask=None, counts=None,
     port on slab caches and the K5p port on paged caches (CUDA kernels
     for CUDA tensors, their plain versions for CPU tensors); ``'plain'``
     runs the append ops + :func:`decode_attention` over the (gathered)
-    slab view (any ``n``).
+    slab view (any ``n``). ``window`` applies on every path.
 
     Per-slot and paged caches take ``slot_mask (B,) bool`` (masked slots
     append nothing and their queries attend their un-advanced prefix)
     and ``counts (B,)`` (rows appended per slot, at most 1 here — verify-k
     is not ported). An overflow raises eagerly, naming the slot.
+
+    ``group``: the sequence-sharded slab step over that process group
+    (scalar global length; see :func:`append_kv_sharded`). The owning
+    rank appends; the kernel path runs K5 with ``partials=True`` on every
+    rank's slab — the query's global position localised to the slab as
+    its ``valid_to``, negative when the slab lies wholly in its future,
+    past the slab when wholly in its past — and merges by
+    :func:`_flash_merge`; the plain path runs the masked
+    :func:`decode_attention` partials. An append past the global
+    capacity raises on every rank before any write.
     Returns ``(cache, out (B, H, n, d_v))``."""
-    _unported('decode_step', window=window, alibi_slopes=alibi_slopes,
-              segment_ids=segment_ids, seg_q=seg_q, qk_quant=qk_quant,
-              axis_name=axis_name)
+    _unported('decode_step', alibi_slopes=alibi_slopes,
+              segment_ids=segment_ids, seg_q=seg_q, qk_quant=qk_quant)
     if impl not in (None, 'auto', 'kernel', 'plain'):
         raise ValueError(f"decode impl must be None/'auto'/'kernel'/"
                          f"'plain', got {impl!r}")
@@ -833,8 +947,16 @@ def decode_step(q, cache, k_new, v_new, *, slot_mask=None, counts=None,
     if counts is not None and n > 1:
         raise NotImplementedError('per-slot counts with n > 1 (verify-k) '
                                   'are not ported yet')
+    if group is not None:
+        if paged:
+            raise NotImplementedError(
+                'the sequence-sharded page table is not ported yet; a '
+                'sharded step takes a slab cache')
+        _check_global_room(cache, n, get_world_size(group))
     if impl == 'plain':
-        if per_slot:
+        if group is not None:
+            cache = append_kv_sharded(cache, k_new, v_new, group=group)
+        elif per_slot:
             cache = append_kv_slots(cache, k_new, v_new,
                                     slot_mask=slot_mask, counts=counts)
         else:
@@ -842,11 +964,23 @@ def decode_step(q, cache, k_new, v_new, *, slot_mask=None, counts=None,
         attend = cache
         if paged:
             attend = DecodeCache(*paged_gather(cache), length=cache.length)
-        return cache, decode_attention(q, attend, scale=scale)
+        return cache, decode_attention(q, attend, scale=scale,
+                                       window=window, group=group)
     if n != 1:
         raise NotImplementedError(
             f'the fused decode kernel takes one new row per step (verify-k '
             f'is not ported yet), got n={n}; use impl="plain"')
+    if group is not None:
+        p = int(cache.length)
+        vt = p - get_rank(group) * cache.t_max
+        ap = vt if 0 <= vt < cache.t_max else -1
+        res, _, _ = flash_decode(
+            q, k_new, v_new, cache.k, cache.v,
+            torch.full((b,), vt, dtype=torch.int32, device=q.device),
+            torch.full((b,), ap, dtype=torch.int32, device=q.device),
+            scale=scale, window=window, interpret=interpret, partials=True)
+        return (cache._replace(length=p + 1),
+                _flash_merge(res, group, cache.v.dtype))
     if per_slot:
         lengths = cache.length
         eff = _slot_counts(b, 1, slot_mask, counts)
@@ -867,8 +1001,10 @@ def decode_step(q, cache, k_new, v_new, *, slot_mask=None, counts=None,
     if paged:
         out, _, _ = flash_decode(q, k_new, v_new, cache.k_pool, cache.v_pool,
                                  vt, ap, page_table=cache.page_table,
-                                 scale=scale, interpret=interpret)
+                                 scale=scale, window=window,
+                                 interpret=interpret)
     else:
         out, _, _ = flash_decode(q, k_new, v_new, cache.k, cache.v, vt, ap,
-                                 scale=scale, interpret=interpret)
+                                 scale=scale, window=window,
+                                 interpret=interpret)
     return cache._replace(length=new_length), out

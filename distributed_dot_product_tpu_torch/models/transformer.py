@@ -121,6 +121,14 @@ class TransformerBlock(nn.Module):
 
 # The scanned stack's per-layer seed salt (the reference's scan body).
 _LAYER_SALT = 0x61C88647
+# The names the reference accepts for remat_policy (jax.checkpoint_policies).
+_REMAT_POLICIES = frozenset((
+    'checkpoint_dots', 'checkpoint_dots_with_no_batch_dims', 'dots_saveable',
+    'dots_with_no_batch_dims_saveable', 'everything_saveable',
+    'nothing_saveable', 'offload_dot_with_no_batch_dims',
+    'save_and_offload_only_these_names', 'save_any_names_but_these',
+    'save_anything_except_these_names', 'save_from_both_policies',
+    'save_only_these_names'))
 
 
 class TransformerStack(nn.Module):
@@ -132,8 +140,11 @@ class TransformerStack(nn.Module):
     ``scan_layers``: the reference layout whose dropout salt the layers
     take (see the module docstring); ``path``: the stack's own path in
     the reference tree (``('stack',)`` inside the language model).
-    ``remat=True`` checkpoints each block. ``remat_policy`` (partial
-    rematerialisation) is not ported."""
+    ``remat=True`` checkpoints each block and, as in the reference,
+    needs ``scan_layers=True`` (the unrolled stack has no scan body to
+    wrap): otherwise it raises ``ValueError``. ``remat_policy`` (partial
+    rematerialisation) is not ported: a ``jax.checkpoint_policies`` name
+    raises ``NotImplementedError``, any other value ``ValueError``."""
 
     def __init__(self, dim, num_heads, n_layers=2, mlp_ratio=4,
                  axis_name=SEQ_AXIS, dtype=None, attn_kwargs=None,
@@ -141,9 +152,15 @@ class TransformerStack(nn.Module):
                  path=(), param_dtype=torch.float32, device='cuda',
                  generator=None):
         super().__init__()
+        if remat and not scan_layers:
+            raise ValueError('remat=True requires scan_layers=True (the '
+                             'unrolled stack has no scan body to wrap)')
         if remat_policy is not None:
+            if remat_policy not in _REMAT_POLICIES:
+                raise ValueError(f'remat_policy {remat_policy!r} is not a '
+                                 f'jax.checkpoint_policies name')
             raise NotImplementedError(
-                'remat_policy is not ported yet (ROADMAP.md §1 item 8); '
+                'remat_policy is not ported yet (ROADMAP.md §1 item 4); '
                 'remat=True recomputes each whole block')
         dev = resolve_device(device)
         gen = default_generator(generator)

@@ -17,10 +17,12 @@ reference's ``devices.reshape(data, seq)``: global rank
 ``shard_seq`` takes this rank's time slice of a global tensor (the
 ``(*, T/N, d)`` convention, the reference's per-device shard), and
 ``unshard_seq`` gathers the shards of a seq group back into the global
-tensor. The reference's ``_compat.py`` holds only JAX version shims and
+tensor. ``shard_decode_cache`` takes this rank's slab of a global KV cache
+for the sequence-sharded decode step. The reference's ``_compat.py`` holds only JAX version shims and
 has no counterpart.
 """
 
+import numbers
 from dataclasses import dataclass
 from typing import Any, Optional
 
@@ -28,7 +30,8 @@ from distributed_dot_product_tpu_torch.utils.comm import (
     SEQ_AXIS, all_gather, get_rank, get_world_size,
 )
 
-__all__ = ['Mesh', 'seq_mesh', 'data_seq_mesh', 'shard_seq', 'unshard_seq']
+__all__ = ['Mesh', 'seq_mesh', 'data_seq_mesh', 'shard_seq', 'unshard_seq',
+           'shard_decode_cache']
 
 
 @dataclass(frozen=True)
@@ -126,3 +129,18 @@ def unshard_seq(x, mesh, seq_axis=-2, batch_axis=None):
     if batch_axis is not None and mesh.data_size > 1:
         x = all_gather(x, mesh.data_group, dim=batch_axis)
     return x
+
+
+def shard_decode_cache(cache, mesh):
+    """This rank's slab of a global slab KV cache (a ``DecodeCache`` from
+    ``module.make_decode_cache(batch, t_max_global)``), sharded on its
+    ``t_max`` axis over the seq group: ``k``/``v`` become this rank's
+    ``(B, H_kv, t_max/W, d·)`` columns, copied into buffers of its own
+    (the decode step appends in place), and ``length`` stays global. The
+    global buffers can be dropped afterwards; a zero cache's slab is
+    ``module.make_decode_cache(batch, t_max_global // W)``."""
+    if not isinstance(cache.length, numbers.Integral):
+        raise ValueError('a sharded decode cache has one global length; '
+                         'per-slot and paged caches do not shard on t_max')
+    return cache._replace(k=shard_seq(cache.k, mesh).clone(),
+                          v=shard_seq(cache.v, mesh).clone())

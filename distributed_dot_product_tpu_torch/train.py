@@ -35,6 +35,10 @@ Dropout: ``step(batch, dropout_seed=None)``. A module with dropout needs
 the seed on every call (the step counter); omitting it raises, because
 a constant fallback would draw the same mask every step (the reference's
 missing-seed policy). Modules without dropout ignore it.
+
+Each returned step carries the module and the optimizer it updates as
+``step.module`` and ``step.optimizer`` (the resilient training loop,
+:func:`~..train_loop.run_training`, saves and restores their state).
 """
 
 import torch
@@ -155,6 +159,7 @@ def make_train_step(module, optimizer, mesh, data_axis=None, guard=False):
         _sum_grads(params, groups)
         return _finish(optimizer, params, loss / ranks, guard)
 
+    step.module, step.optimizer = module, optimizer
     return step
 
 
@@ -213,4 +218,5 @@ def make_lm_train_step(model, optimizer, mesh=None, data_axis=None,
         _sum_grads(params, groups)
         return _finish(optimizer, params, value, guard)
 
+    step.module, step.optimizer = model, optimizer
     return step

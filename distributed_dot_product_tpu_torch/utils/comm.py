@@ -35,8 +35,9 @@ import torch.distributed as dist
 
 __all__ = ['SEQ_AXIS', 'resolve_device', 'init', 'get_rank',
            'get_world_size', 'is_main_process', 'synchronize', 'axis_size',
-           'transport', 'all_gather', 'all_gather_stacked', 'all_reduce',
-           'reduce_scatter', 'ring_shift', 'all_to_all']
+           'transport', 'world_group', 'all_gather', 'all_gather_stacked',
+           'all_reduce', 'all_reduce_max', 'reduce_scatter', 'ring_shift',
+           'all_to_all']
 
 # Canonical name of the sequence (time) axis, kept so modules carry the
 # same ``axis_name`` field as the reference package.
@@ -103,6 +104,12 @@ def synchronize(group=None):
         dist.barrier(group)
 
 
+def world_group():
+    """The default process group as a group handle, or None when no
+    process group is initialised (a one-rank world)."""
+    return dist.group.WORLD if _initialized() else None
+
+
 def axis_size(group=None):
     """Width of a mesh axis, that is of its process group."""
     return get_world_size(group)
@@ -150,14 +157,24 @@ def all_gather(x, group=None, dim=-2):
     return torch.cat(list(parts.unbind(0)), dim=dim)
 
 
-def all_reduce(x, group=None):
-    """Sum of ``x`` over the ranks of ``group``, returned as a new tensor
-    (``lax.psum``)."""
+def _all_reduce(x, group, op):
     if get_world_size(group) == 1:
         return x.clone()
     buf = _to_host(x) if _staged(group, x) else x.detach().clone()
-    dist.all_reduce(buf, group=group)
+    dist.all_reduce(buf, op=op, group=group)
     return buf.to(x.device)
+
+
+def all_reduce(x, group=None):
+    """Sum of ``x`` over the ranks of ``group``, returned as a new tensor
+    (``lax.psum``)."""
+    return _all_reduce(x, group, dist.ReduceOp.SUM)
+
+
+def all_reduce_max(x, group=None):
+    """Elementwise maximum of ``x`` over the ranks of ``group``, returned
+    as a new tensor (``lax.pmax``)."""
+    return _all_reduce(x, group, dist.ReduceOp.MAX)
 
 
 def reduce_scatter(x, group=None):

@@ -1,27 +1,227 @@
 # -*- coding: utf-8 -*-
 """
-Deterministic serving-path fault injection — ``ServeFaultPlan``,
-``serve_plan_from_env``, ``burst_prompts`` and ``ServeFaultInjector``,
-copied from ``distributed_dot_product_tpu/utils/faults.py``. The
-scheduler calls the injector's hooks at its seams: a stuck decode step
-(the watchdog must fire), NaN logits in one slot (the per-slot
-quarantine must absorb them), and a client abandoning mid-stream.
+Deterministic fault injection, copied from
+``distributed_dot_product_tpu/utils/faults.py``: its training half for the
+resilient training loop (:mod:`~distributed_dot_product_tpu_torch.train_loop`)
+and its serving half for the scheduler.
 
-Env knobs (read by :func:`serve_plan_from_env`; the scheduler reads
-them when no injector is passed): ``DDP_TPU_FAULT_STUCK_STEP``,
-``_STUCK_SECONDS``, ``_NAN_DECODE_STEP``, ``_NAN_DECODE_SLOT``,
-``_ABANDON_REQUEST``, ``_ABANDON_AFTER``, ``_BURST``, ``_NAN_REPEAT``.
+Training faults (compose freely in one :class:`FaultPlan`):
+
+- **NaN at step S** (``nan_at_steps``): every floating tensor of the batch
+  the wrapped batch function returns becomes NaN, so the step's loss and
+  gradients come out NaN and its guard must skip the update. One-shot by
+  default: the replay after a rollback gets the clean batch.
+- **Transient checkpoint I/O errors** (``io_error_saves``): the first N
+  ``checkpoint.save`` attempts raise ``OSError``.
+- **Crash mid-save** (``crash_in_save_at_step``): the save of step S
+  leaves an unfinished ``*.ckpt-tmp*`` write on disk and raises
+  :class:`SimulatedCrash` (a ``BaseException``: no retry or
+  ``except Exception`` swallows a "dead" process).
+- **SIGTERM** (``sigterm_at_step``): a real ``SIGTERM`` is delivered to
+  this process when the batch of step S is requested.
+
+Serving faults: a stuck decode step (the watchdog must fire), NaN logits
+in one slot (the per-slot quarantine must absorb them), and a client
+abandoning mid-stream.
+
+Env knobs: :func:`plan_from_env` reads ``DDP_TPU_FAULT_NAN_STEPS``,
+``_IO_ERRORS``, ``_CRASH_SAVE_STEP`` and ``_SIGTERM_STEP`` (the training
+loop reads them when no injector is passed); :func:`serve_plan_from_env`
+reads ``DDP_TPU_FAULT_STUCK_STEP``, ``_STUCK_SECONDS``,
+``_NAN_DECODE_STEP``, ``_NAN_DECODE_SLOT``, ``_ABANDON_REQUEST``,
+``_ABANDON_AFTER``, ``_BURST`` and ``_NAN_REPEAT`` (the scheduler reads
+them when no injector is passed).
 """
 
 import dataclasses
 import os
+import signal
 import time
-from typing import Optional
+from typing import FrozenSet, Optional
+
+import torch
 
 from distributed_dot_product_tpu_torch.obs import events as obs_events
+from distributed_dot_product_tpu_torch.utils import checkpoint as _ckpt
 
-__all__ = ['ServeFaultPlan', 'ServeFaultInjector', 'serve_plan_from_env',
-           'burst_prompts']
+__all__ = ['FaultPlan', 'FaultInjector', 'SimulatedCrash', 'plan_from_env',
+           'poison_batch', 'ServeFaultPlan', 'ServeFaultInjector',
+           'serve_plan_from_env', 'burst_prompts']
+
+
+class SimulatedCrash(BaseException):
+    """Raised to simulate the process dying mid-save. Derives from
+    ``BaseException`` so no retry loop or ``except Exception`` recovery
+    path can accidentally swallow a "dead" process."""
+
+
+@dataclasses.dataclass(frozen=True)
+class FaultPlan:
+    """What to inject into training, and when. Immutable; runtime
+    countdown state lives in the :class:`FaultInjector`."""
+    nan_at_steps: FrozenSet[int] = frozenset()
+    io_error_saves: int = 0
+    crash_in_save_at_step: Optional[int] = None
+    sigterm_at_step: Optional[int] = None
+    fire_once: bool = True
+
+    def any(self):
+        return bool(self.nan_at_steps or self.io_error_saves
+                    or self.crash_in_save_at_step is not None
+                    or self.sigterm_at_step is not None)
+
+
+def plan_from_env(environ=None) -> FaultPlan:
+    """Build a :class:`FaultPlan` from the ``DDP_TPU_FAULT_*`` env knobs
+    (an empty plan when none are set):
+
+    - ``DDP_TPU_FAULT_NAN_STEPS=5,7``      NaN batches at steps 5 and 7
+    - ``DDP_TPU_FAULT_IO_ERRORS=2``        the first 2 saves raise OSError
+    - ``DDP_TPU_FAULT_CRASH_SAVE_STEP=10`` crash mid-save of step 10
+    - ``DDP_TPU_FAULT_SIGTERM_STEP=20``    deliver SIGTERM at step 20
+    """
+    env = os.environ if environ is None else environ
+
+    def _int(name):
+        v = env.get(name)
+        return int(v) if v not in (None, '') else None
+
+    nan_steps = frozenset(
+        int(s) for s in env.get('DDP_TPU_FAULT_NAN_STEPS', '').split(',')
+        if s.strip())
+    return FaultPlan(
+        nan_at_steps=nan_steps,
+        io_error_saves=_int('DDP_TPU_FAULT_IO_ERRORS') or 0,
+        crash_in_save_at_step=_int('DDP_TPU_FAULT_CRASH_SAVE_STEP'),
+        sigterm_at_step=_int('DDP_TPU_FAULT_SIGTERM_STEP'),
+    )
+
+
+def poison_batch(batch):
+    """Every floating tensor of ``batch`` (nested tuples, lists, dicts)
+    becomes all-NaN; integer and bool tensors and ``None`` pass through.
+    Raises ``ValueError`` when the batch has NO floating tensor (an
+    integer-token batch cannot carry a NaN, and silently not injecting
+    would fake guard coverage)."""
+    hit = []
+
+    def _poison(x):
+        if isinstance(x, torch.Tensor):
+            if x.is_floating_point():
+                hit.append(True)
+                return torch.full_like(x, float('nan'))
+            return x
+        if isinstance(x, dict):
+            return type(x)((k, _poison(v)) for k, v in x.items())
+        if isinstance(x, (list, tuple)):
+            return type(x)(_poison(v) for v in x)
+        return x
+
+    out = _poison(batch)
+    if not hit:
+        raise ValueError(
+            'cannot inject NaN: the batch has no floating-point tensors '
+            '(integer-token batches reach the loss through an embedding '
+            '— poison a float input or test the guard with a float-batch '
+            'model instead)')
+    return out
+
+
+def _step_of(target_dir):
+    name = getattr(target_dir, 'name', str(target_dir))
+    try:
+        return int(str(name).rsplit('step_', 1)[-1])
+    except ValueError:
+        return None
+
+
+class FaultInjector:
+    """Runtime for a :class:`FaultPlan`. Use as a context manager (it
+    installs the checkpoint save hook) and wrap the loop's batch
+    function, or pass it to ``run_training(fault_injector=...)``, which
+    wires both seams itself::
+
+        with FaultInjector(FaultPlan(nan_at_steps=frozenset({3}))) as inj:
+            run_training(step_fn, state, inj.wrap_batch_fn(batch_fn), cfg)
+    """
+
+    def __init__(self, plan: FaultPlan):
+        self.plan = plan
+        self._io_errors_left = plan.io_error_saves
+        self._nan_fired = set()
+        self._crash_fired = False
+        self._sigterm_fired = False
+        # ONE bound-method object, for the identity checks below.
+        self._hook = self._save_hook
+
+    def install(self):
+        if _ckpt._SAVE_FAULT_HOOK is not None \
+                and _ckpt._SAVE_FAULT_HOOK is not self._hook:
+            raise RuntimeError('another FaultInjector is already installed')
+        _ckpt._SAVE_FAULT_HOOK = self._hook
+        return self
+
+    def uninstall(self):
+        if _ckpt._SAVE_FAULT_HOOK is self._hook:
+            _ckpt._SAVE_FAULT_HOOK = None
+
+    __enter__ = install
+
+    def __exit__(self, *exc):
+        self.uninstall()
+        return False
+
+    def wrap_batch_fn(self, batch_fn):
+        def wrapped(step):
+            self.on_step(step)
+            batch = batch_fn(step)
+            if self._should_nan(step):
+                batch = poison_batch(batch)
+            return batch
+        return wrapped
+
+    def on_step(self, step):
+        """Per-step trigger point: delivers the synthetic SIGTERM — a real
+        signal through the OS, which the loop's handler must catch."""
+        p = self.plan
+        if p.sigterm_at_step is not None and step == p.sigterm_at_step \
+                and not self._sigterm_fired:
+            self._sigterm_fired = True
+            obs_events.emit('fault.inject', kind='sigterm', step=step)
+            os.kill(os.getpid(), signal.SIGTERM)
+
+    def _should_nan(self, step):
+        if step not in self.plan.nan_at_steps:
+            return False
+        if self.plan.fire_once:
+            if step in self._nan_fired:
+                return False
+            self._nan_fired.add(step)
+        obs_events.emit('fault.inject', kind='nan_batch', step=step)
+        return True
+
+    def _save_hook(self, target_dir):
+        p = self.plan
+        if p.crash_in_save_at_step is not None and not self._crash_fired \
+                and _step_of(target_dir) == p.crash_in_save_at_step:
+            if p.fire_once:
+                self._crash_fired = True
+            # What a real crash mid-save leaves: an unfinished write.
+            partial = target_dir.parent / (
+                target_dir.name + _ckpt._TMP + '-0')
+            partial.mkdir(parents=True, exist_ok=True)
+            (partial / 'partial_write').write_text('simulated crash')
+            obs_events.emit('fault.inject', kind='crash_in_save',
+                            step=_step_of(target_dir))
+            raise SimulatedCrash(f'simulated crash mid-save of {target_dir}')
+        if self._io_errors_left > 0:
+            self._io_errors_left -= 1
+            obs_events.emit('fault.inject', kind='io_error',
+                            step=_step_of(target_dir))
+            raise OSError(
+                f'injected transient checkpoint I/O failure '
+                f'({self._io_errors_left} more to come)')
+
 
 @dataclasses.dataclass(frozen=True)
 class ServeFaultPlan:

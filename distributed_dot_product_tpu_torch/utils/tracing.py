@@ -1,17 +1,27 @@
 # -*- coding: utf-8 -*-
 """
-Serving observability core of the PyTorch port — the metrics registry
+Tracing and metrics of the PyTorch port, copied from
+``distributed_dot_product_tpu/utils/tracing.py``: the metrics registry
 (counters, gauges, bounded-reservoir histograms with lifetime bucket
-counts) and :func:`log_exception`, copied from
-``distributed_dot_product_tpu/utils/tracing.py`` without the JAX timers
-(``measure``, ``hard_sync``, ``time_fn``): the port times device work
-with CUDA events where it measures at all.
+counts), :func:`log_exception`, the training loop's :func:`log_step`,
+and the timers :func:`measure`, :class:`timed` and :func:`time_fn`.
+
+The timers fence the card with ``torch.cuda.synchronize()``
+(:func:`hard_sync`) before they read the host clock, so they time the
+work and not its enqueue; without an initialised card they time the
+host. Kernel times in this repository are taken with CUDA events
+(``chip_smoke.py``); these timers are the reference's debugging and
+wall-clock helpers.
 """
 
 import bisect
 import collections
+import functools
 import os
 import threading
+import time
+
+import torch
 
 # Same env-var name as the reference package, so users flip one switch.
 DEBUG_ENV_VAR = 'DISTRIBUTED_DOT_DEBUG'
@@ -54,6 +64,135 @@ def _emit_event(event, **fields):
     from distributed_dot_product_tpu_torch.obs import events as _events
     if _events.get_active() is not None:
         _events.emit(event, **fields)
+
+
+def device_peak_bytes(device=None):
+    """Peak bytes allocated on the card (``torch.cuda.max_memory_allocated``),
+    or None without an initialised card."""
+    if not (torch.cuda.is_available() and torch.cuda.is_initialized()):
+        return None
+    return torch.cuda.max_memory_allocated(device)
+
+
+def hard_sync(out=None):
+    """Wait for the card's queued work (``torch.cuda.synchronize()``);
+    nothing to wait for without an initialised card. ``out`` is accepted
+    for the reference's signature: a synchronise fences every stream's
+    work at once."""
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+
+
+def _shape_of(x):
+    return tuple(getattr(x, 'shape', ())) or None
+
+
+def measure(fn):
+    """Decorator: when ``DISTRIBUTED_DOT_DEBUG`` is set, print wall time
+    (the card fenced), operand shapes and the peak-memory growth of each
+    call. Zero overhead when disabled."""
+
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        if not _debug_enabled():
+            return fn(*args, **kwargs)
+        hard_sync()
+        peak_before = device_peak_bytes()
+        start = time.perf_counter()
+        result = fn(*args, **kwargs)
+        hard_sync()
+        elapsed = time.perf_counter() - start
+        shapes = [_shape_of(a) for a in args if _shape_of(a) is not None]
+        peak_after = device_peak_bytes()
+        if peak_before is None or peak_after is None:
+            peak_s = 'n/a'
+        else:
+            peak_s = f'+{(peak_after - peak_before) / 2 ** 30:.3f} GiB'
+        print(f'[{DEBUG_ENV_VAR}] {fn.__name__}: {elapsed * 1000:.3f} ms'
+              f' shapes={shapes} peak_mem_delta={peak_s}')
+        return result
+
+    return wrapper
+
+
+def log_step(step, loss, grad_norm=None, bad=False, seconds=None,
+             extra='', force=False):
+    """One-line per-step training log, gated by ``DISTRIBUTED_DOT_DEBUG``
+    (``force=True`` prints unconditionally — the training loop's periodic log
+    cadence). Independently of the print gate, every record goes into the
+    active observability event log when there is one (``train.step``,
+    and ``train.bad_step`` for a bad step)."""
+    _emit_event('train.step', step=int(step), loss=float(loss),
+                grad_norm=(None if grad_norm is None
+                           else float(grad_norm)),
+                bad=bool(bad), seconds=seconds, extra=extra or None)
+    if bad:
+        _emit_event('train.bad_step', step=int(step), loss=float(loss))
+    if not (force or _debug_enabled()):
+        return
+    parts = [f'step {step}: loss={loss:.6f}']
+    if grad_norm is not None:
+        parts.append(f'grad_norm={grad_norm:.4g}')
+    if bad:
+        parts.append('BAD (non-finite; update skipped)')
+    if seconds is not None:
+        parts.append(f'({seconds * 1000:.1f} ms)')
+    if extra:
+        parts.append(extra)
+    print(' '.join(parts), flush=True)
+
+
+class timed:
+    """Context manager for block timing (host clock)::
+
+        with timed() as t:
+            out = step(x)
+        print(t.seconds)
+    """
+
+    def __enter__(self):
+        self._start = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        self.seconds = time.perf_counter() - self._start
+        return False
+
+
+def _timed_sync(out):
+    t0 = time.perf_counter()
+    hard_sync(out)
+    return time.perf_counter() - t0
+
+
+def time_fn(fn, *args, iters=5, warmup=2, inner=None, max_inner=512,
+            **kwargs):
+    """Wall-clock time of ``fn(*args)`` with the card fenced: returns
+    ``(best_seconds, mean_seconds)`` per call. Each sample queues
+    ``inner`` calls, synchronises once and subtracts the measured cost
+    of a synchronise; ``inner=None`` scales it so the window dominates
+    that cost."""
+    out = fn(*args, **kwargs)
+    hard_sync(out)
+    for _ in range(max(warmup - 1, 0)):
+        out = fn(*args, **kwargs)
+    hard_sync(out)
+    overhead = min(_timed_sync(out) for _ in range(3))
+    if inner is None:
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        hard_sync(out)
+        est = max(time.perf_counter() - t0 - overhead, 1e-5)
+        inner = max(1, min(max_inner, int(8 * overhead / est)))
+    times = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        for _ in range(inner):
+            out = fn(*args, **kwargs)
+        hard_sync(out)
+        dt = time.perf_counter() - t0 - overhead
+        times.append(max(dt, 1e-9) / inner)
+    return min(times), sum(times) / len(times)
 
 
 # ---------------------------------------------------------------------------

@@ -54,6 +54,8 @@ def test_all_gather_and_reduce(contract):
                                       np.concatenate(xs, -1))
         np.testing.assert_array_equal(res['stacked'], np.stack(xs))
         np.testing.assert_array_equal(res['sum'], sum(xs))
+        np.testing.assert_array_equal(res['max'], [WORLD - 1, 0, 3])
+        assert res['world_group']
 
 
 def test_reduce_scatter_keeps_this_ranks_block(contract):
@@ -107,6 +109,8 @@ def test_one_rank_without_a_process_group():
     x = torch.arange(6.).reshape(2, 3)
     assert torch.equal(comm.all_gather(x), x)
     assert torch.equal(comm.all_reduce(x), x)
+    assert torch.equal(comm.all_reduce_max(x), x)
+    assert comm.world_group() is None
     assert torch.equal(comm.reduce_scatter(x[None]), x)
     assert torch.equal(comm.ring_shift((x,))[0], x)
     assert torch.equal(comm.all_to_all(x[None]), x[None])

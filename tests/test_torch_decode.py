@@ -120,10 +120,14 @@ def test_flash_decode_mixed_fill_matches_jax():
 
 
 @pytest.mark.parametrize('kw', [
-    dict(window=4), dict(alibi_slopes=[0.5] * 4), dict(qk_quant='int8'),
-    dict(axis_name='seq'), dict(segment_ids=np.zeros((1, T_MAX))),
+    dict(alibi_slopes=[0.5] * 4), dict(qk_quant='int8'),
+    dict(qk_quant='int8', impl='plain'), dict(seg_q=np.zeros((1, 1))),
+    dict(segment_ids=np.zeros((1, T_MAX))),
 ])
 def test_unported_decode_knobs_raise(kw):
+    """ALiBi, packed segments and int8 scoring (the int8 K mirror) still
+    raise on both impls; the window and the sequence group are ported
+    (tests/test_torch_cached_inference.py, test_torch_decode_sharded.py)."""
     _, tc = _caches(np.random.default_rng(0), 1, 4, 2)
     x = torch.zeros((1, 4, 1, D))
     with pytest.raises(NotImplementedError):

@@ -144,6 +144,8 @@ def comm_contract(rank, world):
         'gather_last': _np(comm.all_gather(x, dim=-1)),
         'stacked': _np(comm.all_gather_stacked(x)),
         'sum': _np(comm.all_reduce(x)),
+        'max': _np(comm.all_reduce_max(torch.tensor([rank, -rank, 3.0]))),
+        'world_group': comm.world_group() is not None,
         'scatter': _np(comm.reduce_scatter(
             torch.stack([x * (r + 1) for r in range(world)]))),
         'left': _np(comm.ring_shift((x,))[0]),
@@ -363,3 +365,98 @@ def rope_shards(rank, world, x):
     mesh = seq_mesh(world)
     out = rope_seq_parallel(shard_seq(_t(x), mesh), group=mesh.seq_group)
     return _np(unshard_seq(out, mesh))
+
+
+def decode_sharded_ops(rank, world, ks, vs, q, window, t_max):
+    """``append_kv_sharded`` of each (k, v) chunk into this rank's slab of
+    a ``t_max``-column global cache, then ``decode_attention`` merged over
+    the group: the output and the gathered slabs."""
+    import torch
+    from distributed_dot_product_tpu_torch.models import decode as tdec
+    from distributed_dot_product_tpu_torch.utils import comm
+    b, h_kv, _, d = ks[0].shape
+    cache = tdec.init_cache(b, h_kv, t_max // world, d, dtype=torch.float32,
+                            device='cpu')
+    for k, v in zip(ks, vs):
+        cache = tdec.append_kv_sharded(cache, _t(k), _t(v),
+                                       group=comm.world_group())
+    out = tdec.decode_attention(_t(q), cache, window=window,
+                                group=comm.world_group())
+    return (_np(out), cache.length, _np(comm.all_gather(cache.k)),
+            _np(comm.all_gather(cache.v)))
+
+
+def decode_sharded_module(rank, world, kw, state, prompt, xs, t_max, mesh2d,
+                          overflow=False):
+    """The module's sequence-sharded decode on this rank's slab: the local
+    cache filled by ``prefill(prompt)`` (when given) and sharded with
+    ``shard_decode_cache``, then one ``decode_seq_parallel`` step per row
+    of ``xs (B, steps, dim)``. Returns the outputs, the final length, the
+    gathered slabs and, with ``overflow``, the error a step past the
+    global capacity raises and whether the slab kept its bits."""
+    import torch
+    from distributed_dot_product_tpu_torch.models.attention import (
+        decode_seq_parallel,
+    )
+    from distributed_dot_product_tpu_torch.parallel.mesh import (
+        data_seq_mesh, seq_mesh, shard_decode_cache,
+    )
+    from distributed_dot_product_tpu_torch.utils import comm
+    mesh = data_seq_mesh(2, world // 2) if mesh2d else seq_mesh(world)
+    mod = _module(kw, state)
+    with torch.no_grad():
+        cache = mod.make_decode_cache(xs.shape[0], t_max)
+        if prompt is not None:
+            p = _t(prompt)
+            cache, _ = mod.prefill(p, p, p, cache)
+        cache = shard_decode_cache(cache, mesh)
+        outs = []
+        for t in range(xs.shape[1]):
+            x = _t(xs[:, t:t + 1])
+            cache, out = decode_seq_parallel(mod, mesh, x, x, x, cache)
+            outs.append(_np(out))
+        err = None
+        if overflow:
+            k0 = cache.k.clone()
+            x = _t(xs[:, :1])
+            try:
+                decode_seq_parallel(mod, mesh, x, x, x, cache)
+            except ValueError as exc:
+                err = str(exc)
+            err = (err, bool(torch.equal(k0, cache.k)))
+    return (outs, cache.length,
+            _np(comm.all_gather(cache.k, mesh.seq_group)), err)
+
+
+def checkpoint_stage(rank, world, kw, state, batch, ckdir):
+    """``dryrun_multichip``'s checkpoint stage on a 2 x (world/2) data x
+    seq group: one Adam step, a collective save, the next step; then a
+    fresh module and Adam restored from the checkpoint take that step
+    again. The two losses, the restored step, and whether the restored
+    state equals the saved one bit for bit."""
+    import torch
+    from distributed_dot_product_tpu_torch.parallel.mesh import (
+        data_seq_mesh,
+    )
+    from distributed_dot_product_tpu_torch.train import make_train_step
+    from distributed_dot_product_tpu_torch.utils import checkpoint as ck
+    mesh = data_seq_mesh(2, world // 2)
+    tb = tuple(None if a is None else _t(a) for a in batch)
+
+    def build():
+        mod = _module(kw, state)
+        opt = torch.optim.Adam(mod.parameters(), lr=1e-3)
+        return mod, opt, make_train_step(mod, opt, mesh, data_axis='data')
+    mod, opt, step = build()
+    step(tb)
+    ck.save(ckdir, ck.TrainState(1, mod.state_dict(), opt.state_dict()))
+    saved = {k: v.clone() for k, v in mod.state_dict().items()}
+    want = step(tb)
+    mod2, opt2, step2 = build()
+    restored = ck.restore(ckdir, ck.TrainState(0, mod2.state_dict(),
+                                               opt2.state_dict()))
+    mod2.load_state_dict(restored.params)
+    opt2.load_state_dict(restored.opt_state)
+    same = all(torch.equal(saved[k], v) for k, v in mod2.state_dict().items())
+    got = step2(tb)
+    return _np(want), _np(got), restored.step, same
