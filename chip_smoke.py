@@ -101,12 +101,38 @@ Phases, one JSON line each (some several):
    slab, the flash-decoding merge across the ranks) held against the
    local twin on rank 0 at each step, one K5 launch per rank per step,
    the owner rank per step, ms per step and the merge's collectives'
-   ms; then the recipe's own 3-step check on the 2 x 2 group.
+   ms; then the recipe's own 3-step check on the 2 x 2 group;
+16. flash_decode_verify (run after flash_decode_paged): K5 verify-k (5
+   new rows per slot; counts 5/3/1/0 and an inactive slot, one slot's
+   rows straddling the split at column 1024) at the greedy decode shape
+   and at the flagship decode module's GQA 8:4 with head dim 64, and K5p
+   at the serving shape (one slot's rows straddling a page), each against
+   its plain version and, bit for bit, against 5 sequential one-row
+   launches (outputs, partials, caches); times against the bound, the
+   plain version and SDPA with the boolean verify mask;
+17. flash_decode_int8: K5 and K5p with the int8 K mirror (one new row)
+   at the same shapes and K5's partials on a full 8192-column slab: the
+   scores' row maxima (the partials' m), mirror rows and caches bit for
+   bit against the plain version, outputs within tolerance; times against
+   the bound (K at one byte plus a 4-byte scale a row) and, for scale
+   only, SDPA in bf16;
+18. spec_serve (run after serve_path): the serve_path burst with
+   speculative decoding (spec_k 4; the n-gram proposer and the self-draft
+   twin) over the paged and slab engines: streams equal to the non-spec
+   run's token for token, the target kernel's verify launches equal to
+   the verify ticks; tokens/s, TTFT p99, decode ticks, proposed and
+   accepted per verify step, the draft twin's K5 launches;
+19. int8_decode: the gqa_ring stage's module with int8 scoring (no
+   segments or dropout), bf16, batch 4: K1 int8 prefills 8128 rows of an
+   8192-column cache, then 64 decode steps, one K5 int8 launch each, held
+   against the module's own int8 forward and the plain decode on the
+   card; ms per step.
 
 Then the card's ``nvidia-smi`` name and power limit, the kernels line
 (``{"kernels": [...]}``: K1, K2, K3, K4, K5 and K5p with their launches on
 their path, max error, kernel / plain / library / bound times; K1, K3 and
-K4 also per mask variant, K5 and K5p per partials / window variant) and,
+K4 also per mask variant, K5 and K5p per partials / window / verify /
+int8 variant) and,
 only if
 every phase passed, the last line ``{"ok": true, "device": {...}}``.
 Exits non-zero on any failure, and without a card. ``--phases a,b`` runs
@@ -759,6 +785,347 @@ def paged_variants(torch, fd, flush, q, kn, vn, k0, v0, vt, ap, table, scale):
     return rows
 
 
+# The verify-k cases (flash_decode_verify): k = 5 new rows per slot, the
+# width of a spec_k = 4 verify step. Per slot: (rows filled before the
+# step, rows it appends; None = an inactive slot that appends nothing and
+# attends its un-advanced prefix). K5's first slot straddles the split at
+# column 1024, K5p's slots 0 and 5 a split and a page.
+VERIFY_K = 5
+VERIFY_SLAB = ((1021, 5), (999, 3), (1062, 1), (1000, None))
+VERIFY_GQA = ((1021, 5), (999, 0), (1062, 3), (1000, None))
+VERIFY_PAGED = ((1021, 5), (999, 3), (1062, 1), (700, 0), (1500, None),
+                (30, 5), (4000, 2), (5, 4))
+
+
+def _verify_vectors(torch, slots, k, dev):
+    """``(valid_to, append_at, n_new)`` int32 on ``dev`` for ``slots`` as
+    ``decode_step`` forms them: an active slot's row 0 at its fill, an
+    inactive one ``k`` rows back."""
+    vt = [f if c is not None else f - k for f, c in slots]
+    ap = [f if c else -1 for f, c in slots]
+    nn = [c or 0 for _, c in slots]
+    return tuple(torch.tensor(x, dtype=torch.int32, device=dev)
+                 for x in (vt, ap, nn))
+
+
+def _verify_mask(torch, vt, k, t, dev, col_ok=None):
+    """``(B, 1, k, t)`` bool: row j of a slot attends columns <= vt + j
+    (and ``col_ok``)."""
+    cols = torch.arange(t, device=dev)
+    rows = vt.long()[:, None] + torch.arange(k, device=dev)[None, :]
+    allowed = cols[None, None, :] <= rows[:, :, None]
+    if col_ok is not None:
+        allowed &= col_ok[:, None, :]
+    return allowed[:, None]
+
+
+def _sequential(torch, fd, q, kn, vn, ck, cv, vt, ap, nn, **kw):
+    """``k`` one-row launches, row j at ``valid_to + j`` appending (when
+    ``j < n_new``) at ``append_at + j``: the outputs stacked on dim 2."""
+    outs = []
+    for j in range(q.shape[2]):
+        apj = torch.where((ap >= 0) & (j < nn), ap + j, -1).to(torch.int32)
+        out, _, _ = fd.flash_decode(
+            q[:, :, j:j + 1].contiguous(), kn[:, :, j:j + 1].contiguous(),
+            vn[:, :, j:j + 1].contiguous(), ck, cv, vt + j, apj, **kw)
+        outs.append(out)
+    if isinstance(outs[0], tuple):
+        return tuple(torch.cat(x, dim=2) for x in zip(*outs))
+    return torch.cat(outs, dim=2)
+
+
+def _same(torch, a, b):
+    if isinstance(a, tuple):
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+    return bool(torch.equal(a, b))
+
+
+def _verify_slab(torch, gen, dev, slots, h, h_kv, d, t):
+    """A slab case: (q, k_new, v_new, cache_k, cache_v) in bf16 with
+    unit-normal rows below each slot's fill and large garbage past it."""
+    bf16, b, k = torch.bfloat16, len(slots), VERIFY_K
+    q = randn(torch, (b, h, k, d), gen, dev, bf16)
+    kn = randn(torch, (b, h_kv, k, d), gen, dev, bf16)
+    vn = randn(torch, (b, h_kv, k, d), gen, dev, bf16)
+    ck = 30.0 * randn(torch, (b, h_kv, t, d), gen, dev, bf16)
+    cv = 30.0 * randn(torch, (b, h_kv, t, d), gen, dev, bf16)
+    for i, (f, _) in enumerate(slots):
+        ck[i, :, :f] = randn(torch, (h_kv, f, d), gen, dev, bf16)
+        cv[i, :, :f] = randn(torch, (h_kv, f, d), gen, dev, bf16)
+    return q, kn, vn, ck, cv
+
+
+def _verify_paged(torch, gen, dev, slots):
+    """The serving shape's pool for ``slots`` (pages for each fill plus
+    its appended rows, scrambled): (q, k_new, v_new, k_pool, v_pool,
+    table, the distinct pool rows each slot's filled columns hold)."""
+    bf16, ps, pps = torch.bfloat16, SERVE_PAGE, SERVE_T_MAX // SERVE_PAGE
+    b, k = len(slots), VERIFY_K
+    perm = torch.randperm(SERVE_PAGES, generator=gen).tolist()
+    table = torch.full((b, pps), -1, dtype=torch.int32)
+    nxt = 0
+    for i, (f, c) in enumerate(slots):
+        n = -(-(f + (c or 0)) // ps)
+        table[i, :n] = torch.tensor(perm[nxt:nxt + n], dtype=torch.int32)
+        nxt += n
+    shape = (SERVE_PAGES + 1, HEADS, ps, HEAD_DIM)
+    k_pool = 30.0 * randn(torch, shape, gen, dev, bf16)
+    v_pool = 30.0 * randn(torch, shape, gen, dev, bf16)
+    filled = sorted({(int(table[i, c // ps]), c % ps)
+                     for i, (f, _) in enumerate(slots) for c in range(f)})
+    pg, r = (torch.tensor(x, device=dev) for x in zip(*filled))
+    unit = (len(filled), HEADS, HEAD_DIM)
+    k_pool[pg, :, r] = randn(torch, unit, gen, dev, bf16)
+    v_pool[pg, :, r] = randn(torch, unit, gen, dev, bf16)
+    q = randn(torch, (b, HEADS, k, HEAD_DIM), gen, dev, bf16)
+    kn = randn(torch, (b, HEADS, k, HEAD_DIM), gen, dev, bf16)
+    vn = randn(torch, (b, HEADS, k, HEAD_DIM), gen, dev, bf16)
+    return q, kn, vn, k_pool, v_pool, table.to(dev)
+
+
+def _decode_bound(torch, mask, h, h_kv, d, b, k, n_app, k_bytes=None,
+                  partials=False):
+    """``(ms, by, flops, bytes)`` of a decode launch whose query rows
+    attend ``mask (B, 1, k, t)``: every K and V row some row of a slot
+    attends read once (K at ``k_bytes`` a row, default bf16; V bf16), q
+    read, the output written, k_new/v_new read, the appended rows
+    written; 4·d operations per attended (query head, column)."""
+    rows_read = int(mask.any(dim=2).sum().item()) * h_kv
+    cols = int(mask.sum().item()) * (h // h_kv)
+    k_row = 2 * d if k_bytes is None else k_bytes
+    out_bytes = b * h * k * ((d + 2) * 4 if partials else 2 * d)
+    nbytes = ((k_row + 2 * d) * rows_read + 2 * d * b * h * k + out_bytes
+              + 2 * 2 * d * b * h_kv * k + (k_row + 2 * d) * n_app * h_kv)
+    flops = 4 * d * cols
+    bms, by = bound_ms(flops, nbytes)
+    return bms, by, flops, nbytes
+
+
+def phase_decode_verify(torch, ddp, flush, gen):
+    """K5 and K5p verify-k (k = 5) against their plain versions and
+    against 5 sequential one-row launches, bit for bit (outputs and
+    caches): K5 at the greedy decode shape (batch 4, 8 heads of 96,
+    t_max 2048) and at the flagship decode module's GQA 8:4 with head dim
+    64, K5p at the serving shape. Times against the bound, the plain
+    version and SDPA with the boolean verify mask."""
+    import importlib
+    fd = importlib.import_module(
+        'distributed_dot_product_tpu_torch.ops.flash_decode')
+    F = torch.nn.functional
+    dev, k = torch.device('cuda'), VERIFY_K
+    res = {}
+    cases = (('slab', VERIFY_SLAB, HEADS, HEADS, HEAD_DIM),
+             ('slab_gqa', VERIFY_GQA, SP_HEADS, DS_KV, 64),
+             ('paged', VERIFY_PAGED, HEADS, HEADS, HEAD_DIM))
+    for name, slots, h, h_kv, d in cases:
+        paged = name == 'paged'
+        scale = 1.0 / math.sqrt(d)
+        vt, ap, nn = _verify_vectors(torch, slots, k, dev)
+        if paged:
+            q, kn, vn, c_k, c_v, table = _verify_paged(torch, gen, dev, slots)
+            kw = dict(page_table=table, scale=scale)
+            t = SERVE_T_MAX
+            col_ok = (table >= 0).repeat_interleave(SERVE_PAGE, dim=1)
+            slab_k = lambda x: fd.gather_pages(x, table)   # noqa: E731
+        else:
+            q, kn, vn, c_k, c_v = _verify_slab(torch, gen, dev, slots, h,
+                                               h_kv, d, T_MAX)
+            kw = dict(scale=scale)
+            t, col_ok = T_MAX, None
+            slab_k = lambda x: x                            # noqa: E731
+        k0, v0 = c_k.clone(), c_v.clone()
+        caches = [(k0.clone(), v0.clone()) for _ in range(3)]
+        out, _, _ = fd.flash_decode(q, kn, vn, *caches[0], vt, ap, n_new=nn,
+                                    **kw)
+        ref, _, _ = fd.flash_decode_plain(q, kn, vn, *caches[1], vt, ap,
+                                          n_new=nn, **kw)
+        seq = _sequential(torch, fd, q, kn, vn, *caches[2], vt, ap, nn, **kw)
+        torch.cuda.synchronize()
+        body = slice(None, -1) if paged else slice(None)   # the sink apart
+        errs, err, finite = _decode_errs(torch, out, ref)
+        row = {'phase': 'flash_decode_verify', 'case': name, 'k': k,
+               'batch': len(slots), 'heads': h, 'kv_heads': h_kv,
+               'head_dim': d, 'valid_to': vt.tolist(),
+               'append_at': ap.tolist(), 'n_new': nn.tolist(),
+               'max_abs_err': err,
+               'max_row_rel_err': errs['out'][0], 'rel_err': errs['out'][1],
+               'tol': {'row_rel': TOL_ROW_REL, 'rel': TOL_NORM_REL},
+               'equals_sequential': _same(torch, out, seq),
+               'caches_equal_sequential': all(
+                   torch.equal(a[body], b[body])
+                   for a, b in zip(caches[0], caches[2])),
+               'caches_equal_plain': all(
+                   torch.equal(a[body], b[body])
+                   for a, b in zip(caches[0], caches[1]))}
+        if paged:
+            row['sink_untouched'] = bool(torch.equal(caches[0][0][-1],
+                                                     k0[-1]))
+        # The partial outputs of the same launch, against the sequential
+        # launches' partials.
+        pc = [(k0.clone(), v0.clone()) for _ in range(2)]
+        part, _, _ = fd.flash_decode(q, kn, vn, *pc[0], vt, ap, n_new=nn,
+                                     partials=True, **kw)
+        part_seq = _sequential(torch, fd, q, kn, vn, *pc[1], vt, ap, nn,
+                               partials=True, **kw)
+        row['partials_equal_sequential'] = _same(torch, part, part_seq)
+        fails = check_rel(errs, f'K5{"p" if paged else ""} verify {name}')
+        check(finite, f'verify {name}: non-finite output')
+        emit(row)
+        check(not fails, '; '.join(fails))
+        for key in ('equals_sequential', 'caches_equal_sequential',
+                    'caches_equal_plain', 'partials_equal_sequential',
+                    'sink_untouched'):
+            check(row.get(key, True), f'verify {name}: {key} is False')
+        mask = _verify_mask(torch, vt, k, t, dev, col_ok)
+        n_app = int(nn.sum().item())
+        bms, by, flops, nbytes = _decode_bound(torch, mask, h, h_kv, d,
+                                               len(slots), k, n_app)
+        ks, vs = slab_k(k0), slab_k(v0)
+        timed = dict(
+            ms=time_ms(torch, lambda: fd.flash_decode(
+                q, kn, vn, *caches[0], vt, ap, n_new=nn, **kw), flush),
+            plain_ms=time_ms(torch, lambda: fd.flash_decode_plain(
+                q, kn, vn, *caches[1], vt, ap, n_new=nn, **kw), flush,
+                reps=5),
+            library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+                q, ks, vs, attn_mask=mask, scale=scale,
+                enable_gqa=h != h_kv), flush),
+            bound_ms=bms, bound_by=by)
+        emit({'phase': 'flash_decode_verify', 'case': name, **timed,
+              'library': 'sdpa with the boolean verify mask over the same '
+                         'columns' + (' (slab gathered beforehand)'
+                                      if paged else ''),
+              'flops': flops, 'bytes': nbytes})
+        res[name] = {'max_abs_err': err, 'max_row_rel_err': errs['out'][0],
+                     'rel_err': errs['out'][1], **timed}
+        del q, kn, vn, c_k, c_v, k0, v0, caches, pc, ks, vs
+        torch.cuda.empty_cache()
+    return res
+
+
+def _mirror(torch, fd, cache_k):
+    """The int8 mirror of a bf16 cache (every row quantized, the garbage
+    past the fill too: the mask keeps it out)."""
+    k_q, k_scale = fd.quantize_rows(cache_k)
+    return k_q.contiguous(), k_scale.contiguous()
+
+
+def phase_decode_int8(torch, ddp, flush, gen):
+    """K5 and K5p with the int8 K mirror (k = 1) against their plain
+    versions: the mirror rows, caches and the scores' row maxima (the
+    partial outputs' m) bit for bit, the outputs within the tolerances;
+    K5 at the greedy decode shape, K5p at the serving shape, and K5's
+    partials on a full 8192-column slab at the flagship decode module's
+    widths. Times against the bound (K at 1 byte plus a 4-byte scale a
+    row, V at 2 bytes) and, for scale only, SDPA in bf16 over the same
+    columns."""
+    import importlib
+    fd = importlib.import_module(
+        'distributed_dot_product_tpu_torch.ops.flash_decode')
+    F = torch.nn.functional
+    dev = torch.device('cuda')
+    res = {}
+    slab1 = tuple((f, c if c is None else min(c, 1))
+                  for f, c in VERIFY_SLAB)
+    paged1 = tuple((f, c if c is None else min(c, 1))
+                   for f, c in VERIFY_PAGED)
+    full = ((DS_LOCAL, None),) * DS_B
+    cases = (('slab', slab1, HEADS, HEADS, HEAD_DIM, T_MAX, False),
+             ('paged', paged1, HEADS, HEADS, HEAD_DIM, SERVE_T_MAX, False),
+             ('partials_full_slab', full, SP_HEADS, DS_KV, 64, DS_LOCAL,
+              True))
+    for name, slots, h, h_kv, d, t, partials in cases:
+        paged = name == 'paged'
+        scale = 1.0 / math.sqrt(d)
+        # A full slab lies wholly in the query's past: valid_to past it.
+        vt, ap, nn = _verify_vectors(torch, slots, 1, dev)
+        if paged:
+            q, kn, vn, c_k, c_v, table = _verify_paged(torch, gen, dev, slots)
+            q, kn, vn = (x[:, :, :1].contiguous() for x in (q, kn, vn))
+            col_ok = (table >= 0).repeat_interleave(SERVE_PAGE, dim=1)
+            base = dict(page_table=table, scale=scale)
+            slab_k = lambda x: fd.gather_pages(x, table)   # noqa: E731
+        else:
+            q, kn, vn, c_k, c_v = _verify_slab(torch, gen, dev, slots, h,
+                                               h_kv, d, t)
+            q, kn, vn = (x[:, :, :1].contiguous() for x in (q, kn, vn))
+            col_ok, base = None, dict(scale=scale)
+            slab_k = lambda x: x                            # noqa: E731
+        m0 = _mirror(torch, fd, c_k)
+        k0, v0 = c_k.clone(), c_v.clone()
+
+        def fresh():
+            return (k0.clone(), v0.clone(), m0[0].clone(), m0[1].clone())
+        runs = {}
+        for impl, fn in (('kernel', fd.flash_decode),
+                         ('plain', fd.flash_decode_plain)):
+            for part in ((False, True) if not partials else (True,)):
+                ck, cv, kq, ksc = fresh()
+                got, _, _ = fn(q, kn, vn, ck, cv, vt, ap, k_q=kq,
+                               k_scale=ksc, qk_quant='int8', partials=part,
+                               **base)
+                runs[impl, part] = (got, ck, cv, kq, ksc)
+        torch.cuda.synchronize()
+        body = slice(None, -1) if paged else slice(None)
+        kern, plain = runs['kernel', True], runs['plain', True]
+        out_k = runs.get(('kernel', False), kern)[0]
+        out_p = runs.get(('plain', False), plain)[0]
+        errs, err, finite = _decode_errs(torch, out_k, out_p)
+        m_k, m_p = kern[0][1], plain[0][1]
+        attended = m_p > fd._NEG_BIG
+        row = {'phase': 'flash_decode_int8', 'case': name,
+               'batch': len(slots), 'heads': h, 'kv_heads': h_kv,
+               'head_dim': d, 'columns': t, 'valid_to': vt.tolist(),
+               'append_at': ap.tolist(), 'max_abs_err': err,
+               'max_row_rel_err': {n: e[0] for n, e in errs.items()},
+               'rel_err': {n: e[1] for n, e in errs.items()},
+               'tol': {'row_rel': TOL_ROW_REL, 'rel': TOL_NORM_REL},
+               'score_max_bit_identical': bool(torch.equal(m_k, m_p)),
+               'rows_attending': int(attended.sum().item()),
+               'mirror_bit_identical': all(
+                   torch.equal(a[body], b[body])
+                   for a, b in zip(kern[3:], plain[3:])),
+               'caches_bit_identical': all(
+                   torch.equal(a[body], b[body])
+                   for a, b in zip(kern[1:3], plain[1:3]))}
+        emit(row)
+        check(finite, f'int8 {name}: non-finite output')
+        fails = check_rel(errs, f'int8 {name}')
+        check(not fails, '; '.join(fails))
+        for key in ('score_max_bit_identical', 'mirror_bit_identical',
+                    'caches_bit_identical'):
+            check(row[key], f'int8 {name}: {key} is False')
+        mask = _verify_mask(torch, vt, 1, t, dev, col_ok)
+        n_app = int(nn.sum().item())
+        bms, by, _, nbytes = _decode_bound(torch, mask, h, h_kv, d,
+                                           len(slots), 1, n_app,
+                                           k_bytes=d + 4, partials=partials)
+        cols = int(mask.sum().item()) * (h // h_kv)
+        bms, by = bound_mixed(2 * d * cols, 2 * d * cols, nbytes)
+        ck, cv, kq, ksc = fresh()
+        ks, vs = slab_k(k0), slab_k(v0)
+        kw = dict(base, k_q=kq, k_scale=ksc, qk_quant='int8',
+                  partials=partials)
+        timed = dict(
+            ms=time_ms(torch, lambda: fd.flash_decode(
+                q, kn, vn, ck, cv, vt, ap, **kw), flush),
+            plain_ms=time_ms(torch, lambda: fd.flash_decode_plain(
+                q, kn, vn, ck, cv, vt, ap, **kw), flush, reps=5),
+            library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+                q, ks, vs, attn_mask=mask, scale=scale,
+                enable_gqa=h != h_kv), flush),
+            bound_ms=bms, bound_by=by)
+        emit({'phase': 'flash_decode_int8', 'case': name, **timed,
+              'library': 'none computes int8-scored decode: sdpa in bf16 '
+                         'over the same columns, for scale only',
+              'bytes': nbytes, 'int8_ops': 2 * d * cols,
+              'bf16_flops': 2 * d * cols})
+        res[name] = {'max_abs_err': err, **timed}
+        del q, kn, vn, c_k, c_v, k0, v0, m0, runs, ck, cv, kq, ksc, ks, vs
+        torch.cuda.empty_cache()
+    return res
+
+
 def serve_burst():
     """The seeded burst, built as ``examples/serve_lm.py``'s
     ``build_requests`` does: (id, prompt) with prompt lengths uniform in
@@ -961,6 +1328,367 @@ def phase_serve_path(torch, ddp):
     del runs
     torch.cuda.empty_cache()
     return launches_by_path
+
+
+# Speculative serving (spec_serve): the serve_path burst with spec_k = 4
+# (verify width 5, the VERIFY_K of flash_decode_verify).
+SPEC_K = 4
+SPEC_PROPOSERS = ('ngram', 'draft')
+
+
+def _tick_parts(records):
+    """Where a burst's decode ticks spend their wall time, from the
+    scheduler's and engine's spans: the spec ticks (``serve.decode_step``
+    with ``spec``) and inside them the fused verify step and the
+    rollbacks (the target's and the draft twin's); the proposer
+    (``serve.spec.propose``, the draft twin's steps inside it; the
+    twin's rollbacks count with the rollbacks); the plain
+    ticks and their one-token steps. Each part: count, total seconds and
+    mean ms."""
+    parts = {}
+
+    def add(part, rec):
+        agg = parts.setdefault(part, {'count': 0, 'total_s': 0.0})
+        agg['count'] += 1
+        agg['total_s'] += rec.seconds
+    for rec in records:
+        spec_tick = dict(rec.attrs).get('spec', False)
+        if rec.name == 'serve.decode_step':
+            add('spec_tick' if spec_tick else 'plain_tick', rec)
+        elif rec.name == 'serve.spec.propose':
+            add('propose', rec)
+        elif rec.name == 'engine.verify_step':
+            add('verify_step', rec)
+        elif rec.name == 'engine.rollback':
+            add('rollback', rec)
+        elif rec.name == 'engine.decode_step':
+            add('draft_step' if 'serve.spec.propose' in rec.path
+                else 'plain_step', rec)
+    for agg in parts.values():
+        agg['mean_ms'] = 1e3 * agg['total_s'] / agg['count']
+    return parts
+
+
+def _spec_run(torch, ddp, mode, spec, burst):
+    """One burst through the Scheduler over a fresh engine with proposer
+    ``spec`` (None: the non-spec twin). Returns (streams, row)."""
+    import numpy as np
+    from distributed_dot_product_tpu_torch.serve import (
+        RejectedError, Scheduler, ServeConfig,
+    )
+    from distributed_dot_product_tpu_torch.obs import spans as obs_spans
+    from distributed_dot_product_tpu_torch.utils.tracing import (
+        MetricsRegistry,
+    )
+    engine = serve_engine(torch, mode)
+    registry = MetricsRegistry()
+    sched = Scheduler(engine, ServeConfig(
+        queue_limit=SERVE_QUEUE, max_new_tokens=SERVE_NEW, spec=spec,
+        spec_k=SPEC_K), registry=registry, fault_injector=False)
+    draft = getattr(sched._proposer, 'engine', None)
+    # Warm every engine operation (the draft's too) before the burst:
+    # first use would otherwise count as a stall.
+    for eng in (engine, draft):
+        if eng is None:
+            continue
+        on = np.ones(SERVE_SLOTS, bool)
+        eng.step(np.zeros(SERVE_SLOTS, np.int32), on)
+        eng.verify_step(np.zeros((SERVE_SLOTS, SPEC_K + 1), np.int32),
+                        np.full(SERVE_SLOTS, SPEC_K + 1), on)
+        eng.rollback(np.zeros(SERVE_SLOTS, np.int64))
+        eng.prefill(0, np.zeros(SERVE_CHUNK, np.int32))
+        for i in range(SERVE_SLOTS):
+            eng.reset(i)
+    torch.cuda.synchronize()
+    calls = {'verify_ticks': 0, 'draft_steps': 0}
+
+    def counting(fn, name):
+        def counted(*a, **kw):
+            calls[name] += 1
+            return fn(*a, **kw)
+        return counted
+    engine.verify_step = counting(engine.verify_step, 'verify_ticks')
+    if draft is not None:
+        draft.step = counting(draft.step, 'draft_steps')
+    # The main path: counts at 0 just before the burst, read just after.
+    for fn in (ddp.flash_decode, ddp.flash_decode_paged):
+        fn.launches = fn.verify_launches = fn.int8_launches = 0
+    rejected = {}
+    # The scheduler's and engine's spans are on for every run (spec and
+    # non-spec alike): they split a tick into its parts (_tick_parts).
+    spans = obs_spans.enable(True)
+    spans.clear()
+    t0 = time.perf_counter()
+    try:
+        for i, (rid, prompt) in enumerate(burst):
+            try:
+                sched.submit(prompt, request_id=rid)
+            except RejectedError as e:
+                rejected[rid] = e.reason.value
+            if i % 4 == 3:
+                sched.step()
+        results = sched.run_until_idle()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        sched.close()
+        obs_spans.enable(False)
+    launches = {}
+    for fn in (ddp.flash_decode, ddp.flash_decode_paged):
+        launches[fn.__name__] = fn.launches
+        launches[f'{fn.__name__}.verify'] = fn.verify_launches
+    records = spans.records()
+    snap = registry.snapshot()
+    counters, hist = snap['counters'], snap['histograms']
+    tokens = counters.get('serve.tokens_generated', 0)
+    steps = counters.get('serve.decode_steps', 0)
+    row = {'phase': 'spec_serve', 'cache_mode': mode, 'spec': spec,
+           'spec_k': SPEC_K, 'requests': len(burst),
+           'rejected_at_submit': rejected, 'tokens_generated': tokens,
+           'decode_ticks': steps, 'verify_ticks': calls['verify_ticks'],
+           'draft_steps': calls['draft_steps'],
+           'wall_s': wall, 'tokens_per_s': tokens / wall,
+           'ttft_p99_s': hist['serve.ttft_seconds']['p99'],
+           'launches': launches, 'watchdog_stalls':
+               sched.health.stall_events, 'tick_parts': _tick_parts(records)}
+    if spec is not None:
+        for name in ('proposed', 'accepted'):
+            h = hist.get(f'serve.spec.{name}_per_step', {})
+            row[f'{name}_per_verify_step'] = h.get('mean')
+            row[f'{name}_total'] = h.get('total_sum')
+    streams = {rid: (r.status, list(r.tokens))
+               for rid, r in results.items()}
+    return streams, row
+
+
+def phase_spec_serve(torch, ddp):
+    """The serve_path burst with speculative decoding (n-gram and the
+    self-draft twin, spec_k = 4) over the paged (K5p) and slab (K5)
+    engines: every committed stream must equal the non-spec twin's token
+    for token, the target kernel's verify launches must equal the verify
+    ticks and its launches the decode ticks; tokens/s, TTFT p99, decode
+    ticks, proposed and accepted per verify step, and the draft twin's
+    K5 launches."""
+    burst = serve_burst()
+    out = {}
+    for mode in ('paged', 'slab'):
+        target = 'flash_decode_paged' if mode == 'paged' else 'flash_decode'
+        base, base_row = _spec_run(torch, ddp, mode, None, burst)
+        emit(base_row)
+        check(base_row['verify_ticks'] == 0, f'{mode}: non-spec verify')
+        for spec in SPEC_PROPOSERS:
+            streams, row = _spec_run(torch, ddp, mode, spec, burst)
+            ln = row['launches']
+            verify = ln[f'{target}.verify']
+            differ = sorted(rid for rid in base if streams.get(rid)
+                            != base[rid])
+            # The draft twin is a slab engine: its steps are K5 launches,
+            # beside the target's own on the slab engine.
+            draft = ln['flash_decode'] - (row['decode_ticks']
+                                          if mode == 'slab' else 0)
+            row.update(streams_equal_non_spec=not differ, diverged=differ,
+                       target_kernel=target,
+                       target_verify_launches=verify,
+                       draft_k5_launches=draft,
+                       vs_non_spec={
+                           'tokens_per_s': base_row['tokens_per_s'],
+                           'ttft_p99_s': base_row['ttft_p99_s'],
+                           'decode_ticks': base_row['decode_ticks'],
+                           'tick_parts': base_row['tick_parts']})
+            emit(row)
+            check(not differ, f'{mode} {spec}: streams differ from the '
+                              f'non-spec run: {differ[:5]}')
+            check(set(streams) == set(base), f'{mode} {spec}: results')
+            check(verify == row['verify_ticks'] > 0,
+                  f'{mode} {spec}: {verify} verify launches for '
+                  f'{row["verify_ticks"]} verify ticks')
+            check((row['draft_steps'] > 0) == (spec == 'draft'),
+                  f'{mode} {spec}: {row["draft_steps"]} draft steps')
+            # One target launch a tick, one K5 launch a draft step.
+            if mode == 'slab':
+                check(ln['flash_decode'] == row['decode_ticks']
+                      + row['draft_steps'],
+                      f'slab {spec}: {ln["flash_decode"]} K5 launches for '
+                      f'{row["decode_ticks"]} decode ticks + '
+                      f'{row["draft_steps"]} draft steps')
+            else:
+                check(ln[target] == row['decode_ticks'],
+                      f'paged {spec}: {ln[target]} K5p launches for '
+                      f'{row["decode_ticks"]} decode ticks')
+                check(ln['flash_decode'] == row['draft_steps'],
+                      f'paged {spec}: {ln["flash_decode"]} K5 launches for '
+                      f'{row["draft_steps"]} draft steps')
+            out[f'{mode}_{spec}'] = row
+        torch.cuda.empty_cache()
+    return out
+
+
+# The int8 cached-inference configuration (int8_decode): the gqa_ring
+# stage's module without segments or dropout — key_dim 512 over 8 heads on
+# 4 kv heads, causal, RoPE, int8 QK^T — in bf16, batch 4, a cache of 8192
+# columns; K1 int8 prefills 8128 rows, then 64 decode steps.
+INT8_B, INT8_T, INT8_STEPS = 4, 8192, 64
+INT8_PROMPT = INT8_T - INT8_STEPS
+INT8_PAGED_STEPS = 8      # the paged route's steps (K5p int8)
+
+
+def _int8_paged_twin(torch, ddp, cache, gen):
+    """A paged cache with the int8 mirror pools at the serving page size
+    holding the slab ``cache``'s rows, its pages scrambled."""
+    import numpy as np
+    b, h_kv, t, d = cache.k.shape
+    pps = t // SERVE_PAGE
+    pc = ddp.init_paged_cache(b, h_kv, t, d, pages=b * pps,
+                              page_size=SERVE_PAGE, dtype=cache.k.dtype,
+                              qk_quant='int8', device=cache.k.device)
+    order = torch.randperm(b * pps, generator=gen).to(cache.k.device)
+    pc.page_table.copy_(order.view(b, pps))
+    for pool, slab in ((pc.k_pool, cache.k), (pc.v_pool, cache.v),
+                       (pc.k_q_pool, cache.k_q),
+                       (pc.k_scale_pool, cache.k_scale)):
+        pool[order] = slab.unflatten(2, (pps, SERVE_PAGE)).transpose(
+            1, 2).flatten(0, 1)
+    return pc._replace(length=np.full(b, int(cache.length), np.int64))
+
+
+def phase_int8_decode(torch, ddp):
+    """An int8 module's cached inference: K1 int8 prefill, then 64 decode
+    steps through K5 with the int8 mirror (one launch a step), each step
+    held against the module's own int8 forward over the sequence (row t
+    of a causal forward is the decode at position t) and against the
+    plain decode on the card; ms per step. Then the paged route: the
+    module's projections of the first steps through ``decode_step`` on a
+    paged cache with the mirror pools (K5p int8, one launch a step), held
+    bit for bit against the slab run: outputs and mirror rows."""
+    from distributed_dot_product_tpu_torch.models.decode import (
+        paged_gather_mirror,
+    )
+    dev, bf16 = torch.device('cuda'), torch.bfloat16
+    mod = ddp.DistributedDotProductAttn(
+        key_dim=SP_DIM, num_heads=SP_HEADS, num_kv_heads=SP_HEADS // 2,
+        causal=True, use_rope=True, qk_quant='int8', softmax_impl='flash',
+        distributed=False, dtype=bf16, device=dev,
+        generator=torch.Generator().manual_seed(13))
+    gen = torch.Generator().manual_seed(31)
+    x = randn(torch, (INT8_B, INT8_T, SP_DIM), gen, dev, bf16)
+    res = {}
+    with torch.no_grad():
+        cache = mod.make_decode_cache(INT8_B, INT8_T)
+        check(cache.k_q is not None and cache.k_q.dtype == torch.int8,
+              'int8 module cache carries no int8 mirror')
+        p = x[:, :INT8_PROMPT]
+        ddp.flash_attention.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cache, _ = mod.prefill(p, p, p, cache)
+        torch.cuda.synchronize()
+        res['prefill_ms'] = 1e3 * (time.perf_counter() - t0)
+        res['prefill_k1_launches'] = ddp.flash_attention.launches
+        twin = cache._replace(**{n: getattr(cache, n).clone() for n in
+                                 ('k', 'v', 'k_q', 'k_scale')})
+        paged = _int8_paged_twin(torch, ddp, cache, gen)
+        # The main path: counts at 0 just before, read just after.
+        for fn in (ddp.flash_attention, ddp.flash_decode,
+                   ddp.flash_decode_paged):
+            fn.launches = 0
+        ddp.flash_decode.int8_launches = 0
+        outs, ms = [], []
+        for t in range(INT8_STEPS):
+            xt = x[:, INT8_PROMPT + t:INT8_PROMPT + t + 1]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cache, out = mod.decode(xt, xt, xt, cache)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+            outs.append(out)
+        launches = {'flash_decode': ddp.flash_decode.launches,
+                    'flash_decode.int8': ddp.flash_decode.int8_launches,
+                    'flash_decode_paged': ddp.flash_decode_paged.launches,
+                    'flash_attention': ddp.flash_attention.launches}
+        got = torch.cat(outs, dim=1)
+        # The paged route: counts at 0 just before, read just after.
+        for fn in (ddp.flash_decode, ddp.flash_decode_paged):
+            fn.launches = fn.int8_launches = 0
+        paged_outs, paged_ms = [], []
+        for t in range(INT8_PAGED_STEPS):
+            xt = x[:, INT8_PROMPT + t:INT8_PROMPT + t + 1]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            k_t, q_t, v_t = mod._project(xt, xt, xt, INT8_PROMPT + t)
+            paged, out = ddp.decode_step(
+                k_t, paged, q_t, v_t, scale=1.0 / math.sqrt(mod.head_dim),
+                window=mod.window, qk_quant='int8')
+            out = mod._merge_heads(out)
+            torch.cuda.synchronize()
+            paged_ms.append(1e3 * (time.perf_counter() - t0))
+            paged_outs.append(out)
+        paged_launches = {
+            'flash_decode_paged': ddp.flash_decode_paged.launches,
+            'flash_decode_paged.int8': ddp.flash_decode_paged.int8_launches,
+            'flash_decode': ddp.flash_decode.launches}
+        filled = INT8_PROMPT + INT8_PAGED_STEPS
+        pk_q, pk_s = paged_gather_mirror(paged)
+        paged_same = {
+            'outputs': bool(torch.equal(torch.cat(paged_outs, dim=1),
+                                        got[:, :INT8_PAGED_STEPS])),
+            'mirror': bool(torch.equal(pk_q[:, :, :filled],
+                                       cache.k_q[:, :, :filled])
+                           and torch.equal(pk_s[:, :, :filled],
+                                           cache.k_scale[:, :, :filled]))}
+        del paged, pk_q, pk_s
+        mod.decode_impl = 'plain'
+        plain = []
+        for t in range(INT8_STEPS):
+            xt = x[:, INT8_PROMPT + t:INT8_PROMPT + t + 1]
+            twin, out = mod.decode(xt, xt, xt, twin)
+            plain.append(out)
+        plain = torch.cat(plain, dim=1)
+        mod.decode_impl = None
+        fwd = mod(x, x, x, deterministic=True)[:, INT8_PROMPT:]
+        torch.cuda.synchronize()
+    mirror_same = bool(torch.equal(cache.k_q, twin.k_q)
+                       and torch.equal(cache.k_scale, twin.k_scale))
+    errs = {'vs_forward': rel_errs(torch, got, fwd),
+            'vs_plain': rel_errs(torch, got, plain)}
+    row = {'phase': 'int8_decode', 'batch': INT8_B, 'cache': INT8_T,
+           'prompt': INT8_PROMPT, 'steps': INT8_STEPS,
+           'module': {'key_dim': SP_DIM, 'num_heads': SP_HEADS,
+                      'num_kv_heads': SP_HEADS // 2, 'qk_quant': 'int8',
+                      'use_rope': True, 'dtype': 'bfloat16'},
+           **res, 'launches': launches,
+           'step_ms': {'median': statistics.median(ms), 'min': min(ms),
+                       'max': max(ms)},
+           'max_row_rel_err': {n: e[0] for n, e in errs.items()},
+           'rel_err': {n: e[1] for n, e in errs.items()},
+           'tol': {'row_rel': TOL_ROW_REL, 'rel': TOL_NORM_REL},
+           'mirror_equal_plain_twin': mirror_same,
+           'finite': bool(torch.isfinite(got).all().item()),
+           'paged': {'page_size': SERVE_PAGE, 'steps': INT8_PAGED_STEPS,
+                     'launches': paged_launches,
+                     'step_ms': {'median': statistics.median(paged_ms),
+                                 'min': min(paged_ms),
+                                 'max': max(paged_ms)},
+                     'bit_equal_slab': paged_same}}
+    emit(row)
+    check(row['finite'], 'int8_decode: non-finite output')
+    check(launches['flash_decode'] == INT8_STEPS
+          and launches['flash_decode.int8'] == INT8_STEPS,
+          f'int8_decode: launches {launches} for {INT8_STEPS} steps')
+    check(launches['flash_attention'] == 0
+          and launches['flash_decode_paged'] == 0,
+          f'int8_decode: other kernels launched {launches}')
+    check(mirror_same, 'int8_decode: the mirror differs from the plain '
+                       'twin\'s')
+    check(paged_launches['flash_decode_paged'] == INT8_PAGED_STEPS
+          and paged_launches['flash_decode_paged.int8'] == INT8_PAGED_STEPS
+          and paged_launches['flash_decode'] == 0,
+          f'int8_decode paged: launches {paged_launches} for '
+          f'{INT8_PAGED_STEPS} steps')
+    check(all(paged_same.values()),
+          f'int8_decode paged: not bit-equal to the slab run {paged_same}')
+    fails = check_rel(errs, 'int8_decode')
+    check(not fails, '; '.join(fails))
+    return row
 
 
 def phase_main_path(torch, ddp):
@@ -2733,7 +3461,13 @@ def main():
             ('flash_decode', lambda: phase_decode(torch, ddp, flush, gen)),
             ('flash_decode_paged',
              lambda: phase_decode_paged(torch, ddp, flush, gen)),
+            ('flash_decode_verify',
+             lambda: phase_decode_verify(torch, ddp, flush, gen)),
+            ('flash_decode_int8',
+             lambda: phase_decode_int8(torch, ddp, flush, gen)),
             ('serve_path', lambda: phase_serve_path(torch, ddp)),
+            ('spec_serve', lambda: phase_spec_serve(torch, ddp)),
+            ('int8_decode', lambda: phase_int8_decode(torch, ddp)),
             ('flash_backward',
              lambda: phase_flash_backward(torch, ddp, flush, gen)),
             ('flash_features',
@@ -2772,6 +3506,36 @@ def main():
     sp = res['seq_parallel']
     ds = res['decode_sharded']
     fs = res['flagship']
+    ver, i8 = res['flash_decode_verify'], res['flash_decode_int8']
+    spec, int8_path = res['spec_serve'], res['int8_decode']
+
+    def variant(cases, head, launches, path):
+        """A verify / int8 variant of K5 or K5p: its launches on the path
+        that runs it, the head case's times, every case's numbers."""
+        return dict(launches=launches, path=path,
+                    max_abs_err=max(c['max_abs_err'] for c in cases.values()),
+                    **{k: cases[head][k] for k in (
+                        'ms', 'plain_ms', 'library_ms', 'bound_ms',
+                        'bound_by')},
+                    cases=cases)
+    spec_verify = {mode: sum(spec[f'{mode}_{p}']['target_verify_launches']
+                             for p in SPEC_PROPOSERS)
+                   for mode in ('slab', 'paged')}
+    k5['variants'].update(
+        verify=variant({c: ver[c] for c in ('slab', 'slab_gqa')}, 'slab',
+                       spec_verify['slab'],
+                       'spec_serve slab engine, ngram + draft runs'),
+        int8=variant({c: i8[c] for c in ('slab', 'partials_full_slab')},
+                     'slab', int8_path['launches']['flash_decode.int8'],
+                     'int8_decode, 64 module decode steps'))
+    k5p['variants'].update(
+        verify=variant({'paged': ver['paged']}, 'paged',
+                       spec_verify['paged'],
+                       'spec_serve paged engine, ngram + draft runs'),
+        int8=variant({'paged': i8['paged']}, 'paged',
+                     int8_path['paged']['launches']['flash_decode_paged.int8'],
+                     f'int8_decode, {INT8_PAGED_STEPS} decode_step calls '
+                     f'on a paged int8 cache'))
 
     # K1, K3, K4: launches on the training path (beside them the serving
     # path's and each sequence-parallel strategy's, rank 0 over its
@@ -2780,11 +3544,13 @@ def main():
     # (flash_features). K5: launches and times of the greedy serving path
     # (its launches on the slab twin of the scheduler's run beside them).
     # K5p: launches on the scheduler's paged run, times at the serving
-    # shape. K5 and K5p also carry their partials / window variants
-    # (`variants`), and K5 its launches per rank on the 64 sequence-sharded
-    # steps (decode_sharded). K1/K3/K4 also carry their segment / window / dropout / int8
-    # variants' times (flash_masks, `masks`) and their launches on the
-    # flagship stages (rank 0 over FS_STEPS train steps).
+    # shape. K5 and K5p also carry their partials / window / verify / int8
+    # variants (`variants`; verify launches on the spec_serve runs, int8
+    # on int8_decode), and K5 its launches per rank on the 64
+    # sequence-sharded steps (decode_sharded). K1/K3/K4 also carry their
+    # segment / window / dropout / int8 variants' times (flash_masks,
+    # `masks`) and their launches on the flagship stages (rank 0 over
+    # FS_STEPS train steps).
     csrc = 'distributed_dot_product_tpu_torch/csrc/'
     tpu = 'distributed_dot_product_tpu/ops/'
     k1_err = max(k1['max_abs_err'], bwd_err['out'], feat_err['out'])
@@ -2851,6 +3617,10 @@ def main():
                  'main_path': serve_launches['flash_decode'],
                  'serve_path_slab':
                      serve_path_launches['slab']['flash_decode'],
+                 'spec_serve_slab': {
+                     p: spec[f'slab_{p}']['launches']['flash_decode']
+                     for p in SPEC_PROPOSERS},
+                 'int8_decode': int8_path['launches']['flash_decode'],
                  'decode_sharded_per_rank': ds['launches_per_rank']},
              max_abs_err=k5['max_abs_err'],
              variants=k5['variants'],
@@ -2859,6 +3629,14 @@ def main():
         dict(name='flash_decode_paged', source=csrc + 'flash_decode.cu',
              replaces=tpu + 'pallas_decode.py:310',
              launches=serve_path_launches['paged']['flash_decode_paged'],
+             launches_by_path={
+                 'serve_path_paged':
+                     serve_path_launches['paged']['flash_decode_paged'],
+                 'spec_serve_paged': {
+                     p: spec[f'paged_{p}']['launches']['flash_decode_paged']
+                     for p in SPEC_PROPOSERS},
+                 'int8_decode_paged':
+                     int8_path['paged']['launches']['flash_decode_paged']},
              max_abs_err=k5p['max_abs_err'],
              variants=k5p['variants'],
              **{key: k5p[key] for key in ('ms', 'plain_ms', 'library_ms',

@@ -60,8 +60,9 @@ from distributed_dot_product_tpu_torch.models.dense import (  # noqa: F401
 )
 from distributed_dot_product_tpu_torch.models.decode import (  # noqa: F401
     DecodeCache, PagedDecodeCache, PagePool, append_kv, append_kv_sharded,
-    append_kv_slots, decode_attention, decode_step, init_cache,
-    init_paged_cache, init_slot_cache,
+    append_kv_slots, decode_attention, decode_kernel_eligible, decode_step,
+    init_cache, init_paged_cache, init_slot_cache, paged_rollback_slots,
+    rollback_slots,
 )
 from distributed_dot_product_tpu_torch.models.ring_attention import (  # noqa
     ring_attention,
@@ -90,7 +91,8 @@ from distributed_dot_product_tpu_torch.train_loop import (  # noqa: F401
     TrainLoopConfig, TrainLoopResult, run_training,
 )
 from distributed_dot_product_tpu_torch.serve import (  # noqa: F401
-    KernelEngine, Scheduler, ServeConfig,
+    DraftEngineProposer, KernelEngine, NgramProposer, Scheduler,
+    ServeConfig, make_draft_engine,
 )
 from distributed_dot_product_tpu_torch.convert import (  # noqa: F401
     attn_state_from_jax, engine_state_from_jax, lm_state_from_jax,

@@ -366,9 +366,9 @@ class DistributedDotProductAttn(nn.Module):
 
     def make_decode_cache(self, batch, t_max, dtype=None, device=None):
         """A KV cache sized for this module's projections (GQA-aware),
-        on the module's device unless ``device`` is given. An int8 module
-        (``qk_quant='int8'``) needs the int8 K mirror, which is not ported
-        yet: this raises ``NotImplementedError``."""
+        on the module's device unless ``device`` is given; an int8 module
+        (``qk_quant='int8'``) gets the int8 K mirror its decode steps
+        score against."""
         return init_cache(
             batch, self._kv_heads, t_max, self.head_dim,
             v_head_dim=self._value_dim // self.num_heads,
@@ -429,8 +429,10 @@ class DistributedDotProductAttn(nn.Module):
     def decode(self, keys, queries, values, cache):
         """One cached step for the NEW positions ``(B, 1, d·)``: the fused
         append + attend (``decode_impl`` selects the implementation) with
-        the module's ``window`` (``qk_quant='int8'`` raises
-        ``NotImplementedError`` until the int8 K mirror is ported).
+        the module's ``window`` and ``qk_quant`` (int8: scored against the
+        cache's int8 K mirror, appended in place by the kernel; a
+        mirror-less cache needs the plain step, quantizing on the fly —
+        ``decode_impl='plain'`` on the card, the default on the CPU).
         Returns ``(cache, out (B, 1, value_dim))``."""
         keys, queries, values = self._project_for_decode(
             keys, queries, values, cache)

@@ -45,44 +45,61 @@ Every rank runs every collective of a step, its slab full, empty or
 wholly in the query's future alike. An append past the global capacity
 raises eagerly on every rank and writes nothing.
 
+Verify-k (``decode_step`` with ``n > 1`` rows and per-slot ``counts``,
+speculative decoding's fused verify) runs through K5/K5p, and
+:func:`rollback_slots` / :func:`paged_rollback_slots` truncate each slot
+to its accepted prefix. ``qk_quant='int8'`` caches carry the int8 K
+mirror (``k_q``/``k_scale``, paged ``k_q_pool``/``k_scale_pool``), kept
+by every append, reset and rollback; int8 decode scores against it (or,
+on a mirror-less cache, quantizes on the fly on the plain path). A call
+the kernel does not cover takes the plain step on CPU tensors and raises
+on CUDA tensors unless the caller passes ``impl='plain'``.
+
 The sliding ``window`` of the training kernels applies to every decode
-path. Not ported yet: the int8 K mirror (``qk_quant='int8'`` raises
-``NotImplementedError``), the sharded page table, verify-k (``n > 1``
-through the kernel, per-slot ``counts`` above 1), rollback, cross-cache
-page transfer, ALiBi and packed segments — they raise
-``NotImplementedError``.
+path. Not ported yet: the sharded page table, cross-cache page transfer,
+ALiBi and packed segments — they raise ``NotImplementedError``.
 """
 
 import math
 import zlib
-from typing import NamedTuple, Union
+from typing import NamedTuple, Optional, Union
 
 import numpy as np
 import torch
 
+from distributed_dot_product_tpu_torch.ops.flash_attention import (
+    quantize_rows,
+)
 from distributed_dot_product_tpu_torch.ops.flash_decode import (
-    flash_decode, gather_pages,
+    _SPLIT, flash_decode, gather_pages,
 )
 from distributed_dot_product_tpu_torch.utils.comm import (
     all_reduce, all_reduce_max, get_rank, get_world_size, resolve_device,
 )
 
 __all__ = ['DecodeCache', 'init_cache', 'append_kv', 'append_kv_sharded',
-           'decode_attention', 'decode_step', 'init_slot_cache',
-           'append_kv_slots',
-           'reset_slot', 'slots_all_finite', 'PagedDecodeCache',
-           'init_paged_cache', 'paged_gather', 'paged_append_kv_slots',
-           'paged_append_rows', 'paged_reset_slot', 'paged_copy_attach',
-           'PagePool', 'PageChecksums']
+           'decode_attention', 'decode_step', 'decode_kernel_eligible',
+           'init_slot_cache', 'append_kv_slots', 'reset_slot',
+           'slots_all_finite', 'rollback_slots', 'PagedDecodeCache',
+           'init_paged_cache', 'paged_gather', 'paged_gather_mirror',
+           'paged_append_kv_slots', 'paged_append_rows', 'paged_reset_slot',
+           'paged_rollback_slots', 'paged_copy_attach', 'PagePool',
+           'PageChecksums']
 
 
 class DecodeCache(NamedTuple):
     """Static-shape KV cache: ``k``/``v`` are ``(B, H_kv, t_max, d·)``
     buffers; ``length`` the number of filled positions — a host int, or
-    a ``(B,)`` numpy int64 vector for a per-slot cache."""
+    a ``(B,)`` numpy int64 vector for a per-slot cache. ``k_q (…, d)
+    int8`` / ``k_scale (…, 1) float32``: the int8 mirror of ``k`` with
+    per-row scales, kept at append time for ``qk_quant='int8'`` models —
+    rows are append-only and the quantization is per row, so quantizing
+    once on append equals re-quantizing the buffer each step."""
     k: torch.Tensor
     v: torch.Tensor
     length: Union[int, np.ndarray]
+    k_q: Optional[torch.Tensor] = None
+    k_scale: Optional[torch.Tensor] = None
 
     @property
     def t_max(self):
@@ -111,21 +128,40 @@ def _to_device(x, device, dtype=np.int64):
         device, non_blocking=True)
 
 
+def _mirror_zeros(lead, head_dim, quant, dev):
+    """Zero int8 mirror ``(k_q, k_scale)`` for rows ``lead`` (or
+    ``(None, None)``)."""
+    if not quant:
+        return None, None
+    return (torch.zeros((*lead, head_dim), dtype=torch.int8, device=dev),
+            torch.zeros((*lead, 1), dtype=torch.float32, device=dev))
+
+
 def init_cache(batch, kv_heads, t_max, head_dim, v_head_dim=None,
                dtype=torch.bfloat16, qk_quant=None, device='cuda'):
-    """Zero cache for ``t_max`` positions on ``device``."""
+    """Zero cache for ``t_max`` positions on ``device``.
+    ``qk_quant='int8'`` allocates the int8 K mirror for int8-trained
+    models."""
     if qk_quant not in (None, 'int8'):
         raise ValueError(f"qk_quant must be None or 'int8', "
                          f'got {qk_quant!r}')
-    _unported('init_cache', qk_quant=qk_quant)
     dev = resolve_device(device)
     v_head_dim = v_head_dim or head_dim
+    k_q, k_scale = _mirror_zeros((batch, kv_heads, t_max), head_dim,
+                                 qk_quant == 'int8', dev)
     return DecodeCache(
         k=torch.zeros((batch, kv_heads, t_max, head_dim), dtype=dtype,
                       device=dev),
         v=torch.zeros((batch, kv_heads, t_max, v_head_dim), dtype=dtype,
                       device=dev),
-        length=0)
+        length=0, k_q=k_q, k_scale=k_scale)
+
+
+def _quantize_k(k_new, dtype):
+    """The mirror rows of ``k_new``: the CACHE-dtype value quantized per
+    row (the mirror's contract is "identical to re-quantizing the
+    buffer", which a higher-precision ``k_new`` would break)."""
+    return quantize_rows(k_new.to(dtype))
 
 
 def _check_room(cache, n):
@@ -175,6 +211,10 @@ def append_kv_sharded(cache: DecodeCache, k_new, v_new, *, group=None):
             cache.k.dtype)
         cache.v[:, :, a - lo:e - lo] = v_new[:, :, a - p:e - p].to(
             cache.v.dtype)
+        if cache.k_q is not None:
+            ki, sk = _quantize_k(k_new[:, :, a - p:e - p], cache.k.dtype)
+            cache.k_q[:, :, a - lo:e - lo] = ki
+            cache.k_scale[:, :, a - lo:e - lo] = sk
     return cache._replace(length=p + n)
 
 
@@ -187,6 +227,10 @@ def append_kv(cache: DecodeCache, k_new, v_new) -> DecodeCache:
     end = cache.length + n
     cache.k[:, :, cache.length:end] = k_new.to(cache.k.dtype)
     cache.v[:, :, cache.length:end] = v_new.to(cache.v.dtype)
+    if cache.k_q is not None:
+        ki, sk = _quantize_k(k_new, cache.k.dtype)
+        cache.k_q[:, :, cache.length:end] = ki
+        cache.k_scale[:, :, cache.length:end] = sk
     return cache._replace(length=end)
 
 
@@ -247,7 +291,21 @@ def append_kv_slots(cache, k_new, v_new, *, slot_mask=None, counts=None):
         lo, e = int(cache.length[i]), int(eff[i])
         cache.k[i, :, lo:lo + e] = k_new[i, :, :e].to(cache.k.dtype)
         cache.v[i, :, lo:lo + e] = v_new[i, :, :e].to(cache.v.dtype)
+    _slab_mirror_rows(cache, k_new, cache.length, eff)
     return cache._replace(length=cache.length + eff)
+
+
+def _slab_mirror_rows(cache, k_new, start, eff):
+    """Keep a slab cache's int8 mirror: slot ``i``'s first ``eff[i]`` rows
+    of ``k_new`` quantized in at ``start[i]`` (host vectors); a no-op
+    without a mirror."""
+    if cache.k_q is None:
+        return
+    for i in np.nonzero(eff)[0].tolist():
+        lo, e = int(start[i]), int(eff[i])
+        ki, sk = _quantize_k(k_new[i, :, :e], cache.k.dtype)
+        cache.k_q[i, :, lo:lo + e] = ki
+        cache.k_scale[i, :, lo:lo + e] = sk
 
 
 def reset_slot(cache: DecodeCache, slot) -> DecodeCache:
@@ -262,8 +320,8 @@ def reset_slot(cache: DecodeCache, slot) -> DecodeCache:
             'reset_slot needs a per-slot cache (init_slot_cache); a '
             'scalar-length cache is reset by init_cache — its batch '
             'rows share one sequence clock')
-    cache.k[slot].zero_()
-    cache.v[slot].zero_()
+    for buf in _buffers(cache):
+        buf[slot].zero_()
     length = cache.length.copy()
     length[slot] = 0
     return cache._replace(length=length)
@@ -273,6 +331,51 @@ def slots_all_finite(x):
     """Per-slot all-finite predicate: ``(B, ...)`` → ``(B,) bool`` — the
     serving layer's quarantine test."""
     return torch.isfinite(x.reshape(x.shape[0], -1)).all(dim=-1)
+
+
+def _buffers(cache):
+    """The cache's row buffers (slab or pools): k, v and the int8 mirror
+    when present."""
+    return tuple(b for name, b in zip(cache._fields, cache)
+                 if name not in ('length', 'page_table') and b is not None)
+
+
+def rollback_slots(cache: DecodeCache, lengths, span=None):
+    """Acceptance-prefix rollback (speculative decoding): truncate each
+    slot's length to ``min(current, lengths)`` AND zero every row at or
+    past it, in place, so the cache is bit-identical to having appended
+    only the accepted tokens (a slot whose target is at or past its fill
+    is untouched: one call can roll back a few slots with a don't-touch
+    sentinel for the rest). ``lengths`` broadcasts against
+    ``cache.length``. ``span`` (per-slot caches only): the most rows any
+    slot rolls back — the zeroing then touches only the ``span`` rows at
+    each slot's new length (rows past the old fill are zero already);
+    without it every row past the new length is zeroed. Paged caches
+    take :func:`paged_rollback_slots`."""
+    if isinstance(cache, PagedDecodeCache):
+        raise ValueError(
+            'rollback_slots on a paged cache needs the bounded span '
+            'and the host page release — use paged_rollback_slots '
+            "with PagePool.truncate()'s bookkeeping")
+    per_slot = isinstance(cache.length, np.ndarray)
+    if span is not None and not per_slot:
+        raise ValueError('span needs a per-slot cache (init_slot_cache); '
+                         'scalar-clock caches take the full-mask path '
+                         '(span=None)')
+    cur = np.asarray(cache.length, np.int64)
+    new = np.minimum(cur, np.asarray(lengths, np.int64))
+    t_max = cache.t_max
+    if not per_slot:
+        new = int(new)
+        for buf in _buffers(cache):
+            buf[:, :, new:].zero_()
+        return cache._replace(length=new)
+    for i in np.nonzero(new < cur)[0].tolist():
+        lo = int(new[i])
+        hi = t_max if span is None else min(t_max, lo + int(span))
+        for buf in _buffers(cache):
+            buf[i, :, lo:hi].zero_()
+    return cache._replace(length=new)
 
 
 # -- paged caches -------------------------------------------------------
@@ -290,11 +393,15 @@ class PagedDecodeCache(NamedTuple):
     The LAST pool row (index :attr:`pages`) is the reserved sink page —
     never allocated, never attended. The port never writes it; the
     layout keeps it so the pool geometry (and :class:`PagePool`'s page
-    ids) match the reference's."""
+    ids) match the reference's. ``k_q_pool (pages + 1, H_kv, page_size,
+    d) int8`` / ``k_scale_pool (…, 1) float32``: the int8 K mirror pools
+    of a ``qk_quant='int8'`` cache, paged through the same table."""
     k_pool: torch.Tensor
     v_pool: torch.Tensor
     page_table: torch.Tensor
     length: np.ndarray
+    k_q_pool: Optional[torch.Tensor] = None
+    k_scale_pool: Optional[torch.Tensor] = None
 
     @property
     def page_size(self):
@@ -323,7 +430,8 @@ def init_paged_cache(slots, kv_heads, t_max, head_dim, *, pages,
                      page_size, v_head_dim=None, dtype=torch.bfloat16,
                      qk_quant=None, device='cuda'):
     """Zero paged cache: a ``pages``-page pool (plus the sink row) whose
-    page size divides the per-slot capacity ``t_max``, on ``device``."""
+    page size divides the per-slot capacity ``t_max``, on ``device``.
+    ``qk_quant='int8'`` allocates the int8 K-mirror pools."""
     v_head_dim = v_head_dim or head_dim
     if page_size < 1 or t_max % page_size:
         raise ValueError(f'page_size {page_size} must divide t_max '
@@ -333,8 +441,9 @@ def init_paged_cache(slots, kv_heads, t_max, head_dim, *, pages,
     if qk_quant not in (None, 'int8'):
         raise ValueError(f"qk_quant must be None or 'int8', "
                          f'got {qk_quant!r}')
-    _unported('init_paged_cache', qk_quant=qk_quant)
     dev = resolve_device(device)
+    k_q, k_scale = _mirror_zeros((pages + 1, kv_heads, page_size), head_dim,
+                                 qk_quant == 'int8', dev)
     return PagedDecodeCache(
         k_pool=torch.zeros((pages + 1, kv_heads, page_size, head_dim),
                            dtype=dtype, device=dev),
@@ -342,7 +451,7 @@ def init_paged_cache(slots, kv_heads, t_max, head_dim, *, pages,
                            dtype=dtype, device=dev),
         page_table=torch.full((slots, t_max // page_size), -1,
                               dtype=torch.int32, device=dev),
-        length=np.zeros(slots, np.int64))
+        length=np.zeros(slots, np.int64), k_q_pool=k_q, k_scale_pool=k_scale)
 
 
 def paged_gather(cache: PagedDecodeCache):
@@ -353,15 +462,66 @@ def paged_gather(cache: PagedDecodeCache):
             gather_pages(cache.v_pool, cache.page_table))
 
 
+def paged_gather_mirror(cache: PagedDecodeCache):
+    """Slab view of the int8 K mirror — ``(k_q (B, H_kv, t_max, d),
+    k_scale (B, H_kv, t_max, 1))`` gathered through the page table like
+    :func:`paged_gather` (unallocated entries read zeros)."""
+    if cache.k_q_pool is None:
+        raise ValueError('this paged cache carries no int8 K mirror — '
+                         "allocate it with init_paged_cache("
+                         "qk_quant='int8')")
+    return (gather_pages(cache.k_q_pool, cache.page_table),
+            gather_pages(cache.k_scale_pool, cache.page_table))
+
+
+def _write_mirror(cache, pg, rw, vals_k):
+    """Quantize rows ``vals_k (M, H_kv, d)`` and write them at pool
+    ``(pg, rw)`` (device index vectors) of the mirror pools — the one
+    mirror-maintenance body of every paged writer."""
+    ki, sk = _quantize_k(vals_k, cache.k_pool.dtype)
+    cache.k_q_pool[pg, :, rw] = ki
+    cache.k_scale_pool[pg, :, rw] = sk
+
+
 def _scatter_rows(cache, pool_rows, vals_k, vals_v):
     """Write rows ``vals_* (M, H_kv, d·)`` at ``pool_rows = (pages,
-    rows)`` (host index vectors) of both pools, in place."""
+    rows)`` (host index vectors) of both pools (and the mirror's), in
+    place."""
     if not len(pool_rows[0]):
         return
     dev = cache.k_pool.device
     pg, rw = (_to_device(x, dev) for x in pool_rows)
     cache.k_pool[pg, :, rw] = vals_k.to(cache.k_pool.dtype)
     cache.v_pool[pg, :, rw] = vals_v.to(cache.v_pool.dtype)
+    if cache.k_q_pool is not None:
+        _write_mirror(cache, pg, rw, vals_k)
+
+
+def _paged_mirror_fixup(cache: PagedDecodeCache, k_new, ap, nvec):
+    """Quantize a step's appended rows into the mirror pools — the kernel
+    path's fix-up when a non-int8 step on a mirror-carrying pool left the
+    mirror to the host (the rows and targets of
+    :func:`paged_append_kv_slots`). ``ap (B,)`` host vector: each slot's
+    first append column (-1 none); ``nvec (B,)`` the rows it appended."""
+    slot, j = _slot_rows(nvec)
+    table = cache.page_table.cpu().numpy()
+    pg, rw, ok = _page_targets(table[slot], ap[slot] + j, cache.page_size)
+    if not len(pg):
+        return
+    dev = cache.k_pool.device
+    si, ji = _to_device(slot[ok], k_new.device), _to_device(j[ok],
+                                                             k_new.device)
+    _write_mirror(cache, _to_device(pg, dev), _to_device(rw, dev),
+                  k_new[si, :, ji])
+
+
+def _slot_rows(counts):
+    """``(slot, j)`` host vectors walking row ``j < counts[slot]`` of
+    every slot, in slot order."""
+    slot = np.repeat(np.arange(len(counts)), counts)
+    j = np.concatenate([np.arange(e) for e in counts.tolist()] or
+                       [np.zeros(0, np.int64)]).astype(np.int64)
+    return slot, j
 
 
 def _page_targets(table_rows, pos, ps):
@@ -388,9 +548,7 @@ def paged_append_kv_slots(cache: PagedDecodeCache, k_new, v_new, *,
                          f'{cache.t_max} cache')
     eff = _slot_counts(cache.slots, n, slot_mask, counts)
     _check_slot_room(cache.length, eff, cache.t_max)
-    slot = np.repeat(np.arange(cache.slots), eff)
-    j = np.concatenate([np.arange(e) for e in eff.tolist()] or
-                       [np.zeros(0, np.int64)]).astype(np.int64)
+    slot, j = _slot_rows(eff)
     table = cache.page_table.cpu().numpy()
     pg, rw, ok = _page_targets(table[slot], cache.length[slot] + j,
                                cache.page_size)
@@ -429,14 +587,39 @@ def paged_reset_slot(cache: PagedDecodeCache, slot, freed_pages):
     freed = freed[(freed >= 0) & (freed <= cache.pages)]
     if len(freed):
         idx = _to_device(freed, cache.k_pool.device)
-        cache.k_pool[idx] = 0
-        cache.v_pool[idx] = 0
+        for pool in _buffers(cache):
+            pool[idx] = 0
     length = cache.length
     if 0 <= slot < cache.slots:
         cache.page_table[slot] = -1
         length = length.copy()
         length[slot] = 0
     return cache._replace(length=length)
+
+
+def paged_rollback_slots(cache: PagedDecodeCache, lengths, span):
+    """Acceptance-prefix rollback over the paged pool: truncate each
+    slot's length to ``min(current, lengths)`` (a don't-touch slot passes
+    a sentinel past its fill) and zero, in place, the rejected rows at
+    logical positions ``new .. new + span - 1`` of each rolled-back slot
+    through its page table (unallocated or out-of-range rows write
+    nowhere; rows past the old fill are zero already, and the pages
+    touched were written this step, hence private). The host releases
+    now-empty tail pages separately (:meth:`PagePool.truncate`); the
+    caller zeroes the freed pages as on eviction."""
+    cur = cache.length
+    new = np.minimum(cur, np.asarray(lengths, np.int64))
+    slot, j = _slot_rows(np.where(new < cur, int(span), 0))
+    if len(slot):
+        table = cache.page_table.cpu().numpy()
+        pg, rw, _ = _page_targets(table[slot], new[slot] + j,
+                                  cache.page_size)
+        if len(pg):
+            dev = cache.k_pool.device
+            pg, rw = _to_device(pg, dev), _to_device(rw, dev)
+            for pool in _buffers(cache):
+                pool[pg, :, rw] = 0
+    return cache._replace(length=new)
 
 
 def paged_copy_attach(cache: PagedDecodeCache, src_page, dst_page, slot,
@@ -447,8 +630,8 @@ def paged_copy_attach(cache: PagedDecodeCache, src_page, dst_page, slot,
     caller re-mirrors it."""
     src, dst = int(src_page), int(dst_page)
     if 0 <= dst <= cache.pages:
-        cache.k_pool[dst] = cache.k_pool[max(src, 0)]
-        cache.v_pool[dst] = cache.v_pool[max(src, 0)]
+        for pool in _buffers(cache):
+            pool[dst] = pool[max(src, 0)]
     length = cache.length
     if 0 <= slot < cache.slots:
         length = length.copy()
@@ -759,7 +942,8 @@ class PageChecksums:
     fill time stays valid for the page's tracked life.
 
     The digest is the reference's ``(kv_crc, mirror_crc)`` pair;
-    ``mirror_crc`` is 0 (the port has no int8 K mirror yet)."""
+    ``mirror_crc`` covers the int8 K-mirror rows and scales (0 for a
+    mirror-less cache)."""
 
     def __init__(self):
         self._crc = {}              # page -> (kv_crc, mirror_crc)
@@ -780,7 +964,13 @@ class PageChecksums:
         host copy of the page; transfer boundaries only)."""
         page = int(page)
         crc = zlib.crc32(_page_bytes(cache.k_pool[page]))
-        return zlib.crc32(_page_bytes(cache.v_pool[page]), crc), 0
+        crc = zlib.crc32(_page_bytes(cache.v_pool[page]), crc)
+        mirror = 0
+        if cache.k_q_pool is not None:
+            mirror = zlib.crc32(_page_bytes(cache.k_q_pool[page]))
+            mirror = zlib.crc32(_page_bytes(cache.k_scale_pool[page]),
+                                mirror)
+        return crc, mirror
 
     def record(self, cache, pages):
         """(Re)digest ``pages`` from ``cache`` and remember the result
@@ -824,7 +1014,11 @@ def decode_attention(q, cache: DecodeCache, *, scale=None, window=None,
     ``(B, H, n, d_v)`` in the cache dtype. A per-slot cache masks each
     row against its own length. Float32 scores and weights; a row with no
     attendable column returns 0. ``window``: the training kernels'
-    sliding-window lookback over absolute positions.
+    sliding-window lookback over absolute positions. ``qk_quant='int8'``
+    reproduces the training kernels' quantized scoring: both sides
+    quantized per row, the int8 products summed exactly, the scores
+    ``s · (sq · scale) · sk``; the cached side is the cache's mirror when
+    it carries one, else ``k`` quantized on the fly.
 
     ``group``: sequence-sharded decode (the reference's ``axis_name``):
     the cache is this rank's slab of a global cache sharded on its
@@ -839,7 +1033,10 @@ def decode_attention(q, cache: DecodeCache, *, scale=None, window=None,
     ``col_valid (B, t_max) bool``: columns the buffer holds (the rest are
     masked whatever their position)."""
     _unported('decode_attention', alibi_slopes=alibi_slopes,
-              segment_ids=segment_ids, seg_q=seg_q, qk_quant=qk_quant)
+              segment_ids=segment_ids, seg_q=seg_q)
+    if qk_quant not in (None, 'int8'):
+        raise ValueError(f"qk_quant must be None or 'int8', "
+                         f'got {qk_quant!r}')
     b, h, n, d = q.shape
     h_kv = cache.k.shape[1]
     if h % h_kv:
@@ -857,8 +1054,18 @@ def decode_attention(q, cache: DecodeCache, *, scale=None, window=None,
             'length')
     if col_offset is None:
         col_offset = 0 if group is None else get_rank(group) * t_max
-    qg = q.reshape(b, h_kv, group_size * n, d).float()
-    s = torch.matmul(qg, cache.k.float().transpose(-1, -2)) * scale
+    qg = q.reshape(b, h_kv, group_size * n, d)
+    if qk_quant == 'int8':
+        qi, sq = quantize_rows(qg)
+        ki, sk = ((cache.k_q, cache.k_scale) if cache.k_q is not None
+                  else quantize_rows(cache.k))
+        # Integer products summed in float32: every partial sum is an
+        # integer below 2^24, so the sum is exact in any order.
+        s = torch.matmul(qi.float(), ki.float().transpose(-1, -2))
+        s = s * (sq * scale) * sk.transpose(-1, -2)
+    else:
+        s = torch.matmul(qg.float(), cache.k.float().transpose(-1, -2)) \
+            * scale
     s = s.reshape(b, h_kv, group_size, n, t_max)
     # Query row i sits at global position length - n + i and attends
     # positions at or before its own (within the window); a per-slot
@@ -905,48 +1112,130 @@ def _flash_merge(partials, group, out_dtype):
     return (num / torch.where(den == 0.0, 1.0, den)).to(out_dtype)
 
 
+def decode_kernel_eligible(cache, n=1, segment_ids=None, qk_quant=None,
+                           explain=False, n_shards=1):
+    """Can :func:`decode_step` take the fused kernel (K5 / K5p) for this
+    call? The kernel covers ``1 <= n <= the K split`` new rows per slot
+    (n > 1 is the fused verify step; the slab's split is the port's
+    ``min(128, t_max)`` columns, the paged one the page size), GQA, the
+    window, and the int8 mirror at n = 1 on both layouts; packed
+    segments, quantized verify-k and mirror-less int8 are left to the
+    plain path (``impl='plain'`` on the card), as is sharded verify-k (``n_shards > 1``: the merge
+    carries one query row per shard). ``explain=True`` returns
+    ``(eligible, reason)``."""
+    def verdict(reason):
+        return (reason is None, reason) if explain else reason is None
+
+    if n_shards > 1 and n != 1:
+        return verdict(f'the sharded kernel step is single-token (its '
+                       f'flash-decoding merge carries one query row per '
+                       f'shard), got n={n} — the plain path covers '
+                       f'sharded verify-k')
+    if n < 1:
+        return verdict(f'needs at least one query row (n={n})')
+    if segment_ids is not None:
+        return verdict('packed segment_ids are masked by the plain path '
+                       'only')
+    if qk_quant == 'int8' and n != 1:
+        return verdict(f'quantized verify-k (n={n} > 1) is plain-only — '
+                       'the kernel appends the int8 mirror single-token')
+    if isinstance(cache, PagedDecodeCache):
+        if qk_quant == 'int8' and cache.k_q_pool is None:
+            return verdict(
+                'this paged cache carries no int8 K mirror — allocate the '
+                "mirror pools with init_paged_cache(qk_quant='int8') so "
+                'quantized decode can ride the kernel on the page pool')
+        if n > cache.page_size:
+            return verdict(f'verify-k width {n} exceeds the page size '
+                           f'{cache.page_size} — k rows must span at most '
+                           f'two pages')
+        return verdict(None)
+    if qk_quant == 'int8' and cache.k_q is None:
+        return verdict('this slab cache carries no int8 K mirror — '
+                       "allocate it with init_cache(qk_quant='int8')")
+    bk = min(_SPLIT, cache.t_max)
+    if n > bk:
+        return verdict(f'verify-k width {n} exceeds the K split {bk} — k '
+                       f'rows must span at most two blocks')
+    return verdict(None)
+
+
+def _resolve_decode_impl(impl, cache, n, segment_ids, qk_quant, n_shards,
+                         device):
+    """``'kernel'`` or ``'plain'``: None/``'auto'`` take the kernel where
+    :func:`decode_kernel_eligible` allows it (on the card the CUDA
+    kernels, on the CPU their plain versions). Where it does not, CPU
+    tensors take the plain step (the reference's fallback) and CUDA
+    tensors raise the reason: nothing on the card gives way to the plain
+    version unless the caller asks for it with ``'plain'``. An explicit
+    ``'kernel'`` the kernel does not cover raises on both."""
+    if impl not in (None, 'auto', 'kernel', 'plain'):
+        raise ValueError(f"decode impl must be None/'auto'/'kernel'/"
+                         f"'plain', got {impl!r}")
+    if impl == 'plain':
+        return impl
+    ok, reason = decode_kernel_eligible(cache, n, segment_ids, qk_quant,
+                                        explain=True, n_shards=n_shards)
+    if ok:
+        return 'kernel'
+    if impl == 'kernel' or device.type == 'cuda':
+        raise ValueError(
+            f'decode_step: the fused kernel does not cover this call '
+            f"— {reason} — pass impl='plain' to run the plain step")
+    return 'plain'
+
+
 def decode_step(q, cache, k_new, v_new, *, slot_mask=None, counts=None,
                 scale=None, window=None, alibi_slopes=None, segment_ids=None,
                 seg_q=None, qk_quant=None, group=None, impl=None,
                 interpret=None):
-    """One fused decode step: append ``k_new``/``v_new`` ``(B, H_kv, 1,
-    d)`` to the cache (in place) AND attend ``q (B, H, 1, d)`` against
-    the result. ``impl``: ``None``/``'auto'``/``'kernel'`` run the K5
-    port on slab caches and the K5p port on paged caches (CUDA kernels
-    for CUDA tensors, their plain versions for CPU tensors); ``'plain'``
-    runs the append ops + :func:`decode_attention` over the (gathered)
-    slab view (any ``n``). ``window`` applies on every path.
+    """One fused decode step: append ``k_new``/``v_new`` ``(B, H_kv, n,
+    d)`` to the cache (in place) AND attend ``q (B, H, n, d)`` against
+    the result. ``n = 1`` is the per-token step; ``n > 1`` a VERIFY-k
+    step (speculative decoding's fused verify): the rows land at
+    consecutive positions and query row ``j`` attends the prefix plus
+    the appended rows ``<= j`` — bit-identical per row to ``n``
+    sequential one-row steps on the kernel path. ``impl``:
+    None/``'auto'`` run the kernel where it covers the call
+    (:func:`decode_kernel_eligible`); elsewhere CPU tensors take the
+    plain step and CUDA tensors raise the reason;
+    ``'kernel'`` runs the K5 port on slab caches and the K5p port on paged
+    caches (CUDA kernels for CUDA tensors, their plain versions for CPU
+    tensors) or raises; ``'plain'`` runs the append ops +
+    :func:`decode_attention` over the (gathered) slab view. ``window``
+    applies on every path; ``qk_quant='int8'`` scores against the cache's
+    int8 mirror (the kernel appends it in place; a non-int8 kernel step
+    on a mirror-carrying cache keeps the mirror by quantizing the
+    appended rows).
 
     Per-slot and paged caches take ``slot_mask (B,) bool`` (masked slots
     append nothing and their queries attend their un-advanced prefix)
-    and ``counts (B,)`` (rows appended per slot, at most 1 here — verify-k
-    is not ported). An overflow raises eagerly, naming the slot.
+    and ``counts (B,)``: per slot, how many of the ``n`` rows are real (a
+    mixed spec/non-spec batch rides one step; a slot with ``counts[i] =
+    c`` appends rows ``0..c-1`` and its query rows ``>= c`` give outputs
+    the caller discards). An overflow raises eagerly, naming the slot.
 
     ``group``: the sequence-sharded slab step over that process group
-    (scalar global length; see :func:`append_kv_sharded`). The owning
-    rank appends; the kernel path runs K5 with ``partials=True`` on every
-    rank's slab — the query's global position localised to the slab as
-    its ``valid_to``, negative when the slab lies wholly in its future,
+    (scalar global length, one row; see :func:`append_kv_sharded`). The
+    owning rank appends; the kernel path runs K5 with ``partials=True`` on
+    every rank's slab — the query's global position localised to the slab
+    as its ``valid_to``, negative when the slab lies wholly in its future,
     past the slab when wholly in its past — and merges by
     :func:`_flash_merge`; the plain path runs the masked
     :func:`decode_attention` partials. An append past the global
     capacity raises on every rank before any write.
     Returns ``(cache, out (B, H, n, d_v))``."""
     _unported('decode_step', alibi_slopes=alibi_slopes,
-              segment_ids=segment_ids, seg_q=seg_q, qk_quant=qk_quant)
-    if impl not in (None, 'auto', 'kernel', 'plain'):
-        raise ValueError(f"decode impl must be None/'auto'/'kernel'/"
-                         f"'plain', got {impl!r}")
+              segment_ids=segment_ids, seg_q=seg_q)
+    b, _, n, _ = q.shape
+    impl = _resolve_decode_impl(impl, cache, n, segment_ids, qk_quant,
+                                1 if group is None else 2, q.device)
     paged = isinstance(cache, PagedDecodeCache)
     per_slot = isinstance(cache.length, np.ndarray)
     if (slot_mask is not None or counts is not None) and not per_slot:
         raise ValueError('slot_mask/counts need a per-slot cache '
                          '(init_slot_cache or init_paged_cache); '
                          'scalar-length caches share one sequence clock')
-    b, _, n, _ = q.shape
-    if counts is not None and n > 1:
-        raise NotImplementedError('per-slot counts with n > 1 (verify-k) '
-                                  'are not ported yet')
     if group is not None:
         if paged:
             raise NotImplementedError(
@@ -954,6 +1243,7 @@ def decode_step(q, cache, k_new, v_new, *, slot_mask=None, counts=None,
                 'sharded step takes a slab cache')
         _check_global_room(cache, n, get_world_size(group))
     if impl == 'plain':
+        before = cache.length
         if group is not None:
             cache = append_kv_sharded(cache, k_new, v_new, group=group)
         elif per_slot:
@@ -963,13 +1253,25 @@ def decode_step(q, cache, k_new, v_new, *, slot_mask=None, counts=None,
             cache = append_kv(cache, k_new, v_new)
         attend = cache
         if paged:
-            attend = DecodeCache(*paged_gather(cache), length=cache.length)
+            mirror = ((None, None) if qk_quant != 'int8'
+                      or cache.k_q_pool is None
+                      else paged_gather_mirror(cache))
+            attend = DecodeCache(*paged_gather(cache), cache.length,
+                                 *mirror)
+        if per_slot and counts is not None:
+            # Verify-k masking base: query row j of a slot sits at
+            # position before + j whatever the slot's real count, so
+            # decode_attention's "length - n + j" needs length = before
+            # + n on active slots (padded rows then attend never-written
+            # zero columns: don't-care outputs).
+            active = (np.ones(b, bool) if slot_mask is None
+                      else _host(slot_mask, bool))
+            attend = attend._replace(
+                length=np.where(active, before + n, before))
         return cache, decode_attention(q, attend, scale=scale,
-                                       window=window, group=group)
-    if n != 1:
-        raise NotImplementedError(
-            f'the fused decode kernel takes one new row per step (verify-k '
-            f'is not ported yet), got n={n}; use impl="plain"')
+                                       window=window, qk_quant=qk_quant,
+                                       group=group)
+    quant = qk_quant == 'int8'
     if group is not None:
         p = int(cache.length)
         vt = p - get_rank(group) * cache.t_max
@@ -978,33 +1280,53 @@ def decode_step(q, cache, k_new, v_new, *, slot_mask=None, counts=None,
             q, k_new, v_new, cache.k, cache.v,
             torch.full((b,), vt, dtype=torch.int32, device=q.device),
             torch.full((b,), ap, dtype=torch.int32, device=q.device),
+            k_q=cache.k_q if quant else None,
+            k_scale=cache.k_scale if quant else None, qk_quant=qk_quant,
             scale=scale, window=window, interpret=interpret, partials=True)
+        if cache.k_q is not None and not quant and ap >= 0:
+            ki, sk = _quantize_k(k_new, cache.k.dtype)
+            cache.k_q[:, :, ap:ap + 1] = ki
+            cache.k_scale[:, :, ap:ap + 1] = sk
         return (cache._replace(length=p + 1),
                 _flash_merge(res, group, cache.v.dtype))
     if per_slot:
         lengths = cache.length
-        eff = _slot_counts(b, 1, slot_mask, counts)
+        eff = _slot_counts(b, n, slot_mask, counts)
         _check_slot_room(lengths, eff, cache.t_max)
         active = (np.ones(b, bool) if slot_mask is None
                   else _host(slot_mask, bool))
-        # Active queries sit AT their append position; frozen slots'
-        # queries attend their un-advanced prefix.
-        ap = _to_device(np.where(eff > 0, lengths, -1), q.device, np.int32)
-        vt = _to_device(np.where(active, lengths, lengths - 1), q.device,
-                        np.int32)
         new_length = lengths + eff
     else:
-        _check_room(cache, 1)
-        ap = vt = torch.full((b,), cache.length, dtype=torch.int32,
-                             device=q.device)
-        new_length = cache.length + 1
+        _check_room(cache, n)
+        lengths = np.full(b, cache.length, np.int64)
+        eff = np.full(b, n, np.int64)
+        active = np.ones(b, bool)
+        new_length = cache.length + n
+    # Active queries' row 0 sits AT the first appended position (row j
+    # at + j); frozen slots' queries attend their un-advanced prefix.
+    ap_host = np.where(eff > 0, lengths, -1)
+    ap = _to_device(ap_host, q.device, np.int32)
+    nn = _to_device(eff, q.device, np.int32)
+    vt = _to_device(np.where(active, lengths, lengths - n), q.device,
+                    np.int32)
     if paged:
-        out, _, _ = flash_decode(q, k_new, v_new, cache.k_pool, cache.v_pool,
-                                 vt, ap, page_table=cache.page_table,
-                                 scale=scale, window=window,
-                                 interpret=interpret)
+        out, _, _ = flash_decode(
+            q, k_new, v_new, cache.k_pool, cache.v_pool, vt, ap, n_new=nn,
+            page_table=cache.page_table,
+            k_q=cache.k_q_pool if quant else None,
+            k_scale=cache.k_scale_pool if quant else None,
+            qk_quant=qk_quant, scale=scale, window=window,
+            interpret=interpret)
+        if cache.k_q_pool is not None and not quant:
+            _paged_mirror_fixup(cache, k_new, ap_host, eff)
     else:
-        out, _, _ = flash_decode(q, k_new, v_new, cache.k, cache.v, vt, ap,
-                                 scale=scale, window=window,
-                                 interpret=interpret)
+        out, _, _ = flash_decode(
+            q, k_new, v_new, cache.k, cache.v, vt, ap, n_new=nn,
+            k_q=cache.k_q if quant else None,
+            k_scale=cache.k_scale if quant else None, qk_quant=qk_quant,
+            scale=scale, window=window, interpret=interpret)
+        if not quant:
+            # A non-int8 step on a mirror-carrying cache keeps the mirror
+            # exact: the appended rows quantized the append-op way.
+            _slab_mirror_rows(cache, k_new, lengths, eff)
     return cache._replace(length=new_length), out

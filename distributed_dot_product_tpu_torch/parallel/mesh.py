@@ -134,13 +134,16 @@ def unshard_seq(x, mesh, seq_axis=-2, batch_axis=None):
 def shard_decode_cache(cache, mesh):
     """This rank's slab of a global slab KV cache (a ``DecodeCache`` from
     ``module.make_decode_cache(batch, t_max_global)``), sharded on its
-    ``t_max`` axis over the seq group: ``k``/``v`` become this rank's
-    ``(B, H_kv, t_max/W, d·)`` columns, copied into buffers of its own
-    (the decode step appends in place), and ``length`` stays global. The
+    ``t_max`` axis over the seq group: ``k``/``v`` (and an int8 cache's
+    ``k_q``/``k_scale`` mirror) become this rank's ``(B, H_kv, t_max/W,
+    ·)`` columns, copied into buffers of its own (the decode step appends
+    in place), and ``length`` stays global. The
     global buffers can be dropped afterwards; a zero cache's slab is
     ``module.make_decode_cache(batch, t_max_global // W)``."""
     if not isinstance(cache.length, numbers.Integral):
         raise ValueError('a sharded decode cache has one global length; '
                          'per-slot and paged caches do not shard on t_max')
-    return cache._replace(k=shard_seq(cache.k, mesh).clone(),
-                          v=shard_seq(cache.v, mesh).clone())
+    return cache._replace(**{
+        name: shard_seq(buf, mesh).clone()
+        for name, buf in zip(cache._fields, cache)
+        if name in ('k', 'v', 'k_q', 'k_scale') and buf is not None})

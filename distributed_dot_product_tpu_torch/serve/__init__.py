@@ -5,8 +5,9 @@ Continuous-batching serving for the PyTorch port, from
 greedy LM over the per-slot slab or paged KV cache and the fused decode
 kernels K5 / K5p) and the :class:`Scheduler` that drives it (admission
 with typed rejections, chunked prefill, the degradation ladder,
-eviction, NaN quarantine with requeue, page-pressure preemption and the
-stall watchdog).
+eviction, NaN quarantine with requeue, page-pressure preemption, the
+stall watchdog and speculative decoding with the n-gram and draft-model
+proposers of :mod:`.spec`).
 
 Usage::
 
@@ -33,4 +34,8 @@ from distributed_dot_product_tpu_torch.serve.health import (  # noqa: F401
 )
 from distributed_dot_product_tpu_torch.serve.scheduler import (  # noqa: F401
     Scheduler, ServeConfig,
+)
+from distributed_dot_product_tpu_torch.serve.spec import (  # noqa: F401
+    DraftEngineProposer, NgramProposer, Proposer, make_draft_engine,
+    ngram_propose,
 )

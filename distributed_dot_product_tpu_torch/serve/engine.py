@@ -28,6 +28,10 @@ construction:
 - ``reset``: zero one slot's rows and length (eviction / quarantine);
   paged, the slot's pages go back to the pool and the freed ones are
   zeroed.
+- ``verify_step`` / ``rollback``: speculative decoding's fused verify-k
+  step (every slot's input token plus its proposals in one K5 / K5p
+  launch, per-slot counts) and the acceptance-prefix rollback that
+  truncates each slot to the tokens it committed.
 
 Every computation is batch-row independent (embedding lookups, row-wise
 matmuls, per-slot masked attention, per-row argmax), so a request's
@@ -39,8 +43,8 @@ methods here, weights are tensors on the engine's device (seeded with
 ``torch.Generator``, or loaded from the reference engine with
 :meth:`KernelEngine.load_weights`), and slot lengths and the page pool
 live on the host. Not ported yet (ROADMAP): ``kv_shards``,
-``weight_quant``, ``verify_step``, ``rollback``, ``adopt_prefix`` and the
-``DDP_TPU_*`` environment knobs.
+``weight_quant``, ``adopt_prefix`` and the ``DDP_TPU_*`` environment
+knobs.
 """
 
 import itertools
@@ -52,9 +56,11 @@ import torch
 from distributed_dot_product_tpu_torch.models.decode import (
     PageChecksums, PagePool, _to_device, append_kv_slots, decode_step,
     init_paged_cache, init_slot_cache, paged_append_rows, paged_copy_attach,
-    paged_reset_slot, reset_slot, slots_all_finite,
+    paged_reset_slot, paged_rollback_slots, reset_slot, rollback_slots,
+    slots_all_finite,
 )
 from distributed_dot_product_tpu_torch.obs import spans as obs_spans
+from distributed_dot_product_tpu_torch.ops.flash_decode import _SPLIT
 from distributed_dot_product_tpu_torch.obs.spans import span
 from distributed_dot_product_tpu_torch.serve.errors import ServeContractError
 from distributed_dot_product_tpu_torch.utils.comm import resolve_device
@@ -204,12 +210,23 @@ class KernelEngine:
         return ((x @ self._wk).reshape(shape).transpose(0, 1),
                 (x @ self._wv).reshape(shape).transpose(0, 1))
 
-    def _decode(self, tokens, active, poison):
-        q, k, v = self._project(tokens)
+    def _verify(self, tokens, counts, active, poison):
+        """The step body of :meth:`verify_step` and, at W = 1, of
+        :meth:`step`: ``tokens (S, W)`` — per slot, column 0 the committed
+        input token and columns 1.. the proposals, ``counts[i]`` of the W
+        real. Projections and the logits product run PER COLUMN
+        with the shapes of the one-token step, so that cuBLAS takes the
+        same path as a plain step, and the fused step gives each row the
+        bits of its sequential step: the committed stream is the one-token
+        stream bit for bit."""
+        w = tokens.shape[1]
+        qs, ks, vs = zip(*(self._project(tokens[:, j]) for j in range(w)))
+        q, k, v = (torch.cat(x, dim=2) for x in (qs, ks, vs))
         self.cache, out = decode_step(q, self.cache, k, v, slot_mask=active,
-                                      impl=self.decode_impl)
-        logits = out.reshape(self.slots, -1) @ self._wo       # (S, vocab)
-        logits = torch.where(poison[:, None], float('nan'), logits)
+                                      counts=counts, impl=self.decode_impl)
+        logits = torch.stack([out[:, :, j].reshape(self.slots, -1) @ self._wo
+                              for j in range(w)], dim=1)   # (S, W, vocab)
+        logits = torch.where(poison[:, None, None], float('nan'), logits)
         finite = slots_all_finite(logits)
         # A poisoned row's argmax input would be NaN-ordered garbage; the
         # scheduler discards non-finite slots' tokens, so the value only
@@ -217,6 +234,14 @@ class KernelEngine:
         next_tok = torch.argmax(torch.where(torch.isfinite(logits), logits,
                                             float('-inf')), dim=-1)
         return next_tok, finite
+
+    @property
+    def max_verify_rows(self):
+        """Most rows one :meth:`verify_step` takes: the decode kernel's K
+        split — the page size on a paged engine, ``min(128, t_max)``
+        columns on a slab — so that k rows span at most two blocks."""
+        return (self.page_size if self.cache_mode == 'paged'
+                else min(_SPLIT, self.t_max))
 
     # -- host surface (numpy in, numpy out) -----------------------------
     def step(self, tokens, active, poison=None, request_ids=None):
@@ -246,8 +271,12 @@ class KernelEngine:
                if obs_spans.enabled() else ())
         with span('engine.decode_step', requests=ids):
             t0 = time.perf_counter()
-            tok, finite = self._decode(_to_device(tokens, self.device), act,
-                                       _to_device(poison, self.device, bool))
+            # The one-token step is the verify body at width 1.
+            tok, finite = self._verify(
+                _to_device(tokens, self.device)[:, None],
+                np.ones(self.slots, np.int64), act,
+                _to_device(poison, self.device, bool))
+            tok = tok[:, 0]
             # The host read waits for the card: program_seconds is the
             # wall time the loop actually waits on the step.
             out = (tok.cpu().numpy().astype(np.int32), finite.cpu().numpy())
@@ -255,6 +284,87 @@ class KernelEngine:
             if self.cache_mode == 'paged':
                 self.pool.lengths[act] += 1
             return out
+
+    def verify_step(self, tokens, counts, active, poison=None,
+                    request_ids=None):
+        """One fused verify-k step for all slots: ``tokens (S, W) int`` —
+        per ACTIVE slot, ``[input_token, p_1, .., p_c, pad]`` with
+        ``counts[i] = c_i + 1`` rows real (1 = a plain decode riding the
+        same step). Returns ``(next_tokens (S, W), finite (S,))``:
+        ``next_tokens[i, j]`` is the greedy token after input row ``j`` —
+        the caller accepts the longest prefix with ``p_{j+1} ==
+        next_tokens[i, j]``, commits one extra token, and rolls the cache
+        back to the accepted prefix (:meth:`rollback`). Rows past
+        ``counts[i]`` are don't-care outputs.
+
+        The cache appends ``counts[i]`` rows per active slot; paged
+        engines reserve the pages first, raising on exhaustion (the
+        Scheduler reserves through its ladder instead)."""
+        tokens = np.asarray(tokens, np.int64)
+        s, w = tokens.shape
+        if s != self.slots:
+            raise ServeContractError(
+                f'tokens rows {s} != slots {self.slots}')
+        counts = np.clip(np.asarray(counts, np.int64), 0, w)
+        act = np.asarray(active, bool)
+        poison = (np.zeros(self.slots, bool) if poison is None
+                  else np.asarray(poison, bool))
+        if self.cache_mode == 'paged':
+            for i in np.nonzero(act)[0]:
+                c = int(counts[i])
+                if c and not self.reserve_rows(int(i), c):
+                    raise RuntimeError(
+                        f'page pool exhausted reserving {c} verify rows '
+                        f'for slot {int(i)} ({self.pool.free_pages} pages '
+                        f'free) — retire or evict sequences (the '
+                        f'Scheduler ladder does), or size the pool larger')
+            self._sync_page_table()
+        ids = (tuple(r for r in (request_ids or ()) if r)
+               if obs_spans.enabled() else ())
+        with span('engine.verify_step', requests=ids, width=w):
+            t0 = time.perf_counter()
+            tok, finite = self._verify(
+                _to_device(tokens, self.device), counts, act,
+                _to_device(poison, self.device, bool))
+            out = (tok.cpu().numpy().astype(np.int32), finite.cpu().numpy())
+            self.program_seconds += time.perf_counter() - t0
+            if self.cache_mode == 'paged':
+                self.pool.lengths[act] += counts[act]
+            return out
+
+    def rollback(self, lengths):
+        """Acceptance-prefix rollback: truncate each slot to
+        ``lengths[i]`` rows and zero the rejected tail —
+        ``min(current, target)`` semantics, so a past-fill sentinel (e.g.
+        ``np.iinfo(np.int32).max``) leaves a slot untouched and one call
+        serves a mixed tick. The zeroing is bounded to a span: the
+        rolled-back rows rounded up to a power of two (the reference
+        compiles one program per such bucket; here the bucket only sizes
+        the zeroing). Paged engines return now-empty tail pages to the
+        pool (freed pages zeroed) and resync the device page table."""
+        tgt = np.asarray(lengths, np.int64)
+        cur = (self.pool.lengths.astype(np.int64)
+               if self.cache_mode == 'paged'
+               else np.asarray(self.cache.length, np.int64))
+        new = np.minimum(cur, tgt)
+        need = int((cur - new).max()) if cur.size else 0
+        if need == 0:
+            return
+        bucket = 1 << (need - 1).bit_length()
+        with span('engine.rollback', rows=need):
+            t0 = time.perf_counter()
+            if self.cache_mode == 'paged':
+                self.cache = paged_rollback_slots(self.cache, new, bucket)
+            else:
+                self.cache = rollback_slots(self.cache, new, span=bucket)
+            self.program_seconds += time.perf_counter() - t0
+        if self.cache_mode == 'paged':
+            freed = []
+            for i in np.nonzero(cur > new)[0]:
+                freed += self.pool.truncate(int(i), int(new[i]))
+            if freed:
+                self._zero_freed(freed)
+            self._sync_page_table()
 
     def prefill(self, slot, tokens, request_id=None):
         """Append one prompt chunk (``len(tokens) <= prefill_chunk``)

@@ -50,16 +50,23 @@ Fault injection (``utils/faults.py`` ``ServeFaultInjector``, or the
 ``..._ABANDON_REQUEST`` env knobs when none is passed) drives every one
 of these paths deterministically in CPU tests.
 
+Speculative decoding (``ServeConfig.spec``, ``serve/spec.py``): a tick
+with proposals runs the engine's fused verify-k step for every active
+slot, commits the longest accepted prefix plus the free token through the
+same per-token bookkeeping, and rolls the caches back to it; the
+committed streams equal the non-spec streams token for token.
+
 Copied from ``distributed_dot_product_tpu/serve/scheduler.py``. Not
-ported yet (ROADMAP): speculative decoding, the scheduling policy, the
-anomaly watchdog, the adaptive profiler captures and the router /
-controller hooks (``load``, ``drain``, ``expel``, ``set_watermark``,
-``set_queue_limit``); the matching ``ServeConfig`` fields do not exist,
-so setting one raises ``TypeError``.
+ported yet (ROADMAP): the scheduling policy, the anomaly watchdog, the
+adaptive profiler captures and the router / controller hooks (``load``,
+``drain``, ``expel``, ``set_watermark``, ``set_queue_limit``); the
+matching ``ServeConfig`` fields do not exist, so setting one raises
+``TypeError``.
 """
 
 import dataclasses
 import enum
+import os
 import time
 from typing import Callable, Dict, Optional
 
@@ -115,6 +122,19 @@ class ServeConfig:
     flight_dump_on_exception: bool = True
     flight_nan_storm: int = 3
     flight_nan_window: int = 20
+    # Speculative decoding (serve/spec.py): 'ngram' (self-drafting
+    # suffix lookup — no extra model) or 'draft' (a draft-model twin with
+    # its own cache + rollback); None consults the DDP_TPU_SPEC env
+    # knob, 'off' disables even when the knob is set. Greedy
+    # verification keeps the committed stream token for token IDENTICAL
+    # to the non-spec stream — a proposer is an untrusted accelerator,
+    # never a correctness input. `spec_k`: most proposals per slot per
+    # verify step (verify width k+1, capped at the engine's
+    # max_verify_rows). `spec_max_ngram`: longest suffix
+    # the ngram proposer matches on.
+    spec: Optional[str] = None
+    spec_k: int = 4
+    spec_max_ngram: int = 3
 
 
 class _SlotState(enum.Enum):
@@ -161,7 +181,8 @@ class Scheduler:
                  fault_injector=None, clock=time.monotonic,
                  registry: Optional[tracing.MetricsRegistry] = None,
                  health: Optional[HealthMonitor] = None,
-                 on_tick: Optional[Callable] = None, event_log=None):
+                 on_tick: Optional[Callable] = None, event_log=None,
+                 proposer=None):
         self.engine = engine
         # Paged engines gate admission by FREE PAGES, not free slots,
         # and join page exhaustion into the degrade→evict→reject
@@ -247,6 +268,26 @@ class Scheduler:
         # _commit_token stamps it on every serve.decode it emits (the
         # per-token device share, additive field).
         self._tick_device = None
+        # Speculative decoding: an explicit `proposer` object wins, else
+        # cfg.spec names a built-in, else the DDP_TPU_SPEC env knob. A
+        # spec tick runs the fused verify-k step; ticks with no proposals
+        # ride the plain one-token step — mixed batches share one verify
+        # dispatch with per-slot counts.
+        self._proposer = (proposer if proposer is not None
+                          else self._resolve_proposer())
+        # Proposals per slot per verify step: spec_k, capped so that the
+        # verify width k + 1 fits the engine's decode kernel (the page
+        # size, or the slab's K split) — a wider step would not run on
+        # the card.
+        self._spec_k = min(self.cfg.spec_k, engine.max_verify_rows - 1)
+        if self._proposer is not None:
+            # Token-count histograms: proposed vs accepted per verify
+            # step — the amortization the scheme is judged by (committed
+            # tokens per step = accepted mean + 1).
+            self._h_spec_prop = reg.histogram(
+                'serve.spec.proposed_per_step', buckets=())
+            self._h_spec_acc = reg.histogram(
+                'serve.spec.accepted_per_step', buckets=())
         # Request-timeline histograms: the latency decomposition a
         # continuous-batching server is judged by. All measured on the
         # scheduler's own clock and ALSO stamped into the event log, so
@@ -282,6 +323,34 @@ class Scheduler:
             h = self._tenant_series[key] = self.registry.histogram(
                 name, labels={'tenant': tenant})
         return h
+
+    def _resolve_proposer(self):
+        """Build the configured proposer: cfg.spec wins, else the
+        DDP_TPU_SPEC env knob; 'off'/'none'/'0' explicitly disables."""
+        name = self.cfg.spec
+        if name is None:
+            name = os.environ.get('DDP_TPU_SPEC', '').strip().lower() \
+                or None
+        if name in (None, '', 'off', 'none', '0'):
+            return None
+        from distributed_dot_product_tpu_torch.serve.spec import (
+            DraftEngineProposer, NgramProposer, make_draft_engine,
+        )
+        if name == 'ngram':
+            return NgramProposer(max_ngram=self.cfg.spec_max_ngram)
+        if name == 'draft':
+            return DraftEngineProposer(make_draft_engine(self.engine))
+        raise ValueError(f"spec must be 'ngram', 'draft' or 'off', "
+                         f'got {name!r}')
+
+    def _spec_start(self, slot: _Slot):
+        """A request began (or resumed) decoding in ``slot``: hand the
+        proposer the full committed history (prompt + any tokens a fork
+        inherited)."""
+        if self._proposer is not None:
+            self._proposer.start(slot.index,
+                                 list(slot.request.prompt)
+                                 + slot.request.tokens)
 
     def _emit(self, event, **fields):
         """Into the explicit event log, else the active one, else
@@ -319,6 +388,8 @@ class Scheduler:
             'liveness': self.health.liveness.value,
             'readiness': self.health.readiness.value,
             'last_beat_age_s': self.health.last_beat_age(),
+            'proposer': (type(self._proposer).__name__
+                         if self._proposer is not None else None),
             'cache_mode': getattr(self.engine, 'cache_mode', 'slab'),
         }
         try:
@@ -464,6 +535,8 @@ class Scheduler:
         occupancy at RETIREMENT only — a requeued request's mid-flight
         partial fills would skew the distribution low."""
         self.engine.reset(slot.index)
+        if self._proposer is not None:
+            self._proposer.reset(slot.index)
         slot.state = _SlotState.FREE
         slot.request = None
         slot.produced = 0
@@ -605,6 +678,7 @@ class Scheduler:
         free.prefill_pos = src.prefill_pos
         free.last_progress = now
         free.last_token_at = src.last_token_at
+        self._spec_start(free)
         self._emit('serve.admit', request_id=req.id, slot=free.index,
                    queue_wait=0.0, prompt_len=len(req.prompt),
                    requeues=0, fork_of=orig.id, tenant=req.tenant)
@@ -763,6 +837,7 @@ class Scheduler:
             if len(req.prompt) == 1:
                 slot.state = _SlotState.ACTIVE
                 slot.input_token = int(req.prompt[-1])
+                self._spec_start(slot)
             else:
                 slot.state = _SlotState.PREFILL
 
@@ -849,6 +924,106 @@ class Scheduler:
             return False
         return True
 
+    def _propose(self, lens):
+        """Collect this tick's proposals: per ACTIVE slot, cap the verify
+        width by the remaining token budget (a verify commits up to cap+1
+        tokens — never past max_new_tokens) and the cache headroom, hand
+        the proposer the committed history, and emit a spec.propose event
+        per slot that got guesses. Returns ``{slot_index: [token, ...]}``."""
+        k = self._spec_k
+        reqs = []
+        for slot in self._slots:
+            if slot.state is not _SlotState.ACTIVE:
+                continue
+            req = slot.request
+            cap = min(k, req.max_new_tokens - slot.produced - 1,
+                      self.engine.t_max - int(lens[slot.index]) - 1)
+            if cap <= 0:
+                continue
+            reqs.append((slot.index, list(req.prompt) + req.tokens, cap))
+        if not reqs:
+            return {}
+        caps = {s: c for s, _, c in reqs}
+        props = self._proposer.propose_batch(reqs, k) or {}
+        props = {s: list(p)[:caps[s]] for s, p in props.items()
+                 if s in caps and len(p)}
+        if self._paged:
+            # Reserve each spec slot's verify-width pages up front; on
+            # exhaustion DROP the slot's proposals (it rides the tick as
+            # a plain one-row decode, whose single append the
+            # _ensure_pages ladder already made writable) — spec is an
+            # accelerator, never a reason to preempt someone.
+            for s in list(props):
+                if not self.engine.reserve_rows(s, len(props[s]) + 1):
+                    del props[s]
+        for slot in self._slots:
+            p = props.get(slot.index)
+            if p:
+                self._emit('spec.propose', request_id=slot.request.id,
+                           slot=slot.index, proposed=len(p),
+                           proposer=type(self._proposer).__name__)
+        return props
+
+    def _spec_tick(self, active, poison, request_ids, props, lens):
+        """One mixed spec/non-spec verify tick: every active slot rides
+        ONE fused verify step — row 0 its input token, rows 1.. its
+        proposals (none for non-spec slots, counts[i] = 1). Greedy
+        acceptance commits the longest matching prefix plus the free
+        token through the SAME per-token bookkeeping as a plain tick,
+        then one batched rollback truncates every continuing slot's
+        cache to its accepted prefix."""
+        eng = self.engine
+        w = self._spec_k + 1
+        tokens = np.zeros((eng.slots, w), np.int64)
+        counts = np.zeros(eng.slots, np.int64)
+        for slot in self._slots:
+            if slot.state is not _SlotState.ACTIVE:
+                continue
+            p = props.get(slot.index, [])
+            tokens[slot.index, 0] = slot.input_token
+            tokens[slot.index, 1:1 + len(p)] = p
+            counts[slot.index] = 1 + len(p)
+        dev0 = eng.program_seconds
+        toks, finite = eng.verify_step(tokens, counts, active, poison,
+                                       request_ids=request_ids)
+        self._tick_device = eng.program_seconds - dev0
+        self.health.beat()   # the step returned: not stuck
+        self._c['decode_steps'].inc()
+        now = self.clock()
+        targets = np.full(eng.slots, np.iinfo(np.int32).max, np.int64)
+        for slot in self._slots:
+            if slot.state is not _SlotState.ACTIVE:
+                continue
+            req = slot.request
+            if not finite[slot.index]:
+                self._quarantine(slot)
+                continue
+            p = props.get(slot.index, [])
+            row = toks[slot.index]
+            acc = 0
+            while acc < len(p) and p[acc] == int(row[acc]):
+                acc += 1
+            if p:
+                self._h_spec_prop.observe(len(p))
+                self._h_spec_acc.observe(acc)
+                self._emit('spec.verify', request_id=req.id,
+                           slot=slot.index, proposed=len(p), accepted=acc)
+            committed = []
+            finished = False
+            for tok in row[:acc + 1]:
+                committed.append(int(tok))
+                if self._commit_token(slot, int(tok), now):
+                    finished = True
+                    break
+            if not finished:
+                # Truncate the cache to the accepted prefix: the next
+                # input token (the free one) is appended by the NEXT
+                # step, like every committed token before it.
+                targets[slot.index] = int(lens[slot.index]) + 1 + acc
+                self._proposer.commit(slot.index, committed, acc)
+        eng.rollback(targets)
+        self._proposer.end_step()
+
     # -- the loop -------------------------------------------------------
     def step(self) -> bool:
         """One scheduler tick (admit → prefill chunk → decode step →
@@ -904,6 +1079,7 @@ class Scheduler:
             if slot.prefill_pos >= len(req.prompt) - 1:
                 slot.state = _SlotState.ACTIVE
                 slot.input_token = int(req.prompt[-1])
+                self._spec_start(slot)
 
         if self._paged:
             self._ensure_pages()
@@ -920,26 +1096,53 @@ class Scheduler:
             request_ids = ([s.request.id if s.request is not None
                             else None for s in self._slots]
                            if obs_spans.enabled() else None)
+            # Speculative tick: collect proposals first; a tick where no
+            # slot got a guess rides the plain one-token step.
+            props = None
+            if self._proposer is not None:
+                lens = self.engine.lengths()
+                with span('serve.spec.propose', step=self._step_idx):
+                    props = self._propose(lens)
             ran_decode = True
             t0 = time.perf_counter()
-            tokens_in = np.array(
-                [s.input_token for s in self._slots], np.int32)
-            dev0 = self.engine.program_seconds
-            with span('serve.decode_step', step=self._step_idx):
-                toks, finite = self.engine.step(
-                    tokens_in, active, poison, request_ids=request_ids)
-            self._tick_device = self.engine.program_seconds - dev0
-            self._h_step.observe(time.perf_counter() - t0)
-            self.health.beat()   # the step returned: not stuck
-            self._c['decode_steps'].inc()
-            now = self.clock()
-            for slot in self._slots:
-                if slot.state is not _SlotState.ACTIVE:
-                    continue
-                if not finite[slot.index]:
-                    self._quarantine(slot)
-                    continue
-                self._commit_token(slot, int(toks[slot.index]), now)
+            if props:
+                with span('serve.decode_step', step=self._step_idx,
+                          spec=True):
+                    self._spec_tick(active, poison, request_ids, props,
+                                    lens)
+                self._h_step.observe(time.perf_counter() - t0)
+            else:
+                tokens_in = np.array(
+                    [s.input_token for s in self._slots], np.int32)
+                dev0 = self.engine.program_seconds
+                with span('serve.decode_step', step=self._step_idx):
+                    toks, finite = self.engine.step(
+                        tokens_in, active, poison, request_ids=request_ids)
+                self._tick_device = self.engine.program_seconds - dev0
+                self._h_step.observe(time.perf_counter() - t0)
+                self.health.beat()   # the step returned: not stuck
+                self._c['decode_steps'].inc()
+                now = self.clock()
+                for slot in self._slots:
+                    if slot.state is not _SlotState.ACTIVE:
+                        continue
+                    if not finite[slot.index]:
+                        self._quarantine(slot)
+                        continue
+                    tok = int(toks[slot.index])
+                    finished = self._commit_token(slot, tok, now)
+                    # props == {} (not None): the proposer DID draft this
+                    # tick but every proposal was dropped (nothing
+                    # guessed, or paged reservation shed them all); a
+                    # stateful proposer (the draft engine) has appended
+                    # rows it must roll back to the committed stream —
+                    # the verify tick's commit/end_step protocol with 0
+                    # accepted. Finished slots skip it: retirement
+                    # already reset the proposer's slot state.
+                    if props is not None and not finished:
+                        self._proposer.commit(slot.index, [tok], 0)
+                if props is not None:
+                    self._proposer.end_step()
             self._step_idx += 1
 
         self._g_active.set(sum(s.state is not _SlotState.FREE

@@ -10,8 +10,8 @@ reference refuses (§3.2):
   cache of 8), and against the port's own forward;
 - windowed ``decode``, both ``decode_impl``s and a GQA module, against
   the reference module's ``decode`` step by step;
-- ``decode`` and ``make_decode_cache`` of an int8 module raise
-  ``NotImplementedError`` (the int8 K mirror is not ported);
+- ``make_decode_cache``, ``prefill`` and ``decode`` of an int8 module
+  (the int8 K mirror) against the reference module's;
 - ``TransformerStack(remat=True, scan_layers=False)`` and an unknown
   ``remat_policy`` raise the reference's ``ValueError``; a known policy
   name raises ``NotImplementedError``.
@@ -31,6 +31,9 @@ from distributed_dot_product_tpu_torch import (
     attn_state_from_jax,
 )
 from distributed_dot_product_tpu_torch.models import decode as tdec
+from distributed_dot_product_tpu_torch.ops.flash_attention import (
+    quantize_rows,
+)
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 PROBE = dict(key_dim=32, num_heads=2, causal=True, distributed=False,
@@ -59,8 +62,8 @@ def test_prefill_follows_the_module_knobs(knob):
     jx = jnp.asarray(x)
     _, want = jm.apply(params, jx, jx, jx, jm.make_decode_cache(1, 8),
                        method='prefill')
-    # The int8 mirror is not ported: prefill scores in int8 over a plain
-    # cache (the mirror only serves the decode step).
+    # Prefill scores in int8 over a plain cache too (the mirror only
+    # serves the decode step).
     cache = tdec.init_cache(1, 2, 8, 16, dtype=torch.float32, device='cpu')
     tx = torch.from_numpy(x)
     with torch.no_grad():
@@ -98,16 +101,46 @@ def test_windowed_decode_matches_jax(impl, kv):
 
 
 def test_int8_decode_and_cache_raise():
-    port = DistributedDotProductAttn(device='cpu', qk_quant='int8', **PROBE)
-    with pytest.raises(NotImplementedError):
-        port.make_decode_cache(1, 8)
-    cache = tdec.init_cache(1, 2, 8, 16, dtype=torch.float32, device='cpu')
-    x = torch.zeros((1, 1, 32))
+    """Both raised until the int8 K mirror was ported. Now an int8
+    module's ``make_decode_cache`` allocates the mirror, and ``prefill``
+    then ``decode`` steps on both ``decode_impl``s match the reference
+    module's: outputs within the tolerance, the mirror equal to the
+    cache re-quantized."""
+    kw = dict(PROBE, qk_quant='int8')
+    jm, params, port, x = _pair(kw, t=7)
     for impl in ('kernel', 'plain'):
         port.decode_impl = impl
-        with pytest.raises(NotImplementedError):
-            port.decode(x, x, x, cache)
-    assert cache.length == 0
+        jc = jm.make_decode_cache(1, 8)
+        tc = port.make_decode_cache(1, 8)
+        for name in ('k', 'v', 'k_q', 'k_scale'):
+            want = np.asarray(getattr(jc, name))
+            got = getattr(tc, name)
+            assert got.shape == want.shape and not got.any()
+            assert str(got.dtype).endswith(str(want.dtype))
+        jx, tx = jnp.asarray(x[:, :4]), torch.from_numpy(x[:, :4])
+        jc, want = jm.apply(params, jx, jx, jx, jc, method='prefill')
+        with torch.no_grad():
+            tc, got = port.prefill(tx, tx, tx, tc)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+        for t in range(4, 7):
+            jx, tx = jnp.asarray(x[:, t:t + 1]), torch.from_numpy(x[:, t:t + 1])
+            jc, want = jm.apply(params, jx, jx, jx, jc, method='decode')
+            with torch.no_grad():
+                tc, got = port.decode(tx, tx, tx, tc)
+            np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                       err_msg=f'{impl} t={t}', **TOL)
+        assert tc.length == int(jc.length) == 7
+        # The filled mirror rows are the port's own cache rows quantized,
+        # bit for bit; against the reference's it differs only as the two
+        # libraries' float32 projections do.
+        ki, sk = quantize_rows(tc.k[:, :, :7])
+        assert torch.equal(tc.k_q[:, :, :7], ki)
+        assert torch.equal(tc.k_scale[:, :, :7], sk)
+        np.testing.assert_allclose(tc.k_scale.numpy(),
+                                   np.asarray(jc.k_scale), rtol=1e-6,
+                                   atol=0)
+        assert np.abs(tc.k_q.numpy().astype(int)
+                      - np.asarray(jc.k_q).astype(int)).max() <= 1
 
 
 def test_stack_remat_and_policy_refusals():

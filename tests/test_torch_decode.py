@@ -125,10 +125,28 @@ def test_flash_decode_mixed_fill_matches_jax():
     dict(segment_ids=np.zeros((1, T_MAX))),
 ])
 def test_unported_decode_knobs_raise(kw):
-    """ALiBi, packed segments and int8 scoring (the int8 K mirror) still
-    raise on both impls; the window and the sequence group are ported
-    (tests/test_torch_cached_inference.py, test_torch_decode_sharded.py)."""
-    _, tc = _caches(np.random.default_rng(0), 1, 4, 2)
+    """ALiBi and packed segments still raise on both impls; the window and
+    the sequence group are ported (tests/test_torch_cached_inference.py,
+    test_torch_decode_sharded.py). The two int8 cases raised until the
+    int8 K mirror was ported: on a cache without the mirror, int8 scoring
+    takes the plain step (the default impl falls back to it, as the
+    reference's does) with the cached keys quantized on the fly, and
+    matches the reference's XLA int8 step."""
+    rng = np.random.default_rng(0)
+    jc, tc = _caches(rng, 1, 4, 2)
+    if kw.get('qk_quant') == 'int8':
+        q, kn, vn = (_rand(rng, 1, 4, 1, D), _rand(rng, 1, 4, 1, D),
+                     _rand(rng, 1, 4, 1, D))
+        jc, want = jdec.decode_step(jnp.asarray(q), jc, jnp.asarray(kn),
+                                    jnp.asarray(vn), qk_quant='int8',
+                                    impl='xla')
+        tc, got = tdec.decode_step(torch.from_numpy(q), tc,
+                                   torch.from_numpy(kn),
+                                   torch.from_numpy(vn), **kw)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+        assert tc.length == int(jc.length) == 3
+        np.testing.assert_array_equal(tc.k.numpy(), np.asarray(jc.k))
+        return
     x = torch.zeros((1, 4, 1, D))
     with pytest.raises(NotImplementedError):
         tdec.decode_step(x, tc, x, x, **kw)

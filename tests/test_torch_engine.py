@@ -43,7 +43,7 @@ def _pair(mode, impl, heads=2, head_dim=8, **kw):
 
 def _clone(cache):
     return type(cache)(*(x.clone() if isinstance(x, torch.Tensor)
-                         else x.copy() for x in cache))
+                         else x if x is None else x.copy() for x in cache))
 
 
 def _logits(je, te, tokens, active):

@@ -194,10 +194,17 @@ def test_paged_streams_bit_identical_to_slab_under_faults(decode_impl):
 
 
 def test_unported_config_fields_raise_type_error():
-    for field in ('spec', 'spec_k', 'policy', 'anomaly', 'profile_ttft_p99',
+    """The fields of what is not ported raise; the speculative-decoding
+    fields (ported since) are the reference's."""
+    for field in ('policy', 'anomaly', 'profile_ttft_p99',
                   'profile_warmup'):
         with pytest.raises(TypeError):
             ServeConfig(**{field: None})
+    cfg = ServeConfig(spec='ngram', spec_k=3, spec_max_ngram=2)
+    assert (cfg.spec, cfg.spec_k, cfg.spec_max_ngram) == ('ngram', 3, 2)
+    default = ServeConfig()
+    assert (default.spec, default.spec_k, default.spec_max_ngram) == (
+        None, 4, 3)
 
 
 def test_prefix_riders_and_typed_rejections():
