@@ -21,7 +21,10 @@ Phases, one JSON line each (some several):
    sequence-sharded decode shapes (a rank's 8192-column slab in the
    query's past, the owner's, one wholly in its future whose rows must be
    exactly empty, a window of 1024 past the slab, and the window on the
-   32768-column local cache);
+   32768-column local cache); then K5 with ALiBi (the classic slopes of
+   8 heads): one new row, verify k = 5 (bit for bit its sequential
+   one-row launches), the partials and the int8 mirror (scores' maxima
+   bit for bit);
 5. flash_decode_paged: K5p (the paged decode step) against its plain
    version at the serving shape (8 slots, 8 heads, head dim 96, page
    16, t_max 4096, 2048 pages) with a scrambled table and mixed fill:
@@ -29,7 +32,8 @@ Phases, one JSON line each (some several):
    the sink, the output must agree within tolerance and equal K5's on
    the same rows gathered into a slab, bit for bit; then its partial
    outputs and window (1024) on the same cache, one slot past its
-   columns and the empty slot exactly empty;
+   columns and the empty slot exactly empty; then K5p with ALiBi as K5,
+   each case bit for bit K5 on the gathered slab;
 6. serve_path: a seeded burst of 24 requests (prompts of 1..2048 tokens)
    through the continuous-batching Scheduler over the paged KernelEngine
    (slots 8, t_max 4096, the TransformerLM's widths, bf16, prefill chunk
@@ -78,9 +82,11 @@ Phases, one JSON line each (some several):
    against their plain versions (K1's out and lse, K3/K4 in bf16 and
    float32) at the fold shape 2 x 8 x 4096; the dropout keep pattern
    bit for bit (v = eye(128), at the origin and near 2^20), int8 scores
-   bit for bit, a wholly cross-segment fold exactly empty; times against
-   bound, plain and SDPA with a boolean mask where one call computes the
-   same function;
+   bit for bit, a wholly cross-segment fold exactly empty; ALiBi on a
+   causal ring fold, zigzag positions (rank 1's diagonal fold of W = 4),
+   and ALiBi with positions, a window of 1024 and dropout; K2 with
+   positions; times against bound, plain and SDPA with a boolean mask
+   (a float bias for ALiBi) where one call computes the same function;
 14. flagship: dryrun_multichip's window, gqa_ring (GQA, RoPE, the ring
    with packed segments, dropout 0.1 and int8 scoring), stack (a 2-layer
    TransformerStack at dim 768) and lm (the 16-layer TransformerLM on
@@ -126,13 +132,29 @@ Phases, one JSON line each (some several):
    segments or dropout), bf16, batch 4: K1 int8 prefills 8128 rows of an
    8192-column cache, then 64 decode steps, one K5 int8 launch each, held
    against the module's own int8 forward and the plain decode on the
-   card; ms per step.
+   card; ms per step;
+20. alibi_lm (run after train_path and main_path): the same 16-layer
+   LM with use_rope=False and ALiBi slopes 2^(-8i/8): 3 Adam steps at
+   B 4 x T 4096 (every K1/K3/K4 launch ALiBi), then greedy generation
+   from the trained weights (batch 4, prompt 1000, 64 steps; K1 and K5
+   ALiBi) and the same steps through paged caches at page 16, pages
+   scrambled (K5p ALiBi), logits and tokens bit for bit the slab
+   route's; ms per step, tokens/s, peak memory, prefill ms and ms per
+   decode step beside the RoPE LM's of the same call; the trained
+   weights' prefill logits against float32 on the CPU;
+21. zigzag_ring (run after seq_parallel): the flagship module with
+   causal masking, RoPE and ALiBi on 4 ranks as seq_parallel (B 4 x T
+   8192): one forward and backward on the zigzag ring (inputs permuted
+   by zigzag_indices, outputs and gradients permuted back) against its
+   contiguous twin, one ulysses step against the local flash module,
+   each rank's launches against its folds; then each rank's fold device
+   time on both layouts (slowest rank against the mean).
 
 Then the card's ``nvidia-smi`` name and power limit, the kernels line
 (``{"kernels": [...]}``: K1, K2, K3, K4, K5 and K5p with their launches on
-their path, max error, kernel / plain / library / bound times; K1, K3 and
-K4 also per mask variant, K5 and K5p per partials / window / verify /
-int8 variant) and,
+their path, max error, kernel / plain / library / bound times; K1, K2, K3
+and K4 also per mask variant, K5 and K5p per partials / window / verify /
+int8 / ALiBi variant) and,
 only if
 every phase passed, the last line ``{"ok": true, "device": {...}}``.
 Exits non-zero on any failure, and without a card. ``--phases a,b`` runs
@@ -231,6 +253,11 @@ TRAIN_KERNELS = ('flash_attention', 'flash_attention_dq',
 
 def emit(obj):
     print(json.dumps(obj), flush=True)
+
+
+# The RoPE LM's numbers of this call (train_path, main_path), printed
+# beside the ALiBi LM's (alibi_lm).
+SAME_CALL = {}
 
 
 class PhaseError(RuntimeError):
@@ -459,6 +486,8 @@ def phase_decode(torch, ddp, flush, gen):
            'bound_ms': bms, 'bound_by': by, 'flops': flops, 'bytes': nbytes}
     emit(row)
     row['variants'] = decode_variants(torch, ddp, flush, gen)
+    row['variants']['alibi'] = alibi_decode_variants(torch, flush, gen,
+                                                     paged=False)
     return row
 
 
@@ -697,6 +726,8 @@ def phase_decode_paged(torch, ddp, flush, gen):
     emit(row)
     row['variants'] = paged_variants(torch, fd, flush, q, kn, vn, k0, v0, vt,
                                      ap, table, scale)
+    row['variants']['alibi'] = alibi_decode_variants(torch, flush, gen,
+                                                     paged=True)
     return row
 
 
@@ -901,38 +932,71 @@ def _decode_bound(torch, mask, h, h_kv, d, b, k, n_app, k_bytes=None,
     return bms, by, flops, nbytes
 
 
-def phase_decode_verify(torch, ddp, flush, gen):
+def _decode_library_mask(torch, vt, k, t, col_ok, h, alibi, dtype):
+    """SDPA's mask for a decode launch whose row j of a slot sits at
+    ``valid_to + j``: the boolean verify mask ``(B, 1, k, t)``, or with
+    ALiBi the float ``slope·(col − (valid_to + j))`` where the row attends
+    the column and ``-inf`` elsewhere, ``(B, h, k, t)``."""
+    allowed = _verify_mask(torch, vt, k, t, vt.device, col_ok)
+    if not alibi:
+        return allowed
+    rows = vt.long()[:, None] + torch.arange(k, device=vt.device)[None, :]
+    back = rows[:, None, :, None] - torch.arange(t, device=vt.device)
+    return alibi_bias(torch, ALIBI_SLOPES[:h], back,
+                      allowed.expand(-1, h, -1, -1), dtype)
+
+
+def _real_rows(torch, x, nn):
+    """The rows ``j < n_new`` of an output or partials, per slot: a padded
+    verify row may reach an unallocated page, which K5p masks and a
+    gathered slab holds as zeros."""
+    real = torch.arange(x[0].shape[2] if isinstance(x, tuple)
+                        else x.shape[2], device=nn.device)[None, :] \
+        < nn[:, None]
+    return tuple(t.transpose(1, 2)[real]
+                 for t in (x if isinstance(x, tuple) else (x,)))
+
+
+def _decode_case(torch, fd, gen, slots, k, h, h_kv, d, t, paged):
+    """Inputs of a decode case with ``k`` new rows a slot: (q, k_new,
+    v_new, cache_k, cache_v, the launch's base kwargs, the columns a slot
+    holds (None on a slab), the cache as a slab)."""
+    dev = torch.device('cuda')
+    if paged:
+        q, kn, vn, c_k, c_v, table = _verify_paged(torch, gen, dev, slots)
+        col_ok = (table >= 0).repeat_interleave(SERVE_PAGE, dim=1)
+        return (*(x[:, :, :k].contiguous() for x in (q, kn, vn)), c_k, c_v,
+                dict(page_table=table), col_ok,
+                lambda x: fd.gather_pages(x, table))
+    q, kn, vn, c_k, c_v = _verify_slab(torch, gen, dev, slots, h, h_kv, d, t)
+    return (*(x[:, :, :k].contiguous() for x in (q, kn, vn)), c_k, c_v, {},
+            None, lambda x: x)
+
+
+def verify_variants(torch, flush, gen, phase, cases):
     """K5 and K5p verify-k (k = 5) against their plain versions and
-    against 5 sequential one-row launches, bit for bit (outputs and
-    caches): K5 at the greedy decode shape (batch 4, 8 heads of 96,
-    t_max 2048) and at the flagship decode module's GQA 8:4 with head dim
-    64, K5p at the serving shape. Times against the bound, the plain
-    version and SDPA with the boolean verify mask."""
+    against 5 sequential one-row launches, bit for bit (outputs, partial
+    outputs and caches); K5p also bit for bit K5 on the gathered slab
+    (real rows). ``cases``: (name, slots, heads, kv heads, head dim,
+    paged, ALiBi); a slab case has T_MAX columns, a paged one the serving
+    shape's pool. Times against the bound, the plain version and SDPA with
+    the verify mask (a float ALiBi bias with ALiBi)."""
     import importlib
     fd = importlib.import_module(
         'distributed_dot_product_tpu_torch.ops.flash_decode')
     F = torch.nn.functional
     dev, k = torch.device('cuda'), VERIFY_K
     res = {}
-    cases = (('slab', VERIFY_SLAB, HEADS, HEADS, HEAD_DIM),
-             ('slab_gqa', VERIFY_GQA, SP_HEADS, DS_KV, 64),
-             ('paged', VERIFY_PAGED, HEADS, HEADS, HEAD_DIM))
-    for name, slots, h, h_kv, d in cases:
-        paged = name == 'paged'
+    for name, slots, h, h_kv, d, paged, alibi in cases:
         scale = 1.0 / math.sqrt(d)
+        t = SERVE_T_MAX if paged else T_MAX
         vt, ap, nn = _verify_vectors(torch, slots, k, dev)
-        if paged:
-            q, kn, vn, c_k, c_v, table = _verify_paged(torch, gen, dev, slots)
-            kw = dict(page_table=table, scale=scale)
-            t = SERVE_T_MAX
-            col_ok = (table >= 0).repeat_interleave(SERVE_PAGE, dim=1)
-            slab_k = lambda x: fd.gather_pages(x, table)   # noqa: E731
-        else:
-            q, kn, vn, c_k, c_v = _verify_slab(torch, gen, dev, slots, h,
-                                               h_kv, d, T_MAX)
-            kw = dict(scale=scale)
-            t, col_ok = T_MAX, None
-            slab_k = lambda x: x                            # noqa: E731
+        q, kn, vn, c_k, c_v, base, col_ok, slab_k = _decode_case(
+            torch, fd, gen, slots, k, h, h_kv, d, t, paged)
+        kw = dict(base, scale=scale)
+        if alibi:
+            kw['alibi_slopes'] = torch.tensor(
+                ALIBI_SLOPES[:h], dtype=torch.float32, device=dev)
         k0, v0 = c_k.clone(), c_v.clone()
         caches = [(k0.clone(), v0.clone()) for _ in range(3)]
         out, _, _ = fd.flash_decode(q, kn, vn, *caches[0], vt, ap, n_new=nn,
@@ -943,10 +1007,11 @@ def phase_decode_verify(torch, ddp, flush, gen):
         torch.cuda.synchronize()
         body = slice(None, -1) if paged else slice(None)   # the sink apart
         errs, err, finite = _decode_errs(torch, out, ref)
-        row = {'phase': 'flash_decode_verify', 'case': name, 'k': k,
+        row = {'phase': phase, 'case': name, 'k': k,
                'batch': len(slots), 'heads': h, 'kv_heads': h_kv,
                'head_dim': d, 'valid_to': vt.tolist(),
                'append_at': ap.tolist(), 'n_new': nn.tolist(),
+               'alibi_slopes': list(ALIBI_SLOPES[:h]) if alibi else None,
                'max_abs_err': err,
                'max_row_rel_err': errs['out'][0], 'rel_err': errs['out'][1],
                'tol': {'row_rel': TOL_ROW_REL, 'rel': TOL_NORM_REL},
@@ -960,6 +1025,11 @@ def phase_decode_verify(torch, ddp, flush, gen):
         if paged:
             row['sink_untouched'] = bool(torch.equal(caches[0][0][-1],
                                                      k0[-1]))
+            slab_kw = {n: a for n, a in kw.items() if n != 'page_table'}
+            slab = fd.flash_decode(q, kn, vn, slab_k(k0), slab_k(v0), vt, ap,
+                                   n_new=nn, **slab_kw)[0]
+            row['equals_k5_on_gathered_slab'] = _same(
+                torch, _real_rows(torch, out, nn), _real_rows(torch, slab, nn))
         # The partial outputs of the same launch, against the sequential
         # launches' partials.
         pc = [(k0.clone(), v0.clone()) for _ in range(2)]
@@ -974,13 +1044,15 @@ def phase_decode_verify(torch, ddp, flush, gen):
         check(not fails, '; '.join(fails))
         for key in ('equals_sequential', 'caches_equal_sequential',
                     'caches_equal_plain', 'partials_equal_sequential',
-                    'sink_untouched'):
+                    'sink_untouched', 'equals_k5_on_gathered_slab'):
             check(row.get(key, True), f'verify {name}: {key} is False')
         mask = _verify_mask(torch, vt, k, t, dev, col_ok)
         n_app = int(nn.sum().item())
         bms, by, flops, nbytes = _decode_bound(torch, mask, h, h_kv, d,
                                                len(slots), k, n_app)
         ks, vs = slab_k(k0), slab_k(v0)
+        lib_mask = _decode_library_mask(torch, vt, k, t, col_ok, h, alibi,
+                                        q.dtype)
         timed = dict(
             ms=time_ms(torch, lambda: fd.flash_decode(
                 q, kn, vn, *caches[0], vt, ap, n_new=nn, **kw), flush),
@@ -988,19 +1060,30 @@ def phase_decode_verify(torch, ddp, flush, gen):
                 q, kn, vn, *caches[1], vt, ap, n_new=nn, **kw), flush,
                 reps=5),
             library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
-                q, ks, vs, attn_mask=mask, scale=scale,
+                q, ks, vs, attn_mask=lib_mask, scale=scale,
                 enable_gqa=h != h_kv), flush),
             bound_ms=bms, bound_by=by)
-        emit({'phase': 'flash_decode_verify', 'case': name, **timed,
-              'library': 'sdpa with the boolean verify mask over the same '
-                         'columns' + (' (slab gathered beforehand)'
-                                      if paged else ''),
+        emit({'phase': phase, 'case': name, **timed,
+              'library': ('sdpa with a float ALiBi bias (bf16)' if alibi
+                          else 'sdpa with the boolean verify mask')
+                         + ' over the same columns'
+                         + (' (slab gathered beforehand)' if paged else ''),
               'flops': flops, 'bytes': nbytes})
         res[name] = {'max_abs_err': err, 'max_row_rel_err': errs['out'][0],
                      'rel_err': errs['out'][1], **timed}
-        del q, kn, vn, c_k, c_v, k0, v0, caches, pc, ks, vs
+        del q, kn, vn, c_k, c_v, k0, v0, caches, pc, ks, vs, lib_mask
         torch.cuda.empty_cache()
     return res
+
+
+def phase_decode_verify(torch, ddp, flush, gen):
+    """Verify-k: K5 at the greedy decode shape (batch 4, 8 heads of 96,
+    t_max 2048) and at the flagship decode module's GQA 8:4 with head dim
+    64, K5p at the serving shape (``verify_variants``)."""
+    return verify_variants(torch, flush, gen, 'flash_decode_verify', (
+        ('slab', VERIFY_SLAB, HEADS, HEADS, HEAD_DIM, False, False),
+        ('slab_gqa', VERIFY_GQA, SP_HEADS, DS_KV, 64, False, False),
+        ('paged', VERIFY_PAGED, HEADS, HEADS, HEAD_DIM, True, False)))
 
 
 def _mirror(torch, fd, cache_k):
@@ -1010,119 +1093,179 @@ def _mirror(torch, fd, cache_k):
     return k_q.contiguous(), k_scale.contiguous()
 
 
-def phase_decode_int8(torch, ddp, flush, gen):
-    """K5 and K5p with the int8 K mirror (k = 1) against their plain
-    versions: the mirror rows, caches and the scores' row maxima (the
-    partial outputs' m) bit for bit, the outputs within the tolerances;
-    K5 at the greedy decode shape, K5p at the serving shape, and K5's
-    partials on a full 8192-column slab at the flagship decode module's
-    widths. Times against the bound (K at 1 byte plus a 4-byte scale a
-    row, V at 2 bytes) and, for scale only, SDPA in bf16 over the same
-    columns."""
+def _one_row(slots):
+    """``slots`` with at most one appended row each."""
+    return tuple((f, c if c is None else min(c, 1)) for f, c in slots)
+
+
+def one_row_variants(torch, flush, gen, phase, cases):
+    """K5 and K5p with one new row a slot against their plain versions:
+    the output and the partial outputs (only the partials with
+    ``partials``), caches bit for bit; with ``int8`` the K mirror, its
+    rows and the scores' row maxima (the partials' m) bit for bit; K5p
+    also bit for bit K5 on the gathered slab (real rows). ``cases``: (name,
+    slots, heads, kv heads, head dim, columns, flags: any of ``paged``,
+    ``partials``, ``int8``, ``alibi``). Times of the case's own launch
+    against the bound (int8: K at 1 byte plus a 4-byte scale a row, V at 2
+    bytes), the plain version and SDPA over the same columns (a float
+    ALiBi bias with ALiBi; for int8 in bf16, for scale only)."""
     import importlib
     fd = importlib.import_module(
         'distributed_dot_product_tpu_torch.ops.flash_decode')
     F = torch.nn.functional
     dev = torch.device('cuda')
     res = {}
-    slab1 = tuple((f, c if c is None else min(c, 1))
-                  for f, c in VERIFY_SLAB)
-    paged1 = tuple((f, c if c is None else min(c, 1))
-                   for f, c in VERIFY_PAGED)
-    full = ((DS_LOCAL, None),) * DS_B
-    cases = (('slab', slab1, HEADS, HEADS, HEAD_DIM, T_MAX, False),
-             ('paged', paged1, HEADS, HEADS, HEAD_DIM, SERVE_T_MAX, False),
-             ('partials_full_slab', full, SP_HEADS, DS_KV, 64, DS_LOCAL,
-              True))
-    for name, slots, h, h_kv, d, t, partials in cases:
-        paged = name == 'paged'
+    for name, slots, h, h_kv, d, t, flags in cases:
+        paged, partials = flags.get('paged'), flags.get('partials', False)
+        int8, alibi = flags.get('int8'), flags.get('alibi')
         scale = 1.0 / math.sqrt(d)
         # A full slab lies wholly in the query's past: valid_to past it.
         vt, ap, nn = _verify_vectors(torch, slots, 1, dev)
-        if paged:
-            q, kn, vn, c_k, c_v, table = _verify_paged(torch, gen, dev, slots)
-            q, kn, vn = (x[:, :, :1].contiguous() for x in (q, kn, vn))
-            col_ok = (table >= 0).repeat_interleave(SERVE_PAGE, dim=1)
-            base = dict(page_table=table, scale=scale)
-            slab_k = lambda x: fd.gather_pages(x, table)   # noqa: E731
-        else:
-            q, kn, vn, c_k, c_v = _verify_slab(torch, gen, dev, slots, h,
-                                               h_kv, d, t)
-            q, kn, vn = (x[:, :, :1].contiguous() for x in (q, kn, vn))
-            col_ok, base = None, dict(scale=scale)
-            slab_k = lambda x: x                            # noqa: E731
-        m0 = _mirror(torch, fd, c_k)
+        q, kn, vn, c_k, c_v, base, col_ok, slab_k = _decode_case(
+            torch, fd, gen, slots, 1, h, h_kv, d, t, paged)
+        base['scale'] = scale
+        if alibi:
+            base['alibi_slopes'] = torch.tensor(
+                ALIBI_SLOPES[:h], dtype=torch.float32, device=dev)
+        m0 = _mirror(torch, fd, c_k) if int8 else ()
         k0, v0 = c_k.clone(), c_v.clone()
 
         def fresh():
-            return (k0.clone(), v0.clone(), m0[0].clone(), m0[1].clone())
+            return [x.clone() for x in (k0, v0, *m0)]
+
+        def kwargs(c, part):
+            kw = dict(base, partials=part)
+            if int8:
+                kw.update(k_q=c[2], k_scale=c[3], qk_quant='int8')
+            return kw
+        modes = (True,) if partials else (False, True)
         runs = {}
         for impl, fn in (('kernel', fd.flash_decode),
                          ('plain', fd.flash_decode_plain)):
-            for part in ((False, True) if not partials else (True,)):
-                ck, cv, kq, ksc = fresh()
-                got, _, _ = fn(q, kn, vn, ck, cv, vt, ap, k_q=kq,
-                               k_scale=ksc, qk_quant='int8', partials=part,
-                               **base)
-                runs[impl, part] = (got, ck, cv, kq, ksc)
+            for part in modes:
+                c = fresh()
+                runs[impl, part] = (fn(q, kn, vn, c[0], c[1], vt, ap,
+                                       **kwargs(c, part))[0], c)
         torch.cuda.synchronize()
         body = slice(None, -1) if paged else slice(None)
-        kern, plain = runs['kernel', True], runs['plain', True]
-        out_k = runs.get(('kernel', False), kern)[0]
-        out_p = runs.get(('plain', False), plain)[0]
-        errs, err, finite = _decode_errs(torch, out_k, out_p)
-        m_k, m_p = kern[0][1], plain[0][1]
-        attended = m_p > fd._NEG_BIG
-        row = {'phase': 'flash_decode_int8', 'case': name,
-               'batch': len(slots), 'heads': h, 'kv_heads': h_kv,
-               'head_dim': d, 'columns': t, 'valid_to': vt.tolist(),
-               'append_at': ap.tolist(), 'max_abs_err': err,
+        errs, err, finite = {}, 0.0, True
+        for part in modes:
+            e, a, f = _decode_errs(torch, runs['kernel', part][0],
+                                   runs['plain', part][0])
+            errs.update(e)
+            err, finite = max(err, a), finite and f
+        (kern, kc), (plain, pc) = runs['kernel', True], runs['plain', True]
+        row = {'phase': phase, 'case': name, 'batch': len(slots),
+               'heads': h, 'kv_heads': h_kv, 'head_dim': d, 'columns': t,
+               'partials': partials, 'qk_quant': 'int8' if int8 else None,
+               'alibi_slopes': list(ALIBI_SLOPES[:h]) if alibi else None,
+               'valid_to': vt.tolist(), 'append_at': ap.tolist(),
+               'max_abs_err': err,
                'max_row_rel_err': {n: e[0] for n, e in errs.items()},
                'rel_err': {n: e[1] for n, e in errs.items()},
                'tol': {'row_rel': TOL_ROW_REL, 'rel': TOL_NORM_REL},
-               'score_max_bit_identical': bool(torch.equal(m_k, m_p)),
-               'rows_attending': int(attended.sum().item()),
-               'mirror_bit_identical': all(
-                   torch.equal(a[body], b[body])
-                   for a, b in zip(kern[3:], plain[3:])),
                'caches_bit_identical': all(
                    torch.equal(a[body], b[body])
-                   for a, b in zip(kern[1:3], plain[1:3]))}
+                   for a, b in zip(kc[:2], pc[:2]))}
+        checks = ['caches_bit_identical']
+        if int8:
+            attended = plain[1] > fd._NEG_BIG
+            row.update(score_max_bit_identical=bool(torch.equal(kern[1],
+                                                                plain[1])),
+                       rows_attending=int(attended.sum().item()),
+                       mirror_bit_identical=all(
+                           torch.equal(a[body], b[body])
+                           for a, b in zip(kc[2:], pc[2:])))
+            checks += ['score_max_bit_identical', 'mirror_bit_identical']
+        if paged:
+            c = [slab_k(x) for x in (k0, v0, *m0)]
+            row['equals_k5_on_gathered_slab'] = True
+            for part in modes:
+                kw = {n: a for n, a in kwargs(c, part).items()
+                      if n != 'page_table'}
+                slab = fd.flash_decode(q, kn, vn, c[0], c[1], vt, ap,
+                                       **kw)[0]
+                row['equals_k5_on_gathered_slab'] &= _same(
+                    torch, _real_rows(torch, runs['kernel', part][0], nn),
+                    _real_rows(torch, slab, nn))
+            checks.append('equals_k5_on_gathered_slab')
         emit(row)
-        check(finite, f'int8 {name}: non-finite output')
-        fails = check_rel(errs, f'int8 {name}')
+        check(finite, f'{phase} {name}: non-finite output')
+        fails = check_rel(errs, f'{phase} {name}')
         check(not fails, '; '.join(fails))
-        for key in ('score_max_bit_identical', 'mirror_bit_identical',
-                    'caches_bit_identical'):
-            check(row[key], f'int8 {name}: {key} is False')
+        for key in checks:
+            check(row[key], f'{phase} {name}: {key} is False')
         mask = _verify_mask(torch, vt, 1, t, dev, col_ok)
         n_app = int(nn.sum().item())
-        bms, by, _, nbytes = _decode_bound(torch, mask, h, h_kv, d,
-                                           len(slots), 1, n_app,
-                                           k_bytes=d + 4, partials=partials)
+        bms, by, flops, nbytes = _decode_bound(
+            torch, mask, h, h_kv, d, len(slots), 1, n_app,
+            k_bytes=d + 4 if int8 else None, partials=partials)
         cols = int(mask.sum().item()) * (h // h_kv)
-        bms, by = bound_mixed(2 * d * cols, 2 * d * cols, nbytes)
-        ck, cv, kq, ksc = fresh()
+        if int8:
+            bms, by = bound_mixed(2 * d * cols, 2 * d * cols, nbytes)
+        c = fresh()
         ks, vs = slab_k(k0), slab_k(v0)
-        kw = dict(base, k_q=kq, k_scale=ksc, qk_quant='int8',
-                  partials=partials)
+        lib_mask = _decode_library_mask(torch, vt, 1, t, col_ok, h, alibi,
+                                        q.dtype)
         timed = dict(
             ms=time_ms(torch, lambda: fd.flash_decode(
-                q, kn, vn, ck, cv, vt, ap, **kw), flush),
+                q, kn, vn, c[0], c[1], vt, ap, **kwargs(c, partials)),
+                flush),
             plain_ms=time_ms(torch, lambda: fd.flash_decode_plain(
-                q, kn, vn, ck, cv, vt, ap, **kw), flush, reps=5),
+                q, kn, vn, c[0], c[1], vt, ap, **kwargs(c, partials)),
+                flush, reps=5),
             library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
-                q, ks, vs, attn_mask=mask, scale=scale,
+                q, ks, vs, attn_mask=lib_mask, scale=scale,
                 enable_gqa=h != h_kv), flush),
             bound_ms=bms, bound_by=by)
-        emit({'phase': 'flash_decode_int8', 'case': name, **timed,
-              'library': 'none computes int8-scored decode: sdpa in bf16 '
-                         'over the same columns, for scale only',
-              'bytes': nbytes, 'int8_ops': 2 * d * cols,
-              'bf16_flops': 2 * d * cols})
-        res[name] = {'max_abs_err': err, **timed}
-        del q, kn, vn, c_k, c_v, k0, v0, m0, runs, ck, cv, kq, ksc, ks, vs
+        library = ('sdpa with a float ALiBi bias (bf16)' if alibi
+                   else 'sdpa') + ' over the same columns'
+        if int8:
+            library = ('none computes int8-scored decode: ' + library
+                       + ', in bf16, for scale only')
+        emit({'phase': phase, 'case': name, **timed, 'library': library,
+              'bytes': nbytes, **({'int8_ops': 2 * d * cols,
+                                   'bf16_flops': 2 * d * cols} if int8
+                                  else {'flops': flops})})
+        res[name] = {'max_abs_err': err,
+                     'max_row_rel_err': max(e[0] for e in errs.values()),
+                     **timed}
+        del q, kn, vn, c_k, c_v, k0, v0, m0, runs, kern, kc, plain, pc, c
+        del ks, vs, lib_mask
         torch.cuda.empty_cache()
+    return res
+
+
+def phase_decode_int8(torch, ddp, flush, gen):
+    """The int8 K mirror (k = 1): K5 at the greedy decode shape, K5p at the
+    serving shape, and K5's partials on a full 8192-column slab at the
+    flagship decode module's widths (``one_row_variants``)."""
+    full = ((DS_LOCAL, None),) * DS_B
+    return one_row_variants(torch, flush, gen, 'flash_decode_int8', (
+        ('slab', _one_row(VERIFY_SLAB), HEADS, HEADS, HEAD_DIM, T_MAX,
+         dict(int8=True)),
+        ('paged', _one_row(VERIFY_PAGED), HEADS, HEADS, HEAD_DIM,
+         SERVE_T_MAX, dict(paged=True, int8=True)),
+        ('partials_full_slab', full, SP_HEADS, DS_KV, 64, DS_LOCAL,
+         dict(partials=True, int8=True))))
+
+
+def alibi_decode_variants(torch, flush, gen, paged):
+    """K5 (``paged`` False, the greedy decode shape) or K5p (the serving
+    shape) with ALiBi (the classic slopes of 8 heads): one new row a slot,
+    its partial outputs, the int8 mirror (``one_row_variants``) and verify
+    k = 5 (``verify_variants``)."""
+    phase = 'flash_decode_paged' if paged else 'flash_decode'
+    t = SERVE_T_MAX if paged else T_MAX
+    slots = VERIFY_PAGED if paged else VERIFY_SLAB
+    one = _one_row(slots)
+    res = one_row_variants(torch, flush, gen, phase, tuple(
+        (f'alibi_{name}', one, HEADS, HEADS, HEAD_DIM, t,
+         dict(flags, paged=paged, alibi=True))
+        for name, flags in (('n1', {}), ('partials', {'partials': True}),
+                            ('int8', {'int8': True}))))
+    res.update(verify_variants(torch, flush, gen, phase, (
+        ('alibi_verify', slots, HEADS, HEADS, HEAD_DIM, paged, True),)))
     return res
 
 
@@ -1532,20 +1675,24 @@ INT8_PROMPT = INT8_T - INT8_STEPS
 INT8_PAGED_STEPS = 8      # the paged route's steps (K5p int8)
 
 
-def _int8_paged_twin(torch, ddp, cache, gen):
-    """A paged cache with the int8 mirror pools at the serving page size
-    holding the slab ``cache``'s rows, its pages scrambled."""
+def _paged_twin(torch, ddp, cache, gen):
+    """A paged cache at the serving page size holding the slab ``cache``'s
+    rows (and its int8 mirror, when it carries one), its pages
+    scrambled."""
     import numpy as np
     b, h_kv, t, d = cache.k.shape
     pps = t // SERVE_PAGE
+    quant = cache.k_q is not None
     pc = ddp.init_paged_cache(b, h_kv, t, d, pages=b * pps,
                               page_size=SERVE_PAGE, dtype=cache.k.dtype,
-                              qk_quant='int8', device=cache.k.device)
+                              qk_quant='int8' if quant else None,
+                              device=cache.k.device)
     order = torch.randperm(b * pps, generator=gen).to(cache.k.device)
     pc.page_table.copy_(order.view(b, pps))
-    for pool, slab in ((pc.k_pool, cache.k), (pc.v_pool, cache.v),
-                       (pc.k_q_pool, cache.k_q),
-                       (pc.k_scale_pool, cache.k_scale)):
+    pairs = [(pc.k_pool, cache.k), (pc.v_pool, cache.v)]
+    if quant:
+        pairs += [(pc.k_q_pool, cache.k_q), (pc.k_scale_pool, cache.k_scale)]
+    for pool, slab in pairs:
         pool[order] = slab.unflatten(2, (pps, SERVE_PAGE)).transpose(
             1, 2).flatten(0, 1)
     return pc._replace(length=np.full(b, int(cache.length), np.int64))
@@ -1586,7 +1733,7 @@ def phase_int8_decode(torch, ddp):
         res['prefill_k1_launches'] = ddp.flash_attention.launches
         twin = cache._replace(**{n: getattr(cache, n).clone() for n in
                                  ('k', 'v', 'k_q', 'k_scale')})
-        paged = _int8_paged_twin(torch, ddp, cache, gen)
+        paged = _paged_twin(torch, ddp, cache, gen)
         # The main path: counts at 0 just before, read just after.
         for fn in (ddp.flash_attention, ddp.flash_decode,
                    ddp.flash_decode_paged):
@@ -1740,6 +1887,8 @@ def phase_main_path(torch, ddp):
            'tokens_per_s': BATCH * STEPS / total_s,
            'logits_finite': finite}
     emit(row)
+    SAME_CALL['main_path'] = {k: row[k] for k in (
+        'prefill_ms', 'ms_per_decode_step', 'tokens_per_s')}
     check(tuple(tokens.shape) == (BATCH, STEPS), 'wrong token shape')
     check(bool(((tokens >= 0) & (tokens < VOCAB)).all()), 'token out of range')
     check(finite, 'non-finite logits')
@@ -1905,6 +2054,7 @@ SP_DIM, SP_HEADS, SP_OFFSET = 512, 8, 64
 SP_HEAD_DIM = SP_DIM // SP_HEADS
 SP_DATA, SP_SEQ, SP_B, SP_T = 2, 2, 4, 8192
 SP_TN = SP_T // SP_SEQ
+SP_RANKS = 4                 # seq_parallel's and zigzag_ring's group
 # K2 vs its plain version and vs K1: the same shift-invariant softmax, the
 # bound's shift only moves where float32 rounds, so the row limits above
 # hold it (its p is rounded to bf16 as K1's is).
@@ -2131,20 +2281,75 @@ def phase_flash_features(torch, ddp, flush, gen):
 
 PEAK_INT8_OPS = 1979e12      # H100 SXM dense int8 tensor-core rate
 # The masks and terms of K1/K3/K4 at the flagship's fold shape (2 x 8
-# heads x 4096 rows, head dim 64) and, all four at once under GQA 8:4, at
-# the LM's head dim 96: (name, q heads, kv heads, head dim, causal,
-# causal offset, kv offset, segments, window, dropout rate, int8).
+# heads x 4096 rows, head dim 64), all four at once under GQA 8:4 at the
+# LM's head dim 96, and ALiBi at the ALiBi LM's and zigzag_ring's own
+# shapes (MASK_SHAPES): (name, q heads, kv heads, head dim, causal,
+# causal_offset, kv_offset, segments, window, dropout rate, int8, ALiBi,
+# positions: None or the zigzag fold (world, shard, owner) whose row and
+# column positions the case passes with causal off).
 MASK_CASES = (
-    ('segments', 8, 8, 64, False, 0, 0, True, None, 0.0, False),
-    ('window', 8, 8, 64, True, 4096, 2048, False, 2048, 0.0, False),
-    ('dropout', 8, 8, 64, True, 0, 0, False, None, 0.1, False),
-    ('int8', 8, 8, 64, False, 0, 0, False, None, 0.0, True),
-    ('all_gqa', 8, 4, 96, True, 0, 0, True, 2048, 0.1, True),
+    ('segments', 8, 8, 64, False, 0, 0, True, None, 0.0, False, False, None),
+    ('window', 8, 8, 64, True, 4096, 2048, False, 2048, 0.0, False, False,
+     None),
+    ('dropout', 8, 8, 64, True, 0, 0, False, None, 0.1, False, False, None),
+    ('int8', 8, 8, 64, False, 0, 0, False, None, 0.0, True, False, None),
+    ('all_gqa', 8, 4, 96, True, 0, 0, True, 2048, 0.1, True, False, None),
     # rank 1's causal fold of owner 0 in the recipe's packed layout: its
     # rows are document 1, the owner's keys document 0 — every row has no
     # attendable key.
-    ('cross_segment', 8, 8, 64, True, 4096, 0, 'cross', None, 0.1, True))
+    ('cross_segment', 8, 8, 64, True, 4096, 0, 'cross', None, 0.1, True,
+     False, None),
+    # ALiBi on the causal diagonal fold at a ring rank's offsets.
+    ('alibi', 8, 8, 64, True, 4096, 4096, False, None, 0.0, False, True,
+     None),
+    # zigzag rank 1's diagonal fold (half-stripes 1 and 6 of 8): causal
+    # triangles, a wholly past and a wholly future half-block (skipped).
+    ('zigzag_positions', 8, 8, 64, False, 0, 0, False, None, 0.0, False,
+     False, (4, 1, 1)),
+    # the same fold with ALiBi, a window of 1024 (the past half-block lies
+    # wholly outside it) and dropout keyed on the positions.
+    ('alibi_positions_window_dropout', 8, 8, 64, False, 0, 0, False, 1024,
+     0.1, False, True, (4, 1, 1)),
+    # The ALiBi LM's attention at its own shapes (MASK_SHAPES): a training
+    # step's layer and the greedy run's prefill, causal from row 0.
+    ('alibi_lm_train', HEADS, HEADS, HEAD_DIM, True, 0, 0, False, None,
+     0.0, False, True, None),
+    ('alibi_lm_prefill', HEADS, HEADS, HEAD_DIM, True, 0, 0, False, None,
+     0.0, False, True, None),
+    # zigzag_ring's folds with ALiBi at its shard shape: rank 2's diagonal
+    # fold, and rank 0's fold of owner 3 (half-stripes 0, 7 against 3, 4:
+    # two half-blocks wholly past, two wholly future).
+    ('zigzag_alibi_diagonal', SP_HEADS, SP_HEADS, SP_HEAD_DIM, False, 0, 0,
+     False, None, 0.0, False, True, (SP_RANKS, 2, 2)),
+    ('zigzag_alibi_off_diagonal', SP_HEADS, SP_HEADS, SP_HEAD_DIM, False, 0,
+     0, False, None, 0.0, False, True, (SP_RANKS, 0, 3)))
+# (batch, rows) of the cases run at a main path's shape; the others run at
+# the flagship's fold shape (SP_B // SP_DATA, SP_TN).
+MASK_SHAPES = {'alibi_lm_train': (TRAIN_B, TRAIN_T),
+               'alibi_lm_prefill': (BATCH, PROMPT),
+               'zigzag_alibi_diagonal': (SP_B, SP_T // SP_RANKS),
+               'zigzag_alibi_off_diagonal': (SP_B, SP_T // SP_RANKS)}
 MASK_SEED = 12345
+# The classic geometric ALiBi slopes 2^(-8i/H), i = 1..H, at the LM's and
+# the flagship module's 8 heads.
+ALIBI_SLOPES = tuple(2.0 ** (-8.0 * i / HEADS) for i in range(1, HEADS + 1))
+
+
+def zigzag_positions(torch, world, shard, tn, dev):
+    """Zigzag shard ``shard``'s ``(tn,)`` int32 global positions: the
+    half-stripes ``shard`` and ``2W-1-shard``."""
+    h = tn // 2
+    ar = torch.arange(h, device=dev, dtype=torch.int32)
+    return torch.cat([shard * h + ar, (2 * world - 1 - shard) * h + ar])
+
+
+def alibi_bias(torch, slopes, back, allowed, dtype):
+    """SDPA's float mask for ALiBi: ``slope·(pos_k − pos_q)`` (natural-log
+    units) where ``allowed``, ``-inf`` elsewhere; ``back`` is ``pos_q −
+    pos_k`` broadcast against ``allowed``, heads on axis 1."""
+    s = torch.tensor(slopes, dtype=torch.float32, device=back.device)
+    bias = s.reshape(1, -1, *([1] * (back.dim() - 2))) * (-back).float()
+    return bias.masked_fill(~allowed, float('-inf')).to(dtype)
 
 
 def ragged_segments(torch, gen, b, t, docs=6):
@@ -2157,19 +2362,21 @@ def ragged_segments(torch, gen, b, t, docs=6):
     return seg.cumsum(-1).to(torch.int32)
 
 
-def valid_pairs(torch, tq, tk, causal, co, ko, window, seg):
-    """Attended (row, column) pairs over the batch of one head (the pairs
-    this run's data needs)."""
+def valid_pairs(torch, b, tq, tk, causal, co, ko, window, seg, pos=None):
+    """Attended (row, column) pairs over the batch ``b`` of one head (the
+    pairs this run's data needs); ``pos`` the explicit ``(pos_q, pos_k)``."""
     dev = torch.device('cuda')
     rows = co + torch.arange(tq, device=dev)[:, None]
     cols = ko + torch.arange(tk, device=dev)[None, :]
+    if pos is not None:
+        rows, cols = pos[0].long()[:, None], pos[1].long()[None, :]
     ok = torch.ones((tq, tk), dtype=torch.bool, device=dev)
-    if causal:
+    if causal or pos is not None:
         ok &= rows >= cols
         if window is not None:
             ok &= rows - cols < window
     if seg is None:
-        return int(ok.sum().item())
+        return b * int(ok.sum().item())
     sq, sk = seg
     same = sq[:, 0, :, None] == sk[:, 0, None, :]
     return int((same & ok).sum().item())
@@ -2185,22 +2392,30 @@ def bound_mixed(ops_bf16, ops_int8, nbytes):
 
 
 def phase_flash_masks(torch, ddp, flush, gen):
-    """K1/K3/K4 with segments, a window, dropout and int8 scoring against
-    their plain versions (K1's out and lse, K3/K4 in bf16 and float32),
-    the dropout keep pattern bit for bit, int8 scores bit for bit, a
-    wholly cross-segment fold exactly empty; times against bound, plain
-    and, where one PyTorch call computes the same function, SDPA."""
+    """K1/K3/K4 with segments, a window, dropout, int8 scoring, ALiBi and
+    explicit positions against their plain versions (K1's out and lse,
+    K3/K4 in bf16 and float32), ALiBi also at the ALiBi LM's training and
+    prefill shapes and on zigzag_ring's folds; the dropout keep pattern
+    bit for bit, int8 scores bit for bit, a wholly cross-segment fold
+    exactly empty; K2 with segments, a window and positions; times against
+    bound, plain and, where one PyTorch call computes the same function,
+    SDPA."""
     import importlib
     fa = importlib.import_module(
         'distributed_dot_product_tpu_torch.ops.flash_attention')
     F = torch.nn.functional
     dev, bf16 = torch.device('cuda'), torch.bfloat16
-    b, t = SP_B // SP_DATA, SP_TN
     neg = fa._LN2 * fa._NEG_BIG
     worst, failures, timing = {}, [], {}
     for (name, hq, hkv, d, causal, co, ko, segs, window, rate,
-         int8) in MASK_CASES:
+         int8, alibi, zig) in MASK_CASES:
+        b, t = MASK_SHAPES.get(name, (SP_B // SP_DATA, SP_TN))
         scale = 1.0 / math.sqrt(d)
+        pos = None
+        if zig is not None:
+            world, shard, owner = zig
+            pos = tuple(zigzag_positions(torch, world, r, t, dev)
+                        for r in (shard, owner))
         q = randn(torch, (b, hq, t, d), gen, dev, bf16)
         k = randn(torch, (b, hkv, t, d), gen, dev, bf16)
         v = randn(torch, (b, hkv, t, d), gen, dev, bf16)
@@ -2214,7 +2429,8 @@ def phase_flash_masks(torch, ddp, flush, gen):
             seg = (one, one)
         feat = dict(segment_ids=seg, window=window, dropout_rate=rate,
                     dropout_seed=MASK_SEED if rate else None,
-                    qk_quant='int8' if int8 else None)
+                    qk_quant='int8' if int8 else None, positions=pos,
+                    alibi_slopes=ALIBI_SLOPES[:hq] if alibi else None)
         kw = dict(causal=causal, causal_offset=co, kv_offset=ko, scale=scale)
         out, lse = fa.flash_attention_with_lse(q, k, v, **kw, **feat)
         out_p, lse_p = fa.flash_attention_plain_lse(q, k, v, **kw, **feat)
@@ -2250,6 +2466,10 @@ def phase_flash_masks(torch, ddp, flush, gen):
               ('cross' if segs == 'cross' else
                int(seg[0].max().item()) + 1), 'window': window,
               'dropout_rate': rate, 'qk_quant': feat['qk_quant'],
+              'alibi_slopes': feat['alibi_slopes'],
+              'positions': None if zig is None else {
+                  'zigzag_world': zig[0], 'rows_of_rank': zig[1],
+                  'columns_of_rank': zig[2]},
               'max_abs_err': err,
               'max_row_rel_err': {n: e[0] for n, e in rel.items()},
               'rel_err': {n: e[1] for n, e in rel.items()},
@@ -2277,30 +2497,41 @@ def phase_flash_masks(torch, ddp, flush, gen):
 
         # Times: K1 with its lse, K3 and K4 in bf16, at this case's shape.
         nb = b * hq
-        pairs = hq * valid_pairs(torch, t, t, causal, co, ko, window, seg)
+        pairs = hq * valid_pairs(torch, b, t, t, causal, co, ko, window,
+                                 seg, pos)
         q2, lse2, delta = fa.flash_attention_bwd_operands(q, out, lse, g,
                                                           scale)
         quant = fa.quant_operands(q, k) if int8 else None
         bw = dict(causal=causal, causal_offset=co, kv_offset=ko,
                   segment_ids=seg, window=window, dropout_rate=rate,
-                  dropout_seed=feat['dropout_seed'], quant=quant)
+                  dropout_seed=feat['dropout_seed'], quant=quant,
+                  positions=pos, alibi_slopes=feat['alibi_slopes'])
         el = 1 if int8 else 2              # bytes of a q / k element read
         q_b, kv_b = nb * t * d, b * hkv * t * d
         rows_b = 4 * nb * t
         vec_b = (8 * b * t if seg is not None else 0) + \
-            (4 * (nb + b * hkv) * t if int8 else 0)
+            (4 * (nb + b * hkv) * t if int8 else 0) + \
+            (8 * t if pos is not None else 0) + (4 * hq if alibi else 0)
         lib = None
         if not rate and not int8:
+            if pos is not None:
+                back = pos[0].long()[:, None] - pos[1].long()[None, :]
+            else:
+                back = ((co + torch.arange(t, device=dev))[:, None]
+                        - (ko + torch.arange(t, device=dev))[None, :])
             allowed = torch.ones((t, t), dtype=torch.bool, device=dev)
-            if causal:
-                r_ = co + torch.arange(t, device=dev)[:, None]
-                c_ = ko + torch.arange(t, device=dev)[None, :]
-                allowed = r_ >= c_
+            if causal or pos is not None:
+                allowed = back >= 0
                 if window is not None:
-                    allowed = allowed & (r_ - c_ < window)
+                    allowed = allowed & (back < window)
             if seg is not None:
                 allowed = allowed & (seg[0][:, :, :, None]
                                      == seg[1][:, :, None, :])
+            if alibi:
+                # A float bias (bf16, as SDPA takes q's dtype) per head.
+                allowed = alibi_bias(torch, ALIBI_SLOPES[:hq], back[None,
+                                                                    None],
+                                     allowed.expand(1, 1, t, t), q.dtype)
             lib = (lambda al=allowed: F.scaled_dot_product_attention(
                 q, k, v, attn_mask=al, scale=scale))
         s_ops = 2 * d * pairs              # one product's multiply-adds
@@ -2337,13 +2568,18 @@ def phase_flash_masks(torch, ddp, flush, gen):
                 'bound_ms': bms, 'bound_by': by}
         emit({'phase': 'flash_masks', 'case': name + '_timing',
               'pairs': pairs,
-              'library': ('sdpa forward, boolean mask' if lib is not None
+              'library': ('sdpa forward, float ALiBi bias (bf16)' if alibi
+                          and lib is not None else
+                          'sdpa forward, boolean mask' if lib is not None
                           else 'none: no PyTorch call computes the '
                           'hash dropout or int8 scoring'),
               **{kn: timing[kn][name] for kn in timing}})
         del q, k, v, g, out, lse, out_p, lse_p, got, want, q2, lse2, delta
+        lib = None
         torch.cuda.empty_cache()
 
+    b, t = SP_B // SP_DATA, SP_TN
+    windows = {case[0]: case[8] for case in MASK_CASES}
     # The dropout keep pattern, bit for bit: with v = eye(Tk) the output
     # row is the row's dropped weights, exactly 0 where an element was
     # dropped; at Tk = d = 128, once at the origin and once with the
@@ -2375,7 +2611,7 @@ def phase_flash_masks(torch, ddp, flush, gen):
     v = randn(torch, (b, 8, t, 64), gen, dev, bf16)
     one = ragged_segments(torch, gen, b, t).to(dev)
     kw = dict(causal=True, causal_offset=t, kv_offset=t // 2,
-              window=MASK_CASES[1][8], segment_ids=(one, one))
+              window=windows['window'], segment_ids=(one, one))
     before = fa.flash_attention_bounded.launches
     out = fa.flash_attention(q, k, v, softmax_mode='bounded', **kw)
     torch.cuda.synchronize()
@@ -2389,6 +2625,38 @@ def phase_flash_masks(torch, ddp, flush, gen):
     failures += check_rel({'out': (row, whole)}, 'bounded_segments_window')
     if took != 1:
         failures.append(f'bounded_segments_window: K2 launched {took} times')
+    # K2 with positions (zigzag rank 1's diagonal fold), through the guard
+    # and directly, against its plain version; its time at this shape.
+    pos = tuple(zigzag_positions(torch, 4, 1, t, dev) for _ in range(2))
+    kw = dict(positions=pos, window=windows['alibi_positions_window_dropout'])
+    before = fa.flash_attention_bounded.positions_launches
+    out = fa.flash_attention(q, k, v, softmax_mode='bounded', **kw)
+    torch.cuda.synchronize()
+    took = fa.flash_attention_bounded.positions_launches - before
+    ref = fa.flash_attention_bounded_plain_lse(q, k, v, **kw)[0]
+    row, whole = rel_errs(torch, out, ref)
+    pairs = 8 * valid_pairs(torch, b, t, t, False, 0, 0, kw['window'],
+                            None, pos)
+    nbytes = 2 * 4 * b * 8 * t * 64 + 8 * t + 4 * b * 8 * t
+    bms, by = bound_ms(4 * 64 * pairs, nbytes)
+    mvec = fa.bounded_shift(fa._fold_q(q, 1.0 / 8.0), k)
+    k2 = {'ms': time_ms(torch, lambda: fa.flash_attention_bounded(
+              q, k, v, mvec=mvec, **kw), flush),
+          'plain_ms': time_ms(
+              torch, lambda: fa.flash_attention_bounded_plain_lse(
+                  q, k, v, **kw), flush, reps=3),
+          'library_ms': None, 'bound_ms': bms, 'bound_by': by,
+          'max_abs_err': (out.float() - ref.float()).abs().max().item(),
+          'max_row_rel_err': row, 'rel_err': whole}
+    emit({'phase': 'flash_masks', 'case': 'bounded_positions',
+          'q': list(q.shape), 'k2_launched': took, 'pairs': pairs,
+          'library': 'none: sdpa has no bounded-shift softmax', **k2,
+          'tol': {'row_rel': TOL_ROW_REL, 'rel': TOL_NORM_REL}})
+    failures += check_rel({'out': (row, whole)}, 'bounded_positions')
+    if took != 1:
+        failures.append(f'bounded_positions: K2 with positions launched '
+                        f'{took} times')
+    timing.setdefault('flash_attention_bounded', {})['positions'] = k2
     # int8 scores bit for bit: with one key the softmax weight is 1 and
     # lse = ln2 * score, in float32 on both sides.
     q = randn(torch, (b, 8, 64, 64), gen, dev, bf16)
@@ -2450,6 +2718,8 @@ def phase_train_path(torch, ddp):
            'launches_per_step': per_step,
            'expected_launches_per_step': expected, 'launches': launches}
     emit(row)
+    SAME_CALL['train_path'] = {k: row[k] for k in (
+        'ms_per_step_median_2_5', 'tokens_per_s', 'max_memory_allocated')}
     check(all(math.isfinite(x) for x in losses), 'non-finite loss')
     check(losses[-1] < losses[0],
           f'loss did not fall: {losses[0]} -> {losses[-1]}')
@@ -2500,9 +2770,209 @@ def phase_train_cpu_reference(torch, ddp):
           f'{worst}: grad rel err {grad_rel[worst]} > {TOL_REF_GRAD_REL}')
 
 
-# W = 4 ranks of the sequence-parallel phase, all on card 0 over gloo
+# The ALiBi LM (alibi_lm): train_path's and main_path's 16-layer
+# TransformerLM with use_rope=False and the classic slopes, trained
+# ALIBI_TRAIN_STEPS Adam steps at B 4 x T 4096 (float32 parameters, bf16,
+# remat), then served from the trained weights: greedy generation at batch
+# 4, prompt 1000, 64 steps, and the same steps through paged caches (page
+# 16, pages scrambled).
+ALIBI_TRAIN_STEPS = 3
+ALIBI_KERNELS = TRAIN_KERNELS + ('flash_decode', 'flash_decode_paged')
+
+
+def _alibi_counts(ddp):
+    """``{kernel: (launches, ALiBi launches)}`` of the ALiBi LM's path."""
+    return {n: (getattr(ddp, n).launches, getattr(ddp, n).alibi_launches)
+            for n in ALIBI_KERNELS}
+
+
+def _zero_counts(ddp, names):
+    for n in names:
+        fn = getattr(ddp, n)
+        fn.launches = fn.alibi_launches = 0
+        if hasattr(fn, 'positions_launches'):
+            fn.positions_launches = 0
+
+
+def phase_alibi_lm(torch, ddp):
+    """The ALiBi LM trained and served on the card: each train step's
+    K1 / K3 / K4 launches (every one ALiBi), losses, ms per step,
+    tokens/s and peak memory; the greedy run's K1 prefill and K5 steps
+    (every one ALiBi), prefill ms and ms per decode step; the paged route
+    (K5p ALiBi) bit for bit the slab route, logits and tokens; the
+    trained weights' prefill logits against float32 on the CPU. The RoPE
+    LM's numbers of this call stand beside them."""
+    from distributed_dot_product_tpu_torch.models.lm import greedy_generate
+    dev, bf16 = torch.device('cuda'), torch.bfloat16
+    gen = torch.Generator().manual_seed(5)
+    attn = dict(use_rope=False, alibi_slopes=ALIBI_SLOPES)
+    model = ddp.TransformerLM(VOCAB, DIM, HEADS, n_layers=LAYERS,
+                              dtype=bf16, remat=True, attn_kwargs=attn,
+                              device=dev, generator=gen)
+    optimizer = torch.optim.Adam(model.parameters(), lr=LR,
+                                 betas=(0.9, 0.999), eps=1e-8)
+    step = ddp.make_lm_train_step(model, optimizer, loss_chunk=LOSS_CHUNK)
+    tokens = torch.randint(0, VOCAB, (TRAIN_B, TRAIN_T), generator=gen
+                           ).to(dev)
+    batch = (tokens, ddp.lm_targets(tokens))
+    expected = {'flash_attention': 2 * LAYERS,      # forward + remat
+                'flash_attention_dq': LAYERS, 'flash_attention_dkv': LAYERS,
+                'flash_decode': 0, 'flash_decode_paged': 0}
+    failures = []
+    # The training path: counts at 0 just before, read just after.
+    _zero_counts(ddp, ALIBI_KERNELS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms, per_step = [], [], []
+    for i in range(ALIBI_TRAIN_STEPS):
+        before = _alibi_counts(ddp)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = step(batch)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        losses.append(loss.item())
+        counts = {n: [a - b for a, b in zip(c, before[n])]
+                  for n, c in _alibi_counts(ddp).items()}
+        per_step.append(counts)
+        for n, want in expected.items():
+            if counts[n] != [want, want]:
+                failures.append(f'alibi_lm train step {i + 1}: {n} '
+                                f'(launches, ALiBi) {counts[n]}, want '
+                                f'{[want, want]}')
+    train_launches = {n: c[0] for n, c in _alibi_counts(ddp).items()}
+    median_ms = statistics.median(step_ms[1:])
+    rope = SAME_CALL.get('train_path')
+    emit({'phase': 'alibi_lm', 'case': 'train',
+          'params': sum(p.numel() for p in model.parameters()),
+          'batch': [TRAIN_B, TRAIN_T], 'alibi_slopes': list(ALIBI_SLOPES),
+          'losses': losses, 'step_ms': step_ms,
+          'ms_per_step_median_2_3': median_ms,
+          'tokens_per_s': TRAIN_B * TRAIN_T / (median_ms / 1e3),
+          'max_memory_allocated': torch.cuda.max_memory_allocated(),
+          'launches_per_step': per_step,
+          'rope_lm_same_call': rope})
+    if not all(math.isfinite(x) for x in losses):
+        failures.append('alibi_lm: non-finite loss')
+    if not losses[-1] < losses[0]:
+        failures.append(f'alibi_lm: loss did not fall: {losses}')
+    del optimizer, step, batch
+    torch.cuda.empty_cache()
+
+    # Serving from the trained weights (float32 parameters, bf16
+    # compute), as main_path serves the RoPE LM.
+    prompts = torch.randint(0, VOCAB, (BATCH, PROMPT), generator=gen
+                            ).to(dev)
+    greedy_generate(model, prompts, 2, T_MAX)           # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    greedy_generate(model, prompts, 1, T_MAX)           # prefill only
+    torch.cuda.synchronize()
+    prefill_ms = 1e3 * (time.perf_counter() - t0)
+    _zero_counts(ddp, ALIBI_KERNELS)
+    t0 = time.perf_counter()
+    out_tokens = greedy_generate(model, prompts, STEPS, T_MAX)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    serve_launches = _alibi_counts(ddp)
+    want = {'flash_attention': LAYERS, 'flash_decode': LAYERS * (STEPS - 1),
+            'flash_attention_dq': 0, 'flash_attention_dkv': 0,
+            'flash_decode_paged': 0}
+    for n, w in want.items():
+        if list(serve_launches[n]) != [w, w]:
+            failures.append(f'alibi_lm greedy: {n} (launches, ALiBi) '
+                            f'{serve_launches[n]}, want {[w, w]}')
+
+    # The paged route: the same prefill, then the same decode steps
+    # through paged twins of every layer's cache (K5p), bit for bit the
+    # slab route (K5): logits and tokens.
+    with torch.inference_mode():
+        caches = model.make_decode_caches(BATCH, T_MAX)
+        caches, logits = model.prefill(prompts, caches)
+        first_finite = bool(torch.isfinite(logits).all().item())
+        tok = logits[:, -1:].argmax(dim=-1).to(torch.int32)
+        gpu_last = logits[0, -1].float().cpu()
+        pcaches = [_paged_twin(torch, ddp, c, gen) for c in caches]
+        slab_logits, slab_tok, t_s = [], [tok], tok
+        for _ in range(STEPS - 1):
+            caches, lg = model.decode(t_s, caches)
+            t_s = lg[:, -1:].argmax(dim=-1).to(torch.int32)
+            slab_logits.append(lg)
+            slab_tok.append(t_s)
+        _zero_counts(ddp, ALIBI_KERNELS)
+        paged_ms, paged_logits, paged_tok, t_p = [], [], [tok], tok
+        for _ in range(STEPS - 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pcaches, lg = model.decode(t_p, pcaches)
+            t_p = lg[:, -1:].argmax(dim=-1).to(torch.int32)
+            torch.cuda.synchronize()
+            paged_ms.append(1e3 * (time.perf_counter() - t0))
+            paged_logits.append(lg)
+            paged_tok.append(t_p)
+        paged_launches = _alibi_counts(ddp)
+        slab_tokens = torch.cat(slab_tok, dim=1)
+        paged_same = {
+            'logits': all(torch.equal(a, b) for a, b in
+                          zip(slab_logits, paged_logits)),
+            'tokens': bool(torch.equal(torch.cat(paged_tok, dim=1),
+                                       slab_tokens)),
+            'greedy_generate_tokens': bool(torch.equal(slab_tokens,
+                                                       out_tokens))}
+        finite = first_finite and all(torch.isfinite(x).all().item()
+                                       for x in slab_logits)
+    del caches, pcaches, slab_logits, paged_logits
+    torch.cuda.empty_cache()
+    w = LAYERS * (STEPS - 1)
+    if list(paged_launches['flash_decode_paged']) != [w, w] or \
+            paged_launches['flash_decode'][0]:
+        failures.append(f'alibi_lm paged: launches {paged_launches}, want '
+                        f'{w} K5p ALiBi and no K5')
+    if not all(paged_same.values()):
+        failures.append(f'alibi_lm paged: not bit-equal to the slab route '
+                        f'{paged_same}')
+    if not finite:
+        failures.append('alibi_lm: non-finite logits')
+
+    # The trained weights in float32 on the CPU (plain versions): prompt
+    # 0's last prefill logits.
+    t0 = time.perf_counter()
+    cpu = ddp.TransformerLM(VOCAB, DIM, HEADS, n_layers=LAYERS,
+                            attn_kwargs=attn, device='cpu')
+    cpu.load_state_dict({k: v.float().cpu()
+                         for k, v in model.state_dict().items()})
+    with torch.inference_mode():
+        _, cpu_logits = cpu.prefill(prompts[:1].cpu(),
+                                    cpu.make_decode_caches(1, T_MAX))
+    cpu_last = cpu_logits[0, -1]
+    rel = ((gpu_last - cpu_last).abs().max() / cpu_last.abs().max()).item()
+    cpu_s = time.perf_counter() - t0
+    del cpu, model
+    torch.cuda.empty_cache()
+    rope = SAME_CALL.get('main_path')
+    emit({'phase': 'alibi_lm', 'case': 'serve', 'batch': BATCH,
+          'prompt': PROMPT, 'steps': STEPS, 't_max': T_MAX,
+          'prefill_ms': prefill_ms,
+          'ms_per_decode_step': (1e3 * total_s - prefill_ms) / (STEPS - 1),
+          'generate_s': total_s, 'tokens_per_s': BATCH * STEPS / total_s,
+          'launches': serve_launches,
+          'paged': {'page_size': SERVE_PAGE, 'steps': STEPS - 1,
+                    'launches': paged_launches,
+                    'step_ms_median': statistics.median(paged_ms),
+                    'bit_equal_slab': paged_same},
+          'cpu_reference': {'last_logits_max_rel_err': rel,
+                            'tol': TOL_LM_REL, 'seconds': cpu_s},
+          'rope_lm_same_call': rope})
+    if not rel <= TOL_LM_REL:
+        failures.append(f'alibi_lm: logits rel err {rel} > {TOL_LM_REL}')
+    check(not failures, '; '.join(failures))
+    return {'train': train_launches,
+            'greedy': {n: c[0] for n, c in serve_launches.items()},
+            'paged': {n: c[0] for n, c in paged_launches.items()}}
+
+
+# The sequence-parallel phase's SP_RANKS ranks, all on card 0 over gloo
 # (host-staged collectives) unless there is a card per rank (NCCL).
-SP_RANKS = 4
 SP_LABEL = f'{SP_RANKS} ranks on one card, gloo'
 SP_STEPS = 3
 SP_CHECK_B, SP_CHECK_T = 2, 2048    # distributed vs local, W = 4
@@ -2705,7 +3175,8 @@ def _sp_run(torch, ddp, rank, dev):
 
 def _sp_worker(rank, world, init_method, backend, results, run='_sp_run'):
     """A rank of a multi-rank phase: joins the group, runs ``run`` (the
-    name of :func:`_sp_run`, :func:`_ds_run` or :func:`_flagship_run`),
+    name of :func:`_sp_run`, :func:`_zz_run`, :func:`_ds_run` or
+    :func:`_flagship_run`),
     and reports its numbers or its traceback."""
     import traceback
     try:
@@ -2855,6 +3326,233 @@ def phase_seq_parallel(torch, ddp, timeout=600):
           'backend': backend})
     check(not failures, '; '.join(failures))
     return launches
+
+
+# The zigzag causal ring (zigzag_ring): the flagship module with causal
+# masking, RoPE and ALiBi, DistributedDotProductAttn(key_dim=512,
+# num_heads=8, causal=True, use_rope=True, softmax_impl='online',
+# alibi_slopes=2^(-8i/8)), on a sequence group of the SP_RANKS ranks at
+# seq_parallel's B 4 x T 8192 (2048 rows a rank): one forward and backward
+# per ring layout, then one 'ulysses' step of the same module.
+ZZ_KERNELS = ('flash_attention', 'flash_attention_dq', 'flash_attention_dkv')
+
+
+def _zz_module(torch, ddp, dev, impl='online', layout='contiguous',
+               distributed=True):
+    return ddp.DistributedDotProductAttn(
+        key_dim=SP_DIM, num_heads=SP_HEADS, causal=True, use_rope=True,
+        softmax_impl=impl, ring_layout=layout, alibi_slopes=ALIBI_SLOPES,
+        distributed=distributed, dtype=torch.bfloat16, device=dev,
+        generator=torch.Generator().manual_seed(21))
+
+
+def _zz_counts(ddp):
+    """``{kernel: [launches, ALiBi launches, positions launches]}``."""
+    return {n: [getattr(ddp, n).launches, getattr(ddp, n).alibi_launches,
+                getattr(ddp, n).positions_launches] for n in ZZ_KERNELS}
+
+
+def _zz_run(torch, ddp, rank, dev):
+    """One rank of zigzag_ring: the module's forward and backward on this
+    rank's shard of the global inputs, contiguous and zigzag (inputs
+    permuted by zigzag_indices), then 'ulysses', each after an untimed
+    pass; launches and wall ms of the timed pass, and (rank 0) each run
+    against its twin: zigzag against contiguous after the permutation,
+    ulysses against the local flash module."""
+    import importlib
+    comm = importlib.import_module(
+        'distributed_dot_product_tpu_torch.utils.comm')
+    ra = importlib.import_module(
+        'distributed_dot_product_tpu_torch.models.ring_attention')
+    world = comm.get_world_size()
+    mesh = ddp.seq_mesh(world)
+    gen = torch.Generator().manual_seed(23)     # the same on every rank
+    xs = [randn(torch, (SP_B, SP_T, SP_DIM), gen, dev, torch.float32)
+          for _ in range(4)]
+    idx = ra.zigzag_indices(SP_T, world).to(dev)
+    inv = torch.argsort(idx)
+    res = {'rank': rank, 'transport': comm.transport(None, dev), 'runs': {}}
+    got = {}
+    for name, impl, layout in (('contiguous', 'online', 'contiguous'),
+                               ('zigzag', 'online', 'zigzag'),
+                               ('ulysses', 'ulysses', 'contiguous')):
+        mod = _zz_module(torch, ddp, dev, impl, layout)
+        glob = [x[:, idx] for x in xs] if layout == 'zigzag' else xs
+        g = ddp.shard_seq(glob[3], mesh)
+        # An untimed pass first: the ranks' first hops set up their gloo
+        # pairs, and the first launches load the kernel libraries.
+        for timed in (False, True):
+            mod.zero_grad()
+            shards = [ddp.shard_seq(t, mesh).clone().requires_grad_()
+                      for t in glob[:3]]
+            _zero_counts(ddp, ZZ_KERNELS)
+            torch.cuda.synchronize()
+            ddp.synchronize()
+            t0 = time.perf_counter()
+            out = mod(*shards, None, group=mesh.seq_group)
+            (out.float() * g).sum().backward()
+            torch.cuda.synchronize()
+            wall = 1e3 * (time.perf_counter() - t0)
+        res['runs'][name] = {'launches': _zz_counts(ddp), 'wall_ms': wall}
+        tensors = {'out': ddp.unshard_seq(out, mesh)}
+        for n, t in zip(('d_keys', 'd_queries', 'd_values'), shards):
+            tensors[n] = ddp.unshard_seq(t.grad, mesh)
+        if layout == 'zigzag':
+            tensors = {n: t[:, inv] for n, t in tensors.items()}
+        for n, p in mod.named_parameters():
+            tensors[n] = comm.all_reduce(p.grad)
+        if rank == 0:
+            got[name] = tensors
+        del mod, out, shards, g, tensors
+        torch.cuda.empty_cache()
+    if rank == 0:
+        local = _zz_module(torch, ddp, dev, 'flash', distributed=False)
+        gx = [x.clone().requires_grad_() for x in xs[:3]]
+        ref = local(*gx, None)
+        (ref.float() * xs[3]).sum().backward()
+        want = {'out': ref, 'd_keys': gx[0].grad, 'd_queries': gx[1].grad,
+                'd_values': gx[2].grad,
+                **{n: p.grad for n, p in local.named_parameters()}}
+        res['errs'] = {}
+        for name, twin, ref_t in (('zigzag_vs_contiguous', 'zigzag',
+                                   got['contiguous']),
+                                  ('ulysses_vs_local_flash', 'ulysses',
+                                   want)):
+            errs = {}
+            for n, t in got[twin].items():
+                if n in ('out', 'd_keys', 'd_queries', 'd_values'):
+                    errs[n] = rel_errs(torch, t, ref_t[n])
+                else:                   # a weight gradient: whole-tensor
+                    whole = (torch.linalg.vector_norm(
+                        t.float() - ref_t[n].float())
+                        / torch.linalg.vector_norm(ref_t[n].float())).item()
+                    errs[n] = (whole, whole)
+            res['errs'][name] = errs
+        res['finite'] = all(bool(torch.isfinite(t).all().item())
+                            for run in got.values() for t in run.values())
+        del local, gx, ref, want, got
+    return res
+
+
+def zz_expected(layout, rank, world):
+    """Launches of K1, K3 and K4 on a rank for one forward and backward:
+    the contiguous causal ring folds its rank + 1 past blocks (the rest
+    lie wholly in its future), the zigzag ring all W (every pair of
+    shards shares a past half-block), ulysses one; every launch ALiBi,
+    the zigzag folds' with positions."""
+    folds = {'contiguous': rank + 1, 'zigzag': world, 'ulysses': 1}[layout]
+    return [folds, folds, folds if layout == 'zigzag' else 0]
+
+
+def _zz_fold_ms(torch, flush, gen, layout, rank, world):
+    """Device ms of each fold a rank's ring runs (K1 with its lse, K3 and
+    K4 in float32, with ALiBi), one process alone on the card: the
+    contiguous ring's folds of owners <= rank at the ranks' offsets, the
+    zigzag ring's W folds at the shards' positions."""
+    import importlib
+    fa = importlib.import_module(
+        'distributed_dot_product_tpu_torch.ops.flash_attention')
+    dev, bf16 = torch.device('cuda'), torch.bfloat16
+    tn, d = SP_T // world, SP_HEAD_DIM
+    scale = 1.0 / math.sqrt(d)
+    q, k, v, g = (randn(torch, (SP_B, SP_HEADS, tn, d), gen, dev, bf16)
+                  for _ in range(4))
+    times = []
+    for s in range(world):
+        owner = (rank + s) % world
+        if layout == 'contiguous':
+            if owner > rank:
+                continue
+            kw = dict(causal=True, causal_offset=rank * tn,
+                      kv_offset=owner * tn)
+        else:
+            kw = dict(positions=tuple(zigzag_positions(torch, world, r, tn,
+                                                       dev)
+                                      for r in (rank, owner)))
+        kw['alibi_slopes'] = ALIBI_SLOPES
+        out, lse = fa.flash_attention_with_lse(q, k, v, scale=scale, **kw)
+        q2, lse2, delta = fa.flash_attention_bwd_operands(q, out, lse, g,
+                                                          scale)
+        bw = dict(kw, scale=scale, grad_dtype=torch.float32)
+        times.append(
+            time_ms(torch, lambda: fa.flash_attention_with_lse(
+                q, k, v, scale=scale, **kw), flush, reps=10)
+            + time_ms(torch, lambda: fa.flash_attention_dq(
+                q2, k, v, g, lse2, delta, **bw), flush, reps=10)
+            + time_ms(torch, lambda: fa.flash_attention_dkv(
+                q2, k, v, g, lse2, delta, **bw), flush, reps=10))
+    return times
+
+
+def phase_zigzag_ring(torch, ddp, timeout=600):
+    """The causal ring on both layouts and ulysses, with ALiBi, on
+    SP_RANKS ranks: each rank's launches against the folds it runs, the
+    zigzag run against its contiguous twin and ulysses against the local
+    flash module (the seq_parallel tolerances); then each rank's fold
+    device time on both layouts, measured one process alone on the card,
+    the slowest rank against the mean (the critical path zigzag
+    evens out)."""
+    ranks, seconds, backend = _spawn_ranks(torch, 'zigzag_ring', '_zz_run',
+                                           timeout)
+    label = (SP_LABEL if backend == 'gloo'
+             else f'{SP_RANKS} ranks on {SP_RANKS} cards, nccl')
+    base = {'phase': 'zigzag_ring', 'ranks': SP_RANKS, 'label': label,
+            'transport': ranks[0]['transport'], 'batch': [SP_B, SP_T],
+            'module': {'key_dim': SP_DIM, 'num_heads': SP_HEADS,
+                       'causal': True, 'use_rope': True,
+                       'alibi_slopes': list(ALIBI_SLOPES),
+                       'compute': 'bfloat16'}}
+    failures = []
+    launches = {}
+    for name in ('contiguous', 'zigzag', 'ulysses'):
+        by_rank = {r: ranks[r]['runs'][name] for r in sorted(ranks)}
+        emit({**base, 'case': name, 'launches_by_rank': {
+            r: run['launches'] for r, run in by_rank.items()},
+            'wall_ms_by_rank': {r: run['wall_ms']
+                                for r, run in by_rank.items()}})
+        for r, run in by_rank.items():
+            folds, _, pos = zz_expected(name, r, SP_RANKS)
+            for n, (got, alibi, got_pos) in run['launches'].items():
+                if [got, alibi, got_pos] != [folds, folds, pos]:
+                    failures.append(
+                        f'{name} rank {r} {n}: (launches, ALiBi, positions) '
+                        f'{[got, alibi, got_pos]}, want {[folds, folds, pos]}')
+        launches[name] = {n: [by_rank[r]['launches'][n][0]
+                              for r in sorted(by_rank)] for n in ZZ_KERNELS}
+    r0 = ranks[0]
+    if not r0['finite']:
+        failures.append('zigzag_ring: non-finite output or gradient')
+    for name, errs in r0['errs'].items():
+        emit({**base, 'case': name,
+              'max_row_rel_err': {n: e[0] for n, e in errs.items()},
+              'rel_err': {n: e[1] for n, e in errs.items()},
+              'tol': {'row_rel': SP_TOL_BF16_ROW, 'rel': SP_TOL_BF16}})
+        for n, (row, whole) in errs.items():
+            if not (row <= SP_TOL_BF16_ROW and whole <= SP_TOL_BF16):
+                failures.append(f'{name} {n}: row {row}, whole {whole} > '
+                                f'({SP_TOL_BF16_ROW}, {SP_TOL_BF16})')
+    # Each rank's folds, one process alone on the card.
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.int32,
+                        device=torch.device('cuda'))
+    gen = torch.Generator().manual_seed(29)
+    folds = {}
+    for layout in ('contiguous', 'zigzag'):
+        per_rank = [_zz_fold_ms(torch, flush, gen, layout, r, SP_RANKS)
+                    for r in range(SP_RANKS)]
+        totals = [sum(x) for x in per_rank]
+        mean = statistics.mean(totals)
+        folds[layout] = {'fold_ms_by_rank': per_rank,
+                         'rank_ms': totals, 'slowest_ms': max(totals),
+                         'mean_ms': mean,
+                         'slowest_over_mean': max(totals) / mean}
+    del flush
+    torch.cuda.empty_cache()
+    emit({**base, 'case': 'fold_times',
+          'timing': 'device ms per fold (K1 with lse + K3 + K4 float32, '
+                    'ALiBi), one process alone on the card',
+          **folds, 'seconds': seconds, 'backend': backend})
+    check(not failures, '; '.join(failures))
+    return {'launches': launches, 'folds': folds}
 
 
 def _ds_module(torch, ddp, dev, dtype=None, impl=None, key_dim=None,
@@ -3478,7 +4176,9 @@ def main():
             ('train_path', lambda: phase_train_path(torch, ddp)),
             ('train_cpu_reference',
              lambda: phase_train_cpu_reference(torch, ddp)),
+            ('alibi_lm', lambda: phase_alibi_lm(torch, ddp)),
             ('seq_parallel', lambda: phase_seq_parallel(torch, ddp)),
+            ('zigzag_ring', lambda: phase_zigzag_ring(torch, ddp)),
             ('decode_sharded', lambda: phase_decode_sharded(torch, ddp)),
             ('flagship', lambda: phase_flagship(torch, ddp)))
         for phase, run in phases:
@@ -3508,6 +4208,7 @@ def main():
     fs = res['flagship']
     ver, i8 = res['flash_decode_verify'], res['flash_decode_int8']
     spec, int8_path = res['spec_serve'], res['int8_decode']
+    alibi, zz = res['alibi_lm'], res['zigzag_ring']
 
     def variant(cases, head, launches, path):
         """A verify / int8 variant of K5 or K5p: its launches on the path
@@ -3536,6 +4237,14 @@ def main():
                      int8_path['paged']['launches']['flash_decode_paged.int8'],
                      f'int8_decode, {INT8_PAGED_STEPS} decode_step calls '
                      f'on a paged int8 cache'))
+    k5['variants']['alibi'] = variant(
+        k5['variants']['alibi'], 'alibi_n1',
+        alibi['greedy']['flash_decode'],
+        f'alibi_lm greedy run, {STEPS - 1} steps x {LAYERS} layers')
+    k5p['variants']['alibi'] = variant(
+        k5p['variants']['alibi'], 'alibi_n1',
+        alibi['paged']['flash_decode_paged'],
+        f'alibi_lm paged route, {STEPS - 1} steps x {LAYERS} layers')
 
     # K1, K3, K4: launches on the training path (beside them the serving
     # path's and each sequence-parallel strategy's, rank 0 over its
@@ -3548,9 +4257,12 @@ def main():
     # variants (`variants`; verify launches on the spec_serve runs, int8
     # on int8_decode), and K5 its launches per rank on the 64
     # sequence-sharded steps (decode_sharded). K1/K3/K4 also carry their
-    # segment / window / dropout / int8 variants' times (flash_masks,
-    # `masks`) and their launches on the flagship stages (rank 0 over
-    # FS_STEPS train steps).
+    # segment / window / dropout / int8 / ALiBi / positions variants' times
+    # (flash_masks, `masks`; K2's positions variant too) and their
+    # launches on the flagship stages (rank 0 over FS_STEPS train steps),
+    # on alibi_lm and on zigzag_ring (per rank). K5 and K5p carry their
+    # ALiBi variants with their launches on alibi_lm's greedy run and
+    # paged route.
     csrc = 'distributed_dot_product_tpu_torch/csrc/'
     tpu = 'distributed_dot_product_tpu/ops/'
     k1_err = max(k1['max_abs_err'], bwd_err['out'], feat_err['out'])
@@ -3561,6 +4273,16 @@ def main():
                 **{f'flagship_{stage}': counts[kernel]
                    for stage, counts in fs.items()
                    if counts.get(kernel)}}
+
+    def alibi_paths(kernel):
+        """The kernel's launches on alibi_lm (3 train steps; the greedy
+        run) and zigzag_ring (per rank, one forward and backward)."""
+        return {f'alibi_lm_train_{ALIBI_TRAIN_STEPS}_steps':
+                alibi['train'][kernel],
+                **({'alibi_lm_greedy': alibi['greedy'][kernel]}
+                   if alibi['greedy'][kernel] else {}),
+                **{f'zigzag_ring_{name}_by_rank': counts[kernel]
+                   for name, counts in zz['launches'].items()}}
     kernels = [
         dict(name='flash_attention', source=csrc + 'flash_fwd.cu',
              replaces=tpu + 'pallas_attention.py:630',
@@ -3568,7 +4290,8 @@ def main():
              launches_by_path={
                  'serve': serve_launches['flash_attention'],
                  'train': train_launches['flash_attention'],
-                 **sp_paths('flash_attention')},
+                 **sp_paths('flash_attention'),
+                 **alibi_paths('flash_attention')},
              max_abs_err=k1_err, lse_max_abs_err=max(bwd_err['lse'],
                                                      feat_err['lse']),
              max_row_rel_err=max(k1['max_row_rel_err'],
@@ -3582,13 +4305,15 @@ def main():
              launches=sp['flash_bounded']['flash_attention_bounded'],
              launches_by_path=sp_paths('flash_attention_bounded'),
              max_abs_err=feat_err['bounded'],
+             masks=mask_time['flash_attention_bounded'],
              **feat_time['flash_attention_bounded']),
         dict(name='flash_attention_dq', source=csrc + 'flash_bwd.cu',
              replaces=tpu + 'pallas_attention.py:1228',
              launches=train_launches['flash_attention_dq'],
              launches_by_path={
                  'train': train_launches['flash_attention_dq'],
-                 **sp_paths('flash_attention_dq')},
+                 **sp_paths('flash_attention_dq'),
+                 **alibi_paths('flash_attention_dq')},
              max_abs_err=max(bwd_err['dq'], feat_err['dq']),
              max_row_rel_err=bwd_err['dq_row_rel'],
              masked_fold_f32=feat_time['flash_attention_dq'],
@@ -3600,7 +4325,8 @@ def main():
              launches=train_launches['flash_attention_dkv'],
              launches_by_path={
                  'train': train_launches['flash_attention_dkv'],
-                 **sp_paths('flash_attention_dkv')},
+                 **sp_paths('flash_attention_dkv'),
+                 **alibi_paths('flash_attention_dkv')},
              max_abs_err=max(bwd_err['dk'], bwd_err['dv'], feat_err['dk'],
                              feat_err['dv']),
              max_row_rel_err=max(bwd_err['dk_row_rel'],
@@ -3621,7 +4347,8 @@ def main():
                      p: spec[f'slab_{p}']['launches']['flash_decode']
                      for p in SPEC_PROPOSERS},
                  'int8_decode': int8_path['launches']['flash_decode'],
-                 'decode_sharded_per_rank': ds['launches_per_rank']},
+                 'decode_sharded_per_rank': ds['launches_per_rank'],
+                 'alibi_lm_greedy': alibi['greedy']['flash_decode']},
              max_abs_err=k5['max_abs_err'],
              variants=k5['variants'],
              **{key: k5[key] for key in ('ms', 'plain_ms', 'library_ms',
@@ -3636,7 +4363,8 @@ def main():
                      p: spec[f'paged_{p}']['launches']['flash_decode_paged']
                      for p in SPEC_PROPOSERS},
                  'int8_decode_paged':
-                     int8_path['paged']['launches']['flash_decode_paged']},
+                     int8_path['paged']['launches']['flash_decode_paged'],
+                 'alibi_lm_paged': alibi['paged']['flash_decode_paged']},
              max_abs_err=k5p['max_abs_err'],
              variants=k5p['variants'],
              **{key: k5p[key] for key in ('ms', 'plain_ms', 'library_ms',

@@ -8,10 +8,10 @@
 // strides as in csrc/flash_fwd.cu), GQA, and gradients written in bf16 or,
 // for the ring path that sums W fold partials, in float32 (`grad_dtype`);
 // and (the Ext instantiations) segment ids, a sliding window, the
-// coordinate-hash dropout and int8 scoring with its straight-through
-// backward, applied as K1 applies them (see csrc/flash_fwd.cu); no
-// explicit positions and no ALiBi. The gradient of K2, the bounded
-// forward, is these kernels from its lse.
+// coordinate-hash dropout, int8 scoring with its straight-through
+// backward, ALiBi and explicit global positions, applied as K1 applies
+// them (see csrc/flash_fwd.cu). The gradient of K2, the bounded forward,
+// is these kernels from its lse.
 //
 // Both recompute the softmax weights from the forward's row logsumexp
 // instead of storing them: with q2 = q*scale*log2(e) (rounded to bf16),
@@ -51,7 +51,12 @@
 // the same int8 operands (s8 x s8 -> s32 wmma, chunk-major tiles as in
 // K1), so p matches the saved lse; the products that take q or k use them
 // dequantized with their raw row scales and rounded to bf16 (dq = scale *
-// ds.k~, dk = scale * ds^T.q~), the straight-through gradient.
+// ds.k~, dk = scale * ds^T.q~), the straight-through gradient. ALiBi
+// adds K1's bias to the recomputed scores (the slopes are constants: no
+// slope gradient). Positions mask, window and key the dropout hash as in
+// K1, and skip the tiles K1 skips: dq the key tiles of its query tile,
+// dk/dv the query tiles of its key tile, from the same per-tile [min,
+// max] tables (read per query (batch, head) row, as the positions are).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -111,6 +116,9 @@ struct ExtArgs {
   const float* skr;
   const float* sqc;
   const float* skc;
+  const float* alibi;
+  VecArgs posq, posk;
+  VecArgs posq_mm, posk_mm;
 };
 
 __device__ __forceinline__ const int* vec_row(const VecArgs& a, int bh) {
@@ -285,7 +293,8 @@ constexpr size_t dq_smem_bytes() {
                          + kB * kB)     // sDS
          + sizeof(float) * 2 * kB * kB  // sS, sDP (the epilogue's stage)
          + (Quant ? kB * D : 0)         // sK8
-         + (Ext ? kB * (sizeof(int) + sizeof(float)) : 0);  // sSegK, sSkr
+         + (Ext ? kB * (2 * sizeof(int) + sizeof(float))
+                : 0);   // sSegK, sSkr, sPosK
 }
 
 template <int D, bool HasMask, typename OutT, bool Ext, bool Quant>
@@ -314,6 +323,7 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q2, const bf16* __restrict__ k,
   signed char* sK8 = reinterpret_cast<signed char*>(sDP + kB * kB);
   int* sSegK = reinterpret_cast<int*>(sK8 + (Quant ? kB * D : 0));
   float* sSkr = reinterpret_cast<float*>(sSegK + kB);
+  int* sPosK = reinterpret_cast<int*>(sSkr + kB);
 
   // Late query tiles see the most keys under causal masking: first.
   const int tile = n_qtiles - 1 - static_cast<int>(blockIdx.x);
@@ -365,7 +375,10 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q2, const bf16* __restrict__ k,
   int seg_r = 0;
   const int* segk_row = nullptr;
   unsigned int drop_rh = 0u, drop_bs = 0u;
-  float sqf_r = 0.f;
+  float sqf_r = 0.f, slope = 0.f;
+  int pos_r = 0, qmin = 0, qmax = 0;
+  const int* posk_row = nullptr;
+  const int* posk_mm = nullptr;
   if constexpr (Ext) {
     if (row_ok && mask.ptr != nullptr)
       mrow = mask_base(mask, bh) +
@@ -374,7 +387,16 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q2, const bf16* __restrict__ k,
       segk_row = vec_row(ext.segk, bh);
       seg_r = row_ok ? vec_row(ext.segq, bh)[q0 + my_row] : 0;
     }
-    drop_rh = static_cast<unsigned int>(causal_offset + q0 + my_row) *
+    if (ext.alibi != nullptr) slope = ext.alibi[bh];
+    if (ext.posk.ptr != nullptr) {
+      posk_row = vec_row(ext.posk, bh);
+      posk_mm = vec_row(ext.posk_mm, bh);
+      pos_r = row_ok ? vec_row(ext.posq, bh)[q0 + my_row] : 0;
+      qmin = vec_row(ext.posq_mm, bh)[2 * tile];
+      qmax = vec_row(ext.posq_mm, bh)[2 * tile + 1];
+    }
+    drop_rh = static_cast<unsigned int>(
+                  posk_row != nullptr ? pos_r : causal_offset + q0 + my_row) *
               2654435761u;
     drop_bs = ext.seed + static_cast<unsigned int>(bh) * 668265263u;
     if constexpr (Quant) sqf_r = row_ok ? ext.sqf[qoff + q0 + my_row] : 0.f;
@@ -386,6 +408,15 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q2, const bf16* __restrict__ k,
 
   for (int t = t_begin; t < n_ktiles; ++t) {
     const int k0 = t * kB;
+    if constexpr (Ext) {
+      // Positions: K1's tile skip (the same decision in every thread).
+      if (posk_mm != nullptr &&
+          (posk_mm[2 * t] > qmax ||
+           (ext.window > 0 &&
+            static_cast<long long>(qmin) - posk_mm[2 * t + 1] >=
+                ext.window)))
+        continue;
+    }
     __syncthreads();   // all warps done with the previous sK/sV
     if constexpr (Quant)
       load_i8_tile<D>(sK8, ext.k8 + static_cast<size_t>(bkv) * tk * D, k0,
@@ -397,6 +428,7 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q2, const bf16* __restrict__ k,
       for (int i = threadIdx.x; i < kB; i += kThreads) {
         const bool ok = k0 + i < tk;
         sSegK[i] = (segk_row != nullptr && ok) ? segk_row[k0 + i] : 0;
+        sPosK[i] = (posk_row != nullptr && ok) ? posk_row[k0 + i] : 0;
         if constexpr (Quant)
           sSkr[i] = ok ? ext.skr[static_cast<size_t>(bkv) * tk + k0 + i]
                        : 0.f;
@@ -423,16 +455,27 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q2, const bf16* __restrict__ k,
       float sc = srow[c];
       float dpv = dprow[c];
       if constexpr (Ext) {
+        // pos_q - pos_k, as in K1.
+        const long long back = posk_row != nullptr
+                                   ? static_cast<long long>(pos_r) -
+                                         sPosK[half * 32 + c]
+                                   : row_pos - col;
         if (mrow != nullptr) valid = valid && !mrow[col];
-        if (ext.window > 0) valid = valid && row_pos - col < ext.window;
+        if (posk_row != nullptr) valid = valid && back >= 0;
+        if (ext.window > 0) valid = valid && back < ext.window;
         if (segk_row != nullptr)
           valid = valid && seg_r == sSegK[half * 32 + c];
         if constexpr (Quant)
           sc = static_cast<float>(reinterpret_cast<const int*>(srow)[c]) *
                sqf_r * sSkr[half * 32 + c];
+        if (ext.alibi != nullptr)
+          sc = __fadd_rn(sc, __fmul_rn(slope, static_cast<float>(-back)));
         if (ext.dropout) {
           const unsigned int ch =
-              static_cast<unsigned int>(kv_offset + col) * 2246822519u;
+              static_cast<unsigned int>(posk_row != nullptr
+                                            ? sPosK[half * 32 + c]
+                                            : kv_offset + col) *
+              2246822519u;
           dpv = drop_hash(drop_rh, ch, drop_bs) >= ext.drop_threshold
                     ? dpv * ext.drop_inv : 0.f;
         }
@@ -456,7 +499,8 @@ constexpr size_t dkv_smem_bytes() {
          + sizeof(float) * (2 * kB * kB // sST, sDPT (the epilogue's stage)
                             + 2 * kB)   // sLse, sDelta
          + (Quant ? kB * D : 0)         // sQ8
-         + (Ext ? kB * (sizeof(int) + sizeof(float)) : 0);  // sSegQ, sSqf
+         + (Ext ? kB * (2 * sizeof(int) + sizeof(float))
+                : 0);   // sSegQ, sSqf, sPosQ
 }
 
 template <int D, bool HasMask, typename OutT, bool Ext, bool Quant>
@@ -488,6 +532,7 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q2, const bf16* __restrict__ k,
   signed char* sQ8 = reinterpret_cast<signed char*>(sDelta + kB);
   int* sSegQ = reinterpret_cast<int*>(sQ8 + (Quant ? kB * D : 0));
   float* sSqf = reinterpret_cast<float*>(sSegQ + kB);
+  int* sPosQ = reinterpret_cast<int*>(sSqf + kB);
 
   // Early key tiles are seen by the most query rows under causal masking.
   const int k0 = static_cast<int>(blockIdx.x) * kB;
@@ -552,6 +597,13 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q2, const bf16* __restrict__ k,
     int segk_r = 0;
     const int* segq_row = nullptr;
     unsigned int drop_bs = 0u;
+    // Ext: the head's ALiBi slope; positions: the key row's position, the
+    // query side's position row and both sides' tile [min, max] tables
+    // (read per query head, as the positions are addressed).
+    float slope = 0.f;
+    int posk_r = 0, kmin = 0, kmax = 0;
+    const int* posq_row = nullptr;
+    const int* posq_mm = nullptr;
     if constexpr (Ext) {
       if (mask.ptr != nullptr) mbase = mask_base(mask, bh);
       if (ext.segq.ptr != nullptr) {
@@ -559,9 +611,27 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q2, const bf16* __restrict__ k,
         segk_r = krow_ok ? vec_row(ext.segk, bh)[kpos] : 0;
       }
       drop_bs = ext.seed + static_cast<unsigned int>(bh) * 668265263u;
+      if (ext.alibi != nullptr) slope = ext.alibi[bh];
+      if (ext.posk.ptr != nullptr) {
+        posq_row = vec_row(ext.posq, bh);
+        posq_mm = vec_row(ext.posq_mm, bh);
+        posk_r = krow_ok ? vec_row(ext.posk, bh)[kpos] : 0;
+        kmin = vec_row(ext.posk_mm, bh)[2 * blockIdx.x];
+        kmax = vec_row(ext.posk_mm, bh)[2 * blockIdx.x + 1];
+        drop_ch = static_cast<unsigned int>(posk_r) * 2246822519u;
+      }
     }
     for (int qt = qt_begin; qt < qt_end; ++qt) {
       const int q0 = qt * kB;
+      if constexpr (Ext) {
+        // Positions: skip a query tile that sees none of this key tile
+        // (K1's skip, seen from the key side).
+        if (posq_mm != nullptr &&
+            (kmin > posq_mm[2 * qt + 1] ||
+             (ext.window > 0 &&
+              static_cast<long long>(posq_mm[2 * qt]) - kmax >= ext.window)))
+          continue;
+      }
       __syncthreads();   // all warps done with the previous query tile
       if constexpr (Quant)
         load_i8_tile<D>(sQ8, ext.q8 + qoff * D, q0, tq, sQ, ext.sqc + qoff);
@@ -574,6 +644,7 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q2, const bf16* __restrict__ k,
         sDelta[i] = ok ? delta[qoff + q0 + i] : 0.f;
         if constexpr (Ext) {
           sSegQ[i] = (segq_row != nullptr && ok) ? segq_row[q0 + i] : 0;
+          sPosQ[i] = (posq_row != nullptr && ok) ? posq_row[q0 + i] : 0;
           if constexpr (Quant) sSqf[i] = ok ? ext.sqf[qoff + q0 + i] : 0.f;
         }
       }
@@ -604,18 +675,27 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q2, const bf16* __restrict__ k,
         float dpv = dptrow[c];
         float keep_mul = 1.f;
         if constexpr (Ext) {
+          // pos_q - pos_k, as in K1.
+          const long long back = posq_row != nullptr
+                                     ? static_cast<long long>(sPosQ[qc]) -
+                                           posk_r
+                                     : rel + q0 + qc - kpos;
           if (mbase != nullptr)
             valid = valid &&
                     !mbase[static_cast<long long>(q0 + qc) * mask.sr + kpos];
-          if (ext.window > 0)
-            valid = valid && rel + q0 + qc - kpos < ext.window;
+          if (posq_row != nullptr) valid = valid && back >= 0;
+          if (ext.window > 0) valid = valid && back < ext.window;
           if (segq_row != nullptr) valid = valid && sSegQ[qc] == segk_r;
           if constexpr (Quant)
             sc = static_cast<float>(reinterpret_cast<const int*>(strow)[c]) *
                  sSqf[qc] * skr_r;
+          if (ext.alibi != nullptr)
+            sc = __fadd_rn(sc, __fmul_rn(slope, static_cast<float>(-back)));
           if (ext.dropout) {
             const unsigned int rh =
-                static_cast<unsigned int>(causal_offset + q0 + qc) *
+                static_cast<unsigned int>(posq_row != nullptr
+                                              ? sPosQ[qc]
+                                              : causal_offset + q0 + qc) *
                 2654435761u;
             keep_mul = drop_hash(rh, drop_ch, drop_bs) >= ext.drop_threshold
                            ? ext.drop_inv : 0.f;
@@ -706,10 +786,10 @@ MaskArgs mask_args(const void* mask, int inner, long long so, long long si,
 // delta (batch_heads, tq) float32; dq like q2, in float32 when out_f32 and
 // in bf16 otherwise. mask: null, or bytes addressed as MaskArgs (inner =
 // heads; strides in bytes). ext: null (the base instantiations), or the
-// segments, window, dropout and int8 operands of ExtArgs (the Ext
-// instantiations; with int8 operands q2 is unused and k is read only for
-// its shape). All contiguous, bf16 unless stated. Returns a cudaError_t
-// code (0 = launched).
+// segments, window, dropout, int8 operands, ALiBi slopes and positions of
+// ExtArgs (the Ext instantiations; with int8 operands q2 is unused and k is
+// read only for its shape). All contiguous, bf16 unless stated. Returns a
+// cudaError_t code (0 = launched).
 extern "C" int flash_bwd_dq_bf16(const void* q2, const void* k,
                                  const void* v, const void* g,
                                  const void* lse2, const void* delta,

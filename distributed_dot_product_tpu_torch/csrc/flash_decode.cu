@@ -6,7 +6,7 @@
 // `kernel_body` (K5, flash_decode_bf16) and the paged body `kernel_paged`
 // (K5p, flash_decode_paged_bf16) — with verify-k (n new rows per slot,
 // each slot appending its own count of them), the sliding window, the
-// partial outputs and the int8 K mirror, without ALiBi.
+// partial outputs, the int8 K mirror and ALiBi.
 //
 // What bounds it on the H100: one query row per head against the cached
 // prefix is ~1 FLOP per byte of K/V streamed, far below the card's ~295
@@ -49,6 +49,15 @@
 // then only written (the append), never read. The new rows' scores come
 // from their quantized copies, and the mirror rows (int8 and their
 // float32 scales) are appended in place beside the bf16 rows.
+//
+// ALiBi: query head g's score at column col of new row j gains
+// slope_g * (col - (valid_to + j)), after the appended rows' scores have
+// replaced the buffer's (the TPU kernel's order), slopes pre-folded by
+// log2(e) by the wrapper; the multiply and the add round separately
+// (__fmul_rn, __fadd_rn), as the plain version's two tensor operations
+// do, so the int8 scores stay bit-equal to it. With partial outputs the
+// same distance holds on every rank's slab, whose valid_to is already
+// localised there.
 //
 // A row attends columns lo..hi: hi is valid_to clamped to the slab (a
 // shard of a sequence-sharded slab sees valid_to >= t_max when the slab
@@ -157,7 +166,8 @@ struct Rows {
 // int8 mirror (k_q != nullptr): q_i8 (batch, h, n, D) with q_scale
 // (batch, h, n) = row scale * scale * log2(e), kn_i8 (batch, h_kv, n, D)
 // with kn_scale (batch, h_kv, n), and the mirror k_q / k_scale laid out
-// as the bf16 cache with D and 1 elements per row. Scratch part_acc
+// as the bf16 cache with D and 1 elements per row. alibi: null, or (h,)
+// slopes * log2(e) per query head. Scratch part_acc
 // (batch*h*n, n_splits, D) and part_ml (batch*h*n, n_splits, 2).
 // Outputs: out (batch, h, n, D) bf16, or with num != nullptr the
 // partials num (batch, h, n, D), m and l (batch, h, n), all f32.
@@ -177,6 +187,7 @@ struct Args {
   const float* kn_scale;
   int8_t* k_q;
   float* k_scale;
+  const float* alibi;
   float* part_acc;
   float* part_ml;
   bf16* out;
@@ -371,6 +382,9 @@ decode_split_kernel(const Args a) {
         dot += __shfl_xor_sync(0xffffffffu, dot, 2);
         s = dot;
       }
+      if (a.alibi != nullptr)
+        s = __fadd_rn(s, __fmul_rn(a.alibi[hk * group + r % group],
+                                   static_cast<float>(col - vt - r / group)));
       if (c < ncols_u && sub == 0)
         sS[r * kChunk + (col - c0)] = scored ? s : -INFINITY;
     }
@@ -550,9 +564,9 @@ Args make_args(const void* q, const void* k_new, const void* v_new,
                const void* page_table, const void* q_i8,
                const void* q_scale, const void* kn_i8,
                const void* kn_scale, void* k_q, void* k_scale,
-               void* part_acc, void* part_ml, void* out, void* num, void* m,
-               void* l, int h, int h_kv, int n, int t_max, int page_size,
-               int window, float qscale) {
+               const void* alibi, void* part_acc, void* part_ml, void* out,
+               void* num, void* m, void* l, int h, int h_kv, int n,
+               int t_max, int page_size, int window, float qscale) {
   Args a;
   a.q = static_cast<const bf16*>(q);
   a.k_new = static_cast<const bf16*>(k_new);
@@ -569,6 +583,7 @@ Args make_args(const void* q, const void* k_new, const void* v_new,
   a.kn_scale = static_cast<const float*>(kn_scale);
   a.k_q = static_cast<int8_t*>(k_q);
   a.k_scale = static_cast<float*>(k_scale);
+  a.alibi = static_cast<const float*>(alibi);
   a.part_acc = static_cast<float*>(part_acc);
   a.part_ml = static_cast<float*>(part_ml);
   a.out = static_cast<bf16*>(out);
@@ -601,21 +616,23 @@ extern "C" int flash_decode_smem(int rows, int d) {
 // The slab step (K5). Operands as `Args` above: q (batch, h, n, d);
 // k_new/v_new (batch, h_kv, n, d); cache_k/cache_v (batch, h_kv, t_max,
 // d), appended in place; valid_to/append_at/n_new (batch,) int32; the
-// int8 mirror pointers null for float scoring; part_acc/part_ml f32
-// scratch; out, or num/m/l for the partial outputs. window <= 0: no
-// window. Returns a cudaError_t code (0 = launched).
+// int8 mirror pointers null for float scoring; alibi null or (h,) f32
+// slopes * log2(e); part_acc/part_ml f32 scratch; out, or num/m/l for the
+// partial outputs. window <= 0: no window. Returns a cudaError_t code (0 =
+// launched).
 extern "C" int flash_decode_bf16(
     const void* q, const void* k_new, const void* v_new, void* cache_k,
     void* cache_v, const void* valid_to, const void* append_at,
     const void* n_new, const void* q_i8, const void* q_scale,
     const void* kn_i8, const void* kn_scale, void* k_q, void* k_scale,
-    void* part_acc, void* part_ml, void* out, void* num, void* m, void* l,
-    int batch, int h, int h_kv, int n, int t_max, int d, int window,
-    float qscale, void* stream) {
+    const void* alibi, void* part_acc, void* part_ml, void* out, void* num,
+    void* m, void* l, int batch, int h, int h_kv, int n, int t_max, int d,
+    int window, float qscale, void* stream) {
   const Args a = make_args(q, k_new, v_new, cache_k, cache_v, valid_to,
                            append_at, n_new, nullptr, q_i8, q_scale, kn_i8,
-                           kn_scale, k_q, k_scale, part_acc, part_ml, out,
-                           num, m, l, h, h_kv, n, t_max, 1, window, qscale);
+                           kn_scale, k_q, k_scale, alibi, part_acc, part_ml,
+                           out, num, m, l, h, h_kv, n, t_max, 1, window,
+                           qscale);
   return dispatch<false>(a, batch, d, stream);
 }
 
@@ -628,16 +645,16 @@ extern "C" int flash_decode_paged_bf16(
     void* v_pool, const void* valid_to, const void* append_at,
     const void* n_new, const void* page_table, const void* q_i8,
     const void* q_scale, const void* kn_i8, const void* kn_scale,
-    void* k_q, void* k_scale, void* part_acc, void* part_ml, void* out,
-    void* num, void* m, void* l, int batch, int h, int h_kv, int n,
-    int pages_per_slot, int page_size, int d, int window, float qscale,
-    void* stream) {
+    void* k_q, void* k_scale, const void* alibi, void* part_acc,
+    void* part_ml, void* out, void* num, void* m, void* l, int batch, int h,
+    int h_kv, int n, int pages_per_slot, int page_size, int d, int window,
+    float qscale, void* stream) {
   if (page_size < 1 || kChunk % page_size)
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a = make_args(q, k_new, v_new, k_pool, v_pool, valid_to,
                            append_at, n_new, page_table, q_i8, q_scale,
-                           kn_i8, kn_scale, k_q, k_scale, part_acc, part_ml,
-                           out, num, m, l, h, h_kv, n,
+                           kn_i8, kn_scale, k_q, k_scale, alibi, part_acc,
+                           part_ml, out, num, m, l, h, h_kv, n,
                            pages_per_slot * page_size, page_size, window,
                            qscale);
   return dispatch<true>(a, batch, d, stream);

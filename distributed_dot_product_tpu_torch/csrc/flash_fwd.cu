@@ -7,8 +7,8 @@
 // host-int global offsets of query row 0 and key column 0, a dense boolean
 // mask, GQA, the optional row logsumexp that the backward recomputes from,
 // and (the Ext instantiations) segment ids, a sliding window, the
-// coordinate-hash dropout and int8 QK^T scoring; no explicit positions and
-// no ALiBi.
+// coordinate-hash dropout, int8 QK^T scoring, ALiBi and explicit global
+// positions.
 //
 // What bounds it on the H100: at the prefill shape (Tq = 1000 query rows
 // against a 2048-row cache, head dim 96, causal) the work is ~6 GFLOP per
@@ -60,6 +60,22 @@
 //    only, the row sum l (and so lse) stays undropped.
 //  - a dense mask is read at run time (ExtArgs instantiations carry no
 //    HasMask flag).
+//  - positions (the zigzag ring's folds): one int32 global position per
+//    query row and per key column, with causal off. A pair is masked when
+//    pos_q < pos_k, and with a window when pos_q - pos_k >= window; the
+//    dropout hash keys on (pos_q, pos_k). A key tile is skipped when its
+//    smallest position exceeds the query tile's largest, or with a window
+//    when its largest lies a window or more before the query tile's
+//    smallest: the wrapper passes each 64-row tile's [min, max] of both
+//    vectors (the reference's _pos_setup tables), so the zigzag layout's
+//    future half-blocks are never loaded.
+//  - ALiBi: slope * (pos_k - pos_q) added to the log2-unit score after
+//    the scoring and before the masks (the reference's _apply_masks
+//    order), with the slope per flat (batch, head) row pre-folded by
+//    log2(e) by the wrapper and the distance over global positions: the
+//    position vectors when given, else kv_offset + j - (causal_offset +
+//    i). Both operations round separately (__fmul_rn, __fadd_rn), as the
+//    plain version's two tensor operations do.
 // Quant (with Ext): q and k arrive as per-row int8 with float32 row scales
 // (sqf = the q scale times scale*log2(e), skr = the raw k scale); the
 // score tile is an s8 x s8 -> s32 tensor-core product (wmma signed char
@@ -132,6 +148,9 @@ struct ExtArgs {
   const float* skr;            // (batch_heads / group, tk): raw k row scale
   const float* sqc;            // raw q row scale (backward)
   const float* skc;            // raw k row scale (backward)
+  const float* alibi;          // (batch_heads,): slope * log2e; null: none
+  VecArgs posq, posk;          // global positions; posk.ptr null: none
+  VecArgs posq_mm, posk_mm;    // per 64-row tile: [min, max] of posq/posk
 };
 
 __device__ __forceinline__ const int* vec_row(const VecArgs& a, int bh) {
@@ -178,7 +197,8 @@ constexpr size_t smem_bytes() {
                          + kBQ * kBK)   // sP
          + sizeof(float) * (kBQ * kBK   // sS
                             + kBQ * D)  // sO
-         + (Ext ? kBK * (sizeof(int) + sizeof(float)) : 0);  // sSegK, sSkr
+         + (Ext ? kBK * (2 * sizeof(int) + sizeof(float))
+                : 0);   // sSegK, sSkr, sPosK
 }
 
 template <int D, bool HasMask, bool Bounded, bool Ext, bool Quant>
@@ -204,6 +224,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   // the int8 q and k tiles in the sQ / sK regions.
   int* sSegK = reinterpret_cast<int*>(sO + kBQ * D);
   float* sSkr = reinterpret_cast<float*>(sSegK + kBK);
+  int* sPosK = reinterpret_cast<int*>(sSkr + kBK);
   signed char* sQ8 = reinterpret_cast<signed char*>(sQ);
   signed char* sK8 = reinterpret_cast<signed char*>(sK);
 
@@ -273,11 +294,16 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const unsigned char* mrow =
       (HasMask && row_ok) ? mask_row(mask, bh, q0 + my_row) : nullptr;
   // Ext: the row's segment id, the key side's id row, the dropout hash's
-  // row and batch terms; Quant: the row's folded q scale.
+  // row and batch terms, the row's ALiBi slope, its global position and
+  // the key side's position row (with the tiles' [min, max]); Quant: the
+  // row's folded q scale.
   int seg_r = 0;
   const int* segk_row = nullptr;
   unsigned int drop_rh = 0u, drop_bs = 0u;
-  float sqf_r = 0.f;
+  float sqf_r = 0.f, slope = 0.f;
+  int pos_r = 0, qmin = 0, qmax = 0;
+  const int* posk_row = nullptr;
+  const int* posk_mm = nullptr;
   if constexpr (Ext) {
     if (row_ok && mask.ptr != nullptr)
       mrow = mask_row(mask, bh, q0 + my_row);
@@ -285,7 +311,16 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       segk_row = vec_row(ext.segk, bh);
       seg_r = row_ok ? vec_row(ext.segq, bh)[q0 + my_row] : 0;
     }
-    drop_rh = static_cast<unsigned int>(causal_offset + q0 + my_row) *
+    if (ext.alibi != nullptr) slope = ext.alibi[bh];
+    if (ext.posk.ptr != nullptr) {
+      posk_row = vec_row(ext.posk, bh);
+      posk_mm = vec_row(ext.posk_mm, bh);
+      pos_r = row_ok ? vec_row(ext.posq, bh)[q0 + my_row] : 0;
+      qmin = vec_row(ext.posq_mm, bh)[2 * tile];
+      qmax = vec_row(ext.posq_mm, bh)[2 * tile + 1];
+    }
+    drop_rh = static_cast<unsigned int>(
+                  posk_row != nullptr ? pos_r : causal_offset + q0 + my_row) *
               2654435761u;
     drop_bs = ext.seed + static_cast<unsigned int>(bh) * 668265263u;
     if constexpr (Quant)
@@ -300,6 +335,17 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   for (int t = t_begin; t < n_ktiles; ++t) {
     const int k0 = t * kBK;
+    if constexpr (Ext) {
+      // Positions: a key tile wholly in the query tile's future, or wholly
+      // a window or more in its past, is never loaded (the same decision
+      // in every thread of the block).
+      if (posk_mm != nullptr &&
+          (posk_mm[2 * t] > qmax ||
+           (ext.window > 0 &&
+            static_cast<long long>(qmin) - posk_mm[2 * t + 1] >=
+                ext.window)))
+        continue;
+    }
     __syncthreads();   // all warps done with the previous sK/sV
     if constexpr (Quant) {
       load_i8_tile<D>(sK8, ext.k8 + static_cast<size_t>(bkv) * tk * D, k0,
@@ -330,6 +376,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int i = threadIdx.x; i < kBK; i += kThreads) {
         const bool ok = k0 + i < tk;
         sSegK[i] = (segk_row != nullptr && ok) ? segk_row[k0 + i] : 0;
+        sPosK[i] = (posk_row != nullptr && ok) ? posk_row[k0 + i] : 0;
         if constexpr (Quant)
           sSkr[i] = ok ? ext.skr[static_cast<size_t>(bkv) * tk + k0 + i]
                        : 0.f;
@@ -385,13 +432,21 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       if constexpr (HasMask) valid = valid && mrow != nullptr && !mrow[col];
       float sc = srow[c];
       if constexpr (Ext) {
+        // pos_q - pos_k: explicit positions, else the offsets' arithmetic.
+        const long long back = posk_row != nullptr
+                                   ? static_cast<long long>(pos_r) -
+                                         sPosK[half * 32 + c]
+                                   : row_pos - col;
         if (mrow != nullptr) valid = valid && !mrow[col];
-        if (ext.window > 0) valid = valid && row_pos - col < ext.window;
+        if (posk_row != nullptr) valid = valid && back >= 0;
+        if (ext.window > 0) valid = valid && back < ext.window;
         if (segk_row != nullptr)
           valid = valid && seg_r == sSegK[half * 32 + c];
         if constexpr (Quant)
           sc = static_cast<float>(reinterpret_cast<const int*>(srow)[c]) *
                sqf_r * sSkr[half * 32 + c];
+        if (ext.alibi != nullptr)
+          sc = __fadd_rn(sc, __fmul_rn(slope, static_cast<float>(-back)));
       }
       sv[c] = valid ? sc : -INFINITY;
       if constexpr (!Bounded) mx = fmaxf(mx, sv[c]);
@@ -412,7 +467,8 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         // Dropout drops the numerator only: l sums the undropped p.
         if (ext.dropout) {
           const unsigned int col = static_cast<unsigned int>(
-              kv_offset + k0 + half * 32 + c);
+              posk_row != nullptr ? sPosK[half * 32 + c]
+                                  : kv_offset + k0 + half * 32 + c);
           pn = drop_hash(drop_rh, col, drop_bs) >= ext.drop_threshold
                    ? p * ext.drop_inv : 0.f;
         }
@@ -512,7 +568,8 @@ int dispatch(const void* q, const void* k, const void* v, void* out,
     FWD_LAUNCH(false, false, true, true);
   }
   if (mvec == nullptr) FWD_LAUNCH(false, false, true, false);
-  if (ext->dropout) return static_cast<int>(cudaErrorInvalidValue);
+  if (ext->dropout || ext->alibi != nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
   FWD_LAUNCH(false, true, true, false);
 #else
   if (ext != nullptr) return static_cast<int>(cudaErrorInvalidValue);
@@ -533,9 +590,10 @@ int dispatch(const void* q, const void* k, const void* v, void* out,
 // (K1, exact softmax), or the (batch_heads, tq) float32 row bounds (K2).
 // mask: null, or bytes addressed as MaskArgs (inner = heads; strides in
 // bytes). ext: null (the base instantiations), or the segments, window,
-// dropout and int8 operands of ExtArgs (the Ext instantiations, in the
-// library built with FLASH_EXT; int8 and dropout with the exact kernel
-// only). Returns a cudaError_t code (0 = launched).
+// dropout, int8 operands, ALiBi slopes and positions of ExtArgs (the Ext
+// instantiations, in the library built with FLASH_EXT; int8, dropout and
+// ALiBi with the exact kernel only). Returns a cudaError_t code (0 =
+// launched).
 extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v,
                               void* out, void* lse, const void* mvec,
                               const void* mask, int mask_inner,

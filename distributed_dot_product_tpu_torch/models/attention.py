@@ -25,12 +25,21 @@ all four softmax strategies across a ``torch.distributed`` process group
   path on one rank or one head.
 
 RoPE rotates at the global positions ``rank·T/N + arange(T/N)`` (what
-:func:`~..ops.rope.rope_seq_parallel` computes). ``distributed=False`` is the
-local oracle on any group. ``window``, ``segment_ids``, dropout and
-``qk_quant='int8'`` follow the reference: the 'full' path densifies
-segments and the window into the mask; the kernel paths take them in the
-kernels (flash: segments as a (local, gathered) pair in the K-first
-layout; online: the ids ride the ring; ulysses: gathered once).
+:func:`~..ops.rope.rope_seq_parallel` computes), or under
+``ring_layout='zigzag'`` at the shard's zigzag positions. ``distributed=False``
+is the local oracle on any group. ``window``, ``segment_ids``, dropout,
+``alibi_slopes`` and ``qk_quant='int8'`` follow the reference: the 'full'
+path densifies segments and the window into the mask (and refuses ALiBi,
+dropout and int8); the kernel paths take them in the kernels (flash:
+segments as a (local, gathered) pair in the K-first layout; online: the
+ids ride the ring; ulysses: gathered once, and each rank keeps its head
+chunk's slopes).
+
+``ring_layout='zigzag'`` (``softmax_impl='online'``, causal): the ring's
+balanced layout — shard ``i`` holds the half-stripes ``i`` and
+``2W−1−i``; feed inputs permuted by
+:func:`~.ring_attention.zigzag_indices` and invert the output's
+permutation (a dense mask's row axis is permuted like the inputs).
 
 Dropout: with ``dropout_rate > 0`` and not ``deterministic`` the forward
 needs an explicit ``dropout_seed`` (an int; the port has no flax rng).
@@ -38,9 +47,7 @@ Each module salts it with its ``path`` — the tuple of names the same
 module has in the reference's flax tree (``()`` for a module applied on
 its own; a transformer stack sets its blocks' paths) — as the reference
 does: ``seed ^ (crc32('/'.join(path)) & 0x7fffffff)`` in int32, so
-stacked layers sharing one step seed draw distinct masks. The zigzag
-ring layout and ALiBi raise ``NotImplementedError`` naming their
-``ROADMAP.md`` item.
+stacked layers sharing one step seed draw distinct masks.
 
 The module keeps the reference's K-FIRST convention (scores = K·Qᵀ
 softmaxed over the queries axis): in standard-attention terms its
@@ -64,7 +71,7 @@ from distributed_dot_product_tpu_torch.models.dense import (
     OwnedDense, default_generator,
 )
 from distributed_dot_product_tpu_torch.models.ring_attention import (
-    local_attention_reference, ring_attention,
+    _layout_positions, local_attention_reference, ring_attention,
 )
 from distributed_dot_product_tpu_torch.models.ulysses_attention import (
     ulysses_attention,
@@ -107,9 +114,9 @@ class DistributedDotProductAttn(nn.Module):
     """Multi-head dot-product attention (K-first convention).
 
     Constructor fields mirror the reference module's and are validated
-    the same way (same errors for the same bad values). Knobs that are
-    not ported yet (``alibi_slopes``, ``weight_quant``) raise
-    ``NotImplementedError``.
+    the same way (same errors for the same bad values). ``weight_quant``
+    is not ported yet and raises ``NotImplementedError``. ``alibi_slopes
+    (num_heads,)`` are kept as a float32 tensor on the module's device.
     Parameters are created on ``device`` at ``param_dtype`` (float32 by
     default, as in the reference) and computed at ``dtype``, drawn from
     ``generator`` (see :func:`~..models.dense.default_generator`).
@@ -166,9 +173,6 @@ class DistributedDotProductAttn(nn.Module):
                              f"'kernel' or 'plain', got {decode_impl!r}")
         if ring_layout == 'zigzag':
             features.check('ring_layout=zigzag', softmax_impl)
-            raise NotImplementedError(
-                "ring_layout='zigzag' is not ported yet (ROADMAP.md §1 item "
-                "7: the kernels take no explicit positions)")
         if flash_softmax_mode == 'bounded':
             features.check('flash_softmax_mode=bounded', softmax_impl)
         value_dim = value_dim if value_dim is not None else key_dim
@@ -192,12 +196,10 @@ class DistributedDotProductAttn(nn.Module):
         if qk_quant not in (None, 'int8'):
             raise ValueError(f"qk_quant must be None or 'int8', "
                              f'got {qk_quant!r}')
-        for name, value in (('alibi_slopes', alibi_slopes),
-                            ('weight_quant', weight_quant)):
-            if value is not None:
-                raise NotImplementedError(
-                    f'DistributedDotProductAttn({name}=...) is not ported '
-                    f'yet')
+        if weight_quant is not None:
+            raise NotImplementedError(
+                'DistributedDotProductAttn(weight_quant=...) is not ported '
+                'yet')
 
         self.num_heads = num_heads
         self.causal, self.window, self.qk_quant = causal, window, qk_quant
@@ -207,6 +209,7 @@ class DistributedDotProductAttn(nn.Module):
         self.softmax_impl = softmax_impl
         self.offset, self.impl = offset, impl
         self.flash_softmax_mode = flash_softmax_mode
+        self.ring_layout = ring_layout
         self.dropout_rate = dropout_rate
         self.use_rope, self.rope_base = use_rope, rope_base
         self.decode_impl = decode_impl
@@ -216,6 +219,13 @@ class DistributedDotProductAttn(nn.Module):
         self._kv_heads = kv_heads
         dev = resolve_device(device)
         gen = default_generator(generator)
+        # Configuration, not a parameter or buffer: a dtype cast of the
+        # module leaves the slopes float32, and the state dict stays the
+        # reference tree's.
+        self.alibi_slopes = (None if alibi_slopes is None
+                             else torch.as_tensor(alibi_slopes,
+                                                  dtype=torch.float32,
+                                                  device=dev).reshape(-1))
 
         def dense(d_in, d_out):
             return OwnedDense(d_in, d_out, use_bias=add_bias, dtype=dtype,
@@ -248,13 +258,15 @@ class DistributedDotProductAttn(nn.Module):
         world = get_world_size(group) if distributed else 1
         idx = get_rank(group) if distributed else 0
         tn = keys.shape[-2]
-        keys, queries, values = self._project(keys, queries, values,
-                                              idx * tn)
-        if attn_mask is not None:
-            attn_mask = attn_mask[..., None, :, :]    # broadcast over heads
         impl = self.softmax_impl
         if impl == 'ulysses' and not (distributed and self.num_heads > 1):
             impl = 'flash'     # no head axis to scatter, or the local oracle
+        start = idx * tn
+        if impl == 'online' and self.ring_layout == 'zigzag' and world > 1:
+            start = _layout_positions('zigzag', idx, world, tn, keys.device)
+        keys, queries, values = self._project(keys, queries, values, start)
+        if attn_mask is not None:
+            attn_mask = attn_mask[..., None, :, :]    # broadcast over heads
         scale = 1.0 / math.sqrt(self.head_dim)
         kv_group = self.num_heads // self._kv_heads
         seg = (None if segment_ids is None
@@ -262,7 +274,7 @@ class DistributedDotProductAttn(nn.Module):
         drop_rate, drop_seed = self._dropout(deterministic, dropout_seed)
         feat = dict(window=self.window if self.causal else None,
                     qk_quant=self.qk_quant, dropout_rate=drop_rate,
-                    dropout_seed=drop_seed)
+                    dropout_seed=drop_seed, alibi_slopes=self.alibi_slopes)
         if impl == 'flash':
             q_full, v_full = queries, values
             seg_pair = None
@@ -291,11 +303,13 @@ class DistributedDotProductAttn(nn.Module):
             if distributed:
                 out = ring_attention(keys, queries, values, attn_mask,
                                      group=group, causal=self.causal,
-                                     scale=scale, segment_ids=seg_ring,
-                                     **feat)
-            elif seg_ring is not None or self.qk_quant or drop_rate:
+                                     scale=scale, layout=self.ring_layout,
+                                     segment_ids=seg_ring, **feat)
+            elif (seg_ring is not None or self.qk_quant or drop_rate
+                    or self.alibi_slopes is not None):
                 # The fused kernel is the local math for segments,
-                # dropout and int8 scoring (the plain oracle has none).
+                # ALiBi, dropout and int8 scoring (the plain oracle has
+                # none).
                 out = flash_attention(
                     keys, queries, values, attn_mask, causal=self.causal,
                     scale=scale, segment_ids=(
@@ -379,7 +393,8 @@ class DistributedDotProductAttn(nn.Module):
         """Shared front half of every call: the four projections, head
         split, and RoPE at the global positions ``start + arange(n)``
         (this rank's shard: ``rank·T/N``, the cached paths: the cache
-        length)."""
+        length), or at ``start`` itself when it is a position vector (a
+        zigzag shard's)."""
         keys = self.keys_proj(keys)
         queries = self.queries_proj(queries)
         values = self.values_proj(values)
@@ -392,7 +407,8 @@ class DistributedDotProductAttn(nn.Module):
         values = split(values, self._kv_heads,
                        self._value_dim // self.num_heads)
         if self.use_rope:
-            pos = start + torch.arange(n, device=keys.device)
+            pos = (start if isinstance(start, torch.Tensor)
+                   else start + torch.arange(n, device=keys.device))
             keys = rope(keys, pos, base=self.rope_base)
             queries = rope(queries, pos, base=self.rope_base)
         return keys, queries, values
@@ -408,41 +424,64 @@ class DistributedDotProductAttn(nn.Module):
         out = out.reshape(*out.shape[:-2], self._value_dim)
         return self.composition(out)
 
-    def prefill(self, keys, queries, values, cache):
+    def prefill(self, keys, queries, values, cache, segment_ids=None,
+                seg_cache=None):
         """Prompt ingestion: project the ``n`` new positions, append the
         projected queries/values to the cache (in place), and compute the
         rows' outputs with the flash kernel over the whole cache buffer —
         causal from global position ``cache.length`` excludes both the
         future prompt rows and the unfilled tail — with the module's
-        ``window`` and ``qk_quant``, as its forward. Returns
+        ``window``, ``alibi_slopes`` and ``qk_quant``, as its forward.
+        Packed multi-turn prompts: ``segment_ids (B, n)`` holds the prompt
+        rows' ids, ``seg_cache (B, t_max)`` the cached positions' (already
+        carrying the ids of the positions being appended). Returns
         ``(cache, out (B, n, value_dim))``."""
         keys, queries, values = self._project_for_decode(
             keys, queries, values, cache)
         start = cache.length
         cache = append_kv(cache, queries, values)
+        seg_pair = None
+        if segment_ids is not None:
+            if seg_cache is None:
+                raise ValueError('segment_ids needs seg_cache (the cached '
+                                 "positions' ids, shape (B, t_max))")
+            seg_pair = tuple(torch.as_tensor(x, device=keys.device)
+                             .to(torch.int32)[..., None, :]
+                             for x in (segment_ids, seg_cache))
         out = flash_attention(keys, cache.k, cache.v, causal=True,
                               causal_offset=start,
                               scale=1.0 / math.sqrt(self.head_dim),
-                              window=self.window, qk_quant=self.qk_quant)
+                              window=self.window,
+                              alibi_slopes=self.alibi_slopes,
+                              qk_quant=self.qk_quant, segment_ids=seg_pair)
         return cache, self._merge_heads(out)
 
-    def decode(self, keys, queries, values, cache):
+    def decode(self, keys, queries, values, cache, segment_ids=None,
+               seg_cache=None):
         """One cached step for the NEW positions ``(B, 1, d·)``: the fused
         append + attend (``decode_impl`` selects the implementation) with
-        the module's ``window`` and ``qk_quant`` (int8: scored against the
-        cache's int8 K mirror, appended in place by the kernel; a
-        mirror-less cache needs the plain step, quantizing on the fly —
-        ``decode_impl='plain'`` on the card, the default on the CPU).
-        Returns ``(cache, out (B, 1, value_dim))``."""
+        the module's ``window``, ``alibi_slopes`` and ``qk_quant`` (int8:
+        scored against the cache's int8 K mirror, appended in place by the
+        kernel; a mirror-less cache needs the plain step, quantizing on the
+        fly — ``decode_impl='plain'`` on the card, the default on the
+        CPU). Packed segments: this step's ``segment_ids (B, n)`` with the
+        cached positions' ``seg_cache (B, t_max)``; the kernel does not
+        mask them, so on the card they need ``decode_impl='plain'`` (the
+        reference's own formulation). Returns ``(cache, out (B, 1,
+        value_dim))``."""
         keys, queries, values = self._project_for_decode(
             keys, queries, values, cache)
         cache, out = decode_step(keys, cache, queries, values,
                                  scale=1.0 / math.sqrt(self.head_dim),
-                                 window=self.window, qk_quant=self.qk_quant,
+                                 window=self.window,
+                                 alibi_slopes=self.alibi_slopes,
+                                 segment_ids=seg_cache, seg_q=segment_ids,
+                                 qk_quant=self.qk_quant,
                                  impl=self.decode_impl)
         return cache, self._merge_heads(out)
 
-    def decode_sharded(self, keys, queries, values, cache, *, group=None):
+    def decode_sharded(self, keys, queries, values, cache, segment_ids=None,
+                       seg_cache=None, *, group=None):
         """Sequence-sharded :meth:`decode` over the process group
         ``group`` (the default group when None): ``cache`` is this rank's
         ``(B, H_kv, t_max/W, d·)`` slab of a global cache sharded on its
@@ -451,14 +490,16 @@ class DistributedDotProductAttn(nn.Module):
         are the same on every rank. RoPE rotates at the global positions;
         the owning rank appends in place, and the ranks' softmax partials
         merge by the flash-decoding rule (the kernel path: K5 with
-        ``partials=True`` on every slab). Returns ``(cache, out (B, 1,
-        value_dim))``."""
+        ``partials=True`` on every slab). ``seg_cache``, when used, is the
+        slab's own ``(B, t_max/W)`` shard (segments take the plain step).
+        Returns ``(cache, out (B, 1, value_dim))``."""
         keys, queries, values = self._project_for_decode(
             keys, queries, values, cache)
         cache, out = decode_step(
             keys, cache, queries, values,
             scale=1.0 / math.sqrt(self.head_dim), window=self.window,
-            qk_quant=self.qk_quant,
+            alibi_slopes=self.alibi_slopes, segment_ids=seg_cache,
+            seg_q=segment_ids, qk_quant=self.qk_quant,
             group=world_group() if group is None else group,
             impl=self.decode_impl)
         return cache, self._merge_heads(out)

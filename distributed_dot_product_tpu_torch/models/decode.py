@@ -55,9 +55,12 @@ on a mirror-less cache, quantizes on the fly on the plain path). A call
 the kernel does not cover takes the plain step on CPU tensors and raises
 on CUDA tensors unless the caller passes ``impl='plain'``.
 
-The sliding ``window`` of the training kernels applies to every decode
-path. Not ported yet: the sharded page table, cross-cache page transfer,
-ALiBi and packed segments — they raise ``NotImplementedError``.
+The sliding ``window`` and the ALiBi slopes of the training kernels apply
+to every decode path (the kernels add ``slope·(col − valid_to − j)``).
+Packed segments (``segment_ids`` of the cached side, ``seg_q`` of the
+query rows) are masked by the plain step only, as in the reference, so on
+CUDA tensors they need ``impl='plain'``. Not ported yet: the sharded page
+table and cross-cache page transfer.
 """
 
 import math
@@ -104,12 +107,6 @@ class DecodeCache(NamedTuple):
     @property
     def t_max(self):
         return self.k.shape[-2]
-
-
-def _unported(fn, **kw):
-    for name, value in kw.items():
-        if value is not None:
-            raise NotImplementedError(f'{fn}({name}=...) is not ported yet')
 
 
 def _host(x, dtype):
@@ -1014,7 +1011,13 @@ def decode_attention(q, cache: DecodeCache, *, scale=None, window=None,
     ``(B, H, n, d_v)`` in the cache dtype. A per-slot cache masks each
     row against its own length. Float32 scores and weights; a row with no
     attendable column returns 0. ``window``: the training kernels'
-    sliding-window lookback over absolute positions. ``qk_quant='int8'``
+    sliding-window lookback over absolute positions. ``alibi_slopes
+    (H,)``: the training kernels' ALiBi bias ``slope·(pos_k − pos_q)``
+    (natural-log units here, added to the scaled scores).
+    ``segment_ids (B, t_max)``: the cached side's packed-segment ids,
+    with ``seg_q (B, n)`` the query rows'; pairs in different segments do
+    not attend (on a sharded slab, ``segment_ids`` is the slab's own
+    shard). ``qk_quant='int8'``
     reproduces the training kernels' quantized scoring: both sides
     quantized per row, the int8 products summed exactly, the scores
     ``s · (sq · scale) · sk``; the cached side is the cache's mirror when
@@ -1032,8 +1035,6 @@ def decode_attention(q, cache: DecodeCache, *, scale=None, window=None,
     buffer's column 0 (default: ``rank · t_max`` when sharded, else 0);
     ``col_valid (B, t_max) bool``: columns the buffer holds (the rest are
     masked whatever their position)."""
-    _unported('decode_attention', alibi_slopes=alibi_slopes,
-              segment_ids=segment_ids, seg_q=seg_q)
     if qk_quant not in (None, 'int8'):
         raise ValueError(f"qk_quant must be None or 'int8', "
                          f'got {qk_quant!r}')
@@ -1080,6 +1081,17 @@ def decode_attention(q, cache: DecodeCache, *, scale=None, window=None,
     if col_valid is not None:
         allowed = allowed & torch.as_tensor(
             col_valid, device=dev).bool()[:, None, :]
+    if segment_ids is not None:
+        if seg_q is None:
+            raise ValueError("segment_ids needs seg_q (the query rows' "
+                             'ids)')
+        seg_k = torch.as_tensor(segment_ids, device=dev)
+        seg_q = torch.as_tensor(seg_q, device=dev)
+        allowed = allowed & (seg_k[:, None, :] == seg_q[..., None])
+    if alibi_slopes is not None:
+        slopes = torch.as_tensor(alibi_slopes, dtype=torch.float32,
+                                 device=dev).reshape(h_kv, group_size, 1, 1)
+        s = s + slopes * rel[:, None, None].float()
     s = s.masked_fill(~allowed[:, None, None], float('-inf'))
     m = s.amax(dim=-1, keepdim=True)
     if group is not None:
@@ -1225,8 +1237,6 @@ def decode_step(q, cache, k_new, v_new, *, slot_mask=None, counts=None,
     :func:`decode_attention` partials. An append past the global
     capacity raises on every rank before any write.
     Returns ``(cache, out (B, H, n, d_v))``."""
-    _unported('decode_step', alibi_slopes=alibi_slopes,
-              segment_ids=segment_ids, seg_q=seg_q)
     b, _, n, _ = q.shape
     impl = _resolve_decode_impl(impl, cache, n, segment_ids, qk_quant,
                                 1 if group is None else 2, q.device)
@@ -1269,8 +1279,10 @@ def decode_step(q, cache, k_new, v_new, *, slot_mask=None, counts=None,
             attend = attend._replace(
                 length=np.where(active, before + n, before))
         return cache, decode_attention(q, attend, scale=scale,
-                                       window=window, qk_quant=qk_quant,
-                                       group=group)
+                                       window=window,
+                                       alibi_slopes=alibi_slopes,
+                                       segment_ids=segment_ids, seg_q=seg_q,
+                                       qk_quant=qk_quant, group=group)
     quant = qk_quant == 'int8'
     if group is not None:
         p = int(cache.length)
@@ -1282,7 +1294,8 @@ def decode_step(q, cache, k_new, v_new, *, slot_mask=None, counts=None,
             torch.full((b,), ap, dtype=torch.int32, device=q.device),
             k_q=cache.k_q if quant else None,
             k_scale=cache.k_scale if quant else None, qk_quant=qk_quant,
-            scale=scale, window=window, interpret=interpret, partials=True)
+            scale=scale, window=window, alibi_slopes=alibi_slopes,
+            interpret=interpret, partials=True)
         if cache.k_q is not None and not quant and ap >= 0:
             ki, sk = _quantize_k(k_new, cache.k.dtype)
             cache.k_q[:, :, ap:ap + 1] = ki
@@ -1316,7 +1329,7 @@ def decode_step(q, cache, k_new, v_new, *, slot_mask=None, counts=None,
             k_q=cache.k_q_pool if quant else None,
             k_scale=cache.k_scale_pool if quant else None,
             qk_quant=qk_quant, scale=scale, window=window,
-            interpret=interpret)
+            alibi_slopes=alibi_slopes, interpret=interpret)
         if cache.k_q_pool is not None and not quant:
             _paged_mirror_fixup(cache, k_new, ap_host, eff)
     else:
@@ -1324,7 +1337,8 @@ def decode_step(q, cache, k_new, v_new, *, slot_mask=None, counts=None,
             q, k_new, v_new, cache.k, cache.v, vt, ap, n_new=nn,
             k_q=cache.k_q if quant else None,
             k_scale=cache.k_scale if quant else None, qk_quant=qk_quant,
-            scale=scale, window=window, interpret=interpret)
+            scale=scale, window=window, alibi_slopes=alibi_slopes,
+            interpret=interpret)
         if not quant:
             # A non-int8 step on a mirror-carrying cache keeps the mirror
             # exact: the appended rows quantized the append-op way.

@@ -1,8 +1,7 @@
 # -*- coding: utf-8 -*-
 """
 Ring attention with online softmax — the port of
-``distributed_dot_product_tpu/models/ring_attention.py`` (contiguous
-layout).
+``distributed_dot_product_tpu/models/ring_attention.py``.
 
 Every rank of the process group ``group`` holds its ``(..., T/N, d)``
 time shard of q, k and v. The k/v shards rotate around the ring
@@ -34,17 +33,28 @@ row.
   draws the single-device kernel's mask; ``qk_quant='int8'`` quantizes
   each fold's rows as the single-device kernel would (row-local scales),
   and the backward carries the int8 operands of q and of each resident
-  block.
+  block. ``alibi_slopes`` (needs causal) ride every fold in both passes:
+  each fold's kernels compute the bias from global positions, so the
+  ring sees the single-device kernel's distances.
 - ``block_impl='xla'``: the plain einsum + online-softmax fold in
   PyTorch (the reference's portable oracle path), differentiable through
   autograd with an autograd-aware ring hop; it computes every fold. It
   takes a window with ``mask=None`` and raises for segments, dropout and
   int8, as the reference's does.
 
-The reference's ``layout='zigzag'`` and ``alibi_slopes`` raise
-``NotImplementedError`` (``ROADMAP.md`` §1 item 7 and §2 item 1: the
-kernels take no explicit positions and no ALiBi yet). Fully masked rows
-give 0 with zero gradients, as in the reference.
+``layout='zigzag'`` (causal, ``block_impl='flash'``, an even per-shard
+length): shard ``i`` holds the half-stripes ``i`` and ``2W−1−i`` of the
+sequence (permute global arrays with :func:`zigzag_indices`, and the
+output back with its ``argsort``), so every rank folds W + 1 causal
+half-blocks and the causal critical path evens out. Each fold passes the
+kernels explicit global positions — ``positions=(my_pos, pos_k)`` with
+``causal=False`` — for its causal mask, window, ALiBi distances, dropout
+hash and tile skip; there is no whole-fold skip (every pair of shards
+shares some past half-block). A dense mask's rows follow this shard's
+zigzag rows (permute the global mask's row axis like q) while its
+columns stay global: each fold gathers the owner's columns by its
+position vector. Fully masked rows give 0 with zero gradients, as in
+the reference.
 """
 
 import math
@@ -95,10 +105,32 @@ def _blk_mask(mask, owner, tn):
     return mask[..., owner * tn:(owner + 1) * tn]
 
 
+def _blk_mask_positions(mask, pos_k):
+    """Zigzag analog of :func:`_blk_mask`: the owner's columns are the
+    two half-stripes of its position vector — gathered from the
+    global-column mask (a copy; the rows already follow this shard's
+    layout, the caller's contract)."""
+    if mask is None:
+        return None
+    return mask.index_select(-1, pos_k)
+
+
+def _layout_positions(layout, shard, world, tn, device=None):
+    """Shard→global position vector ``(tn,)`` int64 for a
+    non-contiguous layout, None for ``'contiguous'``. zigzag: the
+    half-stripes ``shard`` and ``2W−1−shard``."""
+    if layout == 'contiguous':
+        return None
+    h = tn // 2
+    ar = torch.arange(h, device=device)
+    return torch.cat([shard * h + ar, (2 * world - 1 - shard) * h + ar])
+
+
 def zigzag_indices(t, world):
     """Global→zigzag gather indices, as the reference returns them
-    (``x_zig = x[..., idx, :]``; the inverse is ``argsort(idx)``). The
-    zigzag ring layout itself is not ported (``ROADMAP.md`` §1 item 7)."""
+    (``x_zig = x[..., idx, :]`` gives contiguous shard ``i`` the
+    half-stripes {i, 2W−1−i} that ``ring_attention(layout='zigzag')``
+    expects; the inverse is ``argsort(idx)``)."""
     if t % (2 * world):
         raise ValueError(f'T={t} must divide into 2·world={2 * world} '
                          'half-stripes')
@@ -119,9 +151,10 @@ def ring_attention(q, k, v, mask=None, *, group=None, causal=False,
     folds only), ``mask`` an optional boolean ``(..., T/N, T)`` with
     global columns (True = masked), ``causal`` over global positions,
     ``window`` (needs causal) a lookback cap over global positions,
-    ``segment_ids`` this shard's ids ``(..., T/N)``, ``dropout_rate`` /
-    ``dropout_seed`` and ``qk_quant`` as in
-    :func:`~..ops.flash_attention.flash_attention`. Returns
+    ``segment_ids`` this shard's ids ``(..., T/N)``, ``alibi_slopes``
+    (needs causal), ``dropout_rate`` / ``dropout_seed`` and ``qk_quant``
+    as in :func:`~..ops.flash_attention.flash_attention`; ``layout``
+    ``'contiguous'`` or ``'zigzag'`` (see the module docstring). Returns
     ``(..., T/N, d_v)``, differentiable in q, k and v."""
     if block_impl not in ('flash', 'xla'):
         raise ValueError(
@@ -134,12 +167,14 @@ def ring_attention(q, k, v, mask=None, *, group=None, causal=False,
     if layout not in ('contiguous', 'zigzag'):
         raise ValueError(
             f"layout must be 'contiguous' or 'zigzag', got {layout!r}")
-    for name, value in (('layout', None if layout == 'contiguous'
-                         else layout), ('alibi_slopes', alibi_slopes)):
-        if value is not None:
-            raise NotImplementedError(
-                f'ring_attention({name}=...) is not ported yet (ROADMAP.md '
-                f'§1 item 7, §2 item 1)')
+    if layout == 'zigzag':
+        if not causal or block_impl != 'flash':
+            raise ValueError(
+                "layout='zigzag' balances the CAUSAL critical path and "
+                "needs block_impl='flash'")
+        if q.shape[-2] % 2:
+            raise ValueError('zigzag needs an even per-shard length '
+                             f'(got T/N = {q.shape[-2]})')
     if window is not None:
         if (isinstance(window, bool) or not isinstance(window, int)
                 or window < 1):
@@ -157,12 +192,16 @@ def ring_attention(q, k, v, mask=None, *, group=None, causal=False,
     if qk_quant not in (None, 'int8'):
         raise ValueError(f"qk_quant must be None or 'int8', "
                          f'got {qk_quant!r}')
-    if block_impl == 'xla' and (segment_ids is not None or dropout_rate
-                                or qk_quant is not None):
+    if block_impl == 'xla' and (segment_ids is not None
+                                or alibi_slopes is not None
+                                or dropout_rate or qk_quant is not None):
         raise ValueError(
-            "segment_ids/dropout/qk_quant need block_impl='flash' (they "
-            'live in the fused per-fold kernels; the xla fold is the '
-            'plain-einsum oracle path)')
+            "segment_ids/alibi_slopes/dropout/qk_quant need "
+            "block_impl='flash' (they live in the fused per-fold kernels; "
+            'the xla fold is the plain-einsum oracle path)')
+    if alibi_slopes is not None and not causal:
+        raise ValueError('alibi_slopes bias by relative global position '
+                         'and require causal=True')
     if dropout_rate and dropout_seed is None:
         raise ValueError(
             'dropout needs an explicit dropout_seed (an int) — the kernels '
@@ -174,9 +213,9 @@ def ring_attention(q, k, v, mask=None, *, group=None, causal=False,
                else torch.as_tensor(segment_ids).to(torch.int32))
         feat = dict(window=window, dropout_rate=dropout_rate,
                     dropout_seed=dropout_seed if dropout_rate else None,
-                    qk_quant=qk_quant)
+                    qk_quant=qk_quant, alibi_slopes=alibi_slopes)
         return _RingFlash.apply(q, k, v, mask, seg, group, bool(causal),
-                                scale, feat)
+                                scale, layout, feat)
     return _ring_xla(q, k, v, mask, group, bool(causal), scale, window)
 
 
@@ -191,14 +230,28 @@ def _fold_skipped(causal, idx, owner, tn, window=None):
                            and (idx - owner) * tn - tn + 1 >= window)
 
 
-def _ring_flash_fwd(q, k, v, mask, seg, group, causal, scale, feat):
+def _fold_kw(mask, causal, idx, owner, w, tn, my_pos, device):
+    """The per-fold kernel arguments: the owner's mask columns and
+    either the contiguous offsets or, zigzag, the explicit positions with
+    causal off."""
+    if my_pos is None:
+        return dict(mask=_blk_mask(mask, owner, tn), causal=causal,
+                    causal_offset=idx * tn, kv_offset=owner * tn)
+    pos_k = _layout_positions('zigzag', owner, w, tn, device)
+    return dict(mask=_blk_mask_positions(mask, pos_k), causal=False,
+                positions=(my_pos, pos_k))
+
+
+def _ring_flash_fwd(q, k, v, mask, seg, group, causal, scale, layout, feat):
     """Forward ring: per fold K1's block-local ``(out_b, lse_b)``, merged
     by the shift-invariant identity; returns ``(out, lse)`` with the
     global row logsumexp, the only residual the backward needs. With
     dropout the folds drop the numerator only, so the merge rebuilds
-    ``dropout(softmax(s))·v`` over the global row."""
+    ``dropout(softmax(s))·v`` over the global row. Zigzag folds are never
+    skipped whole (their kernels skip the future half-blocks' tiles)."""
     w, idx = get_world_size(group), get_rank(group)
     tn = q.shape[-2]
+    my_pos = _layout_positions(layout, idx, w, tn, q.device)
     m = torch.full(q.shape[:-1], float('-inf'), dtype=torch.float32,
                    device=q.device)
     den = torch.zeros(q.shape[:-1], dtype=torch.float32, device=q.device)
@@ -208,11 +261,13 @@ def _ring_flash_fwd(q, k, v, mask, seg, group, causal, scale, feat):
     for s in range(w):
         owner = (idx + s) % w
         k_buf, v_buf = rot[:2]
-        if not _fold_skipped(causal, idx, owner, tn, feat['window']):
+        if my_pos is not None or not _fold_skipped(causal, idx, owner, tn,
+                                                   feat['window']):
             out_b, lse_b = flash_attention_with_lse(
-                q, k_buf, v_buf, _blk_mask(mask, owner, tn), causal=causal,
-                causal_offset=idx * tn, kv_offset=owner * tn, scale=scale,
-                segment_ids=None if seg is None else (seg, rot[2]), **feat)
+                q, k_buf, v_buf, scale=scale,
+                segment_ids=None if seg is None else (seg, rot[2]),
+                **_fold_kw(mask, causal, idx, owner, w, tn, my_pos,
+                           q.device), **feat)
             # A block-empty row has lse_b = ln2·_NEG_BIG: weight 0.
             m_new = torch.maximum(m, lse_b)
             c_prev = torch.exp(m - m_new)
@@ -228,18 +283,20 @@ def _ring_flash_fwd(q, k, v, mask, seg, group, causal, scale, feat):
 
 
 def _ring_flash_bwd(q, k, v, mask, seg, out, lse, g, group, causal, scale,
-                    feat):
+                    layout, feat):
     """Backward ring: ``(k, v, dk, dv[, seg])`` rotate together; each fold
     adds its K3 dq locally and its K4 float32 (dk, dv) partial to the
     accumulators of the resident block; one last hop sends each home.
     With int8 scoring the folds take q's int8 operands (quantized once)
-    and the resident block's."""
+    and the resident block's. Zigzag folds as in the forward."""
     w, idx = get_world_size(group), get_rank(group)
     tn = q.shape[-2]
+    my_pos = _layout_positions(layout, idx, w, tn, q.device)
     q2, lse2, delta = flash_attention_bwd_operands(q, out, lse, g, scale)
     q_quant = quantize_rows(q) if feat['qk_quant'] == 'int8' else None
     bw = dict(window=feat['window'], dropout_rate=feat['dropout_rate'],
-              dropout_seed=feat['dropout_seed'])
+              dropout_seed=feat['dropout_seed'],
+              alibi_slopes=feat['alibi_slopes'])
     dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
     rot = (k, v, torch.zeros(k.shape, dtype=torch.float32, device=k.device),
            torch.zeros(v.shape, dtype=torch.float32, device=v.device))
@@ -248,9 +305,10 @@ def _ring_flash_bwd(q, k, v, mask, seg, out, lse, g, group, causal, scale,
     for s in range(w):
         owner = (idx + s) % w
         k_buf, v_buf, dk_buf, dv_buf = rot[:4]
-        if not _fold_skipped(causal, idx, owner, tn, feat['window']):
-            kw = dict(mask=_blk_mask(mask, owner, tn), causal=causal,
-                      causal_offset=idx * tn, kv_offset=owner * tn,
+        if my_pos is not None or not _fold_skipped(causal, idx, owner, tn,
+                                                   feat['window']):
+            kw = dict(**_fold_kw(mask, causal, idx, owner, w, tn, my_pos,
+                                 q.device),
                       grad_dtype=torch.float32, scale=scale,
                       segment_ids=None if seg is None else (seg, rot[4]),
                       quant=(None if q_quant is None
@@ -272,21 +330,22 @@ class _RingFlash(torch.autograd.Function):
     the inputs, ``out`` and the global ``lse``."""
 
     @staticmethod
-    def forward(ctx, q, k, v, mask, seg, group, causal, scale, feat):
+    def forward(ctx, q, k, v, mask, seg, group, causal, scale, layout,
+                feat):
         out, lse = _ring_flash_fwd(q, k, v, mask, seg, group, causal, scale,
-                                   feat)
+                                   layout, feat)
         ctx.save_for_backward(q, k, v, mask, seg, out, lse)
-        ctx.cfg = (group, causal, scale, feat)
+        ctx.cfg = (group, causal, scale, layout, feat)
         return out
 
     @staticmethod
     def backward(ctx, g):
         q, k, v, mask, seg, out, lse = ctx.saved_tensors
-        group, causal, scale, feat = ctx.cfg
+        group, causal, scale, layout, feat = ctx.cfg
         dq, dk, dv = _ring_flash_bwd(q, k, v, mask, seg, out, lse,
                                      g.contiguous(), group, causal, scale,
-                                     feat)
-        return dq, dk, dv, None, None, None, None, None, None
+                                     layout, feat)
+        return dq, dk, dv, None, None, None, None, None, None, None
 
 
 class _RingShift(torch.autograd.Function):

@@ -18,8 +18,9 @@ int8 scoring pass straight through (the kernel sees whole rows, so its
 per-row quantization is the single-device one); dropout runs at the seed
 ``dropout_seed + rank·40503`` (int32): after the head scatter every rank
 holds batch × H/N rows whose flat indices repeat across ranks, so a
-shared seed would repeat masks head group to head group. ALiBi raises
-``NotImplementedError`` (``ROADMAP.md`` §2 item 1).
+shared seed would repeat masks head group to head group. ALiBi slopes
+``(H,)`` follow their heads: each rank passes the kernel the slopes of
+its head chunk.
 """
 
 import math
@@ -63,11 +64,9 @@ def ulysses_attention(q, k, v, mask=None, *, group=None, causal=False,
     divide by the group width. ``mask``: optional boolean
     ``(..., 1, T/N, T)`` (a size-1 head axis, as in the reference);
     ``segment_ids``: optional int ``(..., T/N)`` (no head axis).
+    ``alibi_slopes (H,)``: per-head slopes; each rank keeps those of its
+    head chunk ``[rank·H/N, (rank+1)·H/N)`` after the scatter.
     Returns ``(..., H, T/N, d_v)``, differentiable in q, k and v."""
-    if alibi_slopes is not None:
-        raise NotImplementedError(
-            'ulysses_attention(alibi_slopes=...) is not ported yet '
-            '(ROADMAP.md §2 item 1)')
     world = get_world_size(group)
     if q.dim() < 3:
         raise ValueError(
@@ -109,6 +108,14 @@ def ulysses_attention(q, k, v, mask=None, *, group=None, causal=False,
         seg_full = all_gather(torch.as_tensor(segment_ids).to(torch.int32),
                               group, dim=-1)[..., None, :]
         seg_pair = (seg_full, seg_full)
+    slopes_local = None
+    if alibi_slopes is not None:
+        # Per-head slopes follow their heads through the scatter.
+        chunk = heads // world
+        slopes = torch.as_tensor(alibi_slopes, dtype=torch.float32,
+                                 device=q.device)
+        slopes_local = slopes[..., get_rank(group) * chunk:
+                              (get_rank(group) + 1) * chunk]
     seed_local = dropout_seed
     if dropout_rate and dropout_seed is not None:
         seed_local = _i32(int(dropout_seed) + get_rank(group) * 40503)
@@ -116,6 +123,7 @@ def ulysses_attention(q, k, v, mask=None, *, group=None, causal=False,
                           scatter_heads(v), full_mask, causal=causal,
                           scale=scale, softmax_mode=softmax_mode,
                           segment_ids=seg_pair, window=window,
+                          alibi_slopes=slopes_local,
                           qk_quant=qk_quant, dropout_rate=dropout_rate,
                           dropout_seed=seed_local)
     # (..., H/N, T, d_v) -> (..., H, T/N, d_v): the exact inverse.

@@ -22,9 +22,17 @@ Masking, as in the reference (a union of everything given):
   — so a prefill can pass a whole cache buffer as k/v and its unfilled
   tail is never attended, and a ring fold passes its rotating block's
   global column offset as ``kv_offset``;
-- ``window`` (needs causal): row ``i`` also drops every column with
-  ``(causal_offset + i) − (kv_offset + j) >= window``; key tiles wholly
-  past the window are never loaded;
+- ``positions``: a ``(pos_q, pos_k)`` pair of int vectors ``(..., Tq)`` /
+  ``(..., Tk)`` of non-negative GLOBAL positions (lead dims broadcast like
+  the mask's; one array when ``Tq == Tk``), causal over arbitrary row
+  layouts — the zigzag ring's folds: row ``i`` attends column ``j`` when
+  ``pos_q[i] >= pos_k[j]``. It IS causal masking, so it excludes
+  ``causal=True``; key tiles wholly in a query tile's future are never
+  loaded;
+- ``window`` (needs causal or positions): row ``i`` also drops every
+  column with ``(causal_offset + i) − (kv_offset + j) >= window`` (or
+  ``pos_q[i] − pos_k[j] >= window``); key tiles wholly past the window
+  are never loaded;
 - ``segment_ids``: a ``(seg_q, seg_k)`` pair of int vectors ``(..., Tq)``
   / ``(..., Tk)`` (lead dims broadcast like the mask's), or one array
   when ``Tq == Tk``; a pair with different ids does not attend.
@@ -33,12 +41,19 @@ A row with no attendable key outputs exactly 0, saves the row
 logsumexp ``ln2·_NEG_BIG`` and gets zero gradients; the ring merge and
 its backward rely on exactly that.
 
+``alibi_slopes``: ALiBi, the per-head additive bias ``slope·(pos_k −
+pos_q)`` over global positions (the offsets' arithmetic, or the
+``positions`` vectors), lead dims broadcast against q's (e.g. ``(H,)``).
+It needs ``causal=True`` or ``positions`` so that the positions are
+known. The slopes are pre-folded by log2e (the scores are in log2 units)
+and are constants of the gradient.
+
 ``dropout_rate``/``dropout_seed``: attention-weight dropout with the keep
 mask a pure hash of (seed, flat query-batch index, global row, global
 column) — :func:`dropout_keep`, the reference's ``_dropout_keep`` bit for
-bit — applied to the numerator only: the denominator and the saved
-``lse`` stay undropped, the backward masks and scales ``dp`` (and, for
-``dv``, ``p``) with the same bits. Because the hash keys on global
+bit, keyed on the ``positions`` when given — applied to the numerator
+only: the denominator and the saved ``lse`` stay undropped, the backward
+masks and scales ``dp`` (and, for ``dv``, ``p``) with the same bits. Because the hash keys on global
 coordinates, a ring fold or a sequence shard draws the mask the
 single-device kernel draws for the same elements.
 
@@ -55,8 +70,8 @@ here as the reference computes it). The reference's guard stays: when
 ``2·max(bound) > _BOUNDED_SAFE_GAP`` some row could underflow, and K1
 runs instead. The guard is a host decision, one ``.item()`` sync per
 call; it picks K2 exactly when the reference's ``lax.cond`` does. With
-dropout or int8 scoring 'bounded' resolves to the exact kernel, as in
-the reference.
+dropout, int8 scoring or ALiBi (the bound does not cover the bias)
+'bounded' resolves to the exact kernel, as in the reference.
 
 It differentiates like the reference's ``custom_vjp``: when a gradient
 is wanted, the forward saves ``(q, k, v, out, lse)`` with the row
@@ -70,8 +85,7 @@ reference. ``grad_dtype=torch.float32`` writes the gradients in float32
 On CUDA tensors each pass launches its hand-written kernel or raises
 (``csrc/flash_fwd.cu`` for K1 and K2, ``csrc/flash_bwd.cu`` for K3 and
 K4: bf16, head dims 32/64/96/128, ``d_v == d``); on CPU tensors each
-runs its plain PyTorch version. ``positions`` and ``alibi_slopes`` raise
-``NotImplementedError`` until a later slice ports them.
+runs its plain PyTorch version.
 
 Numerics (both versions): ``scale·log2(e)`` is folded into q and
 rounded back to q's dtype (the exp2 trick), and the softmax runs in exp2
@@ -106,24 +120,26 @@ _NEG_BIG = -0.7 * 3.4e38   # large-finite fp32 running-max floor
 _BOUNDED_SAFE_GAP = 100.0
 _KERNEL_HEAD_DIMS = (32, 64, 96, 128)
 
-_UNPORTED_DEFAULTS = dict(positions=None, alibi_slopes=None)
-
-
 class _Feat(NamedTuple):
     """The per-element features beyond mask and causal, validated:
     ``seg`` a ``(seg_q, seg_k)`` pair of int tensors or None, ``window``
     an int or None, ``rate``/``seed`` the dropout (rate 0: none; seed a
-    Python int32), ``quant`` int8 scoring."""
+    Python int32), ``quant`` int8 scoring, ``pos`` a ``(pos_q, pos_k)``
+    pair of int tensors or None, ``alibi`` the raw float32 slopes or
+    None."""
     seg: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
     window: Optional[int] = None
     rate: float = 0.0
     seed: int = 0
     quant: bool = False
+    pos: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+    alibi: Optional[torch.Tensor] = None
 
     @property
     def active(self):
         return (self.seg is not None or self.window is not None
-                or bool(self.rate) or self.quant)
+                or bool(self.rate) or self.quant or self.pos is not None
+                or self.alibi is not None)
 
 
 _NO_FEAT = _Feat()
@@ -191,21 +207,28 @@ def _mul32(x, c):
 
 
 def dropout_keep(lead, tq, tk, causal_offset, kv_offset, rate, seed,
-                 device=None):
+                 device=None, positions=None):
     """The reference's ``_dropout_keep`` over a whole ``(*lead, Tq, Tk)``
     block: a murmur3-finalizer hash of (seed, flat batch index over
     ``lead``, global row ``causal_offset + i``, global column
     ``kv_offset + j``) in uint32 arithmetic (computed in int64 masked to
     32 bits; a negative int32 seed is its two's complement); an element
-    is kept when the hash is ``>= min(int(rate·2³²), 2³²−1)``. Returns
-    ``(keep bool, 1/(1−rate))``."""
+    is kept when the hash is ``>= min(int(rate·2³²), 2³²−1)``.
+    ``positions``: explicit global row and column vectors ``(pos_q
+    (..., Tq), pos_k (..., Tk))``, lead dims broadcast against ``lead``,
+    in place of the offsets. Returns ``(keep bool, 1/(1−rate))``."""
     nb = math.prod(lead)
     kw = dict(dtype=torch.int64, device=device)
-    rows = (causal_offset + torch.arange(tq, **kw)) & _M32
-    cols = (kv_offset + torch.arange(tk, **kw)) & _M32
+    if positions is None:
+        rows = ((causal_offset + torch.arange(tq, **kw)) & _M32)[None]
+        cols = ((kv_offset + torch.arange(tk, **kw)) & _M32)[None]
+    else:
+        rows, cols = (torch.as_tensor(p).to(**kw).expand(*lead, t)
+                      .reshape(nb, t) & _M32
+                      for p, t in zip(positions, (tq, tk)))
     b = torch.arange(nb, **kw)
-    x = (_mul32(rows, 2654435761)[None, :, None]
-         ^ _mul32(cols, 2246822519)[None, None, :]
+    x = (_mul32(rows, 2654435761)[:, :, None]
+         ^ _mul32(cols, 2246822519)[:, None, :]
          ^ (((seed & _M32) + _mul32(b, 668265263)) & _M32)[:, None, None])
     x = x ^ (x >> 16)
     x = _mul32(x, 2246822507)
@@ -216,28 +239,51 @@ def dropout_keep(lead, tq, tk, causal_offset, kv_offset, rate, seed,
     return (x >= threshold).reshape(*lead, tq, tk), 1.0 / (1.0 - rate)
 
 
+def _alibi_log2(alibi):
+    """The slopes pre-folded by log2e in float32, as the reference's
+    wrapper folds them (the scores are in log2 units)."""
+    return alibi.float() * _LOG2E
+
+
+def _back(q, k, co, ko, feat):
+    """``pos_q − pos_k`` per (row, column), int64: from the
+    ``positions`` vectors ``(..., Tq, Tk)``, else from the offsets
+    ``(Tq, Tk)``."""
+    if feat.pos is not None:
+        pq, pk = (p.to(device=q.device, dtype=torch.int64)
+                  for p in feat.pos)
+        return pq[..., :, None] - pk[..., None, :]
+    rows = co + torch.arange(q.shape[-2], device=q.device)
+    cols = ko + torch.arange(k.shape[-2], device=q.device)
+    return rows[:, None] - cols[None, :]
+
+
 def _plain_scores(q, k, mask, causal, co, ko, feat, scale, quant=None):
     """Float32 scores in log2 units of ``q`` (folded q₂, or raw q with
-    ``quant``) against ``k`` (already expanded to q's heads); masked
-    entries, the causal future, columns past the window and cross-segment
-    pairs at -inf. ``quant``: ``(q_i8, sq, k_i8, sk)`` with k's operands
-    expanded; scores ``(f32(q_i8·k_i8ᵀ)·sqf)·skr``, exact integer dot."""
+    ``quant``) against ``k`` (already expanded to q's heads); ALiBi's
+    ``slope₂·(pos_k − pos_q)`` added, then masked entries, the causal
+    future (offsets or ``positions``), columns past the window and
+    cross-segment pairs at -inf. ``quant``: ``(q_i8, sq, k_i8, sk)`` with
+    k's operands expanded; scores ``(f32(q_i8·k_i8ᵀ)·sqf)·skr``, exact
+    integer dot."""
     if quant is not None:
         q8, sq, k8, sk = quant
         s = torch.matmul(q8.float(), k8.float().transpose(-1, -2))
         s = s * (sq * (scale * _LOG2E)) * sk.transpose(-1, -2)
     else:
         s = torch.matmul(q.float(), k.float().transpose(-1, -2))
+    back = None
+    if causal or feat.pos is not None:
+        back = _back(q, k, co, ko, feat)
+    if feat.alibi is not None:
+        slope = _alibi_log2(feat.alibi)
+        s = s + slope.reshape(*slope.shape, 1, 1) * (-back).float()
     if mask is not None:
         s = s.masked_fill(_bool_mask(mask), float('-inf'))
-    if causal:
-        rel = co - ko
-        rows = rel + torch.arange(q.shape[-2], device=q.device)
-        cols = torch.arange(k.shape[-2], device=q.device)
-        s = s.masked_fill(cols[None, :] > rows[:, None], float('-inf'))
+    if back is not None:
+        s = s.masked_fill(back < 0, float('-inf'))
         if feat.window is not None:
-            s = s.masked_fill(rows[:, None] - cols[None, :] >= feat.window,
-                              float('-inf'))
+            s = s.masked_fill(back >= feat.window, float('-inf'))
     if feat.seg is not None:
         sq_, sk_ = feat.seg
         s = s.masked_fill(sq_[..., :, None] != sk_[..., None, :],
@@ -249,7 +295,7 @@ def _keep(feat, q, tk, co, ko):
     if not feat.rate:
         return None, 1.0
     return dropout_keep(tuple(q.shape[:-2]), q.shape[-2], tk, co, ko,
-                        feat.rate, feat.seed, q.device)
+                        feat.rate, feat.seed, q.device, feat.pos)
 
 
 def _softmax_out(s, m, v, keep=None, inv=1.0):
@@ -286,16 +332,18 @@ def flash_attention_plain_lse(q, k, v, mask=None, *, causal=False,
                               causal_offset=0, kv_offset=0, scale=None,
                               segment_ids=None, window=None,
                               dropout_rate=0.0, dropout_seed=None,
-                              qk_quant=None):
+                              qk_quant=None, positions=None,
+                              alibi_slopes=None):
     """The forward kernel's (K1) arithmetic in plain PyTorch (float32
     scores): ``(out, lse)`` with the row logsumexp ``lse (..., Tq)``
     float32 in natural-log units, ``ln2·(m₂ + log2 l)`` as the reference
     kernel saves it (a row with no attendable key gives ``ln2·_NEG_BIG``).
-    Takes the reference's segments, window, dropout and int8 knobs."""
+    Takes the reference's segments, window, dropout, int8, positions and
+    ALiBi knobs."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     feat = _features(q, k, causal, segment_ids, window, dropout_rate,
-                     dropout_seed, qk_quant)
+                     dropout_seed, qk_quant, positions, alibi_slopes)
     return _plain_fwd(q, k, v, mask, causal, causal_offset, kv_offset,
                       scale, feat)
 
@@ -332,13 +380,14 @@ def _bounded_ok(mvec):
 def flash_attention_bounded_plain_lse(q, k, v, mask=None, *, causal=False,
                                       causal_offset=0, kv_offset=0,
                                       scale=None, segment_ids=None,
-                                      window=None):
+                                      window=None, positions=None):
     """K2's arithmetic in plain PyTorch: ``(out, lse)`` with each row
     shifted by its bound (:func:`bounded_shift`) instead of its max; a row
     with no attendable key outputs 0 and saves ``ln2·bound``."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
-    feat = _features(q, k, causal, segment_ids, window)
+    feat = _features(q, k, causal, segment_ids, window,
+                     positions=positions)
     return _plain_fwd(q, k, v, mask, causal, causal_offset, kv_offset,
                       scale, feat, bounded=True)
 
@@ -405,9 +454,9 @@ def _bwd_plain(q2, k, v, g, lse2, delta, mask, causal, co, ko, scale,
 
 
 def _bwd_feat(q2, k, causal, segment_ids, window, dropout_rate,
-              dropout_seed, quant):
+              dropout_seed, quant, positions, alibi_slopes):
     feat = _features(q2, k, causal, segment_ids, window, dropout_rate,
-                     dropout_seed, None)
+                     dropout_seed, None, positions, alibi_slopes)
     return feat._replace(quant=quant is not None)
 
 
@@ -415,10 +464,11 @@ def flash_attention_dq_plain(q2, k, v, g, lse2, delta, *, mask=None,
                              causal=False, causal_offset=0, kv_offset=0,
                              scale=1.0, grad_dtype=None, segment_ids=None,
                              window=None, dropout_rate=0.0,
-                             dropout_seed=None, quant=None):
+                             dropout_seed=None, quant=None, positions=None,
+                             alibi_slopes=None):
     """The dq kernel's (K3) arithmetic in plain PyTorch."""
     feat = _bwd_feat(q2, k, causal, segment_ids, window, dropout_rate,
-                     dropout_seed, quant)
+                     dropout_seed, quant, positions, alibi_slopes)
     return _bwd_plain(q2, k, v, g, lse2, delta, mask, causal, causal_offset,
                       kv_offset, scale, grad_dtype, feat, quant,
                       want_dkv=False)[0]
@@ -428,11 +478,12 @@ def flash_attention_dkv_plain(q2, k, v, g, lse2, delta, *, mask=None,
                               causal=False, causal_offset=0, kv_offset=0,
                               grad_dtype=None, scale=None, segment_ids=None,
                               window=None, dropout_rate=0.0,
-                              dropout_seed=None, quant=None):
+                              dropout_seed=None, quant=None, positions=None,
+                              alibi_slopes=None):
     """The dk/dv kernel's (K4) arithmetic in plain PyTorch (``scale`` is
     needed only with ``quant``, whose dk carries it)."""
     feat = _bwd_feat(q2, k, causal, segment_ids, window, dropout_rate,
-                     dropout_seed, quant)
+                     dropout_seed, quant, positions, alibi_slopes)
     if scale is None:
         scale = 1.0 / math.sqrt(q2.shape[-1])
     return _bwd_plain(q2, k, v, g, lse2, delta, mask, causal, causal_offset,
@@ -445,14 +496,16 @@ def flash_attention_backward_plain(q, k, v, out, lse, g, causal=False,
                                    mask=None, kv_offset=0, grad_dtype=None,
                                    segment_ids=None, window=None,
                                    dropout_rate=0.0, dropout_seed=None,
-                                   qk_quant=None):
+                                   qk_quant=None, positions=None,
+                                   alibi_slopes=None):
     """``(dq, dk, dv)`` of :func:`flash_attention` from its saved
     ``(out, lse)`` and the output cotangent ``g``, in plain PyTorch: the
-    arithmetic of the reference's ``_flash_bwd_impl``."""
+    arithmetic of the reference's ``_flash_bwd_impl`` (no slope
+    gradient: the ALiBi slopes are constants of the VJP)."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     feat = _features(q, k, causal, segment_ids, window, dropout_rate,
-                     dropout_seed, qk_quant)
+                     dropout_seed, qk_quant, positions, alibi_slopes)
     q2, lse2, delta = flash_attention_bwd_operands(q, out, lse, g, scale)
     quant = quant_operands(q, k) if feat.quant else None
     return _bwd_plain(q2, k, v, g, lse2, delta, mask, causal, causal_offset,
@@ -463,52 +516,81 @@ def flash_attention_backward_plain(q, k, v, out, lse, g, causal=False,
 # Feature validation (the reference wrapper's, pallas_attention.py:1893-1950)
 # ---------------------------------------------------------------------------
 
-def _seg_side(vec, lead, t, side):
-    vec = torch.as_tensor(vec)
-    if vec.shape[-1] != t:
-        raise ValueError(f'segment_ids[{side}] trailing dim {vec.shape[-1]} '
-                         f'must equal {"Tq" if side == 0 else "Tk"} = {t}')
-    vlead = tuple(vec.shape[:-1])
+def _bcast_lead(kind, vlead, lead):
+    """Raise unless leading dims ``vlead`` broadcast against q/k/v's
+    ``lead`` (the reference's ``_bcast_lead``)."""
+    vlead = tuple(vlead)
     if len(vlead) > len(lead):
         raise ValueError(
-            f'segment_ids[{side}] has {len(vlead)} leading dims but q/k/v '
-            f'have {len(lead)}; segment_ids[{side}] may not add batch dims')
+            f'{kind} has {len(vlead)} leading dims but q/k/v have '
+            f'{len(lead)}; {kind} may not add batch dims')
     padded = (1,) * (len(lead) - len(vlead)) + vlead
     for db, dm in zip(lead, padded):
         if dm not in (1, db):
             raise ValueError(
-                f'segment_ids[{side}] leading dims {vlead} do not broadcast '
-                f'against q/k/v leading dims {lead}')
+                f'{kind} leading dims {vlead} do not broadcast against '
+                f'q/k/v leading dims {lead}')
+
+
+def _vec_side(name, vec, lead, t, side):
+    vec = torch.as_tensor(vec)
+    if vec.shape[-1] != t:
+        raise ValueError(f'{name}[{side}] trailing dim {vec.shape[-1]} '
+                         f'must equal {"Tq" if side == 0 else "Tk"} = {t}')
+    _bcast_lead(f'{name}[{side}]', vec.shape[:-1], lead)
     if vec.dtype.is_floating_point or vec.dtype == torch.bool:
-        raise TypeError(f'segment_ids must be integers, got {vec.dtype}')
+        raise TypeError(f'{name} must be integers, got {vec.dtype}')
     return vec
 
 
+def _vec_pair(name, value, q, k):
+    """A validated ``(q-side, kv-side)`` pair of per-position int vectors
+    (one array serves both sides when ``Tq == Tk``), or None."""
+    if value is None:
+        return None
+    if isinstance(value, (tuple, list)):
+        vq, vk = value
+    else:
+        if q.shape[-2] != k.shape[-2]:
+            raise ValueError(
+                f'a single {name} array needs Tq == Tk; pass a '
+                f'(q-side, kv-side) pair for cross-length attention')
+        vq = vk = value
+    lead = tuple(q.shape[:-2])
+    return (_vec_side(name, vq, lead, q.shape[-2], 0),
+            _vec_side(name, vk, lead, k.shape[-2], 1))
+
+
 def _features(q, k, causal, segment_ids=None, window=None, dropout_rate=0.0,
-              dropout_seed=None, qk_quant=None):
+              dropout_seed=None, qk_quant=None, positions=None,
+              alibi_slopes=None):
     """Validate the reference's feature knobs as its wrapper does and
     bundle them (:class:`_Feat`)."""
-    seg = None
-    if segment_ids is not None:
-        if isinstance(segment_ids, (tuple, list)):
-            seg_q, seg_k = segment_ids
-        else:
-            if q.shape[-2] != k.shape[-2]:
-                raise ValueError(
-                    'a single segment_ids array needs Tq == Tk; pass a '
-                    '(q-side, kv-side) pair for cross-length attention')
-            seg_q = seg_k = segment_ids
-        lead = tuple(q.shape[:-2])
-        seg = (_seg_side(seg_q, lead, q.shape[-2], 0),
-               _seg_side(seg_k, lead, k.shape[-2], 1))
+    seg = _vec_pair('segment_ids', segment_ids, q, k)
+    pos = _vec_pair('positions', positions, q, k)
+    if pos is not None and causal:
+        raise ValueError(
+            'positions IS causal masking (over explicit global positions) '
+            '— pass one or the other, not both')
     if window is not None:
         if (isinstance(window, bool) or not isinstance(window, int)
                 or window < 1):
             raise ValueError(f'window must be a positive int, got {window!r}')
-        if not causal:
+        if not causal and pos is None:
             raise ValueError(
                 'window is a lookback cap and needs causal semantics: pass '
-                'causal=True (explicit positions are not ported)')
+                'causal=True (contiguous rows) or positions (explicit '
+                'layouts)')
+    alibi = None
+    if alibi_slopes is not None:
+        alibi = torch.as_tensor(alibi_slopes, dtype=torch.float32,
+                                device=q.device)
+        if not causal and pos is None:
+            raise ValueError(
+                'alibi_slopes bias by relative GLOBAL position: pass '
+                'causal=True (contiguous rows) or positions (explicit '
+                'layouts) so the kernel knows the positions')
+        _bcast_lead('alibi_slopes', alibi.shape, tuple(q.shape[:-2]))
     if qk_quant not in (None, 'int8'):
         raise ValueError(f"qk_quant must be None or 'int8', "
                          f'got {qk_quant!r}')
@@ -525,7 +607,8 @@ def _features(q, k, causal, segment_ids=None, window=None, dropout_rate=0.0,
         seed = _i32(operator.index(dropout_seed)
                     if not isinstance(dropout_seed, torch.Tensor)
                     else int(dropout_seed))
-    return _Feat(seg, window, dropout_rate, seed, qk_quant == 'int8')
+    return _Feat(seg, window, dropout_rate, seed, qk_quant == 'int8', pos,
+                 alibi)
 
 
 # ---------------------------------------------------------------------------
@@ -554,15 +637,24 @@ class _VecArgs(ctypes.Structure):
 
 
 class _ExtArgs(ctypes.Structure):
-    """``ExtArgs`` of ``csrc/flash_*.cu``: segments, window, dropout and
-    the int8 operands with their row scales (null = unused)."""
+    """``ExtArgs`` of ``csrc/flash_*.cu``: segments, window, dropout, the
+    int8 operands with their row scales, the ALiBi slopes (per flat
+    (batch, head) row, folded by log2e) and the positions with their
+    per-tile [min, max] tables (null = unused)."""
     _fields_ = [('segq', _VecArgs), ('segk', _VecArgs),
                 ('window', ctypes.c_int), ('dropout', ctypes.c_int),
                 ('drop_threshold', ctypes.c_uint),
                 ('drop_inv', ctypes.c_float), ('seed', ctypes.c_uint),
                 ('q8', ctypes.c_void_p), ('k8', ctypes.c_void_p),
                 ('sqf', ctypes.c_void_p), ('skr', ctypes.c_void_p),
-                ('sqc', ctypes.c_void_p), ('skc', ctypes.c_void_p)]
+                ('sqc', ctypes.c_void_p), ('skc', ctypes.c_void_p),
+                ('alibi', ctypes.c_void_p),
+                ('posq', _VecArgs), ('posk', _VecArgs),
+                ('posq_mm', _VecArgs), ('posk_mm', _VecArgs)]
+
+# Rows of a query tile and of a key tile in csrc/flash_*.cu (kBQ, kBK, kB):
+# the grain of the positions' [min, max] tables.
+_TILE = 64
 
 
 def _check_kernel_operands(named, d):
@@ -634,11 +726,13 @@ def _mask_operand(mask, q, tk):
 
 
 def _vec_operand(vec, q, t):
-    """``(tensor, _VecArgs)`` of a segment-id vector for the kernels, in
-    int32 elements: broadcast over q's lead dims by stride 0 and
-    addressed per flat (batch, head) row of q, as a mask is."""
+    """``(tensor, _VecArgs)`` of a per-position int vector (segment ids,
+    positions, or a positions tile table) for the kernels, in int32
+    elements: broadcast over q's lead dims by stride 0 and addressed per
+    flat (batch, head) row of q, as a mask is."""
     if vec.device != q.device:
-        raise ValueError(f'segment_ids are on {vec.device}, not {q.device}')
+        raise ValueError(f'a per-position vector is on {vec.device}, not '
+                         f'{q.device}')
     lead = tuple(q.shape[:-2])
     v = vec.to(torch.int32).expand(*lead, t)
     if v.stride(-1) != 1:
@@ -648,6 +742,21 @@ def _vec_operand(vec, q, t):
     while v.dim() < 3:
         v = v.unsqueeze(0)
     return v, _VecArgs(v.data_ptr(), v.shape[1], v.stride(0), v.stride(1))
+
+
+def _tile_minmax(pos):
+    """``(..., 2·n_tiles)`` int32: each 64-position tile's [min, max] of
+    ``pos (..., T)`` (the reference's ``_pos_setup`` tables), over its real
+    positions only."""
+    pos = pos.to(torch.int32)
+    t = pos.shape[-1]
+    pad = -t % _TILE
+    if pad:
+        pos = torch.cat([pos, pos[..., -1:].expand(*pos.shape[:-1], pad)],
+                        dim=-1)
+    tiles = pos.reshape(*pos.shape[:-1], -1, _TILE)
+    return torch.stack([tiles.amin(dim=-1), tiles.amax(dim=-1)],
+                       dim=-1).flatten(-2)
 
 
 def _ext_operand(feat, q, k, scale, quant=None, bwd=False):
@@ -682,6 +791,20 @@ def _ext_operand(feat, q, k, scale, quant=None, bwd=False):
         if bwd:
             ext.sqc, ext.skc = sq.data_ptr(), sk.data_ptr()
             keep.append(sq)
+    if feat.alibi is not None:
+        slopes = _alibi_log2(feat.alibi).expand(q.shape[:-2]).contiguous()
+        ext.alibi = slopes.data_ptr()
+        keep.append(slopes)
+    if feat.pos is not None:
+        pq, pk = feat.pos
+        for name, vec, t in (('posq', pq, q.shape[-2]),
+                             ('posk', pk, k.shape[-2])):
+            v, args = _vec_operand(vec, q, t)
+            mm, mm_args = _vec_operand(_tile_minmax(vec), q,
+                                       2 * -(-t // _TILE))
+            setattr(ext, name, args)
+            setattr(ext, name + '_mm', mm_args)
+            keep += [v, mm]
     keep.append(ext)
     return keep, ctypes.pointer(ext)
 
@@ -710,13 +833,18 @@ def _launch(q, k, v, mask, causal, causal_offset, kv_offset, scale,
                  group, tq, tk, d, int(causal), causal_offset, kv_offset,
                  scale * _LOG2E, ext, torch.cuda.current_stream().cuda_stream)
     del alive
-    if mvec is None:
-        _raise_on(err, 'flash_fwd')
-        flash_attention.launches += 1
-    else:
-        _raise_on(err, 'flash_fwd bounded')
-        flash_attention_bounded.launches += 1
+    _raise_on(err, 'flash_fwd' if mvec is None else 'flash_fwd bounded')
+    _count(flash_attention if mvec is None else flash_attention_bounded,
+           feat)
     return out if lse is None else (out, lse)
+
+
+def _count(fn, feat):
+    """One launch of ``fn``'s kernel, and of its ALiBi / positions
+    variant when the launch carries them."""
+    fn.launches += 1
+    fn.alibi_launches += feat.alibi is not None
+    fn.positions_launches += feat.pos is not None
 
 
 def _raise_on(err, what):
@@ -726,31 +854,37 @@ def _raise_on(err, what):
 
 def flash_attention_bounded(q, k, v, mask=None, *, causal=False,
                             causal_offset=0, kv_offset=0, scale=None,
-                            save_lse=False, mvec=None):
+                            save_lse=False, mvec=None, segment_ids=None,
+                            window=None, positions=None):
     """K2, the bounded-softmax forward, whatever the guard would say
     (:func:`flash_attention` with ``softmax_mode='bounded'`` applies the
-    guard, and passes segments and a window on to K2): ``out``, or
-    ``(out, lse)`` with ``save_lse``. ``mvec`` is the row bound
-    (:func:`bounded_shift`; computed when None). The CUDA kernel for CUDA
-    tensors, :func:`flash_attention_bounded_plain_lse` for CPU tensors."""
+    guard): ``out``, or ``(out, lse)`` with ``save_lse``. ``mvec`` is the
+    row bound (:func:`bounded_shift`; computed when None); segments, a
+    window and positions as in :func:`flash_attention`. The CUDA kernel
+    for CUDA tensors, :func:`flash_attention_bounded_plain_lse` for CPU
+    tensors."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
+    feat = _features(q, k, causal, segment_ids, window,
+                     positions=positions)
     if not q.is_cuda:
-        res = flash_attention_bounded_plain_lse(
-            q, k, v, mask, causal=causal, causal_offset=causal_offset,
-            kv_offset=kv_offset, scale=scale)
+        res = _plain_fwd(q, k, v, mask, causal, causal_offset, kv_offset,
+                         scale, feat, bounded=True)
         return res if save_lse else res[0]
     if mvec is None:
         mvec = bounded_shift(_fold_q(q, scale), k)
     return _launch(q, k, v, mask, bool(causal), int(causal_offset),
-                   int(kv_offset), float(scale), save_lse, mvec=mvec)
+                   int(kv_offset), float(scale), save_lse, mvec=mvec,
+                   feat=feat)
 
 
 def _forward(q, k, v, mask, causal, causal_offset, kv_offset, scale, mode,
              save_lse, feat=_NO_FEAT):
     """The forward of either mode, K2 behind the reference's guard (with
-    dropout or int8 scoring 'bounded' resolves to the exact kernel)."""
-    if mode == 'bounded' and not (feat.rate or feat.quant):
+    dropout, int8 scoring or ALiBi 'bounded' resolves to the exact
+    kernel)."""
+    if mode == 'bounded' and not (feat.rate or feat.quant
+                                  or feat.alibi is not None):
         mvec = bounded_shift(_fold_q(q, scale), k)
         if _bounded_ok(mvec):
             if not q.is_cuda:
@@ -770,7 +904,8 @@ def _forward(q, k, v, mask, causal, causal_offset, kv_offset, scale, mode,
 def flash_attention_dq(q2, k, v, g, lse2, delta, *, mask=None, causal=False,
                        causal_offset=0, kv_offset=0, scale=1.0,
                        grad_dtype=None, segment_ids=None, window=None,
-                       dropout_rate=0.0, dropout_seed=None, quant=None):
+                       dropout_rate=0.0, dropout_seed=None, quant=None,
+                       positions=None, alibi_slopes=None):
     """dq from the folded operands (K3): ``q2`` is q·(scale·log2e),
     ``lse2`` and ``delta`` are ``(..., Tq)`` float32 (see
     :func:`flash_attention_backward`); ``quant`` the
@@ -780,14 +915,14 @@ def flash_attention_dq(q2, k, v, g, lse2, delta, *, mask=None, causal=False,
               kv_offset=kv_offset, grad_dtype=grad_dtype,
               segment_ids=segment_ids, window=window,
               dropout_rate=dropout_rate, dropout_seed=dropout_seed,
-              quant=quant)
+              quant=quant, positions=positions, alibi_slopes=alibi_slopes)
     if not q2.is_cuda:
         return flash_attention_dq_plain(q2, k, v, g, lse2, delta,
                                         scale=scale, **kw)
     _check_kernel_operands((('q', q2), ('k', k), ('v', v), ('g', g)),
                            q2.shape[-1])
     feat = _bwd_feat(q2, k, causal, segment_ids, window, dropout_rate,
-                     dropout_seed, quant)
+                     dropout_seed, quant, positions, alibi_slopes)
     out_f32 = _check_grad_dtype(grad_dtype, q2)
     group = _kv_group(q2, k)
     q2, k, v, g = (t.contiguous() for t in (q2, k, v, g))
@@ -807,7 +942,7 @@ def flash_attention_dq(q2, k, v, g, lse2, delta, *, mask=None, causal=False,
                  torch.cuda.current_stream().cuda_stream)
     del alive
     _raise_on(err, 'flash_bwd_dq')
-    flash_attention_dq.launches += 1
+    _count(flash_attention_dq, feat)
     return dq
 
 
@@ -815,7 +950,7 @@ def flash_attention_dkv(q2, k, v, g, lse2, delta, *, mask=None,
                         causal=False, causal_offset=0, kv_offset=0,
                         grad_dtype=None, scale=None, segment_ids=None,
                         window=None, dropout_rate=0.0, dropout_seed=None,
-                        quant=None):
+                        quant=None, positions=None, alibi_slopes=None):
     """``(dk, dv)`` from the folded operands (K4), kv-head shaped: each
     GQA group's query heads are summed in float32. ``scale`` matters only
     with ``quant`` (int8 scoring's dk carries the softmax scale). The CUDA
@@ -824,7 +959,7 @@ def flash_attention_dkv(q2, k, v, g, lse2, delta, *, mask=None,
               kv_offset=kv_offset, grad_dtype=grad_dtype, scale=scale,
               segment_ids=segment_ids, window=window,
               dropout_rate=dropout_rate, dropout_seed=dropout_seed,
-              quant=quant)
+              quant=quant, positions=positions, alibi_slopes=alibi_slopes)
     if not q2.is_cuda:
         return flash_attention_dkv_plain(q2, k, v, g, lse2, delta, **kw)
     _check_kernel_operands((('q', q2), ('k', k), ('v', v), ('g', g)),
@@ -832,7 +967,7 @@ def flash_attention_dkv(q2, k, v, g, lse2, delta, *, mask=None,
     if scale is None:
         scale = 1.0 / math.sqrt(q2.shape[-1])
     feat = _bwd_feat(q2, k, causal, segment_ids, window, dropout_rate,
-                     dropout_seed, quant)
+                     dropout_seed, quant, positions, alibi_slopes)
     out_f32 = _check_grad_dtype(grad_dtype, k)
     group = _kv_group(q2, k)
     q2, k, v, g = (t.contiguous() for t in (q2, k, v, g))
@@ -853,7 +988,7 @@ def flash_attention_dkv(q2, k, v, g, lse2, delta, *, mask=None,
                  torch.cuda.current_stream().cuda_stream)
     del alive
     _raise_on(err, 'flash_bwd_dkv')
-    flash_attention_dkv.launches += 1
+    _count(flash_attention_dkv, feat)
     return dk, dv
 
 
@@ -861,7 +996,8 @@ def flash_attention_backward(q, k, v, out, lse, g, causal=False,
                              causal_offset=0, scale=None, *, mask=None,
                              kv_offset=0, grad_dtype=None, segment_ids=None,
                              window=None, dropout_rate=0.0,
-                             dropout_seed=None, qk_quant=None):
+                             dropout_seed=None, qk_quant=None,
+                             positions=None, alibi_slopes=None):
     """``(dq, dk, dv)`` of :func:`flash_attention`: ``Δ``, ``q₂`` and
     ``lse₂`` (and with int8 scoring the quantized raw q and k) in plain
     PyTorch (the reference computes them with ``jnp`` outside its
@@ -874,7 +1010,7 @@ def flash_attention_backward(q, k, v, out, lse, g, causal=False,
               kv_offset=kv_offset, grad_dtype=grad_dtype,
               segment_ids=segment_ids, window=window,
               dropout_rate=dropout_rate, dropout_seed=dropout_seed,
-              quant=quant)
+              quant=quant, positions=positions, alibi_slopes=alibi_slopes)
     dq = flash_attention_dq(q2, k, v, g, lse2, delta, scale=scale, **kw)
     dk, dv = flash_attention_dkv(q2, k, v, g, lse2, delta, scale=scale, **kw)
     return dq, dk, dv
@@ -884,7 +1020,8 @@ def flash_attention_with_lse(q, k, v, mask=None, *, causal=False,
                              causal_offset=0, kv_offset=0, scale=None,
                              softmax_mode='exact', segment_ids=None,
                              window=None, dropout_rate=0.0,
-                             dropout_seed=None, qk_quant=None):
+                             dropout_seed=None, qk_quant=None,
+                             positions=None, alibi_slopes=None):
     """``(out, lse)``: the forward with the row logsumexp ``(..., Tq)``
     float32 the backward recomputes from — K1 (or K2 behind the guard)
     with its LSE output for CUDA tensors, the plain versions for CPU
@@ -892,7 +1029,7 @@ def flash_attention_with_lse(q, k, v, mask=None, *, causal=False,
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     feat = _features(q, k, causal, segment_ids, window, dropout_rate,
-                     dropout_seed, qk_quant)
+                     dropout_seed, qk_quant, positions, alibi_slopes)
     return _forward(q, k, v, mask, bool(causal), int(causal_offset),
                     int(kv_offset), float(scale), softmax_mode, True, feat)
 
@@ -919,33 +1056,25 @@ class _FlashAttention(torch.autograd.Function):
             q, k, v, out, lse, g, causal, causal_offset, scale, mask=mask,
             kv_offset=kv_offset, segment_ids=feat.seg, window=feat.window,
             dropout_rate=feat.rate, dropout_seed=feat.seed,
-            qk_quant='int8' if feat.quant else None)
+            qk_quant='int8' if feat.quant else None, positions=feat.pos,
+            alibi_slopes=feat.alibi)
         return dq, dk, dv, None, None, None, None, None, None, None
 
 
 def flash_attention(q, k, v, mask=None, *, causal=False, causal_offset=0,
                     kv_offset=0, scale=None, interpret=None,
-                    softmax_mode='exact', segment_ids=None, window=None,
-                    qk_quant=None, dropout_rate=0.0, dropout_seed=None,
-                    **unported):
+                    softmax_mode='exact', segment_ids=None, positions=None,
+                    window=None, alibi_slopes=None, qk_quant=None,
+                    dropout_rate=0.0, dropout_seed=None):
     """Fused attention ``softmax(q·kᵀ·scale)·v`` (see the module
-    docstring for layouts, masks, dropout, int8 scoring and numerics),
-    differentiable in q, k and v.
+    docstring for layouts, masks, positions, ALiBi, dropout, int8 scoring
+    and numerics), differentiable in q, k and v.
 
     ``causal_offset`` / ``kv_offset``: the global positions of query row
     0 and key column 0, host ints. ``softmax_mode``: ``'exact'`` (K1) or
     ``'bounded'`` (K2 behind the reference's guard, one host sync).
     ``interpret`` mirrors the reference knob: the plain version runs only
-    for CPU tensors, so ``interpret=True`` with a CUDA tensor raises.
-    ``positions`` and ``alibi_slopes`` raise ``NotImplementedError``
-    unless left at None."""
-    for name, value in unported.items():
-        if name not in _UNPORTED_DEFAULTS:
-            raise TypeError(f'flash_attention got an unexpected keyword '
-                            f'argument {name!r}')
-        if value is not None:
-            raise NotImplementedError(f'flash_attention({name}=...) is not '
-                                      f'ported yet (ROADMAP.md §2 item 1)')
+    for CPU tensors, so ``interpret=True`` with a CUDA tensor raises."""
     if softmax_mode not in ('exact', 'bounded'):
         raise ValueError(f"softmax_mode must be 'exact' or 'bounded', "
                          f'got {softmax_mode!r}')
@@ -966,7 +1095,7 @@ def flash_attention(q, k, v, mask=None, *, causal=False, causal_offset=0,
         scale = 1.0 / math.sqrt(q.shape[-1])
     scale, causal = float(scale), bool(causal)
     feat = _features(q, k, causal, segment_ids, window, dropout_rate,
-                     dropout_seed, qk_quant)
+                     dropout_seed, qk_quant, positions, alibi_slopes)
     if q.is_cuda and interpret:
         raise ValueError('interpret=True runs the plain version, which '
                          'the port keeps for CPU tensors only')
@@ -981,8 +1110,9 @@ def flash_attention(q, k, v, mask=None, *, causal=False, causal_offset=0,
 
 
 # Launches of each CUDA kernel (counted where it is launched, nowhere
-# else): K1 forward, K2 bounded forward, K3 dq, K4 dk/dv.
-flash_attention.launches = 0
-flash_attention_bounded.launches = 0
-flash_attention_dq.launches = 0
-flash_attention_dkv.launches = 0
+# else): K1 forward, K2 bounded forward, K3 dq, K4 dk/dv; and among them
+# the launches with ALiBi and with explicit positions.
+for _fn in (flash_attention, flash_attention_bounded, flash_attention_dq,
+            flash_attention_dkv):
+    _fn.launches = _fn.alibi_launches = _fn.positions_launches = 0
+del _fn

@@ -49,6 +49,13 @@ slab passes the query's global position localised to its slab, which is
 ``>= t_max`` when the slab lies wholly in the query's past (every column
 attended) and negative when it lies wholly in its future (none).
 
+``alibi_slopes (H,)``: ALiBi, the training kernels' bias — query head
+``h``'s score at column ``c`` of new row ``j`` gains ``slope_h · (c −
+(valid_to + j))`` (≤ 0 on attended columns), slopes pre-folded by log2e
+(the scores are in log2 units), after the appended rows' scores have
+replaced the buffer's. Under ``partials`` a sharded slab's localised
+``valid_to`` gives the same distances.
+
 ``partials=True`` returns, in place of the output, the flash-decoding
 partials of every query row for the cross-shard merge: ``num (B, H, k,
 d_v)`` float32, the un-normalised context, and ``m``/``l (B, H, k, 1)``
@@ -59,7 +66,7 @@ kernel initialises its running max).
 On CUDA tensors it launches ``csrc/flash_decode.cu`` (split-K
 flash-decoding plus a merge pass; bf16, head dims 32/64/96/128; paged,
 page sizes dividing 128) or raises; on CPU tensors it runs
-:func:`flash_decode_plain`. The reference's ALiBi and ``block_k`` raise
+:func:`flash_decode_plain`. The reference's ``block_k`` raises
 ``NotImplementedError``.
 """
 
@@ -70,14 +77,14 @@ import torch
 
 from distributed_dot_product_tpu_torch.ops import _build
 from distributed_dot_product_tpu_torch.ops.flash_attention import (
-    _LOG2E, _NEG_BIG, quantize_rows,
+    _LOG2E, _NEG_BIG, _alibi_log2, quantize_rows,
 )
 
 __all__ = ['flash_decode', 'flash_decode_paged', 'flash_decode_plain',
            'gather_pages']
 
 _KERNEL_HEAD_DIMS = (32, 64, 96, 128)
-_UNPORTED = ('alibi_slopes', 'block_k')
+_UNPORTED = ('block_k',)
 # Cache columns per split block of the CUDA kernel (kChunk in
 # csrc/flash_decode.cu): the slab's K split, which bounds verify-k.
 _SPLIT = 128
@@ -125,19 +132,34 @@ def _scores_plain(q, cache_k, scale, mirror=None):
     return s * sqf * k_scale.transpose(-1, -2)
 
 
+def _head_slopes(alibi_slopes, h, device):
+    """``(H,)`` float32 slopes pre-folded by log2e (the kernel's scores
+    are in log2 units), validated."""
+    slopes = torch.as_tensor(alibi_slopes, dtype=torch.float32,
+                             device=device)
+    if tuple(slopes.shape) != (h,):
+        raise ValueError(f'alibi_slopes must be (H,) = ({h},), got '
+                         f'{tuple(slopes.shape)}')
+    return _alibi_log2(slopes).contiguous()
+
+
 def _attend_plain(q, cache_k, cache_v, vt, scale, col_ok=None,
-                  window=None, partials=False, mirror=None):
+                  window=None, partials=False, mirror=None, alibi=None):
     """Masked attention of ``q (B, H, 1, d)`` over slab-layout caches,
     columns ``c <= vt[b]`` (within the window and ``col_ok``, when
-    given): the kernel's numerics (:func:`_scores_plain`, exp2 softmax,
-    empty rows 0). ``partials``: ``(num, m, l)`` in float32 instead of
-    the output."""
+    given): the kernel's numerics (:func:`_scores_plain`, ALiBi's
+    ``slope₂·(c − vt)`` with ``alibi`` the ``(H,)`` folded slopes, exp2
+    softmax, empty rows 0). ``partials``: ``(num, m, l)`` in float32
+    instead of the output."""
     b, h, _, d = q.shape
     t_max = cache_k.shape[2]
     dv = cache_v.shape[-1]
     s = _scores_plain(q, cache_k, scale, mirror)                # (b,hkv,g,t)
     rel = (torch.arange(t_max, device=cache_k.device)[None, :]
            - vt[:, None])                                       # (b, t)
+    if alibi is not None:
+        s = s + (alibi.reshape(1, *s.shape[1:3], 1)
+                 * rel[:, None, None, :].float())
     masked = rel > 0
     if window is not None:
         masked = masked | (rel <= -window)
@@ -162,7 +184,7 @@ def _check_window(window):
 
 
 def _step_plain(q, k_new, v_new, cache_k, cache_v, vt, ap, scale,
-                page_table, window, partials, mirror):
+                page_table, window, partials, mirror, alibi):
     """One new row per slot (``q (B, H, 1, d)``): the append at ``ap``
     (int64 ``(B,)``, ``-1`` none) in place, then the attention at
     ``vt``."""
@@ -179,7 +201,7 @@ def _step_plain(q, k_new, v_new, cache_k, cache_v, vt, ap, scale,
             mirror[0][rows, :, cols] = kni[rows, :, 0]
             mirror[1][rows, :, cols] = kns[rows, :, 0]
         return _attend_plain(q, cache_k, cache_v, vt, scale, window=window,
-                             partials=partials, mirror=mirror)
+                             partials=partials, mirror=mirror, alibi=alibi)
     ps = cache_k.shape[2]
     t_max = page_table.shape[1] * ps
     rows = torch.nonzero((ap >= 0) & (ap < t_max)).reshape(-1)
@@ -197,7 +219,7 @@ def _step_plain(q, k_new, v_new, cache_k, cache_v, vt, ap, scale,
     return _attend_plain(q, gather_pages(cache_k, page_table),
                          gather_pages(cache_v, page_table), vt, scale,
                          col_ok, window=window, partials=partials,
-                         mirror=gathered)
+                         mirror=gathered, alibi=alibi)
 
 
 def _row_counts(n_new, ap, n, b, dev):
@@ -211,7 +233,8 @@ def _row_counts(n_new, ap, n, b, dev):
 def flash_decode_plain(q, k_new, v_new, cache_k, cache_v, valid_to,
                        append_at, *, n_new=None, scale=None,
                        page_table=None, window=None, partials=False,
-                       k_q=None, k_scale=None, qk_quant=None):
+                       k_q=None, k_scale=None, qk_quant=None,
+                       alibi_slopes=None):
     """The kernel's arithmetic in plain PyTorch (float32 scores); appends
     in place like the kernel. Verify-k runs as ``k`` sequential one-row
     steps — row ``j`` appends (when ``j < n_new``) at ``append_at + j``
@@ -220,7 +243,8 @@ def flash_decode_plain(q, k_new, v_new, cache_k, cache_v, valid_to,
     scatters through the table (nothing where ``append_at < 0`` or the
     entry is ``-1``), then the slab arithmetic runs on the gathered view
     with ``-1`` columns masked. ``qk_quant='int8'``: scores from the
-    ``k_q``/``k_scale`` mirror, which is appended in place too. Returns
+    ``k_q``/``k_scale`` mirror, which is appended in place too.
+    ``alibi_slopes (H,)``: ALiBi at ``valid_to + j``. Returns
     ``(out, cache_k, cache_v)``, or with ``partials`` ``((num, m, l),
     cache_k, cache_v)``."""
     _check_window(window)
@@ -231,6 +255,8 @@ def flash_decode_plain(q, k_new, v_new, cache_k, cache_v, valid_to,
     ap = _slot_vector(append_at, b, dev).long()
     nn = _row_counts(n_new, ap, n, b, dev).long()
     mirror = (k_q, k_scale) if qk_quant == 'int8' else None
+    alibi = (None if alibi_slopes is None
+             else _head_slopes(alibi_slopes, q.shape[1], dev))
     pt = None if page_table is None else page_table.to(dev).long()
     rows = []
     for j in range(n):
@@ -238,7 +264,7 @@ def flash_decode_plain(q, k_new, v_new, cache_k, cache_v, valid_to,
         rows.append(_step_plain(
             q[:, :, j:j + 1], k_new[:, :, j:j + 1], v_new[:, :, j:j + 1],
             cache_k, cache_v, vt + j, apj, scale, pt, window, partials,
-            mirror))
+            mirror, alibi))
     if partials:
         res = tuple(torch.cat(part, dim=2) for part in zip(*rows))
     else:
@@ -251,9 +277,9 @@ def _kernel_lib():
     if lib.flash_decode_bf16.argtypes is None:
         vp, i = ctypes.c_void_p, ctypes.c_int
         lib.flash_decode_bf16.argtypes = (
-            [vp] * 20 + [i] * 7 + [ctypes.c_float, vp])
+            [vp] * 21 + [i] * 7 + [ctypes.c_float, vp])
         lib.flash_decode_paged_bf16.argtypes = (
-            [vp] * 21 + [i] * 8 + [ctypes.c_float, vp])
+            [vp] * 22 + [i] * 8 + [ctypes.c_float, vp])
         for fn in (lib.flash_decode_bf16, lib.flash_decode_paged_bf16):
             fn.restype = ctypes.c_int
         lib.flash_decode_chunk.argtypes = []
@@ -265,7 +291,7 @@ def _kernel_lib():
 
 def _launch(q, k_new, v_new, cache_k, cache_v, valid_to, append_at, n_new,
             scale, page_table=None, window=None, partials=False,
-            mirror=None):
+            mirror=None, alibi_slopes=None):
     b, h, n, d = q.shape
     h_kv = cache_k.shape[1]
     dev = cache_k.device
@@ -340,6 +366,8 @@ def _launch(q, k_new, v_new, cache_k, cache_v, valid_to, append_at, n_new,
         keep = (qi, kni, sqf, kns)     # the row scales are read as floats
         quant = (qi.data_ptr(), sqf.data_ptr(), kni.data_ptr(),
                  kns.data_ptr(), k_q.data_ptr(), k_scale.data_ptr())
+    alibi = (None if alibi_slopes is None
+             else _head_slopes(alibi_slopes, h, dev))
     n_splits = -(-t_max // chunk)
     part_acc = torch.empty((b * h * n, n_splits, d), dtype=torch.float32,
                            device=dev)
@@ -364,7 +392,8 @@ def _launch(q, k_new, v_new, cache_k, cache_v, valid_to, append_at, n_new,
     ptrs = (q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
             cache_k.data_ptr(), cache_v.data_ptr(), vt.data_ptr(),
             ap.data_ptr(), None if nn is None else nn.data_ptr())
-    scratch = (part_acc.data_ptr(), part_ml.data_ptr(), *outs)
+    scratch = (None if alibi is None else alibi.data_ptr(),
+               part_acc.data_ptr(), part_ml.data_ptr(), *outs)
     stream = torch.cuda.current_stream(dev).cuda_stream
     win = 0 if window is None else window
     with torch.cuda.device(dev):
@@ -383,13 +412,14 @@ def _launch(q, k_new, v_new, cache_k, cache_v, valid_to, append_at, n_new,
     counter.launches += 1
     counter.verify_launches += n > 1
     counter.int8_launches += mirror is not None
+    counter.alibi_launches += alibi is not None
     return res, cache_k, cache_v
 
 
 def flash_decode(q, k_new, v_new, cache_k, cache_v, valid_to, append_at, *,
                  n_new=None, page_table=None, k_q=None, k_scale=None,
-                 scale=None, window=None, qk_quant=None, interpret=None,
-                 partials=False, **unported):
+                 scale=None, window=None, alibi_slopes=None, qk_quant=None,
+                 interpret=None, partials=False, **unported):
     """One fused decode step (see the module docstring). Returns
     ``(out (B, H, k, d) in cache_v.dtype, cache_k, cache_v)`` — with
     ``partials`` ``((num, m, l), cache_k, cache_v)``; the cache tensors
@@ -451,7 +481,8 @@ def flash_decode(q, k_new, v_new, cache_k, cache_v, valid_to, append_at, *,
                              'the port keeps for CPU tensors only')
         return _launch(q, k_new, v_new, cache_k, cache_v, valid_to,
                        append_at, n_new, scale, page_table=page_table,
-                       window=window, partials=partials, mirror=mirror)
+                       window=window, partials=partials, mirror=mirror,
+                       alibi_slopes=alibi_slopes)
     if interpret is False:
         raise ValueError('interpret=False needs CUDA tensors: the kernel '
                          'runs only on the card')
@@ -459,7 +490,7 @@ def flash_decode(q, k_new, v_new, cache_k, cache_v, valid_to, append_at, *,
                               append_at, n_new=n_new, scale=scale,
                               page_table=page_table, window=window,
                               partials=partials, k_q=k_q, k_scale=k_scale,
-                              qk_quant=qk_quant)
+                              qk_quant=qk_quant, alibi_slopes=alibi_slopes)
 
 
 def flash_decode_paged(q, k_new, v_new, k_pool, v_pool, valid_to, append_at,
@@ -472,7 +503,8 @@ def flash_decode_paged(q, k_new, v_new, k_pool, v_pool, valid_to, append_at,
 
 # Launches of the CUDA kernel pairs, slab (K5) and paged (K5p), each
 # counted where it is launched and nowhere else: all of them, and among
-# them the verify-k (n > 1) and the int8-mirror launches.
+# them the verify-k (n > 1), the int8-mirror and the ALiBi launches.
 for _fn in (flash_decode, flash_decode_paged):
     _fn.launches = _fn.verify_launches = _fn.int8_launches = 0
+    _fn.alibi_launches = 0
 del _fn

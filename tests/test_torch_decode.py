@@ -125,18 +125,51 @@ def test_flash_decode_mixed_fill_matches_jax():
     dict(segment_ids=np.zeros((1, T_MAX))),
 ])
 def test_unported_decode_knobs_raise(kw):
-    """ALiBi and packed segments still raise on both impls; the window and
-    the sequence group are ported (tests/test_torch_cached_inference.py,
-    test_torch_decode_sharded.py). The two int8 cases raised until the
+    """Every knob that once raised here is ported. ALiBi matches the
+    reference on both port impls (the kernel's plain version and the
+    plain step) against its kernel and XLA step; ``seg_q`` alone is
+    ignored, as by the reference; ``segment_ids`` without ``seg_q`` is the
+    reference's ValueError (tests/test_torch_alibi_decode.py holds
+    segments with their query ids). The two int8 cases raised until the
     int8 K mirror was ported: on a cache without the mirror, int8 scoring
     takes the plain step (the default impl falls back to it, as the
     reference's does) with the cached keys quantized on the fly, and
     matches the reference's XLA int8 step."""
     rng = np.random.default_rng(0)
     jc, tc = _caches(rng, 1, 4, 2)
+    q, kn, vn = (_rand(rng, 1, 4, 1, D), _rand(rng, 1, 4, 1, D),
+                 _rand(rng, 1, 4, 1, D))
+    if 'segment_ids' in kw:
+        with pytest.raises(ValueError, match='seg_q'):
+            jdec.decode_step(jnp.asarray(q), jc, jnp.asarray(kn),
+                             jnp.asarray(vn), impl='xla',
+                             segment_ids=jnp.asarray(kw['segment_ids']))
+        with pytest.raises(ValueError, match='seg_q'):
+            tdec.decode_step(torch.from_numpy(q), tc, torch.from_numpy(kn),
+                             torch.from_numpy(vn),
+                             segment_ids=torch.from_numpy(
+                                 kw['segment_ids']))
+        return
+    if 'qk_quant' not in kw:
+        jkw = {n: jnp.asarray(a) for n, a in kw.items()}
+        want = {}
+        for impl in ('xla', 'kernel'):
+            extra = dict(interpret=True) if impl == 'kernel' else {}
+            _, out = jdec.decode_step(
+                jnp.asarray(q), jc, jnp.asarray(kn), jnp.asarray(vn),
+                impl=impl, **(jkw if 'alibi_slopes' in kw else {}),
+                **extra)
+            want[impl] = np.asarray(out)
+        for impl in ('kernel', 'plain'):
+            tc2 = tdec.DecodeCache(tc.k.clone(), tc.v.clone(), tc.length)
+            _, got = tdec.decode_step(
+                torch.from_numpy(q), tc2, torch.from_numpy(kn),
+                torch.from_numpy(vn), impl=impl,
+                **{n: torch.as_tensor(a) for n, a in kw.items()})
+            for ref in want.values():
+                np.testing.assert_allclose(got.numpy(), ref, **TOL)
+        return
     if kw.get('qk_quant') == 'int8':
-        q, kn, vn = (_rand(rng, 1, 4, 1, D), _rand(rng, 1, 4, 1, D),
-                     _rand(rng, 1, 4, 1, D))
         jc, want = jdec.decode_step(jnp.asarray(q), jc, jnp.asarray(kn),
                                     jnp.asarray(vn), qk_quant='int8',
                                     impl='xla')
@@ -146,7 +179,3 @@ def test_unported_decode_knobs_raise(kw):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
         assert tc.length == int(jc.length) == 3
         np.testing.assert_array_equal(tc.k.numpy(), np.asarray(jc.k))
-        return
-    x = torch.zeros((1, 4, 1, D))
-    with pytest.raises(NotImplementedError):
-        tdec.decode_step(x, tc, x, x, **kw)

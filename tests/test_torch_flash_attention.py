@@ -6,10 +6,9 @@ same float32 inputs, made by numpy from a seed. On the CPU the port's
 wrapper runs its plain version — the arithmetic the CUDA kernel
 implements and is held against on the card.
 
-The knobs not ported yet (ALiBi, explicit positions) raise; those
-ported since (``kv_offset``, bounded softmax, a dense mask, the window,
-int8 scoring, dropout, segments) are held against the reference on the
-same calls.
+Every knob is ported now (``kv_offset``, bounded softmax, a dense mask,
+the window, int8 scoring, dropout, segments, ALiBi, explicit positions)
+and held against the reference on the same calls.
 
 Tolerance: atol = rtol = 1e-5, float32 rounding of two different
 reduction orders (blockwise online softmax vs one full-row softmax).
@@ -70,10 +69,6 @@ def test_plain_matches_jax(case):
         assert got[..., 3:, :].any()
 
 
-PORTED_KNOBS = ('kv_offset', 'softmax_mode', 'window', 'qk_quant',
-                'dropout_rate', 'segment_ids')
-
-
 @pytest.mark.parametrize('kw', [
     dict(kv_offset=3), dict(softmax_mode='bounded'), dict(window=4),
     dict(qk_quant='int8'), dict(dropout_rate=0.1, dropout_seed=1),
@@ -82,21 +77,17 @@ PORTED_KNOBS = ('kv_offset', 'softmax_mode', 'window', 'qk_quant',
     dict(positions=np.arange(8)),
 ])
 def test_unported_knobs_raise(kw):
-    """Knobs still unported (ALiBi, positions) raise; ``kv_offset``,
-    bounded softmax, the window, int8 scoring, dropout and segments are
-    ported now and match the reference on the same call."""
-    x = torch.zeros((1, 2, 8, 16))
-    if set(kw) & set(PORTED_KNOBS):
-        q, k, v = _inputs(11, 1, 2, 2, 8, 8, 16, None)
-        want = np.asarray(jax_flash_attention(
-            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=True,
-            **kw))
-        got = flash_attention(torch.from_numpy(q), torch.from_numpy(k),
-                              torch.from_numpy(v), causal=True, **kw)
-        np.testing.assert_allclose(got.numpy(), want, **TOL)
-        return
-    with pytest.raises(NotImplementedError):
-        flash_attention(x, x, x, causal='window' in kw, **kw)
+    """Every knob that once raised here is ported: each matches the
+    reference on the same call (causal, except with ``positions``, which
+    are the causal mask themselves and exclude ``causal=True``)."""
+    q, k, v = _inputs(11, 1, 2, 2, 8, 8, 16, None)
+    causal = 'positions' not in kw
+    want = np.asarray(jax_flash_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+        **kw))
+    got = flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                          torch.from_numpy(v), causal=causal, **kw)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
 
 
 def test_mask_and_bad_shapes_raise():

@@ -269,14 +269,27 @@ def test_a_wholly_cross_segment_fold_is_exactly_empty():
     (dict(dropout_rate=0.1), ValueError),               # needs a seed
     (dict(dropout_rate=1.0, dropout_seed=1), ValueError),
     (dict(segment_ids=np.zeros((1, 2, 2, 8), np.int32)), ValueError),
-    (dict(alibi_slopes=[0.5, 0.25], causal=True), NotImplementedError),
-    (dict(positions=np.arange(8)), NotImplementedError),
+    (dict(alibi_slopes=[0.5, 0.25], causal=True), None),
+    (dict(positions=np.arange(8)), None),
 ], ids=['window_no_causal', 'window_zero', 'window_float', 'qk_quant',
         'dropout_no_seed', 'dropout_rate_one', 'segments_extra_dim', 'alibi',
         'positions'])
 def test_validation_follows_the_reference(kw, exc):
+    """What the reference refuses raises the same error class; ALiBi
+    and explicit positions, which raised until they were ported, match
+    the reference on the same call (``exc`` None)."""
     x = torch.zeros((1, 2, 8, 16))
     kw = {**kw}
+    if exc is None:
+        rng = np.random.default_rng(len(kw))
+        q, k, v = (rng.standard_normal((1, 2, 8, 16)).astype(np.float32)
+                   for _ in range(3))
+        want = np.asarray(jax_flash_attention(
+            *(jnp.asarray(a) for a in (q, k, v)), **kw))
+        got = flash_attention(*(torch.from_numpy(a) for a in (q, k, v)),
+                              **kw)
+        np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=1e-5)
+        return
     if 'segment_ids' in kw:
         kw['segment_ids'] = torch.from_numpy(kw['segment_ids'])
         with pytest.raises(ValueError):     # the reference refuses it too

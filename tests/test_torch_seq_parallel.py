@@ -196,21 +196,28 @@ def test_ring_folds_match_the_local_oracle(group, causal):
 
 
 def test_unported_ring_layouts_and_knobs_raise():
-    """The zigzag layout and ALiBi still raise; the window, dropout and
-    int8 scoring are ported (on one rank the ring is one diagonal fold:
-    the reference's flash kernel on the same call), and the plain fold
-    refuses the kernel-only knobs as the reference's does."""
+    """Every ring knob is ported: the zigzag layout, ALiBi, the window,
+    dropout and int8 scoring match the reference's flash kernel on the
+    same call (on one rank the ring is one diagonal fold; zigzag's is the
+    fold at positions 0..T-1); the zigzag module builds and, on one rank,
+    equals its contiguous twin; the plain fold refuses the kernel-only
+    knobs as the reference's does."""
     x = torch.zeros((1, 2, 8, 8))
-    for kw in (dict(layout='zigzag', causal=True),
-               dict(alibi_slopes=[0.5, 0.25], causal=True)):
-        with pytest.raises(NotImplementedError, match='ROADMAP'):
-            ring_attention(x, x, x, **kw)
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        DistributedDotProductAttn(DIM, num_heads=HEADS, causal=True,
-                                  softmax_impl='online',
-                                  ring_layout='zigzag', device='cpu')
+    rng = np.random.default_rng(12)
+    keys = rng.standard_normal((1, 16, DIM)).astype(np.float32)
+    outs = []
+    for layout in ('contiguous', 'zigzag'):
+        mod = DistributedDotProductAttn(DIM, num_heads=HEADS, causal=True,
+                                        softmax_impl='online',
+                                        ring_layout=layout, use_rope=True,
+                                        device='cpu',
+                                        generator=torch.Generator()
+                                        .manual_seed(0))
+        with torch.no_grad():
+            outs.append(mod(*(torch.from_numpy(keys),) * 3))
+    torch.testing.assert_close(outs[1], outs[0], rtol=0, atol=0)
     for kw in (dict(window=4), dict(dropout_rate=0.1, dropout_seed=1),
-               dict(qk_quant='int8')):
+               dict(qk_quant='int8'), dict(alibi_slopes=[0.5, 0.25])):
         with pytest.raises(ValueError, match="block_impl='flash'|mask=None"):
             ring_attention(x, x, x, torch.zeros((1, 2, 8, 8), dtype=bool),
                            causal=True, block_impl='xla', **kw)
@@ -219,9 +226,14 @@ def test_unported_ring_layouts_and_knobs_raise():
                for _ in range(3))
     for kw in (dict(window=4, causal=True),
                dict(dropout_rate=0.1, dropout_seed=1),
-               dict(qk_quant='int8', causal=True)):
+               dict(qk_quant='int8', causal=True),
+               dict(alibi_slopes=[0.5, 0.25], causal=True),
+               dict(layout='zigzag', causal=True),
+               dict(layout='zigzag', causal=True, window=5,
+                    alibi_slopes=[0.5, 0.25])):
+        jkw = {n: a for n, a in kw.items() if n != 'layout'}
         want = np.asarray(jax_flash_attention(
-            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), **kw))
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), **jkw))
         got = ring_attention(*(torch.from_numpy(a) for a in (q, k, v)), **kw)
         _close(got.numpy(), want, what=str(kw))
     np.testing.assert_array_equal(zigzag_indices(32, 4).numpy(),

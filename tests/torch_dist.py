@@ -280,6 +280,68 @@ def ring_impls(rank, world, q, k, v, mask, causal):
     return res
 
 
+def attn_op(rank, world, fn, q, k, v, mask, seg, g, kw):
+    """``ring_attention`` (``fn='ring'``) or ``ulysses_attention``
+    (``'ulysses'``) with ``kw`` on this rank's time shards of global
+    ``(B, H, T, d)`` inputs (a mask ``(B, 1, T, T)`` by rows, segment ids
+    ``(..., T)`` by positions): the gathered output and the gathered
+    gradients of ``sum(out * g)``."""
+    from distributed_dot_product_tpu_torch.models.ring_attention import (
+        ring_attention,
+    )
+    from distributed_dot_product_tpu_torch.models.ulysses_attention import (
+        ulysses_attention,
+    )
+    from distributed_dot_product_tpu_torch.parallel.mesh import (
+        seq_mesh, shard_seq, unshard_seq,
+    )
+    op = {'ring': ring_attention, 'ulysses': ulysses_attention}[fn]
+    mesh = seq_mesh(world)
+    xs = [shard_seq(_t(a), mesh).clone().requires_grad_()
+          for a in (q, k, v)]
+    m = None if mask is None else shard_seq(_t(mask), mesh)
+    if seg is not None:
+        kw = dict(kw, segment_ids=shard_seq(_t(seg), mesh, seq_axis=-1))
+    out = op(*xs, m, group=mesh.seq_group, **kw)
+    (out * shard_seq(_t(g), mesh)).sum().backward()
+    return [_np(unshard_seq(t, mesh)) for t in (out, *(x.grad for x in xs))]
+
+
+def decode_segments_module(rank, world, kw, state, prompt, seg_prompt, xs,
+                           seg_xs, t_max):
+    """The module's sequence-sharded decode with packed segments: the
+    local cache filled by ``prefill(prompt, segment_ids=seg_prompt,
+    seg_cache=...)`` and sharded, then one ``decode_sharded`` step per
+    row of ``xs`` with its ids ``seg_xs (B, steps)``; the cached
+    positions' ids ``(B, t_max)`` are prompt then steps, each rank passing
+    its slab's shard. Returns each step's output."""
+    import torch
+    from distributed_dot_product_tpu_torch.parallel.mesh import (
+        seq_mesh, shard_decode_cache, shard_seq,
+    )
+    mesh = seq_mesh(world)
+    mod = _module(kw, state)
+    b, n = seg_prompt.shape
+    seg_cache = np.zeros((b, t_max), np.int32)
+    seg_cache[:, :n] = seg_prompt
+    seg_cache[:, n:n + seg_xs.shape[1]] = seg_xs
+    outs = []
+    with torch.no_grad():
+        cache = mod.make_decode_cache(b, t_max)
+        p = _t(prompt)
+        cache, _ = mod.prefill(p, p, p, cache, _t(seg_prompt),
+                               _t(seg_cache))
+        cache = shard_decode_cache(cache, mesh)
+        slab = shard_seq(_t(seg_cache), mesh, seq_axis=-1)
+        for t in range(xs.shape[1]):
+            x = _t(xs[:, t:t + 1])
+            cache, out = mod.decode_sharded(x, x, x, cache,
+                                            _t(seg_xs[:, t:t + 1]), slab,
+                                            group=mesh.seq_group)
+            outs.append(_np(out))
+    return outs
+
+
 def train_step(rank, world, kw, state, batch, opt, lr, guard=False):
     """One ``make_train_step`` step on a 2 x (world/2) data x seq mesh:
     the loss (or guarded record) and the parameters after the step."""
