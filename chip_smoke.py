@@ -9,7 +9,8 @@ Phases, one JSON line each (some several):
 
 1. device: the card, torch and CUDA versions;
 2. build: compiles every kernel source in ``csrc/``, one ``nvcc`` each,
-   all started together;
+   all started together; its seconds, and per library the most registers
+   a kernel takes and the kernels that spill (``ptxas -v``);
 3. flash_attention: K1 (flash-attention forward) against its plain
    PyTorch version at the prefill shape, at ragged shapes with a causal
    offset (one with GQA) and at a ragged shape without causal masking,
@@ -51,7 +52,9 @@ Phases, one JSON line each (some several):
    their plain versions in bf16 at the training shape (4 x 8 heads,
    T 4096, head dim 96, causal), a ragged causal GQA 8:2 self-attention
    at T 333, Tq 77 over Tk 1077 at causal offset 1000, and a non-causal
-   50 x 300; timings at the training shape;
+   50 x 300; timings at the training shape, the pair K3 + K4 beside one
+   SDPA backward (dq, dk and dv together) and each over it; the backward
+   run twice at the training shape must give dq, dk and dv bit for bit;
 9. train_path: five Adam steps (lr 3e-4) of the same model with float32
    parameters, bf16 compute and remat, on one batch of 4 x 4096 seeded
    random tokens (loss_chunk 4096): losses, ms per step, tokens/s, peak
@@ -86,7 +89,8 @@ Phases, one JSON line each (some several):
    causal ring fold, zigzag positions (rank 1's diagonal fold of W = 4),
    and ALiBi with positions, a window of 1024 and dropout; K2 with
    positions; times against bound, plain and SDPA with a boolean mask
-   (a float bias for ALiBi) where one call computes the same function;
+   (a float bias for ALiBi) where one call computes the same function
+   (its forward for K1 and K2, its backward for K3 and K4);
 14. flagship: dryrun_multichip's window, gqa_ring (GQA, RoPE, the ring
    with packed segments, dropout 0.1 and int8 scoring), stack (a 2-layer
    TransformerStack at dim 768) and lm (the 16-layer TransformerLM on
@@ -165,6 +169,7 @@ line.
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -329,6 +334,25 @@ def bound_ms(flops, nbytes):
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
     return 1e3 * max(t_ops, t_bytes), ('operations' if t_ops > t_bytes
                                        else 'bytes')
+
+
+def build_resources(build):
+    """Per library, ``ptxas -v``'s most registers a kernel uses and the
+    kernels that spill (their spill bytes, stored + loaded), keyed by the
+    kernel's mangled name from its ``flash_`` on."""
+    out = {}
+    for lib in build.SOURCES:
+        res = build.resources(lib)
+        spilling = {}
+        for name, (_, spill) in res.items():
+            if spill:
+                short = re.search(r'flash_\w+', name)
+                spilling[short.group(0) if short else name] = spill
+        out[lib] = {'kernels': len(res),
+                    'max_registers': max((r for r, _ in res.values()),
+                                         default=None),
+                    'spilling': spilling}
+    return out
 
 
 def randn(torch, shape, gen, dev, dtype):
@@ -2036,13 +2060,34 @@ def phase_flash_backward(torch, ddp, flush, gen):
             'library_ms': time_ms(torch, lib, flush) if lib else lib_bwd,
             'bound_ms': bms, 'bound_by': by, 'flops': flops,
             'bytes': nbytes}
+    # The pair K3 + K4 computes what one SDPA backward computes (dq, dk and
+    # dv together): each kernel's and the pair's time over it.
+    pair_ms = timing['flash_attention_dq']['ms'] + \
+        timing['flash_attention_dkv']['ms']
+    for kname in ('flash_attention_dq', 'flash_attention_dkv'):
+        timing[kname]['x_library'] = timing[kname]['ms'] / lib_bwd
     emit({'phase': 'flash_backward', 'case': 'train_timing',
           'library': {'flash_attention': 'sdpa forward, is_causal',
                       'flash_attention_dq': 'sdpa backward (dq, dk, dv '
                       'together)',
                       'flash_attention_dkv': 'sdpa backward (dq, dk, dv '
                       'together)'},
+          'pair_dq_dkv': {'ms': pair_ms, 'library_ms': lib_bwd,
+                          'x_library': pair_ms / lib_bwd},
           **timing})
+    # No atomics: the backward run twice on the same inputs gives dq, dk
+    # and dv bit for bit.
+    first = fa.flash_attention_backward(q, k, v, out, lse, g, scale=scale,
+                                        **kw)
+    again = fa.flash_attention_backward(q, k, v, out, lse, g, scale=scale,
+                                        **kw)
+    torch.cuda.synchronize()
+    same = {n: bool(torch.equal(a, b))
+            for n, a, b in zip(('dq', 'dk', 'dv'), first, again)}
+    emit({'phase': 'flash_backward', 'case': 'train_repeat_bitwise',
+          'q': list(q.shape), 'exactly_equal': same})
+    check(all(same.values()), f'the backward is not repeatable bit for '
+          f'bit: {same}')
     return worst, timing
 
 
@@ -2512,7 +2557,7 @@ def phase_flash_masks(torch, ddp, flush, gen):
         vec_b = (8 * b * t if seg is not None else 0) + \
             (4 * (nb + b * hkv) * t if int8 else 0) + \
             (8 * t if pos is not None else 0) + (4 * hq if alibi else 0)
-        lib = None
+        lib = lib_bwd = None
         if not rate and not int8:
             if pos is not None:
                 back = pos[0].long()[:, None] - pos[1].long()[None, :]
@@ -2534,6 +2579,15 @@ def phase_flash_masks(torch, ddp, flush, gen):
                                      allowed.expand(1, 1, t, t), q.dtype)
             lib = (lambda al=allowed: F.scaled_dot_product_attention(
                 q, k, v, attn_mask=al, scale=scale))
+            # K3 and K4 against one SDPA backward with the same mask or
+            # bias (dq, dk and dv together).
+            qr, kr, vr = (x.detach().requires_grad_() for x in (q, k, v))
+            o_lib = F.scaled_dot_product_attention(qr, kr, vr,
+                                                   attn_mask=allowed,
+                                                   scale=scale)
+            lib_bwd = time_ms(torch, lambda: torch.autograd.grad(
+                o_lib, (qr, kr, vr), g, retain_graph=True), flush)
+            del o_lib, qr, kr, vr
         s_ops = 2 * d * pairs              # one product's multiply-adds
         for kname, ops, nbytes, fn, plain_fn in (
                 ('flash_attention', (s_ops * (1 - int8) + s_ops,
@@ -2562,17 +2616,22 @@ def phase_flash_masks(torch, ddp, flush, gen):
             timing.setdefault(kname, {})[name] = {
                 'ms': time_ms(torch, fn, flush),
                 'plain_ms': time_ms(torch, plain_fn, flush, reps=3),
-                'library_ms': (time_ms(torch, lib, flush)
-                               if lib is not None and kname ==
-                               'flash_attention' else None),
+                'library_ms': (None if lib is None else
+                               time_ms(torch, lib, flush)
+                               if kname == 'flash_attention' else lib_bwd),
                 'bound_ms': bms, 'bound_by': by}
+        if lib is not None:
+            how = ('float ALiBi bias (bf16)' if alibi else 'boolean mask')
+            library = {'flash_attention': f'sdpa forward, {how}',
+                       'backward': f'sdpa backward (dq, dk, dv together), '
+                                   f'{how}'}
+        elif rate:
+            library = ('none: the coordinate-hash dropout has no library '
+                       'counterpart')
+        else:
+            library = 'none: no PyTorch call computes int8 scoring'
         emit({'phase': 'flash_masks', 'case': name + '_timing',
-              'pairs': pairs,
-              'library': ('sdpa forward, float ALiBi bias (bf16)' if alibi
-                          and lib is not None else
-                          'sdpa forward, boolean mask' if lib is not None
-                          else 'none: no PyTorch call computes the '
-                          'hash dropout or int8 scoring'),
+              'pairs': pairs, 'library': library,
               **{kn: timing[kn][name] for kn in timing}})
         del q, k, v, g, out, lse, out_p, lse_p, got, want, q2, lse2, delta
         lib = None
@@ -2640,17 +2699,24 @@ def phase_flash_masks(torch, ddp, flush, gen):
     nbytes = 2 * 4 * b * 8 * t * 64 + 8 * t + 4 * b * 8 * t
     bms, by = bound_ms(4 * 64 * pairs, nbytes)
     mvec = fa.bounded_shift(fa._fold_q(q, 1.0 / 8.0), k)
+    back = pos[0].long()[:, None] - pos[1].long()[None, :]
+    allowed = (back >= 0) & (back < kw['window'])
     k2 = {'ms': time_ms(torch, lambda: fa.flash_attention_bounded(
               q, k, v, mvec=mvec, **kw), flush),
           'plain_ms': time_ms(
               torch, lambda: fa.flash_attention_bounded_plain_lse(
                   q, k, v, **kw), flush, reps=3),
-          'library_ms': None, 'bound_ms': bms, 'bound_by': by,
+          'library_ms': time_ms(
+              torch, lambda: F.scaled_dot_product_attention(
+                  q, k, v, attn_mask=allowed, scale=1.0 / 8.0), flush),
+          'bound_ms': bms, 'bound_by': by,
           'max_abs_err': (out.float() - ref.float()).abs().max().item(),
           'max_row_rel_err': row, 'rel_err': whole}
     emit({'phase': 'flash_masks', 'case': 'bounded_positions',
           'q': list(q.shape), 'k2_launched': took, 'pairs': pairs,
-          'library': 'none: sdpa has no bounded-shift softmax', **k2,
+          'library': 'sdpa forward, boolean mask from the positions and '
+                     'the window (the same softmax: the shift cancels)',
+          **k2,
           'tol': {'row_rel': TOL_ROW_REL, 'rel': TOL_NORM_REL}})
     failures += check_rel({'out': (row, whole)}, 'bounded_positions')
     if took != 1:
@@ -4149,7 +4215,8 @@ def main():
         t0 = time.perf_counter()
         _build.build_all()
         emit({'phase': 'build', 'sources': list(_build.SOURCES),
-              'seconds': time.perf_counter() - t0})
+              'seconds': time.perf_counter() - t0,
+              'ptxas': build_resources(_build)})
 
         flush = torch.empty(64 * 1024 * 1024, dtype=torch.int32,
                             device='cuda')            # 256 MB > 50 MB L2

@@ -15,21 +15,25 @@ dropout and int8 scoring (K3's and K4's apart). The library is opened
 with ``ctypes``; the wrappers pass device pointers and the CUDA stream as
 ``c_void_p``.
 
-The build runs at a kernel's first use, so running any entry point on
-the card builds what it needs. :func:`build_all` starts one ``nvcc`` per
-library at once and waits for them all. A failed build raises: there is
-no fallback to another implementation.
+``nvcc`` runs with ``-Xptxas -v``; each library's build log is kept
+beside it (``.log``), and :func:`resources` reads each kernel's
+registers and spill bytes from it. The build runs at a kernel's first
+use, so running any entry point on the card builds what it needs.
+:func:`build_all` starts one ``nvcc`` per library at once and waits for
+them all. A failed build raises: there is no fallback to another
+implementation.
 """
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 from pathlib import Path
 
-__all__ = ['load', 'build_all', 'LIBRARIES', 'SOURCES']
+__all__ = ['load', 'build_all', 'resources', 'LIBRARIES', 'SOURCES']
 
 _CSRC = Path(__file__).resolve().parent.parent / 'csrc'
 _BUILD_DIR = Path(__file__).resolve().parents[2] / 'build' / 'kernels'
@@ -44,7 +48,7 @@ LIBRARIES = {
 }
 SOURCES = tuple(LIBRARIES)
 _NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
-               '-O3', '-shared', '-Xcompiler', '-fPIC')
+               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
 _LOCK = threading.Lock()
 _LIBS = {}
@@ -97,6 +101,7 @@ def _finish(name, job):
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f'nvcc failed on csrc/{LIBRARIES[name][0]}.cu '
                            f'for {name} (exit {proc.returncode}):\n{log}')
+    out.with_suffix('.log').write_text(log)
     os.replace(tmp, out)
 
 
@@ -113,6 +118,33 @@ def build_all():
                 errors.append(str(exc))
         if errors:
             raise RuntimeError('\n'.join(errors))
+
+
+def resources(name):
+    """Each kernel of library ``name`` as ``ptxas -v`` reported it at its
+    build: ``{mangled name: (registers, spill bytes stored + loaded)}``
+    (empty when the build log is gone)."""
+    path = _target(name).with_suffix('.log')
+    return _parse_ptxas(path.read_text()) if path.is_file() else {}
+
+
+def _parse_ptxas(log):
+    found, kernel, spill = {}, None, 0
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            kernel, spill = m.group(1), 0
+            continue
+        m = re.search(r'(\d+) bytes spill stores, (\d+) bytes spill loads',
+                      line)
+        if m:
+            spill = int(m.group(1)) + int(m.group(2))
+            continue
+        m = re.search(r'Used (\d+) registers', line)
+        if m and kernel is not None:
+            found[kernel] = (int(m.group(1)), spill)
+            kernel = None
+    return found
 
 
 def load(name):

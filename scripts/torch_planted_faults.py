@@ -7,8 +7,8 @@ Planted faults against ``chip_smoke.py``'s kernel checks, on one CUDA card.
 
 For each fault below: copies ``chip_smoke.py`` and the port's package into
 a temporary directory, plants the fault in one kernel source, runs
-``chip_smoke.py`` there, and reads its ``flash_attention`` and
-``flash_backward`` lines. The run must fail, in a phase that holds the
+``chip_smoke.py --phases flash_attention,flash_backward`` there, and reads
+those phases' lines. The run must fail, in a phase that holds the
 faulty kernel. Prints one JSON line per fault with the readings of every case
 (largest row error and whole-tensor error of out / dq / dk / dv, K1's lse
 error), then ``{"faults": n, "caught": m}``; exits non-zero unless every
@@ -27,9 +27,14 @@ import tempfile
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = 'distributed_dot_product_tpu_torch'
 
-_ROUND_ACC = ('        for (int e = 0; e < {0}[j].num_elements; ++e)\n'
-              '          {0}[j].x[e] = __bfloat162float('
-              '__float2bfloat16({0}[j].x[e]));\n')
+
+def _round_acc(*names):
+    """Rounds each named accumulator array (D / 2 floats) to bf16."""
+    return ''.join(f'    for (int i = 0; i < D / 2; ++i)\n'
+                   f'      {n}[i] = '
+                   f'__bfloat162float(__float2bfloat16({n}[i]));\n'
+                   for n in names)
+
 
 # name: (source, text to replace, replacement, phases one of which
 # must fail)
@@ -43,31 +48,31 @@ FAULTS = {
         'orow[c] = __bfloat162float(__float2bfloat16(orow[c] * corr));',
         ('flash_attention', 'flash_backward')),
     'k3_late_diagonal_tile_dropped': (
-        'flash_bwd.cu', 'for (int t = t_begin; t < n_ktiles; ++t) {',
-        'for (int t = t_begin; t < n_ktiles - (tile >= 32 ? 1 : 0); ++t) {',
+        'flash_bwd.cu', '      uint32_t ds[4][4];\n',
+        '      if (q0 >= 32 * kB && t == (wg ? t_hi[1] : t_hi[0]) - 1)\n'
+        '        for (int i = 0; i < 32; ++i) dp[i] = 0.f;\n'
+        '      uint32_t ds[4][4];\n',
         ('flash_backward',)),
     'k3_accumulator_bf16': (
-        'flash_bwd.cu',
-        '    warp_ab_acc<D>(acc, sDS + warp * 16 * kB, sK);\n',
-        '    warp_ab_acc<D>(acc, sDS + warp * 16 * kB, sK);\n'
-        '    for (int j = 0; j < D / 16; ++j) {\n'
-        + _ROUND_ACC.format('acc') + '    }\n',
+        'flash_bwd.cu', '      fence_regs(acc);\n',
+        '      fence_regs(acc);\n' + _round_acc('acc'),
         ('flash_backward',)),
     'k4_late_diagonal_tile_dropped': (
-        'flash_bwd.cu',
-        '  // Elementwise ownership: lanes (2r, 2r+1) of warp w hold key row',
-        '  if (k0 >= 32 * kB) ++qt_begin;\n'
-        '  // Elementwise ownership: lanes (2r, 2r+1) of warp w hold key row',
+        'flash_bwd.cu', '    bool yes = qt >= lo && qt < hi;\n',
+        '    bool yes = qt >= lo + (kb0 + w * kB >= 32 * kB ? 1 : 0) &&\n'
+        '               qt < hi;\n',
         ('flash_backward',)),
     'k4_accumulator_bf16': (
         'flash_bwd.cu',
-        '      warp_ab_acc<D>(acc_dk, sDST + warp * 16 * kB, sQ);\n',
-        '      warp_ab_acc<D>(acc_dk, sDST + warp * 16 * kB, sQ);\n'
-        '      for (int j = 0; j < D / 16; ++j) {\n'
-        + _ROUND_ACC.format('acc_dk') + _ROUND_ACC.format('acc_dv')
-        + '      }\n',
+        '      fence_regs(acc_dv);\n      fence_regs(acc_dk);\n',
+        '      fence_regs(acc_dv);\n      fence_regs(acc_dk);\n'
+        + _round_acc('acc_dv', 'acc_dk'),
         ('flash_backward',)),
 }
+
+
+# The phases that hold K1, K3 and K4 at the training shape.
+PHASES = ('flash_attention', 'flash_backward')
 
 
 def plant(dst, source, old, new):
@@ -111,7 +116,8 @@ def main():
     for name, (source, old, new, phases) in FAULTS.items():
         with tempfile.TemporaryDirectory() as dst:
             plant(dst, source, old, new)
-            run = subprocess.run([sys.executable, 'chip_smoke.py'], cwd=dst,
+            run = subprocess.run([sys.executable, 'chip_smoke.py',
+                                  '--phases', ','.join(PHASES)], cwd=dst,
                                  capture_output=True, text=True, timeout=900)
         cases, failed = readings(run.stdout)
         ok = run.returncode != 0 and failed in phases

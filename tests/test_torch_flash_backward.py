@@ -26,7 +26,7 @@ import pytest
 import torch
 
 from distributed_dot_product_tpu.ops.pallas_attention import (
-    _flash_fwd_impl, flash_attention as jax_flash_attention,
+    _flash_bwd_impl, _flash_fwd_impl, flash_attention as jax_flash_attention,
 )
 from distributed_dot_product_tpu_torch.ops.flash_attention import (
     flash_attention, flash_attention_backward,
@@ -44,7 +44,19 @@ CASES = {
     'gqa_offset': (1, 4, 2, 13, 40, 8, True, 11),
     'non_causal': (2, 2, 2, 19, 30, 16, False, 0),
     'empty_rows': (1, 2, 2, 12, 16, 16, True, -3),
+    # The card kernels' edges: the LM's head dim, lengths crossing their
+    # 64- and 128-row tiles, a GQA group of 4 (dk/dv sum it in the block)
+    # with float32 gradients (the ring's partials), and an offset that
+    # leaves a whole 64-row tile and more without a key.
+    'head_dim_96': (1, 2, 2, 40, 40, 96, True, 0),
+    'tiles_129': (1, 2, 2, 129, 129, 16, True, 0),
+    'tiles_191': (1, 2, 2, 191, 191, 16, True, 0),
+    'gqa_4_f32': (1, 8, 2, 48, 48, 16, True, 0),
+    'offset_no_key': (1, 2, 2, 70, 30, 16, True, -66),
 }
+# Cases whose gradients are also taken in float32 (``grad_dtype``) through
+# the public backward, against the reference's ``_flash_bwd_impl``.
+F32_GRADS = ('gqa_4_f32',)
 
 
 def _inputs(seed, b, hq, hkv, tq, tk, d):
@@ -100,11 +112,26 @@ def test_grads_match_jax_vjp(case):
     for name, a, w in zip(('dq', 'dk', 'dv'), got, want):
         assert a.shape == tuple(w.shape), name
         _close(a.numpy(), w)
-    if case == 'empty_rows':
+    if case in ('empty_rows', 'offset_no_key'):
         # Query rows at global positions < 0 attend nothing: exactly zero
         # output and exactly zero dq.
-        assert not out[..., :3, :].detach().any()
-        assert not got[0][..., :3, :].any() and got[0][..., 3:, :].any()
+        n = -off
+        assert not out[..., :n, :].detach().any()
+        assert not got[0][..., :n, :].any() and got[0][..., n:, :].any()
+    if case in F32_GRADS:
+        scale = 1.0 / math.sqrt(d)
+        jq, jk, jv = (jnp.asarray(a) for a in (q, k, v))
+        o, lse = _flash_fwd_impl(jq, jk, jv, None, off, scale, causal, True,
+                                 save_lse=True)
+        want32 = _flash_bwd_impl(jq, jk, jv, None, off, o, lse,
+                                 jnp.asarray(g), scale, causal, True,
+                                 grad_dtype=jnp.float32)
+        got32 = flash_attention_backward(
+            *_torch(q, k, v, np.array(o), np.array(lse), g), causal, off,
+            scale, grad_dtype=torch.float32)
+        for name, a, w in zip(('dq', 'dk', 'dv'), got32, want32):
+            assert a.dtype == torch.float32, name
+            _close(a.numpy(), w)
 
 
 def test_backward_entry_points_agree():
