@@ -336,22 +336,35 @@ def bound_ms(flops, nbytes):
                                        else 'bytes')
 
 
+def kernel_label(name):
+    """A mangled kernel name as ``flash_fwd_kernel<96,0,0,0>`` where its
+    template arguments are all integers or flags, else from its
+    ``flash_`` on."""
+    m = re.search(r'(flash_\w*?kernel)I((?:L[ib]-?\d+E)+)E', name)
+    if m:
+        args = re.findall(r'L[ib](-?\d+)E', m.group(2))
+        return f'{m.group(1)}<{",".join(args)}>'
+    short = re.search(r'flash_\w+', name)
+    return short.group(0) if short else name
+
+
 def build_resources(build):
     """Per library, ``ptxas -v``'s most registers a kernel uses and the
-    kernels that spill (their spill bytes, stored + loaded), keyed by the
-    kernel's mangled name from its ``flash_`` on."""
+    kernels that spill (their spill bytes, stored + loaded); for the
+    forward's libraries (K1, K2) every kernel's registers and spill
+    bytes."""
     out = {}
     for lib in build.SOURCES:
         res = build.resources(lib)
-        spilling = {}
-        for name, (_, spill) in res.items():
-            if spill:
-                short = re.search(r'flash_\w+', name)
-                spilling[short.group(0) if short else name] = spill
+        spilling = {kernel_label(name): spill
+                    for name, (_, spill) in res.items() if spill}
         out[lib] = {'kernels': len(res),
                     'max_registers': max((r for r, _ in res.values()),
                                          default=None),
                     'spilling': spilling}
+        if build.LIBRARIES[lib][0] == 'flash_fwd':
+            out[lib]['registers_spills'] = {
+                kernel_label(name): list(rs) for name, rs in res.items()}
     return out
 
 
@@ -395,8 +408,11 @@ def phase_flash(torch, ddp, flush, gen):
                'causal_offset': off, 'max_abs_err': err,
                'max_row_rel_err': row_rel, 'rel_err': rel,
                'tol': {'row_rel': TOL_ROW_REL, 'rel': TOL_NORM_REL}}
-        check(torch.isfinite(out).all().item(), f'K1 {name}: non-finite')
         fails = check_rel({'out': (row_rel, rel)}, f'K1 {name}')
+        if not torch.isfinite(out).all().item():
+            fails.append(f'K1 {name}: non-finite')
+        if fails:                  # the readings first, then the failure
+            emit(row)
         check(not fails, '; '.join(fails))
         # Bound and library call over the key columns this run needs.
         nb = BATCH * hq
@@ -431,8 +447,136 @@ def phase_flash(torch, ddp, flush, gen):
         worst = max(worst, err)
         worst_rel = max(worst_rel, row_rel)
         emit(row)
-    results.update(max_abs_err=worst, max_row_rel_err=worst_rel)
+    edge_worst = flash_edges(torch, gen)
+    results.update(max_abs_err=max(worst, edge_worst['abs']),
+                   max_row_rel_err=max(worst_rel, edge_worst['row_rel']),
+                   edges=edge_worst)
     return results
+
+
+# The forward kernels' edges, at every head dim they are built for: (name,
+# batch, q heads, kv heads, Tq, Tk, causal offset or None for no causal
+# mask, filled Tk rows or None): lengths crossing the 64- and 128-row
+# tiles, GQA 4, a prefill (Tq < Tk) at an offset whose rows attend a zero
+# tail, an offset that leaves more than a whole 64-row tile without a key,
+# and a ragged non-causal GQA 4 fold.
+EDGE_DIMS = (32, 64, 96, 128)
+EDGE_CASES = (('tiles_129', 2, 8, 8, 129, 129, 0, None),
+              ('tiles_191', 2, 8, 8, 191, 191, 0, None),
+              ('gqa_4', 2, 8, 2, 200, 200, 0, None),
+              ('prefill_tail', 2, 8, 8, 300, 1000, 600, 400),
+              ('offset_no_key', 2, 8, 8, 200, 150, -130, None),
+              ('full_ragged_gqa_4', 2, 8, 2, 77, 333, None, None))
+
+
+def flash_edges(torch, gen):
+    """K1 (with its lse) and K2 (the bounded forward, with its lse) at
+    EDGE_CASES x EDGE_DIMS and with the MASK_EDGES masks against their
+    plain versions: out on each row's scale and whole, lse within TOL_LSE,
+    rows with no attendable key exactly 0 (K1's lse exactly ln2*NEG_BIG),
+    and each launched twice on the same inputs, bit for bit. Returns the
+    worst readings."""
+    import importlib
+    fa = importlib.import_module(
+        'distributed_dot_product_tpu_torch.ops.flash_attention')
+    dev, bf16 = torch.device('cuda'), torch.bfloat16
+    neg = fa._LN2 * fa._NEG_BIG
+    worst = {'abs': 0.0, 'row_rel': 0.0, 'rel': 0.0, 'lse': 0.0}
+    failures = []
+
+    def hold(row, q, k, v, mask, kw, empty):
+        """Both kernels on one case; ``empty`` marks the (batch, head, row)
+        entries with no attendable key."""
+        runs = {
+            'k1': lambda: fa.flash_attention_with_lse(q, k, v, mask, **kw),
+            'k2': lambda: fa.flash_attention_bounded(q, k, v, mask,
+                                                     save_lse=True, **kw)}
+        plain = {'k1': fa.flash_attention_plain_lse,
+                 'k2': fa.flash_attention_bounded_plain_lse}
+        for kern, run in runs.items():
+            out, lse = run()
+            out2, lse2 = run()
+            out_p, lse_p = plain[kern](q, k, v, mask, **kw)
+            torch.cuda.synchronize()
+            err = (out.float() - out_p.float()).abs().max().item()
+            row_rel, rel = rel_errs(torch, out, out_p)
+            lse_err = (lse - lse_p).abs().max().item()
+            same = bool(torch.equal(out, out2) and torch.equal(lse, lse2))
+            exact = bool(not out[empty].any().item() and (
+                kern == 'k2' or (lse[empty] == neg).all().item()))
+            row[kern] = {'max_abs_err': err, 'max_row_rel_err': row_rel,
+                         'rel_err': rel, 'lse_max_abs_err': lse_err,
+                         'repeat_bitwise': same, 'empty_rows_exact': exact}
+            what = f"{kern.upper()} {row['case']}"
+            if not (torch.isfinite(out).all().item()
+                    and torch.isfinite(lse).all().item()):
+                failures.append(f'{what}: non-finite')
+            failures.extend(check_rel({'out': (row_rel, rel)}, what))
+            if not lse_err <= TOL_LSE:
+                failures.append(f'{what}: lse abs err {lse_err} > {TOL_LSE}')
+            if not exact:
+                failures.append(f'{what}: rows with no key are not exactly '
+                                f'0 (K1: lse ln2*NEG_BIG)')
+            if not same:
+                failures.append(f'{what}: two launches differ')
+            for key, val in (('abs', err), ('row_rel', row_rel),
+                             ('rel', rel), ('lse', lse_err)):
+                worst[key] = max(worst[key], val)
+        row['tol'] = {'row_rel': TOL_ROW_REL, 'rel': TOL_NORM_REL,
+                      'lse': TOL_LSE}
+        emit(row)
+
+    for d in EDGE_DIMS:
+        scale = 1.0 / math.sqrt(d)
+        for name, b, hq, hkv, tq, tk, off, filled in EDGE_CASES:
+            causal = off is not None
+            off = off or 0
+            q = randn(torch, (b, hq, tq, d), gen, dev, bf16)
+            k = randn(torch, (b, hkv, tk, d), gen, dev, bf16)
+            v = randn(torch, (b, hkv, tk, d), gen, dev, bf16)
+            if filled is not None:
+                k[:, :, filled:] = 0
+                v[:, :, filled:] = 0
+            # Rows at global positions before key 0 attend nothing.
+            empty = torch.zeros((b, hq, tq), dtype=torch.bool, device=dev)
+            if causal:
+                empty[..., torch.arange(tq, device=dev) + off < 0] = True
+            hold({'phase': 'flash_attention', 'case': f'{name}_d{d}',
+                  'q': list(q.shape), 'kv': list(k.shape), 'causal': causal,
+                  'causal_offset': off, 'filled': filled,
+                  'empty_rows': int(empty[0, 0].sum().item())},
+                 q, k, v, None, dict(causal=causal, causal_offset=off,
+                                     scale=scale), empty)
+    for name, width, start, tq, tk, causal in MASK_EDGES:
+        d, hq, hkv = 64, 8, 2
+        q = randn(torch, (2, hq, tq, d), gen, dev, bf16)
+        k = randn(torch, (2, hkv, tk, d), gen, dev, bf16)
+        v = randn(torch, (2, hkv, tk, d), gen, dev, bf16)
+        wide = torch.rand((2, 1, tq, width), generator=gen) < 0.3
+        wide[:, :, ::7] = True                    # every 7th row masked
+        mask = wide.to(dev)[..., start:start + tk]
+        empty = mask.all(dim=-1).expand(2, hq, tq).clone()
+        hold({'phase': 'flash_attention', 'case': name, 'q': list(q.shape),
+              'kv': list(k.shape), 'causal': causal,
+              'mask': {'shape': list(mask.shape),
+                       'strides': list(mask.stride()),
+                       'first_column': start},
+              'empty_rows': int(empty[0, 0].sum().item())},
+             q, k, v, mask, dict(causal=causal, scale=1.0 / math.sqrt(d)),
+             empty)
+    check(not failures, '; '.join(failures))
+    return worst
+
+
+# A dense mask at each width the forward kernels copy it with: (name, mask
+# row width, first column of the slice passed, Tq, Tk, causal): rows of 333
+# bytes (no aligned copy: read a byte at a time), a column slice starting
+# at byte 4 (4-byte copies) and at byte 8 (8-byte copies) of 512-byte rows,
+# a ragged 16-byte-aligned one with causal masking.
+MASK_EDGES = (('mask_bytes', 333, 0, 77, 333, False),
+              ('mask_w4', 512, 4, 77, 300, False),
+              ('mask_w8', 512, 8, 130, 400, False),
+              ('mask_w16_causal', 256, 0, 191, 191, True))
 
 
 def phase_decode(torch, ddp, flush, gen):
@@ -1859,7 +2003,71 @@ def phase_int8_decode(torch, ddp):
           f'int8_decode paged: not bit-equal to the slab run {paged_same}')
     fails = check_rel(errs, 'int8_decode')
     check(not fails, '; '.join(fails))
+    row['k1_int8'] = k1_int8_timing(torch, gen)
+    emit({'phase': 'int8_decode', 'case': 'k1_int8_timing',
+          **row['k1_int8']})
     return row
+
+
+def k1_int8_timing(torch, gen):
+    """K1 with int8 scoring (its ``wmma`` body) timed at this phase's
+    prefill (8128 rows of the 8192-column cache, its tail zero) and at the
+    flagship gqa_ring stage's diagonal ring fold (2 x 4096 rows a rank,
+    packed segments, dropout 0.1), both GQA 8:4 at head dim 64: beside its
+    plain version, its bound (the QK^T product at the int8 rate, P.V at
+    the bf16 rate, or the bytes) and, for scale only, SDPA's bf16 causal
+    forward on the same shape (no PyTorch call computes int8 scoring)."""
+    import importlib
+    fa = importlib.import_module(
+        'distributed_dot_product_tpu_torch.ops.flash_attention')
+    F = torch.nn.functional
+    dev, bf16 = torch.device('cuda'), torch.bfloat16
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.int32, device=dev)
+    d, hq, hkv = SP_HEAD_DIM, SP_HEADS, SP_HEADS // 2
+    out = {'library': 'sdpa forward in bf16, causal: scale only'}
+    for name, b, tq, tk, packed, rate in (
+            ('int8_decode_prefill', INT8_B, INT8_PROMPT, INT8_T, False, 0.0),
+            ('gqa_ring_fold', SP_B // SP_DATA, SP_TN, SP_TN, True,
+             FS_RATE)):
+        q = randn(torch, (b, hq, tq, d), gen, dev, bf16)
+        k = torch.zeros((b, hkv, tk, d), dtype=bf16, device=dev)
+        v = torch.zeros_like(k)
+        k[:, :, :tq] = randn(torch, (b, hkv, tq, d), gen, dev, bf16)
+        v[:, :, :tq] = randn(torch, (b, hkv, tq, d), gen, dev, bf16)
+        seg = None
+        if packed:
+            one = ragged_segments(torch, gen, b, tq).to(dev)
+            seg = (one, one)
+        kw = dict(causal=True, scale=1.0 / math.sqrt(d), qk_quant='int8',
+                  segment_ids=seg, dropout_rate=rate,
+                  dropout_seed=MASK_SEED if rate else None)
+        pairs = hq * valid_pairs(torch, b, tq, tk, True, 0, 0, None, seg)
+        s_ops = 2 * d * pairs
+        nbytes = (b * (hq * tq + hkv * tk) * d          # int8 q, k
+                  + 2 * b * hkv * tk * d + 2 * b * hq * tq * d   # v, out
+                  + 4 * b * (hq * tq + hkv * tk)        # row scales
+                  + (8 * b * tq if seg is not None else 0))
+        bms, by = bound_mixed(s_ops, s_ops, nbytes)
+        lib_kw = dict(scale=kw['scale'], enable_gqa=True)
+        if tq == tk:
+            lib_kw['is_causal'] = True
+        else:
+            lib_kw['attn_mask'] = (torch.arange(tk, device=dev)[None, :]
+                                   <= torch.arange(tq, device=dev)[:, None])
+        out[name] = {
+            'q': list(q.shape), 'kv': list(k.shape), 'pairs': pairs,
+            'segments': seg is not None, 'dropout_rate': rate,
+            'ms': time_ms(torch, lambda: fa.flash_attention(q, k, v, **kw),
+                          flush),
+            'plain_ms': time_ms(torch, lambda: fa.flash_attention_plain(
+                q, k, v, **kw), flush, reps=3),
+            'library_ms': time_ms(
+                torch, lambda: F.scaled_dot_product_attention(q, k, v,
+                                                              **lib_kw),
+                flush),
+            'bound_ms': bms, 'bound_by': by}
+    del flush
+    return out
 
 
 def phase_main_path(torch, ddp):
@@ -4366,6 +4574,14 @@ def main():
              masked_fold=feat_time['flash_attention'],
              masks=mask_time['flash_attention'],
              masks_max_abs_err={n: mask_err[n] for n in ('out', 'lse')},
+             int8=dict(
+                 launches_by_path={
+                     'int8_decode_prefill':
+                         int8_path['prefill_k1_launches'],
+                     f'flagship_gqa_ring_{FS_STEPS}_steps':
+                         fs['gqa_ring']['flash_attention']},
+                 **int8_path['k1_int8']),
+             edges=k1['edges'],
              **bwd_time['flash_attention']),
         dict(name='flash_attention_bounded', source=csrc + 'flash_fwd.cu',
              replaces=tpu + 'pallas_attention.py:1151',

@@ -87,23 +87,17 @@
 // of its key tile, from the same per-tile [min, max] tables (read per query
 // (batch, head) row, as the positions are).
 
-#include <cuda.h>
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
 #include <mma.h>
 #include <math.h>
-#include <stdint.h>
 
 #include <type_traits>
 
+#include "hopper.cuh"   // kB, kWarps, kThreads and the Hopper helpers
+
 using namespace nvcuda;
-using bf16 = __nv_bfloat16;
 
 namespace {
 
-constexpr int kB = 64;             // rows of a query tile and of a key tile
-constexpr int kWarps = 4;          // 4 warps x 16 rows: one warpgroup
-constexpr int kThreads = kWarps * 32;
 // The wgmma kernels: two warpgroups a block, one 64-row tile each, and
 // three stages for the streamed tiles.
 constexpr int kWgs = 2;
@@ -189,307 +183,6 @@ __device__ __forceinline__ void store_pair(bf16* dst, float a, float b) {
 __device__ __forceinline__ void store_pair(float* dst, float a, float b) {
   *reinterpret_cast<float2*>(dst) = make_float2(a, b);
 }
-
-// ---------------------------------------------------------------------------
-// Hopper building blocks: TMA tile loads into the wgmma core-matrix layout
-// and their mbarriers, cp.async for the small per-row vectors,
-// shared-memory matrix descriptors, and the wgmma products.
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// src-size 0 fills the 4 bytes with zeros (entries past the ragged edge).
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
-                                          bool ok) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               :: "r"(dst), "l"(src), "r"(ok ? 4 : 0) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
-// An mbarrier in shared memory that completes when `count` threads have
-// arrived and the bytes they announced have landed.
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               :: "r"(smem_u32(bar)), "r"(count) : "memory");
-}
-
-// Arrives on the barrier and announces `bytes` of TMA loads to land on it.
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
-}
-
-// Waits for the barrier's phase `parity` to complete. A load that never
-// lands traps (a launch error) instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_u32(bar);
-  for (long long spin = 0;; ++spin) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
-    if (done) return;
-    if (spin > (1LL << 26)) __trap();
-  }
-}
-
-// A 64 x D bf16 tile in shared memory is D/8 panels of 64 rows x 8 columns
-// (16 bytes a row, 1 KB a panel): element (r, c) at element offset
-// (c / 8) * 512 + r * 8 + c % 8. Every 8 x 8 block is one 128-byte wgmma
-// core matrix (no swizzle); rows are 16 bytes apart inside a core matrix,
-// 8-row groups 128 bytes, 8-column panels 1024 bytes.
-constexpr uint32_t kRowGroupBytes = 128;
-constexpr uint32_t kPanelBytes = 1024;
-
-// Rows [row0, row0 + 64) of head `head` of a (heads, rows, D) bf16 tensor
-// into such a tile by TMA, one 64 x 8 box a panel (the tensor map's box);
-// rows past the head's end land as zeros. The bytes complete on `bar`.
-template <int D>
-__device__ __forceinline__ void tma_tile(bf16* dst, const CUtensorMap* map,
-                                         int row0, int head, uint64_t* bar) {
-  const uint32_t d = smem_u32(dst), b = smem_u32(bar);
-  const uint64_t m = reinterpret_cast<uint64_t>(map);
-#pragma unroll
-  for (int p = 0; p < D / 8; ++p)
-    asm volatile(
-        "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::"
-        "complete_tx::bytes [%0], [%1, {%2, %3, %4}], [%5];\n"
-        :: "r"(d + p * kPanelBytes), "l"(m), "r"(8 * p), "r"(row0),
-           "r"(head), "r"(b)
-        : "memory");
-}
-
-// 64 float32 or int32 values [i0, i0 + 64) of a vector into shared
-// memory, asynchronously; entries at or past `limit` land as zeros.
-__device__ __forceinline__ void load_vec_async(void* dst, const void* src,
-                                               int i0, int limit) {
-  const int i = threadIdx.x;
-  if (i < kB) {
-    const bool ok = i0 + i < limit;
-    cp_async4(smem_u32(dst) + 4 * i,
-              static_cast<const float*>(src) + (ok ? i0 + i : i0), ok);
-  }
-}
-
-// A shared-memory matrix descriptor (no swizzle): start address, leading
-// byte offset (between core matrices along K) and stride byte offset
-// (between core matrices along M or N), all in 16-byte units.
-__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
-         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32);
-}
-
-// Step kk (columns [16kk, 16kk + 16) as K) of a tile read K-major: its
-// rows are M (or N), its columns the reduction.
-__device__ __forceinline__ uint64_t desc_kmajor(uint32_t tile, int kk) {
-  return make_desc(tile + 2 * kk * kPanelBytes, kPanelBytes, kRowGroupBytes);
-}
-
-// Step kk (rows [16kk, 16kk + 16) as K) of a tile read MN-major: its rows
-// are the reduction, its columns N.
-__device__ __forceinline__ uint64_t desc_mnmajor(uint32_t tile, int kk) {
-  return make_desc(tile + 2 * kk * kRowGroupBytes, kRowGroupBytes,
-                   kPanelBytes);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
-}
-
-// Pins accumulator registers at this point of the program: the compiler
-// must not move their reads or writes across an asynchronous wgmma's issue
-// or its wait.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
-}
-
-// The m64nNk16 accumulator layout: thread t of the warpgroup holds, in
-// element i of N/2, row 16 * (t / 32) + (t % 32) / 4 + 8 * ((i / 2) % 2)
-// and column 8 * (i / 4) + 2 * (t % 4) + i % 2.
-__device__ __forceinline__ int acc_row(int i) {
-  return 16 * ((threadIdx.x / 32) % kWarps) + (threadIdx.x % 32) / 4 +
-         8 * ((i >> 1) & 1);
-}
-
-__device__ __forceinline__ int acc_col(int i) {
-  return 8 * (i >> 2) + 2 * (threadIdx.x % 4) + (i & 1);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// A 64 x 64 accumulator as bf16 A fragments of m64k16, one per 16 columns:
-// the accumulator's elements 8kk..8kk+7 are fragment kk's, in order.
-__device__ __forceinline__ void to_frags(const float (&s)[32],
-                                         uint32_t (&a)[4][4]) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      a[kk][j] = pack_bf16(s[8 * kk + 2 * j], s[8 * kk + 2 * j + 1]);
-}
-
-template <int N>
-struct Wgmma;
-
-template <>
-struct Wgmma<32> {
-  // d (64 x 32) += A . B with A in registers (the m64k16 A fragment) and
-  // B in shared memory MN-major.
-  static __device__ __forceinline__ void rs(float (&d)[16],
-                                            const uint32_t (&a)[4],
-                                            uint64_t b, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-        "%12, %13, %14, %15}, "
-        "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-          "+f"(d[15])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
-          "r"(scale_d));
-  }
-};
-
-template <>
-struct Wgmma<64> {
-  // d (64 x 64) += A . B with A and B in shared memory (K-major).
-  static __device__ __forceinline__ void ss(float (&d)[32], uint64_t a,
-                                            uint64_t b, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31}, "
-        "%32, %33, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-          "+f"(d[30]), "+f"(d[31])
-        : "l"(a), "l"(b), "r"(scale_d));
-  }
-  // d (64 x 64) += A . B with A in registers (the m64k16 A fragment) and
-  // B in shared memory MN-major.
-  static __device__ __forceinline__ void rs(float (&d)[32],
-                                            const uint32_t (&a)[4],
-                                            uint64_t b, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31}, "
-        "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-          "+f"(d[30]), "+f"(d[31])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
-          "r"(scale_d));
-  }
-};
-
-template <>
-struct Wgmma<96> {
-  // d (64 x 96) += A . B with A in registers (the m64k16 A fragment) and
-  // B in shared memory MN-major.
-  static __device__ __forceinline__ void rs(float (&d)[48],
-                                            const uint32_t (&a)[4],
-                                            uint64_t b, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-        "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, "
-        "{%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-          "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
-          "r"(scale_d));
-  }
-};
-
-template <>
-struct Wgmma<128> {
-  // d (64 x 128) += A . B with A in registers (the m64k16 A fragment) and
-  // B in shared memory MN-major.
-  static __device__ __forceinline__ void rs(float (&d)[64],
-                                            const uint32_t (&a)[4],
-                                            uint64_t b, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-        "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
-        "%60, %61, %62, %63}, "
-        "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-          "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
-          "r"(scale_d));
-  }
-};
-
 
 // Rows [row0, row0 + 64) of a (rows, D) bf16 matrix into shared memory,
 // 16 bytes a thread; rows at or past `limit` load as zeros.
@@ -1682,44 +1375,6 @@ int launch(void (*kernel)(Params...), dim3 grid, int threads, size_t smem,
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<grid, threads, smem, stream>>>(args...);
   return static_cast<int>(cudaGetLastError());
-}
-
-// The TMA map of a (heads, rows, d) bf16 tensor read in 64-row x 8-column
-// boxes, one core-matrix panel of a tile each; rows past a head's end load
-// as zeros. An empty tensor gets no map (nothing is loaded from it); false
-// when the driver's encoder is missing or refuses the tensor.
-bool tile_map(CUtensorMap* map, const void* ptr, int heads, int rows, int d) {
-  *map = CUtensorMap{};
-  if (heads == 0 || rows == 0) return true;
-  using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                              void*, const cuuint64_t*, const cuuint64_t*,
-                              const cuuint32_t*, const cuuint32_t*,
-                              CUtensorMapInterleave, CUtensorMapSwizzle,
-                              CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-  // The driver's encoder through the runtime: the library links no -lcuda.
-  static const Encode encode = [] {
-    void* fn = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn,
-                                cudaEnableDefault, &found) != cudaSuccess ||
-        found != cudaDriverEntryPointSuccess)
-      fn = nullptr;
-    return reinterpret_cast<Encode>(fn);
-  }();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d),
-                              static_cast<cuuint64_t>(rows),
-                              static_cast<cuuint64_t>(heads)};
-  const cuuint64_t strides[2] = {
-      static_cast<cuuint64_t>(d) * sizeof(bf16),
-      static_cast<cuuint64_t>(rows) * d * sizeof(bf16)};
-  const cuuint32_t box[3] = {8, kB, 1};
-  const cuuint32_t step[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-                const_cast<void*>(ptr), dims, strides, box, step,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 // The maps of q2 and dO (batch_heads, tq, D) and of k and v (batch_heads /

@@ -10,29 +10,52 @@
 // coordinate-hash dropout, int8 QK^T scoring, ALiBi and explicit global
 // positions.
 //
-// What bounds it on the H100: at the prefill shape (Tq = 1000 query rows
-// against a 2048-row cache, head dim 96, causal) the work is ~6 GFLOP per
-// layer against ~25 MB of q/k/v/o, so the floor is the HBM read of the
-// operands (~7 us at 3.35 TB/s) with the tensor-core time just under it.
-// The design keeps every score block out of device memory: one block owns a
-// 64-row query tile and loops over 64-column key tiles up to the tile's
-// causal extent (the TPU's sequential K grid axis becomes this in-block
-// loop; tiles wholly in the causal future, including the unfilled tail of
-// a cache buffer, are never loaded). Both products run on the tensor cores
-// through nvcuda::wmma 16x16x16 bf16 fragments with f32 accumulators; the
-// online softmax runs in shared memory, each warp owning 16 query rows so
-// the softmax and the P.V product need only warp-level synchronisation.
-// This is the simple first version: no cp.async/TMA pipelining and no
-// register-resident accumulators, so it runs well below the bound.
+// What bounds it on the H100: tensor-core operations. An attended (query,
+// key) pair costs 4*d flops (S and P.V); at the LM's training shape (4 x 8
+// heads, T = 4096, head dim 96, causal: 268 M pairs) that is 103 GFLOP,
+// 0.10 ms at 989 TFLOP/s, against ~25 MB of q/k/v/o (0.008 ms at 3.35
+// TB/s).
+//
+// The design (the backward's, csrc/flash_bwd.cu): a block is two
+// warpgroups (256 threads), each owning one 64-row query tile of the
+// block's 128 rows, and loops over 64-column key tiles up to the causal
+// extent (the TPU's sequential K grid axis becomes this in-block loop;
+// tiles wholly in the causal future, including the unfilled tail of a
+// cache buffer, are never loaded).
+//  - Every product is a wgmma (csrc/hopper.cuh): S = q.K^T an m64n64k16
+//    with both operands in shared memory (K-major), O += P.V an m64nDk16
+//    with P from registers and V read MN-major.
+//  - S, P and O never leave registers. The online softmax runs on the
+//    accumulator fragments: a row's 64 columns sit in the 4 lanes of a
+//    quad, so its max is two shuffles; the O registers (D/2 floats a
+//    thread) are rescaled by corr, and the 64-column P accumulator is,
+//    element for element, the four m64k16 bf16 A fragments of P.V. A tile
+//    wholly inside the rows, columns, causal extent and window, with no
+//    mask or segments, skips the per-element tests.
+//  - TMA loads the block's q rows once and streams K and V through three
+//    stages, one mbarrier each, two tiles ahead of the one in use; both
+//    warpgroups use every streamed tile (half the bytes a product against
+//    one warpgroup a block). A dense mask's 128 x 64 bytes stage beside
+//    their K/V tile by cp.async (16, 8 or 4 bytes a copy, the widest the
+//    mask's address and strides allow; byte loads otherwise), the Ext
+//    instantiations' key-side vectors likewise.
+//  - The grid launches every (batch, head) row's longest causal extents
+//    first. A warpgroup skips the key tiles its own rows do not see; the
+//    block skips only those neither sees, so every barrier is uniform.
+//  - The epilogue writes O / l from registers straight to device memory
+//    (the ragged edge masked) and one lane a row writes the lse.
+// No atomics: two runs of any case are equal bit for bit. At the LM's
+// shape the streamed tiles' arrival sets the pace, as in K3/K4 (section
+// timers: scripts/torch_k1_sections.py).
 //
 // Numerics follow the TPU kernel: scale*log2(e) is folded into q (rounded
-// back to bf16) so the softmax runs in exp2 units; the running max starts
-// at NEG_BIG (finite), masked logits are -inf, and a row with no
-// attendable key (l == 0) outputs exactly 0. With a non-null `lse` each
-// row also writes ln2*(m2 + log2(l)), l == 0 counted as 1, as the TPU
-// kernel saves it for the backward (a row with no attendable key writes
-// ln2*NEG_BIG, which the ring merge and the backward rely on); a null
-// `lse` (serving) writes nothing.
+// back to bf16, in shared memory after the load) so the softmax runs in
+// exp2 units; the running max starts at NEG_BIG (finite), masked logits
+// are -inf, and a row with no attendable key (l == 0) outputs exactly 0.
+// With a non-null `lse` each row also writes ln2*(m2 + log2(l)), l == 0
+// counted as 1, as the TPU kernel saves it for the backward (a row with no
+// attendable key writes ln2*NEG_BIG, which the ring merge and the backward
+// rely on); a null `lse` (serving) writes nothing.
 //
 // Masks. Causal: row i (global position causal_offset + i) attends column
 // j (global position kv_offset + j) when causal_offset + i >= kv_offset + j;
@@ -41,8 +64,7 @@
 // columns contiguous) so that a head-broadcast mask or a column slice of a
 // wider mask needs no copy. Tiles that are wholly masked are still loaded
 // (no per-tile summaries; the TPU's are an optimisation of that target).
-// The mask and bounded flags are template parameters: the unmasked exact
-// instantiation is the code the serving and training paths ran before.
+// The mask and bounded flags are template parameters.
 //
 // Ext (a template flag; ExtArgs at run time, a null field = unused):
 //  - segments: one int32 id per query row and per key column (addressed
@@ -52,7 +74,7 @@
 //    loads every tile and writes out 0, lse ln2*NEG_BIG.
 //  - window (needs causal): row i also drops column j when
 //    (causal_offset + i) - (kv_offset + j) >= window; key tiles wholly
-//    past the window of every row of the query tile are never loaded (the
+//    past the window of every row of a query tile are never loaded (the
 //    TPU kernel's _causal_run arithmetic on both offsets).
 //  - dropout: the reference's _dropout_keep in uint32 arithmetic, per
 //    element, on the global row and column and the flat query (batch,
@@ -63,12 +85,12 @@
 //  - positions (the zigzag ring's folds): one int32 global position per
 //    query row and per key column, with causal off. A pair is masked when
 //    pos_q < pos_k, and with a window when pos_q - pos_k >= window; the
-//    dropout hash keys on (pos_q, pos_k). A key tile is skipped when its
-//    smallest position exceeds the query tile's largest, or with a window
-//    when its largest lies a window or more before the query tile's
-//    smallest: the wrapper passes each 64-row tile's [min, max] of both
-//    vectors (the reference's _pos_setup tables), so the zigzag layout's
-//    future half-blocks are never loaded.
+//    dropout hash keys on (pos_q, pos_k). A key tile is skipped for a
+//    query tile when its smallest position exceeds the query tile's
+//    largest, or with a window when its largest lies a window or more
+//    before the query tile's smallest: the wrapper passes each 64-row
+//    tile's [min, max] of both vectors (the reference's _pos_setup
+//    tables), so the zigzag layout's future half-blocks are never loaded.
 //  - ALiBi: slope * (pos_k - pos_q) added to the log2-unit score after
 //    the scoring and before the masks (the reference's _apply_masks
 //    order), with the slope per flat (batch, head) row pre-folded by
@@ -76,38 +98,43 @@
 //    position vectors when given, else kv_offset + j - (causal_offset +
 //    i). Both operations round separately (__fmul_rn, __fadd_rn), as the
 //    plain version's two tensor operations do.
-// Quant (with Ext): q and k arrive as per-row int8 with float32 row scales
-// (sqf = the q scale times scale*log2(e), skr = the raw k scale); the
-// score tile is an s8 x s8 -> s32 tensor-core product (wmma signed char
-// 16x16x16 fragments; the int8 tiles sit in shared memory chunk-major,
-// [d/16][64 rows][16], so every fragment starts 256-bit aligned) and each
-// score is (float(dot) * sqf_i) * skr_j, the plain version's arithmetic
-// bit for bit.
+// Quant (with Ext; flash_fwd_i8_kernel, the first version's body): q and
+// k arrive as per-row int8 with float32 row scales (sqf = the q scale
+// times scale*log2(e), skr = the raw k scale); the score tile is an s8 x
+// s8 -> s32 tensor-core product (wmma signed char 16x16x16 fragments; the
+// int8 tiles sit in shared memory chunk-major, [d/16][64 rows][16], so
+// every fragment starts 256-bit aligned) and each score is (float(dot) *
+// sqf_i) * skr_j, the plain version's arithmetic bit for bit. One
+// warpgroup a block owns a 64-row query tile; S, P and O pass through
+// shared memory and K/V load synchronously.
 //
 // K2 (Bounded): the running max is replaced by the per-row bound mvec (the
 // wrapper computes it: ||q2_i|| * max_j ||k_j|| + 1, Cauchy-Schwarz in log2
-// units), so the max reduction and both rescalings drop out. Softmax is
+// units), so the max reduction and the rescaling of O drop out. Softmax is
 // shift-invariant, so K2 equals K1 while bound - rowmax stays inside the
 // float32 exponent range; the wrapper runs K1 instead when 2*max(mvec) >
 // 100 (the reference's guard). Built without flush-to-zero (no
 // --use_fast_math, no -ftz): weights down to 2^-149 keep their denormals,
 // as on the TPU, whose normal range also ends at 2^-126.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
 #include <mma.h>
 #include <math.h>
-#include <stdint.h>
+
+#include <type_traits>
+
+#include "hopper.cuh"   // kB, kWarps, kThreads and the Hopper helpers
 
 using namespace nvcuda;
-using bf16 = __nv_bfloat16;
 
 namespace {
 
-constexpr int kBQ = 64;            // query rows per block: 4 warps x 16
-constexpr int kBK = 64;            // key columns per tile
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
+// The wgmma kernel (every instantiation but int8 scoring): two warpgroups
+// a block, one 64-row query tile each, and three stages for the streamed
+// K/V tiles.
+constexpr int kWgs = 2;
+constexpr int kRows = kWgs * kB;
+constexpr int kBlockThreads = kWgs * kThreads;
+constexpr int kStages = 3;
 constexpr float kNegBig = -0.7f * 3.4e38f;
 constexpr float kLn2 = 0.693147180559945309f;
 
@@ -119,10 +146,9 @@ struct MaskArgs {
   long long so, si, sr;
 };
 
-__device__ __forceinline__ const unsigned char* mask_row(const MaskArgs& m,
-                                                         int bh, int row) {
-  return m.ptr + (bh / m.inner) * m.so + (bh % m.inner) * m.si +
-         static_cast<long long>(row) * m.sr;
+__device__ __forceinline__ const unsigned char* mask_base(const MaskArgs& m,
+                                                          int bh) {
+  return m.ptr + (bh / m.inner) * m.so + (bh % m.inner) * m.si;
 }
 
 // An int32 vector per flat (batch, head) row: element i of row bh at
@@ -172,6 +198,438 @@ __device__ __forceinline__ unsigned int drop_hash(unsigned int rh,
   return x;
 }
 
+// cp.async of N (4, 8 or 16) bytes of which the first `n` are read and
+// the rest land as zeros.
+template <int N>
+__device__ __forceinline__ void cp_async_part(uint32_t dst, const void* src,
+                                              int n) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n"
+               :: "r"(dst), "l"(src), "n"(N), "r"(n) : "memory");
+}
+
+// Columns [k0, k0 + 64) of the block's kRows query rows (from qb0) of a
+// dense mask into a kRows x 64 byte stage, `w` bytes a copy: 16, 8 or 4 by
+// cp.async, 1 by plain loads; bytes past tq or tk are never read (zeros).
+__device__ __forceinline__ void load_mask_tile(unsigned char* dst,
+                                               const unsigned char* base,
+                                               long long sr, int qb0, int tq,
+                                               int k0, int tk, int w) {
+  const int ncols = tk - k0 < kB ? tk - k0 : kB;
+  if (w == 1) {
+    for (int idx = threadIdx.x; idx < kRows * kB; idx += kBlockThreads) {
+      const int r = idx / kB, c = idx % kB;
+      dst[idx] = (qb0 + r < tq && c < ncols)
+                     ? base[static_cast<long long>(qb0 + r) * sr + k0 + c]
+                     : 0;
+    }
+    return;
+  }
+  const int per_row = kB / w;
+  for (int idx = threadIdx.x; idx < kRows * per_row; idx += kBlockThreads) {
+    const int r = idx / per_row, c = (idx % per_row) * w;
+    const bool row = qb0 + r < tq;
+    int n = row ? ncols - c : 0;
+    n = n < 0 ? 0 : (n > w ? w : n);
+    const unsigned char* src =
+        n > 0 ? base + static_cast<long long>(qb0 + r) * sr + k0 + c : base;
+    const uint32_t d = smem_u32(dst + r * kB + c);
+    if (w == 16)
+      cp_async_part<16>(d, src, n);
+    else if (w == 8)
+      cp_async_part<8>(d, src, n);
+    else
+      cp_async_part<4>(d, src, n);
+  }
+}
+
+template <int D, bool HasMask, bool Ext>
+constexpr size_t smem_bytes() {
+  return sizeof(bf16) * (kRows + 2 * kStages * kB) * D   // sQ; sK, sV
+         + ((HasMask || Ext) ? kStages * kRows * kB : 0)  // mask bytes
+         + (Ext ? kStages * 2 * kB * sizeof(int) : 0)     // segk, posk
+         + (kStages + 1) * sizeof(uint64_t);              // the barriers
+}
+
+// K1 (K2 with Bounded) for one 128-row query block of one (batch, head)
+// row: q stays in shared memory, the key and value tiles stream through
+// the stages (TMA, one barrier a stage); each warpgroup's S, P and O live
+// in its registers. The tensor maps: q (batch_heads, tq, D), k and v
+// (batch_heads / group, tk, D), 64 x 8 boxes.
+template <int D, bool HasMask, bool Bounded, bool Ext>
+__global__ void __launch_bounds__(kBlockThreads)
+flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
+                 const __grid_constant__ CUtensorMap map_k,
+                 const __grid_constant__ CUtensorMap map_v,
+                 bf16* __restrict__ out, float* __restrict__ lse,
+                 const float* __restrict__ mvec, MaskArgs mask, int mask_w,
+                 int tq, int tk, int group, int causal, int causal_offset,
+                 int kv_offset, float qscale, int n_qblocks, ExtArgs ext) {
+  static_assert(D % 32 == 0 && D <= 128, "head dim must be 32*n <= 128");
+  static_assert(!(HasMask && Ext), "Ext reads the mask at run time");
+  constexpr bool kMaskStage = HasMask || Ext;
+  extern __shared__ __align__(1024) unsigned char smem[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem);   // warpgroup w's rows at w*kB*D
+  bf16* sKV = sQ + kRows * D;   // stage s: K at sKV + 2s*kB*D, V after it
+  unsigned char* sMask = reinterpret_cast<unsigned char*>(
+      sKV + 2 * kStages * kB * D);   // stage s at s*kRows*kB
+  int* sVec = reinterpret_cast<int*>(
+      sMask + (kMaskStage ? kStages * kRows * kB : 0));   // stage s: segk at
+                                                         // 2s*kB, posk after
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sVec +
+                                               (Ext ? kStages * 2 * kB : 0));
+  uint64_t* qbar = bars + kStages;
+  if (threadIdx.x == 0) {
+    for (int st = 0; st <= kStages; ++st) mbar_init(&bars[st], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // The longest causal extents (late query blocks) launch first.
+  const int qb0 = (n_qblocks - 1 - static_cast<int>(blockIdx.y)) * kRows;
+  const int bh = blockIdx.x;              // flat (batch, query head)
+  const int bkv = bh / group;             // its kv head (GQA)
+  const int wg = threadIdx.x / kThreads;
+  const int q0 = qb0 + wg * kB;           // this warpgroup's first row
+  const size_t qoff = static_cast<size_t>(bh) * tq;
+  const bool has_mask = HasMask || (Ext && mask.ptr != nullptr);
+  const unsigned char* mbase = has_mask ? mask_base(mask, bh) : nullptr;
+  const int* segk_row = nullptr;
+  const int* posk_row = nullptr;
+  const int* posk_mm = nullptr;
+  if constexpr (Ext) {
+    if (ext.segk.ptr != nullptr) segk_row = vec_row(ext.segk, bh);
+    if (ext.posk.ptr != nullptr) {
+      posk_row = vec_row(ext.posk, bh);
+      posk_mm = vec_row(ext.posk_mm, bh);
+    }
+  }
+
+  // Row i may attend local key column j when rel + i >= j. Warpgroup w
+  // sees key tiles [t_lo[w], t_hi[w]) (its causal extent and window) and,
+  // with positions, its 64-row tile's [qmin, qmax] (the same values in
+  // every thread).
+  const long long rel = static_cast<long long>(causal_offset) - kv_offset;
+  int t_lo[kWgs], t_hi[kWgs], qmin[kWgs], qmax[kWgs];
+#pragma unroll
+  for (int w = 0; w < kWgs; ++w) {
+    const int r0 = qb0 + w * kB;
+    t_lo[w] = t_hi[w] = qmin[w] = qmax[w] = 0;
+    if (r0 >= tq) continue;
+    int kv_end = tk;
+    if (causal) {
+      const long long extent = rel + (r0 + kB < tq ? r0 + kB : tq);
+      kv_end = extent <= 0 ? 0 : (extent < tk ? static_cast<int>(extent) : tk);
+    }
+    t_hi[w] = (kv_end + kB - 1) / kB;
+    if constexpr (Ext) {
+      if (causal && ext.window > 0) {
+        const long long first = rel + r0 - ext.window + 1;
+        t_lo[w] = first <= 0 ? 0
+                : (first >= kv_end ? t_hi[w] : static_cast<int>(first) / kB);
+      }
+      if (posk_mm != nullptr) {
+        qmin[w] = vec_row(ext.posq_mm, bh)[2 * (r0 / kB)];
+        qmax[w] = vec_row(ext.posq_mm, bh)[2 * (r0 / kB) + 1];
+      }
+    }
+  }
+  // Does warpgroup w see key tile t? Positions skip a tile wholly in the
+  // query tile's future, or wholly a window or more in its past.
+  auto sees = [&](int w, int t) {
+    const int lo = w ? t_lo[1] : t_lo[0], hi = w ? t_hi[1] : t_hi[0];
+    bool yes = t >= lo && t < hi;
+    if constexpr (Ext) {
+      const int mn = w ? qmin[1] : qmin[0], mx = w ? qmax[1] : qmax[0];
+      yes = yes && !(posk_mm != nullptr &&
+                     (posk_mm[2 * t] > mx ||
+                      (ext.window > 0 &&
+                       static_cast<long long>(mn) - posk_mm[2 * t + 1] >=
+                           ext.window)));
+    }
+    return yes;
+  };
+  const int t_end = t_hi[0] > t_hi[1] ? t_hi[0] : t_hi[1];
+  // The next key tile from t on that a warpgroup sees.
+  auto next_tile = [&](int t) {
+    while (t < t_end && !sees(0, t) && !sees(1, t)) ++t;
+    return t;
+  };
+  // Loads key tile t into a stage: thread 0 announces the bytes and starts
+  // the TMA copies; the mask bytes and key-side vectors by cp.async.
+  auto issue = [&](int t, int stage) {
+    bf16* sK = sKV + 2 * stage * kB * D;
+    if (threadIdx.x == 0) {
+      uint64_t* bar = &bars[stage];
+      mbar_expect_tx(bar, 2 * kB * D * sizeof(bf16));
+      tma_tile<D>(sK, &map_k, t * kB, bkv, bar);
+      tma_tile<D>(sK + kB * D, &map_v, t * kB, bkv, bar);
+    }
+    if constexpr (kMaskStage) {
+      if (has_mask)
+        load_mask_tile(sMask + stage * kRows * kB, mbase, mask.sr, qb0, tq,
+                       t * kB, tk, mask_w);
+    }
+    if constexpr (Ext) {
+      int* sv = sVec + 2 * stage * kB;
+      if (segk_row != nullptr) load_vec_async(sv, segk_row, t * kB, tk);
+      if (posk_row != nullptr) load_vec_async(sv + kB, posk_row, t * kB, tk);
+    }
+  };
+
+  // The block's q rows, on their own barrier; rows past tq land as zeros.
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(qbar, kRows * D * sizeof(bf16));
+    for (int w = 0; w < kWgs; ++w)
+      tma_tile<D>(sQ + w * kB * D, &map_q, qb0 + w * kB, bh, qbar);
+  }
+
+  // This thread's two query rows of the accumulator layout: lr and lr + 8
+  // of its warpgroup's tile. Ext: each row's segment id, position and
+  // dropout row term, the (batch, head) row's dropout salt and ALiBi
+  // slope. K1: the running max, from NEG_BIG; K2: the row's bound, fixed.
+  const int lr = acc_row(0);
+  bool row_ok[2];
+  long long row_pos[2];
+  float m_run[2], l_run[2] = {0.f, 0.f};
+  int seg_r[2] = {0, 0}, pos_r[2] = {0, 0};
+  unsigned int drop_rh[2] = {0u, 0u};
+  unsigned int drop_bs = 0u;
+  float slope = 0.f;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = q0 + lr + 8 * h;
+    row_ok[h] = row < tq;
+    row_pos[h] = rel + row;
+    m_run[h] = kNegBig;
+    if constexpr (Bounded) m_run[h] = row_ok[h] ? mvec[qoff + row] : 0.f;
+    if constexpr (Ext) {
+      if (segk_row != nullptr && row_ok[h])
+        seg_r[h] = vec_row(ext.segq, bh)[row];
+      if (posk_row != nullptr && row_ok[h])
+        pos_r[h] = vec_row(ext.posq, bh)[row];
+      drop_rh[h] = static_cast<unsigned int>(
+                       posk_row != nullptr ? pos_r[h] : causal_offset + row) *
+                   2654435761u;
+    }
+  }
+  if constexpr (Ext) {
+    drop_bs = ext.seed + static_cast<unsigned int>(bh) * 668265263u;
+    if (ext.alibi != nullptr) slope = ext.alibi[bh];
+  }
+
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+
+  int t = next_tile(t_lo[0] < t_lo[1] ? t_lo[0] : t_lo[1]);
+  int fetch = t;   // the next tile to load, kStages - 1 ahead of t
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (fetch < t_end) {
+      issue(fetch, s);
+      fetch = next_tile(fetch + 1);
+    }
+    cp_async_commit();
+  }
+
+  // Fold scale*log2(e) into q where it landed, rounding back to bf16 as
+  // the TPU kernel does, then hand the tile to the async proxy (wgmma).
+  mbar_wait(qbar, 0);
+  for (int idx = threadIdx.x; idx < kRows * D / 8; idx += kBlockThreads) {
+    uint4* at = reinterpret_cast<uint4*>(sQ) + idx;
+    uint4 val = *at;
+    bf16* e = reinterpret_cast<bf16*>(&val);
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      e[i] = __float2bfloat16(__bfloat162float(e[i]) * qscale);
+    *at = val;
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+
+  const uint32_t tQ = smem_u32(sQ + wg * kB * D);
+  const bool rows_full = q0 + kB <= tq;
+  for (int it = 0, stage = 0; t < t_end; ++it) {
+    const int fill = (stage + kStages - 1) % kStages;
+    if (fetch < t_end) {
+      issue(fetch, fill);
+      fetch = next_tile(fetch + 1);
+    }
+    cp_async_commit();
+    cp_async_wait<kStages - 1>();
+    mbar_wait(&bars[stage], (it / kStages) & 1);
+    __syncthreads();   // stage `stage` landed for every thread
+
+    if (sees(wg, t)) {
+      const int k0 = t * kB;
+      const uint32_t tK = smem_u32(sKV + 2 * stage * kB * D);
+      const uint32_t tV = tK + kB * D * sizeof(bf16);
+      // S = q2 K^T (log2 units: q is folded).
+      float s[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) s[i] = 0.f;
+      fence_regs(s);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        Wgmma<64>::ss(s, desc_kmajor(tQ, kk), desc_kmajor(tK, kk), kk);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+
+      // Masked scores to -inf; ALiBi's bias. A tile wholly inside the
+      // rows, the columns, the causal extent and the window, with no mask
+      // or segments, needs no per-element test.
+      bool full = !HasMask && rows_full && k0 + kB <= tk;
+      if constexpr (Ext) {
+        const int mn = wg ? qmin[1] : qmin[0], mx = wg ? qmax[1] : qmax[0];
+        full = full && mask.ptr == nullptr && segk_row == nullptr &&
+               (posk_row != nullptr
+                    ? posk_mm[2 * t + 1] <= mn &&
+                          (ext.window <= 0 ||
+                           static_cast<long long>(mx) - posk_mm[2 * t] <
+                               ext.window)
+                    : (!causal || k0 + kB - 1 <= rel + q0) &&
+                          (ext.window <= 0 ||
+                           rel + q0 + kB - 1 - k0 < ext.window));
+      } else {
+        full = full && (!causal || k0 + kB - 1 <= rel + q0);
+      }
+      const int* sv = sVec + 2 * stage * kB;
+      const unsigned char* sm = sMask + stage * kRows * kB + (wg * kB + lr) * kB;
+      auto scores = [&](auto tested) {
+        constexpr bool kTest = decltype(tested)::value;
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int h = (i >> 1) & 1;
+          const int cl = acc_col(i);
+          const int col = k0 + cl;
+          bool valid = true;
+          if constexpr (kTest) {
+            valid = row_ok[h] && col < tk && (!causal || col <= row_pos[h]);
+            if constexpr (HasMask) valid = valid && !sm[8 * h * kB + cl];
+          }
+          float sc = s[i];
+          if constexpr (Ext) {
+            // pos_q - pos_k: explicit positions, else the offsets'
+            // arithmetic.
+            const long long back =
+                posk_row != nullptr
+                    ? static_cast<long long>(pos_r[h]) - sv[kB + cl]
+                    : row_pos[h] - col;
+            if constexpr (kTest) {
+              if (has_mask) valid = valid && !sm[8 * h * kB + cl];
+              if (posk_row != nullptr) valid = valid && back >= 0;
+              if (ext.window > 0) valid = valid && back < ext.window;
+              if (segk_row != nullptr) valid = valid && seg_r[h] == sv[cl];
+            }
+            if (ext.alibi != nullptr)
+              sc = __fadd_rn(sc, __fmul_rn(slope, static_cast<float>(-back)));
+          }
+          s[i] = valid ? sc : -INFINITY;
+        }
+      };
+      if (full)
+        scores(std::false_type());
+      else
+        scores(std::true_type());
+
+      // The online softmax on the fragments: a row's 64 columns sit in the
+      // 4 lanes of a quad (16 each).
+      float corr[2] = {1.f, 1.f};
+      if constexpr (!Bounded) {
+        float mx[2] = {kNegBig, kNegBig};
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int h = (i >> 1) & 1;
+          mx[h] = fmaxf(mx[h], s[i]);
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+          mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+          const float m_new = fmaxf(m_run[h], mx[h]);
+          corr[h] = exp2f(m_run[h] - m_new);
+          m_run[h] = m_new;
+        }
+#pragma unroll
+        for (int i = 0; i < D / 2; ++i) o[i] *= corr[(i >> 1) & 1];
+      }
+      // p = exp2(s - m) (masked: exp2(-inf) = 0); l sums the undropped p,
+      // this thread's 16 columns of each row (the quad's sum at the end).
+      float psum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int h = (i >> 1) & 1;
+        const float p = exp2f(s[i] - m_run[h]);
+        psum[h] += p;
+        float pn = p;
+        if constexpr (Ext) {
+          // Dropout drops the numerator only.
+          if (ext.dropout) {
+            const int cl = acc_col(i);
+            const unsigned int col = static_cast<unsigned int>(
+                posk_row != nullptr ? sv[kB + cl] : kv_offset + k0 + cl);
+            pn = drop_hash(drop_rh[h], col, drop_bs) >= ext.drop_threshold
+                     ? p * ext.drop_inv : 0.f;
+          }
+        }
+        s[i] = pn;
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) l_run[h] = l_run[h] * corr[h] + psum[h];
+      uint32_t pf[4][4];
+      to_frags(s, pf);
+
+      // O += P V, P from registers, V read MN-major.
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        Wgmma<D>::rs(o, pf[kk], desc_mnmajor(tV, kk), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(o);
+    }
+    __syncthreads();   // every thread done with `stage` before its refill
+    t = next_tile(t + 1);
+    stage = stage + 1 == kStages ? 0 : stage + 1;
+  }
+  cp_async_wait<0>();
+
+  // l over the quad; l == 0 <=> the row attends no key: output exactly 0.
+  float l[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] = l_run[h] + __shfl_xor_sync(0xffffffffu, l_run[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+  }
+  bf16* ob = out + qoff * D;
+#pragma unroll
+  for (int i = 0; i < D / 2; i += 2) {
+    const int h = (i >> 1) & 1;
+    const int row = q0 + acc_row(i);
+    if (row < tq) {
+      const float a = l[h] == 0.f ? 0.f : o[i] / l[h];
+      const float b = l[h] == 0.f ? 0.f : o[i + 1] / l[h];
+      *reinterpret_cast<__nv_bfloat162*>(
+          ob + static_cast<size_t>(row) * D + acc_col(i)) =
+          __floats2bfloat162_rn(a, b);
+    }
+  }
+  if (lse != nullptr && threadIdx.x % 4 == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      if (row_ok[h])
+        lse[qoff + q0 + lr + 8 * h] =
+            kLn2 * (m_run[h] + log2f(l[h] == 0.f ? 1.f : l[h]));
+  }
+}
+
+// int8 scoring (the Quant instantiation): the first version's body, on
+// nvcuda::wmma fragments with S, P and O through shared memory and
+// synchronous K/V loads. One warpgroup a block owns a 64-row query tile;
+// each warp owns 16 of its rows.
+
 // Rows [row0, row0 + 64) of a (rows, D) int8 matrix into shared memory
 // chunk-major ([D/16][64][16] bytes), 16 bytes a thread; rows at or past
 // `limit` load as zeros.
@@ -180,109 +638,73 @@ __device__ __forceinline__ void load_i8_tile(signed char* dst,
                                              const signed char* src,
                                              int row0, int limit) {
   constexpr int kChunks = D / 16;
-  for (int idx = threadIdx.x; idx < kBK * kChunks; idx += kThreads) {
+  for (int idx = threadIdx.x; idx < kB * kChunks; idx += kThreads) {
     const int r = idx / kChunks, c = idx % kChunks;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
     if (row0 + r < limit)
       val = *reinterpret_cast<const uint4*>(
           src + static_cast<size_t>(row0 + r) * D + c * 16);
-    *reinterpret_cast<uint4*>(dst + (c * kBK + r) * 16) = val;
+    *reinterpret_cast<uint4*>(dst + (c * kB + r) * 16) = val;
   }
 }
 
-template <int D, bool Ext = false>
-constexpr size_t smem_bytes() {
-  return sizeof(bf16) * (kBQ * D        // sQ
-                         + 2 * kBK * D  // sK, sV
-                         + kBQ * kBK)   // sP
-         + sizeof(float) * (kBQ * kBK   // sS
-                            + kBQ * D)  // sO
-         + (Ext ? kBK * (2 * sizeof(int) + sizeof(float))
-                : 0);   // sSegK, sSkr, sPosK
+template <int D>
+constexpr size_t i8_smem_bytes() {
+  return sizeof(bf16) * (kB * D        // the int8 q tile (sQ8)
+                         + 2 * kB * D  // the int8 k tile (sK8), sV
+                         + kB * kB)    // sP
+         + sizeof(float) * (kB * kB    // sS (int32 dots)
+                            + kB * D)  // sO
+         + kB * (2 * sizeof(int) + sizeof(float));   // sSegK, sSkr, sPosK
 }
 
-template <int D, bool HasMask, bool Bounded, bool Ext, bool Quant>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ out,
-                 float* __restrict__ lse, const float* __restrict__ mvec,
-                 MaskArgs mask, int tq, int tk, int group, int causal,
-                 int causal_offset, int kv_offset, float qscale,
-                 int n_qtiles, ExtArgs ext) {
-  static_assert(!Quant || Ext, "int8 scoring is an Ext instantiation");
-  static_assert(!(HasMask && Ext), "Ext reads the mask at run time");
+flash_fwd_i8_kernel(const bf16* __restrict__ v, bf16* __restrict__ out,
+                    float* __restrict__ lse, MaskArgs mask, int tq, int tk,
+                    int group, int causal, int causal_offset, int kv_offset,
+                    int n_qtiles, ExtArgs ext) {
   static_assert(D % 16 == 0 && D <= 128, "head dim must be 16*n <= 128");
-  constexpr int kChunks = D / 8;   // 16-byte chunks per row
+  constexpr int kChunks = D / 8;   // 16-byte chunks per bf16 row
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sK = sQ + kBQ * D;
-  bf16* sV = sK + kBK * D;
-  bf16* sP = sV + kBK * D;
-  float* sS = reinterpret_cast<float*>(sP + kBQ * kBK);
-  float* sO = sS + kBQ * kBK;
-  // Ext: the key tile's segment ids and (Quant) raw k row scales; Quant:
-  // the int8 q and k tiles in the sQ / sK regions.
-  int* sSegK = reinterpret_cast<int*>(sO + kBQ * D);
-  float* sSkr = reinterpret_cast<float*>(sSegK + kBK);
-  int* sPosK = reinterpret_cast<int*>(sSkr + kBK);
-  signed char* sQ8 = reinterpret_cast<signed char*>(sQ);
-  signed char* sK8 = reinterpret_cast<signed char*>(sK);
+  signed char* sQ8 = reinterpret_cast<signed char*>(smem);
+  signed char* sK8 = sQ8 + kB * D * sizeof(bf16);
+  bf16* sV = reinterpret_cast<bf16*>(sK8 + kB * D * sizeof(bf16));
+  bf16* sP = sV + kB * D;
+  float* sS = reinterpret_cast<float*>(sP + kB * kB);
+  float* sO = sS + kB * kB;
+  int* sSegK = reinterpret_cast<int*>(sO + kB * D);
+  float* sSkr = reinterpret_cast<float*>(sSegK + kB);
+  int* sPosK = reinterpret_cast<int*>(sSkr + kB);
 
-  // Late query tiles see the most keys under causal masking: schedule
-  // them first so the short tiles fill the tail of the launch.
+  // Late query tiles see the most keys under causal masking: first.
   const int tile = n_qtiles - 1 - static_cast<int>(blockIdx.x);
-  const int bh = blockIdx.y;              // flat (batch, query head)
-  const int bkv = bh / group;             // its kv head (GQA)
-  const int q0 = tile * kBQ;
+  const int bh = blockIdx.y;
+  const int bkv = bh / group;
+  const int q0 = tile * kB;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-
-  const bf16* qb = q + static_cast<size_t>(bh) * tq * D;
-  const bf16* kb = k + static_cast<size_t>(bkv) * tk * D;
   const bf16* vb = v + static_cast<size_t>(bkv) * tk * D;
   bf16* ob = out + static_cast<size_t>(bh) * tq * D;
 
   // Row i may attend local key column j when rel + i >= j.
   const long long rel = static_cast<long long>(causal_offset) - kv_offset;
-  // Key columns any row of this tile may attend: [0, kv_end).
   int kv_end = tk;
   if (causal) {
-    const int rows = (q0 + kBQ < tq ? q0 + kBQ : tq);
+    const int rows = (q0 + kB < tq ? q0 + kB : tq);
     const long long extent = rel + rows;
     kv_end = extent <= 0 ? 0 : (extent < tk ? static_cast<int>(extent) : tk);
   }
-  const int n_ktiles = (kv_end + kBK - 1) / kBK;
-  // Ext window: columns before the first one row q0 may still see.
+  const int n_ktiles = (kv_end + kB - 1) / kB;
   int t_begin = 0;
-  if constexpr (Ext) {
-    if (causal && ext.window > 0) {
-      const long long first = rel + q0 - ext.window + 1;
-      t_begin = first <= 0 ? 0
-              : (first >= kv_end ? n_ktiles
-                                 : static_cast<int>(first) / kBK);
-    }
+  if (causal && ext.window > 0) {
+    const long long first = rel + q0 - ext.window + 1;
+    t_begin = first <= 0 ? 0
+            : (first >= kv_end ? n_ktiles : static_cast<int>(first) / kB);
   }
 
-  if constexpr (Quant) {
-    load_i8_tile<D>(sQ8, ext.q8 + static_cast<size_t>(bh) * tq * D, q0, tq);
-  } else {
-    // q tile, pre-scaled by scale*log2(e) and rounded back to bf16; rows
-    // past tq load as zeros (their outputs are never stored).
-    for (int idx = threadIdx.x; idx < kBQ * kChunks; idx += kThreads) {
-      const int r = idx / kChunks, c = idx % kChunks;
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (q0 + r < tq) {
-        val = *reinterpret_cast<const uint4*>(
-            qb + static_cast<size_t>(q0 + r) * D + c * 8);
-        bf16* e = reinterpret_cast<bf16*>(&val);
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-          e[i] = __float2bfloat16(__bfloat162float(e[i]) * qscale);
-      }
-      *reinterpret_cast<uint4*>(sQ + r * D + c * 8) = val;
-    }
-  }
-  for (int idx = threadIdx.x; idx < kBQ * D; idx += kThreads) sO[idx] = 0.f;
+  load_i8_tile<D>(sQ8, ext.q8 + static_cast<size_t>(bh) * tq * D, q0, tq);
+  for (int idx = threadIdx.x; idx < kB * D; idx += kThreads) sO[idx] = 0.f;
   __syncthreads();
 
   // Softmax ownership: lane pair (2r, 2r+1) of warp w holds row
@@ -292,186 +714,126 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bool row_ok = q0 + my_row < tq;
   const long long row_pos = rel + q0 + my_row;
   const unsigned char* mrow =
-      (HasMask && row_ok) ? mask_row(mask, bh, q0 + my_row) : nullptr;
-  // Ext: the row's segment id, the key side's id row, the dropout hash's
-  // row and batch terms, the row's ALiBi slope, its global position and
-  // the key side's position row (with the tiles' [min, max]); Quant: the
-  // row's folded q scale.
+      (row_ok && mask.ptr != nullptr)
+          ? mask_base(mask, bh) + static_cast<long long>(q0 + my_row) * mask.sr
+          : nullptr;
   int seg_r = 0;
   const int* segk_row = nullptr;
-  unsigned int drop_rh = 0u, drop_bs = 0u;
-  float sqf_r = 0.f, slope = 0.f;
+  if (ext.segk.ptr != nullptr) {
+    segk_row = vec_row(ext.segk, bh);
+    seg_r = row_ok ? vec_row(ext.segq, bh)[q0 + my_row] : 0;
+  }
+  const float slope = ext.alibi != nullptr ? ext.alibi[bh] : 0.f;
   int pos_r = 0, qmin = 0, qmax = 0;
   const int* posk_row = nullptr;
   const int* posk_mm = nullptr;
-  if constexpr (Ext) {
-    if (row_ok && mask.ptr != nullptr)
-      mrow = mask_row(mask, bh, q0 + my_row);
-    if (ext.segk.ptr != nullptr) {
-      segk_row = vec_row(ext.segk, bh);
-      seg_r = row_ok ? vec_row(ext.segq, bh)[q0 + my_row] : 0;
-    }
-    if (ext.alibi != nullptr) slope = ext.alibi[bh];
-    if (ext.posk.ptr != nullptr) {
-      posk_row = vec_row(ext.posk, bh);
-      posk_mm = vec_row(ext.posk_mm, bh);
-      pos_r = row_ok ? vec_row(ext.posq, bh)[q0 + my_row] : 0;
-      qmin = vec_row(ext.posq_mm, bh)[2 * tile];
-      qmax = vec_row(ext.posq_mm, bh)[2 * tile + 1];
-    }
-    drop_rh = static_cast<unsigned int>(
-                  posk_row != nullptr ? pos_r : causal_offset + q0 + my_row) *
-              2654435761u;
-    drop_bs = ext.seed + static_cast<unsigned int>(bh) * 668265263u;
-    if constexpr (Quant)
-      sqf_r = row_ok ? ext.sqf[static_cast<size_t>(bh) * tq + q0 + my_row]
-                     : 0.f;
+  if (ext.posk.ptr != nullptr) {
+    posk_row = vec_row(ext.posk, bh);
+    posk_mm = vec_row(ext.posk_mm, bh);
+    pos_r = row_ok ? vec_row(ext.posq, bh)[q0 + my_row] : 0;
+    qmin = vec_row(ext.posq_mm, bh)[2 * tile];
+    qmax = vec_row(ext.posq_mm, bh)[2 * tile + 1];
   }
-  // K1: the running max, from NEG_BIG. K2: the row's bound, fixed.
+  const unsigned int drop_rh =
+      static_cast<unsigned int>(
+          posk_row != nullptr ? pos_r : causal_offset + q0 + my_row) *
+      2654435761u;
+  const unsigned int drop_bs =
+      ext.seed + static_cast<unsigned int>(bh) * 668265263u;
+  const float sqf_r =
+      row_ok ? ext.sqf[static_cast<size_t>(bh) * tq + q0 + my_row] : 0.f;
   float m_run = kNegBig;
-  if constexpr (Bounded)
-    m_run = row_ok ? mvec[static_cast<size_t>(bh) * tq + q0 + my_row] : 0.f;
   float l_run = 0.f;
 
   for (int t = t_begin; t < n_ktiles; ++t) {
-    const int k0 = t * kBK;
-    if constexpr (Ext) {
-      // Positions: a key tile wholly in the query tile's future, or wholly
-      // a window or more in its past, is never loaded (the same decision
-      // in every thread of the block).
-      if (posk_mm != nullptr &&
-          (posk_mm[2 * t] > qmax ||
-           (ext.window > 0 &&
-            static_cast<long long>(qmin) - posk_mm[2 * t + 1] >=
-                ext.window)))
-        continue;
-    }
+    const int k0 = t * kB;
+    // Positions: a key tile wholly in the query tile's future, or wholly a
+    // window or more in its past, is never loaded (the same decision in
+    // every thread of the block).
+    if (posk_mm != nullptr &&
+        (posk_mm[2 * t] > qmax ||
+         (ext.window > 0 &&
+          static_cast<long long>(qmin) - posk_mm[2 * t + 1] >= ext.window)))
+      continue;
     __syncthreads();   // all warps done with the previous sK/sV
-    if constexpr (Quant) {
-      load_i8_tile<D>(sK8, ext.k8 + static_cast<size_t>(bkv) * tk * D, k0,
-                      tk);
-      for (int idx = threadIdx.x; idx < kBK * kChunks; idx += kThreads) {
-        const int r = idx / kChunks, c = idx % kChunks;
-        uint4 vv = make_uint4(0u, 0u, 0u, 0u);
-        if (k0 + r < tk)
-          vv = *reinterpret_cast<const uint4*>(
-              vb + static_cast<size_t>(k0 + r) * D + c * 8);
-        *reinterpret_cast<uint4*>(sV + r * D + c * 8) = vv;
-      }
-    } else {
-      for (int idx = threadIdx.x; idx < kBK * kChunks; idx += kThreads) {
-        const int r = idx / kChunks, c = idx % kChunks;
-        uint4 kv = make_uint4(0u, 0u, 0u, 0u);
-        uint4 vv = make_uint4(0u, 0u, 0u, 0u);
-        if (k0 + r < tk) {
-          const size_t off = static_cast<size_t>(k0 + r) * D + c * 8;
-          kv = *reinterpret_cast<const uint4*>(kb + off);
-          vv = *reinterpret_cast<const uint4*>(vb + off);
-        }
-        *reinterpret_cast<uint4*>(sK + r * D + c * 8) = kv;
-        *reinterpret_cast<uint4*>(sV + r * D + c * 8) = vv;
-      }
+    load_i8_tile<D>(sK8, ext.k8 + static_cast<size_t>(bkv) * tk * D, k0, tk);
+    for (int idx = threadIdx.x; idx < kB * kChunks; idx += kThreads) {
+      const int r = idx / kChunks, c = idx % kChunks;
+      uint4 vv = make_uint4(0u, 0u, 0u, 0u);
+      if (k0 + r < tk)
+        vv = *reinterpret_cast<const uint4*>(
+            vb + static_cast<size_t>(k0 + r) * D + c * 8);
+      *reinterpret_cast<uint4*>(sV + r * D + c * 8) = vv;
     }
-    if constexpr (Ext) {
-      for (int i = threadIdx.x; i < kBK; i += kThreads) {
-        const bool ok = k0 + i < tk;
-        sSegK[i] = (segk_row != nullptr && ok) ? segk_row[k0 + i] : 0;
-        sPosK[i] = (posk_row != nullptr && ok) ? posk_row[k0 + i] : 0;
-        if constexpr (Quant)
-          sSkr[i] = ok ? ext.skr[static_cast<size_t>(bkv) * tk + k0 + i]
-                       : 0.f;
-      }
+    for (int i = threadIdx.x; i < kB; i += kThreads) {
+      const bool ok = k0 + i < tk;
+      sSegK[i] = (segk_row != nullptr && ok) ? segk_row[k0 + i] : 0;
+      sPosK[i] = (posk_row != nullptr && ok) ? posk_row[k0 + i] : 0;
+      sSkr[i] = ok ? ext.skr[static_cast<size_t>(bkv) * tk + k0 + i] : 0.f;
     }
     __syncthreads();
 
-    // S = Q K^T for this warp's 16 rows (log2 units: q is pre-scaled);
-    // Quant: the int32 dots, scaled per element below.
+    // The int32 dots of this warp's 16 rows, scaled per element below.
 #pragma unroll
-    for (int j = 0; j < kBK / 16; ++j) {
-      if constexpr (Quant) {
-        wmma::fragment<wmma::accumulator, 16, 16, 16, int> acc;
-        wmma::fill_fragment(acc, 0);
+    for (int j = 0; j < kB / 16; ++j) {
+      wmma::fragment<wmma::accumulator, 16, 16, 16, int> acc;
+      wmma::fill_fragment(acc, 0);
 #pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, signed char,
-                         wmma::row_major> a;
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, signed char,
-                         wmma::col_major> b;
-          wmma::load_matrix_sync(a, sQ8 + (kk * kBQ + warp * 16) * 16, 16);
-          wmma::load_matrix_sync(b, sK8 + (kk * kBK + j * 16) * 16, 16);
-          wmma::mma_sync(acc, a, b, acc);
-        }
-        wmma::store_matrix_sync(
-            reinterpret_cast<int*>(sS) + warp * 16 * kBK + j * 16, acc, kBK,
-            wmma::mem_row_major);
-      } else {
-        wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-        wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
-          wmma::load_matrix_sync(a, sQ + warp * 16 * D + kk * 16, D);
-          wmma::load_matrix_sync(b, sK + j * 16 * D + kk * 16, D);
-          wmma::mma_sync(acc, a, b, acc);
-        }
-        wmma::store_matrix_sync(sS + warp * 16 * kBK + j * 16, acc, kBK,
-                                wmma::mem_row_major);
+      for (int kk = 0; kk < D / 16; ++kk) {
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, signed char,
+                       wmma::row_major> a;
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, signed char,
+                       wmma::col_major> b;
+        wmma::load_matrix_sync(a, sQ8 + (kk * kB + warp * 16) * 16, 16);
+        wmma::load_matrix_sync(b, sK8 + (kk * kB + j * 16) * 16, 16);
+        wmma::mma_sync(acc, a, b, acc);
       }
+      wmma::store_matrix_sync(
+          reinterpret_cast<int*>(sS) + warp * 16 * kB + j * 16, acc, kB,
+          wmma::mem_row_major);
     }
     __syncwarp();
 
     // Online softmax over this tile's 64 columns of my_row.
     float sv[32];
     float mx = kNegBig;
-    const float* srow = sS + my_row * kBK + half * 32;
+    const int* srow = reinterpret_cast<const int*>(sS) + my_row * kB +
+                      half * 32;
 #pragma unroll
     for (int c = 0; c < 32; ++c) {
       const int col = k0 + half * 32 + c;
+      // pos_q - pos_k: explicit positions, else the offsets' arithmetic.
+      const long long back = posk_row != nullptr
+                                 ? static_cast<long long>(pos_r) -
+                                       sPosK[half * 32 + c]
+                                 : row_pos - col;
       bool valid = col < tk && (!causal || col <= row_pos);
-      if constexpr (HasMask) valid = valid && mrow != nullptr && !mrow[col];
-      float sc = srow[c];
-      if constexpr (Ext) {
-        // pos_q - pos_k: explicit positions, else the offsets' arithmetic.
-        const long long back = posk_row != nullptr
-                                   ? static_cast<long long>(pos_r) -
-                                         sPosK[half * 32 + c]
-                                   : row_pos - col;
-        if (mrow != nullptr) valid = valid && !mrow[col];
-        if (posk_row != nullptr) valid = valid && back >= 0;
-        if (ext.window > 0) valid = valid && back < ext.window;
-        if (segk_row != nullptr)
-          valid = valid && seg_r == sSegK[half * 32 + c];
-        if constexpr (Quant)
-          sc = static_cast<float>(reinterpret_cast<const int*>(srow)[c]) *
-               sqf_r * sSkr[half * 32 + c];
-        if (ext.alibi != nullptr)
-          sc = __fadd_rn(sc, __fmul_rn(slope, static_cast<float>(-back)));
-      }
+      if (mrow != nullptr) valid = valid && !mrow[col];
+      if (posk_row != nullptr) valid = valid && back >= 0;
+      if (ext.window > 0) valid = valid && back < ext.window;
+      if (segk_row != nullptr) valid = valid && seg_r == sSegK[half * 32 + c];
+      float sc = static_cast<float>(srow[c]) * sqf_r * sSkr[half * 32 + c];
+      if (ext.alibi != nullptr)
+        sc = __fadd_rn(sc, __fmul_rn(slope, static_cast<float>(-back)));
       sv[c] = valid ? sc : -INFINITY;
-      if constexpr (!Bounded) mx = fmaxf(mx, sv[c]);
+      mx = fmaxf(mx, sv[c]);
     }
-    float m_new = m_run, corr = 1.f;
-    if constexpr (!Bounded) {
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      m_new = fmaxf(m_run, mx);
-      corr = exp2f(m_run - m_new);
-    }
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    const float m_new = fmaxf(m_run, mx);
+    const float corr = exp2f(m_run - m_new);
     float psum = 0.f;
-    bf16* prow = sP + my_row * kBK + half * 32;
+    bf16* prow = sP + my_row * kB + half * 32;
 #pragma unroll
     for (int c = 0; c < 32; ++c) {
       const float p = exp2f(sv[c] - m_new);   // masked: exp2(-inf) = 0
       float pn = p;
-      if constexpr (Ext) {
-        // Dropout drops the numerator only: l sums the undropped p.
-        if (ext.dropout) {
-          const unsigned int col = static_cast<unsigned int>(
-              posk_row != nullptr ? sPosK[half * 32 + c]
-                                  : kv_offset + k0 + half * 32 + c);
-          pn = drop_hash(drop_rh, col, drop_bs) >= ext.drop_threshold
-                   ? p * ext.drop_inv : 0.f;
-        }
+      // Dropout drops the numerator only: l sums the undropped p.
+      if (ext.dropout) {
+        const unsigned int col = static_cast<unsigned int>(
+            posk_row != nullptr ? sPosK[half * 32 + c]
+                                : kv_offset + k0 + half * 32 + c);
+        pn = drop_hash(drop_rh, col, drop_bs) >= ext.drop_threshold
+                 ? p * ext.drop_inv : 0.f;
       }
       prow[c] = __float2bfloat16(pn);
       psum += p;
@@ -479,11 +841,9 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     psum += __shfl_xor_sync(0xffffffffu, psum, 1);
     l_run = l_run * corr + psum;
     m_run = m_new;
-    if constexpr (!Bounded) {
-      float* orow = sO + my_row * D + half * (D / 2);
+    float* orow = sO + my_row * D + half * (D / 2);
 #pragma unroll
-      for (int c = 0; c < D / 2; ++c) orow[c] *= corr;
-    }
+    for (int c = 0; c < D / 2; ++c) orow[c] *= corr;
     __syncwarp();
 
     // O += P V for this warp's 16 rows.
@@ -493,10 +853,10 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       wmma::load_matrix_sync(acc, sO + warp * 16 * D + j * 16, D,
                              wmma::mem_row_major);
 #pragma unroll
-      for (int kk = 0; kk < kBK / 16; ++kk) {
+      for (int kk = 0; kk < kB / 16; ++kk) {
         wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
         wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-        wmma::load_matrix_sync(a, sP + warp * 16 * kBK + kk * 16, kBK);
+        wmma::load_matrix_sync(a, sP + warp * 16 * kB + kk * 16, kB);
         wmma::load_matrix_sync(b, sV + kk * 16 * D + j * 16, D);
         wmma::mma_sync(acc, a, b, acc);
       }
@@ -523,27 +883,65 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+// Sets the kernel's dynamic shared memory and launches it; returns a
+// cudaError_t code (0 = launched).
+template <typename... Params, typename... Args>
+int launch_kernel(void (*kernel)(Params...), dim3 grid, int threads,
+                  size_t smem, cudaStream_t stream, Args... args) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<grid, threads, smem, stream>>>(args...);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The widest copy (16, 8 or 4 bytes by cp.async; 1: byte loads) that
+// every mask row's address allows: the base pointer and all three strides
+// are multiples of it.
+int mask_width(const MaskArgs& m) {
+  const unsigned long long bits =
+      reinterpret_cast<uintptr_t>(m.ptr) |
+      static_cast<unsigned long long>(m.so) |
+      static_cast<unsigned long long>(m.si) |
+      static_cast<unsigned long long>(m.sr);
+  for (int w = 16; w >= 4; w /= 2)
+    if (bits % w == 0) return w;
+  return 1;
+}
+
 template <int D, bool HasMask, bool Bounded, bool Ext, bool Quant>
 int launch(const void* q, const void* k, const void* v, void* out,
            float* lse, const float* mvec, const MaskArgs& mask,
            int batch_heads, int group, int tq, int tk, int causal,
            int causal_offset, int kv_offset, float qscale,
            const ExtArgs& ext, cudaStream_t stream) {
-  const size_t smem = smem_bytes<D, Ext>();
-  auto kernel = flash_fwd_kernel<D, HasMask, Bounded, Ext, Quant>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int n_qtiles = (tq + kBQ - 1) / kBQ;
+  const int n_qtiles = (tq + kB - 1) / kB;
   if (n_qtiles == 0 || batch_heads == 0) return 0;
-  dim3 grid(n_qtiles, batch_heads);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(out), lse, mvec, mask,
-      tq, tk, group, causal, causal_offset, kv_offset, qscale, n_qtiles,
-      ext);
-  return static_cast<int>(cudaGetLastError());
+  bf16* o = static_cast<bf16*>(out);
+  if constexpr (Quant) {
+    static_assert(Ext && !HasMask && !Bounded, "int8 scoring is Ext, exact");
+    return launch_kernel(flash_fwd_i8_kernel<D>, dim3(n_qtiles, batch_heads),
+                         kThreads, i8_smem_bytes<D>(), stream,
+                         static_cast<const bf16*>(v), o, lse, mask, tq, tk,
+                         group, causal, causal_offset, kv_offset, n_qtiles,
+                         ext);
+  } else {
+    CUtensorMap maps[3];
+    if (!tile_map(&maps[0], q, batch_heads, tq, D) ||
+        !tile_map(&maps[1], k, batch_heads / group, tk, D) ||
+        !tile_map(&maps[2], v, batch_heads / group, tk, D))
+      return static_cast<int>(cudaErrorInvalidValue);
+    // blockIdx.x the (batch, head) row, blockIdx.y the 128-row query block
+    // from the last: every row's longest causal extents launch first.
+    const int n_qblocks = (tq + kRows - 1) / kRows;
+    return launch_kernel(flash_fwd_kernel<D, HasMask, Bounded, Ext>,
+                         dim3(batch_heads, n_qblocks), kBlockThreads,
+                         smem_bytes<D, HasMask, Ext>(), stream, maps[0],
+                         maps[1], maps[2], o, lse, mvec, mask,
+                         mask_width(mask), tq, tk, group, causal,
+                         causal_offset, kv_offset, qscale, n_qblocks, ext);
+  }
 }
 
 template <int D>

@@ -6,8 +6,9 @@ the TPU kernels were traced by Pallas at call time).
 Each library of :data:`LIBRARIES` is one ``csrc/<source>.cu`` compiled by
 ``nvcc`` for Hopper (``-gencode arch=compute_90a,code=sm_90a``) with its
 own ``-D`` flags into a shared library with a plain C interface, under
-``build/kernels/`` at the repository root, named by a hash of the source
-and the flags — an edited source builds afresh, an unchanged one is
+``build/kernels/`` at the repository root, named by a hash of the source,
+the ``csrc/`` headers it includes (``#include "hopper.cuh"``) and the
+flags — an edited source or header builds afresh, an unchanged one is
 reused. The flash sources build in parts that ``nvcc`` compiles side by
 side: their base instantiations (the serving and training paths), and
 with ``-DFLASH_EXT`` the instantiations that take segments, a window,
@@ -70,10 +71,26 @@ def _flags(name):
     return (*_NVCC_FLAGS, *LIBRARIES[name][1])
 
 
+def _headers(text, seen):
+    """The ``csrc/`` headers that ``text`` includes (``#include "x"``),
+    and theirs, each once, in the order first met."""
+    for name in re.findall(r'^\s*#\s*include\s+"([^"]+)"', text, re.M):
+        path = _CSRC / name
+        if name not in seen and path.is_file():
+            seen.append(name)
+            _headers(path.read_text(), seen)
+    return seen
+
+
 def _target(name):
+    """The library's path: its name and a hash of its source, the headers
+    the source includes, and its flags."""
     src = (_CSRC / f'{LIBRARIES[name][0]}.cu').read_bytes()
-    digest = hashlib.sha256(src + ' '.join(_flags(name)).encode()
-                            ).hexdigest()[:16]
+    parts = [src]
+    for header in _headers(src.decode(), []):
+        parts += [header.encode(), (_CSRC / header).read_bytes()]
+    parts.append(' '.join(_flags(name)).encode())
+    digest = hashlib.sha256(b'\0'.join(parts)).hexdigest()[:16]
     return _BUILD_DIR / f'{name}-{digest}.so'
 
 

@@ -12,9 +12,11 @@ those phases' lines. The run must fail, in a phase that holds the
 faulty kernel. Prints one JSON line per fault with the readings of every case
 (largest row error and whole-tensor error of out / dq / dk / dv, K1's lse
 error), then ``{"faults": n, "caught": m}``; exits non-zero unless every
-fault was caught. The faults sit past query or key tile 32, so only the
+fault was caught. Most faults sit past query or key tile 32, so only the
 training shape (T 4096, 64 tiles) reaches them, or round an accumulator to
-bf16 after every tile.
+bf16 after every tile; two more break K1's online softmax (the rescale of
+O dropped) and its causal loop (every query tile's diagonal key tile
+skipped).
 """
 
 import json
@@ -40,12 +42,32 @@ def _round_acc(*names):
 # must fail)
 FAULTS = {
     'k1_late_diagonal_tile_dropped': (
-        'flash_fwd.cu', 'for (int t = t_begin; t < n_ktiles; ++t) {',
-        'for (int t = t_begin; t < n_ktiles - (tile >= 32 ? 1 : 0); ++t) {',
+        'flash_fwd.cu', '    if (sees(wg, t)) {\n      const int k0 = t * kB;\n'
+        '      const uint32_t tK = smem_u32(sKV + 2 * stage * kB * D);\n',
+        '    if (sees(wg, t) && !(q0 >= 32 * kB &&\n'
+        '                         t == (wg ? t_hi[1] : t_hi[0]) - 1)) {\n'
+        '      const int k0 = t * kB;\n'
+        '      const uint32_t tK = smem_u32(sKV + 2 * stage * kB * D);\n',
         ('flash_attention', 'flash_backward')),
     'k1_accumulator_bf16': (
-        'flash_fwd.cu', 'orow[c] *= corr;',
-        'orow[c] = __bfloat162float(__float2bfloat16(orow[c] * corr));',
+        'flash_fwd.cu', '      fence_regs(o);\n',
+        '      fence_regs(o);\n' + _round_acc('o'),
+        ('flash_attention', 'flash_backward')),
+    # The online softmax's rescale of O left out: O keeps the weights of
+    # earlier tiles at their old, smaller running max.
+    'k1_corr_dropped': (
+        'flash_fwd.cu',
+        '        for (int i = 0; i < D / 2; ++i) o[i] *= corr[(i >> 1) & 1];\n',
+        '',
+        ('flash_attention', 'flash_backward')),
+    # Every query tile's last causal key tile (its diagonal) skipped.
+    'k1_last_causal_tile_skipped': (
+        'flash_fwd.cu', '    if (sees(wg, t)) {\n      const int k0 = t * kB;\n'
+        '      const uint32_t tK = smem_u32(sKV + 2 * stage * kB * D);\n',
+        '    if (sees(wg, t) && !(causal &&\n'
+        '                         t == (wg ? t_hi[1] : t_hi[0]) - 1)) {\n'
+        '      const int k0 = t * kB;\n'
+        '      const uint32_t tK = smem_u32(sKV + 2 * stage * kB * D);\n',
         ('flash_attention', 'flash_backward')),
     'k3_late_diagonal_tile_dropped': (
         'flash_bwd.cu', '      uint32_t ds[4][4];\n',
@@ -101,7 +123,13 @@ def readings(stdout):
             continue
         if row.get('ok') is False:
             failed = row['phase']
-        if row.get('phase') in ('flash_attention', 'flash_backward') and \
+        if row.get('phase') == 'flash_attention' and 'k1' in row:
+            for kern in ('k1', 'k2'):   # the kernels' edge cases
+                cases[f"flash_attention/{row['case']}/{kern}"] = {
+                    'row_rel': row[kern]['max_row_rel_err'],
+                    'rel': row[kern]['rel_err'],
+                    'lse': row[kern]['lse_max_abs_err']}
+        elif row.get('phase') in ('flash_attention', 'flash_backward') and \
                 'max_row_rel_err' in row:
             key = f"{row['phase']}/{row['case']}"
             cases[key] = {'row_rel': row['max_row_rel_err'],

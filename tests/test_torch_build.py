@@ -28,3 +28,40 @@ def test_ptxas_report_parsed_per_kernel():
 def test_no_report_reads_empty():
     assert _build._parse_ptxas('') == {}
     assert _build._parse_ptxas('nvcc warning : something\n') == {}
+
+
+def _csrc(tmp_path, monkeypatch, header=b'// v1\n'):
+    """A csrc/ of its own: one flash_fwd.cu that includes hopper.cuh, and
+    an unrelated file."""
+    (tmp_path / 'flash_fwd.cu').write_text(
+        '#include <cuda_runtime.h>\n#include "hopper.cuh"\nint x;\n')
+    (tmp_path / 'hopper.cuh').write_bytes(header)
+    (tmp_path / 'notes.txt').write_text('unrelated\n')
+    monkeypatch.setattr(_build, '_CSRC', tmp_path)
+
+
+def test_target_hashes_the_included_header(tmp_path, monkeypatch):
+    """An edited header gives a new library path (a fresh build); an
+    unrelated file in csrc/ does not."""
+    _csrc(tmp_path, monkeypatch)
+    first = _build._target('flash_fwd')
+    assert _build._target('flash_fwd') == first
+    (tmp_path / 'notes.txt').write_text('edited\n')
+    assert _build._target('flash_fwd') == first
+    (tmp_path / 'hopper.cuh').write_bytes(b'// v2\n')
+    assert _build._target('flash_fwd') != first
+    (tmp_path / 'hopper.cuh').write_bytes(b'// v1\n')
+    assert _build._target('flash_fwd') == first
+
+
+def test_included_headers_are_followed(tmp_path, monkeypatch):
+    """Headers a header includes count too; system includes and missing
+    files do not."""
+    _csrc(tmp_path, monkeypatch, b'#include "inner.cuh"\n')
+    (tmp_path / 'inner.cuh').write_text('// inner v1\n')
+    assert _build._headers(
+        (tmp_path / 'flash_fwd.cu').read_text(), []) == ['hopper.cuh',
+                                                          'inner.cuh']
+    first = _build._target('flash_fwd')
+    (tmp_path / 'inner.cuh').write_text('// inner v2\n')
+    assert _build._target('flash_fwd') != first

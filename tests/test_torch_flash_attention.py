@@ -14,16 +14,18 @@ Tolerance: atol = rtol = 1e-5, float32 rounding of two different
 reduction orders (blockwise online softmax vs one full-row softmax).
 """
 
+import math
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
 import torch
 
 from distributed_dot_product_tpu.ops.pallas_attention import (
-    flash_attention as jax_flash_attention,
+    _flash_fwd_impl, flash_attention as jax_flash_attention,
 )
 from distributed_dot_product_tpu_torch.ops.flash_attention import (
-    flash_attention,
+    _LN2, _NEG_BIG, flash_attention, flash_attention_with_lse,
 )
 
 TOL = dict(atol=1e-5, rtol=1e-5)
@@ -38,7 +40,19 @@ CASES = {
     'gqa_causal': (2, 4, 2, 20, 20, 16, True, 0, None),
     'gqa_offset_tail': (1, 4, 1, 7, 32, 8, True, 5, 12),
     'empty_rows': (1, 2, 2, 8, 16, 16, True, -3, None),
+    # The card kernels' edges: the LM's head dim, lengths crossing their
+    # 64- and 128-row tiles, a GQA group of 4, a prefill (Tq < Tk) at an
+    # offset whose rows reach a zero tail, and an offset that leaves a
+    # whole 64-row tile and more without a key.
+    'head_dim_96': (1, 2, 2, 40, 40, 96, True, 0, None),
+    'tiles_129': (1, 2, 2, 129, 129, 16, True, 0, None),
+    'tiles_191': (1, 2, 2, 191, 191, 16, True, 0, None),
+    'gqa_4': (1, 8, 2, 48, 48, 16, True, 0, None),
+    'prefill_d64_tail': (1, 2, 2, 20, 100, 64, True, 60, 70),
+    'offset_no_key': (1, 2, 2, 70, 30, 16, True, -66, None),
 }
+EDGES = ('head_dim_96', 'tiles_129', 'tiles_191', 'gqa_4',
+         'prefill_d64_tail', 'offset_no_key')
 
 
 def _inputs(seed, b, hq, hkv, tq, tk, d, filled):
@@ -63,10 +77,47 @@ def test_plain_matches_jax(case):
                           torch.from_numpy(v), causal=causal,
                           causal_offset=off).numpy()
     np.testing.assert_allclose(got, want, **TOL)
-    if case == 'empty_rows':
+    if case in ('empty_rows', 'offset_no_key'):
         # Rows at global positions < 0 attend nothing: exactly 0.
-        assert not got[..., :3, :].any()
-        assert got[..., 3:, :].any()
+        assert not got[..., :-off, :].any()
+        assert got[..., -off:, :].any()
+
+
+@pytest.mark.parametrize('case', EDGES)
+def test_lse_matches_jax_at_kernel_edges(case):
+    """The row logsumexp at the kernels' edges against the reference's
+    ``_flash_fwd_impl(..., save_lse=True)``; rows with no key save
+    ``ln2·NEG_BIG``."""
+    b, hq, hkv, tq, tk, d, causal, off, filled = CASES[case]
+    q, k, v = _inputs(len(case), b, hq, hkv, tq, tk, d, filled)
+    scale = 1.0 / math.sqrt(d)
+    want_out, want_lse = _flash_fwd_impl(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), None, off, scale,
+        causal, True, save_lse=True)
+    out, lse = flash_attention_with_lse(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        causal=causal, causal_offset=off, scale=scale)
+    np.testing.assert_allclose(out.numpy(), np.asarray(want_out), **TOL)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse), **TOL)
+    if off < 0:
+        assert (lse[..., :-off] == _LN2 * _NEG_BIG).all()
+
+
+@pytest.mark.parametrize('case', EDGES)
+def test_bounded_matches_jax_at_kernel_edges(case):
+    """K2 (``softmax_mode='bounded'``) at the same edges against the
+    reference's bounded forward."""
+    b, hq, hkv, tq, tk, d, causal, off, filled = CASES[case]
+    q, k, v = _inputs(50 + len(case), b, hq, hkv, tq, tk, d, filled)
+    want = np.asarray(jax_flash_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+        causal_offset=off, softmax_mode='bounded'))
+    got = flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                          torch.from_numpy(v), causal=causal,
+                          causal_offset=off, softmax_mode='bounded').numpy()
+    np.testing.assert_allclose(got, want, **TOL)
+    if off < 0:
+        assert not got[..., :-off, :].any()
 
 
 @pytest.mark.parametrize('kw', [
