@@ -17,8 +17,13 @@ Phases, one JSON line each (some several):
    in bf16;
 4. flash_decode: K5 (fused decode step) against its plain version at the
    decode shape with mixed per-row fill: the appended cache must equal
-   the plain append bit for bit, the output must agree within tolerance;
-   then its partial outputs (num, m, l) and its window at the
+   the plain append bit for bit, the output must agree within tolerance,
+   a second launch must give the same bits, and one call must run exactly
+   one kernel on the card (torch.profiler's kernel names); then K5 and
+   K5p at their edges (a t_max no multiple of 128, a window starting
+   mid-chunk, spans inside one chunk; head dims 32/64/96/128, one new row
+   and verify k = 5, K5p at pages 16 and 256 bit for bit K5 on the
+   gathered slab); then its partial outputs (num, m, l) and its window at the
    sequence-sharded decode shapes (a rank's 8192-column slab in the
    query's past, the owner's, one wholly in its future whose rows must be
    exactly empty, a window of 1024 past the slab, and the window on the
@@ -31,7 +36,9 @@ Phases, one JSON line each (some several):
    16, t_max 4096, 2048 pages) with a scrambled table and mixed fill:
    the pool must equal the plain append bit for bit on every page but
    the sink, the output must agree within tolerance and equal K5's on
-   the same rows gathered into a slab, bit for bit; then its partial
+   the same rows gathered into a slab, bit for bit; K5p and K5 launched
+   at once on two streams on separate caches (each bit for bit its launch
+   alone); K5p at page 256 (one new row and k = 5); then its partial
    outputs and window (1024) on the same cache, one slot past its
    columns and the empty slot exactly empty; then K5p with ALiBi as K5,
    each case bit for bit K5 on the gathered slab;
@@ -351,8 +358,8 @@ def kernel_label(name):
 def build_resources(build):
     """Per library, ``ptxas -v``'s most registers a kernel uses and the
     kernels that spill (their spill bytes, stored + loaded); for the
-    forward's libraries (K1, K2) every kernel's registers and spill
-    bytes."""
+    forward's libraries (K1, K2) and the decode library (K5, K5p) every
+    kernel's registers and spill bytes."""
     out = {}
     for lib in build.SOURCES:
         res = build.resources(lib)
@@ -362,7 +369,7 @@ def build_resources(build):
                     'max_registers': max((r for r, _ in res.values()),
                                          default=None),
                     'spilling': spilling}
-        if build.LIBRARIES[lib][0] == 'flash_fwd':
+        if build.LIBRARIES[lib][0] in ('flash_fwd', 'flash_decode'):
             out[lib]['registers_spills'] = {
                 kernel_label(name): list(rs) for name, rs in res.items()}
     return out
@@ -635,16 +642,20 @@ def phase_decode(torch, ddp, flush, gen):
     bms, by = bound_ms(flops, nbytes)
     mask = (torch.arange(T_MAX, device=dev)[None, :] <= vt[:, None].long())
     mask = mask[:, None, None, :]
-    ck2, cv2 = ck.clone(), cv.clone()
+    ck2, cv2, ck3, cv3 = ck.clone(), cv.clone(), ck.clone(), cv.clone()
     out, _, _ = ddp.flash_decode(q, kn, vn, ck, cv, vt, ap, scale=scale)
     ref, _, _ = flash_decode_plain(q, kn, vn, ck2, cv2, vt, ap, scale=scale)
+    again, _, _ = ddp.flash_decode(q, kn, vn, ck3, cv3, vt, ap, scale=scale)
     torch.cuda.synchronize()
     err2 = (out.float() - ref.float()).abs().max().item()
     check(err2 <= TOL_BF16, f'K5 uniform fill: max abs err {err2}')
     check(torch.equal(ck, ck2) and torch.equal(cv, cv2),
           'K5 uniform fill: appended cache differs from the plain append')
+    check(torch.equal(out, again), 'K5 uniform fill: a second launch on '
+                                   'the same inputs gave other bits')
     row = {'phase': 'flash_decode', 'case': 'main_shape', 'fill': fill,
            'max_abs_err': max(err, err2), 'tol': TOL_BF16,
+           'repeat_bit_identical': True,
            'ms': time_ms(torch, lambda: ddp.flash_decode(
                q, kn, vn, ck, cv, vt, ap, scale=scale), flush),
            'plain_ms': time_ms(torch, lambda: flash_decode_plain(
@@ -652,7 +663,10 @@ def phase_decode(torch, ddp, flush, gen):
            'library_ms': time_ms(torch, lambda: F.scaled_dot_product_attention(
                q, ck, cv, attn_mask=mask, scale=scale), flush),
            'bound_ms': bms, 'bound_by': by, 'flops': flops, 'bytes': nbytes}
+    check_one_kernel(torch, row, 'K5 main shape', lambda: ddp.flash_decode(
+        q, kn, vn, ck, cv, vt, ap, scale=scale))
     emit(row)
+    row['edges'] = decode_edges(torch, gen)
     row['variants'] = decode_variants(torch, ddp, flush, gen)
     row['variants']['alibi'] = alibi_decode_variants(torch, flush, gen,
                                                      paged=False)
@@ -682,6 +696,174 @@ def _decode_errs(torch, got, want):
     err = max((g.float() - w.float()).abs().max().item()
               for g, w in zip(got, want))
     return errs, err, all(torch.isfinite(g).all().item() for g in got)
+
+
+def kernels_per_call(torch, fn):
+    """``(kernels, decode kernels)`` the card ran for one call of ``fn``,
+    by torch.profiler's device events (copies and fills apart): a
+    flash_decode call runs one kernel, the decode kernel, and nothing
+    else (no scratch, no merge pass, no quantization). A session that
+    recorded no device event at all (the profiler lost its trace: the
+    call's results were checked before) is taken again, twice at most."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if str(e.device_type).endswith('CUDA')
+                 and not e.name.startswith(('Memcpy', 'Memset'))]
+        if names:
+            break
+    return len(names), sum('flash_decode_kernel' in n for n in names)
+
+
+def check_one_kernel(torch, row, what, fn):
+    """Records on ``row`` and checks that one call of ``fn`` ran exactly
+    one kernel on the card, the decode kernel."""
+    total, decode = kernels_per_call(torch, fn)
+    row['kernels_per_call'] = total
+    row['decode_kernels_per_call'] = decode
+    check(total == 1 and decode == 1,
+          f'{what}: one call ran {total} kernels, {decode} of them the '
+          f'decode kernel (must be exactly one)')
+
+
+def paged_twin(torch, gen, slab_k, slab_v, ps):
+    """A scrambled page pool of page ``ps`` that holds the slab's rows
+    (the slab padded with large garbage to whole pages), every page
+    allocated, and its table: ``(k_pool, v_pool, table)``; the sink page
+    holds garbage."""
+    b, h_kv, t, d = slab_k.shape
+    pps = -(-t // ps)
+    perm = torch.randperm(b * pps, generator=gen)
+    table = perm.reshape(b, pps).to(torch.int32).to(slab_k.device)
+    pools = []
+    for x in (slab_k, slab_v):
+        pad = 30.0 * randn(torch, (b, h_kv, pps * ps - t, d), gen,
+                           x.device, x.dtype)
+        pages = torch.cat([x, pad], dim=2).reshape(b, h_kv, pps, ps, d)
+        pages = pages.transpose(1, 2).reshape(b * pps, h_kv, ps, d)
+        pool = 30.0 * randn(torch, (b * pps + 1, h_kv, ps, d), gen,
+                            x.device, x.dtype)
+        pool[perm.to(x.device)] = pages
+        pools.append(pool)
+    return pools[0], pools[1], table
+
+
+# K5/K5p at their edges (flash_decode): per case, the slab's columns, the
+# window and per slot (rows filled before the step, rows it appends; None
+# = an inactive slot). t_max_200: a t_max that is no multiple of 128 (or
+# 64), the step ending on its last row, rows straddling the first chunk's
+# end, a first token, an inactive slot; window_mid_chunk: a window of 100
+# whose start falls inside a chunk; one_chunk: every slot's span inside
+# one chunk. At every kernel head dim, GQA 8:2 (a verify launch's 20 rows
+# take two passes of 16, a one-row launch's 4 one), one new row and k = 5.
+DECODE_EDGES = (('t_max_200', 200, None, ((195, 5), (124, 5), (0, 1),
+                                          (60, None))),
+                ('window_mid_chunk', 1000, 100, ((995, 5), (700, 3),
+                                                 (150, None), (40, 2))),
+                ('one_chunk', 384, 45, ((300, 5), (2, 4), (120, 5),
+                                        (380, None))))
+EDGE_PAGES = (16, 256)
+
+
+def decode_edges(torch, gen):
+    """K5 and K5p at ``DECODE_EDGES`` x head dims 32/64/96/128, one new
+    row and verify k = 5: the output within tolerance of the plain
+    version, the cache bit for bit its append, a second launch bit for
+    bit the first, verify bit for bit the sequential one-row launches;
+    K5p on a scrambled pool of the same rows at pages 16 and 256 bit for
+    bit K5 on the gathered slab and within tolerance of its plain
+    version, its pool bit for bit the plain append's but the sink."""
+    import importlib
+    fd = importlib.import_module(
+        'distributed_dot_product_tpu_torch.ops.flash_decode')
+    dev, h, h_kv = torch.device('cuda'), 8, 2
+    worst = {'max_abs_err': 0.0, 'max_row_rel_err': 0.0, 'rel_err': 0.0}
+    for name, t, window, slots in DECODE_EDGES:
+        for d in EDGE_DIMS:
+            for k in (1, VERIFY_K):
+                sl = _one_row(slots) if k == 1 else slots
+                vt, ap, nn = _verify_vectors(torch, sl, k, dev)
+                q, kn, vn, ck, cv = _verify_slab(torch, gen, dev, sl, h,
+                                                 h_kv, d, t)
+                q, kn, vn = (x[:, :, :k].contiguous() for x in (q, kn, vn))
+                base = dict(scale=1.0 / math.sqrt(d), window=window)
+                kw = dict(base, n_new=nn)
+                c = [(ck.clone(), cv.clone()) for _ in range(4)]
+                out = fd.flash_decode(q, kn, vn, *c[0], vt, ap, **kw)[0]
+                again = fd.flash_decode(q, kn, vn, *c[1], vt, ap, **kw)[0]
+                ref = fd.flash_decode_plain(q, kn, vn, *c[2], vt, ap,
+                                            **kw)[0]
+                seq = _sequential(torch, fd, q, kn, vn, *c[3], vt, ap, nn,
+                                  **base)
+                torch.cuda.synchronize()
+                errs, err, finite = _decode_errs(torch, out, ref)
+                row = {'phase': 'flash_decode', 'case': f'edge_{name}',
+                       't_max': t, 'window': window, 'head_dim': d, 'k': k,
+                       'valid_to': vt.tolist(), 'n_new': nn.tolist(),
+                       'max_abs_err': err,
+                       'max_row_rel_err': errs['out'][0],
+                       'rel_err': errs['out'][1],
+                       'cache_bit_identical': all(
+                           torch.equal(x, y) for x, y in zip(c[0], c[2])),
+                       'repeat_bit_identical': _same(torch, out, again),
+                       'equals_sequential': _same(torch, out, seq)}
+                fails = check_rel(errs, f'K5 edge {name} d {d} k {k}')
+                row['pages'] = {}
+                for ps in EDGE_PAGES:
+                    kp, vp, table = paged_twin(torch, gen, ck, cv, ps)
+                    kp2, vp2 = kp.clone(), vp.clone()
+                    slab = [fd.gather_pages(x, table) for x in (kp, vp)]
+                    pkw = dict(kw, page_table=table)
+                    got = fd.flash_decode(q, kn, vn, kp, vp, vt, ap,
+                                          **pkw)[0]
+                    want = fd.flash_decode_plain(q, kn, vn, kp2, vp2, vt,
+                                                 ap, **pkw)[0]
+                    on_slab = fd.flash_decode(q, kn, vn, *slab, vt, ap,
+                                              **kw)[0]
+                    torch.cuda.synchronize()
+                    perrs, perr, pfinite = _decode_errs(torch, got, want)
+                    fails += check_rel(perrs, f'K5p edge {name} d {d} k {k} '
+                                              f'page {ps}')
+                    finite = finite and pfinite
+                    row['pages'][ps] = {
+                        'max_abs_err': perr,
+                        'max_row_rel_err': perrs['out'][0],
+                        'equals_k5_on_gathered_slab': _same(torch, got,
+                                                            on_slab),
+                        'pools_bit_identical_but_sink': bool(
+                            torch.equal(kp[:-1], kp2[:-1])
+                            and torch.equal(vp[:-1], vp2[:-1]))}
+                emit(row)
+                check(finite, f'K5 edge {name} d {d} k {k}: non-finite')
+                check(not fails, '; '.join(fails))
+                for key in ('cache_bit_identical', 'repeat_bit_identical',
+                            'equals_sequential'):
+                    check(row[key], f'K5 edge {name} d {d} k {k}: {key} is '
+                                    f'False')
+                for ps, prow in row['pages'].items():
+                    for key in ('equals_k5_on_gathered_slab',
+                                'pools_bit_identical_but_sink'):
+                        check(prow[key], f'K5p edge {name} d {d} k {k} page '
+                                         f'{ps}: {key} is False')
+                worst['max_abs_err'] = max(worst['max_abs_err'], err)
+                worst['max_row_rel_err'] = max(worst['max_row_rel_err'],
+                                                errs['out'][0])
+                worst['rel_err'] = max(worst['rel_err'], errs['out'][1])
+    return worst
+
+
+def _decode_library(torch, partials, flush, call, what):
+    """``library_ms`` and ``library`` of a decode case: ``call`` timed,
+    or none for the partial outputs."""
+    if partials:
+        return dict(library_ms=None, library=(
+            'none: no PyTorch call returns the un-normalised numerator '
+            'with the base-2 max and denominator'))
+    return dict(library_ms=time_ms(torch, call, flush), library=what)
 
 
 def decode_variants(torch, ddp, flush, gen):
@@ -758,17 +940,19 @@ def decode_variants(torch, ddp, flush, gen):
         flops = 4 * 64 * n_cols * DS_B * heads
         bms, by = bound_ms(flops, nbytes)
         mask = allowed[None, None, None, :].expand(DS_B, 1, 1, t)
+        check_one_kernel(torch, row, f'K5 {name}', lambda: fd.flash_decode(
+            q, kn, vn, ck, cv, vt, ap, **kw))
         row.update(
             ms=time_ms(torch, lambda: fd.flash_decode(
                 q, kn, vn, ck, cv, vt, ap, **kw), flush),
             plain_ms=time_ms(torch, lambda: fd.flash_decode_plain(
                 q, kn, vn, ck2, cv2, vt, ap, **kw), flush, reps=10),
-            library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
-                q, ck, cv, attn_mask=mask, scale=scale, enable_gqa=True),
-                flush),
-            library='sdpa (normalised output) over the same columns',
             bound_ms=bms, bound_by=by, flops=flops, bytes=nbytes,
-            attended_columns=n_cols)
+            attended_columns=n_cols, **_decode_library(
+                torch, partials, flush, lambda: F.scaled_dot_product_attention(
+                    q, ck, cv, attn_mask=mask, scale=scale, enable_gqa=True),
+                'sdpa over the same columns'
+                + (' with the window mask' if window else '')))
         emit(row)
         out_rows[name] = {k: row[k] for k in (
             'ms', 'plain_ms', 'library_ms', 'bound_ms', 'bound_by',
@@ -857,6 +1041,9 @@ def phase_decode_paged(torch, ddp, flush, gen):
           f'K5p: row rel err {row_rel} > {TOL_ROW_REL}')
     check(pools_same, 'K5p: pool differs from the plain append')
     check(k5_same, 'K5p: output differs from K5 on the gathered slab')
+    emit(two_streams(torch, fd, (q, kn, vn, k0, v0, vt, ap, table), out,
+                     out5, scale))
+    emit(page_256(torch, fd, gen, scale))
 
     # Bound over this run's inputs: the distinct filled K and V rows read
     # once (shared prefix rows once), q read, out written, k_new/v_new
@@ -891,11 +1078,104 @@ def phase_decode_paged(torch, ddp, flush, gen):
            'bound_formula': '2*2*d*H_kv*(distinct filled rows) + q, out, '
                             'k_new, v_new, appended rows (2*d*H each, bf16) '
                             '+ 4*table entries'}
+    check_one_kernel(torch, row, 'K5p serve shape', lambda: fd.flash_decode(
+        q, kn, vn, kp, vp, vt, ap, page_table=table, scale=scale))
     emit(row)
     row['variants'] = paged_variants(torch, fd, flush, q, kn, vn, k0, v0, vt,
                                      ap, table, scale)
     row['variants']['alibi'] = alibi_decode_variants(torch, flush, gen,
                                                      paged=True)
+    return row
+
+
+def two_streams(torch, fd, case, out_paged, out_slab, scale):
+    """K5p on the serving case's pool and K5 on its gathered slab, each on
+    its own stream at once, on separate copies of the caches: each result
+    bit for bit its launch alone (``out_paged``, ``out_slab``) and within
+    tolerance of its plain version, each cache its plain append."""
+    q, kn, vn, k0, v0, vt, ap, table = case
+    slab = [fd.gather_pages(x, table) for x in (k0, v0)]
+    pools = [k0.clone(), v0.clone()]
+    slabs = [x.clone() for x in slab]
+    main = torch.cuda.current_stream()
+    streams = (torch.cuda.Stream(), torch.cuda.Stream())
+    for st in streams:
+        st.wait_stream(main)
+    with torch.cuda.stream(streams[0]):
+        got_p = fd.flash_decode(q, kn, vn, *pools, vt, ap, page_table=table,
+                                scale=scale)[0]
+    with torch.cuda.stream(streams[1]):
+        got_s = fd.flash_decode(q, kn, vn, *slabs, vt, ap, scale=scale)[0]
+    torch.cuda.synchronize()
+    pools2 = [k0.clone(), v0.clone()]
+    slabs2 = [x.clone() for x in slab]
+    ref_p = fd.flash_decode_plain(q, kn, vn, *pools2, vt, ap,
+                                  page_table=table, scale=scale)[0]
+    ref_s = fd.flash_decode_plain(q, kn, vn, *slabs2, vt, ap,
+                                  scale=scale)[0]
+    errs_p, err_p, fin_p = _decode_errs(torch, got_p, ref_p)
+    errs_s, err_s, fin_s = _decode_errs(torch, got_s, ref_s)
+    row = {'phase': 'flash_decode_paged', 'case': 'two_streams',
+           'max_abs_err': {'paged': err_p, 'slab': err_s},
+           'max_row_rel_err': {'paged': errs_p['out'][0],
+                               'slab': errs_s['out'][0]},
+           'paged_equals_alone': _same(torch, got_p, out_paged),
+           'slab_equals_alone': _same(torch, got_s, out_slab),
+           'caches_equal_plain': all(
+               torch.equal(a[:-1], b[:-1]) for a, b in zip(pools, pools2))
+           and all(torch.equal(a, b) for a, b in zip(slabs, slabs2))}
+    fails = (check_rel(errs_p, 'K5p on its own stream')
+             + check_rel(errs_s, 'K5 on its own stream'))
+    check(fin_p and fin_s, 'two streams: non-finite output')
+    check(not fails, '; '.join(fails))
+    for key in ('paged_equals_alone', 'slab_equals_alone',
+                'caches_equal_plain'):
+        check(row[key], f'two streams: {key} is False')
+    return row
+
+
+def page_256(torch, fd, gen, scale):
+    """K5p at page 256 on the serving widths (8 slots, 8 heads of 96,
+    t_max 4096: 16 pages a slot, two chunks a page), scrambled, the
+    ``VERIFY_PAGED`` fills: one new row and verify k = 5, each within
+    tolerance of its plain version and bit for bit K5 on the gathered
+    slab (every page allocated: every row), the pool its plain append but
+    the sink."""
+    dev = torch.device('cuda')
+    row = {'phase': 'flash_decode_paged', 'case': 'page_256', 'cases': {}}
+    for k in (1, VERIFY_K):
+        slots = _one_row(VERIFY_PAGED) if k == 1 else VERIFY_PAGED
+        vt, ap, nn = _verify_vectors(torch, slots, k, dev)
+        q, kn, vn, ck, cv = _verify_slab(torch, gen, dev, slots, HEADS,
+                                         HEADS, HEAD_DIM, SERVE_T_MAX)
+        q, kn, vn = (x[:, :, :k].contiguous() for x in (q, kn, vn))
+        kp, vp, table = paged_twin(torch, gen, ck, cv, 256)
+        kp2, vp2 = kp.clone(), vp.clone()
+        slab = [fd.gather_pages(x, table) for x in (kp, vp)]
+        kw = dict(scale=scale, n_new=nn)
+        got = fd.flash_decode(q, kn, vn, kp, vp, vt, ap, page_table=table,
+                              **kw)[0]
+        want = fd.flash_decode_plain(q, kn, vn, kp2, vp2, vt, ap,
+                                     page_table=table, **kw)[0]
+        on_slab = fd.flash_decode(q, kn, vn, *slab, vt, ap, **kw)[0]
+        torch.cuda.synchronize()
+        errs, err, finite = _decode_errs(torch, got, want)
+        case = {'max_abs_err': err, 'max_row_rel_err': errs['out'][0],
+                'rel_err': errs['out'][1],
+                'equals_k5_on_gathered_slab': _same(torch, got, on_slab),
+                'pools_bit_identical_but_sink': bool(
+                    torch.equal(kp[:-1], kp2[:-1])
+                    and torch.equal(vp[:-1], vp2[:-1]))}
+        check_one_kernel(torch, case, f'K5p page 256 k {k}',
+                         lambda: fd.flash_decode(q, kn, vn, kp, vp, vt, ap,
+                                                 page_table=table, **kw))
+        row['cases'][k] = case
+        fails = check_rel(errs, f'K5p page 256 k {k}')
+        check(finite, f'K5p page 256 k {k}: non-finite output')
+        check(not fails, '; '.join(fails))
+        for key in ('equals_k5_on_gathered_slab',
+                    'pools_bit_identical_but_sink'):
+            check(case[key], f'K5p page 256 k {k}: {key} is False')
     return row
 
 
@@ -958,7 +1238,11 @@ def paged_variants(torch, fd, flush, q, kn, vn, k0, v0, vt, ap, table, scale):
         flops = 4 * HEAD_DIM * HEADS * n_cols
         bms, by = bound_ms(flops, nbytes)
         mask = allowed[:, None, None, :]
-        row = {'phase': 'flash_decode_paged', 'case': name,
+        counted = {}
+        check_one_kernel(torch, counted, f'K5p {name}',
+                         lambda: fd.flash_decode(q, kn, vn, kp, vp, v_t, a_p,
+                                                 **kw))
+        row = {'phase': 'flash_decode_paged', 'case': name, **counted,
                'window': window, 'partials': partials,
                'valid_to': v_t.tolist(), 'max_abs_err': err,
                'max_row_rel_err': {n: e[0] for n, e in errs.items()},
@@ -969,11 +1253,12 @@ def paged_variants(torch, fd, flush, q, kn, vn, k0, v0, vt, ap, table, scale):
                    q, kn, vn, kp, vp, v_t, a_p, **kw), flush),
                'plain_ms': time_ms(torch, lambda: fd.flash_decode_plain(
                    q, kn, vn, kp2, vp2, v_t, a_p, **kw), flush, reps=10),
-               'library_ms': time_ms(
-                   torch, lambda: F.scaled_dot_product_attention(
-                       q, ks, vs, attn_mask=mask, scale=scale), flush),
-               'library': 'sdpa (normalised output) over the slab gathered '
-                          'beforehand',
+               **_decode_library(
+                   torch, partials, flush,
+                   lambda: F.scaled_dot_product_attention(
+                       q, ks, vs, attn_mask=mask, scale=scale),
+                   'sdpa over the slab gathered beforehand'
+                   + (' with the window mask' if window else '')),
                'bound_ms': bms, 'bound_by': by, 'flops': flops,
                'bytes': nbytes, 'attended_columns': n_cols,
                'distinct_rows_read': n_rows}
@@ -1206,6 +1491,9 @@ def verify_variants(torch, flush, gen, phase, cases):
         part_seq = _sequential(torch, fd, q, kn, vn, *pc[1], vt, ap, nn,
                                partials=True, **kw)
         row['partials_equal_sequential'] = _same(torch, part, part_seq)
+        check_one_kernel(torch, row, f'verify {name}',
+                         lambda: fd.flash_decode(q, kn, vn, *pc[0], vt, ap,
+                                                 n_new=nn, **kw))
         fails = check_rel(errs, f'K5{"p" if paged else ""} verify {name}')
         check(finite, f'verify {name}: non-finite output')
         emit(row)
@@ -1357,6 +1645,10 @@ def one_row_variants(torch, flush, gen, phase, cases):
                     torch, _real_rows(torch, runs['kernel', part][0], nn),
                     _real_rows(torch, slab, nn))
             checks.append('equals_k5_on_gathered_slab')
+        c = fresh()
+        check_one_kernel(torch, row, f'{phase} {name}',
+                         lambda: fd.flash_decode(q, kn, vn, c[0], c[1], vt,
+                                                 ap, **kwargs(c, partials)))
         emit(row)
         check(finite, f'{phase} {name}: non-finite output')
         fails = check_rel(errs, f'{phase} {name}')
@@ -1382,16 +1674,19 @@ def one_row_variants(torch, flush, gen, phase, cases):
             plain_ms=time_ms(torch, lambda: fd.flash_decode_plain(
                 q, kn, vn, c[0], c[1], vt, ap, **kwargs(c, partials)),
                 flush, reps=5),
-            library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
-                q, ks, vs, attn_mask=lib_mask, scale=scale,
-                enable_gqa=h != h_kv), flush),
             bound_ms=bms, bound_by=by)
         library = ('sdpa with a float ALiBi bias (bf16)' if alibi
                    else 'sdpa') + ' over the same columns'
         if int8:
             library = ('none computes int8-scored decode: ' + library
                        + ', in bf16, for scale only')
-        emit({'phase': phase, 'case': name, **timed, 'library': library,
+        lib = _decode_library(
+            torch, partials, flush, lambda: F.scaled_dot_product_attention(
+                q, ks, vs, attn_mask=lib_mask, scale=scale,
+                enable_gqa=h != h_kv), library)
+        timed['library_ms'] = lib['library_ms']
+        emit({'phase': phase, 'case': name, **timed,
+              'library': lib['library'],
               'bytes': nbytes, **({'int8_ops': 2 * d * cols,
                                    'bf16_flops': 2 * d * cols} if int8
                                   else {'flops': flops})})
@@ -4633,6 +4928,7 @@ def main():
                  'decode_sharded_per_rank': ds['launches_per_rank'],
                  'alibi_lm_greedy': alibi['greedy']['flash_decode']},
              max_abs_err=k5['max_abs_err'],
+             edges=k5['edges'],
              variants=k5['variants'],
              **{key: k5[key] for key in ('ms', 'plain_ms', 'library_ms',
                                          'bound_ms', 'bound_by')}),

@@ -1,6 +1,7 @@
 // Hopper building blocks shared by the flash kernels (csrc/flash_fwd.cu,
-// csrc/flash_bwd.cu), for sm_90a: TMA tile loads into the wgmma core-matrix
-// layout and their mbarriers, cp.async for the small per-row vectors,
+// csrc/flash_bwd.cu; csrc/flash_decode.cu takes the cp.async helpers), for
+// sm_90a: TMA tile loads into the wgmma core-matrix layout and their
+// mbarriers, cp.async for the small per-row vectors and the decode rows,
 // shared-memory matrix descriptors, the wgmma products with their
 // accumulator layout, and the host's TMA map of a (heads, rows, d) bf16
 // tensor. Each source that includes it gets its own copy (an anonymous
@@ -35,6 +36,14 @@ __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
                                           bool ok) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
                :: "r"(dst), "l"(src), "r"(ok ? 4 : 0) : "memory");
+}
+
+// 16 bytes, bypassing L1; src-size 0 fills them with zeros and reads
+// nothing (`src` must still be a valid address).
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(ok ? 16 : 0) : "memory");
 }
 
 __device__ __forceinline__ void cp_async_commit() {

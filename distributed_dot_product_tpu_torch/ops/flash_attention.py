@@ -184,9 +184,13 @@ def quantize_rows(x):
     """Per-row symmetric int8 quantization (the reference's
     ``_quantize_rows``): ``x ≈ x_i8 · s`` with ``s = max|row|/127``
     clamped at 1e-20, rounded half to even. Returns ``(x_i8 (..., T, d)
-    int8, s (..., T, 1) float32)``."""
+    int8, s (..., T, 1) float32)``. Both divisions are correctly rounded
+    on every device, as in the decode kernel: PyTorch's CUDA kernels
+    multiply by the reciprocal of a host scalar divisor, which can miss
+    the quotient by one bit, so 127 is divided as a tensor."""
     x32 = x.float()
-    s = torch.clamp_min(x32.abs().amax(dim=-1, keepdim=True) / 127.0, 1e-20)
+    amax = x32.abs().amax(dim=-1, keepdim=True)
+    s = torch.clamp_min(amax / torch.full_like(amax, 127.0), 1e-20)
     return torch.round(x32 / s).to(torch.int8), s
 
 

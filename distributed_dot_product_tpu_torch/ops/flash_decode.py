@@ -36,8 +36,9 @@ block write-backs there; CUDA has no such flush).
 
 ``qk_quant='int8'`` scores against the cache's int8 K mirror ``k_q
 (…, d) int8`` / ``k_scale (…, 1) float32`` (slab buffers, or pools
-paged through the same table): q and ``k_new`` are quantized per row
-before the launch (:func:`~.flash_attention.quantize_rows`), the scores
+paged through the same table): q and ``k_new`` are quantized per row as
+:func:`~.flash_attention.quantize_rows` does (inside the CUDA kernel,
+bit for bit; by that function in the plain version), the scores
 are ``float(int32 Σ q_i8·k_i8) · sq·scale·log2(e) · k_scale`` in that
 order, and the mirror rows are appended in place beside the bf16 rows.
 The reference keeps it single-token (``k == 1``).
@@ -63,14 +64,16 @@ float32, the base-2 running max and denominator (a row with no attended
 column gives ``num = 0``, ``m = _NEG_BIG``, ``l = 0``, as the reference
 kernel initialises its running max).
 
-On CUDA tensors it launches ``csrc/flash_decode.cu`` (split-K
-flash-decoding plus a merge pass; bf16, head dims 32/64/96/128; paged,
-page sizes dividing 128) or raises; on CPU tensors it runs
-:func:`flash_decode_plain`. The reference's ``block_k`` raises
-``NotImplementedError``.
+On CUDA tensors it launches ``csrc/flash_decode.cu`` (one kernel a
+call: split-K flash-decoding across a thread-block cluster per slot and
+kv head, merged in the same launch; bf16, head dims 32/64/96/128;
+paged, page sizes dividing 128 or multiples of 128) or raises; on CPU
+tensors it runs :func:`flash_decode_plain`. The reference's ``block_k``
+raises ``NotImplementedError``.
 """
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -85,9 +88,11 @@ __all__ = ['flash_decode', 'flash_decode_paged', 'flash_decode_plain',
 
 _KERNEL_HEAD_DIMS = (32, 64, 96, 128)
 _UNPORTED = ('block_k',)
-# Cache columns per split block of the CUDA kernel (kChunk in
-# csrc/flash_decode.cu): the slab's K split, which bounds verify-k.
+# Cache columns a cluster rank of the CUDA kernel owns at a time (kChunk
+# in csrc/flash_decode.cu): the slab's K split, which bounds verify-k.
 _SPLIT = 128
+# Blocks a (slot, kv head) cluster may hold: the portable cluster size.
+_MAX_CLUSTER = 8
 # Shared memory one block of the CUDA kernel may use (H100).
 _SMEM_LIMIT = 232448
 
@@ -133,14 +138,15 @@ def _scores_plain(q, cache_k, scale, mirror=None):
 
 
 def _head_slopes(alibi_slopes, h, device):
-    """``(H,)`` float32 slopes pre-folded by log2e (the kernel's scores
-    are in log2 units), validated."""
+    """``(H,)`` float32 slopes, validated (the CUDA kernel folds them by
+    log2e itself, the plain version with :func:`_alibi_log2`: the scores
+    are in log2 units)."""
     slopes = torch.as_tensor(alibi_slopes, dtype=torch.float32,
                              device=device)
     if tuple(slopes.shape) != (h,):
         raise ValueError(f'alibi_slopes must be (H,) = ({h},), got '
                          f'{tuple(slopes.shape)}')
-    return _alibi_log2(slopes).contiguous()
+    return slopes.contiguous()
 
 
 def _attend_plain(q, cache_k, cache_v, vt, scale, col_ok=None,
@@ -256,7 +262,7 @@ def flash_decode_plain(q, k_new, v_new, cache_k, cache_v, valid_to,
     nn = _row_counts(n_new, ap, n, b, dev).long()
     mirror = (k_q, k_scale) if qk_quant == 'int8' else None
     alibi = (None if alibi_slopes is None
-             else _head_slopes(alibi_slopes, q.shape[1], dev))
+             else _alibi_log2(_head_slopes(alibi_slopes, q.shape[1], dev)))
     pt = None if page_table is None else page_table.to(dev).long()
     rows = []
     for j in range(n):
@@ -277,21 +283,55 @@ def _kernel_lib():
     if lib.flash_decode_bf16.argtypes is None:
         vp, i = ctypes.c_void_p, ctypes.c_int
         lib.flash_decode_bf16.argtypes = (
-            [vp] * 21 + [i] * 7 + [ctypes.c_float, vp])
+            [vp] * 15 + [i] * 8 + [ctypes.c_float, vp])
         lib.flash_decode_paged_bf16.argtypes = (
-            [vp] * 22 + [i] * 8 + [ctypes.c_float, vp])
+            [vp] * 16 + [i] * 9 + [ctypes.c_float, vp])
         for fn in (lib.flash_decode_bf16, lib.flash_decode_paged_bf16):
             fn.restype = ctypes.c_int
         lib.flash_decode_chunk.argtypes = []
         lib.flash_decode_chunk.restype = ctypes.c_int
-        lib.flash_decode_smem.argtypes = [i, i]
+        lib.flash_decode_smem.argtypes = [i] * 7
         lib.flash_decode_smem.restype = ctypes.c_int
     return lib
+
+
+def _launch_geometry(batch, h_kv, t_max, sm_count):
+    """``(cluster, grid)`` of a launch: a cluster of ``cluster`` blocks
+    per (slot, kv head), ``grid = (cluster, batch * h_kv)``. Rank ``r``
+    of a cluster owns the ``_SPLIT``-column chunks ``c`` with ``c %
+    cluster == r`` (``csrc/flash_decode.cu``, ``owned_from``). The
+    cluster is a power of two: as large as keeps the launch within about
+    two blocks an SM (one wave), at most 8 blocks (the portable cluster
+    size), and no larger than the first power of two that covers the
+    chunks. It depends on these arguments alone: never on the
+    query rows, ``valid_to``, ``append_at`` or the page table, so every
+    column of a slot is reduced by the same rank in the same order
+    whatever the launch attends."""
+    chunks = max(-(-t_max // _SPLIT), 1)
+    fit = min(_MAX_CLUSTER, max(2 * sm_count // max(batch * h_kv, 1), 1))
+    cluster = 1
+    while 2 * cluster <= fit and cluster < chunks:
+        cluster *= 2
+    return cluster, (cluster, batch * h_kv)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _page_size_ok(ps):
+    """Page sizes the paged kernel takes: dividing the chunk, or whole
+    multiples of it."""
+    return ps >= 1 and (_SPLIT % ps == 0 or ps % _SPLIT == 0)
 
 
 def _launch(q, k_new, v_new, cache_k, cache_v, valid_to, append_at, n_new,
             scale, page_table=None, window=None, partials=False,
             mirror=None, alibi_slopes=None):
+    """One launch of the CUDA kernel. Nothing is read back to the host and
+    no other kernel runs: int8 quantizes q and ``k_new`` in the kernel,
+    and ALiBi folds its slopes there."""
     b, h, n, d = q.shape
     h_kv = cache_k.shape[1]
     dev = cache_k.device
@@ -318,20 +358,15 @@ def _launch(q, k_new, v_new, cache_k, cache_v, valid_to, append_at, n_new,
     if chunk != _SPLIT:
         raise RuntimeError(f'csrc/flash_decode.cu splits at {chunk} '
                            f'columns, ops/flash_decode.py at {_SPLIT}')
-    smem = lib.flash_decode_smem(n * (h // h_kv), d)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(
-            f'{n} new rows x {h // h_kv} query heads per kv head need '
-            f'{smem} bytes of shared memory per block, over the card\'s '
-            f'{_SMEM_LIMIT}')
+    ps = 0
     if page_table is None:
         t_max = cache_k.shape[2]
     else:
         ps = cache_k.shape[2]
-        if chunk % ps:
+        if not _page_size_ok(ps):
             raise NotImplementedError(
                 f'the paged CUDA decode kernel takes page sizes dividing '
-                f'{chunk}; got {ps}')
+                f'{chunk} or multiples of it; got {ps}')
         if page_table.dtype != torch.int32 or page_table.device != dev \
                 or not page_table.is_contiguous() \
                 or page_table.shape[0] != b:
@@ -340,8 +375,13 @@ def _launch(q, k_new, v_new, cache_k, cache_v, valid_to, append_at, n_new,
                 f'int32 tensor on {dev}; got {page_table.dtype} '
                 f'{tuple(page_table.shape)} on {page_table.device}')
         t_max = page_table.shape[1] * ps
-    quant = (None,) * 6
-    keep = ()
+    if b * h_kv > 65535:
+        raise ValueError(f'{b} slots x {h_kv} kv heads exceed the grid\'s '
+                         f'65535 rows')
+    if cache_k.numel() // d >= 2 ** 31:
+        raise ValueError(f'the cache holds {cache_k.numel() // d} rows; the '
+                         f'kernel indexes fewer than 2^31')
+    quant = (None, None)
     if mirror is not None:
         k_q, k_scale = mirror
         want = cache_k.shape[:-1]
@@ -355,24 +395,9 @@ def _launch(q, k_new, v_new, cache_k, cache_v, valid_to, append_at, n_new,
                 f'x {d} and float32 x 1 tensors on {dev}; got {k_q.dtype} '
                 f'{tuple(k_q.shape)}, {k_scale.dtype} '
                 f'{tuple(k_scale.shape)}')
-        # q's and k_new's rows quantized in one pass (per row, so
-        # together or apart is the same arithmetic).
-        xi, sx = quantize_rows(torch.cat([q.reshape(-1, d),
-                                          k_new.reshape(-1, d)]))
-        nq = q.numel() // d
-        qi, kni = xi[:nq], xi[nq:]
-        sqf = sx[:nq] * (scale * _LOG2E)
-        kns = sx[nq:].contiguous()
-        keep = (qi, kni, sqf, kns)     # the row scales are read as floats
-        quant = (qi.data_ptr(), sqf.data_ptr(), kni.data_ptr(),
-                 kns.data_ptr(), k_q.data_ptr(), k_scale.data_ptr())
+        quant = (k_q.data_ptr(), k_scale.data_ptr())
     alibi = (None if alibi_slopes is None
              else _head_slopes(alibi_slopes, h, dev))
-    n_splits = -(-t_max // chunk)
-    part_acc = torch.empty((b * h * n, n_splits, d), dtype=torch.float32,
-                           device=dev)
-    part_ml = torch.empty((b * h * n, n_splits, 2), dtype=torch.float32,
-                          device=dev)
     if partials:
         res = (torch.empty((b, h, n, d), dtype=torch.float32, device=dev),
                torch.empty((b, h, n, 1), dtype=torch.float32, device=dev),
@@ -381,30 +406,39 @@ def _launch(q, k_new, v_new, cache_k, cache_v, valid_to, append_at, n_new,
     else:
         res = torch.empty((b, h, n, d), dtype=cache_v.dtype, device=dev)
         outs = (res.data_ptr(), None, None, None)
-    for t in (q, k_new, v_new, cache_k, cache_v, *keep[:2],
-              *(mirror or ())):
+    for t in (q, k_new, v_new, cache_k, cache_v, *(mirror or ())):
         if t.data_ptr() % 16:
             raise ValueError('the CUDA decode kernel needs 16-byte aligned '
                              'tensors')
+    sms = _sm_count(dev.index)
+    cluster, _ = _launch_geometry(b, h_kv, t_max, sms)
+
+    smem = lib.flash_decode_smem(n * (h // h_kv), n, d, mirror is not None,
+                                 t_max, ps, cluster)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(
+            f'{n} new rows x {h // h_kv} query heads per kv head need '
+            f'{smem} bytes of shared memory per block, over the card\'s '
+            f'{_SMEM_LIMIT}')
     # n_new is clipped in the kernel (null: n rows wherever append_at >=
     # 0), so a launch adds no kernel of its own around it.
     nn = None if n_new is None else _slot_vector(n_new, b, dev)
     ptrs = (q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
             cache_k.data_ptr(), cache_v.data_ptr(), vt.data_ptr(),
             ap.data_ptr(), None if nn is None else nn.data_ptr())
-    scratch = (None if alibi is None else alibi.data_ptr(),
-               part_acc.data_ptr(), part_ml.data_ptr(), *outs)
+    rest = (*quant, None if alibi is None else alibi.data_ptr(), *outs)
     stream = torch.cuda.current_stream(dev).cuda_stream
     win = 0 if window is None else window
     with torch.cuda.device(dev):
         if page_table is None:
-            err = lib.flash_decode_bf16(*ptrs, *quant, *scratch, b, h, h_kv,
-                                        n, t_max, d, win, scale * _LOG2E,
+            err = lib.flash_decode_bf16(*ptrs, *rest, b, h, h_kv, n, t_max,
+                                        d, win, cluster, scale * _LOG2E,
                                         stream)
         else:
             err = lib.flash_decode_paged_bf16(
-                *ptrs, page_table.data_ptr(), *quant, *scratch, b, h, h_kv,
-                n, page_table.shape[1], ps, d, win, scale * _LOG2E, stream)
+                *ptrs, page_table.data_ptr(), *rest, b, h, h_kv, n,
+                page_table.shape[1], ps, d, win, cluster, scale * _LOG2E,
+                stream)
     if err:
         raise RuntimeError(f'flash_decode kernel launch failed: CUDA error '
                            f'{err}')

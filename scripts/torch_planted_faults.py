@@ -5,18 +5,25 @@ Planted faults against ``chip_smoke.py``'s kernel checks, on one CUDA card.
 
     python3 scripts/torch_planted_faults.py      # from the repository root
 
-For each fault below: copies ``chip_smoke.py`` and the port's package into
-a temporary directory, plants the fault in one kernel source, runs
-``chip_smoke.py --phases flash_attention,flash_backward`` there, and reads
-those phases' lines. The run must fail, in a phase that holds the
-faulty kernel. Prints one JSON line per fault with the readings of every case
-(largest row error and whole-tensor error of out / dq / dk / dv, K1's lse
-error), then ``{"faults": n, "caught": m}``; exits non-zero unless every
-fault was caught. Most faults sit past query or key tile 32, so only the
-training shape (T 4096, 64 tiles) reaches them, or round an accumulator to
-bf16 after every tile; two more break K1's online softmax (the rescale of
-O dropped) and its causal loop (every query tile's diagonal key tile
-skipped).
+    python3 scripts/torch_planted_faults.py k5_merge_arrival_order ...
+
+For each fault below (or each one named): copies ``chip_smoke.py`` and the
+port's package into a temporary directory, plants the fault in one kernel
+source, runs ``chip_smoke.py --phases ...`` there with the phases that hold
+that source's kernels (``PHASES``), and reads those phases' lines. The run
+must fail, in a phase that holds the faulty kernel. Prints one JSON line
+per fault with the readings of every case (largest row error and
+whole-tensor error of out / dq / dk / dv, K1's lse error; the decode
+cases' errors and bit-for-bit flags), then ``{"faults": n, "caught":
+m}``; exits non-zero unless every fault was caught. Most K1-K4 faults sit
+past query or key tile 32, so only the training shape (T 4096, 64 tiles)
+reaches them, or round an accumulator to bf16 after every tile; two more
+break K1's online softmax (the rescale of O dropped) and its causal loop
+(every query tile's diagonal key tile skipped). The K5/K5p faults break
+the decode kernel's merge (ranks taken in an order that varies from
+launch to launch, as arrival order would; or the peers' partials read
+before they have landed), drop the fresh rows' substitution (the appended columns read
+from the cache, racing the appends), or copy and score a -1 page.
 """
 
 import json
@@ -37,6 +44,9 @@ def _round_acc(*names):
                    f'__bfloat162float(__float2bfloat16({n}[i]));\n'
                    for n in names)
 
+
+# The phases that hold K5 and K5p.
+DECODE = ('flash_decode', 'flash_decode_paged', 'flash_decode_verify')
 
 # name: (source, text to replace, replacement, phases one of which
 # must fail)
@@ -90,11 +100,49 @@ FAULTS = {
         '      fence_regs(acc_dv);\n      fence_regs(acc_dk);\n'
         + _round_acc('acc_dv', 'acc_dk'),
         ('flash_backward',)),
+    # The merge takes the ranks in an order that changes from launch to
+    # launch (a rotation read from the clock, as arrival order would).
+    'k5_merge_arrival_order': (
+        'flash_decode.cu',
+        '    for (int i = 0; i < C; ++i)\n'
+        '      if ((active >> i) & 1)\n'
+        '        acc += w[i * nr + rl] * gath[i * per + 2 * nr + e - e0];\n',
+        '    const int k0 = static_cast<int>(clock64() >> 4) % C;\n'
+        '    for (int k = 0; k < C; ++k) {\n'
+        '      const int i = (k + k0) % C;\n'
+        '      if ((active >> i) & 1)\n'
+        '        acc += w[i * nr + rl] * gath[i * per + 2 * nr + e - e0];\n'
+        '    }\n',
+        DECODE),
+    # Every column is read from the cache, the appended ones too.
+    'k5_fresh_rows_not_substituted': (
+        'flash_decode.cu',
+        '  const int m = col0 + r - s.ap;\n'
+        '  const bool fresh = s.ap >= 0 && m >= 0 && m < s.nn;\n',
+        '  const int m = col0 + r - s.ap;\n'
+        '  const bool fresh = false;\n',
+        DECODE),
+    # A -1 table entry read as page 0 (pages of at most 128 columns, as
+    # the smoke's): its rows copied and scored.
+    'k5p_unallocated_page_scored': (
+        'flash_decode.cu',
+        '    if (page < 0) return -1;\n'
+        '    return ((page * a.h_kv + s.hk) << sh)',
+        '    if (page < 0) return (s.hk << sh) + (col & (ps - 1));\n'
+        '    return ((page * a.h_kv + s.hk) << sh)',
+        DECODE),
+    # The merge reads the partials its peers store without waiting for
+    # them to land (the wait on the block's merge barrier dropped).
+    'k5_merge_before_peers_landed': (
+        'flash_decode.cu', '  mbar_wait(bar, 0);\n', '', DECODE),
 }
 
 
-# The phases that hold K1, K3 and K4 at the training shape.
-PHASES = ('flash_attention', 'flash_backward')
+# The phases that hold each source's kernels: K1, K3 and K4 at the
+# training shape; K5 and K5p at their serving shapes, edges and verify-k.
+PHASES = {'flash_fwd.cu': ('flash_attention', 'flash_backward'),
+          'flash_bwd.cu': ('flash_attention', 'flash_backward'),
+          'flash_decode.cu': DECODE}
 
 
 def plant(dst, source, old, new):
@@ -136,17 +184,31 @@ def readings(stdout):
                           'rel': row['rel_err']}
             if isinstance(row['max_abs_err'], dict):
                 cases[key]['lse'] = row['max_abs_err']['lse']
+        elif row.get('phase') in DECODE and 'max_abs_err' in row:
+            key = f"{row['phase']}/{row['case']}"
+            if 'head_dim' in row:
+                key += f"/d{row['head_dim']}/k{row.get('k', 1)}"
+            cases[key] = {k: v for k, v in row.items()
+                          if k in ('max_abs_err', 'max_row_rel_err',
+                                   'rel_err')
+                          or isinstance(v, bool)}
     return cases, failed
 
 
 def main():
+    names = sys.argv[1:] or list(FAULTS)
+    unknown = sorted(set(names) - set(FAULTS))
+    if unknown:
+        raise SystemExit(f'unknown faults {unknown}; known: {list(FAULTS)}')
     caught = 0
-    for name, (source, old, new, phases) in FAULTS.items():
+    for name in names:
+        source, old, new, phases = FAULTS[name]
         with tempfile.TemporaryDirectory() as dst:
             plant(dst, source, old, new)
             run = subprocess.run([sys.executable, 'chip_smoke.py',
-                                  '--phases', ','.join(PHASES)], cwd=dst,
-                                 capture_output=True, text=True, timeout=900)
+                                  '--phases', ','.join(PHASES[source])],
+                                 cwd=dst, capture_output=True, text=True,
+                                 timeout=900)
         cases, failed = readings(run.stdout)
         ok = run.returncode != 0 and failed in phases
         caught += ok
@@ -154,8 +216,8 @@ def main():
                           'must_fail_in': phases, 'failed_phase': failed,
                           'rc': run.returncode, 'caught': ok,
                           'readings': cases}), flush=True)
-    print(json.dumps({'faults': len(FAULTS), 'caught': caught}), flush=True)
-    return 0 if caught == len(FAULTS) else 1
+    print(json.dumps({'faults': len(names), 'caught': caught}), flush=True)
+    return 0 if caught == len(names) else 1
 
 
 if __name__ == '__main__':

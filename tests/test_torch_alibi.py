@@ -182,9 +182,13 @@ def test_module_alibi_matches_jax(group, case):
     mesh = seq_mesh(WORLD)
 
     def loss(p, k_, q_, v_):
-        return jnp.sum(apply_seq_parallel(jm, p, mesh, k_, q_, v_) * g)
-    want = np.asarray(apply_seq_parallel(jm, params, mesh, *xs))
-    want_pg, *want_xg = jax.grad(loss, argnums=(0, 1, 2, 3))(params, *xs)
+        out = apply_seq_parallel(jm, p, mesh, k_, q_, v_)
+        return jnp.sum(out * g), out
+    # The output and the gradients from one trace of the sharded module.
+    (_, want), grads = jax.value_and_grad(
+        loss, argnums=(0, 1, 2, 3), has_aux=True)(params, *xs)
+    want = np.asarray(want)
+    want_pg, *want_xg = grads
     want_pg = _state(want_pg)
     res = group.run('module_fwd_grad',
                     dict(key_dim=DIM, num_heads=HEADS, **kw),

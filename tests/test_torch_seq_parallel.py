@@ -130,9 +130,13 @@ def test_module_matches_jax_and_local(group, case):
     mesh = seq_mesh(WORLD)
 
     def loss(p, k, q, v):
-        return jnp.sum(apply_seq_parallel(jm, p, mesh, k, q, v, jmask) * g)
-    want_out = np.asarray(apply_seq_parallel(jm, params, mesh, *xs, jmask))
-    want_pg, *want_xg = jax.grad(loss, argnums=(0, 1, 2, 3))(params, *xs)
+        out = apply_seq_parallel(jm, p, mesh, k, q, v, jmask)
+        return jnp.sum(out * g), out
+    # The output and the gradients from one trace of the sharded module.
+    (_, want_out), grads = jax.value_and_grad(
+        loss, argnums=(0, 1, 2, 3), has_aux=True)(params, *xs)
+    want_out = np.asarray(want_out)
+    want_pg, *want_xg = grads
     want_pg = _state(want_pg)
 
     state = _state(params)
