@@ -9,8 +9,10 @@ Phases, one JSON line each (some several):
 
 1. device: the card, torch and CUDA versions;
 2. build: compiles every kernel source in ``csrc/``, one ``nvcc`` each,
-   all started together; its seconds, and per library the most registers
-   a kernel takes and the kernels that spill (``ptxas -v``);
+   all started together; its seconds, per library the most registers a
+   kernel takes and the kernels that spill (``ptxas -v``), and the
+   dynamic shared memory of a K1 and a K4 block per head dim (bf16 Ext
+   and int8);
 3. flash_attention: K1 (flash-attention forward) against its plain
    PyTorch version at the prefill shape, at ragged shapes with a causal
    offset (one with GQA) and at a ragged shape without causal masking,
@@ -92,7 +94,11 @@ Phases, one JSON line each (some several):
    against their plain versions (K1's out and lse, K3/K4 in bf16 and
    float32) at the fold shape 2 x 8 x 4096; the dropout keep pattern
    bit for bit (v = eye(128), at the origin and near 2^20), int8 scores
-   bit for bit, a wholly cross-segment fold exactly empty; ALiBi on a
+   bit for bit (one key; and on every key tile: K1's lse and K4's dk, dv
+   at a causal window of 1, K4 twice on the causal fold), a wholly
+   cross-segment fold exactly empty; K1/K3/K4, bf16 and int8, with 65600
+   (batch, head) rows (B 8200 x H 8, T 64) against their plain versions;
+   ALiBi on a
    causal ring fold, zigzag positions (rank 1's diagonal fold of W = 4),
    and ALiBi with positions, a window of 1024 and dropout; K2 with
    positions; times against bound, plain and SDPA with a boolean mask
@@ -143,7 +149,9 @@ Phases, one JSON line each (some several):
    segments or dropout), bf16, batch 4: K1 int8 prefills 8128 rows of an
    8192-column cache, then 64 decode steps, one K5 int8 launch each, held
    against the module's own int8 forward and the plain decode on the
-   card; ms per step;
+   card; ms per step; then K1 int8 timed at the prefill and at the
+   gqa_ring fold, K4 int8 at that fold (with ``--parent``, beside the
+   parent checkout's kernels);
 20. alibi_lm (run after train_path and main_path): the same 16-layer
    LM with use_rope=False and ALiBi slopes 2^(-8i/8): 3 Adam steps at
    B 4 x T 4096 (every K1/K3/K4 launch ALiBi), then greedy generation
@@ -170,9 +178,13 @@ only if
 every phase passed, the last line ``{"ok": true, "device": {...}}``.
 Exits non-zero on any failure, and without a card. ``--phases a,b`` runs
 only the named phases (after device and build) and prints no result
-line.
+line. ``--parent DIR`` names the root of another checkout (the parent
+commit's, unpacked): the int8 cases of ``flash_masks`` and
+``int8_decode`` then also time that checkout's kernels, built from its
+``csrc/`` into ``DIR/build/kernels``, in turns with this one's.
 """
 
+import contextlib
 import json
 import math
 import os
@@ -305,6 +317,51 @@ def time_ms(torch, fn, flush, reps=30):
     return statistics.median(times)
 
 
+# ``--parent DIR``: the root of another checkout of the repository (the
+# parent commit's, unpacked beside this one) whose int8 K1 and K4 are
+# timed in the same run as this checkout's, at the same shapes.
+PARENT = None
+
+
+@contextlib.contextmanager
+def kernels_of(root):
+    """Within the context, ``ops/_build.py`` builds (all at once, at
+    entry) and loads the flash libraries from ``root``'s ``csrc/`` into
+    ``root/build/kernels``; this checkout's again after it."""
+    from pathlib import Path
+
+    from distributed_dot_product_tpu_torch.ops import _build
+    saved = _build._CSRC, _build._BUILD_DIR
+
+    def use(csrc, out):
+        _build._CSRC, _build._BUILD_DIR = csrc, out
+        _build._LIBS.clear()
+    use(Path(root) / 'distributed_dot_product_tpu_torch' / 'csrc',
+        Path(root) / 'build' / 'kernels')
+    try:
+        _build.build_all()
+        yield
+    finally:
+        use(*saved)
+
+
+def ab_ms(torch, fn, flush, reps=30):
+    """``(ms, parent_ms)``: ``fn`` timed as :func:`time_ms` with this
+    checkout's kernels and, with ``--parent``, with the parent's, in turns
+    parent, this, this, parent (the mean of each pair); ``parent_ms`` is
+    None without ``--parent``."""
+    if PARENT is None:
+        return time_ms(torch, fn, flush, reps), None
+    mine, theirs = [], []
+    for parent in (True, False, False, True):
+        if parent:
+            with kernels_of(PARENT):
+                theirs.append(time_ms(torch, fn, flush, reps))
+        else:
+            mine.append(time_ms(torch, fn, flush, reps))
+    return statistics.mean(mine), statistics.mean(theirs)
+
+
 def rel_errs(torch, got, want):
     """``(largest row error, whole-tensor error)`` of ``got`` against
     ``want`` (rows along the last axis), in float32: the row error is
@@ -344,21 +401,29 @@ def bound_ms(flops, nbytes):
 
 
 def kernel_label(name):
-    """A mangled kernel name as ``flash_fwd_kernel<96,0,0,0>`` where its
-    template arguments are all integers or flags, else from its
-    ``flash_`` on."""
-    m = re.search(r'(flash_\w*?kernel)I((?:L[ib]-?\d+E)+)E', name)
+    """A mangled kernel name as ``flash_bwd_dkv_kernel<96,0,bf16,1,1>``
+    where its template arguments are integers, flags and the output types
+    bf16 / f32, else from its last ``flash_`` on."""
+    m = re.search(r'(flash_\w*?kernel)I', name)
     if m:
-        args = re.findall(r'L[ib](-?\d+)E', m.group(2))
-        return f'{m.group(1)}<{",".join(args)}>'
-    short = re.search(r'flash_\w+', name)
-    return short.group(0) if short else name
+        rest, args = name[m.end():], []
+        while True:
+            t = re.match(r'L[ib](-?\d+)E|13__nv_bfloat16|f', rest)
+            if t is None:
+                break
+            args.append(t.group(1) or ('f32' if t.group(0) == 'f'
+                                       else 'bf16'))
+            rest = rest[t.end():]
+        if args and rest.startswith('E'):
+            label = m.group(1)
+            return f'{label[label.rfind("flash_"):]}<{",".join(args)}>'
+    short = re.findall(r'flash_\w+', name)
+    return short[-1] if short else name
 
 
 def build_resources(build):
-    """Per library, ``ptxas -v``'s most registers a kernel uses and the
-    kernels that spill (their spill bytes, stored + loaded); for the
-    forward's libraries (K1, K2) and the decode library (K5, K5p) every
+    """Per library, ``ptxas -v``'s most registers a kernel uses, the
+    kernels that spill (their spill bytes, stored + loaded) and every
     kernel's registers and spill bytes."""
     out = {}
     for lib in build.SOURCES:
@@ -368,10 +433,27 @@ def build_resources(build):
         out[lib] = {'kernels': len(res),
                     'max_registers': max((r for r, _ in res.values()),
                                          default=None),
-                    'spilling': spilling}
-        if build.LIBRARIES[lib][0] in ('flash_fwd', 'flash_decode'):
-            out[lib]['registers_spills'] = {
-                kernel_label(name): list(rs) for name, rs in res.items()}
+                    'spilling': spilling,
+                    'registers_spills': {kernel_label(name): list(rs)
+                                         for name, rs in res.items()}}
+    return out
+
+
+def smem_bytes(build):
+    """The dynamic shared memory of a K1 and of a K4 block at each head
+    dim, in bytes: the bf16 Ext instantiation and the int8 ones (K1's
+    alone and with the Ext features, K4's with them)."""
+    import ctypes
+    out = {}
+    for kern, lib, symbol in (('k1', 'flash_fwd_ext', 'flash_fwd_smem_bytes'),
+                              ('k4', 'flash_bwd_dkv_ext',
+                               'flash_bwd_dkv_smem_bytes')):
+        fn = getattr(build.load(lib), symbol)
+        fn.argtypes, fn.restype = [ctypes.c_int] * 3, ctypes.c_longlong
+        for d in (32, 64, 96, 128):
+            out[f'{kern}_d{d}'] = {'ext': fn(d, 1, 0), 'int8_ext': fn(d, 1, 1),
+                                   **({'int8': fn(d, 0, 1)}
+                                      if kern == 'k1' else {})}
     return out
 
 
@@ -704,9 +786,12 @@ def kernels_per_call(torch, fn):
     flash_decode call runs one kernel, the decode kernel, and nothing
     else (no scratch, no merge pass, no quantization). A session that
     recorded no device event at all (the profiler lost its trace: the
-    call's results were checked before) is taken again, twice at most."""
+    call's results were checked before) is taken again, seven times at
+    most, a moment apart."""
     from torch.profiler import ProfilerActivity, profile
-    for _ in range(3):
+    for attempt in range(8):
+        if attempt:
+            time.sleep(0.2)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fn()
@@ -2187,12 +2272,19 @@ def phase_int8_decode(torch, ddp):
         check(cache.k_q is not None and cache.k_q.dtype == torch.int8,
               'int8 module cache carries no int8 mirror')
         p = x[:, :INT8_PROMPT]
-        ddp.flash_attention.launches = 0
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        cache, _ = mod.prefill(p, p, p, cache)
-        torch.cuda.synchronize()
-        res['prefill_ms'] = 1e3 * (time.perf_counter() - t0)
+        # The module's whole prefill (host clock to a synchronize): first
+        # on a scratch cache (its first call loads the kernel library),
+        # then the one the decode steps use, warm.
+        for key, c in (('prefill_first_ms',
+                        mod.make_decode_cache(INT8_B, INT8_T)),
+                       ('prefill_ms', cache)):
+            ddp.flash_attention.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            c, _ = mod.prefill(p, p, p, c)
+            torch.cuda.synchronize()
+            res[key] = 1e3 * (time.perf_counter() - t0)
+        cache = c
         res['prefill_k1_launches'] = ddp.flash_attention.launches
         twin = cache._replace(**{n: getattr(cache, n).clone() for n in
                                  ('k', 'v', 'k_q', 'k_scale')})
@@ -2298,20 +2390,27 @@ def phase_int8_decode(torch, ddp):
           f'int8_decode paged: not bit-equal to the slab run {paged_same}')
     fails = check_rel(errs, 'int8_decode')
     check(not fails, '; '.join(fails))
-    row['k1_int8'] = k1_int8_timing(torch, gen)
-    emit({'phase': 'int8_decode', 'case': 'k1_int8_timing',
-          **row['k1_int8']})
+    row['int8_kernels'] = int8_timing(torch, gen)
+    emit({'phase': 'int8_decode', 'case': 'int8_timing',
+          **row['int8_kernels']})
     return row
 
 
-def k1_int8_timing(torch, gen):
-    """K1 with int8 scoring (its ``wmma`` body) timed at this phase's
-    prefill (8128 rows of the 8192-column cache, its tail zero) and at the
-    flagship gqa_ring stage's diagonal ring fold (2 x 4096 rows a rank,
-    packed segments, dropout 0.1), both GQA 8:4 at head dim 64: beside its
-    plain version, its bound (the QK^T product at the int8 rate, P.V at
-    the bf16 rate, or the bytes) and, for scale only, SDPA's bf16 causal
-    forward on the same shape (no PyTorch call computes int8 scoring)."""
+def int8_timing(torch, gen):
+    """K1 and K4 with int8 scoring (their s8 wgmma bodies) timed at this
+    phase's prefill (K1: 8128 rows of the 8192-column cache, its tail zero)
+    and at the flagship gqa_ring stage's diagonal ring fold (K1 and K4:
+    2 x 4096 rows a rank, packed segments, dropout 0.1, float32 gradients
+    as the ring takes them), both GQA 8:4 at head dim 64. ``ms`` is the
+    kernel's launch with the int8 operands made beforehand and, with
+    ``--parent``, ``parent_ms`` the parent checkout's kernel on the same
+    call in the same run; beside them the public wrapper's time with the
+    quantization (``wrapper_ms``, K1), the quantization alone
+    (``quant_ms``, quant_operands of q and k) and K4's dequantized q
+    (``dequant_ms``, made inside its ``ms``); the plain version, the bound
+    (the int8 products at the int8 rate, the others at the bf16 rate, or
+    the bytes) and, for scale only, SDPA's bf16 causal forward on the
+    same shape (no PyTorch call computes int8 scoring)."""
     import importlib
     fa = importlib.import_module(
         'distributed_dot_product_tpu_torch.ops.flash_attention')
@@ -2319,6 +2418,7 @@ def k1_int8_timing(torch, gen):
     dev, bf16 = torch.device('cuda'), torch.bfloat16
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.int32, device=dev)
     d, hq, hkv = SP_HEAD_DIM, SP_HEADS, SP_HEADS // 2
+    scale = 1.0 / math.sqrt(d)
     out = {'library': 'sdpa forward in bf16, causal: scale only'}
     for name, b, tq, tk, packed, rate in (
             ('int8_decode_prefill', INT8_B, INT8_PROMPT, INT8_T, False, 0.0),
@@ -2333,27 +2433,36 @@ def k1_int8_timing(torch, gen):
         if packed:
             one = ragged_segments(torch, gen, b, tq).to(dev)
             seg = (one, one)
-        kw = dict(causal=True, scale=1.0 / math.sqrt(d), qk_quant='int8',
+        kw = dict(causal=True, scale=scale, qk_quant='int8',
                   segment_ids=seg, dropout_rate=rate,
                   dropout_seed=MASK_SEED if rate else None)
+        feat = fa._features(q, k, True, seg, None, rate, kw['dropout_seed'],
+                            'int8')
+        quant = fa.quant_operands(q, k)
         pairs = hq * valid_pairs(torch, b, tq, tk, True, 0, 0, None, seg)
         s_ops = 2 * d * pairs
-        nbytes = (b * (hq * tq + hkv * tk) * d          # int8 q, k
-                  + 2 * b * hkv * tk * d + 2 * b * hq * tq * d   # v, out
-                  + 4 * b * (hq * tq + hkv * tk)        # row scales
-                  + (8 * b * tq if seg is not None else 0))
-        bms, by = bound_mixed(s_ops, s_ops, nbytes)
-        lib_kw = dict(scale=kw['scale'], enable_gqa=True)
+        q_b, kv_b = b * hq * tq * d, b * hkv * tk * d   # elements
+        rows_b = 4 * b * (hq * tq + hkv * tk)           # row scales
+        seg_b = 8 * b * tq if seg is not None else 0
+        bms, by = bound_mixed(s_ops, s_ops,
+                              q_b + kv_b + 2 * kv_b + 2 * q_b + rows_b
+                              + seg_b)
+        lib_kw = dict(scale=scale, enable_gqa=True)
         if tq == tk:
             lib_kw['is_causal'] = True
         else:
             lib_kw['attn_mask'] = (torch.arange(tk, device=dev)[None, :]
                                    <= torch.arange(tq, device=dev)[:, None])
+        ms, parent = ab_ms(torch, lambda: fa._launch(
+            q, k, v, None, True, 0, 0, scale, feat=feat, quant=quant), flush)
+        quant_ms = time_ms(torch, lambda: fa.quant_operands(q, k), flush)
+        common = {'q': list(q.shape), 'kv': list(k.shape), 'pairs': pairs,
+                  'segments': seg is not None, 'dropout_rate': rate}
         out[name] = {
-            'q': list(q.shape), 'kv': list(k.shape), 'pairs': pairs,
-            'segments': seg is not None, 'dropout_rate': rate,
-            'ms': time_ms(torch, lambda: fa.flash_attention(q, k, v, **kw),
-                          flush),
+            **common, 'ms': ms, 'parent_ms': parent,
+            'wrapper_ms': time_ms(torch, lambda: fa.flash_attention(
+                q, k, v, **kw), flush),
+            'quant_ms': quant_ms,
             'plain_ms': time_ms(torch, lambda: fa.flash_attention_plain(
                 q, k, v, **kw), flush, reps=3),
             'library_ms': time_ms(
@@ -2361,6 +2470,30 @@ def k1_int8_timing(torch, gen):
                                                               **lib_kw),
                 flush),
             'bound_ms': bms, 'bound_by': by}
+        if not packed:
+            continue
+        # K4 at the fold, from this fold's forward, float32 gradients.
+        o, lse = fa.flash_attention_with_lse(q, k, v, **kw)
+        g = randn(torch, (b, hq, tq, d), gen, dev, bf16)
+        q2, lse2, delta = fa.flash_attention_bwd_operands(q, o, lse, g,
+                                                          scale)
+        bw = dict(causal=True, scale=scale, segment_ids=seg,
+                  dropout_rate=rate, dropout_seed=kw['dropout_seed'],
+                  quant=quant, grad_dtype=torch.float32)
+        bms, by = bound_mixed(3 * s_ops, s_ops,
+                              q_b + kv_b + 2 * kv_b + 2 * q_b
+                              + 8 * kv_b + 8 * b * hq * tq + rows_b
+                              + seg_b)
+        ms, parent = ab_ms(torch, lambda: fa.flash_attention_dkv(
+            q2, k, v, g, lse2, delta, **bw), flush)
+        out['k4_' + name] = {
+            **common, 'ms': ms, 'parent_ms': parent, 'quant_ms': quant_ms,
+            'dequant_ms': time_ms(torch, lambda: fa.dequantize_rows(
+                quant[0], quant[1], bf16), flush),
+            'plain_ms': time_ms(torch, lambda: fa.flash_attention_dkv_plain(
+                q2, k, v, g, lse2, delta, **bw), flush, reps=3),
+            'library_ms': None, 'bound_ms': bms, 'bound_by': by}
+    out['k4_library'] = 'none: no PyTorch call computes int8 scoring'
     del flush
     return out
 
@@ -3116,8 +3249,11 @@ def phase_flash_masks(torch, ddp, flush, gen):
                  lambda: fa.flash_attention_dkv_plain(
                      q2, k, v, g, lse2, delta, scale=scale, **bw))):
             bms, by = bound_mixed(*ops, nbytes)
+            # int8 cases: beside the parent checkout's kernels (--parent).
+            ms, parent = (ab_ms(torch, fn, flush) if int8 else
+                          (time_ms(torch, fn, flush), None))
             timing.setdefault(kname, {})[name] = {
-                'ms': time_ms(torch, fn, flush),
+                'ms': ms, **({} if parent is None else {'parent_ms': parent}),
                 'plain_ms': time_ms(torch, plain_fn, flush, reps=3),
                 'library_ms': (None if lib is None else
                                time_ms(torch, lib, flush)
@@ -3238,8 +3374,131 @@ def phase_flash_masks(torch, ddp, flush, gen):
           'max_abs_err': (lse - lse_p).abs().max().item()})
     if not same:
         failures.append('int8 scores differ from the plain version')
+    failures += int8_exact(torch, fa, gen, b)
+    failures += large_grid(torch, fa, gen)
     check(not failures, '; '.join(failures))
     return worst, timing
+
+
+def int8_exact(torch, fa, gen, b):
+    """int8 scoring bit for bit on every key tile (the fold shape, 4096
+    rows, 64 key tiles), as failure messages.
+
+    K1: causal with a window of 1, each row attends its own key alone, so
+    lse_i = ln2 * s_ii in float32 on both sides. K4: at a window of 1 key
+    j is attended by query j alone, so dk_j = scale * bf16(ds_jj) * q~_j
+    and dv_j = bf16(p_jj) * dO_j are single products on both sides
+    (float32 gradients). v and dO hold multiples of 1/8 (|x| <= 16), so
+    dP = dO.v^T is exact in float32 in any order; lse2 is the exact
+    diagonal score (dot * sqf) * skr, so p_jj = exp2(0) = 1; delta puts
+    ds_jj = dP_jj - delta_j on a tie of bf16 rounding (+-(1 + 2^-8) or
+    +-(1 + 3 * 2^-8)), which any change of the score's last bit (the two
+    scale factors in the other order, a neighbour's scale) moves to a
+    neighbouring bf16 value. Then K4 twice on the causal fold, bit for
+    bit."""
+    dev, bf16 = torch.device('cuda'), torch.bfloat16
+    t, d, scale = SP_TN, 64, 1.0 / 8.0
+    failures = []
+    q = randn(torch, (b, 8, t, d), gen, dev, bf16)
+    k = randn(torch, (b, 8, t, d), gen, dev, bf16)
+    kw = dict(causal=True, window=1, qk_quant='int8')
+    lse = fa.flash_attention_with_lse(q, k, k, **kw)[1]
+    lse_p = fa.flash_attention_plain_lse(q, k, k, **kw)[1]
+    same = bool(torch.equal(lse, lse_p))
+    emit({'phase': 'flash_masks', 'case': 'int8_scores_exact_all_tiles',
+          'q': list(q.shape), 'window': 1, 'exactly_equal': same,
+          'max_abs_err': (lse - lse_p).abs().max().item()})
+    if not same:
+        failures.append('int8 scores past the first key tile differ from '
+                        'the plain version (K1 lse at window 1)')
+
+    def eighths(shape):
+        x = torch.randn(shape, generator=gen) * 8
+        return (x.round().clamp(-128, 128) / 8).to(device=dev, dtype=bf16)
+    v, g = eighths((b, 8, t, d)), eighths((b, 8, t, d))
+    quant = q8, sq, k8, sk = fa.quant_operands(q, k)
+    dot = (q8.float() * k8.float()).sum(-1)
+    lse2 = dot * (sq[..., 0] * (scale * fa._LOG2E)) * sk[..., 0]
+    dp = (g.float() * v.float()).sum(-1)
+    tie = torch.where(torch.rand(dp.shape, generator=gen) < 0.5,
+                      1.0 + 2.0 ** -8, 1.0 + 3 * 2.0 ** -8).to(dev)
+    sign = torch.where(torch.rand(dp.shape, generator=gen) < 0.5, -1.0, 1.0)
+    delta = dp - tie * sign.to(dev)
+    q2 = fa._fold_q(q, scale)
+    bw = dict(causal=True, window=1, scale=scale, quant=quant,
+              grad_dtype=torch.float32)
+    got = fa.flash_attention_dkv(q2, k, v, g, lse2, delta, **bw)
+    want = fa.flash_attention_dkv_plain(q2, k, v, g, lse2, delta, **bw)
+    same = {n: bool(torch.equal(a, w))
+            for n, a, w in zip(('dk', 'dv'), got, want)}
+    bw.pop('window')
+    twice = [fa.flash_attention_dkv(q2, k, v, g, lse2, delta, **bw)
+             for _ in range(2)]
+    torch.cuda.synchronize()
+    repeat = {n: bool(torch.equal(a, w))
+              for n, a, w in zip(('dk', 'dv'), *twice)}
+    emit({'phase': 'flash_masks', 'case': 'int8_dkv_exact_all_tiles',
+          'q': list(q.shape), 'window': 1, 'exactly_equal': same,
+          'max_abs_err': {n: (a - w).abs().max().item()
+                          for n, a, w in zip(('dk', 'dv'), got, want)},
+          'causal_repeat_bitwise': repeat})
+    if not all(same.values()):
+        failures.append(f'K4 int8 at window 1 differs from the plain '
+                        f'version: {same}')
+    if not all(repeat.values()):
+        failures.append(f'K4 int8 is not repeatable bit for bit: {repeat}')
+    return failures
+
+
+# More (batch, head) rows than a grid's y dimension takes (65535), at a
+# small tile: B 8200 x H 8 = 65600 rows of T 64, head dim 64, causal.
+GRID_B, GRID_H, GRID_T = 8200, 8, 64
+
+
+def large_grid(torch, fa, gen):
+    """K1/K3/K4, bf16 and int8 scoring, with 65600 (batch, head) rows
+    against their plain versions (K1's out and lse, the gradients in
+    bf16); failure messages."""
+    dev, bf16 = torch.device('cuda'), torch.bfloat16
+    shape = (GRID_B, GRID_H, GRID_T, 64)
+    q, k, v, g = (randn(torch, shape, gen, dev, bf16) for _ in range(4))
+    failures = []
+    for quant in (None, 'int8'):
+        before = [fn.launches for fn in (fa.flash_attention,
+                                         fa.flash_attention_dq,
+                                         fa.flash_attention_dkv)]
+        kw = dict(causal=True, qk_quant=quant)
+        out, lse = fa.flash_attention_with_lse(q, k, v, **kw)
+        got = dict(zip(('out', 'dq', 'dk', 'dv'), (out, *(
+            fa.flash_attention_backward(q, k, v, out, lse, g, True,
+                                        qk_quant=quant)))))
+        launched = [fn.launches - n for fn, n in zip(
+            (fa.flash_attention, fa.flash_attention_dq,
+             fa.flash_attention_dkv), before)]
+        out_p, lse_p = fa.flash_attention_plain_lse(q, k, v, **kw)
+        want = dict(zip(('out', 'dq', 'dk', 'dv'), (out_p, *(
+            fa.flash_attention_backward_plain(q, k, v, out, lse, g, True,
+                                              qk_quant=quant)))))
+        torch.cuda.synchronize()
+        rel = {n: rel_errs(torch, got[n], want[n]) for n in got}
+        lse_err = (lse - lse_p).abs().max().item()
+        name = f'large_grid_{quant or "bf16"}'
+        emit({'phase': 'flash_masks', 'case': name, 'q': list(shape),
+              'rows': GRID_B * GRID_H, 'qk_quant': quant,
+              'launches': dict(zip(('k1', 'k3', 'k4'), launched)),
+              'lse_max_abs_err': lse_err,
+              'max_row_rel_err': {n: e[0] for n, e in rel.items()},
+              'rel_err': {n: e[1] for n, e in rel.items()},
+              'tol': {'lse': TOL_LSE, 'row_rel': TOL_ROW_REL,
+                      'rel': TOL_NORM_REL}})
+        failures += check_rel(rel, name)
+        if not lse_err <= TOL_LSE:
+            failures.append(f'{name}: lse abs err {lse_err} > {TOL_LSE}')
+        if launched != [1, 1, 1]:
+            failures.append(f'{name}: launches {launched}, want one each')
+        del out, lse, got, out_p, lse_p, want
+        torch.cuda.empty_cache()
+    return failures
 
 
 def phase_train_path(torch, ddp):
@@ -4697,6 +4956,9 @@ def main():
     only = None
     if '--phases' in sys.argv:
         only = set(sys.argv[sys.argv.index('--phases') + 1].split(','))
+    if '--parent' in sys.argv:
+        global PARENT
+        PARENT = os.path.abspath(sys.argv[sys.argv.index('--parent') + 1])
 
     def want(name):
         return only is None or name in only
@@ -4719,7 +4981,8 @@ def main():
         _build.build_all()
         emit({'phase': 'build', 'sources': list(_build.SOURCES),
               'seconds': time.perf_counter() - t0,
-              'ptxas': build_resources(_build)})
+              'ptxas': build_resources(_build),
+              'smem_bytes': smem_bytes(_build)})
 
         flush = torch.empty(64 * 1024 * 1024, dtype=torch.int32,
                             device='cuda')            # 256 MB > 50 MB L2
@@ -4779,6 +5042,7 @@ def main():
     ver, i8 = res['flash_decode_verify'], res['flash_decode_int8']
     spec, int8_path = res['spec_serve'], res['int8_decode']
     alibi, zz = res['alibi_lm'], res['zigzag_ring']
+    int8_k = int8_path['int8_kernels']
 
     def variant(cases, head, launches, path):
         """A verify / int8 variant of K5 or K5p: its launches on the path
@@ -4875,7 +5139,9 @@ def main():
                          int8_path['prefill_k1_launches'],
                      f'flagship_gqa_ring_{FS_STEPS}_steps':
                          fs['gqa_ring']['flash_attention']},
-                 **int8_path['k1_int8']),
+                 library=int8_k['library'],
+                 **{c: int8_k[c] for c in ('int8_decode_prefill',
+                                           'gqa_ring_fold')}),
              edges=k1['edges'],
              **bwd_time['flash_attention']),
         dict(name='flash_attention_bounded', source=csrc + 'flash_fwd.cu',
@@ -4913,6 +5179,12 @@ def main():
              masks=mask_time['flash_attention_dkv'],
              masks_max_abs_err={n: mask_err[n] for n in
                                 ('dk', 'dv', 'dk_f32', 'dv_f32')},
+             int8=dict(
+                 launches_by_path={
+                     f'flagship_gqa_ring_{FS_STEPS}_steps':
+                         fs['gqa_ring']['flash_attention_dkv']},
+                 library=int8_k['k4_library'],
+                 gqa_ring_fold=int8_k['k4_gqa_ring_fold']),
              **bwd_time['flash_attention_dkv']),
         dict(name='flash_decode', source=csrc + 'flash_decode.cu',
              replaces=tpu + 'pallas_decode.py:107',

@@ -67,10 +67,18 @@
 // the atomics' order, and the checkpoint's resumed step (equal bit for bit)
 // and the ring's fold sums need repeatable gradients.
 //
-// int8 scoring (the Quant instantiation) keeps the first version's body:
-// nvcuda::wmma 16x16x16 fragments (s8 x s8 -> s32 scores), score blocks
-// through shared memory, synchronous tile loads (flash_bwd_dq_i8_kernel,
-// flash_bwd_dkv_i8_kernel).
+// int8 scoring (Quant): dk/dv is the wgmma kernel's Quant instantiation.
+// The block's int8 k rows stay resident (by TMA through an int8 tensor map,
+// in the bf16 tiles' byte geometry) and every stage carries the query
+// tile's int8 q rows beside the dequantized q~ (made once per call by the
+// wrapper, (q8 * sq) rounded to bf16 as the reference dequantizes in
+// block) and dO; S^T = k8.q8^T is an m64n64k32 s8 wgmma (both operands
+// K-major as stored) and each score (float(dot) * sqf_q) * skr_k, the
+// forward's arithmetic with the rows and columns swapped, bit for bit; dK
+// += dS^T.q~ then carries the plain softmax scale. dq keeps the first
+// version's body (flash_bwd_dq_i8_kernel): nvcuda::wmma 16x16x16
+// fragments (s8 x s8 -> s32 scores), score blocks through shared memory,
+// synchronous tile loads.
 //
 // Ext: dropout masks and scales dp (both passes) and, for dv, p, with the
 // forward's bits (the hash of global coordinates and the query-side flat
@@ -630,10 +638,16 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
   }
 }
 
-template <int D, bool Ext>
+// Per stage, the query tile's float32 row vectors: lse2 and delta, and
+// with Quant its q scales sqf.
+template <bool Quant>
+constexpr int kRowVecs = Quant ? 3 : 2;
+
+template <int D, bool Ext, bool Quant>
 constexpr size_t dkv_smem_bytes() {
   return sizeof(bf16) * (2 * kRows + 2 * kStages * kB) * D  // sK, sV; sQ, sG
-         + kStages * 2 * kB * sizeof(float)                 // lse2, delta
+         + (Quant ? kStages * kB * D : 0)                   // int8 q
+         + kStages * kRowVecs<Quant> * kB * sizeof(float)   // lse2, delta, sqf
          + (Ext ? kStages * 2 * kB * sizeof(int) : 0)       // segq, posq
          + kStages * sizeof(uint64_t);                      // the barriers
 }
@@ -643,28 +657,37 @@ constexpr size_t dkv_smem_bytes() {
 // through the stages (q2 and dO by TMA, one barrier a stage; lse2 and
 // delta by cp.async); each warpgroup's S^T, dP^T, P^T and dS^T live in its
 // registers and the group's sums in its float32 accumulators. The tensor
-// maps as for dq.
-template <int D, bool HasMask, typename OutT, bool Ext>
+// maps as for dq; with Quant, map_k is the int8 k (resident, in the first
+// half of K's room), map_q the dequantized q~ and map_q8 the int8 q (its
+// own stage slots). dK is scaled by dk_mul on the way out.
+template <int D, bool HasMask, typename OutT, bool Ext, bool Quant>
 __global__ void __launch_bounds__(kBlockThreads)
 flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap map_q,
                      const __grid_constant__ CUtensorMap map_k,
                      const __grid_constant__ CUtensorMap map_v,
                      const __grid_constant__ CUtensorMap map_g,
+                     const __grid_constant__ CUtensorMap map_q8,
                      const float* __restrict__ lse2,
                      const float* __restrict__ delta, OutT* __restrict__ dk,
                      OutT* __restrict__ dv, MaskArgs mask, int tq, int tk,
                      int group, int causal, int causal_offset, int kv_offset,
-                     int n_qtiles, ExtArgs ext) {
+                     int n_qtiles, float dk_mul, ExtArgs ext) {
   static_assert(D % 32 == 0 && D <= 128, "head dim must be 32*n <= 128");
   static_assert(!(HasMask && Ext), "Ext reads the mask at run time");
+  static_assert(!Quant || (Ext && !HasMask), "int8 scoring is Ext");
+  constexpr int kRV = kRowVecs<Quant>;
   extern __shared__ __align__(1024) unsigned char smem[];
   bf16* sK = reinterpret_cast<bf16*>(smem);   // warpgroup w's keys at w*kB*D
+                                              // (int8: byte w*kB*D)
   bf16* sV = sK + kRows * D;
   bf16* sQG = sV + kRows * D;   // stage s: q2 at sQG + 2s*kB*D, dO after it
-  float* sRow = reinterpret_cast<float*>(sQG + 2 * kStages * kB * D);   //
-                                 // stage s: lse2 at 2s*kB, delta after it
-  int* sVec = reinterpret_cast<int*>(sRow + 2 * kStages * kB);   // stage s:
-                                              // segq at 2s*kB, posq after
+  signed char* sQ8 = reinterpret_cast<signed char*>(
+      sQG + 2 * kStages * kB * D);   // Quant, stage s: int8 q at s*kB*D
+  float* sRow = reinterpret_cast<float*>(
+      sQ8 + (Quant ? kStages * kB * D : 0));   // stage s at kRV*s*kB:
+                                               // lse2, delta, sqf
+  int* sVec = reinterpret_cast<int*>(sRow + kStages * kRV * kB);   // stage
+                                           // s: segq at 2s*kB, posq after
   uint64_t* bars = reinterpret_cast<uint64_t*>(sVec +
                                                (Ext ? kStages * 2 * kB : 0));
   if (threadIdx.x == 0) {
@@ -747,21 +770,33 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap map_q,
     const int bh = bkv * group + h;
     const size_t qoff = static_cast<size_t>(bh) * tq;
     bf16* sQ = sQG + 2 * stage * kB * D;
-    float* sr = sRow + 2 * stage * kB;
+    float* sr = sRow + kRV * stage * kB;
     if (threadIdx.x == 0) {
       uint64_t* bar = &bars[stage];
-      mbar_expect_tx(bar, (resident ? 6 : 2) * kB * D * sizeof(bf16));
+      // Resident: K (int8: 1 byte an element) and V for both warpgroups;
+      // streamed: q2 (q~) and dO, and the int8 q.
+      constexpr int kKB = Quant ? 1 : 2;
+      mbar_expect_tx(bar, (resident ? kRows * D * (kKB + 2) : 0) +
+                              (Quant ? 5 : 4) * kB * D);
       if (resident) {
         for (int w = 0; w < kWgs; ++w) {
-          tma_tile<D>(sK + w * kB * D, &map_k, kb0 + w * kB, bkv, bar);
+          if constexpr (Quant)
+            tma_tile<D>(reinterpret_cast<signed char*>(sK) + w * kB * D,
+                        &map_k, kb0 + w * kB, bkv, bar);
+          else
+            tma_tile<D>(sK + w * kB * D, &map_k, kb0 + w * kB, bkv, bar);
           tma_tile<D>(sV + w * kB * D, &map_v, kb0 + w * kB, bkv, bar);
         }
       }
       tma_tile<D>(sQ, &map_q, qt * kB, bh, bar);
       tma_tile<D>(sQ + kB * D, &map_g, qt * kB, bh, bar);
+      if constexpr (Quant)
+        tma_tile<D>(sQ8 + stage * kB * D, &map_q8, qt * kB, bh, bar);
     }
     load_vec_async(sr, lse2 + qoff, qt * kB, tq);
     load_vec_async(sr + kB, delta + qoff, qt * kB, tq);
+    if constexpr (Quant)
+      load_vec_async(sr + 2 * kB, ext.sqf + qoff, qt * kB, tq);
     if constexpr (Ext) {
       int* sv = sVec + 2 * stage * kB;
       if (ext.segq.ptr != nullptr)
@@ -781,6 +816,15 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap map_q,
     kpos[j] = k0 + lr + 8 * j;
     krow_ok[j] = kpos[j] < tk;
   }
+  // Quant: the block's k row scales in the unused half of sK (the loop's
+  // first barrier orders them before their use).
+  float* sSkr = reinterpret_cast<float*>(
+      reinterpret_cast<unsigned char*>(sK) + kRows * D);
+  if constexpr (Quant) {
+    if (threadIdx.x < kRows)
+      sSkr[threadIdx.x] = kb0 + threadIdx.x < tk
+          ? ext.skr[static_cast<size_t>(bkv) * tk + kb0 + threadIdx.x] : 0.f;
+  }
 
   float acc_dk[D / 2], acc_dv[D / 2];
 #pragma unroll
@@ -798,7 +842,8 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap map_q,
     }
     cp_async_commit();
   }
-  const uint32_t tK = smem_u32(sK + wg * kB * D);
+  const uint32_t tK = smem_u32(reinterpret_cast<unsigned char*>(sK) +
+                              wg * kB * D * (Quant ? 1 : 2));
   const uint32_t tV = smem_u32(sV + wg * kB * D);
   // The head's state: mask rows, the key rows' segments and positions, the
   // key tile's position range, the dropout salt and ALiBi slope (read per
@@ -853,28 +898,62 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap map_q,
       const int q0 = qt * kB;
       const uint32_t tQ = smem_u32(sQG + 2 * stage * kB * D);
       const uint32_t tG = tQ + kB * D * sizeof(bf16);
-      const float* sLse = sRow + 2 * stage * kB;
+      const float* sLse = sRow + kRV * stage * kB;
       const float* sDelta = sLse + kB;
       const int* sSegQ = sVec + 2 * stage * kB;
       const int* sPosQ = sSegQ + kB;
       // Transposed blocks: rows are this warpgroup's keys, columns the
       // queries.
       float s[32], dp[32];
+      if constexpr (Quant) {
+        // S^T = k8 q8^T as int32 dots (k32 steps), then (float(dot) *
+        // sqf_q) * skr_k: the q scale first, as the forward applies it.
+        const uint32_t tQ8 = smem_u32(sQ8 + stage * kB * D);
+        int dot[32];
 #pragma unroll
-      for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
-      fence_regs(s);
-      fence_regs(dp);
-      wgmma_fence();
+        for (int i = 0; i < 32; ++i) {
+          dot[i] = 0;
+          dp[i] = 0.f;
+        }
+        fence_regs(dot);
+        fence_regs(dp);
+        wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        Wgmma<64>::ss(s, desc_kmajor(tK, kk), desc_kmajor(tQ, kk), kk);
+        for (int kk = 0; kk < D / 32; ++kk)
+          Wgmma<64>::ss(dot, desc_kmajor(tK, kk), desc_kmajor(tQ8, kk), kk);
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        Wgmma<64>::ss(dp, desc_kmajor(tV, kk), desc_kmajor(tG, kk), kk);
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(s);
-      fence_regs(dp);
+        for (int kk = 0; kk < D / 16; ++kk)
+          Wgmma<64>::ss(dp, desc_kmajor(tV, kk), desc_kmajor(tG, kk), kk);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(dot);
+        fence_regs(dp);
+        const float2* sqf2 = reinterpret_cast<const float2*>(sLse + 2 * kB);
+#pragma unroll
+        for (int i = 0; i < 32; i += 2) {
+          const float2 c = sqf2[acc_col(i) / 2];
+          const float r = sSkr[wg * kB + lr + 8 * ((i >> 1) & 1)];
+          s[i] = __fmul_rn(__fmul_rn(static_cast<float>(dot[i]), c.x), r);
+          s[i + 1] = __fmul_rn(__fmul_rn(static_cast<float>(dot[i + 1]), c.y),
+                               r);
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+        fence_regs(s);
+        fence_regs(dp);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          Wgmma<64>::ss(s, desc_kmajor(tK, kk), desc_kmajor(tQ, kk), kk);
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          Wgmma<64>::ss(dp, desc_kmajor(tV, kk), desc_kmajor(tG, kk), kk);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(s);
+        fence_regs(dp);
+      }
 
       // P^T into s (the dropped, rescaled weights dv takes), dS^T into dp.
       // A tile wholly inside the rows, the columns, the causal extent and
@@ -959,7 +1038,8 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap map_q,
       to_frags(s, pt);
       to_frags(dp, dst);
 
-      // dV += P^T . dO and dK += dS^T . q2, the query tiles read MN-major.
+      // dV += P^T . dO and dK += dS^T . q2 (q~), the query tiles read
+      // MN-major.
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
@@ -979,22 +1059,22 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap map_q,
   }
   cp_async_wait<0>();
 
-  // dk: the folded q2 carries scale*log2(e), so 1/log2(e) restores the
-  // scale.
+  // dk: dk_mul is 1/log2(e) for the folded q2, which carries
+  // scale*log2(e), and the softmax scale for q~.
 #pragma unroll
   for (int i = 0; i < D / 2; i += 2) {
     const int row = k0 + acc_row(i);
     if (row < tk) {
       const size_t at = kvoff + static_cast<size_t>(row) * D + acc_col(i);
-      store_pair(dk + at, acc_dk[i] * kInvLog2e, acc_dk[i + 1] * kInvLog2e);
+      store_pair(dk + at, acc_dk[i] * dk_mul, acc_dk[i + 1] * dk_mul);
       store_pair(dv + at, acc_dv[i], acc_dv[i + 1]);
     }
   }
 }
 
-// int8 scoring (the Quant instantiation): the first version's body, on
-// nvcuda::wmma fragments with score blocks through shared memory. Each
-// warp owns 16 rows of every score block.
+// int8 scoring's dq (the Quant instantiation of dq): the first version's
+// body, on nvcuda::wmma fragments with score blocks through shared memory.
+// Each warp owns 16 rows of every score block.
 
 template <int D>
 constexpr size_t dq_i8_smem_bytes() {
@@ -1032,8 +1112,8 @@ flash_bwd_dq_i8_kernel(const bf16* __restrict__ v,
   int* sPosK = reinterpret_cast<int*>(sSkr + kB);
 
   // Late query tiles see the most keys under causal masking: first.
-  const int tile = n_qtiles - 1 - static_cast<int>(blockIdx.x);
-  const int bh = blockIdx.y;
+  const int tile = n_qtiles - 1 - static_cast<int>(blockIdx.y);
+  const int bh = blockIdx.x;
   const int bkv = bh / group;
   const int q0 = tile * kB;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -1167,203 +1247,6 @@ flash_bwd_dq_i8_kernel(const bf16* __restrict__ v,
   store_rows<D, OutT>(acc, sS, dq + qoff * D, q0, tq, scale);
 }
 
-template <int D>
-constexpr size_t dkv_i8_smem_bytes() {
-  return sizeof(bf16) * (4 * kB * D     // sK (int8 k), sV, sQ, sG
-                         + 2 * kB * kB) // sPT, sDST
-         + sizeof(float) * (2 * kB * kB // sST, sDPT (the epilogue's stage)
-                            + 2 * kB)   // sLse, sDelta
-         + kB * D                       // sQ8
-         + kB * (2 * sizeof(int) + sizeof(float));   // sSegQ, sSqf, sPosQ
-}
-
-template <int D, typename OutT>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_i8_kernel(const bf16* __restrict__ v,
-                        const bf16* __restrict__ g,
-                        const float* __restrict__ lse2,
-                        const float* __restrict__ delta,
-                        OutT* __restrict__ dk, OutT* __restrict__ dv,
-                        MaskArgs mask, int tq, int tk, int group, int causal,
-                        int causal_offset, int kv_offset, float scale,
-                        int n_qtiles, ExtArgs ext) {
-  static_assert(D % 16 == 0 && D <= 128, "head dim must be 16*n <= 128");
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sK = reinterpret_cast<bf16*>(smem);
-  bf16* sV = sK + kB * D;
-  bf16* sQ = sV + kB * D;
-  bf16* sG = sQ + kB * D;
-  bf16* sPT = sG + kB * D;
-  bf16* sDST = sPT + kB * kB;
-  float* sST = reinterpret_cast<float*>(sDST + kB * kB);
-  float* sDPT = sST + kB * kB;
-  float* sLse = sDPT + kB * kB;
-  float* sDelta = sLse + kB;
-  // The int8 k tile in the sK region, the query tile's int8 copy in sQ8
-  // and its dequantized bf16 copy (the ds^T.q operand) in sQ.
-  signed char* sK8 = reinterpret_cast<signed char*>(sK);
-  signed char* sQ8 = reinterpret_cast<signed char*>(sDelta + kB);
-  int* sSegQ = reinterpret_cast<int*>(sQ8 + kB * D);
-  float* sSqf = reinterpret_cast<float*>(sSegQ + kB);
-  int* sPosQ = reinterpret_cast<int*>(sSqf + kB);
-
-  // Early key tiles are seen by the most query rows under causal masking.
-  const int k0 = static_cast<int>(blockIdx.x) * kB;
-  const int bkv = blockIdx.y;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-
-  const size_t kvoff = static_cast<size_t>(bkv) * tk * D;
-  load_i8_tile<D>(sK8, ext.k8 + kvoff, k0, tk);
-  load_tile<D>(sV, v + kvoff, k0, tk);
-
-  // First query tile whose rows can see key column k0: row r sees it when
-  // rel + r >= k0.
-  const long long rel = static_cast<long long>(causal_offset) - kv_offset;
-  int qt_begin = 0;
-  if (causal) {
-    const long long r_min = static_cast<long long>(k0) - rel;
-    qt_begin = r_min <= 0 ? 0
-             : (r_min >= tq ? n_qtiles : static_cast<int>(r_min / kB));
-  }
-  // Window: query rows r < window + (k0 + 63) - rel can still see the
-  // tile's newest key.
-  int qt_end = n_qtiles;
-  if (causal && ext.window > 0) {
-    const long long r_end = ext.window + k0 + kB - 1 - rel;
-    qt_end = r_end <= 0 ? 0
-           : (r_end >= tq ? n_qtiles
-                          : static_cast<int>((r_end + kB - 1) / kB));
-  }
-
-  // Elementwise ownership: lanes (2r, 2r+1) of warp w hold key row
-  // w*16 + r, 32 query columns each.
-  const int my_row = warp * 16 + (lane >> 1);
-  const int half = lane & 1;
-  const bool krow_ok = k0 + my_row < tk;
-  const long long kpos = static_cast<long long>(k0) + my_row;
-  const float skr_r =
-      krow_ok ? ext.skr[static_cast<size_t>(bkv) * tk + kpos] : 0.f;
-
-  FragC acc_dk[D / 16], acc_dv[D / 16];
-#pragma unroll
-  for (int j = 0; j < D / 16; ++j) {
-    wmma::fill_fragment(acc_dk[j], 0.f);
-    wmma::fill_fragment(acc_dv[j], 0.f);
-  }
-
-  for (int h = 0; h < group; ++h) {
-    const int bh = bkv * group + h;
-    const size_t qoff = static_cast<size_t>(bh) * tq;
-    const unsigned char* mbase =
-        mask.ptr != nullptr ? mask_base(mask, bh) : nullptr;
-    int segk_r = 0;
-    const int* segq_row = nullptr;
-    if (ext.segq.ptr != nullptr) {
-      segq_row = vec_row(ext.segq, bh);
-      segk_r = krow_ok ? vec_row(ext.segk, bh)[kpos] : 0;
-    }
-    const unsigned int drop_bs =
-        ext.seed + static_cast<unsigned int>(bh) * 668265263u;
-    const float slope = ext.alibi != nullptr ? ext.alibi[bh] : 0.f;
-    // Positions: the key row's position, the query side's position row and
-    // both sides' tile [min, max] tables (read per query head, as the
-    // positions are addressed).
-    unsigned int drop_ch =
-        static_cast<unsigned int>(kv_offset + kpos) * 2246822519u;
-    int posk_r = 0, kmin = 0, kmax = 0;
-    const int* posq_row = nullptr;
-    const int* posq_mm = nullptr;
-    if (ext.posk.ptr != nullptr) {
-      posq_row = vec_row(ext.posq, bh);
-      posq_mm = vec_row(ext.posq_mm, bh);
-      posk_r = krow_ok ? vec_row(ext.posk, bh)[kpos] : 0;
-      kmin = vec_row(ext.posk_mm, bh)[2 * blockIdx.x];
-      kmax = vec_row(ext.posk_mm, bh)[2 * blockIdx.x + 1];
-      drop_ch = static_cast<unsigned int>(posk_r) * 2246822519u;
-    }
-    for (int qt = qt_begin; qt < qt_end; ++qt) {
-      const int q0 = qt * kB;
-      // Positions: skip a query tile that sees none of this key tile (K1's
-      // skip, seen from the key side).
-      if (posq_mm != nullptr &&
-          (kmin > posq_mm[2 * qt + 1] ||
-           (ext.window > 0 &&
-            static_cast<long long>(posq_mm[2 * qt]) - kmax >= ext.window)))
-        continue;
-      __syncthreads();   // all warps done with the previous query tile
-      load_i8_tile<D>(sQ8, ext.q8 + qoff * D, q0, tq, sQ, ext.sqc + qoff);
-      load_tile<D>(sG, g + qoff * D, q0, tq);
-      for (int i = threadIdx.x; i < kB; i += kThreads) {
-        const bool ok = q0 + i < tq;
-        sLse[i] = ok ? lse2[qoff + q0 + i] : 0.f;
-        sDelta[i] = ok ? delta[qoff + q0 + i] : 0.f;
-        sSegQ[i] = (segq_row != nullptr && ok) ? segq_row[q0 + i] : 0;
-        sPosQ[i] = (posq_row != nullptr && ok) ? posq_row[q0 + i] : 0;
-        sSqf[i] = ok ? ext.sqf[qoff + q0 + i] : 0.f;
-      }
-      __syncthreads();
-
-      // Transposed blocks: rows are this warp's key rows, columns queries.
-      warp_abt_i8<D>(sK8, warp * 16, sQ8,
-                     reinterpret_cast<int*>(sST) + warp * 16 * kB);
-      warp_abt<D>(sV + warp * 16 * D, sG, sDPT + warp * 16 * kB);
-      __syncwarp();
-
-      const int* strow = reinterpret_cast<const int*>(sST) + my_row * kB +
-                         half * 32;
-      const float* dptrow = sDPT + my_row * kB + half * 32;
-      bf16* prow = sPT + my_row * kB + half * 32;
-      bf16* dsrow = sDST + my_row * kB + half * 32;
-#pragma unroll
-      for (int c = 0; c < 32; ++c) {
-        const int qc = half * 32 + c;
-        // pos_q - pos_k, as in K1.
-        const long long back = posq_row != nullptr
-                                   ? static_cast<long long>(sPosQ[qc]) -
-                                         posk_r
-                                   : rel + q0 + qc - kpos;
-        bool valid = krow_ok && q0 + qc < tq &&
-            (!causal || kpos <= rel + q0 + qc);
-        if (mbase != nullptr)
-          valid = valid &&
-                  !mbase[static_cast<long long>(q0 + qc) * mask.sr + kpos];
-        if (posq_row != nullptr) valid = valid && back >= 0;
-        if (ext.window > 0) valid = valid && back < ext.window;
-        if (segq_row != nullptr) valid = valid && sSegQ[qc] == segk_r;
-        float sc = static_cast<float>(strow[c]) * sSqf[qc] * skr_r;
-        if (ext.alibi != nullptr)
-          sc = __fadd_rn(sc, __fmul_rn(slope, static_cast<float>(-back)));
-        float dpv = dptrow[c];
-        float keep_mul = 1.f;
-        if (ext.dropout) {
-          const unsigned int rh =
-              static_cast<unsigned int>(posq_row != nullptr
-                                            ? sPosQ[qc]
-                                            : causal_offset + q0 + qc) *
-              2654435761u;
-          keep_mul = drop_hash(rh, drop_ch, drop_bs) >= ext.drop_threshold
-                         ? ext.drop_inv : 0.f;
-          dpv = keep_mul == 0.f ? 0.f : dpv * keep_mul;
-        }
-        const float p = valid ? exp2f(sc - sLse[qc]) : 0.f;
-        const float pn =
-            ext.dropout ? (keep_mul == 0.f ? 0.f : p * keep_mul) : p;
-        prow[c] = __float2bfloat16(pn);
-        dsrow[c] = __float2bfloat16(p * (dpv - sDelta[qc]));
-      }
-      __syncwarp();
-
-      warp_ab_acc<D>(acc_dv, sPT + warp * 16 * kB, sG);
-      warp_ab_acc<D>(acc_dk, sDST + warp * 16 * kB, sQ);
-    }
-  }
-
-  __syncthreads();   // the stage overlays other warps' score rows
-  // dk: sQ holds the dequantized raw q, so the softmax scale itself.
-  store_rows<D, OutT>(acc_dk, sST, dk + kvoff, k0, tk, scale);
-  store_rows<D, OutT>(acc_dv, sST, dv + kvoff, k0, tk, 1.f);
-}
-
 // Sets the kernel's dynamic shared memory and launches it; returns a
 // cudaError_t code (0 = launched).
 template <typename... Params, typename... Args>
@@ -1378,12 +1261,14 @@ int launch(void (*kernel)(Params...), dim3 grid, int threads, size_t smem,
 }
 
 // The maps of q2 and dO (batch_heads, tq, D) and of k and v (batch_heads /
-// group, tk, D), in the kernels' parameter order; false when one fails.
-bool operand_maps(CUtensorMap (&maps)[4], const void* q2, const void* k,
+// group, tk, D; k int8 with `k_i8`), in the kernels' parameter order; false
+// when one fails.
+template <int N>
+bool operand_maps(CUtensorMap (&maps)[N], const void* q2, const void* k,
                   const void* v, const void* g, int batch_heads, int group,
-                  int tq, int tk, int d) {
+                  int tq, int tk, int d, bool k_i8 = false) {
   return tile_map(&maps[0], q2, batch_heads, tq, d) &&
-         tile_map(&maps[1], k, batch_heads / group, tk, d) &&
+         tile_map(&maps[1], k, batch_heads / group, tk, d, k_i8) &&
          tile_map(&maps[2], v, batch_heads / group, tk, d) &&
          tile_map(&maps[3], g, batch_heads, tq, d);
 }
@@ -1400,8 +1285,10 @@ int launch_dq(const void* q2, const void* k, const void* v, const void* g,
   const float* db = static_cast<const float*>(delta);
   OutT* out = static_cast<OutT*>(dq);
   if constexpr (Quant) {
+    // blockIdx.x the (batch, head) row, blockIdx.y the query tile from the
+    // last.
     return launch(flash_bwd_dq_i8_kernel<D, OutT>,
-                  dim3(n_qtiles, batch_heads), kThreads,
+                  dim3(batch_heads, n_qtiles), kThreads,
                   dq_i8_smem_bytes<D>(), stream, static_cast<const bf16*>(v),
                   static_cast<const bf16*>(g), lb, db, out, mask, tq, tk,
                   group, causal, causal_offset, kv_offset, scale, n_qtiles,
@@ -1427,32 +1314,25 @@ int launch_dkv(const void* q2, const void* k, const void* v, const void* g,
                const MaskArgs& mask, int batch_heads, int group, int tq,
                int tk, int causal, int causal_offset, int kv_offset,
                float scale, const ExtArgs& ext, cudaStream_t stream) {
-  const int n_ktiles = (tk + kB - 1) / kB;
-  const int n_qtiles = (tq + kB - 1) / kB;
-  if (n_ktiles == 0 || batch_heads == 0) return 0;
-  const float* lb = static_cast<const float*>(lse2);
-  const float* db = static_cast<const float*>(delta);
-  OutT* dkb = static_cast<OutT*>(dk);
-  OutT* dvb = static_cast<OutT*>(dv);
-  if constexpr (Quant) {
-    return launch(flash_bwd_dkv_i8_kernel<D, OutT>,
-                  dim3(n_ktiles, batch_heads / group), kThreads,
-                  dkv_i8_smem_bytes<D>(), stream, static_cast<const bf16*>(v),
-                  static_cast<const bf16*>(g), lb, db, dkb, dvb, mask, tq, tk,
-                  group, causal, causal_offset, kv_offset, scale, n_qtiles,
-                  ext);
-  } else {
-    CUtensorMap maps[4];
-    if (!operand_maps(maps, q2, k, v, g, batch_heads, group, tq, tk, D))
-      return static_cast<int>(cudaErrorInvalidValue);
-    // blockIdx.x the kv head, blockIdx.y the 128-row key block: every
-    // head's early key blocks (seen by the most causal query rows) first.
-    return launch(flash_bwd_dkv_kernel<D, HasMask, OutT, Ext>,
-                  dim3(batch_heads / group, (tk + kRows - 1) / kRows),
-                  kBlockThreads, dkv_smem_bytes<D, Ext>(), stream, maps[0],
-                  maps[1], maps[2], maps[3], lb, db, dkb, dvb, mask, tq, tk,
-                  group, causal, causal_offset, kv_offset, n_qtiles, ext);
-  }
+  if (tk == 0 || batch_heads == 0) return 0;
+  // int8 scoring: k is the int8 k of ExtArgs and q2 the dequantized q~,
+  // beside the int8 q.
+  CUtensorMap maps[5];
+  if (!operand_maps(maps, q2, Quant ? ext.k8 : k, v, g, batch_heads, group,
+                    tq, tk, D, Quant) ||
+      !tile_map(&maps[4], ext.q8, Quant ? batch_heads : 0, tq, D, true))
+    return static_cast<int>(cudaErrorInvalidValue);
+  // blockIdx.x the kv head, blockIdx.y the 128-row key block: every head's
+  // early key blocks (seen by the most causal query rows) first.
+  return launch(flash_bwd_dkv_kernel<D, HasMask, OutT, Ext, Quant>,
+                dim3(batch_heads / group, (tk + kRows - 1) / kRows),
+                kBlockThreads, dkv_smem_bytes<D, Ext, Quant>(), stream,
+                maps[0], maps[1], maps[2], maps[3], maps[4],
+                static_cast<const float*>(lse2),
+                static_cast<const float*>(delta), static_cast<OutT*>(dk),
+                static_cast<OutT*>(dv), mask, tq, tk, group, causal,
+                causal_offset, kv_offset, (tq + kB - 1) / kB,
+                Quant ? scale : kInvLog2e, ext);
 }
 
 MaskArgs mask_args(const void* mask, int inner, long long so, long long si,
@@ -1468,9 +1348,10 @@ MaskArgs mask_args(const void* mask, int inner, long long so, long long si,
 // in bf16 otherwise. mask: null, or bytes addressed as MaskArgs (inner =
 // heads; strides in bytes). ext: null (the base instantiations), or the
 // segments, window, dropout, int8 operands, ALiBi slopes and positions of
-// ExtArgs (the Ext instantiations; with int8 operands q2 is unused and k is
-// read only for its shape). All contiguous, bf16 unless stated. Returns a
-// cudaError_t code (0 = launched).
+// ExtArgs (the Ext instantiations; with int8 operands dq reads neither q2
+// nor k, and dk/dv reads the dequantized q~ as q2 and not k). All
+// contiguous, bf16 unless stated. Returns a cudaError_t code (0 =
+// launched).
 extern "C" int flash_bwd_dq_bf16(const void* q2, const void* k,
                                  const void* v, const void* g,
                                  const void* lse2, const void* delta,
@@ -1525,6 +1406,23 @@ extern "C" int flash_bwd_dq_bf16(const void* q2, const void* k,
   }
 #undef DQ_CASE
 #undef DQ_LAUNCH
+}
+
+// The dynamic shared memory a block of the dk/dv kernel takes at head dim
+// d: the base instantiation, Ext, or Ext with int8 scoring (quant); 0 for
+// a head dim the kernels do not take.
+extern "C" long long flash_bwd_dkv_smem_bytes(int d, int ext, int quant) {
+  switch (d) {
+#define SMEM_CASE(D)                                                 \
+    case D:                                                          \
+      return quant ? dkv_smem_bytes<D, true, true>()                 \
+                   : ext ? dkv_smem_bytes<D, true, false>()          \
+                         : dkv_smem_bytes<D, false, false>();
+    SMEM_CASE(32) SMEM_CASE(64) SMEM_CASE(96) SMEM_CASE(128)
+#undef SMEM_CASE
+    default:
+      return 0;
+  }
 }
 
 // As above; dk, dv like k, v (each GQA group's query heads summed), in

@@ -6,9 +6,9 @@
 // distributed_dot_product_tpu/ops/pallas_attention.py: causal masking with
 // host-int global offsets of query row 0 and key column 0, a dense boolean
 // mask, GQA, the optional row logsumexp that the backward recomputes from,
-// and (the Ext instantiations) segment ids, a sliding window, the
-// coordinate-hash dropout, int8 QK^T scoring, ALiBi and explicit global
-// positions.
+// int8 QK^T scoring (the Quant instantiations), and (the Ext
+// instantiations) segment ids, a sliding window, the coordinate-hash
+// dropout, ALiBi and explicit global positions.
 //
 // What bounds it on the H100: tensor-core operations. An attended (query,
 // key) pair costs 4*d flops (S and P.V); at the LM's training shape (4 x 8
@@ -23,8 +23,9 @@
 // tiles wholly in the causal future, including the unfilled tail of a
 // cache buffer, are never loaded).
 //  - Every product is a wgmma (csrc/hopper.cuh): S = q.K^T an m64n64k16
-//    with both operands in shared memory (K-major), O += P.V an m64nDk16
-//    with P from registers and V read MN-major.
+//    (int8 scoring: m64n64k32 s8) with both operands in shared memory
+//    (K-major), O += P.V an m64nDk16 with P from registers and V read
+//    MN-major.
 //  - S, P and O never leave registers. The online softmax runs on the
 //    accumulator fragments: a row's 64 columns sit in the 4 lanes of a
 //    quad, so its max is two shuffles; the O registers (D/2 floats a
@@ -98,15 +99,19 @@
 //    position vectors when given, else kv_offset + j - (causal_offset +
 //    i). Both operations round separately (__fmul_rn, __fadd_rn), as the
 //    plain version's two tensor operations do.
-// Quant (with Ext; flash_fwd_i8_kernel, the first version's body): q and
-// k arrive as per-row int8 with float32 row scales (sqf = the q scale
-// times scale*log2(e), skr = the raw k scale); the score tile is an s8 x
-// s8 -> s32 tensor-core product (wmma signed char 16x16x16 fragments; the
-// int8 tiles sit in shared memory chunk-major, [d/16][64 rows][16], so
-// every fragment starts 256-bit aligned) and each score is (float(dot) *
-// sqf_i) * skr_j, the plain version's arithmetic bit for bit. One
-// warpgroup a block owns a 64-row query tile; S, P and O pass through
-// shared memory and K/V load synchronously.
+// Quant (int8 scoring; exact; alone or with the Ext features): the same
+// kernel with q and k arriving as per-row int8 with float32 row scales
+// (sqf = the q scale times scale*log2(e), skr = the raw k scale). TMA loads the int8 q rows
+// and each int8 K tile through int8 tensor maps into the bf16 tiles' byte
+// geometry (d/16 panels of 64 rows x 16 bytes); V stays bf16, and each
+// stage carries the K tile's 64 column scales beside it. S is an
+// m64n64k32 s8 x s8 -> s32 wgmma (8-bit operands are K-major, which both
+// are as stored), its int32 accumulator laid out as the float32 one, and
+// each score is __fmul_rn(__fmul_rn(float(dot), sqf_i), skr_j): the plain
+// version's (dot * sqf) * skr, bit for bit (the dot is exact; |dot| <
+// 2^24 converts exactly). q is not folded: sqf carries scale*log2(e). The
+// block's 128 sqf sit in the unused half of the q tile's room (kept out of
+// registers: at d 128 every register counts).
 //
 // K2 (Bounded): the running max is replaced by the per-row bound mvec (the
 // wrapper computes it: ||q2_i|| * max_j ||k_j|| + 1, Cauchy-Schwarz in log2
@@ -117,20 +122,16 @@
 // --use_fast_math, no -ftz): weights down to 2^-149 keep their denormals,
 // as on the TPU, whose normal range also ends at 2^-126.
 
-#include <mma.h>
 #include <math.h>
 
 #include <type_traits>
 
 #include "hopper.cuh"   // kB, kWarps, kThreads and the Hopper helpers
 
-using namespace nvcuda;
-
 namespace {
 
-// The wgmma kernel (every instantiation but int8 scoring): two warpgroups
-// a block, one 64-row query tile each, and three stages for the streamed
-// K/V tiles.
+// The kernel: two warpgroups a block, one 64-row query tile each, and
+// three stages for the streamed K/V tiles.
 constexpr int kWgs = 2;
 constexpr int kRows = kWgs * kB;
 constexpr int kBlockThreads = kWgs * kThreads;
@@ -242,11 +243,16 @@ __device__ __forceinline__ void load_mask_tile(unsigned char* dst,
   }
 }
 
-template <int D, bool HasMask, bool Ext>
+// Per stage, the key-side vectors of the Ext instantiations: segment ids
+// and positions, and with Quant the K tile's row scales.
+template <bool Ext, bool Quant>
+constexpr int kVecs = Quant ? 3 : (Ext ? 2 : 0);
+
+template <int D, bool HasMask, bool Ext, bool Quant>
 constexpr size_t smem_bytes() {
   return sizeof(bf16) * (kRows + 2 * kStages * kB) * D   // sQ; sK, sV
          + ((HasMask || Ext) ? kStages * kRows * kB : 0)  // mask bytes
-         + (Ext ? kStages * 2 * kB * sizeof(int) : 0)     // segk, posk
+         + kStages * kVecs<Ext, Quant> * kB * sizeof(int) // segk, posk, skr
          + (kStages + 1) * sizeof(uint64_t);              // the barriers
 }
 
@@ -254,8 +260,10 @@ constexpr size_t smem_bytes() {
 // row: q stays in shared memory, the key and value tiles stream through
 // the stages (TMA, one barrier a stage); each warpgroup's S, P and O live
 // in its registers. The tensor maps: q (batch_heads, tq, D), k and v
-// (batch_heads / group, tk, D), 64 x 8 boxes.
-template <int D, bool HasMask, bool Bounded, bool Ext>
+// (batch_heads / group, tk, D), 64-row x 16-byte boxes; with Quant q and k
+// are the int8 operands. An int8 tile fills the first half of its bf16
+// tile's room.
+template <int D, bool HasMask, bool Bounded, bool Ext, bool Quant>
 __global__ void __launch_bounds__(kBlockThreads)
 flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
                  const __grid_constant__ CUtensorMap map_k,
@@ -266,17 +274,21 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
                  int kv_offset, float qscale, int n_qblocks, ExtArgs ext) {
   static_assert(D % 32 == 0 && D <= 128, "head dim must be 32*n <= 128");
   static_assert(!(HasMask && Ext), "Ext reads the mask at run time");
+  static_assert(!Quant || (!HasMask && !Bounded),
+                "int8 scoring is exact, its mask an Ext one");
   constexpr bool kMaskStage = HasMask || Ext;
+  constexpr int kV = kVecs<Ext, Quant>;
+  constexpr int kQB = Quant ? 1 : 2;   // bytes of a q or k element
   extern __shared__ __align__(1024) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);   // warpgroup w's rows at w*kB*D
+  bf16* sQ = reinterpret_cast<bf16*>(smem);   // warpgroup w's rows at
+                                              // byte w*kB*D*kQB
   bf16* sKV = sQ + kRows * D;   // stage s: K at sKV + 2s*kB*D, V after it
   unsigned char* sMask = reinterpret_cast<unsigned char*>(
       sKV + 2 * kStages * kB * D);   // stage s at s*kRows*kB
   int* sVec = reinterpret_cast<int*>(
-      sMask + (kMaskStage ? kStages * kRows * kB : 0));   // stage s: segk at
-                                                         // 2s*kB, posk after
-  uint64_t* bars = reinterpret_cast<uint64_t*>(sVec +
-                                               (Ext ? kStages * 2 * kB : 0));
+      sMask + (kMaskStage ? kStages * kRows * kB : 0));   // stage s at
+                                       // kV*s*kB: segk, posk, skr (floats)
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sVec + kStages * kV * kB);
   uint64_t* qbar = bars + kStages;
   if (threadIdx.x == 0) {
     for (int st = 0; st <= kStages; ++st) mbar_init(&bars[st], 1);
@@ -360,8 +372,12 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
     bf16* sK = sKV + 2 * stage * kB * D;
     if (threadIdx.x == 0) {
       uint64_t* bar = &bars[stage];
-      mbar_expect_tx(bar, 2 * kB * D * sizeof(bf16));
-      tma_tile<D>(sK, &map_k, t * kB, bkv, bar);
+      mbar_expect_tx(bar, (kQB + 2) * kB * D);
+      if constexpr (Quant)
+        tma_tile<D>(reinterpret_cast<signed char*>(sK), &map_k, t * kB, bkv,
+                    bar);
+      else
+        tma_tile<D>(sK, &map_k, t * kB, bkv, bar);
       tma_tile<D>(sK + kB * D, &map_v, t * kB, bkv, bar);
     }
     if constexpr (kMaskStage) {
@@ -369,18 +385,26 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
         load_mask_tile(sMask + stage * kRows * kB, mbase, mask.sr, qb0, tq,
                        t * kB, tk, mask_w);
     }
+    int* sv = sVec + kV * stage * kB;
     if constexpr (Ext) {
-      int* sv = sVec + 2 * stage * kB;
       if (segk_row != nullptr) load_vec_async(sv, segk_row, t * kB, tk);
       if (posk_row != nullptr) load_vec_async(sv + kB, posk_row, t * kB, tk);
     }
+    if constexpr (Quant)
+      load_vec_async(sv + 2 * kB, ext.skr + static_cast<size_t>(bkv) * tk,
+                     t * kB, tk);
   };
 
   // The block's q rows, on their own barrier; rows past tq land as zeros.
   if (threadIdx.x == 0) {
-    mbar_expect_tx(qbar, kRows * D * sizeof(bf16));
-    for (int w = 0; w < kWgs; ++w)
-      tma_tile<D>(sQ + w * kB * D, &map_q, qb0 + w * kB, bh, qbar);
+    mbar_expect_tx(qbar, kRows * D * kQB);
+    for (int w = 0; w < kWgs; ++w) {
+      if constexpr (Quant)
+        tma_tile<D>(reinterpret_cast<signed char*>(sQ) + w * kB * D, &map_q,
+                    qb0 + w * kB, bh, qbar);
+      else
+        tma_tile<D>(sQ + w * kB * D, &map_q, qb0 + w * kB, bh, qbar);
+    }
   }
 
   // This thread's two query rows of the accumulator layout: lr and lr + 8
@@ -432,22 +456,35 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
     cp_async_commit();
   }
 
+  // Quant: the block's q row scales sqf in the unused half of sQ (the
+  // barrier below orders them before their use).
+  float* sSqf = reinterpret_cast<float*>(
+      reinterpret_cast<unsigned char*>(sQ) + kRows * D);
+  if constexpr (Quant) {
+    if (threadIdx.x < kRows)
+      sSqf[threadIdx.x] =
+          qb0 + threadIdx.x < tq ? ext.sqf[qoff + qb0 + threadIdx.x] : 0.f;
+  }
   // Fold scale*log2(e) into q where it landed, rounding back to bf16 as
   // the TPU kernel does, then hand the tile to the async proxy (wgmma).
+  // int8 q stays as it landed (sqf carries the fold).
   mbar_wait(qbar, 0);
-  for (int idx = threadIdx.x; idx < kRows * D / 8; idx += kBlockThreads) {
-    uint4* at = reinterpret_cast<uint4*>(sQ) + idx;
-    uint4 val = *at;
-    bf16* e = reinterpret_cast<bf16*>(&val);
+  if constexpr (!Quant) {
+    for (int idx = threadIdx.x; idx < kRows * D / 8; idx += kBlockThreads) {
+      uint4* at = reinterpret_cast<uint4*>(sQ) + idx;
+      uint4 val = *at;
+      bf16* e = reinterpret_cast<bf16*>(&val);
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
-      e[i] = __float2bfloat16(__bfloat162float(e[i]) * qscale);
-    *at = val;
+      for (int i = 0; i < 8; ++i)
+        e[i] = __float2bfloat16(__bfloat162float(e[i]) * qscale);
+      *at = val;
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   }
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   __syncthreads();
 
-  const uint32_t tQ = smem_u32(sQ + wg * kB * D);
+  const uint32_t tQ =
+      smem_u32(reinterpret_cast<unsigned char*>(sQ) + wg * kB * D * kQB);
   const bool rows_full = q0 + kB <= tq;
   for (int it = 0, stage = 0; t < t_end; ++it) {
     const int fill = (stage + kStages - 1) % kStages;
@@ -464,18 +501,43 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
       const int k0 = t * kB;
       const uint32_t tK = smem_u32(sKV + 2 * stage * kB * D);
       const uint32_t tV = tK + kB * D * sizeof(bf16);
-      // S = q2 K^T (log2 units: q is folded).
+      const int* sv = sVec + kV * stage * kB;
       float s[32];
+      if constexpr (Quant) {
+        // S = (float(q8 k8^T) * sqf) * skr, the int32 dots over k32 steps.
+        int dot[32];
 #pragma unroll
-      for (int i = 0; i < 32; ++i) s[i] = 0.f;
-      fence_regs(s);
-      wgmma_fence();
+        for (int i = 0; i < 32; ++i) dot[i] = 0;
+        fence_regs(dot);
+        wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        Wgmma<64>::ss(s, desc_kmajor(tQ, kk), desc_kmajor(tK, kk), kk);
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(s);
+        for (int kk = 0; kk < D / 32; ++kk)
+          Wgmma<64>::ss(dot, desc_kmajor(tQ, kk), desc_kmajor(tK, kk), kk);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(dot);
+        const float2* skr2 = reinterpret_cast<const float2*>(sv + 2 * kB);
+#pragma unroll
+        for (int i = 0; i < 32; i += 2) {
+          const float2 c = skr2[acc_col(i) / 2];
+          const float r = sSqf[wg * kB + lr + 8 * ((i >> 1) & 1)];
+          s[i] = __fmul_rn(__fmul_rn(static_cast<float>(dot[i]), r), c.x);
+          s[i + 1] = __fmul_rn(__fmul_rn(static_cast<float>(dot[i + 1]), r),
+                               c.y);
+        }
+      } else {
+        // S = q2 K^T (log2 units: q is folded).
+#pragma unroll
+        for (int i = 0; i < 32; ++i) s[i] = 0.f;
+        fence_regs(s);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          Wgmma<64>::ss(s, desc_kmajor(tQ, kk), desc_kmajor(tK, kk), kk);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(s);
+      }
 
       // Masked scores to -inf; ALiBi's bias. A tile wholly inside the
       // rows, the columns, the causal extent and the window, with no mask
@@ -495,7 +557,6 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
       } else {
         full = full && (!causal || k0 + kB - 1 <= rel + q0);
       }
-      const int* sv = sVec + 2 * stage * kB;
       const unsigned char* sm = sMask + stage * kRows * kB + (wg * kB + lr) * kB;
       auto scores = [&](auto tested) {
         constexpr bool kTest = decltype(tested)::value;
@@ -625,264 +686,6 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
   }
 }
 
-// int8 scoring (the Quant instantiation): the first version's body, on
-// nvcuda::wmma fragments with S, P and O through shared memory and
-// synchronous K/V loads. One warpgroup a block owns a 64-row query tile;
-// each warp owns 16 of its rows.
-
-// Rows [row0, row0 + 64) of a (rows, D) int8 matrix into shared memory
-// chunk-major ([D/16][64][16] bytes), 16 bytes a thread; rows at or past
-// `limit` load as zeros.
-template <int D>
-__device__ __forceinline__ void load_i8_tile(signed char* dst,
-                                             const signed char* src,
-                                             int row0, int limit) {
-  constexpr int kChunks = D / 16;
-  for (int idx = threadIdx.x; idx < kB * kChunks; idx += kThreads) {
-    const int r = idx / kChunks, c = idx % kChunks;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < limit)
-      val = *reinterpret_cast<const uint4*>(
-          src + static_cast<size_t>(row0 + r) * D + c * 16);
-    *reinterpret_cast<uint4*>(dst + (c * kB + r) * 16) = val;
-  }
-}
-
-template <int D>
-constexpr size_t i8_smem_bytes() {
-  return sizeof(bf16) * (kB * D        // the int8 q tile (sQ8)
-                         + 2 * kB * D  // the int8 k tile (sK8), sV
-                         + kB * kB)    // sP
-         + sizeof(float) * (kB * kB    // sS (int32 dots)
-                            + kB * D)  // sO
-         + kB * (2 * sizeof(int) + sizeof(float));   // sSegK, sSkr, sPosK
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_i8_kernel(const bf16* __restrict__ v, bf16* __restrict__ out,
-                    float* __restrict__ lse, MaskArgs mask, int tq, int tk,
-                    int group, int causal, int causal_offset, int kv_offset,
-                    int n_qtiles, ExtArgs ext) {
-  static_assert(D % 16 == 0 && D <= 128, "head dim must be 16*n <= 128");
-  constexpr int kChunks = D / 8;   // 16-byte chunks per bf16 row
-  extern __shared__ __align__(128) unsigned char smem[];
-  signed char* sQ8 = reinterpret_cast<signed char*>(smem);
-  signed char* sK8 = sQ8 + kB * D * sizeof(bf16);
-  bf16* sV = reinterpret_cast<bf16*>(sK8 + kB * D * sizeof(bf16));
-  bf16* sP = sV + kB * D;
-  float* sS = reinterpret_cast<float*>(sP + kB * kB);
-  float* sO = sS + kB * kB;
-  int* sSegK = reinterpret_cast<int*>(sO + kB * D);
-  float* sSkr = reinterpret_cast<float*>(sSegK + kB);
-  int* sPosK = reinterpret_cast<int*>(sSkr + kB);
-
-  // Late query tiles see the most keys under causal masking: first.
-  const int tile = n_qtiles - 1 - static_cast<int>(blockIdx.x);
-  const int bh = blockIdx.y;
-  const int bkv = bh / group;
-  const int q0 = tile * kB;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const bf16* vb = v + static_cast<size_t>(bkv) * tk * D;
-  bf16* ob = out + static_cast<size_t>(bh) * tq * D;
-
-  // Row i may attend local key column j when rel + i >= j.
-  const long long rel = static_cast<long long>(causal_offset) - kv_offset;
-  int kv_end = tk;
-  if (causal) {
-    const int rows = (q0 + kB < tq ? q0 + kB : tq);
-    const long long extent = rel + rows;
-    kv_end = extent <= 0 ? 0 : (extent < tk ? static_cast<int>(extent) : tk);
-  }
-  const int n_ktiles = (kv_end + kB - 1) / kB;
-  int t_begin = 0;
-  if (causal && ext.window > 0) {
-    const long long first = rel + q0 - ext.window + 1;
-    t_begin = first <= 0 ? 0
-            : (first >= kv_end ? n_ktiles : static_cast<int>(first) / kB);
-  }
-
-  load_i8_tile<D>(sQ8, ext.q8 + static_cast<size_t>(bh) * tq * D, q0, tq);
-  for (int idx = threadIdx.x; idx < kB * D; idx += kThreads) sO[idx] = 0.f;
-  __syncthreads();
-
-  // Softmax ownership: lane pair (2r, 2r+1) of warp w holds row
-  // w*16 + r, each lane half of the row's key columns / output features.
-  const int my_row = warp * 16 + (lane >> 1);
-  const int half = lane & 1;
-  const bool row_ok = q0 + my_row < tq;
-  const long long row_pos = rel + q0 + my_row;
-  const unsigned char* mrow =
-      (row_ok && mask.ptr != nullptr)
-          ? mask_base(mask, bh) + static_cast<long long>(q0 + my_row) * mask.sr
-          : nullptr;
-  int seg_r = 0;
-  const int* segk_row = nullptr;
-  if (ext.segk.ptr != nullptr) {
-    segk_row = vec_row(ext.segk, bh);
-    seg_r = row_ok ? vec_row(ext.segq, bh)[q0 + my_row] : 0;
-  }
-  const float slope = ext.alibi != nullptr ? ext.alibi[bh] : 0.f;
-  int pos_r = 0, qmin = 0, qmax = 0;
-  const int* posk_row = nullptr;
-  const int* posk_mm = nullptr;
-  if (ext.posk.ptr != nullptr) {
-    posk_row = vec_row(ext.posk, bh);
-    posk_mm = vec_row(ext.posk_mm, bh);
-    pos_r = row_ok ? vec_row(ext.posq, bh)[q0 + my_row] : 0;
-    qmin = vec_row(ext.posq_mm, bh)[2 * tile];
-    qmax = vec_row(ext.posq_mm, bh)[2 * tile + 1];
-  }
-  const unsigned int drop_rh =
-      static_cast<unsigned int>(
-          posk_row != nullptr ? pos_r : causal_offset + q0 + my_row) *
-      2654435761u;
-  const unsigned int drop_bs =
-      ext.seed + static_cast<unsigned int>(bh) * 668265263u;
-  const float sqf_r =
-      row_ok ? ext.sqf[static_cast<size_t>(bh) * tq + q0 + my_row] : 0.f;
-  float m_run = kNegBig;
-  float l_run = 0.f;
-
-  for (int t = t_begin; t < n_ktiles; ++t) {
-    const int k0 = t * kB;
-    // Positions: a key tile wholly in the query tile's future, or wholly a
-    // window or more in its past, is never loaded (the same decision in
-    // every thread of the block).
-    if (posk_mm != nullptr &&
-        (posk_mm[2 * t] > qmax ||
-         (ext.window > 0 &&
-          static_cast<long long>(qmin) - posk_mm[2 * t + 1] >= ext.window)))
-      continue;
-    __syncthreads();   // all warps done with the previous sK/sV
-    load_i8_tile<D>(sK8, ext.k8 + static_cast<size_t>(bkv) * tk * D, k0, tk);
-    for (int idx = threadIdx.x; idx < kB * kChunks; idx += kThreads) {
-      const int r = idx / kChunks, c = idx % kChunks;
-      uint4 vv = make_uint4(0u, 0u, 0u, 0u);
-      if (k0 + r < tk)
-        vv = *reinterpret_cast<const uint4*>(
-            vb + static_cast<size_t>(k0 + r) * D + c * 8);
-      *reinterpret_cast<uint4*>(sV + r * D + c * 8) = vv;
-    }
-    for (int i = threadIdx.x; i < kB; i += kThreads) {
-      const bool ok = k0 + i < tk;
-      sSegK[i] = (segk_row != nullptr && ok) ? segk_row[k0 + i] : 0;
-      sPosK[i] = (posk_row != nullptr && ok) ? posk_row[k0 + i] : 0;
-      sSkr[i] = ok ? ext.skr[static_cast<size_t>(bkv) * tk + k0 + i] : 0.f;
-    }
-    __syncthreads();
-
-    // The int32 dots of this warp's 16 rows, scaled per element below.
-#pragma unroll
-    for (int j = 0; j < kB / 16; ++j) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, int> acc;
-      wmma::fill_fragment(acc, 0);
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, signed char,
-                       wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, signed char,
-                       wmma::col_major> b;
-        wmma::load_matrix_sync(a, sQ8 + (kk * kB + warp * 16) * 16, 16);
-        wmma::load_matrix_sync(b, sK8 + (kk * kB + j * 16) * 16, 16);
-        wmma::mma_sync(acc, a, b, acc);
-      }
-      wmma::store_matrix_sync(
-          reinterpret_cast<int*>(sS) + warp * 16 * kB + j * 16, acc, kB,
-          wmma::mem_row_major);
-    }
-    __syncwarp();
-
-    // Online softmax over this tile's 64 columns of my_row.
-    float sv[32];
-    float mx = kNegBig;
-    const int* srow = reinterpret_cast<const int*>(sS) + my_row * kB +
-                      half * 32;
-#pragma unroll
-    for (int c = 0; c < 32; ++c) {
-      const int col = k0 + half * 32 + c;
-      // pos_q - pos_k: explicit positions, else the offsets' arithmetic.
-      const long long back = posk_row != nullptr
-                                 ? static_cast<long long>(pos_r) -
-                                       sPosK[half * 32 + c]
-                                 : row_pos - col;
-      bool valid = col < tk && (!causal || col <= row_pos);
-      if (mrow != nullptr) valid = valid && !mrow[col];
-      if (posk_row != nullptr) valid = valid && back >= 0;
-      if (ext.window > 0) valid = valid && back < ext.window;
-      if (segk_row != nullptr) valid = valid && seg_r == sSegK[half * 32 + c];
-      float sc = static_cast<float>(srow[c]) * sqf_r * sSkr[half * 32 + c];
-      if (ext.alibi != nullptr)
-        sc = __fadd_rn(sc, __fmul_rn(slope, static_cast<float>(-back)));
-      sv[c] = valid ? sc : -INFINITY;
-      mx = fmaxf(mx, sv[c]);
-    }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    const float m_new = fmaxf(m_run, mx);
-    const float corr = exp2f(m_run - m_new);
-    float psum = 0.f;
-    bf16* prow = sP + my_row * kB + half * 32;
-#pragma unroll
-    for (int c = 0; c < 32; ++c) {
-      const float p = exp2f(sv[c] - m_new);   // masked: exp2(-inf) = 0
-      float pn = p;
-      // Dropout drops the numerator only: l sums the undropped p.
-      if (ext.dropout) {
-        const unsigned int col = static_cast<unsigned int>(
-            posk_row != nullptr ? sPosK[half * 32 + c]
-                                : kv_offset + k0 + half * 32 + c);
-        pn = drop_hash(drop_rh, col, drop_bs) >= ext.drop_threshold
-                 ? p * ext.drop_inv : 0.f;
-      }
-      prow[c] = __float2bfloat16(pn);
-      psum += p;
-    }
-    psum += __shfl_xor_sync(0xffffffffu, psum, 1);
-    l_run = l_run * corr + psum;
-    m_run = m_new;
-    float* orow = sO + my_row * D + half * (D / 2);
-#pragma unroll
-    for (int c = 0; c < D / 2; ++c) orow[c] *= corr;
-    __syncwarp();
-
-    // O += P V for this warp's 16 rows.
-#pragma unroll
-    for (int j = 0; j < D / 16; ++j) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::load_matrix_sync(acc, sO + warp * 16 * D + j * 16, D,
-                             wmma::mem_row_major);
-#pragma unroll
-      for (int kk = 0; kk < kB / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-        wmma::load_matrix_sync(a, sP + warp * 16 * kB + kk * 16, kB);
-        wmma::load_matrix_sync(b, sV + kk * 16 * D + j * 16, D);
-        wmma::mma_sync(acc, a, b, acc);
-      }
-      wmma::store_matrix_sync(sO + warp * 16 * D + j * 16, acc, D,
-                              wmma::mem_row_major);
-    }
-    __syncwarp();
-  }
-
-  // l == 0 <=> the row attends no key: output exactly 0.
-  if (row_ok) {
-    const float* orow = sO + my_row * D + half * (D / 2);
-    __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(
-        ob + static_cast<size_t>(q0 + my_row) * D + half * (D / 2));
-#pragma unroll
-    for (int c = 0; c < D / 2; c += 2) {
-      const float a = l_run == 0.f ? 0.f : orow[c] / l_run;
-      const float b = l_run == 0.f ? 0.f : orow[c + 1] / l_run;
-      dst[c / 2] = __floats2bfloat162_rn(a, b);
-    }
-    if (lse != nullptr && half == 0)
-      lse[static_cast<size_t>(bh) * tq + q0 + my_row] =
-          kLn2 * (m_run + log2f(l_run == 0.f ? 1.f : l_run));
-  }
-}
-
 // Sets the kernel's dynamic shared memory and launches it; returns a
 // cudaError_t code (0 = launched).
 template <typename... Params, typename... Args>
@@ -916,32 +719,23 @@ int launch(const void* q, const void* k, const void* v, void* out,
            int batch_heads, int group, int tq, int tk, int causal,
            int causal_offset, int kv_offset, float qscale,
            const ExtArgs& ext, cudaStream_t stream) {
-  const int n_qtiles = (tq + kB - 1) / kB;
-  if (n_qtiles == 0 || batch_heads == 0) return 0;
-  bf16* o = static_cast<bf16*>(out);
-  if constexpr (Quant) {
-    static_assert(Ext && !HasMask && !Bounded, "int8 scoring is Ext, exact");
-    return launch_kernel(flash_fwd_i8_kernel<D>, dim3(n_qtiles, batch_heads),
-                         kThreads, i8_smem_bytes<D>(), stream,
-                         static_cast<const bf16*>(v), o, lse, mask, tq, tk,
-                         group, causal, causal_offset, kv_offset, n_qtiles,
-                         ext);
-  } else {
-    CUtensorMap maps[3];
-    if (!tile_map(&maps[0], q, batch_heads, tq, D) ||
-        !tile_map(&maps[1], k, batch_heads / group, tk, D) ||
-        !tile_map(&maps[2], v, batch_heads / group, tk, D))
-      return static_cast<int>(cudaErrorInvalidValue);
-    // blockIdx.x the (batch, head) row, blockIdx.y the 128-row query block
-    // from the last: every row's longest causal extents launch first.
-    const int n_qblocks = (tq + kRows - 1) / kRows;
-    return launch_kernel(flash_fwd_kernel<D, HasMask, Bounded, Ext>,
-                         dim3(batch_heads, n_qblocks), kBlockThreads,
-                         smem_bytes<D, HasMask, Ext>(), stream, maps[0],
-                         maps[1], maps[2], o, lse, mvec, mask,
-                         mask_width(mask), tq, tk, group, causal,
-                         causal_offset, kv_offset, qscale, n_qblocks, ext);
-  }
+  if (tq == 0 || batch_heads == 0) return 0;
+  // int8 scoring reads the int8 q and k of ExtArgs in place of q and k.
+  CUtensorMap maps[3];
+  if (!tile_map(&maps[0], Quant ? ext.q8 : q, batch_heads, tq, D, Quant) ||
+      !tile_map(&maps[1], Quant ? ext.k8 : k, batch_heads / group, tk, D,
+                Quant) ||
+      !tile_map(&maps[2], v, batch_heads / group, tk, D))
+    return static_cast<int>(cudaErrorInvalidValue);
+  // blockIdx.x the (batch, head) row, blockIdx.y the 128-row query block
+  // from the last: every row's longest causal extents launch first.
+  const int n_qblocks = (tq + kRows - 1) / kRows;
+  return launch_kernel(flash_fwd_kernel<D, HasMask, Bounded, Ext, Quant>,
+                       dim3(batch_heads, n_qblocks), kBlockThreads,
+                       smem_bytes<D, HasMask, Ext, Quant>(), stream, maps[0],
+                       maps[1], maps[2], static_cast<bf16*>(out), lse, mvec,
+                       mask, mask_width(mask), tq, tk, group, causal,
+                       causal_offset, kv_offset, qscale, n_qblocks, ext);
 }
 
 template <int D>
@@ -954,15 +748,20 @@ int dispatch(const void* q, const void* k, const void* v, void* out,
 #define FWD_LAUNCH(M, B, E, Q)                                               \
   return launch<D, M, B, E, Q>(q, k, v, out, lse, mvec, mask, batch_heads,  \
                                group, tq, tk, causal, causal_offset,        \
-                               kv_offset, qscale, E ? *ext : none, s)
+                               kv_offset, qscale, (E || Q) ? *ext : none, s)
   // Built twice (csrc/../ops/_build.py): the base instantiations, and
   // with FLASH_EXT the Ext ones, each refusing the other's calls.
 #ifdef FLASH_EXT
   if (ext == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   if (ext->q8 != nullptr) {
     // int8 scoring runs the exact kernel (the wrapper resolves
-    // 'bounded' to it, as the reference does).
+    // 'bounded' to it, as the reference does); alone, without the Ext
+    // features' per-element work.
     if (mvec != nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    if (mask.ptr == nullptr && ext->segk.ptr == nullptr &&
+        ext->window == 0 && !ext->dropout && ext->alibi == nullptr &&
+        ext->posk.ptr == nullptr)
+      FWD_LAUNCH(false, false, false, true);
     FWD_LAUNCH(false, false, true, true);
   }
   if (mvec == nullptr) FWD_LAUNCH(false, false, true, false);
@@ -982,6 +781,25 @@ int dispatch(const void* q, const void* k, const void* v, void* out,
 }
 
 }  // namespace
+
+// The dynamic shared memory a block of the exact kernel takes at head dim
+// d: the base or the Ext instantiation, with int8 scoring (quant) or not;
+// 0 for a head dim the kernels do not take.
+extern "C" long long flash_fwd_smem_bytes(int d, int ext, int quant) {
+  switch (d) {
+#define SMEM_CASE(D)                                                 \
+    case D:                                                          \
+      if (quant)                                                     \
+        return ext ? smem_bytes<D, false, true, true>()              \
+                   : smem_bytes<D, false, false, true>();            \
+      return ext ? smem_bytes<D, false, true, false>()               \
+                 : smem_bytes<D, false, false, false>();
+    SMEM_CASE(32) SMEM_CASE(64) SMEM_CASE(96) SMEM_CASE(128)
+#undef SMEM_CASE
+    default:
+      return 0;
+  }
+}
 
 // q (batch_heads, tq, d), k/v (batch_heads / group, tk, d), out like q;
 // all contiguous bf16. lse: null, or (batch_heads, tq) float32. mvec: null

@@ -2,10 +2,10 @@
 // csrc/flash_bwd.cu; csrc/flash_decode.cu takes the cp.async helpers), for
 // sm_90a: TMA tile loads into the wgmma core-matrix layout and their
 // mbarriers, cp.async for the small per-row vectors and the decode rows,
-// shared-memory matrix descriptors, the wgmma products with their
-// accumulator layout, and the host's TMA map of a (heads, rows, d) bf16
-// tensor. Each source that includes it gets its own copy (an anonymous
-// namespace).
+// shared-memory matrix descriptors, the wgmma products (bf16, and s8 for
+// int8 scoring) with their accumulator layout, and the host's TMA map of a
+// (heads, rows, d) bf16 or int8 tensor. Each source that includes it gets
+// its own copy (an anonymous namespace).
 
 #pragma once
 
@@ -88,24 +88,28 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 // (16 bytes a row, 1 KB a panel): element (r, c) at element offset
 // (c / 8) * 512 + r * 8 + c % 8. Every 8 x 8 block is one 128-byte wgmma
 // core matrix (no swizzle); rows are 16 bytes apart inside a core matrix,
-// 8-row groups 128 bytes, 8-column panels 1024 bytes.
+// 8-row groups 128 bytes, 8-column panels 1024 bytes. A 64 x D int8 tile
+// has the same geometry in bytes: D/16 panels of 64 rows x 16 columns, its
+// core matrices 8 rows x 16 bytes.
 constexpr uint32_t kRowGroupBytes = 128;
 constexpr uint32_t kPanelBytes = 1024;
 
-// Rows [row0, row0 + 64) of head `head` of a (heads, rows, D) bf16 tensor
-// into such a tile by TMA, one 64 x 8 box a panel (the tensor map's box);
-// rows past the head's end land as zeros. The bytes complete on `bar`.
-template <int D>
-__device__ __forceinline__ void tma_tile(bf16* dst, const CUtensorMap* map,
+// Rows [row0, row0 + 64) of head `head` of a (heads, rows, D) bf16 or int8
+// tensor into such a tile by TMA, one 64-row x 16-byte box a panel (the
+// tensor map's box); rows past the head's end land as zeros. The bytes
+// complete on `bar`.
+template <int D, typename T>
+__device__ __forceinline__ void tma_tile(T* dst, const CUtensorMap* map,
                                          int row0, int head, uint64_t* bar) {
+  constexpr int kCols = 16 / sizeof(T);   // elements of a panel row
   const uint32_t d = smem_u32(dst), b = smem_u32(bar);
   const uint64_t m = reinterpret_cast<uint64_t>(map);
 #pragma unroll
-  for (int p = 0; p < D / 8; ++p)
+  for (int p = 0; p < D / kCols; ++p)
     asm volatile(
         "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::"
         "complete_tx::bytes [%0], [%1, {%2, %3, %4}], [%5];\n"
-        :: "r"(d + p * kPanelBytes), "l"(m), "r"(8 * p), "r"(row0),
+        :: "r"(d + p * kPanelBytes), "l"(m), "r"(kCols * p), "r"(row0),
            "r"(head), "r"(b)
         : "memory");
 }
@@ -133,7 +137,9 @@ __device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
 }
 
 // Step kk (columns [16kk, 16kk + 16) as K) of a tile read K-major: its
-// rows are M (or N), its columns the reduction.
+// rows are M (or N), its columns the reduction. The same 32 bytes of each
+// row are step kk of an int8 tile (columns [32kk, 32kk + 32), a k32 step):
+// two core matrices along K, one panel apart.
 __device__ __forceinline__ uint64_t desc_kmajor(uint32_t tile, int kk) {
   return make_desc(tile + 2 * kk * kPanelBytes, kPanelBytes, kRowGroupBytes);
 }
@@ -167,7 +173,14 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
 }
 
-// The m64nNk16 accumulator layout: thread t of the warpgroup holds, in
+template <int N>
+__device__ __forceinline__ void fence_regs(int (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i]) :: "memory");
+}
+
+// The m64nNk16 accumulator layout (also the int32 one of m64nNk32 s8):
+// thread t of the warpgroup holds, in
 // element i of N/2, row 16 * (t / 32) + (t % 32) / 4 + 8 * ((i / 2) % 2)
 // and column 8 * (i / 4) + 2 * (t % 4) + i % 2.
 __device__ __forceinline__ int acc_row(int i) {
@@ -239,6 +252,26 @@ struct Wgmma<64> {
           "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
           "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
           "+f"(d[30]), "+f"(d[31])
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+  // d (64 x 64 int32) += A . B over k32 with int8 A and B in shared memory
+  // (8-bit operands are read K-major only).
+  static __device__ __forceinline__ void ss(int (&d)[32], uint64_t a,
+                                            uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+          "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+          "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+          "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+          "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+          "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+          "+r"(d[30]), "+r"(d[31])
         : "l"(a), "l"(b), "r"(scale_d));
   }
   // d (64 x 64) += A . B with A in registers (the m64k16 A fragment) and
@@ -330,11 +363,13 @@ struct Wgmma<128> {
   }
 };
 
-// The TMA map of a (heads, rows, d) bf16 tensor read in 64-row x 8-column
-// boxes, one core-matrix panel of a tile each; rows past a head's end load
-// as zeros. An empty tensor gets no map (nothing is loaded from it); false
-// when the driver's encoder is missing or refuses the tensor.
-bool tile_map(CUtensorMap* map, const void* ptr, int heads, int rows, int d) {
+// The TMA map of a (heads, rows, d) bf16 tensor (or, with `i8`, int8) read
+// in 64-row x 16-byte boxes, one core-matrix panel of a tile each; rows
+// past a head's end load as zeros. An empty tensor gets no map (nothing is
+// loaded from it); false when cuTensorMapEncodeTiled is missing or
+// refuses the tensor.
+bool tile_map(CUtensorMap* map, const void* ptr, int heads, int rows, int d,
+              bool i8 = false) {
   *map = CUtensorMap{};
   if (heads == 0 || rows == 0) return true;
   using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
@@ -356,12 +391,13 @@ bool tile_map(CUtensorMap* map, const void* ptr, int heads, int rows, int d) {
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d),
                               static_cast<cuuint64_t>(rows),
                               static_cast<cuuint64_t>(heads)};
-  const cuuint64_t strides[2] = {
-      static_cast<cuuint64_t>(d) * sizeof(bf16),
-      static_cast<cuuint64_t>(rows) * d * sizeof(bf16)};
-  const cuuint32_t box[3] = {8, kB, 1};
+  const cuuint64_t elem = i8 ? 1 : sizeof(bf16);
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(d) * elem,
+                                 static_cast<cuuint64_t>(rows) * d * elem};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(16 / elem), kB, 1};
   const cuuint32_t step[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+  return encode(map, i8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+                        : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
                 const_cast<void*>(ptr), dims, strides, box, step,
                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,

@@ -84,8 +84,10 @@ reference. ``grad_dtype=torch.float32`` writes the gradients in float32
 
 On CUDA tensors each pass launches its hand-written kernel or raises
 (``csrc/flash_fwd.cu`` for K1 and K2, ``csrc/flash_bwd.cu`` for K3 and
-K4: bf16, head dims 32/64/96/128, ``d_v == d``); on CPU tensors each
-runs its plain PyTorch version.
+K4: bf16, head dims 32/64/96/128, ``d_v == d``, any number of (batch,
+head) rows); on CPU tensors each runs its plain PyTorch version. With
+int8 scoring K1 and K4 read the int8 q and k (``s8`` tensor-core
+products); K4 takes q̃ from :func:`dequantize_rows`, made once a call.
 
 Numerics (both versions): ``scale·log2(e)`` is folded into q and
 rounded back to q's dtype (the exp2 trick), and the softmax runs in exp2
@@ -109,7 +111,8 @@ __all__ = ['flash_attention', 'flash_attention_plain',
            'flash_attention_dq', 'flash_attention_dq_plain',
            'flash_attention_dkv', 'flash_attention_dkv_plain',
            'flash_attention_backward', 'flash_attention_backward_plain',
-           'quantize_rows', 'quant_operands', 'dropout_keep']
+           'quantize_rows', 'quant_operands', 'dequantize_rows',
+           'dropout_keep']
 
 _LOG2E = math.log2(math.e)
 _LN2 = math.log(2.0)
@@ -198,6 +201,13 @@ def quant_operands(q, k):
     """``(q_i8, sq, k_i8, sk)``: the int8 operands and raw row scales of
     ``qk_quant='int8'`` scoring, for the backward passes."""
     return (*quantize_rows(q), *quantize_rows(k))
+
+
+def dequantize_rows(x_i8, s, dtype):
+    """``(x_i8·s)`` rounded to ``dtype``: the straight-through backward's
+    operand, as the reference dequantizes q and k inside its backward
+    blocks (``(x.astype(f32)·s).astype(v.dtype)``)."""
+    return (x_i8.float() * s).to(dtype)
 
 
 _M32 = 0xFFFFFFFF
@@ -433,14 +443,14 @@ def _bwd_plain(q2, k, v, g, lse2, delta, mask, causal, co, ko, scale,
     dq = dk = dv = None
     if want_dq:
         if equant is not None:
-            k_op = (equant[2].float() * equant[3]).to(v.dtype)
+            k_op = dequantize_rows(equant[2], equant[3], v.dtype)
             dq = scale * torch.matmul(ds.to(v.dtype).float(), k_op.float())
         else:
             dq = scale * torch.matmul(ds.to(k.dtype).float(), ke.float())
         dq = dq.to(grad_dtype or q2.dtype)
     if want_dkv:
         if equant is not None:
-            q_op = (equant[0].float() * equant[1]).to(v.dtype)
+            q_op = dequantize_rows(equant[0], equant[1], v.dtype)
             dk = scale * torch.matmul(
                 ds.to(v.dtype).float().transpose(-1, -2), q_op.float())
         else:
@@ -689,14 +699,6 @@ def _check_grad_dtype(grad_dtype, like):
     return grad_dtype == torch.float32
 
 
-def _rows(q):
-    nb = math.prod(q.shape[:-2])
-    if nb > 65535:
-        raise NotImplementedError(f'{nb} (batch, head) rows exceed the '
-                                  f'grid limit 65535')
-    return nb
-
-
 def _ptrs(*tensors):
     for t in tensors:
         if t.data_ptr() % 16:
@@ -814,20 +816,22 @@ def _ext_operand(feat, q, k, scale, quant=None, bwd=False):
 
 
 def _launch(q, k, v, mask, causal, causal_offset, kv_offset, scale,
-            save_lse=False, mvec=None, feat=_NO_FEAT):
+            save_lse=False, mvec=None, feat=_NO_FEAT, quant=None):
     """K1 on the card, or K2 when ``mvec`` (the row bounds) is given:
-    ``out``, or ``(out, lse)`` with ``save_lse``."""
+    ``out``, or ``(out, lse)`` with ``save_lse``. ``quant``: int8
+    scoring's :func:`quant_operands` (made here when None)."""
     _check_kernel_operands((('q', q), ('k', k), ('v', v)), q.shape[-1])
     group = _kv_group(q, k)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    nb, tq, tk, d = _rows(q), q.shape[-2], k.shape[-2], q.shape[-1]
+    nb = math.prod(q.shape[:-2])
+    tq, tk, d = q.shape[-2], k.shape[-2], q.shape[-1]
     out = torch.empty(q.shape, dtype=v.dtype, device=q.device)
     lse = (torch.empty(q.shape[:-1], dtype=torch.float32, device=q.device)
            if save_lse else None)
     if mvec is not None:
         mvec = mvec.float().expand(q.shape[:-1]).contiguous()
     m, margs = _mask_operand(mask, q, tk)
-    alive, ext = _ext_operand(feat, q, k, scale)
+    alive, ext = _ext_operand(feat, q, k, scale, quant)
     fn = _cfn('flash_fwd' if ext is None else 'flash_fwd_ext',
               'flash_fwd_bf16',
               [_VP] * 6 + _MASK_ARGTYPES + [_I] * 8 + [_F, _VP, _VP])
@@ -923,15 +927,23 @@ def flash_attention_dq(q2, k, v, g, lse2, delta, *, mask=None, causal=False,
     if not q2.is_cuda:
         return flash_attention_dq_plain(q2, k, v, g, lse2, delta,
                                         scale=scale, **kw)
-    _check_kernel_operands((('q', q2), ('k', k), ('v', v), ('g', g)),
-                           q2.shape[-1])
     feat = _bwd_feat(q2, k, causal, segment_ids, window, dropout_rate,
                      dropout_seed, quant, positions, alibi_slopes)
+    return _launch_dq(q2, k, v, g, lse2, delta, mask, causal, causal_offset,
+                      kv_offset, scale, grad_dtype, feat, quant)
+
+
+def _launch_dq(q2, k, v, g, lse2, delta, mask, causal, causal_offset,
+               kv_offset, scale, grad_dtype, feat, quant):
+    """K3 on the card: dq."""
+    _check_kernel_operands((('q', q2), ('k', k), ('v', v), ('g', g)),
+                           q2.shape[-1])
     out_f32 = _check_grad_dtype(grad_dtype, q2)
     group = _kv_group(q2, k)
     q2, k, v, g = (t.contiguous() for t in (q2, k, v, g))
     lse2, delta = lse2.float().contiguous(), delta.float().contiguous()
-    nb, tq, tk, d = _rows(q2), q2.shape[-2], k.shape[-2], q2.shape[-1]
+    nb = math.prod(q2.shape[:-2])
+    tq, tk, d = q2.shape[-2], k.shape[-2], q2.shape[-1]
     dq = torch.empty(q2.shape, device=q2.device,
                      dtype=torch.float32 if out_f32 else q2.dtype)
     m, margs = _mask_operand(mask, q2, tk)
@@ -966,27 +978,40 @@ def flash_attention_dkv(q2, k, v, g, lse2, delta, *, mask=None,
               quant=quant, positions=positions, alibi_slopes=alibi_slopes)
     if not q2.is_cuda:
         return flash_attention_dkv_plain(q2, k, v, g, lse2, delta, **kw)
-    _check_kernel_operands((('q', q2), ('k', k), ('v', v), ('g', g)),
-                           q2.shape[-1])
     if scale is None:
         scale = 1.0 / math.sqrt(q2.shape[-1])
     feat = _bwd_feat(q2, k, causal, segment_ids, window, dropout_rate,
                      dropout_seed, quant, positions, alibi_slopes)
+    return _launch_dkv(q2, k, v, g, lse2, delta, mask, causal,
+                       causal_offset, kv_offset, scale, grad_dtype, feat,
+                       quant)
+
+
+def _launch_dkv(q2, k, v, g, lse2, delta, mask, causal, causal_offset,
+                kv_offset, scale, grad_dtype, feat, quant):
+    """K4 on the card: ``(dk, dv)``. With int8 scoring the kernel takes the
+    dequantized q (:func:`dequantize_rows`, made here once a call) where
+    it takes the folded q2 otherwise: the operand of dk."""
+    _check_kernel_operands((('q', q2), ('k', k), ('v', v), ('g', g)),
+                           q2.shape[-1])
     out_f32 = _check_grad_dtype(grad_dtype, k)
     group = _kv_group(q2, k)
     q2, k, v, g = (t.contiguous() for t in (q2, k, v, g))
     lse2, delta = lse2.float().contiguous(), delta.float().contiguous()
-    nb, tq, tk, d = _rows(q2), q2.shape[-2], k.shape[-2], q2.shape[-1]
+    nb = math.prod(q2.shape[:-2])
+    tq, tk, d = q2.shape[-2], k.shape[-2], q2.shape[-1]
     gdt = torch.float32 if out_f32 else k.dtype
     dk = torch.empty(k.shape, dtype=gdt, device=k.device)
     dv = torch.empty(v.shape, dtype=gdt, device=v.device)
     m, margs = _mask_operand(mask, q2, tk)
     alive, ext = _ext_operand(feat, q2, k, scale, quant, bwd=True)
+    q_op = (dequantize_rows(quant[0], quant[1], v.dtype).contiguous()
+            if feat.quant else q2)
     fn = _cfn('flash_bwd' if ext is None else 'flash_bwd_dkv_ext',
               'flash_bwd_dkv_bf16',
               [_VP] * 8 + _MASK_ARGTYPES + [_I] * 8 + [_F, _I, _VP, _VP])
     with torch.cuda.device(q2.device):
-        err = fn(*_ptrs(q2, k, v, g, lse2, delta, dk, dv), *margs, nb,
+        err = fn(*_ptrs(q_op, k, v, g, lse2, delta, dk, dv), *margs, nb,
                  group, tq, tk, d, int(causal), int(causal_offset),
                  int(kv_offset), float(scale), int(out_f32), ext,
                  torch.cuda.current_stream().cuda_stream)

@@ -19,7 +19,11 @@ m}``; exits non-zero unless every fault was caught. Most K1-K4 faults sit
 past query or key tile 32, so only the training shape (T 4096, 64 tiles)
 reaches them, or round an accumulator to bf16 after every tile; two more
 break K1's online softmax (the rescale of O dropped) and its causal loop
-(every query tile's diagonal key tile skipped). The K5/K5p faults break
+(every query tile's diagonal key tile skipped). Two break int8 scoring
+past key tile 32 by a last bit or so, where no tolerance sees them: K1
+scales each score by its neighbouring column's k scale, K4 applies the
+two row scales in the other order; the int8 exactness cases of
+``flash_masks`` must catch them. The K5/K5p faults break
 the decode kernel's merge (ranks taken in an order that varies from
 launch to launch, as arrival order would; or the peers' partials read
 before they have landed), drop the fresh rows' substitution (the appended columns read
@@ -100,6 +104,30 @@ FAULTS = {
         '      fence_regs(acc_dv);\n      fence_regs(acc_dk);\n'
         + _round_acc('acc_dv', 'acc_dk'),
         ('flash_backward',)),
+    # int8 scoring past key tile 32: each score scaled by the neighbouring
+    # column's k scale.
+    'k1_int8_neighbour_scale': (
+        'flash_fwd.cu', '          const float2 c = skr2[acc_col(i) / 2];\n',
+        '          const float2 c0 = skr2[acc_col(i) / 2];\n'
+        '          const float2 c = t >= 32 ? make_float2(c0.y, c0.x) : c0;\n',
+        ('flash_masks',)),
+    # int8 scoring past key tile 32: (dot * skr) * sqf, the scale factors
+    # in the other order.
+    'k4_int8_scale_order': (
+        'flash_bwd.cu',
+        '          s[i] = __fmul_rn(__fmul_rn(static_cast<float>(dot[i]), c.x),'
+        ' r);\n'
+        '          s[i + 1] = __fmul_rn(__fmul_rn(static_cast<float>(dot[i + 1]),'
+        ' c.y),\n'
+        '                               r);\n',
+        '          auto mul = [&](int e, float q) {\n'
+        '            const float x = static_cast<float>(dot[e]);\n'
+        '            return k0 >= 32 * kB ? __fmul_rn(__fmul_rn(x, r), q)\n'
+        '                                 : __fmul_rn(__fmul_rn(x, q), r);\n'
+        '          };\n'
+        '          s[i] = mul(i, c.x);\n'
+        '          s[i + 1] = mul(i + 1, c.y);\n',
+        ('flash_masks',)),
     # The merge takes the ranks in an order that changes from launch to
     # launch (a rotation read from the clock, as arrival order would).
     'k5_merge_arrival_order': (
@@ -140,6 +168,7 @@ FAULTS = {
 
 # The phases that hold each source's kernels: K1, K3 and K4 at the
 # training shape; K5 and K5p at their serving shapes, edges and verify-k.
+# A fault that names only flash_masks (int8 scoring) runs that phase.
 PHASES = {'flash_fwd.cu': ('flash_attention', 'flash_backward'),
           'flash_bwd.cu': ('flash_attention', 'flash_backward'),
           'flash_decode.cu': DECODE}
@@ -177,6 +206,10 @@ def readings(stdout):
                     'row_rel': row[kern]['max_row_rel_err'],
                     'rel': row[kern]['rel_err'],
                     'lse': row[kern]['lse_max_abs_err']}
+        elif row.get('phase') == 'flash_masks' and 'exactly_equal' in row:
+            cases[f"flash_masks/{row['case']}"] = {
+                'exactly_equal': row['exactly_equal'],
+                'max_abs_err': row.get('max_abs_err')}
         elif row.get('phase') in ('flash_attention', 'flash_backward') and \
                 'max_row_rel_err' in row:
             key = f"{row['phase']}/{row['case']}"
@@ -203,10 +236,11 @@ def main():
     caught = 0
     for name in names:
         source, old, new, phases = FAULTS[name]
+        run_phases = phases if phases == ('flash_masks',) else PHASES[source]
         with tempfile.TemporaryDirectory() as dst:
             plant(dst, source, old, new)
             run = subprocess.run([sys.executable, 'chip_smoke.py',
-                                  '--phases', ','.join(PHASES[source])],
+                                  '--phases', ','.join(run_phases)],
                                  cwd=dst, capture_output=True, text=True,
                                  timeout=900)
         cases, failed = readings(run.stdout)
