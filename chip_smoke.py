@@ -150,8 +150,9 @@ Phases, one JSON line each (some several):
    8192-column cache, then 64 decode steps, one K5 int8 launch each, held
    against the module's own int8 forward and the plain decode on the
    card; ms per step; then K1 int8 timed at the prefill and at the
-   gqa_ring fold, K4 int8 at that fold (with ``--parent``, beside the
-   parent checkout's kernels);
+   gqa_ring fold, K3 and K4 int8 at that fold (with ``--parent``, beside
+   the parent checkout's kernels), K3's dq and K4's dk, dv there held
+   against their plain versions;
 20. alibi_lm (run after train_path and main_path): the same 16-layer
    LM with use_rope=False and ALiBi slopes 2^(-8i/8): 3 Adam steps at
    B 4 x T 4096 (every K1/K3/K4 launch ALiBi), then greedy generation
@@ -180,11 +181,13 @@ Exits non-zero on any failure, and without a card. ``--phases a,b`` runs
 only the named phases (after device and build) and prints no result
 line. ``--parent DIR`` names the root of another checkout (the parent
 commit's, unpacked): the int8 cases of ``flash_masks`` and
-``int8_decode`` then also time that checkout's kernels, built from its
-``csrc/`` into ``DIR/build/kernels``, in turns with this one's.
+``int8_decode`` then also time that checkout's kernels through that
+checkout's own wrappers (its ``ops/flash_attention.py``, its libraries
+built from its ``csrc/`` into ``DIR/build/kernels``), in turns with this
+one's.
 """
 
-import contextlib
+import functools
 import json
 import math
 import os
@@ -318,47 +321,50 @@ def time_ms(torch, fn, flush, reps=30):
 
 
 # ``--parent DIR``: the root of another checkout of the repository (the
-# parent commit's, unpacked beside this one) whose int8 K1 and K4 are
+# parent commit's, unpacked beside this one) whose int8 K1, K3 and K4 are
 # timed in the same run as this checkout's, at the same shapes.
 PARENT = None
+_PARENT_OPS = []
 
 
-@contextlib.contextmanager
-def kernels_of(root):
-    """Within the context, ``ops/_build.py`` builds (all at once, at
-    entry) and loads the flash libraries from ``root``'s ``csrc/`` into
-    ``root/build/kernels``; this checkout's again after it."""
-    from pathlib import Path
+def parent_ops():
+    """The ``--parent`` checkout's ``ops.flash_attention``, imported from
+    its own files under the package's name with this checkout's modules set
+    aside for the import, so that its wrappers pass its own arguments to
+    its own libraries; those are built (all at once) on first use."""
+    if not _PARENT_OPS:
+        import importlib
+        pkg = 'distributed_dot_product_tpu_torch'
 
-    from distributed_dot_product_tpu_torch.ops import _build
-    saved = _build._CSRC, _build._BUILD_DIR
+        def ours(name):
+            return name == pkg or name.startswith(pkg + '.')
+        mine = {n: sys.modules.pop(n) for n in list(sys.modules) if ours(n)}
+        sys.path.insert(0, PARENT)
+        try:
+            fa = importlib.import_module(pkg + '.ops.flash_attention')
+        finally:
+            sys.path.remove(PARENT)
+            for n in [n for n in sys.modules if ours(n)]:
+                del sys.modules[n]
+            sys.modules.update(mine)
+        fa._build.build_all()
+        _PARENT_OPS.append(fa)
+    return _PARENT_OPS[0]
 
-    def use(csrc, out):
-        _build._CSRC, _build._BUILD_DIR = csrc, out
-        _build._LIBS.clear()
-    use(Path(root) / 'distributed_dot_product_tpu_torch' / 'csrc',
-        Path(root) / 'build' / 'kernels')
-    try:
-        _build.build_all()
-        yield
-    finally:
-        use(*saved)
 
-
-def ab_ms(torch, fn, flush, reps=30):
-    """``(ms, parent_ms)``: ``fn`` timed as :func:`time_ms` with this
-    checkout's kernels and, with ``--parent``, with the parent's, in turns
+def ab_ms(torch, make, fa, flush, reps=30):
+    """``(ms, parent_ms)``: ``make(fa)``, the call to time made with this
+    checkout's ops module ``fa``, timed as :func:`time_ms` and, with
+    ``--parent``, ``make`` of the parent's (:func:`parent_ops`), in turns
     parent, this, this, parent (the mean of each pair); ``parent_ms`` is
     None without ``--parent``."""
     if PARENT is None:
-        return time_ms(torch, fn, flush, reps), None
+        return time_ms(torch, make(fa), flush, reps), None
+    fn, parent_fn = make(fa), make(parent_ops())
     mine, theirs = [], []
-    for parent in (True, False, False, True):
-        if parent:
-            with kernels_of(PARENT):
-                theirs.append(time_ms(torch, fn, flush, reps))
-        else:
-            mine.append(time_ms(torch, fn, flush, reps))
+    for f, into in ((parent_fn, theirs), (fn, mine), (fn, mine),
+                    (parent_fn, theirs)):
+        into.append(time_ms(torch, f, flush, reps))
     return statistics.mean(mine), statistics.mean(theirs)
 
 
@@ -440,12 +446,14 @@ def build_resources(build):
 
 
 def smem_bytes(build):
-    """The dynamic shared memory of a K1 and of a K4 block at each head
+    """The dynamic shared memory of a K1, a K3 and a K4 block at each head
     dim, in bytes: the bf16 Ext instantiation and the int8 ones (K1's
-    alone and with the Ext features, K4's with them)."""
+    alone and with the Ext features, K3's and K4's with them)."""
     import ctypes
     out = {}
     for kern, lib, symbol in (('k1', 'flash_fwd_ext', 'flash_fwd_smem_bytes'),
+                              ('k3', 'flash_bwd_dq_ext',
+                               'flash_bwd_dq_smem_bytes'),
                               ('k4', 'flash_bwd_dkv_ext',
                                'flash_bwd_dkv_smem_bytes')):
         fn = getattr(build.load(lib), symbol)
@@ -2390,27 +2398,31 @@ def phase_int8_decode(torch, ddp):
           f'int8_decode paged: not bit-equal to the slab run {paged_same}')
     fails = check_rel(errs, 'int8_decode')
     check(not fails, '; '.join(fails))
-    row['int8_kernels'] = int8_timing(torch, gen)
+    row['int8_kernels'], fails = int8_timing(torch, gen)
     emit({'phase': 'int8_decode', 'case': 'int8_timing',
           **row['int8_kernels']})
+    check(not fails, '; '.join(fails))
     return row
 
 
 def int8_timing(torch, gen):
-    """K1 and K4 with int8 scoring (their s8 wgmma bodies) timed at this
-    phase's prefill (K1: 8128 rows of the 8192-column cache, its tail zero)
-    and at the flagship gqa_ring stage's diagonal ring fold (K1 and K4:
-    2 x 4096 rows a rank, packed segments, dropout 0.1, float32 gradients
-    as the ring takes them), both GQA 8:4 at head dim 64. ``ms`` is the
-    kernel's launch with the int8 operands made beforehand and, with
-    ``--parent``, ``parent_ms`` the parent checkout's kernel on the same
-    call in the same run; beside them the public wrapper's time with the
-    quantization (``wrapper_ms``, K1), the quantization alone
-    (``quant_ms``, quant_operands of q and k) and K4's dequantized q
-    (``dequant_ms``, made inside its ``ms``); the plain version, the bound
-    (the int8 products at the int8 rate, the others at the bf16 rate, or
-    the bytes) and, for scale only, SDPA's bf16 causal forward on the
-    same shape (no PyTorch call computes int8 scoring)."""
+    """K1, K3 and K4 with int8 scoring (their s8 wgmma bodies) timed at
+    this phase's prefill (K1: 8128 rows of the 8192-column cache, its tail
+    zero) and at the flagship gqa_ring stage's diagonal ring fold (K1, K3
+    and K4: 2 x 4096 rows a rank, packed segments, dropout 0.1, float32
+    gradients as the ring takes them), both GQA 8:4 at head dim 64. ``ms``
+    is the kernel's launch with the int8 operands made beforehand and,
+    with ``--parent``, ``parent_ms`` the parent checkout's kernel on the
+    same call in the same run; beside them the public wrapper's time with
+    the quantization (``wrapper_ms``, K1), the quantization alone
+    (``quant_ms``, quant_operands of q and k) and the dequantized operand
+    (``dequant_ms``, made inside ``ms``: K3's k~, K4's q~); the plain
+    version, the bound (the int8 products at the int8 rate, the others at
+    the bf16 rate, or the bytes) and, for scale only, SDPA's bf16 causal
+    forward on the same shape (no PyTorch call computes int8 scoring).
+    At the gqa_ring fold K3's dq and K4's dk, dv are also held against
+    their plain versions (``row_rel``, ``rel``; the flash_masks limits).
+    Returns ``(times, failures)``."""
     import importlib
     fa = importlib.import_module(
         'distributed_dot_product_tpu_torch.ops.flash_attention')
@@ -2420,6 +2432,7 @@ def int8_timing(torch, gen):
     d, hq, hkv = SP_HEAD_DIM, SP_HEADS, SP_HEADS // 2
     scale = 1.0 / math.sqrt(d)
     out = {'library': 'sdpa forward in bf16, causal: scale only'}
+    failures = []
     for name, b, tq, tk, packed, rate in (
             ('int8_decode_prefill', INT8_B, INT8_PROMPT, INT8_T, False, 0.0),
             ('gqa_ring_fold', SP_B // SP_DATA, SP_TN, SP_TN, True,
@@ -2436,8 +2449,6 @@ def int8_timing(torch, gen):
         kw = dict(causal=True, scale=scale, qk_quant='int8',
                   segment_ids=seg, dropout_rate=rate,
                   dropout_seed=MASK_SEED if rate else None)
-        feat = fa._features(q, k, True, seg, None, rate, kw['dropout_seed'],
-                            'int8')
         quant = fa.quant_operands(q, k)
         pairs = hq * valid_pairs(torch, b, tq, tk, True, 0, 0, None, seg)
         s_ops = 2 * d * pairs
@@ -2453,8 +2464,10 @@ def int8_timing(torch, gen):
         else:
             lib_kw['attn_mask'] = (torch.arange(tk, device=dev)[None, :]
                                    <= torch.arange(tq, device=dev)[:, None])
-        ms, parent = ab_ms(torch, lambda: fa._launch(
-            q, k, v, None, True, 0, 0, scale, feat=feat, quant=quant), flush)
+        ms, parent = ab_ms(torch, lambda m: functools.partial(
+            m._launch, q, k, v, None, True, 0, 0, scale, feat=m._features(
+                q, k, True, seg, None, rate, kw['dropout_seed'], 'int8'),
+            quant=quant), fa, flush)
         quant_ms = time_ms(torch, lambda: fa.quant_operands(q, k), flush)
         common = {'q': list(q.shape), 'kv': list(k.shape), 'pairs': pairs,
                   'segments': seg is not None, 'dropout_rate': rate}
@@ -2480,22 +2493,48 @@ def int8_timing(torch, gen):
         bw = dict(causal=True, scale=scale, segment_ids=seg,
                   dropout_rate=rate, dropout_seed=kw['dropout_seed'],
                   quant=quant, grad_dtype=torch.float32)
+        # K3: S in int8, dP and dQ in bf16; dq written in float32.
+        bms, by = bound_mixed(2 * s_ops, s_ops,
+                              q_b + kv_b + 2 * kv_b + 2 * q_b + 4 * q_b
+                              + 8 * b * hq * tq + rows_b + seg_b)
+        ms, parent = ab_ms(torch, lambda m: functools.partial(
+            m.flash_attention_dq, q2, k, v, g, lse2, delta, **bw), fa, flush)
+        rel = {'dq': rel_errs(torch, fa.flash_attention_dq(
+            q2, k, v, g, lse2, delta, **bw), fa.flash_attention_dq_plain(
+                q2, k, v, g, lse2, delta, **bw))}
+        failures += check_rel(rel, 'k3_' + name)
+        out['k3_' + name] = {
+            **common, 'row_rel': rel['dq'][0], 'rel': rel['dq'][1],
+            'ms': ms, 'parent_ms': parent, 'quant_ms': quant_ms,
+            'dequant_ms': time_ms(torch, lambda: fa.dequantize_rows(
+                quant[2], quant[3], bf16), flush),
+            'plain_ms': time_ms(torch, lambda: fa.flash_attention_dq_plain(
+                q2, k, v, g, lse2, delta, **bw), flush, reps=3),
+            'library_ms': None, 'bound_ms': bms, 'bound_by': by}
         bms, by = bound_mixed(3 * s_ops, s_ops,
                               q_b + kv_b + 2 * kv_b + 2 * q_b
                               + 8 * kv_b + 8 * b * hq * tq + rows_b
                               + seg_b)
-        ms, parent = ab_ms(torch, lambda: fa.flash_attention_dkv(
-            q2, k, v, g, lse2, delta, **bw), flush)
+        ms, parent = ab_ms(torch, lambda m: functools.partial(
+            m.flash_attention_dkv, q2, k, v, g, lse2, delta, **bw), fa, flush)
+        rel = dict(zip(('dk', 'dv'), (
+            rel_errs(torch, x, y) for x, y in zip(
+                fa.flash_attention_dkv(q2, k, v, g, lse2, delta, **bw),
+                fa.flash_attention_dkv_plain(q2, k, v, g, lse2, delta,
+                                             **bw)))))
+        failures += check_rel(rel, 'k4_' + name)
         out['k4_' + name] = {
-            **common, 'ms': ms, 'parent_ms': parent, 'quant_ms': quant_ms,
+            **common, 'row_rel': {n: e[0] for n, e in rel.items()},
+            'rel': {n: e[1] for n, e in rel.items()},
+            'ms': ms, 'parent_ms': parent, 'quant_ms': quant_ms,
             'dequant_ms': time_ms(torch, lambda: fa.dequantize_rows(
                 quant[0], quant[1], bf16), flush),
             'plain_ms': time_ms(torch, lambda: fa.flash_attention_dkv_plain(
                 q2, k, v, g, lse2, delta, **bw), flush, reps=3),
             'library_ms': None, 'bound_ms': bms, 'bound_by': by}
-    out['k4_library'] = 'none: no PyTorch call computes int8 scoring'
+    out['bwd_library'] = 'none: no PyTorch call computes int8 scoring'
     del flush
-    return out
+    return out, failures
 
 
 def phase_main_path(torch, ddp):
@@ -3225,33 +3264,36 @@ def phase_flash_masks(torch, ddp, flush, gen):
                 o_lib, (qr, kr, vr), g, retain_graph=True), flush)
             del o_lib, qr, kr, vr
         s_ops = 2 * d * pairs              # one product's multiply-adds
-        for kname, ops, nbytes, fn, plain_fn in (
+        for kname, ops, nbytes, make, plain_fn in (
                 ('flash_attention', (s_ops * (1 - int8) + s_ops,
                                      s_ops * int8),
                  el * (q_b + kv_b) + 2 * kv_b + 2 * q_b + rows_b + vec_b,
-                 lambda: fa.flash_attention_with_lse(q, k, v, **kw, **feat),
+                 lambda m: functools.partial(m.flash_attention_with_lse,
+                                             q, k, v, **kw, **feat),
                  lambda: fa.flash_attention_plain_lse(q, k, v, **kw,
                                                       **feat)),
                 ('flash_attention_dq', (s_ops * (1 - int8) + 2 * s_ops,
                                         s_ops * int8),
                  el * (q_b + kv_b) + 2 * kv_b + 4 * q_b + 2 * rows_b
                  + vec_b,
-                 lambda: fa.flash_attention_dq(q2, k, v, g, lse2, delta,
-                                               scale=scale, **bw),
+                 lambda m: functools.partial(
+                     m.flash_attention_dq, q2, k, v, g, lse2, delta,
+                     scale=scale, **bw),
                  lambda: fa.flash_attention_dq_plain(
                      q2, k, v, g, lse2, delta, scale=scale, **bw)),
                 ('flash_attention_dkv', (s_ops * (1 - int8) + 3 * s_ops,
                                          s_ops * int8),
                  el * (q_b + kv_b) + 2 * kv_b + 2 * q_b + 4 * kv_b
                  + 2 * rows_b + vec_b,
-                 lambda: fa.flash_attention_dkv(q2, k, v, g, lse2, delta,
-                                                scale=scale, **bw),
+                 lambda m: functools.partial(
+                     m.flash_attention_dkv, q2, k, v, g, lse2, delta,
+                     scale=scale, **bw),
                  lambda: fa.flash_attention_dkv_plain(
                      q2, k, v, g, lse2, delta, scale=scale, **bw))):
             bms, by = bound_mixed(*ops, nbytes)
             # int8 cases: beside the parent checkout's kernels (--parent).
-            ms, parent = (ab_ms(torch, fn, flush) if int8 else
-                          (time_ms(torch, fn, flush), None))
+            ms, parent = (ab_ms(torch, make, fa, flush) if int8 else
+                          (time_ms(torch, make(fa), flush), None))
             timing.setdefault(kname, {})[name] = {
                 'ms': ms, **({} if parent is None else {'parent_ms': parent}),
                 'plain_ms': time_ms(torch, plain_fn, flush, reps=3),
@@ -3388,14 +3430,14 @@ def int8_exact(torch, fa, gen, b):
     lse_i = ln2 * s_ii in float32 on both sides. K4: at a window of 1 key
     j is attended by query j alone, so dk_j = scale * bf16(ds_jj) * q~_j
     and dv_j = bf16(p_jj) * dO_j are single products on both sides
-    (float32 gradients). v and dO hold multiples of 1/8 (|x| <= 16), so
-    dP = dO.v^T is exact in float32 in any order; lse2 is the exact
-    diagonal score (dot * sqf) * skr, so p_jj = exp2(0) = 1; delta puts
-    ds_jj = dP_jj - delta_j on a tie of bf16 rounding (+-(1 + 2^-8) or
-    +-(1 + 3 * 2^-8)), which any change of the score's last bit (the two
-    scale factors in the other order, a neighbour's scale) moves to a
-    neighbouring bf16 value. Then K4 twice on the causal fold, bit for
-    bit."""
+    (float32 gradients); K3 likewise: dq_i = scale * bf16(ds_ii) * k~_i.
+    v and dO hold multiples of 1/8 (|x| <= 16), so dP = dO.v^T is exact
+    in float32 in any order; lse2 is the exact diagonal score (dot * sqf)
+    * skr, so p_jj = exp2(0) = 1; delta puts ds_jj = dP_jj - delta_j on a
+    tie of bf16 rounding (+-(1 + 2^-8) or +-(1 + 3 * 2^-8)), which any
+    change of the score's last bit (the two scale factors in the other
+    order, a neighbour's scale) moves to a neighbouring bf16 value. Then
+    K4 and K3 each twice on the causal fold, bit for bit."""
     dev, bf16 = torch.device('cuda'), torch.bfloat16
     t, d, scale = SP_TN, 64, 1.0 / 8.0
     failures = []
@@ -3447,6 +3489,24 @@ def int8_exact(torch, fa, gen, b):
                         f'version: {same}')
     if not all(repeat.values()):
         failures.append(f'K4 int8 is not repeatable bit for bit: {repeat}')
+
+    bw['window'] = 1
+    got = fa.flash_attention_dq(q2, k, v, g, lse2, delta, **bw)
+    want = fa.flash_attention_dq_plain(q2, k, v, g, lse2, delta, **bw)
+    same = bool(torch.equal(got, want))
+    bw.pop('window')
+    twice = [fa.flash_attention_dq(q2, k, v, g, lse2, delta, **bw)
+             for _ in range(2)]
+    torch.cuda.synchronize()
+    repeat = bool(torch.equal(*twice))
+    emit({'phase': 'flash_masks', 'case': 'int8_dq_exact_all_tiles',
+          'q': list(q.shape), 'window': 1, 'exactly_equal': same,
+          'max_abs_err': (got - want).abs().max().item(),
+          'causal_repeat_bitwise': repeat})
+    if not same:
+        failures.append('K3 int8 at window 1 differs from the plain version')
+    if not repeat:
+        failures.append('K3 int8 is not repeatable bit for bit')
     return failures
 
 
@@ -5163,6 +5223,12 @@ def main():
              masked_fold_f32=feat_time['flash_attention_dq'],
              masks=mask_time['flash_attention_dq'],
              masks_max_abs_err={n: mask_err[n] for n in ('dq', 'dq_f32')},
+             int8=dict(
+                 launches_by_path={
+                     f'flagship_gqa_ring_{FS_STEPS}_steps':
+                         fs['gqa_ring']['flash_attention_dq']},
+                 library=int8_k['bwd_library'],
+                 gqa_ring_fold=int8_k['k3_gqa_ring_fold']),
              **bwd_time['flash_attention_dq']),
         dict(name='flash_attention_dkv', source=csrc + 'flash_bwd.cu',
              replaces=tpu + 'pallas_attention.py:1319',
@@ -5183,7 +5249,7 @@ def main():
                  launches_by_path={
                      f'flagship_gqa_ring_{FS_STEPS}_steps':
                          fs['gqa_ring']['flash_attention_dkv']},
-                 library=int8_k['k4_library'],
+                 library=int8_k['bwd_library'],
                  gqa_ring_fold=int8_k['k4_gqa_ring_fold']),
              **bwd_time['flash_attention_dkv']),
         dict(name='flash_decode', source=csrc + 'flash_decode.cu',

@@ -67,42 +67,41 @@
 // the atomics' order, and the checkpoint's resumed step (equal bit for bit)
 // and the ring's fold sums need repeatable gradients.
 //
-// int8 scoring (Quant): dk/dv is the wgmma kernel's Quant instantiation.
-// The block's int8 k rows stay resident (by TMA through an int8 tensor map,
-// in the bf16 tiles' byte geometry) and every stage carries the query
-// tile's int8 q rows beside the dequantized q~ (made once per call by the
-// wrapper, (q8 * sq) rounded to bf16 as the reference dequantizes in
-// block) and dO; S^T = k8.q8^T is an m64n64k32 s8 wgmma (both operands
-// K-major as stored) and each score (float(dot) * sqf_q) * skr_k, the
-// forward's arithmetic with the rows and columns swapped, bit for bit; dK
-// += dS^T.q~ then carries the plain softmax scale. dq keeps the first
-// version's body (flash_bwd_dq_i8_kernel): nvcuda::wmma 16x16x16
-// fragments (s8 x s8 -> s32 scores), score blocks through shared memory,
-// synchronous tile loads.
+// int8 scoring (Quant): both passes are the wgmma kernels' Quant
+// instantiations. The int8 rows of the resident side (dq: q; dk/dv: k)
+// arrive by TMA through an int8 tensor map, in the bf16 tiles' byte
+// geometry; every stage carries the streamed side's int8 rows beside their
+// dequantized copy (dq: k~; dk/dv: q~), made once per call by the wrapper,
+// (x8 * s) rounded to bf16 as the reference dequantizes in block. S =
+// q8.k8^T (dk/dv: S^T = k8.q8^T) is an m64n64k32 s8 wgmma, both operands
+// K-major as stored, and each score (float(dot) * sqf_q) * skr_k, the
+// forward's arithmetic, bit for bit. dq keeps its rows' q scales in
+// registers and takes each key tile's k scales with the stage; dk/dv keeps
+// its keys' scales in the unused half of the int8 k tile's room and takes
+// each query tile's q scales with the stage. dQ += dS.k~ (k~ read MN-major
+// as the bf16 kernel reads K) and dK += dS^T.q~ then carry the plain
+// softmax scale.
 //
 // Ext: dropout masks and scales dp (both passes) and, for dv, p, with the
 // forward's bits (the hash of global coordinates and the query-side flat
 // (batch, head) index); delta = rowsum(dO*O) already equals the dropped
 // rowsum. The window bounds the key tiles of a query tile (dq) and the
 // query tiles of a key tile (dk/dv). Quant: the scores are recomputed from
-// the same int8 operands (chunk-major tiles as in K1), so p matches the
-// saved lse; the products that take q or k use them dequantized with their
-// raw row scales and rounded to bf16 (dq = scale * ds.k~, dk = scale *
-// ds^T.q~), the straight-through gradient. ALiBi adds K1's bias to the
+// the same int8 operands as in K1, so p matches the saved lse; the
+// products that take q or k use them dequantized with their raw row scales
+// and rounded to bf16 (dq = scale * ds.k~, dk = scale * ds^T.q~), the
+// straight-through gradient. ALiBi adds K1's bias to the
 // recomputed scores (the slopes are constants: no slope gradient).
 // Positions mask, window and key the dropout hash as in K1, and skip the
 // tiles K1 skips: dq the key tiles of its query tile, dk/dv the query tiles
 // of its key tile, from the same per-tile [min, max] tables (read per query
 // (batch, head) row, as the positions are).
 
-#include <mma.h>
 #include <math.h>
 
 #include <type_traits>
 
 #include "hopper.cuh"   // kB, kWarps, kThreads and the Hopper helpers
-
-using namespace nvcuda;
 
 namespace {
 
@@ -113,14 +112,6 @@ constexpr int kRows = kWgs * kB;
 constexpr int kBlockThreads = kWgs * kThreads;
 constexpr int kStages = 3;
 constexpr float kInvLog2e = 0.693147180559945309f;   // 1 / log2(e)
-
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16,
-                             wmma::row_major>;
-using FragBRow = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16,
-                                wmma::row_major>;
-using FragBCol = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16,
-                                wmma::col_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
 
 // A dense boolean mask: byte (b, h, row, col) at
 // ptr + (bh / inner) * so + (bh % inner) * si + row * sr + col.
@@ -154,8 +145,6 @@ struct ExtArgs {
   const signed char* k8;
   const float* sqf;
   const float* skr;
-  const float* sqc;
-  const float* skc;
   const float* alibi;
   VecArgs posq, posk;
   VecArgs posq_mm, posk_mm;
@@ -178,12 +167,6 @@ __device__ __forceinline__ unsigned int drop_hash(unsigned int rh,
   return x;
 }
 
-using FragAi = wmma::fragment<wmma::matrix_a, 16, 16, 16, signed char,
-                              wmma::row_major>;
-using FragBi = wmma::fragment<wmma::matrix_b, 16, 16, 16, signed char,
-                              wmma::col_major>;
-using FragCi = wmma::fragment<wmma::accumulator, 16, 16, 16, int>;
-
 __device__ __forceinline__ void store_pair(bf16* dst, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(a, b);
 }
@@ -192,164 +175,39 @@ __device__ __forceinline__ void store_pair(float* dst, float a, float b) {
   *reinterpret_cast<float2*>(dst) = make_float2(a, b);
 }
 
-// Rows [row0, row0 + 64) of a (rows, D) bf16 matrix into shared memory,
-// 16 bytes a thread; rows at or past `limit` load as zeros.
-template <int D>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
-                                          int row0, int limit) {
-  constexpr int kChunks = D / 8;
-  for (int idx = threadIdx.x; idx < kB * kChunks; idx += kThreads) {
-    const int r = idx / kChunks, c = idx % kChunks;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < limit)
-      val = *reinterpret_cast<const uint4*>(
-          src + static_cast<size_t>(row0 + r) * D + c * 8);
-    *reinterpret_cast<uint4*>(dst + r * D + c * 8) = val;
-  }
-}
-
-// Rows [row0, row0 + 64) of a (rows, D) int8 matrix into shared memory
-// chunk-major ([D/16][64][16] bytes, every wmma fragment 256-bit aligned);
-// with `deq`, also dequantized with the row scales `scale` and rounded to
-// bf16 into `deq` (64 x D, row-major). Rows at or past `limit` load as
-// zeros.
-template <int D>
-__device__ __forceinline__ void load_i8_tile(signed char* dst,
-                                             const signed char* src,
-                                             int row0, int limit,
-                                             bf16* deq = nullptr,
-                                             const float* scale = nullptr) {
-  constexpr int kChunks = D / 16;
-  for (int idx = threadIdx.x; idx < kB * kChunks; idx += kThreads) {
-    const int r = idx / kChunks, c = idx % kChunks;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    float sc = 0.f;
-    if (row0 + r < limit) {
-      val = *reinterpret_cast<const uint4*>(
-          src + static_cast<size_t>(row0 + r) * D + c * 16);
-      if (deq != nullptr) sc = scale[row0 + r];
-    }
-    *reinterpret_cast<uint4*>(dst + (c * kB + r) * 16) = val;
-    if (deq != nullptr) {
-      const signed char* e = reinterpret_cast<const signed char*>(&val);
-      __align__(16) bf16 w[16];
-#pragma unroll
-      for (int i = 0; i < 16; ++i)
-        w[i] = __float2bfloat16(static_cast<float>(e[i]) * sc);
-      uint4* o = reinterpret_cast<uint4*>(deq + r * D + c * 16);
-      o[0] = reinterpret_cast<const uint4*>(w)[0];
-      o[1] = reinterpret_cast<const uint4*>(w)[1];
-    }
-  }
-}
-
-// One warp: c (16 x 64 int32, ld 64) = a . b^T over chunk-major int8
-// tiles: rows [a_row0, a_row0 + 16) of a against the 64 rows of b.
-template <int D>
-__device__ __forceinline__ void warp_abt_i8(const signed char* a, int a_row0,
-                                            const signed char* b, int* c) {
-#pragma unroll
-  for (int j = 0; j < kB / 16; ++j) {
-    FragCi acc;
-    wmma::fill_fragment(acc, 0);
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      FragAi fa;
-      FragBi fb;
-      wmma::load_matrix_sync(fa, a + (kk * kB + a_row0) * 16, 16);
-      wmma::load_matrix_sync(fb, b + (kk * kB + j * 16) * 16, 16);
-      wmma::mma_sync(acc, fa, fb, acc);
-    }
-    wmma::store_matrix_sync(c + j * 16, acc, kB, wmma::mem_row_major);
-  }
-}
-
-// One warp: c (16 x 64 f32, ld 64) = a (16 x D, ld D) . b^T, b 64 x D.
-template <int D>
-__device__ __forceinline__ void warp_abt(const bf16* a, const bf16* b,
-                                         float* c) {
-#pragma unroll
-  for (int j = 0; j < kB / 16; ++j) {
-    FragC acc;
-    wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      FragA fa;
-      FragBCol fb;
-      wmma::load_matrix_sync(fa, a + kk * 16, D);
-      wmma::load_matrix_sync(fb, b + j * 16 * D + kk * 16, D);
-      wmma::mma_sync(acc, fa, fb, acc);
-    }
-    wmma::store_matrix_sync(c + j * 16, acc, kB, wmma::mem_row_major);
-  }
-}
-
-// One warp: acc[j] (16 x 16 columns j of a 16 x D block) += a . b with
-// a 16 x 64 (bf16, ld 64) and b 64 x D (bf16, ld D).
-template <int D>
-__device__ __forceinline__ void warp_ab_acc(FragC (&acc)[D / 16],
-                                            const bf16* a, const bf16* b) {
-#pragma unroll
-  for (int kk = 0; kk < kB / 16; ++kk) {
-    FragA fa;
-    wmma::load_matrix_sync(fa, a + kk * 16, kB);
-#pragma unroll
-    for (int j = 0; j < D / 16; ++j) {
-      FragBRow fb;
-      wmma::load_matrix_sync(fb, b + kk * 16 * D + j * 16, D);
-      wmma::mma_sync(acc[j], fa, fb, acc[j]);
-    }
-  }
-}
-
-// Writes one warp's 16 x D accumulator as OutT rows times `mul`: staged
-// through the warp's own 16 x D float region of shared memory; lanes
-// (2r, 2r+1) write half a row each, rows at or past `limit` are skipped.
-template <int D, typename OutT>
-__device__ __forceinline__ void store_rows(FragC (&acc)[D / 16], float* stage,
-                                           OutT* dst, int row0, int limit,
-                                           float mul) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  float* ws = stage + warp * 16 * D;
-#pragma unroll
-  for (int j = 0; j < D / 16; ++j)
-    wmma::store_matrix_sync(ws + j * 16, acc[j], D, wmma::mem_row_major);
-  __syncwarp();
-  const int r = lane >> 1, half = lane & 1;
-  const int row = row0 + warp * 16 + r;
-  if (row < limit) {
-    const float* src = ws + r * D + half * (D / 2);
-    OutT* out = dst + static_cast<size_t>(row) * D + half * (D / 2);
-#pragma unroll
-    for (int c = 0; c < D / 2; c += 2)
-      store_pair(out + c, src[c] * mul, src[c + 1] * mul);
-  }
-  __syncwarp();
-}
-
 // ---------------------------------------------------------------------------
-// The wgmma kernels (every instantiation but int8 scoring): two warpgroups
-// a block, each owning one 64-row tile of the block's 128 rows, so a tile
-// streamed through the kStages stages serves 128 rows.
+// The wgmma kernels: two warpgroups a block, each owning one 64-row tile
+// of the block's 128 rows, so a tile streamed through the kStages stages
+// serves 128 rows.
 
-template <int D, bool Ext>
+// Per stage, the key tile's vectors of the Ext instantiations: segment ids
+// and positions, and with Quant its k scales skr.
+template <bool Ext, bool Quant>
+constexpr int kKeyVecs = Quant ? 3 : (Ext ? 2 : 0);
+
+template <int D, bool Ext, bool Quant>
 constexpr size_t dq_smem_bytes() {
-  return sizeof(bf16) * (2 * kRows + 2 * kStages * kB) * D  // sQ, sG; sK, sV
-         + (Ext ? kStages * 2 * kB * sizeof(int) : 0)       // segk, posk
-         + kStages * sizeof(uint64_t);                      // the barriers
+  return kRows * D * (Quant ? 1 : 2)                      // sQ (int8 q)
+         + sizeof(bf16) * (kRows + 2 * kStages * kB) * D  // sG; sK, sV
+         + (Quant ? kStages * kB * D : 0)                 // int8 k
+         + kStages * kKeyVecs<Ext, Quant> * kB * 4        // segk, posk, skr
+         + kStages * sizeof(uint64_t);                    // the barriers
 }
 
 // dq for one 128-row query block of one (batch, head) row: q2 and dO stay
 // in shared memory, key and value tiles stream through the stages (TMA,
 // one barrier a stage); each warpgroup's S, dP and dS live in its
 // registers. The tensor maps: q2 and dO (batch_heads, tq, D), k and v
-// (batch_heads / group, tk, D), 64 x 8 boxes.
-template <int D, bool HasMask, typename OutT, bool Ext>
+// (batch_heads / group, tk, D), 64-row x 16-byte boxes; with Quant, map_q
+// is the int8 q (resident, in half of q2's room), map_k the dequantized k~
+// and map_k8 the int8 k (its own stage slots).
+template <int D, bool HasMask, typename OutT, bool Ext, bool Quant>
 __global__ void __launch_bounds__(kBlockThreads)
 flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
                     const __grid_constant__ CUtensorMap map_k,
                     const __grid_constant__ CUtensorMap map_v,
                     const __grid_constant__ CUtensorMap map_g,
+                    const __grid_constant__ CUtensorMap map_k8,
                     const float* __restrict__ lse2,
                     const float* __restrict__ delta, OutT* __restrict__ dq,
                     MaskArgs mask, int tq, int tk, int group, int causal,
@@ -357,14 +215,20 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
                     int n_qblocks, ExtArgs ext) {
   static_assert(D % 32 == 0 && D <= 128, "head dim must be 32*n <= 128");
   static_assert(!(HasMask && Ext), "Ext reads the mask at run time");
+  static_assert(!Quant || (Ext && !HasMask), "int8 scoring is Ext");
+  constexpr int kQB = Quant ? 1 : 2;   // bytes of a q element
+  constexpr int kKV = kKeyVecs<Ext, Quant>;
   extern __shared__ __align__(1024) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);   // warpgroup w's rows at w*kB*D
-  bf16* sG = sQ + kRows * D;
+  bf16* sQ = reinterpret_cast<bf16*>(smem);   // warpgroup w's rows at
+                                              // byte w*kB*D*kQB
+  bf16* sG = reinterpret_cast<bf16*>(smem + kRows * D * kQB);
   bf16* sKV = sG + kRows * D;   // stage s: K at sKV + 2s*kB*D, V after it
-  int* sVec = reinterpret_cast<int*>(sKV + 2 * kStages * kB * D);   // stage
-                                             // s: segk at 2s*kB, posk after
-  uint64_t* bars = reinterpret_cast<uint64_t*>(sVec +
-                                               (Ext ? kStages * 2 * kB : 0));
+  signed char* sK8 = reinterpret_cast<signed char*>(
+      sKV + 2 * kStages * kB * D);   // Quant, stage s: int8 k at s*kB*D
+  int* sVec = reinterpret_cast<int*>(
+      sK8 + (Quant ? kStages * kB * D : 0));   // stage s at kKV*s*kB:
+                                               // segk, posk, skr (floats)
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sVec + kStages * kKV * kB);
   if (threadIdx.x == 0) {
     for (int st = 0; st < kStages; ++st) mbar_init(&bars[st], 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -444,29 +308,41 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
     bf16* sK = sKV + 2 * stage * kB * D;
     if (threadIdx.x == 0) {
       uint64_t* bar = &bars[stage];
-      mbar_expect_tx(bar, (resident ? 6 : 2) * kB * D * sizeof(bf16));
+      // Resident: q2 (int8: 1 byte an element) and dO for both warpgroups;
+      // streamed: K (k~) and V, and the int8 k.
+      mbar_expect_tx(bar, (resident ? kRows * D * (kQB + 2) : 0) +
+                              (Quant ? 5 : 4) * kB * D);
       if (resident) {
         for (int w = 0; w < kWgs; ++w) {
-          tma_tile<D>(sQ + w * kB * D, &map_q, qb0 + w * kB, bh, bar);
+          if constexpr (Quant)
+            tma_tile<D>(reinterpret_cast<signed char*>(sQ) + w * kB * D,
+                        &map_q, qb0 + w * kB, bh, bar);
+          else
+            tma_tile<D>(sQ + w * kB * D, &map_q, qb0 + w * kB, bh, bar);
           tma_tile<D>(sG + w * kB * D, &map_g, qb0 + w * kB, bh, bar);
         }
       }
       tma_tile<D>(sK, &map_k, t * kB, bkv, bar);
       tma_tile<D>(sK + kB * D, &map_v, t * kB, bkv, bar);
+      if constexpr (Quant)
+        tma_tile<D>(sK8 + stage * kB * D, &map_k8, t * kB, bkv, bar);
     }
     if constexpr (Ext) {
-      int* sv = sVec + 2 * stage * kB;
+      int* sv = sVec + kKV * stage * kB;
       if (segk_row != nullptr) load_vec_async(sv, segk_row, t * kB, tk);
       if (posk_row != nullptr) load_vec_async(sv + kB, posk_row, t * kB, tk);
+      if constexpr (Quant)
+        load_vec_async(sv + 2 * kB, ext.skr + static_cast<size_t>(bkv) * tk,
+                       t * kB, tk);
     }
   };
 
   // This thread's two query rows of the accumulator layout: lr and lr + 8
-  // of its warpgroup's tile.
+  // of its warpgroup's tile (with Quant, their q scales sqf).
   const int lr = acc_row(0);
   bool row_ok[2];
   long long row_pos[2];
-  float lse_r[2], delta_r[2];
+  float lse_r[2], delta_r[2], sqf_r[2] = {0.f, 0.f};
   const unsigned char* mrow[2] = {nullptr, nullptr};
   int seg_r[2] = {0, 0}, pos_r[2] = {0, 0};
   unsigned int drop_rh[2] = {0u, 0u};
@@ -479,6 +355,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
     row_pos[h] = rel + row;
     lse_r[h] = row_ok[h] ? lse2[qoff + row] : 0.f;
     delta_r[h] = row_ok[h] ? delta[qoff + row] : 0.f;
+    if constexpr (Quant) sqf_r[h] = row_ok[h] ? ext.sqf[qoff + row] : 0.f;
     if (row_ok[h] && (HasMask || (Ext && mask.ptr != nullptr)))
       mrow[h] = mask_base(mask, bh) + static_cast<long long>(row) * mask.sr;
     if constexpr (Ext) {
@@ -510,7 +387,8 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
     }
     cp_async_commit();
   }
-  const uint32_t tQ = smem_u32(sQ + wg * kB * D);
+  const uint32_t tQ =
+      smem_u32(reinterpret_cast<unsigned char*>(sQ) + wg * kB * D * kQB);
   const uint32_t tG = smem_u32(sG + wg * kB * D);
   const bool rows_full = q0 + kB <= tq;
   for (int it = 0, stage = 0; t < t_end; ++it) {
@@ -528,22 +406,51 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
       const int k0 = t * kB;
       const uint32_t tK = smem_u32(sKV + 2 * stage * kB * D);
       const uint32_t tV = tK + kB * D * sizeof(bf16);
+      const int* sv = sVec + kKV * stage * kB;
+      // S by wgmma: with Quant, q8 k8^T as int32 dots (k32 steps), then
+      // (float(dot) * sqf_q) * skr_k, the q scale first, as the forward
+      // applies it.
+      std::conditional_t<Quant, int, float> sa[32];
       float s[32], dp[32];
 #pragma unroll
-      for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
-      fence_regs(s);
+      for (int i = 0; i < 32; ++i) {
+        sa[i] = 0;
+        dp[i] = 0.f;
+      }
+      fence_regs(sa);
       fence_regs(dp);
       wgmma_fence();
+      if constexpr (Quant) {
+        const uint32_t tK8 = smem_u32(sK8 + stage * kB * D);
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        Wgmma<64>::ss(s, desc_kmajor(tQ, kk), desc_kmajor(tK, kk), kk);
+        for (int kk = 0; kk < D / 32; ++kk)
+          Wgmma<64>::ss(sa, desc_kmajor(tQ, kk), desc_kmajor(tK8, kk), kk);
+      } else {
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          Wgmma<64>::ss(sa, desc_kmajor(tQ, kk), desc_kmajor(tK, kk), kk);
+      }
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
         Wgmma<64>::ss(dp, desc_kmajor(tG, kk), desc_kmajor(tV, kk), kk);
       wgmma_commit();
       wgmma_wait<0>();
-      fence_regs(s);
+      fence_regs(sa);
       fence_regs(dp);
+      if constexpr (Quant) {
+        const float2* skr2 = reinterpret_cast<const float2*>(sv + 2 * kB);
+#pragma unroll
+        for (int i = 0; i < 32; i += 2) {
+          const float2 ck = skr2[acc_col(i) / 2];
+          const float rq = sqf_r[(i >> 1) & 1];
+          s[i] = __fmul_rn(__fmul_rn(static_cast<float>(sa[i]), rq), ck.x);
+          s[i + 1] =
+              __fmul_rn(__fmul_rn(static_cast<float>(sa[i + 1]), rq), ck.y);
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) s[i] = sa[i];
+      }
 
       // dS = P * (dP - delta), P = exp2(S - lse2) where allowed, else 0. A
       // tile wholly inside the rows, the columns, the causal extent and the
@@ -563,7 +470,6 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
       } else {
         full = full && (!causal || k0 + kB - 1 <= rel + q0);
       }
-      const int* sv = sVec + 2 * stage * kB;
       auto scores = [&](auto tested) {
         constexpr bool kTest = decltype(tested)::value;
 #pragma unroll
@@ -613,7 +519,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
       uint32_t ds[4][4];
       to_frags(dp, ds);
 
-      // dQ += dS . K, dS from registers, K read MN-major.
+      // dQ += dS . K (k~), dS from registers, K read MN-major.
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
@@ -904,55 +810,49 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap map_q,
       const int* sPosQ = sSegQ + kB;
       // Transposed blocks: rows are this warpgroup's keys, columns the
       // queries.
+      // S^T by wgmma: with Quant, k8 q8^T as int32 dots (k32 steps), then
+      // (float(dot) * sqf_q) * skr_k, the q scale first, as the forward
+      // applies it.
+      std::conditional_t<Quant, int, float> sa[32];
       float s[32], dp[32];
-      if constexpr (Quant) {
-        // S^T = k8 q8^T as int32 dots (k32 steps), then (float(dot) *
-        // sqf_q) * skr_k: the q scale first, as the forward applies it.
-        const uint32_t tQ8 = smem_u32(sQ8 + stage * kB * D);
-        int dot[32];
 #pragma unroll
-        for (int i = 0; i < 32; ++i) {
-          dot[i] = 0;
-          dp[i] = 0.f;
-        }
-        fence_regs(dot);
-        fence_regs(dp);
-        wgmma_fence();
+      for (int i = 0; i < 32; ++i) {
+        sa[i] = 0;
+        dp[i] = 0.f;
+      }
+      fence_regs(sa);
+      fence_regs(dp);
+      wgmma_fence();
+      if constexpr (Quant) {
+        const uint32_t tQ8 = smem_u32(sQ8 + stage * kB * D);
 #pragma unroll
         for (int kk = 0; kk < D / 32; ++kk)
-          Wgmma<64>::ss(dot, desc_kmajor(tK, kk), desc_kmajor(tQ8, kk), kk);
+          Wgmma<64>::ss(sa, desc_kmajor(tK, kk), desc_kmajor(tQ8, kk), kk);
+      } else {
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk)
-          Wgmma<64>::ss(dp, desc_kmajor(tV, kk), desc_kmajor(tG, kk), kk);
-        wgmma_commit();
-        wgmma_wait<0>();
-        fence_regs(dot);
-        fence_regs(dp);
+          Wgmma<64>::ss(sa, desc_kmajor(tK, kk), desc_kmajor(tQ, kk), kk);
+      }
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        Wgmma<64>::ss(dp, desc_kmajor(tV, kk), desc_kmajor(tG, kk), kk);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sa);
+      fence_regs(dp);
+      if constexpr (Quant) {
         const float2* sqf2 = reinterpret_cast<const float2*>(sLse + 2 * kB);
 #pragma unroll
         for (int i = 0; i < 32; i += 2) {
           const float2 c = sqf2[acc_col(i) / 2];
           const float r = sSkr[wg * kB + lr + 8 * ((i >> 1) & 1)];
-          s[i] = __fmul_rn(__fmul_rn(static_cast<float>(dot[i]), c.x), r);
-          s[i + 1] = __fmul_rn(__fmul_rn(static_cast<float>(dot[i + 1]), c.y),
-                               r);
+          s[i] = __fmul_rn(__fmul_rn(static_cast<float>(sa[i]), c.x), r);
+          s[i + 1] =
+              __fmul_rn(__fmul_rn(static_cast<float>(sa[i + 1]), c.y), r);
         }
       } else {
 #pragma unroll
-        for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
-        fence_regs(s);
-        fence_regs(dp);
-        wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk)
-          Wgmma<64>::ss(s, desc_kmajor(tK, kk), desc_kmajor(tQ, kk), kk);
-#pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk)
-          Wgmma<64>::ss(dp, desc_kmajor(tV, kk), desc_kmajor(tG, kk), kk);
-        wgmma_commit();
-        wgmma_wait<0>();
-        fence_regs(s);
-        fence_regs(dp);
+        for (int i = 0; i < 32; ++i) s[i] = sa[i];
       }
 
       // P^T into s (the dropped, rescaled weights dv takes), dS^T into dp.
@@ -1072,181 +972,6 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap map_q,
   }
 }
 
-// int8 scoring's dq (the Quant instantiation of dq): the first version's
-// body, on nvcuda::wmma fragments with score blocks through shared memory.
-// Each warp owns 16 rows of every score block.
-
-template <int D>
-constexpr size_t dq_i8_smem_bytes() {
-  return sizeof(bf16) * (4 * kB * D     // sQ (int8 q), sG, sK, sV
-                         + kB * kB)     // sDS
-         + sizeof(float) * 2 * kB * kB  // sS, sDP (the epilogue's stage)
-         + kB * D                       // sK8
-         + kB * (2 * sizeof(int) + sizeof(float));   // sSegK, sSkr, sPosK
-}
-
-template <int D, typename OutT>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_i8_kernel(const bf16* __restrict__ v,
-                       const bf16* __restrict__ g,
-                       const float* __restrict__ lse2,
-                       const float* __restrict__ delta, OutT* __restrict__ dq,
-                       MaskArgs mask, int tq, int tk, int group, int causal,
-                       int causal_offset, int kv_offset, float scale,
-                       int n_qtiles, ExtArgs ext) {
-  static_assert(D % 16 == 0 && D <= 128, "head dim must be 16*n <= 128");
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sG = sQ + kB * D;
-  bf16* sK = sG + kB * D;
-  bf16* sV = sK + kB * D;
-  bf16* sDS = sV + kB * D;
-  float* sS = reinterpret_cast<float*>(sDS + kB * kB);
-  float* sDP = sS + kB * kB;
-  // The int8 q tile in the sQ region, the int8 k tile in sK8 and its
-  // dequantized bf16 copy (the ds.k operand) in sK.
-  signed char* sQ8 = reinterpret_cast<signed char*>(sQ);
-  signed char* sK8 = reinterpret_cast<signed char*>(sDP + kB * kB);
-  int* sSegK = reinterpret_cast<int*>(sK8 + kB * D);
-  float* sSkr = reinterpret_cast<float*>(sSegK + kB);
-  int* sPosK = reinterpret_cast<int*>(sSkr + kB);
-
-  // Late query tiles see the most keys under causal masking: first.
-  const int tile = n_qtiles - 1 - static_cast<int>(blockIdx.y);
-  const int bh = blockIdx.x;
-  const int bkv = bh / group;
-  const int q0 = tile * kB;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-
-  const size_t qoff = static_cast<size_t>(bh) * tq;
-  const bf16* vb = v + static_cast<size_t>(bkv) * tk * D;
-
-  // Row i may attend local key column j when rel + i >= j.
-  const long long rel = static_cast<long long>(causal_offset) - kv_offset;
-  int kv_end = tk;
-  if (causal) {
-    const int rows = (q0 + kB < tq ? q0 + kB : tq);
-    const long long extent = rel + rows;
-    kv_end = extent <= 0 ? 0 : (extent < tk ? static_cast<int>(extent) : tk);
-  }
-  const int n_ktiles = (kv_end + kB - 1) / kB;
-  int t_begin = 0;
-  if (causal && ext.window > 0) {
-    const long long first = rel + q0 - ext.window + 1;
-    t_begin = first <= 0 ? 0
-            : (first >= kv_end ? n_ktiles : static_cast<int>(first) / kB);
-  }
-
-  load_i8_tile<D>(sQ8, ext.q8 + qoff * D, q0, tq);
-  load_tile<D>(sG, g + qoff * D, q0, tq);
-
-  // Elementwise ownership: lanes (2r, 2r+1) of warp w hold query row
-  // w*16 + r, 32 key columns each.
-  const int my_row = warp * 16 + (lane >> 1);
-  const int half = lane & 1;
-  const bool row_ok = q0 + my_row < tq;
-  const long long row_pos = rel + q0 + my_row;
-  const unsigned char* mrow = nullptr;
-  if (row_ok && mask.ptr != nullptr)
-    mrow = mask_base(mask, bh) + static_cast<long long>(q0 + my_row) * mask.sr;
-  const float lse_r = row_ok ? lse2[qoff + q0 + my_row] : 0.f;
-  const float delta_r = row_ok ? delta[qoff + q0 + my_row] : 0.f;
-  const float sqf_r = row_ok ? ext.sqf[qoff + q0 + my_row] : 0.f;
-  int seg_r = 0;
-  const int* segk_row = nullptr;
-  if (ext.segk.ptr != nullptr) {
-    segk_row = vec_row(ext.segk, bh);
-    seg_r = row_ok ? vec_row(ext.segq, bh)[q0 + my_row] : 0;
-  }
-  const float slope = ext.alibi != nullptr ? ext.alibi[bh] : 0.f;
-  int pos_r = 0, qmin = 0, qmax = 0;
-  const int* posk_row = nullptr;
-  const int* posk_mm = nullptr;
-  if (ext.posk.ptr != nullptr) {
-    posk_row = vec_row(ext.posk, bh);
-    posk_mm = vec_row(ext.posk_mm, bh);
-    pos_r = row_ok ? vec_row(ext.posq, bh)[q0 + my_row] : 0;
-    qmin = vec_row(ext.posq_mm, bh)[2 * tile];
-    qmax = vec_row(ext.posq_mm, bh)[2 * tile + 1];
-  }
-  const unsigned int drop_rh =
-      static_cast<unsigned int>(
-          posk_row != nullptr ? pos_r : causal_offset + q0 + my_row) *
-      2654435761u;
-  const unsigned int drop_bs =
-      ext.seed + static_cast<unsigned int>(bh) * 668265263u;
-
-  FragC acc[D / 16];
-#pragma unroll
-  for (int j = 0; j < D / 16; ++j) wmma::fill_fragment(acc[j], 0.f);
-
-  for (int t = t_begin; t < n_ktiles; ++t) {
-    const int k0 = t * kB;
-    // Positions: K1's tile skip (the same decision in every thread).
-    if (posk_mm != nullptr &&
-        (posk_mm[2 * t] > qmax ||
-         (ext.window > 0 &&
-          static_cast<long long>(qmin) - posk_mm[2 * t + 1] >= ext.window)))
-      continue;
-    __syncthreads();   // all warps done with the previous sK/sV
-    load_i8_tile<D>(sK8, ext.k8 + static_cast<size_t>(bkv) * tk * D, k0, tk,
-                    sK, ext.skc + static_cast<size_t>(bkv) * tk);
-    load_tile<D>(sV, vb, k0, tk);
-    for (int i = threadIdx.x; i < kB; i += kThreads) {
-      const bool ok = k0 + i < tk;
-      sSegK[i] = (segk_row != nullptr && ok) ? segk_row[k0 + i] : 0;
-      sPosK[i] = (posk_row != nullptr && ok) ? posk_row[k0 + i] : 0;
-      sSkr[i] = ok ? ext.skr[static_cast<size_t>(bkv) * tk + k0 + i] : 0.f;
-    }
-    __syncthreads();
-
-    warp_abt_i8<D>(sQ8, warp * 16, sK8,
-                   reinterpret_cast<int*>(sS) + warp * 16 * kB);
-    warp_abt<D>(sG + warp * 16 * D, sV, sDP + warp * 16 * kB);
-    __syncwarp();
-
-    const int* srow = reinterpret_cast<const int*>(sS) + my_row * kB +
-                      half * 32;
-    const float* dprow = sDP + my_row * kB + half * 32;
-    bf16* dsrow = sDS + my_row * kB + half * 32;
-#pragma unroll
-    for (int c = 0; c < 32; ++c) {
-      const int col = k0 + half * 32 + c;
-      // pos_q - pos_k, as in K1.
-      const long long back = posk_row != nullptr
-                                 ? static_cast<long long>(pos_r) -
-                                       sPosK[half * 32 + c]
-                                 : row_pos - col;
-      bool valid = row_ok && col < tk && (!causal || col <= row_pos);
-      if (mrow != nullptr) valid = valid && !mrow[col];
-      if (posk_row != nullptr) valid = valid && back >= 0;
-      if (ext.window > 0) valid = valid && back < ext.window;
-      if (segk_row != nullptr) valid = valid && seg_r == sSegK[half * 32 + c];
-      float sc = static_cast<float>(srow[c]) * sqf_r * sSkr[half * 32 + c];
-      if (ext.alibi != nullptr)
-        sc = __fadd_rn(sc, __fmul_rn(slope, static_cast<float>(-back)));
-      float dpv = dprow[c];
-      if (ext.dropout) {
-        const unsigned int ch =
-            static_cast<unsigned int>(posk_row != nullptr
-                                          ? sPosK[half * 32 + c]
-                                          : kv_offset + col) *
-            2246822519u;
-        dpv = drop_hash(drop_rh, ch, drop_bs) >= ext.drop_threshold
-                  ? dpv * ext.drop_inv : 0.f;
-      }
-      const float p = valid ? exp2f(sc - lse_r) : 0.f;
-      dsrow[c] = __float2bfloat16(p * (dpv - delta_r));
-    }
-    __syncwarp();
-
-    warp_ab_acc<D>(acc, sDS + warp * 16 * kB, sK);
-  }
-
-  __syncthreads();   // the stage overlays other warps' score rows
-  store_rows<D, OutT>(acc, sS, dq + qoff * D, q0, tq, scale);
-}
-
 // Sets the kernel's dynamic shared memory and launches it; returns a
 // cudaError_t code (0 = launched).
 template <typename... Params, typename... Args>
@@ -1261,16 +986,19 @@ int launch(void (*kernel)(Params...), dim3 grid, int threads, size_t smem,
 }
 
 // The maps of q2 and dO (batch_heads, tq, D) and of k and v (batch_heads /
-// group, tk, D; k int8 with `k_i8`), in the kernels' parameter order; false
-// when one fails.
-template <int N>
-bool operand_maps(CUtensorMap (&maps)[N], const void* q2, const void* k,
+// group, tk, D; q or k int8 with `q_i8` / `k_i8`), in the kernels'
+// parameter order, and of the int8 operand a Quant instantiation streams
+// (`x8`: rows `x8_rows` of `x8_heads` heads, none when 0); false when one
+// fails.
+bool operand_maps(CUtensorMap (&maps)[5], const void* q2, const void* k,
                   const void* v, const void* g, int batch_heads, int group,
-                  int tq, int tk, int d, bool k_i8 = false) {
-  return tile_map(&maps[0], q2, batch_heads, tq, d) &&
+                  int tq, int tk, int d, bool q_i8, bool k_i8,
+                  const void* x8, int x8_heads, int x8_rows) {
+  return tile_map(&maps[0], q2, batch_heads, tq, d, q_i8) &&
          tile_map(&maps[1], k, batch_heads / group, tk, d, k_i8) &&
          tile_map(&maps[2], v, batch_heads / group, tk, d) &&
-         tile_map(&maps[3], g, batch_heads, tq, d);
+         tile_map(&maps[3], g, batch_heads, tq, d) &&
+         tile_map(&maps[4], x8, x8_heads, x8_rows, d, true);
 }
 
 template <int D, bool HasMask, typename OutT, bool Ext, bool Quant>
@@ -1279,33 +1007,24 @@ int launch_dq(const void* q2, const void* k, const void* v, const void* g,
               const MaskArgs& mask, int batch_heads, int group, int tq,
               int tk, int causal, int causal_offset, int kv_offset,
               float scale, const ExtArgs& ext, cudaStream_t stream) {
-  const int n_qtiles = (tq + kB - 1) / kB;
-  if (n_qtiles == 0 || batch_heads == 0) return 0;
-  const float* lb = static_cast<const float*>(lse2);
-  const float* db = static_cast<const float*>(delta);
-  OutT* out = static_cast<OutT*>(dq);
-  if constexpr (Quant) {
-    // blockIdx.x the (batch, head) row, blockIdx.y the query tile from the
-    // last.
-    return launch(flash_bwd_dq_i8_kernel<D, OutT>,
-                  dim3(batch_heads, n_qtiles), kThreads,
-                  dq_i8_smem_bytes<D>(), stream, static_cast<const bf16*>(v),
-                  static_cast<const bf16*>(g), lb, db, out, mask, tq, tk,
-                  group, causal, causal_offset, kv_offset, scale, n_qtiles,
-                  ext);
-  } else {
-    CUtensorMap maps[4];
-    if (!operand_maps(maps, q2, k, v, g, batch_heads, group, tq, tk, D))
-      return static_cast<int>(cudaErrorInvalidValue);
-    // blockIdx.x the (batch, head) row, blockIdx.y the 128-row query block
-    // from the last: every row's longest causal extents launch first.
-    const int n_qblocks = (tq + kRows - 1) / kRows;
-    return launch(flash_bwd_dq_kernel<D, HasMask, OutT, Ext>,
-                  dim3(batch_heads, n_qblocks), kBlockThreads,
-                  dq_smem_bytes<D, Ext>(), stream, maps[0], maps[1], maps[2],
-                  maps[3], lb, db, out, mask, tq, tk, group, causal,
-                  causal_offset, kv_offset, scale, n_qblocks, ext);
-  }
+  const int n_qblocks = (tq + kRows - 1) / kRows;
+  if (n_qblocks == 0 || batch_heads == 0) return 0;
+  // int8 scoring: q2 is the int8 q of ExtArgs and k the dequantized k~,
+  // beside the int8 k.
+  CUtensorMap maps[5];
+  if (!operand_maps(maps, Quant ? ext.q8 : q2, k, v, g, batch_heads, group,
+                    tq, tk, D, Quant, false, ext.k8,
+                    Quant ? batch_heads / group : 0, tk))
+    return static_cast<int>(cudaErrorInvalidValue);
+  // blockIdx.x the (batch, head) row, blockIdx.y the 128-row query block
+  // from the last: every row's longest causal extents launch first.
+  return launch(flash_bwd_dq_kernel<D, HasMask, OutT, Ext, Quant>,
+                dim3(batch_heads, n_qblocks), kBlockThreads,
+                dq_smem_bytes<D, Ext, Quant>(), stream, maps[0], maps[1],
+                maps[2], maps[3], maps[4], static_cast<const float*>(lse2),
+                static_cast<const float*>(delta), static_cast<OutT*>(dq),
+                mask, tq, tk, group, causal, causal_offset, kv_offset, scale,
+                n_qblocks, ext);
 }
 
 template <int D, bool HasMask, typename OutT, bool Ext, bool Quant>
@@ -1319,8 +1038,8 @@ int launch_dkv(const void* q2, const void* k, const void* v, const void* g,
   // beside the int8 q.
   CUtensorMap maps[5];
   if (!operand_maps(maps, q2, Quant ? ext.k8 : k, v, g, batch_heads, group,
-                    tq, tk, D, Quant) ||
-      !tile_map(&maps[4], ext.q8, Quant ? batch_heads : 0, tq, D, true))
+                    tq, tk, D, false, Quant, ext.q8,
+                    Quant ? batch_heads : 0, tq))
     return static_cast<int>(cudaErrorInvalidValue);
   // blockIdx.x the kv head, blockIdx.y the 128-row key block: every head's
   // early key blocks (seen by the most causal query rows) first.
@@ -1348,10 +1067,10 @@ MaskArgs mask_args(const void* mask, int inner, long long so, long long si,
 // in bf16 otherwise. mask: null, or bytes addressed as MaskArgs (inner =
 // heads; strides in bytes). ext: null (the base instantiations), or the
 // segments, window, dropout, int8 operands, ALiBi slopes and positions of
-// ExtArgs (the Ext instantiations; with int8 operands dq reads neither q2
-// nor k, and dk/dv reads the dequantized q~ as q2 and not k). All
-// contiguous, bf16 unless stated. Returns a cudaError_t code (0 =
-// launched).
+// ExtArgs (the Ext instantiations; with int8 operands dq reads the int8 q
+// and not q2, and the dequantized k~ as k; dk/dv reads the dequantized q~
+// as q2, and the int8 k and not k). All contiguous, bf16 unless stated.
+// Returns a cudaError_t code (0 = launched).
 extern "C" int flash_bwd_dq_bf16(const void* q2, const void* k,
                                  const void* v, const void* g,
                                  const void* lse2, const void* delta,
@@ -1408,22 +1127,32 @@ extern "C" int flash_bwd_dq_bf16(const void* q2, const void* k,
 #undef DQ_LAUNCH
 }
 
-// The dynamic shared memory a block of the dk/dv kernel takes at head dim
-// d: the base instantiation, Ext, or Ext with int8 scoring (quant); 0 for
-// a head dim the kernels do not take.
-extern "C" long long flash_bwd_dkv_smem_bytes(int d, int ext, int quant) {
-  switch (d) {
-#define SMEM_CASE(D)                                                 \
+// The dynamic shared memory a block of the dq (dk/dv) kernel takes at
+// head dim d: the base instantiation, Ext, or Ext with int8 scoring
+// (quant); 0 for a head dim the kernels do not take.
+#define SMEM_CASE(BYTES, D)                                          \
     case D:                                                          \
-      return quant ? dkv_smem_bytes<D, true, true>()                 \
-                   : ext ? dkv_smem_bytes<D, true, false>()          \
-                         : dkv_smem_bytes<D, false, false>();
-    SMEM_CASE(32) SMEM_CASE(64) SMEM_CASE(96) SMEM_CASE(128)
-#undef SMEM_CASE
+      return quant ? BYTES<D, true, true>()                          \
+                   : ext ? BYTES<D, true, false>()                   \
+                         : BYTES<D, false, false>();
+extern "C" long long flash_bwd_dq_smem_bytes(int d, int ext, int quant) {
+  switch (d) {
+    SMEM_CASE(dq_smem_bytes, 32) SMEM_CASE(dq_smem_bytes, 64)
+    SMEM_CASE(dq_smem_bytes, 96) SMEM_CASE(dq_smem_bytes, 128)
     default:
       return 0;
   }
 }
+
+extern "C" long long flash_bwd_dkv_smem_bytes(int d, int ext, int quant) {
+  switch (d) {
+    SMEM_CASE(dkv_smem_bytes, 32) SMEM_CASE(dkv_smem_bytes, 64)
+    SMEM_CASE(dkv_smem_bytes, 96) SMEM_CASE(dkv_smem_bytes, 128)
+    default:
+      return 0;
+  }
+}
+#undef SMEM_CASE
 
 // As above; dk, dv like k, v (each GQA group's query heads summed), in
 // float32 when out_f32 and in bf16 otherwise. scale: the softmax scale,

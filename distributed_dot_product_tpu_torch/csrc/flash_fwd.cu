@@ -173,8 +173,6 @@ struct ExtArgs {
   const signed char* k8;       // (batch_heads / group, tk, d) int8
   const float* sqf;            // (batch_heads, tq): q row scale*scale*log2e
   const float* skr;            // (batch_heads / group, tk): raw k row scale
-  const float* sqc;            // raw q row scale (backward)
-  const float* skc;            // raw k row scale (backward)
   const float* alibi;          // (batch_heads,): slope * log2e; null: none
   VecArgs posq, posk;          // global positions; posk.ptr null: none
   VecArgs posq_mm, posk_mm;    // per 64-row tile: [min, max] of posq/posk

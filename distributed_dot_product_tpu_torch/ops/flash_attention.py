@@ -661,7 +661,6 @@ class _ExtArgs(ctypes.Structure):
                 ('drop_inv', ctypes.c_float), ('seed', ctypes.c_uint),
                 ('q8', ctypes.c_void_p), ('k8', ctypes.c_void_p),
                 ('sqf', ctypes.c_void_p), ('skr', ctypes.c_void_p),
-                ('sqc', ctypes.c_void_p), ('skc', ctypes.c_void_p),
                 ('alibi', ctypes.c_void_p),
                 ('posq', _VecArgs), ('posk', _VecArgs),
                 ('posq_mm', _VecArgs), ('posk_mm', _VecArgs)]
@@ -765,7 +764,7 @@ def _tile_minmax(pos):
                        dim=-1).flatten(-2)
 
 
-def _ext_operand(feat, q, k, scale, quant=None, bwd=False):
+def _ext_operand(feat, q, k, scale, quant=None):
     """``(keep-alive tensors, _ExtArgs pointer)`` for the kernels' Ext
     instantiation, or ``((), None)`` when no feature is on (the base
     instantiation runs). ``quant``: ``(q_i8, sq, k_i8, sk)`` (computed
@@ -794,9 +793,6 @@ def _ext_operand(feat, q, k, scale, quant=None, bwd=False):
         ext.q8, ext.k8 = _ptrs(q8, k8)
         ext.sqf, ext.skr = sqf.data_ptr(), sk.data_ptr()
         keep += [q8, k8, sqf, sk]
-        if bwd:
-            ext.sqc, ext.skc = sq.data_ptr(), sk.data_ptr()
-            keep.append(sq)
     if feat.alibi is not None:
         slopes = _alibi_log2(feat.alibi).expand(q.shape[:-2]).contiguous()
         ext.alibi = slopes.data_ptr()
@@ -935,7 +931,9 @@ def flash_attention_dq(q2, k, v, g, lse2, delta, *, mask=None, causal=False,
 
 def _launch_dq(q2, k, v, g, lse2, delta, mask, causal, causal_offset,
                kv_offset, scale, grad_dtype, feat, quant):
-    """K3 on the card: dq."""
+    """K3 on the card: dq. With int8 scoring the kernel takes the
+    dequantized k (:func:`dequantize_rows`, kv-head shaped, made here once
+    a call) where it takes k otherwise: the operand of dq."""
     _check_kernel_operands((('q', q2), ('k', k), ('v', v), ('g', g)),
                            q2.shape[-1])
     out_f32 = _check_grad_dtype(grad_dtype, q2)
@@ -947,12 +945,14 @@ def _launch_dq(q2, k, v, g, lse2, delta, mask, causal, causal_offset,
     dq = torch.empty(q2.shape, device=q2.device,
                      dtype=torch.float32 if out_f32 else q2.dtype)
     m, margs = _mask_operand(mask, q2, tk)
-    alive, ext = _ext_operand(feat, q2, k, scale, quant, bwd=True)
+    alive, ext = _ext_operand(feat, q2, k, scale, quant)
+    k_op = (dequantize_rows(quant[2], quant[3], v.dtype).contiguous()
+            if feat.quant else k)
     fn = _cfn('flash_bwd' if ext is None else 'flash_bwd_dq_ext',
               'flash_bwd_dq_bf16',
               [_VP] * 7 + _MASK_ARGTYPES + [_I] * 8 + [_F, _I, _VP, _VP])
     with torch.cuda.device(q2.device):
-        err = fn(*_ptrs(q2, k, v, g, lse2, delta, dq), *margs, nb, group,
+        err = fn(*_ptrs(q2, k_op, v, g, lse2, delta, dq), *margs, nb, group,
                  tq, tk, d, int(causal), int(causal_offset), int(kv_offset),
                  float(scale), int(out_f32), ext,
                  torch.cuda.current_stream().cuda_stream)
@@ -1004,7 +1004,7 @@ def _launch_dkv(q2, k, v, g, lse2, delta, mask, causal, causal_offset,
     dk = torch.empty(k.shape, dtype=gdt, device=k.device)
     dv = torch.empty(v.shape, dtype=gdt, device=v.device)
     m, margs = _mask_operand(mask, q2, tk)
-    alive, ext = _ext_operand(feat, q2, k, scale, quant, bwd=True)
+    alive, ext = _ext_operand(feat, q2, k, scale, quant)
     q_op = (dequantize_rows(quant[0], quant[1], v.dtype).contiguous()
             if feat.quant else q2)
     fn = _cfn('flash_bwd' if ext is None else 'flash_bwd_dkv_ext',

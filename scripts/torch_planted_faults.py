@@ -19,10 +19,10 @@ m}``; exits non-zero unless every fault was caught. Most K1-K4 faults sit
 past query or key tile 32, so only the training shape (T 4096, 64 tiles)
 reaches them, or round an accumulator to bf16 after every tile; two more
 break K1's online softmax (the rescale of O dropped) and its causal loop
-(every query tile's diagonal key tile skipped). Two break int8 scoring
+(every query tile's diagonal key tile skipped). Three break int8 scoring
 past key tile 32 by a last bit or so, where no tolerance sees them: K1
-scales each score by its neighbouring column's k scale, K4 applies the
-two row scales in the other order; the int8 exactness cases of
+scales each score by its neighbouring column's k scale, K3 and K4 apply
+the two row scales in the other order; the int8 exactness cases of
 ``flash_masks`` must catch them. The K5/K5p faults break
 the decode kernel's merge (ranks taken in an order that varies from
 launch to launch, as arrival order would; or the peers' partials read
@@ -115,18 +115,34 @@ FAULTS = {
     # in the other order.
     'k4_int8_scale_order': (
         'flash_bwd.cu',
-        '          s[i] = __fmul_rn(__fmul_rn(static_cast<float>(dot[i]), c.x),'
+        '          s[i] = __fmul_rn(__fmul_rn(static_cast<float>(sa[i]), c.x),'
         ' r);\n'
-        '          s[i + 1] = __fmul_rn(__fmul_rn(static_cast<float>(dot[i + 1]),'
-        ' c.y),\n'
-        '                               r);\n',
+        '          s[i + 1] =\n'
+        '              __fmul_rn(__fmul_rn(static_cast<float>(sa[i + 1]), c.y),'
+        ' r);\n',
         '          auto mul = [&](int e, float q) {\n'
-        '            const float x = static_cast<float>(dot[e]);\n'
+        '            const float x = static_cast<float>(sa[e]);\n'
         '            return k0 >= 32 * kB ? __fmul_rn(__fmul_rn(x, r), q)\n'
         '                                 : __fmul_rn(__fmul_rn(x, q), r);\n'
         '          };\n'
         '          s[i] = mul(i, c.x);\n'
         '          s[i + 1] = mul(i + 1, c.y);\n',
+        ('flash_masks',)),
+    # The same in K3: (dot * skr) * sqf.
+    'k3_int8_scale_order': (
+        'flash_bwd.cu',
+        '          s[i] = __fmul_rn(__fmul_rn(static_cast<float>(sa[i]), rq),'
+        ' ck.x);\n'
+        '          s[i + 1] =\n'
+        '              __fmul_rn(__fmul_rn(static_cast<float>(sa[i + 1]), rq),'
+        ' ck.y);\n',
+        '          auto mul = [&](int e, float c) {\n'
+        '            const float x = static_cast<float>(sa[e]);\n'
+        '            return k0 >= 32 * kB ? __fmul_rn(__fmul_rn(x, c), rq)\n'
+        '                                 : __fmul_rn(__fmul_rn(x, rq), c);\n'
+        '          };\n'
+        '          s[i] = mul(i, ck.x);\n'
+        '          s[i + 1] = mul(i + 1, ck.y);\n',
         ('flash_masks',)),
     # The merge takes the ranks in an order that changes from launch to
     # launch (a rotation read from the clock, as arrival order would).
