@@ -1839,15 +1839,16 @@ def serve_burst():
     return reqs
 
 
-def serve_engine(torch, mode, dtype=None, device='cuda', slots=SERVE_SLOTS):
+def serve_engine(torch, mode, dtype=None, device='cuda', slots=SERVE_SLOTS,
+                 t_max=SERVE_T_MAX, **kw):
     from distributed_dot_product_tpu_torch.serve import KernelEngine
     paged = (dict(cache_mode='paged', page_size=SERVE_PAGE)
              if mode == 'paged' else {})
-    return KernelEngine(slots=slots, t_max=SERVE_T_MAX, vocab=VOCAB,
+    return KernelEngine(slots=slots, t_max=t_max, vocab=VOCAB,
                         heads=HEADS, head_dim=HEAD_DIM,
                         prefill_chunk=SERVE_CHUNK, seed=SERVE_SEED,
                         dtype=dtype or torch.bfloat16, device=device,
-                        **paged)
+                        **paged, **kw)
 
 
 def first_step_logits(torch, engine, prompts):
@@ -1875,10 +1876,13 @@ def first_step_logits(torch, engine, prompts):
     return logits[:len(prompts)].float().cpu()
 
 
-def phase_serve_path(torch, ddp):
-    """The burst through the Scheduler over the paged engine (K5p), then
-    over the slab engine (K5) with the same seed, then requests 0 and 1
-    on a float32 CPU engine with the same weights."""
+def _serve_burst(torch, ddp, engine, burst, what):
+    """The seeded burst through the Scheduler over ``engine``, after
+    warming every engine operation: ``(results, row)``, the row with the
+    engine's shape, terminal states, tokens/s, TTFT, step latency and the
+    decode kernels' launches in the run (counts at 0 just before). Fails
+    unless every request ends in a typed terminal state with tokens in
+    range."""
     import numpy as np
     from distributed_dot_product_tpu_torch.serve import (
         RejectedError, Scheduler, ServeConfig,
@@ -1886,83 +1890,99 @@ def phase_serve_path(torch, ddp):
     from distributed_dot_product_tpu_torch.utils.tracing import (
         MetricsRegistry,
     )
+    t0 = time.perf_counter()
+    slots = engine.slots
+    # Warm every engine operation, and so load the kernels, before the
+    # watchdog arms: first use would otherwise count as a stall.
+    engine.step(np.zeros(slots, np.int32), np.ones(slots, bool))
+    engine.prefill(0, np.zeros(engine.prefill_chunk, np.int32))
+    for i in range(slots):
+        engine.reset(i)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    registry = MetricsRegistry()
+    sched = Scheduler(engine, ServeConfig(queue_limit=SERVE_QUEUE,
+                                          max_new_tokens=SERVE_NEW),
+                      registry=registry, fault_injector=False)
+    ddp.flash_decode.launches = 0
+    ddp.flash_decode_paged.launches = 0
+    rejected = {}
+    t0 = time.perf_counter()
+    try:
+        for i, (rid, prompt) in enumerate(burst):
+            try:
+                sched.submit(prompt, request_id=rid)
+            except RejectedError as e:
+                rejected[rid] = e.reason.value
+            if i % 4 == 3:
+                sched.step()
+        results = sched.run_until_idle()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        sched.close()
+    launches = {'flash_decode': ddp.flash_decode.launches,
+                'flash_decode_paged': ddp.flash_decode_paged.launches}
+    snap = registry.snapshot()
+    counters, hist = snap['counters'], snap['histograms']
+    by_status = {}
+    for r in results.values():
+        by_status[r.status] = by_status.get(r.status, 0) + 1
+    tokens = counters.get('serve.tokens_generated', 0)
+    row = {'engine': {'slots': slots, 't_max': engine.t_max,
+                      'vocab': engine.vocab, 'heads': engine.heads,
+                      'head_dim': engine.head_dim,
+                      'prefill_chunk': engine.prefill_chunk,
+                      'page_size': engine.page_size,
+                      'pages': engine.pool.pages if engine.pool else None,
+                      'kv_shards': engine.kv_shards,
+                      'placement': engine.placement,
+                      'dtype': str(engine.dtype).split('.')[-1]},
+           'engine_build_and_warm_s': build_s,
+           'requests': len(burst), 'rejected_at_submit': rejected,
+           'terminal': by_status, 'tokens_generated': tokens,
+           'decode_steps': counters.get('serve.decode_steps', 0),
+           'wall_s': wall, 'tokens_per_s': tokens / wall,
+           'program_seconds': engine.program_seconds,
+           'ttft_s': {k: hist['serve.ttft_seconds'][k]
+                      for k in ('p50', 'p99')},
+           'step_s': {k: hist['serve.step_seconds'][k]
+                      for k in ('p50', 'p99')},
+           'watchdog_stalls': sched.health.stall_events,
+           'launches': launches}
+    for rid, _ in burst:
+        r = results.get(rid)
+        check(rid in rejected or (r is not None and r.status in (
+            'completed', 'deadline_expired', 'evicted', 'abandoned',
+            'failed_nan', 'rejected') and (r.status != 'rejected'
+                                           or r.reason is not None)),
+              f'{what}: {rid} has no typed terminal state')
+    check(all(np.all((0 <= np.asarray(r.tokens))
+                     & (np.asarray(r.tokens) < VOCAB))
+              for r in results.values()), f'{what}: token out of range')
+    return results, row
+
+
+def phase_serve_path(torch, ddp):
+    """The burst through the Scheduler over the paged engine (K5p), then
+    over the slab engine (K5) with the same seed, then requests 0 and 1
+    on a float32 CPU engine with the same weights."""
+    import numpy as np
+    from distributed_dot_product_tpu_torch.serve import Scheduler, ServeConfig
+    from distributed_dot_product_tpu_torch.utils.tracing import (
+        MetricsRegistry,
+    )
     burst = serve_burst()
     runs = {}
     for mode in ('paged', 'slab'):
-        t0 = time.perf_counter()
         engine = serve_engine(torch, mode)
-        # Warm every engine operation, and so build the kernels, before
-        # the watchdog arms: first use would otherwise count as a stall.
-        engine.step(np.zeros(SERVE_SLOTS, np.int32),
-                    np.ones(SERVE_SLOTS, bool))
-        engine.prefill(0, np.zeros(SERVE_CHUNK, np.int32))
-        for i in range(SERVE_SLOTS):
-            engine.reset(i)
-        torch.cuda.synchronize()
-        build_s = time.perf_counter() - t0
-        registry = MetricsRegistry()
-        sched = Scheduler(engine, ServeConfig(queue_limit=SERVE_QUEUE,
-                                              max_new_tokens=SERVE_NEW),
-                          registry=registry, fault_injector=False)
-        ddp.flash_decode.launches = 0
-        ddp.flash_decode_paged.launches = 0
-        rejected = {}
-        t0 = time.perf_counter()
-        try:
-            for i, (rid, prompt) in enumerate(burst):
-                try:
-                    sched.submit(prompt, request_id=rid)
-                except RejectedError as e:
-                    rejected[rid] = e.reason.value
-                if i % 4 == 3:
-                    sched.step()
-            results = sched.run_until_idle()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        finally:
-            sched.close()
-        launches = {'flash_decode': ddp.flash_decode.launches,
-                    'flash_decode_paged': ddp.flash_decode_paged.launches}
-        snap = registry.snapshot()
-        counters, hist = snap['counters'], snap['histograms']
-        by_status = {}
-        for r in results.values():
-            by_status[r.status] = by_status.get(r.status, 0) + 1
-        tokens = counters.get('serve.tokens_generated', 0)
-        steps = counters.get('serve.decode_steps', 0)
-        row = {'phase': 'serve_path', 'cache_mode': mode,
-               'engine': {'slots': SERVE_SLOTS, 't_max': SERVE_T_MAX,
-                          'vocab': VOCAB, 'heads': HEADS,
-                          'head_dim': HEAD_DIM, 'prefill_chunk': SERVE_CHUNK,
-                          'page_size': engine.page_size,
-                          'pages': engine.pool.pages if engine.pool else None,
-                          'dtype': 'bfloat16'},
-               'engine_build_and_warm_s': build_s,
-               'requests': len(burst), 'rejected_at_submit': rejected,
-               'terminal': by_status, 'tokens_generated': tokens,
-               'decode_steps': steps, 'wall_s': wall,
-               'tokens_per_s': tokens / wall,
-               'program_seconds': engine.program_seconds,
-               'ttft_s': {k: hist['serve.ttft_seconds'][k]
-                          for k in ('p50', 'p99')},
-               'step_s': {k: hist['serve.step_seconds'][k]
-                          for k in ('p50', 'p99')},
-               'watchdog_stalls': sched.health.stall_events,
-               'launches': launches}
+        results, row = _serve_burst(torch, ddp, engine, burst, mode)
+        row = {'phase': 'serve_path', 'cache_mode': mode, **row}
         emit(row)
-        for rid, _ in burst:
-            r = results.get(rid)
-            check(rid in rejected or (r is not None and r.status in (
-                'completed', 'deadline_expired', 'evicted', 'abandoned',
-                'failed_nan', 'rejected') and (r.status != 'rejected'
-                                               or r.reason is not None)),
-                  f'{mode}: {rid} has no typed terminal state')
-        check(all(np.all((0 <= np.asarray(r.tokens))
-                         & (np.asarray(r.tokens) < VOCAB))
-                  for r in results.values()), f'{mode}: token out of range')
         own, other = (('flash_decode_paged', 'flash_decode')
                       if mode == 'paged' else
                       ('flash_decode', 'flash_decode_paged'))
+        launches, steps = row['launches'], row['decode_steps']
         check(launches[own] == steps,
               f'{mode}: {own} launched {launches[own]} times for {steps} '
               f'decode steps')
@@ -2027,6 +2047,463 @@ def phase_serve_path(torch, ddp):
     del runs
     torch.cuda.empty_cache()
     return launches_by_path
+
+
+# The sequence-sharded page table (kv_sharded_serve; README "Cluster-scale
+# long context"): the serve_path burst over KernelEngine(kv_shards=4,
+# pages=512), 4 x 512 = SERVE_PAGES pages pooled; the README's user, one
+# stream at t_max 32768 (decode_sharded's global cache) over the same four
+# 512-page shards: capacity 32768 rows against 8192 unsharded, the
+# decode_sharded prompt of 24544 tokens and 64 decode steps.
+KV_SHARDS, KV_PAGES, KV_SLOTS, KV_T = 4, 512, 2, DS_T
+# The step check at the long stream's shapes: its own ownership, ordinal
+# boundaries at 515, 1030 and 1545 (columns 8240, 16480 and 24720, inside
+# 128-column chunks); slot 0 filled to DS_PROMPT rows (shards 0-2 attend),
+# slot 1 to 3000 (shard 0 alone); shard 3 owns no attended column. 1024
+# pages a shard hold every owned ordinal of both slots.
+KV_CUTS, KV_FILLS, KV_CHECK_PAGES = (0, 515, 1030, 1545), (DS_PROMPT, 3000), \
+    1024
+
+
+def _partials_errs(torch, got, want):
+    """One shard's ``(num, m, l)`` partials against its plain version's.
+    Rows the plain version attends (``l > 0``) are compared after the
+    shift by ``m``: the normalised context ``num / l`` (row and
+    whole-tensor relative errors) and the row's log-sum-exp ``m +
+    log2 l``, absolute in natural-log units; rows it attends nowhere must
+    be exactly ``(0, NEG_BIG, 0)`` in both."""
+    import math
+    import numpy as np
+    from distributed_dot_product_tpu_torch.ops.flash_decode import _NEG_BIG
+    (gn, gm, gl), (wn, wm, wl) = got, want
+    held = (wl > 0).expand_as(wn)
+    empty = ~held[..., :1]
+    neg = float(np.float32(_NEG_BIG))
+    exact = all(bool((x[e] == v).all()) for x, e, v in (
+        (gn, ~held, 0.0), (wn, ~held, 0.0), (gm, empty, neg),
+        (wm, empty, neg), (gl, empty, 0.0), (wl, empty, 0.0)))
+    same_held = bool(torch.equal(gl > 0, wl > 0))
+    if not held.any():
+        return {'rows': 0, 'row_rel': 0.0, 'rel': 0.0, 'lse_abs': 0.0,
+                'empty_exact': exact and same_held}
+    o_got = torch.where(held, gn / gl.clamp_min(1e-30), 0.0)
+    o_want = torch.where(held, wn / wl.clamp_min(1e-30), 0.0)
+    row, whole = rel_errs(torch, o_got[held[..., 0]], o_want[held[..., 0]])
+    lse = ((gm + torch.log2(gl.clamp_min(1e-30)))
+           - (wm + torch.log2(wl.clamp_min(1e-30))))[~empty]
+    return {'rows': int((~empty).sum()), 'row_rel': row, 'rel': whole,
+            'lse_abs': abs(lse).max().item() * math.log(2),
+            'empty_exact': exact and same_held}
+
+
+def _kv_step_check(torch, ddp, flush, gen):
+    """kv_sharded_serve (c): the four shards' K5p launches with partials
+    on their local views of a stacked cache (random rows everywhere, the
+    sinks included), merged by ``merge_partials``, against K5p on the
+    single pool (the same stacked rows through one combined table), row
+    1e-2 and norm 4e-3, and against the merge of the plain versions'
+    partials at the same limits; each shard's partials against its plain
+    version's (:func:`_partials_errs`); the empty shard-rows exactly (0,
+    NEG_BIG, 0); the pools after the appends bit for bit the single
+    pool's, the plain version's and the originals but the owners'
+    appended rows. Then each shard's launch and the single-pool launch
+    timed (no append)."""
+    import importlib
+    import numpy as np
+    dec = importlib.import_module(
+        'distributed_dot_product_tpu_torch.models.decode')
+    fd = importlib.import_module(
+        'distributed_dot_product_tpu_torch.ops.flash_decode')
+    dev, bf16 = torch.device('cuda'), torch.bfloat16
+    n, b, h, d, ps = KV_SHARDS, KV_SLOTS, HEADS, HEAD_DIM, SERVE_PAGE
+    pps, per = KV_T // ps, KV_CHECK_PAGES
+    owner = np.searchsorted(KV_CUTS, np.arange(pps), side='right') - 1
+    lengths = np.asarray(KV_FILLS, np.int64)
+    spt = dec.ShardedPageTable(n, per, ps, b, pps)
+    stacked = dec.init_sharded_paged_cache(n, b, h, KV_T, d,
+                                           pages_per_shard=per, page_size=ps,
+                                           dtype=bf16, device=dev)
+    stacked.k_pool.copy_(randn(torch, stacked.k_pool.shape, gen, dev, bf16))
+    stacked.v_pool.copy_(randn(torch, stacked.v_pool.shape, gen, dev, bf16))
+    rng = np.random.default_rng(5)
+    tables = np.full((n, b, pps), -1, np.int32)
+    for sh in range(n):
+        need = [(i, o) for i in range(b) for o in range(pps)
+                if owner[o] == sh and o <= lengths[i] // ps]
+        for (i, o), page in zip(need, rng.permutation(per)):
+            tables[sh, i, o] = page
+    combined = np.full((b, pps), -1, np.int32)
+    for sh in range(n):
+        held = tables[sh] >= 0
+        combined[held] = spt.gpage(sh, tables[sh][held])
+    stacked.page_table.copy_(torch.from_numpy(tables))
+    q = randn(torch, (b, h, 1, d), gen, dev, bf16)
+    kn, vn = (randn(torch, (b, h, 1, d), gen, dev, bf16) for _ in range(2))
+    vt = torch.as_tensor(lengths, dtype=torch.int32, device=dev)
+    orig = (stacked.k_pool.clone(), stacked.v_pool.clone())
+    single = tuple(x.clone() for x in orig)
+    table = torch.from_numpy(combined).to(dev)
+    want, _, _ = ddp.flash_decode(q, kn, vn, *single, vt, vt,
+                                  page_table=table)
+    views = [dec.shard_view(stacked, sh) for sh in range(n)]
+    parts = [ddp.flash_decode(q, kn, vn, v.k_pool, v.v_pool, vt, vt,
+                              page_table=v.page_table, partials=True)[0]
+             for v in views]
+    got = dec.merge_partials(parts, bf16)
+    plain_pools = tuple(x.clone() for x in orig)
+    plain_parts = [fd.flash_decode_plain(
+        q, kn, vn, plain_pools[0].chunk(n)[sh], plain_pools[1].chunk(n)[sh],
+        vt, vt, page_table=views[sh].page_table, partials=True)[0]
+        for sh in range(n)]
+    plain = dec.merge_partials(plain_parts, bf16)
+    row, whole = rel_errs(torch, got, want)
+    prow, pwhole = rel_errs(torch, got, plain)
+    by_shard = [_partials_errs(torch, parts[sh], plain_parts[sh])
+                for sh in range(n)]
+    neg = float(np.float32(fd._NEG_BIG))
+    empty = [(sh, i) for sh in range(n) for i in range(b)
+             if not ((owner == sh) & (np.arange(pps) <= lengths[i] // ps)
+                     ).any()]
+    exact_empty = all(bool((parts[sh][0][i] == 0).all()
+                           and (parts[sh][1][i] == neg).all()
+                           and (parts[sh][2][i] == 0).all())
+                      for sh, i in empty)
+    expect = tuple(x.clone() for x in orig)
+    for i in range(b):
+        o = int(lengths[i]) // ps
+        g = spt.gpage(int(owner[o]), int(tables[owner[o], i, o]))
+        expect[0][g, :, int(lengths[i]) % ps] = kn[i, :, 0]
+        expect[1][g, :, int(lengths[i]) % ps] = vn[i, :, 0]
+    pools_equal_single = (torch.equal(stacked.k_pool, single[0])
+                          and torch.equal(stacked.v_pool, single[1]))
+    pools_only_appends = (torch.equal(stacked.k_pool, expect[0])
+                          and torch.equal(stacked.v_pool, expect[1]))
+    pools_equal_plain = (torch.equal(stacked.k_pool, plain_pools[0])
+                         and torch.equal(stacked.v_pool, plain_pools[1]))
+    # Times: no append (append_at -1), so repeats change nothing.
+    noap = torch.full((b,), -1, dtype=torch.int32, device=dev)
+    cols = torch.arange(KV_T, device=dev)
+    attended = cols[None] <= vt[:, None].long()
+    own = torch.as_tensor(owner, device=dev).repeat_interleave(ps)
+    shards = {}
+    for sh, v in enumerate(views):
+        mask = (attended & (own[None] == sh))[:, None, None]
+        bms, by, _, _ = _decode_bound(torch, mask, h, h, d, b, 1, 0,
+                                      partials=True)
+        shards[sh] = {
+            'attended_owned_columns': mask.sum(dim=-1).flatten().tolist(),
+            'ms': time_ms(torch, lambda v=v: ddp.flash_decode(
+                q, kn, vn, v.k_pool, v.v_pool, vt, noap,
+                page_table=v.page_table, partials=True), flush),
+            'bound_ms': bms, 'bound_by': by}
+    bms, by, _, _ = _decode_bound(torch, attended[:, None, None], h, h, d,
+                                  b, 1, 0)
+    single_ms = time_ms(torch, lambda: ddp.flash_decode(
+        q, kn, vn, *single, vt, noap, page_table=table), flush)
+    plain_ms = time_ms(torch, lambda: fd.flash_decode_plain(
+        q, kn, vn, plain_pools[0].chunk(n)[0], plain_pools[1].chunk(n)[0],
+        vt, noap, page_table=views[0].page_table, partials=True), flush,
+        reps=5)
+    res = {'phase': 'kv_sharded_serve', 'case': 'step_check',
+           'shapes': {'slots': b, 'heads': h, 'head_dim': d, 't_max': KV_T,
+                      'page_size': ps, 'shards': n, 'pages_per_shard': per,
+                      'ordinal_cuts': list(KV_CUTS),
+                      'lengths': lengths.tolist()},
+           'vs_single_pool': {'max_row_rel_err': row, 'rel_err': whole,
+                              'tol': {'row_rel': TOL_ROW_REL,
+                                      'rel': TOL_NORM_REL}},
+           'vs_plain': {'max_row_rel_err': prow, 'rel_err': pwhole,
+                        'partials_by_shard': by_shard},
+           'max_abs_err': (got.float() - plain.float()).abs().max().item(),
+           'empty_shard_rows': empty, 'empty_rows_exact': exact_empty,
+           'pools_equal_single_pool': pools_equal_single,
+           'pools_equal_plain': pools_equal_plain,
+           'pools_changed_only_at_owner_appends': pools_only_appends,
+           'shards': shards, 'single_pool_ms': single_ms,
+           'single_pool_bound_ms': bms, 'plain_ms_shard0': plain_ms,
+           'library_ms': None}
+    emit(res)
+    check(row <= TOL_ROW_REL and whole <= TOL_NORM_REL,
+          f'kv_sharded step: merged K5p partials vs single-pool K5p row '
+          f'{row}, whole {whole}')
+    check(prow <= TOL_ROW_REL and pwhole <= TOL_NORM_REL,
+          f'kv_sharded step: merged K5p partials vs the merged plain '
+          f'partials row {prow}, whole {pwhole}')
+    for sh, e in enumerate(by_shard):
+        check(e['row_rel'] <= TOL_ROW_REL and e['rel'] <= TOL_NORM_REL
+              and e['lse_abs'] <= TOL_LSE and e['empty_exact'],
+              f'kv_sharded step: shard {sh} K5p partials vs its plain '
+              f'version: {e}')
+    check(exact_empty, 'kv_sharded step: an empty shard-row is not exactly '
+          '(0, NEG_BIG, 0)')
+    check(pools_equal_plain, 'kv_sharded step: the shards\' pools differ '
+          'from the plain version\'s after the appends')
+    check(pools_equal_single, 'kv_sharded step: the shards\' pools differ '
+          'from the single pool after the appends')
+    check(pools_only_appends, 'kv_sharded step: a pool changed beyond its '
+          'owner\'s appended rows')
+    del stacked, views, single, plain_pools, orig, expect
+    torch.cuda.empty_cache()
+    return res
+
+
+def _kv_burst(torch, ddp):
+    """kv_sharded_serve (a): the serve_path burst over the single-pool
+    paged engine and over the kv_shards engine of the same pooled pages,
+    in this call; the sharded run's K5p launches = KV_SHARDS x its decode
+    steps and no other decode kernel; the streams that diverge from the
+    single pool's, with their first divergent step."""
+    burst = serve_burst()
+    runs = {}
+    for name, kw in (('single_pool', {}),
+                     ('kv_shards', dict(kv_shards=KV_SHARDS,
+                                        pages=KV_PAGES))):
+        engine = serve_engine(torch, 'paged', **kw)
+        results, row = _serve_burst(torch, ddp, engine, burst, name)
+        emit({'phase': 'kv_sharded_serve', 'case': f'burst_{name}', **row})
+        runs[name] = (results, row)
+        del engine
+        torch.cuda.empty_cache()
+    (base, brow), (sh, row) = runs['single_pool'], runs['kv_shards']
+    diverged = {}
+    for rid, r in sh.items():
+        other = base.get(rid)
+        if other is not None and r.tokens != other.tokens:
+            k = 0
+            while k < min(len(r.tokens), len(other.tokens)) \
+                    and r.tokens[k] == other.tokens[k]:
+                k += 1
+            diverged[rid] = k
+    same_status = {rid: (r.status, base[rid].status) for rid, r in sh.items()
+                   if rid in base and r.status != base[rid].status}
+    emit({'phase': 'kv_sharded_serve', 'case': 'burst_vs_single_pool',
+          'tokens_per_s': {'kv_shards': row['tokens_per_s'],
+                           'single_pool': brow['tokens_per_s']},
+          'ttft_p99_s': {'kv_shards': row['ttft_s']['p99'],
+                         'single_pool': brow['ttft_s']['p99']},
+          'decode_steps': {'kv_shards': row['decode_steps'],
+                           'single_pool': brow['decode_steps']},
+          'diverged_first_step': diverged, 'status_differs': same_status,
+          'note': 'bf16: the cross-shard merge adds in another order than '
+                  'the kernel\'s cluster merge; streams reported, not '
+                  'gated'})
+    launches, steps = row['launches'], row['decode_steps']
+    check(launches['flash_decode_paged'] == KV_SHARDS * steps,
+          f'kv_shards burst: flash_decode_paged launched '
+          f'{launches["flash_decode_paged"]} times for {steps} decode steps '
+          f'x {KV_SHARDS} shards')
+    check(launches['flash_decode'] == 0,
+          f'kv_shards burst: flash_decode launched '
+          f'{launches["flash_decode"]} times')
+    return {'launches': launches['flash_decode_paged'], 'row': row,
+            'single_pool': brow, 'diverged': diverged}
+
+
+def _kv_forced(torch, burst):
+    """kv_sharded_serve (a), teacher-forced: the burst's first SERVE_SLOTS
+    prompts prefilled into a single-pool engine and a kv_shards engine of
+    the same pooled pages, then SERVE_NEW steps of both, every step fed
+    the single pool's own greedy tokens. The logits each engine's ``step``
+    takes its argmax of (captured where it checks them for finiteness)
+    are held against each other at the decode limits, row 1e-2 and norm
+    4e-3, on every step; at each step where the argmaxes differ, the
+    single pool's top-2 gap beside the sharded logits' error at those two
+    tokens (a flip needs the gap no larger than their sum: what the
+    listing shows is how small the gaps that flip are)."""
+    import importlib
+    import numpy as np
+    em = importlib.import_module(
+        'distributed_dot_product_tpu_torch.serve.engine')
+    engines = {'single_pool': serve_engine(torch, 'paged'),
+               'kv_shards': serve_engine(torch, 'paged', kv_shards=KV_SHARDS,
+                                         pages=KV_PAGES)}
+    prompts = [p for _, p in burst[:SERVE_SLOTS]]
+    tokens = np.array([p[-1] for p in prompts], np.int32)
+    active = np.ones(SERVE_SLOTS, bool)
+    for eng in engines.values():
+        for i, p in enumerate(prompts):
+            for start in range(0, len(p) - 1, eng.prefill_chunk):
+                eng.prefill(i, p[start:min(start + eng.prefill_chunk,
+                                           len(p) - 1)])
+    seen, real = [], em.slots_all_finite
+
+    def capture(logits):
+        seen.append(logits[:, 0].float())
+        return real(logits)
+    em.slots_all_finite = capture
+    worst, flips, finite = [0.0, 0.0], [], True
+    try:
+        for t in range(SERVE_NEW):
+            seen.clear()
+            out = {name: eng.step(tokens, active)
+                   for name, eng in engines.items()}
+            ref, got = seen
+            row, whole = rel_errs(torch, got, ref)
+            worst = [max(worst[0], row), max(worst[1], whole)]
+            finite = finite and all(f.all() for _, f in out.values())
+            a, b = out['single_pool'][0], out['kv_shards'][0]
+            for i in np.nonzero(a != b)[0]:
+                top = torch.topk(ref[i], 2).values
+                flips.append({
+                    'slot': int(i), 'step': t,
+                    'top2_gap': (top[0] - top[1]).item(),
+                    'err_at_the_two': [
+                        abs(got[i, j] - ref[i, j]).item()
+                        for j in (int(a[i]), int(b[i]))],
+                    'max_abs_logit_err': (got[i] - ref[i]).abs().max()
+                    .item()})
+            tokens = a
+    finally:
+        em.slots_all_finite = real
+    row = {'phase': 'kv_sharded_serve', 'case': 'burst_teacher_forced',
+           'slots': SERVE_SLOTS, 'steps': SERVE_NEW,
+           'prompt_lengths': [len(p) for p in prompts],
+           'logits_vs_single_pool': {'max_row_rel_err': worst[0],
+                                     'rel_err': worst[1],
+                                     'tol': {'row_rel': TOL_ROW_REL,
+                                             'rel': TOL_NORM_REL}},
+           'argmax_flips': flips,
+           'max_flip_top2_gap': max((f['top2_gap'] for f in flips),
+                                    default=None),
+           'finite': bool(finite)}
+    emit(row)
+    check(finite, 'kv_shards teacher-forced: non-finite logits')
+    check(worst[0] <= TOL_ROW_REL and worst[1] <= TOL_NORM_REL,
+          f'kv_shards teacher-forced: logits vs the single pool row '
+          f'{worst[0]}, whole {worst[1]}')
+    del engines
+    torch.cuda.empty_cache()
+    return row
+
+
+def _kv_long(torch, ddp, flush, gen):
+    """kv_sharded_serve (b): the README's user. capacity_tokens 32768 at
+    kv_shards=4 against 8192 for one shard of the same 512 pages; the
+    24544-token prompt refused by the unsharded engine's Scheduler with
+    a typed CACHE_EXHAUSTED, admitted by the sharded one and decoded for
+    64 tokens (K5p launches = 4 x decode steps); ms per decode step and,
+    halfway, each shard's K5p partials launch timed on the live cache."""
+    import numpy as np
+    from distributed_dot_product_tpu_torch.serve import (
+        RejectedError, RejectReason, Scheduler, ServeConfig,
+    )
+    from distributed_dot_product_tpu_torch.utils.tracing import (
+        MetricsRegistry,
+    )
+    prompt = np.random.default_rng(SERVE_SEED + 1).integers(
+        0, VOCAB, size=DS_PROMPT).astype(np.int32)
+    one = serve_engine(torch, 'paged', slots=KV_SLOTS, t_max=KV_T,
+                       pages=KV_PAGES)
+    cap_one = one.capacity_tokens
+    refusal = None
+    with Scheduler(one, ServeConfig(queue_limit=SERVE_QUEUE,
+                                    max_new_tokens=DS_STEPS, watchdog=False),
+                   registry=MetricsRegistry(), fault_injector=False) as s1:
+        try:
+            s1.submit(prompt, request_id='long')
+        except RejectedError as e:
+            refusal = (e.reason, str(e))
+    del one
+    eng = serve_engine(torch, 'paged', slots=KV_SLOTS, t_max=KV_T,
+                       pages=KV_PAGES, kv_shards=KV_SHARDS)
+    eng.step(np.zeros(KV_SLOTS, np.int32), np.ones(KV_SLOTS, bool))
+    for i in range(KV_SLOTS):
+        eng.reset(i)
+    torch.cuda.synchronize()
+    step_ms, shard_ms = [], {}
+    inner = eng.step
+
+    def timed_step(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inner(*a, **k)
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        return out
+    eng.step = timed_step
+    dev, bf16 = eng.device, torch.bfloat16
+    q = randn(torch, (KV_SLOTS, HEADS, 1, HEAD_DIM), gen, dev, bf16)
+    noap = torch.full((KV_SLOTS,), -1, dtype=torch.int32, device=dev)
+
+    def on_tick(sched):
+        # Halfway through the decode, each shard's launch on the live
+        # cache (no append; counted launches restored after).
+        if len(step_ms) != DS_STEPS // 2 or shard_ms:
+            return
+        before = ddp.flash_decode_paged.launches
+        vt = torch.as_tensor(np.maximum(eng.pool.lengths - 1, 0),
+                             dtype=torch.int32, device=dev)
+        for sh in range(KV_SHARDS):
+            v = eng.shard_cache(sh)
+            shard_ms[sh] = time_ms(torch, lambda v=v: ddp.flash_decode(
+                q, q, q, v.k_pool, v.v_pool, vt, noap,
+                page_table=v.page_table, partials=True), flush)
+        ddp.flash_decode_paged.launches = before
+    registry = MetricsRegistry()
+    sched = Scheduler(eng, ServeConfig(queue_limit=SERVE_QUEUE,
+                                       max_new_tokens=DS_STEPS,
+                                       watchdog=False),
+                      registry=registry, fault_injector=False,
+                      on_tick=on_tick)
+    ddp.flash_decode.launches = 0
+    ddp.flash_decode_paged.launches = 0
+    t0 = time.perf_counter()
+    try:
+        sched.submit(prompt, request_id='long')
+        results = sched.run_until_idle()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        sched.close()
+    launches = {'flash_decode': ddp.flash_decode.launches,
+                'flash_decode_paged': ddp.flash_decode_paged.launches}
+    counters = registry.snapshot()['counters']
+    steps = counters.get('serve.decode_steps', 0)
+    r = results.get('long')
+    row = {'phase': 'kv_sharded_serve', 'case': 'long_stream',
+           'engine': {'slots': KV_SLOTS, 't_max': KV_T, 'kv_shards':
+                      KV_SHARDS, 'pages_per_shard': KV_PAGES,
+                      'page_size': SERVE_PAGE, 'placement': eng.placement},
+           'capacity_tokens': {'kv_shards': eng.capacity_tokens,
+                               'one_shard': cap_one},
+           'prompt': DS_PROMPT, 'unsharded_refusal': (
+               None if refusal is None else [refusal[0].value, refusal[1]]),
+           'status': None if r is None else r.status,
+           'tokens': 0 if r is None else len(r.tokens),
+           'decode_steps': steps, 'wall_s': wall,
+           'ms_per_step_median': (statistics.median(step_ms)
+                                  if step_ms else None),
+           'k5p_ms_by_shard_halfway': shard_ms,
+           'pages_free_by_shard_after': eng.pool.free_pages_by_shard,
+           'launches': launches}
+    emit(row)
+    check(eng.capacity_tokens == KV_T and cap_one == KV_PAGES * SERVE_PAGE,
+          f'capacity_tokens {eng.capacity_tokens} sharded, {cap_one} '
+          f'unsharded')
+    check(refusal is not None
+          and refusal[0] is RejectReason.CACHE_EXHAUSTED,
+          f'the unsharded engine did not refuse the {DS_PROMPT}-token '
+          f'prompt with CACHE_EXHAUSTED: {refusal}')
+    check(r is not None and r.status == 'completed'
+          and len(r.tokens) == DS_STEPS,
+          f'long stream: {None if r is None else (r.status, len(r.tokens))}')
+    check(launches['flash_decode_paged'] == KV_SHARDS * steps
+          and launches["flash_decode"] == 0 and steps == DS_STEPS,
+          f'long stream: launches {launches} for {steps} decode steps')
+    check(len(shard_ms) == KV_SHARDS, 'long stream: shards not timed')
+    del eng, sched
+    torch.cuda.empty_cache()
+    return {'launches': launches['flash_decode_paged'], 'row': row}
+
+
+def phase_kv_sharded_serve(torch, ddp, flush, gen):
+    """The sequence-sharded page table: (c) the step check, (a) the burst
+    and its teacher-forced logits, (b) the long stream (see the
+    helpers)."""
+    step = _kv_step_check(torch, ddp, flush, gen)
+    burst = _kv_burst(torch, ddp)
+    forced = _kv_forced(torch, serve_burst())
+    long = _kv_long(torch, ddp, flush, gen)
+    return {'step': step, 'burst': burst, 'forced': forced, 'long': long}
 
 
 # Speculative serving (spec_serve): the serve_path burst with spec_k = 4
@@ -4554,6 +5031,8 @@ def _ds_run(torch, ddp, rank, dev):
         del gk, gv, slab, outs
         torch.cuda.empty_cache()
 
+        res['paged'] = _ds_paged(torch, ddp, dec, comm, mesh, rank, dev)
+
         # The recipe's own check (dryrun_multichip): 3 steps on the 2 x 2
         # data x seq group, t_cap 8, B 4, sharded against local — float32
         # through the plain path at the recipe's widths (key_dim 64, head
@@ -4577,6 +5056,90 @@ def _ds_run(torch, ddp, rank, dev):
                 errs.append(((s_out.float() - l_out.float()).abs().max()
                              .item(), *rel_errs(torch, s_out, l_out)))
             res['recipe'][name] = errs
+    return res
+
+
+def _ds_paged(torch, ddp, dec, comm, mesh, rank, dev):
+    """decode_sharded's paged case on one rank: its local view of a
+    sequence-sharded page table over the same global cache (DS_T columns,
+    page 16: 2048 ordinals, 512 a rank; DS_B slots at DS_PROMPT rows, the
+    same seeded rows on every rank, each keeping those it owns), then
+    DS_STEPS ``decode_step(group=...)`` steps (one K5p partials launch a
+    rank, the merge over the group); rank 0 then runs the single-pool
+    twins, K5p and the plain version, on the same rows and steps."""
+    import numpy as np
+    bf16 = torch.bfloat16
+    b, h, h_kv, d, ps = DS_B, SP_HEADS, SP_HEADS // 2, SP_HEAD_DIM, SERVE_PAGE
+    world, pps = comm.get_world_size(), DS_T // ps
+    per = b * (DS_LOCAL // ps)            # every slot's whole range
+    spt = dec.ShardedPageTable(world, per, ps, b, pps)
+    local = dec.init_paged_cache(b, h_kv, DS_T, d, pages=per, page_size=ps,
+                                 dtype=bf16, device=dev)._replace(
+                                     length=spt.lengths)
+    g = torch.Generator().manual_seed(23)      # the same on every rank
+    k = randn(torch, (b, h_kv, DS_PROMPT, d), g, dev, bf16)
+    v = randn(torch, (b, h_kv, DS_PROMPT, d), g, dev, bf16)
+    xs = [[randn(torch, (b, hh, 1, d), g, dev, bf16) for hh in (h, h_kv,
+                                                                h_kv)]
+          for _ in range(DS_STEPS)]
+    for i in range(b):
+        check(spt.reserve_rows(i, DS_PROMPT)[0], 'paged: reserve failed')
+    local.page_table.copy_(torch.from_numpy(spt.shards[rank].table))
+    dec.paged_append_kv_slots(local, k, v)
+    spt.lengths[:] = DS_PROMPT
+    # A mesh over the whole world names its seq group None (the default
+    # group); decode_step's group=None is the local step.
+    group = comm.world_group() if mesh.seq_group is None else mesh.seq_group
+    outs, ms = [], []
+    ddp.flash_decode_paged.launches = 0
+    for q, kn, vn in xs:
+        for i in range(b):
+            check(spt.prepare_append(i)[0] in ('ok', 'alloc'),
+                  'paged: prepare_append failed')
+        local.page_table.copy_(torch.from_numpy(spt.shards[rank].table))
+        torch.cuda.synchronize()
+        ddp.synchronize()
+        t0 = time.perf_counter()
+        _, out = dec.decode_step(q, local, kn, vn, group=group,
+                                 impl='kernel')
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        outs.append(out)
+        spt.lengths += 1
+    res = {'step_ms': ms, 'launches': ddp.flash_decode_paged.launches,
+           'length': spt.lengths.tolist(),
+           'owned_pages': spt.shards[rank].used_pages}
+    if rank == 0:
+        # The single-pool twins: K5p, and the plain version.
+        for impl, key in (('kernel', 'vs_single_pool'),
+                          ('plain', 'vs_plain_single_pool')):
+            pool = dec.PagePool(world * per, ps, b, pps)
+            single = dec.init_paged_cache(b, h_kv, DS_T, d,
+                                          pages=world * per, page_size=ps,
+                                          dtype=bf16, device=dev)
+            for i in range(b):
+                check(pool.reserve_rows(i, DS_PROMPT)[0],
+                      'twin: reserve failed')
+            single.page_table.copy_(torch.from_numpy(pool.table))
+            single = dec.paged_append_kv_slots(single, k, v)
+            pool.lengths[:] = DS_PROMPT
+            twin = []
+            for q, kn, vn in xs:
+                for i in range(b):
+                    check(pool.prepare_append(i)[0] in ('ok', 'alloc'),
+                          'twin: prepare_append failed')
+                single.page_table.copy_(torch.from_numpy(pool.table))
+                single, out = dec.decode_step(q, single, kn, vn, impl=impl)
+                twin.append(out)
+                pool.lengths += 1
+            errs = [rel_errs(torch, a, b_) for a, b_ in zip(outs, twin)]
+            res[key] = {
+                'max_row_rel_err': max(e[0] for e in errs),
+                'max_rel_err': max(e[1] for e in errs),
+                'finite': all(torch.isfinite(a).all().item() for a in outs)}
+            del single, twin
+    del local, k, v
+    torch.cuda.empty_cache()
     return res
 
 
@@ -4656,9 +5219,36 @@ def phase_decode_sharded(torch, ddp, timeout=600):
                 if not ok:
                     failures.append(f'recipe {name} rank {r} step {t}: '
                                     f'abs {ab}, row {row}, whole {whole}')
+    # The paged case: decode_step(group=...) on each rank's view of the
+    # sequence-sharded page table, against rank 0's single-pool K5p.
+    pg = {r: ranks[r]['paged'] for r in ranks}
+    paged_ms = statistics.median(max(pg[r]['step_ms'][t] for r in pg)
+                                 for t in range(DS_STEPS))
+    pv, pp = pg[0]['vs_single_pool'], pg[0]['vs_plain_single_pool']
+    emit({**base, 'case': 'paged', 'batch': DS_B, 't_max_global': DS_T,
+          'page_size': SERVE_PAGE, 'ordinals_per_rank': DS_LOCAL // SERVE_PAGE,
+          'prompt': DS_PROMPT, 'steps': DS_STEPS,
+          'ms_per_step_median': paged_ms, 'slab_ms_per_step_median': step_ms,
+          'k5p_launches': {r: pg[r]['launches'] for r in pg},
+          'owned_pages': {r: pg[r]['owned_pages'] for r in pg},
+          'vs_single_pool': pv, 'vs_plain_single_pool': pp,
+          'tol': {'row_rel': TOL_ROW_REL, 'rel': TOL_NORM_REL}})
+    for r in pg:
+        if pg[r]['launches'] != DS_STEPS:
+            failures.append(f'paged rank {r}: K5p launches '
+                            f'{pg[r]["launches"]}')
+        if pg[r]['length'] != [DS_PROMPT + DS_STEPS] * DS_B:
+            failures.append(f'paged rank {r}: lengths {pg[r]["length"]}')
+    for what, e in (('K5p', pv), ('plain', pp)):
+        if not (e['finite'] and e['max_row_rel_err'] <= TOL_ROW_REL
+                and e['max_rel_err'] <= TOL_NORM_REL):
+            failures.append(f'paged sharded vs single-pool {what}: {e}')
     emit({**base, 'case': 'summary', 'seconds': seconds, 'backend': backend})
     check(not failures, '; '.join(failures))
-    return {'launches_per_rank': DS_STEPS, 'ms_per_step': step_ms,
+    return {'launches_per_rank': {r: ranks[r]['launches']['flash_decode']
+                                  for r in ranks},
+            'paged_launches_per_rank': {r: pg[r]['launches'] for r in pg},
+            'ms_per_step': step_ms, 'paged_ms_per_step': paged_ms,
             'merge_ms': statistics.median(ranks[r]['merge_ms']
                                           for r in ranks)}
 
@@ -5058,6 +5648,8 @@ def main():
              lambda: phase_decode_int8(torch, ddp, flush, gen)),
             ('serve_path', lambda: phase_serve_path(torch, ddp)),
             ('spec_serve', lambda: phase_spec_serve(torch, ddp)),
+            ('kv_sharded_serve',
+             lambda: phase_kv_sharded_serve(torch, ddp, flush, gen)),
             ('int8_decode', lambda: phase_int8_decode(torch, ddp)),
             ('flash_backward',
              lambda: phase_flash_backward(torch, ddp, flush, gen)),
@@ -5102,6 +5694,7 @@ def main():
     ver, i8 = res['flash_decode_verify'], res['flash_decode_int8']
     spec, int8_path = res['spec_serve'], res['int8_decode']
     alibi, zz = res['alibi_lm'], res['zigzag_ring']
+    kv = res['kv_sharded_serve']
     int8_k = int8_path['int8_kernels']
 
     def variant(cases, head, launches, path):
@@ -5139,6 +5732,29 @@ def main():
         k5p['variants']['alibi'], 'alibi_n1',
         alibi['paged']['flash_decode_paged'],
         f'alibi_lm paged route, {STEPS - 1} steps x {LAYERS} layers')
+    # K5p with partials on each shard of the sequence-sharded page table:
+    # its launches on kv_sharded_serve's burst and long stream, its time
+    # per shard at the long stream's shapes (the slowest shard as ms).
+    kv_step = kv['step']
+    slowest = max(kv_step['shards'], key=lambda sh: kv_step['shards'][sh]['ms'])
+    k5p['variants']['kv_shards'] = dict(
+        launches=kv['burst']['launches'] + kv['long']['launches'],
+        path=f'kv_sharded_serve: the burst ({KV_SHARDS} a decode step) and '
+             f'the {KV_T}-column long stream ({DS_STEPS} steps x '
+             f'{KV_SHARDS})',
+        launches_by_path={
+            'kv_sharded_serve_burst': kv['burst']['launches'],
+            'kv_sharded_serve_long': kv['long']['launches'],
+            'decode_sharded_paged_per_rank':
+                ds['paged_launches_per_rank']},
+        max_abs_err=kv_step['max_abs_err'],
+        ms=kv_step['shards'][slowest]['ms'],
+        ms_by_shard={sh: c['ms'] for sh, c in kv_step['shards'].items()},
+        single_pool_ms=kv_step['single_pool_ms'],
+        plain_ms=kv_step['plain_ms_shard0'], library_ms=None,
+        bound_ms=kv_step['shards'][slowest]['bound_ms'],
+        bound_by=kv_step['shards'][slowest]['bound_by'],
+        vs_single_pool=kv_step['vs_single_pool'])
 
     # K1, K3, K4: launches on the training path (beside them the serving
     # path's and each sequence-parallel strategy's, rank 0 over its
@@ -5281,7 +5897,11 @@ def main():
                      for p in SPEC_PROPOSERS},
                  'int8_decode_paged':
                      int8_path['paged']['launches']['flash_decode_paged'],
-                 'alibi_lm_paged': alibi['paged']['flash_decode_paged']},
+                 'alibi_lm_paged': alibi['paged']['flash_decode_paged'],
+                 'kv_sharded_serve_burst': kv['burst']['launches'],
+                 'kv_sharded_serve_long': kv['long']['launches'],
+                 'decode_sharded_paged_per_rank':
+                     ds['paged_launches_per_rank']},
              max_abs_err=k5p['max_abs_err'],
              variants=k5p['variants'],
              **{key: k5p[key] for key in ('ms', 'plain_ms', 'library_ms',

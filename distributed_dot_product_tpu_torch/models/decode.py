@@ -59,8 +59,21 @@ The sliding ``window`` and the ALiBi slopes of the training kernels apply
 to every decode path (the kernels add ``slope·(col − valid_to − j)``).
 Packed segments (``segment_ids`` of the cached side, ``seg_q`` of the
 query rows) are masked by the plain step only, as in the reference, so on
-CUDA tensors they need ``impl='plain'``. Not ported yet: the sharded page
-table and cross-cache page transfer.
+CUDA tensors they need ``impl='plain'``.
+
+The sequence-sharded page table (:class:`ShardedPageTable`,
+:func:`init_sharded_paged_cache`) splits one stream's page table over
+``N`` shards, shard ``s`` owning a contiguous run of the logical page
+ordinals: each shard holds a local :class:`PagedDecodeCache` whose table
+keeps the full logical width with -1 at every ordinal another shard owns
+(:func:`shard_view` gives it as views of the stacked cache). Positions
+stay global, appends drop through the -1 on non-owners, and each shard's
+masked softmax partials ``(num, m, l)`` (:func:`paged_partials_step`:
+K5p with ``partials=True``, or the plain masked attention) merge by the
+flash-decoding rule (:func:`_merge_partials`) into the single-pool
+result: over a process group in :func:`decode_step` (``group=``), or
+over shards held in one process in :func:`sharded_decode_step`. Not
+ported yet: cross-cache page transfer.
 """
 
 import math
@@ -71,7 +84,7 @@ import numpy as np
 import torch
 
 from distributed_dot_product_tpu_torch.ops.flash_attention import (
-    quantize_rows,
+    _LOG2E, _NEG_BIG, quantize_rows,
 )
 from distributed_dot_product_tpu_torch.ops.flash_decode import (
     _SPLIT, flash_decode, gather_pages,
@@ -87,7 +100,9 @@ __all__ = ['DecodeCache', 'init_cache', 'append_kv', 'append_kv_sharded',
            'init_paged_cache', 'paged_gather', 'paged_gather_mirror',
            'paged_append_kv_slots', 'paged_append_rows', 'paged_reset_slot',
            'paged_rollback_slots', 'paged_copy_attach', 'PagePool',
-           'PageChecksums']
+           'PageChecksums', 'ShardedPageTable', 'init_sharded_paged_cache',
+           'shard_view', 'paged_partials_step', 'sharded_decode_step',
+           'merge_partials']
 
 
 class DecodeCache(NamedTuple):
@@ -925,6 +940,335 @@ class PagePool:
         return self.attach(dst, pages, length)
 
 
+class ShardedPageTable:
+    """Host-side allocator of a SEQUENCE-SHARDED paged cache: one
+    stream's page table split over ``n_shards`` pools, so its KV capacity
+    sums over the shards instead of capping at one device's memory. Shard
+    ``s`` owns the contiguous logical page ordinals ``[s·ops,
+    min((s+1)·ops, pages_per_slot))`` with ``ops = ceil(pages_per_slot /
+    n_shards)``; the last shard takes the remainder.
+
+    ``n_shards`` ordinary :class:`PagePool` instances (each
+    ``pages_per_shard`` pages) share ONE ``lengths`` vector (the fill is
+    a global property every shard advances alike). Each sub-pool's
+    ``table`` keeps the full logical width with -1 at every ordinal
+    another shard owns: the local view the sharded decode step reads
+    (positions stay global, non-owned appends drop through the -1,
+    non-owned columns are masked and the flash merge reassembles the
+    single-pool attention). A sub-pool's ``counts[slot]`` is the
+    high-watermark ordinal + 1 seen by that shard.
+
+    Operations that touch several sub-pools (:meth:`reserve_rows` with
+    its cross-shard rollback, :meth:`release`, :meth:`truncate`,
+    :meth:`attach`) live here; single-ordinal ones route to the owning
+    sub-pool. Returned page ids are LOCAL to their shard: every (shard,
+    page) pair is explicit in the signatures. The stacked-pool id of a
+    local page is :meth:`gpage`."""
+
+    def __init__(self, n_shards, pages_per_shard, page_size, slots,
+                 pages_per_slot):
+        if n_shards < 2:
+            raise ValueError(f'need n_shards >= 2 (a single shard is a '
+                             f'plain PagePool), got {n_shards}')
+        self.n_shards = n_shards
+        self.pages_per_shard = pages_per_shard
+        self.page_size = page_size
+        self.slots = slots
+        self.pages_per_slot = pages_per_slot
+        self.ordinals_per_shard = -(-pages_per_slot // n_shards)
+        self.shards = [PagePool(pages_per_shard, page_size, slots,
+                                pages_per_slot)
+                       for _ in range(n_shards)]
+        # One fill vector: every sub-pool's lengths is the same array, so
+        # an in-place update through any alias advances all shards.
+        self.lengths = self.shards[0].lengths
+        for p in self.shards[1:]:
+            p.lengths = self.lengths
+
+    # -- geometry -------------------------------------------------------
+    def owner(self, ordinal):
+        """Shard owning logical page ``ordinal``."""
+        return min(ordinal // self.ordinals_per_shard, self.n_shards - 1)
+
+    def owned_range(self, shard):
+        """``(lo, hi)``: the contiguous ordinal run ``shard`` owns."""
+        lo = min(self.pages_per_slot, shard * self.ordinals_per_shard)
+        hi = (self.pages_per_slot if shard == self.n_shards - 1
+              else min(self.pages_per_slot,
+                       (shard + 1) * self.ordinals_per_shard))
+        return lo, hi
+
+    def owner_vector(self):
+        """``(pages_per_slot,) int32``: ordinal → owning shard."""
+        return np.asarray([self.owner(o)
+                           for o in range(self.pages_per_slot)], np.int32)
+
+    # The stacked pool's rows: each shard contributes pages_per_shard
+    # allocatable rows plus its own sink row. These three helpers are the
+    # only place that stride appears.
+    def gpage(self, shard, page):
+        """Shard-local page id → GLOBAL stacked-pool row id."""
+        return shard * (self.pages_per_shard + 1) + page
+
+    def gsplit(self, gpage):
+        """GLOBAL stacked-pool row id → ``(shard, local page)``."""
+        stride = self.pages_per_shard + 1
+        return int(gpage) // stride, int(gpage) % stride
+
+    def page_shard(self, gpage):
+        """Shard owning GLOBAL stacked-pool row id ``gpage``."""
+        return int(gpage) // (self.pages_per_shard + 1)
+
+    # -- aggregate introspection ---------------------------------------
+    @property
+    def pages(self):
+        """Allocatable pages summed over the shards."""
+        return self.n_shards * self.pages_per_shard
+
+    @property
+    def free_pages(self):
+        return sum(p.free_pages for p in self.shards)
+
+    @property
+    def free_pages_by_shard(self):
+        return [p.free_pages for p in self.shards]
+
+    @property
+    def used_pages(self):
+        return sum(p.used_pages for p in self.shards)
+
+    @property
+    def shared_pages(self):
+        return sum(p.shared_pages for p in self.shards)
+
+    @property
+    def quarantined(self):
+        """Withdrawn pages as ``(shard, local_page)`` pairs."""
+        return {(s, page) for s, p in enumerate(self.shards)
+                for page in p.quarantined}
+
+    @property
+    def dirty(self):
+        return any(p.dirty for p in self.shards)
+
+    @dirty.setter
+    def dirty(self, value):
+        for p in self.shards:
+            p.dirty = bool(value)
+
+    def pages_for_rows(self, rows):
+        return -(-rows // self.page_size)
+
+    def slot_pages(self, slot):
+        """Pages mapped for ``slot`` over all shards."""
+        return sum(int(np.sum(p.table[slot] >= 0)) for p in self.shards)
+
+    def covered_rows(self, slot):
+        """Longest ``[0, r)`` row prefix of ``slot`` whose pages are all
+        mapped (chunked prefill's no-fail-mid-prompt check)."""
+        o = 0
+        while (o < self.pages_per_slot
+               and int(self.shards[self.owner(o)].table[slot, o]) >= 0):
+            o += 1
+        return o * self.page_size
+
+    def local_tables(self):
+        """``(n_shards, slots, pages_per_slot) int32``: the local views
+        stacked, the device tables' host mirror."""
+        return np.stack([p.table for p in self.shards]).astype(np.int32)
+
+    # -- allocation -----------------------------------------------------
+    def prepare_append(self, slot):
+        """:meth:`PagePool.prepare_append` routed to the shard owning the
+        slot's next append ordinal. Returns ``(status, shard, src,
+        dst)``; ``shard`` names the pool the status is about (-1 for
+        'full'), so an exhaustion report can say which shard's range is
+        out of pages while the others have headroom."""
+        pi = int(self.lengths[slot]) // self.page_size
+        if pi >= self.pages_per_slot:
+            return ('full', -1, -1, -1)
+        s = self.owner(pi)
+        st, src, dst = self.shards[s].prepare_append(slot)
+        return (st, s, src, dst)
+
+    def reserve_rows(self, slot, rows):
+        """Cross-shard :meth:`PagePool.reserve_rows`: reserve every page
+        covering rows ``[length, length + rows)`` wherever they are
+        owned. Returns ``(ok, copies)``, ``copies`` a list of ``(shard,
+        src, dst)`` device copies owed. On ANY shard's exhaustion nothing
+        is changed anywhere (the rollback spans shards)."""
+        start = int(self.lengths[slot])
+        end = start + rows
+        if end > self.pages_per_slot * self.page_size:
+            return False, []
+        counts0 = [int(p.counts[slot]) for p in self.shards]
+        undo = []                     # (shard, pi, prev, was_cow)
+        copies = []
+        for pi in range(start // self.page_size, -(-end // self.page_size)):
+            s = self.owner(pi)
+            pool = self.shards[s]
+            if pi >= int(pool.counts[slot]) or int(pool.table[slot, pi]) < 0:
+                page = pool.alloc()
+                if page is None:
+                    self._undo_reserve(slot, undo, counts0)
+                    return False, []
+                undo.append((s, pi, -1, False))
+                pool.table[slot, pi] = page
+                pool.counts[slot] = max(int(pool.counts[slot]), pi + 1)
+                pool.dirty = True
+            else:
+                page = int(pool.table[slot, pi])
+                if pool.refcount[page] > 1:
+                    dup = pool.alloc()
+                    if dup is None:
+                        self._undo_reserve(slot, undo, counts0)
+                        return False, []
+                    undo.append((s, pi, page, True))
+                    pool.refcount[page] -= 1
+                    pool.table[slot, pi] = dup
+                    copies.append((s, page, dup))
+                    pool.dirty = True
+        return True, copies
+
+    def _undo_reserve(self, slot, undo, counts0):
+        for s, pi, prev, was_cow in reversed(undo):
+            pool = self.shards[s]
+            page = int(pool.table[slot, pi])
+            pool.refcount[page] = 0
+            pool._free.append(page)
+            pool.table[slot, pi] = prev
+            if was_cow:
+                pool.refcount[prev] += 1
+        for s, c in enumerate(counts0):
+            self.shards[s].counts[slot] = c
+
+    def release(self, slot):
+        """Evict ``slot`` everywhere. Returns ``{shard: [pages]}`` of the
+        LOCAL pages that hit refcount 0 (the caller zeroes each shard's
+        list in that shard's pool)."""
+        freed = {}
+        for s, pool in enumerate(self.shards):
+            for pi in range(int(pool.counts[slot])):
+                page = int(pool.table[slot, pi])
+                if page >= 0 and pool._unref(page):
+                    freed.setdefault(s, []).append(page)
+            pool.table[slot, :] = -1
+            pool.counts[slot] = 0
+            pool.dirty = True
+        self.lengths[slot] = 0
+        return freed
+
+    def truncate(self, slot, new_length):
+        """Cross-shard :meth:`PagePool.truncate` (a per-shard delegation
+        would stop at the first sub-pool: the shared lengths make every
+        later one look already truncated). Returns ``{shard: [freed
+        local pages]}``."""
+        if new_length >= int(self.lengths[slot]):
+            return {}
+        keep = self.pages_for_rows(int(new_length))
+        freed = {}
+        for s, pool in enumerate(self.shards):
+            for pi in range(keep, int(pool.counts[slot])):
+                page = int(pool.table[slot, pi])
+                if page >= 0:
+                    if pool._unref(page):
+                        freed.setdefault(s, []).append(page)
+                    pool.table[slot, pi] = -1
+                    pool.dirty = True
+            pool.counts[slot] = min(int(pool.counts[slot]), keep)
+        self.lengths[slot] = new_length
+        return freed
+
+    # -- sharing --------------------------------------------------------
+    def attach(self, slot, ordinal_pages, length):
+        """Point an EMPTY slot at pages laid out by ordinal:
+        ``ordinal_pages (pages_per_slot,)`` holds, at each ordinal the
+        prefix covers, the LOCAL page id in the owning shard's pool.
+        Full pages are shared read-only (refcount++ on their shard); a
+        partial tail page gets a private copy on the tail ordinal's
+        owner. Returns ``(ok, tail_shard, tail_src, tail_dst)``, -1s
+        when the prefix ends on a page boundary; on tail-page exhaustion
+        nothing is changed."""
+        if self.lengths[slot] or any(int(p.counts[slot])
+                                     for p in self.shards):
+            raise RuntimeError(f'attach needs an empty slot, slot '
+                               f'{slot} is in use')
+        full = length // self.page_size
+        rem = length % self.page_size
+        tail_shard = tail_src = tail_dst = -1
+        if rem:
+            tail_shard = self.owner(full)
+            tail_dst = self.shards[tail_shard].alloc()
+            if tail_dst is None:
+                return False, -1, -1, -1
+            tail_src = int(ordinal_pages[full])
+        for o in range(full):
+            pool = self.shards[self.owner(o)]
+            pg = int(ordinal_pages[o])
+            pool.table[slot, o] = pg
+            pool.refcount[pg] += 1
+            pool.counts[slot] = o + 1
+            pool.dirty = True
+        if rem:
+            pool = self.shards[tail_shard]
+            pool.table[slot, full] = tail_dst
+            pool.counts[slot] = full + 1
+            pool.dirty = True
+        self.lengths[slot] = length
+        return True, tail_shard, tail_src, tail_dst
+
+    def release_pages_on(self, shard, pages):
+        """Per-shard :meth:`PagePool.release_pages`; returns the LOCAL
+        pages owed a zero in that shard's pool."""
+        return self.shards[shard].release_pages(pages)
+
+    def quarantine(self, shard, pages):
+        """Withdraw LOCAL ``pages`` of ``shard`` from circulation; returns
+        the pages newly quarantined on that shard."""
+        return self.shards[shard].quarantine(pages)
+
+
+def init_sharded_paged_cache(n_shards, slots, kv_heads, t_max, head_dim, *,
+                             pages_per_shard, page_size, v_head_dim=None,
+                             dtype=torch.bfloat16, device='cuda'):
+    """Zero STACKED sharded paged cache, the device twin of
+    :class:`ShardedPageTable`, on ``device``: the pools stack the
+    per-shard ``(pages_per_shard + 1, H_kv, page_size, d·)`` local pools
+    (each ending in its own sink row) on axis 0, the table stacks the
+    local views as ``(n_shards, slots, pages_per_slot)`` (all -1), and
+    the ``(slots,)`` fill is one host vector. :func:`shard_view` gives
+    shard ``s``'s local :class:`PagedDecodeCache`; its local page ``p``
+    is stacked row :meth:`ShardedPageTable.gpage` ``(s, p)``."""
+    v_head_dim = v_head_dim or head_dim
+    if page_size < 1 or t_max % page_size:
+        raise ValueError(f'page_size {page_size} must divide t_max '
+                         f'{t_max}')
+    if n_shards < 2 or pages_per_shard < 1:
+        raise ValueError(f'need n_shards >= 2 and pages_per_shard >= 1, '
+                         f'got {n_shards}/{pages_per_shard}')
+    dev = resolve_device(device)
+    rows = n_shards * (pages_per_shard + 1)
+    return PagedDecodeCache(
+        k_pool=torch.zeros((rows, kv_heads, page_size, head_dim),
+                           dtype=dtype, device=dev),
+        v_pool=torch.zeros((rows, kv_heads, page_size, v_head_dim),
+                           dtype=dtype, device=dev),
+        page_table=torch.full((n_shards, slots, t_max // page_size), -1,
+                              dtype=torch.int32, device=dev),
+        length=np.zeros(slots, np.int64))
+
+
+def shard_view(cache: PagedDecodeCache, shard):
+    """Shard ``shard``'s local :class:`PagedDecodeCache` of a stacked
+    cache (:func:`init_sharded_paged_cache`) as VIEWS, no copy: its block
+    of the pools, its ``(slots, pages_per_slot)`` table and the shared
+    length vector. Writes through it land in the stacked cache."""
+    n = cache.page_table.shape[0]
+    return PagedDecodeCache(
+        k_pool=cache.k_pool.chunk(n)[shard],
+        v_pool=cache.v_pool.chunk(n)[shard],
+        page_table=cache.page_table[shard], length=cache.length)
+
 
 def _page_bytes(t):
     return t.contiguous().view(torch.uint8).cpu().numpy().tobytes()
@@ -1005,7 +1349,7 @@ class PageChecksums:
 def decode_attention(q, cache: DecodeCache, *, scale=None, window=None,
                      alibi_slopes=None, segment_ids=None, seg_q=None,
                      qk_quant=None, group=None, col_valid=None,
-                     col_offset=None):
+                     col_offset=None, partials=False):
     """Masked-softmax attention of ``q (B, H, n, d)`` — the LAST ``n``
     appended positions — against the cache prefix; returns
     ``(B, H, n, d_v)`` in the cache dtype. A per-slot cache masks each
@@ -1034,7 +1378,12 @@ def decode_attention(q, cache: DecodeCache, *, scale=None, window=None,
     ``None``: the local step. ``col_offset``: the global position of the
     buffer's column 0 (default: ``rank · t_max`` when sharded, else 0);
     ``col_valid (B, t_max) bool``: columns the buffer holds (the rest are
-    masked whatever their position)."""
+    masked whatever their position). ``partials=True`` returns this
+    buffer's flash-decoding partials ``(num (B, H, n, d_v), m, l (B, H,
+    n, 1))`` in float32 instead, in the decode kernels' convention (the
+    running max in base 2, ``_NEG_BIG`` and 0 for an empty row), which
+    :func:`_merge_partials` combines (with ``group`` they are this
+    rank's, merged over the group)."""
     if qk_quant not in (None, 'int8'):
         raise ValueError(f"qk_quant must be None or 'int8', "
                          f'got {qk_quant!r}')
@@ -1094,49 +1443,105 @@ def decode_attention(q, cache: DecodeCache, *, scale=None, window=None,
         s = s + slopes * rel[:, None, None].float()
     s = s.masked_fill(~allowed[:, None, None], float('-inf'))
     m = s.amax(dim=-1, keepdim=True)
-    if group is not None:
-        m = all_reduce_max(m, group)
     p = torch.exp(s - m.clamp_min(-1e30))                     # empty rows
     denom = p.sum(dim=-1, keepdim=True)
     dv = cache.v.shape[-1]
-    if group is None:
+    if group is None and not partials:
         p = p / torch.where(denom == 0.0, 1.0, denom)
         out = torch.matmul(p, cache.v.float()[:, :, None])
         return out.to(cache.v.dtype).reshape(b, h, n, dv)
     num = torch.matmul(p, cache.v.float()[:, :, None])
-    both = all_reduce(torch.cat([num, denom], dim=-1), group)
-    num, denom = both[..., :dv], both[..., dv:]
-    out = num / torch.where(denom == 0.0, 1.0, denom)
-    return out.to(cache.v.dtype).reshape(b, h, n, dv)
+    parts = (num.reshape(b, h, n, dv),
+             (m * _LOG2E).clamp_min(_NEG_BIG).reshape(b, h, n, 1),
+             denom.reshape(b, h, n, 1))
+    if partials:
+        return parts
+    return _flash_merge(parts, group, cache.v.dtype)
 
 
-def _flash_merge(partials, group, out_dtype):
-    """Flash-decoding merge of the kernel's ``(num, m, l)`` partials
-    (base-2 running max and denominator) over the ranks of ``group``:
-    shift every rank's partials by the row max over the ranks, then sum
-    the numerators and denominators (one collective for both). A rank
-    whose slab holds no attended column contributes ``exp2(_NEG_BIG −
-    m) = 0``; a row no rank attends gives 0."""
+def _merge_partials(partials, row_max, total, out_dtype):
+    """The flash-decoding merge, the one formula every sharded decode
+    path uses: shift each shard's ``(num, m, l)`` partials (base-2
+    running max and denominator) by the row max over the shards
+    (``row_max``), sum the numerators and denominators (``total``, one
+    reduction for both) and divide. A shard that attends no column of a
+    row contributes ``exp2(_NEG_BIG − m) = 0``; a row no shard attends
+    gives 0. ``row_max`` and ``total`` are collectives over a process
+    group (:func:`_flash_merge`) or reductions over a stacked shard axis
+    (:func:`merge_partials`)."""
     num, m, l = partials
-    corr = torch.exp2(m - all_reduce_max(m, group))
-    both = all_reduce(torch.cat([num * corr, l * corr], dim=-1), group)
+    corr = torch.exp2(m - row_max(m))
+    both = total(torch.cat([num * corr, l * corr], dim=-1))
     num, den = both[..., :-1], both[..., -1:]
     return (num / torch.where(den == 0.0, 1.0, den)).to(out_dtype)
 
 
+def _flash_merge(partials, group, out_dtype):
+    """:func:`_merge_partials` over the ranks of ``group``: a max
+    all-reduce, then one sum all-reduce of numerators and
+    denominators."""
+    return _merge_partials(partials, lambda m: all_reduce_max(m, group),
+                           lambda x: all_reduce(x, group), out_dtype)
+
+
+def merge_partials(partials, out_dtype):
+    """:func:`_merge_partials` over shards held in one process:
+    ``partials`` is one ``(num, m, l)`` per shard, all on one device,
+    stacked on a new leading axis and reduced over it."""
+    stacked = tuple(torch.stack(x) for x in zip(*partials))
+    return _merge_partials(stacked, lambda m: m.amax(dim=0),
+                           lambda x: x.sum(dim=0), out_dtype)
+
+
 def decode_kernel_eligible(cache, n=1, segment_ids=None, qk_quant=None,
-                           explain=False, n_shards=1):
+                           explain=False, n_shards=1, shard=None):
     """Can :func:`decode_step` take the fused kernel (K5 / K5p) for this
     call? The kernel covers ``1 <= n <= the K split`` new rows per slot
     (n > 1 is the fused verify step; the slab's split is the port's
     ``min(128, t_max)`` columns, the paged one the page size), GQA, the
     window, and the int8 mirror at n = 1 on both layouts; packed
     segments, quantized verify-k and mirror-less int8 are left to the
-    plain path (``impl='plain'`` on the card), as is sharded verify-k (``n_shards > 1``: the merge
-    carries one query row per shard). ``explain=True`` returns
-    ``(eligible, reason)``."""
+    plain path (``impl='plain'`` on the card), as is sharded verify-k
+    (``n_shards > 1``: the merge carries one query row per shard).
+    ``explain=True`` returns ``(eligible, reason)``.
+
+    ``n_shards > 1`` describes a sequence-sharded step (``cache`` is then
+    ONE shard's local view: a slab of the sharded slab, or a shard of the
+    sharded page table) and ``shard`` optionally names the shard probed.
+    With ``explain=True`` every verdict then carries the geometry (the
+    shard count and the shard's page-ordinal or column range): an
+    eligible sharded probe returns ``(True, '<geometry>')``, an
+    ineligible one ``(False, '<geometry> — <reason>')``."""
+    geom = None
+    if n_shards > 1:
+        if isinstance(cache, PagedDecodeCache):
+            pps = cache.pages_per_slot
+            local = -(-pps // n_shards)
+            if shard is None:
+                own = (f'each of the {n_shards} shards owns a contiguous '
+                       f'run of {local} of the {pps} logical page '
+                       f'ordinals')
+            else:
+                lo = shard * local
+                hi = min(pps, lo + local)
+                own = (f'shard {shard}/{n_shards} owns logical page '
+                       f'ordinals [{lo}, {hi}) of {pps}')
+            geom = f'sequence-sharded page table: {own}'
+        else:
+            t_loc = cache.t_max
+            if shard is None:
+                own = (f'each of the {n_shards} shards owns a '
+                       f'{t_loc}-column slab')
+            else:
+                own = (f'shard {shard}/{n_shards} owns columns '
+                       f'[{shard * t_loc}, {(shard + 1) * t_loc})')
+            geom = f'sequence-sharded slab: {own}'
+
     def verdict(reason):
-        return (reason is None, reason) if explain else reason is None
+        ok = reason is None
+        if geom is not None:
+            reason = geom if ok else f'{geom} — {reason}'
+        return (ok, reason) if explain else ok
 
     if n_shards > 1 and n != 1:
         return verdict(f'the sharded kernel step is single-token (its '
@@ -1227,30 +1632,45 @@ def decode_step(q, cache, k_new, v_new, *, slot_mask=None, counts=None,
     c`` appends rows ``0..c-1`` and its query rows ``>= c`` give outputs
     the caller discards). An overflow raises eagerly, naming the slot.
 
-    ``group``: the sequence-sharded slab step over that process group
-    (scalar global length, one row; see :func:`append_kv_sharded`). The
-    owning rank appends; the kernel path runs K5 with ``partials=True`` on
-    every rank's slab — the query's global position localised to the slab
-    as its ``valid_to``, negative when the slab lies wholly in its future,
-    past the slab when wholly in its past — and merges by
-    :func:`_flash_merge`; the plain path runs the masked
-    :func:`decode_attention` partials. An append past the global
-    capacity raises on every rank before any write.
+    ``group``: the sequence-sharded step over that process group. On a
+    SLAB cache (scalar global length, one row; see
+    :func:`append_kv_sharded`) the owning rank appends; the kernel path
+    runs K5 with ``partials=True`` on every rank's slab — the query's
+    global position localised to the slab as its ``valid_to``, negative
+    when the slab lies wholly in its future, past the slab when wholly in
+    its past — and merges by :func:`_flash_merge`; the plain path runs the
+    masked :func:`decode_attention` partials. An append past the global
+    capacity raises on every rank before any write. On a PAGED cache the
+    cache is this rank's local view of the sequence-sharded page table
+    (:class:`ShardedPageTable`: the logical width kept, -1 at every
+    ordinal another rank owns): :func:`paged_partials_step` on every
+    rank, positions global, the append dropped through the -1 on
+    non-owners, then :func:`_flash_merge`. ``counts`` is refused with a
+    group (the sharded step appends whole rows), and the kernel path is
+    single-token there.
     Returns ``(cache, out (B, H, n, d_v))``."""
     b, _, n, _ = q.shape
+    n_shards = 1 if group is None else max(2, get_world_size(group))
     impl = _resolve_decode_impl(impl, cache, n, segment_ids, qk_quant,
-                                1 if group is None else 2, q.device)
+                                n_shards, q.device)
     paged = isinstance(cache, PagedDecodeCache)
     per_slot = isinstance(cache.length, np.ndarray)
     if (slot_mask is not None or counts is not None) and not per_slot:
         raise ValueError('slot_mask/counts need a per-slot cache '
                          '(init_slot_cache or init_paged_cache); '
                          'scalar-length caches share one sequence clock')
+    if group is not None and counts is not None:
+        raise ValueError('per-slot counts are a local serving construct; '
+                         'the sharded step appends whole rows')
+    kw = dict(scale=scale, window=window, alibi_slopes=alibi_slopes,
+              qk_quant=qk_quant)
+    if group is not None and paged:
+        cache, parts = paged_partials_step(
+            q, cache, k_new, v_new, slot_mask=slot_mask,
+            segment_ids=segment_ids, seg_q=seg_q, impl=impl,
+            interpret=interpret, **kw)
+        return cache, _flash_merge(parts, group, cache.v_pool.dtype)
     if group is not None:
-        if paged:
-            raise NotImplementedError(
-                'the sequence-sharded page table is not ported yet; a '
-                'sharded step takes a slab cache')
         _check_global_room(cache, n, get_world_size(group))
     if impl == 'plain':
         before = cache.length
@@ -1261,13 +1681,7 @@ def decode_step(q, cache, k_new, v_new, *, slot_mask=None, counts=None,
                                     slot_mask=slot_mask, counts=counts)
         else:
             cache = append_kv(cache, k_new, v_new)
-        attend = cache
-        if paged:
-            mirror = ((None, None) if qk_quant != 'int8'
-                      or cache.k_q_pool is None
-                      else paged_gather_mirror(cache))
-            attend = DecodeCache(*paged_gather(cache), cache.length,
-                                 *mirror)
+        attend = _attend_view(cache, qk_quant)
         if per_slot and counts is not None:
             # Verify-k masking base: query row j of a slot sits at
             # position before + j whatever the slot's real count, so
@@ -1278,13 +1692,10 @@ def decode_step(q, cache, k_new, v_new, *, slot_mask=None, counts=None,
                       else _host(slot_mask, bool))
             attend = attend._replace(
                 length=np.where(active, before + n, before))
-        return cache, decode_attention(q, attend, scale=scale,
-                                       window=window,
-                                       alibi_slopes=alibi_slopes,
-                                       segment_ids=segment_ids, seg_q=seg_q,
-                                       qk_quant=qk_quant, group=group)
-    quant = qk_quant == 'int8'
+        return cache, decode_attention(q, attend, segment_ids=segment_ids,
+                                       seg_q=seg_q, group=group, **kw)
     if group is not None:
+        quant = qk_quant == 'int8'
         p = int(cache.length)
         vt = p - get_rank(group) * cache.t_max
         ap = vt if 0 <= vt < cache.t_max else -1
@@ -1293,16 +1704,37 @@ def decode_step(q, cache, k_new, v_new, *, slot_mask=None, counts=None,
             torch.full((b,), vt, dtype=torch.int32, device=q.device),
             torch.full((b,), ap, dtype=torch.int32, device=q.device),
             k_q=cache.k_q if quant else None,
-            k_scale=cache.k_scale if quant else None, qk_quant=qk_quant,
-            scale=scale, window=window, alibi_slopes=alibi_slopes,
-            interpret=interpret, partials=True)
+            k_scale=cache.k_scale if quant else None, interpret=interpret,
+            partials=True, **kw)
         if cache.k_q is not None and not quant and ap >= 0:
             ki, sk = _quantize_k(k_new, cache.k.dtype)
             cache.k_q[:, :, ap:ap + 1] = ki
             cache.k_scale[:, :, ap:ap + 1] = sk
         return (cache._replace(length=p + 1),
                 _flash_merge(res, group, cache.v.dtype))
-    if per_slot:
+    return _kernel_step(q, cache, k_new, v_new, slot_mask, counts,
+                        interpret=interpret, **kw)
+
+
+def _attend_view(cache, qk_quant):
+    """The slab view :func:`decode_attention` reads: the cache itself, or
+    a paged cache gathered (with its int8 mirror for int8 scoring)."""
+    if not isinstance(cache, PagedDecodeCache):
+        return cache
+    mirror = ((None, None) if qk_quant != 'int8' or cache.k_q_pool is None
+              else paged_gather_mirror(cache))
+    return DecodeCache(*paged_gather(cache), cache.length, *mirror)
+
+
+def _kernel_step(q, cache, k_new, v_new, slot_mask, counts, *, scale,
+                 window, alibi_slopes, qk_quant, interpret, partials=False):
+    """The local fused step on K5 (slab) or K5p (paged): the append in
+    place and the attention, or with ``partials`` the ``(num, m, l)``
+    partials in place of the output. Returns ``(cache, out)``."""
+    b, _, n, _ = q.shape
+    quant = qk_quant == 'int8'
+    paged = isinstance(cache, PagedDecodeCache)
+    if isinstance(cache.length, np.ndarray):
         lengths = cache.length
         eff = _slot_counts(b, n, slot_mask, counts)
         _check_slot_room(lengths, eff, cache.t_max)
@@ -1322,25 +1754,83 @@ def decode_step(q, cache, k_new, v_new, *, slot_mask=None, counts=None,
     nn = _to_device(eff, q.device, np.int32)
     vt = _to_device(np.where(active, lengths, lengths - n), q.device,
                     np.int32)
+    kw = dict(n_new=nn, qk_quant=qk_quant, scale=scale, window=window,
+              alibi_slopes=alibi_slopes, interpret=interpret,
+              partials=partials)
     if paged:
         out, _, _ = flash_decode(
-            q, k_new, v_new, cache.k_pool, cache.v_pool, vt, ap, n_new=nn,
+            q, k_new, v_new, cache.k_pool, cache.v_pool, vt, ap,
             page_table=cache.page_table,
             k_q=cache.k_q_pool if quant else None,
-            k_scale=cache.k_scale_pool if quant else None,
-            qk_quant=qk_quant, scale=scale, window=window,
-            alibi_slopes=alibi_slopes, interpret=interpret)
+            k_scale=cache.k_scale_pool if quant else None, **kw)
         if cache.k_q_pool is not None and not quant:
             _paged_mirror_fixup(cache, k_new, ap_host, eff)
     else:
         out, _, _ = flash_decode(
-            q, k_new, v_new, cache.k, cache.v, vt, ap, n_new=nn,
+            q, k_new, v_new, cache.k, cache.v, vt, ap,
             k_q=cache.k_q if quant else None,
-            k_scale=cache.k_scale if quant else None, qk_quant=qk_quant,
-            scale=scale, window=window, alibi_slopes=alibi_slopes,
-            interpret=interpret)
+            k_scale=cache.k_scale if quant else None, **kw)
         if not quant:
             # A non-int8 step on a mirror-carrying cache keeps the mirror
             # exact: the appended rows quantized the append-op way.
             _slab_mirror_rows(cache, k_new, lengths, eff)
     return cache._replace(length=new_length), out
+
+
+def paged_partials_step(q, cache: PagedDecodeCache, k_new, v_new, *,
+                        slot_mask=None, scale=None, window=None,
+                        alibi_slopes=None, segment_ids=None, seg_q=None,
+                        qk_quant=None, impl='kernel', interpret=None):
+    """One shard's half of the sequence-sharded paged step: ``cache`` is
+    the shard's local view (:func:`shard_view`; -1 at every ordinal
+    another shard owns), ``q (B, H, 1, d)`` and ``k_new``/``v_new`` the
+    same on every shard, positions global. The append lands through the
+    local table, so only the owner's pool takes a row (the others drop it
+    through their -1); then the shard's masked softmax partials ``(num
+    (B, H, 1, d_v), m, l (B, H, 1, 1))``, float32, base 2: K5p with
+    ``partials=True`` (``impl='kernel'``), or :func:`decode_attention`'s
+    partials over the gathered view with the -1 columns masked
+    (``impl='plain'``). A shard that owns none of a row's attended
+    columns gives ``(0, _NEG_BIG, 0)``. ``impl`` is resolved by the
+    caller. Returns ``(cache, partials)``; merge them with
+    :func:`_flash_merge` or :func:`merge_partials`."""
+    kw = dict(scale=scale, window=window, alibi_slopes=alibi_slopes,
+              qk_quant=qk_quant)
+    if impl == 'kernel':
+        return _kernel_step(q, cache, k_new, v_new, slot_mask, None,
+                            interpret=interpret, partials=True, **kw)
+    cache = paged_append_kv_slots(cache, k_new, v_new, slot_mask=slot_mask)
+    col_valid = (cache.page_table >= 0).repeat_interleave(cache.page_size,
+                                                          dim=1)
+    return cache, decode_attention(
+        q, _attend_view(cache, qk_quant), segment_ids=segment_ids,
+        seg_q=seg_q, col_valid=col_valid, col_offset=0, partials=True, **kw)
+
+
+def sharded_decode_step(q, caches, k_new, v_new, *, slot_mask=None,
+                        scale=None, window=None, alibi_slopes=None,
+                        qk_quant=None, impl=None, interpret=None):
+    """The sequence-sharded paged step with every shard in this process:
+    ``caches`` holds each shard's local view (:func:`shard_view`, or a
+    local cache of the same shapes on the shard's own device). Runs
+    :func:`paged_partials_step` once per shard on that shard's device
+    (K5p with ``partials=True`` on the kernel path), moves the partials
+    to the first shard's device and merges them there with
+    :func:`merge_partials`. ``impl`` resolves as in :func:`decode_step`
+    (the kernel path is single-token). Returns ``(caches, out (B, H, 1,
+    d_v))`` on the first shard's device."""
+    n = q.shape[-2]
+    impl = _resolve_decode_impl(impl, caches[0], n, None, qk_quant,
+                                len(caches), q.device)
+    home = caches[0].k_pool.device
+    out_caches, parts = [], []
+    for cache in caches:
+        dev = cache.k_pool.device
+        cache, res = paged_partials_step(
+            q.to(dev), cache, k_new.to(dev), v_new.to(dev),
+            slot_mask=slot_mask, scale=scale, window=window,
+            alibi_slopes=alibi_slopes, qk_quant=qk_quant, impl=impl,
+            interpret=interpret)
+        out_caches.append(cache)
+        parts.append(tuple(x.to(home) for x in res))
+    return out_caches, merge_partials(parts, caches[0].v_pool.dtype)

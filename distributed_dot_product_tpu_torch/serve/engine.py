@@ -42,7 +42,13 @@ The port runs eagerly: the reference's three jitted programs are plain
 methods here, weights are tensors on the engine's device (seeded with
 ``torch.Generator``, or loaded from the reference engine with
 :meth:`KernelEngine.load_weights`), and slot lengths and the page pool
-live on the host. Not ported yet (ROADMAP): ``kv_shards``,
+live on the host. ``kv_shards=N`` (paged) shards the KV cache's page
+table over N pools (:class:`~distributed_dot_product_tpu_torch.models.
+decode.ShardedPageTable`): one controller drives every shard from this
+process, shard ``s`` on ``cuda:(s % device_count)`` (all on the one card
+of a one-card machine, or on the CPU when asked), a decode tick launches
+K5p with ``partials=True`` once per shard on its local view and merges
+the partials on the first shard's device. Not ported yet (ROADMAP):
 ``weight_quant``, ``adopt_prefix`` and the ``DDP_TPU_*`` environment
 knobs.
 """
@@ -54,10 +60,10 @@ import numpy as np
 import torch
 
 from distributed_dot_product_tpu_torch.models.decode import (
-    PageChecksums, PagePool, _to_device, append_kv_slots, decode_step,
-    init_paged_cache, init_slot_cache, paged_append_rows, paged_copy_attach,
-    paged_reset_slot, paged_rollback_slots, reset_slot, rollback_slots,
-    slots_all_finite,
+    PageChecksums, PagePool, ShardedPageTable, _to_device, append_kv_slots,
+    decode_step, init_paged_cache, init_slot_cache, paged_append_rows,
+    paged_copy_attach, paged_reset_slot, paged_rollback_slots, reset_slot,
+    rollback_slots, sharded_decode_step, slots_all_finite,
 )
 from distributed_dot_product_tpu_torch.obs import spans as obs_spans
 from distributed_dot_product_tpu_torch.ops.flash_decode import _SPLIT
@@ -73,13 +79,20 @@ _WEIGHTS = ('embed', 'wq', 'wk', 'wv', 'wo')
 class PageCorruptionError(RuntimeError):
     """A pool page's content no longer matches its recorded checksum.
     ``pages`` names the dirty pages, ``site`` the boundary that caught
-    them ('scrub', 'attach', 'fork')."""
+    them ('scrub', 'attach', 'fork'); on a ``kv_shards`` engine
+    ``shards`` names the shards owning them (the page ids are then
+    global stacked-row ids), None elsewhere."""
 
-    def __init__(self, pages, site):
+    def __init__(self, pages, site, shards=None):
         self.pages = sorted(int(p) for p in pages)
         self.site = site
-        super().__init__(f'KV page corruption at {site}: page(s) '
-                         f'{self.pages} fail checksum verification')
+        self.shards = (sorted({int(s) for s in shards})
+                       if shards else None)
+        msg = (f'KV page corruption at {site}: page(s) {self.pages} fail '
+               f'checksum verification')
+        if self.shards:
+            msg += f' (kv shard(s) {self.shards})'
+        super().__init__(msg)
 
 
 class KernelEngine:
@@ -105,6 +118,20 @@ class KernelEngine:
     :meth:`fork_slot` copy-on-write forks. Token streams are
     bit-identical to the slab engine's.
 
+    ``kv_shards=N > 1`` (paged only) shards the page table over N pools
+    of ``pages`` pages EACH (default the slab's bytes split over the
+    shards), shard ``s`` owning a contiguous run of every slot's logical
+    page ordinals: ``capacity_tokens`` sums over the shards,
+    ``min(t_max, N · pages · page_size)``. Page ids on the host surface
+    (checksum verdicts, quarantine, ``flip_page_bit``) are global
+    stacked-row ids (:meth:`page_shard` names the owner); exhaustion of
+    one shard's range is a typed failure naming every shard's free
+    pages; checksums are kept per owning shard. Streams equal the
+    single-pool engine's. Speculative verify, prefix registration and
+    forks are refused (ValueError naming ``kv_shards``). Shard ``s``'s
+    local cache is its own allocation on ``shard_devices[s]``:
+    ``cuda:(s % device_count)``, or the CPU when the engine's device is.
+
     ``device`` follows the port's rule: the card unless the caller asks
     for the CPU.
     """
@@ -112,7 +139,8 @@ class KernelEngine:
     def __init__(self, slots, t_max, *, vocab=64, heads=2, head_dim=8,
                  prefill_chunk=8, seed=0, dtype=torch.float32,
                  decode_impl='kernel', cache_mode='slab', pages=None,
-                 page_size=None, kv_checksums=True, device='cuda'):
+                 page_size=None, kv_checksums=True, kv_shards=1,
+                 device='cuda'):
         if slots < 1 or t_max < 2:
             raise ValueError(f'need slots >= 1 and t_max >= 2, got '
                              f'{slots}/{t_max}')
@@ -122,7 +150,15 @@ class KernelEngine:
         if cache_mode not in ('slab', 'paged'):
             raise ValueError(f"cache_mode must be 'slab' or 'paged', "
                              f'got {cache_mode!r}')
+        self.kv_shards = int(kv_shards)
+        if self.kv_shards < 1:
+            raise ValueError(f'kv_shards must be >= 1, got {kv_shards}')
+        if self.kv_shards > 1 and cache_mode != 'paged':
+            raise ValueError("kv_shards > 1 needs cache_mode='paged' — the "
+                             'sequence-sharded KV is a sharded page table, '
+                             'there is no sharded slab')
         self.device = resolve_device(device)
+        self.shard_devices = [self.device]
         self.decode_impl = decode_impl
         self.cache_mode = cache_mode
         self.slots = slots
@@ -146,17 +182,29 @@ class KernelEngine:
                 raise ValueError(f'page_size {ps} must divide t_max '
                                  f'{t_max}')
             self.page_size = ps
-            n_pages = pages if pages is not None else slots * (t_max // ps)
-            self.pool = PagePool(n_pages, ps, slots, t_max // ps)
-            self.cache = init_paged_cache(slots, heads, t_max, head_dim,
-                                          pages=n_pages, page_size=ps,
-                                          dtype=dtype, device=self.device)
+            if self.kv_shards > 1:
+                self._init_sharded(pages, dtype)
+            else:
+                n_pages = (pages if pages is not None
+                           else slots * (t_max // ps))
+                self.pool = PagePool(n_pages, ps, slots, t_max // ps)
+                self.cache = init_paged_cache(slots, heads, t_max, head_dim,
+                                              pages=n_pages, page_size=ps,
+                                              dtype=dtype,
+                                              device=self.device)
             self._prefix_registry = {}
             self._prefix_counter = itertools.count()
             # Registry pages only, digested on the host at transfer
             # boundaries — never per step. kv_checksums=False is the
-            # no-integrity twin.
-            self.checksums = PageChecksums() if kv_checksums else None
+            # no-integrity twin. A kv_shards engine keeps one table per
+            # owning shard, keyed by shard-local page ids.
+            if not kv_checksums:
+                self.checksums = None
+            elif self.kv_shards > 1:
+                self.checksums = [PageChecksums()
+                                  for _ in range(self.kv_shards)]
+            else:
+                self.checksums = PageChecksums()
         else:
             self.page_size = None
             self.pool = None
@@ -170,6 +218,46 @@ class KernelEngine:
         # across a tick to split tick time into device work and
         # host-loop overhead. Monotone, never reset.
         self.program_seconds = 0.0
+
+    def _init_sharded(self, pages, dtype):
+        """The kv_shards pool and caches: a :class:`ShardedPageTable` and
+        each shard's local cache, allocated on its own device (shards on
+        one device each get their own). Every local cache reads the
+        pool's one lengths vector."""
+        pps = self.t_max // self.page_size
+        if self.kv_shards > pps:
+            raise ValueError(
+                f'kv_shards {self.kv_shards} exceeds the {pps} logical '
+                f'page ordinals of t_max={self.t_max}/page_size='
+                f'{self.page_size} — some shards would own an empty range')
+        n_pages = (pages if pages is not None
+                   else -(-self.slots * pps // self.kv_shards))
+        self.pool = ShardedPageTable(self.kv_shards, n_pages, self.page_size,
+                                     self.slots, pps)
+        if self.device.type == 'cuda':
+            count = torch.cuda.device_count()
+            self.shard_devices = [torch.device('cuda', s % count)
+                                  for s in range(self.kv_shards)]
+        else:
+            self.shard_devices = [self.device] * self.kv_shards
+        shape = (self.slots, self.heads, self.t_max, self.head_dim)
+        self.cache = None
+        self._shard_caches = [
+            init_paged_cache(*shape, pages=n_pages, page_size=self.page_size,
+                             dtype=dtype, device=dev)._replace(
+                                 length=self.pool.lengths)
+            for dev in self.shard_devices]
+
+    def shard_cache(self, shard):
+        """Shard ``shard``'s local paged cache (kv_shards engines),
+        allocated on ``shard_devices[shard]``."""
+        return self._shard_caches[shard]
+
+    @property
+    def placement(self):
+        """Where each shard's cache lives, as ``['cuda:0', ...]`` (one
+        entry on an unsharded engine)."""
+        return [str(d) for d in self.shard_devices]
 
     def load_weights(self, state):
         """Set the weights from ``{'embed', 'wq', 'wk', 'wv', 'wo'}``
@@ -222,8 +310,17 @@ class KernelEngine:
         w = tokens.shape[1]
         qs, ks, vs = zip(*(self._project(tokens[:, j]) for j in range(w)))
         q, k, v = (torch.cat(x, dim=2) for x in (qs, ks, vs))
-        self.cache, out = decode_step(q, self.cache, k, v, slot_mask=active,
-                                      counts=counts, impl=self.decode_impl)
+        if self.kv_shards > 1:
+            # One K5p partials launch a shard on its own view, the merge
+            # on the first shard's device (the host vectors are shared).
+            _, out = sharded_decode_step(
+                q, [self.shard_cache(s) for s in range(self.kv_shards)], k,
+                v, slot_mask=active, impl=self.decode_impl)
+            out = out.to(self.device)
+        else:
+            self.cache, out = decode_step(q, self.cache, k, v,
+                                          slot_mask=active, counts=counts,
+                                          impl=self.decode_impl)
         logits = torch.stack([out[:, :, j].reshape(self.slots, -1) @ self._wo
                               for j in range(w)], dim=1)   # (S, W, vocab)
         logits = torch.where(poison[:, None, None], float('nan'), logits)
@@ -260,12 +357,17 @@ class KernelEngine:
             if not self._writable_mask(act).all():
                 ok = self.prepare_step(act)
                 if not ok.all():
+                    by_shard = (
+                        f', free by shard {self.pool.free_pages_by_shard} '
+                        f"— one shard's contiguous range is out of pages "
+                        f'even though others have headroom'
+                        if self.kv_shards > 1 else '')
                     raise RuntimeError(
                         f'page pool exhausted for slot(s) '
                         f'{np.nonzero(~ok)[0].tolist()} '
-                        f'({self.pool.free_pages} pages free) — retire or '
-                        f'evict sequences (the Scheduler ladder does), or '
-                        f'size the pool larger')
+                        f'({self.pool.free_pages} pages free{by_shard}) — '
+                        f'retire or evict sequences (the Scheduler ladder '
+                        f'does), or size the pool larger')
             self._sync_page_table()
         ids = (tuple(r for r in (request_ids or ()) if r)
                if obs_spans.enabled() else ())
@@ -300,6 +402,11 @@ class KernelEngine:
         The cache appends ``counts[i]`` rows per active slot; paged
         engines reserve the pages first, raising on exhaustion (the
         Scheduler reserves through its ladder instead)."""
+        if self.kv_shards > 1:
+            raise ServeContractError(
+                'verify_step (speculative decoding) is not supported with '
+                'kv_shards > 1 — the sharded decode step is single-token; '
+                'run speculative decoding on unsharded engines')
         tokens = np.asarray(tokens, np.int64)
         s, w = tokens.shape
         if s != self.slots:
@@ -353,12 +460,23 @@ class KernelEngine:
         bucket = 1 << (need - 1).bit_length()
         with span('engine.rollback', rows=need):
             t0 = time.perf_counter()
-            if self.cache_mode == 'paged':
+            if self.kv_shards > 1:
+                for s in range(self.kv_shards):
+                    paged_rollback_slots(self.shard_cache(s), new, bucket)
+            elif self.cache_mode == 'paged':
                 self.cache = paged_rollback_slots(self.cache, new, bucket)
             else:
                 self.cache = rollback_slots(self.cache, new, span=bucket)
             self.program_seconds += time.perf_counter() - t0
-        if self.cache_mode == 'paged':
+        if self.kv_shards > 1:
+            freed = {}
+            for i in np.nonzero(cur > new)[0]:
+                for s, pgs in self.pool.truncate(int(i), int(new[i])).items():
+                    freed.setdefault(s, []).extend(pgs)
+            if freed:
+                self._zero_freed_sharded(freed)
+            self._sync_page_table()
+        elif self.cache_mode == 'paged':
             freed = []
             for i in np.nonzero(cur > new)[0]:
                 freed += self.pool.truncate(int(i), int(new[i]))
@@ -380,7 +498,8 @@ class KernelEngine:
             # Reserve the chunk's pages (a no-op when the scheduler
             # already reserved the whole prompt at admission).
             pos = int(self.pool.lengths[slot])
-            covered = int(self.pool.counts[slot]) * self.page_size
+            covered = (self.pool.covered_rows(slot) if self.kv_shards > 1
+                       else int(self.pool.counts[slot]) * self.page_size)
             if pos + n > covered and not self.reserve_rows(slot, n):
                 raise RuntimeError(
                     f'page pool exhausted prefilling rows [{pos}, '
@@ -394,10 +513,21 @@ class KernelEngine:
             counts = np.zeros(self.slots, np.int64)
             counts[slot] = n
             # The chunk broadcast to every slot (a view); the counts mask
-            # lands it on the one slot.
-            self.cache = append_kv_slots(
-                self.cache, k[None].expand(self.slots, *k.shape),
-                v[None].expand(self.slots, *v.shape), counts=counts)
+            # lands it on the one slot. Sharded, every shard appends
+            # through its local table: a row whose ordinal another shard
+            # owns drops through the -1.
+            if self.kv_shards > 1:
+                for s in range(self.kv_shards):
+                    dev = self.shard_devices[s]
+                    append_kv_slots(
+                        self.shard_cache(s),
+                        k.to(dev)[None].expand(self.slots, *k.shape),
+                        v.to(dev)[None].expand(self.slots, *v.shape),
+                        counts=counts)
+            else:
+                self.cache = append_kv_slots(
+                    self.cache, k[None].expand(self.slots, *k.shape),
+                    v[None].expand(self.slots, *v.shape), counts=counts)
             self.program_seconds += time.perf_counter() - t0
         if self.cache_mode == 'paged':
             self.pool.lengths[slot] += n
@@ -409,19 +539,34 @@ class KernelEngine:
         if self.checksums is not None:
             self.checksums.drop(freed)
 
+    def _zero_freed_sharded(self, freed, slot=-1):
+        """kv_shards twin of :meth:`_zero_freed`: ``freed`` is ``{shard:
+        [local pages]}``; each shard zeroes its own pages (and clears
+        ``slot``'s table row), each shard's checksum table forgets its
+        own."""
+        for s in range(self.kv_shards):
+            paged_reset_slot(self.shard_cache(s), slot, freed.get(s, []))
+        if self.checksums is not None:
+            for s, pages in freed.items():
+                self.checksums[s].drop(pages)
+
     def reset(self, slot):
         """Evict ``slot`` (zero rows + length); other slots untouched.
         Paged: drops the slot's page references and zeroes exactly the
         pages that reached refcount 0 (still-shared prefix/fork pages
         keep their bits)."""
-        if self.cache_mode == 'paged':
+        if self.kv_shards > 1:
+            self._zero_freed_sharded(self.pool.release(slot), slot)
+            self._sync_page_table()
+        elif self.cache_mode == 'paged':
             self._zero_freed(self.pool.release(slot), slot)
             self._sync_page_table()
         else:
             self.cache = reset_slot(self.cache, slot)
 
     def lengths(self):
-        return np.array(self.cache.length)
+        return np.array(self.pool.lengths if self.kv_shards > 1
+                        else self.cache.length)
 
     # -- paged-pool surface (cache_mode='paged') ------------------------
     def _sync_page_table(self):
@@ -429,11 +574,23 @@ class KernelEngine:
         if self.pool.dirty:
             # Staged at once (see _to_device): the pool may change the
             # host table right after without waiting for the card.
-            self.cache.page_table.copy_(torch.from_numpy(self.pool.table),
-                                        non_blocking=True)
+            if self.kv_shards > 1:
+                tables = torch.from_numpy(self.pool.local_tables())
+                for s in range(self.kv_shards):
+                    self.shard_cache(s).page_table.copy_(tables[s],
+                                                         non_blocking=True)
+            else:
+                self.cache.page_table.copy_(
+                    torch.from_numpy(self.pool.table), non_blocking=True)
             self.pool.dirty = False
 
     def _apply_copies(self, copies):
+        """Device page copies owed by the pool: ``(src, dst)`` pairs, or
+        ``(shard, src, dst)`` triples on a kv_shards engine."""
+        if self.kv_shards > 1:
+            for s, src, dst in copies:
+                paged_copy_attach(self.shard_cache(s), src, dst, -1, 0)
+            return
         for src, dst in copies:
             self.cache = paged_copy_attach(self.cache, src, dst, -1, 0)
 
@@ -446,6 +603,17 @@ class KernelEngine:
         if not idx.size:
             return ok
         pool = self.pool
+        if self.kv_shards > 1:
+            # Each slot's append ordinal routes to its owning shard's
+            # table and refcounts.
+            for i in idx:
+                pi = int(pool.lengths[i]) // self.page_size
+                if pi >= pool.pages_per_slot:
+                    continue                    # full: a no-op write
+                sp = pool.shards[pool.owner(pi)]
+                pg = int(sp.table[i, pi])
+                ok[i] = pg >= 0 and int(sp.refcount[pg]) == 1
+            return ok
         pi = pool.lengths[idx] // self.page_size
         full = pi >= pool.pages_per_slot
         pg = pool.table[idx, np.minimum(pi, pool.pages_per_slot - 1)]
@@ -464,11 +632,12 @@ class KernelEngine:
         ok = np.ones(self.slots, bool)
         todo = active & ~self._writable_mask(active)
         for i in np.nonzero(todo)[0]:
-            st, src, dst = self.pool.prepare_append(int(i))
+            # Sharded, the status names the shard whose range answered.
+            st, *copy = self.pool.prepare_append(int(i))
             if st == 'exhausted':
                 ok[i] = False
             elif st == 'cow':
-                self._apply_copies([(src, dst)])
+                self._apply_copies([tuple(copy)])
         self._sync_page_table()
         return ok
 
@@ -489,6 +658,12 @@ class KernelEngine:
         (refcounted)."""
         if self.cache_mode != 'paged':
             raise ValueError("prefix sharing needs cache_mode='paged'")
+        if self.kv_shards > 1:
+            raise ValueError(
+                'register_prefix (local prefix prefill) is not supported '
+                'with kv_shards > 1 — shared prefixes reach a sharded '
+                'engine through the prefill-to-decode handoff '
+                '(adopt_prefix, not ported yet)')
         tokens = np.asarray(tokens, np.int64).reshape(-1)
         n = len(tokens)
         if n < 1:
@@ -516,23 +691,65 @@ class KernelEngine:
         self._checksum_record(pages)
         return pid
 
+    # -- kv_shards page ids ---------------------------------------------
+    def _gpage(self, shard, page):
+        """Shard-local page id → GLOBAL page id (the page's row in the
+        stacked pool): the ids a kv_shards engine's host surface
+        speaks."""
+        return self.pool.gpage(shard, page)
+
+    def _gsplit(self, gpage):
+        """GLOBAL page id → ``(shard, local page)``."""
+        return self.pool.gsplit(gpage)
+
+    def page_shard(self, page):
+        """Shard owning GLOBAL page id ``page`` on a kv_shards engine;
+        None on unsharded engines."""
+        if self.kv_shards <= 1:
+            return None
+        return self.pool.page_shard(page)
+
+    def _by_shard(self, pages):
+        """GLOBAL page ids → ``{shard: [local pages]}`` (input order
+        within a shard)."""
+        per = {}
+        for g in pages:
+            s, p = self._gsplit(g)
+            per.setdefault(s, []).append(p)
+        return per
+
     # -- page integrity (host-side, transfer boundaries only) -----------
     def _checksum_record(self, pages):
+        """Digest ``pages`` as canonical now (GLOBAL ids on a kv_shards
+        engine: each goes to its owning shard's table, keyed by its local
+        id and digested from that shard's cache)."""
         if self.checksums is None:
             return
         t0 = time.perf_counter()
-        self.checksums.record(self.cache, pages)
+        if self.kv_shards > 1:
+            for s, locs in self._by_shard(pages).items():
+                self.checksums[s].record(self.shard_cache(s), locs)
+        else:
+            self.checksums.record(self.cache, pages)
         self.verify_seconds += time.perf_counter() - t0
 
     def verify_pages(self, pages=None):
         """Re-digest ``pages`` (default: every tracked page — the scrub)
         against the recorded checksums. Returns the sorted dirty-page
         list without raising; [] when clean or when checksums are
-        disabled."""
+        disabled. GLOBAL ids in and out on a kv_shards engine."""
         if self.checksums is None:
             return []
         t0 = time.perf_counter()
-        bad = self.checksums.verify(self.cache, pages)
+        if self.kv_shards > 1:
+            per = (self._by_shard(pages) if pages is not None
+                   else {s: tab.pages()
+                         for s, tab in enumerate(self.checksums)})
+            bad = sorted(self._gpage(s, p) for s, locs in per.items()
+                         for p in self.checksums[s].verify(
+                             self.shard_cache(s), locs))
+        else:
+            bad = self.checksums.verify(self.cache, pages)
         self.verify_seconds += time.perf_counter() - t0
         return bad
 
@@ -546,12 +763,23 @@ class KernelEngine:
         ``pages`` fails verification (untracked pages are skipped)."""
         bad = self.verify_pages(pages)
         if bad:
-            raise PageCorruptionError(bad, site)
+            shards = ([self.page_shard(p) for p in bad]
+                      if self.kv_shards > 1 else None)
+            raise PageCorruptionError(bad, site, shards=shards)
 
     def quarantine_pages(self, pages):
         """Withdraw dirty pages from circulation (they never return to
         the free list) and forget their digests. Returns the pages newly
-        quarantined."""
+        quarantined (GLOBAL ids in and out on a kv_shards engine, each
+        routed to its owning shard)."""
+        if self.kv_shards > 1:
+            newly = []
+            for s, locs in self._by_shard(pages).items():
+                if self.checksums is not None:
+                    self.checksums[s].drop(locs)
+                newly += [self._gpage(s, p)
+                          for p in self.pool.quarantine(s, locs)]
+            return sorted(newly)
         if self.checksums is not None:
             self.checksums.drop(pages)
         return self.pool.quarantine(pages)
@@ -585,6 +813,11 @@ class KernelEngine:
         full pages and gets a private copy of the partial tail page.
         False = pool exhausted. The source's tracked pages are verified
         before the branch shares them."""
+        if self.kv_shards > 1:
+            raise ValueError(
+                'fork_slot (copy-on-write forks) is not supported with '
+                'kv_shards > 1 — run parallel sampling on unsharded '
+                'engines')
         if self.checksums is not None:
             shared = [int(self.pool.table[src, i])
                       for i in range(int(self.pool.counts[src]))]
@@ -636,16 +869,28 @@ class KernelEngine:
             return {'pages': 0, 'pages_used': 0, 'pages_free': 0,
                     'shared_pages': 0, 'page_size': 0,
                     'pages_quarantined': 0}
-        return {'pages': pool.pages, 'pages_used': pool.used_pages,
-                'pages_free': pool.free_pages,
-                'shared_pages': pool.shared_pages,
-                'page_size': pool.page_size,
-                'pages_quarantined': len(pool.quarantined)}
+        out = {'pages': pool.pages, 'pages_used': pool.used_pages,
+               'pages_free': pool.free_pages,
+               'shared_pages': pool.shared_pages,
+               'page_size': pool.page_size,
+               'pages_quarantined': len(pool.quarantined)}
+        if self.kv_shards > 1:
+            # The per-shard free vector shows one shard's range running
+            # dry while the aggregate still looks healthy.
+            out['kv_shards'] = self.kv_shards
+            out['pages_free_by_shard'] = pool.free_pages_by_shard
+        return out
 
     def flip_page_bit(self, page):
         """Flip an exponent bit of ``page``'s K pool bytes (byte 3 of the
         page, in place on the device) — the corruption primitive the
         integrity tests use; an undetected flip changes delivered
-        tokens."""
-        raw = self.cache.k_pool[int(page)].view(-1).view(torch.uint8)
+        tokens. A kv_shards engine takes the GLOBAL id and flips the page
+        in its owning shard's pool."""
+        if self.kv_shards > 1:
+            shard, page = self._gsplit(page)
+            k_pool = self.shard_cache(shard).k_pool
+        else:
+            k_pool = self.cache.k_pool
+        raw = k_pool[int(page)].view(-1).view(torch.uint8)
         raw[3] ^= 0x40

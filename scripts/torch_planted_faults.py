@@ -27,7 +27,9 @@ the two row scales in the other order; the int8 exactness cases of
 the decode kernel's merge (ranks taken in an order that varies from
 launch to launch, as arrival order would; or the peers' partials read
 before they have landed), drop the fresh rows' substitution (the appended columns read
-from the cache, racing the appends), or copy and score a -1 page.
+from the cache, racing the appends), copy and score a -1 page, or score a
+column on a -1 page as 0 (which only the sequence-sharded page table's
+holes show: ``kv_sharded_serve`` must catch it).
 """
 
 import json
@@ -179,7 +181,20 @@ FAULTS = {
     # them to land (the wait on the block's merge barrier dropped).
     'k5_merge_before_peers_landed': (
         'flash_decode.cu', '  mbar_wait(bar, 0);\n', '', DECODE),
+    # A column on a -1 page scores 0 (its zero-filled K row) instead of
+    # -inf: the held mask is ignored. A dense table never shows it; the
+    # sequence-sharded page table's -1 holes below a slot's fill do
+    # (kv_sharded_serve's step check: an empty shard's partials).
+    'k5p_unheld_column_scored': (
+        'flash_decode.cu',
+        '          const bool ok =\n'
+        '              ((hmask >> cl) & 1) && col >= lo[hf] && col <= hi[hf];\n',
+        '          const bool ok = col >= lo[hf] && col <= hi[hf];\n',
+        ('kv_sharded_serve',)),
 }
+
+# Phases a fault names that run alone (the source's PHASES otherwise).
+SOLO = ('flash_masks', 'kv_sharded_serve')
 
 
 # The phases that hold each source's kernels: K1, K3 and K4 at the
@@ -233,6 +248,14 @@ def readings(stdout):
                           'rel': row['rel_err']}
             if isinstance(row['max_abs_err'], dict):
                 cases[key]['lse'] = row['max_abs_err']['lse']
+        elif row.get('phase') == 'kv_sharded_serve' and \
+                row.get('case') == 'step_check':
+            cases['kv_sharded_serve/step_check'] = {
+                k: row[k] for k in ('vs_single_pool', 'vs_plain',
+                                    'max_abs_err', 'empty_rows_exact',
+                                    'pools_equal_single_pool',
+                                    'pools_equal_plain',
+                                    'pools_changed_only_at_owner_appends')}
         elif row.get('phase') in DECODE and 'max_abs_err' in row:
             key = f"{row['phase']}/{row['case']}"
             if 'head_dim' in row:
@@ -252,7 +275,7 @@ def main():
     caught = 0
     for name in names:
         source, old, new, phases = FAULTS[name]
-        run_phases = phases if phases == ('flash_masks',) else PHASES[source]
+        run_phases = phases if phases[0] in SOLO else PHASES[source]
         with tempfile.TemporaryDirectory() as dst:
             plant(dst, source, old, new)
             run = subprocess.run([sys.executable, 'chip_smoke.py',

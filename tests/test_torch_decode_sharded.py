@@ -273,22 +273,97 @@ def test_recipe_sharded_decode_stage_on_2x2(groups):
             np.testing.assert_allclose(got, ref, err_msg=f't={t}', **TOL)
 
 
-@pytest.mark.parametrize('kind', ['paged', 'per_slot'])
+# The sequence-sharded page table over the group: page 4, t_max 32 (8
+# ordinals: 4 a rank at W = 2, 2 at W = 4), 3 slots. Slot 0 holds 13 rows
+# and crosses a rank boundary while decoding, slot 1's 4 rows and appends
+# stay on rank 0's ordinals, slot 2 starts empty and frozen.
+PG_PS, PG_T, PG_FILLS = 4, 32, (13, 4, 0)
+PG_ACTIVE = ((1, 1, 0), (1, 1, 0), (1, 1, 1), (1, 1, 1))
+
+
+@pytest.mark.parametrize('impl', ['kernel', 'plain'])
+@pytest.mark.parametrize('world', [2, 4])
+def test_paged_group_step_matches_jax_single_pool(groups, world, impl):
+    """``decode_step(group=...)`` on each rank's local view of a
+    sequence-sharded page table (the port's ``ShardedPageTable`` on the
+    host, ``init_sharded_paged_cache`` filled through ``shard_view``)
+    against the reference's single-pool paged ``decode_step`` on the same
+    rows: every rank's output within 1e-5, every row bit for bit on its
+    owner's pool (W = 4 with a window of 5)."""
+    rng = np.random.default_rng(30 + world)
+    b, h, h_kv, pages = 3, 4, 2, 8
+    window = 5 if world == 4 else None
+    pps = PG_T // PG_PS
+    jc = jdec.init_paged_cache(b, h_kv, PG_T, D, pages=world * pages,
+                               page_size=PG_PS, dtype=jnp.float32)
+    jpool = jdec.PagePool(world * pages, PG_PS, b, pps)
+    spt = tdec.ShardedPageTable(world, pages, PG_PS, b, pps)
+    tc = tdec.init_sharded_paged_cache(
+        world, b, h_kv, PG_T, D, pages_per_shard=pages, page_size=PG_PS,
+        dtype=torch.float32, device='cpu')._replace(length=spt.lengths)
+    for slot, n in enumerate(PG_FILLS):
+        if not n:
+            continue
+        k, v = _rand(rng, b, h_kv, n, D), _rand(rng, b, h_kv, n, D)
+        counts = np.where(np.arange(b) == slot, n, 0)
+        assert jpool.reserve_rows(slot, n)[0] and spt.reserve_rows(slot, n)[0]
+        jc = jdec.append_kv_slots(
+            jc._replace(page_table=jnp.asarray(jpool.table)), jnp.asarray(k),
+            jnp.asarray(v), counts=jnp.asarray(counts, jnp.int32))
+        tc.page_table.copy_(_t(spt.local_tables()))
+        for s in range(world):
+            tdec.append_kv_slots(tdec.shard_view(tc, s), _t(k), _t(v),
+                                 counts=counts)
+        jpool.lengths[slot] += n
+        spt.lengths[slot] += n
+    k0, v0, len0 = tc.k_pool.numpy().copy(), tc.v_pool.numpy().copy(), \
+        spt.lengths.copy()
+    steps, want = [], []
+    for active in PG_ACTIVE:
+        act = np.asarray(active, bool)
+        q = _rand(rng, b, h, 1, D)
+        kn, vn = _rand(rng, b, h_kv, 1, D), _rand(rng, b, h_kv, 1, D)
+        for slot in np.nonzero(act)[0]:
+            assert jpool.prepare_append(int(slot))[0] in ('ok', 'alloc')
+            assert spt.prepare_append(int(slot))[0] in ('ok', 'alloc')
+        jc, out = jdec.decode_step(
+            jnp.asarray(q), jc._replace(page_table=jnp.asarray(jpool.table)),
+            jnp.asarray(kn), jnp.asarray(vn), slot_mask=act, window=window,
+            impl='xla')
+        steps.append((spt.local_tables(), q, kn, vn, act))
+        want.append(np.asarray(out))
+        jpool.lengths[act] += 1
+        spt.lengths[act] += 1
+    assert spt.lengths.tolist() == [17, 8, 2]
+    res = groups(world).run('decode_sharded_paged', k0, v0, len0, steps,
+                            window, impl)
+    gk, gv = (np.asarray(x) for x in jdec.paged_gather(jc))
+    for rank, (outs, pk, pv, length) in enumerate(res):
+        assert length.tolist() == [17, 8, 2]
+        for t, (got, ref) in enumerate(zip(outs, want)):
+            np.testing.assert_allclose(got, ref, err_msg=f't={t}', **TOL)
+        for slot in range(b):
+            for pos in range(int(spt.lengths[slot])):
+                o, r = divmod(pos, PG_PS)
+                if spt.owner(o) == rank:
+                    page = int(spt.shards[rank].table[slot, o])
+                    np.testing.assert_array_equal(pk[page, :, r],
+                                                  gk[slot, :, pos])
+                    np.testing.assert_array_equal(pv[page, :, r],
+                                                  gv[slot, :, pos])
+        assert not pk[-1].any() and not pv[-1].any()    # the sink
+
+
+@pytest.mark.parametrize('kind', ['per_slot'])
 def test_sharded_step_takes_a_scalar_slab(kind):
-    """The sharded step runs on a slab with one global length: a paged
-    cache (the sequence-sharded page table is not ported) and a per-slot
-    cache (a local serving construct, as in the reference) are refused
-    before anything is written."""
-    if kind == 'paged':
-        cache = tdec.init_paged_cache(2, 2, 8, D, pages=4, page_size=4,
-                                      dtype=torch.float32, device='cpu')
-        error = NotImplementedError
-    else:
-        cache = tdec.init_slot_cache(2, 2, 8, D, dtype=torch.float32,
-                                     device='cpu')
-        error = ValueError
+    """The sharded SLAB step runs on one global length: a per-slot slab
+    cache (a local serving construct, as in the reference) is refused
+    before anything is written. (A paged cache is the sequence-sharded
+    page table's local view: ``test_paged_group_step_matches_jax_single_pool``.)"""
+    cache = tdec.init_slot_cache(2, 2, 8, D, dtype=torch.float32,
+                                 device='cpu')
     x = torch.ones((2, 2, 1, D))
     for impl in ('kernel', 'plain'):
-        with pytest.raises(error):
+        with pytest.raises(ValueError):
             tdec.decode_step(x, cache, x, x, group=object(), impl=impl)
     assert not cache.length.any()

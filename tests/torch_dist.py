@@ -12,7 +12,10 @@ workers never share a port. The group lives for a whole test module
 ``group.run('task', *args)`` calls ``task(rank, world, *args)`` below on
 every rank and returns the per-rank results. Every wait has a deadline:
 a rank that fails, or a group that does not answer in time, kills every
-worker and fails the test — a hung rendezvous cannot eat the suite.
+worker and fails the test — a hung rendezvous cannot eat the suite. The
+workers bound their own waits too: the rendezvous and every collective
+by the group's timeout, the wait for the next task by ``_IDLE_S`` (a
+worker whose parent died exits instead of waiting forever).
 
 Tasks take and return numpy arrays (pickled across the pipe); the tests
 compute the reference package's numbers in their own process.
@@ -28,6 +31,7 @@ import numpy as np
 __all__ = ['GlooGroup']
 
 _JOIN_S = 30
+_IDLE_S = 1800
 
 
 class GlooGroup:
@@ -41,7 +45,7 @@ class GlooGroup:
         self._procs = [
             ctx.Process(target=_worker, name=f'gloo-rank-{r}', daemon=True,
                         args=(r, world, store_path, self._tasks[r],
-                              self._results))
+                              self._results, timeout))
             for r in range(world)]
         for p in self._procs:
             p.start()
@@ -87,16 +91,21 @@ class GlooGroup:
                 p.join(timeout=_JOIN_S)
 
 
-def _worker(rank, world, store_path, tasks, results):
+def _worker(rank, world, store_path, tasks, results, timeout):
+    import datetime
     import torch
     import torch.distributed as dist
     torch.set_num_threads(1)
     store = dist.FileStore(store_path, world)
     dist.init_process_group('gloo', store=store, rank=rank,
-                            world_size=world)
+                            world_size=world,
+                            timeout=datetime.timedelta(seconds=timeout))
     try:
         while True:
-            item = tasks.get()
+            try:
+                item = tasks.get(timeout=_IDLE_S)
+            except queue.Empty:
+                break
             if item is None:
                 break
             name, args = item
@@ -488,6 +497,28 @@ def decode_sharded_module(rank, world, kw, state, prompt, xs, t_max, mesh2d,
             err = (err, bool(torch.equal(k0, cache.k)))
     return (outs, cache.length,
             _np(comm.all_gather(cache.k, mesh.seq_group)), err)
+
+
+def decode_sharded_paged(rank, world, k_pool, v_pool, lengths, steps,
+                         window, impl):
+    """``decode_step(group=...)`` on this rank's local view of a
+    sequence-sharded page table: its block of the stacked pools
+    ``k_pool``/``v_pool`` (``world`` shards) and, each step, its table of
+    the step's stacked ``(world, slots, pages_per_slot)`` tables, one row
+    a slot (``steps``: ``(tables, q, k_new, v_new, slot_mask)``). Returns
+    the outputs and the rank's pools."""
+    from distributed_dot_product_tpu_torch.models import decode as tdec
+    from distributed_dot_product_tpu_torch.utils import comm
+    cache = tdec.shard_view(tdec.PagedDecodeCache(
+        _t(k_pool), _t(v_pool), _t(steps[0][0]), np.array(lengths)), rank)
+    outs = []
+    for tables, q, kn, vn, mask in steps:
+        cache = cache._replace(page_table=_t(tables[rank]))
+        cache, out = tdec.decode_step(_t(q), cache, _t(kn), _t(vn),
+                                      slot_mask=mask, window=window,
+                                      impl=impl, group=comm.world_group())
+        outs.append(_np(out))
+    return outs, _np(cache.k_pool), _np(cache.v_pool), cache.length
 
 
 def checkpoint_stage(rank, world, kw, state, batch, ckdir):
