@@ -168,15 +168,43 @@ Phases, one JSON line each (some several):
    by zigzag_indices, outputs and gradients permuted back) against its
    contiguous twin, one ulysses step against the local flash module,
    each rank's launches against its folds; then each rank's fold device
-   time on both layouts (slowest rank against the mean).
+   time on both layouts (slowest rank against the mean);
+22. wq8_serve (run after serve_path): the serve_path burst over the
+   int8-weight engine (``weight_quant='int8'``), paged, slab and paged
+   again: K5p / K5 launches equal decode steps, slab and paged streams
+   equal token for token, the second run identical; weight bytes exact
+   (27,075,584 int8 with scales, 53,870,592 bf16); first-step logits of
+   the burst's first 8 prompts within the reference's 0.05 of the float
+   engine's; ``quantized_dot`` on the card bit for bit its plain version
+   at the head's shape (8 rows and 1 padded row; its s8 product exact);
+   tokens/s and TTFT p99 beside serve_path's, the head product's ms
+   beside bf16 ``F.linear``'s and its bound;
+23. load_serve: the seeded two-tenant trace (``LoadGenConfig(seed=7,
+   rate=300, requests=64)``, the stock tenants) through ``run_load`` on
+   the virtual clock over the paged engine (4 slots), bf16 and int8,
+   FIFO and with t0 at priority 1, each twice: every request accounted,
+   K5p launches equal decode ticks, the second run's outcomes and SLO
+   report identical, every timeline valid, no t1 admitted past a waiting
+   t0 under the policy (some under FIFO); per-tenant goodput under
+   ttft 20 ms / per token 4 ms, virtual and wall seconds, ticks;
+24. wq8_lm (run after main_path): main_path's LM quantized by
+   ``quantize_dense_params``: last-position prefill logits within 0.05
+   of the bf16 LM's, greedy generation twice identical, K1 / K5 launch
+   counts, the 16 layers' matrix bytes (113,246,208 int8 against
+   226,492,416 bf16); prefill ms and ms a step beside the bf16 LM's;
+25. train_knobs (run after train_path): train_path's LM, 2 Adam steps
+   without remat, with remat, ``remat_policy='dots_saveable'`` and
+   ``'dots_with_no_batch_dims_saveable'``: losses and step-1 gradients
+   bit for bit alike, K1 / K3 / K4 launches a step, ms a step and peak
+   memory each; then ``tie_embeddings=False``, 3 steps: loss finite and
+   falling, launches a step.
 
 Then the card's ``nvidia-smi`` name and power limit, the kernels line
 (``{"kernels": [...]}``: K1, K2, K3, K4, K5 and K5p with their launches on
-their path, max error, kernel / plain / library / bound times; K1, K2, K3
-and K4 also per mask variant, K5 and K5p per partials / window / verify /
-int8 / ALiBi variant) and,
-only if
-every phase passed, the last line ``{"ok": true, "device": {...}}``.
+their path (and on wq8_serve, load_serve, wq8_lm and train_knobs), max
+error, kernel / plain / library / bound times; K1, K2, K3 and K4 also per
+mask variant, K5 and K5p per partials / window / verify / int8 / ALiBi
+variant) and, only if every phase passed, the last line ``{"ok": true, "device": {...}}``.
 Exits non-zero on any failure, and without a card. ``--phases a,b`` runs
 only the named phases (after device and build) and prints no result
 line. ``--parent DIR`` names the root of another checkout (the parent
@@ -1840,21 +1868,31 @@ def serve_burst():
 
 
 def serve_engine(torch, mode, dtype=None, device='cuda', slots=SERVE_SLOTS,
-                 t_max=SERVE_T_MAX, **kw):
+                 t_max=SERVE_T_MAX, weight_quant='off', **kw):
+    """The serving engine, every setting explicit (the decode kernel, the
+    cache layout, float weights unless ``weight_quant='int8'``), so no
+    ``DDP_TPU_*`` knob in the environment can change a phase's path."""
     from distributed_dot_product_tpu_torch.serve import KernelEngine
     paged = (dict(cache_mode='paged', page_size=SERVE_PAGE)
-             if mode == 'paged' else {})
-    return KernelEngine(slots=slots, t_max=t_max, vocab=VOCAB,
-                        heads=HEADS, head_dim=HEAD_DIM,
-                        prefill_chunk=SERVE_CHUNK, seed=SERVE_SEED,
-                        dtype=dtype or torch.bfloat16, device=device,
-                        **paged, **kw)
+             if mode == 'paged' else dict(cache_mode='slab'))
+    engine = KernelEngine(slots=slots, t_max=t_max, vocab=VOCAB,
+                          heads=HEADS, head_dim=HEAD_DIM,
+                          prefill_chunk=SERVE_CHUNK, seed=SERVE_SEED,
+                          dtype=dtype or torch.bfloat16, device=device,
+                          decode_impl='kernel', weight_quant=weight_quant,
+                          **paged, **kw)
+    check((engine.decode_impl, engine.cache_mode, engine.weight_quant) == (
+        'kernel', paged['cache_mode'],
+        None if weight_quant == 'off' else weight_quant),
+          'engine settings are not the ones asked for')
+    return engine
 
 
 def first_step_logits(torch, engine, prompts):
     """Logits of each prompt's first decode step: prefill the prompts into
     slots 0.. and apply the engine's own projection, fused step and head
-    to its caches (what ``step`` computes before its argmax)."""
+    to its caches (what ``step`` computes before its argmax, through the
+    engine's one product ``_dot``: int8 weights on an int8 engine)."""
     import numpy as np
     from distributed_dot_product_tpu_torch.models.decode import decode_step
     active = np.zeros(engine.slots, bool)
@@ -1872,7 +1910,7 @@ def first_step_logits(torch, engine, prompts):
         engine.cache, out = decode_step(q, engine.cache, k, v,
                                         slot_mask=active,
                                         impl=engine.decode_impl)
-        logits = out.reshape(engine.slots, -1) @ engine._wo
+        logits = engine._dot(out.reshape(engine.slots, -1), engine._wo)
     return logits[:len(prompts)].float().cpu()
 
 
@@ -1989,6 +2027,9 @@ def phase_serve_path(torch, ddp):
         check(launches[other] == 0,
               f'{mode}: {other} launched {launches[other]} times')
         runs[mode] = (engine, results, row)
+        SAME_CALL[f'serve_path_{mode}'] = {
+            'tokens_per_s': row['tokens_per_s'],
+            'ttft_p99_s': row['ttft_s']['p99']}
         if mode == 'slab':
             del engine
     paged_res, slab_res = runs['paged'][1], runs['slab'][1]
@@ -5584,6 +5625,488 @@ def phase_flagship(torch, ddp, timeout=900):
     return launches
 
 
+# int8 weights, the untied head and partial remat; seeded multi-tenant
+# load under the scheduling policy, read out as SLO goodput.
+#
+# wq8_serve: the serve_path burst over KernelEngine(weight_quant='int8'),
+# paged and slab, bf16, at the serving widths. WQ8_RTOL is the reference's
+# documented int8 class (tests/test_weight_quant.py): each operand of the
+# s8 product rounds by half a step of its row's / channel's scale (~0.4% of
+# the max), so logits stay within a few percent of the float twin's scale.
+WQ8_RTOL = 0.05
+# The head's product at the decode shape (8 slots) and one padded row.
+WQ8_ROWS = (SERVE_SLOTS, 1)
+
+
+def _wq8_bytes(n_matrices_dim, out_widths):
+    """``(int8 bytes, float32 scale bytes, bf16 bytes)`` of weight matrices
+    with ``n_matrices_dim`` (rows, cols) shapes."""
+    n = sum(r * c for r, c in n_matrices_dim)
+    return n, 4 * sum(out_widths), 2 * n
+
+
+def _int_mm_exact(torch, ddp_dense, gen, rows, w_q, w_s):
+    """One ``quantized_dot`` at ``rows`` rows of the head on the card
+    against its plain version on the CPU (bit for bit), and the card's
+    s8 product against the float64 product of the same int8 values (exact
+    at these widths)."""
+    x = randn(torch, (rows, w_q.shape[1]), gen, 'cuda', torch.bfloat16)
+    got = ddp_dense.quantized_dot(x, w_q, w_s)
+    want = ddp_dense.quantized_dot(x.cpu(), w_q.cpu(), w_s.cpu())
+    x32 = x.float()
+    sx = torch.clamp_min(x32.abs().amax(-1, keepdim=True) / 127.0,
+                         ddp_dense._EPS)
+    xi = torch.round(x32 / sx).to(torch.int8)
+    prod = ddp_dense._int_product(xi, w_q)
+    exact = (xi.double() @ w_q.double().t())
+    return {'rows': rows, 'bit_for_bit_plain': bool(torch.equal(got.cpu(),
+                                                                want)),
+            'int_mm_exact': bool(torch.equal(prod.double(), exact)),
+            'max_abs_err': (got.cpu() - want).abs().max().item()}
+
+
+def phase_wq8_serve(torch, ddp, flush):
+    """The serve_path burst over the int8-weight engine, paged then slab
+    (then paged again), beside the float engine's numbers of this call;
+    weight bytes; first-step logits against the float engine; the head's
+    quantized_dot on the card against its plain version."""
+    from distributed_dot_product_tpu_torch.models import dense as ddp_dense
+    import torch.nn.functional as F
+    t_phase = time.perf_counter()
+    burst = serve_burst()
+    runs = {}
+    for name, mode in (('paged', 'paged'), ('slab', 'slab'),
+                       ('paged_again', 'paged')):
+        engine = serve_engine(torch, mode, weight_quant='int8')
+        results, row = _serve_burst(torch, ddp, engine, burst,
+                                    f'wq8 {name}')
+        own, other = (('flash_decode_paged', 'flash_decode')
+                      if mode == 'paged' else
+                      ('flash_decode', 'flash_decode_paged'))
+        launches, steps = row['launches'], row['decode_steps']
+        row = {'phase': 'wq8_serve', 'case': name, 'weight_quant': 'int8',
+               'float_same_call': SAME_CALL.get(f'serve_path_{mode}'),
+               **row}
+        emit(row)
+        check(launches[own] == steps,
+              f'wq8 {name}: {own} launched {launches[own]} times for '
+              f'{steps} decode steps')
+        check(launches[other] == 0,
+              f'wq8 {name}: {other} launched {launches[other]} times')
+        runs[name] = (results, row)
+        if name == 'paged':
+            kept = engine
+        else:
+            del engine
+    streams = {n: {rid: (r.status, r.tokens) for rid, r in res.items()}
+               for n, (res, _) in runs.items()}
+    completed = [rid for rid, (st, _) in streams['paged'].items()
+                 if st == 'completed']
+    diverged = [rid for rid in streams['paged']
+                if streams['paged'][rid] != streams['slab'].get(rid)]
+    emit({'phase': 'wq8_serve', 'case': 'streams',
+          'completed': len(completed), 'slab_vs_paged_diverged': diverged,
+          'paged_twice_identical':
+              streams['paged'] == streams['paged_again']})
+    check(len(completed) == len(burst), 'wq8: not every request completed')
+    check(not diverged, f'wq8: slab and paged streams differ: {diverged}')
+    check(streams['paged'] == streams['paged_again'],
+          'wq8: the same run twice gave other streams')
+
+    # Weight bytes: the four matrices int8 with float32 scales, against
+    # the bf16 twin's.
+    q8, scales, bf16 = _wq8_bytes(((DIM, DIM),) * 3 + ((VOCAB, DIM),),
+                                  (DIM,) * 3 + (VOCAB,))
+    flt = serve_engine(torch, 'slab', slots=SERVE_SLOTS)
+    row = {'phase': 'wq8_serve', 'case': 'weight_bytes',
+           'int8': kept.weight_bytes, 'want_int8': q8 + scales,
+           'bf16': flt.weight_bytes, 'want_bf16': bf16}
+    emit(row)
+    check(kept.weight_bytes == q8 + scales,
+          f'int8 weight bytes {kept.weight_bytes} != {q8 + scales}')
+    check(flt.weight_bytes == bf16,
+          f'bf16 weight bytes {flt.weight_bytes} != {bf16}')
+
+    # Teacher-forced first step: the burst's first prompts prefilled into
+    # both engines, the logits each step argmaxes held against each other.
+    q_eng = serve_engine(torch, 'slab', weight_quant='int8')
+    prompts = [p for _, p in burst[:SERVE_SLOTS]]
+    got = first_step_logits(torch, q_eng, prompts)
+    want = first_step_logits(torch, flt, prompts)
+    rel = [((g - w).abs().max() / w.abs().max()).item()
+           for g, w in zip(got, want)]
+    emit({'phase': 'wq8_serve', 'case': 'first_step_logits',
+          'max_rel_err': rel, 'tol': WQ8_RTOL,
+          'argmax_equal': int((got.argmax(-1) == want.argmax(-1)).sum())})
+    for r in rel:
+        check(r <= WQ8_RTOL, f'wq8 logits rel err {r} > {WQ8_RTOL}')
+
+    # The head's product: on the card bit for bit its plain version; its
+    # time beside bf16 F.linear's at the same shape, and the bound (the
+    # int8 weight, its scales, x and the float32 output once each).
+    gen = torch.Generator().manual_seed(15)
+    w_q, w_s = kept._wo
+    cases = [_int_mm_exact(torch, ddp_dense, gen, r, w_q, w_s)
+             for r in WQ8_ROWS]
+    for c in cases:
+        emit({'phase': 'wq8_serve', 'case': 'quantized_dot_exact', **c})
+        check(c['bit_for_bit_plain'] and c['int_mm_exact'],
+              f"quantized_dot at {c['rows']} rows differs from its plain "
+              f"version")
+    x = randn(torch, (SERVE_SLOTS, DIM), gen, 'cuda', torch.bfloat16)
+    w_bf16 = flt._wo.t().contiguous()                 # (vocab, dim)
+    x_bf16 = x.to(w_bf16.dtype)
+    ms = time_ms(torch, lambda: ddp_dense.quantized_dot(x, w_q, w_s), flush)
+    linear_ms = time_ms(torch, lambda: F.linear(x_bf16, w_bf16), flush)
+    nbytes = (w_q.numel() + 4 * w_s.numel() + 2 * x.numel()
+              + 4 * SERVE_SLOTS * VOCAB)
+    b_ms, b_by = bound_ms(2 * SERVE_SLOTS * DIM * VOCAB, nbytes)
+    row = {'phase': 'wq8_serve', 'case': 'head_product',
+           'shape': [SERVE_SLOTS, DIM, VOCAB], 'quantized_dot_ms': ms,
+           'bf16_linear_ms': linear_ms, 'bound_ms': b_ms, 'bound_by': b_by,
+           'seconds': time.perf_counter() - t_phase}
+    emit(row)
+    del kept, flt, q_eng
+    torch.cuda.empty_cache()
+    return {'launches': {n: r['launches'] for n, (_, r) in runs.items()},
+            'head_product': row}
+
+
+def phase_wq8_lm(torch, ddp):
+    """main_path's 16-layer LM with its float (bf16) parameters quantized
+    by quantize_dense_params: prefill logits against the float LM, greedy
+    generation twice, launch counts, weight bytes; ms beside the float
+    LM's in this phase."""
+    from distributed_dot_product_tpu_torch.models.lm import greedy_generate
+    t_phase = time.perf_counter()
+    dev = torch.device('cuda')
+    gen = torch.Generator().manual_seed(0)
+    kw = dict(n_layers=LAYERS, dtype=torch.bfloat16,
+              param_dtype=torch.bfloat16, device=dev)
+    flt = ddp.TransformerLM(VOCAB, DIM, HEADS, generator=gen, **kw)
+    prompts = torch.randint(0, VOCAB, (BATCH, PROMPT), generator=gen
+                            ).to(dev)
+    q8 = ddp.TransformerLM(VOCAB, DIM, HEADS, weight_quant='int8', **kw)
+    q8.load_state_dict(ddp.quantize_dense_params(flt))
+    state = q8.state_dict()
+    int8_bytes = sum(v.numel() for k, v in state.items()
+                     if k.endswith('weight_q'))
+    scale_bytes = sum(4 * v.numel() for k, v in state.items()
+                      if k.endswith('weight_scale'))
+    bf16_bytes = sum(v.numel() * v.element_size()
+                     for k, v in flt.state_dict().items()
+                     if k.endswith('.weight'))
+    want8, _, want16 = _wq8_bytes(
+        ((DIM, DIM),) * 4 + ((4 * DIM, DIM), (DIM, 4 * DIM)) * 1, ())
+    want8, want16 = LAYERS * want8, LAYERS * want16
+
+    with torch.inference_mode():
+        logits = {}
+        for name, m in (('int8', q8), ('bf16', flt)):
+            _, out = m.prefill(prompts, m.make_decode_caches(BATCH, T_MAX))
+            logits[name] = out[:, -1].float()
+    rel = ((logits['int8'] - logits['bf16']).abs().amax(-1)
+           / logits['bf16'].abs().amax(-1)).tolist()
+
+    times = {}
+    for name, m in (('bf16', flt), ('int8', q8)):
+        greedy_generate(m, prompts, 2, T_MAX)                 # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        greedy_generate(m, prompts, 1, T_MAX)
+        torch.cuda.synchronize()
+        prefill_ms = 1e3 * (time.perf_counter() - t0)
+        ddp.flash_attention.launches = 0
+        ddp.flash_decode.launches = 0
+        t0 = time.perf_counter()
+        tokens = greedy_generate(m, prompts, STEPS, T_MAX)
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t0
+        times[name] = {'prefill_ms': prefill_ms,
+                       'ms_per_decode_step':
+                           (1e3 * total_s - prefill_ms) / (STEPS - 1),
+                       'tokens_per_s': BATCH * STEPS / total_s,
+                       'launches': {
+                           'flash_attention': ddp.flash_attention.launches,
+                           'flash_decode': ddp.flash_decode.launches},
+                       'tokens': tokens}
+    again = greedy_generate(q8, prompts, STEPS, T_MAX)
+    launches = times['int8']['launches']
+    row = {'phase': 'wq8_lm', 'prefill_last_logits_max_rel_err': rel,
+           'tol': WQ8_RTOL,
+           'weight_bytes': {'int8': int8_bytes, 'scales': scale_bytes,
+                            'bf16': bf16_bytes, 'want_int8': want8,
+                            'want_bf16': want16},
+           'greedy_twice_identical': bool(torch.equal(
+               again, times['int8']['tokens'])),
+           'tokens_equal_bf16': int((times['int8']['tokens']
+                                     == times['bf16']['tokens']).sum()),
+           **{name: {k: v for k, v in t.items() if k != 'tokens'}
+              for name, t in times.items()},
+           'seconds': time.perf_counter() - t_phase}
+    emit(row)
+    for r in rel:
+        check(r <= WQ8_RTOL, f'wq8 LM logits rel err {r} > {WQ8_RTOL}')
+    check(row['greedy_twice_identical'], 'wq8 LM greedy runs differ')
+    check(bool(((again >= 0) & (again < VOCAB)).all()), 'token out of range')
+    check(launches == {'flash_attention': LAYERS,
+                       'flash_decode': LAYERS * (STEPS - 1)},
+          f'wq8 LM launched {launches}')
+    check(int8_bytes == want8 and bf16_bytes == want16,
+          f'wq8 LM weight bytes {int8_bytes} / {bf16_bytes}, want '
+          f'{want8} / {want16}')
+    del flt, q8
+    torch.cuda.empty_cache()
+    return launches
+
+
+# train_knobs: train_path's LM, 2 Adam steps under each remat setting,
+# then the untied head for 3 steps.
+KNOB_STEPS, UNTIED_STEPS = 2, 3
+REMAT_KNOBS = (('no_remat', False, None), ('remat', True, None),
+               ('dots_saveable', True, 'dots_saveable'),
+               ('dots_with_no_batch_dims_saveable', True,
+                'dots_with_no_batch_dims_saveable'))
+
+
+def _knob_run(torch, ddp, steps, **kw):
+    """``steps`` Adam steps of train_path's LM built with ``kw``: losses,
+    ms a step, peak memory, launches a step and step 1's gradients."""
+    dev = torch.device('cuda')
+    gen = torch.Generator().manual_seed(3)
+    model = ddp.TransformerLM(VOCAB, DIM, HEADS, n_layers=LAYERS,
+                              dtype=torch.bfloat16, device=dev,
+                              generator=gen, **kw)
+    opt = torch.optim.Adam(model.parameters(), lr=LR, betas=(0.9, 0.999),
+                           eps=1e-8)
+    step = ddp.make_lm_train_step(model, opt, loss_chunk=LOSS_CHUNK)
+    tokens = torch.randint(0, VOCAB, (TRAIN_B, TRAIN_T), generator=gen
+                           ).to(dev)
+    batch = (tokens, ddp.lm_targets(tokens))
+    counters = {name: getattr(ddp, name) for name in TRAIN_KERNELS}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms, per_step, grads = [], [], [], None
+    for i in range(steps):
+        before = {n: fn.launches for n, fn in counters.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = step(batch)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        losses.append(loss.item())
+        per_step.append({n: fn.launches - before[n]
+                         for n, fn in counters.items()})
+        if i == 0:
+            grads = {n: p.grad.clone() for n, p in model.named_parameters()}
+    out = {'losses': losses, 'step_ms': step_ms,
+           'max_memory_allocated': torch.cuda.max_memory_allocated(),
+           'launches_per_step': per_step}
+    del model, opt, step, batch
+    return out, grads
+
+
+def phase_train_knobs(torch, ddp):
+    """The four remat settings (losses and step-1 gradients bit for bit
+    alike: each recompute runs the same kernels on the same inputs, and a
+    kept matmul output is the one the forward made), then the untied
+    head."""
+    t_phase = time.perf_counter()
+    rows, ref = {}, None
+    for name, remat, policy in REMAT_KNOBS:
+        row, grads = _knob_run(torch, ddp, KNOB_STEPS, remat=remat,
+                               remat_policy=policy)
+        if ref is None:
+            ref, ref_losses = grads, row['losses']
+            row['grads_equal_no_remat'] = row['losses_equal_no_remat'] = True
+        else:
+            row['grads_equal_no_remat'] = all(torch.equal(grads[n], g)
+                                              for n, g in ref.items())
+            row['losses_equal_no_remat'] = row['losses'] == ref_losses
+        del grads
+        torch.cuda.empty_cache()
+        want = {'flash_attention': (2 if remat else 1) * LAYERS,
+                'flash_attention_dq': LAYERS, 'flash_attention_dkv': LAYERS}
+        emit({'phase': 'train_knobs', 'case': name, 'remat': remat,
+              'remat_policy': policy, 'expected_launches_per_step': want,
+              **row})
+        check(all(c == want for c in row['launches_per_step']),
+              f'{name}: launched {row["launches_per_step"]}, want {want}')
+        check(row['losses_equal_no_remat'] and row['grads_equal_no_remat'],
+              f'{name}: loss or gradients differ from no remat')
+        rows[name] = row
+    del ref
+    torch.cuda.empty_cache()
+    row, _ = _knob_run(torch, ddp, UNTIED_STEPS, remat=True,
+                       tie_embeddings=False)
+    want = {'flash_attention': 2 * LAYERS, 'flash_attention_dq': LAYERS,
+            'flash_attention_dkv': LAYERS}
+    emit({'phase': 'train_knobs', 'case': 'untied_head',
+          'expected_launches_per_step': want, **row,
+          'seconds': time.perf_counter() - t_phase})
+    losses = row['losses']
+    check(all(math.isfinite(x) for x in losses), 'untied: non-finite loss')
+    check(losses[-1] < losses[0], f'untied: loss did not fall: {losses}')
+    check(all(c == want for c in row['launches_per_step']),
+          f'untied: launched {row["launches_per_step"]}, want {want}')
+    rows['untied_head'] = row
+    torch.cuda.empty_cache()
+    return {name: {k: sum(c[k] for c in r['launches_per_step'])
+                   for k in TRAIN_KERNELS} for name, r in rows.items()}
+
+
+# load_serve: the seeded open-loop two-tenant trace (LoadGenConfig(seed=7,
+# rate=300, requests=64) with the stock tenants: t0 interactive, 2/3 of
+# the traffic; t1 batchy) over the paged engine at the serving widths
+# (bf16, t_max 4096, page 16, prefill chunk 64) with the reference's
+# serve-load slot count, 4 (at 8 slots this trace never queues, and no
+# policy has anything to decide), float and int8 weights, FIFO and with
+# t0 at priority 1; each run twice. Goodput under one SLO on the run's
+# virtual clock (a tick is 2 ms): the first token within 20 ms (10
+# ticks), no gap between tokens over 4 ms.
+LOAD_SEED, LOAD_RATE, LOAD_REQUESTS, LOAD_SLOTS = 7, 300.0, 64, 4
+LOAD_SLO = dict(ttft=0.02, per_token=0.004)
+
+
+def _inversions(timelines):
+    """Admissions of a t1 request at a moment a t0 request submitted
+    earlier was still queued: what a priority-1 t0 must never see."""
+    spans = []
+    for tl in timelines.values():
+        if tl.tenant == 't0':
+            admits = [e['ts'] for e in tl.events
+                      if e['event'] == 'serve.admit']
+            if admits and tl.queue_wait is not None:
+                spans.append((admits[0] - tl.queue_wait, admits[0]))
+    n = 0
+    for tl in timelines.values():
+        if tl.tenant != 't1':
+            continue
+        for e in tl.events:
+            if e['event'] == 'serve.admit':
+                n += any(s < e['ts'] < a for s, a in spans)
+    return n
+
+
+def _load_run(torch, ddp, engine, policy, log_path):
+    from distributed_dot_product_tpu_torch.obs import EventLog
+    from distributed_dot_product_tpu_torch.obs.slo import SloSpec, goodput
+    from distributed_dot_product_tpu_torch.obs.timeline import reconstruct
+    from distributed_dot_product_tpu_torch.serve import (
+        LoadGenConfig, default_tenants, run_load,
+    )
+    from distributed_dot_product_tpu_torch.utils.tracing import (
+        MetricsRegistry,
+    )
+    registry = MetricsRegistry()
+    log = EventLog(log_path)
+    ddp.flash_decode.launches = 0
+    ddp.flash_decode_paged.launches = 0
+    try:
+        res = run_load(LoadGenConfig(seed=LOAD_SEED, rate=LOAD_RATE,
+                                     requests=LOAD_REQUESTS, vocab=VOCAB,
+                                     tenants=default_tenants(2)),
+                       engine=engine, registry=registry, event_log=log,
+                       policy=policy)
+    finally:
+        log.close()
+    launches = {'flash_decode': ddp.flash_decode.launches,
+                'flash_decode_paged': ddp.flash_decode_paged.launches}
+    report = goodput(log_path, SloSpec(**LOAD_SLO))
+    timelines = reconstruct(log_path)
+    outcomes = {rid: (r.status, r.reason.value if r.reason else None,
+                      list(r.tokens)) for rid, r in res.results.items()}
+    counters = registry.snapshot()['counters']
+    return {'result': res, 'launches': launches, 'report': report,
+            'timelines': timelines, 'outcomes': outcomes,
+            'decode_ticks': counters.get('serve.decode_steps', 0)}
+
+
+def phase_load_serve(torch, ddp):
+    """The seeded trace over the paged engine, float and int8, FIFO and
+    under the priority policy, each twice: accounted, K5p launches equal
+    decode ticks, identical outcomes and SLO report on the second run,
+    every timeline valid, no priority inversion under the policy (and
+    some under FIFO, or the trace would not contend)."""
+    import tempfile
+    import numpy as np
+    from distributed_dot_product_tpu_torch.serve import (
+        PolicyConfig, TenantPolicy,
+    )
+    t_phase = time.perf_counter()
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for weights in ('off', 'int8'):
+            engine = serve_engine(torch, 'paged', slots=LOAD_SLOTS,
+                                  weight_quant=weights)
+            # Load every kernel before the timed runs.
+            engine.step(np.zeros(engine.slots, np.int32),
+                        np.ones(engine.slots, bool))
+            for i in range(engine.slots):
+                engine.reset(i)
+            for pol_name, policy in (
+                    ('fifo', None),
+                    ('priority', PolicyConfig(
+                        tenants={'t0': TenantPolicy(priority=1)}))):
+                name = f"{'bf16' if weights == 'off' else 'int8'}_{pol_name}"
+                runs = [_load_run(torch, ddp, engine, policy,
+                                  os.path.join(tmp, f'{name}_{i}.jsonl'))
+                        for i in range(2)]
+                first, second = runs
+                res, rep = first['result'], first['report']
+                bad = {rid: tl.errors for rid, tl in
+                       first['timelines'].items() if not tl.complete}
+                inversions = _inversions(first['timelines'])
+                row = {'phase': 'load_serve', 'case': name,
+                       'requests': LOAD_REQUESTS, 'slo': LOAD_SLO,
+                       'goodput_pct': rep.goodput_pct,
+                       'per_tenant_goodput_pct': {
+                           t: v['goodput_pct']
+                           for t, v in sorted(rep.per_tenant.items())},
+                       'counts': rep.counts, 'statuses': rep.statuses,
+                       'rejected_at_submit': len(res.rejected_at_submit),
+                       'ttft_p99_s': rep.percentiles['ttft']['p99'],
+                       'virtual_seconds': res.virtual_seconds,
+                       'wall_seconds': res.wall_seconds, 'ticks': res.ticks,
+                       'decode_ticks': first['decode_ticks'],
+                       'launches': first['launches'],
+                       'accounted': res.accounted,
+                       'timelines_invalid': bad,
+                       'priority_inversions': inversions,
+                       'second_run_identical': (
+                           second['outcomes'] == first['outcomes']
+                           and second['report'].to_dict()
+                           == rep.to_dict()),
+                       'second_wall_seconds':
+                           second['result'].wall_seconds}
+                emit(row)
+                check(res.accounted, f'{name}: a request has no terminal')
+                check(first['launches']['flash_decode_paged']
+                      == first['decode_ticks'] > 0
+                      and first['launches']['flash_decode'] == 0,
+                      f"{name}: launches {first['launches']} for "
+                      f"{first['decode_ticks']} decode ticks")
+                check(row['second_run_identical'],
+                      f'{name}: the same seed twice gave other outcomes')
+                check(not bad, f'{name}: invalid timelines {bad}')
+                check(len(first['timelines']) == LOAD_REQUESTS,
+                      f'{name}: {len(first["timelines"])} timelines')
+                if policy is None:
+                    check(inversions > 0,
+                          f'{name}: the trace never contends (no t1 '
+                          f'admitted past a waiting t0 under FIFO)')
+                else:
+                    check(inversions == 0,
+                          f'{name}: {inversions} t1 admissions past a '
+                          f'waiting priority-1 t0')
+                launches[name] = first['launches']['flash_decode_paged']
+            del engine
+            torch.cuda.empty_cache()
+    emit({'phase': 'load_serve', 'case': 'done',
+          'seconds': time.perf_counter() - t_phase})
+    return launches
+
+
 def main():
     try:
         import torch
@@ -5595,6 +6118,12 @@ def main():
               'runs only on a CUDA card', file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    # The engine's environment knobs would switch a phase's decode path,
+    # cache layout or weight precision: every engine here asks for its
+    # own explicitly, and the knobs are cleared for anything built inside.
+    for knob in ('DDP_TPU_DECODE_KERNEL', 'DDP_TPU_PAGED_CACHE',
+                 'DDP_TPU_WEIGHT_QUANT'):
+        os.environ.pop(knob, None)
     try:
         import distributed_dot_product_tpu_torch as ddp
         from distributed_dot_product_tpu_torch.ops import _build
@@ -5648,6 +6177,8 @@ def main():
              lambda: phase_decode_int8(torch, ddp, flush, gen)),
             ('serve_path', lambda: phase_serve_path(torch, ddp)),
             ('spec_serve', lambda: phase_spec_serve(torch, ddp)),
+            ('wq8_serve', lambda: phase_wq8_serve(torch, ddp, flush)),
+            ('load_serve', lambda: phase_load_serve(torch, ddp)),
             ('kv_sharded_serve',
              lambda: phase_kv_sharded_serve(torch, ddp, flush, gen)),
             ('int8_decode', lambda: phase_int8_decode(torch, ddp)),
@@ -5658,7 +6189,9 @@ def main():
             ('flash_masks',
              lambda: phase_flash_masks(torch, ddp, flush, gen)),
             ('main_path', lambda: phase_main_path(torch, ddp)),
+            ('wq8_lm', lambda: phase_wq8_lm(torch, ddp)),
             ('train_path', lambda: phase_train_path(torch, ddp)),
+            ('train_knobs', lambda: phase_train_knobs(torch, ddp)),
             ('train_cpu_reference',
              lambda: phase_train_cpu_reference(torch, ddp)),
             ('alibi_lm', lambda: phase_alibi_lm(torch, ddp)),
@@ -5696,6 +6229,14 @@ def main():
     alibi, zz = res['alibi_lm'], res['zigzag_ring']
     kv = res['kv_sharded_serve']
     int8_k = int8_path['int8_kernels']
+    wq8, load = res['wq8_serve']['launches'], res['load_serve']
+    wq8_lm, knobs = res['wq8_lm'], res['train_knobs']
+
+    def knob_paths(kernel):
+        """The kernel's launches on train_knobs's runs (2 steps under each
+        remat setting, 3 with the untied head)."""
+        return {f'train_knobs_{name}': counts[kernel]
+                for name, counts in knobs.items()}
 
     def variant(cases, head, launches, path):
         """A verify / int8 variant of K5 or K5p: its launches on the path
@@ -5800,6 +6341,8 @@ def main():
              launches_by_path={
                  'serve': serve_launches['flash_attention'],
                  'train': train_launches['flash_attention'],
+                 'wq8_lm': wq8_lm['flash_attention'],
+                 **knob_paths('flash_attention'),
                  **sp_paths('flash_attention'),
                  **alibi_paths('flash_attention')},
              max_abs_err=k1_err, lse_max_abs_err=max(bwd_err['lse'],
@@ -5832,6 +6375,7 @@ def main():
              launches=train_launches['flash_attention_dq'],
              launches_by_path={
                  'train': train_launches['flash_attention_dq'],
+                 **knob_paths('flash_attention_dq'),
                  **sp_paths('flash_attention_dq'),
                  **alibi_paths('flash_attention_dq')},
              max_abs_err=max(bwd_err['dq'], feat_err['dq']),
@@ -5851,6 +6395,7 @@ def main():
              launches=train_launches['flash_attention_dkv'],
              launches_by_path={
                  'train': train_launches['flash_attention_dkv'],
+                 **knob_paths('flash_attention_dkv'),
                  **sp_paths('flash_attention_dkv'),
                  **alibi_paths('flash_attention_dkv')},
              max_abs_err=max(bwd_err['dk'], bwd_err['dv'], feat_err['dk'],
@@ -5880,7 +6425,9 @@ def main():
                      for p in SPEC_PROPOSERS},
                  'int8_decode': int8_path['launches']['flash_decode'],
                  'decode_sharded_per_rank': ds['launches_per_rank'],
-                 'alibi_lm_greedy': alibi['greedy']['flash_decode']},
+                 'alibi_lm_greedy': alibi['greedy']['flash_decode'],
+                 'wq8_serve_slab': wq8['slab']['flash_decode'],
+                 'wq8_lm_greedy': wq8_lm['flash_decode']},
              max_abs_err=k5['max_abs_err'],
              edges=k5['edges'],
              variants=k5['variants'],
@@ -5901,7 +6448,11 @@ def main():
                  'kv_sharded_serve_burst': kv['burst']['launches'],
                  'kv_sharded_serve_long': kv['long']['launches'],
                  'decode_sharded_paged_per_rank':
-                     ds['paged_launches_per_rank']},
+                     ds['paged_launches_per_rank'],
+                 'wq8_serve_paged': {
+                     n: wq8[n]['flash_decode_paged']
+                     for n in ('paged', 'paged_again')},
+                 'load_serve': load},
              max_abs_err=k5p['max_abs_err'],
              variants=k5p['variants'],
              **{key: k5p[key] for key in ('ms', 'plain_ms', 'library_ms',

@@ -56,7 +56,7 @@ from distributed_dot_product_tpu_torch.ops.flash_decode import (  # noqa: F401
     flash_decode, flash_decode_paged,
 )
 from distributed_dot_product_tpu_torch.models.dense import (  # noqa: F401
-    OwnedDense,
+    OwnedDense, quantize_dense_params, quantize_kernel,
 )
 from distributed_dot_product_tpu_torch.models.decode import (  # noqa: F401
     DecodeCache, PagedDecodeCache, PagePool, append_kv, append_kv_sharded,

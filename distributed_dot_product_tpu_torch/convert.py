@@ -9,8 +9,11 @@ The input is the flax parameter tree as plain mappings of arrays
 (numpy arrays, or anything ``numpy.asarray`` reads): either the scanned
 layout (``params['stack']['layers']['block']…`` with a leading
 ``n_layers`` axis, the reference default) or the unrolled ``block_i``
-subtrees. Dense ``kernel (in, out)`` becomes ``weight (out, in)``;
-LayerNorm ``scale``/``bias`` and the ``embedding`` table keep their
+subtrees. Dense ``kernel (in, out)`` becomes ``weight (out, in)``; an
+int8 tree (the reference's ``quantize_dense_params``) carries
+``kernel_q (in, out)`` as ``weight_q (out, in)`` and ``kernel_scale``
+as ``weight_scale``; LayerNorm ``scale``/``bias``, the ``embedding``
+table and the untied head's ``lm_head_kernel (dim, vocab)`` keep their
 shapes. Load the result with ``model.load_state_dict(state)``, which
 casts to the model's dtypes and device. A gradient tree of the reference
 has its params' structure and converts the same way.
@@ -41,7 +44,14 @@ def _blocks(stack):
 
 
 def _dense(state, prefix, node):
-    state[f'{prefix}.weight'] = np.asarray(node['kernel']).T
+    # Float (kernel) or int8 (kernel_q + kernel_scale); the port stores
+    # (out, in), so the kernels are transposed and the scales kept.
+    for flax_name, port_name in (('kernel', 'weight'),
+                                 ('kernel_q', 'weight_q')):
+        if flax_name in node:
+            state[f'{prefix}.{port_name}'] = np.asarray(node[flax_name]).T
+    if 'kernel_scale' in node:
+        state[f'{prefix}.weight_scale'] = np.asarray(node['kernel_scale'])
     if 'bias' in node:
         state[f'{prefix}.bias'] = np.asarray(node['bias'])
 
@@ -95,6 +105,8 @@ def lm_state_from_jax(params):
     state = {'embedding': np.asarray(p['embed']['embedding']),
              'ln_f.scale': np.asarray(p['ln_f']['scale']),
              'ln_f.bias': np.asarray(p['ln_f']['bias'])}
+    if 'lm_head_kernel' in p:
+        state['lm_head_kernel'] = np.asarray(p['lm_head_kernel'])
     _stack(state, 'stack.', p['stack'])
     return _tensors(state)
 

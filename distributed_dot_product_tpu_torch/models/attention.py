@@ -114,9 +114,14 @@ class DistributedDotProductAttn(nn.Module):
     """Multi-head dot-product attention (K-first convention).
 
     Constructor fields mirror the reference module's and are validated
-    the same way (same errors for the same bad values). ``weight_quant``
-    is not ported yet and raises ``NotImplementedError``. ``alibi_slopes
-    (num_heads,)`` are kept as a float32 tensor on the module's device.
+    the same way (same errors for the same bad values). ``weight_quant=
+    'int8'`` stores the four projections' weights int8 with float32
+    per-output-channel scales (:class:`~..models.dense.OwnedDense`; load
+    them with :func:`~..models.dense.quantize_dense_params`): every
+    forward, prefill and decode step then runs the s8 × s8 → s32 product
+    with the activation rows quantized on the fly — an inference path,
+    whose int8 buffers are not trained. ``alibi_slopes (num_heads,)`` are
+    kept as a float32 tensor on the module's device.
     Parameters are created on ``device`` at ``param_dtype`` (float32 by
     default, as in the reference) and computed at ``dtype``, drawn from
     ``generator`` (see :func:`~..models.dense.default_generator`).
@@ -196,10 +201,6 @@ class DistributedDotProductAttn(nn.Module):
         if qk_quant not in (None, 'int8'):
             raise ValueError(f"qk_quant must be None or 'int8', "
                              f'got {qk_quant!r}')
-        if weight_quant is not None:
-            raise NotImplementedError(
-                'DistributedDotProductAttn(weight_quant=...) is not ported '
-                'yet')
 
         self.num_heads = num_heads
         self.causal, self.window, self.qk_quant = causal, window, qk_quant
@@ -213,6 +214,7 @@ class DistributedDotProductAttn(nn.Module):
         self.dropout_rate = dropout_rate
         self.use_rope, self.rope_base = use_rope, rope_base
         self.decode_impl = decode_impl
+        self.weight_quant = weight_quant
         self.dtype = dtype or torch.float32
         self.head_dim = head_dim
         self._value_dim = value_dim
@@ -229,7 +231,8 @@ class DistributedDotProductAttn(nn.Module):
 
         def dense(d_in, d_out):
             return OwnedDense(d_in, d_out, use_bias=add_bias, dtype=dtype,
-                              param_dtype=param_dtype, device=dev,
+                              param_dtype=param_dtype,
+                              weight_quant=weight_quant, device=dev,
                               generator=gen)
         # Same four projections as the reference; under GQA the queries/
         # values projections (the attended side, K-first) emit only
@@ -387,7 +390,7 @@ class DistributedDotProductAttn(nn.Module):
             batch, self._kv_heads, t_max, self.head_dim,
             v_head_dim=self._value_dim // self.num_heads,
             dtype=dtype or self.dtype, qk_quant=self.qk_quant,
-            device=device or self.keys_proj.weight.device)
+            device=device or self.keys_proj.device)
 
     def _project(self, keys, queries, values, start):
         """Shared front half of every call: the four projections, head

@@ -5,10 +5,15 @@ Causal language model over the transformer stack — the port of
 ``distributed_dot_product_tpu/models/lm.py``.
 
 Token embedding → :class:`~..models.transformer.TransformerStack` → final
-LayerNorm → tied head (the embedding table transposed), with the head's
-float32 accumulation as in the reference. Training: ``forward`` returns
-the logits, ``nll_sum`` the chunked cross-entropy ``(sum, count)`` the
-train step divides. Generation: ``prefill`` ingests the prompt through
+LayerNorm → head, with the head's float32 accumulation as in the
+reference: tied (the embedding table transposed), or with
+``tie_embeddings=False`` an explicit ``lm_head_kernel (dim, vocab)``
+(the reference's name and layout, ``lecun_normal``, no bias). Both the
+logits and the loss read the ``(vocab, dim)`` table through
+``_head_table``. ``weight_quant='int8'`` quantizes every block's
+projection and MLP matmuls; the embedding and the head stay float.
+Training: ``forward`` returns the logits, ``nll_sum`` the chunked
+cross-entropy ``(sum, count)`` the train step divides. Generation: ``prefill`` ingests the prompt through
 the flash kernel (K1), ``decode`` is the one-token cached step through
 the fused decode kernel (K5).
 """
@@ -72,13 +77,19 @@ class TransformerLM(nn.Module):
     ``normal(1/√dim)``, the dense layers as its ``lecun_normal``. Serving
     a bf16 model: ``dtype=param_dtype=torch.bfloat16``; training:
     float32 parameters under ``dtype=torch.bfloat16``.
-    ``remat``/``remat_policy`` forward to the stack; ``scan_layers``
-    (default True, the reference's default layout) decides the layers'
-    dropout salt (:class:`~..models.transformer.TransformerStack`)."""
+    ``remat``/``remat_policy`` and ``weight_quant`` forward to the stack;
+    ``scan_layers`` (default True, the reference's default layout) decides
+    the layers' dropout salt (:class:`~..models.transformer
+    .TransformerStack`). ``tie_embeddings=False`` adds the untied head
+    ``lm_head_kernel (dim, vocab)``, drawn after the stack's parameters
+    (so the tied model's draws are unchanged) and stored at
+    ``param_dtype`` like the table (the reference's float32 is its
+    parameter dtype)."""
 
     def __init__(self, vocab_size, dim, num_heads, n_layers=2, mlp_ratio=4,
-                 axis_name=SEQ_AXIS, dtype=None, attn_kwargs=None,
-                 remat=False, remat_policy=None, scan_layers=True,
+                 axis_name=SEQ_AXIS, dtype=None, weight_quant=None,
+                 attn_kwargs=None, scan_layers=True, remat=False,
+                 remat_policy=None, tie_embeddings=True,
                  param_dtype=torch.float32, device='cuda', generator=None):
         super().__init__()
         dev = resolve_device(device)
@@ -95,22 +106,37 @@ class TransformerLM(nn.Module):
         self.embedding = nn.Parameter(emb.to(device=dev, dtype=param_dtype))
         self.stack = TransformerStack(
             dim, num_heads, n_layers=n_layers, mlp_ratio=mlp_ratio,
-            axis_name=axis_name, dtype=dtype, attn_kwargs=kw,
-            remat=remat, remat_policy=remat_policy, scan_layers=scan_layers,
-            path=('stack',), param_dtype=param_dtype, device=dev,
-            generator=gen)
+            axis_name=axis_name, dtype=dtype, weight_quant=weight_quant,
+            attn_kwargs=kw, remat=remat, remat_policy=remat_policy,
+            scan_layers=scan_layers, path=('stack',), param_dtype=param_dtype,
+            device=dev, generator=gen)
         self.ln_f = LayerNorm(dim, dtype=dtype, device=dev)
+        self.tie_embeddings = tie_embeddings
+        if not tie_embeddings:
+            std = dim ** -0.5 / .87962566103423978
+            head = torch.empty(dim, vocab_size)
+            nn.init.trunc_normal_(head, 0.0, std, -2.0 * std, 2.0 * std,
+                                  generator=gen)
+            self.lm_head_kernel = nn.Parameter(
+                head.to(device=dev, dtype=param_dtype))
 
     @property
     def device(self):
         return self.embedding.device
 
+    def _head_table(self):
+        """The ``(vocab, dim)`` logit table: the tied embedding, or the
+        untied head kernel transposed."""
+        if self.tie_embeddings:
+            return self.embedding
+        return self.lm_head_kernel.t()
+
     def _head(self, x):
-        # logits = x · Eᵀ with float32 accumulation, cast back to the
+        # logits = x · tableᵀ with float32 accumulation, cast back to the
         # activation dtype (the contract is f32 accumulation, not f32
         # logits).
         x = self.ln_f(x)
-        return F.linear(x, self.embedding.to(x.dtype)).to(x.dtype)
+        return F.linear(x, self._head_table().to(x.dtype)).to(x.dtype)
 
     def _embed(self, tokens):
         # flax nn.Embed casts the table to the compute dtype and gathers;
@@ -146,7 +172,7 @@ class TransformerLM(nn.Module):
         unchunked pass."""
         x = self.ln_f(self._hidden(tokens, segment_ids, deterministic,
                                    dropout_seed, group))
-        table = self.embedding.float()
+        table = self._head_table().float()
         targets = torch.as_tensor(targets, device=x.device).long()
         tn = x.shape[-2]
         if chunk is None or chunk >= tn:

@@ -20,17 +20,40 @@ layer's at ``layers/block/attn``, with the seed also XORed with
 ``remat=True`` (the reference's ``nn.remat`` around the scanned block)
 runs each block under ``torch.utils.checkpoint``, so the backward keeps
 only the block inputs and recomputes one block at a time (the dropout
-hash redraws the same mask).
+hash redraws the same mask). ``remat_policy`` names a
+``jax.checkpoint_policies`` entry for partial rematerialisation, built on
+torch's selective activation checkpointing: ``dots_saveable`` /
+``checkpoint_dots`` keep every matmul output (``aten.mm``, ``addmm``,
+``bmm``, ``baddbmm`` and the int8 ``_int_mm``),
+``dots_with_no_batch_dims_saveable`` /
+``checkpoint_dots_with_no_batch_dims`` those without batch axes (``mm``,
+``addmm``, ``_int_mm``), ``nothing_saveable`` recomputes everything
+(``remat=True`` alone), ``everything_saveable`` recomputes nothing (the
+block runs unwrapped). The CUDA kernels launch outside the dispatcher,
+so a policy never keeps their outputs: the flash forward is recomputed
+under every policy but ``everything_saveable``, as the reference's
+``pallas_call`` (not a dot) is under the dot policies. The names that
+are policy factories (``save_only_these_names`` and the others taking
+arguments) raise ``TypeError`` when the stack is built with
+``remat=True``, where the reference's ``init`` fails the same way.
+
+``weight_quant='int8'`` quantizes every block's four projections and
+both MLP matmuls (:class:`~..models.dense.OwnedDense`), one knob for the
+stack as in the reference; an inference path.
 
 Every forward takes the reference's ``(…, attn_mask, segment_ids,
 deterministic, dropout_seed)`` and ``group=``, the sequence group passed
 to every block's attention.
 """
 
+import functools
+
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts,
+)
 
 from distributed_dot_product_tpu_torch.models.attention import (
     DistributedDotProductAttn,
@@ -71,11 +94,13 @@ class TransformerBlock(nn.Module):
     """Pre-LN block; ``attn_kwargs`` pass through to
     :class:`DistributedDotProductAttn` (self-attention: the same tensor
     feeds keys, queries and values). Parameters are stored at
-    ``param_dtype`` and computed at ``dtype``."""
+    ``param_dtype`` and computed at ``dtype``. ``weight_quant='int8'``
+    quantizes the attention's projections and both MLP matmuls (defaulted
+    into ``attn_kwargs``, so one knob covers the block)."""
 
     def __init__(self, dim, num_heads, mlp_ratio=4, axis_name=SEQ_AXIS,
-                 dtype=None, attn_kwargs=None, param_dtype=torch.float32,
-                 device='cuda', generator=None):
+                 dtype=None, weight_quant=None, attn_kwargs=None,
+                 param_dtype=torch.float32, device='cuda', generator=None):
         super().__init__()
         dev = resolve_device(device)
         gen = default_generator(generator)
@@ -83,16 +108,19 @@ class TransformerBlock(nn.Module):
         kw.setdefault('dtype', dtype)
         kw.setdefault('param_dtype', param_dtype)
         kw.setdefault('axis_name', axis_name)
+        kw.setdefault('weight_quant', weight_quant)
         self.attn = DistributedDotProductAttn(
             key_dim=dim, num_heads=num_heads, device=dev, generator=gen,
             **kw)
         self.ln1 = LayerNorm(dim, dtype=dtype, device=dev)
         self.ln2 = LayerNorm(dim, dtype=dtype, device=dev)
         self.mlp_in = OwnedDense(dim, mlp_ratio * dim, dtype=dtype,
-                                 param_dtype=param_dtype, device=dev,
+                                 param_dtype=param_dtype,
+                                 weight_quant=weight_quant, device=dev,
                                  generator=gen)
         self.mlp_out = OwnedDense(mlp_ratio * dim, dim, dtype=dtype,
-                                  param_dtype=param_dtype, device=dev,
+                                  param_dtype=param_dtype,
+                                  weight_quant=weight_quant, device=dev,
                                   generator=gen)
 
     def _mlp(self, h):
@@ -121,14 +149,46 @@ class TransformerBlock(nn.Module):
 
 # The scanned stack's per-layer seed salt (the reference's scan body).
 _LAYER_SALT = 0x61C88647
-# The names the reference accepts for remat_policy (jax.checkpoint_policies).
-_REMAT_POLICIES = frozenset((
-    'checkpoint_dots', 'checkpoint_dots_with_no_batch_dims', 'dots_saveable',
-    'dots_with_no_batch_dims_saveable', 'everything_saveable',
-    'nothing_saveable', 'offload_dot_with_no_batch_dims',
-    'save_and_offload_only_these_names', 'save_any_names_but_these',
-    'save_anything_except_these_names', 'save_from_both_policies',
-    'save_only_these_names'))
+_aten = torch.ops.aten
+# The outputs each argument-free jax.checkpoint_policies name keeps: the
+# matmuls (a dot in JAX's terms), or those without batch axes. None keeps
+# nothing (full remat); 'all' keeps everything (no remat).
+_DOTS = frozenset((_aten.mm.default, _aten.addmm.default, _aten.bmm.default,
+                   _aten.baddbmm.default, _aten._int_mm.default))
+_DOTS_NO_BATCH = frozenset((_aten.mm.default, _aten.addmm.default,
+                            _aten._int_mm.default))
+_REMAT_SAVES = {
+    'dots_saveable': _DOTS, 'checkpoint_dots': _DOTS,
+    'dots_with_no_batch_dims_saveable': _DOTS_NO_BATCH,
+    'checkpoint_dots_with_no_batch_dims': _DOTS_NO_BATCH,
+    'nothing_saveable': None, 'everything_saveable': 'all'}
+# The jax.checkpoint_policies names that build a policy from arguments.
+_REMAT_FACTORIES = frozenset((
+    'offload_dot_with_no_batch_dims', 'save_and_offload_only_these_names',
+    'save_any_names_but_these', 'save_anything_except_these_names',
+    'save_from_both_policies', 'save_only_these_names'))
+
+
+def _saving(ops):
+    """The selective-checkpoint policy that keeps the outputs of ``ops``
+    and recomputes every other op."""
+    def policy(ctx, op, *args, **kwargs):
+        return (CheckpointPolicy.MUST_SAVE if op in ops
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+    return policy
+
+
+def _remat_context(remat_policy):
+    """``(wrap, context_fn)`` for the blocks under ``remat_policy``:
+    whether a block runs under ``checkpoint`` at all, and the selective
+    context it runs in (None: recompute everything)."""
+    saves = _REMAT_SAVES.get(remat_policy)
+    if saves == 'all':
+        return False, None
+    if saves is None:
+        return True, None
+    return True, functools.partial(create_selective_checkpoint_contexts,
+                                   _saving(saves))
 
 
 class TransformerStack(nn.Module):
@@ -142,32 +202,41 @@ class TransformerStack(nn.Module):
     the reference tree (``('stack',)`` inside the language model).
     ``remat=True`` checkpoints each block and, as in the reference,
     needs ``scan_layers=True`` (the unrolled stack has no scan body to
-    wrap): otherwise it raises ``ValueError``. ``remat_policy`` (partial
-    rematerialisation) is not ported: a ``jax.checkpoint_policies`` name
-    raises ``NotImplementedError``, any other value ``ValueError``."""
+    wrap): otherwise it raises ``ValueError``. ``remat_policy`` selects
+    partial rematerialisation by a ``jax.checkpoint_policies`` name (see
+    the module docstring; it applies under ``remat=True``, as in the
+    reference); a name that is not one raises ``ValueError``.
+    ``weight_quant='int8'`` quantizes every block."""
 
     def __init__(self, dim, num_heads, n_layers=2, mlp_ratio=4,
-                 axis_name=SEQ_AXIS, dtype=None, attn_kwargs=None,
-                 remat=False, remat_policy=None, scan_layers=False,
-                 path=(), param_dtype=torch.float32, device='cuda',
-                 generator=None):
+                 axis_name=SEQ_AXIS, dtype=None, weight_quant=None,
+                 attn_kwargs=None, remat=False, remat_policy=None,
+                 scan_layers=False, path=(), param_dtype=torch.float32,
+                 device='cuda', generator=None):
         super().__init__()
         if remat and not scan_layers:
             raise ValueError('remat=True requires scan_layers=True (the '
                              'unrolled stack has no scan body to wrap)')
-        if remat_policy is not None:
-            if remat_policy not in _REMAT_POLICIES:
-                raise ValueError(f'remat_policy {remat_policy!r} is not a '
-                                 f'jax.checkpoint_policies name')
-            raise NotImplementedError(
-                'remat_policy is not ported yet (ROADMAP.md §1 item 4); '
-                'remat=True recomputes each whole block')
+        if remat_policy is not None and remat_policy not in (
+                *_REMAT_SAVES, *_REMAT_FACTORIES):
+            raise ValueError(f'remat_policy {remat_policy!r} is not a '
+                             f'jax.checkpoint_policies name')
+        if remat and remat_policy in _REMAT_FACTORIES:
+            # The reference hands the factory itself to jax.checkpoint as
+            # the policy, which calls it with a primitive's parameters: its
+            # init raises TypeError.
+            raise TypeError(
+                f'remat_policy {remat_policy!r} is a jax.checkpoint_policies '
+                f'factory (it builds a policy from arguments), not a policy')
         dev = resolve_device(device)
         gen = default_generator(generator)
         self.remat, self.scan_layers = remat, scan_layers
+        self.remat_policy = remat_policy
+        self._wrap, self._context_fn = _remat_context(remat_policy)
         self.blocks = nn.ModuleList(
             TransformerBlock(dim, num_heads, mlp_ratio=mlp_ratio,
                              axis_name=axis_name, dtype=dtype,
+                             weight_quant=weight_quant,
                              attn_kwargs=attn_kwargs,
                              param_dtype=param_dtype, device=dev,
                              generator=gen)
@@ -187,9 +256,13 @@ class TransformerStack(nn.Module):
             if self.scan_layers and seed is not None:
                 seed = _i32(seed) ^ _i32(i * _LAYER_SALT)
             args = (x, attn_mask, segment_ids, deterministic, seed)
-            x = (checkpoint(block, *args, group=group, use_reentrant=False)
-                 if self.remat and torch.is_grad_enabled()
-                 else block(*args, group=group))
+            if self.remat and self._wrap and torch.is_grad_enabled():
+                kw = ({} if self._context_fn is None
+                      else {'context_fn': self._context_fn})
+                x = checkpoint(block, *args, group=group,
+                               use_reentrant=False, **kw)
+            else:
+                x = block(*args, group=group)
         return x
 
     def make_decode_caches(self, batch, t_max, dtype=None, device=None):

@@ -2,9 +2,11 @@
 """
 Observability for the port's serving path, copied from
 ``distributed_dot_product_tpu/obs``: host-side spans (``spans``), the
-schema-versioned JSONL event log (``events``) and the incident flight
-recorder (``flight``). The reference's timeline, SLO, exporter, perf,
-anomaly and doctor modules are not ported yet (ROADMAP).
+schema-versioned JSONL event log (``events``), the incident flight
+recorder (``flight``), per-request timelines rebuilt from the log
+(``timeline``) and goodput-under-SLO accounting (``slo``). The
+reference's exporter, perf, anomaly and doctor modules are not ported
+yet (ROADMAP).
 """
 
 from distributed_dot_product_tpu_torch.obs.events import (  # noqa: F401
@@ -15,7 +17,13 @@ from distributed_dot_product_tpu_torch.obs.events import (  # noqa: F401
 from distributed_dot_product_tpu_torch.obs.flight import (  # noqa: F401
     FlightRecorder, device_stats_snapshot, load_bundle,
 )
+from distributed_dot_product_tpu_torch.obs.slo import (  # noqa: F401
+    SloReport, SloSpec, check_baseline, goodput,
+)
 from distributed_dot_product_tpu_torch.obs.spans import (  # noqa: F401
     SpanCollector, SpanRecord, collecting, enable, enabled,
     get_collector, span, spanned,
+)
+from distributed_dot_product_tpu_torch.obs.timeline import (  # noqa: F401
+    Timeline, reconstruct, timeline,
 )

@@ -7,7 +7,10 @@ kernels K5 / K5p) and the :class:`Scheduler` that drives it (admission
 with typed rejections, chunked prefill, the degradation ladder,
 eviction, NaN quarantine with requeue, page-pressure preemption, the
 stall watchdog and speculative decoding with the n-gram and draft-model
-proposers of :mod:`.spec`).
+proposers of :mod:`.spec`); the scheduling policy (:mod:`.policy`:
+priority classes, per-tenant fair share, deadline-aware eviction, the
+TTFT-tuned prefill boost) and the seeded open-loop multi-tenant load
+generator that drives the Scheduler on a virtual clock (:mod:`.loadgen`).
 
 Usage::
 
@@ -31,6 +34,14 @@ from distributed_dot_product_tpu_torch.serve.errors import (  # noqa: F401
 )
 from distributed_dot_product_tpu_torch.serve.health import (  # noqa: F401
     HealthMonitor, Liveness, Readiness,
+)
+from distributed_dot_product_tpu_torch.serve.loadgen import (  # noqa: F401
+    Arrival, LoadGenConfig, LoadResult, TenantSpec, VirtualClock,
+    default_tenants, generate_trace, load_trace, run_load, run_trace,
+    save_trace,
+)
+from distributed_dot_product_tpu_torch.serve.policy import (  # noqa: F401
+    PolicyConfig, SchedulingPolicy, TenantPolicy,
 )
 from distributed_dot_product_tpu_torch.serve.scheduler import (  # noqa: F401
     Scheduler, ServeConfig,

@@ -48,12 +48,18 @@ decode.ShardedPageTable`): one controller drives every shard from this
 process, shard ``s`` on ``cuda:(s % device_count)`` (all on the one card
 of a one-card machine, or on the CPU when asked), a decode tick launches
 K5p with ``partials=True`` once per shard on its local view and merges
-the partials on the first shard's device. Not ported yet (ROADMAP):
-``weight_quant``, ``adopt_prefix`` and the ``DDP_TPU_*`` environment
-knobs.
+the partials on the first shard's device. ``weight_quant='int8'``
+stores the four projection and head matrices int8 with per-output-channel
+scales, and every projection and the logits go through the one s8
+product of ``models/dense.quantized_dot``. As in the reference, the
+``DDP_TPU_DECODE_KERNEL``, ``DDP_TPU_PAGED_CACHE`` and
+``DDP_TPU_WEIGHT_QUANT`` environment knobs choose the decode path, the
+cache layout and the weight precision when the arguments leave them
+None. Not ported yet (ROADMAP): ``adopt_prefix``.
 """
 
 import itertools
+import os
 import time
 
 import numpy as np
@@ -64,6 +70,9 @@ from distributed_dot_product_tpu_torch.models.decode import (
     decode_step, init_paged_cache, init_slot_cache, paged_append_rows,
     paged_copy_attach, paged_reset_slot, paged_rollback_slots, reset_slot,
     rollback_slots, sharded_decode_step, slots_all_finite,
+)
+from distributed_dot_product_tpu_torch.models.dense import (
+    dense_param_bytes, quantize_kernel, quantized_dot,
 )
 from distributed_dot_product_tpu_torch.obs import spans as obs_spans
 from distributed_dot_product_tpu_torch.ops.flash_decode import _SPLIT
@@ -95,6 +104,53 @@ class PageCorruptionError(RuntimeError):
         super().__init__(msg)
 
 
+def _resolve_decode_impl(decode_impl):
+    """Engine decode-path selection: an explicit argument wins; else the
+    ``DDP_TPU_DECODE_KERNEL`` env knob (1/true/kernel → the fused step,
+    0/false/xla/plain → the plain step; the reference's ``xla`` is the
+    port's ``plain``); else ``'kernel'`` (the kernel on the card, its
+    plain version on the CPU)."""
+    if decode_impl is not None:
+        return decode_impl
+    env = os.environ.get('DDP_TPU_DECODE_KERNEL', '').strip().lower()
+    if env in ('0', 'false', 'xla', 'plain'):
+        return 'plain'
+    return 'kernel'
+
+
+def _resolve_weight_quant(weight_quant):
+    """Weight-precision selection: an explicit argument wins ('off'/None
+    = float weights, 'int8' = per-output-channel int8 weights,
+    ``models/dense.quantize_kernel``'s rule); else the
+    ``DDP_TPU_WEIGHT_QUANT`` env knob (1/true/int8)."""
+    if weight_quant is not None:
+        if weight_quant == 'off':
+            return None
+        if weight_quant not in ('int8',):
+            raise ValueError(f"weight_quant must be None/'off'/'int8', "
+                             f'got {weight_quant!r}')
+        return weight_quant
+    env = os.environ.get('DDP_TPU_WEIGHT_QUANT', '').strip().lower()
+    if env in ('1', 'true', 'int8'):
+        return 'int8'
+    return None
+
+
+def _resolve_cache_mode(cache_mode):
+    """Cache-layout selection: an explicit argument wins; else the
+    ``DDP_TPU_PAGED_CACHE`` env knob (1/true/paged → the page-pool
+    cache); else the slab."""
+    if cache_mode is not None:
+        if cache_mode not in ('slab', 'paged'):
+            raise ValueError(f"cache_mode must be 'slab' or 'paged', "
+                             f'got {cache_mode!r}')
+        return cache_mode
+    env = os.environ.get('DDP_TPU_PAGED_CACHE', '').strip().lower()
+    if env in ('1', 'true', 'paged'):
+        return 'paged'
+    return 'slab'
+
+
 class KernelEngine:
     """Greedy decode engine over ``slots`` independent sequences.
 
@@ -104,7 +160,20 @@ class KernelEngine:
 
     ``decode_impl``: ``'kernel'`` runs the fused step (K5 / K5p — the
     CUDA kernels on the card, their plain versions on the CPU),
-    ``'plain'`` the append ops + masked attention.
+    ``'plain'`` the append ops + masked attention; None reads
+    ``DDP_TPU_DECODE_KERNEL`` (default ``'kernel'``). ``cache_mode=None``
+    reads ``DDP_TPU_PAGED_CACHE`` (default ``'slab'``).
+
+    ``weight_quant='int8'`` (or, left None, ``DDP_TPU_WEIGHT_QUANT=int8``;
+    ``'off'`` overrides the knob) stores ``wq``, ``wk``, ``wv`` and
+    ``wo`` int8 with per-output-channel scales, quantized from the float
+    weights at the engine's dtype (at construction and in
+    :meth:`load_weights`); every projection and the logits then run
+    :func:`~distributed_dot_product_tpu_torch.models.dense.quantized_dot`
+    (:meth:`_dot`). The embedding stays float: it feeds a lookup. Streams
+    stay deterministic and layout-oblivious (slab, paged and ``kv_shards``
+    engines with the same seed and ``weight_quant`` emit the same
+    tokens).
 
     ``cache_mode='paged'`` swaps the per-slot slab for the page-pool
     cache: ``pages`` sizes the pool (default the slab's bytes, ``slots ·
@@ -138,18 +207,18 @@ class KernelEngine:
 
     def __init__(self, slots, t_max, *, vocab=64, heads=2, head_dim=8,
                  prefill_chunk=8, seed=0, dtype=torch.float32,
-                 decode_impl='kernel', cache_mode='slab', pages=None,
-                 page_size=None, kv_checksums=True, kv_shards=1,
-                 device='cuda'):
+                 decode_impl=None, cache_mode=None, pages=None,
+                 page_size=None, weight_quant=None, kv_checksums=True,
+                 kv_shards=1, device='cuda'):
         if slots < 1 or t_max < 2:
             raise ValueError(f'need slots >= 1 and t_max >= 2, got '
                              f'{slots}/{t_max}')
+        decode_impl = _resolve_decode_impl(decode_impl)
         if decode_impl not in ('kernel', 'plain'):
             raise ValueError(f"decode_impl must be 'kernel' or 'plain', "
                              f'got {decode_impl!r}')
-        if cache_mode not in ('slab', 'paged'):
-            raise ValueError(f"cache_mode must be 'slab' or 'paged', "
-                             f'got {cache_mode!r}')
+        cache_mode = _resolve_cache_mode(cache_mode)
+        self.weight_quant = _resolve_weight_quant(weight_quant)
         self.kv_shards = int(kv_shards)
         if self.kv_shards < 1:
             raise ValueError(f'kv_shards must be >= 1, got {kv_shards}')
@@ -277,17 +346,29 @@ class KernelEngine:
             if tuple(w.shape) != want[name]:
                 raise ValueError(f'{name} has shape {tuple(w.shape)}, want '
                                  f'{want[name]}')
-            setattr(self, f'_{name}', w.to(device=self.device,
-                                           dtype=self.dtype).contiguous())
+            w = w.to(device=self.device, dtype=self.dtype).contiguous()
+            if self.weight_quant == 'int8' and name != 'embed':
+                w = quantize_kernel(w.t())
+            setattr(self, f'_{name}', w)
 
     # -- the step bodies ------------------------------------------------
+    def _dot(self, x, w):
+        """``x (rows, in) · w`` — the one product every projection and the
+        logits go through. Float weights: ``x @ w`` at the engine dtype.
+        int8 weights (``w`` the ``(w_q, w_s)`` pair): the shared
+        :func:`~distributed_dot_product_tpu_torch.models.dense
+        .quantized_dot`, cast back to the engine dtype."""
+        if self.weight_quant == 'int8':
+            return quantized_dot(x, *w).to(self.dtype)
+        return x @ w
+
     def _project(self, tokens):
         """tokens (S,) → q, k, v each (S, H, 1, D)."""
         x = self._embed[tokens]                              # (S, dim)
         shape = (tokens.shape[0], self.heads, 1, self.head_dim)
-        return ((x @ self._wq).reshape(shape),
-                (x @ self._wk).reshape(shape),
-                (x @ self._wv).reshape(shape))
+        return (self._dot(x, self._wq).reshape(shape),
+                self._dot(x, self._wk).reshape(shape),
+                self._dot(x, self._wv).reshape(shape))
 
     def _project_kv(self, tokens):
         """Chunk tokens ``(C,)`` → cache-layout k, v each ``(H, C, D)``
@@ -295,8 +376,8 @@ class KernelEngine:
         pages hold exactly the K/V a slot's own prefill would."""
         x = self._embed[tokens]                              # (C, dim)
         shape = (tokens.shape[0], self.heads, self.head_dim)
-        return ((x @ self._wk).reshape(shape).transpose(0, 1),
-                (x @ self._wv).reshape(shape).transpose(0, 1))
+        return (self._dot(x, self._wk).reshape(shape).transpose(0, 1),
+                self._dot(x, self._wv).reshape(shape).transpose(0, 1))
 
     def _verify(self, tokens, counts, active, poison):
         """The step body of :meth:`verify_step` and, at W = 1, of
@@ -321,7 +402,8 @@ class KernelEngine:
             self.cache, out = decode_step(q, self.cache, k, v,
                                           slot_mask=active, counts=counts,
                                           impl=self.decode_impl)
-        logits = torch.stack([out[:, :, j].reshape(self.slots, -1) @ self._wo
+        logits = torch.stack([self._dot(out[:, :, j].reshape(self.slots, -1),
+                                        self._wo)
                               for j in range(w)], dim=1)   # (S, W, vocab)
         logits = torch.where(poison[:, None, None], float('nan'), logits)
         finite = slots_all_finite(logits)
@@ -833,9 +915,9 @@ class KernelEngine:
     @property
     def weight_bytes(self):
         """Bytes of the four projection/head matrices a decode step
-        streams (the embedding is gathered, not streamed)."""
-        return sum(w.numel() * w.element_size()
-                   for w in (self._wq, self._wk, self._wv, self._wo))
+        streams (int8 engines count the int8 matrices and their scales);
+        the embedding is gathered, not streamed."""
+        return dense_param_bytes([self._wq, self._wk, self._wv, self._wo])
 
     @property
     def free_pages(self):

@@ -56,9 +56,13 @@ slot, commits the longest accepted prefix plus the free token through the
 same per-token bookkeeping, and rolls the caches back to it; the
 committed streams equal the non-spec streams token for token.
 
+Scheduling policy (``ServeConfig.policy``, ``serve/policy.py``): priority
+classes and per-tenant weighted fair share at admission, deadline-aware
+eviction, and the TTFT-tuned prefill boost.
+
 Copied from ``distributed_dot_product_tpu/serve/scheduler.py``. Not
-ported yet (ROADMAP): the scheduling policy, the anomaly watchdog, the
-adaptive profiler captures and the router / controller hooks (``load``,
+ported yet (ROADMAP): the anomaly watchdog, the adaptive profiler
+captures and the router / controller hooks (``load``,
 ``drain``, ``expel``, ``set_watermark``, ``set_queue_limit``); the
 matching ``ServeConfig`` fields do not exist, so setting one raises
 ``TypeError``.
@@ -135,6 +139,11 @@ class ServeConfig:
     spec: Optional[str] = None
     spec_k: int = 4
     spec_max_ngram: int = 3
+    # Scheduling policy (serve/policy.py): a PolicyConfig arms
+    # priority classes + per-tenant fair-share admission,
+    # deadline-aware eviction, and TTFT-tuned prefill interleaving.
+    # None keeps the mechanical FIFO / longest-idle behavior.
+    policy: Optional[object] = None
 
 
 class _SlotState(enum.Enum):
@@ -273,6 +282,17 @@ class Scheduler:
         # spec tick runs the fused verify-k step; ticks with no proposals
         # ride the plain one-token step — mixed batches share one verify
         # dispatch with per-slot counts.
+        # Scheduling policy (serve/policy.py): fair-share/priority
+        # admission, deadline-aware eviction, TTFT-tuned prefill
+        # interleave. Built once; every decision recomputes from live
+        # state.
+        if self.cfg.policy is not None:
+            from distributed_dot_product_tpu_torch.serve.policy import (
+                SchedulingPolicy,
+            )
+            self._policy = SchedulingPolicy(self.cfg.policy)
+        else:
+            self._policy = None
         self._proposer = (proposer if proposer is not None
                           else self._resolve_proposer())
         # Proposals per slot per verify step: spec_k, capped so that the
@@ -690,19 +710,39 @@ class Scheduler:
         been idle at least ``min_evict_idle``. The evicted request
         terminates with status ``'evicted'`` and its partial tokens.
         ``exclude``: slot indices never chosen (the page-deficit ladder
-        evicts OTHERS to free pages before preempting the needy one)."""
+        evicts OTHERS to free pages before preempting the needy one).
+
+        With a policy armed (serve/policy.py), a DOOMED slot — one
+        whose request is predicted to miss its deadline anyway, from
+        the remaining budget and the live inter-token-gap percentile —
+        is preferred over the longest-idle one: the evicted stream was
+        already lost, the survivor may still retire in-SLO."""
         now = self.clock()
         busy = [s for s in self._slots if s.state is not _SlotState.FREE
                 and s.index not in exclude]
         if not busy:
             return False
-        victim = max(busy,
-                     key=lambda s: (now - s.last_progress,
-                                    -(s.request.admit_index or 0)))
-        if now - victim.last_progress < self.cfg.min_evict_idle:
-            return False
+        victim = None
+        if self._policy is not None:
+            victim = self._policy.eviction_victim(
+                [(s, s.request, s.produced) for s in busy], now,
+                self._gap_estimate())
+        if victim is None:
+            victim = max(busy,
+                         key=lambda s: (now - s.last_progress,
+                                        -(s.request.admit_index or 0)))
+            if now - victim.last_progress < self.cfg.min_evict_idle:
+                return False
         self._finish(victim, 'evicted')
         return True
+
+    def _gap_estimate(self):
+        """The live inter-token pace (policy's finish predictor): the
+        configured percentile of ``serve.token_seconds``, NaN until
+        the first gap lands (the policy then refuses to call anyone
+        doomed — no pace signal, no guess)."""
+        return self._h_token.percentile(
+            self._policy.cfg.gap_percentile)
 
     def _record_dropped(self, dropped):
         for req in dropped:
@@ -784,6 +824,20 @@ class Scheduler:
             return 'wait'
         return 'ok'
 
+    def _policy_chooser(self):
+        """The fair-share selection hook ``pop_ready`` calls with the
+        live queue, or None for FIFO. The weighted-share table is read
+        from the CURRENT slot occupancy — recomputed per pop, so two
+        slots filled in one tick see each other's placements."""
+        if self._policy is None:
+            return None
+        held: Dict[str, int] = {}
+        for s in self._slots:
+            if s.request is not None:
+                held[s.request.tenant] = held.get(s.request.tenant,
+                                                  0) + 1
+        return lambda live: self._policy.select(live, held)
+
     def _admit_into_free_slots(self):
         for slot in self._slots:
             if slot.state is not _SlotState.FREE:
@@ -793,7 +847,8 @@ class Scheduler:
             # (or the queue drains / the head has to wait for pages,
             # which stops admission for the whole tick).
             while True:
-                req, dropped = self.admission.pop_ready()
+                req, dropped = self.admission.pop_ready(
+                    chooser=self._policy_chooser())
                 self._record_dropped(dropped)
                 if req is None:
                     return
@@ -1054,6 +1109,15 @@ class Scheduler:
         self.health.beat()
         self._admit_into_free_slots()
 
+        # Prefill interleave width, ONCE per tick: the policy's boost
+        # reads the TTFT p99 (a reservoir sort — not a per-slot cost),
+        # and only when a target is armed; everything else rides the
+        # stock one-chunk interleave.
+        chunks = 1
+        if self._policy is not None \
+                and self._policy.cfg.target_ttft is not None:
+            chunks = self._policy.prefill_chunks(
+                self._h_ttft.percentile(99))
         for slot in self._slots:
             if slot.state is not _SlotState.PREFILL:
                 continue
@@ -1065,10 +1129,14 @@ class Scheduler:
                 self._finish(slot, 'deadline_expired')
                 continue
             # ONE chunk per tick per slot: long prompts interleave with
-            # decoding instead of monopolizing the loop.
-            end = min(slot.prefill_pos + self.engine.prefill_chunk,
-                      len(req.prompt) - 1)
-            if end > slot.prefill_pos:
+            # decoding instead of monopolizing the loop. A policy with
+            # target_ttft armed may boost that to several chunks while
+            # the live TTFT p99 runs hot (serve/policy.py).
+            for _ in range(chunks):
+                end = min(slot.prefill_pos + self.engine.prefill_chunk,
+                          len(req.prompt) - 1)
+                if end <= slot.prefill_pos:
+                    break
                 self.engine.prefill(slot.index,
                                     req.prompt[slot.prefill_pos:end],
                                     request_id=req.id)

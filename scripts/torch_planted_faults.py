@@ -29,7 +29,13 @@ launch to launch, as arrival order would; or the peers' partials read
 before they have landed), drop the fresh rows' substitution (the appended columns read
 from the cache, racing the appends), copy and score a -1 page, or score a
 column on a -1 page as 0 (which only the sequence-sharded page table's
-holes show: ``kv_sharded_serve`` must catch it).
+holes show: ``kv_sharded_serve`` must catch it). Three more sit in the
+port's Python: ``quantized_dot`` dequantizing with a scale per input
+channel, and its padding rows put in front so that they leak into the
+output in place of the real rows (``wq8_serve`` must catch both); the
+scheduling policy choosing the lowest priority first (``load_serve``
+must catch it). A source with a ``/`` is a path in the package; a bare
+name is in ``csrc/``.
 """
 
 import json
@@ -191,10 +197,32 @@ FAULTS = {
         '              ((hmask >> cl) & 1) && col >= lo[hf] && col <= hi[hf];\n',
         '          const bool ok = col >= lo[hf] && col <= hi[hf];\n',
         ('kv_sharded_serve',)),
+    # The s8 product dequantized with a scale per INPUT channel (column j
+    # of the output takes input channel j mod in's scale) where the rule
+    # has one per output channel: the logits leave the int8 class.
+    'wq8_scale_per_input_channel': (
+        'models/dense.py', '    return y * sx * w_s\n',
+        '    s_in = (w_q.float() * w_s[:, None]).abs().amax(dim=0) / 127.0\n'
+        '    return y * sx * s_in[torch.arange(w_q.shape[0],\n'
+        '                                      device=y.device)\n'
+        '                         % w_q.shape[1]]\n',
+        ('wq8_serve',)),
+    # The zero rows that lift a decode step past torch._int_mm's row
+    # minimum padded in FRONT: the slice keeps them and drops real rows.
+    'wq8_padding_rows_leak': (
+        'models/dense.py',
+        '        xi = F.pad(xi, (0, 0, 0, _INT_MM_MIN_ROWS - rows))\n',
+        '        xi = F.pad(xi, (0, 0, _INT_MM_MIN_ROWS - rows, 0))\n',
+        ('wq8_serve',)),
+    # The priority classes inverted: the policy boards the LOWEST first.
+    'policy_lowest_priority_first': (
+        'serve/policy.py', '            return (-pol.priority, share, i)\n',
+        '            return (pol.priority, share, i)\n',
+        ('load_serve',)),
 }
 
 # Phases a fault names that run alone (the source's PHASES otherwise).
-SOLO = ('flash_masks', 'kv_sharded_serve')
+SOLO = ('flash_masks', 'kv_sharded_serve', 'wq8_serve', 'load_serve')
 
 
 # The phases that hold each source's kernels: K1, K3 and K4 at the
@@ -209,7 +237,8 @@ def plant(dst, source, old, new):
     shutil.copy(os.path.join(ROOT, 'chip_smoke.py'), dst)
     shutil.copytree(os.path.join(ROOT, PKG), os.path.join(dst, PKG),
                     ignore=shutil.ignore_patterns('__pycache__'))
-    path = os.path.join(dst, PKG, 'csrc', source)
+    path = os.path.join(dst, PKG, *(source.split('/') if '/' in source
+                                    else ('csrc', source)))
     with open(path) as f:
         text = f.read()
     if text.count(old) != 1:
@@ -248,6 +277,18 @@ def readings(stdout):
                           'rel': row['rel_err']}
             if isinstance(row['max_abs_err'], dict):
                 cases[key]['lse'] = row['max_abs_err']['lse']
+        elif row.get('phase') == 'wq8_serve' and row.get('case') in (
+                'first_step_logits', 'quantized_dot_exact', 'streams'):
+            key = f"wq8_serve/{row['case']}"
+            if 'rows' in row:
+                key += f"/{row['rows']}"
+            cases[key] = {k: v for k, v in row.items()
+                          if k not in ('phase', 'case')}
+        elif row.get('phase') == 'load_serve' and \
+                'priority_inversions' in row:
+            cases[f"load_serve/{row['case']}"] = {
+                k: row[k] for k in ('priority_inversions',
+                                    'per_tenant_goodput_pct')}
         elif row.get('phase') == 'kv_sharded_serve' and \
                 row.get('case') == 'step_check':
             cases['kv_sharded_serve/step_check'] = {

@@ -27,7 +27,8 @@ from distributed_dot_product_tpu.utils.tracing import (
 )
 from distributed_dot_product_tpu_torch.convert import engine_state_from_jax
 from distributed_dot_product_tpu_torch.serve import (
-    KernelEngine, RejectedError, RejectReason, Scheduler, ServeConfig,
+    KernelEngine, PolicyConfig, RejectedError, RejectReason, Scheduler,
+    ServeConfig, TenantPolicy,
 )
 from distributed_dot_product_tpu_torch.utils import faults
 from distributed_dot_product_tpu_torch.utils.tracing import MetricsRegistry
@@ -195,11 +196,17 @@ def test_paged_streams_bit_identical_to_slab_under_faults(decode_impl):
 
 def test_unported_config_fields_raise_type_error():
     """The fields of what is not ported raise; the speculative-decoding
-    fields (ported since) are the reference's."""
-    for field in ('policy', 'anomaly', 'profile_ttft_p99',
-                  'profile_warmup'):
+    and policy fields (ported since) are the reference's."""
+    for field in ('anomaly', 'profile_ttft_p99', 'profile_warmup'):
         with pytest.raises(TypeError):
             ServeConfig(**{field: None})
+    assert ServeConfig().policy is None
+    policy = PolicyConfig(tenants={'t0': TenantPolicy(priority=1)})
+    sched = Scheduler(KernelEngine(slots=2, t_max=16, device='cpu'),
+                      ServeConfig(policy=policy, watchdog=False),
+                      registry=MetricsRegistry(), fault_injector=False)
+    assert sched._policy.tenant('t0').priority == 1
+    sched.close()
     cfg = ServeConfig(spec='ngram', spec_k=3, spec_max_ngram=2)
     assert (cfg.spec, cfg.spec_k, cfg.spec_max_ngram) == ('ngram', 3, 2)
     default = ServeConfig()
