@@ -197,11 +197,37 @@ Phases, one JSON line each (some several):
    ``'dots_with_no_batch_dims_saveable'``: losses and step-1 gradients
    bit for bit alike, K1 / K3 / K4 launches a step, ms a step and peak
    memory each; then ``tie_embeddings=False``, 3 steps: loss finite and
-   falling, launches a step.
+   falling, launches a step;
+26. router_serve (run after load_serve): disaggregated serving on the
+   card, serve_path's configuration as a 1 x 2 topology (a prefill pool
+   and two decode replicas of 8 slots behind ``build_serving``'s Router,
+   ``RouterConfig()`` defaults): (1) handoff: prefixes of 17, 1000 and
+   2047 rows built by the pool and adopted by a paged engine — pages bit
+   for bit that engine's ``register_prefix`` of the same tokens, a slot
+   started on the adopted prefix bit for bit a flat-prefilled slot and a
+   registered-prefix slot in its first-step logits, 64 greedy tokens equal;
+   ``build`` and ``adopt_prefix`` ms (CUDA events), the page copy's ms
+   against its bound; (2) topology_burst: serve_path's burst through the
+   topology beside the single paged engine: every stream equal, K5p
+   launches equal the replicas' decode ticks, both replicas routed, every
+   request reconstructed exactly once over the merged logs; tokens/s, TTFT
+   p99, handoffs, per-handoff build / transfer seconds; (3)
+   prefix_affinity: the same prompts again, each a prefix hit on its
+   holder, shared pages on the holder only, streams equal; (4) recovery:
+   a fresh topology on a virtual clock, r1 killed once both replicas
+   decode: one replica.lost (probe_timeout), every in-flight stream
+   recovered, all 24 equal, r1's torn log merged; (5) scrub: every-tick
+   scrub, a rider's page of r0 flipped: kv.corrupt at the scrub, the page
+   quarantined, its riders healed equal (the burst's first 8 requests);
+   (6) kv_shards: 2 shards a replica — adopted pages on their owning shard
+   bit for bit the source's, landed digests equal; the burst: all
+   complete, K5p launches 2 x decode ticks, divergences from the single
+   engine reported (bf16).
 
 Then the card's ``nvidia-smi`` name and power limit, the kernels line
 (``{"kernels": [...]}``: K1, K2, K3, K4, K5 and K5p with their launches on
-their path (and on wq8_serve, load_serve, wq8_lm and train_knobs), max
+their path (and on wq8_serve, load_serve, router_serve, wq8_lm and
+train_knobs), max
 error, kernel / plain / library / bound times; K1, K2, K3 and K4 also per
 mask variant, K5 and K5p per partials / window / verify / int8 / ALiBi
 variant) and, only if every phase passed, the last line ``{"ok": true, "device": {...}}``.
@@ -220,6 +246,7 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -6107,6 +6134,607 @@ def phase_load_serve(torch, ddp):
     return launches
 
 
+# Disaggregated serving (router_serve; README "Disaggregated serving"): the
+# serve_path configuration as a 1 x 2 topology on one card — a prefill pool
+# and two decode replicas of KernelEngine(slots 8, t_max 4096, page 16,
+# prefill chunk 64) at the LM's widths, bf16, behind build_serving's Router
+# with RouterConfig() defaults (prefill threshold 8): every burst prompt
+# of 9 or more tokens hands its KV pages off. Handoff prompts of 17 (a tail
+# page), 1000 and 2047 rows; the recovery and scrub runs on a virtual
+# clock advanced ROUTER_TICK a tick; the scrub run serves the burst's first
+# ROUTER_SCRUB_REQUESTS requests; the kv_shards run gives each replica 2
+# shards of SERVE_PAGES pages (its registered prefixes all sit on shard 0's
+# ordinals, so shard 0 gets the slab's whole pool), and its handoff check
+# adds a 3000-row prefix that spans both shards.
+ROUTER_HANDOFF_ROWS = (17, 1000, 2047)
+ROUTER_KV_ROWS = (17, 2047, 3000)
+ROUTER_GREEDY = 64
+ROUTER_TICK = 0.01
+ROUTER_SCRUB_REQUESTS = 8
+ROUTER_KV_SHARDS = 2
+ROUTER_MAX_TICKS = 20000
+ROUTER_DEVICE = 'cuda'
+TORN_TAIL = '{"schema":2,"seq":'
+
+
+def events_ms(torch, fn):
+    """``(result, ms)``: one call of ``fn`` between CUDA events, the card
+    idle before it — the host's work inside the call included, as the
+    card sees it."""
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def _router_pool(torch):
+    """A prefill pool of the topology's configuration."""
+    from distributed_dot_product_tpu_torch.serve import PrefillPool
+    return PrefillPool(t_max=SERVE_T_MAX, page_size=SERVE_PAGE, vocab=VOCAB,
+                       heads=HEADS, head_dim=HEAD_DIM, seed=SERVE_SEED,
+                       dtype=torch.bfloat16, prefill_chunk=SERVE_CHUNK,
+                       device=ROUTER_DEVICE)
+
+
+def _router_topology(torch, clock, log_dir, router_kw=None, **topo_kw):
+    """build_serving over the 1 x 2 topology, every engine setting
+    explicit and checked."""
+    from distributed_dot_product_tpu_torch.serve import (
+        RouterConfig, ServeConfig, TopologyConfig, build_serving,
+    )
+    topo = TopologyConfig(
+        prefill_pools=1, decode_replicas=2, slots=SERVE_SLOTS,
+        t_max=SERVE_T_MAX, page_size=SERVE_PAGE, vocab=VOCAB, heads=HEADS,
+        head_dim=HEAD_DIM, seed=SERVE_SEED, decode_impl='kernel',
+        prefill_chunk=SERVE_CHUNK, dtype=torch.bfloat16,
+        device=ROUTER_DEVICE, **topo_kw)
+    router = build_serving(
+        topo, serve_config=ServeConfig(queue_limit=SERVE_QUEUE,
+                                       max_new_tokens=SERVE_NEW,
+                                       watchdog=False),
+        router_config=RouterConfig(**(router_kw or {})), clock=clock,
+        log_dir=log_dir)
+    for r in router.pool.replicas:
+        eng = r.engine
+        check((eng.decode_impl, eng.cache_mode, eng.weight_quant,
+               eng.kv_shards) == ('kernel', 'paged', None,
+                                  topo_kw.get('kv_shards', 1)),
+              f'{r.name}: engine settings are not the ones asked for')
+    return router
+
+
+def _router_drive(router, burst, advance=None, on_tick=None):
+    """The burst through ``router`` as serve_path feeds its scheduler (a
+    tick after every 4th submit), then ticks to idle. ``advance`` moves a
+    virtual clock each tick; ``on_tick(router)`` runs after every tick
+    once the whole burst is submitted, until it returns True."""
+    from distributed_dot_product_tpu_torch.serve import RejectedError
+    rejected = {}
+    ticks = 0
+
+    def tick():
+        nonlocal ticks
+        busy = router.step()
+        ticks += 1
+        if advance is not None:
+            advance(ROUTER_TICK)
+        check(ticks < ROUTER_MAX_TICKS, 'the topology never went idle')
+        return busy
+    for i, (rid, prompt) in enumerate(burst):
+        try:
+            router.submit(prompt, request_id=rid)
+        except RejectedError as e:
+            rejected[rid] = e.reason.value
+        if i % 4 == 3:
+            tick()
+    while tick():
+        if on_tick is not None and on_tick(router):
+            on_tick = None
+    return router.results, rejected, ticks
+
+
+def _router_decode_steps(router):
+    """Decode ticks of every replica the run had, lost ones included."""
+    return sum(r.registry.snapshot()['counters'].get('serve.decode_steps', 0)
+               for r in router.pool.replicas + router.pool.lost)
+
+
+def _router_streams(what, results, base, rids):
+    """Gate: every request in ``rids`` completed with ``base``'s stream."""
+    bad = [rid for rid in rids
+           if results.get(rid) is None or results[rid].status != 'completed'
+           or results[rid].tokens != base[rid].tokens]
+    check(not bad, f'{what}: streams differ from the reference run: {bad}')
+
+
+def _router_once(what, router, rids):
+    """Gate: every request reconstructs exactly once, complete, over the
+    merged logs; returns the timelines."""
+    from distributed_dot_product_tpu_torch.obs.timeline import reconstruct
+    tls = reconstruct(router.pool.logs())
+    check(set(tls) == set(rids), f'{what}: timelines for {sorted(tls)} '
+                                 f'of {len(rids)} requests')
+    bad = {rid: tl.errors for rid, tl in tls.items() if not tl.complete}
+    check(not bad, f'{what}: incomplete timelines {bad}')
+    return tls
+
+
+def _router_events(router, name):
+    from distributed_dot_product_tpu_torch.obs.events import read_events
+    return list(read_events(dict(router.pool.logs())[name]))
+
+
+def _router_handoff(torch, ddp, flush, rng):
+    """router_serve (1): build + adopt_prefix on one paged engine beside
+    register_prefix of the same tokens — pages bit for bit, a slot started
+    on the adopted prefix against a flat-prefilled slot and one started on
+    the registered prefix: first-step logits bit for bit, 64 greedy tokens
+    equal."""
+    import numpy as np
+    from distributed_dot_product_tpu_torch.models.decode import (
+        paged_transfer_pages,
+    )
+    from distributed_dot_product_tpu_torch.serve import engine as eng_mod
+    eng = serve_engine(torch, 'paged')
+    pool = _router_pool(torch)
+    page_bytes = 2 * HEADS * SERVE_PAGE * HEAD_DIM * 2       # K and V, bf16
+    rows = []
+    for n in ROUTER_HANDOFF_ROWS:
+        tokens = rng.integers(0, VOCAB, size=n).astype(np.int64)
+        last = int(rng.integers(0, VOCAB))
+        handle, build_ms = events_ms(torch, lambda: pool.build(tokens))
+        pid_a, adopt_ms = events_ms(torch, lambda: eng.adopt_prefix(
+            pool.engine.cache, handle.pages, n,
+            src_checksums=pool.engine.checksums))
+        pages_a = eng._prefix_registry[pid_a][0]
+        copy_ms = time_ms(torch, lambda: paged_transfer_pages(
+            eng.cache, pool.engine.cache.k_pool, pool.engine.cache.v_pool,
+            handle.pages, pages_a), flush)
+        pool.release(handle)
+        pid_r = eng.register_prefix(tokens)
+        pages_r = eng._prefix_registry[pid_r][0]
+        pages_equal = all(
+            torch.equal(eng.cache.k_pool[a], eng.cache.k_pool[r])
+            and torch.equal(eng.cache.v_pool[a], eng.cache.v_pool[r])
+            for a, r in zip(pages_a, pages_r))
+        check(eng.start_with_prefix(0, pid_a)
+              and eng.start_with_prefix(2, pid_r), 'attach failed')
+        for start in range(0, n, SERVE_CHUNK):
+            eng.prefill(1, tokens[start:start + SERVE_CHUNK])
+        active = np.zeros(eng.slots, bool)
+        active[:3] = True
+        tok = np.full(eng.slots, last, np.int32)
+        first, streams = [], [[], [], []]
+        spied = eng_mod.slots_all_finite
+
+        def spy(x):
+            if not first:
+                first.append(x[:3, 0].float().cpu())
+            return spied(x)
+        eng_mod.slots_all_finite = spy
+        try:
+            for _ in range(ROUTER_GREEDY):
+                tok, _ = eng.step(tok, active)
+                for i in range(3):
+                    streams[i].append(int(tok[i]))
+        finally:
+            eng_mod.slots_all_finite = spied
+        logits = first[0]
+        npages = len(pages_a)
+        moved = npages * page_bytes
+        row = {'phase': 'router_serve', 'case': 'handoff', 'rows': n,
+               'pages': npages, 'bytes_moved': moved,
+               'pages_equal_register_prefix': pages_equal,
+               'first_step_logits_equal': {
+                   'adopted_vs_flat': torch.equal(logits[0], logits[1]),
+                   'adopted_vs_registered': torch.equal(logits[0],
+                                                        logits[2])},
+               'greedy_equal': {
+                   'adopted_vs_flat': streams[0] == streams[1],
+                   'adopted_vs_registered': streams[0] == streams[2]},
+               'build_ms': build_ms, 'adopt_prefix_ms': adopt_ms,
+               'copy_ms': copy_ms,
+               'copy_bound_ms': 2 * moved / PEAK_HBM_BYTES * 1e3}
+        emit(row)
+        rows.append(row)
+        check(pages_equal, f'handoff {n}: adopted pages differ from '
+                           f'register_prefix')
+        check(all(row['first_step_logits_equal'].values()),
+              f'handoff {n}: first-step logits differ')
+        check(all(row['greedy_equal'].values()),
+              f'handoff {n}: greedy streams differ')
+        for slot in range(3):
+            eng.reset(slot)
+        eng.unregister_prefix(pid_a)
+        eng.unregister_prefix(pid_r)
+    del eng, pool
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _router_kv_handoff(torch, rng):
+    """router_serve (6a): adopt_prefix into a kv_shards engine — each
+    adopted page on the shard owning its ordinal, bit for bit the source
+    page, its landed digest the source's."""
+    import numpy as np
+    eng = serve_engine(torch, 'paged', kv_shards=ROUTER_KV_SHARDS,
+                       pages=SERVE_PAGES)
+    pool = _router_pool(torch)
+    out = []
+    for n in ROUTER_KV_ROWS:
+        tokens = rng.integers(0, VOCAB, size=n).astype(np.int64)
+        handle = pool.build(tokens)
+        pid = eng.adopt_prefix(pool.engine.cache, handle.pages, n,
+                               src_checksums=pool.engine.checksums)
+        gpages = eng._prefix_registry[pid][0]
+        per_shard, owned, equal, digests = {}, True, True, True
+        for o, (src, g) in enumerate(zip(handle.pages, gpages)):
+            s, p = eng._gsplit(g)
+            lo, hi = eng.pool.owned_range(s)
+            owned &= lo <= o < hi
+            per_shard[s] = per_shard.get(s, 0) + 1
+            cache = eng.shard_cache(s)
+            equal &= (torch.equal(cache.k_pool[p],
+                                  pool.engine.cache.k_pool[src])
+                      and torch.equal(cache.v_pool[p],
+                                      pool.engine.cache.v_pool[src]))
+            digests &= (eng.checksums[s].get(p)[0]
+                        == pool.engine.checksums.get(src)[0])
+        pool.release(handle)
+        eng.unregister_prefix(pid)
+        row = {'phase': 'router_serve', 'case': 'kv_shards_handoff',
+               'rows': n, 'pages_by_shard': per_shard,
+               'on_owning_shard': owned, 'pages_equal_source': equal,
+               'landed_digests_equal': digests}
+        emit(row)
+        out.append(row)
+        check(owned and equal and digests,
+              f'kv_shards handoff {n}: {row}')
+    del eng, pool
+    torch.cuda.empty_cache()
+    return out
+
+
+def _router_ttft_p99(tls, submitted=None):
+    """TTFT p99 over the timelines: the replicas' own (from the replica's
+    submit, the scheduler's definition), or from ``submitted`` (the
+    router's submit instant) to the first token's event."""
+    import numpy as np
+    if submitted is None:
+        vals = [tl.ttft for tl in tls.values() if tl.ttft is not None]
+    else:
+        vals = [min(e['ts'] for e in tl.events
+                    if e['event'] == 'serve.decode') - submitted[rid]
+                for rid, tl in tls.items()
+                if any(e['event'] == 'serve.decode' for e in tl.events)]
+    return float(np.percentile(vals, 99)) if vals else None
+
+
+def phase_router_serve(torch, ddp, flush):
+    """Disaggregated serving on one card: the handoff case, the burst
+    through the 1 x 2 topology beside the single paged engine, prefix
+    affinity on resubmission, recovery from a killed replica, the scrub
+    healing a flipped page, and the topology with kv_shards replicas."""
+    import statistics as stats
+    import tempfile
+    import numpy as np
+    from distributed_dot_product_tpu_torch.serve import VirtualClock
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SERVE_SEED + 16)
+    out = {'handoff': _router_handoff(torch, ddp, flush, rng)}
+    burst = serve_burst()
+    rids = [rid for rid, _ in burst]
+
+    # (2) the single paged engine, then the topology, in this call.
+    single_eng = serve_engine(torch, 'paged')
+    single, srow = _serve_burst(torch, ddp, single_eng, burst, 'single')
+    del single_eng
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix='router_serve_')
+    launches = {}
+    router = _router_topology(torch, time.monotonic,
+                              os.path.join(tmp, 'topology'))
+    try:
+        submitted = {}
+        orig_submit = router.submit
+
+        def stamped(prompt, **kw):
+            submitted[kw['request_id']] = router.clock()
+            return orig_submit(prompt, **kw)
+        router.submit = stamped
+        ddp.flash_decode.launches = ddp.flash_decode_paged.launches = 0
+        t0 = time.perf_counter()
+        results, rejected, ticks = _router_drive(router, burst)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        k5p, k5 = ddp.flash_decode_paged.launches, ddp.flash_decode.launches
+        router.submit = orig_submit
+        steps = _router_decode_steps(router)
+        counters = router.registry.snapshot()['counters']
+        tls = _router_once('topology_burst', router, rids)
+        handoffs = [e for e in _router_events(router, 'prefill')
+                    if e['event'] == 'prefill.handoff']
+        routed = {r.name: sum(v for k, v in counters.items()
+                              if k.startswith(f'router.routed{{replica='
+                                              f'{r.name},'))
+                  for r in router.pool.replicas}
+        tokens = sum(len(r.tokens) for r in results.values())
+        build = [e['build_seconds'] for e in handoffs]
+        transfer = [e['transfer_seconds'] for e in handoffs]
+        row = {'phase': 'router_serve', 'case': 'topology_burst',
+               'requests': len(burst), 'rejected_at_submit': rejected,
+               'terminal': {st: sum(r.status == st for r in results.values())
+                            for st in {r.status for r in results.values()}},
+               'tokens_generated': tokens, 'wall_s': wall,
+               'tokens_per_s': tokens / wall,
+               'single_tokens_per_s': srow['tokens_per_s'],
+               'ttft_p99_s': _router_ttft_p99(tls),
+               'ttft_p99_from_router_submit_s': _router_ttft_p99(
+                   tls, submitted),
+               'single_ttft_p99_s': srow['ttft_s']['p99'],
+               'decode_ticks': steps, 'router_ticks': ticks,
+               'single_decode_steps': srow['decode_steps'],
+               'launches': {'flash_decode_paged': k5p, 'flash_decode': k5},
+               'routed': routed, 'handoffs': counters['router.handoffs'],
+               'handoff_pages': counters['router.handoff_pages'],
+               'build_seconds': {'p50': stats.median(build),
+                                 'max': max(build)} if build else None,
+               'transfer_seconds': {'p50': stats.median(transfer),
+                                    'max': max(transfer)}
+               if transfer else None}
+        emit(row)
+        check(not rejected and len(results) == len(burst),
+              f'topology_burst: {len(results)} results, rejected {rejected}')
+        _router_streams('topology_burst', results, single, rids)
+        check(k5p == steps > 0 and k5 == 0,
+              f'topology_burst: K5p launched {k5p} times (K5 {k5}) for '
+              f'{steps} decode ticks')
+        check(all(v > 0 for v in routed.values()) and row['handoffs'] >= 1,
+              f'topology_burst: routed {routed}, handoffs '
+              f'{row["handoffs"]}')
+        launches['topology_burst'] = k5p
+        holder = {tuple(int(t) for t in dict(burst)[e['request_id']][:-1]):
+                  e['target'] for e in handoffs}
+
+        # (3) the same prompts again: prefix hits on the holders. The first
+        # one alone first, sampled after one tick (the attach happens at
+        # admission): shared pages on its holder only.
+        hits0 = counters['router.prefix_hits']
+        probe_rid, probe_prompt = burst[0]
+        router.submit(probe_prompt, request_id=f'{probe_rid}-again')
+        router.step()
+        shared = {r.name: r.engine.cache_stats()['shared_pages']
+                  for r in router.pool.replicas}
+        probe_home = holder[tuple(int(t) for t in probe_prompt[:-1])]
+        ddp.flash_decode_paged.launches = 0
+        steps0 = _router_decode_steps(router)
+        again = [(f'{rid}-again', p) for rid, p in burst[1:]]
+        results2, rejected2, _ = _router_drive(router, again)
+        k5p = ddp.flash_decode_paged.launches
+        steps = _router_decode_steps(router) - steps0
+        counters = router.registry.snapshot()['counters']
+        route_events = [e for e in _router_events(router, 'router')
+                        if e['event'] == 'router.route'
+                        and e['request_id'].endswith('-again')]
+        prompts = dict(burst)
+        misplaced = [e['request_id'] for e in route_events
+                     if e['policy'] != 'prefix' or e['target'] != holder.get(
+                         tuple(int(t) for t in prompts[
+                             e['request_id'][:-len('-again')]][:-1]))]
+        row = {'phase': 'router_serve', 'case': 'prefix_affinity',
+               'requests': len(burst),
+               'prefix_hits': counters['router.prefix_hits'] - hits0,
+               'handoffs_total': counters['router.handoffs'],
+               'shared_pages_after_first_tick': shared,
+               'first_holder': probe_home, 'not_routed_to_holder': misplaced,
+               'launches': k5p, 'decode_ticks': steps}
+        emit(row)
+        check(not rejected2, f'prefix_affinity: rejected {rejected2}')
+        check(len(route_events) == len(burst) and not misplaced,
+              f'prefix_affinity: {misplaced} not prefix hits on their '
+              f'holders')
+        check(shared[probe_home] > 0 and all(
+            v == 0 for name, v in shared.items() if name != probe_home),
+              f'prefix_affinity: shared pages {shared}, holder {probe_home}')
+        check(counters['router.handoffs'] == len(handoffs),
+              'prefix_affinity: a resubmitted prompt was handed off again')
+        _router_streams('prefix_affinity',
+                        {rid[:-len('-again')]: r for rid, r in
+                         router.results.items() if rid.endswith('-again')},
+                        single, rids)
+        _router_once('prefix_affinity', router,
+                     rids + [f'{rid}-again' for rid in rids])
+        launches['prefix_affinity'] = k5p
+    finally:
+        router.close()
+    del router
+    torch.cuda.empty_cache()
+
+    # (4) recovery: r1 killed once both replicas decode. Each replica's
+    # pool holds both replicas' streams (the survivor replays r1's prompts
+    # flat beside its own pinned prefixes): a smaller pool would evict.
+    clock = VirtualClock()
+    router = _router_topology(torch, clock, os.path.join(tmp, 'recovery'),
+                              pages=2 * SERVE_PAGES)
+    try:
+        state = {}
+
+        def kill_r1(rt):
+            names = {r.name: r for r in rt.pool.replicas}
+            if not all(r.registry.snapshot()['counters'].get(
+                    'serve.decode_steps', 0) for r in names.values()):
+                return False
+            inflight = [rid for rid, e in rt._ledger.items()
+                        if e['replica'] == 'r1'
+                        and rid not in names['r1'].results]
+            if not inflight:
+                return False
+            state['in_flight'] = inflight
+            names['r1'].kill()
+            return True
+        ddp.flash_decode_paged.launches = 0
+        results, rejected, ticks = _router_drive(
+            router, burst, advance=clock.advance, on_tick=kill_r1)
+        k5p = ddp.flash_decode_paged.launches
+        steps = _router_decode_steps(router)
+        counters = router.registry.snapshot()['counters']
+        revs = _router_events(router, 'router')
+        lost = [e for e in revs if e['event'] == 'replica.lost']
+        r1_log = dict(router.pool.logs())['r1']
+        with open(r1_log, encoding='utf-8') as fh:
+            tail = fh.read().rsplit('\n', 1)[-1]
+        tls = _router_once('recovery', router, rids)
+        row = {'phase': 'router_serve', 'case': 'recovery',
+               'killed': 'r1', 'in_flight_at_kill': len(
+                   state.get('in_flight', [])),
+               'replica_lost': [{k: e[k] for k in ('target', 'reason',
+                                                   'in_flight')}
+                                for e in lost],
+               'recovered': counters.get('router.recovered', 0),
+               'recoveries_in_timelines': sum(tl.recoveries
+                                              for tl in tls.values()),
+               'torn_tail': tail == TORN_TAIL, 'ticks': ticks,
+               'launches': k5p, 'decode_ticks': steps,
+               'virtual_seconds': clock()}
+        emit(row)
+        check(state.get('in_flight'), 'recovery: r1 was never killed')
+        check(len(lost) == 1 and lost[0]['target'] == 'r1'
+              and lost[0]['reason'] == 'probe_timeout'
+              and lost[0]['in_flight'] == len(state['in_flight']),
+              f'recovery: replica.lost events {lost}')
+        check(row['recovered'] == len(state['in_flight']),
+              f'recovery: {row["recovered"]} recovered of '
+              f'{len(state["in_flight"])} in flight')
+        check(row['torn_tail'], f'recovery: r1 log tail {tail!r}')
+        check(not rejected, f'recovery: rejected {rejected}')
+        _router_streams('recovery', results, single, rids)
+        check(k5p == steps, f'recovery: K5p launched {k5p} times for '
+                            f'{steps} decode ticks')
+        launches['recovery'] = k5p
+    finally:
+        router.close()
+    del router
+    torch.cuda.empty_cache()
+
+    # (5) the scrub: a page of r0 with a rider flipped mid-run.
+    clock = VirtualClock()
+    router = _router_topology(torch, clock, os.path.join(tmp, 'scrub'),
+                              router_kw=dict(integrity_interval=0.0))
+    sub = burst[:ROUTER_SCRUB_REQUESTS]
+    try:
+        state = {}
+
+        def flip(rt):
+            r0 = next(r for r in rt.pool.replicas if r.name == 'r0')
+            eng = r0.engine
+            for page in eng.tracked_pages():
+                riders = r0.scheduler.requests_on_slots(
+                    eng.slots_sharing([page]))
+                if riders:
+                    state.update(page=page, riders=riders)
+                    eng.flip_page_bit(page)
+                    return True
+            return False
+        ddp.flash_decode_paged.launches = 0
+        results, rejected, ticks = _router_drive(
+            router, sub, advance=clock.advance, on_tick=flip)
+        k5p = ddp.flash_decode_paged.launches
+        steps = _router_decode_steps(router)
+        revs = _router_events(router, 'router')
+        corrupt = [e for e in revs if e['event'] == 'kv.corrupt']
+        healed = [e['request_id'] for e in revs
+                  if e['event'] == 'request.recovered'
+                  and e.get('reason') == 'kv_corrupt' and e['requeued']]
+        r0 = next(r for r in router.pool.replicas if r.name == 'r0')
+        _router_once('scrub', router, [rid for rid, _ in sub])
+        row = {'phase': 'router_serve', 'case': 'scrub',
+               'requests': len(sub), 'flipped_page': state.get('page'),
+               'riders': state.get('riders'),
+               'kv_corrupt': [{k: e[k] for k in ('target', 'pages', 'site')}
+                              for e in corrupt],
+               'quarantined': sorted(r0.engine.pool.quarantined),
+               'healed': healed, 'ticks': ticks, 'launches': k5p,
+               'decode_ticks': steps}
+        emit(row)
+        check(state.get('page') is not None, 'scrub: no page was flipped')
+        check(len(corrupt) == 1 and corrupt[0]['site'] == 'scrub'
+              and corrupt[0]['target'] == 'r0'
+              and state['page'] in corrupt[0]['pages'],
+              f'scrub: kv.corrupt events {corrupt}')
+        check(state['page'] in r0.engine.pool.quarantined,
+              'scrub: the flipped page is not quarantined')
+        check(sorted(healed) == sorted(state['riders']),
+              f'scrub: healed {healed}, riders {state["riders"]}')
+        check(not rejected, f'scrub: rejected {rejected}')
+        _router_streams('scrub', results, single, [rid for rid, _ in sub])
+        check(k5p == steps, f'scrub: K5p launched {k5p} times for {steps} '
+                            f'decode ticks')
+        launches['scrub'] = k5p
+    finally:
+        router.close()
+    del router
+    torch.cuda.empty_cache()
+
+    # (6) kv_shards replicas: the shard-local handoff, then the burst.
+    out['kv_shards_handoff'] = _router_kv_handoff(torch, rng)
+    router = _router_topology(torch, time.monotonic,
+                              os.path.join(tmp, 'kv_shards'),
+                              kv_shards=ROUTER_KV_SHARDS, pages=SERVE_PAGES)
+    try:
+        ddp.flash_decode.launches = ddp.flash_decode_paged.launches = 0
+        t0 = time.perf_counter()
+        results, rejected, ticks = _router_drive(router, burst)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        k5p, k5 = ddp.flash_decode_paged.launches, ddp.flash_decode.launches
+        steps = _router_decode_steps(router)
+        _router_once('kv_shards', router, rids)
+        diverged = {}
+        for rid, r in results.items():
+            base = single[rid].tokens
+            if r.tokens != base:
+                k = 0
+                while k < min(len(r.tokens), len(base)) \
+                        and r.tokens[k] == base[k]:
+                    k += 1
+                diverged[rid] = k
+        tokens = sum(len(r.tokens) for r in results.values())
+        row = {'phase': 'router_serve', 'case': 'kv_shards',
+               'kv_shards': ROUTER_KV_SHARDS,
+               'placement': {r.name: r.engine.placement
+                             for r in router.pool.replicas},
+               'terminal': {st: sum(r.status == st for r in results.values())
+                            for st in {r.status for r in results.values()}},
+               'tokens_per_s': tokens / wall, 'launches': k5p,
+               'decode_ticks': steps,
+               'handoffs': router.registry.snapshot()['counters'][
+                   'router.handoffs'],
+               'diverged_first_step': diverged,
+               'note': 'bf16: the cross-shard merge adds in another order '
+                       'than the kernel\'s cluster merge; streams reported, '
+                       'not gated'}
+        emit(row)
+        check(not rejected and len(results) == len(burst) and all(
+            r.status == 'completed' for r in results.values()),
+              f'kv_shards: terminal {row["terminal"]}, rejected {rejected}')
+        check(k5p == ROUTER_KV_SHARDS * steps > 0 and k5 == 0,
+              f'kv_shards: K5p launched {k5p} times (K5 {k5}) for {steps} '
+              f'decode ticks x {ROUTER_KV_SHARDS} shards')
+        launches['kv_shards'] = k5p
+    finally:
+        router.close()
+    del router
+    torch.cuda.empty_cache()
+    shutil.rmtree(tmp, ignore_errors=True)
+    emit({'phase': 'router_serve', 'case': 'done',
+          'seconds': time.perf_counter() - t_phase})
+    out['launches'] = launches
+    return out
+
+
 def main():
     try:
         import torch
@@ -6179,6 +6807,7 @@ def main():
             ('spec_serve', lambda: phase_spec_serve(torch, ddp)),
             ('wq8_serve', lambda: phase_wq8_serve(torch, ddp, flush)),
             ('load_serve', lambda: phase_load_serve(torch, ddp)),
+            ('router_serve', lambda: phase_router_serve(torch, ddp, flush)),
             ('kv_sharded_serve',
              lambda: phase_kv_sharded_serve(torch, ddp, flush, gen)),
             ('int8_decode', lambda: phase_int8_decode(torch, ddp)),
@@ -6231,6 +6860,7 @@ def main():
     int8_k = int8_path['int8_kernels']
     wq8, load = res['wq8_serve']['launches'], res['load_serve']
     wq8_lm, knobs = res['wq8_lm'], res['train_knobs']
+    router = res['router_serve']
 
     def knob_paths(kernel):
         """The kernel's launches on train_knobs's runs (2 steps under each
@@ -6452,7 +7082,9 @@ def main():
                  'wq8_serve_paged': {
                      n: wq8[n]['flash_decode_paged']
                      for n in ('paged', 'paged_again')},
-                 'load_serve': load},
+                 'load_serve': load,
+                 **{f'router_serve_{case}': n
+                    for case, n in router['launches'].items()}},
              max_abs_err=k5p['max_abs_err'],
              variants=k5p['variants'],
              **{key: k5p[key] for key in ('ms', 'plain_ms', 'library_ms',

@@ -72,8 +72,9 @@ masked softmax partials ``(num, m, l)`` (:func:`paged_partials_step`:
 K5p with ``partials=True``, or the plain masked attention) merge by the
 flash-decoding rule (:func:`_merge_partials`) into the single-pool
 result: over a process group in :func:`decode_step` (``group=``), or
-over shards held in one process in :func:`sharded_decode_step`. Not
-ported yet: cross-cache page transfer.
+over shards held in one process in :func:`sharded_decode_step`.
+:func:`paged_transfer_pages` copies whole pages from another paged cache
+into this one: the prefill→decode handoff of disaggregated serving.
 """
 
 import math
@@ -99,7 +100,8 @@ __all__ = ['DecodeCache', 'init_cache', 'append_kv', 'append_kv_sharded',
            'slots_all_finite', 'rollback_slots', 'PagedDecodeCache',
            'init_paged_cache', 'paged_gather', 'paged_gather_mirror',
            'paged_append_kv_slots', 'paged_append_rows', 'paged_reset_slot',
-           'paged_rollback_slots', 'paged_copy_attach', 'PagePool',
+           'paged_rollback_slots', 'paged_copy_attach',
+           'paged_transfer_pages', 'PagePool',
            'PageChecksums', 'ShardedPageTable', 'init_sharded_paged_cache',
            'shard_view', 'paged_partials_step', 'sharded_decode_step',
            'merge_partials']
@@ -649,6 +651,54 @@ def paged_copy_attach(cache: PagedDecodeCache, src_page, dst_page, slot,
         length = length.copy()
         length[slot] = int(length_val)
     return cache._replace(length=length)
+
+
+def paged_transfer_pages(cache: PagedDecodeCache, src_k_pool, src_v_pool,
+                         src_pages, dst_pages):
+    """Cross-CACHE page transfer — the prefill→decode KV handoff unit of
+    disaggregated serving (``serve/replica.py``): copy the pool pages
+    named by ``src_pages`` out of ANOTHER paged cache's ``src_k_pool`` /
+    ``src_v_pool`` into THIS cache's ``dst_pages``, in place. Both vectors
+    are ``-1``-padded to a fixed width; a padded entry copies nothing (the
+    valid pairs are selected by a mask and only those are copied), and no
+    entry ever writes the sink page (the last pool row, which K5p keeps
+    for itself). The page geometry (page size, KV heads, head dims) must
+    match; the page COUNT of the two pools may differ. Sources on another
+    device are moved to this cache's. Where this cache carries the int8 K
+    mirror, the copied pages' mirror rows are rebuilt from the adopted K
+    (:func:`~distributed_dot_product_tpu_torch.ops.flash_attention
+    .quantize_rows`, the append-time rule), whether or not the source
+    carries one. Page tables and host refcounts are untouched: the caller
+    (``KernelEngine.adopt_prefix``) owns the allocator bookkeeping on both
+    sides. Returns the cache."""
+    if (tuple(src_k_pool.shape[1:]) != tuple(cache.k_pool.shape[1:])
+            or tuple(src_v_pool.shape[1:]) != tuple(cache.v_pool.shape[1:])):
+        raise ValueError(f'page geometry mismatch: source pages '
+                         f'{tuple(src_k_pool.shape[1:])} / '
+                         f'{tuple(src_v_pool.shape[1:])} vs '
+                         f'{tuple(cache.k_pool.shape[1:])} / '
+                         f'{tuple(cache.v_pool.shape[1:])}')
+    src = _host(src_pages, np.int64)
+    dst = _host(dst_pages, np.int64)
+    if len(src) != len(dst):
+        raise ValueError(f'{len(src)} source pages for {len(dst)} '
+                         f'destination pages')
+    ok = ((src >= 0) & (src < src_k_pool.shape[0])
+          & (dst >= 0) & (dst < cache.pages))
+    if not ok.any():
+        return cache
+    dev = cache.k_pool.device
+    si = torch.from_numpy(src[ok]).to(src_k_pool.device)
+    di = _to_device(dst[ok], dev)
+    k_rows = src_k_pool.index_select(0, si).to(dev, cache.k_pool.dtype)
+    cache.k_pool[di] = k_rows
+    cache.v_pool[di] = src_v_pool.index_select(0, si.to(
+        src_v_pool.device)).to(dev, cache.v_pool.dtype)
+    if cache.k_q_pool is not None:
+        ki, sk = quantize_rows(k_rows)
+        cache.k_q_pool[di] = ki
+        cache.k_scale_pool[di] = sk
+    return cache
 
 
 class PagePool:

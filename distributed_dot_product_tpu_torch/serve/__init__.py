@@ -10,7 +10,12 @@ stall watchdog and speculative decoding with the n-gram and draft-model
 proposers of :mod:`.spec`); the scheduling policy (:mod:`.policy`:
 priority classes, per-tenant fair share, deadline-aware eviction, the
 TTFT-tuned prefill boost) and the seeded open-loop multi-tenant load
-generator that drives the Scheduler on a virtual clock (:mod:`.loadgen`).
+generator that drives the Scheduler on a virtual clock (:mod:`.loadgen`);
+and disaggregated serving (:mod:`.replica`, :mod:`.router`): a prefill
+pool handing prompts' KV pages to decode replicas behind a
+:class:`Router` with prefix-affinity placement, liveness probes, stream
+recovery and page-integrity healing, which ``run_trace`` drives like one
+Scheduler.
 
 Usage::
 
@@ -30,7 +35,7 @@ from distributed_dot_product_tpu_torch.serve.engine import (  # noqa: F401
     KernelEngine, PageCorruptionError,
 )
 from distributed_dot_product_tpu_torch.serve.errors import (  # noqa: F401
-    ServeContractError,
+    ServeContractError, UnknownReplicaError,
 )
 from distributed_dot_product_tpu_torch.serve.health import (  # noqa: F401
     HealthMonitor, Liveness, Readiness,
@@ -42,6 +47,13 @@ from distributed_dot_product_tpu_torch.serve.loadgen import (  # noqa: F401
 )
 from distributed_dot_product_tpu_torch.serve.policy import (  # noqa: F401
     PolicyConfig, SchedulingPolicy, TenantPolicy,
+)
+from distributed_dot_product_tpu_torch.serve.replica import (  # noqa: F401
+    DecodeReplica, PrefillPool, PrefixHandle, ReplicaPool, TopologyConfig,
+    maybe_init_distributed, parse_topology,
+)
+from distributed_dot_product_tpu_torch.serve.router import (  # noqa: F401
+    Router, RouterConfig, build_serving,
 )
 from distributed_dot_product_tpu_torch.serve.scheduler import (  # noqa: F401
     Scheduler, ServeConfig,

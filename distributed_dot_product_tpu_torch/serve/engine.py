@@ -55,7 +55,16 @@ product of ``models/dense.quantized_dot``. As in the reference, the
 ``DDP_TPU_DECODE_KERNEL``, ``DDP_TPU_PAGED_CACHE`` and
 ``DDP_TPU_WEIGHT_QUANT`` environment knobs choose the decode path, the
 cache layout and the weight precision when the arguments leave them
-None. Not ported yet (ROADMAP): ``adopt_prefix``.
+None.
+
+The prefill→decode handoff of disaggregated serving (``serve/replica.py``,
+``serve/router.py``): :meth:`KernelEngine.adopt_prefix` copies whole pages
+of another paged cache (a prefill pool's) into freshly allocated pages of
+this engine's pool (:func:`~distributed_dot_product_tpu_torch.models
+.decode.paged_transfer_pages`) and registers them as a shared prefix,
+verified end to end when the source's checksums come along; a
+``kv_shards`` engine adopts shard-locally, each shard receiving only the
+pages of the ordinals it owns.
 """
 
 import itertools
@@ -68,8 +77,9 @@ import torch
 from distributed_dot_product_tpu_torch.models.decode import (
     PageChecksums, PagePool, ShardedPageTable, _to_device, append_kv_slots,
     decode_step, init_paged_cache, init_slot_cache, paged_append_rows,
-    paged_copy_attach, paged_reset_slot, paged_rollback_slots, reset_slot,
-    rollback_slots, sharded_decode_step, slots_all_finite,
+    paged_copy_attach, paged_reset_slot, paged_rollback_slots,
+    paged_transfer_pages, reset_slot, rollback_slots, sharded_decode_step,
+    slots_all_finite,
 )
 from distributed_dot_product_tpu_torch.models.dense import (
     dense_param_bytes, quantize_kernel, quantized_dot,
@@ -196,8 +206,10 @@ class KernelEngine:
     stacked-row ids (:meth:`page_shard` names the owner); exhaustion of
     one shard's range is a typed failure naming every shard's free
     pages; checksums are kept per owning shard. Streams equal the
-    single-pool engine's. Speculative verify, prefix registration and
-    forks are refused (ValueError naming ``kv_shards``). Shard ``s``'s
+    single-pool engine's. Speculative verify, local prefix registration
+    and forks are refused (ValueError naming ``kv_shards``): shared
+    prefixes reach a sharded engine through :meth:`adopt_prefix`, which
+    lands each page on the shard owning its ordinal. Shard ``s``'s
     local cache is its own allocation on ``shard_devices[s]``:
     ``cuda:(s % device_count)``, or the CPU when the engine's device is.
 
@@ -743,9 +755,8 @@ class KernelEngine:
         if self.kv_shards > 1:
             raise ValueError(
                 'register_prefix (local prefix prefill) is not supported '
-                'with kv_shards > 1 — shared prefixes reach a sharded '
-                'engine through the prefill-to-decode handoff '
-                '(adopt_prefix, not ported yet)')
+                'with kv_shards > 1 — shared prefixes arrive through the '
+                'shard-local prefill→decode handoff (adopt_prefix)')
         tokens = np.asarray(tokens, np.int64).reshape(-1)
         n = len(tokens)
         if n < 1:
@@ -768,8 +779,16 @@ class KernelEngine:
             k, v = self._project_kv(_to_device(buf, self.device))
             self.cache = paged_append_rows(self.cache, k, v, row, start,
                                            len(chunk))
+        return self._register_pages(pages, n)
+
+    def _register_pages(self, pages, n):
+        """Enter ``pages`` (already allocated and filled, covering ``n``
+        rows; GLOBAL ids on a kv_shards engine) into the prefix registry
+        — the one place prefix ids are minted, shared by
+        :meth:`register_prefix` (local prefill) and :meth:`adopt_prefix`
+        (cross-cache handoff)."""
         pid = next(self._prefix_counter)
-        self._prefix_registry[pid] = (pages, n)
+        self._prefix_registry[pid] = (list(pages), n)
         self._checksum_record(pages)
         return pid
 
@@ -866,13 +885,181 @@ class KernelEngine:
             self.checksums.drop(pages)
         return self.pool.quarantine(pages)
 
+    def slots_sharing(self, pages):
+        """Slots whose page tables name any of ``pages`` (GLOBAL ids on a
+        kv_shards engine, looked up in each owning shard's table) — the
+        live victims of a corruption verdict."""
+        if self.pool is None:
+            return []
+        if self.kv_shards > 1:
+            per = {s: set(locs) for s, locs in self._by_shard(pages).items()}
+            hit = []
+            for slot in range(self.slots):
+                for s, locs in per.items():
+                    sp = self.pool.shards[s]
+                    if any(int(sp.table[slot, i]) in locs
+                           for i in range(int(sp.counts[slot]))):
+                        hit.append(slot)
+                        break
+            return hit
+        bad = {int(p) for p in pages}
+        return [slot for slot in range(self.slots)
+                if any(int(self.pool.table[slot, i]) in bad
+                       for i in range(int(self.pool.counts[slot])))]
+
+    def prefixes_on(self, pages):
+        """Registered prefix ids built on any of ``pages`` — the entries a
+        corruption verdict must invalidate."""
+        bad = {int(p) for p in pages}
+        return [pid for pid, (pgs, _) in self._prefix_registry.items()
+                if bad.intersection(int(p) for p in pgs)]
+
+    def adopt_prefix(self, src_cache, src_pages, length, src_checksums=None):
+        """The prefill→decode KV handoff (disaggregated serving): copy
+        ``length`` rows living in ``src_pages`` of ANOTHER paged cache (a
+        prefill pool's — same page size and head geometry, its own pool
+        size, on any device) into freshly allocated pages of THIS engine's
+        pool and register them as a shared prefix. The transfer unit is
+        the whole page, exactly what :meth:`register_prefix` produces, so
+        a sequence started with :meth:`start_with_prefix` cannot tell a
+        handed-off prefix from a locally prefilled one. Raises
+        ``RuntimeError`` on pool exhaustion (the router checks headroom
+        first) and ``ValueError`` on a geometry, length or page-count
+        mismatch.
+
+        ``src_checksums`` (the source pool's :class:`PageChecksums`) makes
+        the handoff end-to-end verifiable: the source pages are verified
+        BEFORE the transfer (dirty source → :class:`PageCorruptionError`
+        at site ``'handoff_src'``) and the landed copies' KV digests are
+        compared with the source's AFTER (a corrupted transfer → site
+        ``'handoff_copy'``, the adopted prefix unregistered — never handed
+        to a caller). Only the KV digest crosses caches: the destination's
+        int8 mirror is re-quantized from the adopted K. A kv_shards engine
+        adopts shard-locally (:meth:`_adopt_prefix_sharded`)."""
+        if self.cache_mode != 'paged':
+            raise ValueError("prefix adoption needs cache_mode='paged'")
+        if src_cache.page_size != self.page_size:
+            raise ValueError(
+                f'page-size mismatch: source {src_cache.page_size} vs '
+                f'{self.page_size} — the page is the transfer unit, both '
+                f'pools must agree')
+        local = self.cache if self.kv_shards == 1 else self.shard_cache(0)
+        if (src_cache.k_pool.shape[1:] != local.k_pool.shape[1:]
+                or src_cache.v_pool.shape[1:] != local.v_pool.shape[1:]):
+            raise ValueError(
+                f'KV geometry mismatch: source pages '
+                f'{tuple(src_cache.k_pool.shape[1:])} vs '
+                f'{tuple(local.k_pool.shape[1:])}')
+        if length < 1 or length + 1 > self.t_max:
+            raise ValueError(f'prefix of {length} rows leaves no room to '
+                             f'generate in a t_max={self.t_max} cache')
+        src_pages = [int(p) for p in src_pages]
+        needed = self.pool.pages_for_rows(length)
+        if len(src_pages) != needed:
+            raise ValueError(f'{len(src_pages)} source pages for {length} '
+                             f'rows (need {needed})')
+        if src_checksums is not None:
+            t0 = time.perf_counter()
+            bad = src_checksums.verify(src_cache, src_pages)
+            self.verify_seconds += time.perf_counter() - t0
+            if bad:
+                raise PageCorruptionError(bad, 'handoff_src')
+        if self.kv_shards > 1:
+            return self._adopt_prefix_sharded(src_cache, src_pages, length,
+                                              src_checksums, needed)
+        pages = self.pool.alloc_block(needed)
+        if pages is None:
+            raise RuntimeError(
+                f'page pool exhausted adopting a {length}-row prefix '
+                f'({needed} pages needed, {self.pool.free_pages} free)')
+        paged_transfer_pages(self.cache, src_cache.k_pool, src_cache.v_pool,
+                             src_pages, pages)
+        pid = self._register_pages(pages, length)
+        if self.checksums is not None and src_checksums is not None:
+            # Landed-copy verification: whole pages move (unfilled tail
+            # rows are zero on both sides), so the KV digest must survive
+            # the copy bit for bit.
+            bad = [dp for sp, dp in zip(src_pages, pages)
+                   if self._digest_differs(src_checksums.get(sp),
+                                           self.checksums.get(dp))]
+            if bad:
+                self.unregister_prefix(pid)
+                raise PageCorruptionError(bad, 'handoff_copy')
+        return pid
+
+    @staticmethod
+    def _digest_differs(want, have):
+        """Landed-copy verdict: both KV digests known and unequal."""
+        return want is not None and have is not None and have[0] != want[0]
+
+    def _adopt_prefix_sharded(self, src_cache, src_pages, length,
+                              src_checksums, needed):
+        """kv_shards tail of :meth:`adopt_prefix` (validation and the
+        source verify already ran): allocate, per shard, exactly the pages
+        covering the ordinals that shard OWNS
+        (:meth:`~distributed_dot_product_tpu_torch.models.decode
+        .ShardedPageTable.owned_range`), then copy into each shard's own
+        cache only its own ordinals' source pages — the shard-local
+        handoff, page-granular, with no full-sequence gather anywhere.
+        All-or-nothing allocation: any shard's exhaustion rolls the other
+        shards' fresh blocks back. Landed digests are compared per owning
+        shard."""
+        alloc = {}                       # shard -> local pages, by ordinal
+        for s in range(self.kv_shards):
+            lo, hi = self.pool.owned_range(s)
+            k = max(0, min(hi, needed) - lo)
+            if k == 0:
+                continue
+            pgs = self.pool.shards[s].alloc_block(k)
+            if pgs is None:
+                for s2, got in alloc.items():
+                    self.pool.shards[s2].release_pages(got)
+                raise RuntimeError(
+                    f'page pool exhausted adopting a {length}-row prefix: '
+                    f'shard {s} has {self.pool.shards[s].free_pages} of the '
+                    f'{k} pages its ordinal range [{lo}, {min(hi, needed)}) '
+                    f'needs (free by shard {self.pool.free_pages_by_shard})')
+            alloc[s] = pgs
+        gpages = [0] * needed
+        for s, pgs in alloc.items():
+            lo, _ = self.pool.owned_range(s)
+            paged_transfer_pages(self.shard_cache(s), src_cache.k_pool,
+                                 src_cache.v_pool,
+                                 src_pages[lo:lo + len(pgs)], pgs)
+            for j, p in enumerate(pgs):
+                gpages[lo + j] = self._gpage(s, p)
+        pid = self._register_pages(gpages, length)
+        if self.checksums is not None and src_checksums is not None:
+            bad = []
+            for o, g in enumerate(gpages):
+                s, p = self._gsplit(g)
+                if self._digest_differs(src_checksums.get(src_pages[o]),
+                                        self.checksums[s].get(p)):
+                    bad.append(g)
+            if bad:
+                self.unregister_prefix(pid)
+                raise PageCorruptionError(
+                    bad, 'handoff_copy',
+                    shards=[self.page_shard(g) for g in bad])
+        return pid
+
     def prefix_length(self, prefix_id):
         return self._prefix_registry[prefix_id][1]
 
     def unregister_prefix(self, prefix_id):
         """Release the registry's page references; pages still shared
-        by live sequences survive until those retire."""
+        by live sequences survive until those retire (each shard frees
+        and zeroes its own on a kv_shards engine)."""
         pages, _ = self._prefix_registry.pop(prefix_id)
+        if self.kv_shards > 1:
+            freed = {}
+            for s, locs in self._by_shard(pages).items():
+                got = self.pool.release_pages_on(s, locs)
+                if got:
+                    freed[s] = got
+            if freed:
+                self._zero_freed_sharded(freed)
+            return
         freed = self.pool.release_pages(pages)
         if freed:
             self._zero_freed(freed)
@@ -880,9 +1067,23 @@ class KernelEngine:
     def start_with_prefix(self, slot, prefix_id):
         """Point an EMPTY slot at a registered prefix: full pages shared
         (refcount++), partial tail page copied private, length set.
-        False = pool exhausted. The prefix's pages are verified first."""
+        False = pool exhausted. The prefix's pages are verified first. A
+        kv_shards engine attaches per owning shard (the tail copy lands on
+        the tail ordinal's owner)."""
         pages, plen = self._prefix_registry[prefix_id]
         self.check_pages(pages, 'attach')
+        if self.kv_shards > 1:
+            ord_pages = np.full(self.pool.pages_per_slot, -1, np.int64)
+            for o, g in enumerate(pages):
+                ord_pages[o] = self._gsplit(g)[1]
+            ok, tsh, tsrc, tdst = self.pool.attach(slot, ord_pages, plen)
+            if not ok:
+                return False
+            if tsh >= 0:
+                # The shared lengths vector already holds plen.
+                paged_copy_attach(self.shard_cache(tsh), tsrc, tdst, -1, 0)
+            self._sync_page_table()
+            return True
         ok, src, dst = self.pool.attach(slot, pages, plen)
         if not ok:
             return False
@@ -962,6 +1163,14 @@ class KernelEngine:
             out['kv_shards'] = self.kv_shards
             out['pages_free_by_shard'] = pool.free_pages_by_shard
         return out
+
+    def tracked_pages(self):
+        """Registry-tracked pages, sorted (GLOBAL ids on kv_shards
+        engines) — the population a corruption drill indexes, so a seeded
+        run corrupts the same prefix page whatever the pool's allocation
+        history."""
+        return sorted({int(p) for pages, _ in self._prefix_registry.values()
+                       for p in pages})
 
     def flip_page_bit(self, page):
         """Flip an exponent bit of ``page``'s K pool bytes (byte 3 of the

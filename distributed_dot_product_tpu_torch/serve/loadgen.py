@@ -35,9 +35,10 @@ Usage::
                    event_log=EventLog('load.jsonl'))
     # then: obs.slo.goodput('load.jsonl', SloSpec(ttft=0.2, ...))
 
-Not ported yet (ROADMAP §1 item 4): the closed-loop controller
-(``run_load(control=...)`` raises ``NotImplementedError``) and the
-router-driven ``ChaosSchedule``.
+``run_trace`` drives anything with the Scheduler's surface, a
+``serve.router.Router`` over a whole topology included. Not ported yet
+(ROADMAP §1 item 4b): the closed-loop controller (``run_load(control=...)``
+raises ``NotImplementedError``) and the router-driven ``ChaosSchedule``.
 """
 
 import dataclasses
@@ -401,7 +402,7 @@ def run_load(cfg: LoadGenConfig, *, engine, serve_config=None,
     if control is not None:
         raise NotImplementedError(
             'run_load(control=...) needs the closed-loop Controller '
-            '(serve/control.py), not ported yet: ROADMAP.md §1 item 4')
+            '(serve/control.py), not ported yet: ROADMAP.md §1 item 4b')
     cfg.validate()
     clock = clock or VirtualClock()
     if event_log is not None:

@@ -60,12 +60,17 @@ Scheduling policy (``ServeConfig.policy``, ``serve/policy.py``): priority
 classes and per-tenant weighted fair share at admission, deadline-aware
 eviction, and the TTFT-tuned prefill boost.
 
+Router hooks (``serve/router.py``): :meth:`Scheduler.load` is the
+placement probe, :meth:`Scheduler.drain` empties a replica for removal,
+and :meth:`Scheduler.requests_on_slots`, :meth:`Scheduler
+.queued_with_prefix` and :meth:`Scheduler.expel` serve corruption
+containment.
+
 Copied from ``distributed_dot_product_tpu/serve/scheduler.py``. Not
 ported yet (ROADMAP): the anomaly watchdog, the adaptive profiler
-captures and the router / controller hooks (``load``,
-``drain``, ``expel``, ``set_watermark``, ``set_queue_limit``); the
-matching ``ServeConfig`` fields do not exist, so setting one raises
-``TypeError``.
+captures and the controller's actuators (``set_watermark``,
+``set_queue_limit``); the matching ``ServeConfig`` fields do not exist,
+so setting one raises ``TypeError``.
 """
 
 import dataclasses
@@ -1078,6 +1083,104 @@ class Scheduler:
                 self._proposer.commit(slot.index, committed, acc)
         eng.rollback(targets)
         self._proposer.end_step()
+
+    def load(self):
+        """Placement signal for a router (``serve/router.py``): in-flight
+        work and headroom, read without a device sync. ``accepting`` is
+        the router's admission probe — False means a submit would shed
+        QUEUE_FULL, so the router tries another replica (or sheds typed
+        NO_REPLICA) INSTEAD of letting this scheduler reject: a routed
+        request leaves exactly one lifecycle in exactly one replica's
+        log."""
+        busy = sum(s.state is not _SlotState.FREE for s in self._slots)
+        out = {'queued': self.admission.depth, 'busy': busy,
+               'free_slots': self.engine.slots - busy,
+               'accepting': not self.admission.full and not self._closed,
+               'queued_by_tenant': self.admission.queued_by_tenant(),
+               'oldest_deadline': self.admission.oldest_deadline()}
+        if self._paged:
+            out['free_pages'] = self.engine.free_pages
+        return out
+
+    def drain(self):
+        """Preempt every in-flight request and empty the queue — the
+        scale-down arc: each busy slot emits ``serve.preempt``
+        (``requeued=True, drain=True``) and its request resets to a fresh
+        attempt (tokens regenerate deterministically; the drain charges no
+        requeue budget — an operator action, not a fault). Returns the
+        drained requests in admission order for the caller (the router)
+        to resubmit elsewhere; expired / cancelled queue entries finalize
+        here with their typed reasons, as a tick would have."""
+        drained = []
+        for slot in self._slots:
+            if slot.state is _SlotState.FREE:
+                continue
+            req = slot.request
+            self._emit('serve.preempt', request_id=req.id,
+                       slot=slot.index, requeued=True, drain=True)
+            self._clear_slot(slot)
+            req.tokens = []
+            req.first_token_at = None
+            drained.append(req)
+        while True:
+            req, dropped = self.admission.pop_ready()
+            self._record_dropped(dropped)
+            if req is None:
+                break
+            drained.append(req)
+        self._g_active.set(0)
+        self._update_readiness()
+        return drained
+
+    # -- corruption containment (serve/router.py) ----------------------
+    def requests_on_slots(self, slot_indices):
+        """Request ids currently decoding on the given slots — the
+        victims of a page-level fault (the router maps dirty pages to
+        slots through the engine's tables, then to streams here)."""
+        wanted = {int(i) for i in slot_indices}
+        return [slot.request.id for slot in self._slots
+                if slot.state is not _SlotState.FREE
+                and slot.index in wanted]
+
+    def queued_with_prefix(self, prefix_ids):
+        """Queued request ids pinned to one of the given prefixes —
+        riders that would attach poisoned pages the moment a slot frees,
+        so corruption containment expels them too."""
+        wanted = set(prefix_ids)
+        return [req.id for req in self.admission._queue
+                if req.prefix_id in wanted]
+
+    def expel(self, request_id):
+        """Forcibly remove one request — slot or queue — WITHOUT a
+        terminal: the caller (the router's corruption handler) owns its
+        fate (ledger replay on a clean replica, or a typed reject past
+        budget). A slot expulsion follows the drain arc (``serve.preempt``
+        with ``expel=True``, slot cleared, tokens reset); a queue
+        expulsion just unlinks. Returns the Request, or None when the id
+        is not live here."""
+        for slot in self._slots:
+            if slot.state is _SlotState.FREE \
+                    or slot.request.id != request_id:
+                continue
+            req = slot.request
+            self._emit('serve.preempt', request_id=req.id,
+                       slot=slot.index, requeued=True, expel=True)
+            self._clear_slot(slot)
+            req.tokens = []
+            req.first_token_at = None
+            self._g_active.set(sum(s.state is not _SlotState.FREE
+                                   for s in self._slots))
+            self._update_readiness()
+            return req
+        for i, req in enumerate(self.admission._queue):
+            if req.id == request_id:
+                # Delete by index: deque.remove compares Requests field by
+                # field, and numpy prompts make that raise.
+                del self.admission._queue[i]
+                self.admission._update_depth()
+                self._update_readiness()
+                return req
+        return None
 
     # -- the loop -------------------------------------------------------
     def step(self) -> bool:

@@ -34,8 +34,12 @@ port's Python: ``quantized_dot`` dequantizing with a scale per input
 channel, and its padding rows put in front so that they leak into the
 output in place of the real rows (``wq8_serve`` must catch both); the
 scheduling policy choosing the lowest priority first (``load_serve``
-must catch it). A source with a ``/`` is a path in the package; a bare
-name is in ``csrc/``.
+must catch it). Three sit in disaggregated serving (``router_serve`` must
+catch them): the handoff's page copy shifted by one destination ordinal,
+recovery replaying the prefix-stripped prompt, and the shard-local
+handoff allocating every page on shard 0. A source with a ``/`` is a path
+in the package; a bare name is in ``csrc/``. Kernel libraries already
+built under ``build/kernels`` from unchanged sources are reused.
 """
 
 import json
@@ -219,10 +223,39 @@ FAULTS = {
         'serve/policy.py', '            return (-pol.priority, share, i)\n',
         '            return (pol.priority, share, i)\n',
         ('load_serve',)),
+    # The prefill→decode handoff copies each source page one destination
+    # ordinal over (the last page into the first): the adopted prefix is
+    # scrambled.
+    'handoff_pages_off_by_one': (
+        'serve/engine.py',
+        '        paged_transfer_pages(self.cache, src_cache.k_pool, '
+        'src_cache.v_pool,\n'
+        '                             src_pages, pages)\n',
+        '        paged_transfer_pages(self.cache, src_cache.k_pool, '
+        'src_cache.v_pool,\n'
+        '                             src_pages, pages[1:] + pages[:1])\n',
+        ('router_serve',)),
+    # Recovery replays the prefix-stripped prompt (its last token) where
+    # the ledger keeps the full one: a recovered stream decodes without
+    # its context.
+    'recovery_replays_stripped_prompt': (
+        'serve/router.py', "        req = Request(prompt=entry['prompt'],\n",
+        "        req = Request(prompt=entry['prompt'][-1:],\n",
+        ('router_serve',)),
+    # The shard-local handoff allocates every ordinal's page on shard 0,
+    # whoever owns the ordinal.
+    'sharded_adopt_all_on_shard0': (
+        'serve/engine.py',
+        '            lo, hi = self.pool.owned_range(s)\n'
+        '            k = max(0, min(hi, needed) - lo)\n',
+        '            lo, hi = (0, needed) if s == 0 else (0, 0)\n'
+        '            k = max(0, min(hi, needed) - lo)\n',
+        ('router_serve',)),
 }
 
 # Phases a fault names that run alone (the source's PHASES otherwise).
-SOLO = ('flash_masks', 'kv_sharded_serve', 'wq8_serve', 'load_serve')
+SOLO = ('flash_masks', 'kv_sharded_serve', 'wq8_serve', 'load_serve',
+        'router_serve')
 
 
 # The phases that hold each source's kernels: K1, K3 and K4 at the
@@ -237,6 +270,12 @@ def plant(dst, source, old, new):
     shutil.copy(os.path.join(ROOT, 'chip_smoke.py'), dst)
     shutil.copytree(os.path.join(ROOT, PKG), os.path.join(dst, PKG),
                     ignore=shutil.ignore_patterns('__pycache__'))
+    # Libraries already built from unchanged sources are reused: a
+    # library's file name carries the digest of its sources, so the
+    # planted one builds anew and no other does.
+    built = os.path.join(ROOT, 'build', 'kernels')
+    if os.path.isdir(built):
+        shutil.copytree(built, os.path.join(dst, 'build', 'kernels'))
     path = os.path.join(dst, PKG, *(source.split('/') if '/' in source
                                     else ('csrc', source)))
     with open(path) as f:
@@ -289,6 +328,15 @@ def readings(stdout):
             cases[f"load_serve/{row['case']}"] = {
                 k: row[k] for k in ('priority_inversions',
                                     'per_tenant_goodput_pct')}
+        elif row.get('phase') == 'router_serve' and row.get('case') in (
+                'handoff', 'topology_burst', 'recovery', 'scrub',
+                'kv_shards_handoff'):
+            key = f"router_serve/{row['case']}"
+            if 'rows' in row:
+                key += f"/{row['rows']}"
+            cases[key] = {k: v for k, v in row.items()
+                          if k not in ('phase', 'case') and (
+                              isinstance(v, (bool, dict)) or k == 'ok')}
         elif row.get('phase') == 'kv_sharded_serve' and \
                 row.get('case') == 'step_check':
             cases['kv_sharded_serve/step_check'] = {
