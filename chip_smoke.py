@@ -6179,24 +6179,25 @@ def _router_pool(torch):
                        device=ROUTER_DEVICE)
 
 
-def _router_topology(torch, clock, log_dir, router_kw=None, **topo_kw):
+def _router_topology(torch, clock, log_dir, router_kw=None, chaos=None,
+                     **topo_kw):
     """build_serving over the 1 x 2 topology, every engine setting
-    explicit and checked."""
+    explicit and checked; ``chaos`` arms the router's chaos seams."""
     from distributed_dot_product_tpu_torch.serve import (
         RouterConfig, ServeConfig, TopologyConfig, build_serving,
     )
-    topo = TopologyConfig(
+    topo = TopologyConfig(**{**dict(
         prefill_pools=1, decode_replicas=2, slots=SERVE_SLOTS,
         t_max=SERVE_T_MAX, page_size=SERVE_PAGE, vocab=VOCAB, heads=HEADS,
         head_dim=HEAD_DIM, seed=SERVE_SEED, decode_impl='kernel',
         prefill_chunk=SERVE_CHUNK, dtype=torch.bfloat16,
-        device=ROUTER_DEVICE, **topo_kw)
+        device=ROUTER_DEVICE), **topo_kw})
     router = build_serving(
         topo, serve_config=ServeConfig(queue_limit=SERVE_QUEUE,
                                        max_new_tokens=SERVE_NEW,
                                        watchdog=False),
         router_config=RouterConfig(**(router_kw or {})), clock=clock,
-        log_dir=log_dir)
+        log_dir=log_dir, chaos=chaos)
     for r in router.pool.replicas:
         eng = r.engine
         check((eng.decode_impl, eng.cache_mode, eng.weight_quant,
@@ -6237,9 +6238,11 @@ def _router_drive(router, burst, advance=None, on_tick=None):
 
 
 def _router_decode_steps(router):
-    """Decode ticks of every replica the run had, lost ones included."""
+    """Decode ticks of every replica the run had, lost and drained ones
+    included."""
+    pool = router.pool
     return sum(r.registry.snapshot()['counters'].get('serve.decode_steps', 0)
-               for r in router.pool.replicas + router.pool.lost)
+               for r in pool.replicas + pool.lost + pool.retired)
 
 
 def _router_streams(what, results, base, rids):
@@ -6735,6 +6738,618 @@ def phase_router_serve(torch, ddp, flush):
     return out
 
 
+# Chaos and control on the disaggregated topology (chaos_serve): the
+# router_serve configuration (a prefill pool and decode replicas of
+# KernelEngine(t_max 4096, page 16, prefill chunk 64) at the LM's widths,
+# bf16, RouterConfig() defaults) driven by run_trace on a VirtualClock
+# through load_serve's seeded trace (LoadGenConfig(seed 7, rate 300, 64
+# requests), the stock tenants), beside the crash-free single engine on the
+# same trace, the flight recorder armed. The replicas have load_serve's 4
+# slots, the reference serve-load's: at 8 this trace never queues (its
+# prompts are 2..15 tokens, so a handed-off prefix is one partial page that
+# no decoding slot shares), and then no rider could wait on a corrupted
+# page and no backlog could drive the controller. The faults land at fixed
+# ticks of the trace, chosen on the CPU rehearsal at these shapes (the
+# schedule reads no token values, so its ticks are the card's): CHAOS_CRASH
+# kills r1 with 2 streams in flight, CHAOS_PREFILL_TICK kills the prefill
+# pool with 6 long prompts still to come, and CHAOS_CORRUPT flips a bit of
+# r0's tracked page 3 while request t1-0058 waits in r0's queue on its
+# prefix (the page scrub runs every tick in that case, as the reference's
+# corruption smoke does). Goodput is held under the reference chaos smoke's
+# SLO (first token within 2 s, gaps within 1 s: a recovered stream keeps its
+# original submit anchor) and, for the controller, under LOAD_SLO too. The
+# controller is the reference benchmark's (ControlConfig(interval 0.01,
+# scale_up_after 1, scale_down_after 20, max_replicas 3)) on a topology that
+# starts from one decode replica, as the reference's control smoke does (two
+# never reach a backlog of one queued request a slot on this trace); after
+# the trace the topology idles for up to CHAOS_TAIL ticks so that sustained
+# idleness drains the added replicas. The serving engine's prefill appends
+# projected K/V rows and attends nothing, so the path's one kernel is K5p;
+# K1's count is printed beside it and stays 0.
+CHAOS_SLOTS = LOAD_SLOTS
+CHAOS_CRASH = ('r1', 40)
+CHAOS_PREFILL_TICK = 30
+CHAOS_CORRUPT = ('r0', 3, 116)
+CHAOS_SLO = dict(ttft=2.0, per_token=1.0)
+CHAOS_CONTROL = dict(interval=0.01, scale_up_after=1, scale_down_after=20,
+                     max_replicas=3)
+CHAOS_CONTROL_REPLICAS = 1
+CHAOS_TAIL = 600
+
+
+def _obs_cli(*args):
+    """``python -m distributed_dot_product_tpu_torch.obs ARGS`` from this
+    checkout: ``(exit code, stdout, stderr)``."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env['PYTHONPATH'] = os.pathsep.join(
+        p for p in (root, env.get('PYTHONPATH')) if p)
+    proc = subprocess.run(
+        [sys.executable, '-m', 'distributed_dot_product_tpu_torch.obs',
+         *args], capture_output=True, text=True, timeout=300, cwd=root,
+        env=env)
+    return proc.returncode, proc.stdout, proc.stderr
+
+
+def _chaos_twin(torch, ddp, trace_path, tick, log_path):
+    """The crash-free single engine on the same trace: one paged
+    scheduler, its own virtual clock."""
+    from distributed_dot_product_tpu_torch.obs import EventLog
+    from distributed_dot_product_tpu_torch.obs.slo import SloSpec, goodput
+    from distributed_dot_product_tpu_torch.serve import (
+        Scheduler, ServeConfig, VirtualClock, load_trace, run_trace,
+    )
+    from distributed_dot_product_tpu_torch.utils.tracing import (
+        MetricsRegistry,
+    )
+    import numpy as np
+    engine = serve_engine(torch, 'paged', slots=CHAOS_SLOTS)
+    # Load the kernel and warm every engine operation before the timed run.
+    engine.step(np.zeros(engine.slots, np.int32), np.ones(engine.slots, bool))
+    engine.prefill(0, np.zeros(engine.prefill_chunk, np.int32))
+    for i in range(engine.slots):
+        engine.reset(i)
+    clock = VirtualClock()
+    log = EventLog(log_path, clock=clock)
+    registry = MetricsRegistry()
+    sched = Scheduler(engine, ServeConfig(queue_limit=SERVE_QUEUE,
+                                          max_new_tokens=SERVE_NEW,
+                                          watchdog=False),
+                      clock=clock, registry=registry, event_log=log,
+                      fault_injector=False)
+    ddp.flash_decode_paged.launches = 0
+    t0 = time.perf_counter()
+    try:
+        res = run_trace(sched, load_trace(trace_path), clock,
+                        tick_seconds=tick)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        sched.close()
+        log.close()
+    k5p = ddp.flash_decode_paged.launches
+    counters = registry.snapshot()['counters']
+    report = goodput(log_path, SloSpec(**CHAOS_SLO))
+    tokens = counters.get('serve.tokens_generated', 0)
+    del engine
+    torch.cuda.empty_cache()
+    check(res.accounted and k5p == counters.get('serve.decode_steps', 0),
+          f'chaos twin: accounted {res.accounted}, K5p {k5p}')
+    return {'result': res, 'report': report, 'wall_s': wall,
+            'tokens_per_s': tokens / wall,
+            'ttft_p99_s': report.percentiles['ttft']['p99'],
+            'goodput_pct': report.goodput_pct}
+
+
+def _chaos_run(torch, ddp, tmp, name, trace_path, tick, plan=None,
+               router_kw=None, control=None, tail=0, flight=False,
+               **topo_kw):
+    """One run of the trace through a fresh 1 x 2 topology: ``plan`` (the
+    ChaosPlan's fields) through a ChaosSchedule, ``control`` (the
+    ControlConfig's) through a Controller on the router, the flight
+    recorder installed when ``flight``; the kernels' counts set to 0 just
+    before the trace and read just after (the idle tail included)."""
+    from distributed_dot_product_tpu_torch.obs import flight as obs_flight
+    from distributed_dot_product_tpu_torch.obs.events import read_events
+    from distributed_dot_product_tpu_torch.obs.slo import SloSpec, goodput
+    from distributed_dot_product_tpu_torch.serve import (
+        ChaosSchedule, ControlConfig, Controller, VirtualClock, load_trace,
+        run_trace,
+    )
+    from distributed_dot_product_tpu_torch.utils.faults import (
+        ChaosInjector, ChaosPlan,
+    )
+    clock = VirtualClock()
+    chaos = ChaosInjector(ChaosPlan(**plan)) if plan else None
+    topo_kw.setdefault('slots', CHAOS_SLOTS)
+    router = _router_topology(torch, clock, os.path.join(tmp, name),
+                              router_kw=router_kw, chaos=chaos, **topo_kw)
+    ctrl = (Controller(router=router, config=ControlConfig(**control),
+                       clock=clock, event_log=router.event_log)
+            if control else None)
+    on_tick = ctrl.tick if ctrl is not None else None
+    sched = None
+    if chaos is not None:
+        on_tick = sched = ChaosSchedule(chaos, router, on_tick=on_tick)
+    # An observer apart from the schedule: the loop's own tick count, and
+    # the tick at which each member was killed.
+    ticks, kills = [0], []
+
+    def observed(member):
+        kill = member.kill
+
+        def killed():
+            if member.alive:
+                kills.append((member.name, ticks[0]))
+            kill()
+        member.kill = killed
+    for member in router.pool.replicas + [router.pool.prefill]:
+        observed(member)
+    inner = on_tick
+
+    def on_tick():
+        if inner is not None:
+            inner()
+        ticks[0] += 1
+    rec = prev = None
+    if flight:
+        rec = obs_flight.FlightRecorder(os.path.join(tmp, name, 'flight'))
+        prev = obs_flight.install(rec)
+    ddp.flash_decode.launches = ddp.flash_decode_paged.launches = 0
+    ddp.flash_attention.launches = 0
+    t0 = time.perf_counter()
+    tail_ticks = 0
+    try:
+        res = run_trace(router, load_trace(trace_path), clock,
+                        tick_seconds=tick, on_tick=on_tick)
+        while tail_ticks < tail and len(router.pool.replicas) > (
+                ctrl.cfg.min_replicas):
+            router.step()
+            ctrl.tick()
+            clock.advance(tick)
+            tail_ticks += 1
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {'flash_decode_paged': ddp.flash_decode_paged.launches,
+                    'flash_decode': ddp.flash_decode.launches,
+                    'flash_attention': ddp.flash_attention.launches}
+    finally:
+        router.close()
+        if rec is not None:
+            obs_flight.install(prev)
+            rec.stop()
+    logs = router.pool.logs()
+    steps = _router_decode_steps(router)
+    revs = list(read_events(dict(logs)['router']))
+    report = goodput(logs, SloSpec(**CHAOS_SLO))
+    tokens = sum(len(r.tokens) for r in res.results.values())
+    out = {'router': router, 'result': res, 'report': report, 'logs': logs,
+           'events': revs, 'launches': launches, 'decode_ticks': steps,
+           'wall_s': wall, 'tokens_per_s': tokens / wall,
+           'ttft_p99_s': report.percentiles['ttft']['p99'],
+           'goodput_pct': report.goodput_pct, 'sched': sched,
+           'ctrl': ctrl, 'tail_ticks': tail_ticks, 'kills': kills,
+           'dumps': list(rec.dumps) if rec is not None else []}
+    check(launches['flash_decode_paged'] == steps > 0
+          and launches['flash_decode'] == 0,
+          f'{name}: K5p launched {launches["flash_decode_paged"]} times '
+          f'(K5 {launches["flash_decode"]}) for {steps} decode ticks')
+    return out
+
+
+def _chaos_partition(name, run):
+    """Gate: every submitted request has exactly one typed terminal, and
+    the goodput classes partition the requests."""
+    res, report = run['result'], run['report']
+    check(res.accounted, f'{name}: a request has no typed terminal')
+    check(report.requests == len(res.submitted)
+          and sum(report.counts.values()) == report.requests,
+          f'{name}: classes {report.counts} do not partition the '
+          f'{len(res.submitted)} requests')
+    for rid, r in res.results.items():
+        check(r.status != 'rejected' or r.reason is not None,
+              f'{name}: {rid} rejected without a typed reason')
+
+
+def _chaos_diverged(run, twin, rids=None):
+    """``(compared, equal in full, diverged)`` over the delivered streams
+    (of ``rids``, default all): a stream diverges unless it is a prefix of
+    the twin's, and equal to it where both completed undegraded."""
+    results, base = run['result'].results, twin['result'].results
+    compared = full = 0
+    bad = []
+    for rid in (rids if rids is not None else sorted(results)):
+        a, b = results.get(rid), base.get(rid)
+        if a is None or b is None:
+            continue
+        n = min(len(a.tokens), len(b.tokens))
+        if n:
+            compared += 1
+            if list(a.tokens)[:n] != list(b.tokens)[:n]:
+                bad.append(rid)
+        if (a.status == b.status == 'completed' and not a.degraded
+                and not b.degraded):
+            full += 1
+            if list(a.tokens) != list(b.tokens):
+                bad.append(rid)
+    return compared, full, sorted(set(bad))
+
+
+def _chaos_streams(name, run, twin, rids=None):
+    """Gate: no delivered stream diverges from the twin's
+    (:func:`_chaos_diverged`); returns ``(compared, equal in full)``."""
+    compared, full, bad = _chaos_diverged(run, twin, rids)
+    check(not bad, f'{name}: streams differ from the twin: {bad}')
+    return compared, full
+
+
+def _chaos_doctor(name, run, trigger):
+    """The port's ``obs doctor --json`` on the run's auto-dumped bundle of
+    ``trigger``."""
+    dumps = [d for d in run['dumps'] if d['trigger'] == trigger]
+    check(dumps, f'{name}: no flight bundle of trigger {trigger}: '
+                 f'{run["dumps"]}')
+    rc, out, err = _obs_cli('doctor', dumps[0]['path'], '--json')
+    check(rc == 0, f'{name}: obs doctor exited {rc}: {err[-2000:]}')
+    incident = json.loads(out)
+    return {'primary': incident['primary'], 'replica': incident['replica']}
+
+
+def _chaos_row(name, run, twin, **extra):
+    row = {'phase': 'chaos_serve', 'case': name,
+           'launches': run['launches'], 'decode_ticks': run['decode_ticks'],
+           'ticks': run['result'].ticks, 'tail_ticks': run['tail_ticks'],
+           'recovered': sorted(e['request_id'] for e in run['events']
+                               if e['event'] == 'request.recovered'
+                               and e['requeued']
+                               and e.get('reason') is None),
+           'healed': sorted(e['request_id'] for e in run['events']
+                            if e['event'] == 'request.recovered'
+                            and e['requeued']
+                            and e.get('reason') == 'kv_corrupt'),
+           'statuses': run['report'].statuses,
+           'goodput_pct': run['goodput_pct'],
+           'twin_goodput_pct': twin['goodput_pct'],
+           'tokens_per_s': run['tokens_per_s'],
+           'twin_tokens_per_s': twin['tokens_per_s'],
+           'ttft_p99_s': run['ttft_p99_s'],
+           'twin_ttft_p99_s': twin['ttft_p99_s'],
+           'wall_s': run['wall_s'], 'virtual_seconds':
+               run['result'].virtual_seconds}
+    row.update(extra)
+    emit(row)
+    return row
+
+
+def _chaos_events(run, event, **match):
+    return [e for e in run['events'] if e['event'] == event
+            and all(e.get(k) == v for k, v in match.items())]
+
+
+def _chaos_crash(torch, ddp, tmp, trace, tick, twin):
+    """replica_crash: r1 killed at CHAOS_CRASH's tick, its loss declared by
+    the probes, its streams recovered equal to the twin's; the logs
+    validate through the port's CLI; the no-recovery twin rejects typed
+    and loses goodput; the doctor names r1."""
+    victim, at = CHAOS_CRASH
+    run = _chaos_run(torch, ddp, tmp, 'crash', trace, tick,
+                     plan=dict(replica_crash=CHAOS_CRASH), flight=True)
+    lost = _chaos_events(run, 'replica.lost')
+    check(run['kills'] == [(victim, at)],
+          f'crash: kills (member, loop tick) {run["kills"]}, planned '
+          f'{CHAOS_CRASH}')
+    check(len(lost) == 1 and lost[0]['target'] == victim
+          and lost[0]['reason'] == 'probe_timeout',
+          f'crash: replica.lost events {lost}')
+    _chaos_partition('crash', run)
+    recovered = [e['request_id'] for e in
+                 _chaos_events(run, 'request.recovered', requeued=True)]
+    check(recovered, f'crash: r1 died at tick {at} with nothing in flight')
+    compared, full = _chaos_streams('crash', run, twin, recovered)
+    check(full >= 1, f'crash: no recovered stream completed undegraded in '
+                     f'both runs ({recovered})')
+    _chaos_streams('crash (all)', run, twin)
+    logs = dict(run['logs'])
+    rc, out, err = _obs_cli('validate', logs['router'], '--require',
+                            'replica.lost,replica.probe,request.recovered')
+    check(rc == 0, f'crash: obs validate router log: {out}{err}')
+    rc, out_r1, err = _obs_cli('validate', logs[victim])
+    check(rc == 0, f'crash: obs validate torn {victim} log: {out_r1}{err}')
+    with open(logs[victim], encoding='utf-8') as fh:
+        torn = fh.read().rsplit('\n', 1)[-1] == TORN_TAIL
+    check(torn, f'crash: the {victim} log is not torn')
+    doctor = _chaos_doctor('crash', run, 'replica_lost')
+    check(doctor == {'primary': 'replica_loss', 'replica': victim},
+          f'crash: doctor says {doctor}')
+    norec = _chaos_run(torch, ddp, tmp, 'crash_norec', trace, tick,
+                       plan=dict(replica_crash=CHAOS_CRASH),
+                       router_kw=dict(max_recoveries=0))
+    _chaos_partition('crash_norec', norec)
+    lost_rejects = sorted(
+        rid for rid, r in norec['result'].results.items()
+        if r.status == 'rejected' and r.reason is not None
+        and r.reason.value == 'replica_lost')
+    check(lost_rejects, 'crash_norec: no typed replica_lost reject')
+    check(norec['goodput_pct'] < run['goodput_pct'],
+          f'crash_norec: goodput {norec["goodput_pct"]} not below '
+          f'{run["goodput_pct"]} with recovery')
+    _chaos_streams('crash_norec', norec, twin)
+    _chaos_row('replica_crash', run, twin,
+               plan={'replica_crash': [victim, at]}, kills=run['kills'],
+               replica_lost=[{k: e[k] for k in ('target', 'reason',
+                                                'in_flight')}
+                             for e in lost],
+               streams_compared=compared, streams_equal_in_full=full,
+               router_log_validates=out.strip().splitlines()[-1],
+               torn_log_validates=out_r1.strip().splitlines()[-1],
+               doctor=doctor, norec_goodput_pct=norec['goodput_pct'],
+               norec_replica_lost_rejects=lost_rejects,
+               norec_launches=norec['launches'],
+               norec_decode_ticks=norec['decode_ticks'])
+    return {'replica_crash': run['launches']['flash_decode_paged'],
+            'replica_crash_norec': norec['launches']['flash_decode_paged']}
+
+
+def _chaos_seams(torch, ddp, tmp, trace, tick, twin):
+    """handoff_crash, probe_blackhole, prefill_crash: one run each; every
+    delivered stream equals the twin's, the terminals partition."""
+    from distributed_dot_product_tpu_torch.obs.events import read_events
+    from distributed_dot_product_tpu_torch.serve import (
+        RouterConfig, load_trace,
+    )
+    launches = {}
+    run = _chaos_run(torch, ddp, tmp, 'handoff', trace, tick,
+                     plan=dict(crash_in_handoff='r1'))
+    lost = _chaos_events(run, 'replica.lost')
+    check(len(lost) == 1 and lost[0]['target'] == 'r1'
+          and lost[0]['reason'] == 'handoff_crash',
+          f'handoff_crash: replica.lost events {lost}')
+    check(_chaos_events(run, 'fault.inject', kind='handoff_crash'),
+          'handoff_crash: no fault.inject')
+    # The request whose handoff crashed r1 is re-placed on the survivor in
+    # the same submit: its route is the first one after the loss and r1's
+    # recoveries (policy 'recovery'), and it goes to r0.
+    after = [e for e in run['events'] if e['event'] == 'router.route'
+             and e['seq'] > lost[0]['seq'] and e['policy'] != 'recovery']
+    check(after and after[0]['target'] == 'r0'
+          and after[0]['policy'] == 'load',
+          f'handoff_crash: first route after the loss {after[:1]}')
+    _chaos_partition('handoff_crash', run)
+    compared, full = _chaos_streams('handoff_crash', run, twin)
+    _chaos_row('handoff_crash', run, twin, replica_lost=[
+        {k: lost[0][k] for k in ('target', 'reason', 'in_flight')}],
+               fallback_request=after[0]['request_id'],
+               streams_compared=compared, streams_equal_in_full=full)
+    launches['handoff_crash'] = run['launches']['flash_decode_paged']
+
+    run = _chaos_run(torch, ddp, tmp, 'blackhole', trace, tick,
+                     plan=dict(probe_blackhole='r1'))
+    lost = _chaos_events(run, 'replica.lost')
+    misses = [e['misses'] for e in _chaos_events(run, 'replica.probe',
+                                                 target='r1',
+                                                 state='missed')]
+    check(len(lost) == 1 and lost[0]['target'] == 'r1'
+          and lost[0]['reason'] == 'probe_timeout'
+          and misses == [1, 2, 3],
+          f'probe_blackhole: replica.lost {lost}, misses {misses}')
+    check(len(_chaos_events(run, 'fault.inject',
+                            kind='probe_blackhole')) == 1,
+          'probe_blackhole: not announced once')
+    _chaos_partition('probe_blackhole', run)
+    compared, full = _chaos_streams('probe_blackhole', run, twin)
+    _chaos_row('probe_blackhole', run, twin, replica_lost=[
+        {k: lost[0][k] for k in ('target', 'reason', 'in_flight')}],
+               probe_misses=misses, streams_compared=compared,
+               streams_equal_in_full=full)
+    launches['probe_blackhole'] = run['launches']['flash_decode_paged']
+
+    run = _chaos_run(torch, ddp, tmp, 'prefill', trace, tick,
+                     plan=dict(prefill_crash=CHAOS_PREFILL_TICK))
+    check(run['kills'] == [('prefill', CHAOS_PREFILL_TICK)],
+          f'prefill_crash: kills (member, loop tick) {run["kills"]}')
+    plost = _chaos_events(run, 'prefill.lost')
+    check(len(plost) == 1 and plost[0]['reason'] == 'probe_timeout'
+          and run['router'].pool.prefill is None,
+          f'prefill_crash: prefill.lost {plost}')
+    check(not _chaos_events(run, 'replica.lost'),
+          'prefill_crash: a decode replica was lost')
+    handoffs = run['router'].registry.snapshot()['counters'].get(
+        'router.handoffs', 0)
+    # Every long prompt routed after the kill prefilled flat on its
+    # replica: no handoff names it (the pool's torn log holds the
+    # handoffs made before the kill), and none waited for the loss to be
+    # declared.
+    killed = _chaos_events(run, 'fault.inject', kind='prefill_crash')
+    check(len(killed) == 1, f'prefill_crash: fault.inject {killed}')
+    prompts = {a.request_id: a.prompt for a in load_trace(trace)}
+    threshold = RouterConfig().prefill_threshold
+    flat_after = sorted(
+        e['request_id'] for e in run['events']
+        if e['event'] == 'router.route' and e['ts'] > killed[0]['ts']
+        and len(prompts[e['request_id']]) - 1 >= threshold)
+    handed = {e['request_id'] for e in read_events(
+        dict(run['logs'])['prefill']) if e['event'] == 'prefill.handoff'}
+    check(flat_after and not handed & set(flat_after),
+          f'prefill_crash: long prompts after the kill {flat_after}, '
+          f'handed off {sorted(handed & set(flat_after))}')
+    _chaos_partition('prefill_crash', run)
+    compared, full = _chaos_streams('prefill_crash', run, twin)
+    _chaos_row('prefill_crash', run, twin,
+               plan={'prefill_crash': CHAOS_PREFILL_TICK},
+               kills=run['kills'],
+               prefill_lost=[{k: plost[0][k] for k in ('target',
+                                                       'reason')}],
+               handoffs_before_kill=handoffs,
+               long_prompts_flat_after_kill=flat_after,
+               streams_compared=compared, streams_equal_in_full=full)
+    launches['prefill_crash'] = run['launches']['flash_decode_paged']
+    return launches
+
+
+def _chaos_corrupt(torch, ddp, tmp, trace, tick, twin):
+    """page_corrupt: the flip caught by the every-tick scrub before any
+    poisoned token is delivered, the page quarantined, its riders healed,
+    every delivered stream the twin's; the checksums-off twin delivers a
+    wrong stream; the doctor names r0."""
+    victim, page_index, at = CHAOS_CORRUPT
+    scrub = dict(integrity_interval=0.0)
+    run = _chaos_run(torch, ddp, tmp, 'corrupt', trace, tick,
+                     plan=dict(page_corrupt=CHAOS_CORRUPT),
+                     router_kw=scrub, flight=True)
+    flips = run['sched'].corrupted
+    corrupt = _chaos_events(run, 'kv.corrupt')
+    check(len(flips) == 1, f'page_corrupt: flips landed {flips}')
+    _, page, flip_tick = flips[0]
+    check(len(corrupt) >= len(flips) and corrupt[0]['target'] == victim
+          and page in corrupt[0]['pages'],
+          f'page_corrupt: kv.corrupt {corrupt} for the flip of page {page}')
+    r0 = next(r for r in run['router'].pool.replicas if r.name == victim)
+    check(page in r0.engine.pool.quarantined,
+          f'page_corrupt: page {page} not quarantined')
+    healed = [e['request_id'] for e in
+              _chaos_events(run, 'request.recovered', reason='kv_corrupt',
+                            requeued=True)]
+    check(healed, 'page_corrupt: the flip had no victim to heal')
+    _chaos_partition('page_corrupt', run)
+    compared, full = _chaos_streams('page_corrupt', run, twin)
+    doctor = _chaos_doctor('page_corrupt', run, 'kv_corrupt')
+    check(doctor == {'primary': 'kv_corruption', 'replica': victim},
+          f'page_corrupt: doctor says {doctor}')
+    rc, out, err = _obs_cli('validate', dict(run['logs'])['router'],
+                            '--require',
+                            'kv.corrupt,fault.inject,request.recovered')
+    check(rc == 0, f'page_corrupt: obs validate router log: {out}{err}')
+    nointeg = _chaos_run(torch, ddp, tmp, 'corrupt_nointeg', trace, tick,
+                         plan=dict(page_corrupt=CHAOS_CORRUPT),
+                         kv_checksums=False)
+    check(len(nointeg['sched'].corrupted) == 1,
+          'page_corrupt_nointeg: the flip did not land')
+    _, _, wrong = _chaos_diverged(nointeg, twin)
+    check(wrong, 'page_corrupt_nointeg: no wrong stream was delivered: the '
+                 'flip changed nothing the comparison can see')
+    _chaos_row('page_corrupt', run, twin, plan={'page_corrupt': [
+        victim, page_index, at]}, flipped_page=page, flip_tick=flip_tick,
+               kv_corrupt=[{k: e[k] for k in ('target', 'pages', 'site')}
+                           for e in corrupt],
+               quarantined=sorted(r0.engine.pool.quarantined),
+               streams_compared=compared, streams_equal_in_full=full,
+               doctor=doctor, nointeg_wrong_streams=wrong,
+               nointeg_goodput_pct=nointeg['goodput_pct'],
+               nointeg_launches=nointeg['launches'])
+    return {'page_corrupt': run['launches']['flash_decode_paged'],
+            'page_corrupt_nointeg':
+                nointeg['launches']['flash_decode_paged']}
+
+
+def _control_history(run):
+    return [{k: v for k, v in e.items() if k != 'seq'}
+            for e in run['events']
+            if e['event'] in ('control.adjust', 'control.scale',
+                              'control.drain')]
+
+
+def _chaos_control(torch, ddp, tmp, trace, tick, twin):
+    """control: the Controller on the router scales up under the trace and
+    down through drains in the idle tail, every request typed; a second
+    run repeats the control history event for event; goodput beside the
+    static topology's."""
+    from distributed_dot_product_tpu_torch.obs.slo import SloSpec, goodput
+    start = dict(decode_replicas=CHAOS_CONTROL_REPLICAS)
+    runs = [_chaos_run(torch, ddp, tmp, f'control_{i}', trace, tick,
+                       control=CHAOS_CONTROL, tail=CHAOS_TAIL, **start)
+            for i in range(2)]
+    static = _chaos_run(torch, ddp, tmp, 'static', trace, tick, **start)
+    run = runs[0]
+    history = _control_history(run)
+    ups = [e for e in history if e['event'] == 'control.scale'
+           and e['direction'] == 'up']
+    downs = [e for e in history if e['event'] == 'control.scale'
+             and e['direction'] == 'down']
+    drains = [e for e in history if e['event'] == 'control.drain']
+    check(ups and downs and len(drains) == len(downs),
+          f'control: {len(ups)} scale-ups, {len(downs)} scale-downs, '
+          f'{len(drains)} drains')
+    retired = [r.name for r in run['router'].pool.retired]
+    for i, e in enumerate(history):
+        if e['event'] == 'control.scale' and e['direction'] == 'down':
+            check(i and history[i - 1]['event'] == 'control.drain'
+                  and history[i - 1]['target'] == e['target']
+                  and e['target'] in retired,
+                  f'control: scale-down of {e["target"]} without its drain '
+                  f'(drained and retired: {retired})')
+    for r in runs + [static]:
+        _chaos_partition('control', r)
+        _chaos_streams('control', r, twin)
+    check(_control_history(runs[1]) == history,
+          'control: the second run took another control history')
+    load_slo = SloSpec(**LOAD_SLO)
+    good = {name: goodput(r['logs'], load_slo).goodput_pct
+            for name, r in (('controlled', run), ('static', static))}
+    # The CPU rehearsal at these shapes (the schedule reads no token
+    # values) puts the controlled topology above the static one under
+    # LOAD_SLO; the card must keep that order.
+    check(good['controlled'] > good['static'],
+          f'control: goodput under {LOAD_SLO} {good}')
+    _chaos_row('control', run, twin, control=CHAOS_CONTROL,
+               start_replicas=CHAOS_CONTROL_REPLICAS,
+               scale_ups=len(ups), scale_downs=len(downs),
+               adjusts=sum(e['event'] == 'control.adjust' for e in history),
+               peak_replicas=max([CHAOS_CONTROL_REPLICAS]
+                                 + [e['replicas'] for e in ups]),
+               members=[r.name for r in run['router'].pool.replicas
+                        + run['router'].pool.retired],
+               retired=retired,
+               second_run_same_history=True,
+               static_goodput_pct=static['goodput_pct'],
+               load_slo=LOAD_SLO, load_slo_goodput_pct=good,
+               static_tokens_per_s=static['tokens_per_s'],
+               static_ttft_p99_s=static['ttft_p99_s'],
+               static_launches=static['launches'])
+    return {'control': run['launches']['flash_decode_paged'],
+            'control_again': runs[1]['launches']['flash_decode_paged'],
+            'static': static['launches']['flash_decode_paged']}
+
+
+def phase_chaos_serve(torch, ddp):
+    """Chaos and control through the 1 x 2 topology on one card: a replica
+    crash (and its no-recovery twin), a crash in the handoff, a probe
+    blackhole, a prefill-pool crash, a page bit flip (and its
+    checksums-off twin) and the controller (twice, beside the static
+    topology), each against the crash-free single engine on the same
+    seeded trace."""
+    import tempfile
+    from distributed_dot_product_tpu_torch.serve import (
+        LoadGenConfig, default_tenants, generate_trace, save_trace,
+    )
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix='chaos_serve_')
+    try:
+        cfg = LoadGenConfig(seed=LOAD_SEED, rate=LOAD_RATE,
+                            requests=LOAD_REQUESTS, vocab=VOCAB,
+                            tenants=default_tenants(2))
+        trace = os.path.join(tmp, 'trace.json')
+        save_trace(trace, generate_trace(cfg))
+        tick = cfg.tick_seconds
+        twin = _chaos_twin(torch, ddp, trace, tick,
+                           os.path.join(tmp, 'twin.jsonl'))
+        emit({'phase': 'chaos_serve', 'case': 'twin',
+              'requests': LOAD_REQUESTS, 'ticks': twin['result'].ticks,
+              'statuses': twin['report'].statuses,
+              'goodput_pct': twin['goodput_pct'],
+              'tokens_per_s': twin['tokens_per_s'],
+              'ttft_p99_s': twin['ttft_p99_s'], 'wall_s': twin['wall_s']})
+        launches = {}
+        for case in (_chaos_crash, _chaos_seams, _chaos_corrupt,
+                     _chaos_control):
+            launches.update(case(torch, ddp, tmp, trace, tick, twin))
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit({'phase': 'chaos_serve', 'case': 'done',
+          'seconds': time.perf_counter() - t_phase})
+    return {'launches': launches}
+
+
 def main():
     try:
         import torch
@@ -6808,6 +7423,7 @@ def main():
             ('wq8_serve', lambda: phase_wq8_serve(torch, ddp, flush)),
             ('load_serve', lambda: phase_load_serve(torch, ddp)),
             ('router_serve', lambda: phase_router_serve(torch, ddp, flush)),
+            ('chaos_serve', lambda: phase_chaos_serve(torch, ddp)),
             ('kv_sharded_serve',
              lambda: phase_kv_sharded_serve(torch, ddp, flush, gen)),
             ('int8_decode', lambda: phase_int8_decode(torch, ddp)),
@@ -6861,6 +7477,7 @@ def main():
     wq8, load = res['wq8_serve']['launches'], res['load_serve']
     wq8_lm, knobs = res['wq8_lm'], res['train_knobs']
     router = res['router_serve']
+    chaos = res['chaos_serve']
 
     def knob_paths(kernel):
         """The kernel's launches on train_knobs's runs (2 steps under each
@@ -7084,7 +7701,9 @@ def main():
                      for n in ('paged', 'paged_again')},
                  'load_serve': load,
                  **{f'router_serve_{case}': n
-                    for case, n in router['launches'].items()}},
+                    for case, n in router['launches'].items()},
+                 **{f'chaos_serve_{case}': n
+                    for case, n in chaos['launches'].items()}},
              max_abs_err=k5p['max_abs_err'],
              variants=k5p['variants'],
              **{key: k5p[key] for key in ('ms', 'plain_ms', 'library_ms',

@@ -26,12 +26,14 @@ incident-response half:
 
 Copied from ``distributed_dot_product_tpu/obs/flight.py``. The device
 samples read ``torch.cuda`` memory statistics, the MANIFEST names the
-torch version, and the reference's critpath section is left out with
-the critical-path module it summarises.
+torch version, and every bundle carries the reference's ``critpath``
+section (the ring window's phase summary, ``obs/critpath.py``).
 
 Triggers (each emits a ``postmortem.dump`` event): the serving
 watchdog's stall callback, an unhandled scheduler-loop exception, a
-NaN-quarantine storm, SIGTERM (:meth:`FlightRecorder.install_sigterm`),
+NaN-quarantine storm, an anomaly breach (obs/anomaly.py), a replica loss
+or a corrupted page (serve/router.py), SIGTERM
+(:meth:`FlightRecorder.install_sigterm`),
 and manual calls. Auto triggers go through :meth:`FlightRecorder
 .maybe_dump`, which rate-limits per trigger so a stall that repeats
 does not dump a storm of bundles.
@@ -455,6 +457,32 @@ def remove_provider(name, fn=None):
     replacement's section)."""
     if fn is None or _PROVIDERS.get(name) is fn:
         _PROVIDERS.pop(name, None)
+
+
+def _critpath_section():
+    """Stock provider: the critpath summary of the requests in the
+    ring's event window — every post-mortem bundle answers "where was
+    the time going when this happened" without the operator replaying
+    the full log (``obs doctor`` names the dominant phase from this
+    section). Reads the installed recorder's ring under its lock; an
+    empty/absent ring yields an empty summary, never an error."""
+    rec = _RECORDER
+    if rec is None:
+        return {'requests': 0, 'complete': 0, 'partial': 0,
+                'partition_failures': [], 'phases': {}}
+    with rec._lock:
+        lines = [line for kind, line in rec._ring if kind == 'event']
+    records = []
+    for line in lines:
+        try:
+            records.append(json.loads(line))
+        except json.JSONDecodeError:
+            continue            # torn tee line: skip, never block a dump
+    from distributed_dot_product_tpu_torch.obs import critpath as obs_critpath
+    return obs_critpath.summarize_records(records)
+
+
+add_provider('critpath', _critpath_section)
 
 
 def get_recorder() -> Optional[FlightRecorder]:

@@ -24,9 +24,14 @@ derivation:
   ``slo.violation`` events into the active log, exactly mirroring the
   ``perf check`` gate (obs/perf.py).
 
-Copied from ``distributed_dot_product_tpu/obs/slo.py`` (the reference's
-``obs slo`` command line is not ported): the same log gives the same
-report.
+CLI (``python -m distributed_dot_product_tpu_torch.obs slo ...``)::
+
+    obs slo report LOG [LOG...] --ttft 0.25 --per-token 0.05 [--json]
+    obs slo report LOG --spec spec.json --baseline-out SLO_BASELINE.json
+    obs slo check LOG [LOG...] --against SLO_BASELINE.json
+
+Copied from ``distributed_dot_product_tpu/obs/slo.py``: the same log gives
+the same report.
 
 Classification semantics: ``rejected`` = typed shed (at submit or in
 queue); ``incomplete`` = the stream did not complete — either a

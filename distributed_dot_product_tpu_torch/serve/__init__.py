@@ -15,7 +15,9 @@ and disaggregated serving (:mod:`.replica`, :mod:`.router`): a prefill
 pool handing prompts' KV pages to decode replicas behind a
 :class:`Router` with prefix-affinity placement, liveness probes, stream
 recovery and page-integrity healing, which ``run_trace`` drives like one
-Scheduler.
+Scheduler; seeded replica chaos on it (:class:`ChaosSchedule`) and the
+closed-loop controller (:mod:`.control`: watchdog-driven watermark and
+queue-bound actuation, elastic decode scaling with drain).
 
 Usage::
 
@@ -31,6 +33,9 @@ from distributed_dot_product_tpu_torch.serve.admission import (  # noqa: F401
     AdmissionController, RejectedError, RejectReason, Request,
     RequestResult,
 )
+from distributed_dot_product_tpu_torch.serve.control import (  # noqa: F401
+    ControlConfig, Controller,
+)
 from distributed_dot_product_tpu_torch.serve.engine import (  # noqa: F401
     KernelEngine, PageCorruptionError,
 )
@@ -41,9 +46,9 @@ from distributed_dot_product_tpu_torch.serve.health import (  # noqa: F401
     HealthMonitor, Liveness, Readiness,
 )
 from distributed_dot_product_tpu_torch.serve.loadgen import (  # noqa: F401
-    Arrival, LoadGenConfig, LoadResult, TenantSpec, VirtualClock,
-    default_tenants, generate_trace, load_trace, run_load, run_trace,
-    save_trace,
+    Arrival, ChaosSchedule, LoadGenConfig, LoadResult, TenantSpec,
+    VirtualClock, default_tenants, generate_trace, load_trace, run_load,
+    run_trace, save_trace,
 )
 from distributed_dot_product_tpu_torch.serve.policy import (  # noqa: F401
     PolicyConfig, SchedulingPolicy, TenantPolicy,

@@ -36,9 +36,12 @@ Usage::
     # then: obs.slo.goodput('load.jsonl', SloSpec(ttft=0.2, ...))
 
 ``run_trace`` drives anything with the Scheduler's surface, a
-``serve.router.Router`` over a whole topology included. Not ported yet
-(ROADMAP §1 item 4b): the closed-loop controller (``run_load(control=...)``
-raises ``NotImplementedError``) and the router-driven ``ChaosSchedule``.
+``serve.router.Router`` over a whole topology included; a
+:class:`ChaosSchedule` as its ``on_tick`` fires a seeded
+:class:`~distributed_dot_product_tpu_torch.utils.faults.ChaosPlan` at
+exact ticks, and ``run_load(control=...)`` closes the loop through a
+:class:`~distributed_dot_product_tpu_torch.serve.control.Controller` on
+the run's virtual clock.
 """
 
 import dataclasses
@@ -57,7 +60,7 @@ from distributed_dot_product_tpu_torch.serve.scheduler import (
 __all__ = ['TenantSpec', 'LoadGenConfig', 'Arrival', 'VirtualClock',
            'generate_trace', 'run_trace', 'run_load', 'LoadResult',
            'default_tenants', 'TRACE_SCHEMA', 'save_trace',
-           'load_trace']
+           'load_trace', 'ChaosSchedule']
 
 
 class VirtualClock:
@@ -382,6 +385,96 @@ def run_trace(scheduler: Scheduler, trace: List[Arrival],
         ticks=ticks)
 
 
+class ChaosSchedule:
+    """Seeded chaos timing for a :func:`run_trace` drive: counts the
+    loop's ticks and fires the plan's replica crash at EXACTLY its
+    tick. Tick indices are virtual-time coordinates — nothing here
+    reads a clock — so the same plan over the same serialized trace
+    replays the crash at the same virtual instant every run, which is
+    what makes the chaos benchmark's recovered-vs-twin token
+    comparison a bit-identity check instead of a flake. Use as the
+    run's ``on_tick``::
+
+        chaos = ChaosSchedule(ChaosInjector(plan), router)
+        run_trace(router, trace, clock, on_tick=chaos)
+
+    The kill lands on the MEMBER (``DecodeReplica.kill`` — its event
+    log tears mid-record); the ROUTER is told nothing. Its liveness
+    probes must detect the silence and declare the loss, exactly as
+    with a real dead process. An inner ``on_tick`` (a controller's)
+    chains after the crash check.
+
+    The same discipline covers the other two seams: a planned
+    prefill-pool crash kills the pool member directly
+    (``PrefillPool.kill``), and a planned page corruption flips one
+    bit of the victim engine's KV pool in place (``flip_page_bit``,
+    outside every kernel) — the router learns of either only through
+    its own probes/checksums. The flip's page spec
+    indexes the victim's tracked (registry) pages in sorted order and
+    defers to the first tick that has any, so the same seeded trace
+    poisons the same prefix page every replay — including on a
+    checksums-off twin, which is what makes the silent-wrong-token
+    comparison measurable."""
+
+    def __init__(self, injector, router, on_tick=None):
+        self.injector = injector
+        self.router = router
+        self.on_tick = on_tick
+        self.tick = 0
+        self.killed = []
+        self.corrupted = []          # (replica, page, tick) flips landed
+        self._pending_corrupt = None
+
+    def __call__(self):
+        victim = self.injector.crash_due(self.tick)
+        if victim is not None:
+            replica = next((r for r in self.router.pool.replicas
+                            if r.name == victim), None)
+            if replica is not None and replica.alive:
+                replica.kill()
+                self.killed.append(victim)
+        if self.injector.prefill_crash_due(self.tick):
+            prefill = self.router.pool.prefill
+            if prefill is not None and prefill.alive:
+                prefill.kill()
+        due = self.injector.corrupt_due(self.tick)
+        if due is not None:
+            self._pending_corrupt = due
+        if self._pending_corrupt is not None:
+            self._pending_corrupt = self._flip(self._pending_corrupt)
+        self.tick += 1
+        if self.on_tick is not None:
+            self.on_tick()
+
+    def _flip(self, pending):
+        """Land (or defer) a planned bit flip. Returns the pending spec
+        when the victim has no tracked page yet, None once landed (or
+        when the victim left the pool). Page ids come from the
+        engine's own tracked-page enumeration, so under ``kv_shards``
+        the index resolves over GLOBAL (stacked-row) ids and the flip
+        lands inside whichever shard owns that page — the detection
+        path then names that shard in ``kv.corrupt``."""
+        name, index = pending
+        replica = next((r for r in self.router.pool.replicas
+                        if r.name == name), None)
+        if replica is None:
+            return None
+        eng = replica.engine
+        tracked = eng.tracked_pages()
+        if not tracked:
+            return pending
+        page = tracked[index % len(tracked)]
+        # Flips an EXPONENT bit of the page's K bytes (byte 3: the high
+        # byte of the first float32 value, or of the second bfloat16
+        # one): the corruption is semantically loud — an undetected flip
+        # changes delivered tokens, which is exactly what the
+        # no-integrity twin must demonstrate. The checksum does not care
+        # which bit flipped; the comparison row does.
+        eng.flip_page_bit(page)
+        self.corrupted.append((name, page, self.tick))
+        return None
+
+
 def run_load(cfg: LoadGenConfig, *, engine, serve_config=None,
              registry=None, event_log=None, fault_injector=False,
              clock=None, policy=None, control=None) -> LoadResult:
@@ -395,14 +488,14 @@ def run_load(cfg: LoadGenConfig, *, engine, serve_config=None,
     (the default trace is a LOAD experiment, not a fault one); pass an
     injector to combine both.
 
-    ``policy`` (a :class:`~distributed_dot_product_tpu_torch.serve.policy
-    .PolicyConfig`) arms fair-share/priority admission and
-    deadline-aware eviction. ``control`` (the reference's closed-loop
-    controller) is not ported yet and raises ``NotImplementedError``."""
-    if control is not None:
-        raise NotImplementedError(
-            'run_load(control=...) needs the closed-loop Controller '
-            '(serve/control.py), not ported yet: ROADMAP.md §1 item 4b')
+    Closed-loop extras: ``policy`` (a
+    :class:`~distributed_dot_product_tpu_torch.serve.policy.PolicyConfig`)
+    arms fair-share/priority admission and
+    deadline-aware eviction; ``control`` (a
+    :class:`~distributed_dot_product_tpu_torch.serve.control.ControlConfig`)
+    builds a :class:`~distributed_dot_product_tpu_torch.serve.control
+    .Controller` on the run's virtual clock — its stock anomaly watchdog
+    and every knob change then replay bit-identically with the seed."""
     cfg.validate()
     clock = clock or VirtualClock()
     if event_log is not None:
@@ -421,6 +514,13 @@ def run_load(cfg: LoadGenConfig, *, engine, serve_config=None,
     sched = Scheduler(engine, serve_config, clock=clock,
                       registry=registry, event_log=event_log,
                       fault_injector=fault_injector)
+    if control is not None:
+        from distributed_dot_product_tpu_torch.serve.control import (
+            Controller,
+        )
+        controller = Controller(scheduler=sched, config=control,
+                                clock=clock, event_log=event_log)
+        sched.on_tick = lambda _s: controller.tick()
     try:
         return run_trace(sched, trace, clock,
                          tick_seconds=cfg.tick_seconds)

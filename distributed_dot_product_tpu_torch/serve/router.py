@@ -49,14 +49,23 @@ past budget). An optional scrub (``integrity_interval``) re-verifies
 every tracked digest on the router clock. The prefill pool is probed
 like a replica; its loss falls back to flat prefill.
 
-Not ported yet (ROADMAP.md §1 item 4b): the chaos injector.
-``Router(chaos=...)`` and ``build_serving(chaos=...)`` with anything but
-None raise ``NotImplementedError``; the two seams it fills (the probe
-blackhole, the crash on handoff) stay in :meth:`Router._probe_ok` and
-:meth:`Router._handoff`. No wall-clock read decides placement: the
-``build_seconds`` / ``transfer_seconds`` fields of ``prefill.handoff``
-are the only ``perf_counter`` reads, and they time the host's calls (the
-card may still be copying when ``adopt_prefix`` returns).
+**Chaos.** ``Router(chaos=...)`` / ``build_serving(chaos=...)`` take a
+:class:`~distributed_dot_product_tpu_torch.utils.faults.ChaosInjector`;
+the router asks it at its two seams: right after a KV handoff lands
+(:meth:`Router._handoff` — a planned crash kills the replica there, pages
+adopted, placement not yet recorded, and the request is re-placed on a
+survivor) and before counting a probe answer (:meth:`Router._probe_ok` — a
+blackholed member never answers, decode replica or prefill pool, so its
+loss comes from the probe timeout). The tick-keyed faults (a replica or
+the prefill pool killed, a page bit flipped) are fired by
+:class:`~distributed_dot_product_tpu_torch.serve.loadgen.ChaosSchedule`
+on the member itself; the router learns of them only through its own
+probes and checksums.
+
+No wall-clock read decides placement: the ``build_seconds`` /
+``transfer_seconds`` fields of ``prefill.handoff`` are the only
+``perf_counter`` reads, and they time the host's calls (the card may still
+be copying when ``adopt_prefix`` returns).
 """
 
 import collections
@@ -88,13 +97,6 @@ __all__ = ['RouterConfig', 'Router', 'build_serving']
 # Placement and the topology tick are pure functions of the injected
 # clock, the load snapshot and the request stream.
 GRAPHLINT_TICK_ROOTS = ('Router.step', 'Router.submit')
-
-
-def _no_chaos(chaos):
-    if chaos is not None:
-        raise NotImplementedError(
-            'the chaos injector (ChaosPlan / ChaosInjector) is not ported '
-            'yet: ROADMAP.md §1 item 4b')
 
 
 @dataclasses.dataclass
@@ -141,13 +143,12 @@ class Router:
                  config: Optional[RouterConfig] = None, *,
                  clock=time.monotonic, event_log=None, registry=None,
                  chaos=None):
-        _no_chaos(chaos)
         self.pool = pool
         self.cfg = config or RouterConfig()
         self.clock = clock
         self.event_log = event_log
         self.registry = registry or tracing.MetricsRegistry()
-        self.chaos = chaos
+        self.chaos = chaos          # ChaosInjector (utils/faults.py)
         self._by_name = {r.name: r for r in pool.replicas}
         self._sessions = {}
         # The recovery ledger, keyed by request id: everything needed to
@@ -302,8 +303,10 @@ class Router:
             prefill.release(handle)
         if self.chaos is not None \
                 and self.chaos.crash_on_handoff(replica.name):
-            # The crash-on-handoff seam (ROADMAP §1 item 4b fills it):
-            # pages adopted, placement not yet recorded.
+            # The worst crash instant: pages adopted, placement not yet
+            # recorded. The replica dies HERE — its other streams recover
+            # through the ledger, and submit() re-places this request on a
+            # survivor (it was never submitted anywhere).
             self.mark_lost(replica.name, reason='handoff_crash')
             return None
         self._cache_prefix(key, replica, pid, rows)
@@ -458,9 +461,9 @@ class Router:
 
     # -- failure domains -------------------------------------------------
     def _probe_ok(self, member):
-        """One liveness probe: does the member answer? A blackholed
-        member (the chaos seam ROADMAP §1 item 4b fills) and a dead one
-        look identical from here: loss is declared from the ROUTER's
+        """One liveness probe: does the member answer? A chaos blackhole
+        (process alive, network dead) and a dead member look identical
+        from here: loss is declared from the ROUTER's
         observation, never from shared memory."""
         if self.chaos is not None and self.chaos.blackholed(member.name):
             return False
@@ -863,11 +866,17 @@ def build_serving(topology: Optional[TopologyConfig] = None, *,
     (one paged engine + scheduler + event log per decode replica, plus the
     prefill pool), a router event log under ``log_dir``, and the
     :class:`Router` over it. The returned router's ``pool.logs()`` is the
-    labeled multi-source set the obs layer merges."""
-    _no_chaos(chaos)
+    labeled multi-source set the obs layer merges. ``chaos`` (a
+    :class:`~distributed_dot_product_tpu_torch.utils.faults.ChaosInjector`)
+    arms the router's chaos seams; an injector with no ``event_log`` of
+    its own narrates into the router's log."""
     pool = ReplicaPool(topology, serve_config=serve_config,
                        clock=clock, log_dir=log_dir, mesh=mesh,
                        fault_injector=fault_injector)
-    return Router(pool, router_config, clock=clock,
-                  event_log=pool.open_log('router'),
-                  registry=registry)
+    router = Router(pool, router_config, clock=clock,
+                    event_log=pool.open_log('router'),
+                    registry=registry, chaos=chaos)
+    if chaos is not None and chaos.event_log is None:
+        # Injections narrate next to the loss/recovery arc they cause.
+        chaos.event_log = router.event_log
+    return router

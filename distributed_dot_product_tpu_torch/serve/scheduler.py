@@ -66,11 +66,15 @@ and :meth:`Scheduler.requests_on_slots`, :meth:`Scheduler
 .queued_with_prefix` and :meth:`Scheduler.expel` serve corruption
 containment.
 
+Control plane (``serve/control.py``): :meth:`Scheduler.set_watermark`
+and :meth:`Scheduler.set_queue_limit` are the controller's actuators, and
+``ServeConfig.anomaly`` (or ``Scheduler(anomaly=...)``) arms the
+``obs/anomaly.py`` watchdog, evaluated from the tick.
+
 Copied from ``distributed_dot_product_tpu/serve/scheduler.py``. Not
-ported yet (ROADMAP): the anomaly watchdog, the adaptive profiler
-captures and the controller's actuators (``set_watermark``,
-``set_queue_limit``); the matching ``ServeConfig`` fields do not exist,
-so setting one raises ``TypeError``.
+ported yet (ROADMAP §1 item 5): the adaptive profiler captures
+(``profile_ttft_p99`` and its siblings need ``obs/devmon.py``); those
+``ServeConfig`` fields do not exist, so setting one raises ``TypeError``.
 """
 
 import dataclasses
@@ -149,6 +153,11 @@ class ServeConfig:
     # deadline-aware eviction, and TTFT-tuned prefill interleaving.
     # None keeps the mechanical FIFO / longest-idle behavior.
     policy: Optional[object] = None
+    # Anomaly watchdog (obs/anomaly.py): True arms the stock catalog
+    # (TTFT p99, tokens/s, queue depth, pages_free, reject rate) over
+    # this scheduler's registry, evaluated from the tick (throttled in
+    # REAL time). Pass a built AnomalyWatchdog for custom watches.
+    anomaly: bool = False
 
 
 class _SlotState(enum.Enum):
@@ -196,7 +205,7 @@ class Scheduler:
                  registry: Optional[tracing.MetricsRegistry] = None,
                  health: Optional[HealthMonitor] = None,
                  on_tick: Optional[Callable] = None, event_log=None,
-                 proposer=None):
+                 proposer=None, anomaly=None):
         self.engine = engine
         # Paged engines gate admission by FREE PAGES, not free slots,
         # and join page exhaustion into the degrade→evict→reject
@@ -329,6 +338,21 @@ class Scheduler:
         # quarantines — `flight_nan_storm` of them within
         # `flight_nan_window` steps triggers one post-mortem dump.
         self._quarantine_steps = []
+        # Anomaly watchdog: an explicit one wins; cfg.anomaly=True
+        # builds the stock catalog over THIS scheduler's registry.
+        if anomaly is not None:
+            self._anomaly = anomaly
+        elif self.cfg.anomaly:
+            from distributed_dot_product_tpu_torch.obs.anomaly import (
+                AnomalyWatchdog, default_watches,
+            )
+            self._anomaly = AnomalyWatchdog(
+                self.registry,
+                default_watches(queue_limit=self.cfg.queue_limit,
+                                paged=self._paged),
+                event_log=event_log)
+        else:
+            self._anomaly = None
         # Every post-mortem bundle (including an HTTP /dump with no
         # scheduler in hand) embeds this scheduler's introspection.
         # ONE bound-method object, captured here: attribute access
@@ -1102,6 +1126,30 @@ class Scheduler:
             out['free_pages'] = self.engine.free_pages
         return out
 
+    # -- control-plane actuation (serve/control.py) --------------------
+    def set_watermark(self, value):
+        """Move the degradation watermark (controller actuation):
+        admission's threshold and the readiness ladder's move together
+        — the two copies can never drift. Returns the clamped value."""
+        value = min(1.0, max(0.05, float(value)))
+        self.cfg.degrade_watermark = value
+        self.admission.degrade_watermark = value
+        return value
+
+    def set_queue_limit(self, limit):
+        """Resize the admission bound (controller actuation): a
+        tightened bound flips ``accepting`` sooner, which is what
+        spills new arrivals to a standby replica through the router's
+        least-loaded ladder. Already-queued requests are never shed by
+        a shrink — the bound gates PUSHES only. Mirrors into
+        ``cfg.queue_limit`` like :meth:`set_watermark` does, so a
+        post-mortem bundle's introspection reports the bound the
+        incident actually ran under. Returns the clamped value."""
+        limit = max(1, int(limit))
+        self.cfg.queue_limit = limit
+        self.admission.queue_limit = limit
+        return limit
+
     def drain(self):
         """Preempt every in-flight request and empty the queue — the
         scale-down arc: each busy slot emits ``serve.preempt``
@@ -1325,8 +1373,16 @@ class Scheduler:
             self._g_shared.set(stats['shared_pages'])
         # Flight-recorder sample (throttled inside to REAL seconds;
         # the shared null recorder makes the disabled path one method
-        # call, no allocation).
+        # call, no allocation) and the anomaly watchdog's evaluation
+        # pass (same real-time throttle).
         obs_flight.recorder().sample()
+        if self._anomaly is not None:
+            try:
+                self._anomaly.tick()
+            except Exception as e:
+                # A broken detector must never down the serving loop.
+                tracing.log_exception('scheduler.anomaly_tick', e,
+                                      registry=self.registry)
         self._update_readiness()
         if ran_decode:
             # Close the dispatch-floor loop for this tick: the REAL

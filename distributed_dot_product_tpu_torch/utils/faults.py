@@ -24,20 +24,30 @@ Serving faults: a stuck decode step (the watchdog must fire), NaN logits
 in one slot (the per-slot quarantine must absorb them), and a client
 abandoning mid-stream.
 
+Replica-scoped chaos for the disaggregated topology (:class:`ChaosPlan`,
+:class:`ChaosInjector`): a decode replica killed at a virtual tick or in
+the middle of a KV handoff, a replica whose probes go unanswered, one bit
+flipped in a tracked KV page, the prefill pool killed. Everything is keyed
+by replica name and virtual tick, so a seeded trace replays the same fault
+at the same instant (``serve/loadgen.py`` :class:`ChaosSchedule` fires the
+tick-keyed ones; the router asks the handoff and probe hooks).
+
 Env knobs: :func:`plan_from_env` reads ``DDP_TPU_FAULT_NAN_STEPS``,
 ``_IO_ERRORS``, ``_CRASH_SAVE_STEP`` and ``_SIGTERM_STEP`` (the training
 loop reads them when no injector is passed); :func:`serve_plan_from_env`
 reads ``DDP_TPU_FAULT_STUCK_STEP``, ``_STUCK_SECONDS``,
 ``_NAN_DECODE_STEP``, ``_NAN_DECODE_SLOT``, ``_ABANDON_REQUEST``,
 ``_ABANDON_AFTER``, ``_BURST`` and ``_NAN_REPEAT`` (the scheduler reads
-them when no injector is passed).
+them when no injector is passed); :func:`chaos_plan_from_env` reads
+``DDP_TPU_FAULT_REPLICA_CRASH``, ``_HANDOFF_CRASH``, ``_PROBE_BLACKHOLE``,
+``_PAGE_CORRUPT`` and ``_PREFILL_CRASH``.
 """
 
 import dataclasses
 import os
 import signal
 import time
-from typing import FrozenSet, Optional
+from typing import FrozenSet, Optional, Tuple
 
 import torch
 
@@ -46,7 +56,9 @@ from distributed_dot_product_tpu_torch.utils import checkpoint as _ckpt
 
 __all__ = ['FaultPlan', 'FaultInjector', 'SimulatedCrash', 'plan_from_env',
            'poison_batch', 'ServeFaultPlan', 'ServeFaultInjector',
-           'serve_plan_from_env', 'burst_prompts']
+           'serve_plan_from_env', 'burst_prompts',
+           'ChaosPlan', 'ChaosInjector', 'chaos_plan_from_env',
+           'ChaosSpecError']
 
 
 class SimulatedCrash(BaseException):
@@ -373,4 +385,212 @@ class ServeFaultInjector:
         obs_events.emit('fault.inject', _log=self.event_log,
                         kind='abandon', admit_index=admit_index,
                         tokens_done=tokens_done)
+        return True
+
+
+# ---------------------------------------------------------------------------
+# Replica-scoped chaos (serve/replica.py, serve/router.py)
+#
+# The disaggregated layer's failure domain is a whole decode REPLICA, not
+# a slot: a crashed replica takes its in-flight streams, its paged KV and
+# its share of the cluster prefix cache down at once. Every knob here is
+# keyed by replica name and virtual-time tick so a crash replays
+# bit-identically (serve/loadgen.py ChaosSchedule drives crash_due from
+# run_trace's on_tick; the router consults the handoff/probe hooks).
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ChaosPlan:
+    """Replica-scoped faults, keyed by name + virtual tick. Immutable;
+    runtime one-shot state lives in the :class:`ChaosInjector`."""
+    # Kill this replica when the loadgen reaches this tick (name, tick).
+    replica_crash: Optional[Tuple[str, int]] = None
+    # Kill this replica DURING its next prefill->decode KV handoff —
+    # after adopt_prefix, before the router records the placement (the
+    # worst moment: pages adopted, stream never admitted).
+    crash_in_handoff: Optional[str] = None
+    # This replica stops answering router liveness probes (process
+    # alive, network dead): loss must come from the probe timeout path.
+    probe_blackhole: Optional[str] = None
+    # Flip one bit in a live KV page of this replica at this tick
+    # (name, page, tick). `page` indexes the replica's TRACKED
+    # (registry) pages — sorted order, modulo the tracked count — so a
+    # seeded trace corrupts the same prefix page whatever the pool's
+    # allocation history; the flip defers to the first tick at/after
+    # `tick` with any tracked page.
+    page_corrupt: Optional[Tuple[str, int, int]] = None
+    # Kill the shared prefill pool at this tick: routing must fall
+    # back to flat prefill on the decode replicas, never block.
+    prefill_crash: Optional[int] = None
+    fire_once: bool = True
+
+    def any(self):
+        return (self.replica_crash is not None
+                or self.crash_in_handoff is not None
+                or self.probe_blackhole is not None
+                or self.page_corrupt is not None
+                or self.prefill_crash is not None)
+
+
+class ChaosSpecError(ValueError):
+    """A ``DDP_TPU_FAULT_*`` chaos knob holds a malformed spec. The
+    message names the knob and its grammar — a typo'd chaos run must
+    die loudly, not silently run fault-free."""
+
+
+def _spec_name(spec):
+    return spec
+
+
+def _spec_tick(spec):
+    return int(spec)
+
+
+def _spec_name_tick(spec):
+    name, _, tick = spec.rpartition(':')
+    if not name:
+        raise ValueError(spec)
+    return (name, int(tick))
+
+
+def _spec_name_page_tick(spec):
+    parts = spec.split(':')
+    if len(parts) != 3 or not parts[0]:
+        raise ValueError(spec)
+    return (parts[0], int(parts[1]), int(parts[2]))
+
+
+# The one knob table: env key -> (plan field, spec parser, grammar).
+# Adding a chaos knob is one row; the parser below gives every row the
+# same typed-error discipline.
+_CHAOS_KNOBS = (
+    ('DDP_TPU_FAULT_REPLICA_CRASH', 'replica_crash',
+     _spec_name_tick, '<replica>:<tick>'),
+    ('DDP_TPU_FAULT_HANDOFF_CRASH', 'crash_in_handoff',
+     _spec_name, '<replica>'),
+    ('DDP_TPU_FAULT_PROBE_BLACKHOLE', 'probe_blackhole',
+     _spec_name, '<replica>'),
+    ('DDP_TPU_FAULT_PAGE_CORRUPT', 'page_corrupt',
+     _spec_name_page_tick, '<replica>:<page>:<tick>'),
+    ('DDP_TPU_FAULT_PREFILL_CRASH', 'prefill_crash',
+     _spec_tick, '<tick>'),
+)
+
+
+def chaos_plan_from_env(environ=None) -> ChaosPlan:
+    """Build a :class:`ChaosPlan` from the ``DDP_TPU_FAULT_*`` env
+    knobs (an empty plan when none are set), table-driven over
+    ``_CHAOS_KNOBS``:
+
+    - ``DDP_TPU_FAULT_REPLICA_CRASH=r1:40``   kill replica r1 at tick 40
+    - ``DDP_TPU_FAULT_HANDOFF_CRASH=r1``      kill r1 mid-KV-handoff
+    - ``DDP_TPU_FAULT_PROBE_BLACKHOLE=r1``    r1 stops answering probes
+    - ``DDP_TPU_FAULT_PAGE_CORRUPT=r1:0:40``  flip a bit in r1's
+      tracked page #0 at tick 40
+    - ``DDP_TPU_FAULT_PREFILL_CRASH=40``      kill the prefill pool at
+      tick 40
+
+    Malformed specs raise :class:`ChaosSpecError` naming the knob and
+    its grammar."""
+    env = os.environ if environ is None else environ
+    fields = {}
+    for key, field, parse, grammar in _CHAOS_KNOBS:
+        spec = env.get(key, '').strip()
+        if not spec:
+            continue
+        try:
+            fields[field] = parse(spec)
+        except ValueError as exc:
+            raise ChaosSpecError(
+                f'{key}={spec!r}: expected {grammar}') from exc
+    return ChaosPlan(**fields)
+
+
+class ChaosInjector:
+    """Runtime for a :class:`ChaosPlan`. Three hooks, all pure functions
+    of plan + one-shot state (no clock reads — chaos timing arrives as
+    tick indices from the loadgen, so a seeded trace replays the same
+    crash at the same virtual instant every run):
+
+    - :meth:`crash_due` — the loadgen's per-tick hook; returns the name
+      of the replica to kill at this tick (once), else None.
+    - :meth:`crash_on_handoff` — the router asks right after a KV
+      handoff lands on ``target``; True means kill it there.
+    - :meth:`blackholed` — the router's prober asks before counting a
+      probe answer; True means the replica never answers.
+    """
+
+    def __init__(self, plan: ChaosPlan):
+        self.plan = plan
+        self._crash_fired = False
+        self._handoff_fired = False
+        self._blackhole_announced = False
+        self._corrupt_fired = False
+        self._prefill_fired = False
+        # Observability sink: the driver points this at the ROUTER's
+        # log — injections land next to the loss/recovery arc they
+        # cause; None falls back to the active log.
+        self.event_log = None
+
+    def crash_due(self, tick):
+        p = self.plan
+        if p.replica_crash is None:
+            return None
+        name, at_tick = p.replica_crash
+        if tick != at_tick or (p.fire_once and self._crash_fired):
+            return None
+        self._crash_fired = True
+        obs_events.emit('fault.inject', _log=self.event_log,
+                        kind='replica_crash', target=name, tick=tick)
+        return name
+
+    def crash_on_handoff(self, target):
+        p = self.plan
+        if p.crash_in_handoff != target \
+                or (p.fire_once and self._handoff_fired):
+            return False
+        self._handoff_fired = True
+        obs_events.emit('fault.inject', _log=self.event_log,
+                        kind='handoff_crash', target=target)
+        return True
+
+    def corrupt_due(self, tick):
+        """The loadgen's per-tick corruption hook: at/after the planned
+        tick, return ``(replica, page_index)`` once — the ChaosSchedule
+        resolves the index over the replica's tracked pages and flips
+        one bit host-side. None otherwise."""
+        p = self.plan
+        if p.page_corrupt is None:
+            return None
+        name, page, at_tick = p.page_corrupt
+        if tick < at_tick or (p.fire_once and self._corrupt_fired):
+            return None
+        self._corrupt_fired = True
+        obs_events.emit('fault.inject', _log=self.event_log,
+                        kind='page_corrupt', target=name, page=page,
+                        tick=tick)
+        return (name, page)
+
+    def prefill_crash_due(self, tick):
+        """True exactly once when the planned prefill-pool crash tick
+        arrives — the ChaosSchedule kills the pool there."""
+        p = self.plan
+        if p.prefill_crash is None or tick != p.prefill_crash \
+                or (p.fire_once and self._prefill_fired):
+            return False
+        self._prefill_fired = True
+        obs_events.emit('fault.inject', _log=self.event_log,
+                        kind='prefill_crash', tick=tick)
+        return True
+
+    def blackholed(self, name):
+        if self.plan.probe_blackhole != name:
+            return False
+        # Announce the blackhole once; the probe-miss stream itself is
+        # the router's to narrate (replica.probe state=missed).
+        if not self._blackhole_announced:
+            self._blackhole_announced = True
+            obs_events.emit('fault.inject', _log=self.event_log,
+                            kind='probe_blackhole', target=name)
         return True

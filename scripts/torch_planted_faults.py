@@ -37,7 +37,11 @@ scheduling policy choosing the lowest priority first (``load_serve``
 must catch it). Three sit in disaggregated serving (``router_serve`` must
 catch them): the handoff's page copy shifted by one destination ordinal,
 recovery replaying the prefix-stripped prompt, and the shard-local
-handoff allocating every page on shard 0. A source with a ``/`` is a path
+handoff allocating every page on shard 0. Three sit in chaos and control
+(``chaos_serve`` must catch them): the chaos schedule firing a planned
+crash one tick late, the doctor naming a surviving replica for a replica
+loss, and the controller scaling down without draining the member. A
+source with a ``/`` is a path
 in the package; a bare name is in ``csrc/``. Kernel libraries already
 built under ``build/kernels`` from unchanged sources are reused.
 """
@@ -251,11 +255,39 @@ FAULTS = {
         '            lo, hi = (0, needed) if s == 0 else (0, 0)\n'
         '            k = max(0, min(hi, needed) - lo)\n',
         ('router_serve',)),
+    # The chaos schedule fires a planned replica crash one tick late: the
+    # replay no longer kills the victim at the planned instant.
+    'chaos_schedule_one_tick_late': (
+        'serve/loadgen.py',
+        '        victim = self.injector.crash_due(self.tick)\n',
+        '        victim = self.injector.crash_due(self.tick - 1)\n',
+        ('chaos_serve',)),
+    # The doctor names a replica the router still routes to (a survivor)
+    # where the loss declaration names the dead one.
+    'doctor_names_the_survivor': (
+        'obs/doctor.py',
+        '    if primary == \'replica_loss\' and lost:\n'
+        '        where = lost[-1]\n',
+        '    if primary == \'replica_loss\' and lost:\n'
+        '        where = next((str(r[\'target\']) for r in events\n'
+        '                      if r.get(\'event\') == \'router.route\'\n'
+        '                      and str(r.get(\'target\')) not in lost),\n'
+        '                     lost[-1])\n',
+        ('chaos_serve',)),
+    # The controller scales down by dropping the member from the pool,
+    # without draining and retiring it.
+    'controller_scales_down_without_drain': (
+        'serve/control.py',
+        '            requeued = self.router.drain_replica(victim.name)\n',
+        '            requeued = 0\n'
+        '            self.router.pool.replicas.remove(victim)\n'
+        '            del self.router._by_name[victim.name]\n',
+        ('chaos_serve',)),
 }
 
 # Phases a fault names that run alone (the source's PHASES otherwise).
 SOLO = ('flash_masks', 'kv_sharded_serve', 'wq8_serve', 'load_serve',
-        'router_serve')
+        'router_serve', 'chaos_serve')
 
 
 # The phases that hold each source's kernels: K1, K3 and K4 at the
@@ -337,6 +369,12 @@ def readings(stdout):
             cases[key] = {k: v for k, v in row.items()
                           if k not in ('phase', 'case') and (
                               isinstance(v, (bool, dict)) or k == 'ok')}
+        elif row.get('phase') == 'chaos_serve' and row.get('case') not in (
+                'twin', 'done', None):
+            cases[f"chaos_serve/{row['case']}"] = {
+                k: row[k] for k in ('kills', 'doctor', 'recovered', 'healed',
+                                    'scale_ups', 'scale_downs', 'retired')
+                if k in row}
         elif row.get('phase') == 'kv_sharded_serve' and \
                 row.get('case') == 'step_check':
             cases['kv_sharded_serve/step_check'] = {

@@ -13,7 +13,8 @@ against the reference package on the CPU:
   deadline eviction / the prefill boost: every request's status, tokens
   and rejection reason, the ticks and the virtual seconds equal, and the
   policy changes the outcome;
-- ``run_load(control=...)`` raises ``NotImplementedError``;
+- ``run_load(control=...)`` runs the closed-loop controller, with the
+  reference's outcomes;
 - ``SchedulingPolicy``'s three decisions equal the reference's on the
   same seeded inputs.
 """
@@ -25,21 +26,21 @@ import numpy as np
 import pytest
 
 from distributed_dot_product_tpu.serve import (
-    KernelEngine as JaxEngine, LoadGenConfig as JaxLoadCfg,
-    PolicyConfig as JaxPolicyCfg, SchedulingPolicy as JaxPolicy,
-    ServeConfig as JaxServeCfg, TenantPolicy as JaxTenantPolicy,
-    TenantSpec as JaxTenantSpec, generate_trace as jax_generate,
-    load_trace as jax_load, run_load as jax_run_load,
-    save_trace as jax_save,
+    ControlConfig as JaxControlCfg, KernelEngine as JaxEngine,
+    LoadGenConfig as JaxLoadCfg, PolicyConfig as JaxPolicyCfg,
+    SchedulingPolicy as JaxPolicy, ServeConfig as JaxServeCfg,
+    TenantPolicy as JaxTenantPolicy, TenantSpec as JaxTenantSpec,
+    generate_trace as jax_generate, load_trace as jax_load,
+    run_load as jax_run_load, save_trace as jax_save,
 )
 from distributed_dot_product_tpu.utils.tracing import (
     MetricsRegistry as JaxRegistry,
 )
 from distributed_dot_product_tpu_torch.convert import engine_state_from_jax
 from distributed_dot_product_tpu_torch.serve import (
-    KernelEngine, LoadGenConfig, PolicyConfig, SchedulingPolicy, ServeConfig,
-    TenantPolicy, TenantSpec, default_tenants, generate_trace, load_trace,
-    run_load, save_trace,
+    ControlConfig, KernelEngine, LoadGenConfig, PolicyConfig,
+    SchedulingPolicy, ServeConfig, TenantPolicy, TenantSpec, default_tenants,
+    generate_trace, load_trace, run_load, save_trace,
 )
 from distributed_dot_product_tpu_torch.serve.admission import Request
 from distributed_dot_product_tpu_torch.utils.tracing import MetricsRegistry
@@ -102,10 +103,11 @@ def _outcomes(res):
             res.ticks, res.virtual_seconds, res.accounted)
 
 
-def run_pair(policy, event_logs=(None, None)):
+def run_pair(policy, event_logs=(None, None), control=None):
     """One seeded load through the reference scheduler over its engine
     and through the port's over the port engine with the same weights:
-    ``(reference outcomes, port outcomes)``."""
+    ``(reference outcomes, port outcomes)``. ``control``: a dict of
+    ``ControlConfig`` fields, given to both sides."""
     je = JaxEngine(decode_impl='xla', **ENGINE)
     te = KernelEngine(device='cpu', **ENGINE)
     te.load_weights(engine_state_from_jax(
@@ -115,12 +117,14 @@ def run_pair(policy, event_logs=(None, None)):
         JaxLoadCfg(tenants=_tenants(JaxTenantSpec), **LOAD), engine=je,
         serve_config=JaxServeCfg(**serve), registry=JaxRegistry(),
         event_log=event_logs[0],
-        policy=_policy(JaxPolicyCfg, JaxTenantPolicy) if policy else None)
+        policy=_policy(JaxPolicyCfg, JaxTenantPolicy) if policy else None,
+        control=None if control is None else JaxControlCfg(**control))
     got = run_load(
         LoadGenConfig(tenants=_tenants(TenantSpec), **LOAD), engine=te,
         serve_config=ServeConfig(**serve), registry=MetricsRegistry(),
         event_log=event_logs[1],
-        policy=_policy(PolicyConfig, TenantPolicy) if policy else None)
+        policy=_policy(PolicyConfig, TenantPolicy) if policy else None,
+        control=None if control is None else ControlConfig(**control))
     return _outcomes(want), _outcomes(got)
 
 
@@ -137,9 +141,11 @@ def test_run_load_matches_the_reference_with_and_without_a_policy():
     assert pol_got[0] != plain_got[0]
 
 
-def test_run_load_control_is_not_ported():
-    with pytest.raises(NotImplementedError, match='item 4'):
-        run_load(LoadGenConfig(requests=1), engine=None, control=object())
+def test_run_load_control_matches_the_reference():
+    """``run_load(control=...)`` runs the controller on the run's virtual
+    clock, and the controlled load ends as the reference's does."""
+    want, got = run_pair(False, control=dict(interval=0.004))
+    assert got == want and got[-1]
 
 
 # -- the policy's decisions ----------------------------------------------

@@ -10,7 +10,7 @@ router's counters must be equal.
 
 - topology plumbing: ``parse_topology``, ``maybe_init_distributed`` (a
   no-op unconfigured; a one-rank gloo group when configured), the chaos
-  refusal, the one-rank prefill pool;
+  injector's wiring, the one-rank prefill pool;
 - the prefill pool's pages bit for bit the engine's own prefill, and
   streams on adopted prefixes equal to the reference's;
 - placement: least-loaded spreading, session affinity, the typed
@@ -54,6 +54,9 @@ from distributed_dot_product_tpu_torch.serve import (
     KernelEngine, PrefillPool, RejectReason, Scheduler, ServeConfig,
     TopologyConfig, VirtualClock, build_serving, maybe_init_distributed,
     parse_topology,
+)
+from distributed_dot_product_tpu_torch.utils.faults import (
+    ChaosInjector, ChaosPlan,
 )
 from distributed_dot_product_tpu_torch.utils.tracing import MetricsRegistry
 
@@ -177,12 +180,20 @@ def test_maybe_init_distributed_is_a_noop_unconfigured(tmp_path):
     assert out.returncode == 0 and 'joined' in out.stdout, out.stderr
 
 
-def test_chaos_and_multi_rank_pools_are_refused(tmp_path):
-    """The chaos injector and the multi-rank prefill split are not ported:
-    typed refusals naming the ROADMAP items, never a silent partial run."""
-    with pytest.raises(NotImplementedError, match='item 4b'):
-        build_serving(_topo(PORT), chaos=object(),
-                      log_dir=tmp_path / 'logs')
+def test_chaos_accepted_and_multi_rank_pools_refused(tmp_path):
+    """``build_serving(chaos=...)`` arms the router with the injector and
+    points its narration at the router's log; the multi-rank prefill split
+    is not ported: a typed refusal naming the ROADMAP item, never a silent
+    partial run."""
+    chaos = ChaosInjector(ChaosPlan())
+    router = build_serving(_topo(PORT), chaos=chaos,
+                           log_dir=tmp_path / 'logs')
+    try:
+        assert router.chaos is chaos
+        assert chaos.event_log is router.event_log
+        assert router.event_log.path == dict(router.pool.logs())['router']
+    finally:
+        router.close()
     with pytest.raises(NotImplementedError, match='item 4c'):
         PrefillPool(t_max=64, page_size=16, device='cpu',
                     mesh=Mesh(None, 0, 2))

@@ -195,12 +195,15 @@ def test_paged_streams_bit_identical_to_slab_under_faults(decode_impl):
 
 
 def test_unported_config_fields_raise_type_error():
-    """The fields of what is not ported raise; the speculative-decoding
-    and policy fields (ported since) are the reference's."""
-    for field in ('anomaly', 'profile_ttft_p99', 'profile_warmup'):
+    """The fields of what is not ported (the adaptive profiler captures)
+    raise; the speculative-decoding, policy and anomaly fields (ported
+    since) are the reference's."""
+    for field in ('profile_ttft_p99', 'profile_seconds', 'profile_cooldown',
+                  'profile_warmup'):
         with pytest.raises(TypeError):
             ServeConfig(**{field: None})
     assert ServeConfig().policy is None
+    assert ServeConfig().anomaly is False
     policy = PolicyConfig(tenants={'t0': TenantPolicy(priority=1)})
     sched = Scheduler(KernelEngine(slots=2, t_max=16, device='cpu'),
                       ServeConfig(policy=policy, watchdog=False),
