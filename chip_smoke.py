@@ -223,11 +223,38 @@ Phases, one JSON line each (some several):
    bit for bit the source's, landed digests equal; the burst: all
    complete, K5p launches 2 x decode ticks, divergences from the single
    engine reported (bf16).
+27. chaos_serve (run after router_serve): the seeded two-tenant trace
+   through router_serve's topology at load_serve's 4 slots a replica,
+   beside the crash-free single engine: a replica crash (and the
+   no-recovery twin), a crash in the handoff, a probe blackhole, a
+   prefill-pool crash, a page bit flip (and the checksums-off twin), and
+   the controller against the static topology;
+28. obs_serve (run after chaos_serve): (a) prefill_split: a PrefillPool
+   over 2 ranks of the card (gloo) builds prefixes of 17, 1000 and 2047
+   rows of serve_path's configuration — pages bit for bit the one-rank
+   pool's and ``register_prefix``'s, 64 greedy tokens from the adopted
+   prefix equal to a flat prefill's; build ms at 1 and 2 ranks; then
+   serve_path's burst over the paged engine with (b) the device monitor
+   polling (bytes in use above 0 and at most the limit, the peak at
+   least the engine's cache, one device reporting), (c) the adaptive
+   profiler capture armed at a TTFT p99 threshold of 0 s (exactly one
+   capture inside the cooldown, its trace holding K5p kernel events and
+   the serving spans) and (d) the exporter on localhost, scraped while
+   the capture runs (``/metrics`` with the TTFT summary, the device
+   gauges and the build info; ``/healthz`` 200; ``/profile`` 409;
+   ``/dump`` a bundle), K5p launches equal to the decode steps; (e) a
+   perf snapshot of every registered entrypoint on the card
+   (``obs/perf.py``): measured ms beside the model's, the model's share
+   at most 1, the kernel entries' kernel work equal to this script's
+   count for their inputs.
+
+Every kernel bound here reads the port's ``obs/perf.py``: the card's
+peak rates and each kernel's operation and byte formula.
 
 Then the card's ``nvidia-smi`` name and power limit, the kernels line
 (``{"kernels": [...]}``: K1, K2, K3, K4, K5 and K5p with their launches on
-their path (and on wq8_serve, load_serve, router_serve, wq8_lm and
-train_knobs), max
+their path (and on wq8_serve, load_serve, router_serve, chaos_serve,
+obs_serve, wq8_lm and train_knobs), max
 error, kernel / plain / library / bound times; K1, K2, K3 and K4 also per
 mask variant, K5 and K5p per partials / window / verify / int8 / ALiBi
 variant) and, only if every phase passed, the last line ``{"ok": true, "device": {...}}``.
@@ -251,9 +278,6 @@ import statistics
 import subprocess
 import sys
 import time
-
-PEAK_BF16_FLOPS = 989e12      # H100 SXM dense bf16 tensor-core rate
-PEAK_HBM_BYTES = 3.35e12      # H100 SXM HBM3 bandwidth
 
 VOCAB, DIM, HEADS, LAYERS = 32768, 768, 8, 16
 BATCH, PROMPT, STEPS, T_MAX = 4, 1000, 64, 2048
@@ -455,8 +479,18 @@ def check_rel(errs, what):
     return out
 
 
+def perf():
+    """The port's ``obs/perf.py``: the card's peak rates
+    (``DEFAULT_PEAKS``, H100 SXM) and each kernel's operation and byte
+    formula, shared with ``python -m distributed_dot_product_tpu_torch.obs
+    .perf`` so a kernel's bound reads the same work in both."""
+    from distributed_dot_product_tpu_torch.obs import perf as _perf
+    return _perf
+
+
 def bound_ms(flops, nbytes):
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
+    peaks = perf().DEFAULT_PEAKS
+    t_ops, t_bytes = flops / peaks.flops_per_s, nbytes / peaks.bytes_per_s
     return 1e3 * max(t_ops, t_bytes), ('operations' if t_ops > t_bytes
                                        else 'bytes')
 
@@ -573,8 +607,9 @@ def phase_flash(torch, ddp, flush, gen):
             kv_rows = min(tk, off + tq)
         else:
             pairs, kv_rows = tq * tk, tk
-        flops = 4 * HEAD_DIM * pairs * nb
-        nbytes = 2 * HEAD_DIM * (2 * nb * tq + 2 * BATCH * hkv * kv_rows)
+        flops, nbytes = perf().attention_fwd_cost(
+            d=HEAD_DIM, q_rows=nb * tq, kv_rows=BATCH * hkv * kv_rows,
+            pairs=pairs * nb)
         bms, by = bound_ms(flops, nbytes)
         kf, vf = k[:, :, :kv_rows], v[:, :, :kv_rows]
         lib_kw = {'scale': scale, 'enable_gqa': hq != hkv}
@@ -780,10 +815,12 @@ def phase_decode(torch, ddp, flush, gen):
     fill = PROMPT + STEPS // 2
     q, kn, vn, ck, cv, vt, ap = make([fill] * BATCH, [fill] * BATCH)
     cols = fill + 1
-    flops = 4 * HEAD_DIM * cols * BATCH * HEADS
-    nbytes = 2 * HEAD_DIM * BATCH * HEADS * (
-        2 * (cols - 1)      # cached K and V rows read
-        + 2 + 2 + 2)        # q and out; k_new/v_new read; row written
+    bh = BATCH * HEADS
+    # The cached K and V rows read; q and out; k_new / v_new read; the
+    # appended row written.
+    flops, nbytes = perf().decode_cost(
+        d=HEAD_DIM, q_rows=bh, new_rows=bh, rows_read=bh * (cols - 1),
+        rows_appended=bh, cols=bh * cols)
     bms, by = bound_ms(flops, nbytes)
     mask = (torch.arange(T_MAX, device=dev)[None, :] <= vt[:, None].long())
     mask = mask[:, None, None, :]
@@ -1079,13 +1116,11 @@ def decode_variants(torch, ddp, flush, gen):
         lo = 0 if window is None else vt0 - window + 1
         allowed = (cols <= vt0) & (cols >= lo)
         n_cols = int(allowed.sum().item())
-        out_bytes = (DS_B * heads * (64 + 2) * 4 if partials
-                     else DS_B * heads * 64 * 2)
-        nbytes = (2 * 2 * 64 * DS_B * DS_KV * n_cols     # K, V rows read
-                  + 2 * 64 * DS_B * heads                # q
-                  + 2 * 2 * 64 * DS_B * DS_KV * 2        # k_new, v_new; row
-                  + out_bytes)
-        flops = 4 * 64 * n_cols * DS_B * heads
+        flops, nbytes = perf().decode_cost(
+            d=64, q_rows=DS_B * heads, new_rows=DS_B * DS_KV,
+            rows_read=DS_B * DS_KV * n_cols, rows_appended=DS_B * DS_KV,
+            cols=n_cols * DS_B * heads,
+            out_row_bytes=(64 + 2) * 4 if partials else None)
         bms, by = bound_ms(flops, nbytes)
         mask = allowed[None, None, None, :].expand(DS_B, 1, 1, t)
         check_one_kernel(torch, row, f'K5 {name}', lambda: fd.flash_decode(
@@ -1199,11 +1234,10 @@ def phase_decode_paged(torch, ddp, flush, gen):
     n_rows = len(set().union(*rows))
     cols = sum(v + 1 for v in vt.tolist() if v >= 0)
     n_app = sum(a >= 0 for a in ap.tolist())
-    row_b = 2 * HEAD_DIM * HEADS               # one bf16 row of all heads
-    nbytes = (2 * row_b * n_rows + 2 * row_b * SERVE_SLOTS
-              + 2 * row_b * SERVE_SLOTS + 2 * row_b * n_app
-              + 4 * table.numel())
-    flops = 4 * HEAD_DIM * HEADS * cols
+    flops, nbytes = perf().decode_cost(
+        d=HEAD_DIM, q_rows=SERVE_SLOTS * HEADS, new_rows=SERVE_SLOTS * HEADS,
+        rows_read=n_rows * HEADS, rows_appended=n_app * HEADS,
+        cols=cols * HEADS, table_entries=table.numel())
     bms, by = bound_ms(flops, nbytes)
     mask = (torch.arange(SERVE_T_MAX, device=dev)[None, :]
             <= vt[:, None].long())[:, None, None, :]
@@ -1376,14 +1410,12 @@ def paged_variants(torch, fd, flush, q, kn, vn, k0, v0, vt, ap, table, scale):
         pool_rows = (table.long().repeat_interleave(SERVE_PAGE, dim=1)
                      * SERVE_PAGE + cols % SERVE_PAGE)[allowed]
         n_rows = int(torch.unique(pool_rows).numel())
-        row_b = 2 * HEAD_DIM * HEADS
-        out_bytes = (SERVE_SLOTS * HEADS * (HEAD_DIM + 2) * 4 if partials
-                     else row_b * SERVE_SLOTS)
-        nbytes = (2 * row_b * n_rows + row_b * SERVE_SLOTS
-                  + 2 * row_b * SERVE_SLOTS + 2 * row_b * int(
-                      (a_p >= 0).sum().item()) + 4 * table.numel()
-                  + out_bytes)
-        flops = 4 * HEAD_DIM * HEADS * n_cols
+        flops, nbytes = perf().decode_cost(
+            d=HEAD_DIM, q_rows=SERVE_SLOTS * HEADS,
+            new_rows=SERVE_SLOTS * HEADS, rows_read=n_rows * HEADS,
+            rows_appended=int((a_p >= 0).sum().item()) * HEADS,
+            cols=n_cols * HEADS, table_entries=table.numel(),
+            out_row_bytes=(HEAD_DIM + 2) * 4 if partials else None)
         bms, by = bound_ms(flops, nbytes)
         mask = allowed[:, None, None, :]
         counted = {}
@@ -1522,13 +1554,12 @@ def _decode_bound(torch, mask, h, h_kv, d, b, k, n_app, k_bytes=None,
     attends read once (K at ``k_bytes`` a row, default bf16; V bf16), q
     read, the output written, k_new/v_new read, the appended rows
     written; 4·d operations per attended (query head, column)."""
-    rows_read = int(mask.any(dim=2).sum().item()) * h_kv
-    cols = int(mask.sum().item()) * (h // h_kv)
-    k_row = 2 * d if k_bytes is None else k_bytes
-    out_bytes = b * h * k * ((d + 2) * 4 if partials else 2 * d)
-    nbytes = ((k_row + 2 * d) * rows_read + 2 * d * b * h * k + out_bytes
-              + 2 * 2 * d * b * h_kv * k + (k_row + 2 * d) * n_app * h_kv)
-    flops = 4 * d * cols
+    flops, nbytes = perf().decode_cost(
+        d=d, q_rows=b * h * k, new_rows=b * h_kv * k,
+        rows_read=int(mask.any(dim=2).sum().item()) * h_kv,
+        rows_appended=n_app * h_kv,
+        cols=int(mask.sum().item()) * (h // h_kv), k_row_bytes=k_bytes,
+        out_row_bytes=(d + 2) * 4 if partials else None)
     bms, by = bound_ms(flops, nbytes)
     return bms, by, flops, nbytes
 
@@ -3243,8 +3274,6 @@ def phase_flash_backward(torch, ddp, flush, gen):
     b, hq, hkv, tq, tk, off, kw, scale, q, k, v, g, out, lse = train
     nb, d = b * hq, HEAD_DIM
     pairs = causal_pairs(tq, tk, off) * nb
-    q_bytes, kv_bytes, row_bytes = 2 * nb * tq * d, 2 * b * hkv * tk * d, \
-        4 * nb * tq
     q2, lse2, delta = fa.flash_attention_bwd_operands(q, out, lse, g, scale)
     qr, kr, vr = (t.detach().requires_grad_() for t in (q, k, v))
     o_lib = F.scaled_dot_product_attention(qr, kr, vr, is_causal=True,
@@ -3252,23 +3281,22 @@ def phase_flash_backward(torch, ddp, flush, gen):
     lib_bwd = time_ms(torch, lambda: torch.autograd.grad(
         o_lib, (qr, kr, vr), g, retain_graph=True), flush)
     timing = {}
-    for kname, flops, nbytes, fn, plain_fn, lib in (
-            ('flash_attention', 4 * d * pairs,
-             2 * q_bytes + 2 * kv_bytes + row_bytes,
+    work = dict(d=d, q_rows=nb * tq, kv_rows=b * hkv * tk, pairs=pairs)
+    cost = perf()
+    for kname, (flops, nbytes), fn, plain_fn, lib in (
+            ('flash_attention', cost.attention_fwd_cost(**work, lse=True),
              lambda: fa.flash_attention_with_lse(q, k, v, scale=scale, **kw),
              lambda: fa.flash_attention_plain_lse(q, k, v, scale=scale,
                                                   **kw),
              lambda: F.scaled_dot_product_attention(
                  q, k, v, is_causal=True, scale=scale)),
-            ('flash_attention_dq', 6 * d * pairs,
-             3 * q_bytes + 2 * kv_bytes + 2 * row_bytes,
+            ('flash_attention_dq', cost.attention_dq_cost(**work),
              lambda: fa.flash_attention_dq(
                  q2, k, v, g, lse2, delta, scale=scale, **kw),
              lambda: fa.flash_attention_dq_plain(
                  q2, k, v, g, lse2, delta, scale=scale, **kw),
              None),
-            ('flash_attention_dkv', 8 * d * pairs,
-             2 * q_bytes + 4 * kv_bytes + 2 * row_bytes,
+            ('flash_attention_dkv', cost.attention_dkv_cost(**work),
              lambda: fa.flash_attention_dkv(q2, k, v, g, lse2, delta, **kw),
              lambda: fa.flash_attention_dkv_plain(
                  q2, k, v, g, lse2, delta, **kw),
@@ -3482,10 +3510,14 @@ def phase_flash_features(torch, ddp, flush, gen):
                                            scale=scale)
     lib_bwd = time_ms(torch, lambda: torch.autograd.grad(
         o_lib, (qr, kr, vr), g, retain_graph=True), flush)
-    qkv = 2 * nb * tn * d
-    for kname, flops, nbytes, fn, plain_fn, lib in (
-            ('flash_attention', 4 * d * pairs,
-             4 * qkv + mask_bytes + 4 * nb * tn,
+    cost = perf()
+
+    def work(n_pairs, **extra):
+        return dict(d=d, q_rows=nb * tn, kv_rows=nb * tn, pairs=n_pairs,
+                    mask_bytes=mask_bytes, **extra)
+    for kname, (flops, nbytes), fn, plain_fn, lib in (
+            ('flash_attention', cost.attention_fwd_cost(**work(pairs,
+                                                               lse=True)),
              lambda: fa.flash_attention_with_lse(q, k, v, m, scale=scale,
                                                  **kw),
              lambda: fa.flash_attention_plain_lse(q, k, v, m, scale=scale,
@@ -3493,8 +3525,8 @@ def phase_flash_features(torch, ddp, flush, gen):
              lambda: F.scaled_dot_product_attention(q, k, v,
                                                     attn_mask=lib_mask,
                                                     scale=scale)),
-            ('flash_attention_bounded', 4 * d * pairs_k2,
-             4 * qkv + mask_bytes + 4 * nb * tn,
+            ('flash_attention_bounded',
+             cost.attention_fwd_cost(**work(pairs_k2, lse=True)),
              lambda: fa.flash_attention_bounded(qb, kb, vb, mb, scale=scale,
                                                 mvec=mvec),
              lambda: fa.flash_attention_bounded_plain_lse(qb, kb, vb, mb,
@@ -3502,16 +3534,16 @@ def phase_flash_features(torch, ddp, flush, gen):
              lambda: F.scaled_dot_product_attention(qb, kb, vb,
                                                     attn_mask=~mb,
                                                     scale=scale)),
-            ('flash_attention_dq', 6 * d * pairs,
-             4 * qkv + mask_bytes + 8 * nb * tn + 2 * qkv,
+            ('flash_attention_dq', cost.attention_dq_cost(
+                **work(pairs, grad_bytes=gdt.itemsize)),
              lambda: fa.flash_attention_dq(q2, k, v, g, lse2, delta, mask=m,
                                            scale=scale, grad_dtype=gdt, **kw),
              lambda: fa.flash_attention_dq_plain(q2, k, v, g, lse2, delta,
                                                  mask=m, scale=scale,
                                                  grad_dtype=gdt, **kw),
              None),
-            ('flash_attention_dkv', 8 * d * pairs,
-             4 * qkv + mask_bytes + 8 * nb * tn + 4 * qkv,
+            ('flash_attention_dkv', cost.attention_dkv_cost(
+                **work(pairs, grad_bytes=gdt.itemsize)),
              lambda: fa.flash_attention_dkv(q2, k, v, g, lse2, delta, mask=m,
                                             grad_dtype=gdt, **kw),
              lambda: fa.flash_attention_dkv_plain(q2, k, v, g, lse2, delta,
@@ -3544,7 +3576,6 @@ def phase_flash_features(torch, ddp, flush, gen):
     return worst, timing
 
 
-PEAK_INT8_OPS = 1979e12      # H100 SXM dense int8 tensor-core rate
 # The masks and terms of K1/K3/K4 at the flagship's fold shape (2 x 8
 # heads x 4096 rows, head dim 64), all four at once under GQA 8:4 at the
 # LM's head dim 96, and ALiBi at the ALiBi LM's and zigzag_ring's own
@@ -3650,8 +3681,9 @@ def valid_pairs(torch, b, tq, tk, causal, co, ko, window, seg, pos=None):
 def bound_mixed(ops_bf16, ops_int8, nbytes):
     """``bound_ms`` for work split between bf16 and int8 tensor-core
     products: their times at each peak add up."""
-    t_ops = ops_bf16 / PEAK_BF16_FLOPS + ops_int8 / PEAK_INT8_OPS
-    t_bytes = nbytes / PEAK_HBM_BYTES
+    peaks = perf().DEFAULT_PEAKS
+    t_ops = ops_bf16 / peaks.flops_per_s + ops_int8 / peaks.int8_ops_per_s
+    t_bytes = nbytes / peaks.bytes_per_s
     return 1e3 * max(t_ops, t_bytes), ('operations' if t_ops > t_bytes
                                        else 'bytes')
 
@@ -4630,37 +4662,38 @@ def _sp_worker(rank, world, init_method, backend, results, run='_sp_run'):
             dist.destroy_process_group()
 
 
-def _spawn_ranks(torch, phase, run, timeout):
-    """SP_RANKS processes running ``run``, on card 0 over gloo (host-staged
-    collectives) unless there is a card per rank (NCCL): ``(results by
-    rank, seconds, backend)``. A rank that fails, or the phase timing
-    out, fails the phase; every process is stopped either way."""
+def _spawn_ranks(torch, phase, run, timeout, world=SP_RANKS):
+    """``world`` processes running ``run``, on card 0 over gloo
+    (host-staged collectives) unless there is a card per rank (NCCL):
+    ``(results by rank, seconds, backend)``. A rank that fails, or the
+    phase timing out, fails the phase; every process is stopped either
+    way."""
     import multiprocessing as mp
     import queue
     import socket
     torch.cuda.empty_cache()
-    backend = 'nccl' if torch.cuda.device_count() >= SP_RANKS else 'gloo'
+    backend = 'nccl' if torch.cuda.device_count() >= world else 'gloo'
     with socket.socket() as sock:
         sock.bind(('localhost', 0))
         port = sock.getsockname()[1]
     ctx = mp.get_context('spawn')
     results = ctx.Queue()
     procs = [ctx.Process(target=_sp_worker, daemon=True,
-                         args=(r, SP_RANKS, f'tcp://localhost:{port}',
+                         args=(r, world, f'tcp://localhost:{port}',
                                backend, results, run))
-             for r in range(SP_RANKS)]
+             for r in range(world)]
     t0 = time.perf_counter()
     for p in procs:
         p.start()
     ranks = {}
     try:
-        while len(ranks) < SP_RANKS:
+        while len(ranks) < world:
             left = timeout - (time.perf_counter() - t0)
             try:
                 rank, ok, value = results.get(timeout=max(left, 1))
             except queue.Empty:
                 raise PhaseError(f'{phase}: ranks '
-                                 f'{sorted(set(range(SP_RANKS)) - set(ranks))}'
+                                 f'{sorted(set(range(world)) - set(ranks))}'
                                  f' did not finish within {timeout} s')
             check(ok, f'{phase} rank {rank} failed:\n{value}')
             ranks[rank] = value
@@ -6340,7 +6373,8 @@ def _router_handoff(torch, ddp, flush, rng):
                    'adopted_vs_registered': streams[0] == streams[2]},
                'build_ms': build_ms, 'adopt_prefix_ms': adopt_ms,
                'copy_ms': copy_ms,
-               'copy_bound_ms': 2 * moved / PEAK_HBM_BYTES * 1e3}
+               'copy_bound_ms':
+                   2 * moved / perf().DEFAULT_PEAKS.bytes_per_s * 1e3}
         emit(row)
         rows.append(row)
         check(pages_equal, f'handoff {n}: adopted pages differ from '
@@ -7350,6 +7384,383 @@ def phase_chaos_serve(torch, ddp):
     return {'launches': launches}
 
 
+# The obs_serve configuration: serve_path's engine (8 slots, t_max 4096,
+# the LM's widths, bf16, paged at 16, chunk 64) and burst. The prefill
+# split runs on OBS_SPLIT_RANKS ranks of one card (gloo, host-staged
+# all-gather), prefixes of OBS_SPLIT_ROWS rows (a build timed as the
+# median of OBS_BUILD_REPS), OBS_GREEDY tokens after each adoption. The adaptive capture fires at the first fresh TTFT (a
+# threshold of 0 s lies below any burst's p99) and records
+# OBS_PROFILE_SECONDS; its cooldown outlasts the burst, so exactly one
+# capture may fire.
+OBS_SPLIT_RANKS = 2
+OBS_SPLIT_ROWS = (17, 1000, 2047)
+OBS_GREEDY = 64
+OBS_BUILD_REPS = 3
+OBS_PROFILE_SECONDS = 0.25
+OBS_PROFILE_COOLDOWN = 3600.0
+OBS_DEVICE = 'cuda'
+
+
+def _k5p_kernel(name):
+    """True for a trace event name of the paged decode kernel (K5p):
+    ``flash_decode_kernel<D, true, …>``, demangled or mangled."""
+    return bool(re.search(r'flash_decode_kernel<\d+,\s*true', name)
+                or re.search(r'flash_decode_kernelILi\d+ELb1E', name))
+
+
+def _obs_split_run(torch, ddp, rank, dev):
+    """A rank of obs_serve's prefill split: each prefix built by the
+    OBS_SPLIT_RANKS-rank PrefillPool, by a one-rank pool and by an
+    engine's ``register_prefix`` (pages compared bit for bit), then
+    adopted by a paged engine and decoded OBS_GREEDY tokens beside the
+    same prompt prefilled flat; the build's ms at each rank count."""
+    import numpy as np
+    from distributed_dot_product_tpu_torch.parallel.mesh import seq_mesh
+    from distributed_dot_product_tpu_torch.serve import (
+        PrefillPool, Scheduler, ServeConfig,
+    )
+    from distributed_dot_product_tpu_torch.utils import comm
+    from distributed_dot_product_tpu_torch.utils.tracing import (
+        MetricsRegistry,
+    )
+    kw = dict(t_max=SERVE_T_MAX, page_size=SERVE_PAGE, vocab=VOCAB,
+              heads=HEADS, head_dim=HEAD_DIM, seed=SERVE_SEED,
+              dtype=torch.bfloat16, prefill_chunk=SERVE_CHUNK, device=dev)
+    pools = {OBS_SPLIT_RANKS: PrefillPool(mesh=seq_mesh(OBS_SPLIT_RANKS),
+                                          **kw),
+             1: PrefillPool(**kw)}
+    registered = serve_engine(torch, 'paged', device=dev)
+    rng = np.random.default_rng(SERVE_SEED)
+
+    def build(pool, tokens, reps=OBS_BUILD_REPS):
+        """The last of ``reps`` builds (the others released) and the
+        median ms of a build."""
+        times = []
+        for i in range(reps):
+            if i:
+                pool.release(handle)
+            comm.synchronize()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            handle = pool.build(tokens)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+        return handle, statistics.median(times)
+
+    def greedy(engine, submit, prefix_id=None):
+        with Scheduler(engine, ServeConfig(watchdog=False,
+                                           max_new_tokens=OBS_GREEDY),
+                       registry=MetricsRegistry(), fault_injector=False) as s:
+            r = s.submit(submit, prefix_id=prefix_id,
+                         max_new_tokens=OBS_GREEDY)
+            return list(s.run_until_idle()[r.id].tokens)
+
+    for pool in pools.values():         # first use of every operation
+        pool.release(build(pool, np.ones(SERVE_CHUNK, np.int64), 1)[0])
+    out = {}
+    for n in OBS_SPLIT_ROWS:
+        prompt = rng.integers(0, VOCAB, size=n + 1).astype(np.int32)
+        handles, ms = {}, {}
+        for w, pool in pools.items():
+            handles[w], ms[w] = build(pool, prompt[:n])
+        reg_id = registered.register_prefix(prompt[:n])
+        pages, _ = registered._prefix_registry[reg_id]
+        split, one = pools[OBS_SPLIT_RANKS], pools[1]
+        hs, h1 = handles[OBS_SPLIT_RANKS], handles[1]
+        same = {'one_rank': True, 'register_prefix': True}
+        for name in ('k_pool', 'v_pool'):
+            got = getattr(split.engine.cache, name)[hs.pages]
+            same['one_rank'] &= bool(torch.equal(
+                got, getattr(one.engine.cache, name)[h1.pages]))
+            same['register_prefix'] &= bool(torch.equal(
+                got, getattr(registered.cache, name)[pages]))
+        dec = serve_engine(torch, 'paged', device=dev)
+        pid = dec.adopt_prefix(split.engine.cache, hs.pages, hs.length,
+                               src_checksums=split.engine.checksums)
+        adopted = greedy(dec, list(prompt[n:]), pid)
+        flat = greedy(serve_engine(torch, 'paged', device=dev), list(prompt))
+        for w, pool in pools.items():
+            pool.release(handles[w])
+        registered.unregister_prefix(reg_id)
+        out[n] = {'pages': len(hs.pages), 'bit_identical': same,
+                  'greedy_equal': adopted == flat, 'greedy_tokens':
+                  len(adopted), 'build_ms': {str(w): ms[w] for w in ms}}
+        del dec
+        torch.cuda.empty_cache()
+    return out
+
+
+def _obs_split(torch):
+    """(a) The prefill split on OBS_SPLIT_RANKS ranks of the card."""
+    ranks, secs, backend = _spawn_ranks(torch, 'obs_serve', '_obs_split_run',
+                                        timeout=600, world=OBS_SPLIT_RANKS)
+    row = {'phase': 'obs_serve', 'case': 'prefill_split',
+           'ranks': OBS_SPLIT_RANKS, 'backend': backend, 'seconds': secs,
+           'by_rank': ranks}
+    emit(row)
+    for rank, cases in ranks.items():
+        for n, c in cases.items():
+            check(all(c['bit_identical'].values()),
+                  f'prefill_split rank {rank}, {n} rows: pages differ '
+                  f'{c["bit_identical"]}')
+            check(c['greedy_equal'] and c['greedy_tokens'] == OBS_GREEDY,
+                  f'prefill_split rank {rank}, {n} rows: the adopted '
+                  f'stream is not the flat prefill\'s')
+    return row
+
+
+def _http(url):
+    """``(status, body)`` of a GET on the local exporter."""
+    import urllib.error
+    import urllib.request
+    try:
+        with urllib.request.urlopen(url, timeout=60) as resp:
+            return resp.status, resp.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def _obs_burst(torch, ddp, tmp):
+    """(b)–(d): the burst through the Scheduler with the device monitor
+    polling, the adaptive capture armed and the exporter serving; the
+    endpoints scraped while the capture runs."""
+    import numpy as np
+    from distributed_dot_product_tpu_torch.obs import (
+        DeviceMonitor, MetricsServer, ProfileCapture, collecting,
+    )
+    from distributed_dot_product_tpu_torch.obs.events import (
+        EventLog, read_events,
+    )
+    from distributed_dot_product_tpu_torch.obs.flight import (
+        FlightRecorder, load_bundle,
+    )
+    from distributed_dot_product_tpu_torch.serve import (
+        RejectedError, Scheduler, ServeConfig,
+    )
+    from distributed_dot_product_tpu_torch.utils.tracing import (
+        MetricsRegistry,
+    )
+    engine = serve_engine(torch, 'paged', device=OBS_DEVICE)
+    engine.step(np.zeros(engine.slots, np.int32), np.ones(engine.slots, bool))
+    for i in range(engine.slots):
+        engine.reset(i)
+    cache_bytes = sum(t.numel() * t.element_size()
+                      for t in (engine.cache.k_pool, engine.cache.v_pool))
+    registry = MetricsRegistry()
+    prof = ProfileCapture(os.path.join(tmp, 'profile'), registry=registry,
+                          max_seconds=OBS_PROFILE_SECONDS)
+    log = EventLog(os.path.join(tmp, 'events.jsonl'))
+    sched = Scheduler(engine, ServeConfig(
+        queue_limit=SERVE_QUEUE, max_new_tokens=SERVE_NEW,
+        profile_ttft_p99=0.0, profile_seconds=OBS_PROFILE_SECONDS,
+        profile_cooldown=OBS_PROFILE_COOLDOWN, profile_warmup=True),
+        registry=registry, fault_injector=False, profiler=prof,
+        event_log=log)
+    mon = DeviceMonitor(registry, interval=0.02)
+    server = MetricsServer(registry, health=sched.health, profiler=prof,
+                           flight=FlightRecorder(os.path.join(tmp, 'flight'),
+                                                 registry=registry))
+    probes = {}
+
+    def on_tick(s):
+        # While the capture runs: scrape every endpoint once.
+        if probes or not prof.busy:
+            return
+        mon.poll_once()
+        probes['profile'] = _http(server.url + '/profile?seconds=0.1')[0]
+        probes['metrics'] = _http(server.url + '/metrics')
+        probes['healthz'] = _http(server.url + '/healthz')[0]
+        code, body = _http(server.url + '/dump?reason=obs_serve')
+        probes['dump'] = (code, json.loads(body).get('path'))
+    sched.on_tick = on_tick
+    burst = serve_burst()
+    ddp.flash_decode_paged.launches = 0
+    t0 = time.perf_counter()
+    try:
+        mon.start()
+        server.start()
+        with collecting():
+            for i, (rid, prompt) in enumerate(burst):
+                try:
+                    sched.submit(prompt, request_id=rid)
+                except RejectedError:
+                    pass
+                if i % 4 == 3:
+                    sched.step()
+            results = sched.run_until_idle()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = ddp.flash_decode_paged.launches
+        check(prof.join(120), 'the profile capture did not land')
+    finally:
+        sched.close()
+        mon.stop()
+        server.stop()
+        log.close()
+    snap = registry.snapshot()
+    counters, gauges = snap['counters'], snap['gauges']
+    steps = counters.get('serve.decode_steps', 0)
+    check(launches == steps and steps > 0,
+          f'obs_serve: K5p launched {launches} times for {steps} decode '
+          f'steps')
+    tokens = counters.get('serve.tokens_generated', 0)
+    # (b) the device monitor.
+    in_use, peak, limit = (gauges.get(f'device.memory.{k}{{device=cuda:0}}')
+                           for k in ('bytes_in_use', 'peak_bytes_in_use',
+                                     'bytes_limit'))
+    devmon = {'bytes_in_use': in_use, 'peak_bytes_in_use': peak,
+              'bytes_limit': limit, 'cache_bytes': cache_bytes,
+              'devices_reporting': gauges.get(
+                  'device.memory.devices_reporting'),
+              'polls': counters.get('device.memory.polls')}
+    # (c) the capture.
+    events = [r for r in read_events(log.path)
+              if r.get('event') == 'profile.capture']
+    captures = counters.get('profile.captures', 0)
+    names, k5p = set(), 0
+    if events:
+        with open(os.path.join(events[0]['path'], 'trace.json')) as f:
+            trace = json.load(f)['traceEvents']
+        for e in trace:
+            name = e.get('name', '')
+            names.add(name)
+            k5p += e.get('cat') == 'kernel' and _k5p_kernel(name)
+    spans = sorted(n for n in ('serve.decode_step', 'engine.decode_step',
+                               'engine.prefill') if n in names)
+    capture = {'captures': captures,
+               'triggers': counters.get('serve.profile_triggers', 0),
+               'events': [{k: e.get(k) for k in ('trigger', 'seconds',
+                                                  'ttft_p99', 'threshold')}
+                          for e in events],
+               'trace_events': len(names) and len(trace),
+               'k5p_kernel_events': k5p, 'span_names': spans}
+    # (d) the exporter.
+    metrics_code, metrics = probes.get('metrics', (None, ''))
+    dump_code, bundle = probes.get('dump', (None, None))
+    exporter = {
+        'profile_status_during_capture': probes.get('profile'),
+        'metrics_status': metrics_code,
+        'metrics_has': {
+            'ttft_summary': 'ddp_serve_ttft_seconds{quantile="0.99"}'
+                            in metrics,
+            'device_gauges': 'ddp_device_memory_bytes_in_use{device='
+                             '"cuda:0"}' in metrics,
+            'build_info': 'ddp_build_info{' in metrics},
+        'healthz_status': probes.get('healthz'),
+        'dump_status': dump_code,
+        'dump_bundle_files': (sorted(load_bundle(bundle)['manifest']['files'])
+                              if dump_code == 200 else None)}
+    row = {'phase': 'obs_serve', 'case': 'burst', 'requests': len(burst),
+           'completed': sum(r.status == 'completed'
+                            for r in results.values()),
+           'tokens_generated': tokens, 'decode_steps': steps,
+           'wall_s': wall, 'tokens_per_s': tokens / wall,
+           'ttft_s': {k: snap['histograms']['serve.ttft_seconds'][k]
+                      for k in ('p50', 'p99')},
+           'launches': {'flash_decode_paged': launches},
+           'devmon': devmon, 'capture': capture, 'exporter': exporter}
+    emit(row)
+    check(devmon['devices_reporting'] == 1,
+          f'devmon: {devmon["devices_reporting"]} devices reporting')
+    check(in_use is not None and 0 < in_use <= limit,
+          f'devmon: bytes_in_use {in_use} against the limit {limit}')
+    check(peak is not None and peak >= cache_bytes,
+          f'devmon: peak {peak} below the engine cache\'s {cache_bytes}')
+    check(captures == 1 and capture['triggers'] == 1 and len(events) == 1,
+          f'profile: {captures} captures, {capture["triggers"]} triggers, '
+          f'{len(events)} events (one expected)')
+    check(k5p >= 1, 'profile: the trace holds no K5p kernel event')
+    check(spans, 'profile: the trace holds no serving span')
+    check(exporter['profile_status_during_capture'] == 409,
+          f'exporter: /profile answered '
+          f'{exporter["profile_status_during_capture"]} during the capture')
+    check(metrics_code == 200 and all(exporter['metrics_has'].values()),
+          f'exporter: /metrics {metrics_code} {exporter["metrics_has"]}')
+    check(exporter['healthz_status'] == 200,
+          f'exporter: /healthz {exporter["healthz_status"]}')
+    check(dump_code == 200 and exporter['dump_bundle_files'],
+          f'exporter: /dump {dump_code}')
+    return row
+
+
+def _obs_perf(torch):
+    """(e) A perf snapshot of every registered entrypoint on the card:
+    measured ms beside the model's, the model's share at most 1, and the
+    kernel work of the kernel entries what this script's own bound
+    arithmetic counts for their inputs."""
+    import numpy as np
+    perf_mod = perf()
+    snap = perf_mod.snapshot(device=OBS_DEVICE)
+    entries = snap['entries']
+    errors = {n: e['error'] for n, e in entries.items() if 'error' in e}
+    table = {n: {'model_ms': 1e3 * e['model_seconds'],
+                 'measured_ms': 1e3 * e['measured_seconds'],
+                 'share': e['fraction_of_roofline'],
+                 'flops': e['flops'], 'bytes': e['bytes_accessed'],
+                 'peak_bytes': e['peak_bytes'],
+                 'first_call_s': e['first_call_seconds'],
+                 'kernels': e['kernels']}
+             for n, e in entries.items() if 'error' not in e}
+    # The kernel entries' inputs, counted here: causal (b 1, 2 heads,
+    # 16 rows, head dim 32) for K1 / K3 / K4; decode.step_paged_kernel's
+    # two slots (fills 10 and 3, pages of 8, 2 kv heads) for K5p.
+    from distributed_dot_product_tpu_torch.analysis.registry import HEAD_DIM
+    d, nb, t = HEAD_DIM, 2, 16
+    work = dict(d=d, q_rows=nb * t, kv_rows=nb * t,
+                pairs=nb * causal_pairs(t, t, 0))
+    fills, h = np.array([10, 3]), 2
+    paged = perf_mod.decode_cost(
+        d=d, q_rows=2 * h, new_rows=2 * h, rows_read=int(fills.sum()) * h,
+        rows_appended=2 * h, cols=int((fills + 1).sum()) * h,
+        table_entries=2 * 4)
+    want = {
+        'ops.flash_fwd_bf16': {'flash_attention':
+                               perf_mod.attention_fwd_cost(**work)},
+        'ops.flash_bwd_bf16': {
+            'flash_attention': perf_mod.attention_fwd_cost(**work, lse=True),
+            'flash_attention_dq': perf_mod.attention_dq_cost(**work),
+            'flash_attention_dkv': perf_mod.attention_dkv_cost(**work)},
+        'decode.step_paged_kernel': {'flash_decode_paged': paged}}
+    agree = {}
+    for name, kernels in want.items():
+        got = table.get(name, {}).get('kernels', {})
+        agree[name] = all(
+            got.get(k, {}).get('calls') == 1
+            and (got[k]['flops'], got[k]['bytes']) == tuple(v)
+            for k, v in kernels.items())
+    row = {'phase': 'obs_serve', 'case': 'perf', 'device': snap['device_kind'],
+           'entries': table, 'errors': errors, 'kernel_counts_agree': agree,
+           'peaks': snap['peaks']}
+    emit(row)
+    check(not errors, f'perf: entries failed on the card: {errors}')
+    over = {n: e['share'] for n, e in table.items() if not e['share'] <= 1.0}
+    check(not over, f'perf: model over measured above 1: {over}')
+    check(all(agree.values()), f'perf: kernel counts differ: {agree}')
+    return row
+
+
+def phase_obs_serve(torch, ddp):
+    """The rest of obs/ on the serving path: the prefill split (a), the
+    device monitor (b), the adaptive capture (c) and the exporter (d)
+    over serve_path's burst, then a perf snapshot of every registered
+    entrypoint (e)."""
+    import tempfile
+    t_phase = time.perf_counter()
+    split = _obs_split(torch)
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix='obs_serve_')
+    try:
+        burst = _obs_burst(torch, ddp, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    _obs_perf(torch)
+    emit({'phase': 'obs_serve', 'case': 'done',
+          'seconds': time.perf_counter() - t_phase})
+    return {'launches': burst['launches']['flash_decode_paged'],
+            'split': split}
+
+
 def main():
     try:
         import torch
@@ -7424,6 +7835,7 @@ def main():
             ('load_serve', lambda: phase_load_serve(torch, ddp)),
             ('router_serve', lambda: phase_router_serve(torch, ddp, flush)),
             ('chaos_serve', lambda: phase_chaos_serve(torch, ddp)),
+            ('obs_serve', lambda: phase_obs_serve(torch, ddp)),
             ('kv_sharded_serve',
              lambda: phase_kv_sharded_serve(torch, ddp, flush, gen)),
             ('int8_decode', lambda: phase_int8_decode(torch, ddp)),
@@ -7478,6 +7890,7 @@ def main():
     wq8_lm, knobs = res['wq8_lm'], res['train_knobs']
     router = res['router_serve']
     chaos = res['chaos_serve']
+    obs = res['obs_serve']
 
     def knob_paths(kernel):
         """The kernel's launches on train_knobs's runs (2 steps under each
@@ -7703,7 +8116,8 @@ def main():
                  **{f'router_serve_{case}': n
                     for case, n in router['launches'].items()},
                  **{f'chaos_serve_{case}': n
-                    for case, n in chaos['launches'].items()}},
+                    for case, n in chaos['launches'].items()},
+                 'obs_serve': obs['launches']},
              max_abs_err=k5p['max_abs_err'],
              variants=k5p['variants'],
              **{key: k5p[key] for key in ('ms', 'plain_ms', 'library_ms',

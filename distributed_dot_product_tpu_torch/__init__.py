@@ -31,6 +31,9 @@ for the CPU; without a card they raise. The package imports ``torch``
 and never ``jax``.
 """
 
+from distributed_dot_product_tpu_torch._version import (  # noqa: F401
+    VERSION_INFO, __version__,
+)
 from distributed_dot_product_tpu_torch.utils.comm import (  # noqa: F401
     SEQ_AXIS, get_rank, get_world_size, init, is_main_process,
     resolve_device, synchronize,

@@ -82,7 +82,7 @@ from distributed_dot_product_tpu_torch.ops.flash_attention import (
 from distributed_dot_product_tpu_torch.ops.ops import matmul_all, matmul_nt
 from distributed_dot_product_tpu_torch.ops.rope import rope
 from distributed_dot_product_tpu_torch.parallel.mesh import (
-    shard_seq, unshard_seq,
+    seq_mesh, shard_seq, unshard_seq,
 )
 from distributed_dot_product_tpu_torch.utils.comm import (
     SEQ_AXIS, all_gather, get_rank, get_world_size, reduce_scatter,
@@ -559,3 +559,110 @@ def apply_seq_parallel(module, mesh, keys, queries, values, attn_mask=None):
     mask = None if attn_mask is None else shard_seq(attn_mask, mesh)
     out = module(*shards, mask, group=mesh.seq_group)
     return unshard_seq(out, mesh)
+
+
+def graphlint_entrypoints():
+    """Registration hook (``analysis/registry.py``): the module-level
+    attention surfaces over the seq mesh — forward (and the 'full'
+    backward) through every softmax_impl's comm pattern (all-gather,
+    ring, ulysses all-to-all), and the sequence-sharded decode step
+    (:func:`make_decode_step`) on the callable a serving loop holds.
+    The flash paths compute in bf16 (the kernels take bf16): the
+    reference's float32 entries keep float32 parameters, its ``_bf16``
+    twins bf16 parameters, and the ``_wq8`` twin int8 weights."""
+    import functools
+
+    from distributed_dot_product_tpu_torch.analysis.registry import (
+        HEAD_DIM,
+    )
+    key_dim = 2 * HEAD_DIM
+
+    def _module(softmax_impl, device, dtype, param_dtype, **kw):
+        return DistributedDotProductAttn(
+            key_dim=key_dim, num_heads=2, causal=True, offset=2,
+            softmax_impl=softmax_impl, dtype=dtype, param_dtype=param_dtype,
+            device=device, generator=torch.Generator().manual_seed(0), **kw)
+
+    def _fwd_spec(name, softmax_impl, device, dtype=torch.bfloat16,
+                  param_dtype=torch.float32, **kw):
+        from distributed_dot_product_tpu_torch.analysis.registry import (
+            TraceSpec, example,
+        )
+        mesh = seq_mesh()
+        module = _module(softmax_impl, device, dtype, param_dtype, **kw)
+        x = example((1, 16, key_dim), dtype, device)
+
+        def fn(m, k, q, v):
+            with torch.no_grad():
+                return apply_seq_parallel(m, mesh, k, q, v)
+
+        return TraceSpec(name=name, fn=fn, args=(module, x, x, x),
+                         mesh_axes=(SEQ_AXIS,))
+
+    def _bwd_spec(name, softmax_impl, device, **kw):
+        from distributed_dot_product_tpu_torch.analysis.registry import (
+            TraceSpec, example,
+        )
+        mesh = seq_mesh()
+        module = _module(softmax_impl, device, torch.float32,
+                         torch.float32, **kw)
+        x = example((1, 16, key_dim), torch.float32, device)
+
+        def fn(m, k, q, v):
+            # .backward(), not autograd.grad: the flop counter's module
+            # hooks refuse grad() over parameters.
+            m.zero_grad(set_to_none=True)
+            k, q, v = (shard_seq(t, mesh).detach() for t in (k, q, v))
+            k.requires_grad_()
+            m(k, q, v, group=mesh.seq_group).sum().backward()
+            return [k.grad] + [p.grad for p in m.parameters()]
+
+        return TraceSpec(name=name, fn=fn, args=(module, x, x, x),
+                         mesh_axes=(SEQ_AXIS,))
+
+    def seq_parallel_step(device, name='decode.seq_parallel_step',
+                          param_dtype=torch.float32):
+        from distributed_dot_product_tpu_torch.analysis.registry import (
+            TraceSpec, example,
+        )
+        from distributed_dot_product_tpu_torch.parallel.mesh import (
+            shard_decode_cache,
+        )
+        mesh = seq_mesh()
+        module = _module('flash', device, torch.bfloat16, param_dtype)
+        cache = shard_decode_cache(module.make_decode_cache(1, 64), mesh)
+        step = make_decode_step(module, mesh)
+        tok = example((1, 1, key_dim), torch.bfloat16, device)
+
+        def fn(m, k, q, v, c):
+            with torch.no_grad():
+                return step(k, q, v, c)
+
+        return TraceSpec(
+            name=name, fn=fn, args=(module, tok, tok, tok, cache),
+            mesh_axes=(SEQ_AXIS,),
+            cache_in=lambda a: [a[4].k, a[4].v],
+            cache_out=lambda o: [o[0].k, o[0].v],
+            expect_donation=True, min_donated=2)
+
+    partial = functools.partial
+    return {
+        'attention.fwd_flash': partial(
+            _fwd_spec, 'attention.fwd_flash', 'flash'),
+        'attention.fwd_flash_bf16': partial(
+            _fwd_spec, 'attention.fwd_flash_bf16', 'flash',
+            param_dtype=torch.bfloat16),
+        'attention.fwd_flash_wq8': partial(
+            _fwd_spec, 'attention.fwd_flash_wq8', 'flash',
+            param_dtype=torch.bfloat16, weight_quant='int8'),
+        'attention.bwd_full': partial(
+            _bwd_spec, 'attention.bwd_full', 'full'),
+        'attention.fwd_ring': partial(
+            _fwd_spec, 'attention.fwd_ring', 'online'),
+        'attention.fwd_ulysses': partial(
+            _fwd_spec, 'attention.fwd_ulysses', 'ulysses'),
+        'decode.seq_parallel_step': seq_parallel_step,
+        'decode.seq_parallel_step_bf16': partial(
+            seq_parallel_step, name='decode.seq_parallel_step_bf16',
+            param_dtype=torch.bfloat16),
+    }

@@ -1884,3 +1884,154 @@ def sharded_decode_step(q, caches, k_new, v_new, *, slot_mask=None,
         out_caches.append(cache)
         parts.append(tuple(x.to(home) for x in res))
     return out_caches, merge_partials(parts, caches[0].v_pool.dtype)
+
+
+def graphlint_entrypoints():
+    """Registration hook (``analysis/registry.py``): the decode steps at
+    the shapes where the contracts bite — bf16 caches, the int8 mirror
+    through the fused kernel, the paged pool (plain, K5p, K5p int8), the
+    sequence-sharded slab over the seq mesh, the sequence-sharded page
+    table (every shard in this process, the kv_shards engine's step:
+    plain and K5p partials) and verify-k on slab and pool."""
+    from functools import partial
+
+    def _spec(name, fn, args, cache_fields=('k', 'v'), **kw):
+        from distributed_dot_product_tpu_torch.analysis.registry import (
+            TraceSpec,
+        )
+        return TraceSpec(
+            name=name, fn=fn, args=args,
+            cache_in=lambda a: [getattr(a[1], f) for f in cache_fields],
+            cache_out=lambda o: [getattr(o[0], f) for f in cache_fields],
+            expect_donation=True, donate_argnums=(1,),
+            min_donated=len(cache_fields), **kw)
+
+    def _new(device, b, n=1):
+        from distributed_dot_product_tpu_torch.analysis.registry import (
+            HEAD_DIM, example,
+        )
+        return example((b, 2, n, HEAD_DIM), torch.bfloat16, device)
+
+    def step_xla_slots(device):
+        from distributed_dot_product_tpu_torch.analysis.registry import (
+            HEAD_DIM,
+        )
+        cache = init_slot_cache(2, 2, 32, HEAD_DIM, device=device)
+        new = _new(device, 2)
+        return _spec('decode.step_xla_slots',
+                     partial(decode_step, impl='plain'),
+                     (new, cache, new, new))
+
+    def step_kernel_int8(device):
+        from distributed_dot_product_tpu_torch.analysis.registry import (
+            HEAD_DIM,
+        )
+        cache = init_cache(1, 2, 64, HEAD_DIM, qk_quant='int8',
+                           device=device)
+        new = _new(device, 1)
+        return _spec('decode.step_kernel_int8',
+                     partial(decode_step, impl='kernel', qk_quant='int8'),
+                     (new, cache, new, new),
+                     cache_fields=('k', 'v', 'k_q', 'k_scale'))
+
+    def step_sharded(device):
+        from distributed_dot_product_tpu_torch.analysis.registry import (
+            HEAD_DIM,
+        )
+        from distributed_dot_product_tpu_torch.parallel.mesh import (
+            seq_mesh, shard_decode_cache,
+        )
+        from distributed_dot_product_tpu_torch.utils.comm import world_group
+        cache = shard_decode_cache(
+            init_cache(1, 2, 64, HEAD_DIM, device=device), seq_mesh())
+        new = _new(device, 1)
+        # The seq mesh spans the world: its group is the world group
+        # (decode_step's group=None is the local step).
+        return _spec('decode.step_sharded',
+                     partial(decode_step, impl='plain', group=world_group()),
+                     (new, cache, new, new), mesh_axes=('seq',))
+
+    def _paged_args(device, qk_quant=None, n=1):
+        from distributed_dot_product_tpu_torch.analysis.registry import (
+            HEAD_DIM,
+        )
+        cache = init_paged_cache(2, 2, 32, HEAD_DIM, pages=6, page_size=8,
+                                 qk_quant=qk_quant, device=device)
+        # A realistic mid-serve table: slot 0 holds two pages (fill 10),
+        # slot 1 one page (fill 3); pool page 3 stays free.
+        cache.page_table[0, :2] = torch.tensor([0, 1])
+        cache.page_table[1, 0] = 2
+        cache = cache._replace(length=np.array([10, 3], np.int64))
+        return cache, _new(device, 2, n)
+
+    _POOLS = ('k_pool', 'v_pool')
+
+    def step_paged(impl, name, device, qk_quant=None):
+        cache, new = _paged_args(device, qk_quant)
+        fields = _POOLS + (('k_q_pool', 'k_scale_pool') if qk_quant
+                           else ())
+        return _spec(name, partial(decode_step, impl=impl,
+                                   qk_quant=qk_quant),
+                     (new, cache, new, new), cache_fields=fields)
+
+    def _sharded_paged_spec(impl, device):
+        from distributed_dot_product_tpu_torch.analysis.registry import (
+            HEAD_DIM,
+        )
+        # Two shards over a pps=4 table (each owns 2 ordinals); a
+        # mid-serve fill: slot 0 holds 10 rows (ordinals 0-1, both
+        # shard 0's), slot 1 holds 3 (ordinal 0 → shard 0's page 2).
+        cache = init_sharded_paged_cache(2, 2, 2, 32, HEAD_DIM,
+                                         pages_per_shard=3, page_size=8,
+                                         device=device)
+        cache.page_table[0, 0, :2] = torch.tensor([0, 1])
+        cache.page_table[0, 1, 0] = 2
+        cache = cache._replace(length=np.array([10, 3], np.int64))
+        new = _new(device, 2)
+
+        def fn(q, stacked, k, v):
+            return sharded_decode_step(
+                q, [shard_view(stacked, s) for s in range(2)], k, v,
+                impl=impl)
+
+        suffix = '_kernel' if impl == 'kernel' else ''
+        return _spec(f'decode.step_paged_sharded{suffix}', fn,
+                     (new, cache, new, new), cache_fields=_POOLS,
+                     mesh_axes=('seq',))
+
+    def step_verify_slab(device):
+        from distributed_dot_product_tpu_torch.analysis.registry import (
+            HEAD_DIM,
+        )
+        cache = init_slot_cache(2, 2, 32, HEAD_DIM, device=device)
+        cache = cache._replace(length=np.array([5, 9], np.int64))
+        q = _new(device, 2, 3)
+        counts = np.array([3, 1], np.int64)     # mixed spec / non-spec
+        return _spec('decode.step_verify_slab',
+                     partial(decode_step, impl='kernel', counts=counts),
+                     (q, cache, q, q))
+
+    def step_verify_paged(device):
+        cache, q = _paged_args(device, n=3)
+        counts = np.array([3, 2], np.int64)
+        return _spec('decode.step_verify_paged',
+                     partial(decode_step, impl='kernel', counts=counts),
+                     (q, cache, q, q), cache_fields=_POOLS)
+
+    return {
+        'decode.step_xla_slots': step_xla_slots,
+        'decode.step_kernel_int8': step_kernel_int8,
+        'decode.step_sharded': step_sharded,
+        'decode.step_paged_xla': partial(step_paged, 'plain',
+                                         'decode.step_paged_xla'),
+        'decode.step_paged_kernel': partial(step_paged, 'kernel',
+                                            'decode.step_paged_kernel'),
+        'decode.step_paged_kernel_int8': partial(
+            step_paged, 'kernel', 'decode.step_paged_kernel_int8',
+            qk_quant='int8'),
+        'decode.step_paged_sharded': partial(_sharded_paged_spec, 'plain'),
+        'decode.step_paged_sharded_kernel': partial(_sharded_paged_spec,
+                                                    'kernel'),
+        'decode.step_verify_slab': step_verify_slab,
+        'decode.step_verify_paged': step_verify_paged,
+    }

@@ -97,11 +97,14 @@ def quantize_kernel(weight):
     ``scale_j = max(max|W[j, :]| / 127, 1e-20)``. Leading axes pass through
     (a layer-stacked ``(L, out, in)`` weight quantizes each layer's
     channels on their own). The reference's ``quantize_kernel`` on its
-    ``(in, out)`` kernel, transposed."""
+    ``(in, out)`` kernel, transposed. ``weight_q`` is row-major whatever
+    the layout of ``weight`` (a transposed view keeps its strides through
+    the arithmetic): cuBLASLt refuses the s8 product of a column-major
+    ``weight_q`` at some widths (64 x 64 on an H100)."""
     w32 = torch.as_tensor(weight).float()
     scale = torch.clamp_min(w32.abs().amax(dim=-1) / 127.0, _EPS)
     w_q = torch.round(w32 / scale[..., None]).to(torch.int8)
-    return w_q, scale
+    return w_q.contiguous(), scale.contiguous()
 
 
 class OwnedDense(nn.Module):

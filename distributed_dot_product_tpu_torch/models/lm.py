@@ -234,3 +234,54 @@ def greedy_generate(model, prompt, steps, t_max):
             tok = logits[:, -1:].argmax(dim=-1).to(torch.int32)
             out.append(tok)
     return torch.cat(out, dim=1)
+
+
+def graphlint_entrypoints():
+    """Registration hook (``analysis/registry.py``): the LM head at bf16
+    and the chunked token-mean loss (``nll_sum``), with float32 and with
+    bf16 parameters (the attention computes in bf16: the flash kernels
+    take bf16)."""
+    from functools import partial
+
+    def _model(device, param_dtype):
+        from distributed_dot_product_tpu_torch.analysis.registry import (
+            HEAD_DIM,
+        )
+        return TransformerLM(
+            vocab_size=32, dim=2 * HEAD_DIM, num_heads=2, n_layers=1,
+            dtype=torch.bfloat16, param_dtype=param_dtype,
+            attn_kwargs={'distributed': False}, device=device,
+            generator=torch.Generator().manual_seed(0))
+
+    def head_bf16(device):
+        from distributed_dot_product_tpu_torch.analysis.registry import (
+            TraceSpec, example,
+        )
+        model = _model(device, torch.bfloat16)
+        x = example((1, 8, model.embedding.shape[1]), torch.bfloat16,
+                    device)
+
+        def fn(m, h):
+            with torch.no_grad():
+                return m._head(h)
+
+        return TraceSpec(name='lm.head_bf16', fn=fn, args=(model, x))
+
+    def loss(device, name='lm.loss_f32', param_dtype=torch.float32):
+        from distributed_dot_product_tpu_torch.analysis.registry import (
+            TraceSpec,
+        )
+        model = _model(device, param_dtype)
+        gen = torch.Generator().manual_seed(1)
+        tokens = torch.randint(0, 32, (1, 16), generator=gen).to(device)
+        targets = torch.randint(0, 32, (1, 16), generator=gen).to(device)
+
+        def fn(m, tok, tgt):
+            with torch.no_grad():
+                return m.nll_sum(tok, tgt, chunk=4)
+
+        return TraceSpec(name=name, fn=fn, args=(model, tokens, targets))
+
+    return {'lm.head_bf16': head_bf16, 'lm.loss_f32': loss,
+            'lm.loss_bf16': partial(loss, name='lm.loss_bf16',
+                                    param_dtype=torch.bfloat16)}

@@ -20,9 +20,8 @@ A :class:`Watch` binds a detector to a registry stream (gauge value,
 histogram percentile, counter rate, or a custom ``fn``) with a
 per-watch real-time cooldown and an ``actions`` tuple naming what a
 breach chains: ``'profile'`` begins one bounded capture on the
-watchdog's ``profiler`` (any object with the reference's
-``ProfileCapture.start(seconds, trigger=, event_log=, value=)``; the
-port's own ``obs/devmon.py`` capture is not ported, ROADMAP §1 item 5) —
+watchdog's ``profiler`` (an ``obs/devmon.py``
+:class:`~distributed_dot_product_tpu_torch.obs.devmon.ProfileCapture`) —
 the regression gets profiled WHILE it happens — and ``'dump'`` writes a
 flight post-mortem bundle (obs/flight.py). Every breach emits a
 closed-vocabulary ``anomaly.detected`` event into the event log, so
@@ -219,8 +218,8 @@ class Watch:
 
 class AnomalyWatchdog:
     """Evaluate a watch list against ``registry`` (see module
-    docstring). ``profiler`` (optional; any object with
-    ``start(seconds, trigger=, event_log=, value=)``)
+    docstring). ``profiler`` (optional
+    :class:`~distributed_dot_product_tpu_torch.obs.devmon.ProfileCapture`)
     serves the ``'profile'`` action; the ``'dump'`` action resolves
     the process flight recorder at breach time. ``event_log``: the
     explicit sink, else the active log (the events idiom)."""

@@ -25,9 +25,10 @@ incident-response half:
   page-pool stats via :func:`add_provider`).
 
 Copied from ``distributed_dot_product_tpu/obs/flight.py``. The device
-samples read ``torch.cuda`` memory statistics, the MANIFEST names the
-torch version, and every bundle carries the reference's ``critpath``
-section (the ring window's phase summary, ``obs/critpath.py``).
+samples are ``obs/devmon.py``'s snapshot of the cards' memory counters,
+the MANIFEST names the torch and CUDA versions (the exporter's build
+info), and every bundle carries the reference's ``critpath`` section
+(the ring window's phase summary, ``obs/critpath.py``).
 
 Triggers (each emits a ``postmortem.dump`` event): the serving
 watchdog's stall callback, an unhandled scheduler-loop exception, a
@@ -62,10 +63,12 @@ import traceback
 from typing import Dict, Optional
 
 from distributed_dot_product_tpu_torch.obs import events as obs_events
+from distributed_dot_product_tpu_torch.obs.devmon import (
+    device_stats_snapshot,
+)
 from distributed_dot_product_tpu_torch.utils import tracing
 
 __all__ = ['BUNDLE_SCHEMA', 'ENV_VAR', 'FlightRecorder', 'recorder',
-           'device_stats_snapshot',
            'get_recorder', 'install', 'recording', 'open_from_env',
            'add_provider', 'remove_provider', 'load_bundle']
 
@@ -78,23 +81,6 @@ _METRICS_FILE = 'metrics.json'
 _SAMPLES_FILE = 'metric_samples.jsonl'
 _DEVICES_FILE = 'device_samples.jsonl'
 _STACKS_FILE = 'stacks.json'
-
-
-def device_stats_snapshot(devices=None):
-    """``[{'device', 'kind', 'bytes_in_use', 'peak_bytes_in_use'}, ...]``
-    for each CUDA device (``devices``: indices, default all), or None
-    without a card — the port's counterpart of the reference's
-    ``obs.devmon.device_stats_snapshot``."""
-    import torch
-    if not torch.cuda.is_available():
-        return None
-    out = []
-    for i in (devices if devices is not None
-              else range(torch.cuda.device_count())):
-        out.append({'device': i, 'kind': torch.cuda.get_device_name(i),
-                    'bytes_in_use': torch.cuda.memory_allocated(i),
-                    'peak_bytes_in_use': torch.cuda.max_memory_allocated(i)})
-    return out
 
 
 def _thread_stacks():
@@ -335,7 +321,14 @@ class FlightRecorder:
                       encoding='utf-8') as f:
                 json.dump(payload, f, indent=2, default=str)
 
-        import torch
+        # ONE version probe shared with /metrics' build_info gauge — a
+        # bundle MANIFEST and a scrape of the same process can never
+        # disagree (lazy import: the exporter pulls http.server, which
+        # the recorder's hot path must not pay at module load).
+        from distributed_dot_product_tpu_torch.obs.exporter import (
+            build_info_labels,
+        )
+        info = build_info_labels()
         manifest = {
             'schema': BUNDLE_SCHEMA,
             'bundle': 'ddp-flight-postmortem',
@@ -343,8 +336,9 @@ class FlightRecorder:
             'trigger': trigger,
             'reason': reason,
             'event_schema_version': obs_events.SCHEMA_VERSION,
-            'torch_version': torch.__version__,
-            'python_version': sys.version.split()[0],
+            'torch_version': info['torch_version'],
+            'cuda_version': info['cuda_version'],
+            'python_version': info['python_version'],
             'ring': ring_stats,
             'files': {'events': _EVENTS_FILE,
                       'metrics': _METRICS_FILE,

@@ -102,6 +102,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from distributed_dot_product_tpu_torch.obs import perf as _perf
 from distributed_dot_product_tpu_torch.ops import _build
 
 __all__ = ['flash_attention', 'flash_attention_plain',
@@ -843,6 +844,32 @@ def _launch(q, k, v, mask, causal, causal_offset, kv_offset, scale,
     return out if lse is None else (out, lse)
 
 
+def _attn_work(q, k, mask, causal, co, ko, window, **extra):
+    """The keyword arguments of ``obs/perf.py``'s cost formula for one
+    K1–K4 call (read only while a cost count runs): the pairs the
+    causal structure, the window and the mask leave (segments and
+    dropout not counted), every query row, and the key rows some row
+    attends."""
+    tq, tk, d = q.shape[-2], k.shape[-2], q.shape[-1]
+    nb, nkv = math.prod(q.shape[:-2]), math.prod(k.shape[:-2])
+    his, los = [], []
+    for i in range(tq):
+        pos = co + i - ko
+        his.append(min(tk, pos + 1) if causal else tk)
+        los.append(max(0, pos - window + 1) if window else 0)
+    kv_rows = max(0, max(his) - min(los))
+    if mask is None:
+        pairs = nb * sum(max(0, h - lo) for h, lo in zip(his, los))
+    else:
+        col = torch.arange(tk, device=mask.device)
+        hi_t = torch.tensor(his, device=mask.device)[:, None]
+        lo_t = torch.tensor(los, device=mask.device)[:, None]
+        allowed = (~mask) & (col < hi_t) & (col >= lo_t)
+        pairs = int(allowed.expand(*q.shape[:-2], tq, tk).sum().item())
+    return dict(d=d, q_rows=nb * tq, kv_rows=nkv * kv_rows, pairs=pairs,
+                mask_bytes=0 if mask is None else mask.numel(), **extra)
+
+
 def _count(fn, feat):
     """One launch of ``fn``'s kernel, and of its ALiBi / positions
     variant when the launch carries them."""
@@ -871,15 +898,18 @@ def flash_attention_bounded(q, k, v, mask=None, *, causal=False,
         scale = 1.0 / math.sqrt(q.shape[-1])
     feat = _features(q, k, causal, segment_ids, window,
                      positions=positions)
-    if not q.is_cuda:
-        res = _plain_fwd(q, k, v, mask, causal, causal_offset, kv_offset,
-                         scale, feat, bounded=True)
-        return res if save_lse else res[0]
-    if mvec is None:
-        mvec = bounded_shift(_fold_q(q, scale), k)
-    return _launch(q, k, v, mask, bool(causal), int(causal_offset),
-                   int(kv_offset), float(scale), save_lse, mvec=mvec,
-                   feat=feat)
+    with _perf.kernel_work('flash_attention_bounded', lambda: _attn_work(
+            q, k, _bool_mask(mask), causal, causal_offset, kv_offset,
+            window, lse=save_lse)):
+        if not q.is_cuda:
+            res = _plain_fwd(q, k, v, mask, causal, causal_offset,
+                             kv_offset, scale, feat, bounded=True)
+            return res if save_lse else res[0]
+        if mvec is None:
+            mvec = bounded_shift(_fold_q(q, scale), k)
+        return _launch(q, k, v, mask, bool(causal), int(causal_offset),
+                       int(kv_offset), float(scale), save_lse, mvec=mvec,
+                       feat=feat)
 
 
 def _forward(q, k, v, mask, causal, causal_offset, kv_offset, scale, mode,
@@ -887,22 +917,28 @@ def _forward(q, k, v, mask, causal, causal_offset, kv_offset, scale, mode,
     """The forward of either mode, K2 behind the reference's guard (with
     dropout, int8 scoring or ALiBi 'bounded' resolves to the exact
     kernel)."""
+    def work():
+        return _attn_work(q, k, mask, causal, causal_offset, kv_offset,
+                          feat.window, lse=save_lse)
     if mode == 'bounded' and not (feat.rate or feat.quant
                                   or feat.alibi is not None):
         mvec = bounded_shift(_fold_q(q, scale), k)
         if _bounded_ok(mvec):
-            if not q.is_cuda:
-                res = _plain_fwd(q, k, v, mask, causal, causal_offset,
-                                 kv_offset, scale, feat, bounded=True)
-                return res if save_lse else res[0]
+            with _perf.kernel_work('flash_attention_bounded', work):
+                if not q.is_cuda:
+                    res = _plain_fwd(q, k, v, mask, causal, causal_offset,
+                                     kv_offset, scale, feat, bounded=True)
+                    return res if save_lse else res[0]
+                return _launch(q, k, v, mask, causal, causal_offset,
+                               kv_offset, scale, save_lse, mvec=mvec,
+                               feat=feat)
+    with _perf.kernel_work('flash_attention', work):
+        if q.is_cuda:
             return _launch(q, k, v, mask, causal, causal_offset, kv_offset,
-                           scale, save_lse, mvec=mvec, feat=feat)
-    if q.is_cuda:
-        return _launch(q, k, v, mask, causal, causal_offset, kv_offset,
-                       scale, save_lse, feat=feat)
-    res = _plain_fwd(q, k, v, mask, causal, causal_offset, kv_offset, scale,
-                     feat)
-    return res if save_lse else res[0]
+                           scale, save_lse, feat=feat)
+        res = _plain_fwd(q, k, v, mask, causal, causal_offset, kv_offset,
+                         scale, feat)
+        return res if save_lse else res[0]
 
 
 def flash_attention_dq(q2, k, v, g, lse2, delta, *, mask=None, causal=False,
@@ -920,13 +956,17 @@ def flash_attention_dq(q2, k, v, g, lse2, delta, *, mask=None, causal=False,
               segment_ids=segment_ids, window=window,
               dropout_rate=dropout_rate, dropout_seed=dropout_seed,
               quant=quant, positions=positions, alibi_slopes=alibi_slopes)
-    if not q2.is_cuda:
-        return flash_attention_dq_plain(q2, k, v, g, lse2, delta,
-                                        scale=scale, **kw)
-    feat = _bwd_feat(q2, k, causal, segment_ids, window, dropout_rate,
-                     dropout_seed, quant, positions, alibi_slopes)
-    return _launch_dq(q2, k, v, g, lse2, delta, mask, causal, causal_offset,
-                      kv_offset, scale, grad_dtype, feat, quant)
+    with _perf.kernel_work('flash_attention_dq', lambda: _attn_work(
+            q2, k, _bool_mask(mask), causal, causal_offset, kv_offset,
+            window, grad_bytes=(grad_dtype or q2.dtype).itemsize)):
+        if not q2.is_cuda:
+            return flash_attention_dq_plain(q2, k, v, g, lse2, delta,
+                                            scale=scale, **kw)
+        feat = _bwd_feat(q2, k, causal, segment_ids, window, dropout_rate,
+                         dropout_seed, quant, positions, alibi_slopes)
+        return _launch_dq(q2, k, v, g, lse2, delta, mask, causal,
+                          causal_offset, kv_offset, scale, grad_dtype, feat,
+                          quant)
 
 
 def _launch_dq(q2, k, v, g, lse2, delta, mask, causal, causal_offset,
@@ -976,15 +1016,19 @@ def flash_attention_dkv(q2, k, v, g, lse2, delta, *, mask=None,
               segment_ids=segment_ids, window=window,
               dropout_rate=dropout_rate, dropout_seed=dropout_seed,
               quant=quant, positions=positions, alibi_slopes=alibi_slopes)
-    if not q2.is_cuda:
-        return flash_attention_dkv_plain(q2, k, v, g, lse2, delta, **kw)
-    if scale is None:
-        scale = 1.0 / math.sqrt(q2.shape[-1])
-    feat = _bwd_feat(q2, k, causal, segment_ids, window, dropout_rate,
-                     dropout_seed, quant, positions, alibi_slopes)
-    return _launch_dkv(q2, k, v, g, lse2, delta, mask, causal,
-                       causal_offset, kv_offset, scale, grad_dtype, feat,
-                       quant)
+    with _perf.kernel_work('flash_attention_dkv', lambda: _attn_work(
+            q2, k, _bool_mask(mask), causal, causal_offset, kv_offset,
+            window, grad_bytes=(grad_dtype or k.dtype).itemsize)):
+        if not q2.is_cuda:
+            return flash_attention_dkv_plain(q2, k, v, g, lse2, delta,
+                                             **kw)
+        if scale is None:
+            scale = 1.0 / math.sqrt(q2.shape[-1])
+        feat = _bwd_feat(q2, k, causal, segment_ids, window, dropout_rate,
+                         dropout_seed, quant, positions, alibi_slopes)
+        return _launch_dkv(q2, k, v, g, lse2, delta, mask, causal,
+                           causal_offset, kv_offset, scale, grad_dtype,
+                           feat, quant)
 
 
 def _launch_dkv(q2, k, v, g, lse2, delta, mask, causal, causal_offset,
@@ -1145,3 +1189,55 @@ for _fn in (flash_attention, flash_attention_bounded, flash_attention_dq,
             flash_attention_dkv):
     _fn.launches = _fn.alibi_launches = _fn.positions_launches = 0
 del _fn
+
+
+def graphlint_entrypoints():
+    """Registration hook (``analysis/registry.py``): the flash kernels at
+    bf16 — K1, the backward (K1 with LSE, K3, K4) and K1 with int8
+    scoring, causal, at the reference's shapes (head dim 32)."""
+
+    def _q(device):
+        from distributed_dot_product_tpu_torch.analysis.registry import (
+            HEAD_DIM, example,
+        )
+        return example((1, 2, 16, HEAD_DIM), torch.bfloat16, device)
+
+    def fwd_bf16(device):
+        from distributed_dot_product_tpu_torch.analysis.registry import (
+            TraceSpec,
+        )
+        q = _q(device)
+        return TraceSpec(
+            name='ops.flash_fwd_bf16',
+            fn=lambda q, k, v: flash_attention(q, k, v, causal=True),
+            args=(q, q, q))
+
+    def bwd_bf16(device):
+        from distributed_dot_product_tpu_torch.analysis.registry import (
+            TraceSpec,
+        )
+
+        def fn(q, k, v):
+            q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+            out = flash_attention(q, k, v, causal=True)
+            return torch.autograd.grad(out.float().sum(), (q, k, v))
+
+        q = _q(device)
+        return TraceSpec(name='ops.flash_bwd_bf16', fn=fn, args=(q, q, q))
+
+    def fwd_int8(device):
+        from distributed_dot_product_tpu_torch.analysis.registry import (
+            TraceSpec,
+        )
+        q = _q(device)
+        return TraceSpec(
+            name='ops.flash_fwd_int8',
+            fn=lambda q, k, v: flash_attention(q, k, v, causal=True,
+                                               qk_quant='int8'),
+            args=(q, q, q))
+
+    return {
+        'ops.flash_fwd_bf16': fwd_bf16,
+        'ops.flash_bwd_bf16': bwd_bf16,
+        'ops.flash_fwd_int8': fwd_int8,
+    }

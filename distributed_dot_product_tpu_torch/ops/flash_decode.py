@@ -78,6 +78,7 @@ import math
 
 import torch
 
+from distributed_dot_product_tpu_torch.obs import perf as _perf
 from distributed_dot_product_tpu_torch.ops import _build
 from distributed_dot_product_tpu_torch.ops.flash_attention import (
     _LOG2E, _NEG_BIG, _alibi_log2, quantize_rows,
@@ -450,6 +451,47 @@ def _launch(q, k_new, v_new, cache_k, cache_v, valid_to, append_at, n_new,
     return res, cache_k, cache_v
 
 
+def _decode_work(q, cache_k, valid_to, append_at, n_new, page_table,
+                 window, partials, quantized):
+    """The keyword arguments of ``obs/perf.py``'s decode cost formula for
+    one K5 / K5p call (read only while a cost count runs): per slot, the
+    columns each query row attends, the cached rows read (distinct pool
+    rows when paged: a shared prefix once) and the rows appended."""
+    b, h, n, d = q.shape
+    h_kv = cache_k.shape[1]
+    vt = [int(x) for x in valid_to.tolist()]
+    ap = [int(x) for x in append_at.tolist()]
+    nn = ([int(x) for x in n_new.tolist()] if n_new is not None
+          else [n if a >= 0 else 0 for a in ap])
+    if page_table is not None:
+        table = page_table.tolist()
+        ps = cache_k.shape[2]
+        t = len(table[0]) * ps
+    else:
+        t = cache_k.shape[2]
+    cols, read = 0, set()
+    for i in range(b):
+        if vt[i] < 0:
+            continue
+        for j in range(n):
+            hi = min(vt[i] + j + 1, t)
+            lo = max(0, vt[i] + j - window + 1) if window else 0
+            cols += max(0, hi - lo)
+        lo = max(0, vt[i] - window + 1) if window else 0
+        for c in range(lo, min(vt[i], t)):
+            if page_table is None:
+                read.add((i, c))
+            elif table[i][c // ps] >= 0:
+                read.add((table[i][c // ps], c % ps))
+    appended = sum(c for c, a in zip(nn, ap) if a >= 0)
+    return dict(d=d, q_rows=b * h * n, new_rows=b * h_kv * n,
+                rows_read=len(read) * h_kv, rows_appended=appended * h_kv,
+                cols=cols * h, k_row_bytes=d + 4 if quantized else None,
+                out_row_bytes=(d + 2) * 4 if partials else None,
+                table_entries=(0 if page_table is None
+                               else page_table.numel()))
+
+
 def flash_decode(q, k_new, v_new, cache_k, cache_v, valid_to, append_at, *,
                  n_new=None, page_table=None, k_q=None, k_scale=None,
                  scale=None, window=None, alibi_slopes=None, qk_quant=None,
@@ -509,22 +551,26 @@ def flash_decode(q, k_new, v_new, cache_k, cache_v, valid_to, append_at, *,
             f'verify steps')
     scale = float(1.0 / math.sqrt(d) if scale is None else scale)
     mirror = (k_q, k_scale) if quantized else None
-    if cache_k.is_cuda:
-        if interpret:
-            raise ValueError('interpret=True runs the plain version, which '
-                             'the port keeps for CPU tensors only')
-        return _launch(q, k_new, v_new, cache_k, cache_v, valid_to,
-                       append_at, n_new, scale, page_table=page_table,
-                       window=window, partials=partials, mirror=mirror,
-                       alibi_slopes=alibi_slopes)
-    if interpret is False:
+    if cache_k.is_cuda and interpret:
+        raise ValueError('interpret=True runs the plain version, which '
+                         'the port keeps for CPU tensors only')
+    if not cache_k.is_cuda and interpret is False:
         raise ValueError('interpret=False needs CUDA tensors: the kernel '
                          'runs only on the card')
-    return flash_decode_plain(q, k_new, v_new, cache_k, cache_v, valid_to,
-                              append_at, n_new=n_new, scale=scale,
-                              page_table=page_table, window=window,
-                              partials=partials, k_q=k_q, k_scale=k_scale,
-                              qk_quant=qk_quant, alibi_slopes=alibi_slopes)
+    with _perf.kernel_work(
+            'flash_decode' if page_table is None else 'flash_decode_paged',
+            lambda: _decode_work(q, cache_k, valid_to, append_at, n_new,
+                                 page_table, window, partials, quantized)):
+        if cache_k.is_cuda:
+            return _launch(q, k_new, v_new, cache_k, cache_v, valid_to,
+                           append_at, n_new, scale, page_table=page_table,
+                           window=window, partials=partials, mirror=mirror,
+                           alibi_slopes=alibi_slopes)
+        return flash_decode_plain(
+            q, k_new, v_new, cache_k, cache_v, valid_to, append_at,
+            n_new=n_new, scale=scale, page_table=page_table, window=window,
+            partials=partials, k_q=k_q, k_scale=k_scale, qk_quant=qk_quant,
+            alibi_slopes=alibi_slopes)
 
 
 def flash_decode_paged(q, k_new, v_new, k_pool, v_pool, valid_to, append_at,

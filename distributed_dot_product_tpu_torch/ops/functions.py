@@ -32,7 +32,7 @@ the reference leaves to XLA outside any Pallas kernel; here they are
 import torch
 
 from distributed_dot_product_tpu_torch.parallel.mesh import (
-    shard_seq, unshard_seq,
+    seq_mesh, shard_seq, unshard_seq,
 )
 from distributed_dot_product_tpu_torch.utils.comm import (
     all_gather, all_gather_stacked, get_rank, get_world_size,
@@ -186,3 +186,36 @@ def distributed_matmul_all_global(left, right, offset=32, mesh=None, **kw):
     """``A·B`` on global tensors sharded over ``mesh``."""
     return _global(distributed_matmul_all, mesh, left, right, offset=offset,
                    **kw)
+
+
+def graphlint_entrypoints():
+    """Registration hook (``analysis/registry.py``): the distributed
+    matmuls — forward AND the custom backward, whose kernels are defined
+    in terms of the other two ops — over the seq mesh, so the
+    all-gather / ring / reduce-scatter traffic of both comm impls is
+    counted."""
+
+    def _grad_spec(impl, device):
+        from distributed_dot_product_tpu_torch.analysis.registry import (
+            TraceSpec, example,
+        )
+        from distributed_dot_product_tpu_torch.ops.ops import (
+            matmul_all, matmul_nt,
+        )
+        group = seq_mesh().seq_group
+
+        def fn(a, b):
+            a, b = (t.detach().requires_grad_() for t in (a, b))
+            scores = matmul_nt(a, b, 2, group=group, impl=impl)
+            out = matmul_all(scores, b, 2, group=group, impl=impl)
+            return torch.autograd.grad(out.float().sum(), (a, b))
+
+        a = example((1, 8, 4), torch.float32, device)
+        return TraceSpec(name=f'ops.matmul_grad_{impl}', fn=fn,
+                         args=(a, a), mesh_axes=('seq',))
+
+    from functools import partial as _partial
+    return {
+        'ops.matmul_grad_allgather': _partial(_grad_spec, 'allgather'),
+        'ops.matmul_grad_ring': _partial(_grad_spec, 'ring'),
+    }

@@ -1185,3 +1185,78 @@ class KernelEngine:
             k_pool = self.cache.k_pool
         raw = k_pool[int(page)].view(-1).view(torch.uint8)
         raw[3] ^= 0x40
+
+
+def _engine_spec(name, eng, wrap=None):
+    """A registry spec of ``eng``'s batched decode step (the step body
+    every tick runs): every slot active, from the state the builder left
+    — the step advances the cache's lengths, so each call starts again
+    from that state (``wrap``: a context around the call)."""
+    import contextlib
+
+    from distributed_dot_product_tpu_torch.analysis.registry import (
+        TraceSpec,
+    )
+    dev = eng.device
+    tokens = torch.zeros((eng.slots, 1), dtype=torch.int64, device=dev)
+    counts = np.ones(eng.slots, np.int64)
+    active = np.ones(eng.slots, bool)
+    poison = torch.zeros(eng.slots, dtype=torch.bool, device=dev)
+    sharded = eng.kv_shards > 1
+    cache = ([eng.shard_cache(s) for s in range(eng.kv_shards)] if sharded
+             else eng.cache)
+
+    def fn(cache, tokens, counts, active, poison):
+        if not sharded:
+            eng.cache = cache
+        with (wrap() if wrap else contextlib.nullcontext()):
+            return eng._verify(tokens, counts, active, poison)
+
+    pools = ('k_pool', 'v_pool') if eng.cache_mode == 'paged' else ('k', 'v')
+    return TraceSpec(
+        name=name, fn=fn, args=(cache, tokens, counts, active, poison),
+        prejitted=True, mesh_axes=('seq',) if sharded else (),
+        cache_in=None if sharded else (
+            lambda a: [getattr(a[0], f) for f in pools]),
+        expect_donation=True, min_donated=2)
+
+
+def graphlint_entrypoints():
+    """Registration hook (``analysis/registry.py``): the serving engine's
+    batched decode step — the body the continuous-batching scheduler
+    runs per tick — slab, paged, with int8 weights and over a 2-way
+    sequence-sharded page table, on the plain decode path (the
+    reference's ``'xla'``), float32."""
+
+    def _engine(device, **kw):
+        from distributed_dot_product_tpu_torch.analysis.registry import (
+            HEAD_DIM,
+        )
+        eng = KernelEngine(slots=2, head_dim=HEAD_DIM, decode_impl='plain',
+                           device=device, **kw)
+        if eng.cache_mode == 'paged':
+            if not eng.prepare_step(np.ones(2, bool)).all():
+                raise RuntimeError('the example pool is too small')
+        return eng
+
+    def engine_decode(device):
+        return _engine_spec('serve.engine_decode',
+                            _engine(device, t_max=16, cache_mode='slab'))
+
+    def engine_decode_paged(device):
+        return _engine_spec('serve.engine_decode_paged', _engine(
+            device, t_max=16, cache_mode='paged', page_size=8, pages=3))
+
+    def engine_decode_wq8(device):
+        return _engine_spec('serve.engine_decode_wq8', _engine(
+            device, t_max=16, cache_mode='slab', weight_quant='int8'))
+
+    def engine_decode_kv_sharded(device):
+        return _engine_spec('serve.engine_decode_kv_sharded', _engine(
+            device, t_max=32, cache_mode='paged', page_size=8, pages=3,
+            kv_shards=2))
+
+    return {'serve.engine_decode': engine_decode,
+            'serve.engine_decode_paged': engine_decode_paged,
+            'serve.engine_decode_wq8': engine_decode_wq8,
+            'serve.engine_decode_kv_sharded': engine_decode_kv_sharded}

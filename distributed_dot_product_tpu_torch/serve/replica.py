@@ -28,14 +28,20 @@ Port-idiom differences from the reference:
 - ``decode_impl=None`` resolves through the engine's own resolver (the
   kernel by default); the reference's ``'xla'`` is the port's
   ``'plain'``.
-- ``PrefillPool(mesh=...)`` takes the port's
+- ``PrefillPool(mesh=...)`` takes the port's 1-D
   :class:`~distributed_dot_product_tpu_torch.parallel.mesh.Mesh`, a
-  process group. A one-rank mesh (the default) projects every row on the
-  pool's device; the reference's split of the rows over a multi-rank
-  mesh is not ported (``NotImplementedError``, ROADMAP.md §1 item 4c).
-  The projection body is the engine's own ``_project_kv``, as in the
-  reference, so a handed-off prefix holds the K/V a replica's own
-  prefill would.
+  process group: every rank of it builds each prefix together (SPMD, as
+  the reference's one program over the mesh). Rank ``r`` projects rows
+  ``[r·bucket/N, (r+1)·bucket/N)`` of the padded token buffer, the
+  ``all_gather`` of ``utils/comm.py`` collects the rows, and every rank
+  fills its own pool's pages with all of them (the reference's
+  replicated output), so any rank's handle feeds ``adopt_prefix``. The
+  projection body is the engine's own ``_project_kv``, called on
+  ``prefill_chunk``-row chunks at the offsets :meth:`KernelEngine
+  .register_prefix` uses: cuBLAS (and MKL on the CPU) pick a GEMM by its
+  row count, so one shape on every path is what keeps a handed-off
+  prefix bit for bit the K/V a replica's own prefill writes, whatever
+  the rank count.
 - :func:`maybe_init_distributed` joins a ``torch.distributed`` process
   group from the same arguments and ``DDP_TPU_*`` variables, with an
   explicit backend; it is a no-op returning False when nothing is
@@ -64,7 +70,7 @@ from distributed_dot_product_tpu_torch.serve.errors import (
 from distributed_dot_product_tpu_torch.serve.scheduler import (
     Scheduler, ServeConfig,
 )
-from distributed_dot_product_tpu_torch.utils import tracing
+from distributed_dot_product_tpu_torch.utils import comm, tracing
 
 __all__ = ['TopologyConfig', 'parse_topology', 'PrefixHandle',
            'PrefillPool', 'DecodeReplica', 'ReplicaPool',
@@ -150,10 +156,13 @@ class PrefixHandle:
 
 
 class PrefillPool:
-    """The prefill half: prompts project to KV (the buffer padded to a
+    """The sequence-sharded prefill half: prompts project to KV with
+    their rows split across ``mesh``'s ranks (the buffer padded to a
     power-of-two length bucket, :meth:`_bucket`), land in registry pages
     of the pool's own paged cache, and hand off to a decode replica as
-    whole pages (``KernelEngine.adopt_prefix``).
+    whole pages (``KernelEngine.adopt_prefix``). Over a multi-rank mesh
+    every rank calls :meth:`build` with the same tokens, in the same
+    order (it runs a collective).
 
     The pool's weights come from the same seeded constructor every
     decode replica uses, and the projection body IS the engine's
@@ -168,12 +177,10 @@ class PrefillPool:
         self.event_log = event_log
         self.alive = True
         self.mesh = mesh if mesh is not None else Mesh(None, 0, 1)
-        self.n_shards = int(np.prod(list(self.mesh.shape.values())))
-        if self.n_shards != 1:
-            raise NotImplementedError(
-                f'a prefill pool over a {self.n_shards}-rank mesh splits '
-                f'the prompt rows across the ranks; the port builds '
-                f'one-rank pools only (ROADMAP.md §1 item 4c)')
+        if self.mesh.data_size != 1 or not self.mesh.member:
+            raise ValueError('a prefill pool splits its rows over a 1-D '
+                             'seq mesh this rank belongs to')
+        self.n_shards = self.mesh.seq_size
         # Sized for prefixes in flight, not a decode batch: a built
         # prefix is released right after its pages are adopted. The
         # pool never decodes.
@@ -220,18 +227,41 @@ class PrefillPool:
                 f'prefill pool exhausted building a {n}-row prefix '
                 f'({needed} pages needed, {eng.pool.free_pages} free) '
                 f'— a handle was not released after handoff?')
-        buf = np.zeros(self._bucket(n), np.int64)
-        buf[:n] = tokens
         row = np.full(eng.pool.pages_per_slot, -1, np.int64)
         row[:needed] = pages
         with span('prefill.build', rows=n, shards=self.n_shards):
-            # The engine's own projection body: a projection change hits
-            # slot prefill, registry fill and the handoff alike, or shared
-            # pages would attend with different K/V.
-            k, v = eng._project_kv(_to_device(buf, eng.device))
-            paged_append_rows(eng.cache, k, v, row, 0, n)
+            kv = torch.stack(self._project_share(tokens))
+            if self.n_shards > 1:
+                # None: a mesh over the whole world is the default group.
+                kv = comm.all_gather(kv, self.mesh.seq_group, dim=2)
+            paged_append_rows(eng.cache, kv[0], kv[1], row, 0, n)
         pid = eng._register_pages(pages, n)
         return PrefixHandle(prefix_id=pid, pages=pages, length=n)
+
+    def _project_share(self, tokens):
+        """This rank's rows ``[lo, hi)`` of the ``_bucket(n)``-row padded
+        buffer as cache-layout ``(k, v)``, each ``(H, hi - lo, D)``.
+        The engine's own projection body, on the ``prefill_chunk``-row
+        chunks :meth:`KernelEngine.register_prefix` projects (chunk ``c``
+        holds rows ``[c·C, (c+1)·C)``): every row goes through a GEMM of
+        the same shape at the same place in it on every path, so the rows
+        keep their bits whatever the rank count; a chunk two ranks share
+        is projected by both."""
+        eng = self.engine
+        c = eng.prefill_chunk
+        per = self._bucket(len(tokens)) // self.n_shards
+        lo = self.mesh.seq_rank * per
+        hi = lo + per
+        buf = np.zeros(-(-hi // c) * c, np.int64)
+        n = min(len(tokens), len(buf))
+        buf[:n] = tokens[:n]
+        buf = _to_device(buf, eng.device)
+        parts = []
+        for start in range(lo - lo % c, hi, c):
+            k, v = eng._project_kv(buf[start:start + c])
+            keep = slice(max(lo, start) - start, min(hi, start + c) - start)
+            parts.append((k[:, keep], v[:, keep]))
+        return tuple(torch.cat(x, dim=1) for x in zip(*parts))
 
     def release(self, handle: PrefixHandle):
         """Return a built prefix's pages to the pool (freed pages zeroed

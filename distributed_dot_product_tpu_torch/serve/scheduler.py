@@ -71,10 +71,12 @@ and :meth:`Scheduler.set_queue_limit` are the controller's actuators, and
 ``ServeConfig.anomaly`` (or ``Scheduler(anomaly=...)``) arms the
 ``obs/anomaly.py`` watchdog, evaluated from the tick.
 
-Copied from ``distributed_dot_product_tpu/serve/scheduler.py``. Not
-ported yet (ROADMAP §1 item 5): the adaptive profiler captures
-(``profile_ttft_p99`` and its siblings need ``obs/devmon.py``); those
-``ServeConfig`` fields do not exist, so setting one raises ``TypeError``.
+Adaptive profiling: ``ServeConfig.profile_ttft_p99`` with a
+``Scheduler(profiler=...)`` (``obs/devmon.py``'s ``ProfileCapture``)
+captures one bounded ``torch.profiler`` trace when the TTFT p99 crosses
+the threshold (:meth:`Scheduler._maybe_profile`).
+
+Copied from ``distributed_dot_product_tpu/serve/scheduler.py``.
 """
 
 import dataclasses
@@ -88,6 +90,7 @@ import numpy as np
 from distributed_dot_product_tpu_torch.obs import events as obs_events
 from distributed_dot_product_tpu_torch.obs import flight as obs_flight
 from distributed_dot_product_tpu_torch.obs import spans as obs_spans
+from distributed_dot_product_tpu_torch.obs.devmon import CaptureInFlight
 from distributed_dot_product_tpu_torch.obs.spans import span
 from distributed_dot_product_tpu_torch.serve.admission import (
     AdmissionController, RejectedError, RejectReason, Request,
@@ -135,6 +138,15 @@ class ServeConfig:
     flight_dump_on_exception: bool = True
     flight_nan_storm: int = 3
     flight_nan_window: int = 20
+    # Adaptive profiling (needs a `profiler` on the Scheduler):
+    # when the serve.ttft reservoir p99 exceeds `profile_ttft_p99`
+    # seconds, capture ONE bounded torch.profiler trace of
+    # `profile_seconds`, then hold off `profile_cooldown` REAL seconds
+    # — the profile of a latency regression is taken while it happens,
+    # never two at once, never a capture storm.
+    profile_ttft_p99: Optional[float] = None
+    profile_seconds: float = 2.0
+    profile_cooldown: float = 60.0
     # Speculative decoding (serve/spec.py): 'ngram' (self-drafting
     # suffix lookup — no extra model) or 'draft' (a draft-model twin with
     # its own cache + rollback); None consults the DDP_TPU_SPEC env
@@ -158,6 +170,11 @@ class ServeConfig:
     # this scheduler's registry, evaluated from the tick (throttled in
     # REAL time). Pass a built AnomalyWatchdog for custom watches.
     anomaly: bool = False
+    # Pay the profiler's one-time native init (the first CUPTI start
+    # in a process is slow) at SCHEDULER CONSTRUCTION instead of inside
+    # the first anomaly/adaptive capture, which would otherwise spend
+    # its bounded window on init and record little of the regression.
+    profile_warmup: bool = False
 
 
 class _SlotState(enum.Enum):
@@ -205,12 +222,17 @@ class Scheduler:
                  registry: Optional[tracing.MetricsRegistry] = None,
                  health: Optional[HealthMonitor] = None,
                  on_tick: Optional[Callable] = None, event_log=None,
-                 proposer=None, anomaly=None):
+                 profiler=None, proposer=None, anomaly=None):
         self.engine = engine
         # Paged engines gate admission by FREE PAGES, not free slots,
         # and join page exhaustion into the degrade→evict→reject
         # ladder (plus the mid-stream preemption rung in _ensure_pages).
         self._paged = getattr(engine, 'cache_mode', 'slab') == 'paged'
+        # Optional obs.devmon.ProfileCapture for the adaptive
+        # ttft-p99 trigger (cfg.profile_ttft_p99 arms it).
+        self.profiler = profiler
+        self._last_capture_at: Optional[float] = None
+        self._ttft_dirty = False
         self.cfg = config or ServeConfig()
         self.clock = clock
         self.on_tick = on_tick
@@ -276,6 +298,7 @@ class Scheduler:
             self._g_shared = reg.gauge('serve.cache.shared_pages')
             self._h_req_pages = reg.histogram(
                 'serve.cache.request_pages', buckets=())
+        self._c_profile = reg.counter('serve.profile_triggers')
         self._h_step = reg.histogram('serve.step_seconds')
         # Dispatch-floor split (ROADMAP item 5): per decode tick, REAL
         # tick wall time partitions into device-program seconds (the
@@ -350,9 +373,11 @@ class Scheduler:
                 self.registry,
                 default_watches(queue_limit=self.cfg.queue_limit,
                                 paged=self._paged),
-                event_log=event_log)
+                profiler=self.profiler, event_log=event_log)
         else:
             self._anomaly = None
+        if self.profiler is not None and self.cfg.profile_warmup:
+            self.profiler.warmup()
         # Every post-mortem bundle (including an HTTP /dump with no
         # scheduler in hand) embeds this scheduler's introspection.
         # ONE bound-method object, captured here: attribute access
@@ -976,6 +1001,7 @@ class Scheduler:
             req.first_token_at = now
             ttft = max(0.0, now - req.submitted_at)
             self._h_ttft.observe(ttft)
+            self._ttft_dirty = True
             self._tenant_hist('serve.ttft_seconds',
                               req.tenant).observe(ttft)
             token_fields['ttft'] = ttft
@@ -1371,6 +1397,7 @@ class Scheduler:
             self._g_pages_used.set(stats['pages_used'])
             self._g_pages_free.set(stats['pages_free'])
             self._g_shared.set(stats['shared_pages'])
+        self._maybe_profile()
         # Flight-recorder sample (throttled inside to REAL seconds;
         # the shared null recorder makes the disabled path one method
         # call, no allocation) and the anomaly watchdog's evaluation
@@ -1405,6 +1432,48 @@ class Scheduler:
             self.on_tick(self)
         return bool(self.admission.depth) or any(
             s.state is not _SlotState.FREE for s in self._slots)
+
+    def _maybe_profile(self):
+        """Adaptive capture trigger: when armed (cfg.profile_ttft_p99 +
+        a profiler) and the ttft p99 over the reservoir exceeds the
+        threshold, begin ONE bounded trace capture. Checked only on
+        ticks that observed a fresh TTFT (the p99 recompute sorts the
+        reservoir — not a per-tick cost), rate-limited by a REAL-time
+        cooldown (captures are real however the scheduler clock runs),
+        and skipped while a capture is already in flight."""
+        if not self._ttft_dirty:
+            return
+        self._ttft_dirty = False
+        prof, threshold = self.profiler, self.cfg.profile_ttft_p99
+        if prof is None or threshold is None:
+            return
+        now = time.monotonic()
+        if (self._last_capture_at is not None
+                and now - self._last_capture_at
+                < self.cfg.profile_cooldown):
+            return
+        p99 = self._h_ttft.percentile(99)
+        if not p99 > threshold:
+            return
+        if getattr(prof, 'busy', False):
+            return
+        try:
+            prof.start(self.cfg.profile_seconds,
+                       trigger='serve.ttft_p99',
+                       event_log=self.event_log, ttft_p99=p99,
+                       threshold=threshold)
+        except CaptureInFlight:
+            # Expected contention, not a fault: an HTTP /profile hit
+            # can land between our busy-check and start(). Skip
+            # quietly like the busy-check above — no exception event.
+            return
+        except Exception as e:
+            # A failing profiler must never take the serving loop down.
+            tracing.log_exception('scheduler.profile_trigger', e,
+                                  registry=self.registry)
+            return
+        self._last_capture_at = now
+        self._c_profile.inc()
 
     def run_until_idle(self, max_ticks=100_000):
         """Drive ticks until queue and slots are empty. ``max_ticks``

@@ -28,7 +28,15 @@ this rank's block (older gloo builds have no reduce-scatter).
 The collectives here are not autograd-aware; the modules wrap the ones a
 gradient crosses in ``torch.autograd.Function``s with the transposed
 collective as backward.
+
+Every call of a collective counts under its kind, by the reference's HLO
+names (``all-gather``, ``all-reduce``, ``reduce-scatter``,
+``collective-permute``, ``all-to-all``), one-rank calls included:
+:func:`collective_counts` is what ``obs/perf.py`` reads, the port's
+counterpart of the reference's collectives in the compiled program.
 """
+
+import collections
 
 import torch
 import torch.distributed as dist
@@ -37,11 +45,19 @@ __all__ = ['SEQ_AXIS', 'resolve_device', 'init', 'get_rank',
            'get_world_size', 'is_main_process', 'synchronize', 'axis_size',
            'transport', 'world_group', 'all_gather', 'all_gather_stacked',
            'all_reduce', 'all_reduce_max', 'reduce_scatter', 'ring_shift',
-           'all_to_all']
+           'all_to_all', 'collective_counts']
 
 # Canonical name of the sequence (time) axis, kept so modules carry the
 # same ``axis_name`` field as the reference package.
 SEQ_AXIS = 'seq'
+
+
+_CALLS = collections.Counter()
+
+
+def collective_counts():
+    """``{kind: calls}`` of every collective this process has called."""
+    return dict(_CALLS)
 
 
 def resolve_device(device='cuda'):
@@ -139,6 +155,11 @@ def _to_host(x):
 def all_gather_stacked(x, group=None):
     """``(W, *x.shape)``: every rank's ``x`` in rank order (the
     reference's untiled ``lax.all_gather``)."""
+    _CALLS['all-gather'] += 1
+    return _all_gather_stacked(x, group)
+
+
+def _all_gather_stacked(x, group):
     w = get_world_size(group)
     if w == 1:
         return x.unsqueeze(0)
@@ -151,13 +172,15 @@ def all_gather_stacked(x, group=None):
 def all_gather(x, group=None, dim=-2):
     """Tiled all-gather: every rank's ``x`` concatenated along ``dim`` in
     rank order (``lax.all_gather(..., tiled=True)``)."""
+    _CALLS['all-gather'] += 1
     if get_world_size(group) == 1:
         return x
-    parts = all_gather_stacked(x, group)
+    parts = _all_gather_stacked(x, group)
     return torch.cat(list(parts.unbind(0)), dim=dim)
 
 
 def _all_reduce(x, group, op):
+    _CALLS['all-reduce'] += 1
     if get_world_size(group) == 1:
         return x.clone()
     buf = _to_host(x) if _staged(group, x) else x.detach().clone()
@@ -181,6 +204,7 @@ def reduce_scatter(x, group=None):
     """``x`` is ``(W, *block)``: returns this rank's block of the sum over
     ranks, ``(*block)`` (``lax.psum_scatter(..., scatter_dimension=0,
     tiled=False)``)."""
+    _CALLS['reduce-scatter'] += 1
     w = get_world_size(group)
     if x.shape[0] != w:
         raise ValueError(f'reduce_scatter needs a leading axis of the group '
@@ -202,6 +226,7 @@ def ring_shift(tensors, group=None, direction=-1):
     (mod W). ``direction=-1`` is the reference's ``lax.ppermute`` with the
     permutation ``(i, i-1)``: afterwards rank ``r`` holds what rank
     ``r+1`` held. One ``batch_isend_irecv`` exchange carries them all."""
+    _CALLS['collective-permute'] += 1
     tensors = tuple(tensors)
     w = get_world_size(group)
     if w == 1:
@@ -227,6 +252,7 @@ def all_to_all(x, group=None, split_dim=-3, concat_dim=-2):
     split into W chunks along ``split_dim``, chunk ``j`` goes to rank
     ``j``, and the chunks received are concatenated along ``concat_dim``
     in rank order."""
+    _CALLS['all-to-all'] += 1
     w = get_world_size(group)
     if w == 1:
         return x

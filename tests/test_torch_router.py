@@ -182,9 +182,10 @@ def test_maybe_init_distributed_is_a_noop_unconfigured(tmp_path):
 
 def test_chaos_accepted_and_multi_rank_pools_refused(tmp_path):
     """``build_serving(chaos=...)`` arms the router with the injector and
-    points its narration at the router's log; the multi-rank prefill split
-    is not ported: a typed refusal naming the ROADMAP item, never a silent
-    partial run."""
+    points its narration at the router's log; a prefill pool takes a
+    multi-rank 1-D seq mesh (the split, ``test_torch_prefill_split.py``)
+    and refuses a 2-D one with a typed error, never a silent partial
+    run."""
     chaos = ChaosInjector(ChaosPlan())
     router = build_serving(_topo(PORT), chaos=chaos,
                            log_dir=tmp_path / 'logs')
@@ -194,9 +195,11 @@ def test_chaos_accepted_and_multi_rank_pools_refused(tmp_path):
         assert router.event_log.path == dict(router.pool.logs())['router']
     finally:
         router.close()
-    with pytest.raises(NotImplementedError, match='item 4c'):
+    assert PrefillPool(t_max=64, page_size=16, device='cpu',
+                       mesh=Mesh(None, 1, 2)).n_shards == 2
+    with pytest.raises(ValueError, match='1-D seq mesh'):
         PrefillPool(t_max=64, page_size=16, device='cpu',
-                    mesh=Mesh(None, 0, 2))
+                    mesh=Mesh(None, 0, 2, data_size=2))
     pool = PrefillPool(t_max=64, page_size=16, device='cpu')
     assert pool.n_shards == 1 and pool.engine.slots == 1
     assert pool.engine.pool.pages == 8

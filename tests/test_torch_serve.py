@@ -195,13 +195,15 @@ def test_paged_streams_bit_identical_to_slab_under_faults(decode_impl):
 
 
 def test_unported_config_fields_raise_type_error():
-    """The fields of what is not ported (the adaptive profiler captures)
-    raise; the speculative-decoding, policy and anomaly fields (ported
-    since) are the reference's."""
-    for field in ('profile_ttft_p99', 'profile_seconds', 'profile_cooldown',
-                  'profile_warmup'):
-        with pytest.raises(TypeError):
-            ServeConfig(**{field: None})
+    """A field the reference does not have raises; the adaptive
+    profiler captures', speculative-decoding, policy and anomaly fields
+    (each ported since) are the reference's, defaults included."""
+    with pytest.raises(TypeError):
+        ServeConfig(profile_trigger=None)
+    prof = ServeConfig()
+    assert (prof.profile_ttft_p99, prof.profile_seconds,
+            prof.profile_cooldown, prof.profile_warmup) == (None, 2.0, 60.0,
+                                                            False)
     assert ServeConfig().policy is None
     assert ServeConfig().anomaly is False
     policy = PolicyConfig(tenants={'t0': TenantPolicy(priority=1)})

@@ -553,3 +553,58 @@ def checkpoint_stage(rank, world, kw, state, batch, ckdir):
     same = all(torch.equal(saved[k], v) for k, v in mod2.state_dict().items())
     got = step2(tb)
     return _np(want), _np(got), restored.step, same
+
+
+def _split_pool(world, state, t_max=64):
+    from distributed_dot_product_tpu_torch.parallel.mesh import seq_mesh
+    from distributed_dot_product_tpu_torch.serve import PrefillPool
+    pool = PrefillPool(t_max=t_max, page_size=16, vocab=32, seed=3,
+                       mesh=seq_mesh(world), device='cpu')
+    pool.engine.load_weights(state)
+    return pool
+
+
+def prefill_split(rank, world, state, prompts):
+    """Every rank builds each prompt on a ``world``-rank PrefillPool:
+    per prompt the (n_shards, bucket, pages' K, pages' V)."""
+    pool = _split_pool(world, state)
+    out = []
+    for tokens in prompts:
+        h = pool.build(tokens)
+        pages = list(h.pages)
+        out.append((pool.n_shards, pool._bucket(len(tokens)),
+                    _np(pool.engine.cache.k_pool[pages]),
+                    _np(pool.engine.cache.v_pool[pages])))
+        pool.release(h)
+    return out
+
+
+def replica_pool_split(rank, world, state, prompt, new_tokens):
+    """A 1x1 ReplicaPool whose prefill pool spans the ``world`` ranks: the
+    prompt's prefix built by the pool, adopted by the replica, and the
+    last token decoded on it; the committed stream."""
+    from distributed_dot_product_tpu_torch.parallel.mesh import seq_mesh
+    from distributed_dot_product_tpu_torch.serve import (
+        ReplicaPool, ServeConfig, TopologyConfig,
+    )
+    topo = TopologyConfig(prefill_pools=1, decode_replicas=1, slots=2,
+                          t_max=64, page_size=16, vocab=32, seed=3,
+                          device='cpu')
+    rp = ReplicaPool(topo, serve_config=ServeConfig(
+        watchdog=False, max_new_tokens=new_tokens), mesh=seq_mesh(world))
+    try:
+        rp.prefill.engine.load_weights(state)
+        rep = rp.replicas[0]
+        rep.engine.load_weights(state)
+        h = rp.prefill.build(prompt[:-1])
+        pid = rep.engine.adopt_prefix(
+            rp.prefill.engine.cache, h.pages, h.length,
+            src_checksums=rp.prefill.engine.checksums)
+        rp.prefill.release(h)
+        r = rep.scheduler.submit(list(prompt[-1:]), prefix_id=pid,
+                                 max_new_tokens=new_tokens)
+        while rep.step():
+            pass
+        return (rp.prefill.n_shards, list(rep.results[r.id].tokens))
+    finally:
+        rp.close()
