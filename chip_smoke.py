@@ -7761,6 +7761,269 @@ def phase_obs_serve(torch, ddp):
             'split': split}
 
 
+# The port's static analysis and the harness twins (analysis_examples):
+# the graph rules over every registry entry on the card, the retrace
+# sentinel over serve_path's burst, then the four twins at the
+# configurations their reference docstrings give for real hardware.
+AE_DEVICE = 'cuda'
+AE_KERNELS = ('flash_attention', 'flash_attention_bounded',
+              'flash_attention_dq', 'flash_attention_dkv', 'flash_decode',
+              'flash_decode_paged')
+AE_LM = ('--seq-len', '32768', '--dim', '512', '--layers', '8', '--batch',
+         '1', '--softmax-impl', 'flash')
+AE_LM_STEPS = 50
+AE_LM_CKPT = 25            # the mid-run checkpoint the resume starts from
+AE_LM_RESUMED = 2          # steps the resumed run trains past it
+AE_LONG_T = 131072         # example_longcontext's "real hardware" length
+AE_SERVE_FAULTS = {'DDP_TPU_PAGED_CACHE': '1',
+                   'DDP_TPU_FAULT_STUCK_STEP': '4',
+                   'DDP_TPU_FAULT_NAN_DECODE_STEP': '7'}
+
+
+def _ae_counts(ddp):
+    return {n: getattr(ddp, n).launches for n in AE_KERNELS}
+
+
+def _ae_zero(ddp):
+    for n in AE_KERNELS:
+        getattr(ddp, n).launches = 0
+
+
+def _ae_twin(relpath):
+    """A harness twin's module, imported from its file (its ``main(argv)``
+    is the command line a user runs)."""
+    import importlib.util
+    here = os.path.dirname(os.path.abspath(__file__))
+    name = 'twin_' + os.path.basename(relpath)[:-3]
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(here, relpath))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _ae_graph(torch, ddp):
+    """(a) The graph rules (and the AST pass) over every registry entry
+    on the card: the aten ops each entry issued, the kernels it launched,
+    no active violation."""
+    from distributed_dot_product_tpu_torch.analysis import (
+        active_violations, run_analysis,
+    )
+    t0 = time.perf_counter()
+    stats = {}
+    _ae_zero(ddp)
+    violations = run_analysis(device=AE_DEVICE, stats=stats)
+    launches = _ae_counts(ddp)
+    active = active_violations(violations)
+    allowed = sorted({(v.entrypoint, v.rule) for v in violations
+                      if v.allowed})
+    row = {'phase': 'analysis_examples', 'case': 'graph_rules',
+           'entries': len(stats),
+           'per_entry': {n: {'ops': e['ops'], 'kernels': e.get('kernels',
+                                                               {})}
+                         for n, e in stats.items()},
+           'active': [v.render() for v in active],
+           'allowed': [list(a) for a in allowed],
+           'launches': launches, 'seconds': time.perf_counter() - t0}
+    emit(row)
+    check(len(stats) == 32, f'graph rules ran {len(stats)} entries, not 32')
+    check(not active, f'graph rules: {len(active)} active violations')
+    for name in ('flash_attention', 'flash_attention_dq',
+                 'flash_attention_dkv', 'flash_decode',
+                 'flash_decode_paged'):
+        check(launches[name] > 0, f'graph rules: {name} never launched')
+    return row
+
+
+def _ae_sentinel(torch, ddp):
+    """(b) The retrace sentinel, raising, over serve_path's burst on the
+    paged engine: every watched program within its budget, the decode
+    step one signature for the whole burst."""
+    from distributed_dot_product_tpu_torch.analysis import retrace
+    t0 = time.perf_counter()
+    old = os.environ.get(retrace.ENV_VAR)
+    os.environ[retrace.ENV_VAR] = '1'
+    try:
+        retrace.reset()
+        engine = serve_engine(torch, 'paged')
+        _, burst = _serve_burst(torch, ddp, engine, serve_burst(),
+                                'analysis_examples')
+        totals = retrace.totals()
+        budgets = {name: budget for name, (_, budget)
+                   in retrace.snapshot().items()}
+    finally:
+        if old is None:
+            os.environ.pop(retrace.ENV_VAR, None)
+        else:
+            os.environ[retrace.ENV_VAR] = old
+    row = {'phase': 'analysis_examples', 'case': 'retrace_sentinel',
+           'totals': totals, 'budgets': budgets,
+           'decode_steps': burst['decode_steps'],
+           'terminal': burst['terminal'], 'launches': burst['launches'],
+           'seconds': time.perf_counter() - t0}
+    emit(row)
+    del engine
+    torch.cuda.empty_cache()
+    over = {n: c for n, c in totals.items() if c > budgets.get(n, 2)}
+    check(not over, f'retrace budgets exceeded: {over}')
+    check(totals.get('engine.decode') == 1,
+          f"engine.decode counted {totals.get('engine.decode')}, not 1")
+    check(burst['launches']['flash_decode_paged'] > 0,
+          'sentinel burst: K5p never launched')
+    return row
+
+
+def _ae_train_lm(torch, ddp, tmp):
+    """(c1) examples/torch_train_lm.py at its reference docstring's
+    single-card configuration, checkpointing mid-run; then a run resumed
+    from that checkpoint, whose steps must give the same losses."""
+    mod = _ae_twin(os.path.join('examples', 'torch_train_lm.py'))
+    whole_dir = os.path.join(tmp, 'lm_whole')
+    _ae_zero(ddp)
+    t0 = time.perf_counter()
+    whole = mod.main(['--device', AE_DEVICE, *AE_LM, '--steps',
+                      str(AE_LM_STEPS), '--generate', '--ckpt-dir',
+                      whole_dir, '--ckpt-every', str(AE_LM_CKPT),
+                      '--log-every', '10'])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = _ae_counts(ddp)
+    # The resume: a fresh root holding the mid-run checkpoint only.
+    resume_dir = os.path.join(tmp, 'lm_resume')
+    os.makedirs(resume_dir)
+    shutil.copytree(os.path.join(whole_dir, f'step_{AE_LM_CKPT:09d}'),
+                    os.path.join(resume_dir, f'step_{AE_LM_CKPT:09d}'))
+    t0 = time.perf_counter()
+    resumed = mod.main(['--device', AE_DEVICE, *AE_LM, '--steps',
+                        str(AE_LM_CKPT + AE_LM_RESUMED), '--ckpt-dir',
+                        resume_dir, '--ckpt-every', str(AE_LM_CKPT),
+                        '--log-every', '1'])
+    torch.cuda.synchronize()
+    resume_s = time.perf_counter() - t0
+    pairs = {i: (whole['losses'].get(i), resumed['losses'].get(i))
+             for i in range(AE_LM_CKPT, AE_LM_CKPT + AE_LM_RESUMED)}
+    losses = whole['losses']
+    row = {'phase': 'analysis_examples', 'case': 'torch_train_lm',
+           'argv': [*AE_LM, '--steps', str(AE_LM_STEPS), '--generate'],
+           'seconds': seconds,
+           'loss_first': losses.get(0), 'loss_last': whole['loss'],
+           'losses_every_10': {i: losses[i] for i in sorted(losses)
+                               if i % 10 == 0 or i == len(losses) - 1},
+           'copy_accuracy': whole['acc'], 'resumed_from':
+           resumed['resumed_from'], 'resume_seconds': resume_s,
+           'resumed_vs_whole': pairs, 'launches': launches}
+    emit(row)
+    check(all(v == v and abs(v) != float('inf') for v in losses.values()),
+          'train_lm: a loss is not finite')
+    check(len(losses) == AE_LM_STEPS,
+          f'train_lm ran {len(losses)} steps, not {AE_LM_STEPS}')
+    check(resumed['resumed_from'] == AE_LM_CKPT,
+          f"train_lm resumed from {resumed['resumed_from']}")
+    check(all(a is not None and a == b for a, b in pairs.values()),
+          f'train_lm: resumed losses differ: {pairs}')
+    for name in ('flash_attention', 'flash_attention_dq',
+                 'flash_attention_dkv', 'flash_decode'):
+        check(launches[name] > 0, f'train_lm: {name} never launched')
+    return row
+
+
+def _ae_longcontext(torch, ddp, tmp):
+    """(c2) torch_example_longcontext.py at the length its reference
+    docstring gives for real hardware, in bf16."""
+    mod = _ae_twin('torch_example_longcontext.py')
+    _ae_zero(ddp)
+    t0 = time.perf_counter()
+    res = mod.main(['--device', AE_DEVICE, '--seq-len', str(AE_LONG_T),
+                    '--ckpt-dir', os.path.join(tmp, 'long')])
+    torch.cuda.synchronize()
+    row = {'phase': 'analysis_examples', 'case': 'torch_example_longcontext',
+           'seq_len': AE_LONG_T, 'seconds': time.perf_counter() - t0,
+           'train_seconds': res['train_seconds'], 'losses': res['losses'],
+           'ms_per_token': res.get('ms_per_token'),
+           'launches': _ae_counts(ddp)}
+    emit(row)
+    check(res['exit_code'] == 0 and res.get('decode_finite'),
+          'longcontext: the run or its decode failed')
+    check(all(v == v for v in res['losses'].values()),
+          'longcontext: a loss is not finite')
+    check(row['launches']['flash_attention'] > 0
+          and row['launches']['flash_decode'] > 0,
+          'longcontext: K1 or K5 never launched')
+    return row
+
+
+def _ae_example(torch, ddp):
+    """(c3) torch_example.py at the reference workload."""
+    mod = _ae_twin('torch_example.py')
+    _ae_zero(ddp)
+    t0 = time.perf_counter()
+    res = mod.main(['--device', AE_DEVICE])
+    torch.cuda.synchronize()
+    row = {'phase': 'analysis_examples', 'case': 'torch_example',
+           'seconds': time.perf_counter() - t0, 'losses': res['losses'],
+           'launches': _ae_counts(ddp)}
+    emit(row)
+    check(res['ok'], 'torch_example: a loss is not finite')
+    return row
+
+
+def _ae_serve(torch, ddp):
+    """(c4) examples/torch_serve_lm.py, 24 requests, stuck step and NaN
+    decode injected, the bit-identity rerun, on the paged cache."""
+    mod = _ae_twin(os.path.join('examples', 'torch_serve_lm.py'))
+    saved = {k: os.environ.get(k) for k in AE_SERVE_FAULTS}
+    os.environ.update(AE_SERVE_FAULTS)
+    _ae_zero(ddp)
+    t0 = time.perf_counter()
+    summary = {}
+    try:
+        rc = mod.main(['--device', AE_DEVICE, '--requests', '24',
+                       '--check-identical'], summary=summary)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    torch.cuda.synchronize()
+    row = {'phase': 'analysis_examples', 'case': 'torch_serve_lm',
+           'rc': rc, 'env': AE_SERVE_FAULTS, 'seconds':
+           time.perf_counter() - t0, **summary,
+           'launches': _ae_counts(ddp)}
+    emit(row)
+    check(rc == 0, f'serve_lm audit failed: {summary.get("failures")}')
+    check(row['launches']['flash_decode_paged'] > 0,
+          'serve_lm: K5p never launched')
+    return row
+
+
+def phase_analysis_examples(torch, ddp):
+    """The port's analysis on the card (a) and under a serving burst (b),
+    then the four harness twins (c). Returns each sub-run's launches."""
+    import tempfile
+    t_phase = time.perf_counter()
+    rows = {'graph_rules': _ae_graph(torch, ddp)}
+    torch.cuda.empty_cache()
+    rows['retrace_sentinel'] = _ae_sentinel(torch, ddp)
+    tmp = tempfile.mkdtemp(prefix='analysis_examples_')
+    try:
+        rows['torch_train_lm'] = _ae_train_lm(torch, ddp, tmp)
+        torch.cuda.empty_cache()
+        rows['torch_example_longcontext'] = _ae_longcontext(torch, ddp, tmp)
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rows['torch_example'] = _ae_example(torch, ddp)
+    torch.cuda.empty_cache()
+    rows['torch_serve_lm'] = _ae_serve(torch, ddp)
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_phase
+    emit({'phase': 'analysis_examples', 'case': 'done', 'seconds': seconds,
+          'by_case': {k: r['seconds'] for k, r in rows.items()}})
+    return {name: {k: r['launches'].get(k, 0) for k in AE_KERNELS}
+            for name, r in rows.items()}
+
+
 def main():
     try:
         import torch
@@ -7855,7 +8118,9 @@ def main():
             ('seq_parallel', lambda: phase_seq_parallel(torch, ddp)),
             ('zigzag_ring', lambda: phase_zigzag_ring(torch, ddp)),
             ('decode_sharded', lambda: phase_decode_sharded(torch, ddp)),
-            ('flagship', lambda: phase_flagship(torch, ddp)))
+            ('flagship', lambda: phase_flagship(torch, ddp)),
+            ('analysis_examples',
+             lambda: phase_analysis_examples(torch, ddp)))
         for phase, run in phases:
             if want(phase):
                 res[phase] = run()
@@ -7891,6 +8156,7 @@ def main():
     router = res['router_serve']
     chaos = res['chaos_serve']
     obs = res['obs_serve']
+    ae = res['analysis_examples']
 
     def knob_paths(kernel):
         """The kernel's launches on train_knobs's runs (2 steps under each
@@ -8125,6 +8391,11 @@ def main():
                                           'bound_ms', 'bound_by')})]
     for entry in kernels:
         entry['route'] = 'cuda'
+        # analysis_examples: the kernel's launches in each of its runs
+        # (the registry under the graph rules, the sentinel's burst, the
+        # four harness twins), zeros included.
+        entry.setdefault('launches_by_path', {})['analysis_examples'] = {
+            case: counts[entry['name']] for case, counts in ae.items()}
         for key in ('flops', 'bytes'):
             entry.pop(key, None)
         for extra in ('masked_fold', 'masked_fold_f32'):

@@ -2,13 +2,14 @@
 """
 Central entrypoint registry: the single place where every public
 computation of the port declares example inputs, so that ``obs/perf.py``
-can run and account for it (the port of
+can run and account for it and ``analysis/torch_rules.py`` can judge the
+ops it issues (the port of
 ``distributed_dot_product_tpu/analysis/registry.py``).
 
 The examples live NEXT TO the code they describe: each layer module
 (``ops/functions.py``, ``ops/flash_attention.py``,
 ``models/attention.py``, ``models/decode.py``, ``models/lm.py``,
-``serve/engine.py``, ``obs/__init__.py``) exposes a
+``serve/engine.py``, ``train.py``, ``obs/__init__.py``) exposes a
 ``graphlint_entrypoints()`` hook returning ``{name: builder}``; this
 module aggregates them. The names are the reference's, one port entry
 per reference entry.
@@ -43,17 +44,18 @@ class TraceSpec:
 
     ``fn``/``args``: the callable and its example arguments (tensors on
     the builder's device, modules, caches). ``obs/perf.py`` reads these
-    two. The other fields are the reference's declarations for its
-    linter, kept with their meaning for the port's linters to come and
-    unused until then: ``mesh_axes`` (mesh axis names the entrypoint is
-    declared to run over; collectives naming anything else would
-    violate ``collective-axis``), ``cache_in``/``cache_out`` (identity
-    selectors — given ``args`` / the output, return the cache buffers,
-    pairwise aligned — for ``cache-alias`` and ``cache-upcast``),
-    ``expect_donation``, ``prejitted``, ``donate_argnums``,
-    ``static_argnums``, ``min_donated`` (the reference's donation rule;
-    the port's caches are appended in place) and ``allow`` (waived rule
-    ids; empty).
+    two. The others are the declarations the graph rules
+    (``analysis/torch_rules.py``) judge the run against: ``mesh_axes``
+    (the mesh axes the entrypoint runs over; a collective on the group
+    of any other axis violates ``collective-axis``), ``cache_in`` /
+    ``cache_out`` (selectors — given ``args`` / the output, return the
+    cache buffers, pairwise aligned — for ``cache-alias`` and
+    ``cache-upcast``), ``expect_donation`` with ``min_donated`` (the
+    step hands back at least that many of its inputs' storages:
+    ``donation``), and ``allow`` (rule ids waived for this entry: known
+    debt, reported as ``(allowed)``). ``prejitted``, ``donate_argnums``
+    and ``static_argnums`` keep the reference's declarations and mean
+    nothing to an eager step.
     """
     name: str
     fn: Callable
@@ -72,8 +74,7 @@ class TraceSpec:
         return dataclasses.replace(self, **kw)
 
 
-# Every layer that registers entrypoints (the reference's list; its
-# ``train`` hook is not ported).
+# Every layer that registers entrypoints (the reference's list).
 LAYER_HOOKS = (
     'distributed_dot_product_tpu_torch.ops.functions',
     'distributed_dot_product_tpu_torch.ops.flash_attention',
@@ -81,6 +82,7 @@ LAYER_HOOKS = (
     'distributed_dot_product_tpu_torch.models.decode',
     'distributed_dot_product_tpu_torch.models.lm',
     'distributed_dot_product_tpu_torch.serve.engine',
+    'distributed_dot_product_tpu_torch.train',
     'distributed_dot_product_tpu_torch.obs',
 )
 

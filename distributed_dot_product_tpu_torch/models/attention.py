@@ -59,6 +59,7 @@ projections, and the flash kernel's query rows are the projected keys.
 
 import math
 import zlib
+from collections import OrderedDict
 
 import torch
 from torch import nn
@@ -525,6 +526,39 @@ def make_decode_step(module, mesh, mesh_axis=None):
     def step(keys, queries, values, cache):
         return module.decode_sharded(keys, queries, values, cache,
                                      group=mesh.seq_group)
+    # Retrace sentinel (analysis/retrace.py): a per-token serving loop
+    # holds ONE of these steps at fixed shapes, so more than budget input
+    # signatures of a single instance is the reference's decode
+    # retrace-storm class — raise (under pytest / when enabled). Budget
+    # 2, the reference's.
+    from distributed_dot_product_tpu_torch.analysis.retrace import (
+        watch_traces,
+    )
+    return watch_traces(step, name='attention.make_decode_step', budget=2)
+
+
+# decode_seq_parallel's steps, as the reference's LRU of compiled steps:
+# the module keeps the steps made for it (a reference cycle the collector
+# frees with the module), keyed by mesh and axis, at most
+# _DECODE_STEPS_CAP of them. A mesh that does not hash rebuilds the step
+# on every call — the storm retrace.total exposes.
+_DECODE_STEPS_CAP = 8
+
+
+def _cached_decode_step(module, mesh, mesh_axis):
+    try:
+        key = (mesh, mesh_axis)
+        hash(key)
+    except TypeError:
+        return make_decode_step(module, mesh, mesh_axis)
+    steps = module.__dict__.setdefault('_decode_steps', OrderedDict())
+    step = steps.get(key)
+    if step is None:
+        step = steps[key] = make_decode_step(module, mesh, mesh_axis)
+        while len(steps) > _DECODE_STEPS_CAP:
+            steps.popitem(last=False)
+    else:
+        steps.move_to_end(key)
     return step
 
 
@@ -535,13 +569,13 @@ def decode_seq_parallel(module, mesh, keys, queries, values, cache,
     ``cache`` is this rank's slab of the global cache (build the global
     one with ``module.make_decode_cache(batch, t_max_global)`` and take
     the slab with :func:`~..parallel.mesh.shard_decode_cache`). Returns
-    ``(cache, out)``; feed the cache back in for the next token. The
-    reference's wrapper keeps an LRU of compiled steps; the port traces
-    nothing, so there is nothing to cache (:func:`make_decode_step`
-    gives the same step bound once). The module holds its parameters:
-    there is no params argument."""
-    return make_decode_step(module, mesh, mesh_axis)(keys, queries, values,
-                                                     cache)
+    ``(cache, out)``; feed the cache back in for the next token. As the
+    reference's wrapper keeps an LRU of compiled steps, this keeps the
+    :func:`make_decode_step` steps it made (per module and mesh), so N
+    tokens cost ONE step and one signature. The module holds its
+    parameters: there is no params argument."""
+    return _cached_decode_step(module, mesh, mesh_axis)(keys, queries,
+                                                        values, cache)
 
 
 def apply_seq_parallel(module, mesh, keys, queries, values, attn_mask=None):
@@ -596,8 +630,11 @@ def graphlint_entrypoints():
             with torch.no_grad():
                 return apply_seq_parallel(m, mesh, k, q, v)
 
+        # Debt (ROADMAP §3): the bf16 projections (models/dense.py) run
+        # bf16 GEMMs with cuBLAS's reduced-precision reduction allowed.
+        allow = () if kw.get('weight_quant') else ('f32-accum',)
         return TraceSpec(name=name, fn=fn, args=(module, x, x, x),
-                         mesh_axes=(SEQ_AXIS,))
+                         mesh_axes=(SEQ_AXIS,), allow=allow)
 
     def _bwd_spec(name, softmax_impl, device, **kw):
         from distributed_dot_product_tpu_torch.analysis.registry import (
@@ -643,7 +680,12 @@ def graphlint_entrypoints():
             mesh_axes=(SEQ_AXIS,),
             cache_in=lambda a: [a[4].k, a[4].v],
             cache_out=lambda o: [o[0].k, o[0].v],
-            expect_donation=True, min_donated=2)
+            expect_donation=True, min_donated=2,
+            # Debt (ROADMAP §3): bf16 projections (f32-accum), and on
+            # the CPU K5's plain version, which multiplies the bf16
+            # cache in float32 by design (cache-upcast; the kernel runs
+            # on the card).
+            allow=('f32-accum', 'cache-upcast'))
 
     partial = functools.partial
     return {

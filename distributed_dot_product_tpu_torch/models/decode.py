@@ -1895,14 +1895,21 @@ def graphlint_entrypoints():
     plain and K5p partials) and verify-k on slab and pool."""
     from functools import partial
 
-    def _spec(name, fn, args, cache_fields=('k', 'v'), **kw):
+    # Debt (ROADMAP §3): the plain slab step multiplies the bf16 cache in
+    # float32 (decode_attention's plain path on either device; K5's plain
+    # version, the kernel's numerics, on the CPU only).
+    _PLAIN_UPCAST = ('cache-upcast',)
+
+    def _spec(name, fn, args, cache_fields=('k', 'v'), cache_out=None,
+              **kw):
         from distributed_dot_product_tpu_torch.analysis.registry import (
             TraceSpec,
         )
         return TraceSpec(
             name=name, fn=fn, args=args,
             cache_in=lambda a: [getattr(a[1], f) for f in cache_fields],
-            cache_out=lambda o: [getattr(o[0], f) for f in cache_fields],
+            cache_out=cache_out or (
+                lambda o: [getattr(o[0], f) for f in cache_fields]),
             expect_donation=True, donate_argnums=(1,),
             min_donated=len(cache_fields), **kw)
 
@@ -1920,7 +1927,7 @@ def graphlint_entrypoints():
         new = _new(device, 2)
         return _spec('decode.step_xla_slots',
                      partial(decode_step, impl='plain'),
-                     (new, cache, new, new))
+                     (new, cache, new, new), allow=_PLAIN_UPCAST)
 
     def step_kernel_int8(device):
         from distributed_dot_product_tpu_torch.analysis.registry import (
@@ -1932,7 +1939,8 @@ def graphlint_entrypoints():
         return _spec('decode.step_kernel_int8',
                      partial(decode_step, impl='kernel', qk_quant='int8'),
                      (new, cache, new, new),
-                     cache_fields=('k', 'v', 'k_q', 'k_scale'))
+                     cache_fields=('k', 'v', 'k_q', 'k_scale'),
+                     allow=_PLAIN_UPCAST)
 
     def step_sharded(device):
         from distributed_dot_product_tpu_torch.analysis.registry import (
@@ -1949,7 +1957,8 @@ def graphlint_entrypoints():
         # (decode_step's group=None is the local step).
         return _spec('decode.step_sharded',
                      partial(decode_step, impl='plain', group=world_group()),
-                     (new, cache, new, new), mesh_axes=('seq',))
+                     (new, cache, new, new), mesh_axes=('seq',),
+                     allow=_PLAIN_UPCAST)
 
     def _paged_args(device, qk_quant=None, n=1):
         from distributed_dot_product_tpu_torch.analysis.registry import (
@@ -1995,8 +2004,12 @@ def graphlint_entrypoints():
                 impl=impl)
 
         suffix = '_kernel' if impl == 'kernel' else ''
+        # The step returns every shard's view of the stacked pools: the
+        # first shard's views share the stacked storage.
         return _spec(f'decode.step_paged_sharded{suffix}', fn,
                      (new, cache, new, new), cache_fields=_POOLS,
+                     cache_out=lambda o: [getattr(o[0][0], f)
+                                          for f in _POOLS],
                      mesh_axes=('seq',))
 
     def step_verify_slab(device):
@@ -2009,7 +2022,7 @@ def graphlint_entrypoints():
         counts = np.array([3, 1], np.int64)     # mixed spec / non-spec
         return _spec('decode.step_verify_slab',
                      partial(decode_step, impl='kernel', counts=counts),
-                     (q, cache, q, q))
+                     (q, cache, q, q), allow=_PLAIN_UPCAST)
 
     def step_verify_paged(device):
         cache, q = _paged_args(device, n=3)

@@ -18,6 +18,8 @@ the flash kernel (K1), ``decode`` is the one-token cached step through
 the fused decode kernel (K5).
 """
 
+from collections import OrderedDict
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -224,16 +226,55 @@ def greedy_generate(model, prompt, steps, t_max):
         raise ValueError(f'prompt {n} + steps {steps} needs '
                          f'{n + steps - 1} cache rows but t_max is '
                          f'{t_max}')
+    prefill, step = _generate_programs(model, b, n, t_max)
     with torch.inference_mode():
         caches = model.make_decode_caches(b, t_max)
-        caches, logits = model.prefill(prompt, caches)
-        tok = logits[:, -1:].argmax(dim=-1).to(torch.int32)
+        caches, tok = prefill(prompt, caches)
         out = [tok]
         for _ in range(steps - 1):
-            caches, logits = model.decode(tok, caches)
-            tok = logits[:, -1:].argmax(dim=-1).to(torch.int32)
+            caches, tok = step(tok, caches)
             out.append(tok)
     return torch.cat(out, dim=1)
+
+
+# The generation programs of greedy_generate, as the reference's cache of
+# compiled programs: the model keeps its own (a reference cycle the
+# collector frees with the model), keyed by (batch, prompt_len, t_max) —
+# every shape a program sees is IN the key, so each entry sees one input
+# signature, and repeated calls reuse the pair. LRU past
+# _GENERATE_PROGRAMS_CAP entries a model.
+_GENERATE_PROGRAMS_CAP = 8
+
+
+def _generate_programs(model, b, n, t_max):
+    """``(prefill, step)`` for ``model`` at this shape: prefill gives the
+    first token from the prompt's last logits, step one cached token —
+    each under the retrace sentinel (analysis/retrace.py), budget 2 as
+    in the reference: a second signature past that is a storm."""
+    progs = model.__dict__.setdefault('_generate_programs', OrderedDict())
+    key = (b, n, t_max)
+    pair = progs.get(key)
+    if pair is not None:
+        progs.move_to_end(key)
+        return pair
+    from distributed_dot_product_tpu_torch.analysis.retrace import (
+        watch_traces,
+    )
+
+    def prefill_fn(tokens, caches):
+        caches, logits = model.prefill(tokens, caches)
+        return caches, logits[:, -1:].argmax(dim=-1).to(torch.int32)
+
+    def step_fn(tok, caches):
+        caches, logits = model.decode(tok, caches)
+        return caches, logits[:, -1:].argmax(dim=-1).to(torch.int32)
+
+    pair = progs[key] = (
+        watch_traces(prefill_fn, 'lm.generate_prefill', budget=2),
+        watch_traces(step_fn, 'lm.generate_step', budget=2))
+    while len(progs) > _GENERATE_PROGRAMS_CAP:
+        progs.popitem(last=False)
+    return pair
 
 
 def graphlint_entrypoints():
@@ -265,7 +306,10 @@ def graphlint_entrypoints():
             with torch.no_grad():
                 return m._head(h)
 
-        return TraceSpec(name='lm.head_bf16', fn=fn, args=(model, x))
+        # Debt (ROADMAP §3): the bf16 head GEMM runs with cuBLAS's
+        # reduced-precision reduction allowed.
+        return TraceSpec(name='lm.head_bf16', fn=fn, args=(model, x),
+                         allow=('f32-accum',))
 
     def loss(device, name='lm.loss_f32', param_dtype=torch.float32):
         from distributed_dot_product_tpu_torch.analysis.registry import (
@@ -280,7 +324,8 @@ def graphlint_entrypoints():
             with torch.no_grad():
                 return m.nll_sum(tok, tgt, chunk=4)
 
-        return TraceSpec(name=name, fn=fn, args=(model, tokens, targets))
+        return TraceSpec(name=name, fn=fn, args=(model, tokens, targets),
+                         allow=('f32-accum',))      # bf16 GEMMs, as above
 
     return {'lm.head_bf16': head_bf16, 'lm.loss_f32': loss,
             'lm.loss_bf16': partial(loss, name='lm.loss_bf16',

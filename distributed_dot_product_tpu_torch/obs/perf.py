@@ -27,8 +27,8 @@ card, and records:
   libraries already built (``ops/_build.py``).
 - collectives by kind, counted at ``utils/comm.py``'s entry points, and
   the kernel calls by name.
-- ``retrace_totals``: the reference's retrace counters; empty until the
-  port's counterpart of ``analysis/retrace.py`` exists.
+- ``retrace_totals``: the retrace sentinel's counts
+  (``analysis/retrace.py``) incurred while the snapshot ran, by name.
 
 From FLOPs and bytes it derives the arithmetic intensity and a roofline
 model time against :data:`DEFAULT_PEAKS`, the H100 SXM's published
@@ -39,22 +39,27 @@ A snapshot taken on the card also times each entry with CUDA events
 
 CLI::
 
-    python -m distributed_dot_product_tpu_torch.obs.perf snapshot --baseline -o PERF_BASELINE_TORCH.json
-    python -m distributed_dot_product_tpu_torch.obs.perf check --against PERF_BASELINE_TORCH.json
+    python -m distributed_dot_product_tpu_torch.obs.perf --device cpu snapshot --baseline -o PERF_BASELINE_TORCH.json
+    python -m distributed_dot_product_tpu_torch.obs.perf --device cpu check --against PERF_BASELINE_TORCH.json
     python -m distributed_dot_product_tpu_torch.obs.perf report
-    python -m distributed_dot_product_tpu_torch.obs.perf --device cuda report
+    python -m distributed_dot_product_tpu_torch.obs.perf --device cpu report
 
-``snapshot`` writes a schema-versioned JSON snapshot (on the CPU by
-default: the deterministic fields of the committed baseline);
-``check`` exits 1 on per-entry tolerance violations, naming the entry
-and metric, and emits ``perf.regression`` events when an event log is
-active; ``report`` renders the roofline table.
+Every entry point runs on the card unless given ``--device cpu`` /
+``device='cpu'``; without a card it raises rather than carry on on the
+CPU. ``snapshot`` writes a schema-versioned JSON snapshot (the committed
+baseline holds a CPU snapshot's deterministic fields); ``check`` exits 1
+on per-entry tolerance violations, naming the entry and metric, and
+emits ``perf.regression`` events when an event log is active — and
+exits 2, comparing nothing, when the two snapshots were taken on
+different platforms (card times never meet the CPU baseline);
+``report`` renders the roofline table.
 """
 
 import contextlib
 import dataclasses
 import json
 import statistics
+import sys
 import time
 from typing import Optional
 
@@ -221,9 +226,12 @@ def _nbytes(obj, seen=None):
     return 0
 
 
-def _byte_mode():
+def _byte_mode(observe=None):
     """A dispatch mode summing the bytes each non-view aten op reads and
-    writes (allocations without a read are not traffic)."""
+    writes (allocations without a read are not traffic). ``observe``,
+    when given, is called as ``observe(func, args, kwargs, out)`` after
+    every aten op: ``analysis/torch_rules.py`` judges the ops it sees
+    through it."""
     from torch.utils._python_dispatch import TorchDispatchMode
     from torch.utils._pytree import tree_leaves
 
@@ -242,6 +250,8 @@ def _byte_mode():
                     t.numel() * t.element_size() for t in
                     tree_leaves((args, kwargs, out))
                     if isinstance(t, torch.Tensor))
+            if observe is not None:
+                observe(func, args, kwargs or {}, out)
             return out
 
     return _Bytes()
@@ -362,16 +372,17 @@ def _event_seconds(fn, args, reps):
     return statistics.median(times)
 
 
-def analyze_spec(spec, device='cpu', *, peaks=None, reps=20):
-    """Run one registered entrypoint and return its cost record: a
-    first call (timed), a counted call, and on the card the timed calls.
-    Never raises for a broken entry: the record then carries an
-    ``error`` field (check treats that as a violation)."""
+def analyze_spec(spec, device='cuda', *, peaks=None, reps=20):
+    """Run one registered entrypoint on ``device`` (the card unless the
+    caller asks for the CPU; without a card this raises) and return its
+    cost record: a first call (timed), a counted call, and on the card
+    the timed calls. Never raises for a broken entry: the record then
+    carries an ``error`` field (check treats that as a violation)."""
     import torch
 
     from distributed_dot_product_tpu_torch.utils import comm
     peaks = peaks or DEFAULT_PEAKS
-    cuda = torch.device(device).type == 'cuda'
+    cuda = comm.resolve_device(device).type == 'cuda'
     try:
         t0 = time.perf_counter()
         spec.fn(*spec.args)
@@ -394,7 +405,7 @@ def analyze_spec(spec, device='cpu', *, peaks=None, reps=20):
             rec.update(program_model(
                 cost.flops, cost.bytes, peaks=peaks,
                 measured_seconds=_event_seconds(spec.fn, spec.args, reps)))
-    except Exception as e:
+    except Exception as e:  # graphlint: allow[silent-except]
         msg = str(e).splitlines()[0] if str(e) else repr(e)
         return {'error': f'{type(e).__name__}: {msg}'}  # reported, not lost
     coll = {k: coll1[k] - coll0.get(k, 0) for k in coll1
@@ -413,32 +424,42 @@ def _build_entry(name, build, device):
     return spec
 
 
-def snapshot(entrypoints=None, *, device='cpu', peaks=None):
-    """Run every registered entrypoint on ``device`` and return the
-    schema-versioned snapshot dict ``check``/``report`` consume. On the
-    card the kernel libraries are built first, so no first call pays
-    the build."""
+def snapshot(entrypoints=None, *, device='cuda', peaks=None):
+    """Run every registered entrypoint on ``device`` — the card unless
+    the caller asks for the CPU; without a card this raises — and return
+    the schema-versioned snapshot dict ``check``/``report`` consume. On
+    the card the kernel libraries are built first, so no first call pays
+    the build. ``retrace_totals`` are the retrace sentinel's counts
+    (analysis/retrace.py) incurred while building this snapshot, so the
+    number is deterministic whatever the process ran before."""
     import torch
 
+    from distributed_dot_product_tpu_torch.analysis import retrace
     from distributed_dot_product_tpu_torch.analysis.registry import (
         default_entrypoints,
     )
+    from distributed_dot_product_tpu_torch.utils.comm import resolve_device
     peaks = peaks or DEFAULT_PEAKS
-    dev = torch.device(device)
+    dev = resolve_device(device)
     if dev.type == 'cuda':
         from distributed_dot_product_tpu_torch.ops import _build
         _build.build_all()
     if entrypoints is None:
         entrypoints = default_entrypoints()
+    # retrace.totals() spans live AND retired counters, so the
+    # before/after diff is immune to GC timing and to whatever the
+    # process ran (and discarded) before this snapshot began.
+    before = retrace.totals()
     entries = {}
     for name, build in entrypoints.items():
         try:
             spec = _build_entry(name, build, device)
-        except Exception as e:
+        except Exception as e:  # graphlint: allow[silent-except]
             msg = str(e).splitlines()[0] if str(e) else repr(e)
             entries[name] = {'error': f'builder failed: {msg}'}  # reported
             continue
         entries[name] = analyze_spec(spec, device, peaks=peaks)
+    after = retrace.totals()
     return {
         'schema': PERF_SCHEMA_VERSION,
         'created_unix': time.time(),
@@ -451,9 +472,8 @@ def snapshot(entrypoints=None, *, device='cpu', peaks=None):
                       else 1),
         'peaks': peaks.as_dict(),
         'entries': entries,
-        # The port has no retrace counters yet (the counterpart of the
-        # reference's analysis/retrace.py is still to come).
-        'retrace_totals': {},
+        'retrace_totals': {name: after[name] - before.get(name, 0)
+                           for name in sorted(after)},
     }
 
 
@@ -659,6 +679,13 @@ def _cmd_check(args):
                      first_call_slack_s=args.first_call_slack,
                      retrace_slack=args.retrace_slack,
                      abs_floor=args.abs_floor)
+    cur_p, base_p = current.get('platform'), baseline.get('platform')
+    if cur_p != base_p:
+        print(f'perf check: the current snapshot ran on {cur_p!r} but '
+              f'{args.against} on {base_p!r} — compare snapshots of one '
+              f'platform (pass --device {base_p} to take a matching one)',
+              file=sys.stderr)
+        return 2
     violations = check_snapshots(current, baseline, tol=tol)
     for v in violations:
         print(f'PERF REGRESSION: {v}')
@@ -690,10 +717,11 @@ def main(argv=None):
     parser.add_argument('--registry', metavar='MODULE:ATTR',
                         help='analyze this {name: builder} mapping '
                              'instead of the central registry')
-    parser.add_argument('--device', default='cpu',
-                        help="where the entrypoints run: 'cpu' (default; "
-                             "the committed baseline's) or 'cuda' (adds "
-                             'measured times and peak memory)')
+    parser.add_argument('--device', default='cuda',
+                        help="where the entrypoints run: 'cuda' (default; "
+                             'adds measured times and peak memory; raises '
+                             "without a card) or 'cpu' (the committed "
+                             "baseline's)")
     parser.add_argument('--peak-tflops', type=float,
                         default=DEFAULT_PEAKS.flops_per_s / 1e12,
                         help='roofline compute ceiling in TF/s (default: '
@@ -745,8 +773,6 @@ def main(argv=None):
 
 
 if __name__ == '__main__':
-    import sys
-
     # ``python -m`` runs this file as ``__main__`` beside the module the
     # kernel wrappers imported (the package's ``__init__`` imports them):
     # run the imported one, whose accounting hook they call.

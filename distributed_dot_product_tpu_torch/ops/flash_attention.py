@@ -865,6 +865,9 @@ def _attn_work(q, k, mask, causal, co, ko, window, **extra):
         hi_t = torch.tensor(his, device=mask.device)[:, None]
         lo_t = torch.tensor(los, device=mask.device)[:, None]
         allowed = (~mask) & (col < hi_t) & (col >= lo_t)
+        # Runs only while a CostCounter is active (accounting, never
+        # the launch path): the pairs this call's mask attends.
+        # graphlint: allow[host-pull]
         pairs = int(allowed.expand(*q.shape[:-2], tq, tk).sum().item())
     return dict(d=d, q_rows=nb * tq, kv_rows=nkv * kv_rows, pairs=pairs,
                 mask_bytes=0 if mask is None else mask.numel(), **extra)

@@ -34,6 +34,11 @@ __all__ = ['Mesh', 'seq_mesh', 'data_seq_mesh', 'shard_seq', 'unshard_seq',
            'shard_decode_cache']
 
 
+# Callables ``fn(mesh)`` told of every Mesh made (analysis/torch_rules.py
+# maps a collective's group to the axes of the meshes a spec built).
+_OBSERVERS = []
+
+
 @dataclass(frozen=True)
 class Mesh:
     """One rank's view of a (data ×) seq mesh: the process group of its
@@ -49,6 +54,18 @@ class Mesh:
     data_size: int = 1
     member: bool = True
     axis_names: tuple = (SEQ_AXIS,)
+
+    def __post_init__(self):
+        for fn in _OBSERVERS:
+            fn(self)
+
+    def axis_groups(self):
+        """``{axis name: process group}`` — the group a collective over
+        each axis runs on (None: the default group, or one rank
+        alone)."""
+        groups = ((self.data_group, self.seq_group)
+                  if len(self.axis_names) == 2 else (self.seq_group,))
+        return dict(zip(self.axis_names, groups))
 
     @property
     def shape(self):

@@ -292,6 +292,37 @@ class KernelEngine:
             self.checksums = None
             self.cache = init_slot_cache(slots, heads, t_max, head_dim,
                                          dtype=dtype, device=self.device)
+        # One watched program each for the engine's lifetime, the
+        # reference's jitted programs (analysis/retrace.py): shapes are
+        # fixed at construction, so more than budget input signatures of
+        # one program means something per-call leaked into the step — the
+        # step a CUDA graph could not keep. Budget 2: the real signature
+        # plus one registry run / dtype respin.
+        from distributed_dot_product_tpu_torch.analysis.retrace import (
+            watch_traces,
+        )
+        self._decode = watch_traces(self._verify, 'engine.decode', budget=2)
+        self._prefill = watch_traces(self._prefill_impl, 'engine.prefill',
+                                     budget=2)
+        self._reset = watch_traces(self._reset_impl, 'engine.reset',
+                                   budget=2)
+        if cache_mode == 'paged':
+            # The sharing primitives: CoW/fork/attach page copy (+ length
+            # set) and registry prefix prefill — dispatched on page
+            # crossings and prefix/fork events, never per token.
+            self._copy_attach = watch_traces(
+                self._copy_attach_impl, 'engine.copy_attach', budget=2)
+            # register_prefix is refused under kv_shards.
+            self._prefix_fill = (None if self.kv_shards > 1 else
+                                 watch_traces(self._prefix_fill_impl,
+                                              'engine.prefix_fill',
+                                              budget=2))
+        # Built lazily, one per shape: a verify program per width W =
+        # k+1, a rollback program per span bucket, a transfer program per
+        # source pool shape.
+        self._verifies = {}
+        self._rollbacks = {}
+        self._transfers = {}
         self.verify_seconds = 0.0   # host wall time spent digesting
         # Cumulative REAL wall seconds spent inside decode and prefill
         # calls, the decode step timed through the host read of its
@@ -468,7 +499,7 @@ class KernelEngine:
         with span('engine.decode_step', requests=ids):
             t0 = time.perf_counter()
             # The one-token step is the verify body at width 1.
-            tok, finite = self._verify(
+            tok, finite = self._decode(
                 _to_device(tokens, self.device)[:, None],
                 np.ones(self.slots, np.int64), act,
                 _to_device(poison, self.device, bool))
@@ -480,6 +511,18 @@ class KernelEngine:
             if self.cache_mode == 'paged':
                 self.pool.lengths[act] += 1
             return out
+
+    def _verify_program(self, w):
+        """One watched verify program per width W = k+1 (a serving run
+        uses ONE k, so one program)."""
+        prog = self._verifies.get(w)
+        if prog is None:
+            from distributed_dot_product_tpu_torch.analysis.retrace import (
+                watch_traces,
+            )
+            prog = self._verifies[w] = watch_traces(
+                self._verify, f'engine.verify_w{w}', budget=2)
+        return prog
 
     def verify_step(self, tokens, counts, active, poison=None,
                     request_ids=None):
@@ -524,7 +567,7 @@ class KernelEngine:
                if obs_spans.enabled() else ())
         with span('engine.verify_step', requests=ids, width=w):
             t0 = time.perf_counter()
-            tok, finite = self._verify(
+            tok, finite = self._verify_program(w)(
                 _to_device(tokens, self.device), counts, act,
                 _to_device(poison, self.device, bool))
             out = (tok.cpu().numpy().astype(np.int32), finite.cpu().numpy())
@@ -554,13 +597,7 @@ class KernelEngine:
         bucket = 1 << (need - 1).bit_length()
         with span('engine.rollback', rows=need):
             t0 = time.perf_counter()
-            if self.kv_shards > 1:
-                for s in range(self.kv_shards):
-                    paged_rollback_slots(self.shard_cache(s), new, bucket)
-            elif self.cache_mode == 'paged':
-                self.cache = paged_rollback_slots(self.cache, new, bucket)
-            else:
-                self.cache = rollback_slots(self.cache, new, span=bucket)
+            self._rollback_program(bucket)(new)
             self.program_seconds += time.perf_counter() - t0
         if self.kv_shards > 1:
             freed = {}
@@ -577,6 +614,54 @@ class KernelEngine:
             if freed:
                 self._zero_freed(freed)
             self._sync_page_table()
+
+    def _rollback_program(self, span_rows):
+        """One watched rollback program per span bucket (the rolled-back
+        rows rounded up to a power of two: a serving run uses one or
+        two)."""
+        prog = self._rollbacks.get(span_rows)
+        if prog is None:
+            from distributed_dot_product_tpu_torch.analysis.retrace import (
+                watch_traces,
+            )
+
+            def body(new):
+                if self.kv_shards > 1:
+                    for s in range(self.kv_shards):
+                        paged_rollback_slots(self.shard_cache(s), new,
+                                             span_rows)
+                elif self.cache_mode == 'paged':
+                    self.cache = paged_rollback_slots(self.cache, new,
+                                                      span_rows)
+                else:
+                    self.cache = rollback_slots(self.cache, new,
+                                                span=span_rows)
+
+            prog = self._rollbacks[span_rows] = watch_traces(
+                body, f'engine.rollback_s{span_rows}', budget=2)
+        return prog
+
+    def _prefill_impl(self, slot, buf, n):
+        """The prefill program: project the padded chunk ``buf`` once and
+        append its first ``n`` rows into ``slot`` (the chunk broadcast to
+        every slot — a view; the counts mask lands it on the one slot).
+        Sharded, every shard appends through its local table: a row whose
+        ordinal another shard owns drops through the -1."""
+        k, v = self._project_kv(_to_device(buf, self.device))
+        counts = np.zeros(self.slots, np.int64)
+        counts[slot] = n
+        if self.kv_shards > 1:
+            for s in range(self.kv_shards):
+                dev = self.shard_devices[s]
+                append_kv_slots(
+                    self.shard_cache(s),
+                    k.to(dev)[None].expand(self.slots, *k.shape),
+                    v.to(dev)[None].expand(self.slots, *v.shape),
+                    counts=counts)
+        else:
+            self.cache = append_kv_slots(
+                self.cache, k[None].expand(self.slots, *k.shape),
+                v[None].expand(self.slots, *v.shape), counts=counts)
 
     def prefill(self, slot, tokens, request_id=None):
         """Append one prompt chunk (``len(tokens) <= prefill_chunk``)
@@ -603,43 +688,62 @@ class KernelEngine:
         with span('engine.prefill', slot=int(slot),
                   request=request_id or ''):
             t0 = time.perf_counter()
-            k, v = self._project_kv(_to_device(buf, self.device))
-            counts = np.zeros(self.slots, np.int64)
-            counts[slot] = n
-            # The chunk broadcast to every slot (a view); the counts mask
-            # lands it on the one slot. Sharded, every shard appends
-            # through its local table: a row whose ordinal another shard
-            # owns drops through the -1.
-            if self.kv_shards > 1:
-                for s in range(self.kv_shards):
-                    dev = self.shard_devices[s]
-                    append_kv_slots(
-                        self.shard_cache(s),
-                        k.to(dev)[None].expand(self.slots, *k.shape),
-                        v.to(dev)[None].expand(self.slots, *v.shape),
-                        counts=counts)
-            else:
-                self.cache = append_kv_slots(
-                    self.cache, k[None].expand(self.slots, *k.shape),
-                    v[None].expand(self.slots, *v.shape), counts=counts)
+            self._prefill(int(slot), buf, n)
             self.program_seconds += time.perf_counter() - t0
         if self.cache_mode == 'paged':
             self.pool.lengths[slot] += n
 
+    def _reset_impl(self, slot, freed=None):
+        """The reset program: the slab zeroes ``slot``'s rows and length;
+        paged, zero the freed pool pages in ``freed`` (-1-padded, the
+        pool's ``pages_per_slot`` wide — ``(kv_shards, pages_per_slot)``
+        on a kv_shards engine, each shard its own row) and clear
+        ``slot``'s table row and length (-1 touches no slot)."""
+        if self.kv_shards > 1:
+            for s in range(self.kv_shards):
+                paged_reset_slot(self.shard_cache(s), slot, freed[s])
+        elif self.cache_mode == 'paged':
+            self.cache = paged_reset_slot(self.cache, slot, freed)
+        else:
+            self.cache = reset_slot(self.cache, slot)
+
+    def _freed_vectors(self, freed):
+        """``freed`` pages as -1-padded vectors of the reset program's
+        fixed width, as many as they fill (a rollback may free more pages
+        than one slot holds)."""
+        width = self.pool.pages_per_slot
+        for lo in range(0, max(len(freed), 1), width):
+            vec = np.full(width, -1, np.int64)
+            part = freed[lo:lo + width]
+            vec[:len(part)] = part
+            yield vec
+
     def _zero_freed(self, freed, slot=-1):
         """Zero freed pool pages (and clear ``slot``'s table row and
-        length when one is named; -1 touches no slot)."""
-        self.cache = paged_reset_slot(self.cache, slot, freed)
+        length when one is named; -1 touches no slot) through the ONE
+        reset program."""
+        for vec in self._freed_vectors(list(freed)):
+            self._reset(slot, vec)
+            slot = -1
         if self.checksums is not None:
             self.checksums.drop(freed)
 
     def _zero_freed_sharded(self, freed, slot=-1):
         """kv_shards twin of :meth:`_zero_freed`: ``freed`` is ``{shard:
-        [local pages]}``; each shard zeroes its own pages (and clears
+        [local pages]}``; the stacked per-shard vectors go through the
+        ONE reset program (each shard zeroes its own pages and clears
         ``slot``'s table row), each shard's checksum table forgets its
         own."""
-        for s in range(self.kv_shards):
-            paged_reset_slot(self.shard_cache(s), slot, freed.get(s, []))
+        per = [list(self._freed_vectors(freed.get(s, [])))
+               for s in range(self.kv_shards)]
+        for j in range(max(len(v) for v in per)):
+            vec = np.full((self.kv_shards, self.pool.pages_per_slot), -1,
+                          np.int64)
+            for s, vecs in enumerate(per):
+                if j < len(vecs):
+                    vec[s] = vecs[j]
+            self._reset(slot, vec)
+            slot = -1
         if self.checksums is not None:
             for s, pages in freed.items():
                 self.checksums[s].drop(pages)
@@ -656,7 +760,7 @@ class KernelEngine:
             self._zero_freed(self.pool.release(slot), slot)
             self._sync_page_table()
         else:
-            self.cache = reset_slot(self.cache, slot)
+            self._reset(slot)
 
     def lengths(self):
         return np.array(self.pool.lengths if self.kv_shards > 1
@@ -678,15 +782,27 @@ class KernelEngine:
                     torch.from_numpy(self.pool.table), non_blocking=True)
             self.pool.dirty = False
 
+    def _copy_attach_impl(self, shard, src, dst, slot, length_val):
+        """The copy/attach program: copy pool page ``src`` → ``dst`` (-1
+        = no copy) on shard ``shard``'s cache (0 on an unsharded engine)
+        and set ``length[slot]`` (-1 = none; the shared lengths vector of
+        a kv_shards engine is the host pool's)."""
+        if self.kv_shards > 1:
+            paged_copy_attach(self.shard_cache(shard), src, dst, slot,
+                              length_val)
+        else:
+            self.cache = paged_copy_attach(self.cache, src, dst, slot,
+                                           length_val)
+
     def _apply_copies(self, copies):
         """Device page copies owed by the pool: ``(src, dst)`` pairs, or
         ``(shard, src, dst)`` triples on a kv_shards engine."""
         if self.kv_shards > 1:
             for s, src, dst in copies:
-                paged_copy_attach(self.shard_cache(s), src, dst, -1, 0)
+                self._copy_attach(int(s), int(src), int(dst), -1, 0)
             return
         for src, dst in copies:
-            self.cache = paged_copy_attach(self.cache, src, dst, -1, 0)
+            self._copy_attach(0, int(src), int(dst), -1, 0)
 
     def _writable_mask(self, active):
         """Per active slot: does a PRIVATE page already cover its next
@@ -776,10 +892,17 @@ class KernelEngine:
             chunk = tokens[start:start + self.prefill_chunk]
             buf = np.zeros(self.prefill_chunk, np.int64)
             buf[:len(chunk)] = chunk
-            k, v = self._project_kv(_to_device(buf, self.device))
-            self.cache = paged_append_rows(self.cache, k, v, row, start,
-                                           len(chunk))
+            self._prefix_fill(buf, len(chunk), row, start)
         return self._register_pages(pages, n)
+
+    def _prefix_fill_impl(self, buf, count, page_row, start):
+        """The registry prefill program: project one padded chunk and
+        scatter its first ``count`` rows into the REGISTRY-owned
+        ``page_row`` pages at logical positions ``start..`` — no slot, no
+        length."""
+        k, v = self._project_kv(_to_device(buf, self.device))
+        self.cache = paged_append_rows(self.cache, k, v, page_row, start,
+                                       count)
 
     def _register_pages(self, pages, n):
         """Enter ``pages`` (already allocated and filled, covering ``n``
@@ -972,8 +1095,15 @@ class KernelEngine:
             raise RuntimeError(
                 f'page pool exhausted adopting a {length}-row prefix '
                 f'({needed} pages needed, {self.pool.free_pages} free)')
-        paged_transfer_pages(self.cache, src_cache.k_pool, src_cache.v_pool,
-                             src_pages, pages)
+        # Fixed-width -1-padded vectors: one transfer program per source
+        # pool shape, whatever the prefix length.
+        width = max(self.pool.pages_per_slot, needed)
+        vec_src = np.full(width, -1, np.int64)
+        vec_dst = np.full(width, -1, np.int64)
+        vec_src[:needed] = src_pages
+        vec_dst[:needed] = pages
+        self._transfer_program(0, src_cache.k_pool, src_cache.v_pool,
+                               vec_src, vec_dst)
         pid = self._register_pages(pages, length)
         if self.checksums is not None and src_checksums is not None:
             # Landed-copy verification: whole pages move (unfilled tail
@@ -986,6 +1116,27 @@ class KernelEngine:
                 self.unregister_prefix(pid)
                 raise PageCorruptionError(bad, 'handoff_copy')
         return pid
+
+    def _transfer_program(self, shard, src_k, src_v, vec_src, vec_dst):
+        """Copy the source pages ``vec_src`` of another cache's pools into
+        ``vec_dst`` of shard ``shard``'s cache (0 unsharded; vectors
+        -1-padded to a fixed width) through the watched transfer program
+        of that source pool shape."""
+        key = (tuple(src_k.shape), tuple(src_v.shape), len(vec_src))
+        prog = self._transfers.get(key)
+        if prog is None:
+            from distributed_dot_product_tpu_torch.analysis.retrace import (
+                watch_traces,
+            )
+
+            def body(shard, src_k, src_v, vec_src, vec_dst):
+                cache = (self.shard_cache(shard) if self.kv_shards > 1
+                         else self.cache)
+                paged_transfer_pages(cache, src_k, src_v, vec_src, vec_dst)
+
+            prog = self._transfers[key] = watch_traces(
+                body, 'engine.adopt', budget=2)
+        prog(shard, src_k, src_v, vec_src, vec_dst)
 
     @staticmethod
     def _digest_differs(want, have):
@@ -1023,9 +1174,13 @@ class KernelEngine:
         gpages = [0] * needed
         for s, pgs in alloc.items():
             lo, _ = self.pool.owned_range(s)
-            paged_transfer_pages(self.shard_cache(s), src_cache.k_pool,
-                                 src_cache.v_pool,
-                                 src_pages[lo:lo + len(pgs)], pgs)
+            width = self.pool.pages_per_slot
+            vec_src = np.full(width, -1, np.int64)
+            vec_dst = np.full(width, -1, np.int64)
+            vec_src[:len(pgs)] = src_pages[lo:lo + len(pgs)]
+            vec_dst[:len(pgs)] = pgs
+            self._transfer_program(s, src_cache.k_pool, src_cache.v_pool,
+                                   vec_src, vec_dst)
             for j, p in enumerate(pgs):
                 gpages[lo + j] = self._gpage(s, p)
         pid = self._register_pages(gpages, length)
@@ -1081,13 +1236,13 @@ class KernelEngine:
                 return False
             if tsh >= 0:
                 # The shared lengths vector already holds plen.
-                paged_copy_attach(self.shard_cache(tsh), tsrc, tdst, -1, 0)
+                self._copy_attach(int(tsh), int(tsrc), int(tdst), -1, 0)
             self._sync_page_table()
             return True
         ok, src, dst = self.pool.attach(slot, pages, plen)
         if not ok:
             return False
-        self.cache = paged_copy_attach(self.cache, src, dst, slot, plen)
+        self._copy_attach(0, int(src), int(dst), int(slot), int(plen))
         self._sync_page_table()
         return True
 
@@ -1108,8 +1263,8 @@ class KernelEngine:
         ok, tail_src, tail_dst = self.pool.fork(src, dst)
         if not ok:
             return False
-        self.cache = paged_copy_attach(self.cache, tail_src, tail_dst, dst,
-                                       int(self.pool.lengths[dst]))
+        self._copy_attach(0, int(tail_src), int(tail_dst), int(dst),
+                          int(self.pool.lengths[dst]))
         self._sync_page_table()
         return True
 
@@ -1191,7 +1346,10 @@ def _engine_spec(name, eng, wrap=None):
     """A registry spec of ``eng``'s batched decode step (the step body
     every tick runs): every slot active, from the state the builder left
     — the step advances the cache's lengths, so each call starts again
-    from that state (``wrap``: a context around the call)."""
+    from that state (``wrap``: a context around the call). The step
+    returns ``(cache, tokens, finite)``, as the reference's program does:
+    the cache it appended in place (every shard's, on a kv_shards
+    engine)."""
     import contextlib
 
     from distributed_dot_product_tpu_torch.analysis.registry import (
@@ -1210,7 +1368,10 @@ def _engine_spec(name, eng, wrap=None):
         if not sharded:
             eng.cache = cache
         with (wrap() if wrap else contextlib.nullcontext()):
-            return eng._verify(tokens, counts, active, poison)
+            # The watched decode program (analysis/retrace.py), as
+            # the reference's entry runs its jitted one.
+            tok, finite = eng._decode(tokens, counts, active, poison)
+        return (cache if sharded else eng.cache), tok, finite
 
     pools = ('k_pool', 'v_pool') if eng.cache_mode == 'paged' else ('k', 'v')
     return TraceSpec(
@@ -1218,6 +1379,8 @@ def _engine_spec(name, eng, wrap=None):
         prejitted=True, mesh_axes=('seq',) if sharded else (),
         cache_in=None if sharded else (
             lambda a: [getattr(a[0], f) for f in pools]),
+        cache_out=None if sharded else (
+            lambda o: [getattr(o[0], f) for f in pools]),
         expect_donation=True, min_donated=2)
 
 

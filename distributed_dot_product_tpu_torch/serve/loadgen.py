@@ -62,6 +62,11 @@ __all__ = ['TenantSpec', 'LoadGenConfig', 'Arrival', 'VirtualClock',
            'default_tenants', 'TRACE_SCHEMA', 'save_trace',
            'load_trace', 'ChaosSchedule']
 
+# determlint: the driving loop lives on the virtual clock — real time
+# may only appear as the reporting-only wall_seconds accounting
+# (declared in determlint.REAL_TIME_CONTRACT).
+GRAPHLINT_TICK_ROOTS = ('run_trace',)
+
 
 class VirtualClock:
     """Deterministic injectable clock: calling it reads the time,

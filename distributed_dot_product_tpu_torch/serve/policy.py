@@ -44,6 +44,12 @@ from typing import Dict, Optional
 
 __all__ = ['TenantPolicy', 'PolicyConfig', 'SchedulingPolicy']
 
+# determlint: selection and eviction run inside the scheduler tick —
+# they derive everything from the injected clock/queue/histograms.
+GRAPHLINT_TICK_ROOTS = ('SchedulingPolicy.select',
+                        'SchedulingPolicy.eviction_victim',
+                        'SchedulingPolicy.prefill_chunks')
+
 
 @dataclasses.dataclass
 class TenantPolicy:

@@ -192,6 +192,8 @@ class PrefillPool:
             pages=(pages if pages is not None
                    else 2 * (t_max // page_size)),
             kv_checksums=kv_checksums, device=device)
+        self._kv_programs = {}
+        self._fill_programs = {}
 
     def _bucket(self, n):
         """Smallest power-of-two multiple of the shard count covering
@@ -229,14 +231,54 @@ class PrefillPool:
                 f'— a handle was not released after handoff?')
         row = np.full(eng.pool.pages_per_slot, -1, np.int64)
         row[:needed] = pages
+        bucket = self._bucket(n)
+        padded = np.zeros(bucket, np.int64)
+        padded[:n] = tokens
         with span('prefill.build', rows=n, shards=self.n_shards):
-            kv = torch.stack(self._project_share(tokens))
-            if self.n_shards > 1:
-                # None: a mesh over the whole world is the default group.
-                kv = comm.all_gather(kv, self.mesh.seq_group, dim=2)
-            paged_append_rows(eng.cache, kv[0], kv[1], row, 0, n)
+            kv = self._kv_program(bucket)(padded)
+            self._fill_program(bucket)(kv[0], kv[1], row, n)
         pid = eng._register_pages(pages, n)
         return PrefixHandle(prefix_id=pid, pages=pages, length=n)
+
+    def _kv_program(self, bucket):
+        """The watched projection program of one length bucket: this
+        rank's share of the ``bucket``-row padded buffer, all-gathered
+        into ``(2, H, bucket, D)`` (k and v). One per bucket, so a
+        prompt mix sees log-many programs (analysis/retrace.py)."""
+        prog = self._kv_programs.get(bucket)
+        if prog is None:
+            from distributed_dot_product_tpu_torch.analysis.retrace import (
+                watch_traces,
+            )
+
+            def body(padded):
+                kv = torch.stack(self._project_share(padded))
+                if self.n_shards > 1:
+                    # None: a mesh over the whole world is the default
+                    # group.
+                    kv = comm.all_gather(kv, self.mesh.seq_group, dim=2)
+                return kv
+
+            prog = self._kv_programs[bucket] = watch_traces(
+                body, f'prefill.kv_{bucket}', budget=2)
+        return prog
+
+    def _fill_program(self, bucket):
+        """The watched fill program of one length bucket: the first
+        ``count`` gathered rows into the registry pages ``page_row``."""
+        prog = self._fill_programs.get(bucket)
+        if prog is None:
+            from distributed_dot_product_tpu_torch.analysis.retrace import (
+                watch_traces,
+            )
+
+            def body(k, v, page_row, count):
+                paged_append_rows(self.engine.cache, k, v, page_row, 0,
+                                  count)
+
+            prog = self._fill_programs[bucket] = watch_traces(
+                body, f'prefill.fill_{bucket}', budget=2)
+        return prog
 
     def _project_share(self, tokens):
         """This rank's rows ``[lo, hi)`` of the ``_bucket(n)``-row padded

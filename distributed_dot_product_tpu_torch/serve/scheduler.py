@@ -106,6 +106,13 @@ from distributed_dot_product_tpu_torch.utils import tracing
 
 __all__ = ['ServeConfig', 'Scheduler']
 
+# determlint (analysis/determlint.py): everything reachable from the
+# tick and the submit path must derive time from the injected clock —
+# the seeded bit-reproducible-replay contract. The two deliberate
+# real-time reads (the step-duration histogram, the profile cooldown)
+# are declared in determlint.REAL_TIME_CONTRACT with their reasons.
+GRAPHLINT_TICK_ROOTS = ('Scheduler.step', 'Scheduler.submit')
+
 @dataclasses.dataclass
 class ServeConfig:
     """Knobs of the serving loop. ``queue_limit``/``max_new_tokens``/

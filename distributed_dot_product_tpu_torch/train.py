@@ -220,3 +220,56 @@ def make_lm_train_step(model, optimizer, mesh=None, data_axis=None,
 
     step.module, step.optimizer = model, optimizer
     return step
+
+
+def graphlint_entrypoints():
+    """Registration hook (``analysis/registry.py``): the full LM train
+    step — forward, chunked loss, the gradient all-reduce over the seq
+    group, the SGD update — on a 2-rank seq group where the process has
+    one (else the one-rank mesh), at the reference's shapes but for the
+    head dim (32, the kernels' smallest), computing in bf16. The step
+    updates the parameters in place and returns them with the loss (the
+    reference donates params and optimizer state: ``expect_donation``);
+    each call restores the parameters it moved, so every call computes
+    the same step."""
+
+    def lm_step(device):
+        from distributed_dot_product_tpu_torch.analysis.registry import (
+            HEAD_DIM, TraceSpec,
+        )
+        from distributed_dot_product_tpu_torch.models.lm import (
+            TransformerLM,
+        )
+        from distributed_dot_product_tpu_torch.parallel.mesh import seq_mesh
+        from distributed_dot_product_tpu_torch.utils.comm import (
+            SEQ_AXIS, get_world_size,
+        )
+        mesh = seq_mesh(2 if get_world_size() >= 2 else None)
+        # bf16 compute (the flash kernels take bf16), float32 parameters.
+        model = TransformerLM(vocab_size=32, dim=2 * HEAD_DIM, num_heads=2,
+                              n_layers=1, dtype=torch.bfloat16, device=device,
+                              generator=torch.Generator().manual_seed(0))
+        optimizer = torch.optim.SGD(model.parameters(), lr=1e-2)
+        step = make_lm_train_step(model, optimizer, mesh, loss_chunk=8)
+        tokens = torch.zeros((1, 16), dtype=torch.int64, device=device)
+        targets = torch.zeros((1, 16), dtype=torch.int64, device=device)
+
+        def fn(m, batch):
+            params = list(m.parameters())
+            with torch.no_grad():
+                saved = [p.detach().clone() for p in params]
+            loss = step(batch)
+            with torch.no_grad():
+                for p, s in zip(params, saved):
+                    p.copy_(s)
+            return loss, params
+
+        # Debt (ROADMAP §3): the bf16 GEMMs run with cuBLAS's
+        # reduced-precision reduction allowed, as the lm.* entries'.
+        return TraceSpec(name='train.lm_step', fn=fn,
+                         args=(model, (tokens, targets)),
+                         mesh_axes=(SEQ_AXIS,), prejitted=True,
+                         expect_donation=True, min_donated=1,
+                         allow=('f32-accum',))
+
+    return {'train.lm_step': lm_step}

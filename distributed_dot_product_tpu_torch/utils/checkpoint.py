@@ -281,8 +281,13 @@ def save(path, state: TrainState, *, force: bool = True,
             def run():
                 try:
                     _write(target, host)
-                except Exception as exc:         # re-raised by wait()
+                # Kept, and re-raised by wait():
+                # graphlint: allow[silent-except]
+                except Exception as exc:
                     st.error = exc
+            # Not a daemon on purpose: interpreter exit waits for the
+            # write to finalize rather than dropping a checkpoint.
+            # graphlint: allow[thread-discipline]
             st.thread = threading.Thread(target=run, name='checkpoint-save')
             st.thread.start()
     if not blocking:

@@ -41,8 +41,9 @@ import collections
 import torch
 import torch.distributed as dist
 
-__all__ = ['SEQ_AXIS', 'resolve_device', 'init', 'get_rank',
-           'get_world_size', 'is_main_process', 'synchronize', 'axis_size',
+__all__ = ['SEQ_AXIS', 'resolve_device', 'init', 'init_from_env',
+           'get_rank', 'get_world_size', 'is_main_process', 'synchronize',
+           'axis_size',
            'transport', 'world_group', 'all_gather', 'all_gather_stacked',
            'all_reduce', 'all_reduce_max', 'reduce_scatter', 'ring_shift',
            'all_to_all', 'collective_counts']
@@ -53,6 +54,17 @@ SEQ_AXIS = 'seq'
 
 
 _CALLS = collections.Counter()
+
+
+# Callables ``fn(kind, group)`` told of every collective call, with the
+# group it runs on (analysis/torch_rules.py's collective-axis rule).
+_OBSERVERS = []
+
+
+def _note(kind, group):
+    _CALLS[kind] += 1
+    for fn in _OBSERVERS:
+        fn(kind, group)
 
 
 def collective_counts():
@@ -90,6 +102,30 @@ def init(backend, init_method, world_size, rank):
         return
     dist.init_process_group(backend, init_method=init_method,
                             world_size=world_size, rank=rank)
+
+
+def init_from_env(device):
+    """Join the process group ``torchrun`` describes (``WORLD_SIZE``,
+    ``RANK``, ``LOCAL_RANK`` and its rendezvous address), as the
+    reference's harnesses take their ranks from the mesh; a process
+    started alone is one rank and joins nothing. Each rank of a CUDA run
+    takes card ``LOCAL_RANK`` (mod the cards present) and NCCL when every
+    rank has a card of its own, else gloo (host-staged on a shared card).
+    Returns the world size."""
+    import os
+    world = int(os.environ.get('WORLD_SIZE', '1'))
+    if world < 2:
+        return 1
+    rank = int(os.environ['RANK'])
+    dev = resolve_device(device)
+    backend = 'gloo'
+    if dev.type == 'cuda':
+        count = torch.cuda.device_count()
+        torch.cuda.set_device(int(os.environ.get('LOCAL_RANK', rank))
+                              % count)
+        backend = 'nccl' if count >= world else 'gloo'
+    init(backend, 'env://', world, rank)
+    return world
 
 
 def get_world_size(group=None):
@@ -155,7 +191,7 @@ def _to_host(x):
 def all_gather_stacked(x, group=None):
     """``(W, *x.shape)``: every rank's ``x`` in rank order (the
     reference's untiled ``lax.all_gather``)."""
-    _CALLS['all-gather'] += 1
+    _note('all-gather', group)
     return _all_gather_stacked(x, group)
 
 
@@ -172,7 +208,7 @@ def _all_gather_stacked(x, group):
 def all_gather(x, group=None, dim=-2):
     """Tiled all-gather: every rank's ``x`` concatenated along ``dim`` in
     rank order (``lax.all_gather(..., tiled=True)``)."""
-    _CALLS['all-gather'] += 1
+    _note('all-gather', group)
     if get_world_size(group) == 1:
         return x
     parts = _all_gather_stacked(x, group)
@@ -180,7 +216,7 @@ def all_gather(x, group=None, dim=-2):
 
 
 def _all_reduce(x, group, op):
-    _CALLS['all-reduce'] += 1
+    _note('all-reduce', group)
     if get_world_size(group) == 1:
         return x.clone()
     buf = _to_host(x) if _staged(group, x) else x.detach().clone()
@@ -204,7 +240,7 @@ def reduce_scatter(x, group=None):
     """``x`` is ``(W, *block)``: returns this rank's block of the sum over
     ranks, ``(*block)`` (``lax.psum_scatter(..., scatter_dimension=0,
     tiled=False)``)."""
-    _CALLS['reduce-scatter'] += 1
+    _note('reduce-scatter', group)
     w = get_world_size(group)
     if x.shape[0] != w:
         raise ValueError(f'reduce_scatter needs a leading axis of the group '
@@ -226,7 +262,7 @@ def ring_shift(tensors, group=None, direction=-1):
     (mod W). ``direction=-1`` is the reference's ``lax.ppermute`` with the
     permutation ``(i, i-1)``: afterwards rank ``r`` holds what rank
     ``r+1`` held. One ``batch_isend_irecv`` exchange carries them all."""
-    _CALLS['collective-permute'] += 1
+    _note('collective-permute', group)
     tensors = tuple(tensors)
     w = get_world_size(group)
     if w == 1:
@@ -252,7 +288,7 @@ def all_to_all(x, group=None, split_dim=-3, concat_dim=-2):
     split into W chunks along ``split_dim``, chunk ``j`` goes to rank
     ``j``, and the chunks received are concatenated along ``concat_dim``
     in rank order."""
-    _CALLS['all-to-all'] += 1
+    _note('all-to-all', group)
     w = get_world_size(group)
     if w == 1:
         return x

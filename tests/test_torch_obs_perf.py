@@ -57,11 +57,11 @@ KERNEL_ENTRIES = {
 @pytest.fixture(scope='module')
 def full_snapshot():
     """ONE pass over the whole registry, shared by the tests below."""
-    return perf.snapshot()
+    return perf.snapshot(device='cpu')
 
 
 def test_every_entrypoint_in_snapshot_with_nonzero_cost(full_snapshot):
-    want = set(jregistry.default_entrypoints()) - {'train.lm_step'}
+    want = set(jregistry.default_entrypoints())
     entries = full_snapshot['entries']
     assert set(entries) == want
     for name, e in entries.items():
@@ -80,8 +80,13 @@ def test_snapshot_schema_peaks_and_retrace_totals(full_snapshot):
     assert full_snapshot['platform'] == 'cpu'
     assert full_snapshot['peaks']['flops_per_s'] == 989e12
     assert full_snapshot['peaks']['bytes_per_s'] == 3.35e12
-    # No retrace counters in the port yet.
-    assert full_snapshot['retrace_totals'] == {}
+    # The retrace sentinel's counts while the snapshot ran: each entry's
+    # decode step sees ONE signature, however many times the snapshot
+    # runs it — the two sequence-sharded steps, the five engine entries.
+    totals = full_snapshot['retrace_totals']
+    assert totals['attention.make_decode_step'] == 2
+    assert totals['engine.decode'] == 5
+    assert all(v >= 0 for v in totals.values())
     # The mesh entries count their collectives by kind.
     colls = full_snapshot['entries']['ops.matmul_grad_allgather'][
         'collectives']
@@ -117,8 +122,10 @@ def _flash_spec(twice):
 
 
 def test_planted_double_flops_is_flagged(tmp_path):
-    clean = perf.snapshot({'fixture.flash': _flash_spec(False)})
-    planted = perf.snapshot({'fixture.flash': _flash_spec(True)})
+    clean = perf.snapshot({'fixture.flash': _flash_spec(False)},
+                          device='cpu')
+    planted = perf.snapshot({'fixture.flash': _flash_spec(True)},
+                            device='cpu')
     c, p = (s['entries']['fixture.flash'] for s in (clean, planted))
     assert p['flops'] == 2 * c['flops']
     assert p['kernels']['flash_attention']['calls'] == 2
@@ -270,7 +277,9 @@ def test_program_model_measured_columns():
 def test_report_renders_roofline_table(full_snapshot):
     text = perf.render_report(full_snapshot)
     assert 'ops.flash_fwd_bf16' in text and '989 TF/s' in text
-    assert '(none watched)' in text
+    assert 'retrace totals during snapshot: ' in text
+    assert 'attention.make_decode_step=2 ' in text
+    assert 'engine.decode=5 ' in text
 
 
 def test_cli_snapshot_and_check(tmp_path):
@@ -287,7 +296,8 @@ def test_cli_snapshot_and_check(tmp_path):
     def run(*args):
         return subprocess.run(
             [sys.executable, '-m', 'distributed_dot_product_tpu_torch.obs'
-             '.perf', '--registry', *args], capture_output=True, text=True,
+             '.perf', '--device', 'cpu', '--registry', *args],
+            capture_output=True, text=True,
             env=env, cwd=tmp_path, timeout=300)
     base = tmp_path / 'base.json'
     r = run(reg, 'snapshot', '--baseline', '-o', str(base))
@@ -315,3 +325,33 @@ def test_int8_engine_weights_are_row_major():
                        device='cpu')
     for name in ('_wq', '_wk', '_wv', '_wo'):
         assert getattr(eng, name)[0].is_contiguous(), name
+
+
+def test_snapshot_runs_on_the_card_unless_asked():
+    """The entry points run on the card by default: with no card,
+    snapshot() and analyze_spec() without device='cpu' raise at once —
+    nothing carries on on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip('a card is present: the default device runs')
+    with pytest.raises(RuntimeError, match="device='cpu'|device=\"cpu\""):
+        perf.snapshot({'fixture.flash': _flash_spec(False)})
+    spec = _flash_spec(False)('cpu')
+    with pytest.raises(RuntimeError):
+        perf.analyze_spec(spec)
+
+
+def test_check_refuses_a_platform_mismatch(tmp_path):
+    """check compares snapshots of one platform only: a card snapshot
+    against the CPU baseline exits 2 and compares nothing."""
+    with open(BASELINE) as f:
+        baseline = json.load(f)
+    card = dict(baseline, platform='cuda')
+    cur = tmp_path / 'card.json'
+    cur.write_text(json.dumps(card))
+    rc = perf.main(['--device', 'cpu', 'check', '--against', BASELINE,
+                    '--current', str(cur)])
+    assert rc == 2
+    same = tmp_path / 'cpu.json'
+    same.write_text(json.dumps(baseline))
+    assert perf.main(['--device', 'cpu', 'check', '--against', BASELINE,
+                      '--current', str(same)]) == 0
