@@ -247,6 +247,24 @@ Phases, one JSON line each (some several):
    (``obs/perf.py``): measured ms beside the model's, the model's share
    at most 1, the kernel entries' kernel work equal to this script's
    count for their inputs.
+29. analysis_examples (run after obs_serve): the port's graph rules over
+   every registry entry on the card, the raising retrace sentinel over
+   serve_path's burst, and the four harness twins at their hardware
+   configurations;
+30. benchmark_cli (run last): ``torch_benchmark.py`` as a user types it,
+   each run a process of its own (forked from one that imported torch
+   once) — nt, all and tn at scale 1 in bf16 and nt in float32, nt on 2
+   ranks of the card (gloo, offset 1000), attn, train and lm at their
+   defaults, decode on the kernel and on the plain path, decode with the
+   n-gram proposer and with 4 KV shards, decode-serve slab and paged,
+   serve-load — each exiting 0 with one row carrying the reference's
+   keys, on the card, its kernels launched (K1 / K3 / K4 in attn, train,
+   lm; K5 in the kernel decode, spec, slab serving; K5p in paged serving
+   and once a shard a step under 4 shards; none of K5 on the plain path),
+   the matmuls no faster than their bound; then ``torch_bench.py``'s line
+   with ``bench.py``'s keys; ``scripts/torch_smoke_router.sh``,
+   ``torch_smoke_chaos.sh`` and ``torch_smoke_corrupt.sh`` run beside
+   the all, tn and float32 nt runs.
 
 Every kernel bound here reads the port's ``obs/perf.py``: the card's
 peak rates and each kernel's operation and byte formula.
@@ -254,7 +272,7 @@ peak rates and each kernel's operation and byte formula.
 Then the card's ``nvidia-smi`` name and power limit, the kernels line
 (``{"kernels": [...]}``: K1, K2, K3, K4, K5 and K5p with their launches on
 their path (and on wq8_serve, load_serve, router_serve, chaos_serve,
-obs_serve, wq8_lm and train_knobs), max
+obs_serve, analysis_examples, benchmark_cli, wq8_lm and train_knobs), max
 error, kernel / plain / library / bound times; K1, K2, K3 and K4 also per
 mask variant, K5 and K5p per partials / window / verify / int8 / ALiBi
 variant) and, only if every phase passed, the last line ``{"ok": true, "device": {...}}``.
@@ -8024,6 +8042,312 @@ def phase_analysis_examples(torch, ddp):
             for name, r in rows.items()}
 
 
+# The benchmark_cli phase: the port's measurement CLIs run as a user types
+# them, one subprocess each (as scripts/run_sweeps.py runs the
+# reference's): (name, row kind, torch_benchmark.py arguments, kernels the
+# run must launch). The matmul runs launch none (cuBLAS products).
+BC_TRAIN_KERNELS = ('flash_attention', 'flash_attention_dq',
+                    'flash_attention_dkv')
+BC_RUNS = (
+    ('nt_bf16', 'nt', ('--mode', 'nt', '--dtype', 'bf16'), ()),
+    ('all_bf16', 'nt', ('--mode', 'all', '--dtype', 'bf16'), ()),
+    ('tn_bf16', 'nt', ('--mode', 'tn', '--dtype', 'bf16'), ()),
+    ('nt_f32', 'nt', ('--mode', 'nt'), ()),
+    # Two ranks on the one card exchange each gathered slab through the
+    # host (gloo): the README's --offset 1000 keeps that to 75 exchanges
+    # a call (the default 32, 2,344, takes ~2.3 s a call).
+    ('nt_bf16_2ranks', 'nt_skip_local',
+     ('--mode', 'nt', '--dtype', 'bf16', '--devices', '2', '--skip-local',
+      '--offset', '1000'), ()),
+    ('attn', 'attn', ('--mode', 'attn'), ('flash_attention',)),
+    ('train', 'train', ('--mode', 'train'), BC_TRAIN_KERNELS),
+    ('lm', 'lm', ('--mode', 'lm'), BC_TRAIN_KERNELS),
+    ('decode_kernel', 'decode', ('--mode', 'decode', '--decode-impl',
+                                 'kernel'), ('flash_decode',)),
+    ('decode_plain', 'decode', ('--mode', 'decode', '--decode-impl', 'xla'),
+     ('flash_attention',)),
+    ('decode_spec_ngram', 'decode_spec', ('--mode', 'decode', '--spec',
+                                          'ngram'), ('flash_decode',)),
+    ('decode_kv_shards_4', 'decode_kv_shards',
+     ('--mode', 'decode', '--kv-shards', '4'), ('flash_decode_paged',)),
+    ('decode_serve_slab', 'decode_serve', ('--mode', 'decode-serve'),
+     ('flash_decode',)),
+    ('decode_serve_paged', 'decode_serve_paged',
+     ('--mode', 'decode-serve', '--cache-mode', 'paged'),
+     ('flash_decode_paged',)),
+    ('serve_load', 'serve_load', ('--mode', 'serve-load'),
+     ('flash_decode',)),
+)
+BC_SMOKES = ('torch_smoke_router.sh', 'torch_smoke_chaos.sh',
+             'torch_smoke_corrupt.sh')
+# The runs the smoke twins run beside: GPU-bound products of 11 ms and
+# more a call, where the smokes' host load and microsecond kernels do not
+# show (nt_bf16's 2,344-slab loop is host-paced, and runs alone).
+BC_BESIDE_SMOKES = ('all_bf16', 'tn_bf16', 'nt_f32')
+# Float32 products outside the tensor cores (torch's default: no TF32): the
+# H100 SXM's published 67 TFLOP/s (the bf16 peak is obs/perf.py's).
+FP32_PEAK = 67e12
+
+
+def _bc_here(*parts):
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), *parts)
+
+
+# A process start on the card's host spends ~9 s importing torch (9.2 s
+# of a 9.7 s import of torch_benchmark.py, measured there), so the phase's
+# runs are children forked from one process that imported torch and the
+# twins once and never touches the card: each child runs its script as the
+# command line would (runpy, as __main__, its argv), its output to a log
+# of its own, and exits with the script's status.
+_BC_FORKS = r"""
+import json, os, runpy, sys, traceback
+sys.path.insert(0, sys.argv[1])
+import torch_bench, torch_benchmark  # noqa: F401  imported once
+for line in sys.stdin:
+    script, argv, log = json.loads(line)
+    pid = os.fork()
+    if pid == 0:
+        code = 1
+        try:
+            fd = os.open(log, os.O_WRONLY | os.O_CREAT | os.O_TRUNC, 0o644)
+            os.dup2(fd, 1)
+            os.dup2(fd, 2)
+            sys.argv = [script, *argv]
+            runpy.run_path(script, run_name='__main__')
+            code = 0
+        except SystemExit as exc:
+            code = exc.code if isinstance(exc.code, int) else int(
+                exc.code is not None)
+        except BaseException:
+            traceback.print_exc()
+        finally:
+            sys.stdout.flush()
+            sys.stderr.flush()
+            os._exit(code)
+    _, status = os.waitpid(pid, 0)
+    print(os.waitstatus_to_exitcode(status), flush=True)
+"""
+
+
+def _bc_forks():
+    """The fork server of the phase's runs (:data:`_BC_FORKS`)."""
+    return subprocess.Popen([sys.executable, '-c', _BC_FORKS, _bc_here()],
+                            cwd=_bc_here(), stdin=subprocess.PIPE,
+                            stdout=subprocess.PIPE, text=True)
+
+
+def _bc_run(forks, what, script, argv, tmp, timeout=900):
+    """``python <script> <argv>`` as a child of ``forks``; fails the phase
+    on a non-zero exit. Returns ``(its output, seconds)``."""
+    import select
+    log = os.path.join(tmp, f'{what}.log')
+    t0 = time.perf_counter()
+    forks.stdin.write(json.dumps([_bc_here(script), list(argv), log]) + '\n')
+    forks.stdin.flush()
+    ready, _, _ = select.select([forks.stdout], [], [], timeout)
+    check(ready, f'benchmark_cli {what}: no exit within {timeout} s')
+    status = forks.stdout.readline().strip()
+    seconds = time.perf_counter() - t0
+    with open(log) as f:
+        out = f.read()
+    check(status == '0', f'benchmark_cli {what}: exit {status or "lost"} '
+                         f'after {seconds:.1f} s:\n{out[-3000:]}')
+    return out, seconds
+
+
+def _bc_matmul_bound(row):
+    """The least time of one timed call of nt / all / tn at the row's
+    shape: the larger of the 2·T²·768 products at the dtype's peak and
+    the operands read once (the output is a scalar) at 3.35 TB/s.
+    Returns ``(ms, bound_by, peak FLOP/s)``."""
+    t, d = row['T'], row['dim']
+    elem = 2 if row['dtype'] == 'bf16' else 4
+    peaks = perf().DEFAULT_PEAKS
+    peak = peaks.flops_per_s if row['dtype'] == 'bf16' else FP32_PEAK
+    left = t * d if row['mode'] == 'nt' else t * t
+    t_ops = 2.0 * t * t * d / peak
+    t_bytes = (left + t * d) * elem / peaks.bytes_per_s
+    return (1e3 * max(t_ops, t_bytes),
+            'operations' if t_ops > t_bytes else 'bytes', peak)
+
+
+def _bc_row(torch, forks, name, kind, argv, kernels, tmp):
+    """One torch_benchmark.py run: exit 0, exactly one row, every key of
+    the reference's row of its kind, on the card, and each named kernel
+    launched."""
+    import torch_benchmark
+    path = os.path.join(tmp, f'{name}.json')
+    _, seconds = _bc_run(forks, name, 'torch_benchmark.py',
+                         [*argv, '--file', path], tmp)
+    with open(path) as f:
+        rows = json.load(f)
+    check(len(rows) == 1, f'benchmark_cli {name}: {len(rows)} rows, not 1')
+    row = rows[0]
+    missing = sorted(set(torch_benchmark.REFERENCE_ROW_KEYS[kind])
+                     - set(row))
+    check(not missing, f'benchmark_cli {name}: the row lacks the '
+                       f"reference's keys {missing}")
+    check(row['platform'] == 'gpu'
+          and row['device_kind'] == torch.cuda.get_device_name(0),
+          f"benchmark_cli {name}: ran on {row['platform']} "
+          f"{row['device_kind']}")
+    launches = row['kernel_launches']
+    for kernel in kernels:
+        check(launches[kernel] > 0,
+              f'benchmark_cli {name}: {kernel} never launched')
+    out = {'phase': 'benchmark_cli', 'case': name, 'argv': list(argv),
+           'seconds': seconds, 'launches': launches}
+    if kind in ('nt', 'nt_skip_local'):
+        ms, bound_by, peak = _bc_matmul_bound(row)
+        out.update(T=row['T'], dtype=row['dtype'], world=row['world'],
+                   bound_ms=ms, bound_by=bound_by,
+                   dist_ms=row['dist_time'] * 1e3,
+                   dist_gflops_per_chip=row['dist_gflops_per_chip'],
+                   peak_gflops=peak / 1e9,
+                   dist_memory_analysis=row['dist_memory_analysis'],
+                   dist_peak_bytes_per_chip=row['dist_peak_bytes_per_chip'])
+        # The ranks share the one card: together they do the whole work.
+        check(row['dist_time'] * 1e3 >= ms,
+              f"benchmark_cli {name}: {row['dist_time'] * 1e3:.4f} ms a "
+              f'call, under the bound {ms:.4f} ms — the timing is not '
+              f'fenced on the card')
+        if 'local_time' in row:
+            out.update(local_ms=row['local_time'] * 1e3,
+                       local_gflops=row['local_gflops'])
+            check(row['local_time'] * 1e3 >= ms,
+                  f"benchmark_cli {name}: local {row['local_time'] * 1e3:.4f}"
+                  f' ms under the bound {ms:.4f} ms')
+    for key in ('T', 'step_time', 'tokens_per_s', 'ms_per_step',
+                'ms_per_token', 'ttft_ms', 'prefill_ms', 'decode_impl',
+                'bare_tokens_per_s', 'sched_tokens_per_s', 'slots',
+                'completed', 'requests', 'goodput_pct', 'per_tenant',
+                'ticks', 'capacity_tokens', 'decode_steps',
+                'spec_speedup', 'accepted_per_step', 'dist_time',
+                'step_gflops_per_chip', 'memory_analysis', 'perf_model'):
+        if key in row and key not in out:
+            out[key] = row[key]
+    emit(out)
+    if kind == 'decode_kv_shards':
+        check(launches['flash_decode_paged']
+              == row['kv_shards'] * row['decode_steps'],
+              f"benchmark_cli {name}: K5p launched "
+              f"{launches['flash_decode_paged']} times, not one a shard a "
+              f"step ({row['kv_shards']} x {row['decode_steps']})")
+    if name == 'decode_plain':
+        check(launches['flash_decode'] == 0 and row['decode_impl'] == 'xla',
+              'benchmark_cli decode_plain: the plain path launched K5')
+    if kind.startswith('decode_serve') or kind == 'decode_spec':
+        check(row['completed'] == row['requests'],
+              f"benchmark_cli {name}: {row['completed']} of "
+              f"{row['requests']} requests completed")
+    if kind == 'decode_serve_paged':
+        check(launches['flash_decode'] == 0,
+              'benchmark_cli decode_serve_paged: the slab kernel launched')
+    return out
+
+
+def _bench_keys():
+    """The keys of bench.py's JSON line and of its ``detail`` (its
+    ``json.dumps`` literal, read from the source: bench.py imports
+    JAX)."""
+    import ast
+    with open(_bc_here('bench.py')) as f:
+        tree = ast.parse(f.read())
+    call = next(n for n in ast.walk(tree) if isinstance(n, ast.Call)
+                and getattr(n.func, 'attr', None) == 'dumps')
+    line = call.args[0]
+    names = [k.value for k in line.keys]
+    return set(names), {k.value for k in line.values[
+        names.index('detail')].keys}
+
+
+def _bc_smokes_start():
+    """The three smoke twins, started at once; :func:`_bc_smokes_wait`
+    collects them. They count virtual time (no number here reads their
+    clocks) and launch microsecond kernels, so they run beside the
+    GPU-bound matmul runs."""
+    return time.perf_counter(), {script: subprocess.Popen(
+        ['bash', _bc_here('scripts', script)], cwd=_bc_here(),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for script in BC_SMOKES}
+
+
+def _bc_smokes_wait(started):
+    """Each smoke twin must exit 0; every one is stopped either way."""
+    t0, procs = started
+    try:
+        for script, proc in procs.items():
+            stdout, _ = proc.communicate(timeout=900)
+            emit({'phase': 'benchmark_cli', 'case': script,
+                  'rc': proc.returncode,
+                  'seconds': time.perf_counter() - t0,
+                  'ok_lines': [ln for ln in stdout.splitlines()
+                               if ' OK' in ln or ln.endswith(' OK')]})
+            check(proc.returncode == 0,
+                  f'benchmark_cli {script}: exit {proc.returncode}:\n'
+                  f'{stdout[-3000:]}')
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def phase_benchmark_cli(torch):
+    """torch_benchmark.py in every mode the reference's CLI has, on the
+    card, each run a process of its own; torch_bench.py's line; the
+    router, chaos and corrupt smoke twins (beside the matmul runs of
+    :data:`BC_BESIDE_SMOKES`). Returns each run's kernel launches."""
+    import gc
+    import tempfile
+    gc.collect()
+    torch.cuda.empty_cache()          # the runs need the card's memory
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix='benchmark_cli_')
+    launches = {}
+    forks = _bc_forks()
+    smokes = None
+    try:
+        for name, kind, argv, kernels in BC_RUNS:
+            if name == BC_BESIDE_SMOKES[0]:
+                smokes = _bc_smokes_start()
+            launches[name] = _bc_row(torch, forks, name, kind, argv,
+                                     kernels, tmp)['launches']
+            if name == BC_BESIDE_SMOKES[-1]:
+                started, smokes = smokes, None
+                _bc_smokes_wait(started)
+        stdout, seconds = _bc_run(forks, 'torch_bench', 'torch_bench.py',
+                                  [], tmp)
+        line = json.loads(stdout.strip().splitlines()[-1])
+        keys, detail = _bench_keys()
+        emit({'phase': 'benchmark_cli', 'case': 'torch_bench',
+              'seconds': seconds, 'line': line})
+        check(set(line) == keys and detail <= set(line['detail']),
+              f"torch_bench.py's line lacks bench.py's keys: "
+              f'{sorted(keys ^ set(line))} / '
+              f"{sorted(detail - set(line['detail']))}")
+        check(line['detail']['platform'] == 'gpu'
+              and line['detail']['train_step_gflops'] is not None,
+              'torch_bench.py did not run its card measurements')
+    finally:
+        if smokes is not None:            # a run failed inside the window
+            for proc in smokes[1].values():
+                proc.kill()
+                proc.wait()
+        forks.stdin.close()
+        forks.wait(timeout=60)
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit({'phase': 'benchmark_cli', 'case': 'done',
+          'seconds': time.perf_counter() - t_phase,
+          'launches': launches})
+    for kernel in ('flash_attention', 'flash_attention_dq',
+                   'flash_attention_dkv', 'flash_decode',
+                   'flash_decode_paged'):
+        check(sum(c[kernel] for c in launches.values()) > 0,
+              f'benchmark_cli: {kernel} never launched')
+    return launches
+
+
 def main():
     try:
         import torch
@@ -8120,10 +8444,14 @@ def main():
             ('decode_sharded', lambda: phase_decode_sharded(torch, ddp)),
             ('flagship', lambda: phase_flagship(torch, ddp)),
             ('analysis_examples',
-             lambda: phase_analysis_examples(torch, ddp)))
+             lambda: phase_analysis_examples(torch, ddp)),
+            ('benchmark_cli', lambda: phase_benchmark_cli(torch)))
         for phase, run in phases:
             if want(phase):
+                t0 = time.perf_counter()
                 res[phase] = run()
+                emit({'phase': phase, 'phase_seconds':
+                      time.perf_counter() - t0})
             if phase == 'flash_masks':
                 del flush
                 torch.cuda.empty_cache()
@@ -8157,6 +8485,7 @@ def main():
     chaos = res['chaos_serve']
     obs = res['obs_serve']
     ae = res['analysis_examples']
+    bc = res['benchmark_cli']
 
     def knob_paths(kernel):
         """The kernel's launches on train_knobs's runs (2 steps under each
@@ -8396,6 +8725,9 @@ def main():
         # four harness twins), zeros included.
         entry.setdefault('launches_by_path', {})['analysis_examples'] = {
             case: counts[entry['name']] for case, counts in ae.items()}
+        # benchmark_cli: its launches in each torch_benchmark.py run.
+        entry['launches_by_path']['benchmark_cli'] = {
+            run: counts[entry['name']] for run, counts in bc.items()}
         for key in ('flops', 'bytes'):
             entry.pop(key, None)
         for extra in ('masked_fold', 'masked_fold_f32'):

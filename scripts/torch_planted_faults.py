@@ -40,10 +40,19 @@ recovery replaying the prefix-stripped prompt, and the shard-local
 handoff allocating every page on shard 0. Three sit in chaos and control
 (``chaos_serve`` must catch them): the chaos schedule firing a planned
 crash one tick late, the doctor naming a surviving replica for a replica
-loss, and the controller scaling down without draining the member. A
-source with a ``/`` is a path
-in the package; a bare name is in ``csrc/``. Kernel libraries already
-built under ``build/kernels`` from unchanged sources are reused.
+loss, and the controller scaling down without draining the member.
+Three sit in the port's analysis and training driver
+(``analysis_examples`` must catch them): the retrace sentinel keying a
+tensor's signature on the tensor object (every call a new trace), a
+resumed run starting one step past its checkpoint, and the entrypoint
+registry dropping its last layer's hook. Three sit in the benchmark CLI
+twin (``benchmark_cli`` must catch them): the nt row without the
+reference's ``perf_model``, paged ``decode-serve`` routed to the plain
+step (no K5p launched), and the matmul timings not fenced on the card. A
+source with a ``/`` is a path in the package, one starting ``./`` a path
+from the repository root; a bare name is in ``csrc/``. Kernel libraries
+already built under ``build/kernels`` from unchanged sources are
+reused.
 """
 
 import json
@@ -231,13 +240,8 @@ FAULTS = {
     # ordinal over (the last page into the first): the adopted prefix is
     # scrambled.
     'handoff_pages_off_by_one': (
-        'serve/engine.py',
-        '        paged_transfer_pages(self.cache, src_cache.k_pool, '
-        'src_cache.v_pool,\n'
-        '                             src_pages, pages)\n',
-        '        paged_transfer_pages(self.cache, src_cache.k_pool, '
-        'src_cache.v_pool,\n'
-        '                             src_pages, pages[1:] + pages[:1])\n',
+        'serve/engine.py', '        vec_dst[:needed] = pages\n',
+        '        vec_dst[:needed] = np.roll(pages, -1)\n',
         ('router_serve',)),
     # Recovery replays the prefix-stripped prompt (its last token) where
     # the ledger keeps the full one: a recovered stream decodes without
@@ -283,11 +287,58 @@ FAULTS = {
         '            self.router.pool.replicas.remove(victim)\n'
         '            del self.router._by_name[victim.name]\n',
         ('chaos_serve',)),
+    # The retrace sentinel keys a tensor's signature on the tensor object:
+    # every call of a watched program counts as a new trace.
+    'retrace_signature_per_tensor': (
+        'analysis/retrace.py',
+        "        return ('array', tuple(x.shape), str(x.dtype), str(dev))\n",
+        "        return ('array', tuple(x.shape), str(x.dtype), str(dev), "
+        "id(x))\n",
+        ('analysis_examples',)),
+    # A resumed run starts one step past its checkpoint: the resumed
+    # losses no longer line up with the uninterrupted run's.
+    'resume_one_step_late': (
+        './distributed_dot_product_tpu_torch/train_loop.py',
+        '        step_i = resumed_from\n',
+        '        step_i = resumed_from + 1\n',
+        ('analysis_examples',)),
+    # The entrypoint registry skips its last layer's hook: an entry goes
+    # unchecked without a word.
+    'registry_drops_last_layer': (
+        'analysis/registry.py', '    for modpath in LAYER_HOOKS:\n',
+        '    for modpath in LAYER_HOOKS[:-1]:\n',
+        ('analysis_examples',)),
+    # The nt / all / tn row without the reference's perf_model key.
+    'bench_row_without_perf_model': (
+        './torch_benchmark.py',
+        '        perf_model=_perf_model(program, best),\n',
+        '',
+        ('benchmark_cli',)),
+    # Paged decode-serve built on the plain decode step: no K5p launched.
+    'bench_paged_serve_on_the_plain_step': (
+        './torch_benchmark.py',
+        '                            decode_impl=impl, dtype=edt, device=dev,\n',
+        "                            decode_impl='plain' if paged else impl,\n"
+        '                            dtype=edt, device=dev,\n',
+        ('benchmark_cli',)),
+    # The matmul timings not fenced on the card: the host clock reads the
+    # enqueue.
+    'bench_matmul_timing_unfenced': (
+        './torch_benchmark.py', '    if not args.skip_local:\n',
+        '    tracing.hard_sync = lambda out=None: None\n'
+        '    if not args.skip_local:\n',
+        ('benchmark_cli',)),
 }
 
 # Phases a fault names that run alone (the source's PHASES otherwise).
 SOLO = ('flash_masks', 'kv_sharded_serve', 'wq8_serve', 'load_serve',
-        'router_serve', 'chaos_serve')
+        'router_serve', 'chaos_serve', 'analysis_examples', 'benchmark_cli')
+
+# Beside the package, what analysis_examples and benchmark_cli run: the
+# harness twins, the smoke scripts, and the files they read.
+SUPPORT = ('torch_benchmark.py', 'torch_bench.py', 'bench.py',
+           'SLO_BASELINE.json', 'torch_example.py',
+           'torch_example_longcontext.py', 'examples', 'scripts')
 
 
 # The phases that hold each source's kernels: K1, K3 and K4 at the
@@ -308,8 +359,18 @@ def plant(dst, source, old, new):
     built = os.path.join(ROOT, 'build', 'kernels')
     if os.path.isdir(built):
         shutil.copytree(built, os.path.join(dst, 'build', 'kernels'))
-    path = os.path.join(dst, PKG, *(source.split('/') if '/' in source
-                                    else ('csrc', source)))
+    for name in SUPPORT:
+        src = os.path.join(ROOT, name)
+        if os.path.isdir(src):
+            shutil.copytree(src, os.path.join(dst, name),
+                            ignore=shutil.ignore_patterns('__pycache__'))
+        else:
+            shutil.copy(src, dst)
+    if source.startswith('./'):
+        path = os.path.join(dst, source[2:])
+    else:
+        path = os.path.join(dst, PKG, *(source.split('/') if '/' in source
+                                        else ('csrc', source)))
     with open(path) as f:
         text = f.read()
     if text.count(old) != 1:
@@ -331,6 +392,7 @@ def readings(stdout):
             continue
         if row.get('ok') is False:
             failed = row['phase']
+            cases[f"{row['phase']}/error"] = row.get('error')
         if row.get('phase') == 'flash_attention' and 'k1' in row:
             for kern in ('k1', 'k2'):   # the kernels' edge cases
                 cases[f"flash_attention/{row['case']}/{kern}"] = {
@@ -375,6 +437,12 @@ def readings(stdout):
                 k: row[k] for k in ('kills', 'doctor', 'recovered', 'healed',
                                     'scale_ups', 'scale_downs', 'retired')
                 if k in row}
+        elif row.get('phase') in ('analysis_examples', 'benchmark_cli') \
+                and row.get('case') not in ('done', None):
+            cases[f"{row['phase']}/{row['case']}"] = {
+                k: row[k] for k in ('launches', 'totals', 'entries',
+                                    'resumed_vs_whole', 'bound_ms',
+                                    'dist_ms', 'local_ms') if k in row}
         elif row.get('phase') == 'kv_sharded_serve' and \
                 row.get('case') == 'step_check':
             cases['kv_sharded_serve/step_check'] = {

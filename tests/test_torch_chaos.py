@@ -29,6 +29,7 @@ from torch_serving import (
     JAX, PORT, SIDES, arcs, both, counters, long_prompt, member, outcomes,
     prompts, serving, settle,
 )
+from torch_serving import cyclic_gc_paused  # noqa: E402,F401  autouse
 
 
 @pytest.fixture(autouse=True)

@@ -26,6 +26,7 @@ import json
 import pytest
 
 from torch_serving import JAX, PORT, both, load, outcomes, state
+from torch_serving import cyclic_gc_paused  # noqa: E402,F401  autouse
 
 SPEC = dict(ttft=0.25, per_token=0.05)
 CONTROL_EVENTS = ('control.adjust', 'control.scale', 'control.drain',

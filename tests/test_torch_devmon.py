@@ -45,6 +45,7 @@ from distributed_dot_product_tpu_torch.serve import (
     KernelEngine, Scheduler, ServeConfig,
 )
 from distributed_dot_product_tpu_torch.utils.tracing import MetricsRegistry
+from torch_serving import cyclic_gc_paused  # noqa: E402,F401  autouse
 
 
 class FakeDevice:

@@ -25,6 +25,7 @@ from distributed_dot_product_tpu_torch.models import decode as tdec
 from distributed_dot_product_tpu_torch.serve import (
     KernelEngine, PageCorruptionError,
 )
+from torch_serving import cyclic_gc_paused  # noqa: E402,F401  autouse
 
 SLOTS, T_MAX, VOCAB, CHUNK, PS = 4, 64, 64, 4, 4
 

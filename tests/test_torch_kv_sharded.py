@@ -49,6 +49,7 @@ from distributed_dot_product_tpu_torch.utils.faults import (
     ServeFaultInjector, ServeFaultPlan,
 )
 from distributed_dot_product_tpu_torch.utils.tracing import MetricsRegistry
+from torch_serving import cyclic_gc_paused  # noqa: E402,F401  autouse
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 VOCAB = 32

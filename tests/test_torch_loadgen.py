@@ -44,6 +44,7 @@ from distributed_dot_product_tpu_torch.serve import (
 )
 from distributed_dot_product_tpu_torch.serve.admission import Request
 from distributed_dot_product_tpu_torch.utils.tracing import MetricsRegistry
+from torch_serving import cyclic_gc_paused  # noqa: E402,F401  autouse
 
 ARRIVALS = ('poisson', 'bursty', 'ramp', 'step')
 

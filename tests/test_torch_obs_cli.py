@@ -53,6 +53,7 @@ from distributed_dot_product_tpu_torch.utils.tracing import (
     MetricsRegistry as TRegistry,
 )
 from torch_serving import state
+from torch_serving import cyclic_gc_paused  # noqa: E402,F401  autouse
 
 JAX = types.SimpleNamespace(
     name='jax', obs=jobs, serve=jserve, cli=jcli, critpath=jcritpath,

@@ -32,6 +32,7 @@ from distributed_dot_product_tpu_torch.serve.replica import (
 from distributed_dot_product_tpu_torch.utils.tracing import MetricsRegistry
 
 from torch_dist import GlooGroup
+from torch_serving import cyclic_gc_paused  # noqa: E402,F401  autouse
 
 VOCAB = 32
 # K/V pages against the reference: float32 GEMMs of two libraries round

@@ -54,6 +54,7 @@ from distributed_dot_product_tpu_torch.serve import (
     RejectReason, UnknownReplicaError,
 )
 from distributed_dot_product_tpu_torch.utils.tracing import MetricsRegistry
+from torch_serving import cyclic_gc_paused  # noqa: E402,F401  autouse
 
 JAX = types.SimpleNamespace(serve=jserve, read=jread, recon=jrecon,
                             merge=jmerge)

@@ -59,6 +59,7 @@ from distributed_dot_product_tpu_torch.utils.faults import (
     ChaosInjector, ChaosPlan,
 )
 from distributed_dot_product_tpu_torch.utils.tracing import MetricsRegistry
+from torch_serving import cyclic_gc_paused  # noqa: E402,F401  autouse
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

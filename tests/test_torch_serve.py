@@ -32,6 +32,7 @@ from distributed_dot_product_tpu_torch.serve import (
 )
 from distributed_dot_product_tpu_torch.utils import faults
 from distributed_dot_product_tpu_torch.utils.tracing import MetricsRegistry
+from torch_serving import cyclic_gc_paused  # noqa: E402,F401  autouse
 
 # examples/serve_lm.py's defaults.
 SLOTS, T_MAX, VOCAB, REQUESTS, PROMPT, CHUNK, MAX_NEW, QUEUE = (

@@ -47,6 +47,7 @@ from distributed_dot_product_tpu_torch.utils.faults import (
     ServeFaultInjector, ServeFaultPlan,
 )
 from distributed_dot_product_tpu_torch.utils.tracing import MetricsRegistry
+from torch_serving import cyclic_gc_paused  # noqa: E402,F401  autouse
 
 VOCAB = 16
 TERMINAL = {'completed', 'deadline_expired', 'evicted', 'abandoned',

@@ -27,6 +27,7 @@ from distributed_dot_product_tpu_torch.analysis import (
 from distributed_dot_product_tpu_torch.analysis import (
     conclint, determlint, protolint,
 )
+from torch_serving import cyclic_gc_paused  # noqa: E402,F401  autouse
 
 pytestmark = pytest.mark.analysis
 

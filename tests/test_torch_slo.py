@@ -46,6 +46,7 @@ from distributed_dot_product_tpu_torch.serve import (
     default_tenants, run_load,
 )
 from distributed_dot_product_tpu_torch.utils.tracing import MetricsRegistry
+from torch_serving import cyclic_gc_paused  # noqa: E402,F401  autouse
 
 ENGINE = dict(slots=2, t_max=64, vocab=64, prefill_chunk=4, seed=1,
               cache_mode='paged', page_size=8)

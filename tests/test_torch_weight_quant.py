@@ -66,6 +66,7 @@ from distributed_dot_product_tpu_torch.serve import (
 )
 from distributed_dot_product_tpu_torch.utils import faults
 from distributed_dot_product_tpu_torch.utils.tracing import MetricsRegistry
+from torch_serving import cyclic_gc_paused  # noqa: E402,F401  autouse
 
 # The reference's documented int8 class (tests/test_weight_quant.py):
 # both operands round to int8 (half a step of each side's scale, ~0.4% of

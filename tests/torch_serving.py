@@ -8,9 +8,11 @@ A scenario is ``scenario(side, tmp_path)``; :func:`both` runs it on each
 side and asserts the two returns are equal.
 """
 
+import gc
 import types
 
 import numpy as np
+import pytest
 
 from distributed_dot_product_tpu import obs as jobs
 from distributed_dot_product_tpu import serve as jserve
@@ -35,6 +37,25 @@ PORT = types.SimpleNamespace(
     recon=tobs.reconstruct, flight=tflight, doctor=tdoctor,
     registry=ttracing.MetricsRegistry, obs=tobs)
 SIDES = (PORT, JAX)
+
+
+@pytest.fixture(scope='module', autouse=True)
+def cyclic_gc_paused():
+    """Autouse in every test module that imports it: the reference's
+    retrace counters take their registry's lock in their finalizer, and
+    its engines sit in reference cycles, so a cyclic collection inside
+    one of its locked sections deadlocks the thread (ROADMAP §3). The
+    module's tests run with the collector paused, and collections run
+    only before its first test and after its last, where no such section
+    is open: the module collects inside none, and leaves none of its
+    engines' cycles for a later module's sections."""
+    gc.collect()
+    gc.disable()
+    try:
+        yield
+    finally:
+        gc.collect()
+        gc.enable()
 
 _STATES = {}
 
