@@ -11,8 +11,8 @@ Phases, one JSON line each (some several):
 2. build: compiles every kernel source in ``csrc/``, one ``nvcc`` each,
    all started together; its seconds, per library the most registers a
    kernel takes and the kernels that spill (``ptxas -v``), and the
-   dynamic shared memory of a K1 and a K4 block per head dim (bf16 Ext
-   and int8);
+   dynamic shared memory of a K1, a K3 and a K4 block per (d, d_v) pair
+   of the kernels' grid (bf16 Ext and int8);
 3. flash_attention: K1 (flash-attention forward) against its plain
    PyTorch version at the prefill shape, at ragged shapes with a causal
    offset (one with GQA) and at a ragged shape without causal masking,
@@ -104,6 +104,31 @@ Phases, one JSON line each (some several):
    positions; times against bound, plain and SDPA with a boolean mask
    (a float bias for ALiBi) where one call computes the same function
    (its forward for K1 and K2, its backward for K3 and K4);
+13b. kernel_coverage (run after flash_masks): the widths, page sizes
+   and K splits of the kernels' (d, d_v) grid — K1/K2 with their lse and
+   K3/K4 (bf16 and float32 gradients) at (d, d_v) in COV_DIMS (8/8,
+   24/12, 16/24, 64/32, 80/80, 160/160, 192/128, 128/256, 256/256; GQA
+   8:2, 70 rows without a key), the same with packed segments, a causal
+   window of 64 and dropout 0.1, and with int8 scoring, and the base
+   kernels at the LM step's shape (B 2 x 8 heads x T 4096, 256/256); K5
+   and K5p at the same widths and at 6/10, 7/5, 12/3 and 1/1 (rows whose
+   bytes are no multiple of 16, 8 or 4), one new row and verify k = 5,
+   t_max 4096, the slab also at
+   block_k 128, 256 and 512, K5p at pages 16, 48, 192 and 256, the int8
+   mirror; each against its plain version, empty rows exactly 0, repeats,
+   caches and verify-vs-sequential and K5p-vs-K5 bit for bit, the refused
+   block_k raising; K1 and K3 + K4 timed at every pair (B 2 x 8 x 2048,
+   causal) beside the padding copy, the plain versions, SDPA and the
+   bounds, their out, dq, dk and dv held against the plain versions';
+   then DistributedDotProductAttn(key_dim 512, value_dim 256, 8
+   heads, flash, causal, bf16) forward and backward at B 4 x T 8192
+   against the float32 'full' module on the card, the head-dim-256
+   TransformerLM (vocab 32768, dim 2048, 8 heads, 2 layers): its loss and
+   last-position logits at B 2 x T 4096 against the same weights in
+   float32 on the 'full' path on the card, one Adam step at B 2 x T 4096
+   and 32 greedy tokens, and KernelEngine(slots 8, t_max
+   3072, head_dim 256, page 48) serving serve_path's burst with its
+   first-step logits against the plain decode path's; launches of each;
 14. flagship: dryrun_multichip's window, gqa_ring (GQA, RoPE, the ring
    with packed segments, dropout 0.1 and int8 scoring), stack (a 2-layer
    TransformerStack at dim 768) and lm (the 16-layer TransformerLM on
@@ -272,7 +297,8 @@ peak rates and each kernel's operation and byte formula.
 Then the card's ``nvidia-smi`` name and power limit, the kernels line
 (``{"kernels": [...]}``: K1, K2, K3, K4, K5 and K5p with their launches on
 their path (and on wq8_serve, load_serve, router_serve, chaos_serve,
-obs_serve, analysis_examples, benchmark_cli, wq8_lm and train_knobs), max
+obs_serve, analysis_examples, benchmark_cli, kernel_coverage, wq8_lm and
+train_knobs), max
 error, kernel / plain / library / bound times; K1, K2, K3 and K4 also per
 mask variant, K5 and K5p per partials / window / verify / int8 / ALiBi
 variant) and, only if every phase passed, the last line ``{"ok": true, "device": {...}}``.
@@ -465,7 +491,7 @@ def ab_ms(torch, make, fa, flush, reps=30):
     return statistics.mean(mine), statistics.mean(theirs)
 
 
-def rel_errs(torch, got, want):
+def rel_errs(torch, got, want, group=1):
     """``(largest row error, whole-tensor error)`` of ``got`` against
     ``want`` (rows along the last axis), in float32: the row error is
     ``||got_r - want_r|| / max(||want_r||, floor)``, the whole-tensor
@@ -474,9 +500,14 @@ def rel_errs(torch, got, want):
     (causal query row 0's dq, where the one weight is 1 and
     ``ds = dO.v - rowsum(dO*O)`` cancels; keys no query sees) holds only
     the kernel's float32 rounding, which must stay small on the tensor's
-    own scale."""
+    own scale. ``group``: each ``group`` consecutive rows (zero rows
+    appended to fill the last) are taken as one."""
     diff = (got.float() - want.float()).flatten(0, -2)
     ref = want.float().flatten(0, -2)
+    if group > 1:
+        pad = -diff.shape[0] % group
+        diff, ref = (torch.nn.functional.pad(x, (0, 0, 0, pad))
+                     .reshape(-1, group * x.shape[1]) for x in (diff, ref))
     vnorm = torch.linalg.vector_norm
     ref_rows = vnorm(ref, dim=-1)
     floor = 1e-2 * ref_rows.square().mean().sqrt().clamp_min(1e-30)
@@ -553,10 +584,14 @@ def build_resources(build):
 
 
 def smem_bytes(build):
-    """The dynamic shared memory of a K1, a K3 and a K4 block at each head
-    dim, in bytes: the bf16 Ext instantiation and the int8 ones (K1's
-    alone and with the Ext features, K3's and K4's with them)."""
+    """The dynamic shared memory of a K1, a K3 and a K4 block at each
+    (d, d_v) pair of the kernels' grid, in bytes: the bf16 Ext
+    instantiation and the int8 ones (K1's alone and with the Ext
+    features, K3's and K4's with them)."""
     import ctypes
+    from distributed_dot_product_tpu_torch.ops.flash_attention import (
+        _KERNEL_GRID,
+    )
     out = {}
     for kern, lib, symbol in (('k1', 'flash_fwd_ext', 'flash_fwd_smem_bytes'),
                               ('k3', 'flash_bwd_dq_ext',
@@ -564,11 +599,11 @@ def smem_bytes(build):
                               ('k4', 'flash_bwd_dkv_ext',
                                'flash_bwd_dkv_smem_bytes')):
         fn = getattr(build.load(lib), symbol)
-        fn.argtypes, fn.restype = [ctypes.c_int] * 3, ctypes.c_longlong
-        for d in (32, 64, 96, 128):
-            out[f'{kern}_d{d}'] = {'ext': fn(d, 1, 0), 'int8_ext': fn(d, 1, 1),
-                                   **({'int8': fn(d, 0, 1)}
-                                      if kern == 'k1' else {})}
+        fn.argtypes, fn.restype = [ctypes.c_int] * 4, ctypes.c_longlong
+        for d, dv in _KERNEL_GRID:
+            out[f'{kern}_d{d}_dv{dv}'] = {
+                'ext': fn(d, dv, 1, 0), 'int8_ext': fn(d, dv, 1, 1),
+                **({'int8': fn(d, dv, 0, 1)} if kern == 'k1' else {})}
     return out
 
 
@@ -884,15 +919,16 @@ def _filled_slab(torch, gen, dev, t, fill):
     return x
 
 
-def _decode_errs(torch, got, want):
+def _decode_errs(torch, got, want, rel=rel_errs):
     """``({tensor: (row, whole)}, max abs err, finite)`` of a decode
     kernel's result against its plain version's: the output, or the
-    partials (num, m, l) each on its rows' own scale."""
+    partials (num, m, l) each on its rows' own scale (``rel``: the
+    reading, :func:`rel_errs` or kernel_coverage's :func:`_cov_rel`)."""
     if not isinstance(got, tuple):
         got, want, names = (got,), (want,), ('out',)
     else:
         names = ('num', 'm', 'l')
-    errs = {n: rel_errs(torch, g, w) for n, g, w in zip(names, got, want)}
+    errs = {n: rel(torch, g, w) for n, g, w in zip(names, got, want)}
     err = max((g.float() - w.float()).abs().max().item()
               for g, w in zip(got, want))
     return errs, err, all(torch.isfinite(g).all().item() for g in got)
@@ -938,12 +974,13 @@ def paged_twin(torch, gen, slab_k, slab_v, ps):
     (the slab padded with large garbage to whole pages), every page
     allocated, and its table: ``(k_pool, v_pool, table)``; the sink page
     holds garbage."""
-    b, h_kv, t, d = slab_k.shape
+    b, h_kv, t, _ = slab_k.shape
     pps = -(-t // ps)
     perm = torch.randperm(b * pps, generator=gen)
     table = perm.reshape(b, pps).to(torch.int32).to(slab_k.device)
     pools = []
     for x in (slab_k, slab_v):
+        d = x.shape[-1]
         pad = 30.0 * randn(torch, (b, h_kv, pps * ps - t, d), gen,
                            x.device, x.dtype)
         pages = torch.cat([x, pad], dim=2).reshape(b, h_kv, pps, ps, d)
@@ -7421,9 +7458,10 @@ OBS_DEVICE = 'cuda'
 
 def _k5p_kernel(name):
     """True for a trace event name of the paged decode kernel (K5p):
-    ``flash_decode_kernel<D, true, …>``, demangled or mangled."""
-    return bool(re.search(r'flash_decode_kernel<\d+,\s*true', name)
-                or re.search(r'flash_decode_kernelILi\d+ELb1E', name))
+    ``flash_decode_kernel<D, DV, true, …>``, demangled or mangled."""
+    return bool(
+        re.search(r'flash_decode_kernel<\d+,\s*\d+,\s*true', name)
+        or re.search(r'flash_decode_kernelILi\d+ELi\d+ELb1E', name))
 
 
 def _obs_split_run(torch, ddp, rank, dev):
@@ -8348,6 +8386,799 @@ def phase_benchmark_cli(torch):
     return launches
 
 
+# The kernel_coverage phase: the widths, page sizes and K splits K1-K5p
+# took only since the (d, d_v) grid (csrc/hopper.cuh FLASH_GRID). (d, d_v)
+# pairs: widths no multiple of 8 or 16 (padded copies, narrow decode
+# loads), d_v != d both ways, a pair between grid points, the grid's
+# unpadded (192, 128) and its widest (256, 256).
+COV_DIMS = ((8, 8), (24, 12), (16, 24), (64, 32), (80, 80), (160, 160),
+            (192, 128), (128, 256), (256, 256))
+# K5/K5p also at widths whose rows take each narrow path of
+# csrc/flash_decode.cu: bf16 rows of 12 and 20 bytes (4-byte cp.async),
+# 24 (8-byte), 14, 10, 6 and 2 (byte by byte); int8 mirror rows of 7 and
+# 1 bytes (byte by byte), 6 (2) and 12 (4); q rows loaded element by
+# element (d no multiple of 8).
+COV_DECODE_DIMS = COV_DIMS + ((6, 10), (7, 5), (12, 3), (1, 1))
+# The row statistic's limit (TOL_ROW_REL) was set on rows of 32 to 128
+# elements. A row of 1 to 24 elements is one or a few bf16 scalars, and
+# the kernels' documented roundings (q * scale and p to bf16, the output
+# to bf16) move one such scalar by one or two bf16 ulps, up to 1.6e-2 of
+# it (the phase read 1.06e-2 at d_v 1 and 1.05e-2 at d_v 8 on sound
+# kernels): so rows narrower than COV_MIN_ROW are held in groups of
+# consecutive rows (along the query, key or head axis) that hold at least
+# COV_MIN_ROW elements, each row's own reading printed beside it; the
+# whole-tensor limit is unchanged. The
+# narrow decode widths' copy paths are held bit for bit as well: against
+# the same kernel on rows zero-padded to a multiple of 8 elements (the
+# 16-byte path, the same instantiation).
+COV_MIN_ROW = 32
+COV_PAGES = (16, 48, 192, 256)
+COV_BLOCK_K = (128, 256, 512)
+COV_T_MAX = 4096
+# Decode slots (rows filled before the step, rows appended; None =
+# inactive): a step near the slab's end, rows straddling a chunk, a first
+# token, an inactive slot.
+COV_SLOTS = ((4000, 5), (124, 5), (0, 1), (60, None))
+# K5 splits that are no multiple of the 64-column step, on a slab of
+# 1000 columns (a step near its end, rows straddling a split, a first
+# token, an inactive slot).
+COV_ODD_T_MAX = 1000
+COV_ODD_BLOCK_K = (40, 100, 200, 1000)
+COV_ODD_SLOTS = ((995, 5), (97, 5), (0, 1), (60, None))
+COV_SEED = 2121
+# The module with value_dim != key_dim at the flagship's width, and the
+# LM and the engine at head dim 256.
+COV_MOD = dict(key_dim=512, value_dim=256, num_heads=8)
+COV_MOD_B, COV_MOD_T, COV_MOD_REF_B = 4, 8192, 2
+COV_LM = dict(vocab=32768, dim=2048, heads=8, layers=2)
+COV_LM_B, COV_LM_T, COV_LM_STEPS = 2, 4096, 32
+COV_LM_PROMPT = 1000
+COV_ENGINE = dict(slots=8, t_max=3072, heads=8, head_dim=256, page_size=48)
+# The card's nvidia-smi name and power limit, beside the end-to-end rows.
+CARD = None
+COV_KERNELS = ('flash_attention', 'flash_attention_bounded',
+               'flash_attention_dq', 'flash_attention_dkv', 'flash_decode',
+               'flash_decode_paged')
+
+
+def _cov_counts(ddp):
+    return {n: getattr(ddp, n).launches for n in COV_KERNELS}
+
+
+def _cov_rel(torch, got, want):
+    """:func:`rel_errs` with rows narrower than COV_MIN_ROW held in groups
+    of at least COV_MIN_ROW elements."""
+    return rel_errs(torch, got, want, group=-(-COV_MIN_ROW // got.shape[-1]))
+
+
+def _cov_row_readings(torch, pairs):
+    """``{tensor: each row's own largest error}`` of ``{tensor: (got,
+    want)}``, for the tensors whose rows are narrower than COV_MIN_ROW
+    (printed beside the grouped readings)."""
+    return {n: rel_errs(torch, g, w)[0] for n, (g, w) in pairs.items()
+            if g.shape[-1] < COV_MIN_ROW}
+
+
+def _cov_fwd_bwd(torch, fa, gen, d, dv, feat, tag,
+                 shape=(2, 8, 2, 200, 200)):
+    """K1 (with lse), K2 (base features) and K3/K4 (bf16 and float32
+    gradients) at widths ``(d, dv)`` with feature kwargs ``feat`` on
+    ``shape = (B, H_q, H_kv, T_q, T_k)`` against their plain versions:
+    the row errors within the other phases' tolerances, lse within
+    TOL_LSE, rows with no attendable key exactly 0 (K1's lse
+    ln2*NEG_BIG), a second launch bit for bit the first."""
+    dev, bf16 = torch.device('cuda'), torch.bfloat16
+    b, hq, hkv, tq, tk = shape
+    off = feat.pop('causal_offset', 0)
+    q = randn(torch, (b, hq, tq, d), gen, dev, bf16)
+    k = randn(torch, (b, hkv, tk, d), gen, dev, bf16)
+    v = randn(torch, (b, hkv, tk, dv), gen, dev, bf16)
+    g = randn(torch, (b, hq, tq, dv), gen, dev, bf16)
+    kw = dict(causal=True, causal_offset=off, scale=1.0 / math.sqrt(d),
+              **feat)
+    empty = torch.zeros((b, hq, tq), dtype=torch.bool, device=dev)
+    empty[..., torch.arange(tq, device=dev) + off < 0] = True
+    neg = fa._LN2 * fa._NEG_BIG
+    row, fails = {'phase': 'kernel_coverage', 'case': tag, 'd': d, 'd_v': dv,
+                  'q': list(q.shape), 'kv': list(k.shape),
+                  'features': sorted(feat), 'causal_offset': off}, []
+    runs = {'k1': (lambda: fa.flash_attention_with_lse(q, k, v, **kw),
+                   lambda: fa.flash_attention_plain_lse(q, k, v, **kw))}
+    if not feat.get('dropout_rate') and not feat.get('qk_quant'):
+        bkw = {n: x for n, x in kw.items() if n != 'dropout_seed'}
+        runs['k2'] = (lambda: fa.flash_attention_bounded(q, k, v,
+                                                         save_lse=True,
+                                                         **bkw),
+                      lambda: fa.flash_attention_bounded_plain_lse(q, k, v,
+                                                                   **bkw))
+    lse_k1 = out_k1 = None
+    for kern, (run, plain) in runs.items():
+        out, lse = run()
+        out2, lse2 = run()
+        out_p, lse_p = plain()
+        torch.cuda.synchronize()
+        row_rel, rel = _cov_rel(torch, out, out_p)
+        lse_err = (lse - lse_p).abs().max().item()
+        exact = bool(not out[empty].any().item() and (
+            kern == 'k2' or (lse[empty] == neg).all().item()))
+        same = bool(torch.equal(out, out2) and torch.equal(lse, lse2))
+        row[kern] = {'max_abs_err': (out.float() - out_p.float()).abs()
+                     .max().item(), 'max_row_rel_err': row_rel,
+                     'rel_err': rel, 'lse_max_abs_err': lse_err,
+                     'empty_rows_exact': exact, 'repeat_bitwise': same,
+                     'out_shape': list(out.shape),
+                     'per_row': _cov_row_readings(torch,
+                                                  {'out': (out, out_p)})}
+        what = f'{kern.upper()} {tag}'
+        fails += check_rel({'out': (row_rel, rel)}, what)
+        if not lse_err <= TOL_LSE:
+            fails.append(f'{what}: lse abs err {lse_err} > {TOL_LSE}')
+        if not (exact and same):
+            fails.append(f'{what}: empty rows exact {exact}, repeat '
+                         f'bitwise {same}')
+        if tuple(out.shape) != (b, hq, tq, dv):
+            fails.append(f'{what}: out shape {tuple(out.shape)}')
+        if kern == 'k1':
+            out_k1, lse_k1 = out, lse
+    bkw = {n: x for n, x in kw.items() if n != 'scale'}
+    for gdt in (None, torch.float32):
+        got = fa.flash_attention_backward(q, k, v, out_k1, lse_k1, g,
+                                          scale=kw['scale'], grad_dtype=gdt,
+                                          **bkw)
+        again = fa.flash_attention_backward(q, k, v, out_k1, lse_k1, g,
+                                            scale=kw['scale'],
+                                            grad_dtype=gdt, **bkw)
+        want = fa.flash_attention_backward_plain(
+            q, k, v, out_k1, lse_k1, g, scale=kw['scale'], grad_dtype=gdt,
+            **bkw)
+        torch.cuda.synchronize()
+        name = 'bwd_f32' if gdt else 'bwd'
+        errs = {n: _cov_rel(torch, x, y)
+                for n, x, y in zip(('dq', 'dk', 'dv'), got, want)}
+        same = all(torch.equal(x, y) for x, y in zip(got, again))
+        shapes_ok = [tuple(x.shape) for x in got] == [
+            tuple(x.shape) for x in (q, k, v)]
+        row[name] = {'max_row_rel_err': {n: e[0] for n, e in errs.items()},
+                     'rel_err': {n: e[1] for n, e in errs.items()},
+                     'repeat_bitwise': same,
+                     'empty_rows_dq_exact': bool(
+                         not got[0][empty].any().item()),
+                     'per_row': _cov_row_readings(torch, dict(zip(
+                         ('dq', 'dk', 'dv'), zip(got, want))))}
+        fails += check_rel(errs, f'K3/K4 {tag} {name}')
+        if not (same and shapes_ok and row[name]['empty_rows_dq_exact']):
+            fails.append(f'K3/K4 {tag} {name}: repeat bitwise {same}, '
+                         f'shapes {shapes_ok}, empty dq rows exact '
+                         f'{row[name]["empty_rows_dq_exact"]}')
+    emit(row)
+    return row, fails
+
+
+def _cov_flash(torch, fa, gen):
+    """K1-K4 at every COV_DIMS pair: the base kernels at a causal offset
+    that leaves 70 rows without a key; the Ext features (packed segments,
+    a causal window of 64, dropout 0.1) and int8 scoring at the same
+    widths; then the base kernels at the LM step's shape (COV_LM: B 2 x 8
+    heads x T 4096 at 256/256, causal), where long rows reach what short
+    ones do not (the two-stage ring, many key tiles a block)."""
+    fails, worst = [], {'row_rel': 0.0, 'lse': 0.0}
+    lm_d = COV_LM['dim'] // COV_LM['heads']
+    lm_shape = (COV_LM_B, COV_LM['heads'], COV_LM['heads'], COV_LM_T,
+                COV_LM_T)
+    cases = [(d, dv, tag, feat, (2, 8, 2, 200, 200)) for d, dv in COV_DIMS
+             for tag, feat in (
+                 ('base', dict(causal_offset=-70)),
+                 ('ext', 'segments'),
+                 ('int8', dict(qk_quant='int8', causal_offset=-70)))]
+    cases.append((lm_d, lm_d, 'lm_shape', {}, lm_shape))
+    for d, dv, tag, feat, shape in cases:
+        if feat == 'segments':
+            seg = ragged_segments(torch, gen, 2, 200).to('cuda')
+            feat = dict(segment_ids=(seg, seg), window=64, dropout_rate=0.1,
+                        dropout_seed=7)
+        row, f = _cov_fwd_bwd(torch, fa, gen, d, dv, feat,
+                              f'{tag}_d{d}_dv{dv}', shape)
+        fails += f
+        for kern in ('k1', 'k2'):
+            if kern in row:
+                worst['row_rel'] = max(worst['row_rel'],
+                                       row[kern]['max_row_rel_err'])
+                worst['lse'] = max(worst['lse'],
+                                   row[kern]['lse_max_abs_err'])
+    return worst, fails
+
+
+def _cov_slab(torch, gen, slots, h, h_kv, d, dv, t):
+    """A slab decode case at widths (d, dv): (q, k_new, v_new, cache_k,
+    cache_v), unit-normal rows below each slot's fill, garbage past it."""
+    dev, bf16, b, k = torch.device('cuda'), torch.bfloat16, len(slots), 5
+    q = randn(torch, (b, h, k, d), gen, dev, bf16)
+    kn = randn(torch, (b, h_kv, k, d), gen, dev, bf16)
+    vn = randn(torch, (b, h_kv, k, dv), gen, dev, bf16)
+    ck = 30.0 * randn(torch, (b, h_kv, t, d), gen, dev, bf16)
+    cv = 30.0 * randn(torch, (b, h_kv, t, dv), gen, dev, bf16)
+    for i, (f, _) in enumerate(slots):
+        ck[i, :, :f] = randn(torch, (h_kv, f, d), gen, dev, bf16)
+        cv[i, :, :f] = randn(torch, (h_kv, f, dv), gen, dev, bf16)
+    return q, kn, vn, ck, cv
+
+
+def _cov_split(torch, fd, x, vectors, base, split, what):
+    """K5 on the slab case ``x = (q, k_new, v_new, cache_k, cache_v)``
+    split at ``split`` (block_k; None: the kernel's own): against its
+    plain version, the cache bit for bit the plain append, a second
+    launch bit for bit the first, and bit for bit its own sequential
+    one-row launches at the same split. ``(readings, failures)``."""
+    q, kn, vn, ck, cv = x
+    vt, ap, nn = vectors
+    kw = dict(base, n_new=nn, block_k=split)
+    c = [(ck.clone(), cv.clone()) for _ in range(4)]
+    out = fd.flash_decode(q, kn, vn, *c[0], vt, ap, **kw)[0]
+    again = fd.flash_decode(q, kn, vn, *c[1], vt, ap, **kw)[0]
+    ref = fd.flash_decode_plain(q, kn, vn, *c[2], vt, ap, **kw)[0]
+    seq = _sequential(torch, fd, q, kn, vn, *c[3], vt, ap, nn,
+                      block_k=split, **base)
+    torch.cuda.synchronize()
+    errs, err, finite = _decode_errs(torch, out, ref, _cov_rel)
+    got = {'max_abs_err': err, 'max_row_rel_err': errs['out'][0],
+           'per_row': _cov_row_readings(torch, {'out': (out, ref)}),
+           'cache_bit_identical': all(
+               torch.equal(a, b) for a, b in zip(c[0], c[2])),
+           'repeat_bit_identical': _same(torch, out, again),
+           'equals_sequential': _same(torch, out, seq), 'finite': finite}
+    fails = check_rel(errs, what)
+    fails += [f'{what}: {n} is False' for n, v in got.items() if v is False]
+    return got, fails
+
+
+def _cov_narrow(torch, fd, x, vectors, base):
+    """K5 on the slab case ``x`` at widths no multiple of 8 (the narrow
+    row copies, appends and q loads) against the same kernel on every row
+    zero-padded to a multiple of 8 (the 16-byte paths; the instantiation
+    is the same): the output and the appended caches bit for bit."""
+    F = torch.nn.functional
+    q, kn, vn, ck, cv = x
+    vt, ap, nn = vectors
+    pk, pv = -q.shape[-1] % 8, -cv.shape[-1] % 8
+    kw = dict(base, n_new=nn)
+    narrow = (ck.clone(), cv.clone())
+    wide = (F.pad(ck, (0, pk)), F.pad(cv, (0, pv)))
+    out = fd.flash_decode(q, kn, vn, *narrow, vt, ap, **kw)[0]
+    out_w = fd.flash_decode(F.pad(q, (0, pk)), F.pad(kn, (0, pk)),
+                            F.pad(vn, (0, pv)), *wide, vt, ap, **kw)[0]
+    torch.cuda.synchronize()
+    return bool(torch.equal(out, out_w[..., :out.shape[-1]])
+                and torch.equal(narrow[0], wide[0][..., :ck.shape[-1]])
+                and torch.equal(narrow[1], wide[1][..., :cv.shape[-1]]))
+
+
+def _cov_decode_bound(torch, mask, h, h_kv, d, dv, b, k):
+    """``(ms, by)`` of a decode launch at true widths (d, dv) whose query
+    rows attend ``mask (B, 1, k, t)``: every attended K and V row read once
+    (2d + 2dv bytes), q read and the output written, k_new / v_new read and
+    appended; 2(d + dv) operations per attended (query head, column)."""
+    rows = int(mask.any(dim=2).sum().item()) * h_kv
+    cols = int(mask.sum().item()) * h
+    nbytes = (2 * rows * (d + dv) + 2 * b * h * k * (d + dv)
+              + 4 * b * h_kv * k * (d + dv))
+    return bound_ms(2 * cols * (d + dv), nbytes)
+
+
+def _cov_decode(torch, fd, gen, flush):
+    """K5 and K5p at every COV_DECODE_DIMS pair (GQA 8:2), one new row and
+    verify k = 5, rows read and appended in place at their true widths: the
+    output within tolerance of the plain version, widths no multiple of 8
+    bit for bit the 16-byte path on zero-padded rows, the cache bit for bit
+    its append, a second launch bit for bit the first, verify bit for bit
+    the sequential one-row launches; K5p on scrambled pools at
+    COV_PAGES bit for bit K5 on the gathered slab, its pool bit for bit
+    the plain append's but the sink; the int8 mirror (one row); K5 split
+    at COV_BLOCK_K bit for bit its own sequential launches; the refused
+    block_k raise the reference's ValueError."""
+    dev, h, h_kv, t = torch.device('cuda'), 8, 2, COV_T_MAX
+    fails, worst = [], 0.0
+    for d, dv in COV_DECODE_DIMS:
+        for k in (1, VERIFY_K):
+            sl = _one_row(COV_SLOTS) if k == 1 else COV_SLOTS
+            vt, ap, nn = _verify_vectors(torch, sl, k, dev)
+            q, kn, vn, ck, cv = _cov_slab(torch, gen, sl, h, h_kv, d, dv, t)
+            q, kn, vn = (x[:, :, :k].contiguous() for x in (q, kn, vn))
+            base = dict(scale=1.0 / math.sqrt(d))
+            kw = dict(base, n_new=nn)
+            tag = f'd{d}_dv{dv}_k{k}'
+            row = {'phase': 'kernel_coverage', 'case': f'decode_{tag}',
+                   'd': d, 'd_v': dv, 'k': k, 't_max': t}
+            for split in (None, *COV_BLOCK_K):
+                key = 'block_k_none' if split is None else f'block_k_{split}'
+                row[key], f = _cov_split(torch, fd, (q, kn, vn, ck, cv),
+                                         (vt, ap, nn), base, split,
+                                         f'K5 {tag} {key}')
+                fails += f
+                worst = max(worst, row[key]['max_abs_err'])
+            if d % 8 or dv % 8:
+                row['equals_16_byte_path'] = _cov_narrow(
+                    torch, fd, (q, kn, vn, ck, cv), (vt, ap, nn), base)
+                if not row['equals_16_byte_path']:
+                    fails.append(f'K5 {tag}: narrow rows differ from the '
+                                 f'16-byte path')
+            for ps in COV_PAGES:
+                kp, vp, table = paged_twin(torch, gen, ck, cv, ps)
+                kp2, vp2 = kp.clone(), vp.clone()
+                slab = [fd.gather_pages(x, table) for x in (kp, vp)]
+                pkw = dict(kw, page_table=table)
+                got = fd.flash_decode(q, kn, vn, kp, vp, vt, ap, **pkw)[0]
+                want = fd.flash_decode_plain(q, kn, vn, kp2, vp2, vt, ap,
+                                             **pkw)[0]
+                on_slab = fd.flash_decode(q, kn, vn, *slab, vt, ap, **kw)[0]
+                torch.cuda.synchronize()
+                perrs, perr, pfinite = _decode_errs(torch, got, want,
+                                                    _cov_rel)
+                row[f'page_{ps}'] = {
+                    'max_abs_err': perr, 'max_row_rel_err': perrs['out'][0],
+                    'per_row': _cov_row_readings(torch,
+                                                 {'out': (got, want)}),
+                    'equals_k5_on_gathered_slab': _same(torch, got, on_slab),
+                    'pools_bit_identical_but_sink': bool(
+                        torch.equal(kp[:-1], kp2[:-1])
+                        and torch.equal(vp[:-1], vp2[:-1])),
+                    'finite': pfinite}
+                fails += check_rel(perrs, f'K5p {tag} page {ps}')
+                fails += [f'K5p {tag} page {ps}: {n} is False'
+                          for n, x in row[f'page_{ps}'].items()
+                          if x is False]
+                worst = max(worst, perr)
+            if k == 1:
+                # Times at this width: K5, its plain version, SDPA over
+                # the slab with the boolean mask, K5p at page 48.
+                F = torch.nn.functional
+                ct = (ck.clone(), cv.clone())
+                mask = _verify_mask(torch, vt, 1, t, dev)
+                kp, vp, table = paged_twin(torch, gen, ck, cv, 48)
+                bms, by = _cov_decode_bound(torch, mask, h, h_kv, d, dv,
+                                            len(sl), 1)
+                row['times'] = {
+                    'k5_ms': time_ms(torch, lambda: fd.flash_decode(
+                        q, kn, vn, *ct, vt, ap, **kw), flush),
+                    'k5_plain_ms': time_ms(
+                        torch, lambda: fd.flash_decode_plain(
+                            q, kn, vn, *ct, vt, ap, **kw), flush, reps=5),
+                    'k5p_page_48_ms': time_ms(torch, lambda: fd.flash_decode(
+                        q, kn, vn, kp, vp, vt, ap, page_table=table, **kw),
+                        flush),
+                    'library_ms': time_ms(
+                        torch, lambda: F.scaled_dot_product_attention(
+                            q, ct[0], ct[1], attn_mask=mask,
+                            scale=base['scale'], enable_gqa=True), flush),
+                    'library': 'SDPA over the slab, boolean mask',
+                    'bound_ms': bms, 'bound_by': by}
+                c = [(ck.clone(), cv.clone(), *_mirror(torch, fd, ck))
+                     for _ in range(2)]
+                ikw = dict(kw, qk_quant='int8')
+                got = fd.flash_decode(q, kn, vn, c[0][0], c[0][1], vt, ap,
+                                      k_q=c[0][2], k_scale=c[0][3],
+                                      partials=True, **ikw)[0]
+                want = fd.flash_decode_plain(q, kn, vn, c[1][0], c[1][1],
+                                             vt, ap, k_q=c[1][2],
+                                             k_scale=c[1][3], partials=True,
+                                             **ikw)[0]
+                torch.cuda.synchronize()
+                ierrs, ierr, ifinite = _decode_errs(torch, got, want,
+                                                    _cov_rel)
+                row['int8'] = {
+                    'max_abs_err': ierr,
+                    'max_row_rel_err': {n: e[0] for n, e in ierrs.items()},
+                    'scores_max_bit_identical': bool(torch.equal(got[1],
+                                                                 want[1])),
+                    'mirror_bit_identical': bool(
+                        torch.equal(c[0][2], c[1][2])
+                        and torch.equal(c[0][3], c[1][3])),
+                    'finite': ifinite}
+                fails += check_rel({'num': ierrs['num']}, f'K5 int8 {tag}')
+                fails += [f'K5 int8 {tag}: {n} is False'
+                          for n, x in row['int8'].items() if x is False]
+            emit(row)
+    # Splits that are no multiple of the 64-column step (a chunk's last
+    # step shorter) on a t_max of 1000, at two widths.
+    for d, dv in ((24, 12), (256, 256)):
+        for k in (1, VERIFY_K):
+            sl = _one_row(COV_ODD_SLOTS) if k == 1 else COV_ODD_SLOTS
+            vt, ap, nn = _verify_vectors(torch, sl, k, dev)
+            x = _cov_slab(torch, gen, sl, h, h_kv, d, dv, COV_ODD_T_MAX)
+            x = (*(y[:, :, :k].contiguous() for y in x[:3]), *x[3:])
+            row = {'phase': 'kernel_coverage',
+                   'case': f'decode_odd_splits_d{d}_dv{dv}_k{k}',
+                   't_max': COV_ODD_T_MAX}
+            for split in COV_ODD_BLOCK_K:
+                row[f'block_k_{split}'], f = _cov_split(
+                    torch, fd, x, (vt, ap, nn), dict(scale=1.0 / math.sqrt(d)),
+                    split, f'K5 odd split d {d} k {k} block_k {split}')
+                fails += f
+                worst = max(worst, row[f'block_k_{split}']['max_abs_err'])
+            emit(row)
+    # The reference's refusals, on the card.
+    q, kn, vn, ck, cv = _cov_slab(torch, gen, _one_row(COV_SLOTS), h, h_kv,
+                                  64, 64, t)
+    vt, ap, nn = _verify_vectors(torch, _one_row(COV_SLOTS), 1, dev)
+    kp48, vp48, t48 = paged_twin(torch, gen, ck, cv, 48)
+    refused = {}
+    for name, call in (
+            ('slab_block_k_100', lambda: fd.flash_decode(
+                q[:, :, :1], kn[:, :, :1], vn[:, :, :1], ck, cv, vt, ap,
+                block_k=100)),
+            ('verify_wider_than_block_k', lambda: fd.flash_decode(
+                q, kn, vn, ck, cv, vt, ap, block_k=4)),
+            ('paged_block_k_not_page', lambda: fd.flash_decode(
+                q[:, :, :1], kn[:, :, :1], vn[:, :, :1], kp48, vp48, vt, ap,
+                page_table=t48, block_k=128))):
+        try:
+            call()
+            refused[name] = None
+        except ValueError as exc:
+            refused[name] = str(exc)[:80]
+    emit({'phase': 'kernel_coverage', 'case': 'block_k_refusals',
+          'refused': refused})
+    fails += [f'block_k {n} not refused' for n, x in refused.items()
+              if x is None]
+    return worst, fails
+
+
+def _cov_bound(d, dv, nq, nkv, tq, tk, pairs, grad_bytes=2):
+    """``{k1, k3, k4}: (ms, by)`` bounds at true widths (d, dv): K1 does
+    2(d + dv) operations a pair (S, P.V) and moves q, k, v, out and the
+    lse once; K3 4d + 2dv (S, dP, dQ) and K4 4(d + dv) (S^T, dP^T, dV,
+    dK), each reading q, k, v, dO, lse2 and delta once and writing its
+    gradients."""
+    rows_q, rows_k = nq * tq, nkv * tk
+    io = 2 * (rows_q * (d + dv) + rows_k * (d + dv)) + 8 * rows_q
+    return {'k1': bound_ms(2 * pairs * (d + dv), io - 4 * rows_q),
+            'k3': bound_ms(pairs * (4 * d + 2 * dv),
+                           io + grad_bytes * rows_q * d),
+            'k4': bound_ms(pairs * 4 * (d + dv),
+                           io + grad_bytes * rows_k * (d + dv))}
+
+
+def _cov_timing(torch, fa, flush, gen):
+    """K1 and K3 + K4 at every COV_DIMS pair, B 2 x 8 heads x T 2048,
+    causal: out, dq, dk and dv held against the plain versions' on the
+    same inputs (check_rel's tolerances), then the kernels' ms (the
+    wrapper's zero-padding copy included, and timed alone beside it), the
+    plain versions' and SDPA's (its forward; its backward for K3 + K4, dq,
+    dk and dv together) where a backend takes the widths, and the bounds.
+    ``(rows, failures)``."""
+    F = torch.nn.functional
+    dev, bf16 = torch.device('cuda'), torch.bfloat16
+    b, h, t = 2, 8, 2048
+    pairs = b * h * t * (t + 1) // 2
+    out, fails = {}, []
+    for d, dv in COV_DIMS:
+        q = randn(torch, (b, h, t, d), gen, dev, bf16).requires_grad_()
+        k = randn(torch, (b, h, t, d), gen, dev, bf16).requires_grad_()
+        v = randn(torch, (b, h, t, dv), gen, dev, bf16).requires_grad_()
+        g = randn(torch, (b, h, t, dv), gen, dev, bf16)
+        scale = 1.0 / math.sqrt(d)
+        kw = dict(causal=True, scale=scale)
+        o, lse = fa.flash_attention_with_lse(q.detach(), k.detach(),
+                                             v.detach(), **kw)
+        got = (fa.flash_attention(q.detach(), k.detach(), v.detach(), **kw),
+               *fa.flash_attention_backward(q.detach(), k.detach(),
+                                            v.detach(), o, lse, g, True,
+                                            scale=scale))
+        want = (fa.flash_attention_plain(q.detach(), k.detach(), v.detach(),
+                                         **kw),
+                *fa.flash_attention_backward_plain(
+                    q.detach(), k.detach(), v.detach(), o, lse, g, True,
+                    scale=scale))
+        torch.cuda.synchronize()
+        names = ('out', 'dq', 'dk', 'dv')
+        errs = {n: _cov_rel(torch, x, y) for n, x, y in zip(names, got, want)}
+        per_row = _cov_row_readings(torch, dict(zip(names, zip(got, want))))
+        fails += check_rel(errs, f'K1/K3/K4 timing d {d} dv {dv}')
+        del got, want
+        D, DV = fa._grid_dims(d, dv)
+        row = {'d': d, 'd_v': dv, 'grid': [D, DV], 'shape': [b, h, t],
+               'max_row_rel_err': {n: e[0] for n, e in errs.items()},
+               'rel_err': {n: e[1] for n, e in errs.items()},
+               'per_row': per_row,
+               'k1_ms': time_ms(torch, lambda: fa.flash_attention(
+                   q.detach(), k.detach(), v.detach(), **kw), flush),
+               'k1_plain_ms': time_ms(torch, lambda: fa.flash_attention_plain(
+                   q.detach(), k.detach(), v.detach(), **kw), flush, reps=3),
+               'k3_k4_ms': time_ms(torch, lambda: fa.flash_attention_backward(
+                   q.detach(), k.detach(), v.detach(), o, lse, g, True,
+                   scale=scale), flush),
+               'k3_k4_plain_ms': time_ms(
+                   torch, lambda: fa.flash_attention_backward_plain(
+                       q.detach(), k.detach(), v.detach(), o, lse, g, True,
+                       scale=scale), flush, reps=3),
+               'pad_ms': (time_ms(torch, lambda: (
+                   fa._pad_cols(q.detach(), D), fa._pad_cols(k.detach(), D),
+                   fa._pad_cols(v.detach(), DV)), flush)
+                          if (D, DV) != (d, dv) else 0.0)}
+        try:
+            row['library_ms'] = time_ms(
+                torch, lambda: F.scaled_dot_product_attention(
+                    q.detach(), k.detach(), v.detach(), is_causal=True,
+                    scale=scale), flush)
+
+            def sdpa_bwd():
+                y = F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                   scale=scale)
+                torch.autograd.grad(y, (q, k, v), g)
+            row['library_bwd_ms'] = time_ms(torch, sdpa_bwd, flush)
+            row['library'] = 'SDPA (its fastest backend for the widths)'
+        except RuntimeError as exc:
+            row.update(library_ms=None, library_bwd_ms=None,
+                       library=f'none: SDPA refuses the widths '
+                               f'({str(exc)[:60]})')
+        for kern, (ms, by) in _cov_bound(d, dv, b * h, b * h, t, t,
+                                         pairs).items():
+            row[f'{kern}_bound_ms'], row[f'{kern}_bound_by'] = ms, by
+        emit({'phase': 'kernel_coverage', 'case': f'timing_d{d}_dv{dv}',
+              **row})
+        out[f'd{d}_dv{dv}'] = row
+    return out, fails
+
+
+def _cov_module(torch, ddp, flush):
+    """The paper's module with value_dim != key_dim at the flagship's
+    width (COV_MOD, causal, bf16, flash), its weights made by the
+    converter from a seeded tree in the reference module's layout
+    (kernel (in, out)): forward and backward at B 4 x T 8192 through K1,
+    K3 and K4, ms a step and the launches (counts at 0 just before); the
+    first COV_MOD_REF_B rows' output and input gradients held against the
+    same weights on the module's plain path ('full', float32) on the
+    card."""
+    import numpy as np
+    from distributed_dot_product_tpu_torch import convert
+    from distributed_dot_product_tpu_torch.convert import attn_state_from_jax
+    dev, bf16 = torch.device('cuda'), torch.bfloat16
+    mod = ddp.DistributedDotProductAttn(**COV_MOD, softmax_impl='flash',
+                                        causal=True, dtype=bf16, device=dev)
+    rng = np.random.default_rng(COV_SEED)
+    flax_name = {port: flax for flax, port in convert._ATTN}
+    tree = {}
+    for name, w in mod.state_dict().items():
+        layer, kind = name.rsplit('.', 1)
+        check(kind == 'weight', f'unexpected module parameter {name}')
+        fan_in = w.shape[1]
+        tree[flax_name[layer]] = {'kernel': (
+            rng.standard_normal((fan_in, w.shape[0])) / math.sqrt(fan_in)
+        ).astype(np.float32)}
+    state = attn_state_from_jax({'params': tree})
+    mod.load_state_dict(state)
+    ref = ddp.DistributedDotProductAttn(**COV_MOD, softmax_impl='full',
+                                        causal=True, dtype=torch.float32,
+                                        device=dev)
+    ref.load_state_dict(state)
+    gen = torch.Generator().manual_seed(COV_SEED)
+    b, t = COV_MOD_B, COV_MOD_T
+    kd, vd = COV_MOD['key_dim'], COV_MOD['value_dim']
+    x = [torch.randn((b, t, w), generator=gen).to(dev, bf16)
+         for w in (kd, kd, vd)]
+    gy = torch.randn((b, t, vd), generator=gen).to(dev, bf16)
+
+    def step():
+        ins = [a.detach().requires_grad_() for a in x]
+        y = mod(*ins)
+        grads = torch.autograd.grad(y, ins, gy)
+        return y, grads
+    step()
+    torch.cuda.synchronize()
+    for n in ('flash_attention', 'flash_attention_dq', 'flash_attention_dkv'):
+        getattr(ddp, n).launches = 0
+    t0 = time.perf_counter()
+    y, grads = step()
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t0)
+    launches = {n: getattr(ddp, n).launches for n in (
+        'flash_attention', 'flash_attention_dq', 'flash_attention_dkv')}
+    ms = time_ms(torch, step, flush, reps=5)
+    rb = COV_MOD_REF_B
+    ins = [a[:rb].float().detach().requires_grad_() for a in x]
+    y_ref = ref(*ins)
+    g_ref = torch.autograd.grad(y_ref, ins, gy[:rb].float())
+    errs = {'out': rel_errs(torch, y[:rb], y_ref)}
+    errs.update({f'd{n}': rel_errs(torch, gr[:rb], gw)
+                 for n, gr, gw in zip(('keys', 'queries', 'values'), grads,
+                                      g_ref)})
+    row = {'phase': 'kernel_coverage', 'case': 'module_value_dim',
+           'card': CARD,
+           'module': dict(COV_MOD, softmax_impl='flash', causal=True),
+           'head_dim': kd // COV_MOD['num_heads'],
+           'value_head_dim': vd // COV_MOD['num_heads'],
+           'batch': [b, t], 'first_step_ms': step_ms,
+           'ms_per_step': ms, 'launches': launches,
+           'held_rows': rb, 'rel_err_vs_full_f32': {
+               n: e[1] for n, e in errs.items()},
+           'tol': TOL_REF_GRAD_REL,
+           'finite': bool(torch.isfinite(y).all().item())}
+    emit(row)
+    fails = [f'module value_dim {n}: rel err {e[1]} > {TOL_REF_GRAD_REL}'
+             for n, e in errs.items() if not e[1] <= TOL_REF_GRAD_REL]
+    if launches != {'flash_attention': 1, 'flash_attention_dq': 1,
+                    'flash_attention_dkv': 1} or not row['finite']:
+        fails.append(f'module value_dim: launches {launches}, finite '
+                     f'{row["finite"]}')
+    del mod, ref, x, y, grads, y_ref, g_ref, ins
+    torch.cuda.empty_cache()
+    return launches, fails
+
+
+def _cov_lm(torch, ddp):
+    """The LM at head dim 256 (COV_LM): its loss and last-position logits
+    at B 2 x T 4096 held against the same weights in float32 on the
+    'full' path on the card (TOL_REF_LOSS_REL, TOL_LM_REL); one Adam step
+    at that batch (K1, K3, K4; a warm step first), then greedy generation
+    of COV_LM_STEPS tokens from B 2 prompts of COV_LM_PROMPT tokens (K1,
+    K5); ms, tokens/s and the launches of each (counts at 0 just
+    before)."""
+    from distributed_dot_product_tpu_torch.models.lm import greedy_generate
+    dev = torch.device('cuda')
+    gen = torch.Generator().manual_seed(COV_SEED)
+    c = COV_LM
+    model = ddp.TransformerLM(c['vocab'], c['dim'], c['heads'],
+                              n_layers=c['layers'], dtype=torch.bfloat16,
+                              device=dev, generator=gen)
+    opt = torch.optim.Adam(model.parameters(), lr=LR)
+    step = ddp.make_lm_train_step(model, opt, loss_chunk=LOSS_CHUNK)
+    tokens = torch.randint(0, c['vocab'], (COV_LM_B, COV_LM_T),
+                           generator=gen).to(dev)
+    batch = (tokens, ddp.lm_targets(tokens))
+    ref = ddp.TransformerLM(c['vocab'], c['dim'], c['heads'],
+                            n_layers=c['layers'], dtype=torch.float32,
+                            attn_kwargs=dict(softmax_impl='full'),
+                            device=dev, generator=torch.Generator())
+    ref.load_state_dict(model.state_dict())
+    with torch.no_grad():
+        loss_sum, count = ref.nll_sum(*batch, chunk=LOSS_CHUNK)
+        ref_loss = (loss_sum / count).item()
+        ref_logits = ref(tokens)[:, -1].float()
+        del ref
+        got_logits = model(tokens)[:, -1].float()
+    logits_rel = ((got_logits - ref_logits).abs().max()
+                  / ref_logits.abs().max()).item()
+    del ref_logits, got_logits
+    torch.cuda.empty_cache()
+    losses = [step(batch).item()]
+    loss_rel = abs(losses[0] - ref_loss) / abs(ref_loss)
+    torch.cuda.synchronize()
+    for n in COV_KERNELS:
+        getattr(ddp, n).launches = 0
+    t0 = time.perf_counter()
+    losses.append(step(batch).item())
+    torch.cuda.synchronize()
+    train_ms = 1e3 * (time.perf_counter() - t0)
+    train_launches = _cov_counts(ddp)
+    prompts = tokens[:, :COV_LM_PROMPT]
+    t_max = COV_LM_PROMPT + COV_LM_STEPS
+    greedy_generate(model, prompts, 2, t_max)         # warm-up
+    torch.cuda.synchronize()
+    for n in COV_KERNELS:
+        getattr(ddp, n).launches = 0
+    t0 = time.perf_counter()
+    out = greedy_generate(model, prompts, COV_LM_STEPS, t_max)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    gen_launches = _cov_counts(ddp)
+    row = {'phase': 'kernel_coverage', 'case': 'lm_head_dim_256',
+           'card': CARD,
+           'lm': dict(c, head_dim=c['dim'] // c['heads']),
+           'vs_full_f32': {'loss': ref_loss, 'loss_rel_err': loss_rel,
+                           'tol_loss_rel': TOL_REF_LOSS_REL,
+                           'last_logits_rel_err': logits_rel,
+                           'tol_logits_rel': TOL_LM_REL},
+           'train': {'batch': [COV_LM_B, COV_LM_T], 'losses': losses,
+                     'ms_per_step': train_ms,
+                     'tokens_per_s': COV_LM_B * COV_LM_T / (train_ms / 1e3),
+                     'launches': train_launches},
+           'greedy': {'batch': [COV_LM_B, COV_LM_PROMPT],
+                      'steps': COV_LM_STEPS, 'generate_s': gen_s,
+                      'tokens_per_s': COV_LM_B * COV_LM_STEPS / gen_s,
+                      'launches': gen_launches}}
+    emit(row)
+    fails = []
+    if not all(math.isfinite(x) for x in losses):
+        fails.append(f'LM d 256: losses {losses}')
+    if not loss_rel <= TOL_REF_LOSS_REL:
+        fails.append(f'LM d 256: loss rel err vs float32 full {loss_rel} '
+                     f'> {TOL_REF_LOSS_REL}')
+    if not logits_rel <= TOL_LM_REL:
+        fails.append(f'LM d 256: last logits rel err vs float32 full '
+                     f'{logits_rel} > {TOL_LM_REL}')
+    want_t = {'flash_attention': c['layers'],
+              'flash_attention_dq': c['layers'],
+              'flash_attention_dkv': c['layers']}
+    want_g = {'flash_attention': c['layers'],
+              'flash_decode': c['layers'] * (COV_LM_STEPS - 1)}
+    for want, got, what in ((want_t, train_launches, 'train step'),
+                            (want_g, gen_launches, 'greedy run')):
+        if any(got[n] != x for n, x in want.items()):
+            fails.append(f'LM d 256 {what}: launches {got}, want {want}')
+    if tuple(out.shape) != (COV_LM_B, COV_LM_STEPS) or not bool(
+            ((out >= 0) & (out < c['vocab'])).all()):
+        fails.append(f'LM d 256 greedy: tokens {tuple(out.shape)}')
+    del model, opt, step, batch
+    torch.cuda.empty_cache()
+    return {'train': train_launches, 'greedy': gen_launches}, fails
+
+
+def _cov_engine(torch, ddp):
+    """KernelEngine at head dim 256 and page 48 (COV_ENGINE, bf16, K5p):
+    the first-step logits of the burst's first 8 prompts held against the
+    same engine's plain decode path on the card, then the seeded burst
+    through the Scheduler (tokens/s, TTFT p99, K5p launches against the
+    decode steps)."""
+    from distributed_dot_product_tpu_torch.serve import KernelEngine
+
+    def engine(impl):
+        return KernelEngine(
+            slots=COV_ENGINE['slots'], t_max=COV_ENGINE['t_max'],
+            vocab=VOCAB, heads=COV_ENGINE['heads'],
+            head_dim=COV_ENGINE['head_dim'], prefill_chunk=SERVE_CHUNK,
+            seed=SERVE_SEED, dtype=torch.bfloat16, device='cuda',
+            decode_impl=impl, cache_mode='paged',
+            page_size=COV_ENGINE['page_size'], weight_quant='off')
+    burst = serve_burst()
+    prompts = [p for _, p in burst[:COV_ENGINE['slots']]]
+    kern = engine('kernel')
+    check((kern.decode_impl, kern.cache_mode, kern.page_size) == (
+        'kernel', 'paged', COV_ENGINE['page_size']),
+          'kernel_coverage engine settings')
+    got = first_step_logits(torch, kern, prompts)
+    plain = engine('plain')
+    want = first_step_logits(torch, plain, prompts)
+    del plain
+    rel = ((got - want).abs().max() / want.abs().max()).item()
+    for i in range(kern.slots):
+        kern.reset(i)
+    _, row = _serve_burst(torch, ddp, kern, burst, 'kernel_coverage engine')
+    row.update(phase='kernel_coverage', case='engine_head_dim_256_page_48',
+               card=CARD,
+               first_step_logits_rel_err_vs_plain=rel, tol=TOL_BF16)
+    emit(row)
+    fails = []
+    if not rel <= TOL_BF16:
+        fails.append(f'engine d 256 page 48: first-step logits rel err '
+                     f'{rel} > {TOL_BF16}')
+    if row['launches']['flash_decode_paged'] != row['decode_steps'] or \
+            row['launches']['flash_decode']:
+        fails.append(f'engine d 256 page 48: launches {row["launches"]}, '
+                     f'decode steps {row["decode_steps"]}')
+    del kern
+    torch.cuda.empty_cache()
+    return row['launches'], fails
+
+
+def phase_kernel_coverage(torch, ddp, flush):
+    """The widths, page sizes and K splits the kernels took in this slice
+    (the module docstring, phase 13b): every case is held against its
+    plain version and every failure reported together at the end."""
+    import importlib
+    fa = importlib.import_module(
+        'distributed_dot_product_tpu_torch.ops.flash_attention')
+    fd = importlib.import_module(
+        'distributed_dot_product_tpu_torch.ops.flash_decode')
+    gen = torch.Generator().manual_seed(COV_SEED)
+    flash_worst, fails = _cov_flash(torch, fa, gen)
+    decode_worst, f = _cov_decode(torch, fd, gen, flush)
+    fails += f
+    timing, f = _cov_timing(torch, fa, flush, gen)
+    fails += f
+    module_launches, f = _cov_module(torch, ddp, flush)
+    fails += f
+    lm_launches, f = _cov_lm(torch, ddp)
+    fails += f
+    engine_launches, f = _cov_engine(torch, ddp)
+    fails += f
+    check(not fails, '; '.join(fails))
+    return {'flash_worst': flash_worst, 'decode_max_abs_err': decode_worst,
+            'timing': timing, 'launches': {
+                'module_value_dim': module_launches,
+                'lm_train_step': lm_launches['train'],
+                'lm_greedy': lm_launches['greedy'],
+                'engine_page_48': engine_launches}}
+
+
 def main():
     try:
         import torch
@@ -8392,6 +9223,8 @@ def main():
             timeout=60, check=True).stdout.strip().splitlines()[0]
         kind = torch.cuda.get_device_name(0)
         count = torch.cuda.device_count()
+        global CARD
+        CARD = smi
         emit({'phase': 'device', 'name': kind, 'count': count,
               'nvidia_smi': smi, 'torch': torch.__version__,
               'cuda': torch.version.cuda})
@@ -8432,6 +9265,8 @@ def main():
              lambda: phase_flash_features(torch, ddp, flush, gen)),
             ('flash_masks',
              lambda: phase_flash_masks(torch, ddp, flush, gen)),
+            ('kernel_coverage',
+             lambda: phase_kernel_coverage(torch, ddp, flush)),
             ('main_path', lambda: phase_main_path(torch, ddp)),
             ('wq8_lm', lambda: phase_wq8_lm(torch, ddp)),
             ('train_path', lambda: phase_train_path(torch, ddp)),
@@ -8452,7 +9287,7 @@ def main():
                 res[phase] = run()
                 emit({'phase': phase, 'phase_seconds':
                       time.perf_counter() - t0})
-            if phase == 'flash_masks':
+            if phase == 'kernel_coverage':
                 del flush
                 torch.cuda.empty_cache()
     except Exception as exc:   # report the failed phase, then fail
@@ -8486,6 +9321,7 @@ def main():
     obs = res['obs_serve']
     ae = res['analysis_examples']
     bc = res['benchmark_cli']
+    cov = res['kernel_coverage']
 
     def knob_paths(kernel):
         """The kernel's launches on train_knobs's runs (2 steps under each
@@ -8617,6 +9453,11 @@ def main():
                  **{c: int8_k[c] for c in ('int8_decode_prefill',
                                            'gqa_ring_fold')}),
              edges=k1['edges'],
+             coverage=dict(cov['flash_worst'], widths={
+                 dims: {k: row[k] for k in (
+                     'grid', 'k1_ms', 'pad_ms', 'k1_plain_ms', 'library_ms',
+                     'k1_bound_ms', 'k1_bound_by', 'library')}
+                 for dims, row in cov['timing'].items()}),
              **bwd_time['flash_attention']),
         dict(name='flash_attention_bounded', source=csrc + 'flash_fwd.cu',
              replaces=tpu + 'pallas_attention.py:1151',
@@ -8644,6 +9485,11 @@ def main():
                          fs['gqa_ring']['flash_attention_dq']},
                  library=int8_k['bwd_library'],
                  gqa_ring_fold=int8_k['k3_gqa_ring_fold']),
+             coverage_widths_k3_k4={
+                 dims: {k: row[k] for k in (
+                     'grid', 'k3_k4_ms', 'pad_ms', 'k3_k4_plain_ms',
+                     'library_bwd_ms', 'k3_bound_ms', 'k4_bound_ms')}
+                 for dims, row in cov['timing'].items()},
              **bwd_time['flash_attention_dq']),
         dict(name='flash_attention_dkv', source=csrc + 'flash_bwd.cu',
              replaces=tpu + 'pallas_attention.py:1319',
@@ -8684,6 +9530,7 @@ def main():
                  'wq8_serve_slab': wq8['slab']['flash_decode'],
                  'wq8_lm_greedy': wq8_lm['flash_decode']},
              max_abs_err=k5['max_abs_err'],
+             coverage_max_abs_err=cov['decode_max_abs_err'],
              edges=k5['edges'],
              variants=k5['variants'],
              **{key: k5[key] for key in ('ms', 'plain_ms', 'library_ms',
@@ -8728,6 +9575,12 @@ def main():
         # benchmark_cli: its launches in each torch_benchmark.py run.
         entry['launches_by_path']['benchmark_cli'] = {
             run: counts[entry['name']] for run, counts in bc.items()}
+        # kernel_coverage: its launches on that phase's runs (the module at
+        # value_dim 256, the head-dim-256 LM's train step and greedy run,
+        # the page-48 engine's burst).
+        entry['launches_by_path']['kernel_coverage'] = {
+            run: counts.get(entry['name'], 0)
+            for run, counts in cov['launches'].items()}
         for key in ('flops', 'bytes'):
             entry.pop(key, None)
         for extra in ('masked_fold', 'masked_fold_f32'):

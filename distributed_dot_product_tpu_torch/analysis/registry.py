@@ -17,9 +17,9 @@ per reference entry.
 A builder is lazy: ``builder(device)`` makes the module, cache or
 engine and the example tensors on ``device`` (``'cpu'`` or ``'cuda'``)
 at the reference's registered shapes — but for head dims, which are 32
-where the reference registers 8: the port's CUDA kernels take head dims
-32/64/96/128 only, and one shape on both devices keeps the CPU baseline
-and a card snapshot comparable. A spec's ``fn(*args)`` may be called
+where the reference registers 8: 32 is the CUDA kernels' narrowest
+instantiation (an 8-wide head is padded to it), and one shape on both
+devices keeps the CPU baseline and a card snapshot comparable. A spec's ``fn(*args)`` may be called
 again and again with the same result: a stateful callable (a decode step
 appends in place) restores what it advances. Entries declared over a
 mesh (``mesh_axes``) build the seq mesh of the current process group —

@@ -23,10 +23,23 @@
 //   dq = scale * ds.k,  dk = ds^T.q2 / log2(e),  dv = p^T.dO (p in bf16).
 //
 // What bounds them on the H100: tensor-core operations. An attended
-// (query, key) pair costs dq 6*d flops (S, dP, dQ) and dk/dv 8*d (S^T, dP^T,
-// dV, dK); at the LM's training shape (4 x 8 heads, T = 4096, head dim 96,
-// causal: 268 M pairs) that is 155 and 206 GFLOP, 0.16 and 0.21 ms at 989
-// TFLOP/s, against ~127 and ~152 MB of operands (0.04 ms at 3.35 TB/s).
+// (query, key) pair costs dq 4*d + 2*d_v flops (S, dP, dQ) and dk/dv
+// 4*(d + d_v) (S^T, dP^T, dV, dK); at the LM's training shape (4 x 8
+// heads, T = 4096, head dim 96, causal: 268 M pairs) that is 155 and 206
+// GFLOP, 0.16 and 0.21 ms at 989 TFLOP/s, against ~127 and ~152 MB of
+// operands (0.04 ms at 3.35 TB/s).
+//
+// Widths: both are templates on D (q, k, dq, dk) and DV (v, dO, dv) over
+// the FLASH_GRID pairs of csrc/hopper.cuh, the wrapper zero-padding an
+// operand off the grid (q, k along d; v, dO along d_v) and slicing the
+// gradients (the padded columns come out exactly 0). dq's dP = dO.V^T has
+// reduction DV, dQ += dS.K product width D; dk/dv's dV += P^T.dO width DV,
+// dK += dS^T.q2 width D. Where three stages do not fit in shared memory
+// (D + DV > 320) they drop to two, and dq's block to one warpgroup when
+// two do not fit either ((256, 256): 64 query rows a block). dk/dv at D +
+// DV > 256 splits its block: one 64-row key tile whose dV accumulates in
+// warpgroup 0 and dK in warpgroup 1 (both of one tile would take (D +
+// DV)/2 > 128 registers a thread), both recomputing S^T.
 //
 // The design: a block is two warpgroups (256 threads), each owning one
 // 64-row tile of the block's 128 query rows (dq) or key rows (dk/dv).
@@ -106,11 +119,13 @@
 namespace {
 
 // The wgmma kernels: two warpgroups a block, one 64-row tile each, and
-// three stages for the streamed tiles.
+// three stages for the streamed tiles. Where that does not fit in shared
+// memory the stages drop to two (kDqStages, kDkvStages), and dq's block to one
+// warpgroup when two do not fit either; dk/dv then splits its block's work
+// between the warpgroups (see flash_bwd_dkv_kernel).
 constexpr int kWgs = 2;
 constexpr int kRows = kWgs * kB;
 constexpr int kBlockThreads = kWgs * kThreads;
-constexpr int kStages = 3;
 constexpr float kInvLog2e = 0.693147180559945309f;   // 1 / log2(e)
 
 // A dense boolean mask: byte (b, h, row, col) at
@@ -185,24 +200,43 @@ __device__ __forceinline__ void store_pair(float* dst, float a, float b) {
 template <bool Ext, bool Quant>
 constexpr int kKeyVecs = Quant ? 3 : (Ext ? 2 : 0);
 
-template <int D, bool Ext, bool Quant>
-constexpr size_t dq_smem_bytes() {
-  return kRows * D * (Quant ? 1 : 2)                      // sQ (int8 q)
-         + sizeof(bf16) * (kRows + 2 * kStages * kB) * D  // sG; sK, sV
-         + (Quant ? kStages * kB * D : 0)                 // int8 k
-         + kStages * kKeyVecs<Ext, Quant> * kB * 4        // segk, posk, skr
-         + kStages * sizeof(uint64_t);                    // the barriers
+template <int D, int DV, bool Ext, bool Quant>
+__host__ __device__ constexpr size_t dq_smem_at(int wgs, int stages) {
+  return wgs * kB * D * (Quant ? 1 : 2)                   // sQ (int8 q)
+         + sizeof(bf16) * (wgs * kB * DV + stages * kB * (D + DV))
+                                                          // sG; sK, sV
+         + (Quant ? stages * kB * D : 0)                  // int8 k
+         + stages * kKeyVecs<Ext, Quant> * kB * 4         // segk, posk, skr
+         + stages * sizeof(uint64_t);                     // the barriers
 }
 
-// dq for one 128-row query block of one (batch, head) row: q2 and dO stay
-// in shared memory, key and value tiles stream through the stages (TMA,
-// one barrier a stage); each warpgroup's S, dP and dS live in its
-// registers. The tensor maps: q2 and dO (batch_heads, tq, D), k and v
-// (batch_heads / group, tk, D), 64-row x 16-byte boxes; with Quant, map_q
-// is the int8 q (resident, in half of q2's room), map_k the dequantized k~
-// and map_k8 the int8 k (its own stage slots).
-template <int D, bool HasMask, typename OutT, bool Ext, bool Quant>
-__global__ void __launch_bounds__(kBlockThreads)
+// dq's warpgroups a block (two where two fit with two stages) and stages
+// (three where they fit).
+template <int D, int DV, bool Ext, bool Quant>
+constexpr int kDqWgs =
+    dq_smem_at<D, DV, Ext, Quant>(2, 2) <= kSmemLimit ? 2 : 1;
+
+template <int D, int DV, bool Ext, bool Quant>
+constexpr int kDqStages =
+    dq_smem_at<D, DV, Ext, Quant>(kDqWgs<D, DV, Ext, Quant>, 3) <= kSmemLimit
+        ? 3 : 2;
+
+template <int D, int DV, bool Ext, bool Quant>
+__host__ __device__ constexpr size_t dq_smem_bytes() {
+  return dq_smem_at<D, DV, Ext, Quant>(kDqWgs<D, DV, Ext, Quant>,
+                                       kDqStages<D, DV, Ext, Quant>);
+}
+
+// dq for one 128-row (one warpgroup: 64-row) query block of one (batch,
+// head) row: q2 and dO stay in shared memory, key and value tiles stream
+// through the stages (TMA, one barrier a stage); each warpgroup's S, dP and
+// dS live in its registers. The tensor maps: q2 (batch_heads, tq, D), dO
+// (batch_heads, tq, DV), k (batch_heads / group, tk, D) and v (batch_heads
+// / group, tk, DV), 64-row x 16-byte boxes; with Quant, map_q is the int8 q
+// (resident, in half of q2's room), map_k the dequantized k~ and map_k8 the
+// int8 k (its own stage slots).
+template <int D, int DV, bool HasMask, typename OutT, bool Ext, bool Quant>
+__global__ void __launch_bounds__(kDqWgs<D, DV, Ext, Quant> * kThreads)
 flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
                     const __grid_constant__ CUtensorMap map_k,
                     const __grid_constant__ CUtensorMap map_v,
@@ -213,18 +247,25 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
                     MaskArgs mask, int tq, int tk, int group, int causal,
                     int causal_offset, int kv_offset, float scale,
                     int n_qblocks, ExtArgs ext) {
-  static_assert(D % 32 == 0 && D <= 128, "head dim must be 32*n <= 128");
+  static_assert(D % 32 == 0 && D <= 256 && DV % 32 == 0 && DV <= 256,
+                "head dims must be 32*n <= 256");
   static_assert(!(HasMask && Ext), "Ext reads the mask at run time");
   static_assert(!Quant || (Ext && !HasMask), "int8 scoring is Ext");
+  static_assert(dq_smem_bytes<D, DV, Ext, Quant>() <= kSmemLimit,
+                "shared memory");
+  constexpr int kW = kDqWgs<D, DV, Ext, Quant>;          // warpgroups
+  constexpr int kStages = kDqStages<D, DV, Ext, Quant>;
+  constexpr int kRowsB = kW * kB;                         // the block's rows
   constexpr int kQB = Quant ? 1 : 2;   // bytes of a q element
   constexpr int kKV = kKeyVecs<Ext, Quant>;
   extern __shared__ __align__(1024) unsigned char smem[];
   bf16* sQ = reinterpret_cast<bf16*>(smem);   // warpgroup w's rows at
                                               // byte w*kB*D*kQB
-  bf16* sG = reinterpret_cast<bf16*>(smem + kRows * D * kQB);
-  bf16* sKV = sG + kRows * D;   // stage s: K at sKV + 2s*kB*D, V after it
+  bf16* sG = reinterpret_cast<bf16*>(smem + kRowsB * D * kQB);
+  bf16* sKV = sG + kRowsB * DV;   // stage s: K at sKV + s*kB*(D + DV), V
+                                  // kB*D after it
   signed char* sK8 = reinterpret_cast<signed char*>(
-      sKV + 2 * kStages * kB * D);   // Quant, stage s: int8 k at s*kB*D
+      sKV + kStages * kB * (D + DV));   // Quant, stage s: int8 k at s*kB*D
   int* sVec = reinterpret_cast<int*>(
       sK8 + (Quant ? kStages * kB * D : 0));   // stage s at kKV*s*kB:
                                                // segk, posk, skr (floats)
@@ -236,7 +277,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
   __syncthreads();
 
   // The longest causal extents (late query blocks) launch first.
-  const int qb0 = (n_qblocks - 1 - static_cast<int>(blockIdx.y)) * kRows;
+  const int qb0 = (n_qblocks - 1 - static_cast<int>(blockIdx.y)) * kRowsB;
   const int bh = blockIdx.x;
   const int bkv = bh / group;
   const int wg = threadIdx.x / kThreads;
@@ -258,12 +299,13 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
   // with positions, its 64-row tile's [qmin, qmax] (the same values in
   // every thread).
   const long long rel = static_cast<long long>(causal_offset) - kv_offset;
+  // (With one warpgroup, the second's entries stay empty.)
   int t_lo[kWgs], t_hi[kWgs], qmin[kWgs], qmax[kWgs];
 #pragma unroll
   for (int w = 0; w < kWgs; ++w) {
     const int r0 = qb0 + w * kB;
     t_lo[w] = t_hi[w] = qmin[w] = qmax[w] = 0;
-    if (r0 >= tq) continue;
+    if (w >= kW || r0 >= tq) continue;
     int kv_end = tk;
     if (causal) {
       const long long extent = rel + (r0 + kB < tq ? r0 + kB : tq);
@@ -305,25 +347,25 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
   // Loads key tile t (and, with `resident`, the block's q2 and dO rows)
   // into a stage: thread 0 announces the bytes and starts the TMA copies.
   auto issue = [&](int t, int stage, bool resident) {
-    bf16* sK = sKV + 2 * stage * kB * D;
+    bf16* sK = sKV + stage * kB * (D + DV);
     if (threadIdx.x == 0) {
       uint64_t* bar = &bars[stage];
-      // Resident: q2 (int8: 1 byte an element) and dO for both warpgroups;
+      // Resident: q2 (int8: 1 byte an element) and dO for every warpgroup;
       // streamed: K (k~) and V, and the int8 k.
-      mbar_expect_tx(bar, (resident ? kRows * D * (kQB + 2) : 0) +
-                              (Quant ? 5 : 4) * kB * D);
+      mbar_expect_tx(bar, (resident ? kRowsB * (D * kQB + 2 * DV) : 0) +
+                              (Quant ? 3 : 2) * kB * D + 2 * kB * DV);
       if (resident) {
-        for (int w = 0; w < kWgs; ++w) {
+        for (int w = 0; w < kW; ++w) {
           if constexpr (Quant)
             tma_tile<D>(reinterpret_cast<signed char*>(sQ) + w * kB * D,
                         &map_q, qb0 + w * kB, bh, bar);
           else
             tma_tile<D>(sQ + w * kB * D, &map_q, qb0 + w * kB, bh, bar);
-          tma_tile<D>(sG + w * kB * D, &map_g, qb0 + w * kB, bh, bar);
+          tma_tile<DV>(sG + w * kB * DV, &map_g, qb0 + w * kB, bh, bar);
         }
       }
       tma_tile<D>(sK, &map_k, t * kB, bkv, bar);
-      tma_tile<D>(sK + kB * D, &map_v, t * kB, bkv, bar);
+      tma_tile<DV>(sK + kB * D, &map_v, t * kB, bkv, bar);
       if constexpr (Quant)
         tma_tile<D>(sK8 + stage * kB * D, &map_k8, t * kB, bkv, bar);
     }
@@ -389,7 +431,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
   }
   const uint32_t tQ =
       smem_u32(reinterpret_cast<unsigned char*>(sQ) + wg * kB * D * kQB);
-  const uint32_t tG = smem_u32(sG + wg * kB * D);
+  const uint32_t tG = smem_u32(sG + wg * kB * DV);
   const bool rows_full = q0 + kB <= tq;
   for (int it = 0, stage = 0; t < t_end; ++it) {
     const int fill = (stage + kStages - 1) % kStages;
@@ -404,7 +446,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
 
     if (sees(wg, t)) {
       const int k0 = t * kB;
-      const uint32_t tK = smem_u32(sKV + 2 * stage * kB * D);
+      const uint32_t tK = smem_u32(sKV + stage * kB * (D + DV));
       const uint32_t tV = tK + kB * D * sizeof(bf16);
       const int* sv = sVec + kKV * stage * kB;
       // S by wgmma: with Quant, q8 k8^T as int32 dots (k32 steps), then
@@ -431,7 +473,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
           Wgmma<64>::ss(sa, desc_kmajor(tQ, kk), desc_kmajor(tK, kk), kk);
       }
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
+      for (int kk = 0; kk < DV / 16; ++kk)
         Wgmma<64>::ss(dp, desc_kmajor(tG, kk), desc_kmajor(tV, kk), kk);
       wgmma_commit();
       wgmma_wait<0>();
@@ -522,8 +564,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
       // dQ += dS . K (k~), dS from registers, K read MN-major.
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        Wgmma<D>::rs(acc, ds[kk], desc_mnmajor(tK, kk), 1);
+      for (int kk = 0; kk < 4; ++kk) mma_rs<D>(acc, ds[kk], tK, kk);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(acc);
@@ -549,16 +590,34 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
 template <bool Quant>
 constexpr int kRowVecs = Quant ? 3 : 2;
 
-template <int D, bool Ext, bool Quant>
-constexpr size_t dkv_smem_bytes() {
-  return sizeof(bf16) * (2 * kRows + 2 * kStages * kB) * D  // sK, sV; sQ, sG
-         + (Quant ? kStages * kB * D : 0)                   // int8 q
-         + kStages * kRowVecs<Quant> * kB * sizeof(float)   // lse2, delta, sqf
-         + (Ext ? kStages * 2 * kB * sizeof(int) : 0)       // segq, posq
-         + kStages * sizeof(uint64_t);                      // the barriers
+// dk/dv splits its block at D + DV > 256: the dK and dV accumulators of
+// one 64-key tile would take (D + DV) / 2 > 128 float registers a thread
+// together, so the block is one key tile, warpgroup 0 accumulating its dV
+// and warpgroup 1 its dK (both recompute S^T; only warpgroup 1 takes dP^T).
+template <int D, int DV>
+constexpr bool kDkvSplit = D + DV > 256;
+
+template <int D, int DV, bool Ext, bool Quant>
+__host__ __device__ constexpr size_t dkv_smem_at(int stages) {
+  return sizeof(bf16) * ((kDkvSplit<D, DV> ? kB : kRows) * (D + DV)
+                         + stages * kB * (D + DV))          // sK, sV; sQ, sG
+         + (Quant ? stages * kB * D : 0)                    // int8 q
+         + stages * kRowVecs<Quant> * kB * sizeof(float)    // lse2, delta, sqf
+         + (Ext ? stages * 2 * kB * sizeof(int) : 0)        // segq, posq
+         + stages * sizeof(uint64_t);                       // the barriers
 }
 
-// dk and dv for one 128-row key block of one kv head: K and V stay in
+template <int D, int DV, bool Ext, bool Quant>
+constexpr int kDkvStages =
+    dkv_smem_at<D, DV, Ext, Quant>(3) <= kSmemLimit ? 3 : 2;
+
+template <int D, int DV, bool Ext, bool Quant>
+__host__ __device__ constexpr size_t dkv_smem_bytes() {
+  return dkv_smem_at<D, DV, Ext, Quant>(kDkvStages<D, DV, Ext, Quant>);
+}
+
+// dk and dv for one 128-row key block of one kv head (split: one 64-row
+// key tile, dV in warpgroup 0 and dK in warpgroup 1): K and V stay in
 // shared memory, the query tiles of every head of the GQA group stream
 // through the stages (q2 and dO by TMA, one barrier a stage; lse2 and
 // delta by cp.async); each warpgroup's S^T, dP^T, P^T and dS^T live in its
@@ -566,7 +625,7 @@ constexpr size_t dkv_smem_bytes() {
 // maps as for dq; with Quant, map_k is the int8 k (resident, in the first
 // half of K's room), map_q the dequantized q~ and map_q8 the int8 q (its
 // own stage slots). dK is scaled by dk_mul on the way out.
-template <int D, bool HasMask, typename OutT, bool Ext, bool Quant>
+template <int D, int DV, bool HasMask, typename OutT, bool Ext, bool Quant>
 __global__ void __launch_bounds__(kBlockThreads)
 flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap map_q,
                      const __grid_constant__ CUtensorMap map_k,
@@ -578,17 +637,24 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap map_q,
                      OutT* __restrict__ dv, MaskArgs mask, int tq, int tk,
                      int group, int causal, int causal_offset, int kv_offset,
                      int n_qtiles, float dk_mul, ExtArgs ext) {
-  static_assert(D % 32 == 0 && D <= 128, "head dim must be 32*n <= 128");
+  static_assert(D % 32 == 0 && D <= 256 && DV % 32 == 0 && DV <= 256,
+                "head dims must be 32*n <= 256");
   static_assert(!(HasMask && Ext), "Ext reads the mask at run time");
   static_assert(!Quant || (Ext && !HasMask), "int8 scoring is Ext");
+  static_assert(dkv_smem_bytes<D, DV, Ext, Quant>() <= kSmemLimit,
+                "shared memory");
+  constexpr bool kSplit = kDkvSplit<D, DV>;
+  constexpr int kStages = kDkvStages<D, DV, Ext, Quant>;
+  constexpr int kKeys = kSplit ? kB : kRows;   // the block's key rows
   constexpr int kRV = kRowVecs<Quant>;
   extern __shared__ __align__(1024) unsigned char smem[];
   bf16* sK = reinterpret_cast<bf16*>(smem);   // warpgroup w's keys at w*kB*D
                                               // (int8: byte w*kB*D)
-  bf16* sV = sK + kRows * D;
-  bf16* sQG = sV + kRows * D;   // stage s: q2 at sQG + 2s*kB*D, dO after it
+  bf16* sV = sK + kKeys * D;
+  bf16* sQG = sV + kKeys * DV;   // stage s: q2 at sQG + s*kB*(D + DV), dO
+                                 // kB*D after it
   signed char* sQ8 = reinterpret_cast<signed char*>(
-      sQG + 2 * kStages * kB * D);   // Quant, stage s: int8 q at s*kB*D
+      sQG + kStages * kB * (D + DV));   // Quant, stage s: int8 q at s*kB*D
   float* sRow = reinterpret_cast<float*>(
       sQ8 + (Quant ? kStages * kB * D : 0));   // stage s at kRV*s*kB:
                                                // lse2, delta, sqf
@@ -604,11 +670,11 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap map_q,
 
   // Early key blocks are seen by the most query rows under causal
   // masking: they launch first.
-  const int kb0 = static_cast<int>(blockIdx.y) * kRows;
+  const int kb0 = static_cast<int>(blockIdx.y) * kKeys;
   const int bkv = blockIdx.x;
   const int wg = threadIdx.x / kThreads;
-  const int k0 = kb0 + wg * kB;   // this warpgroup's first key
-  const size_t kvoff = static_cast<size_t>(bkv) * tk * D;
+  const int kw = kSplit ? 0 : wg;   // this warpgroup's key tile in the block
+  const int k0 = kb0 + kw * kB;     // its first key
 
   // Warpgroup w's keys are seen by query tiles [qt_lo[w], qt_hi[w]): row r
   // sees key column c when rel + r >= c; with a window, rows r < window +
@@ -617,7 +683,7 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap map_q,
   int qt_lo[kWgs], qt_hi[kWgs];
 #pragma unroll
   for (int w = 0; w < kWgs; ++w) {
-    const int c0 = kb0 + w * kB;
+    const int c0 = kb0 + (kSplit ? 0 : w * kB);
     qt_lo[w] = qt_hi[w] = 0;
     if (c0 >= tk) continue;
     qt_hi[w] = n_qtiles;
@@ -644,7 +710,8 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap map_q,
       if (yes && ext.posk.ptr != nullptr) {
         const int bh = bkv * group + h;
         const int* posq_mm = vec_row(ext.posq_mm, bh);
-        const int* posk_mm = vec_row(ext.posk_mm, bh) + 2 * (kb0 / kB + w);
+        const int* posk_mm =
+            vec_row(ext.posk_mm, bh) + 2 * (kb0 / kB + (kSplit ? 0 : w));
         yes = !(posk_mm[0] > posq_mm[2 * qt + 1] ||
                 (ext.window > 0 &&
                  static_cast<long long>(posq_mm[2 * qt]) - posk_mm[1] >=
@@ -675,27 +742,27 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap map_q,
   auto issue = [&](int h, int qt, int stage, bool resident) {
     const int bh = bkv * group + h;
     const size_t qoff = static_cast<size_t>(bh) * tq;
-    bf16* sQ = sQG + 2 * stage * kB * D;
+    bf16* sQ = sQG + stage * kB * (D + DV);
     float* sr = sRow + kRV * stage * kB;
     if (threadIdx.x == 0) {
       uint64_t* bar = &bars[stage];
-      // Resident: K (int8: 1 byte an element) and V for both warpgroups;
+      // Resident: the block's K (int8: 1 byte an element) and V rows;
       // streamed: q2 (q~) and dO, and the int8 q.
       constexpr int kKB = Quant ? 1 : 2;
-      mbar_expect_tx(bar, (resident ? kRows * D * (kKB + 2) : 0) +
-                              (Quant ? 5 : 4) * kB * D);
+      mbar_expect_tx(bar, (resident ? kKeys * (D * kKB + 2 * DV) : 0) +
+                              (Quant ? 3 : 2) * kB * D + 2 * kB * DV);
       if (resident) {
-        for (int w = 0; w < kWgs; ++w) {
+        for (int w = 0; w < kKeys / kB; ++w) {
           if constexpr (Quant)
             tma_tile<D>(reinterpret_cast<signed char*>(sK) + w * kB * D,
                         &map_k, kb0 + w * kB, bkv, bar);
           else
             tma_tile<D>(sK + w * kB * D, &map_k, kb0 + w * kB, bkv, bar);
-          tma_tile<D>(sV + w * kB * D, &map_v, kb0 + w * kB, bkv, bar);
+          tma_tile<DV>(sV + w * kB * DV, &map_v, kb0 + w * kB, bkv, bar);
         }
       }
       tma_tile<D>(sQ, &map_q, qt * kB, bh, bar);
-      tma_tile<D>(sQ + kB * D, &map_g, qt * kB, bh, bar);
+      tma_tile<DV>(sQ + kB * D, &map_g, qt * kB, bh, bar);
       if constexpr (Quant)
         tma_tile<D>(sQ8 + stage * kB * D, &map_q8, qt * kB, bh, bar);
     }
@@ -725,16 +792,21 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap map_q,
   // Quant: the block's k row scales in the unused half of sK (the loop's
   // first barrier orders them before their use).
   float* sSkr = reinterpret_cast<float*>(
-      reinterpret_cast<unsigned char*>(sK) + kRows * D);
+      reinterpret_cast<unsigned char*>(sK) + kKeys * D);
   if constexpr (Quant) {
-    if (threadIdx.x < kRows)
+    if (threadIdx.x < kKeys)
       sSkr[threadIdx.x] = kb0 + threadIdx.x < tk
           ? ext.skr[static_cast<size_t>(bkv) * tk + kb0 + threadIdx.x] : 0.f;
   }
 
-  float acc_dk[D / 2], acc_dv[D / 2];
+  // The accumulators: dK (D/2 floats a thread) and dV (DV/2); split, one
+  // array that warpgroup 0 holds dV in and warpgroup 1 dK.
+  constexpr int kAccDk = kSplit ? (D > DV ? D : DV) : D;
+  float acc_dk[kAccDk / 2], acc_dv[kSplit ? 1 : DV / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc_dk[i] = acc_dv[i] = 0.f;
+  for (int i = 0; i < kAccDk / 2; ++i) acc_dk[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < (kSplit ? 1 : DV / 2); ++i) acc_dv[i] = 0.f;
 
   int h = 0, qt = qt_begin;
   next_item(h, qt);
@@ -749,8 +821,8 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap map_q,
     cp_async_commit();
   }
   const uint32_t tK = smem_u32(reinterpret_cast<unsigned char*>(sK) +
-                              wg * kB * D * (Quant ? 1 : 2));
-  const uint32_t tV = smem_u32(sV + wg * kB * D);
+                              kw * kB * D * (Quant ? 1 : 2));
+  const uint32_t tV = smem_u32(sV + kw * kB * DV);
   // The head's state: mask rows, the key rows' segments and positions, the
   // key tile's position range, the dropout salt and ALiBi slope (read per
   // query head, as they are addressed).
@@ -802,7 +874,7 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap map_q,
 
     if (sees(wg, h, qt)) {
       const int q0 = qt * kB;
-      const uint32_t tQ = smem_u32(sQG + 2 * stage * kB * D);
+      const uint32_t tQ = smem_u32(sQG + stage * kB * (D + DV));
       const uint32_t tG = tQ + kB * D * sizeof(bf16);
       const float* sLse = sRow + kRV * stage * kB;
       const float* sDelta = sLse + kB;
@@ -833,9 +905,12 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap map_q,
         for (int kk = 0; kk < D / 16; ++kk)
           Wgmma<64>::ss(sa, desc_kmajor(tK, kk), desc_kmajor(tQ, kk), kk);
       }
+      // dP^T: every warpgroup, but split only the dK one (wg 1).
+      if (!kSplit || wg == 1) {
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        Wgmma<64>::ss(dp, desc_kmajor(tV, kk), desc_kmajor(tG, kk), kk);
+        for (int kk = 0; kk < DV / 16; ++kk)
+          Wgmma<64>::ss(dp, desc_kmajor(tV, kk), desc_kmajor(tG, kk), kk);
+      }
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(sa);
@@ -845,7 +920,7 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap map_q,
 #pragma unroll
         for (int i = 0; i < 32; i += 2) {
           const float2 c = sqf2[acc_col(i) / 2];
-          const float r = sSkr[wg * kB + lr + 8 * ((i >> 1) & 1)];
+          const float r = sSkr[kw * kB + lr + 8 * ((i >> 1) & 1)];
           s[i] = __fmul_rn(__fmul_rn(static_cast<float>(sa[i]), c.x), r);
           s[i + 1] =
               __fmul_rn(__fmul_rn(static_cast<float>(sa[i + 1]), c.y), r);
@@ -934,23 +1009,43 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap map_q,
         scores(std::false_type());
       else
         scores(std::true_type());
-      uint32_t pt[4][4], dst[4][4];
-      to_frags(s, pt);
-      to_frags(dp, dst);
-
       // dV += P^T . dO and dK += dS^T . q2 (q~), the query tiles read
-      // MN-major.
-      wgmma_fence();
+      // MN-major (split: dV in warpgroup 0, dK in warpgroup 1).
+      if constexpr (kSplit) {
+        uint32_t fr[4][4];
+        if (wg == 0)
+          to_frags(s, fr);
+        else
+          to_frags(dp, fr);
+        wgmma_fence();
+        if (wg == 0) {
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        Wgmma<D>::rs(acc_dv, pt[kk], desc_mnmajor(tG, kk), 1);
+          for (int kk = 0; kk < 4; ++kk)
+            mma_rs<DV>(*reinterpret_cast<float(*)[DV / 2]>(acc_dk), fr[kk],
+                       tG, kk);
+        } else {
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        Wgmma<D>::rs(acc_dk, dst[kk], desc_mnmajor(tQ, kk), 1);
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(acc_dv);
-      fence_regs(acc_dk);
+          for (int kk = 0; kk < 4; ++kk)
+            mma_rs<D>(*reinterpret_cast<float(*)[D / 2]>(acc_dk), fr[kk], tQ,
+                      kk);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(acc_dk);
+      } else {
+        uint32_t pt[4][4], dst[4][4];
+        to_frags(s, pt);
+        to_frags(dp, dst);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) mma_rs<DV>(acc_dv, pt[kk], tG, kk);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) mma_rs<D>(acc_dk, dst[kk], tQ, kk);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(acc_dv);
+        fence_regs(acc_dk);
+      }
     }
     __syncthreads();   // every thread done with `stage` before its refill
     ++qt;
@@ -961,13 +1056,23 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap map_q,
 
   // dk: dk_mul is 1/log2(e) for the folded q2, which carries
   // scale*log2(e), and the softmax scale for q~.
+  const size_t kvrow = static_cast<size_t>(bkv) * tk;
+  if (!kSplit || wg == 1) {
 #pragma unroll
-  for (int i = 0; i < D / 2; i += 2) {
-    const int row = k0 + acc_row(i);
-    if (row < tk) {
-      const size_t at = kvoff + static_cast<size_t>(row) * D + acc_col(i);
-      store_pair(dk + at, acc_dk[i] * dk_mul, acc_dk[i + 1] * dk_mul);
-      store_pair(dv + at, acc_dv[i], acc_dv[i + 1]);
+    for (int i = 0; i < D / 2; i += 2) {
+      const int row = k0 + acc_row(i);
+      if (row < tk)
+        store_pair(dk + (kvrow + row) * D + acc_col(i), acc_dk[i] * dk_mul,
+                   acc_dk[i + 1] * dk_mul);
+    }
+  }
+  if (!kSplit || wg == 0) {
+    const float* av = kSplit ? acc_dk : acc_dv;
+#pragma unroll
+    for (int i = 0; i < DV / 2; i += 2) {
+      const int row = k0 + acc_row(i);
+      if (row < tk)
+        store_pair(dv + (kvrow + row) * DV + acc_col(i), av[i], av[i + 1]);
     }
   }
 }
@@ -985,49 +1090,50 @@ int launch(void (*kernel)(Params...), dim3 grid, int threads, size_t smem,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The maps of q2 and dO (batch_heads, tq, D) and of k and v (batch_heads /
-// group, tk, D; q or k int8 with `q_i8` / `k_i8`), in the kernels'
-// parameter order, and of the int8 operand a Quant instantiation streams
-// (`x8`: rows `x8_rows` of `x8_heads` heads, none when 0); false when one
-// fails.
+// The maps of q2 (batch_heads, tq, D), k (batch_heads / group, tk, D), v
+// (batch_heads / group, tk, DV) and dO (batch_heads, tq, DV) (q or k int8
+// with `q_i8` / `k_i8`), in the kernels' parameter order, and of the int8
+// operand a Quant instantiation streams (`x8`: rows `x8_rows` of
+// `x8_heads` heads, none when 0); false when one fails.
 bool operand_maps(CUtensorMap (&maps)[5], const void* q2, const void* k,
                   const void* v, const void* g, int batch_heads, int group,
-                  int tq, int tk, int d, bool q_i8, bool k_i8,
+                  int tq, int tk, int d, int dv, bool q_i8, bool k_i8,
                   const void* x8, int x8_heads, int x8_rows) {
   return tile_map(&maps[0], q2, batch_heads, tq, d, q_i8) &&
          tile_map(&maps[1], k, batch_heads / group, tk, d, k_i8) &&
-         tile_map(&maps[2], v, batch_heads / group, tk, d) &&
-         tile_map(&maps[3], g, batch_heads, tq, d) &&
+         tile_map(&maps[2], v, batch_heads / group, tk, dv) &&
+         tile_map(&maps[3], g, batch_heads, tq, dv) &&
          tile_map(&maps[4], x8, x8_heads, x8_rows, d, true);
 }
 
-template <int D, bool HasMask, typename OutT, bool Ext, bool Quant>
+template <int D, int DV, bool HasMask, typename OutT, bool Ext, bool Quant>
 int launch_dq(const void* q2, const void* k, const void* v, const void* g,
               const void* lse2, const void* delta, void* dq,
               const MaskArgs& mask, int batch_heads, int group, int tq,
               int tk, int causal, int causal_offset, int kv_offset,
               float scale, const ExtArgs& ext, cudaStream_t stream) {
-  const int n_qblocks = (tq + kRows - 1) / kRows;
+  constexpr int kW = kDqWgs<D, DV, Ext, Quant>;
+  const int n_qblocks = (tq + kW * kB - 1) / (kW * kB);
   if (n_qblocks == 0 || batch_heads == 0) return 0;
   // int8 scoring: q2 is the int8 q of ExtArgs and k the dequantized k~,
   // beside the int8 k.
   CUtensorMap maps[5];
   if (!operand_maps(maps, Quant ? ext.q8 : q2, k, v, g, batch_heads, group,
-                    tq, tk, D, Quant, false, ext.k8,
+                    tq, tk, D, DV, Quant, false, ext.k8,
                     Quant ? batch_heads / group : 0, tk))
     return static_cast<int>(cudaErrorInvalidValue);
-  // blockIdx.x the (batch, head) row, blockIdx.y the 128-row query block
-  // from the last: every row's longest causal extents launch first.
-  return launch(flash_bwd_dq_kernel<D, HasMask, OutT, Ext, Quant>,
-                dim3(batch_heads, n_qblocks), kBlockThreads,
-                dq_smem_bytes<D, Ext, Quant>(), stream, maps[0], maps[1],
+  // blockIdx.x the (batch, head) row, blockIdx.y the query block from the
+  // last: every row's longest causal extents launch first.
+  return launch(flash_bwd_dq_kernel<D, DV, HasMask, OutT, Ext, Quant>,
+                dim3(batch_heads, n_qblocks), kW * kThreads,
+                dq_smem_bytes<D, DV, Ext, Quant>(), stream, maps[0], maps[1],
                 maps[2], maps[3], maps[4], static_cast<const float*>(lse2),
                 static_cast<const float*>(delta), static_cast<OutT*>(dq),
                 mask, tq, tk, group, causal, causal_offset, kv_offset, scale,
                 n_qblocks, ext);
 }
 
-template <int D, bool HasMask, typename OutT, bool Ext, bool Quant>
+template <int D, int DV, bool HasMask, typename OutT, bool Ext, bool Quant>
 int launch_dkv(const void* q2, const void* k, const void* v, const void* g,
                const void* lse2, const void* delta, void* dk, void* dv,
                const MaskArgs& mask, int batch_heads, int group, int tq,
@@ -1038,14 +1144,15 @@ int launch_dkv(const void* q2, const void* k, const void* v, const void* g,
   // beside the int8 q.
   CUtensorMap maps[5];
   if (!operand_maps(maps, q2, Quant ? ext.k8 : k, v, g, batch_heads, group,
-                    tq, tk, D, false, Quant, ext.q8,
+                    tq, tk, D, DV, false, Quant, ext.q8,
                     Quant ? batch_heads : 0, tq))
     return static_cast<int>(cudaErrorInvalidValue);
-  // blockIdx.x the kv head, blockIdx.y the 128-row key block: every head's
-  // early key blocks (seen by the most causal query rows) first.
-  return launch(flash_bwd_dkv_kernel<D, HasMask, OutT, Ext, Quant>,
-                dim3(batch_heads / group, (tk + kRows - 1) / kRows),
-                kBlockThreads, dkv_smem_bytes<D, Ext, Quant>(), stream,
+  // blockIdx.x the kv head, blockIdx.y the key block: every head's early
+  // key blocks (seen by the most causal query rows) first.
+  constexpr int kKeys = kDkvSplit<D, DV> ? kB : kRows;
+  return launch(flash_bwd_dkv_kernel<D, DV, HasMask, OutT, Ext, Quant>,
+                dim3(batch_heads / group, (tk + kKeys - 1) / kKeys),
+                kBlockThreads, dkv_smem_bytes<D, DV, Ext, Quant>(), stream,
                 maps[0], maps[1], maps[2], maps[3], maps[4],
                 static_cast<const float*>(lse2),
                 static_cast<const float*>(delta), static_cast<OutT*>(dk),
@@ -1062,22 +1169,24 @@ MaskArgs mask_args(const void* mask, int inner, long long so, long long si,
 
 }  // namespace
 
-// q2, g (batch_heads, tq, d); k, v (batch_heads / group, tk, d); lse2,
-// delta (batch_heads, tq) float32; dq like q2, in float32 when out_f32 and
-// in bf16 otherwise. mask: null, or bytes addressed as MaskArgs (inner =
-// heads; strides in bytes). ext: null (the base instantiations), or the
-// segments, window, dropout, int8 operands, ALiBi slopes and positions of
-// ExtArgs (the Ext instantiations; with int8 operands dq reads the int8 q
-// and not q2, and the dequantized k~ as k; dk/dv reads the dequantized q~
-// as q2, and the int8 k and not k). All contiguous, bf16 unless stated.
-// Returns a cudaError_t code (0 = launched).
+// q2 (batch_heads, tq, d), g (batch_heads, tq, dv); k (batch_heads /
+// group, tk, d), v (batch_heads / group, tk, dv); lse2, delta (batch_heads,
+// tq) float32; dq like q2, in float32 when out_f32 and in bf16 otherwise;
+// (d, dv) a pair of FLASH_GRID (the wrapper pads to it). mask: null, or
+// bytes addressed as MaskArgs (inner = heads; strides in bytes). ext: null
+// (the base instantiations), or the segments, window, dropout, int8
+// operands, ALiBi slopes and positions of ExtArgs (the Ext instantiations;
+// with int8 operands dq reads the int8 q and not q2, and the dequantized k~
+// as k; dk/dv reads the dequantized q~ as q2, and the int8 k and not k).
+// All contiguous, bf16 unless stated. Returns a cudaError_t code (0 =
+// launched).
 extern "C" int flash_bwd_dq_bf16(const void* q2, const void* k,
                                  const void* v, const void* g,
                                  const void* lse2, const void* delta,
                                  void* dq, const void* mask, int mask_inner,
                                  long long mask_so, long long mask_si,
                                  long long mask_sr, int batch_heads,
-                                 int group, int tq, int tk, int d,
+                                 int group, int tq, int tk, int d, int dv,
                                  int causal, int causal_offset,
                                  int kv_offset, float scale, int out_f32,
                                  const void* ext, void* stream) {
@@ -1085,77 +1194,72 @@ extern "C" int flash_bwd_dq_bf16(const void* q2, const void* k,
   const MaskArgs m = mask_args(mask, mask_inner, mask_so, mask_si, mask_sr);
   const ExtArgs* e = static_cast<const ExtArgs*>(ext);
   const ExtArgs none{};
-#define DQ_LAUNCH(D, M, T, E, Q)                                             \
-  return launch_dq<D, M, T, E, Q>(q2, k, v, g, lse2, delta, dq, m,          \
-                                  batch_heads, group, tq, tk, causal,       \
-                                  causal_offset, kv_offset, scale,          \
-                                  E ? *e : none, s)
+#define DQ_LAUNCH(D, DV, M, T, E, Q)                                         \
+  return launch_dq<D, DV, M, T, E, Q>(q2, k, v, g, lse2, delta, dq, m,      \
+                                      batch_heads, group, tq, tk, causal,   \
+                                      causal_offset, kv_offset, scale,      \
+                                      E ? *e : none, s)
   // Built three times (ops/_build.py): the base instantiations of both
   // passes, and with FLASH_EXT=1 / =2 the Ext ones of dq / dk,dv, each
   // refusing the others' calls.
 #if !defined(FLASH_EXT)
   if (e != nullptr) return static_cast<int>(cudaErrorInvalidValue);
-#define DQ_CASE(D)                                                           \
-    case D:                                                                  \
-      if (mask == nullptr) {                                                 \
-        if (out_f32) DQ_LAUNCH(D, false, float, false, false);               \
-        DQ_LAUNCH(D, false, bf16, false, false);                             \
-      }                                                                      \
-      if (out_f32) DQ_LAUNCH(D, true, float, false, false);                  \
-      DQ_LAUNCH(D, true, bf16, false, false);
+#define DQ_CASE(D, DV)                                                       \
+  if (d == D && dv == DV) {                                                  \
+    if (mask == nullptr) {                                                   \
+      if (out_f32) DQ_LAUNCH(D, DV, false, float, false, false);             \
+      DQ_LAUNCH(D, DV, false, bf16, false, false);                           \
+    }                                                                        \
+    if (out_f32) DQ_LAUNCH(D, DV, true, float, false, false);                \
+    DQ_LAUNCH(D, DV, true, bf16, false, false);                              \
+  }
 #elif FLASH_EXT == 1
   if (e == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-#define DQ_CASE(D)                                                           \
-    case D:                                                                  \
-      if (e->q8 != nullptr) {                                                \
-        if (out_f32) DQ_LAUNCH(D, false, float, true, true);                 \
-        DQ_LAUNCH(D, false, bf16, true, true);                               \
-      }                                                                      \
-      if (out_f32) DQ_LAUNCH(D, false, float, true, false);                  \
-      DQ_LAUNCH(D, false, bf16, true, false);
-#else
-#define DQ_CASE(D)                                                           \
-    case D:                                                                  \
-      return static_cast<int>(cudaErrorInvalidValue);
-#endif
-  switch (d) {
-    DQ_CASE(32) DQ_CASE(64) DQ_CASE(96) DQ_CASE(128)
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+#define DQ_CASE(D, DV)                                                       \
+  if (d == D && dv == DV) {                                                  \
+    if (e->q8 != nullptr) {                                                  \
+      if (out_f32) DQ_LAUNCH(D, DV, false, float, true, true);               \
+      DQ_LAUNCH(D, DV, false, bf16, true, true);                             \
+    }                                                                        \
+    if (out_f32) DQ_LAUNCH(D, DV, false, float, true, false);                \
+    DQ_LAUNCH(D, DV, false, bf16, true, false);                              \
   }
+#else
+#define DQ_CASE(D, DV)
+#endif
+  FLASH_GRID(DQ_CASE)
 #undef DQ_CASE
 #undef DQ_LAUNCH
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The dynamic shared memory a block of the dq (dk/dv) kernel takes at
-// head dim d: the base instantiation, Ext, or Ext with int8 scoring
-// (quant); 0 for a head dim the kernels do not take.
-#define SMEM_CASE(BYTES, D)                                          \
-    case D:                                                          \
-      return quant ? BYTES<D, true, true>()                          \
-                   : ext ? BYTES<D, true, false>()                   \
-                         : BYTES<D, false, false>();
-extern "C" long long flash_bwd_dq_smem_bytes(int d, int ext, int quant) {
-  switch (d) {
-    SMEM_CASE(dq_smem_bytes, 32) SMEM_CASE(dq_smem_bytes, 64)
-    SMEM_CASE(dq_smem_bytes, 96) SMEM_CASE(dq_smem_bytes, 128)
-    default:
-      return 0;
-  }
+// The dynamic shared memory a block of the dq (dk/dv) kernel takes at the
+// grid pair (d, dv): the base instantiation, Ext, or Ext with int8 scoring
+// (quant); 0 for a pair off the grid.
+#define SMEM_CASE(BYTES, D, DV)                                      \
+  if (d == D && dv == DV)                                            \
+    return quant ? BYTES<D, DV, true, true>()                        \
+                 : ext ? BYTES<D, DV, true, false>()                 \
+                       : BYTES<D, DV, false, false>();
+#define DQ_SMEM(D, DV) SMEM_CASE(dq_smem_bytes, D, DV)
+#define DKV_SMEM(D, DV) SMEM_CASE(dkv_smem_bytes, D, DV)
+extern "C" long long flash_bwd_dq_smem_bytes(int d, int dv, int ext,
+                                             int quant) {
+  FLASH_GRID(DQ_SMEM)
+  return 0;
 }
 
-extern "C" long long flash_bwd_dkv_smem_bytes(int d, int ext, int quant) {
-  switch (d) {
-    SMEM_CASE(dkv_smem_bytes, 32) SMEM_CASE(dkv_smem_bytes, 64)
-    SMEM_CASE(dkv_smem_bytes, 96) SMEM_CASE(dkv_smem_bytes, 128)
-    default:
-      return 0;
-  }
+extern "C" long long flash_bwd_dkv_smem_bytes(int d, int dv, int ext,
+                                              int quant) {
+  FLASH_GRID(DKV_SMEM)
+  return 0;
 }
+#undef DKV_SMEM
+#undef DQ_SMEM
 #undef SMEM_CASE
 
-// As above; dk, dv like k, v (each GQA group's query heads summed), in
-// float32 when out_f32 and in bf16 otherwise. scale: the softmax scale,
+// As above; dk like k and dv like v (each GQA group's query heads summed),
+// in float32 when out_f32 and in bf16 otherwise. scale: the softmax scale,
 // which only int8 scoring's dk uses (the folded q2 carries it otherwise).
 extern "C" int flash_bwd_dkv_bf16(const void* q2, const void* k,
                                   const void* v, const void* g,
@@ -1164,48 +1268,46 @@ extern "C" int flash_bwd_dkv_bf16(const void* q2, const void* k,
                                   int mask_inner, long long mask_so,
                                   long long mask_si, long long mask_sr,
                                   int batch_heads, int group, int tq, int tk,
-                                  int d, int causal, int causal_offset,
-                                  int kv_offset, float scale, int out_f32,
-                                  const void* ext, void* stream) {
+                                  int d, int d_v, int causal,
+                                  int causal_offset, int kv_offset,
+                                  float scale, int out_f32, const void* ext,
+                                  void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const MaskArgs m = mask_args(mask, mask_inner, mask_so, mask_si, mask_sr);
   const ExtArgs* e = static_cast<const ExtArgs*>(ext);
   const ExtArgs none{};
-#define DKV_LAUNCH(D, M, T, E, Q)                                             \
-  return launch_dkv<D, M, T, E, Q>(q2, k, v, g, lse2, delta, dk, dv, m,      \
-                                   batch_heads, group, tq, tk, causal,       \
-                                   causal_offset, kv_offset, scale,          \
-                                   E ? *e : none, s)
+#define DKV_LAUNCH(D, DV, M, T, E, Q)                                         \
+  return launch_dkv<D, DV, M, T, E, Q>(q2, k, v, g, lse2, delta, dk, dv, m,  \
+                                       batch_heads, group, tq, tk, causal,   \
+                                       causal_offset, kv_offset, scale,      \
+                                       E ? *e : none, s)
 #if !defined(FLASH_EXT)
   if (e != nullptr) return static_cast<int>(cudaErrorInvalidValue);
-#define DKV_CASE(D)                                                           \
-    case D:                                                                   \
-      if (mask == nullptr) {                                                  \
-        if (out_f32) DKV_LAUNCH(D, false, float, false, false);               \
-        DKV_LAUNCH(D, false, bf16, false, false);                             \
-      }                                                                       \
-      if (out_f32) DKV_LAUNCH(D, true, float, false, false);                  \
-      DKV_LAUNCH(D, true, bf16, false, false);
+#define DKV_CASE(D, DV)                                                       \
+  if (d == D && d_v == DV) {                                                  \
+    if (mask == nullptr) {                                                    \
+      if (out_f32) DKV_LAUNCH(D, DV, false, float, false, false);             \
+      DKV_LAUNCH(D, DV, false, bf16, false, false);                           \
+    }                                                                         \
+    if (out_f32) DKV_LAUNCH(D, DV, true, float, false, false);                \
+    DKV_LAUNCH(D, DV, true, bf16, false, false);                              \
+  }
 #elif FLASH_EXT == 2
   if (e == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-#define DKV_CASE(D)                                                           \
-    case D:                                                                   \
-      if (e->q8 != nullptr) {                                                 \
-        if (out_f32) DKV_LAUNCH(D, false, float, true, true);                 \
-        DKV_LAUNCH(D, false, bf16, true, true);                               \
-      }                                                                       \
-      if (out_f32) DKV_LAUNCH(D, false, float, true, false);                  \
-      DKV_LAUNCH(D, false, bf16, true, false);
-#else
-#define DKV_CASE(D)                                                           \
-    case D:                                                                   \
-      return static_cast<int>(cudaErrorInvalidValue);
-#endif
-  switch (d) {
-    DKV_CASE(32) DKV_CASE(64) DKV_CASE(96) DKV_CASE(128)
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+#define DKV_CASE(D, DV)                                                       \
+  if (d == D && d_v == DV) {                                                  \
+    if (e->q8 != nullptr) {                                                   \
+      if (out_f32) DKV_LAUNCH(D, DV, false, float, true, true);               \
+      DKV_LAUNCH(D, DV, false, bf16, true, true);                             \
+    }                                                                         \
+    if (out_f32) DKV_LAUNCH(D, DV, false, float, true, false);                \
+    DKV_LAUNCH(D, DV, false, bf16, true, false);                              \
   }
+#else
+#define DKV_CASE(D, DV)
+#endif
+  FLASH_GRID(DKV_CASE)
 #undef DKV_CASE
 #undef DKV_LAUNCH
+  return static_cast<int>(cudaErrorInvalidValue);
 }

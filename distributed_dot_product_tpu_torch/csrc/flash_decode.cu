@@ -32,7 +32,8 @@
 //   the launch.
 // - Each warp runs its own pipeline over its 16 columns of every step,
 //   two stages, no block barrier in the loop: one lane a row issues the
-//   K and V rows together with cp.async (16 bytes at a time) into rows
+//   K and V rows together with cp.async (16 bytes at a time; 8 or 4 where
+//   the row width allows no more, byte loads for an odd width) into rows
 //   padded by 16 bytes, so the mma fragment reads of 8 rows hit 8
 //   different bank groups at every head dim (unpadded rows 2*d bytes
 //   apart would put them in one or two: an 8- or 4-way conflict). A
@@ -92,10 +93,23 @@
 // every query row in float32 instead of dividing; a row with no column
 // gives numerator 0, max NEG_BIG and denominator 0.
 //
+// Widths: the kernel is a template on the FLASH_GRID pair (D, DV) of
+// csrc/hopper.cuh that covers the true widths d (q, k) and dv (v), any
+// from 1 to 256. The cache is appended in place and is never padded: rows
+// are read and written at their true widths (row strides d and dv) and
+// zero-filled to D and DV in shared memory, so the extra columns add
+// nothing to S and give O columns that are never stored.
+//
+// The K split: rank r owns the chunks c with c % C == r of `chunk`
+// columns each (kChunk = 128, or a slab call's block_k); a step is a
+// 64-column piece of a chunk (the last piece shorter when the chunk is no
+// multiple of 64).
+//
 // Paged (K5p): the cache is a pool of (pages + 1, h_kv, page_size, d)
 // pages, and column c of slot b lives at row c % page_size of pool page
-// table[b][c / page_size] (page sizes dividing 128, or multiples of 128:
-// a chunk then covers part of a page). A -1 entry is never read: its
+// table[b][c / page_size], for any page size (a chunk holds the ids of
+// every page its 128 columns touch; shifts for a power of two, divisions
+// otherwise). A -1 entry is never read: its
 // columns score -inf and an append that lands on it writes nothing. The
 // mirror pools share the table. The appends are the only writes
 // (nothing goes to the pool's sink page); the host allocator copies a
@@ -115,6 +129,7 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int kChunk = 128;        // columns a cluster rank owns at a time
+                                   // (the default split; block_k on a slab)
 constexpr int kStep = 64;          // columns a step spans, 16 a warp
 constexpr int kWarpCols = kStep / kWarps;
 constexpr int kStages = 2;         // a warp's steps in flight
@@ -131,10 +146,11 @@ __device__ __forceinline__ void row_span(int vt, int t_max, int window,
 }
 
 // Byte offsets of one block's dynamic shared memory, for `rows` = n *
-// group query rows of head dim d. Each warp has its own stages of its 16
-// columns of a step; every row of K, V and q is padded by 16 bytes
-// (conflict-free fragment reads). After a pass a warp leaves its state
-// (O, m, l of the pass's 16 rows) in its own stages.
+// group query rows of the instantiation's widths D (q, k) and DV (v). Each
+// warp has its own stages of its 16 columns of a step; every row of K, V
+// and q is padded by 16 bytes (conflict-free fragment reads). After a pass
+// a warp leaves its state (O, m, l of the pass's 16 rows) in its own
+// stages.
 struct Layout {
   int krow, vrow;            // bytes of a K row (q rows alike), a V row
   int v, ks, wstage;         // V, int8 scales within a warp's stage; size
@@ -144,21 +160,29 @@ struct Layout {
 
 __host__ __device__ inline int align16(int x) { return (x + 15) & ~15; }
 
-// Page ids a rank holds (paged): its chunks' pages, 128 / page_size a
-// chunk (one when a page spans chunks), for ceil(chunks / cluster) chunks.
+// The page ids of one 128-column chunk: 128 / page_size for a divisor of
+// 128, one for a multiple of 128, and otherwise the most pages 128
+// consecutive columns can touch (ceil(127 / page_size) + 1).
+__host__ __device__ inline int pages_per_chunk(int page_size) {
+  if (kChunk % page_size == 0) return kChunk / page_size;
+  if (page_size % kChunk == 0) return 1;
+  return (kChunk - 1 + page_size - 1) / page_size + 1;
+}
+
+// Page ids a rank holds (paged): its chunks' pages, pages_per_chunk a
+// chunk, for ceil(chunks / cluster) chunks.
 __host__ __device__ inline int page_entries(int t_max, int page_size,
                                             int cluster) {
   if (page_size <= 0) return 0;
   const int chunks = (t_max + kChunk - 1) / kChunk;
-  return (chunks + cluster - 1) / cluster *
-         (page_size < kChunk ? kChunk / page_size : 1);
+  return (chunks + cluster - 1) / cluster * pages_per_chunk(page_size);
 }
 
-__host__ __device__ inline Layout make_layout(int rows, int n, int d,
+__host__ __device__ inline Layout make_layout(int rows, int n, int d, int dv,
                                               bool quant, int pages) {
   Layout L;
   L.krow = (quant ? d : 2 * d) + 16;
-  L.vrow = 2 * d + 16;
+  L.vrow = 2 * dv + 16;
   L.v = kWarpCols * L.krow;
   L.ks = L.v + kWarpCols * L.vrow;
   L.wstage = align16(L.ks + (quant ? 4 * kWarpCols : 0));
@@ -169,25 +193,26 @@ __host__ __device__ inline Layout make_layout(int rows, int n, int d,
   L.fresh = o;    o = align16(o + (quant ? n * d : 0));   // int8 k_new
   L.fresh_s = o;  o = align16(o + (quant ? 4 * n : 0));   // and scales
   L.pages = o;    o = align16(o + 4 * pages);     // the rank's page ids
-  L.part = o;     o += 4 * rows * d;              // this rank's acc
+  L.part = o;     o += 4 * rows * dv;             // this rank's acc
   L.part_ml = o;  o = align16(o + 8 * rows);      // and its m, l
   L.slices = o;   o += 12 * kMaxCluster + 16;     // the merge's slices
   L.bar = o;      o += 16;                        // its mbarrier
   // The merge's gathered partials, weights, m and l: at most this.
-  L.w = o;        o = align16(o + 4 * (rows * d + 26 * rows + 16));
+  L.w = o;        o = align16(o + 4 * (rows * dv + 26 * rows + 16));
   L.bytes = o;
   return L;
 }
 
-// Every operand of one launch. Shapes (all contiguous): q (batch, h, n,
-// D); k_new/v_new (batch, h_kv, n, D); slab caches (batch, h_kv, t_max,
-// D), or pools (pages + 1, h_kv, page_size, D) read through page_table
-// (batch, t_max / page_size); valid_to/append_at/n_new (batch,; n_new
-// null: n rows wherever append_at >= 0). The int8 mirror (k_q !=
-// nullptr): k_q / k_scale laid out as the bf16 cache with D and 1
-// elements per row. alibi: null, or the (h,) slopes. Outputs: out
-// (batch, h, n, D) bf16, or with num != nullptr the partials num (batch,
-// h, n, D), m and l (batch, h, n), all f32.
+// Every operand of one launch. Shapes (all contiguous; d and dv the true
+// widths of k and v rows, at most the instantiation's D and DV): q (batch,
+// h, n, d); k_new (batch, h_kv, n, d), v_new (batch, h_kv, n, dv); slab
+// caches (batch, h_kv, t_max, d / dv), or pools (pages + 1, h_kv,
+// page_size, d / dv) read through page_table (batch, t_max / page_size);
+// valid_to/append_at/n_new (batch,; n_new null: n rows wherever append_at
+// >= 0). The int8 mirror (k_q != nullptr): k_q / k_scale laid out as the
+// bf16 K cache with d and 1 elements per row. alibi: null, or the (h,)
+// slopes. Outputs: out (batch, h, n, dv) bf16, or with num != nullptr the
+// partials num (batch, h, n, dv), m and l (batch, h, n), all f32.
 struct Args {
   const bf16* q;
   const bf16* k_new;
@@ -206,7 +231,12 @@ struct Args {
   float* m_out;
   float* l_out;
   int h, h_kv, group, n, t_max, page_size, window, cluster;
-  int cluster_shift, page_shift;   // log2 of the cluster, of page sizes <= 128
+  int d, dv;                 // the true row widths of k and v
+  int kw, vw, k8w;           // copy widths of a k, v, int8 k row (16/8/4/2/1)
+  int chunk, spc;            // columns of a chunk, 64-column steps in one
+  int cluster_shift;         // log2 of the cluster
+  int page_shift;            // log2 of a power-of-two page size, else -1
+  int ppc;                   // page ids of a chunk (pages_per_chunk)
   int pages;                 // page ids a rank holds (page_entries)
   float qscale;
 };
@@ -233,11 +263,24 @@ __device__ __forceinline__ Slot make_slot(const Args& a, int vt, int ap,
   return s;
 }
 
+// Steps number a chunk's 64-column pieces: step s is piece s % spc of
+// chunk s / spc (the last piece shorter when the chunk is no multiple of
+// 64). The step holding column col, and the first column of step s.
+__device__ __forceinline__ int step_of(const Args& a, int col) {
+  const int c = col / a.chunk;
+  return c * a.spc + (col - c * a.chunk) / kStep;
+}
+
+__device__ __forceinline__ int step_col(const Args& a, int s) {
+  return s / a.spc * a.chunk + s % a.spc * kStep;
+}
+
 // The first step at or after step s whose chunk rank `rank` owns.
-__device__ __forceinline__ int owned_from(int s, int rank, int cluster) {
-  const int c = s / (kChunk / kStep);
+__device__ __forceinline__ int owned_from(int s, int rank, int cluster,
+                                          int spc) {
+  const int c = s / spc;
   const int own = c + ((rank - c % cluster) % cluster + cluster) % cluster;
-  return own == c ? s : own * (kChunk / kStep);
+  return own == c ? s : own * spc;
 }
 
 // Where column `col` of the block's (slot, kv head) lives, in rows of the
@@ -249,16 +292,23 @@ __device__ __forceinline__ int cache_row(const Args& a, const Slot& s,
                                          const int* pages, int col) {
   if (!PAGED) return s.bh * a.t_max + col;
   const int ps = a.page_size;
-  const int k = col / kChunk >> a.cluster_shift;   // the rank's k-th chunk
-  if (ps <= kChunk) {            // a power of two: shifts and masks
-    const int sh = a.page_shift;
-    const int page = pages[(k << (7 - sh)) + (col % kChunk >> sh)];
-    if (page < 0) return -1;
-    return ((page * a.h_kv + s.hk) << sh) + (col & (ps - 1));
+  const int c = col / kChunk;
+  const int k = c >> a.cluster_shift;   // the rank's k-th chunk
+  // The column's page, its chunk's first page and its row in the page:
+  // shifts and masks for a power of two, divisions otherwise.
+  int page_no, first, at;
+  if (a.page_shift >= 0) {
+    page_no = col >> a.page_shift;
+    first = c * kChunk >> a.page_shift;
+    at = col & (ps - 1);
+  } else {
+    page_no = col / ps;
+    first = c * kChunk / ps;
+    at = col - page_no * ps;
   }
-  const int page = pages[k];
+  const int page = pages[k * a.ppc + page_no - first];
   if (page < 0) return -1;
-  return (page * a.h_kv + s.hk) * ps + col % ps;
+  return (page * a.h_kv + s.hk) * ps + at;
 }
 
 // The row of column `lane` of the calling warp's 16 columns of `step`
@@ -267,9 +317,52 @@ template <bool PAGED>
 __device__ __forceinline__ int lookup(const Args& a, const Slot& s,
                                       const int* pages, int step) {
   const int lane = threadIdx.x % 32;
-  const int col = step * kStep + kWarpCols * (threadIdx.x / 32) + lane;
-  return lane < kWarpCols && col >= s.lo && col <= s.hi
+  const int in_chunk = step % a.spc * kStep + kWarpCols * (threadIdx.x / 32) +
+                       lane;
+  const int col = step / a.spc * a.chunk + in_chunk;
+  return lane < kWarpCols && in_chunk < a.chunk && col >= s.lo && col <= s.hi
              ? cache_row<PAGED>(a, s, pages, col) : -1;
+}
+
+// One row of `bytes` bytes at `src` into the `ROOM` bytes (a multiple of
+// 16) at shared address `dst` (generic pointer `dp`), the rest zeros: `w`
+// bytes a copy by cp.async for w = 16, 8 or 4 (the widest the row's
+// address allows), byte loads and stores otherwise (an odd bf16 width).
+// `ok` false: all zeros, nothing read (`src` must still be a valid
+// address).
+template <int ROOM>
+__device__ __forceinline__ void copy_row(uint32_t dst, unsigned char* dp,
+                                         const unsigned char* src, int bytes,
+                                         int w, bool ok) {
+  if (w == 16) {
+#pragma unroll
+    for (int p = 0; p < ROOM / 16; ++p) {
+      const bool in = ok && 16 * p < bytes;
+      cp_async16(dst + 16 * p, src + (in ? 16 * p : 0), in);
+    }
+  } else if (w >= 4) {
+    for (int o = 0; o < ROOM; o += w) {
+      int n = ok ? bytes - o : 0;
+      n = n < 0 ? 0 : (n > w ? w : n);
+      const unsigned char* from = n > 0 ? src + o : src;
+      if (w == 8)
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
+                     :: "r"(dst + o), "l"(from), "r"(n) : "memory");
+      else
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+                     :: "r"(dst + o), "l"(from), "r"(n) : "memory");
+    }
+  } else {
+    for (int o = 0; o < ROOM; ++o) dp[o] = ok && o < bytes ? src[o] : 0;
+  }
+}
+
+// The widest copy (16, 8, 4, 2 or 1 bytes) that every row of `row_bytes`
+// bytes allows, its tensor's base 16-byte aligned.
+__host__ __device__ inline int copy_width(int row_bytes) {
+  for (int w = 16; w > 1; w /= 2)
+    if (row_bytes % w == 0) return w;
+  return 1;
 }
 
 // Issues the calling warp's 16 columns of one step into its stage, one
@@ -279,40 +372,41 @@ __device__ __forceinline__ int lookup(const Args& a, const Slot& s,
 // i's row (`my_row`, from `lookup`). Fresh columns come from k_new/v_new
 // (int8: zero-filled, replaced by the quantized row after the stage
 // lands).
-template <int D, bool PAGED, bool QUANT>
+template <int D, int DV, bool PAGED, bool QUANT>
 __device__ __forceinline__ void issue_warp(const Args& a, const Slot& s,
                                            const Layout& L, int step,
                                            unsigned char* stage,
                                            uint32_t* held, int my_row) {
-  constexpr int KP = QUANT ? D / 16 : D / 8;   // 16-byte pieces of a K row
-  constexpr int VP = D / 8;
   const int lane = threadIdx.x % 32;
   const int r = lane % kWarpCols;               // the column it copies
   const bool isv = lane >= kWarpCols;
   const int row = __shfl_sync(0xffffffffu, my_row, r);
-  const int col0 = step * kStep + kWarpCols * (threadIdx.x / 32);
+  const int col0 = step_col(a, step) + kWarpCols * (threadIdx.x / 32);
   const int m = col0 + r - s.ap;
   const bool fresh = s.ap >= 0 && m >= 0 && m < s.nn;
-  const size_t at = static_cast<size_t>(row) * D;
-  const size_t fresh_at = (static_cast<size_t>(s.bh) * a.n + m) * D;
+  const size_t fresh_row = static_cast<size_t>(s.bh) * a.n + m;
   const void* src;
   bool copy = row >= 0;
   if (isv) {
-    src = fresh ? a.v_new + fresh_at : a.cache_v + at;
+    src = fresh ? a.v_new + fresh_row * a.dv
+                : a.cache_v + static_cast<size_t>(row) * a.dv;
   } else if (QUANT) {
-    src = a.k_q + at;
+    src = a.k_q + static_cast<size_t>(row) * a.d;
     copy = copy && !fresh;
   } else {
-    src = fresh ? a.k_new + fresh_at : a.cache_k + at;
+    src = fresh ? a.k_new + fresh_row * a.d
+                : a.cache_k + static_cast<size_t>(row) * a.d;
   }
   const unsigned char* from = static_cast<const unsigned char*>(
       copy ? src : static_cast<const void*>(a.v_new));
-  const uint32_t dst =
-      smem_u32(stage) + (isv ? L.v + r * L.vrow : r * L.krow);
-  const int pieces = isv ? VP : KP;
-#pragma unroll
-  for (int p = 0; p < VP; ++p)
-    if (p < pieces) cp_async16(dst + 16 * p, from + (copy ? 16 * p : 0), copy);
+  unsigned char* dp = stage + (isv ? L.v + r * L.vrow : r * L.krow);
+  const uint32_t dst = smem_u32(dp);
+  if (isv)
+    copy_row<2 * DV>(dst, dp, from, 2 * a.dv, a.vw, copy);
+  else if (QUANT)
+    copy_row<D>(dst, dp, from, a.d, a.k8w, copy);
+  else
+    copy_row<2 * D>(dst, dp, from, 2 * a.d, a.kw, copy);
   if constexpr (QUANT) {
     if (!isv)
       cp_async4(smem_u32(stage) + L.ks + 4 * r,
@@ -322,24 +416,26 @@ __device__ __forceinline__ void issue_warp(const Args& a, const Slot& s,
   if (lane == 0) *held = bits;
 }
 
-// The step after `step` on its rank: the second half of the same chunk,
-// or the first half of the rank's next chunk (`cluster` chunks on).
-__device__ __forceinline__ int next_step(int step, int cluster) {
-  return step % 2 ? step + 2 * cluster - 1 : step + 1;
+// The step after `step` on its rank: the next piece of the same chunk,
+// or the first piece of the rank's next chunk (`cluster` chunks on).
+__device__ __forceinline__ int next_step(int step, int cluster, int spc) {
+  return (step + 1) % spc ? step + 1 : step + 1 + (cluster - 1) * spc;
 }
 
-// quantize_rows of one bf16 row of D by a warp: s = max(max|x| / 127,
-// 1e-20), x_i8 = round half to even (x / s), both divisions correctly
-// rounded; the row into dst, s * mul into *scale.
+// quantize_rows of one bf16 row of d <= D elements by a warp: s =
+// max(max|x| / 127, 1e-20), x_i8 = round half to even (x / s), both
+// divisions correctly rounded; the row into dst (zeros from d to D), s *
+// mul into *scale.
 template <int D>
-__device__ __forceinline__ void quantize_row(const bf16* src, int8_t* dst,
-                                             float* scale, float mul) {
+__device__ __forceinline__ void quantize_row(const bf16* src, int d,
+                                             int8_t* dst, float* scale,
+                                             float mul) {
   const int lane = threadIdx.x % 32;
   float x[D / 32];
   float amax = 0.f;
 #pragma unroll
   for (int k = 0; k < D / 32; ++k) {
-    x[k] = __bfloat162float(src[lane + 32 * k]);
+    x[k] = lane + 32 * k < d ? __bfloat162float(src[lane + 32 * k]) : 0.f;
     amax = fmaxf(amax, fabsf(x[k]));
   }
 #pragma unroll
@@ -417,31 +513,55 @@ __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
+// `n` bytes from src to dst: 16 at a time when both are 16-byte aligned
+// (`vec`), else byte by byte.
+__device__ __forceinline__ void copy_bytes(unsigned char* dst,
+                                           const unsigned char* src, int n,
+                                           bool vec) {
+  if (vec && n == 16)
+    *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+  else
+    for (int i = 0; i < n; ++i) dst[i] = src[i];
+}
+
 // The in-place append of slot rows m < n_new at append_at + m whose
 // chunk this rank owns (int8: the quantized rows and scales `fresh`,
-// `fresh_s` into the mirror as well). A -1 page takes nothing.
-template <int D, bool PAGED, bool QUANT>
+// `fresh_s` into the mirror as well). A -1 page takes nothing. Each
+// thread copies a 16-byte piece of a row (the last piece of a row whose
+// width is no multiple of 16 bytes shorter, byte by byte).
+template <int D, int DV, bool PAGED, bool QUANT>
 __device__ __forceinline__ void append_rows(const Args& a, const Slot& s,
                                             int rank, const int* pages,
                                             const int8_t* fresh,
                                             const float* fresh_s) {
-  for (int idx = threadIdx.x; idx < s.nn * (D / 8); idx += kThreads) {
-    const int m = idx / (D / 8), piece = idx % (D / 8);
+  constexpr int P = (D > DV ? D : DV) / 8;   // pieces a row at most
+  const int kb = 2 * a.d, vb = 2 * a.dv;     // bytes of a k, v row
+  for (int idx = threadIdx.x; idx < s.nn * P; idx += kThreads) {
+    const int m = idx / P, o = 16 * (idx % P);
     const int col = s.ap + m;
-    if (col >= a.t_max || (col / kChunk) % a.cluster != rank) continue;
+    if (col >= a.t_max || (col / a.chunk) % a.cluster != rank) continue;
     const int row = cache_row<PAGED>(a, s, pages, col);
     if (row < 0) continue;
-    const size_t at = static_cast<size_t>(row) * D;
-    const size_t src = (static_cast<size_t>(s.bh) * a.n + m) * D;
-    const uint4 k = *reinterpret_cast<const uint4*>(a.k_new + src + piece * 8);
-    const uint4 v = *reinterpret_cast<const uint4*>(a.v_new + src + piece * 8);
-    *reinterpret_cast<uint4*>(a.cache_k + at + piece * 8) = k;
-    *reinterpret_cast<uint4*>(a.cache_v + at + piece * 8) = v;
+    const size_t src = static_cast<size_t>(s.bh) * a.n + m;
+    if (o < kb)
+      copy_bytes(reinterpret_cast<unsigned char*>(a.cache_k) +
+                     static_cast<size_t>(row) * kb + o,
+                 reinterpret_cast<const unsigned char*>(a.k_new) + src * kb +
+                     o,
+                 kb - o < 16 ? kb - o : 16, a.kw == 16);
+    if (o < vb)
+      copy_bytes(reinterpret_cast<unsigned char*>(a.cache_v) +
+                     static_cast<size_t>(row) * vb + o,
+                 reinterpret_cast<const unsigned char*>(a.v_new) + src * vb +
+                     o,
+                 vb - o < 16 ? vb - o : 16, a.vw == 16);
     if constexpr (QUANT) {
-      if (piece < D / 16)
-        *reinterpret_cast<uint4*>(a.k_q + at + piece * 16) =
-            *reinterpret_cast<const uint4*>(fresh + m * D + piece * 16);
-      if (piece == 0) a.k_scale[row] = fresh_s[m];
+      if (o < a.d)
+        copy_bytes(reinterpret_cast<unsigned char*>(a.k_q) +
+                       static_cast<size_t>(row) * a.d + o,
+                   reinterpret_cast<const unsigned char*>(fresh + m * D) + o,
+                   a.d - o < 16 ? a.d - o : 16, a.k8w == 16);
+      if (o == 0) a.k_scale[row] = fresh_s[m];
     }
   }
 }
@@ -453,18 +573,24 @@ __device__ __forceinline__ void append_rows(const Args& a, const Slot& s,
 // registers, O += P V. Fragment coordinates: lane = 4 g + t; an m16n8
 // accumulator element c holds row g + 8 (c / 2) and column 2 t + c % 2 of
 // its n-tile.
-template <int D, bool PAGED, bool QUANT>
-__global__ void __launch_bounds__(kThreads, 3)
+//
+// D and DV are the instantiation's widths (a FLASH_GRID pair covering the
+// true d and dv): k and q rows are zero-filled from d to D in shared
+// memory, v rows from dv to DV, so the extra columns add nothing to S and
+// give O columns that are never written.
+template <int D, int DV, bool PAGED, bool QUANT>
+__global__ void __launch_bounds__(kThreads, DV > 128 ? 1 : 3)
 flash_decode_kernel(const Args a) {
-  static_assert(D % 32 == 0 && D <= 128, "head dim must be 32, 64, 96, 128");
-  constexpr int NT = D / 8;                     // O n-tiles
+  static_assert(D % 32 == 0 && D <= 256 && DV % 32 == 0 && DV <= 256,
+                "head dims must be 32*n <= 256");
+  constexpr int NT = DV / 8;                    // O n-tiles
   constexpr int KS = QUANT ? D / 32 : D / 16;   // S k-steps
   extern __shared__ __align__(16) unsigned char smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
   const int C = a.cluster;
   const int R = a.n * a.group;
-  const Layout L = make_layout(R, a.n, D, QUANT, a.pages);
+  const Layout L = make_layout(R, a.n, D, DV, QUANT, a.pages);
   int* pages = reinterpret_cast<int*>(smem + L.pages);
   // The slot's vectors and (paged) this rank's page ids, read together
   // (one round trip: neither depends on the other).
@@ -473,15 +599,18 @@ flash_decode_kernel(const Args a) {
   const int ap_ = a.append_at[b_];
   const int nn_ = a.n_new == nullptr ? a.n : a.n_new[b_];
   if constexpr (PAGED) {
-    const int ppc = a.page_size < kChunk ? kChunk / a.page_size : 1;
+    // Chunk c's entries: its first page (c * 128 / page_size) and the
+    // pages after it, -1 past the table.
+    const int ppc = a.ppc;
     const int pps = a.t_max / a.page_size;
     const int chunks = (a.t_max + kChunk - 1) / kChunk;
     const int owned = rank < chunks ? (chunks - rank + C - 1) / C * ppc : 0;
     for (int i = threadIdx.x; i < owned; i += kThreads) {
       const int c = rank + i / ppc * C;
-      const int p = a.page_size < kChunk ? c * ppc + i % ppc
-                                         : c * kChunk / a.page_size;
-      pages[i] = __ldg(a.page_table + static_cast<size_t>(b_) * pps + p);
+      const int p = c * kChunk / a.page_size + i % ppc;
+      pages[i] = p < pps ? __ldg(a.page_table +
+                                 static_cast<size_t>(b_) * pps + p)
+                         : -1;
     }
     __syncthreads();   // the page ids before any warp looks a column up
   }
@@ -502,9 +631,9 @@ flash_decode_kernel(const Args a) {
   const int g = lane / 4, t4 = lane % 4;
   const int mi = lane >> 3, mr = lane & 7;  // ldmatrix: matrix, its row
 
-  const int s_first = s.lo / kStep;
-  const int s_last = s.hi >= s.lo ? s.hi / kStep : s_first - 1;
-  const int first = owned_from(s_first, rank, C);
+  const int s_first = step_of(a, s.lo);
+  const int s_last = s.hi >= s.lo ? step_of(a, s.hi) : s_first - 1;
+  const int first = owned_from(s_first, rank, C, a.spc);
   unsigned char* wstages = smem + warp * kStages * L.wstage;
   uint32_t* held =
       reinterpret_cast<uint32_t*>(smem + L.held) + warp * kStages;
@@ -525,15 +654,15 @@ flash_decode_kernel(const Args a) {
       rows0[k] = -1;
       if (s_issue <= s_last) {
         rows0[k] = lookup<PAGED>(a, s, pages, s_issue);
-        s_issue = next_step(s_issue, C);
+        s_issue = next_step(s_issue, C, a.spc);
       }
     }
 #pragma unroll
     for (int k = 0; k < kStages; ++k) {
       if (steps[k] <= s_last)
-        issue_warp<D, PAGED, QUANT>(a, s, L, steps[k],
-                                    wstages + k * L.wstage, held + k,
-                                    rows0[k]);
+        issue_warp<D, DV, PAGED, QUANT>(a, s, L, steps[k],
+                                        wstages + k * L.wstage, held + k,
+                                        rows0[k]);
       cp_async_commit();
     }
     // This pass's query rows, new-row-major: float path pre-scaled and
@@ -545,15 +674,16 @@ flash_decode_kernel(const Args a) {
     if constexpr (QUANT) {
       if (r0 == 0)
         for (int m = warp; m < s.nn; m += kWarps)
-          quantize_row<D>(a.k_new + (static_cast<size_t>(s.bh) * a.n + m) * D,
-                          fresh + m * D, fresh_s + m, 1.f);
+          quantize_row<D>(
+              a.k_new + (static_cast<size_t>(s.bh) * a.n + m) * a.d, a.d,
+              fresh + m * D, fresh_s + m, 1.f);
       for (int i = warp; i < kRowsPass && first <= s_last; i += kWarps) {
         const int rr = r0 + i;
         int8_t* dst = reinterpret_cast<int8_t*>(smem + L.q + i * L.krow);
         if (i < rows_here) {
           const size_t qrow = static_cast<size_t>(
               s.b * a.h + s.hk * a.group + rr % a.group) * a.n + rr / a.group;
-          quantize_row<D>(a.q + qrow * D, dst, q_s + i, a.qscale);
+          quantize_row<D>(a.q + qrow * a.d, a.d, dst, q_s + i, a.qscale);
         } else {
           for (int e = lane; e < D; e += 32) dst[e] = 0;
           if (lane == 0) q_s[i] = 0.f;
@@ -561,7 +691,7 @@ flash_decode_kernel(const Args a) {
       }
       __syncthreads();
       if (r0 == 0)
-        append_rows<D, PAGED, QUANT>(a, s, rank, pages, fresh, fresh_s);
+        append_rows<D, DV, PAGED, QUANT>(a, s, rank, pages, fresh, fresh_s);
     } else {
       constexpr int kQIters = (kRowsPass * (D / 8) + kThreads - 1) / kThreads;
       uint4 raw[kQIters];
@@ -571,14 +701,21 @@ flash_decode_kernel(const Args a) {
         const int i = idx / (D / 8), piece = idx % (D / 8);
         const int rr = r0 + i;
         raw[k] = make_uint4(0, 0, 0, 0);
-        if (first <= s_last && idx < kRowsPass * (D / 8) && i < rows_here) {
+        if (first <= s_last && idx < kRowsPass * (D / 8) && i < rows_here &&
+            8 * piece < a.d) {
           const size_t qrow = static_cast<size_t>(
               s.b * a.h + s.hk * a.group + rr % a.group) * a.n + rr / a.group;
-          raw[k] = *reinterpret_cast<const uint4*>(a.q + qrow * D + piece * 8);
+          const bf16* src = a.q + qrow * a.d + piece * 8;
+          if (a.kw == 16) {
+            raw[k] = *reinterpret_cast<const uint4*>(src);
+          } else {   // a width no multiple of 8: element by element
+            bf16* e = reinterpret_cast<bf16*>(&raw[k]);
+            for (int j = 0; j < 8 && 8 * piece + j < a.d; ++j) e[j] = src[j];
+          }
         }
       }
       if (r0 == 0)
-        append_rows<D, PAGED, QUANT>(a, s, rank, pages, fresh, fresh_s);
+        append_rows<D, DV, PAGED, QUANT>(a, s, rank, pages, fresh, fresh_s);
 #pragma unroll
       for (int k = 0; k < kQIters; ++k) {
         const int idx = tid + k * kThreads;
@@ -629,7 +766,8 @@ flash_decode_kernel(const Args a) {
       for (int c = 0; c < 4; ++c) o[nt][c] = 0.f;
 
     int st = 0;
-    for (int step = first; step <= s_last; step = next_step(step, C)) {
+    for (int step = first; step <= s_last;
+         step = next_step(step, C, a.spc)) {
       cp_async_wait<kStages - 1>();
       __syncwarp();
       const int next_row =
@@ -637,7 +775,7 @@ flash_decode_kernel(const Args a) {
       unsigned char* stage = wstages + st * L.wstage;
       const uint32_t sk = smem_u32(stage);
       const uint32_t sv = sk + L.v;
-      const int col0 = step * kStep + kWarpCols * warp;
+      const int col0 = step_col(a, step) + kWarpCols * warp;
       const uint32_t hmask = held[st];
       if constexpr (QUANT) {
         // The fresh columns' quantized rows and scales into the stage.
@@ -753,9 +891,9 @@ flash_decode_kernel(const Args a) {
       }
       __syncwarp();
       if (s_issue <= s_last) {
-        issue_warp<D, PAGED, QUANT>(a, s, L, s_issue, stage, held + st,
-                                    next_row);
-        s_issue = next_step(s_issue, C);
+        issue_warp<D, DV, PAGED, QUANT>(a, s, L, s_issue, stage, held + st,
+                                        next_row);
+        s_issue = next_step(s_issue, C, a.spc);
       }
       cp_async_commit();
       st ^= 1;
@@ -766,7 +904,7 @@ flash_decode_kernel(const Args a) {
     // The warp's state of the pass's rows into its own stages: O, m and l
     // (this lane's sums over the quad, in a fixed order).
     float* w_o = reinterpret_cast<float*>(wstages);
-    float* w_ml = w_o + kRowsPass * D;
+    float* w_ml = w_o + kRowsPass * DV;
 #pragma unroll
     for (int hf = 0; hf < 2; ++hf) {
       const int i = g + 8 * hf;
@@ -779,20 +917,20 @@ flash_decode_kernel(const Args a) {
       }
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt) {
-        w_o[i * D + nt * 8 + 2 * t4] = o[nt][2 * hf];
-        w_o[i * D + nt * 8 + 2 * t4 + 1] = o[nt][2 * hf + 1];
+        w_o[i * DV + nt * 8 + 2 * t4] = o[nt][2 * hf];
+        w_o[i * DV + nt * 8 + 2 * t4 + 1] = o[nt][2 * hf + 1];
       }
     }
     __syncthreads();
 
     // This rank's partials of the pass's rows: the four warps in order.
-    for (int idx = tid; idx < rows_here * D; idx += kThreads) {
-      const int i = idx / D, dd = idx % D;
+    for (int idx = tid; idx < rows_here * DV; idx += kThreads) {
+      const int i = idx / DV, dd = idx % DV;
       float m = kNegBig;
 #pragma unroll
       for (int w = 0; w < kWarps; ++w) {
         const float* ml = reinterpret_cast<const float*>(
-            smem + w * kStages * L.wstage) + kRowsPass * D;
+            smem + w * kStages * L.wstage) + kRowsPass * DV;
         m = fmaxf(m, ml[i]);
       }
       float l = 0.f, acc = 0.f;
@@ -800,12 +938,12 @@ flash_decode_kernel(const Args a) {
       for (int w = 0; w < kWarps; ++w) {
         const float* wo = reinterpret_cast<const float*>(
             smem + w * kStages * L.wstage);
-        const float* ml = wo + kRowsPass * D;
+        const float* ml = wo + kRowsPass * DV;
         const float wt = exp2f(ml[i] - m);
         l += wt * ml[kRowsPass + i];
-        acc += wt * wo[i * D + dd];
+        acc += wt * wo[i * DV + dd];
       }
-      part[(r0 + i) * D + dd] = acc;
+      part[(r0 + i) * DV + dd] = acc;
       if (dd == 0) {
         part_ml[r0 + i] = m;
         part_ml[R + r0 + i] = l;
@@ -815,23 +953,23 @@ flash_decode_kernel(const Args a) {
   }
 
   // The merge. Rank j merges the output elements [j E / C, (j + 1) E / C)
-  // of E = R * D: every rank that walked a step stores into rank j's
+  // of E = R * DV: every rank that walked a step stores into rank j's
   // shared memory, at its own place, its partials of those elements and
   // of their rows' m and l, each store completing its bytes on rank j's
   // mbarrier. Rank j waits there for the bytes of the ranks that walked
   // a step, merges its slice, ranks in order, and leaves. `active`: the
   // ranks that walked a step (lane i answers for rank i).
-  const int elems = R * D;
+  const int elems = R * DV;
   float* gath = reinterpret_cast<float*>(smem + L.w);
   const uint32_t active = __ballot_sync(
-      0xffffffffu, lane < C && owned_from(s_first, lane, C) <= s_last);
+      0xffffffffu, lane < C && owned_from(s_first, lane, C, a.spc) <= s_last);
   // Per rank j (lane j of warp 0): its slice [f0, f1), rows q_n, and where
   // its values start in this rank's flat list of stores (an exclusive
   // prefix sum of 2 q_n + f1 - f0).
   int* slices = reinterpret_cast<int*>(smem + L.slices);   // (C, 3)
   if (warp == 0) {
     const int f0 = lane * elems / C, f1 = (lane + 1) * elems / C;
-    const int q_n = lane < C && f1 > f0 ? (f1 - 1) / D - f0 / D + 1 : 0;
+    const int q_n = lane < C && f1 > f0 ? (f1 - 1) / DV - f0 / DV + 1 : 0;
     const int q_per = lane < C ? 2 * q_n + f1 - f0 : 0;
     int base = q_per;
 #pragma unroll
@@ -857,7 +995,7 @@ flash_decode_kernel(const Args a) {
       const int idx = p - slices[3 * j + 2];
       const int q_per = (j + 1 < C ? slices[3 * (j + 1) + 2] : slices[3 * C]) -
                         slices[3 * j + 2];
-      const int q_lo = f0 / D;
+      const int q_lo = f0 / DV;
       st_async(peer_addr(gath + rank * q_per + idx, j),
                idx < q_n       ? part_ml[q_lo + idx]
                : idx < 2 * q_n ? part_ml[R + q_lo + idx - q_n]
@@ -874,7 +1012,7 @@ flash_decode_kernel(const Args a) {
   // rows r_lo.., then the elements).
   const int e0 = rank * elems / C, e1 = (rank + 1) * elems / C;
   const int nr = slices[3 * rank + 1];
-  const int r_lo = e0 / D;
+  const int r_lo = e0 / DV;
   const int per = 2 * nr + (e1 - e0);
   float* w = gath + C * per;              // weights (C, nr), then m, l
   float* w_m = w + C * nr;
@@ -903,7 +1041,8 @@ flash_decode_kernel(const Args a) {
   }
   __syncthreads();
   for (int e = e0 + tid; e < e1; e += kThreads) {
-    const int r = e / D, dd = e % D, rl = r - r_lo;
+    const int r = e / DV, dd = e % DV, rl = r - r_lo;
+    if (dd >= a.dv) continue;   // a padding column
     float acc = 0.f;
     for (int i = 0; i < C; ++i)
       if ((active >> i) & 1)
@@ -911,24 +1050,24 @@ flash_decode_kernel(const Args a) {
     const size_t qrow = static_cast<size_t>(
         s.b * a.h + s.hk * a.group + r % a.group) * a.n + r / a.group;
     if (a.num != nullptr) {
-      a.num[qrow * D + dd] = acc;
+      a.num[qrow * a.dv + dd] = acc;
       if (dd == 0) {
         a.m_out[qrow] = w_m[rl];
         a.l_out[qrow] = w_l[rl];
       }
     } else {
-      a.out[qrow * D + dd] =
+      a.out[qrow * a.dv + dd] =
           __float2bfloat16(w_l[rl] == 0.f ? 0.f : acc / w_l[rl]);
     }
   }
 }
 
-template <int D, bool PAGED, bool QUANT>
+template <int D, int DV, bool PAGED, bool QUANT>
 cudaError_t configure(int rows, int n, int cluster, int pages, int blocks,
                       cudaStream_t stream, cudaLaunchConfig_t& cfg,
                       cudaLaunchAttribute& attr) {
-  const Layout L = make_layout(rows, n, D, QUANT, pages);
-  auto kernel = flash_decode_kernel<D, PAGED, QUANT>;
+  const Layout L = make_layout(rows, n, D, DV, QUANT, pages);
+  auto kernel = flash_decode_kernel<D, DV, PAGED, QUANT>;
   static int smem_set = 0;   // the attribute this kernel carries
   if (L.bytes > smem_set) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -954,55 +1093,70 @@ cudaError_t configure(int rows, int n, int cluster, int pages, int blocks,
   return cudaSuccess;
 }
 
-template <int D, bool PAGED, bool QUANT>
+template <int D, int DV, bool PAGED, bool QUANT>
 int launch(const Args& a, int batch, cudaStream_t stream) {
   if (batch == 0) return 0;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  cudaError_t err = configure<D, PAGED, QUANT>(
+  cudaError_t err = configure<D, DV, PAGED, QUANT>(
       a.n * a.group, a.n, a.cluster, a.pages, batch * a.h_kv, stream, cfg,
       attr);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaLaunchKernelEx(&cfg, flash_decode_kernel<D, PAGED, QUANT>, a);
+  err = cudaLaunchKernelEx(&cfg, flash_decode_kernel<D, DV, PAGED, QUANT>,
+                           a);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
 // Clusters of the instantiation that can be resident on the card at once
 // (cudaOccupancyMaxActiveClusters), -1 on an error.
-template <int D, bool PAGED, bool QUANT>
+template <int D, int DV, bool PAGED, bool QUANT>
 int max_clusters(int rows, int n, int cluster) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   int found = -1;
-  if (configure<D, PAGED, QUANT>(rows, n, cluster, 0, cluster, nullptr, cfg,
-                                 attr) != cudaSuccess ||
+  if (configure<D, DV, PAGED, QUANT>(rows, n, cluster, 0, cluster, nullptr,
+                                     cfg, attr) != cudaSuccess ||
       cudaOccupancyMaxActiveClusters(
-          &found, flash_decode_kernel<D, PAGED, QUANT>, &cfg) != cudaSuccess)
+          &found, flash_decode_kernel<D, DV, PAGED, QUANT>, &cfg) !=
+          cudaSuccess)
     return -1;
   return found;
 }
 
+// The instantiation (D, DV) that runs true widths (d, dv): the first
+// FLASH_GRID pair covering both (the pairs run in increasing D + DV);
+// false past 256.
+bool grid_dims(int d, int dv, int& D, int& DV) {
+#define GRID_PICK(GD, GDV)                                                   \
+  if (d <= GD && dv <= GDV) {                                                \
+    D = GD;                                                                  \
+    DV = GDV;                                                                \
+    return d >= 1 && dv >= 1;                                                \
+  }
+  FLASH_GRID(GRID_PICK)
+#undef GRID_PICK
+  return false;
+}
+
 template <bool PAGED>
-int dispatch(const Args& a, int batch, int d, void* stream) {
+int dispatch(const Args& a, int batch, void* stream) {
   if (a.cluster < 1 || a.cluster > kMaxCluster ||
-      (a.cluster & (a.cluster - 1)) || batch * a.h_kv > 65535)
+      (a.cluster & (a.cluster - 1)) || batch * a.h_kv > 65535 ||
+      a.chunk < 1 || (PAGED && a.chunk != kChunk))
+    return static_cast<int>(cudaErrorInvalidValue);
+  int D = 0, DV = 0;
+  if (!grid_dims(a.d, a.dv, D, DV))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool quant = a.k_q != nullptr;
-#define DECODE_CASE(DIM)                                                     \
-  case DIM:                                                                  \
-    return quant ? launch<DIM, PAGED, true>(a, batch, s)                     \
-                 : launch<DIM, PAGED, false>(a, batch, s);
-  switch (d) {
-    DECODE_CASE(32)
-    DECODE_CASE(64)
-    DECODE_CASE(96)
-    DECODE_CASE(128)
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+#define DECODE_CASE(GD, GDV)                                                 \
+  if (D == GD && DV == GDV)                                                  \
+    return quant ? launch<GD, GDV, PAGED, true>(a, batch, s)                 \
+                 : launch<GD, GDV, PAGED, false>(a, batch, s);
+  FLASH_GRID(DECODE_CASE)
 #undef DECODE_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 Args make_args(const void* q, const void* k_new, const void* v_new,
@@ -1010,8 +1164,9 @@ Args make_args(const void* q, const void* k_new, const void* v_new,
                const void* append_at, const void* n_new,
                const void* page_table, void* k_q, void* k_scale,
                const void* alibi, void* out, void* num, void* m, void* l,
-               int h, int h_kv, int n, int t_max, int page_size, int window,
-               int cluster, float qscale) {
+               int h, int h_kv, int n, int t_max, int d, int dv,
+               int page_size, int window, int cluster, int chunk,
+               float qscale) {
   Args a;
   a.q = static_cast<const bf16*>(q);
   a.k_new = static_cast<const bf16*>(k_new);
@@ -1037,10 +1192,19 @@ Args make_args(const void* q, const void* k_new, const void* v_new,
   a.page_size = page_size;
   a.window = window;
   a.cluster = cluster;
+  a.d = d;
+  a.dv = dv;
+  a.kw = copy_width(2 * d);
+  a.vw = copy_width(2 * dv);
+  a.k8w = copy_width(d);
+  a.chunk = chunk;
+  a.spc = (chunk + kStep - 1) / kStep;
   a.cluster_shift = 0;
   while ((1 << (a.cluster_shift + 1)) <= cluster) ++a.cluster_shift;
-  a.page_shift = 0;
-  while ((1 << (a.page_shift + 1)) <= page_size) ++a.page_shift;
+  a.page_shift = -1;
+  for (int sh = 0; sh < 31 && page_size > 0; ++sh)
+    if ((1 << sh) == page_size) a.page_shift = sh;
+  a.ppc = page_table == nullptr ? 0 : pages_per_chunk(page_size);
   a.pages = page_table == nullptr ? 0
                                   : page_entries(t_max, page_size, cluster);
   a.qscale = qscale;
@@ -1051,73 +1215,77 @@ Args make_args(const void* q, const void* k_new, const void* v_new,
 
 extern "C" int flash_decode_chunk() { return kChunk; }
 
-// Clusters of `cluster` blocks of the kernel for (rows = n * group, n, d,
-// paged, int8 mirror) resident on the card at once; -1 on an error.
-extern "C" int flash_decode_max_clusters(int rows, int n, int d, int paged,
-                                         int quant, int cluster) {
-#define DECODE_OCC(DIM, P, Q)                                                \
-  if (d == DIM && (paged != 0) == P && (quant != 0) == Q)                    \
-    return max_clusters<DIM, P, Q>(rows, n, cluster);
-#define DECODE_OCC_D(DIM)                                                    \
-  DECODE_OCC(DIM, false, false) DECODE_OCC(DIM, false, true)                 \
-  DECODE_OCC(DIM, true, false) DECODE_OCC(DIM, true, true)
-  DECODE_OCC_D(32)
-  DECODE_OCC_D(64)
-  DECODE_OCC_D(96)
-  DECODE_OCC_D(128)
+// Clusters of `cluster` blocks of the kernel for (rows = n * group, n, the
+// true widths d and dv, paged, int8 mirror) resident on the card at once;
+// -1 on an error.
+extern "C" int flash_decode_max_clusters(int rows, int n, int d, int dv,
+                                         int paged, int quant, int cluster) {
+  int D = 0, DV = 0;
+  if (!grid_dims(d, dv, D, DV)) return -1;
+#define DECODE_OCC(GD, GDV, P, Q)                                            \
+  if (D == GD && DV == GDV && (paged != 0) == P && (quant != 0) == Q)        \
+    return max_clusters<GD, GDV, P, Q>(rows, n, cluster);
+#define DECODE_OCC_D(GD, GDV)                                                \
+  DECODE_OCC(GD, GDV, false, false) DECODE_OCC(GD, GDV, false, true)         \
+  DECODE_OCC(GD, GDV, true, false) DECODE_OCC(GD, GDV, true, true)
+  FLASH_GRID(DECODE_OCC_D)
 #undef DECODE_OCC_D
 #undef DECODE_OCC
   return -1;
 }
 
 // Dynamic shared memory of one block with `rows` = n * group query rows
-// of head dim d (quant: the int8 mirror) and, paged (page_size > 0), the
-// page ids of a rank of `cluster`; the host refuses a launch past the
-// card's limit.
-extern "C" int flash_decode_smem(int rows, int n, int d, int quant,
+// of true widths d and dv (quant: the int8 mirror) and, paged (page_size >
+// 0), the page ids of a rank of `cluster`; -1 for widths past 256. The
+// host refuses a launch past the card's limit.
+extern "C" int flash_decode_smem(int rows, int n, int d, int dv, int quant,
                                  int t_max, int page_size, int cluster) {
-  return make_layout(rows, n, d, quant != 0,
+  int D = 0, DV = 0;
+  if (!grid_dims(d, dv, D, DV)) return -1;
+  return make_layout(rows, n, D, DV, quant != 0,
                      page_entries(t_max, page_size, cluster)).bytes;
 }
 
 // The slab step (K5). Operands as `Args` above: q (batch, h, n, d);
-// k_new/v_new (batch, h_kv, n, d); cache_k/cache_v (batch, h_kv, t_max,
-// d), appended in place; valid_to/append_at/n_new (batch,) int32; k_q /
-// k_scale the int8 mirror, null for bf16 scoring; alibi null or (h,) f32
-// slopes; out, or num/m/l for the partial outputs. window <= 0: no
-// window. cluster: the blocks per (slot, kv head), a power of two up to 8.
+// k_new (batch, h_kv, n, d), v_new (batch, h_kv, n, dv); cache_k (batch,
+// h_kv, t_max, d), cache_v (batch, h_kv, t_max, dv), appended in place;
+// valid_to/append_at/n_new (batch,) int32; k_q / k_scale the int8 mirror,
+// null for bf16 scoring; alibi null or (h,) f32 slopes; out, or num/m/l
+// for the partial outputs. d, dv in 1..256. window <= 0: no window.
+// cluster: the blocks per (slot, kv head), a power of two up to 8. chunk:
+// the columns a cluster rank owns at a time (the K split; 0: kChunk).
 // Returns a cudaError_t code (0 = launched).
 extern "C" int flash_decode_bf16(
     const void* q, const void* k_new, const void* v_new, void* cache_k,
     void* cache_v, const void* valid_to, const void* append_at,
     const void* n_new, void* k_q, void* k_scale, const void* alibi,
     void* out, void* num, void* m, void* l, int batch, int h, int h_kv,
-    int n, int t_max, int d, int window, int cluster, float qscale,
-    void* stream) {
+    int n, int t_max, int d, int dv, int window, int cluster, int chunk,
+    float qscale, void* stream) {
   const Args a = make_args(q, k_new, v_new, cache_k, cache_v, valid_to,
                            append_at, n_new, nullptr, k_q, k_scale, alibi,
-                           out, num, m, l, h, h_kv, n, t_max, 1, window,
-                           cluster, qscale);
-  return dispatch<false>(a, batch, d, stream);
+                           out, num, m, l, h, h_kv, n, t_max, d, dv, 1,
+                           window, cluster, chunk > 0 ? chunk : kChunk,
+                           qscale);
+  return dispatch<false>(a, batch, stream);
 }
 
-// The paged step (K5p): k_pool/v_pool (pages + 1, h_kv, page_size, d)
-// and the mirror pools, appended in place through page_table (batch,
-// pages_per_slot) int32 (-1 = unallocated); page_size must divide 128 or
-// be a multiple of it. Other arguments as above.
+// The paged step (K5p): k_pool (pages + 1, h_kv, page_size, d), v_pool
+// (pages + 1, h_kv, page_size, dv) and the mirror pools, appended in place
+// through page_table (batch, pages_per_slot) int32 (-1 = unallocated); any
+// page_size >= 1, the split kChunk. Other arguments as above.
 extern "C" int flash_decode_paged_bf16(
     const void* q, const void* k_new, const void* v_new, void* k_pool,
     void* v_pool, const void* valid_to, const void* append_at,
     const void* n_new, const void* page_table, void* k_q, void* k_scale,
     const void* alibi, void* out, void* num, void* m, void* l, int batch,
-    int h, int h_kv, int n, int pages_per_slot, int page_size, int d,
+    int h, int h_kv, int n, int pages_per_slot, int page_size, int d, int dv,
     int window, int cluster, float qscale, void* stream) {
-  if (page_size < 1 || (kChunk % page_size && page_size % kChunk))
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (page_size < 1) return static_cast<int>(cudaErrorInvalidValue);
   const Args a = make_args(q, k_new, v_new, k_pool, v_pool, valid_to,
                            append_at, n_new, page_table, k_q, k_scale, alibi,
                            out, num, m, l, h, h_kv, n,
-                           pages_per_slot * page_size, page_size, window,
-                           cluster, qscale);
-  return dispatch<true>(a, batch, d, stream);
+                           pages_per_slot * page_size, d, dv, page_size,
+                           window, cluster, kChunk, qscale);
+  return dispatch<true>(a, batch, stream);
 }

@@ -11,10 +11,20 @@
 // dropout, ALiBi and explicit global positions.
 //
 // What bounds it on the H100: tensor-core operations. An attended (query,
-// key) pair costs 4*d flops (S and P.V); at the LM's training shape (4 x 8
-// heads, T = 4096, head dim 96, causal: 268 M pairs) that is 103 GFLOP,
-// 0.10 ms at 989 TFLOP/s, against ~25 MB of q/k/v/o (0.008 ms at 3.35
-// TB/s).
+// key) pair costs 2*(d + d_v) flops (S and P.V); at the LM's training
+// shape (4 x 8 heads, T = 4096, head dim 96, causal: 268 M pairs) that is
+// 103 GFLOP, 0.10 ms at 989 TFLOP/s, against ~25 MB of q/k/v/o (0.008 ms
+// at 3.35 TB/s).
+//
+// Widths: the kernel is a template on D, the head dim of q and k (S's
+// reduction), and DV, the width of v and O (P.V's product), instantiated
+// on the FLASH_GRID pairs of csrc/hopper.cuh: (32, 32), (64, 64), (96,
+// 96), (128, 128), (192, 128), (256, 256). The wrapper zero-pads an
+// operand off the grid to the first pair that covers it (q and k along d,
+// v along d_v) and slices O; zero columns change no score. P.V at DV > 128
+// is two wgmma products of at most 128 columns (mma_rs). Three K/V stages
+// fit in shared memory up to D + DV = 320 (192, 128); at (256, 256) the
+// block takes two (196,608 B of tiles).
 //
 // The design (the backward's, csrc/flash_bwd.cu): a block is two
 // warpgroups (256 threads), each owning one 64-row query tile of the
@@ -24,17 +34,18 @@
 // cache buffer, are never loaded).
 //  - Every product is a wgmma (csrc/hopper.cuh): S = q.K^T an m64n64k16
 //    (int8 scoring: m64n64k32 s8) with both operands in shared memory
-//    (K-major), O += P.V an m64nDk16 with P from registers and V read
-//    MN-major.
+//    (K-major), O += P.V m64nNk16 products (N <= 128 each, DV in all) with
+//    P from registers and V read MN-major.
 //  - S, P and O never leave registers. The online softmax runs on the
 //    accumulator fragments: a row's 64 columns sit in the 4 lanes of a
-//    quad, so its max is two shuffles; the O registers (D/2 floats a
+//    quad, so its max is two shuffles; the O registers (DV/2 floats a
 //    thread) are rescaled by corr, and the 64-column P accumulator is,
 //    element for element, the four m64k16 bf16 A fragments of P.V. A tile
 //    wholly inside the rows, columns, causal extent and window, with no
 //    mask or segments, skips the per-element tests.
 //  - TMA loads the block's q rows once and streams K and V through three
-//    stages, one mbarrier each, two tiles ahead of the one in use; both
+//    stages (two at D + DV > 320), one mbarrier each, ahead of the one in
+//    use; both
 //    warpgroups use every streamed tile (half the bytes a product against
 //    one warpgroup a block). A dense mask's 128 x 64 bytes stage beside
 //    their K/V tile by cp.async (16, 8 or 4 bytes a copy, the widest the
@@ -131,11 +142,11 @@
 namespace {
 
 // The kernel: two warpgroups a block, one 64-row query tile each, and
-// three stages for the streamed K/V tiles.
+// three stages for the streamed K/V tiles (two where three do not fit in
+// shared memory, kStagesOf: on the grid, D + DV > 320).
 constexpr int kWgs = 2;
 constexpr int kRows = kWgs * kB;
 constexpr int kBlockThreads = kWgs * kThreads;
-constexpr int kStages = 3;
 constexpr float kNegBig = -0.7f * 3.4e38f;
 constexpr float kLn2 = 0.693147180559945309f;
 
@@ -246,22 +257,34 @@ __device__ __forceinline__ void load_mask_tile(unsigned char* dst,
 template <bool Ext, bool Quant>
 constexpr int kVecs = Quant ? 3 : (Ext ? 2 : 0);
 
-template <int D, bool HasMask, bool Ext, bool Quant>
-constexpr size_t smem_bytes() {
-  return sizeof(bf16) * (kRows + 2 * kStages * kB) * D   // sQ; sK, sV
-         + ((HasMask || Ext) ? kStages * kRows * kB : 0)  // mask bytes
-         + kStages * kVecs<Ext, Quant> * kB * sizeof(int) // segk, posk, skr
-         + (kStages + 1) * sizeof(uint64_t);              // the barriers
+template <int D, int DV, bool HasMask, bool Ext, bool Quant>
+__host__ __device__ constexpr size_t smem_at(int stages) {
+  return sizeof(bf16) * (kRows * D + stages * kB * (D + DV))  // sQ; sK, sV
+         + ((HasMask || Ext) ? stages * kRows * kB : 0)  // mask bytes
+         + stages * kVecs<Ext, Quant> * kB * sizeof(int) // segk, posk, skr
+         + (stages + 1) * sizeof(uint64_t);              // the barriers
+}
+
+// Stages of the streamed tiles: three where they fit, else two.
+template <int D, int DV, bool HasMask, bool Ext, bool Quant>
+constexpr int kStagesOf =
+    smem_at<D, DV, HasMask, Ext, Quant>(3) <= kSmemLimit ? 3 : 2;
+
+template <int D, int DV, bool HasMask, bool Ext, bool Quant>
+__host__ __device__ constexpr size_t smem_bytes() {
+  return smem_at<D, DV, HasMask, Ext, Quant>(
+      kStagesOf<D, DV, HasMask, Ext, Quant>);
 }
 
 // K1 (K2 with Bounded) for one 128-row query block of one (batch, head)
 // row: q stays in shared memory, the key and value tiles stream through
 // the stages (TMA, one barrier a stage); each warpgroup's S, P and O live
-// in its registers. The tensor maps: q (batch_heads, tq, D), k and v
-// (batch_heads / group, tk, D), 64-row x 16-byte boxes; with Quant q and k
-// are the int8 operands. An int8 tile fills the first half of its bf16
-// tile's room.
-template <int D, bool HasMask, bool Bounded, bool Ext, bool Quant>
+// in its registers. The tensor maps: q (batch_heads, tq, D), k
+// (batch_heads / group, tk, D) and v (batch_heads / group, tk, DV), 64-row
+// x 16-byte boxes; with Quant q and k are the int8 operands. An int8 tile
+// fills the first half of its bf16 tile's room. D is the width of q.k^T's
+// reduction, DV that of P.V's product and of O.
+template <int D, int DV, bool HasMask, bool Bounded, bool Ext, bool Quant>
 __global__ void __launch_bounds__(kBlockThreads)
 flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
                  const __grid_constant__ CUtensorMap map_k,
@@ -270,19 +293,24 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
                  const float* __restrict__ mvec, MaskArgs mask, int mask_w,
                  int tq, int tk, int group, int causal, int causal_offset,
                  int kv_offset, float qscale, int n_qblocks, ExtArgs ext) {
-  static_assert(D % 32 == 0 && D <= 128, "head dim must be 32*n <= 128");
+  static_assert(D % 32 == 0 && D <= 256 && DV % 32 == 0 && DV <= 256,
+                "head dims must be 32*n <= 256");
   static_assert(!(HasMask && Ext), "Ext reads the mask at run time");
   static_assert(!Quant || (!HasMask && !Bounded),
                 "int8 scoring is exact, its mask an Ext one");
+  constexpr int kStages = kStagesOf<D, DV, HasMask, Ext, Quant>;
+  static_assert(smem_bytes<D, DV, HasMask, Ext, Quant>() <= kSmemLimit,
+                "shared memory");
   constexpr bool kMaskStage = HasMask || Ext;
   constexpr int kV = kVecs<Ext, Quant>;
   constexpr int kQB = Quant ? 1 : 2;   // bytes of a q or k element
   extern __shared__ __align__(1024) unsigned char smem[];
   bf16* sQ = reinterpret_cast<bf16*>(smem);   // warpgroup w's rows at
                                               // byte w*kB*D*kQB
-  bf16* sKV = sQ + kRows * D;   // stage s: K at sKV + 2s*kB*D, V after it
+  bf16* sKV = sQ + kRows * D;   // stage s: K at sKV + s*kB*(D + DV), V
+                                // kB*D after it
   unsigned char* sMask = reinterpret_cast<unsigned char*>(
-      sKV + 2 * kStages * kB * D);   // stage s at s*kRows*kB
+      sKV + kStages * kB * (D + DV));   // stage s at s*kRows*kB
   int* sVec = reinterpret_cast<int*>(
       sMask + (kMaskStage ? kStages * kRows * kB : 0));   // stage s at
                                        // kV*s*kB: segk, posk, skr (floats)
@@ -367,16 +395,16 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
   // Loads key tile t into a stage: thread 0 announces the bytes and starts
   // the TMA copies; the mask bytes and key-side vectors by cp.async.
   auto issue = [&](int t, int stage) {
-    bf16* sK = sKV + 2 * stage * kB * D;
+    bf16* sK = sKV + stage * kB * (D + DV);
     if (threadIdx.x == 0) {
       uint64_t* bar = &bars[stage];
-      mbar_expect_tx(bar, (kQB + 2) * kB * D);
+      mbar_expect_tx(bar, kQB * kB * D + 2 * kB * DV);
       if constexpr (Quant)
         tma_tile<D>(reinterpret_cast<signed char*>(sK), &map_k, t * kB, bkv,
                     bar);
       else
         tma_tile<D>(sK, &map_k, t * kB, bkv, bar);
-      tma_tile<D>(sK + kB * D, &map_v, t * kB, bkv, bar);
+      tma_tile<DV>(sK + kB * D, &map_v, t * kB, bkv, bar);
     }
     if constexpr (kMaskStage) {
       if (has_mask)
@@ -439,9 +467,9 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
     if (ext.alibi != nullptr) slope = ext.alibi[bh];
   }
 
-  float o[D / 2];
+  float o[DV / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < DV / 2; ++i) o[i] = 0.f;
 
   int t = next_tile(t_lo[0] < t_lo[1] ? t_lo[0] : t_lo[1]);
   int fetch = t;   // the next tile to load, kStages - 1 ahead of t
@@ -497,7 +525,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
 
     if (sees(wg, t)) {
       const int k0 = t * kB;
-      const uint32_t tK = smem_u32(sKV + 2 * stage * kB * D);
+      const uint32_t tK = smem_u32(sKV + stage * kB * (D + DV));
       const uint32_t tV = tK + kB * D * sizeof(bf16);
       const int* sv = sVec + kV * stage * kB;
       float s[32];
@@ -612,7 +640,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
           m_run[h] = m_new;
         }
 #pragma unroll
-        for (int i = 0; i < D / 2; ++i) o[i] *= corr[(i >> 1) & 1];
+        for (int i = 0; i < DV / 2; ++i) o[i] *= corr[(i >> 1) & 1];
       }
       // p = exp2(s - m) (masked: exp2(-inf) = 0); l sums the undropped p,
       // this thread's 16 columns of each row (the quad's sum at the end).
@@ -643,8 +671,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
       // O += P V, P from registers, V read MN-major.
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        Wgmma<D>::rs(o, pf[kk], desc_mnmajor(tV, kk), 1);
+      for (int kk = 0; kk < 4; ++kk) mma_rs<DV>(o, pf[kk], tV, kk);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(o);
@@ -662,16 +689,16 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
     l[h] = l_run[h] + __shfl_xor_sync(0xffffffffu, l_run[h], 1);
     l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
   }
-  bf16* ob = out + qoff * D;
+  bf16* ob = out + qoff * DV;
 #pragma unroll
-  for (int i = 0; i < D / 2; i += 2) {
+  for (int i = 0; i < DV / 2; i += 2) {
     const int h = (i >> 1) & 1;
     const int row = q0 + acc_row(i);
     if (row < tq) {
       const float a = l[h] == 0.f ? 0.f : o[i] / l[h];
       const float b = l[h] == 0.f ? 0.f : o[i + 1] / l[h];
       *reinterpret_cast<__nv_bfloat162*>(
-          ob + static_cast<size_t>(row) * D + acc_col(i)) =
+          ob + static_cast<size_t>(row) * DV + acc_col(i)) =
           __floats2bfloat162_rn(a, b);
     }
   }
@@ -711,7 +738,7 @@ int mask_width(const MaskArgs& m) {
   return 1;
 }
 
-template <int D, bool HasMask, bool Bounded, bool Ext, bool Quant>
+template <int D, int DV, bool HasMask, bool Bounded, bool Ext, bool Quant>
 int launch(const void* q, const void* k, const void* v, void* out,
            float* lse, const float* mvec, const MaskArgs& mask,
            int batch_heads, int group, int tq, int tk, int causal,
@@ -723,20 +750,21 @@ int launch(const void* q, const void* k, const void* v, void* out,
   if (!tile_map(&maps[0], Quant ? ext.q8 : q, batch_heads, tq, D, Quant) ||
       !tile_map(&maps[1], Quant ? ext.k8 : k, batch_heads / group, tk, D,
                 Quant) ||
-      !tile_map(&maps[2], v, batch_heads / group, tk, D))
+      !tile_map(&maps[2], v, batch_heads / group, tk, DV))
     return static_cast<int>(cudaErrorInvalidValue);
   // blockIdx.x the (batch, head) row, blockIdx.y the 128-row query block
   // from the last: every row's longest causal extents launch first.
   const int n_qblocks = (tq + kRows - 1) / kRows;
-  return launch_kernel(flash_fwd_kernel<D, HasMask, Bounded, Ext, Quant>,
+  return launch_kernel(flash_fwd_kernel<D, DV, HasMask, Bounded, Ext, Quant>,
                        dim3(batch_heads, n_qblocks), kBlockThreads,
-                       smem_bytes<D, HasMask, Ext, Quant>(), stream, maps[0],
+                       smem_bytes<D, DV, HasMask, Ext, Quant>(), stream,
+                       maps[0],
                        maps[1], maps[2], static_cast<bf16*>(out), lse, mvec,
                        mask, mask_width(mask), tq, tk, group, causal,
                        causal_offset, kv_offset, qscale, n_qblocks, ext);
 }
 
-template <int D>
+template <int D, int DV>
 int dispatch(const void* q, const void* k, const void* v, void* out,
              float* lse, const float* mvec, const MaskArgs& mask,
              int batch_heads, int group, int tq, int tk, int causal,
@@ -744,7 +772,8 @@ int dispatch(const void* q, const void* k, const void* v, void* out,
              const ExtArgs* ext, cudaStream_t s) {
   const ExtArgs none{};
 #define FWD_LAUNCH(M, B, E, Q)                                               \
-  return launch<D, M, B, E, Q>(q, k, v, out, lse, mvec, mask, batch_heads,  \
+  return launch<D, DV, M, B, E, Q>(q, k, v, out, lse, mvec, mask,          \
+                                   batch_heads,                             \
                                group, tq, tk, causal, causal_offset,        \
                                kv_offset, qscale, (E || Q) ? *ext : none, s)
   // Built twice (csrc/../ops/_build.py): the base instantiations, and
@@ -780,27 +809,27 @@ int dispatch(const void* q, const void* k, const void* v, void* out,
 
 }  // namespace
 
-// The dynamic shared memory a block of the exact kernel takes at head dim
-// d: the base or the Ext instantiation, with int8 scoring (quant) or not;
-// 0 for a head dim the kernels do not take.
-extern "C" long long flash_fwd_smem_bytes(int d, int ext, int quant) {
-  switch (d) {
-#define SMEM_CASE(D)                                                 \
-    case D:                                                          \
-      if (quant)                                                     \
-        return ext ? smem_bytes<D, false, true, true>()              \
-                   : smem_bytes<D, false, false, true>();            \
-      return ext ? smem_bytes<D, false, true, false>()               \
-                 : smem_bytes<D, false, false, false>();
-    SMEM_CASE(32) SMEM_CASE(64) SMEM_CASE(96) SMEM_CASE(128)
-#undef SMEM_CASE
-    default:
-      return 0;
+// The dynamic shared memory a block of the exact kernel takes at the grid
+// pair (d, dv): the base or the Ext instantiation, with int8 scoring
+// (quant) or not; 0 for a pair off the grid.
+extern "C" long long flash_fwd_smem_bytes(int d, int dv, int ext,
+                                          int quant) {
+#define SMEM_CASE(D, DV)                                             \
+  if (d == D && dv == DV) {                                          \
+    if (quant)                                                       \
+      return ext ? smem_bytes<D, DV, false, true, true>()            \
+                 : smem_bytes<D, DV, false, false, true>();          \
+    return ext ? smem_bytes<D, DV, false, true, false>()             \
+               : smem_bytes<D, DV, false, false, false>();           \
   }
+  FLASH_GRID(SMEM_CASE)
+#undef SMEM_CASE
+  return 0;
 }
 
-// q (batch_heads, tq, d), k/v (batch_heads / group, tk, d), out like q;
-// all contiguous bf16. lse: null, or (batch_heads, tq) float32. mvec: null
+// q (batch_heads, tq, d), k (batch_heads / group, tk, d), v
+// (batch_heads / group, tk, dv), out (batch_heads, tq, dv); all contiguous
+// bf16, (d, dv) a pair of FLASH_GRID (the wrapper pads to it). lse: null, or (batch_heads, tq) float32. mvec: null
 // (K1, exact softmax), or the (batch_heads, tq) float32 row bounds (K2).
 // mask: null, or bytes addressed as MaskArgs (inner = heads; strides in
 // bytes). ext: null (the base instantiations), or the segments, window,
@@ -813,7 +842,7 @@ extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v,
                               const void* mask, int mask_inner,
                               long long mask_so, long long mask_si,
                               long long mask_sr, int batch_heads, int group,
-                              int tq, int tk, int d, int causal,
+                              int tq, int tk, int d, int dv, int causal,
                               int causal_offset, int kv_offset, float qscale,
                               const void* ext, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -823,15 +852,12 @@ extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v,
                    mask_inner > 0 ? mask_inner : 1, mask_so, mask_si,
                    mask_sr};
   const ExtArgs* e = static_cast<const ExtArgs*>(ext);
-  switch (d) {
-#define FWD_CASE(D)                                                       \
-    case D:                                                               \
-      return dispatch<D>(q, k, v, out, l, mv, m, batch_heads, group, tq,  \
-                         tk, causal, causal_offset, kv_offset, qscale, e, \
-                         s);
-    FWD_CASE(32) FWD_CASE(64) FWD_CASE(96) FWD_CASE(128)
+#define FWD_CASE(D, DV)                                                   \
+  if (d == D && dv == DV)                                                 \
+    return dispatch<D, DV>(q, k, v, out, l, mv, m, batch_heads, group,    \
+                           tq, tk, causal, causal_offset, kv_offset,      \
+                           qscale, e, s);
+  FLASH_GRID(FWD_CASE)
 #undef FWD_CASE
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }

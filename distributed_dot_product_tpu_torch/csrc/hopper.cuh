@@ -363,6 +363,32 @@ struct Wgmma<128> {
   }
 };
 
+// d (64 x N) += A . B over one k16 step, A in registers (the m64k16 A
+// fragment) and B an N-column tile read MN-major, as wgmma products of at
+// most 128 columns each: columns [c0, c0 + n) of the product are the
+// accumulator's elements [c0 / 2, (c0 + n) / 2) and the tile's panels from
+// c0 / 8 on (N = 192: 128 + 64; N = 256: 128 + 128).
+template <int N, int C0 = 0>
+__device__ __forceinline__ void mma_rs(float (&d)[N / 2],
+                                       const uint32_t (&a)[4], uint32_t tile,
+                                       int kk) {
+  constexpr int R = N - C0;
+  constexpr int W = R >= 128 ? 128 : (R >= 96 ? 96 : (R >= 64 ? 64 : 32));
+  Wgmma<W>::rs(*reinterpret_cast<float(*)[W / 2]>(&d[C0 / 2]), a,
+               desc_mnmajor(tile + (C0 / 8) * kPanelBytes, kk), 1);
+  if constexpr (C0 + W < N) mma_rs<N, C0 + W>(d, a, tile, kk);
+}
+
+// Shared memory a block may use (H100: 227 KB).
+constexpr size_t kSmemLimit = 232448;
+
+// The (D, DV) instantiations of K1-K4 (q/k width, v width), each a
+// multiple of 32 up to 256; the wrappers zero-pad an operand off the grid
+// to the first pair that covers it. ops/flash_attention.py reads the pairs
+// from this macro (_flash_grid): keep them on its two lines, as X(d, dv).
+#define FLASH_GRID(X) \
+  X(32, 32) X(64, 64) X(96, 96) X(128, 128) X(192, 128) X(256, 256)
+
 // The TMA map of a (heads, rows, d) bf16 tensor (or, with `i8`, int8) read
 // in 64-row x 16-byte boxes, one core-matrix panel of a tile each; rows
 // past a head's end load as zeros. An empty tensor gets no map (nothing is

@@ -84,10 +84,17 @@ reference. ``grad_dtype=torch.float32`` writes the gradients in float32
 
 On CUDA tensors each pass launches its hand-written kernel or raises
 (``csrc/flash_fwd.cu`` for K1 and K2, ``csrc/flash_bwd.cu`` for K3 and
-K4: bf16, head dims 32/64/96/128, ``d_v == d``, any number of (batch,
-head) rows); on CPU tensors each runs its plain PyTorch version. With
-int8 scoring K1 and K4 read the int8 q and k (``s8`` tensor-core
-products); K4 takes q̃ from :func:`dequantize_rows`, made once a call.
+K4: bf16, any number of (batch, head) rows, any head dim ``d`` and value
+width ``d_v`` from 1 to 256); on CPU tensors each runs its plain PyTorch
+version. The kernels are instantiated on a grid of ``(d, d_v)`` pairs
+(:data:`_KERNEL_GRID`); an operand off the grid is zero-padded to the
+first pair that covers it — q and k (and the int8 operands) along ``d``,
+v and the output cotangent along ``d_v`` — and the result sliced back.
+Zero columns change no score, no row logsumexp and no exactly-empty row;
+the padded gradient columns come out exactly 0. The softmax scale is
+fixed from the true ``d`` before any padding. With int8 scoring K1 and
+K4 read the int8 q and k (``s8`` tensor-core products); K4 takes q̃ from
+:func:`dequantize_rows`, made once a call.
 
 Numerics (both versions): ``scale·log2(e)`` is folded into q and
 rounded back to q's dtype (the exp2 trick), and the softmax runs in exp2
@@ -98,6 +105,7 @@ bound (K2).
 import ctypes
 import math
 import operator
+import re
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -122,7 +130,24 @@ _NEG_BIG = -0.7 * 3.4e38   # large-finite fp32 running-max floor
 # the worst-case gap 2·max(bound) between a row's shift and its true max
 # stays within 100 log2 units of float32's exponent range.
 _BOUNDED_SAFE_GAP = 100.0
-_KERNEL_HEAD_DIMS = (32, 64, 96, 128)
+
+
+def _flash_grid():
+    """The ``(d, d_v)`` instantiations of the CUDA kernels, in increasing
+    ``d + d_v``: the ``X(d, dv)`` pairs of ``FLASH_GRID`` in
+    ``csrc/hopper.cuh``, read from the header the kernels are built
+    from."""
+    text = (_build._CSRC / 'hopper.cuh').read_text()
+    body = re.search(r'#define FLASH_GRID\(X\)((?:[^\n]*\\\n)*[^\n]*)',
+                     text).group(1)
+    return tuple((int(a), int(b))
+                 for a, b in re.findall(r'X\((\d+),\s*(\d+)\)', body))
+
+
+_KERNEL_GRID = _flash_grid()
+# The widest head dim and value width the kernels (K1-K5p) take.
+_MAX_HEAD_DIM = max(max(pair) for pair in _KERNEL_GRID)
+
 
 class _Feat(NamedTuple):
     """The per-element features beyond mask and causal, validated:
@@ -671,9 +696,10 @@ class _ExtArgs(ctypes.Structure):
 _TILE = 64
 
 
-def _check_kernel_operands(named, d):
-    """Raise on what the CUDA kernels do not take: they read contiguous
-    bf16 rows of head dim 32/64/96/128 on one device, 16-byte aligned."""
+def _check_kernel_operands(named):
+    """Raise on what the CUDA kernels do not take: bf16 rows on one
+    device, of any width from 1 to :data:`_MAX_HEAD_DIM` (q and k share
+    the head dim ``d``; v and the cotangent the value width ``d_v``)."""
     dev = named[0][1].device
     for name, t in named:
         if t.dtype != torch.bfloat16:
@@ -681,14 +707,43 @@ def _check_kernel_operands(named, d):
                             f'{t.dtype}')
         if t.device != dev:
             raise ValueError(f'{name} is on {t.device}, not {dev}')
-        if t.shape[-1] != d:
+        if not 1 <= t.shape[-1] <= _MAX_HEAD_DIM:
             raise NotImplementedError(
-                f'the CUDA flash kernels need d_v == d; {name} is '
-                f'{tuple(t.shape)}')
-    if d not in _KERNEL_HEAD_DIMS:
-        raise NotImplementedError(
-            f'the CUDA flash kernels cover head dims {_KERNEL_HEAD_DIMS}, '
-            f'got {d}')
+                f'the CUDA flash kernels take head dims and value widths '
+                f'up to {_MAX_HEAD_DIM}; {name} is {tuple(t.shape)}')
+
+
+def _grid_dims(d, dv):
+    """The kernel instantiation ``(D, D_v)`` that runs widths ``(d,
+    d_v)``: the first pair of :data:`_KERNEL_GRID` covering both."""
+    for pair in _KERNEL_GRID:
+        if d <= pair[0] and dv <= pair[1]:
+            return pair
+    raise NotImplementedError(
+        f'the CUDA flash kernels take head dims and value widths up to '
+        f'{_MAX_HEAD_DIM}; got d {d}, d_v {dv}')
+
+
+def _pad_cols(t, width):
+    """``t`` zero-padded along its last axis to ``width`` columns (a new
+    contiguous tensor), or ``t`` itself at that width."""
+    if t.shape[-1] == width:
+        return t
+    return torch.nn.functional.pad(t, (0, width - t.shape[-1])).contiguous()
+
+
+def _pad_quant(quant, d_pad):
+    """int8 scoring's ``(q_i8, sq, k_i8, sk)`` with the int8 rows padded
+    to ``d_pad`` columns (zeros add nothing to the integer dots)."""
+    if quant is None:
+        return None
+    q8, sq, k8, sk = quant
+    return _pad_cols(q8, d_pad), sq, _pad_cols(k8, d_pad), sk
+
+
+def _sliced(t, width):
+    """The first ``width`` columns of a kernel output (contiguous)."""
+    return t if t.shape[-1] == width else t[..., :width].contiguous()
 
 
 def _check_grad_dtype(grad_dtype, like):
@@ -816,13 +871,19 @@ def _launch(q, k, v, mask, causal, causal_offset, kv_offset, scale,
             save_lse=False, mvec=None, feat=_NO_FEAT, quant=None):
     """K1 on the card, or K2 when ``mvec`` (the row bounds) is given:
     ``out``, or ``(out, lse)`` with ``save_lse``. ``quant``: int8
-    scoring's :func:`quant_operands` (made here when None)."""
-    _check_kernel_operands((('q', q), ('k', k), ('v', v)), q.shape[-1])
+    scoring's :func:`quant_operands` (made here when None). Operands off
+    the kernel grid are zero-padded and the output sliced back."""
+    _check_kernel_operands((('q', q), ('k', k), ('v', v)))
     group = _kv_group(q, k)
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    dv = v.shape[-1]
+    d_pad = _grid_dims(q.shape[-1], dv)
+    q, k = (_pad_cols(t, d_pad[0]).contiguous() for t in (q, k))
+    v = _pad_cols(v, d_pad[1]).contiguous()
+    quant = _pad_quant(quant, d_pad[0])
     nb = math.prod(q.shape[:-2])
-    tq, tk, d = q.shape[-2], k.shape[-2], q.shape[-1]
-    out = torch.empty(q.shape, dtype=v.dtype, device=q.device)
+    tq, tk = q.shape[-2], k.shape[-2]
+    out = torch.empty((*q.shape[:-1], d_pad[1]), dtype=v.dtype,
+                      device=q.device)
     lse = (torch.empty(q.shape[:-1], dtype=torch.float32, device=q.device)
            if save_lse else None)
     if mvec is not None:
@@ -831,16 +892,18 @@ def _launch(q, k, v, mask, causal, causal_offset, kv_offset, scale,
     alive, ext = _ext_operand(feat, q, k, scale, quant)
     fn = _cfn('flash_fwd' if ext is None else 'flash_fwd_ext',
               'flash_fwd_bf16',
-              [_VP] * 6 + _MASK_ARGTYPES + [_I] * 8 + [_F, _VP, _VP])
+              [_VP] * 6 + _MASK_ARGTYPES + [_I] * 9 + [_F, _VP, _VP])
     with torch.cuda.device(q.device):
         err = fn(*_ptrs(q, k, v, out), None if lse is None else lse.data_ptr(),
                  None if mvec is None else mvec.data_ptr(), *margs, nb,
-                 group, tq, tk, d, int(causal), causal_offset, kv_offset,
-                 scale * _LOG2E, ext, torch.cuda.current_stream().cuda_stream)
+                 group, tq, tk, *d_pad, int(causal), causal_offset,
+                 kv_offset, scale * _LOG2E, ext,
+                 torch.cuda.current_stream().cuda_stream)
     del alive
     _raise_on(err, 'flash_fwd' if mvec is None else 'flash_fwd bounded')
     _count(flash_attention if mvec is None else flash_attention_bounded,
            feat)
+    out = _sliced(out, dv)
     return out if lse is None else (out, lse)
 
 
@@ -976,15 +1039,20 @@ def _launch_dq(q2, k, v, g, lse2, delta, mask, causal, causal_offset,
                kv_offset, scale, grad_dtype, feat, quant):
     """K3 on the card: dq. With int8 scoring the kernel takes the
     dequantized k (:func:`dequantize_rows`, kv-head shaped, made here once
-    a call) where it takes k otherwise: the operand of dq."""
-    _check_kernel_operands((('q', q2), ('k', k), ('v', v), ('g', g)),
-                           q2.shape[-1])
+    a call) where it takes k otherwise: the operand of dq. Operands off the
+    kernel grid are zero-padded (q2, k along d; v, g along d_v) and dq
+    sliced back."""
+    _check_kernel_operands((('q', q2), ('k', k), ('v', v), ('g', g)))
     out_f32 = _check_grad_dtype(grad_dtype, q2)
     group = _kv_group(q2, k)
-    q2, k, v, g = (t.contiguous() for t in (q2, k, v, g))
+    d = q2.shape[-1]
+    d_pad = _grid_dims(d, v.shape[-1])
+    q2, k = (_pad_cols(t, d_pad[0]).contiguous() for t in (q2, k))
+    v, g = (_pad_cols(t, d_pad[1]).contiguous() for t in (v, g))
+    quant = _pad_quant(quant, d_pad[0])
     lse2, delta = lse2.float().contiguous(), delta.float().contiguous()
     nb = math.prod(q2.shape[:-2])
-    tq, tk, d = q2.shape[-2], k.shape[-2], q2.shape[-1]
+    tq, tk = q2.shape[-2], k.shape[-2]
     dq = torch.empty(q2.shape, device=q2.device,
                      dtype=torch.float32 if out_f32 else q2.dtype)
     m, margs = _mask_operand(mask, q2, tk)
@@ -993,16 +1061,16 @@ def _launch_dq(q2, k, v, g, lse2, delta, mask, causal, causal_offset,
             if feat.quant else k)
     fn = _cfn('flash_bwd' if ext is None else 'flash_bwd_dq_ext',
               'flash_bwd_dq_bf16',
-              [_VP] * 7 + _MASK_ARGTYPES + [_I] * 8 + [_F, _I, _VP, _VP])
+              [_VP] * 7 + _MASK_ARGTYPES + [_I] * 9 + [_F, _I, _VP, _VP])
     with torch.cuda.device(q2.device):
         err = fn(*_ptrs(q2, k_op, v, g, lse2, delta, dq), *margs, nb, group,
-                 tq, tk, d, int(causal), int(causal_offset), int(kv_offset),
-                 float(scale), int(out_f32), ext,
+                 tq, tk, *d_pad, int(causal), int(causal_offset),
+                 int(kv_offset), float(scale), int(out_f32), ext,
                  torch.cuda.current_stream().cuda_stream)
     del alive
     _raise_on(err, 'flash_bwd_dq')
     _count(flash_attention_dq, feat)
-    return dq
+    return _sliced(dq, d)
 
 
 def flash_attention_dkv(q2, k, v, g, lse2, delta, *, mask=None,
@@ -1038,15 +1106,19 @@ def _launch_dkv(q2, k, v, g, lse2, delta, mask, causal, causal_offset,
                 kv_offset, scale, grad_dtype, feat, quant):
     """K4 on the card: ``(dk, dv)``. With int8 scoring the kernel takes the
     dequantized q (:func:`dequantize_rows`, made here once a call) where
-    it takes the folded q2 otherwise: the operand of dk."""
-    _check_kernel_operands((('q', q2), ('k', k), ('v', v), ('g', g)),
-                           q2.shape[-1])
+    it takes the folded q2 otherwise: the operand of dk. Operands off the
+    kernel grid are zero-padded and dk, dv sliced back."""
+    _check_kernel_operands((('q', q2), ('k', k), ('v', v), ('g', g)))
     out_f32 = _check_grad_dtype(grad_dtype, k)
     group = _kv_group(q2, k)
-    q2, k, v, g = (t.contiguous() for t in (q2, k, v, g))
+    d, dv_width = q2.shape[-1], v.shape[-1]
+    d_pad = _grid_dims(d, dv_width)
+    q2, k = (_pad_cols(t, d_pad[0]).contiguous() for t in (q2, k))
+    v, g = (_pad_cols(t, d_pad[1]).contiguous() for t in (v, g))
+    quant = _pad_quant(quant, d_pad[0])
     lse2, delta = lse2.float().contiguous(), delta.float().contiguous()
     nb = math.prod(q2.shape[:-2])
-    tq, tk, d = q2.shape[-2], k.shape[-2], q2.shape[-1]
+    tq, tk = q2.shape[-2], k.shape[-2]
     gdt = torch.float32 if out_f32 else k.dtype
     dk = torch.empty(k.shape, dtype=gdt, device=k.device)
     dv = torch.empty(v.shape, dtype=gdt, device=v.device)
@@ -1056,16 +1128,16 @@ def _launch_dkv(q2, k, v, g, lse2, delta, mask, causal, causal_offset,
             if feat.quant else q2)
     fn = _cfn('flash_bwd' if ext is None else 'flash_bwd_dkv_ext',
               'flash_bwd_dkv_bf16',
-              [_VP] * 8 + _MASK_ARGTYPES + [_I] * 8 + [_F, _I, _VP, _VP])
+              [_VP] * 8 + _MASK_ARGTYPES + [_I] * 9 + [_F, _I, _VP, _VP])
     with torch.cuda.device(q2.device):
         err = fn(*_ptrs(q_op, k, v, g, lse2, delta, dk, dv), *margs, nb,
-                 group, tq, tk, d, int(causal), int(causal_offset),
+                 group, tq, tk, *d_pad, int(causal), int(causal_offset),
                  int(kv_offset), float(scale), int(out_f32), ext,
                  torch.cuda.current_stream().cuda_stream)
     del alive
     _raise_on(err, 'flash_bwd_dkv')
     _count(flash_attention_dkv, feat)
-    return dk, dv
+    return _sliced(dk, d), _sliced(dv, dv_width)
 
 
 def flash_attention_backward(q, k, v, out, lse, g, causal=False,

@@ -21,18 +21,28 @@ triangle. ``n_new (B,)`` is the per-slot count of rows actually appended
 (default ``k`` wherever ``append_at >= 0``); rows ``m >= n_new`` are
 neither appended nor substituted into the scores, and their query rows
 give outputs the caller discards. ``k`` must not exceed the K split:
-``min(128, t_max)`` columns on a slab (the port's split, below the
-reference's), the page size when paged. Row ``j`` gives the bits of the
-``j``-th of ``k`` sequential one-row steps, on the card and on the CPU.
+``block_k`` when given, else ``min(128, t_max)`` columns on a slab (the
+port's split, below the reference's), the page size when paged. Row
+``j`` gives the bits of the ``j``-th of ``k`` sequential one-row steps,
+on the card and on the CPU.
+
+``block_k``: the reference's K split, validated as the reference
+validates it — on a slab it must divide ``t_max`` (and ``k`` must not
+exceed it), paged it must equal the page size; anything else raises the
+reference's ``ValueError``. On the card the slab kernel then splits at
+it (a cluster rank owns ``block_k`` columns at a time); paged, and with
+no ``block_k``, the kernel keeps its 128-column split. The plain version
+computes the same softmax whatever the split (the answer differs from
+the kernel's only by rounding).
 
 PAGED mode (``page_table (B, pages_per_slot) int32``, K5p):
 ``cache_k/cache_v`` are global ``(pages + 1, H_kv, page_size, d)``
 pools whose last row is the reserved sink page. Column ``c`` of slot
 ``i`` lives at row ``c % page_size`` of pool page
-``page_table[i, c // page_size]``; a ``-1`` entry is never scored and
-never written, and the appends land only through the table. The port
-writes nothing to the sink (the TPU kernel parks Pallas's mandatory
-block write-backs there; CUDA has no such flush).
+``page_table[i, c // page_size]``, for any page size; a ``-1`` entry is
+never scored and never written, and the appends land only through the
+table. The port writes nothing to the sink (the TPU kernel parks
+Pallas's mandatory block write-backs there; CUDA has no such flush).
 
 ``qk_quant='int8'`` scores against the cache's int8 K mirror ``k_q
 (…, d) int8`` / ``k_scale (…, 1) float32`` (slab buffers, or pools
@@ -66,31 +76,31 @@ kernel initialises its running max).
 
 On CUDA tensors it launches ``csrc/flash_decode.cu`` (one kernel a
 call: split-K flash-decoding across a thread-block cluster per slot and
-kv head, merged in the same launch; bf16, head dims 32/64/96/128;
-paged, page sizes dividing 128 or multiples of 128) or raises; on CPU
-tensors it runs :func:`flash_decode_plain`. The reference's ``block_k``
-raises ``NotImplementedError``.
+kv head, merged in the same launch; bf16, any head dim ``d`` and value
+width ``d_v`` from 1 to 256, read and appended in place at their true
+widths; paged, any page size) or raises; on CPU tensors it runs
+:func:`flash_decode_plain`.
 """
 
 import ctypes
 import functools
 import math
+import numbers
 
 import torch
 
 from distributed_dot_product_tpu_torch.obs import perf as _perf
 from distributed_dot_product_tpu_torch.ops import _build
 from distributed_dot_product_tpu_torch.ops.flash_attention import (
-    _LOG2E, _NEG_BIG, _alibi_log2, quantize_rows,
+    _LOG2E, _MAX_HEAD_DIM, _NEG_BIG, _alibi_log2, quantize_rows,
 )
 
 __all__ = ['flash_decode', 'flash_decode_paged', 'flash_decode_plain',
            'gather_pages']
 
-_KERNEL_HEAD_DIMS = (32, 64, 96, 128)
-_UNPORTED = ('block_k',)
 # Cache columns a cluster rank of the CUDA kernel owns at a time (kChunk
-# in csrc/flash_decode.cu): the slab's K split, which bounds verify-k.
+# in csrc/flash_decode.cu) unless a slab call gives block_k: the slab's
+# default K split, which bounds verify-k.
 _SPLIT = 128
 # Blocks a (slot, kv head) cluster may hold: the portable cluster size.
 _MAX_CLUSTER = 8
@@ -237,11 +247,48 @@ def _row_counts(n_new, ap, n, b, dev):
     return torch.where(ap >= 0, nn, 0).to(torch.int32).contiguous()
 
 
+def _k_split(block_k, cache_k, page_table, n):
+    """The K split of a call, checked with the reference's tests and
+    messages: paged, the page size (``block_k`` may only repeat it); on a
+    slab ``block_k`` (which must divide ``t_max``), or with none (or 0)
+    the port's ``min(_SPLIT, t_max)``; ``n`` new rows must not exceed it.
+    A negative divisor, which passes the reference's test and then fails
+    in its grid, and a split that is no integer are refused with the same
+    message. Returns ``(split, slab_block_k)``: ``slab_block_k`` is the
+    slab's ``block_k`` as an int for the kernel, None where the kernel
+    keeps its own split."""
+    paged = page_table is not None
+    given = None
+    if paged:
+        bk = cache_k.shape[2]
+        if block_k not in (None, bk):
+            raise ValueError(f'paged decode splits K at the page size '
+                             f'{bk}; block_k={block_k} cannot differ')
+    else:
+        t_max = cache_k.shape[2]
+        bk = block_k or min(_SPLIT, t_max)
+        if block_k and (t_max % bk or not isinstance(bk, numbers.Integral)
+                        or bk < 1):
+            raise ValueError(
+                f'no usable K split for t_max={t_max} (block_k must '
+                f'divide it); use the plain decode path for this cache '
+                f'shape')
+        if block_k:
+            bk = given = int(bk)
+    if n > bk:
+        raise ValueError(
+            f'verify-k width {n} exceeds the K split {bk} '
+            f'({"page size" if paged else "block"}) — k rows must span '
+            f'at most two blocks; use the plain decode path for wider '
+            f'verify steps')
+    return bk, given
+
+
 def flash_decode_plain(q, k_new, v_new, cache_k, cache_v, valid_to,
                        append_at, *, n_new=None, scale=None,
                        page_table=None, window=None, partials=False,
                        k_q=None, k_scale=None, qk_quant=None,
-                       alibi_slopes=None):
+                       alibi_slopes=None, block_k=None):
     """The kernel's arithmetic in plain PyTorch (float32 scores); appends
     in place like the kernel. Verify-k runs as ``k`` sequential one-row
     steps — row ``j`` appends (when ``j < n_new``) at ``append_at + j``
@@ -251,11 +298,15 @@ def flash_decode_plain(q, k_new, v_new, cache_k, cache_v, valid_to,
     entry is ``-1``), then the slab arithmetic runs on the gathered view
     with ``-1`` columns masked. ``qk_quant='int8'``: scores from the
     ``k_q``/``k_scale`` mirror, which is appended in place too.
-    ``alibi_slopes (H,)``: ALiBi at ``valid_to + j``. Returns
-    ``(out, cache_k, cache_v)``, or with ``partials`` ``((num, m, l),
-    cache_k, cache_v)``."""
+    ``alibi_slopes (H,)``: ALiBi at ``valid_to + j``. ``block_k``: the
+    K split, validated as :func:`flash_decode` does (when given); the
+    arithmetic does not depend on it. Returns ``(out, cache_k,
+    cache_v)``, or with ``partials`` ``((num, m, l), cache_k,
+    cache_v)``."""
     _check_window(window)
     b, _, n, d = q.shape
+    if block_k is not None:
+        _k_split(block_k, cache_k, page_table, n)
     scale = 1.0 / math.sqrt(d) if scale is None else scale
     dev = cache_k.device
     vt = _slot_vector(valid_to, b, dev).long()
@@ -284,14 +335,14 @@ def _kernel_lib():
     if lib.flash_decode_bf16.argtypes is None:
         vp, i = ctypes.c_void_p, ctypes.c_int
         lib.flash_decode_bf16.argtypes = (
-            [vp] * 15 + [i] * 8 + [ctypes.c_float, vp])
+            [vp] * 15 + [i] * 10 + [ctypes.c_float, vp])
         lib.flash_decode_paged_bf16.argtypes = (
-            [vp] * 16 + [i] * 9 + [ctypes.c_float, vp])
+            [vp] * 16 + [i] * 10 + [ctypes.c_float, vp])
         for fn in (lib.flash_decode_bf16, lib.flash_decode_paged_bf16):
             fn.restype = ctypes.c_int
         lib.flash_decode_chunk.argtypes = []
         lib.flash_decode_chunk.restype = ctypes.c_int
-        lib.flash_decode_smem.argtypes = [i] * 7
+        lib.flash_decode_smem.argtypes = [i] * 8
         lib.flash_decode_smem.restype = ctypes.c_int
     return lib
 
@@ -316,24 +367,30 @@ def _launch_geometry(batch, h_kv, t_max, sm_count):
     return cluster, (cluster, batch * h_kv)
 
 
+def _chunk_cluster(cluster, t_max, chunk):
+    """The cluster of a slab launch split at ``chunk`` columns (block_k):
+    :func:`_launch_geometry`'s, halved while half of it still covers the
+    chunks (a rank past the last chunk would walk nothing)."""
+    chunks = max(-(-t_max // chunk), 1)
+    while cluster > 1 and cluster // 2 >= chunks:
+        cluster //= 2
+    return cluster
+
+
 @functools.lru_cache(maxsize=None)
 def _sm_count(index):
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _page_size_ok(ps):
-    """Page sizes the paged kernel takes: dividing the chunk, or whole
-    multiples of it."""
-    return ps >= 1 and (_SPLIT % ps == 0 or ps % _SPLIT == 0)
-
-
 def _launch(q, k_new, v_new, cache_k, cache_v, valid_to, append_at, n_new,
             scale, page_table=None, window=None, partials=False,
-            mirror=None, alibi_slopes=None):
+            mirror=None, alibi_slopes=None, block_k=None):
     """One launch of the CUDA kernel. Nothing is read back to the host and
     no other kernel runs: int8 quantizes q and ``k_new`` in the kernel,
-    and ALiBi folds its slopes there."""
+    and ALiBi folds its slopes there. ``block_k``: the slab's K split
+    (None: the kernel's own)."""
     b, h, n, d = q.shape
+    dv = cache_v.shape[-1]
     h_kv = cache_k.shape[1]
     dev = cache_k.device
     for name, t in (('q', q), ('k_new', k_new), ('v_new', v_new),
@@ -343,10 +400,10 @@ def _launch(q, k_new, v_new, cache_k, cache_v, valid_to, append_at, n_new,
                             f'{t.dtype}')
         if t.device != dev:
             raise ValueError(f'{name} is on {t.device}, the cache on {dev}')
-    if d not in _KERNEL_HEAD_DIMS or cache_v.shape[-1] != d:
+    if not (1 <= d <= _MAX_HEAD_DIM and 1 <= dv <= _MAX_HEAD_DIM):
         raise NotImplementedError(
-            f'the CUDA decode kernel covers head dims {_KERNEL_HEAD_DIMS} '
-            f'with d_v == d; got q {tuple(q.shape)}, cache_v '
+            f'the CUDA decode kernel takes head dims and value widths up '
+            f'to {_MAX_HEAD_DIM}; got q {tuple(q.shape)}, cache_v '
             f'{tuple(cache_v.shape)}')
     if not (cache_k.is_contiguous() and cache_v.is_contiguous()):
         raise ValueError('the cache is appended in place and must be '
@@ -364,10 +421,6 @@ def _launch(q, k_new, v_new, cache_k, cache_v, valid_to, append_at, n_new,
         t_max = cache_k.shape[2]
     else:
         ps = cache_k.shape[2]
-        if not _page_size_ok(ps):
-            raise NotImplementedError(
-                f'the paged CUDA decode kernel takes page sizes dividing '
-                f'{chunk} or multiples of it; got {ps}')
         if page_table.dtype != torch.int32 or page_table.device != dev \
                 or not page_table.is_contiguous() \
                 or page_table.shape[0] != b:
@@ -400,12 +453,12 @@ def _launch(q, k_new, v_new, cache_k, cache_v, valid_to, append_at, n_new,
     alibi = (None if alibi_slopes is None
              else _head_slopes(alibi_slopes, h, dev))
     if partials:
-        res = (torch.empty((b, h, n, d), dtype=torch.float32, device=dev),
+        res = (torch.empty((b, h, n, dv), dtype=torch.float32, device=dev),
                torch.empty((b, h, n, 1), dtype=torch.float32, device=dev),
                torch.empty((b, h, n, 1), dtype=torch.float32, device=dev))
         outs = (None, *(t.data_ptr() for t in res))
     else:
-        res = torch.empty((b, h, n, d), dtype=cache_v.dtype, device=dev)
+        res = torch.empty((b, h, n, dv), dtype=cache_v.dtype, device=dev)
         outs = (res.data_ptr(), None, None, None)
     for t in (q, k_new, v_new, cache_k, cache_v, *(mirror or ())):
         if t.data_ptr() % 16:
@@ -413,9 +466,12 @@ def _launch(q, k_new, v_new, cache_k, cache_v, valid_to, append_at, n_new,
                              'tensors')
     sms = _sm_count(dev.index)
     cluster, _ = _launch_geometry(b, h_kv, t_max, sms)
+    split = block_k or 0
+    if split:
+        cluster = _chunk_cluster(cluster, t_max, split)
 
-    smem = lib.flash_decode_smem(n * (h // h_kv), n, d, mirror is not None,
-                                 t_max, ps, cluster)
+    smem = lib.flash_decode_smem(n * (h // h_kv), n, d, dv,
+                                 mirror is not None, t_max, ps, cluster)
     if smem > _SMEM_LIMIT:
         raise ValueError(
             f'{n} new rows x {h // h_kv} query heads per kv head need '
@@ -433,13 +489,13 @@ def _launch(q, k_new, v_new, cache_k, cache_v, valid_to, append_at, n_new,
     with torch.cuda.device(dev):
         if page_table is None:
             err = lib.flash_decode_bf16(*ptrs, *rest, b, h, h_kv, n, t_max,
-                                        d, win, cluster, scale * _LOG2E,
-                                        stream)
+                                        d, dv, win, cluster, split,
+                                        scale * _LOG2E, stream)
         else:
             err = lib.flash_decode_paged_bf16(
                 *ptrs, page_table.data_ptr(), *rest, b, h, h_kv, n,
-                page_table.shape[1], ps, d, win, cluster, scale * _LOG2E,
-                stream)
+                page_table.shape[1], ps, d, dv, win, cluster,
+                scale * _LOG2E, stream)
     if err:
         raise RuntimeError(f'flash_decode kernel launch failed: CUDA error '
                            f'{err}')
@@ -495,22 +551,15 @@ def _decode_work(q, cache_k, valid_to, append_at, n_new, page_table,
 def flash_decode(q, k_new, v_new, cache_k, cache_v, valid_to, append_at, *,
                  n_new=None, page_table=None, k_q=None, k_scale=None,
                  scale=None, window=None, alibi_slopes=None, qk_quant=None,
-                 interpret=None, partials=False, **unported):
+                 interpret=None, partials=False, block_k=None):
     """One fused decode step (see the module docstring). Returns
-    ``(out (B, H, k, d) in cache_v.dtype, cache_k, cache_v)`` — with
+    ``(out (B, H, k, d_v) in cache_v.dtype, cache_k, cache_v)`` — with
     ``partials`` ``((num, m, l), cache_k, cache_v)``; the cache tensors
     (slabs, or pools with ``page_table``) are the ones passed in,
     appended in place, as is the int8 mirror (``k_q``/``k_scale``).
 
     ``interpret`` mirrors the reference knob: the plain version runs only
     for CPU tensors, so ``interpret=True`` with CUDA tensors raises."""
-    for name, value in unported.items():
-        if name not in _UNPORTED:
-            raise TypeError(f'flash_decode got an unexpected keyword '
-                            f'argument {name!r}')
-        if value is not None:
-            raise NotImplementedError(f'flash_decode({name}=...) is not '
-                                      f'ported yet')
     _check_window(window)
     b, h, n, d = q.shape
     h_kv = cache_k.shape[1]
@@ -542,13 +591,10 @@ def flash_decode(q, k_new, v_new, cache_k, cache_v, valid_to, append_at, *,
     if paged and page_table.shape[0] != b:
         raise ValueError(f'page_table has {page_table.shape[0]} rows for '
                          f'batch {b}')
-    bk = cache_k.shape[2] if paged else min(_SPLIT, cache_k.shape[2])
-    if n > bk:
-        raise ValueError(
-            f'verify-k width {n} exceeds the K split {bk} '
-            f'({"page size" if paged else "block"}) — k rows must span '
-            f'at most two blocks; use the plain decode path for wider '
-            f'verify steps')
+    if paged and cache_k.shape[2] < 1:
+        raise ValueError(f'a page holds at least one row; the pool is '
+                         f'{tuple(cache_k.shape)}')
+    _, block_k = _k_split(block_k, cache_k, page_table, n)
     scale = float(1.0 / math.sqrt(d) if scale is None else scale)
     mirror = (k_q, k_scale) if quantized else None
     if cache_k.is_cuda and interpret:
@@ -565,7 +611,7 @@ def flash_decode(q, k_new, v_new, cache_k, cache_v, valid_to, append_at, *,
             return _launch(q, k_new, v_new, cache_k, cache_v, valid_to,
                            append_at, n_new, scale, page_table=page_table,
                            window=window, partials=partials, mirror=mirror,
-                           alibi_slopes=alibi_slopes)
+                           alibi_slopes=alibi_slopes, block_k=block_k)
         return flash_decode_plain(
             q, k_new, v_new, cache_k, cache_v, valid_to, append_at,
             n_new=n_new, scale=scale, page_table=page_table, window=window,

@@ -210,7 +210,7 @@ def main():
             torch, lambda: fd.flash_decode(q, kn, vn, ck, cv, none, none,
                                            scale=scale), flush)
         lib = fd._kernel_lib()
-        lib.flash_decode_max_clusters.argtypes = [ctypes.c_int] * 6
+        lib.flash_decode_max_clusters.argtypes = [ctypes.c_int] * 7
         lib.flash_decode_max_clusters.restype = ctypes.c_int
         geometry = fd._launch_geometry
         sms = fd._sm_count(dev.index)
@@ -225,7 +225,7 @@ def main():
                 sweep[name][f'cluster_{c}'] = {
                     'ms': cs.time_ms(torch, fn, flush),
                     'max_active_clusters': lib.flash_decode_max_clusters(
-                        1, 1, cs.HEAD_DIM, int(paged), 0, c)}
+                        1, 1, cs.HEAD_DIM, cs.HEAD_DIM, int(paged), 0, c)}
             fd._launch_geometry = geometry
         use_source(_build, plant(text), tmp, 'timed')
         read = _build.load('flash_decode').decode_sections

@@ -67,8 +67,8 @@ PKG = 'distributed_dot_product_tpu_torch'
 
 
 def _round_acc(*names):
-    """Rounds each named accumulator array (D / 2 floats) to bf16."""
-    return ''.join(f'    for (int i = 0; i < D / 2; ++i)\n'
+    """Rounds each named accumulator array of floats to bf16."""
+    return ''.join(f'    for (int i = 0; i < int(sizeof({n}) / 4); ++i)\n'
                    f'      {n}[i] = '
                    f'__bfloat162float(__float2bfloat16({n}[i]));\n'
                    for n in names)
@@ -82,11 +82,11 @@ DECODE = ('flash_decode', 'flash_decode_paged', 'flash_decode_verify')
 FAULTS = {
     'k1_late_diagonal_tile_dropped': (
         'flash_fwd.cu', '    if (sees(wg, t)) {\n      const int k0 = t * kB;\n'
-        '      const uint32_t tK = smem_u32(sKV + 2 * stage * kB * D);\n',
+        '      const uint32_t tK = smem_u32(sKV + stage * kB * (D + DV));\n',
         '    if (sees(wg, t) && !(q0 >= 32 * kB &&\n'
         '                         t == (wg ? t_hi[1] : t_hi[0]) - 1)) {\n'
         '      const int k0 = t * kB;\n'
-        '      const uint32_t tK = smem_u32(sKV + 2 * stage * kB * D);\n',
+        '      const uint32_t tK = smem_u32(sKV + stage * kB * (D + DV));\n',
         ('flash_attention', 'flash_backward')),
     'k1_accumulator_bf16': (
         'flash_fwd.cu', '      fence_regs(o);\n',
@@ -96,17 +96,17 @@ FAULTS = {
     # earlier tiles at their old, smaller running max.
     'k1_corr_dropped': (
         'flash_fwd.cu',
-        '        for (int i = 0; i < D / 2; ++i) o[i] *= corr[(i >> 1) & 1];\n',
+        '        for (int i = 0; i < DV / 2; ++i) o[i] *= corr[(i >> 1) & 1];\n',
         '',
         ('flash_attention', 'flash_backward')),
     # Every query tile's last causal key tile (its diagonal) skipped.
     'k1_last_causal_tile_skipped': (
         'flash_fwd.cu', '    if (sees(wg, t)) {\n      const int k0 = t * kB;\n'
-        '      const uint32_t tK = smem_u32(sKV + 2 * stage * kB * D);\n',
+        '      const uint32_t tK = smem_u32(sKV + stage * kB * (D + DV));\n',
         '    if (sees(wg, t) && !(causal &&\n'
         '                         t == (wg ? t_hi[1] : t_hi[0]) - 1)) {\n'
         '      const int k0 = t * kB;\n'
-        '      const uint32_t tK = smem_u32(sKV + 2 * stage * kB * D);\n',
+        '      const uint32_t tK = smem_u32(sKV + stage * kB * (D + DV));\n',
         ('flash_attention', 'flash_backward')),
     'k3_late_diagonal_tile_dropped': (
         'flash_bwd.cu', '      uint32_t ds[4][4];\n',
@@ -125,8 +125,8 @@ FAULTS = {
         ('flash_backward',)),
     'k4_accumulator_bf16': (
         'flash_bwd.cu',
-        '      fence_regs(acc_dv);\n      fence_regs(acc_dk);\n',
-        '      fence_regs(acc_dv);\n      fence_regs(acc_dk);\n'
+        '        fence_regs(acc_dv);\n        fence_regs(acc_dk);\n',
+        '        fence_regs(acc_dv);\n        fence_regs(acc_dk);\n'
         + _round_acc('acc_dv', 'acc_dk'),
         ('flash_backward',)),
     # int8 scoring past key tile 32: each score scaled by the neighbouring
@@ -191,14 +191,13 @@ FAULTS = {
         '  const int m = col0 + r - s.ap;\n'
         '  const bool fresh = false;\n',
         DECODE),
-    # A -1 table entry read as page 0 (pages of at most 128 columns, as
-    # the smoke's): its rows copied and scored.
+    # A -1 table entry read as page 0: its rows copied and scored.
     'k5p_unallocated_page_scored': (
         'flash_decode.cu',
-        '    if (page < 0) return -1;\n'
-        '    return ((page * a.h_kv + s.hk) << sh)',
-        '    if (page < 0) return (s.hk << sh) + (col & (ps - 1));\n'
-        '    return ((page * a.h_kv + s.hk) << sh)',
+        '  if (page < 0) return -1;\n'
+        '  return (page * a.h_kv + s.hk) * ps + at;',
+        '  if (page < 0) return s.hk * ps + at;\n'
+        '  return (page * a.h_kv + s.hk) * ps + at;',
         DECODE),
     # The merge reads the partials its peers store without waiting for
     # them to land (the wait on the block's merge barrier dropped).

@@ -126,11 +126,103 @@ def test_geometry_fills_the_card():
     assert fd._launch_geometry(4, 8, 129, 132)[0] == 2
 
 
+def _pages_per_chunk(ps):
+    """The kernel's ``pages_per_chunk``: the page ids one 128-column chunk
+    holds (128 / ps for a divisor, 1 for a multiple of 128, else the most
+    pages 128 consecutive columns can touch)."""
+    if fd._SPLIT % ps == 0:
+        return fd._SPLIT // ps
+    if ps % fd._SPLIT == 0:
+        return 1
+    return (fd._SPLIT - 1 + ps - 1) // ps + 1
+
+
+def _paged_matches_reference(ps):
+    """The port's paged decode (CPU) against the reference kernel at page
+    size ``ps``: 4 slots of 3 pages each scattered over a pool of 9 (+ the
+    sink), GQA 4:2, k rows of 16 and v rows of 8; fills at a page's last
+    row, on a page boundary and mid-page, and an inactive slot."""
+    import jax.numpy as jnp
+    import numpy as np
+    import torch
+    from distributed_dot_product_tpu.ops.pallas_decode import (
+        flash_decode as jax_flash_decode,
+    )
+    rng = np.random.default_rng(ps)
+    b, h, h_kv, d, dv, pps, pages = 4, 4, 2, 16, 8, 3, 9
+
+    def rand(*shape):
+        return rng.standard_normal(shape, dtype=np.float32)
+    fills = [ps - 1, ps, ps + ps // 2 + 1, 0]
+    table = np.full((b, pps), -1, np.int32)
+    perm, nxt = rng.permutation(pages), 0
+    for i, f in enumerate(fills[:3]):
+        need = f // ps + 1
+        table[i, :need] = perm[nxt:nxt + need]
+        nxt += need
+    q, kn, vn = rand(b, h, 1, d), rand(b, h_kv, 1, d), rand(b, h_kv, 1, dv)
+    ck, cv = rand(pages + 1, h_kv, ps, d), rand(pages + 1, h_kv, ps, dv)
+    vt = np.array(fills[:3] + [-1], np.int32)
+    ap = np.array(fills[:3] + [-1], np.int32)
+    want = jax_flash_decode(*(jnp.asarray(x) for x in (q, kn, vn, ck, cv,
+                                                       vt, ap)),
+                            page_table=jnp.asarray(table),
+                            interpret=True)[:3]
+    tk, tv = torch.from_numpy(ck.copy()), torch.from_numpy(cv.copy())
+    got = fd.flash_decode(*(torch.from_numpy(x) for x in (q, kn, vn)), tk,
+                          tv, torch.from_numpy(vt), torch.from_numpy(ap),
+                          page_table=torch.from_numpy(table))[0]
+    want_out = np.asarray(want[0])
+    assert tuple(got.shape) == (b, h, 1, dv)
+    assert float(np.abs(got.numpy() - want_out).max()) <= 1e-5 * float(
+        np.abs(want_out).max()), ps
+    np.testing.assert_array_equal(tk.numpy()[:-1], np.asarray(want[1])[:-1])
+    np.testing.assert_array_equal(tv.numpy()[:-1], np.asarray(want[2])[:-1])
+
+
 @pytest.mark.parametrize('ps,ok', [(1, True), (16, True), (128, True),
-                                   (256, True), (512, True), (48, False),
-                                   (100, False), (192, False), (0, False)])
+                                   (256, True), (512, True), (48, True),
+                                   (100, True), (192, True), (0, False)])
 def test_page_sizes_the_paged_kernel_takes(ps, ok):
-    """Page sizes dividing the 128-column chunk, or whole multiples of it
-    (a chunk then covers part of a page); the wrapper refuses the rest
-    with NotImplementedError."""
-    assert fd._page_size_ok(ps) is ok
+    """Every page size of at least one row: the port's ``flash_decode``
+    with a page table at that page size gives the reference kernel's
+    answer (interpret mode) on the same scrambled pool, the pools
+    appended alike but the sink page (out within 1e-5 of its largest
+    entry: float32 rounding of two reduction orders); and the kernel's
+    page walk (``cache_row`` and the page-id load in
+    ``csrc/flash_decode.cu``, twinned here) finds each column's page among
+    its rank's ids, at the column's row of that page, with the 128-column
+    chunk partition unchanged (so K5p stays K5 on the gathered slab bit
+    for bit). A pool of zero-row pages is refused with ValueError."""
+    if not ok:
+        import torch
+        pool, row = torch.zeros(3, 1, ps, 8), torch.zeros(1, 1, 1, 8)
+        table = torch.zeros(1, 2, dtype=torch.int32)
+        with pytest.raises(ValueError, match='at least one row'):
+            fd.flash_decode(row, row, row, pool, pool.clone(), [0], [0],
+                            page_table=table)
+        return
+    _paged_matches_reference(ps)
+    ppc = _pages_per_chunk(ps)
+    for npages in (1, 3, 7):
+        t_max = npages * ps
+        chunks = -(-t_max // fd._SPLIT)
+        for cluster in (1, 2, 4, 8):
+            # The ids rank r loads: chunk c = r + (i // ppc) * cluster, its
+            # first page c * 128 // ps and the ones after it (-1 past the
+            # table).
+            held = {}
+            for r in range(cluster):
+                owned = -(-(chunks - r) // cluster) * ppc if r < chunks else 0
+                ids = []
+                for i in range(owned):
+                    c = r + i // ppc * cluster
+                    p = c * fd._SPLIT // ps + i % ppc
+                    ids.append(p if p < npages else -1)
+                held[r] = ids
+            for col in range(t_max):
+                c = col // fd._SPLIT
+                r, k = c % cluster, c // cluster
+                entry = col // ps - c * fd._SPLIT // ps
+                assert 0 <= entry < ppc, (ps, col)
+                assert held[r][k * ppc + entry] == col // ps, (ps, col)
