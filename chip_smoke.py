@@ -129,6 +129,34 @@ Phases, one JSON line each (some several):
    and 32 greedy tokens, and KernelEngine(slots 8, t_max
    3072, head_dim 256, page 48) serving serve_path's burst with its
    first-step logits against the plain decode path's; launches of each;
+13c. float32_path (run before kernel_coverage): float32 operands, the
+   JAX package's default dtype, on the float32 kernels (csrc/flash_f32.cu's
+   K1-K4; csrc/flash_decode.cu built with -DDECODE_F32 for K5/K5p), torch's
+   TF32 switches printed and left at their defaults, nothing passing
+   dtype=torch.bfloat16: every float32 kernel against its plain float32
+   version on operands drawn as float32 (B 2, 8:2 heads, T 200; every
+   grid pair and 80/80, 24/12, 160/160; causal with 70 rows without a key,
+   a dense mask, segments with a window of 64 and dropout 0.1, ALiBi over
+   shuffled positions with a window, int8 scoring; K5/K5p at t_max 4096,
+   96/96, 256/256, 24/12, one row and verify k = 5, block_k 128 and 512,
+   pages 16 and 48, the partials, a window, ALiBi and the int8 mirror):
+   out, dv, decode out within 1e-4 on the row statistic, lse within 1e-5,
+   dq and dk within 1e-4 of a float64 evaluation on the scale of their
+   terms; rows without a key exactly 0; the dropout keep pattern bit for
+   bit the bf16 kernel's and the hash's; K5p bit for bit K5 on the
+   gathered slab, verify bit for bit its sequential launches, block_k 128
+   bit for bit the default split, every repeat bit for bit; each kernel
+   timed at the LM's shape (K5 at the greedy shape, K5p the serving one)
+   beside its bf16 kernel, its plain version, SDPA at float32 (its
+   backend named) and its bound (3xTF32's 165 TFLOP/s, 3.35 TB/s); README
+   "Resilient serving" (KernelEngine(slots 8, t_max 4096) at serve_path's
+   widths and its float32 default, slab and paged) under serve_path's
+   burst, streams equal to the same engine's plain decode path, beside
+   the bf16 engines; the 16-layer LM at dtype=None (float32), B 4 x T
+   4096, remat: the first loss within 1e-4 of softmax_impl='full', three
+   Adam steps, greedy generation equal to the plain decode's; the paper's
+   module (key_dim 512, 8 heads, offset 64, flash, float32) at B 4 x T
+   8192, causal, not causal and bounded, within 1e-4 of 'full';
 14. flagship: dryrun_multichip's window, gqa_ring (GQA, RoPE, the ring
    with packed segments, dropout 0.1 and int8 scoring), stack (a 2-layer
    TransformerStack at dim 768) and lm (the 16-layer TransformerLM on
@@ -279,29 +307,35 @@ Phases, one JSON line each (some several):
 30. benchmark_cli (run last): ``torch_benchmark.py`` as a user types it,
    each run a process of its own (forked from one that imported torch
    once) — nt, all and tn at scale 1 in bf16 and nt in float32, nt on 2
-   ranks of the card (gloo, offset 1000), attn, train and lm at their
-   defaults, decode on the kernel and on the plain path, decode with the
-   n-gram proposer and with 4 KV shards, decode-serve slab and paged,
-   serve-load — each exiting 0 with one row carrying the reference's
-   keys, on the card, its kernels launched (K1 / K3 / K4 in attn, train,
-   lm; K5 in the kernel decode, spec, slab serving; K5p in paged serving
-   and once a shard a step under 4 shards; none of K5 on the plain path),
-   the matmuls no faster than their bound; then ``torch_bench.py``'s line
+   ranks of the card (gloo, offset 1000), attn, train and lm in bf16 and
+   attn at its float32 default, decode on the kernel and on the plain
+   path in bf16, decode with the n-gram proposer and with 4 KV shards,
+   decode-serve slab and paged, serve-load (the engines at their float32
+   default) — each recording the dtype it computed in, the float32 runs
+   launching the float32 kernels, each exiting 0 with one row carrying
+   the reference's keys, on the card, its kernels launched (K1 / K3 / K4
+   in attn, train, lm; K5 in the kernel decode, spec, slab serving; K5p
+   in paged serving and once a shard a step under 4 shards; none of K5
+   on the plain path), the matmuls no faster than their bound; then
+   ``torch_bench.py``'s line
    with ``bench.py``'s keys; ``scripts/torch_smoke_router.sh``,
    ``torch_smoke_chaos.sh`` and ``torch_smoke_corrupt.sh`` run beside
-   the all, tn and float32 nt runs.
+   the all, tn, float32 nt, attn, train and lm runs.
 
-Every kernel bound here reads the port's ``obs/perf.py``: the card's
+Every kernel bound here reads the port's ``obs/perf.py`` (float32_path's:
+3xTF32's rate and 4-byte elements, the phase's own arithmetic): the card's
 peak rates and each kernel's operation and byte formula.
 
 Then the card's ``nvidia-smi`` name and power limit, the kernels line
 (``{"kernels": [...]}``: K1, K2, K3, K4, K5 and K5p with their launches on
 their path (and on wq8_serve, load_serve, router_serve, chaos_serve,
 obs_serve, analysis_examples, benchmark_cli, kernel_coverage, wq8_lm and
-train_knobs), max
-error, kernel / plain / library / bound times; K1, K2, K3 and K4 also per
-mask variant, K5 and K5p per partials / window / verify / int8 / ALiBi
-variant) and, only if every phase passed, the last line ``{"ok": true, "device": {...}}``.
+train_knobs), max error, kernel / plain / library / bound times; K1, K2,
+K3 and K4 also per mask variant, K5 and K5p per partials / window /
+verify / int8 / ALiBi variant; then the six float32 kernels, ``*_f32``,
+with their launches on float32_path's runs and benchmark_cli's) and,
+only if every phase passed, the last line ``{"ok": true, "device":
+{...}}``.
 Exits non-zero on any failure, and without a card. ``--phases a,b`` runs
 only the named phases (after device and build) and prints no result
 line. ``--parent DIR`` names the root of another checkout (the parent
@@ -1981,21 +2015,25 @@ def serve_burst():
 
 
 def serve_engine(torch, mode, dtype=None, device='cuda', slots=SERVE_SLOTS,
-                 t_max=SERVE_T_MAX, weight_quant='off', **kw):
-    """The serving engine, every setting explicit (the decode kernel, the
+                 t_max=SERVE_T_MAX, weight_quant='off', decode_impl='kernel',
+                 **kw):
+    """The serving engine, every setting explicit (the decode path, the
     cache layout, float weights unless ``weight_quant='int8'``), so no
-    ``DDP_TPU_*`` knob in the environment can change a phase's path."""
+    ``DDP_TPU_*`` knob in the environment can change a phase's path.
+    ``dtype``: bf16 when None; ``'default'`` leaves KernelEngine's own
+    (float32)."""
     from distributed_dot_product_tpu_torch.serve import KernelEngine
     paged = (dict(cache_mode='paged', page_size=SERVE_PAGE)
              if mode == 'paged' else dict(cache_mode='slab'))
+    if dtype != 'default':
+        kw['dtype'] = dtype or torch.bfloat16
     engine = KernelEngine(slots=slots, t_max=t_max, vocab=VOCAB,
                           heads=HEADS, head_dim=HEAD_DIM,
                           prefill_chunk=SERVE_CHUNK, seed=SERVE_SEED,
-                          dtype=dtype or torch.bfloat16, device=device,
-                          decode_impl='kernel', weight_quant=weight_quant,
-                          **paged, **kw)
+                          device=device, decode_impl=decode_impl,
+                          weight_quant=weight_quant, **paged, **kw)
     check((engine.decode_impl, engine.cache_mode, engine.weight_quant) == (
-        'kernel', paged['cache_mode'],
+        decode_impl, paged['cache_mode'],
         None if weight_quant == 'off' else weight_quant),
           'engine settings are not the ones asked for')
     return engine
@@ -2055,8 +2093,8 @@ def _serve_burst(torch, ddp, engine, burst, what):
     sched = Scheduler(engine, ServeConfig(queue_limit=SERVE_QUEUE,
                                           max_new_tokens=SERVE_NEW),
                       registry=registry, fault_injector=False)
-    ddp.flash_decode.launches = 0
-    ddp.flash_decode_paged.launches = 0
+    for fn in (ddp.flash_decode, ddp.flash_decode_paged):
+        fn.launches = fn.f32_launches = 0
     rejected = {}
     t0 = time.perf_counter()
     try:
@@ -8091,19 +8129,26 @@ BC_RUNS = (
     ('all_bf16', 'nt', ('--mode', 'all', '--dtype', 'bf16'), ()),
     ('tn_bf16', 'nt', ('--mode', 'tn', '--dtype', 'bf16'), ()),
     ('nt_f32', 'nt', ('--mode', 'nt'), ()),
+    # The kernel rows in bf16 (the default, float32, computes in float32:
+    # attn_f32 runs it); the engine rows run float32 whatever --dtype says,
+    # as the reference's engines do.
+    ('attn', 'attn', ('--mode', 'attn', '--dtype', 'bf16'),
+     ('flash_attention',)),
+    ('attn_f32', 'attn', ('--mode', 'attn'), ('flash_attention',)),
+    ('train', 'train', ('--mode', 'train', '--dtype', 'bf16'),
+     BC_TRAIN_KERNELS),
+    ('lm', 'lm', ('--mode', 'lm', '--dtype', 'bf16'), BC_TRAIN_KERNELS),
     # Two ranks on the one card exchange each gathered slab through the
     # host (gloo): the README's --offset 1000 keeps that to 75 exchanges
     # a call (the default 32, 2,344, takes ~2.3 s a call).
     ('nt_bf16_2ranks', 'nt_skip_local',
      ('--mode', 'nt', '--dtype', 'bf16', '--devices', '2', '--skip-local',
       '--offset', '1000'), ()),
-    ('attn', 'attn', ('--mode', 'attn'), ('flash_attention',)),
-    ('train', 'train', ('--mode', 'train'), BC_TRAIN_KERNELS),
-    ('lm', 'lm', ('--mode', 'lm'), BC_TRAIN_KERNELS),
     ('decode_kernel', 'decode', ('--mode', 'decode', '--decode-impl',
-                                 'kernel'), ('flash_decode',)),
-    ('decode_plain', 'decode', ('--mode', 'decode', '--decode-impl', 'xla'),
-     ('flash_attention',)),
+                                 'kernel', '--dtype', 'bf16'),
+     ('flash_decode',)),
+    ('decode_plain', 'decode', ('--mode', 'decode', '--decode-impl', 'xla',
+                                '--dtype', 'bf16'), ('flash_attention',)),
     ('decode_spec_ngram', 'decode_spec', ('--mode', 'decode', '--spec',
                                           'ngram'), ('flash_decode',)),
     ('decode_kv_shards_4', 'decode_kv_shards',
@@ -8118,10 +8163,14 @@ BC_RUNS = (
 )
 BC_SMOKES = ('torch_smoke_router.sh', 'torch_smoke_chaos.sh',
              'torch_smoke_corrupt.sh')
-# The runs the smoke twins run beside: GPU-bound products of 11 ms and
-# more a call, where the smokes' host load and microsecond kernels do not
-# show (nt_bf16's 2,344-slab loop is host-paced, and runs alone).
-BC_BESIDE_SMOKES = ('all_bf16', 'tn_bf16', 'nt_f32')
+# The runs the smoke twins run beside: GPU-bound work of 11 ms and more a
+# call (the products; attention at T 75000; the train and lm steps at T
+# 16384), where the smokes' host load and microsecond kernels do not
+# show (nt_bf16's 2,344-slab loop is host-paced, and runs alone; so does
+# the gloo exchange of nt_bf16_2ranks). The smokes take longer than the
+# products alone: these runs fill that time.
+BC_BESIDE_SMOKES = ('all_bf16', 'tn_bf16', 'nt_f32', 'attn', 'attn_f32',
+                    'train', 'lm')
 # Float32 products outside the tensor cores (torch's default: no TF32): the
 # H100 SXM's published 67 TFLOP/s (the bf16 peak is obs/perf.py's).
 FP32_PEAK = 67e12
@@ -8233,8 +8282,27 @@ def _bc_row(torch, forks, name, kind, argv, kernels, tmp):
     for kernel in kernels:
         check(launches[kernel] > 0,
               f'benchmark_cli {name}: {kernel} never launched')
+    # --dtype as the row records it (float32 by default, on the card as
+    # on the CPU); the engines' float32 whatever --dtype says. A run that
+    # computes in float32 launches the float32 kernels.
+    flag = argv[argv.index('--dtype') + 1] if '--dtype' in argv else 'f32'
+    if 'compute_dtype' in row:
+        check(row['compute_dtype'] == flag,
+              f"benchmark_cli {name}: compute_dtype {row['compute_dtype']} "
+              f'for --dtype {flag}')
+    if 'engine_dtype' in row:
+        check(row['engine_dtype'] == 'f32',
+              f"benchmark_cli {name}: engine_dtype {row['engine_dtype']}")
+    f32_run = row.get('engine_dtype', row.get('compute_dtype')) == 'f32'
+    for kernel in kernels:
+        check(not f32_run or row['kernel_launches_f32'][kernel] > 0,
+              f'benchmark_cli {name}: float32 run, float32 {kernel} never '
+              f'launched')
     out = {'phase': 'benchmark_cli', 'case': name, 'argv': list(argv),
-           'seconds': seconds, 'launches': launches}
+           'seconds': seconds, 'launches': launches,
+           'launches_f32': row['kernel_launches_f32'],
+           **{k: row[k] for k in ('compute_dtype', 'engine_dtype')
+              if k in row}}
     if kind in ('nt', 'nt_skip_local'):
         ms, bound_by, peak = _bc_matmul_bound(row)
         out.update(T=row['T'], dtype=row['dtype'], world=row['world'],
@@ -8349,8 +8417,9 @@ def phase_benchmark_cli(torch):
         for name, kind, argv, kernels in BC_RUNS:
             if name == BC_BESIDE_SMOKES[0]:
                 smokes = _bc_smokes_start()
-            launches[name] = _bc_row(torch, forks, name, kind, argv,
-                                     kernels, tmp)['launches']
+            out = _bc_row(torch, forks, name, kind, argv, kernels, tmp)
+            launches[name] = {**out['launches'], **{
+                f'{k}_f32': n for k, n in out['launches_f32'].items()}}
             if name == BC_BESIDE_SMOKES[-1]:
                 started, smokes = smokes, None
                 _bc_smokes_wait(started)
@@ -9179,6 +9248,1108 @@ def phase_kernel_coverage(torch, ddp, flush):
                 'engine_page_48': engine_launches}}
 
 
+# float32_path: the float32 kernels (K1-K4 in csrc/flash_f32.cu, K5/K5p in
+# csrc/flash_decode.cu's -DDECODE_F32 library) and the slice's entry points
+# at the JAX package's default dtype. Every operand below is float32 drawn
+# as float32 (bf16-representable values would let a kernel that drops to
+# bf16 or to one TF32 product read exact). The widths: every FLASH_GRID pair
+# and three off the grid; B 2, 8:2 heads, T 200.
+F32_DIMS = ((32, 32), (64, 64), (96, 96), (128, 128), (192, 128),
+            (256, 256), (80, 80), (24, 12), (160, 160))
+F32_SHAPE = (2, 8, 2, 200, 200)
+F32_DECODE_DIMS = ((96, 96), (256, 256), (24, 12))
+F32_PAGES = (16, 48)
+F32_BLOCK_K = (128, 512)
+F32_WINDOW = 1024
+F32_SEED = 2222
+# The float32 kernels against their plain float32 versions (cuBLAS at
+# torch's default "highest" precision): the row statistic of rel_errs at
+# most 1e-4 for out, dq, dk, dv and decode out, and |lse - plain| at most
+# 1e-5 (lse ~ 5-10 in natural-log units: a few float32 ulps). Both sides
+# accumulate float32-accurate products in other orders: ~1e-6 relative on
+# a row, more where ds = p * (dp - delta) cancels. One TF32 product
+# (~2^-11 relative) reads ~1e-3 and fails on purpose; the bf16 kernels'
+# limit is 1e-2.
+TOL_F32_ROW = 1e-4
+TOL_F32_LSE = 1e-5
+# dq and dk are sums of ds = p * (dp - delta) terms that cancel: a query
+# row with one attended key has dq = 0 in exact arithmetic, and any
+# float32 evaluation leaves rounding there (the plain float32 version's
+# own row statistic against float64 reads ~1e-3 in such rows, printed as
+# dq_plain_vs_float64). So dq and dk are held to TOL_F32_ROW against a
+# float64 evaluation of the same formulas (:func:`_f64_grads`), each row's
+# error over the magnitude of its terms before anything cancels (dp and
+# delta as sums of |dO| |v| and |dO| |O|; ds as p times their sum; dq as
+# scale * that @ |k|, dk its transpose @ |q2|): the componentwise bound a
+# float32 evaluation meets. Float32-accurate products read ~1e-6 there, a
+# single TF32 product ~5e-4. Their row statistic against the plain
+# version is printed beside it.
+# 3xTF32, the card's fastest float32-accurate rate (TF32's 495 over 3), for
+# the float32 kernels' operation bound.
+F32_FLOPS = 165e12
+F32_KERNELS = ('flash_attention', 'flash_attention_bounded',
+               'flash_attention_dq', 'flash_attention_dkv', 'flash_decode',
+               'flash_decode_paged')
+# The entry points at full width: the README "Resilient serving" engine,
+# the LM (train_path's widths at dtype=None), the paper's module
+# (entry()'s shapes).
+F32_LM_STEPS = 3
+TOL_F32_REL = 1e-4
+F32_MOD = dict(key_dim=512, num_heads=8, offset=64)
+F32_MOD_B, F32_MOD_T, F32_MOD_REF_B = 4, 8192, 2
+F32_NEAR_TIE = 1e-4
+
+
+def f32n(torch, shape, gen, dev):
+    return torch.randn(shape, generator=gen, dtype=torch.float32).to(dev)
+
+
+def _f32_counts(ddp):
+    """Each kernel's float32 launches."""
+    return {n: getattr(ddp, n).f32_launches for n in F32_KERNELS}
+
+
+def _f32_zero(ddp):
+    for n in F32_KERNELS:
+        getattr(ddp, n).launches = getattr(ddp, n).f32_launches = 0
+
+
+def _f32_case_kw(torch, gen, case, b, hq, tq, tk):
+    """The flash kwargs of a kernel case: 'causal' (70 rows with no key),
+    'mask' (not causal, a dense mask with 10 fully masked rows), 'ext'
+    (packed segments, a causal window of 64, dropout 0.1), 'alibi_pos'
+    (ALiBi over shuffled explicit positions with a window of 100) and
+    'int8' (int8 scoring, 70 rows with no key); and the (B, H, Tq) rows
+    that attend nothing."""
+    dev = torch.device('cuda')
+    empty = torch.zeros((b, hq, tq), dtype=torch.bool, device=dev)
+    if case in ('causal', 'int8'):
+        kw = dict(causal=True, causal_offset=-70)
+        empty[..., :70] = True
+        if case == 'int8':
+            kw['qk_quant'] = 'int8'
+    elif case == 'mask':
+        mask = torch.rand((b, 1, tq, tk), generator=gen) < 0.3
+        mask[:, :, :10] = True
+        kw = dict(mask=mask.to(dev))
+        empty[..., :10] = True
+    elif case == 'ext':
+        seg = ragged_segments(torch, gen, b, tq).to(dev)
+        kw = dict(causal=True, segment_ids=(seg, seg), window=64,
+                  dropout_rate=0.1, dropout_seed=11)
+    else:
+        pos = torch.stack([torch.randperm(tq, generator=gen)
+                           for _ in range(b)]).to(dev)
+        kw = dict(positions=(pos[:, None], pos[:, None]), window=100,
+                  alibi_slopes=torch.tensor(ALIBI_SLOPES, device=dev))
+    return kw, empty
+
+
+def _f64_grads(torch, fa, q, k, v, g, out, lse, scale, kw):
+    """dq and dk in float64 from the float32 operands, ``out`` and ``lse``
+    (the formulas of ``flash_attention_backward_plain``: the masks, ALiBi
+    bias and dropout keep from its own pieces, everything else in
+    float64), and the magnitude of each element's terms before anything
+    cancels (``p * (|dO| @ |v|^T + rowsum(|dO| |O|))`` in place of ds:
+    ``@ |k|`` for dq, ``^T @ |q2|`` for dk, scaled alike): ``(dq,
+    dq_terms, dk, dk_terms)``, dk summed over each GQA group."""
+    causal, co = kw.get('causal', False), kw.get('causal_offset', 0)
+    feat = fa._features(q, k, causal, kw.get('segment_ids'),
+                        kw.get('window'), kw.get('dropout_rate', 0.0),
+                        kw.get('dropout_seed'), kw.get('qk_quant'),
+                        kw.get('positions'), kw.get('alibi_slopes'))
+    group = fa._kv_group(q, k)
+    q2, lse2, delta = fa.flash_attention_bwd_operands(q, out, lse, g, scale)
+    ke, ve = fa._expand_group(k, group), fa._expand_group(v, group)
+    f64 = torch.float64
+    if feat.quant:
+        q8, sq, k8, sk = fa.quant_operands(q, k)
+        k8e, ske = (fa._expand_group(x, group) for x in (k8, sk))
+        s = (torch.matmul(q8.to(f64), k8e.to(f64).transpose(-1, -2))
+             * (sq.to(f64) * (scale * fa._LOG2E))
+             * ske.to(f64).transpose(-1, -2))
+        k_op = fa._expand_group(fa.dequantize_rows(k8, sk, v.dtype),
+                                group).to(f64)
+        q_op, dk_mul = fa.dequantize_rows(q8, sq, v.dtype).to(f64), scale
+    else:
+        s = torch.matmul(q2.to(f64), ke.to(f64).transpose(-1, -2))
+        k_op, q_op, dk_mul = ke.to(f64), q2.to(f64), 1.0 / fa._LOG2E
+    # ALiBi's bias where a pair is attended, -inf where it is not.
+    bias = fa._plain_scores(torch.zeros_like(q2), ke, kw.get('mask'), causal,
+                            co, 0, feat, scale)
+    p = torch.exp2(s + bias.to(f64) - lse2.to(f64)[..., None])
+    dp = torch.matmul(g.to(f64), ve.to(f64).transpose(-1, -2))
+    # The size of each dot product's terms: sum |dO| |v|, sum |dO| |O|.
+    dp_terms = torch.matmul(g.to(f64).abs(), ve.to(f64).abs().transpose(-1,
+                                                                       -2))
+    delta_terms = (g.to(f64).abs() * out.to(f64).abs()).sum(dim=-1)
+    keep, inv = fa._keep(feat, q, k.shape[-2], co, 0)
+    if keep is not None:
+        dp = torch.where(keep, dp, 0.0) * inv
+        dp_terms = torch.where(keep, dp_terms, 0.0) * inv
+    ds = p * (dp - delta.to(f64)[..., None])
+    # Each term's size before anything cancels.
+    ds_terms = p * (dp_terms + delta_terms[..., None])
+    dq = scale * torch.matmul(ds, k_op)
+    dq_terms = scale * torch.matmul(ds_terms, k_op.abs())
+    dk = dk_mul * torch.matmul(ds.transpose(-1, -2), q_op)
+    dk_terms = dk_mul * torch.matmul(ds_terms.transpose(-1, -2),
+                                     q_op.abs())
+    if group > 1:
+        dk, dk_terms = (x.reshape(*k.shape[:-2], group, *x.shape[-2:])
+                        .sum(dim=-3) for x in (dk, dk_terms))
+    return dq, dq_terms, dk, dk_terms
+
+
+def cond_err(torch, got, want, terms):
+    """The largest row error of ``got`` against the float64 ``want`` over
+    the row's terms' magnitude ``terms`` (rows along the last axis; a row
+    with no terms reads its absolute error)."""
+    vnorm = torch.linalg.vector_norm
+    diff = vnorm((got.to(want.dtype) - want).flatten(0, -2), dim=-1)
+    mag = vnorm(terms.flatten(0, -2), dim=-1)
+    return (diff / torch.where(mag > 0, mag, 1.0)).max().item()
+
+
+def _f32_fwd_bwd(torch, fa, gen, d, dv, case):
+    """K1 (with lse), K2 (where the case allows the bounded kernel) and
+    K3/K4 on float32 operands at widths ``(d, dv)`` against their plain
+    float32 versions: the row statistic within TOL_F32_ROW, lse within
+    TOL_F32_LSE, rows with no key exactly 0 (K1's lse ln2*NEG_BIG), a
+    second launch bit for bit the first, every launch a float32 kernel's.
+    ``(row, failures)``."""
+    dev = torch.device('cuda')
+    b, hq, hkv, tq, tk = F32_SHAPE
+    q = f32n(torch, (b, hq, tq, d), gen, dev)
+    k = f32n(torch, (b, hkv, tk, d), gen, dev)
+    v = f32n(torch, (b, hkv, tk, dv), gen, dev)
+    g = f32n(torch, (b, hq, tq, dv), gen, dev)
+    feat, empty = _f32_case_kw(torch, gen, case, b, hq, tq, tk)
+    scale = 1.0 / math.sqrt(d)
+    kw = dict(scale=scale, **feat)
+    neg = fa._LN2 * fa._NEG_BIG
+    tag = f'{case}_d{d}_dv{dv}'
+    row, fails = {'phase': 'float32_path', 'case': tag, 'd': d, 'd_v': dv,
+                  'q': list(q.shape), 'kv': list(k.shape),
+                  'features': sorted(feat)}, []
+    runs = {'k1': (lambda: fa.flash_attention_with_lse(q, k, v, **kw),
+                   lambda: fa.flash_attention_plain_lse(q, k, v, **kw))}
+    if case not in ('int8', 'alibi_pos') and 'dropout_rate' not in feat:
+        bkw = dict(kw)
+        runs['k2'] = (
+            lambda: fa.flash_attention_bounded(q, k, v, save_lse=True,
+                                               **bkw),
+            lambda: fa.flash_attention_bounded_plain_lse(q, k, v, **bkw))
+    out_k1 = lse_k1 = None
+    for kern, (run, plain) in runs.items():
+        before = fa.flash_attention.f32_launches + \
+            fa.flash_attention_bounded.f32_launches
+        out, lse = run()
+        out2, lse2 = run()
+        launched = fa.flash_attention.f32_launches + \
+            fa.flash_attention_bounded.f32_launches - before
+        out_p, lse_p = plain()
+        torch.cuda.synchronize()
+        row_rel, rel = rel_errs(torch, out, out_p)
+        lse_err = (lse - lse_p).abs().max().item()
+        exact = bool(not out[empty].any().item() and (
+            kern == 'k2' or (lse[empty] == neg).all().item()))
+        same = bool(torch.equal(out, out2) and torch.equal(lse, lse2))
+        row[kern] = {'max_abs_err': (out - out_p).abs().max().item(),
+                     'max_row_rel_err': row_rel, 'rel_err': rel,
+                     'lse_max_abs_err': lse_err, 'empty_rows_exact': exact,
+                     'repeat_bitwise': same, 'f32_launches': launched,
+                     'dtype': str(out.dtype).split('.')[-1]}
+        what = f'float32 {kern.upper()} {tag}'
+        if not row_rel <= TOL_F32_ROW:
+            fails.append(f'{what}: row rel err {row_rel} > {TOL_F32_ROW}')
+        if not lse_err <= TOL_F32_LSE:
+            fails.append(f'{what}: lse abs err {lse_err} > {TOL_F32_LSE}')
+        if not (exact and same and launched == 2
+                and out.dtype == torch.float32
+                and tuple(out.shape) == (b, hq, tq, dv)):
+            fails.append(f'{what}: empty rows exact {exact}, repeat bitwise '
+                         f'{same}, float32 launches {launched}, out '
+                         f'{out.dtype} {tuple(out.shape)}')
+        if kern == 'k1':
+            out_k1, lse_k1 = out, lse
+    bkw = {n: x for n, x in kw.items() if n != 'scale'}
+    before = (fa.flash_attention_dq.f32_launches,
+              fa.flash_attention_dkv.f32_launches)
+    got = fa.flash_attention_backward(q, k, v, out_k1, lse_k1, g,
+                                      scale=scale, **bkw)
+    again = fa.flash_attention_backward(q, k, v, out_k1, lse_k1, g,
+                                        scale=scale, **bkw)
+    launched = (fa.flash_attention_dq.f32_launches - before[0],
+                fa.flash_attention_dkv.f32_launches - before[1])
+    want = fa.flash_attention_backward_plain(q, k, v, out_k1, lse_k1, g,
+                                             scale=scale, **bkw)
+    torch.cuda.synchronize()
+    errs = {n: rel_errs(torch, x, y)
+            for n, x, y in zip(('dq', 'dk', 'dv'), got, want)}
+    same = all(torch.equal(x, y) for x, y in zip(got, again))
+    ok = [tuple(x.shape) == tuple(y.shape) and x.dtype == torch.float32
+          for x, y in zip(got, (q, k, v))]
+    dq64, tq64, dk64, tk64 = _f64_grads(torch, fa, q, k, v, g, out_k1, lse_k1,
+                                        scale, feat)
+    held = {'dq': cond_err(torch, got[0], dq64, tq64),
+            'dk': cond_err(torch, got[1], dk64, tk64),
+            'dv': errs['dv'][0]}
+    row['bwd'] = {'max_abs_err': {n: (x - y).abs().max().item() for n, x, y
+                                  in zip(('dq', 'dk', 'dv'), got, want)},
+                  'max_row_rel_err': {n: e[0] for n, e in errs.items()},
+                  'rel_err': {n: e[1] for n, e in errs.items()},
+                  'held': held,
+                  'plain_vs_float64': {
+                      'dq': cond_err(torch, want[0], dq64, tq64),
+                      'dk': cond_err(torch, want[1], dk64, tk64),
+                      'dq_row_rel_err': rel_errs(torch, want[0], dq64)[0]},
+                  'repeat_bitwise': same, 'f32_launches': launched,
+                  'empty_rows_dq_exact': bool(
+                      not got[0][empty].any().item())}
+    for n, r in held.items():
+        if not r <= TOL_F32_ROW:
+            fails.append(f'float32 K3/K4 {tag} {n}: row err {r} > '
+                         f'{TOL_F32_ROW}')
+    if not (same and all(ok) and launched == (2, 2)
+            and row['bwd']['empty_rows_dq_exact']):
+        fails.append(f'float32 K3/K4 {tag}: repeat bitwise {same}, float32 '
+                     f'shapes {ok}, launches {launched}, empty dq rows exact '
+                     f'{row["bwd"]["empty_rows_dq_exact"]}')
+    emit(row)
+    return row, fails
+
+
+def _f32_keep_pattern(torch, fa, gen):
+    """The float32 K1's dropout keep pattern bit for bit the bf16 K1's and
+    the reference hash's: v = eye(128), so the output is the dropped
+    weights, exactly 0 where dropped."""
+    dev = torch.device('cuda')
+    q = f32n(torch, (2, 8, 128, 64), gen, dev)
+    k = f32n(torch, (2, 8, 128, 64), gen, dev)
+    v = torch.eye(128, device=dev).expand(2, 8, 128, 128).contiguous()
+    kw = dict(dropout_rate=0.1, dropout_seed=2 ** 20 + 5)
+    o32 = fa.flash_attention(q, k, v, **kw)
+    o16 = fa.flash_attention(q.bfloat16(), k.bfloat16(), v.bfloat16(), **kw)
+    keep, _ = fa.dropout_keep((2, 8), 128, 128, 0, 0, 0.1, 2 ** 20 + 5, dev)
+    torch.cuda.synchronize()
+    row = {'phase': 'float32_path', 'case': 'dropout_keep_pattern',
+           'equals_bf16_kernel': bool(torch.equal(o32 == 0, o16 == 0)),
+           'equals_hash': bool(torch.equal(o32 != 0, keep)),
+           'dropped_share': (o32 == 0).float().mean().item()}
+    emit(row)
+    return [f'float32 K1 dropout: {n} is False' for n in
+            ('equals_bf16_kernel', 'equals_hash') if not row[n]]
+
+
+def _f32_slab(torch, gen, slots, h, h_kv, d, dv, t):
+    """A float32 slab decode case: (q, k_new, v_new, cache_k, cache_v),
+    unit-normal rows below each slot's fill, garbage past it."""
+    dev, b, k = torch.device('cuda'), len(slots), VERIFY_K
+    q = f32n(torch, (b, h, k, d), gen, dev)
+    kn = f32n(torch, (b, h_kv, k, d), gen, dev)
+    vn = f32n(torch, (b, h_kv, k, dv), gen, dev)
+    ck = 30.0 * f32n(torch, (b, h_kv, t, d), gen, dev)
+    cv = 30.0 * f32n(torch, (b, h_kv, t, dv), gen, dev)
+    for i, (f, _) in enumerate(slots):
+        ck[i, :, :f] = f32n(torch, (h_kv, f, d), gen, dev)
+        cv[i, :, :f] = f32n(torch, (h_kv, f, dv), gen, dev)
+    return q, kn, vn, ck, cv
+
+
+def _f32_decode_case(torch, fd, x, vectors, kw):
+    """One float32 K5/K5p call (``kw``: its knobs, page_table for K5p) and
+    the same call again and on the plain version, each on its own copy of
+    the cache: ``(out, readings, failures-free flags)``."""
+    q, kn, vn, ck, cv = x
+    vt, ap = vectors
+    c = [(ck.clone(), cv.clone()) for _ in range(3)]
+    out = fd.flash_decode(q, kn, vn, *c[0], vt, ap, **kw)[0]
+    again = fd.flash_decode(q, kn, vn, *c[1], vt, ap, **kw)[0]
+    ref = fd.flash_decode_plain(q, kn, vn, *c[2], vt, ap, **kw)[0]
+    torch.cuda.synchronize()
+    errs, err, finite = _decode_errs(torch, out, ref)
+    flags = {'cache_bit_identical': all(torch.equal(a, b) for a, b in zip(
+                 c[0] if 'page_table' not in kw else
+                 (c[0][0][:-1], c[0][1][:-1]),
+                 c[2] if 'page_table' not in kw else
+                 (c[2][0][:-1], c[2][1][:-1]))),
+             'repeat_bit_identical': _same(torch, out, again),
+             'finite': finite,
+             'float32': all(t.dtype == torch.float32 for t in (
+                 out if isinstance(out, tuple) else (out,)))}
+    return out, {'max_abs_err': err, 'max_row_rel_err': {
+        n: e[0] for n, e in errs.items()}, **flags}, errs
+
+
+def _f32_decode(torch, fd, gen):
+    """K5 and K5p on float32 caches at F32_DECODE_DIMS (GQA 8:2, t_max
+    4096), one new row and verify k = 5: each against its plain version
+    (row statistic within TOL_F32_ROW), caches bit for bit the plain
+    append (pools but the sink), a repeat bit for bit, verify bit for bit
+    its sequential one-row launches; K5 at block_k 128 bit for bit the
+    default split and at 512 bit for bit its own sequential launches; K5p
+    at F32_PAGES bit for bit K5 on the gathered slab; with one new row the
+    partials, a window, ALiBi and the int8 mirror (the scores' row maxima
+    and the mirror rows bit for bit). ``(worst readings of each kernel,
+    failures)``."""
+    dev, h, h_kv, t = torch.device('cuda'), 8, 2, COV_T_MAX
+    fails, worst = [], {}
+
+    def hold(row, key, readings, errs, what):
+        row[key] = readings
+        _worse(worst, 'flash_decode_paged' if 'K5p' in what
+               else 'flash_decode', readings['max_abs_err'],
+               max(e[0] for e in errs.values()))
+        fails.extend(f'{what}: {n} row rel err {e[0]} > {TOL_F32_ROW}'
+                     for n, e in errs.items() if not e[0] <= TOL_F32_ROW)
+        fails.extend(f'{what}: {n} is False'
+                     for n, v in readings.items() if v is False)
+
+    for d, dv in F32_DECODE_DIMS:
+        for k in (1, VERIFY_K):
+            sl = _one_row(COV_SLOTS) if k == 1 else COV_SLOTS
+            vt, ap, nn = _verify_vectors(torch, sl, k, dev)
+            q, kn, vn, ck, cv = _f32_slab(torch, gen, sl, h, h_kv, d, dv, t)
+            q, kn, vn = (x[:, :, :k].contiguous() for x in (q, kn, vn))
+            x = (q, kn, vn, ck, cv)
+            base = dict(scale=1.0 / math.sqrt(d), n_new=nn)
+            tag = f'd{d}_dv{dv}_k{k}'
+            row = {'phase': 'float32_path', 'case': f'decode_{tag}',
+                   't_max': t}
+            outs = {}
+            for split in (None, *F32_BLOCK_K):
+                key = 'block_k_none' if split is None else f'block_k_{split}'
+                out, got, errs = _f32_decode_case(
+                    torch, fd, x, (vt, ap), dict(base, block_k=split))
+                c = (ck.clone(), cv.clone())
+                seq = _sequential(torch, fd, q, kn, vn, *c, vt, ap, nn,
+                                  block_k=split, scale=base['scale'])
+                got['equals_sequential'] = _same(torch, out, seq)
+                outs[split] = out
+                hold(row, key, got, errs, f'float32 K5 {tag} {key}')
+            row['block_k_128_equals_default'] = _same(torch, outs[None],
+                                                      outs[128])
+            if not row['block_k_128_equals_default']:
+                fails.append(f'float32 K5 {tag}: block_k 128 differs from '
+                             f'the default split')
+            for ps in F32_PAGES:
+                kp, vp, table = paged_twin(torch, gen, ck, cv, ps)
+                out, got, errs = _f32_decode_case(
+                    torch, fd, (q, kn, vn, kp, vp), (vt, ap),
+                    dict(base, page_table=table))
+                slab = [fd.gather_pages(z, table) for z in (kp, vp)]
+                on_slab = fd.flash_decode(q, kn, vn, *slab, vt, ap,
+                                          **base)[0]
+                got['equals_k5_on_gathered_slab'] = _same(torch, out,
+                                                          on_slab)
+                hold(row, f'page_{ps}', got, errs,
+                     f'float32 K5p {tag} page {ps}')
+            if k == 1:
+                slopes = torch.tensor(ALIBI_SLOPES, device=dev)
+                for name, extra in (
+                        ('partials', dict(partials=True)),
+                        ('window', dict(window=F32_WINDOW)),
+                        ('alibi', dict(alibi_slopes=slopes))):
+                    _, got, errs = _f32_decode_case(
+                        torch, fd, x, (vt, ap), dict(base, **extra))
+                    hold(row, name, got, errs, f'float32 K5 {tag} {name}')
+                c = [(ck.clone(), cv.clone(), *_mirror(torch, fd, ck))
+                     for _ in range(2)]
+                ikw = dict(base, qk_quant='int8', partials=True)
+                got = fd.flash_decode(q, kn, vn, c[0][0], c[0][1], vt, ap,
+                                      k_q=c[0][2], k_scale=c[0][3],
+                                      **ikw)[0]
+                want = fd.flash_decode_plain(q, kn, vn, c[1][0], c[1][1],
+                                             vt, ap, k_q=c[1][2],
+                                             k_scale=c[1][3], **ikw)[0]
+                torch.cuda.synchronize()
+                errs, err, finite = _decode_errs(torch, got, want)
+                hold(row, 'int8', {
+                    'max_abs_err': err,
+                    'max_row_rel_err': {n: e[0] for n, e in errs.items()},
+                    'scores_max_bit_identical': bool(torch.equal(got[1],
+                                                                 want[1])),
+                    'mirror_bit_identical': bool(
+                        torch.equal(c[0][2], c[1][2])
+                        and torch.equal(c[0][3], c[1][3])),
+                    'cache_bit_identical': bool(
+                        torch.equal(c[0][0], c[1][0])
+                        and torch.equal(c[0][1], c[1][1])),
+                    'finite': finite}, {'num': errs['num']},
+                    f'float32 K5 int8 {tag}')
+            emit(row)
+    return worst, fails
+
+
+def _worse(worst, name, abs_err, row_err, lse_err=None):
+    """Raise kernel ``name``'s worst readings in ``worst`` to these."""
+    w = worst.setdefault(name, {'max_abs_err': 0.0, 'max_row_rel_err': 0.0})
+    w['max_abs_err'] = max(w['max_abs_err'], abs_err)
+    w['max_row_rel_err'] = max(w['max_row_rel_err'], row_err)
+    if lse_err is not None:
+        w['lse_max_abs_err'] = max(w.get('lse_max_abs_err', 0.0), lse_err)
+
+
+def _f32_kernels(torch, ddp, gen):
+    """Every float32 kernel against its plain float32 version: K1-K4 at
+    F32_DIMS in each case of :func:`_f32_case_kw`, the dropout keep
+    pattern, K5/K5p (:func:`_f32_decode`). ``(worst readings of each
+    kernel, failures)``."""
+    import importlib
+    fa = importlib.import_module(
+        'distributed_dot_product_tpu_torch.ops.flash_attention')
+    fd = importlib.import_module(
+        'distributed_dot_product_tpu_torch.ops.flash_decode')
+    fails, worst = [], {}
+    for d, dv in F32_DIMS:
+        for case in ('causal', 'mask', 'ext', 'alibi_pos', 'int8'):
+            row, f = _f32_fwd_bwd(torch, fa, gen, d, dv, case)
+            fails += f
+            for kern, name in (('k1', 'flash_attention'),
+                               ('k2', 'flash_attention_bounded')):
+                if kern in row:
+                    _worse(worst, name, row[kern]['max_abs_err'],
+                           row[kern]['max_row_rel_err'],
+                           row[kern]['lse_max_abs_err'])
+            b = row['bwd']
+            _worse(worst, 'flash_attention_dq', b['max_abs_err']['dq'],
+                   b['held']['dq'])
+            _worse(worst, 'flash_attention_dkv',
+                   max(b['max_abs_err'][n] for n in ('dk', 'dv')),
+                   max(b['held'][n] for n in ('dk', 'dv')))
+    fails += _f32_keep_pattern(torch, fa, gen)
+    decode, f = _f32_decode(torch, fd, gen)
+    worst.update(decode)
+    fails += f
+    emit({'phase': 'float32_path', 'case': 'worst', 'kernels': worst,
+          'tol_row': TOL_F32_ROW, 'tol_lse': TOL_F32_LSE})
+    return worst, fails
+
+
+def f32_bound_ms(flops, nbytes):
+    """``(ms, by)``: a float32 kernel's bound, operations at F32_FLOPS
+    (3xTF32) and bytes at the card's memory rate."""
+    t_ops = flops / F32_FLOPS
+    t_bytes = nbytes / perf().DEFAULT_PEAKS.bytes_per_s
+    return 1e3 * max(t_ops, t_bytes), ('operations' if t_ops > t_bytes
+                                       else 'bytes')
+
+
+def sdpa_backend(torch, fn):
+    """The backend SDPA picked for ``fn`` (one call), from the names of
+    the kernels torch.profiler saw run: ``(name, first kernel names)``. A
+    session that recorded no device event (the profiler lost its trace)
+    is taken again, seven times at most, a moment apart, as in
+    :func:`kernels_per_call`."""
+    from torch.profiler import ProfilerActivity, profile
+    for attempt in range(8):
+        if attempt:
+            time.sleep(0.2)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if str(e.device_type).endswith('CUDA')
+                 and not e.name.startswith(('Memcpy', 'Memset'))]
+        if names:
+            break
+    low = [n.lower() for n in names]
+    for key, label in (('flash', 'flash'), ('fmha', 'efficient'),
+                       ('efficient', 'efficient'), ('cudnn', 'cudnn')):
+        if any(key in n for n in low):
+            return label, names[:3]
+    return ('math' if names else 'not seen by the profiler'), names[:3]
+
+
+def _near_tie(torch, logits):
+    """The gap between a logit row's two largest entries over its
+    largest magnitude."""
+    top = logits.float().topk(2).values
+    return ((top[0] - top[1]) / logits.float().abs().max()).item()
+
+
+def _first_divergence(a, b):
+    n = 0
+    while n < min(len(a), len(b)) and a[n] == b[n]:
+        n += 1
+    return n
+
+
+def _f32_readme(torch, ddp):
+    """README "Resilient serving" as written: ``Scheduler(KernelEngine(
+    slots=8, t_max=4096), ServeConfig(queue_limit=64,
+    max_new_tokens=256))``, every other setting the engine's default
+    (float32, vocab 64, 2 heads of 8), 16 seeded prompts of 1..64 tokens:
+    each completed, the slab K5's float32 kernel launched once a decode
+    step. ``(row, failures)``."""
+    import numpy as np
+    from distributed_dot_product_tpu_torch.serve import (
+        KernelEngine, Scheduler, ServeConfig,
+    )
+    sched = Scheduler(KernelEngine(slots=8, t_max=4096),
+                      ServeConfig(queue_limit=64, max_new_tokens=256))
+    engine = sched.engine
+
+    def decode_steps():      # the process-wide registry the example uses
+        return sched.registry.snapshot()['counters'].get(
+            'serve.decode_steps', 0)
+    before = decode_steps()
+    rng = np.random.default_rng(SERVE_SEED)
+    _f32_zero(ddp)
+    t0 = time.perf_counter()
+    for i in range(16):
+        sched.submit(rng.integers(0, engine.vocab,
+                                  size=int(rng.integers(1, 65))
+                                  ).astype(np.int32), request_id=f'r{i}')
+    results = sched.run_until_idle()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    steps = decode_steps() - before
+    sched.close()
+    row = {'phase': 'float32_path', 'case': 'readme_resilient_serving',
+           'card': CARD, 'dtype': str(engine.dtype).split('.')[-1],
+           'engine': {'vocab': engine.vocab, 'heads': engine.heads,
+                      'head_dim': engine.head_dim,
+                      'cache_mode': engine.cache_mode,
+                      'decode_impl': engine.decode_impl},
+           'terminal': sorted({r.status for r in results.values()}),
+           'tokens': sum(len(r.tokens) for r in results.values()),
+           'decode_steps': steps, 'wall_s': wall,
+           'f32_launches': _f32_counts(ddp)}
+    emit(row)
+    fails = []
+    if engine.dtype != torch.float32 or row['terminal'] != ['completed'] \
+            or len(results) != 16:
+        fails.append(f'README serving: dtype {engine.dtype}, terminal '
+                     f'{row["terminal"]}, {len(results)} results')
+    if row['f32_launches']['flash_decode'] != steps or not steps:
+        fails.append(f'README serving: float32 K5 launched '
+                     f'{row["f32_launches"]["flash_decode"]} times for '
+                     f'{steps} decode steps')
+    return row, fails
+
+
+def _f32_engine(torch, ddp):
+    """README "Resilient serving" at the engine's default dtype:
+    serve_path's burst through ``Scheduler(KernelEngine(slots=8,
+    t_max=4096), ServeConfig(queue_limit=64, max_new_tokens=256))`` at
+    serve_path's LM widths, dtype left at KernelEngine's float32 default,
+    slab (K5) and paged (page 16, K5p); the same engines with
+    ``decode_impl='plain'`` on the card, whose greedy streams the kernel
+    engines' must equal (a divergence is a fault unless the plain
+    engine's logits at its first differing token are a near tie: top-2 gap
+    at most F32_NEAR_TIE of the largest logit); beside them the bf16
+    engines of the same call (serve_path's runs, the same configuration
+    and burst; run here when serve_path did not run). ``(launches,
+    failures)``."""
+    import numpy as np
+    burst = serve_burst()
+    fails, rows, res, engines = [], {}, {}, {}
+    for mode in ('slab', 'paged'):
+        bf16 = SAME_CALL.get(f'serve_path_{mode}')
+        if bf16 is not None:
+            rows[(mode, 'kernel_bf16')] = {
+                'tokens_per_s': bf16['tokens_per_s'],
+                'ttft_s': {'p99': bf16['ttft_p99_s']}}
+        for impl, dtype in (('kernel', 'default'), ('plain', 'default'),
+                            ('kernel_bf16', torch.bfloat16)):
+            if (mode, impl) in rows:
+                continue
+            engine = serve_engine(torch, mode, dtype=dtype,
+                                  decode_impl=impl.split('_')[0])
+            want = torch.bfloat16 if dtype != 'default' else torch.float32
+            if engine.dtype != want:
+                fails.append(f'float32 engine {mode} {impl}: dtype '
+                             f'{engine.dtype}')
+            _f32_zero(ddp)
+            ddp.flash_attention.launches = 0
+            results, row = _serve_burst(torch, ddp, engine, burst,
+                                        f'float32 engine {mode} {impl}')
+            f32 = _f32_counts(ddp)
+            row = {'phase': 'float32_path', 'case': f'engine_{mode}_{impl}',
+                   'card': CARD, 'decode_impl': impl.split('_')[0],
+                   'f32_launches': {'flash_attention': f32['flash_attention'],
+                                    'flash_decode': f32['flash_decode'],
+                                    'flash_decode_paged':
+                                        f32['flash_decode_paged']},
+                   **row}
+            emit(row)
+            rows[(mode, impl)], res[(mode, impl)] = row, results
+            if impl != 'kernel_bf16':
+                engines[(mode, impl)] = engine
+            else:
+                del engine
+        own = 'flash_decode' if mode == 'slab' else 'flash_decode_paged'
+        kr = rows[(mode, 'kernel')]
+        if kr['f32_launches'][own] != kr['decode_steps'] or \
+                kr['f32_launches'][own] == 0 or \
+                kr['launches'][own] != kr['decode_steps']:
+            fails.append(f'float32 engine {mode}: {own} float32 launches '
+                         f'{kr["f32_launches"][own]} for '
+                         f'{kr["decode_steps"]} decode steps')
+        if sum(rows[(mode, 'plain')]['launches'].values()):
+            fails.append(f'float32 engine {mode} plain: decode kernels '
+                         f'launched {rows[(mode, "plain")]["launches"]}')
+        kern, plain = res[(mode, 'kernel')], res[(mode, 'plain')]
+        equal, ties, diverged = [], {}, {}
+        for rid, prompt in burst:
+            a, b = kern[rid].tokens, plain[rid].tokens
+            if kern[rid].status == plain[rid].status and list(a) == list(b):
+                equal.append(rid)
+                continue
+            n = _first_divergence(list(a), list(b))
+            ext = np.concatenate([prompt, np.asarray(b[:n], np.int32)])
+            eng = engines[(mode, 'plain')]
+            for i in range(eng.slots):
+                eng.reset(i)
+            gap = _near_tie(torch, first_step_logits(torch, eng, [ext])[0])
+            (ties if gap <= F32_NEAR_TIE else diverged)[rid] = {
+                'at_token': n, 'top2_gap_rel': gap}
+        row = {'phase': 'float32_path', 'case': f'engine_{mode}_streams',
+               'requests': len(burst), 'equal_to_plain': len(equal),
+               'share_equal': len(equal) / len(burst),
+               'near_ties': ties, 'diverged': diverged,
+               'tokens_per_s': {i: rows[(mode, i)]['tokens_per_s']
+                                for i in ('kernel', 'plain', 'kernel_bf16')},
+               'ttft_p99_s': {i: rows[(mode, i)]['ttft_s']['p99']
+                              for i in ('kernel', 'plain', 'kernel_bf16')}}
+        emit(row)
+        if diverged:
+            fails.append(f'float32 engine {mode}: streams differ from the '
+                         f'plain decode (no near tie): {diverged}')
+        for impl in ('kernel', 'plain'):
+            engines.pop((mode, impl))
+        torch.cuda.empty_cache()
+    return {mode: rows[(mode, 'kernel')]['f32_launches']
+            for mode in ('slab', 'paged')}, fails
+
+
+def _f32_lm(torch, ddp):
+    """``TransformerLM(vocab_size=32768, dim=768, num_heads=8,
+    n_layers=16)`` at ``dtype=None`` (float32 compute and parameters),
+    remat, B 4 x T 4096: the first step's loss against the same weights
+    on ``softmax_impl='full'`` (cuBLAS float32) within TOL_F32_REL, then
+    F32_LM_STEPS Adam 3e-4 steps (ms, peak memory, K1/K3/K4 float32
+    launches a step, counts at 0 just before); then greedy_generate at
+    main_path's shape (batch 4, prompt 1000, 64 steps), its tokens equal
+    to the same weights' plain decode (``decode_impl='plain'``; a near tie
+    at the first differing token excepted). ``(launches, failures)``."""
+    from distributed_dot_product_tpu_torch.models.lm import greedy_generate
+    dev = torch.device('cuda')
+    gen = torch.Generator().manual_seed(F32_SEED)
+    fails = []
+    model = ddp.TransformerLM(VOCAB, DIM, HEADS, n_layers=LAYERS,
+                              remat=True, device=dev, generator=gen)
+    dtypes = sorted({str(p.dtype) for p in model.parameters()})
+    tokens = torch.randint(0, VOCAB, (TRAIN_B, TRAIN_T), generator=gen
+                           ).to(dev)
+    batch = (tokens, ddp.lm_targets(tokens))
+    ref = ddp.TransformerLM(VOCAB, DIM, HEADS, n_layers=LAYERS,
+                            attn_kwargs=dict(softmax_impl='full'),
+                            device=dev, generator=torch.Generator())
+    ref.load_state_dict(model.state_dict())
+    with torch.no_grad():
+        loss_sum, count = ref.nll_sum(*batch, chunk=LOSS_CHUNK)
+        ref_loss = (loss_sum / count).item()
+    del ref
+    torch.cuda.empty_cache()
+    optimizer = torch.optim.Adam(model.parameters(), lr=LR,
+                                 betas=(0.9, 0.999), eps=1e-8)
+    step = ddp.make_lm_train_step(model, optimizer, loss_chunk=LOSS_CHUNK)
+    _f32_zero(ddp)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms, per_step = [], [], []
+    for _ in range(F32_LM_STEPS):
+        before = _f32_counts(ddp)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(step(batch).item())
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        per_step.append({n: c - before[n]
+                         for n, c in _f32_counts(ddp).items() if c})
+    train = {n: c for n, c in _f32_counts(ddp).items() if c}
+    peak = torch.cuda.max_memory_allocated()
+    loss_rel = abs(losses[0] - ref_loss) / abs(ref_loss)
+    expected = {'flash_attention': 2 * LAYERS, 'flash_attention_dq': LAYERS,
+                'flash_attention_dkv': LAYERS}
+    del optimizer, step, batch
+    torch.cuda.empty_cache()
+
+    prompts = tokens[:, :PROMPT]
+    greedy_generate(model, prompts, 2, T_MAX)         # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    greedy_generate(model, prompts, 1, T_MAX)         # prefill only
+    torch.cuda.synchronize()
+    prefill_ms = 1e3 * (time.perf_counter() - t0)
+    _f32_zero(ddp)
+    t0 = time.perf_counter()
+    out = greedy_generate(model, prompts, STEPS, T_MAX)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    greedy = {n: c for n, c in _f32_counts(ddp).items() if c}
+    plain = ddp.TransformerLM(VOCAB, DIM, HEADS, n_layers=LAYERS,
+                              attn_kwargs=dict(decode_impl='plain'),
+                              device=dev, generator=torch.Generator())
+    plain.load_state_dict(model.state_dict())
+    want = greedy_generate(plain, prompts, STEPS, T_MAX)
+    torch.cuda.synchronize()
+    ties, diverged = {}, {}
+    for i in range(out.shape[0]):
+        a, b = out[i].tolist(), want[i].tolist()
+        if a == b:
+            continue
+        n = _first_divergence(a, b)
+        ext = torch.cat([prompts[i], want[i, :n].to(prompts.dtype)])[None]
+        with torch.inference_mode():
+            _, logits = plain.prefill(ext, plain.make_decode_caches(
+                1, T_MAX))
+        gap = _near_tie(torch, logits[0, -1])
+        (ties if gap <= F32_NEAR_TIE else diverged)[i] = {
+            'at_token': n, 'top2_gap_rel': gap}
+    del plain
+    row = {'phase': 'float32_path', 'case': 'lm', 'card': CARD,
+           'lm': dict(vocab=VOCAB, dim=DIM, heads=HEADS, layers=LAYERS,
+                      dtype=None, remat=True),
+           'parameter_dtypes': dtypes, 'batch': [TRAIN_B, TRAIN_T],
+           'losses': losses, 'full_f32_loss': ref_loss,
+           'loss_rel_err_vs_full': loss_rel, 'tol': TOL_F32_REL,
+           'step_ms': step_ms,
+           'ms_per_step_median': statistics.median(step_ms[1:]),
+           'max_memory_allocated': peak,
+           'f32_launches_per_step': per_step,
+           'expected_per_step': expected, 'f32_launches': train,
+           'greedy': {'batch': [BATCH, PROMPT], 'steps': STEPS,
+                      'prefill_ms': prefill_ms,
+                      'ms_per_decode_step':
+                          (1e3 * gen_s - prefill_ms) / (STEPS - 1),
+                      'tokens_per_s': BATCH * STEPS / gen_s,
+                      'f32_launches': greedy,
+                      'rows_equal_to_plain_decode':
+                          out.shape[0] - len(ties) - len(diverged),
+                      'near_ties': ties, 'diverged': diverged}}
+    emit(row)
+    if dtypes != ['torch.float32'] or not all(
+            math.isfinite(x) for x in losses):
+        fails.append(f'float32 LM: parameters {dtypes}, losses {losses}')
+    if not loss_rel <= TOL_F32_REL:
+        fails.append(f'float32 LM: first loss rel err vs full {loss_rel} > '
+                     f'{TOL_F32_REL}')
+    if any(c != expected for c in per_step):
+        fails.append(f'float32 LM: float32 launches a step {per_step}, '
+                     f'want {expected}')
+    want_g = {'flash_attention': LAYERS, 'flash_decode': LAYERS * (STEPS - 1)}
+    if greedy != want_g or tuple(out.shape) != (BATCH, STEPS):
+        fails.append(f'float32 LM greedy: float32 launches {greedy}, want '
+                     f'{want_g}; tokens {tuple(out.shape)}')
+    if diverged:
+        fails.append(f'float32 LM greedy: rows differ from the plain decode '
+                     f'(no near tie): {diverged}')
+    del model
+    torch.cuda.empty_cache()
+    return {'train': train, 'greedy': greedy}, fails
+
+
+def _f32_module(torch, ddp, flush):
+    """The paper's module at entry()'s shapes, float32: ``Distributed
+    DotProductAttn(key_dim=512, num_heads=8, offset=64,
+    softmax_impl='flash')`` (dtype None) at B 4 x T 8192, causal and not,
+    and causal with ``flash_softmax_mode='bounded'`` (K2): forward and
+    input gradients, the first F32_MOD_REF_B rows within TOL_F32_REL of
+    the same weights on ``softmax_impl='full'`` (float32, on the card);
+    ms a step; float32 launches a step (counts at 0 just before).
+    ``(launches, failures)``."""
+    dev = torch.device('cuda')
+    gen = torch.Generator().manual_seed(F32_SEED)
+    fails, launches = [], {}
+    b, t, kd = F32_MOD_B, F32_MOD_T, F32_MOD['key_dim']
+    x = [f32n(torch, (b, t, kd), gen, dev) for _ in range(3)]
+    gy = f32n(torch, (b, t, kd), gen, dev)
+    for case, causal, mode in (('causal', True, 'exact'),
+                               ('not_causal', False, 'exact'),
+                               ('causal_bounded', True, 'bounded')):
+        mod = ddp.DistributedDotProductAttn(
+            **F32_MOD, softmax_impl='flash', causal=causal,
+            flash_softmax_mode=mode, device=dev,
+            generator=torch.Generator().manual_seed(F32_SEED))
+        ref = ddp.DistributedDotProductAttn(
+            **F32_MOD, softmax_impl='full', causal=causal, device=dev)
+        ref.load_state_dict(mod.state_dict())
+
+        def step():
+            ins = [a.detach().requires_grad_() for a in x]
+            y = mod(*ins)
+            return y, torch.autograd.grad(y, ins, gy)
+        step()
+        torch.cuda.synchronize()
+        _f32_zero(ddp)
+        y, grads = step()
+        torch.cuda.synchronize()
+        counts = {n: c for n, c in _f32_counts(ddp).items() if c}
+        ms = time_ms(torch, step, flush, reps=5)
+        rb = F32_MOD_REF_B
+        ins = [a[:rb].detach().requires_grad_() for a in x]
+        y_ref = ref(*ins)
+        g_ref = torch.autograd.grad(y_ref, ins, gy[:rb])
+        errs = {'out': rel_errs(torch, y[:rb], y_ref)}
+        errs.update({f'd{n}': rel_errs(torch, gr[:rb], gw) for n, gr, gw in
+                     zip(('keys', 'queries', 'values'), grads, g_ref)})
+        k1 = 'flash_attention_bounded' if mode == 'bounded' \
+            else 'flash_attention'
+        want = {k1: 1, 'flash_attention_dq': 1, 'flash_attention_dkv': 1}
+        row = {'phase': 'float32_path', 'case': f'module_{case}',
+               'card': CARD,
+               'module': dict(F32_MOD, softmax_impl='flash', causal=causal,
+                              flash_softmax_mode=mode, dtype=None),
+               'batch': [b, t], 'ms_per_step': ms,
+               'out_dtype': str(y.dtype).split('.')[-1],
+               'f32_launches': counts, 'held_rows': rb,
+               'rel_err_vs_full_f32': {n: e[1] for n, e in errs.items()},
+               'max_row_rel_err_vs_full_f32': {n: e[0]
+                                               for n, e in errs.items()},
+               'tol': TOL_F32_REL}
+        emit(row)
+        fails += [f'float32 module {case} {n}: rel err {e[1]} > '
+                  f'{TOL_F32_REL}' for n, e in errs.items()
+                  if not e[1] <= TOL_F32_REL]
+        if counts != want or y.dtype != torch.float32:
+            fails.append(f'float32 module {case}: launches {counts}, want '
+                         f'{want}; out {y.dtype}')
+        launches[case] = counts
+        del mod, ref, y, grads, y_ref, g_ref, ins
+        torch.cuda.empty_cache()
+    return launches, fails
+
+
+def _f32_attn_bound(d, dv, rows_q, rows_k, pairs):
+    """``{k1, k3, k4}: (ms, by)`` of the float32 kernels: K1 2(d + dv)
+    operations a pair, K3 4d + 2dv, K4 4(d + dv), at F32_FLOPS; q, k, v,
+    out (dO) read or written once in 4-byte elements, lse (lse2, delta)
+    and the gradients."""
+    io = 4 * (rows_q * (d + dv) + rows_k * (d + dv))
+    return {'k1': f32_bound_ms(2 * pairs * (d + dv), io + 4 * rows_q),
+            'k3': f32_bound_ms(pairs * (4 * d + 2 * dv),
+                               io + 8 * rows_q + 4 * rows_q * d),
+            'k4': f32_bound_ms(pairs * 4 * (d + dv),
+                               io + 8 * rows_q + 4 * rows_k * (d + dv))}
+
+
+def _f32_timing(torch, ddp, flush, gen):
+    """Each float32 kernel's ms at the LM's shape (4 x 8 x 4096, d 96,
+    causal; K2 on its precomputed bound), the bf16 kernel of the same
+    call, the plain float32 version, SDPA at float32 (the backend it
+    picked; its backward alone beside K3 and K4) and the bound; K5 at the
+    greedy shape and K5p at the serving shape likewise, float32 caches.
+    ``(rows, failures)``."""
+    import importlib
+    fa = importlib.import_module(
+        'distributed_dot_product_tpu_torch.ops.flash_attention')
+    fd = importlib.import_module(
+        'distributed_dot_product_tpu_torch.ops.flash_decode')
+    F = torch.nn.functional
+    dev = torch.device('cuda')
+    b, h, t, d = TRAIN_B, HEADS, TRAIN_T, HEAD_DIM
+    scale = 1.0 / math.sqrt(d)
+    pairs = b * h * t * (t + 1) // 2
+    q, k, v, g = (f32n(torch, (b, h, t, d), gen, dev) for _ in range(4))
+    q16, k16, v16, g16 = (x.bfloat16() for x in (q, k, v, g))
+    out, lse = fa.flash_attention_with_lse(q, k, v, causal=True)
+    q2, lse2, delta = fa.flash_attention_bwd_operands(q, out, lse, g, scale)
+    o16, l16 = fa.flash_attention_with_lse(q16, k16, v16, causal=True)
+    q2b, lse2b, deltab = fa.flash_attention_bwd_operands(q16, o16, l16, g16,
+                                                         scale)
+    mvec = fa.bounded_shift(q2, k)
+    mvec16 = fa.bounded_shift(q2b, k16)
+    bk = dict(causal=True, scale=scale)
+    calls = {
+        'flash_attention': (
+            lambda: fa.flash_attention(q, k, v, causal=True),
+            lambda: fa.flash_attention(q16, k16, v16, causal=True),
+            lambda: fa.flash_attention_plain(q, k, v, causal=True)),
+        'flash_attention_bounded': (
+            lambda: fa.flash_attention_bounded(q, k, v, causal=True,
+                                               mvec=mvec),
+            lambda: fa.flash_attention_bounded(q16, k16, v16, causal=True,
+                                               mvec=mvec16),
+            lambda: fa.flash_attention_bounded_plain_lse(q, k, v,
+                                                         causal=True)),
+        'flash_attention_dq': (
+            lambda: fa.flash_attention_dq(q2, k, v, g, lse2, delta, **bk),
+            lambda: fa.flash_attention_dq(q2b, k16, v16, g16, lse2b, deltab,
+                                          **bk),
+            lambda: fa.flash_attention_dq_plain(q2, k, v, g, lse2, delta,
+                                                **bk)),
+        'flash_attention_dkv': (
+            lambda: fa.flash_attention_dkv(q2, k, v, g, lse2, delta,
+                                           causal=True),
+            lambda: fa.flash_attention_dkv(q2b, k16, v16, g16, lse2b,
+                                           deltab, causal=True),
+            lambda: fa.flash_attention_dkv_plain(q2, k, v, g, lse2, delta,
+                                                 causal=True))}
+    qs, ks_, vs = (x.detach().requires_grad_() for x in (q, k, v))
+    y = F.scaled_dot_product_attention(qs, ks_, vs, is_causal=True)
+    sdpa_fwd = (lambda: F.scaled_dot_product_attention(q, k, v,
+                                                       is_causal=True))
+    sdpa_bwd = (lambda: torch.autograd.grad(y, (qs, ks_, vs), g,
+                                            retain_graph=True))
+    backend, names = sdpa_backend(torch, sdpa_fwd)
+    sdpa_err = rel_errs(torch, sdpa_fwd(), fa.flash_attention_plain(
+        q, k, v, causal=True))[0]
+    library = {'flash_attention': time_ms(torch, sdpa_fwd, flush),
+               'flash_attention_bwd': time_ms(torch, sdpa_bwd, flush)}
+    library['flash_attention_bounded'] = library['flash_attention']
+    bounds = _f32_attn_bound(d, d, b * h * t, b * h * t, pairs)
+    bound_of = {'flash_attention': bounds['k1'],
+                'flash_attention_bounded': bounds['k1'],
+                'flash_attention_dq': bounds['k3'],
+                'flash_attention_dkv': bounds['k4']}
+    rows, fails = {}, []
+    for name, (f32, b16, plain) in calls.items():
+        got, want = f32(), plain()
+        got = got if not isinstance(got, tuple) else got[0]
+        want = want if not isinstance(want, tuple) else want[0]
+        torch.cuda.synchronize()
+        err = rel_errs(torch, got, want)[0]
+        held = err
+        if name in ('flash_attention_dq', 'flash_attention_dkv'):
+            # dq and dk against float64, one batch row at a time.
+            held = 0.0
+            for i in range(b):
+                dq64, tq64, dk64, tk64 = _f64_grads(
+                    torch, fa, q[i:i + 1], k[i:i + 1], v[i:i + 1],
+                    g[i:i + 1], out[i:i + 1], lse[i:i + 1], scale,
+                    dict(causal=True))
+                held = max(held, cond_err(torch, got[i:i + 1], dq64, tq64)
+                           if name == 'flash_attention_dq' else
+                           cond_err(torch, got[i:i + 1], dk64, tk64))
+                del dq64, tq64, dk64, tk64
+            if name == 'flash_attention_dkv':
+                held = max(held, rel_errs(torch, f32()[1], plain()[1])[0])
+        ms, by = bound_of[name]
+        row = {'shape': [b, h, t, d], 'causal': True,
+               'ms': time_ms(torch, f32, flush),
+               'bf16_ms': time_ms(torch, b16, flush),
+               'plain_ms': time_ms(torch, plain, flush, reps=3),
+               'library_ms': (library['flash_attention_bwd']
+                              if name in ('flash_attention_dq',
+                                          'flash_attention_dkv')
+                              else library[name]),
+               'library': f'SDPA float32 ({backend} backend'
+                          + ('; its backward alone: dq, dk, dv together)'
+                             if name in ('flash_attention_dq',
+                                         'flash_attention_dkv') else ')'),
+               'bound_ms': ms, 'bound_by': by,
+               'max_row_rel_err': err, 'held': held,
+               'max_abs_err': (got - want).abs().max().item()}
+        emit({'phase': 'float32_path', 'case': f'timing_{name}',
+              'card': CARD, **row})
+        rows[name] = row
+        if not held <= TOL_F32_ROW:
+            fails.append(f'float32 {name} timing shape: row err {held} > '
+                         f'{TOL_F32_ROW}')
+    emit({'phase': 'float32_path', 'case': 'sdpa_float32',
+          'backend': backend, 'kernels': names,
+          'max_row_rel_err_vs_plain': sdpa_err,
+          'allow_tf32': {'matmul': torch.backends.cuda.matmul.allow_tf32,
+                         'cudnn': torch.backends.cudnn.allow_tf32}})
+    del qs, ks_, vs, y
+    torch.cuda.empty_cache()
+
+    # K5 at the greedy shape (4 slots mid-generation, t_max 2048) and K5p
+    # at the serving shape (paged_case), float32 caches.
+    fill = PROMPT + STEPS // 2
+    vt = torch.full((BATCH,), fill, dtype=torch.int32, device=dev)
+    q5, kn, vn = (f32n(torch, (BATCH, HEADS, 1, HEAD_DIM), gen, dev)
+                  for _ in range(3))
+    ck, cv = (f32n(torch, (BATCH, HEADS, T_MAX, HEAD_DIM), gen, dev)
+              for _ in range(2))
+    mask = (torch.arange(T_MAX, device=dev)[None, :]
+            <= vt[:, None].long())[:, None, None, :]
+    bh = BATCH * HEADS
+    cols = fill + 1
+    nbytes = (8 * HEAD_DIM * bh * (cols - 1) + 8 * HEAD_DIM * bh
+              + 16 * HEAD_DIM * bh)
+    k5 = (lambda: fd.flash_decode(q5, kn, vn, ck, cv, vt, vt, scale=scale),
+          lambda: fd.flash_decode(q5.bfloat16(), kn.bfloat16(),
+                                  vn.bfloat16(), ck16, cv16, vt, vt,
+                                  scale=scale),
+          lambda: fd.flash_decode_plain(q5, kn, vn, ck, cv, vt, vt,
+                                        scale=scale),
+          lambda: F.scaled_dot_product_attention(q5, ck, cv, attn_mask=mask,
+                                                 scale=scale),
+          f32_bound_ms(4 * HEAD_DIM * bh * cols, nbytes))
+    ck16, cv16 = ck.bfloat16(), cv.bfloat16()
+    pq, pkn, pvn, kp, vp, pvt, pap, table, prow = paged_case(torch, gen, dev)
+    pq, pkn, pvn, kp, vp = (x.float() for x in (pq, pkn, pvn, kp, vp))
+    kp16, vp16 = kp.bfloat16(), vp.bfloat16()
+    gk, gv = fd.gather_pages(kp, table), fd.gather_pages(vp, table)
+    pmask = (torch.arange(SERVE_T_MAX, device=dev)[None, :]
+             <= pvt[:, None].long())[:, None, None, :]
+    n_rows = len(set().union(*prow))
+    pcols = sum(x + 1 for x in pvt.tolist() if x >= 0)
+    n_app = sum(a >= 0 for a in pap.tolist())
+    pbytes = (8 * HEAD_DIM * HEADS * n_rows
+              + 8 * HEAD_DIM * SERVE_SLOTS * HEADS
+              + 8 * HEAD_DIM * SERVE_SLOTS * HEADS
+              + 8 * HEAD_DIM * HEADS * n_app + 4 * table.numel())
+    k5p = (lambda: fd.flash_decode(pq, pkn, pvn, kp, vp, pvt, pap,
+                                   page_table=table, scale=scale),
+           lambda: fd.flash_decode(pq.bfloat16(), pkn.bfloat16(),
+                                   pvn.bfloat16(), kp16, vp16, pvt, pap,
+                                   page_table=table, scale=scale),
+           lambda: fd.flash_decode_plain(pq, pkn, pvn, kp, vp, pvt, pap,
+                                         page_table=table, scale=scale),
+           lambda: F.scaled_dot_product_attention(pq, gk, gv,
+                                                  attn_mask=pmask,
+                                                  scale=scale),
+           f32_bound_ms(4 * HEAD_DIM * HEADS * pcols, pbytes))
+    for name, (f32, b16, plain, lib, (bms, by)) in (
+            ('flash_decode', k5), ('flash_decode_paged', k5p)):
+        over = ('the slab' if name == 'flash_decode'
+                else 'the slab gathered beforehand')
+        row = {'ms': time_ms(torch, f32, flush),
+               'bf16_ms': time_ms(torch, b16, flush),
+               'plain_ms': time_ms(torch, plain, flush, reps=10),
+               'library_ms': time_ms(torch, lib, flush),
+               'library': f'SDPA float32 over {over}, boolean mask '
+                          f'({sdpa_backend(torch, lib)[0]} backend)',
+               'bound_ms': bms, 'bound_by': by}
+        emit({'phase': 'float32_path', 'case': f'timing_{name}',
+              'card': CARD, **row})
+        rows[name] = row
+    return rows, fails
+
+
+def phase_float32_path(torch, ddp, flush):
+    """The float32 kernels and the slice's entry points at the JAX
+    package's default dtype (the module docstring, phase 13c); every
+    failure reported together at the end."""
+    emit({'phase': 'float32_path', 'case': 'settings', 'card': CARD,
+          'allow_tf32': {'matmul': torch.backends.cuda.matmul.allow_tf32,
+                         'cudnn': torch.backends.cudnn.allow_tf32},
+          'float32_matmul_precision': torch.get_float32_matmul_precision()})
+    gen = torch.Generator().manual_seed(F32_SEED)
+    worst, fails = _f32_kernels(torch, ddp, gen)
+    timing, f = _f32_timing(torch, ddp, flush, gen)
+    fails += f
+    readme, f = _f32_readme(torch, ddp)
+    fails += f
+    engine, f = _f32_engine(torch, ddp)
+    fails += f
+    lm, f = _f32_lm(torch, ddp)
+    fails += f
+    module, f = _f32_module(torch, ddp, flush)
+    fails += f
+    check(not fails, '; '.join(fails))
+    return {'worst': worst, 'timing': timing, 'launches': {
+        'readme': readme['f32_launches'], 'engine': engine, 'lm': lm,
+        'module': module}}
+
+
 def main():
     try:
         import torch
@@ -9265,6 +10436,8 @@ def main():
              lambda: phase_flash_features(torch, ddp, flush, gen)),
             ('flash_masks',
              lambda: phase_flash_masks(torch, ddp, flush, gen)),
+            ('float32_path',
+             lambda: phase_float32_path(torch, ddp, flush)),
             ('kernel_coverage',
              lambda: phase_kernel_coverage(torch, ddp, flush)),
             ('main_path', lambda: phase_main_path(torch, ddp)),
@@ -9572,9 +10745,11 @@ def main():
         # four harness twins), zeros included.
         entry.setdefault('launches_by_path', {})['analysis_examples'] = {
             case: counts[entry['name']] for case, counts in ae.items()}
-        # benchmark_cli: its launches in each torch_benchmark.py run.
+        # benchmark_cli: its launches in each torch_benchmark.py run (the
+        # float32 kernel's apart, on its own entry below).
         entry['launches_by_path']['benchmark_cli'] = {
-            run: counts[entry['name']] for run, counts in bc.items()}
+            run: counts[entry['name']] - counts[f'{entry["name"]}_f32']
+            for run, counts in bc.items()}
         # kernel_coverage: its launches on that phase's runs (the module at
         # value_dim 256, the head-dim-256 LM's train step and greedy run,
         # the page-48 engine's burst).
@@ -9587,6 +10762,67 @@ def main():
             if extra in entry:
                 entry[extra] = {k: v for k, v in entry[extra].items()
                                 if k not in ('flops', 'bytes')}
+    # The float32 kernels (float32_path): launches on that phase's runs
+    # (K1, K3, K4: the float32 LM's train steps; K2: the module's bounded
+    # step; K5 / K5p: the float32 engine's slab / paged burst), errors
+    # against their plain float32 versions, times at the LM's shape and
+    # K5 / K5p's greedy and serving shapes.
+    f32 = res['float32_path']
+    fl = f32['launches']
+    f32_paths = {
+        'flash_attention': {
+            f'float32_path_lm_train_{F32_LM_STEPS}_steps':
+                fl['lm']['train'].get('flash_attention', 0),
+            'float32_path_lm_greedy':
+                fl['lm']['greedy'].get('flash_attention', 0),
+            **{f'float32_path_module_{c}': n.get('flash_attention', 0)
+               for c, n in fl['module'].items()}},
+        'flash_attention_bounded': {
+            f'float32_path_module_{c}': n.get('flash_attention_bounded', 0)
+            for c, n in fl['module'].items()},
+        'flash_attention_dq': {
+            f'float32_path_lm_train_{F32_LM_STEPS}_steps':
+                fl['lm']['train'].get('flash_attention_dq', 0),
+            **{f'float32_path_module_{c}': n.get('flash_attention_dq', 0)
+               for c, n in fl['module'].items()}},
+        'flash_attention_dkv': {
+            f'float32_path_lm_train_{F32_LM_STEPS}_steps':
+                fl['lm']['train'].get('flash_attention_dkv', 0),
+            **{f'float32_path_module_{c}': n.get('flash_attention_dkv', 0)
+               for c, n in fl['module'].items()}},
+        'flash_decode': {
+            'float32_path_engine_slab': fl['engine']['slab']['flash_decode'],
+            'float32_path_lm_greedy':
+                fl['lm']['greedy'].get('flash_decode', 0)},
+        'flash_decode_paged': {
+            'float32_path_engine_paged':
+                fl['engine']['paged']['flash_decode_paged']}}
+    f32_main = {'flash_attention': f'float32_path_lm_train_{F32_LM_STEPS}'
+                                   f'_steps',
+                'flash_attention_bounded': 'float32_path_module_'
+                                           'causal_bounded',
+                'flash_attention_dq': f'float32_path_lm_train_'
+                                      f'{F32_LM_STEPS}_steps',
+                'flash_attention_dkv': f'float32_path_lm_train_'
+                                       f'{F32_LM_STEPS}_steps',
+                'flash_decode': 'float32_path_engine_slab',
+                'flash_decode_paged': 'float32_path_engine_paged'}
+    base = {e['name']: e for e in kernels}
+    for name in F32_KERNELS:
+        t = f32['timing'][name]
+        kernels.append(dict(
+            name=f'{name}_f32', route='cuda',
+            source=(base[name]['source'] if 'decode' in name
+                    else csrc + 'flash_f32.cu'),
+            replaces=base[name]['replaces'],
+            launches=f32_paths[name][f32_main[name]],
+            launches_by_path={**f32_paths[name], 'benchmark_cli': {
+                run: counts[f'{name}_f32'] for run, counts in bc.items()}},
+            **f32['worst'][name],
+            **{k: t[k] for k in ('ms', 'plain_ms', 'library_ms', 'library',
+                                 'bound_ms', 'bound_by', 'bf16_ms')},
+            bound_rate='operations at 165 TFLOP/s (3xTF32), bytes at '
+                       '3.35 TB/s'))
     print(smi, flush=True)
     emit({'kernels': kernels})
     emit({'ok': True, 'device': {'platform': 'gpu', 'kind': kind,

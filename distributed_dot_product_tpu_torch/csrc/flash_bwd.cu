@@ -115,6 +115,7 @@
 #include <type_traits>
 
 #include "hopper.cuh"   // kB, kWarps, kThreads and the Hopper helpers
+#include "flash_ext.cuh" // MaskArgs, ExtArgs, drop_hash
 
 namespace {
 
@@ -127,60 +128,6 @@ constexpr int kWgs = 2;
 constexpr int kRows = kWgs * kB;
 constexpr int kBlockThreads = kWgs * kThreads;
 constexpr float kInvLog2e = 0.693147180559945309f;   // 1 / log2(e)
-
-// A dense boolean mask: byte (b, h, row, col) at
-// ptr + (bh / inner) * so + (bh % inner) * si + row * sr + col.
-struct MaskArgs {
-  const unsigned char* ptr;
-  int inner;
-  long long so, si, sr;
-};
-
-__device__ __forceinline__ const unsigned char* mask_base(const MaskArgs& m,
-                                                          int bh) {
-  return m.ptr + (bh / m.inner) * m.so + (bh % m.inner) * m.si;
-}
-
-// An int32 vector per flat (batch, head) row (see csrc/flash_fwd.cu).
-struct VecArgs {
-  const int* ptr;
-  int inner;
-  long long so, si;
-};
-
-// The Ext instantiations' run-time arguments, as in csrc/flash_fwd.cu.
-struct ExtArgs {
-  VecArgs segq, segk;
-  int window;
-  int dropout;
-  unsigned int drop_threshold;
-  float drop_inv;
-  unsigned int seed;
-  const signed char* q8;
-  const signed char* k8;
-  const float* sqf;
-  const float* skr;
-  const float* alibi;
-  VecArgs posq, posk;
-  VecArgs posq_mm, posk_mm;
-};
-
-__device__ __forceinline__ const int* vec_row(const VecArgs& a, int bh) {
-  return a.ptr + (bh / a.inner) * a.so + (bh % a.inner) * a.si;
-}
-
-// The reference's _dropout_keep before the threshold (csrc/flash_fwd.cu).
-__device__ __forceinline__ unsigned int drop_hash(unsigned int rh,
-                                                  unsigned int ch,
-                                                  unsigned int bs) {
-  unsigned int x = rh ^ ch ^ bs;
-  x ^= x >> 16;
-  x *= 2246822507u;
-  x ^= x >> 13;
-  x *= 3266489909u;
-  x ^= x >> 16;
-  return x;
-}
 
 __device__ __forceinline__ void store_pair(bf16* dst, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(a, b);

@@ -105,6 +105,24 @@
 // 64-column piece of a chunk (the last piece shorter when the chunk is no
 // multiple of 64).
 //
+// Float32 (the library built with -DDECODE_F32: flash_decode_f32,
+// flash_decode_paged_f32): q, k_new / v_new, the caches and the output are
+// float32, and everything above holds with 4-byte elements: rows padded
+// by 16 bytes (W + 4 floats, so the 32-bit fragment reads of 8 rows 2t or
+// 1 apart hit distinct banks), the q fold kept in float32, the int8 mirror
+// quantized from the float32 rows. S and P.V are 3xTF32 products
+// (csrc/tf32x3.cuh: m16n8k8 tf32 with each operand split into a big and a
+// small TF32 part, float32-accurate) on fragments read by 32-bit shared
+// loads in place of ldmatrix (which moves 16-bit elements); P comes from
+// the S accumulators, each 8-column slice's reduction permuted (A's k = t
+// is column 2t, k = t + 4 column 2t + 1) and V's rows read to match. The
+// fixed column partition and merge orders are the bf16 kernel's, so the
+// bit-for-bit contracts above hold as they do there. A warp's K and V rows
+// take twice the bytes: at D + DV > 320 a warp keeps one step in flight
+// (stages_of), and __launch_bounds__ asks for the blocks the shared memory
+// leaves room for (min_blocks). What bounds it is still the bytes: a step
+// reads twice the bf16 kernel's.
+//
 // Paged (K5p): the cache is a pool of (pages + 1, h_kv, page_size, d)
 // pages, and column c of slot b lives at row c % page_size of pool page
 // table[b][c / page_size], for any page size (a chunk holds the ids of
@@ -123,16 +141,53 @@
 #include <stdint.h>
 
 #include "hopper.cuh"
+#include "tf32x3.cuh"   // the float32 library's 3xTF32 products
 
 namespace cg = cooperative_groups;
 
 namespace {
 
+// The element of q, k_new / v_new, the caches and the output: bf16, or
+// float32 in the library built with -DDECODE_F32 (ops/_build.py).
+#ifdef DECODE_F32
+using elem = float;
+#define DECODE_SYMBOL(name) name##_f32
+#else
+using elem = bf16;
+#define DECODE_SYMBOL(name) name##_bf16
+#endif
+constexpr int kEB = sizeof(elem);  // bytes an element
+constexpr int kEP = 16 / kEB;      // elements a 16-byte piece
+
+__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ void store_elem(bf16* p, float x) {
+  *p = __float2bfloat16(x);
+}
+__device__ __forceinline__ void store_elem(float* p, float x) { *p = x; }
+// q * qscale rounded back to the element type (the TPU kernel's fold).
+__device__ __forceinline__ bf16 fold(bf16 x, float s) {
+  return __float2bfloat16(__bfloat162float(x) * s);
+}
+__device__ __forceinline__ float fold(float x, float s) { return x * s; }
+
 constexpr int kChunk = 128;        // columns a cluster rank owns at a time
                                    // (the default split; block_k on a slab)
 constexpr int kStep = 64;          // columns a step spans, 16 a warp
 constexpr int kWarpCols = kStep / kWarps;
-constexpr int kStages = 2;         // a warp's steps in flight
+
+// A warp's steps in flight: two, or one for float32 rows at D + DV > 320,
+// where two stages of four warps' 16 K and V rows would not fit in shared
+// memory ((256, 256): 8 x 33,280 bytes).
+__host__ __device__ constexpr int stages_of(int d, int dv) {
+  return kEB == 4 && d + dv > 320 ? 1 : 2;
+}
+
+// Blocks an SM should hold (__launch_bounds__): the shared memory of a
+// block at these widths leaves room for about that many.
+__host__ __device__ constexpr int min_blocks(int dv) {
+  return kEB == 4 ? (dv > 64 ? 1 : 2) : (dv > 128 ? 1 : 3);
+}
 constexpr int kMaxCluster = 8;     // the portable cluster size
 constexpr int kRowsPass = 16;      // query rows a pass holds (an m-tile)
 constexpr float kNegBig = -0.7f * 3.4e38f;
@@ -181,15 +236,15 @@ __host__ __device__ inline int page_entries(int t_max, int page_size,
 __host__ __device__ inline Layout make_layout(int rows, int n, int d, int dv,
                                               bool quant, int pages) {
   Layout L;
-  L.krow = (quant ? d : 2 * d) + 16;
-  L.vrow = 2 * dv + 16;
+  L.krow = (quant ? d : kEB * d) + 16;
+  L.vrow = kEB * dv + 16;
   L.v = kWarpCols * L.krow;
   L.ks = L.v + kWarpCols * L.vrow;
   L.wstage = align16(L.ks + (quant ? 4 * kWarpCols : 0));
-  int o = kWarps * kStages * L.wstage;
+  int o = kWarps * stages_of(d, dv) * L.wstage;
   L.q = o;        o += kRowsPass * L.krow;        // a pass's q rows
   L.qs = o;       o = align16(o + 4 * kRowsPass); // int8: their scales
-  L.held = o;     o = align16(o + 4 * kWarps * kStages);  // held columns
+  L.held = o;     o = align16(o + 4 * kWarps * stages_of(d, dv));  // held
   L.fresh = o;    o = align16(o + (quant ? n * d : 0));   // int8 k_new
   L.fresh_s = o;  o = align16(o + (quant ? 4 * n : 0));   // and scales
   L.pages = o;    o = align16(o + 4 * pages);     // the rank's page ids
@@ -211,14 +266,15 @@ __host__ __device__ inline Layout make_layout(int rows, int n, int d, int dv,
 // valid_to/append_at/n_new (batch,; n_new null: n rows wherever append_at
 // >= 0). The int8 mirror (k_q != nullptr): k_q / k_scale laid out as the
 // bf16 K cache with d and 1 elements per row. alibi: null, or the (h,)
-// slopes. Outputs: out (batch, h, n, dv) bf16, or with num != nullptr the
-// partials num (batch, h, n, dv), m and l (batch, h, n), all f32.
+// slopes. Outputs: out (batch, h, n, dv) as the cache, or with num !=
+// nullptr the partials num (batch, h, n, dv), m and l (batch, h, n), all
+// f32. q, k_new, v_new, the caches and out are `elem` (bf16, or float32).
 struct Args {
-  const bf16* q;
-  const bf16* k_new;
-  const bf16* v_new;
-  bf16* cache_k;
-  bf16* cache_v;
+  const elem* q;
+  const elem* k_new;
+  const elem* v_new;
+  elem* cache_k;
+  elem* cache_v;
   const int* valid_to;
   const int* append_at;
   const int* n_new;
@@ -226,7 +282,7 @@ struct Args {
   int8_t* k_q;
   float* k_scale;
   const float* alibi;
-  bf16* out;
+  elem* out;
   float* num;
   float* m_out;
   float* l_out;
@@ -402,11 +458,11 @@ __device__ __forceinline__ void issue_warp(const Args& a, const Slot& s,
   unsigned char* dp = stage + (isv ? L.v + r * L.vrow : r * L.krow);
   const uint32_t dst = smem_u32(dp);
   if (isv)
-    copy_row<2 * DV>(dst, dp, from, 2 * a.dv, a.vw, copy);
+    copy_row<kEB * DV>(dst, dp, from, kEB * a.dv, a.vw, copy);
   else if (QUANT)
     copy_row<D>(dst, dp, from, a.d, a.k8w, copy);
   else
-    copy_row<2 * D>(dst, dp, from, 2 * a.d, a.kw, copy);
+    copy_row<kEB * D>(dst, dp, from, kEB * a.d, a.kw, copy);
   if constexpr (QUANT) {
     if (!isv)
       cp_async4(smem_u32(stage) + L.ks + 4 * r,
@@ -422,12 +478,12 @@ __device__ __forceinline__ int next_step(int step, int cluster, int spc) {
   return (step + 1) % spc ? step + 1 : step + 1 + (cluster - 1) * spc;
 }
 
-// quantize_rows of one bf16 row of d <= D elements by a warp: s =
+// quantize_rows of one row of d <= D elements by a warp: s =
 // max(max|x| / 127, 1e-20), x_i8 = round half to even (x / s), both
 // divisions correctly rounded; the row into dst (zeros from d to D), s *
 // mul into *scale.
 template <int D>
-__device__ __forceinline__ void quantize_row(const bf16* src, int d,
+__device__ __forceinline__ void quantize_row(const elem* src, int d,
                                              int8_t* dst, float* scale,
                                              float mul) {
   const int lane = threadIdx.x % 32;
@@ -435,7 +491,7 @@ __device__ __forceinline__ void quantize_row(const bf16* src, int d,
   float amax = 0.f;
 #pragma unroll
   for (int k = 0; k < D / 32; ++k) {
-    x[k] = lane + 32 * k < d ? __bfloat162float(src[lane + 32 * k]) : 0.f;
+    x[k] = lane + 32 * k < d ? to_f(src[lane + 32 * k]) : 0.f;
     amax = fmaxf(amax, fabsf(x[k]));
   }
 #pragma unroll
@@ -534,8 +590,8 @@ __device__ __forceinline__ void append_rows(const Args& a, const Slot& s,
                                             int rank, const int* pages,
                                             const int8_t* fresh,
                                             const float* fresh_s) {
-  constexpr int P = (D > DV ? D : DV) / 8;   // pieces a row at most
-  const int kb = 2 * a.d, vb = 2 * a.dv;     // bytes of a k, v row
+  constexpr int P = (D > DV ? D : DV) / kEP;  // pieces a row at most
+  const int kb = kEB * a.d, vb = kEB * a.dv;  // bytes of a k, v row
   for (int idx = threadIdx.x; idx < s.nn * P; idx += kThreads) {
     const int m = idx / P, o = 16 * (idx % P);
     const int col = s.ap + m;
@@ -579,12 +635,13 @@ __device__ __forceinline__ void append_rows(const Args& a, const Slot& s,
 // memory, v rows from dv to DV, so the extra columns add nothing to S and
 // give O columns that are never written.
 template <int D, int DV, bool PAGED, bool QUANT>
-__global__ void __launch_bounds__(kThreads, DV > 128 ? 1 : 3)
+__global__ void __launch_bounds__(kThreads, min_blocks(DV))
 flash_decode_kernel(const Args a) {
   static_assert(D % 32 == 0 && D <= 256 && DV % 32 == 0 && DV <= 256,
                 "head dims must be 32*n <= 256");
   constexpr int NT = DV / 8;                    // O n-tiles
-  constexpr int KS = QUANT ? D / 32 : D / 16;   // S k-steps
+  constexpr int KS = QUANT ? D / 32 : D / (kEB == 4 ? 8 : 16);  // S k-steps
+  constexpr int kStages = stages_of(D, DV);
   extern __shared__ __align__(16) unsigned char smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
@@ -693,24 +750,26 @@ flash_decode_kernel(const Args a) {
       if (r0 == 0)
         append_rows<D, DV, PAGED, QUANT>(a, s, rank, pages, fresh, fresh_s);
     } else {
-      constexpr int kQIters = (kRowsPass * (D / 8) + kThreads - 1) / kThreads;
+      constexpr int kQP = D / kEP;   // 16-byte pieces of a q row
+      constexpr int kQIters = (kRowsPass * kQP + kThreads - 1) / kThreads;
       uint4 raw[kQIters];
 #pragma unroll
       for (int k = 0; k < kQIters; ++k) {
         const int idx = tid + k * kThreads;
-        const int i = idx / (D / 8), piece = idx % (D / 8);
+        const int i = idx / kQP, piece = idx % kQP;
         const int rr = r0 + i;
         raw[k] = make_uint4(0, 0, 0, 0);
-        if (first <= s_last && idx < kRowsPass * (D / 8) && i < rows_here &&
-            8 * piece < a.d) {
+        if (first <= s_last && idx < kRowsPass * kQP && i < rows_here &&
+            kEP * piece < a.d) {
           const size_t qrow = static_cast<size_t>(
               s.b * a.h + s.hk * a.group + rr % a.group) * a.n + rr / a.group;
-          const bf16* src = a.q + qrow * a.d + piece * 8;
+          const elem* src = a.q + qrow * a.d + piece * kEP;
           if (a.kw == 16) {
             raw[k] = *reinterpret_cast<const uint4*>(src);
-          } else {   // a width no multiple of 8: element by element
-            bf16* e = reinterpret_cast<bf16*>(&raw[k]);
-            for (int j = 0; j < 8 && 8 * piece + j < a.d; ++j) e[j] = src[j];
+          } else {   // a row no multiple of 16 bytes: element by element
+            elem* e = reinterpret_cast<elem*>(&raw[k]);
+            for (int j = 0; j < kEP && kEP * piece + j < a.d; ++j)
+              e[j] = src[j];
           }
         }
       }
@@ -719,14 +778,13 @@ flash_decode_kernel(const Args a) {
 #pragma unroll
       for (int k = 0; k < kQIters; ++k) {
         const int idx = tid + k * kThreads;
-        if (idx >= kRowsPass * (D / 8)) continue;
-        const int i = idx / (D / 8), piece = idx % (D / 8);
+        if (idx >= kRowsPass * kQP) continue;
+        const int i = idx / kQP, piece = idx % kQP;
         uint4 val;
-        const bf16* e = reinterpret_cast<const bf16*>(&raw[k]);
-        bf16* o = reinterpret_cast<bf16*>(&val);
+        const elem* e = reinterpret_cast<const elem*>(&raw[k]);
+        elem* o = reinterpret_cast<elem*>(&val);
 #pragma unroll
-        for (int j = 0; j < 8; ++j)
-          o[j] = __float2bfloat16(__bfloat162float(e[j]) * a.qscale);
+        for (int j = 0; j < kEP; ++j) o[j] = fold(e[j], a.qscale);
         *reinterpret_cast<uint4*>(smem + L.q + i * L.krow + piece * 16) = val;
       }
       __syncthreads();
@@ -820,14 +878,46 @@ flash_decode_kernel(const Args a) {
         for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
           for (int c = 0; c < 4; ++c) sc[nt][c] = 0.f;
+        if constexpr (kEB == 4) {
+          // float32: 3xTF32 products, q's and K's rows read K-major by
+          // 32-bit loads (L.krow / 4 floats a row).
+          const int kp = L.krow / 4;
+          const float* qs =
+              reinterpret_cast<const float*>(smem + L.q) + g * kp + t4;
+          const float* ks =
+              reinterpret_cast<const float*>(stage) + g * kp + t4;
+          // Pieces of 64 along d, each summed in fresh registers (the
+          // tensor core truncates each mma's sum: see csrc/flash_f32.cu)
+          // and added to S with a rounded add.
+          constexpr int kPiece = KS < 8 ? KS : 8;
+          for (int k0 = 0; k0 < KS; k0 += kPiece) {
+            float part[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+            const int k1 = k0 + kPiece < KS ? k0 + kPiece : KS;
+#pragma unroll 2
+            for (int kk = k0; kk < k1; ++kk) {
+              const FragA fa = frag_a(qs[8 * kk], qs[8 * kp + 8 * kk],
+                                      qs[8 * kk + 4],
+                                      qs[8 * kp + 8 * kk + 4]);
 #pragma unroll
-        for (int kk = 0; kk < KS; ++kk) {
-          uint32_t aq[4], bk[4];
-          ldsm_x4(aq, sq + kk * 32);
-          ldsm_x4(bk, sk + ((mi >> 1) * 8 + mr) * L.krow +
-                          (kk * 16 + (mi & 1) * 8) * 2);
-          mma_bf16(sc[0], aq, bk[0], bk[1]);
-          mma_bf16(sc[1], aq, bk[2], bk[3]);
+              for (int nt = 0; nt < 2; ++nt)
+                mma3(part[nt], fa, ks[8 * nt * kp + 8 * kk],
+                     ks[8 * nt * kp + 8 * kk + 4]);
+            }
+#pragma unroll
+            for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+              for (int c = 0; c < 4; ++c) sc[nt][c] += part[nt][c];
+          }
+        } else {
+#pragma unroll
+          for (int kk = 0; kk < KS; ++kk) {
+            uint32_t aq[4], bk[4];
+            ldsm_x4(aq, sq + kk * 32);
+            ldsm_x4(bk, sk + ((mi >> 1) * 8 + mr) * L.krow +
+                            (kk * 16 + (mi & 1) * 8) * 2);
+            mma_bf16(sc[0], aq, bk[0], bk[1]);
+            mma_bf16(sc[1], aq, bk[2], bk[3]);
+          }
         }
       }
 
@@ -870,10 +960,6 @@ flash_decode_kernel(const Args a) {
         l_part[hf] = l_part[hf] * corr[hf] +
                      (((p[0][2 * hf] + p[0][2 * hf + 1]) + p[1][2 * hf]) +
                       p[1][2 * hf + 1]);
-      const uint32_t pa[4] = {pack_bf16(p[0][0], p[0][1]),
-                              pack_bf16(p[0][2], p[0][3]),
-                              pack_bf16(p[1][0], p[1][1]),
-                              pack_bf16(p[1][2], p[1][3])};
 
       // O = O * corr + P V (V's 16 rows as the k-group, two n-tiles a
       // load).
@@ -881,13 +967,39 @@ flash_decode_kernel(const Args a) {
       for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
         for (int c = 0; c < 4; ++c) o[nt][c] *= corr[c >> 1];
+      if constexpr (kEB == 4) {
+        // float32: P from the S accumulators as 3xTF32 A fragments, each
+        // 8-column slice's reduction in the order 0, 2, 4, 6, 1, 3, 5, 7
+        // (A's k = t is column 2t, k = t + 4 column 2t + 1), V's rows 2t
+        // and 2t + 1 read to match (L.vrow / 4 floats a row).
+        // The step's products go to fresh registers, added to O with a
+        // rounded add (O's chain would drift otherwise).
+        const int vp = L.vrow / 4;
+        const float* vs =
+            reinterpret_cast<const float*>(stage + L.v) + 2 * t4 * vp + g;
+        const FragA fa0 = frag_a(p[0][0], p[0][2], p[0][1], p[0][3]);
+        const FragA fa1 = frag_a(p[1][0], p[1][2], p[1][1], p[1][3]);
 #pragma unroll
-      for (int dn = 0; dn < NT; dn += 2) {
-        uint32_t vb[4];
-        ldsm_x4_trans(vb, sv + ((mi & 1) * 8 + mr) * L.vrow +
-                              (dn + (mi >> 1)) * 16);
-        mma_bf16(o[dn], pa, vb[0], vb[1]);
-        mma_bf16(o[dn + 1], pa, vb[2], vb[3]);
+        for (int dn = 0; dn < NT; ++dn) {
+          float part[4] = {0.f, 0.f, 0.f, 0.f};
+          mma3(part, fa0, vs[8 * dn], vs[vp + 8 * dn]);
+          mma3(part, fa1, vs[8 * vp + 8 * dn], vs[9 * vp + 8 * dn]);
+#pragma unroll
+          for (int c = 0; c < 4; ++c) o[dn][c] += part[c];
+        }
+      } else {
+        const uint32_t pa[4] = {pack_bf16(p[0][0], p[0][1]),
+                                pack_bf16(p[0][2], p[0][3]),
+                                pack_bf16(p[1][0], p[1][1]),
+                                pack_bf16(p[1][2], p[1][3])};
+#pragma unroll
+        for (int dn = 0; dn < NT; dn += 2) {
+          uint32_t vb[4];
+          ldsm_x4_trans(vb, sv + ((mi & 1) * 8 + mr) * L.vrow +
+                                (dn + (mi >> 1)) * 16);
+          mma_bf16(o[dn], pa, vb[0], vb[1]);
+          mma_bf16(o[dn + 1], pa, vb[2], vb[3]);
+        }
       }
       __syncwarp();
       if (s_issue <= s_last) {
@@ -896,7 +1008,7 @@ flash_decode_kernel(const Args a) {
         s_issue = next_step(s_issue, C, a.spc);
       }
       cp_async_commit();
-      st ^= 1;
+      st = kStages == 1 ? 0 : st ^ 1;
     }
     cp_async_wait<0>();
     __syncwarp();
@@ -1056,8 +1168,8 @@ flash_decode_kernel(const Args a) {
         a.l_out[qrow] = w_l[rl];
       }
     } else {
-      a.out[qrow * a.dv + dd] =
-          __float2bfloat16(w_l[rl] == 0.f ? 0.f : acc / w_l[rl]);
+      store_elem(a.out + qrow * a.dv + dd,
+                 w_l[rl] == 0.f ? 0.f : acc / w_l[rl]);
     }
   }
 }
@@ -1168,11 +1280,11 @@ Args make_args(const void* q, const void* k_new, const void* v_new,
                int page_size, int window, int cluster, int chunk,
                float qscale) {
   Args a;
-  a.q = static_cast<const bf16*>(q);
-  a.k_new = static_cast<const bf16*>(k_new);
-  a.v_new = static_cast<const bf16*>(v_new);
-  a.cache_k = static_cast<bf16*>(cache_k);
-  a.cache_v = static_cast<bf16*>(cache_v);
+  a.q = static_cast<const elem*>(q);
+  a.k_new = static_cast<const elem*>(k_new);
+  a.v_new = static_cast<const elem*>(v_new);
+  a.cache_k = static_cast<elem*>(cache_k);
+  a.cache_v = static_cast<elem*>(cache_v);
   a.valid_to = static_cast<const int*>(valid_to);
   a.append_at = static_cast<const int*>(append_at);
   a.n_new = static_cast<const int*>(n_new);
@@ -1180,7 +1292,7 @@ Args make_args(const void* q, const void* k_new, const void* v_new,
   a.k_q = static_cast<int8_t*>(k_q);
   a.k_scale = static_cast<float*>(k_scale);
   a.alibi = static_cast<const float*>(alibi);
-  a.out = static_cast<bf16*>(out);
+  a.out = static_cast<elem*>(out);
   a.num = static_cast<float*>(num);
   a.m_out = static_cast<float*>(m);
   a.l_out = static_cast<float*>(l);
@@ -1194,8 +1306,8 @@ Args make_args(const void* q, const void* k_new, const void* v_new,
   a.cluster = cluster;
   a.d = d;
   a.dv = dv;
-  a.kw = copy_width(2 * d);
-  a.vw = copy_width(2 * dv);
+  a.kw = copy_width(kEB * d);
+  a.vw = copy_width(kEB * dv);
   a.k8w = copy_width(d);
   a.chunk = chunk;
   a.spc = (chunk + kStep - 1) / kStep;
@@ -1246,16 +1358,18 @@ extern "C" int flash_decode_smem(int rows, int n, int d, int dv, int quant,
                      page_entries(t_max, page_size, cluster)).bytes;
 }
 
-// The slab step (K5). Operands as `Args` above: q (batch, h, n, d);
-// k_new (batch, h_kv, n, d), v_new (batch, h_kv, n, dv); cache_k (batch,
-// h_kv, t_max, d), cache_v (batch, h_kv, t_max, dv), appended in place;
-// valid_to/append_at/n_new (batch,) int32; k_q / k_scale the int8 mirror,
-// null for bf16 scoring; alibi null or (h,) f32 slopes; out, or num/m/l
-// for the partial outputs. d, dv in 1..256. window <= 0: no window.
+// The slab step (K5; flash_decode_bf16, or flash_decode_f32 with float32
+// q, k_new, v_new, caches and output). Operands as `Args` above: q (batch,
+// h, n, d); k_new (batch, h_kv, n, d), v_new (batch, h_kv, n, dv); cache_k
+// (batch, h_kv, t_max, d), cache_v (batch, h_kv, t_max, dv), appended in
+// place; valid_to/append_at/n_new (batch,) int32; k_q / k_scale the int8
+// mirror, null for floating-point scoring; alibi null or (h,) f32 slopes;
+// out, or num/m/l for the partial outputs. d, dv in 1..256. window <= 0:
+// no window.
 // cluster: the blocks per (slot, kv head), a power of two up to 8. chunk:
 // the columns a cluster rank owns at a time (the K split; 0: kChunk).
 // Returns a cudaError_t code (0 = launched).
-extern "C" int flash_decode_bf16(
+extern "C" int DECODE_SYMBOL(flash_decode)(
     const void* q, const void* k_new, const void* v_new, void* cache_k,
     void* cache_v, const void* valid_to, const void* append_at,
     const void* n_new, void* k_q, void* k_scale, const void* alibi,
@@ -1274,7 +1388,7 @@ extern "C" int flash_decode_bf16(
 // (pages + 1, h_kv, page_size, dv) and the mirror pools, appended in place
 // through page_table (batch, pages_per_slot) int32 (-1 = unallocated); any
 // page_size >= 1, the split kChunk. Other arguments as above.
-extern "C" int flash_decode_paged_bf16(
+extern "C" int DECODE_SYMBOL(flash_decode_paged)(
     const void* q, const void* k_new, const void* v_new, void* k_pool,
     void* v_pool, const void* valid_to, const void* append_at,
     const void* n_new, const void* page_table, void* k_q, void* k_scale,

@@ -138,6 +138,7 @@
 #include <type_traits>
 
 #include "hopper.cuh"   // kB, kWarps, kThreads and the Hopper helpers
+#include "flash_ext.cuh" // MaskArgs, ExtArgs, drop_hash
 
 namespace {
 
@@ -149,64 +150,6 @@ constexpr int kRows = kWgs * kB;
 constexpr int kBlockThreads = kWgs * kThreads;
 constexpr float kNegBig = -0.7f * 3.4e38f;
 constexpr float kLn2 = 0.693147180559945309f;
-
-// A dense boolean mask: byte (b, h, row, col) at
-// ptr + (bh / inner) * so + (bh % inner) * si + row * sr + col.
-struct MaskArgs {
-  const unsigned char* ptr;
-  int inner;
-  long long so, si, sr;
-};
-
-__device__ __forceinline__ const unsigned char* mask_base(const MaskArgs& m,
-                                                          int bh) {
-  return m.ptr + (bh / m.inner) * m.so + (bh % m.inner) * m.si;
-}
-
-// An int32 vector per flat (batch, head) row: element i of row bh at
-// ptr + (bh / inner) * so + (bh % inner) * si + i (elements).
-struct VecArgs {
-  const int* ptr;
-  int inner;
-  long long so, si;
-};
-
-// The Ext instantiations' run-time arguments; a null pointer or a zero
-// window / dropout flag leaves that feature off.
-struct ExtArgs {
-  VecArgs segq, segk;          // segment ids of query rows / key columns
-  int window;                  // 0: none
-  int dropout;                 // 0: none
-  unsigned int drop_threshold; // keep when hash >= threshold
-  float drop_inv;              // 1 / (1 - rate)
-  unsigned int seed;
-  const signed char* q8;       // (batch_heads, tq, d) int8 (Quant)
-  const signed char* k8;       // (batch_heads / group, tk, d) int8
-  const float* sqf;            // (batch_heads, tq): q row scale*scale*log2e
-  const float* skr;            // (batch_heads / group, tk): raw k row scale
-  const float* alibi;          // (batch_heads,): slope * log2e; null: none
-  VecArgs posq, posk;          // global positions; posk.ptr null: none
-  VecArgs posq_mm, posk_mm;    // per 64-row tile: [min, max] of posq/posk
-};
-
-__device__ __forceinline__ const int* vec_row(const VecArgs& a, int bh) {
-  return a.ptr + (bh / a.inner) * a.so + (bh % a.inner) * a.si;
-}
-
-// The reference's _dropout_keep before the threshold: murmur3's fmix32 of
-// row*2654435761 ^ col*2246822519 ^ (seed + b*668265263), all mod 2^32;
-// `rh` is the row's term and `bs` the batch/seed term.
-__device__ __forceinline__ unsigned int drop_hash(unsigned int rh,
-                                                  unsigned int col,
-                                                  unsigned int bs) {
-  unsigned int x = rh ^ (col * 2246822519u) ^ bs;
-  x ^= x >> 16;
-  x *= 2246822507u;
-  x ^= x >> 13;
-  x *= 3266489909u;
-  x ^= x >> 16;
-  return x;
-}
 
 // cp.async of N (4, 8 or 16) bytes of which the first `n` are read and
 // the rest land as zeros.
@@ -657,7 +600,8 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
             const int cl = acc_col(i);
             const unsigned int col = static_cast<unsigned int>(
                 posk_row != nullptr ? sv[kB + cl] : kv_offset + k0 + cl);
-            pn = drop_hash(drop_rh[h], col, drop_bs) >= ext.drop_threshold
+            pn = drop_hash(drop_rh[h], col * 2246822519u, drop_bs) >=
+                         ext.drop_threshold
                      ? p * ext.drop_inv : 0.f;
           }
         }

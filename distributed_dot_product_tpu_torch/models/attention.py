@@ -601,9 +601,10 @@ def graphlint_entrypoints():
     backward) through every softmax_impl's comm pattern (all-gather,
     ring, ulysses all-to-all), and the sequence-sharded decode step
     (:func:`make_decode_step`) on the callable a serving loop holds.
-    The flash paths compute in bf16 (the kernels take bf16): the
-    reference's float32 entries keep float32 parameters, its ``_bf16``
-    twins bf16 parameters, and the ``_wq8`` twin int8 weights."""
+    The flash paths compute in bf16 here (the kernels' bf16
+    instantiations): the reference's float32 entries keep float32
+    parameters, its ``_bf16`` twins bf16 parameters, and the ``_wq8``
+    twin int8 weights."""
     import functools
 
     from distributed_dot_product_tpu_torch.analysis.registry import (

@@ -280,8 +280,8 @@ def _generate_programs(model, b, n, t_max):
 def graphlint_entrypoints():
     """Registration hook (``analysis/registry.py``): the LM head at bf16
     and the chunked token-mean loss (``nll_sum``), with float32 and with
-    bf16 parameters (the attention computes in bf16: the flash kernels
-    take bf16)."""
+    bf16 parameters (the attention computes in bf16, through the flash
+    kernels' bf16 instantiations)."""
     from functools import partial
 
     def _model(device, param_dtype):

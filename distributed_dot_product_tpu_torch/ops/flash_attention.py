@@ -84,9 +84,12 @@ reference. ``grad_dtype=torch.float32`` writes the gradients in float32
 
 On CUDA tensors each pass launches its hand-written kernel or raises
 (``csrc/flash_fwd.cu`` for K1 and K2, ``csrc/flash_bwd.cu`` for K3 and
-K4: bf16, any number of (batch, head) rows, any head dim ``d`` and value
-width ``d_v`` from 1 to 256); on CPU tensors each runs its plain PyTorch
-version. The kernels are instantiated on a grid of ``(d, d_v)`` pairs
+K4 on bf16 operands; ``csrc/flash_f32.cu`` for all four on float32
+operands, float32-accurate: 3xTF32 tensor-core products, never a cast to
+bf16; any number of (batch, head) rows, any head dim ``d`` and value
+width ``d_v`` from 1 to 256; float16 or operands of mixed dtypes raise
+``TypeError``); on CPU tensors each runs its plain PyTorch version. The
+kernels are instantiated on a grid of ``(d, d_v)`` pairs
 (:data:`_KERNEL_GRID`); an operand off the grid is zero-padded to the
 first pair that covers it — q and k (and the int8 operands) along ``d``,
 v and the output cotangent along ``d_v`` — and the result sliced back.
@@ -696,21 +699,44 @@ class _ExtArgs(ctypes.Structure):
 _TILE = 64
 
 
+# The operand dtypes the CUDA kernels take, each with its own kernels:
+# bf16 (csrc/flash_fwd.cu, csrc/flash_bwd.cu) and float32, float32-accurate
+# (csrc/flash_f32.cu).
+_KERNEL_DTYPES = (torch.bfloat16, torch.float32)
+
+
 def _check_kernel_operands(named):
-    """Raise on what the CUDA kernels do not take: bf16 rows on one
-    device, of any width from 1 to :data:`_MAX_HEAD_DIM` (q and k share
-    the head dim ``d``; v and the cotangent the value width ``d_v``)."""
-    dev = named[0][1].device
+    """Raise on what the CUDA kernels do not take: bf16 or float32 rows,
+    all of one dtype, on one device, of any width from 1 to
+    :data:`_MAX_HEAD_DIM` (q and k share the head dim ``d``; v and the
+    cotangent the value width ``d_v``). Returns True for float32."""
+    dev, dtype = named[0][1].device, named[0][1].dtype
     for name, t in named:
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f'the CUDA flash kernels take bf16; {name} is '
-                            f'{t.dtype}')
+        if t.dtype not in _KERNEL_DTYPES or t.dtype != dtype:
+            raise TypeError(
+                f'the CUDA flash kernels take bf16 or float32 operands, all '
+                f'of one dtype; {name} is {t.dtype}, '
+                f'{named[0][0]} {dtype}')
         if t.device != dev:
             raise ValueError(f'{name} is on {t.device}, not {dev}')
         if not 1 <= t.shape[-1] <= _MAX_HEAD_DIM:
             raise NotImplementedError(
                 f'the CUDA flash kernels take head dims and value widths '
                 f'up to {_MAX_HEAD_DIM}; {name} is {tuple(t.shape)}')
+    return dtype == torch.float32
+
+
+def _library(kind, f32, ext):
+    """``(library, symbol)`` of a kernel ``kind`` ('fwd', 'dq' or 'dkv'):
+    the float32 or the bf16 kernels, their base or Ext instantiations."""
+    if f32:
+        lib = 'flash_f32' if ext is None else f'flash_f32_{kind}_ext'
+    elif kind == 'fwd':
+        lib = 'flash_fwd' if ext is None else 'flash_fwd_ext'
+    else:
+        lib = 'flash_bwd' if ext is None else f'flash_bwd_{kind}_ext'
+    symbol = 'flash_fwd' if kind == 'fwd' else f'flash_bwd_{kind}'
+    return lib, f'{symbol}_{"f32" if f32 else "bf16"}'
 
 
 def _grid_dims(d, dv):
@@ -873,7 +899,7 @@ def _launch(q, k, v, mask, causal, causal_offset, kv_offset, scale,
     ``out``, or ``(out, lse)`` with ``save_lse``. ``quant``: int8
     scoring's :func:`quant_operands` (made here when None). Operands off
     the kernel grid are zero-padded and the output sliced back."""
-    _check_kernel_operands((('q', q), ('k', k), ('v', v)))
+    f32 = _check_kernel_operands((('q', q), ('k', k), ('v', v)))
     group = _kv_group(q, k)
     dv = v.shape[-1]
     d_pad = _grid_dims(q.shape[-1], dv)
@@ -890,8 +916,7 @@ def _launch(q, k, v, mask, causal, causal_offset, kv_offset, scale,
         mvec = mvec.float().expand(q.shape[:-1]).contiguous()
     m, margs = _mask_operand(mask, q, tk)
     alive, ext = _ext_operand(feat, q, k, scale, quant)
-    fn = _cfn('flash_fwd' if ext is None else 'flash_fwd_ext',
-              'flash_fwd_bf16',
+    fn = _cfn(*_library('fwd', f32, ext),
               [_VP] * 6 + _MASK_ARGTYPES + [_I] * 9 + [_F, _VP, _VP])
     with torch.cuda.device(q.device):
         err = fn(*_ptrs(q, k, v, out), None if lse is None else lse.data_ptr(),
@@ -902,7 +927,7 @@ def _launch(q, k, v, mask, causal, causal_offset, kv_offset, scale,
     del alive
     _raise_on(err, 'flash_fwd' if mvec is None else 'flash_fwd bounded')
     _count(flash_attention if mvec is None else flash_attention_bounded,
-           feat)
+           feat, f32)
     out = _sliced(out, dv)
     return out if lse is None else (out, lse)
 
@@ -936,10 +961,11 @@ def _attn_work(q, k, mask, causal, co, ko, window, **extra):
                 mask_bytes=0 if mask is None else mask.numel(), **extra)
 
 
-def _count(fn, feat):
-    """One launch of ``fn``'s kernel, and of its ALiBi / positions
-    variant when the launch carries them."""
+def _count(fn, feat, f32):
+    """One launch of ``fn``'s kernels, and of its float32 kernel, ALiBi or
+    positions variant when the launch is one."""
     fn.launches += 1
+    fn.f32_launches += f32
     fn.alibi_launches += feat.alibi is not None
     fn.positions_launches += feat.pos is not None
 
@@ -1042,8 +1068,8 @@ def _launch_dq(q2, k, v, g, lse2, delta, mask, causal, causal_offset,
     a call) where it takes k otherwise: the operand of dq. Operands off the
     kernel grid are zero-padded (q2, k along d; v, g along d_v) and dq
     sliced back."""
-    _check_kernel_operands((('q', q2), ('k', k), ('v', v), ('g', g)))
-    out_f32 = _check_grad_dtype(grad_dtype, q2)
+    f32 = _check_kernel_operands((('q', q2), ('k', k), ('v', v), ('g', g)))
+    out_f32 = _check_grad_dtype(grad_dtype, q2) or f32
     group = _kv_group(q2, k)
     d = q2.shape[-1]
     d_pad = _grid_dims(d, v.shape[-1])
@@ -1059,8 +1085,7 @@ def _launch_dq(q2, k, v, g, lse2, delta, mask, causal, causal_offset,
     alive, ext = _ext_operand(feat, q2, k, scale, quant)
     k_op = (dequantize_rows(quant[2], quant[3], v.dtype).contiguous()
             if feat.quant else k)
-    fn = _cfn('flash_bwd' if ext is None else 'flash_bwd_dq_ext',
-              'flash_bwd_dq_bf16',
+    fn = _cfn(*_library('dq', f32, ext),
               [_VP] * 7 + _MASK_ARGTYPES + [_I] * 9 + [_F, _I, _VP, _VP])
     with torch.cuda.device(q2.device):
         err = fn(*_ptrs(q2, k_op, v, g, lse2, delta, dq), *margs, nb, group,
@@ -1069,7 +1094,7 @@ def _launch_dq(q2, k, v, g, lse2, delta, mask, causal, causal_offset,
                  torch.cuda.current_stream().cuda_stream)
     del alive
     _raise_on(err, 'flash_bwd_dq')
-    _count(flash_attention_dq, feat)
+    _count(flash_attention_dq, feat, f32)
     return _sliced(dq, d)
 
 
@@ -1108,8 +1133,8 @@ def _launch_dkv(q2, k, v, g, lse2, delta, mask, causal, causal_offset,
     dequantized q (:func:`dequantize_rows`, made here once a call) where
     it takes the folded q2 otherwise: the operand of dk. Operands off the
     kernel grid are zero-padded and dk, dv sliced back."""
-    _check_kernel_operands((('q', q2), ('k', k), ('v', v), ('g', g)))
-    out_f32 = _check_grad_dtype(grad_dtype, k)
+    f32 = _check_kernel_operands((('q', q2), ('k', k), ('v', v), ('g', g)))
+    out_f32 = _check_grad_dtype(grad_dtype, k) or f32
     group = _kv_group(q2, k)
     d, dv_width = q2.shape[-1], v.shape[-1]
     d_pad = _grid_dims(d, dv_width)
@@ -1126,8 +1151,7 @@ def _launch_dkv(q2, k, v, g, lse2, delta, mask, causal, causal_offset,
     alive, ext = _ext_operand(feat, q2, k, scale, quant)
     q_op = (dequantize_rows(quant[0], quant[1], v.dtype).contiguous()
             if feat.quant else q2)
-    fn = _cfn('flash_bwd' if ext is None else 'flash_bwd_dkv_ext',
-              'flash_bwd_dkv_bf16',
+    fn = _cfn(*_library('dkv', f32, ext),
               [_VP] * 8 + _MASK_ARGTYPES + [_I] * 9 + [_F, _I, _VP, _VP])
     with torch.cuda.device(q2.device):
         err = fn(*_ptrs(q_op, k, v, g, lse2, delta, dk, dv), *margs, nb,
@@ -1136,7 +1160,7 @@ def _launch_dkv(q2, k, v, g, lse2, delta, mask, causal, causal_offset,
                  torch.cuda.current_stream().cuda_stream)
     del alive
     _raise_on(err, 'flash_bwd_dkv')
-    _count(flash_attention_dkv, feat)
+    _count(flash_attention_dkv, feat, f32)
     return _sliced(dk, d), _sliced(dv, dv_width)
 
 
@@ -1258,11 +1282,13 @@ def flash_attention(q, k, v, mask=None, *, causal=False, causal_offset=0,
 
 
 # Launches of each CUDA kernel (counted where it is launched, nowhere
-# else): K1 forward, K2 bounded forward, K3 dq, K4 dk/dv; and among them
-# the launches with ALiBi and with explicit positions.
+# else): K1 forward, K2 bounded forward, K3 dq, K4 dk/dv, bf16 and float32;
+# and among them the float32 kernel's, and the launches with ALiBi and with
+# explicit positions.
 for _fn in (flash_attention, flash_attention_bounded, flash_attention_dq,
             flash_attention_dkv):
     _fn.launches = _fn.alibi_launches = _fn.positions_launches = 0
+    _fn.f32_launches = 0
 del _fn
 
 

@@ -76,10 +76,13 @@ kernel initialises its running max).
 
 On CUDA tensors it launches ``csrc/flash_decode.cu`` (one kernel a
 call: split-K flash-decoding across a thread-block cluster per slot and
-kv head, merged in the same launch; bf16, any head dim ``d`` and value
-width ``d_v`` from 1 to 256, read and appended in place at their true
-widths; paged, any page size) or raises; on CPU tensors it runs
-:func:`flash_decode_plain`.
+kv head, merged in the same launch; bf16, or float32 through the same
+source built as a library of its own (``-DDECODE_F32``: 3xTF32
+products, float32-accurate, never a cast to bf16) — q, the new rows and
+the caches all of one of the two dtypes, else ``TypeError``; any head
+dim ``d`` and value width ``d_v`` from 1 to 256, read and appended in
+place at their true widths; paged, any page size) or raises; on CPU
+tensors it runs :func:`flash_decode_plain`.
 """
 
 import ctypes
@@ -330,21 +333,24 @@ def flash_decode_plain(q, k_new, v_new, cache_k, cache_v, valid_to,
     return res, cache_k, cache_v
 
 
-def _kernel_lib():
-    lib = _build.load('flash_decode')
-    if lib.flash_decode_bf16.argtypes is None:
+def _kernel_lib(f32):
+    """``(library, slab step, paged step)``: the float32 kernels'
+    (``flash_decode_f32``) or the bf16 ones'."""
+    lib = _build.load('flash_decode_f32' if f32 else 'flash_decode')
+    suffix = 'f32' if f32 else 'bf16'
+    slab = getattr(lib, f'flash_decode_{suffix}')
+    paged = getattr(lib, f'flash_decode_paged_{suffix}')
+    if slab.argtypes is None:
         vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.flash_decode_bf16.argtypes = (
-            [vp] * 15 + [i] * 10 + [ctypes.c_float, vp])
-        lib.flash_decode_paged_bf16.argtypes = (
-            [vp] * 16 + [i] * 10 + [ctypes.c_float, vp])
-        for fn in (lib.flash_decode_bf16, lib.flash_decode_paged_bf16):
+        slab.argtypes = [vp] * 15 + [i] * 10 + [ctypes.c_float, vp]
+        paged.argtypes = [vp] * 16 + [i] * 10 + [ctypes.c_float, vp]
+        for fn in (slab, paged):
             fn.restype = ctypes.c_int
         lib.flash_decode_chunk.argtypes = []
         lib.flash_decode_chunk.restype = ctypes.c_int
         lib.flash_decode_smem.argtypes = [i] * 8
         lib.flash_decode_smem.restype = ctypes.c_int
-    return lib
+    return lib, slab, paged
 
 
 def _launch_geometry(batch, h_kv, t_max, sm_count):
@@ -395,9 +401,12 @@ def _launch(q, k_new, v_new, cache_k, cache_v, valid_to, append_at, n_new,
     dev = cache_k.device
     for name, t in (('q', q), ('k_new', k_new), ('v_new', v_new),
                     ('cache_k', cache_k), ('cache_v', cache_v)):
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f'the CUDA decode kernel takes bf16; {name} is '
-                            f'{t.dtype}')
+        if t.dtype not in (torch.bfloat16, torch.float32) \
+                or t.dtype != cache_k.dtype:
+            raise TypeError(
+                f'the CUDA decode kernel takes bf16 or float32 operands, all '
+                f'of one dtype; {name} is {t.dtype}, cache_k '
+                f'{cache_k.dtype}')
         if t.device != dev:
             raise ValueError(f'{name} is on {t.device}, the cache on {dev}')
     if not (1 <= d <= _MAX_HEAD_DIM and 1 <= dv <= _MAX_HEAD_DIM):
@@ -411,7 +420,8 @@ def _launch(q, k_new, v_new, cache_k, cache_v, valid_to, append_at, n_new,
     q, k_new, v_new = q.contiguous(), k_new.contiguous(), v_new.contiguous()
     vt = _slot_vector(valid_to, b, dev)
     ap = _slot_vector(append_at, b, dev)
-    lib = _kernel_lib()
+    f32 = cache_k.dtype == torch.float32
+    lib, slab_fn, paged_fn = _kernel_lib(f32)
     chunk = lib.flash_decode_chunk()
     if chunk != _SPLIT:
         raise RuntimeError(f'csrc/flash_decode.cu splits at {chunk} '
@@ -488,19 +498,18 @@ def _launch(q, k_new, v_new, cache_k, cache_v, valid_to, append_at, n_new,
     win = 0 if window is None else window
     with torch.cuda.device(dev):
         if page_table is None:
-            err = lib.flash_decode_bf16(*ptrs, *rest, b, h, h_kv, n, t_max,
-                                        d, dv, win, cluster, split,
-                                        scale * _LOG2E, stream)
+            err = slab_fn(*ptrs, *rest, b, h, h_kv, n, t_max, d, dv, win,
+                          cluster, split, scale * _LOG2E, stream)
         else:
-            err = lib.flash_decode_paged_bf16(
-                *ptrs, page_table.data_ptr(), *rest, b, h, h_kv, n,
-                page_table.shape[1], ps, d, dv, win, cluster,
-                scale * _LOG2E, stream)
+            err = paged_fn(*ptrs, page_table.data_ptr(), *rest, b, h, h_kv,
+                           n, page_table.shape[1], ps, d, dv, win, cluster,
+                           scale * _LOG2E, stream)
     if err:
         raise RuntimeError(f'flash_decode kernel launch failed: CUDA error '
                            f'{err}')
     counter = flash_decode if page_table is None else flash_decode_paged
     counter.launches += 1
+    counter.f32_launches += f32
     counter.verify_launches += n > 1
     counter.int8_launches += mirror is not None
     counter.alibi_launches += alibi is not None
@@ -629,8 +638,9 @@ def flash_decode_paged(q, k_new, v_new, k_pool, v_pool, valid_to, append_at,
 
 # Launches of the CUDA kernel pairs, slab (K5) and paged (K5p), each
 # counted where it is launched and nowhere else: all of them, and among
-# them the verify-k (n > 1), the int8-mirror and the ALiBi launches.
+# them the float32 kernel's, the verify-k (n > 1), the int8-mirror and the
+# ALiBi launches.
 for _fn in (flash_decode, flash_decode_paged):
     _fn.launches = _fn.verify_launches = _fn.int8_launches = 0
-    _fn.alibi_launches = 0
+    _fn.alibi_launches = _fn.f32_launches = 0
 del _fn

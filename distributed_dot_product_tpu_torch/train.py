@@ -245,7 +245,8 @@ def graphlint_entrypoints():
             SEQ_AXIS, get_world_size,
         )
         mesh = seq_mesh(2 if get_world_size() >= 2 else None)
-        # bf16 compute (the flash kernels take bf16), float32 parameters.
+        # bf16 compute (the flash kernels' bf16 instantiations), float32
+        # parameters.
         model = TransformerLM(vocab_size=32, dim=2 * HEAD_DIM, num_heads=2,
                               n_layers=1, dtype=torch.bfloat16, device=device,
                               generator=torch.Generator().manual_seed(0))

@@ -83,7 +83,8 @@ def make_copy_batch(seed, batch, t, vocab, seg_len, device):
 
 def build_model(args, device):
     """The LM; it computes in bf16 with ``--bf16`` and always on the card
-    (the flash kernels take bf16), its parameters float32."""
+    (ROADMAP §1 item 9: the reference computes in float32 unless
+    ``--bf16``), its parameters float32."""
     bf16 = args.bf16 or torch.device(device).type == 'cuda'
     return TransformerLM(
         vocab_size=args.vocab, dim=args.dim, num_heads=args.heads,

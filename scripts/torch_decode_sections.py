@@ -209,7 +209,7 @@ def main():
         floors['k5_greedy_nothing_attended_ms'] = cs.time_ms(
             torch, lambda: fd.flash_decode(q, kn, vn, ck, cv, none, none,
                                            scale=scale), flush)
-        lib = fd._kernel_lib()
+        lib = fd._kernel_lib(False)[0]
         lib.flash_decode_max_clusters.argtypes = [ctypes.c_int] * 7
         lib.flash_decode_max_clusters.restype = ctypes.c_int
         geometry = fd._launch_geometry

@@ -48,7 +48,11 @@ resumed run starting one step past its checkpoint, and the entrypoint
 registry dropping its last layer's hook. Three sit in the benchmark CLI
 twin (``benchmark_cli`` must catch them): the nt row without the
 reference's ``perf_model``, paged ``decode-serve`` routed to the plain
-step (no K5p launched), and the matmul timings not fenced on the card. A
+step (no K5p launched), and the matmul timings not fenced on the card.
+Three sit in the float32 kernels (``float32_path`` must catch them): the
+3xTF32 product cut to one TF32 product (what a kernel that is only
+TF32-accurate computes), K1–K4's P.V reading P in another reduction
+order than V's rows, and K5's second slice of V rows swapped. A
 source with a ``/`` is a path in the package, one starting ``./`` a path
 from the repository root; a bare name is in ``csrc/``. Kernel libraries
 already built under ``build/kernels`` from unchanged sources are
@@ -327,11 +331,31 @@ FAULTS = {
         '    tracing.hard_sync = lambda out=None: None\n'
         '    if not args.skip_local:\n',
         ('benchmark_cli',)),
+    # The float32 kernels' products at TF32 accuracy: the small parts'
+    # two products dropped, big.big alone.
+    'f32_single_tf32_product': (
+        'tf32x3.cuh',
+        '  mma_tf32(d, a.small, bb0, bb1);\n  mma_tf32(d, a.big, bs0, bs1);\n',
+        '', ('float32_path',)),
+    # K1-K4's P fragments taken in the accumulator's order (columns 2t,
+    # 2t + 1 as k = t, t + 1) against V's rows read as 2t, 2t + 1.
+    'f32_pv_reduction_order': (
+        'flash_f32.cu',
+        '    const FragA fa = frag_a(p[4 * ks], p[4 * ks + 2], p[4 * ks + 1],\n',
+        '    const FragA fa = frag_a(p[4 * ks], p[4 * ks + 1], p[4 * ks + 2],\n',
+        ('float32_path',)),
+    # K5's float32 P.V: the second slice's two V rows swapped.
+    'k5_f32_v_rows_swapped': (
+        'flash_decode.cu',
+        '          mma3(part, fa1, vs[8 * vp + 8 * dn], vs[9 * vp + 8 * dn]);\n',
+        '          mma3(part, fa1, vs[9 * vp + 8 * dn], vs[8 * vp + 8 * dn]);\n',
+        ('float32_path',)),
 }
 
 # Phases a fault names that run alone (the source's PHASES otherwise).
 SOLO = ('flash_masks', 'kv_sharded_serve', 'wq8_serve', 'load_serve',
-        'router_serve', 'chaos_serve', 'analysis_examples', 'benchmark_cli')
+        'router_serve', 'chaos_serve', 'analysis_examples', 'benchmark_cli',
+        'float32_path')
 
 # Beside the package, what analysis_examples and benchmark_cli run: the
 # harness twins, the smoke scripts, and the files they read.
@@ -442,6 +466,16 @@ def readings(stdout):
                 k: row[k] for k in ('launches', 'totals', 'entries',
                                     'resumed_vs_whole', 'bound_ms',
                                     'dist_ms', 'local_ms') if k in row}
+        elif row.get('phase') == 'float32_path' and 'bwd' in row:
+            cases[f"float32_path/{row['case']}"] = {
+                'k1_row_rel': row['k1']['max_row_rel_err'],
+                'lse': row['k1']['lse_max_abs_err'],
+                'bwd_held': row['bwd']['held']}
+        elif row.get('phase') == 'float32_path' and \
+                str(row.get('case')).startswith('decode_'):
+            cases[f"float32_path/{row['case']}"] = {
+                k: v['max_row_rel_err'] for k, v in row.items()
+                if isinstance(v, dict) and 'max_row_rel_err' in v}
         elif row.get('phase') == 'kv_sharded_serve' and \
                 row.get('case') == 'step_check':
             cases['kv_sharded_serve/step_check'] = {

@@ -185,6 +185,19 @@ def test_twin_row_has_the_reference_rows_keys(case, reference_rows,
     assert set(ref) <= set(twin), sorted(set(ref) - set(twin))
     assert twin['platform'] == 'cpu' and twin['device_kind'] == 'cpu'
     assert set(twin['kernel_launches']) == set(torch_benchmark.KERNELS)
+    assert set(twin['kernel_launches_f32']) == set(torch_benchmark.KERNELS)
+
+
+@pytest.mark.parametrize('device', ['cuda', 'cpu'])
+def test_dtypes_follow_the_reference_cli_on_every_device(device):
+    """``--dtype f32`` computes in float32 on the card as on the CPU (the
+    kernels take float32), ``bf16`` in bf16, and the serving engines run
+    float32, the reference ``KernelEngine``'s default (a device object
+    needs no card)."""
+    dev = torch.device(device)
+    assert torch_benchmark._compute_dtype('f32', dev) == torch.float32
+    assert torch_benchmark._compute_dtype('bf16', dev) == torch.bfloat16
+    assert torch_benchmark._engine_dtype(dev) == torch.float32
 
 
 @pytest.mark.parametrize('case', sorted(CASES))

@@ -36,11 +36,12 @@ What differs from the reference, and why:
   (``torch.cuda.memory_allocated`` / ``max_memory_allocated``: the
   arguments, the output, the temporaries above both). The memory
   analysis is None on the CPU, which has no such counters.
-- The flash kernels (K1–K5p) take bf16 operands. ``--dtype f32`` keeps
-  float32 parameters and runs a path that reaches one in bf16 on the
-  card (the reference's default-precision float32 matmul also multiplies
-  in bf16 on a TPU); the rows record it as ``compute_dtype``. The serving
-  engines run bf16 on the card and float32 on the CPU (``engine_dtype``).
+- ``--dtype f32`` computes in float32 on the card as on the CPU: the
+  flash kernels (K1–K5p) take float32 operands through their
+  float32-accurate kernels, as they take bf16 through their bf16 ones;
+  the rows record it as ``compute_dtype``. The serving engines run
+  float32, the reference ``KernelEngine``'s default, whatever ``--dtype``
+  says, as the reference's do (``engine_dtype``).
 - ``--decode-impl auto`` resolves to ``kernel`` on the card and to the
   plain path on the CPU; the rows keep the reference's strings,
   ``kernel`` / ``xla`` (``xla`` names the plain path).
@@ -51,7 +52,7 @@ What differs from the reference, and why:
   ``flash_attention_bounded``, K3 ``flash_attention_dq``, K4
   ``flash_attention_dkv``, K5 ``flash_decode``, K5p
   ``flash_decode_paged``; all 0 on the CPU, where the plain versions
-  run).
+  run), and ``kernel_launches_f32``: those of them on float32 operands.
 
 Imports ``torch`` and the port, never ``jax``.
 """
@@ -386,12 +387,10 @@ def _device_kind(dev):
     return torch.cuda.get_device_name(dev) if dev.type == 'cuda' else 'cpu'
 
 
-def _compute_dtype(dtype, dev, kernel_path):
-    """bf16 for ``--dtype bf16``, and on the card for a path that reaches
-    a flash kernel (they take bf16 operands); float32 otherwise."""
-    if dtype == 'bf16' or (kernel_path and dev.type == 'cuda'):
-        return torch.bfloat16
-    return torch.float32
+def _compute_dtype(dtype, dev):
+    """``--dtype``: bf16 or float32, the same on the card (``dev``) as on
+    the CPU — the flash kernels take both."""
+    return torch.bfloat16 if dtype == 'bf16' else torch.float32
 
 
 def _dtype_name(dtype):
@@ -399,9 +398,9 @@ def _dtype_name(dtype):
 
 
 def _engine_dtype(dev):
-    """The serving engines' dtype: bf16 on the card (the decode kernels'
-    type), float32 on the CPU (the reference engine's)."""
-    return torch.bfloat16 if dev.type == 'cuda' else torch.float32
+    """The serving engines' dtype: float32, the reference
+    ``KernelEngine``'s default, on the card (``dev``) as on the CPU."""
+    return torch.float32
 
 
 def _decode_impl(args, dev):
@@ -425,11 +424,11 @@ def _counters():
 
 def _zero_launches():
     for fn in _counters().values():
-        fn.launches = 0
+        fn.launches = fn.f32_launches = 0
 
 
-def _launches():
-    return {name: fn.launches for name, fn in _counters().items()}
+def _launches(attr='launches'):
+    return {name: getattr(fn, attr) for name, fn in _counters().items()}
 
 
 def _generator(dev, seed):
@@ -557,7 +556,7 @@ def run_attn(args):
     t = args.seq_len or FULL_T // args.scale
     t -= t % world
     h, d = args.heads, args.head_dim
-    dtype = _compute_dtype(args.dtype, dev, args.attn_impl != 'full')
+    dtype = _compute_dtype(args.dtype, dev)
     flops = 4.0 * h * t * t * d
 
     if args.attn_impl == 'full':
@@ -675,7 +674,7 @@ def measure_train_step(*, seq_len, attn_impl='flash', dtype='bf16',
     mesh = seq_mesh(devices)
     world = mesh.seq_size
     t = seq_len - seq_len % world
-    cdt = _compute_dtype(dtype, dev, attn_impl != 'full')
+    cdt = _compute_dtype(dtype, dev)
 
     model = DistributedDotProductAttn(
         key_dim=DIM, num_heads=heads, num_kv_heads=kv_heads, offset=offset,
@@ -752,7 +751,7 @@ def measure_lm_step(*, seq_len, n_layers=8, vocab=32768, dtype='bf16',
     mesh = seq_mesh(devices)
     world = mesh.seq_size
     t = seq_len - seq_len % world
-    cdt = _compute_dtype(dtype, dev, attn_impl != 'full')
+    cdt = _compute_dtype(dtype, dev)
 
     model = TransformerLM(
         vocab_size=vocab, dim=DIM, num_heads=heads, n_layers=n_layers,
@@ -877,6 +876,7 @@ def _append_record(path, record):
     With several ranks every rank aggregates (a collective) and rank 0
     alone writes. Each row also carries the run's kernel launches."""
     record['kernel_launches'] = _launches()
+    record['kernel_launches_f32'] = _launches('f32_launches')
     record = _multihost_aggregate(record)
     if comm.get_rank() != 0:
         return record
@@ -920,8 +920,8 @@ def run_decode(args):
     t_max = args.seq_len or 16384
     h, d = args.heads, args.head_dim
     h_kv = args.kv_heads or h
-    # The TTFT prefill runs K1 whatever the decode path: bf16 on the card.
-    dtype = _compute_dtype(args.dtype, dev, True)
+    # The TTFT prefill runs K1 whatever the decode path.
+    dtype = _compute_dtype(args.dtype, dev)
     impl = _decode_impl(args, dev)
     # qk_quant='int8': the cache carries an append-time int8 K mirror that
     # the decode step streams instead of the K cache.
