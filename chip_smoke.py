@@ -131,13 +131,17 @@ Phases, one JSON line each (some several):
    first-step logits against the plain decode path's; launches of each;
 13c. float32_path (run before kernel_coverage): float32 operands, the
    JAX package's default dtype, on the float32 kernels (csrc/flash_f32.cu's
-   K1-K4; csrc/flash_decode.cu built with -DDECODE_F32 for K5/K5p), torch's
+   K1/K2, csrc/flash_bwd_f32.cu's K3/K4; csrc/flash_decode.cu built with
+   -DDECODE_F32 for K5/K5p), torch's
    TF32 switches printed and left at their defaults, nothing passing
    dtype=torch.bfloat16: every float32 kernel against its plain float32
    version on operands drawn as float32 (B 2, 8:2 heads, T 200; every
    grid pair and 80/80, 24/12, 160/160; causal with 70 rows without a key,
    a dense mask, segments with a window of 64 and dropout 0.1, ALiBi over
-   shuffled positions with a window, int8 scoring; K5/K5p at t_max 4096,
+   shuffled positions with a window, int8 scoring; 96/96 also on GQA 4:1 at
+   T 1000 and 900, causal and Ext; K3/K4's shared memory, threads, blocks
+   and computing warps an SM (at least 8 at 96/96) and ptxas registers
+   and spills; K5/K5p at t_max 4096,
    96/96, 256/256, 24/12, one row and verify k = 5, block_k 128 and 512,
    pages 16 and 48, the partials, a window, ALiBi and the int8 mirror):
    out, dv, decode out within 1e-4 on the row statistic, lse within 1e-5,
@@ -9248,7 +9252,8 @@ def phase_kernel_coverage(torch, ddp, flush):
                 'engine_page_48': engine_launches}}
 
 
-# float32_path: the float32 kernels (K1-K4 in csrc/flash_f32.cu, K5/K5p in
+# float32_path: the float32 kernels (K1/K2 in csrc/flash_f32.cu, K3/K4 in
+# csrc/flash_bwd_f32.cu, K5/K5p in
 # csrc/flash_decode.cu's -DDECODE_F32 library) and the slice's entry points
 # at the JAX package's default dtype. Every operand below is float32 drawn
 # as float32 (bf16-representable values would let a kernel that drops to
@@ -9257,6 +9262,10 @@ def phase_kernel_coverage(torch, ddp, flush):
 F32_DIMS = ((32, 32), (64, 64), (96, 96), (128, 128), (192, 128),
             (256, 256), (80, 80), (24, 12), (160, 160))
 F32_SHAPE = (2, 8, 2, 200, 200)
+# K3 and K4 run 128 rows a block at (96, 96), a consumer warpgroup each
+# 64: GQA 4:1 at T 1000 (the last block's second warpgroup holds 40 rows)
+# and 900 (it holds none), causal and with the Ext features.
+F32_RAGGED = (('causal', (1, 8, 2, 1000, 1000)), ('ext', (1, 8, 2, 900, 900)))
 F32_DECODE_DIMS = ((96, 96), (256, 256), (24, 12))
 F32_PAGES = (16, 48)
 F32_BLOCK_K = (128, 512)
@@ -9411,15 +9420,15 @@ def cond_err(torch, got, want, terms):
     return (diff / torch.where(mag > 0, mag, 1.0)).max().item()
 
 
-def _f32_fwd_bwd(torch, fa, gen, d, dv, case):
+def _f32_fwd_bwd(torch, fa, gen, d, dv, case, shape=F32_SHAPE):
     """K1 (with lse), K2 (where the case allows the bounded kernel) and
-    K3/K4 on float32 operands at widths ``(d, dv)`` against their plain
-    float32 versions: the row statistic within TOL_F32_ROW, lse within
-    TOL_F32_LSE, rows with no key exactly 0 (K1's lse ln2*NEG_BIG), a
-    second launch bit for bit the first, every launch a float32 kernel's.
-    ``(row, failures)``."""
+    K3/K4 on float32 operands at widths ``(d, dv)`` and ``shape`` (B, Hq,
+    Hkv, Tq, Tk) against their plain float32 versions: the row statistic
+    within TOL_F32_ROW, lse within TOL_F32_LSE, rows with no key exactly 0
+    (K1's lse ln2*NEG_BIG), a second launch bit for bit the first, every
+    launch a float32 kernel's. ``(row, failures)``."""
     dev = torch.device('cuda')
-    b, hq, hkv, tq, tk = F32_SHAPE
+    b, hq, hkv, tq, tk = shape
     q = f32n(torch, (b, hq, tq, d), gen, dev)
     k = f32n(torch, (b, hkv, tk, d), gen, dev)
     v = f32n(torch, (b, hkv, tk, dv), gen, dev)
@@ -9428,7 +9437,8 @@ def _f32_fwd_bwd(torch, fa, gen, d, dv, case):
     scale = 1.0 / math.sqrt(d)
     kw = dict(scale=scale, **feat)
     neg = fa._LN2 * fa._NEG_BIG
-    tag = f'{case}_d{d}_dv{dv}'
+    tag = f'{case}_d{d}_dv{dv}' + ('' if shape == F32_SHAPE else
+                                   f'_gqa{hq // hkv}_t{tq}')
     row, fails = {'phase': 'float32_path', 'case': tag, 'd': d, 'd_v': dv,
                   'q': list(q.shape), 'kv': list(k.shape),
                   'features': sorted(feat)}, []
@@ -9702,22 +9712,24 @@ def _f32_kernels(torch, ddp, gen):
     fd = importlib.import_module(
         'distributed_dot_product_tpu_torch.ops.flash_decode')
     fails, worst = [], {}
-    for d, dv in F32_DIMS:
-        for case in ('causal', 'mask', 'ext', 'alibi_pos', 'int8'):
-            row, f = _f32_fwd_bwd(torch, fa, gen, d, dv, case)
-            fails += f
-            for kern, name in (('k1', 'flash_attention'),
-                               ('k2', 'flash_attention_bounded')):
-                if kern in row:
-                    _worse(worst, name, row[kern]['max_abs_err'],
-                           row[kern]['max_row_rel_err'],
-                           row[kern]['lse_max_abs_err'])
-            b = row['bwd']
-            _worse(worst, 'flash_attention_dq', b['max_abs_err']['dq'],
-                   b['held']['dq'])
-            _worse(worst, 'flash_attention_dkv',
-                   max(b['max_abs_err'][n] for n in ('dk', 'dv')),
-                   max(b['held'][n] for n in ('dk', 'dv')))
+    cases = [(d, dv, case, F32_SHAPE) for d, dv in F32_DIMS
+             for case in ('causal', 'mask', 'ext', 'alibi_pos', 'int8')]
+    cases += [(96, 96, case, shape) for case, shape in F32_RAGGED]
+    for d, dv, case, shape in cases:
+        row, f = _f32_fwd_bwd(torch, fa, gen, d, dv, case, shape)
+        fails += f
+        for kern, name in (('k1', 'flash_attention'),
+                           ('k2', 'flash_attention_bounded')):
+            if kern in row:
+                _worse(worst, name, row[kern]['max_abs_err'],
+                       row[kern]['max_row_rel_err'],
+                       row[kern]['lse_max_abs_err'])
+        b = row['bwd']
+        _worse(worst, 'flash_attention_dq', b['max_abs_err']['dq'],
+               b['held']['dq'])
+        _worse(worst, 'flash_attention_dkv',
+               max(b['max_abs_err'][n] for n in ('dk', 'dv')),
+               max(b['held'][n] for n in ('dk', 'dv')))
     fails += _f32_keep_pattern(torch, fa, gen)
     decode, f = _f32_decode(torch, fd, gen)
     worst.update(decode)
@@ -9725,6 +9737,43 @@ def _f32_kernels(torch, ddp, gen):
     emit({'phase': 'float32_path', 'case': 'worst', 'kernels': worst,
           'tol_row': TOL_F32_ROW, 'tol_lse': TOL_F32_LSE})
     return worst, fails
+
+
+def _f32_bwd_occupancy():
+    """K3 f32 and K4 f32 (csrc/flash_bwd_f32.cu's base library) at (96, 96)
+    and (256, 256): each kernel's dynamic shared memory, threads a block,
+    blocks an SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), the
+    computing warps an SM that makes (the producer warpgroup aside) and
+    ``ptxas``'s registers and spill bytes (stored + loaded). At (96, 96)
+    each must run at least 8 computing warps an SM. ``(row,
+    failures)``."""
+    import ctypes
+    from distributed_dot_product_tpu_torch.ops import _build
+    fn = _build.load('flash_f32_bwd').flash_bwd_f32_occupancy
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3
+    fn.restype = ctypes.c_int
+    res = _build.resources('flash_f32_bwd')
+    row, fails = {'phase': 'float32_path', 'case': 'bwd_occupancy',
+                  'card': CARD, 'kernels': {}}, []
+    for d, dv in ((96, 96), (256, 256)):
+        for kind, name in ((0, 'flash_dq_f32_kernel'),
+                           (1, 'flash_dkv_f32_kernel')):
+            vals = [ctypes.c_int() for _ in range(3)]
+            err = fn(kind, d, dv, 0, *(ctypes.addressof(x) for x in vals))
+            smem, threads, blocks = (x.value for x in vals)
+            regs = [rs for m, rs in res.items() if name in m
+                    and f'ILi{d}ELi{dv}ELb0ELb0E' in m]
+            k = {'smem_bytes': smem, 'threads': threads,
+                 'blocks_per_sm': blocks,
+                 'computing_warps_per_sm': blocks * (threads - 128) // 32,
+                 'registers': regs[0][0] if regs else None,
+                 'spill_bytes': regs[0][1] if regs else None, 'error': err}
+            row['kernels'][f'{name}<{d},{dv}>'] = k
+            if (d, dv) == (96, 96) and not (
+                    err == 0 and k['computing_warps_per_sm'] >= 8):
+                fails.append(f'{name} at (96, 96): {k}')
+    emit(row)
+    return row, fails
 
 
 def f32_bound_ms(flops, nbytes):
@@ -10334,6 +10383,8 @@ def phase_float32_path(torch, ddp, flush):
           'float32_matmul_precision': torch.get_float32_matmul_precision()})
     gen = torch.Generator().manual_seed(F32_SEED)
     worst, fails = _f32_kernels(torch, ddp, gen)
+    occupancy, f = _f32_bwd_occupancy()
+    fails += f
     timing, f = _f32_timing(torch, ddp, flush, gen)
     fails += f
     readme, f = _f32_readme(torch, ddp)
@@ -10345,7 +10396,8 @@ def phase_float32_path(torch, ddp, flush):
     module, f = _f32_module(torch, ddp, flush)
     fails += f
     check(not fails, '; '.join(fails))
-    return {'worst': worst, 'timing': timing, 'launches': {
+    return {'worst': worst, 'timing': timing,
+            'bwd_occupancy': occupancy['kernels'], 'launches': {
         'readme': readme['f32_launches'], 'engine': engine, 'lm': lm,
         'module': module}}
 
@@ -10813,7 +10865,9 @@ def main():
         kernels.append(dict(
             name=f'{name}_f32', route='cuda',
             source=(base[name]['source'] if 'decode' in name
-                    else csrc + 'flash_f32.cu'),
+                    else csrc + ('flash_bwd_f32.cu' if name in (
+                        'flash_attention_dq', 'flash_attention_dkv')
+                        else 'flash_f32.cu')),
             replaces=base[name]['replaces'],
             launches=f32_paths[name][f32_main[name]],
             launches_by_path={**f32_paths[name], 'benchmark_cli': {

@@ -1,10 +1,10 @@
-// Flash attention for Hopper (sm_90a) on float32 operands, float32-accurate:
-// the forward K1 and its bounded twin K2, the dq kernel K3 and the dk/dv
-// kernel K4, each computing what the bf16 kernels of csrc/flash_fwd.cu and
-// csrc/flash_bwd.cu compute, at the operands' own dtype.
+// Flash attention forward for Hopper (sm_90a) on float32 operands,
+// float32-accurate: K1 and its bounded twin K2, computing what the bf16
+// kernels of csrc/flash_fwd.cu compute, at the operands' own dtype (the
+// float32 backward, K3 and K4, is csrc/flash_bwd_f32.cu).
 //
-// Replaces the TPU kernels `_make_fwd_kernel` (K1), `_make_fwd_kernel_bounded`
-// (K2), `_make_dq_kernel` (K3) and `_make_dkv_kernel` (K4) in
+// Replaces the TPU kernels `_make_fwd_kernel` (K1) and
+// `_make_fwd_kernel_bounded` (K2) in
 // distributed_dot_product_tpu/ops/pallas_attention.py when they run on
 // float32 operands (the JAX package's default dtype): the reference's float32
 // kernels on the CPU are exact float32, and so are these.
@@ -24,14 +24,12 @@
 // 0.62 ms there against ~50 MB of float32 q/k/v/o (0.015 ms at 3.35 TB/s).
 //
 // The design, one warpgroup (4 warps, 128 threads) a block, each warp 16
-// rows of the block's 64-row tile (query rows for K1/K3, key rows for K4):
-//  - The streamed tiles (K1/K3: K and V; K4: q2 and dO of every query tile
-//    of every head of the GQA group) come through up to three stages of
+// rows of the block's 64-row query tile:
+//  - The streamed tiles (K and V) come through up to three stages of
 //    shared memory by cp.async (16 bytes a copy, rows past the end as
 //    zeros), kN = 64 rows a stage, or 32 where two 64-row stages do not fit
-//    beside the resident tiles (K1-K4 at (256, 256), K3/K4 at (192,
-//    128)). float32 rows are padded to W + 4 floats, so both fragment
-//    patterns below read 32 different banks.
+//    beside the resident tiles (at (256, 256)). float32 rows are padded to
+//    W + 4 floats, so both fragment patterns below read 32 different banks.
 //  - Every fragment is a plain 32-bit shared load: wgmma's tf32 form reads
 //    both shared operands K-major only and ldmatrix moves 16-bit elements,
 //    so neither serves P.V's V, which is read with its d_v contiguous.
@@ -45,21 +43,16 @@
 //    the bf16 kernels' wgmma accumulators (acc_row / acc_col of
 //    csrc/hopper.cuh), so the masks, the online softmax and the Ext
 //    features run on the same (row, column) arithmetic.
-//  - K4 with D + DV > 192 splits into two blocks per key tile (grid z):
-//    one accumulates dV, the other dK (both recompute S^T), so that a
-//    thread holds max(D, DV) / 2 accumulators and not (D + DV) / 2.
 // No atomics: two runs of any case are equal bit for bit.
 //
 // Numerics follow the bf16 kernels at float32: scale*log2(e) folded into q
 // (the reference rounds the fold back to q.dtype, here float32), an online
 // exp2 softmax from NEG_BIG (K2: the row bound), masked logits -inf, exact
 // zeros for a row with no attendable key, the row lse as
-// ln2*(m2 + log2(l)); K3/K4 recompute p = exp2(q2.k^T - lse2) and take
-// ds = p*(dO.v^T - delta) with no rounding between products. Masks, GQA,
-// causal_offset / kv_offset, and the Ext features (segments, window,
-// coordinate-hash dropout, ALiBi, explicit positions, int8 scoring with its
-// straight-through backward) are the bf16 kernels' (see their sources),
-// with a dense mask read straight from device memory.
+// ln2*(m2 + log2(l)). Masks, GQA, causal_offset / kv_offset, and the Ext
+// features (segments, window, coordinate-hash dropout, ALiBi, explicit
+// positions, int8 scoring) are the bf16 kernels' (see their sources), with
+// a dense mask read straight from device memory.
 
 #include <math.h>
 
@@ -68,19 +61,12 @@
 #include "hopper.cuh"      // kB, kWarps, kThreads, cp.async, acc_row/col
 #include "flash_ext.cuh"   // MaskArgs, ExtArgs, drop_hash
 #include "tf32x3.cuh"      // frag_a, mma3: the 3xTF32 products
+#include "f32_tiles.cuh"   // kPf, kP8, tile sizes, mma_s8_abt
 
 namespace {
 
 constexpr float kNegBig = -0.7f * 3.4e38f;
 constexpr float kLn2 = 0.693147180559945309f;
-
-// A W-wide float32 tile row in shared memory: W + 4 floats (W a multiple of
-// 32, so 8 rows 2t apart or 1 apart land on distinct banks); an int8 one
-// W + 16 bytes.
-template <int W>
-constexpr int kPf = W + 4;
-template <int W>
-constexpr int kP8 = W + 16;
 
 // The tensor core rounds each mma's sum toward zero: a long chain of
 // products in one accumulator drifts by ~2^-24 of the sum a step, all the
@@ -150,44 +136,6 @@ __device__ __forceinline__ void mma_pb(float* acc, const float* p,
   if constexpr (N0 + W < NT) mma_pb<NK, NT, N0 + W>(acc, p, b, pb);
 }
 
-// d (16 x 8, s32) += a (16 x 32 s8, row) . b (32 x 8 s8, col), exact.
-__device__ __forceinline__ void mma_s8(int* d, const uint32_t (&a)[4],
-                                       uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t ld32(const signed char* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// acc (16 x 8 NT int32) += A8 . B8^T over K int8 columns: the warp's 16
-// rows at `a`, 8 NT rows at `b`, both kP8<K> bytes a row. The s8 fragments:
-// a0 (g, 4t..4t+3), a1 (g + 8, 4t..), a2 (g, 16 + 4t..), a3 (g + 8, 16 +
-// 4t..); b0 (4t..4t+3, g), b1 (16 + 4t.., g).
-template <int K, int NT>
-__device__ __forceinline__ void mma_s8_abt(int* acc, const signed char* a,
-                                           const signed char* b) {
-  constexpr int P = kP8<K>;
-  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-  const signed char* a0 = a + g * P + 4 * t;
-  const signed char* b0 = b + g * P + 4 * t;
-#pragma unroll 2
-  for (int kk = 0; kk < K / 32; ++kk) {
-    const uint32_t fa[4] = {ld32(a0 + 32 * kk), ld32(a0 + 8 * P + 32 * kk),
-                            ld32(a0 + 32 * kk + 16),
-                            ld32(a0 + 8 * P + 32 * kk + 16)};
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      const signed char* bp = b0 + 8 * nt * P + 32 * kk;
-      mma_s8(acc + 4 * nt, fa, ld32(bp), ld32(bp + 16));
-    }
-  }
-}
-
 // ---------------------------------------------------------------------------
 // Tiles into shared memory.
 
@@ -220,18 +168,6 @@ __device__ __forceinline__ void load_rows8(signed char* dst,
                src + (ok ? static_cast<size_t>(row0 + r) * W + 16 * c : 0),
                ok);
   }
-}
-
-// Bytes of a 64-row resident tile and of an n-row streamed one, float32 or
-// int8.
-template <int W>
-__host__ __device__ constexpr size_t tile_f32(int n) {
-  return 4 * static_cast<size_t>(n) * kPf<W>;
-}
-
-template <int W>
-__host__ __device__ constexpr size_t tile_i8(int n) {
-  return static_cast<size_t>(n) * kP8<W>;
 }
 
 // The streamed rows a stage of a kernel's shared memory `Sm` holds (64, or
@@ -620,688 +556,6 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// K3 (dq). Resident: the block's 64 q2 rows (int8 q with Quant) and dO rows.
-// A stage: kN key rows of K (k~ with Quant) and V, the int8 k with Quant,
-// then 3 x 64 words: segment ids, positions, k scales.
-
-template <int D, int DV, bool Quant>
-struct DqSmem {
-  __host__ __device__ static constexpr size_t off_g() {
-    return Quant ? tile_i8<D>(kB) : tile_f32<D>(kB);
-  }
-  __host__ __device__ static constexpr size_t res() {
-    return off_g() + tile_f32<DV>(kB);
-  }
-  __host__ __device__ static constexpr size_t off_v(int n) {
-    return tile_f32<D>(n);
-  }
-  __host__ __device__ static constexpr size_t off_k8(int n) {
-    return off_v(n) + tile_f32<DV>(n);
-  }
-  __host__ __device__ static constexpr size_t off_vec(int n) {
-    return off_k8(n) + (Quant ? tile_i8<D>(n) : 0);
-  }
-  __host__ __device__ static constexpr size_t stage(int n) {
-    return off_vec(n) + 3 * kB * 4;
-  }
-};
-
-// dq for one 64-row query block of one (batch, head) row: q2 (batch_heads,
-// tq, D), dO (batch_heads, tq, DV), k (batch_heads / group, tk, D; k~ with
-// Quant), v (batch_heads / group, tk, DV), lse2, delta (batch_heads, tq);
-// dq = scale * ds.k, float32.
-template <int D, int DV, bool Ext, bool Quant>
-__global__ void __launch_bounds__(kThreads)
-flash_dq_f32_kernel(const float* __restrict__ q2, const float* __restrict__ k,
-                    const float* __restrict__ v, const float* __restrict__ g,
-                    const float* __restrict__ lse2,
-                    const float* __restrict__ delta, float* __restrict__ dq,
-                    MaskArgs mask, int tq, int tk, int group, int causal,
-                    int causal_offset, int kv_offset, float scale,
-                    int n_qblocks, ExtArgs ext) {
-  static_assert(D % 32 == 0 && D <= 256 && DV % 32 == 0 && DV <= 256,
-                "head dims must be 32*n <= 256");
-  static_assert(!Quant || Ext, "int8 scoring is Ext");
-  using S = DqSmem<D, DV, Quant>;
-  constexpr int kN = pick_rows<S>();
-  constexpr int kS = pick_stages<S>();
-  static_assert(smem_of<S>() <= kSmemLimit, "shared memory");
-  constexpr int NKT = kN / 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* sQ = reinterpret_cast<float*>(smem);
-  signed char* sQ8 = reinterpret_cast<signed char*>(smem);
-  float* sG = reinterpret_cast<float*>(smem + S::off_g());
-  unsigned char* sStages = smem + S::res();
-
-  const int qb0 = (n_qblocks - 1 - static_cast<int>(blockIdx.y)) * kB;
-  const int bh = blockIdx.x;
-  const int bkv = bh / group;
-  const int warp = threadIdx.x / 32;
-  const size_t qoff = static_cast<size_t>(bh) * tq;
-  const int* segk_row = nullptr;
-  const int* posk_row = nullptr;
-  const int* posk_mm = nullptr;
-  if constexpr (Ext) {
-    if (ext.segk.ptr != nullptr) segk_row = vec_row(ext.segk, bh);
-    if (ext.posk.ptr != nullptr) {
-      posk_row = vec_row(ext.posk, bh);
-      posk_mm = vec_row(ext.posk_mm, bh);
-    }
-  }
-
-  // The key tiles the block sees, as in K1.
-  const long long rel = static_cast<long long>(causal_offset) - kv_offset;
-  int t_lo = 0, t_hi, qmin = 0, qmax = 0;
-  {
-    int kv_end = tk;
-    if (causal) {
-      const long long extent = rel + (qb0 + kB < tq ? qb0 + kB : tq);
-      kv_end = extent <= 0 ? 0 : (extent < tk ? static_cast<int>(extent) : tk);
-    }
-    t_hi = (kv_end + kN - 1) / kN;
-    if constexpr (Ext) {
-      if (causal && ext.window > 0) {
-        const long long first = rel + qb0 - ext.window + 1;
-        t_lo = first <= 0 ? 0
-             : (first >= kv_end ? t_hi : static_cast<int>(first) / kN);
-      }
-      if (posk_mm != nullptr) {
-        qmin = vec_row(ext.posq_mm, bh)[2 * (qb0 / kB)];
-        qmax = vec_row(ext.posq_mm, bh)[2 * (qb0 / kB) + 1];
-      }
-    }
-  }
-  auto sees = [&](int t) {
-    bool yes = t >= t_lo && t < t_hi;
-    if constexpr (Ext) {
-      const int mt = t * kN / kB;
-      yes = yes && !(posk_mm != nullptr &&
-                     (posk_mm[2 * mt] > qmax ||
-                      (ext.window > 0 &&
-                       static_cast<long long>(qmin) - posk_mm[2 * mt + 1] >=
-                           ext.window)));
-    }
-    return yes;
-  };
-  auto next_tile = [&](int t) {
-    while (t < t_hi && !sees(t)) ++t;
-    return t;
-  };
-  const float* kbase = k + static_cast<size_t>(bkv) * tk * D;
-  const float* vbase = v + static_cast<size_t>(bkv) * tk * DV;
-  auto issue = [&](int t, int stage) {
-    unsigned char* st = sStages + stage * S::stage(kN);
-    load_rows<D>(reinterpret_cast<float*>(st), kbase, t * kN, kN, tk);
-    load_rows<DV>(reinterpret_cast<float*>(st + S::off_v(kN)), vbase, t * kN,
-                  kN, tk);
-    if constexpr (Quant)
-      load_rows8<D>(reinterpret_cast<signed char*>(st + S::off_k8(kN)),
-                    ext.k8 + static_cast<size_t>(bkv) * tk * D, t * kN, kN,
-                    tk);
-    int* sv = reinterpret_cast<int*>(st + S::off_vec(kN));
-    if constexpr (Ext) {
-      if (segk_row != nullptr) load_vec_async(sv, segk_row, t * kN, tk);
-      if (posk_row != nullptr) load_vec_async(sv + kB, posk_row, t * kN, tk);
-    }
-    if constexpr (Quant)
-      load_vec_async(sv + 2 * kB, ext.skr + static_cast<size_t>(bkv) * tk,
-                     t * kN, tk);
-  };
-
-  // The resident rows first (the oldest cp.async group).
-  if constexpr (Quant)
-    load_rows8<D>(sQ8, ext.q8 + qoff * D, qb0, kB, tq);
-  else
-    load_rows<D>(sQ, q2 + qoff * D, qb0, kB, tq);
-  load_rows<DV>(sG, g + qoff * DV, qb0, kB, tq);
-  cp_async_commit();
-
-  const int lr = acc_row(0);
-  bool row_ok[2];
-  long long row_pos[2];
-  float lse_r[2], delta_r[2], sqf_r[2] = {0.f, 0.f};
-  const unsigned char* mrow[2] = {nullptr, nullptr};
-  int seg_r[2] = {0, 0}, pos_r[2] = {0, 0};
-  unsigned int drop_rh[2] = {0u, 0u};
-  unsigned int drop_bs = 0u;
-  float slope = 0.f;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int row = qb0 + lr + 8 * h;
-    row_ok[h] = row < tq;
-    row_pos[h] = rel + row;
-    lse_r[h] = row_ok[h] ? lse2[qoff + row] : 0.f;
-    delta_r[h] = row_ok[h] ? delta[qoff + row] : 0.f;
-    if constexpr (Quant) sqf_r[h] = row_ok[h] ? ext.sqf[qoff + row] : 0.f;
-    if (row_ok[h] && mask.ptr != nullptr)
-      mrow[h] = mask_base(mask, bh) + static_cast<long long>(row) * mask.sr;
-    if constexpr (Ext) {
-      if (segk_row != nullptr && row_ok[h])
-        seg_r[h] = vec_row(ext.segq, bh)[row];
-      if (posk_row != nullptr && row_ok[h])
-        pos_r[h] = vec_row(ext.posq, bh)[row];
-      drop_rh[h] = static_cast<unsigned int>(
-                       posk_row != nullptr ? pos_r[h] : causal_offset + row) *
-                   2654435761u;
-    }
-  }
-  if constexpr (Ext) {
-    drop_bs = ext.seed + static_cast<unsigned int>(bh) * 668265263u;
-    if (ext.alibi != nullptr) slope = ext.alibi[bh];
-  }
-
-  float acc[D / 2];
-#pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
-
-  int t = next_tile(t_lo);
-  int fetch = t;
-#pragma unroll
-  for (int s = 0; s < kS - 1; ++s) {
-    if (fetch < t_hi) {
-      issue(fetch, s);
-      fetch = next_tile(fetch + 1);
-    }
-    cp_async_commit();
-  }
-  const bool rows_full = qb0 + kB <= tq;
-  for (int stage = 0; t < t_hi;) {
-    const int fill = (stage + kS - 1) % kS;
-    if (fetch < t_hi) {
-      issue(fetch, fill);
-      fetch = next_tile(fetch + 1);
-    }
-    cp_async_commit();
-    cp_async_wait<kS - 1>();
-    __syncthreads();   // stage `stage` (and the resident rows) landed
-
-    const int k0 = t * kN;
-    const int mt = k0 / kB;
-    const unsigned char* st = sStages + stage * S::stage(kN);
-    const float* sK = reinterpret_cast<const float*>(st);
-    const float* sV = reinterpret_cast<const float*>(st + S::off_v(kN));
-    const int* sv = reinterpret_cast<const int*>(st + S::off_vec(kN));
-    // S (int8: (float(dot) * sqf_q) * skr_k) and dP = dO V^T.
-    float s[kN / 2], dp[kN / 2];
-#pragma unroll
-    for (int i = 0; i < kN / 2; ++i) dp[i] = 0.f;
-    if constexpr (Quant) {
-      int dot[kN / 2];
-#pragma unroll
-      for (int i = 0; i < kN / 2; ++i) dot[i] = 0;
-      mma_s8_abt<D, NKT>(
-          dot, sQ8 + 16 * warp * kP8<D>,
-          reinterpret_cast<const signed char*>(st + S::off_k8(kN)));
-      const float* skr = reinterpret_cast<const float*>(sv + 2 * kB);
-#pragma unroll
-      for (int i = 0; i < kN / 2; ++i)
-        s[i] = __fmul_rn(__fmul_rn(static_cast<float>(dot[i]),
-                                   sqf_r[(i >> 1) & 1]),
-                         skr[acc_col(i)]);
-    } else {
-#pragma unroll
-      for (int i = 0; i < kN / 2; ++i) s[i] = 0.f;
-      mma_abt<D, NKT>(s, sQ + 16 * warp * kPf<D>, kPf<D>, sK, kPf<D>);
-    }
-    mma_abt<DV, NKT>(dp, sG + 16 * warp * kPf<DV>, kPf<DV>, sV, kPf<DV>);
-
-    // dS = P * (dP - delta), P = exp2(S - lse2) where allowed, else 0.
-    bool full = rows_full && k0 + kN <= tk && mask.ptr == nullptr;
-    if constexpr (Ext) {
-      full = full && segk_row == nullptr &&
-             (posk_row != nullptr
-                  ? posk_mm[2 * mt + 1] <= qmin &&
-                        (ext.window <= 0 ||
-                         static_cast<long long>(qmax) - posk_mm[2 * mt] <
-                             ext.window)
-                  : (!causal || k0 + kN - 1 <= rel + qb0) &&
-                        (ext.window <= 0 ||
-                         rel + qb0 + kB - 1 - k0 < ext.window));
-    } else {
-      full = full && (!causal || k0 + kN - 1 <= rel + qb0);
-    }
-    auto scores = [&](auto tested) {
-      constexpr bool kTest = decltype(tested)::value;
-#pragma unroll
-      for (int i = 0; i < kN / 2; ++i) {
-        const int h = (i >> 1) & 1;
-        const int cl = acc_col(i);
-        const int col = k0 + cl;
-        bool valid = true;
-        if constexpr (kTest) {
-          valid = row_ok[h] && col < tk && (!causal || col <= row_pos[h]);
-          if (mrow[h] != nullptr) valid = valid && !mrow[h][col];
-        }
-        float sc = s[i];
-        float dpv = dp[i];
-        if constexpr (Ext) {
-          const long long back =
-              posk_row != nullptr
-                  ? static_cast<long long>(pos_r[h]) - sv[kB + cl]
-                  : row_pos[h] - col;
-          if constexpr (kTest) {
-            if (posk_row != nullptr) valid = valid && back >= 0;
-            if (ext.window > 0) valid = valid && back < ext.window;
-            if (segk_row != nullptr) valid = valid && seg_r[h] == sv[cl];
-          }
-          if (ext.alibi != nullptr)
-            sc = __fadd_rn(sc, __fmul_rn(slope, static_cast<float>(-back)));
-          if (ext.dropout) {
-            const unsigned int ch =
-                static_cast<unsigned int>(posk_row != nullptr
-                                              ? sv[kB + cl]
-                                              : kv_offset + col) *
-                2246822519u;
-            dpv = drop_hash(drop_rh[h], ch, drop_bs) >= ext.drop_threshold
-                      ? dpv * ext.drop_inv : 0.f;
-          }
-        }
-        const float p = valid ? exp2f(sc - lse_r[h]) : 0.f;
-        dp[i] = p * (dpv - delta_r[h]);
-      }
-    };
-    if (full)
-      scores(std::false_type());
-    else
-      scores(std::true_type());
-
-    // dQ += dS . K (k~).
-    mma_pb<NKT, D / 8>(acc, dp, sK, kPf<D>);
-
-    __syncthreads();
-    t = next_tile(t + 1);
-    stage = stage + 1 == kS ? 0 : stage + 1;
-  }
-  cp_async_wait<0>();
-
-  float* ob = dq + qoff * D;
-#pragma unroll
-  for (int i = 0; i < D / 2; i += 2) {
-    const int row = qb0 + acc_row(i);
-    if (row < tq)
-      *reinterpret_cast<float2*>(ob + static_cast<size_t>(row) * D +
-                                 acc_col(i)) =
-          make_float2(acc[i] * scale, acc[i + 1] * scale);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// K4 (dk, dv). Resident: the block's 64 key rows of K (int8 k with Quant)
-// and V. A stage: kN query rows of q2 (q~ with Quant) and dO, the int8 q
-// with Quant, then 5 x 64 words: lse2, delta, sqf, segment ids, positions.
-
-template <int D, int DV, bool Quant>
-struct DkvSmem {
-  __host__ __device__ static constexpr size_t off_v() {
-    return Quant ? tile_i8<D>(kB) : tile_f32<D>(kB);
-  }
-  __host__ __device__ static constexpr size_t res() {
-    return off_v() + tile_f32<DV>(kB);
-  }
-  __host__ __device__ static constexpr size_t off_g(int n) {
-    return tile_f32<D>(n);
-  }
-  __host__ __device__ static constexpr size_t off_q8(int n) {
-    return off_g(n) + tile_f32<DV>(n);
-  }
-  __host__ __device__ static constexpr size_t off_vec(int n) {
-    return off_q8(n) + (Quant ? tile_i8<D>(n) : 0);
-  }
-  __host__ __device__ static constexpr size_t stage(int n) {
-    return off_vec(n) + 5 * kB * 4;
-  }
-};
-
-// dk/dv split into a dV block and a dK block (grid z) past D + DV = 192:
-// the accumulators of both would take (D + DV) / 2 registers a thread.
-template <int D, int DV>
-constexpr bool kDkvSplit = D + DV > 192;
-
-// dk and dv for one 64-row key tile of one kv head (split: dV for z = 0, dK
-// for z = 1), summing the GQA group's query heads in float32: q2
-// (batch_heads, tq, D; q~ with Quant), dO (batch_heads, tq, DV), k
-// (batch_heads / group, tk, D), v (batch_heads / group, tk, DV), lse2,
-// delta (batch_heads, tq); dk = dk_mul * ds^T.q2, dv = p^T.dO, float32.
-template <int D, int DV, bool Ext, bool Quant>
-__global__ void __launch_bounds__(kThreads)
-flash_dkv_f32_kernel(const float* __restrict__ q2,
-                     const float* __restrict__ k, const float* __restrict__ v,
-                     const float* __restrict__ g,
-                     const float* __restrict__ lse2,
-                     const float* __restrict__ delta, float* __restrict__ dk,
-                     float* __restrict__ dv, MaskArgs mask, int tq, int tk,
-                     int group, int causal, int causal_offset, int kv_offset,
-                     float dk_mul, ExtArgs ext) {
-  static_assert(D % 32 == 0 && D <= 256 && DV % 32 == 0 && DV <= 256,
-                "head dims must be 32*n <= 256");
-  static_assert(!Quant || Ext, "int8 scoring is Ext");
-  using S = DkvSmem<D, DV, Quant>;
-  constexpr int kN = pick_rows<S>();
-  constexpr int kS = pick_stages<S>();
-  static_assert(smem_of<S>() <= kSmemLimit, "shared memory");
-  constexpr int NKT = kN / 8;
-  constexpr bool kSplit = kDkvSplit<D, DV>;
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* sK = reinterpret_cast<float*>(smem);
-  signed char* sK8 = reinterpret_cast<signed char*>(smem);
-  float* sV = reinterpret_cast<float*>(smem + S::off_v());
-  unsigned char* sStages = smem + S::res();
-
-  const int k0 = static_cast<int>(blockIdx.y) * kB;
-  const int bkv = blockIdx.x;
-  const int warp = threadIdx.x / 32;
-  const bool do_dv = !kSplit || blockIdx.z == 0;
-  const bool do_dk = !kSplit || blockIdx.z == 1;
-  const int n_qtiles = (tq + kN - 1) / kN;
-
-  // The key tile is seen by query tiles [qt_lo, qt_hi) of kN rows: row r
-  // sees key column c when rel + r >= c; with a window, rows r < window +
-  // (c + 63) - rel still see the tile's newest key.
-  const long long rel = static_cast<long long>(causal_offset) - kv_offset;
-  int qt_lo = 0, qt_hi = n_qtiles;
-  if (causal) {
-    const long long r_min = static_cast<long long>(k0) - rel;
-    qt_lo = r_min <= 0 ? 0
-          : (r_min >= tq ? n_qtiles : static_cast<int>(r_min / kN));
-  }
-  if constexpr (Ext) {
-    if (causal && ext.window > 0) {
-      const long long r_end = ext.window + k0 + kB - 1 - rel;
-      qt_hi = r_end <= 0 ? 0
-            : (r_end >= tq ? n_qtiles
-                           : static_cast<int>((r_end + kN - 1) / kN));
-    }
-  }
-  // Does the block see query tile qt of head h? Positions: K1's skip from
-  // the key side (64-row tables: a kN-row tile reads its 64-row tile's).
-  auto sees = [&](int h, int qt) {
-    bool yes = qt >= qt_lo && qt < qt_hi;
-    if constexpr (Ext) {
-      if (yes && ext.posk.ptr != nullptr) {
-        const int bh = bkv * group + h;
-        const int* pq = vec_row(ext.posq_mm, bh) + 2 * (qt * kN / kB);
-        const int* pk = vec_row(ext.posk_mm, bh) + 2 * (k0 / kB);
-        yes = !(pk[0] > pq[1] ||
-                (ext.window > 0 &&
-                 static_cast<long long>(pq[0]) - pk[1] >= ext.window));
-      }
-    }
-    return yes;
-  };
-  // Work items run over (head of the group, query tile).
-  auto next_item = [&](int& h, int& qt) {
-    while (h < group) {
-      if (qt >= qt_hi) {
-        ++h;
-        qt = qt_lo;
-      } else if (!sees(h, qt)) {
-        ++qt;
-      } else {
-        return;
-      }
-    }
-  };
-  auto issue = [&](int h, int qt, int stage) {
-    const int bh = bkv * group + h;
-    const size_t qoff = static_cast<size_t>(bh) * tq;
-    unsigned char* st = sStages + stage * S::stage(kN);
-    load_rows<D>(reinterpret_cast<float*>(st), q2 + qoff * D, qt * kN, kN,
-                 tq);
-    load_rows<DV>(reinterpret_cast<float*>(st + S::off_g(kN)), g + qoff * DV,
-                  qt * kN, kN, tq);
-    if constexpr (Quant)
-      load_rows8<D>(reinterpret_cast<signed char*>(st + S::off_q8(kN)),
-                    ext.q8 + qoff * D, qt * kN, kN, tq);
-    float* sr = reinterpret_cast<float*>(st + S::off_vec(kN));
-    load_vec_async(sr, lse2 + qoff, qt * kN, tq);
-    load_vec_async(sr + kB, delta + qoff, qt * kN, tq);
-    if constexpr (Quant)
-      load_vec_async(sr + 2 * kB, ext.sqf + qoff, qt * kN, tq);
-    if constexpr (Ext) {
-      if (ext.segq.ptr != nullptr)
-        load_vec_async(sr + 3 * kB, vec_row(ext.segq, bh), qt * kN, tq);
-      if (ext.posq.ptr != nullptr)
-        load_vec_async(sr + 4 * kB, vec_row(ext.posq, bh), qt * kN, tq);
-    }
-  };
-
-  // The resident key rows first (the oldest cp.async group).
-  if constexpr (Quant)
-    load_rows8<D>(sK8, ext.k8 + static_cast<size_t>(bkv) * tk * D, k0, kB,
-                  tk);
-  else
-    load_rows<D>(sK, k + static_cast<size_t>(bkv) * tk * D, k0, kB, tk);
-  load_rows<DV>(sV, v + static_cast<size_t>(bkv) * tk * DV, k0, kB, tk);
-  cp_async_commit();
-
-  // This thread's two key rows of the accumulator layout.
-  const int lr = acc_row(0);
-  bool krow_ok[2];
-  int kpos[2];
-  float skr_r[2] = {0.f, 0.f};
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    kpos[j] = k0 + lr + 8 * j;
-    krow_ok[j] = kpos[j] < tk;
-    if constexpr (Quant)
-      skr_r[j] = krow_ok[j]
-                     ? ext.skr[static_cast<size_t>(bkv) * tk + kpos[j]] : 0.f;
-  }
-
-  // dK (or, split, the block's one part) and dV.
-  constexpr int kAcc = kSplit ? (D > DV ? D : DV) : D;
-  float acc_a[kAcc / 2], acc_v[kSplit ? 1 : DV / 2];
-#pragma unroll
-  for (int i = 0; i < kAcc / 2; ++i) acc_a[i] = 0.f;
-#pragma unroll
-  for (int i = 0; i < (kSplit ? 1 : DV / 2); ++i) acc_v[i] = 0.f;
-
-  int h = 0, qt = qt_lo;
-  next_item(h, qt);
-  int fh = h, fqt = qt;   // the next item to load, kS - 1 ahead
-#pragma unroll
-  for (int s = 0; s < kS - 1; ++s) {
-    if (fh < group) {
-      issue(fh, fqt, s);
-      ++fqt;
-      next_item(fh, fqt);
-    }
-    cp_async_commit();
-  }
-  // The head's state (read per query head, as it is addressed).
-  int cur_h = -1;
-  const unsigned char* mbase = nullptr;
-  int segk_r[2] = {0, 0}, posk_r[2] = {0, 0};
-  unsigned int drop_ch[2] = {0u, 0u};
-  unsigned int drop_bs = 0u;
-  float slope = 0.f;
-  int kmin = 0, kmax = 0;
-  const int* posq_mm = nullptr;
-  for (int stage = 0; h < group;) {
-    const int fill = (stage + kS - 1) % kS;
-    if (fh < group) {
-      issue(fh, fqt, fill);
-      ++fqt;
-      next_item(fh, fqt);
-    }
-    cp_async_commit();
-    if (h != cur_h) {
-      cur_h = h;
-      const int bh = bkv * group + h;
-      if (mask.ptr != nullptr) mbase = mask_base(mask, bh);
-      if constexpr (Ext) {
-        drop_bs = ext.seed + static_cast<unsigned int>(bh) * 668265263u;
-        if (ext.alibi != nullptr) slope = ext.alibi[bh];
-        if (ext.posk.ptr != nullptr && k0 < tk) {
-          posq_mm = vec_row(ext.posq_mm, bh);
-          kmin = vec_row(ext.posk_mm, bh)[2 * (k0 / kB)];
-          kmax = vec_row(ext.posk_mm, bh)[2 * (k0 / kB) + 1];
-        }
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          if (ext.segq.ptr != nullptr)
-            segk_r[j] = krow_ok[j] ? vec_row(ext.segk, bh)[kpos[j]] : 0;
-          if (ext.posk.ptr != nullptr)
-            posk_r[j] = krow_ok[j] ? vec_row(ext.posk, bh)[kpos[j]] : 0;
-          drop_ch[j] = static_cast<unsigned int>(
-                           ext.posk.ptr != nullptr
-                               ? posk_r[j]
-                               : static_cast<long long>(kv_offset) + kpos[j]) *
-                       2246822519u;
-        }
-      }
-    }
-    cp_async_wait<kS - 1>();
-    __syncthreads();   // stage `stage` (and the resident rows) landed
-
-    const int q0 = qt * kN;
-    const unsigned char* st = sStages + stage * S::stage(kN);
-    const float* sQ = reinterpret_cast<const float*>(st);
-    const float* sG = reinterpret_cast<const float*>(st + S::off_g(kN));
-    const float* sLse = reinterpret_cast<const float*>(st + S::off_vec(kN));
-    const float* sDelta = sLse + kB;
-    const int* sSegQ = reinterpret_cast<const int*>(sLse + 3 * kB);
-    const int* sPosQ = sSegQ + kB;
-    // S^T = K q2^T (int8: (float(dot) * sqf_q) * skr_k) and dP^T = V dO^T:
-    // rows are this warp's keys, columns the queries.
-    float s[kN / 2], dp[kN / 2];
-#pragma unroll
-    for (int i = 0; i < kN / 2; ++i) dp[i] = 0.f;
-    if constexpr (Quant) {
-      int dot[kN / 2];
-#pragma unroll
-      for (int i = 0; i < kN / 2; ++i) dot[i] = 0;
-      mma_s8_abt<D, NKT>(
-          dot, sK8 + 16 * warp * kP8<D>,
-          reinterpret_cast<const signed char*>(st + S::off_q8(kN)));
-      const float* sqf = sLse + 2 * kB;
-#pragma unroll
-      for (int i = 0; i < kN / 2; ++i)
-        s[i] = __fmul_rn(__fmul_rn(static_cast<float>(dot[i]),
-                                   sqf[acc_col(i)]),
-                         skr_r[(i >> 1) & 1]);
-    } else {
-#pragma unroll
-      for (int i = 0; i < kN / 2; ++i) s[i] = 0.f;
-      mma_abt<D, NKT>(s, sK + 16 * warp * kPf<D>, kPf<D>, sQ, kPf<D>);
-    }
-    if (do_dk)
-      mma_abt<DV, NKT>(dp, sV + 16 * warp * kPf<DV>, kPf<DV>, sG, kPf<DV>);
-
-    // P^T into s (the dropped, rescaled weights dv takes), dS^T into dp.
-    bool full = k0 + kB <= tk && q0 + kN <= tq && mask.ptr == nullptr;
-    if constexpr (Ext) {
-      const int mq = q0 / kB;
-      full = full && ext.segq.ptr == nullptr &&
-             (ext.posq.ptr != nullptr
-                  ? kmax <= posq_mm[2 * mq] &&
-                        (ext.window <= 0 ||
-                         static_cast<long long>(posq_mm[2 * mq + 1]) - kmin <
-                             ext.window)
-                  : (!causal || k0 + kB - 1 <= rel + q0) &&
-                        (ext.window <= 0 ||
-                         rel + q0 + kN - 1 - k0 < ext.window));
-    } else {
-      full = full && (!causal || k0 + kB - 1 <= rel + q0);
-    }
-    auto scores = [&](auto tested) {
-      constexpr bool kTest = decltype(tested)::value;
-#pragma unroll
-      for (int i = 0; i < kN / 2; ++i) {
-        const int j = (i >> 1) & 1;
-        const int qc = acc_col(i);
-        const int qrow = q0 + qc;
-        bool valid = true;
-        if constexpr (kTest) {
-          valid = krow_ok[j] && qrow < tq &&
-                  (!causal || kpos[j] <= rel + qrow);
-          if (mbase != nullptr)
-            valid = valid &&
-                    !mbase[static_cast<long long>(qrow) * mask.sr + kpos[j]];
-        }
-        float sc = s[i];
-        float dpv = dp[i];
-        float keep_mul = 1.f;
-        if constexpr (Ext) {
-          const long long back =
-              ext.posq.ptr != nullptr
-                  ? static_cast<long long>(sPosQ[qc]) - posk_r[j]
-                  : rel + qrow - kpos[j];
-          if constexpr (kTest) {
-            if (ext.posq.ptr != nullptr) valid = valid && back >= 0;
-            if (ext.window > 0) valid = valid && back < ext.window;
-            if (ext.segq.ptr != nullptr)
-              valid = valid && sSegQ[qc] == segk_r[j];
-          }
-          if (ext.alibi != nullptr)
-            sc = __fadd_rn(sc, __fmul_rn(slope, static_cast<float>(-back)));
-          if (ext.dropout) {
-            const unsigned int rh =
-                static_cast<unsigned int>(ext.posq.ptr != nullptr
-                                              ? sPosQ[qc]
-                                              : causal_offset + qrow) *
-                2654435761u;
-            keep_mul = drop_hash(rh, drop_ch[j], drop_bs) >=
-                               ext.drop_threshold
-                           ? ext.drop_inv : 0.f;
-            dpv = keep_mul == 0.f ? 0.f : dpv * keep_mul;
-          }
-        }
-        const float p = valid ? exp2f(sc - sLse[qc]) : 0.f;
-        float pn = p;
-        if constexpr (Ext) {
-          if (ext.dropout) pn = keep_mul == 0.f ? 0.f : p * keep_mul;
-        }
-        s[i] = pn;
-        dp[i] = p * (dpv - sDelta[qc]);
-      }
-    };
-    if (full)
-      scores(std::false_type());
-    else
-      scores(std::true_type());
-
-    // dV += P^T . dO and dK += dS^T . q2 (q~).
-    if constexpr (kSplit) {
-      if (do_dv)
-        mma_pb<NKT, DV / 8>(acc_a, s, sG, kPf<DV>);
-      else
-        mma_pb<NKT, D / 8>(acc_a, dp, sQ, kPf<D>);
-    } else {
-      mma_pb<NKT, DV / 8>(acc_v, s, sG, kPf<DV>);
-      mma_pb<NKT, D / 8>(acc_a, dp, sQ, kPf<D>);
-    }
-
-    __syncthreads();   // every thread done with `stage` before its refill
-    ++qt;
-    next_item(h, qt);
-    stage = stage + 1 == kS ? 0 : stage + 1;
-  }
-  cp_async_wait<0>();
-
-  const size_t kvrow = static_cast<size_t>(bkv) * tk;
-  if (do_dk) {
-#pragma unroll
-    for (int i = 0; i < D / 2; i += 2) {
-      const int row = k0 + acc_row(i);
-      if (row < tk)
-        *reinterpret_cast<float2*>(dk + (kvrow + row) * D + acc_col(i)) =
-            make_float2(acc_a[i] * dk_mul, acc_a[i + 1] * dk_mul);
-    }
-  }
-  if (do_dv) {
-    const float* av = kSplit ? acc_a : acc_v;
-#pragma unroll
-    for (int i = 0; i < DV / 2; i += 2) {
-      const int row = k0 + acc_row(i);
-      if (row < tk)
-        *reinterpret_cast<float2*>(dv + (kvrow + row) * DV + acc_col(i)) =
-            make_float2(av[i], av[i + 1]);
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
 // Launches.
 
 // Sets the kernel's dynamic shared memory and launches it; returns a
@@ -1341,44 +595,12 @@ int launch_fwd(const float* q, const float* k, const float* v, float* out,
                 causal_offset, kv_offset, qscale, qblocks(tq), ext);
 }
 
-template <int D, int DV, bool Ext, bool Quant>
-int launch_dq(const float* q2, const float* k, const float* v,
-              const float* g, const float* lse2, const float* delta,
-              float* dq, const MaskArgs& mask, int batch_heads, int group,
-              int tq, int tk, int causal, int causal_offset, int kv_offset,
-              float scale, const ExtArgs& ext, cudaStream_t s) {
-  if (tq == 0 || batch_heads == 0) return 0;
-  return launch(flash_dq_f32_kernel<D, DV, Ext, Quant>,
-                dim3(batch_heads, qblocks(tq)),
-                smem_of<DqSmem<D, DV, Quant>>(), s,
-                q2, k, v, g, lse2, delta, dq, mask, tq, tk, group, causal,
-                causal_offset, kv_offset, scale, qblocks(tq), ext);
-}
-
-template <int D, int DV, bool Ext, bool Quant>
-int launch_dkv(const float* q2, const float* k, const float* v,
-               const float* g, const float* lse2, const float* delta,
-               float* dk, float* dv, const MaskArgs& mask, int batch_heads,
-               int group, int tq, int tk, int causal, int causal_offset,
-               int kv_offset, float dk_mul, const ExtArgs& ext,
-               cudaStream_t s) {
-  if (tk == 0 || batch_heads == 0) return 0;
-  // blockIdx.x the kv head, blockIdx.y the key tile, z the split's part.
-  return launch(flash_dkv_f32_kernel<D, DV, Ext, Quant>,
-                dim3(batch_heads / group, (tk + kB - 1) / kB,
-                     kDkvSplit<D, DV> ? 2 : 1),
-                smem_of<DkvSmem<D, DV, Quant>>(), s, q2, k, v, g, lse2,
-                delta, dk, dv, mask, tq, tk, group, causal, causal_offset,
-                kv_offset, dk_mul, ext);
-}
-
 }  // namespace
 
-// Built four times (ops/_build.py), in parts nvcc compiles side by side:
-// the base instantiations of K1-K4, and with FLASH_EXT=1 / =2 / =3 the Ext
-// ones (segments, window, dropout, ALiBi, positions, int8 scoring) of K1/K2
-// / of K3 / of K4, each library refusing the others' calls
-// (cudaErrorInvalidValue).
+// Built twice (ops/_build.py), in parts nvcc compiles side by side: the
+// base instantiations of K1/K2, and with FLASH_EXT=1 the Ext ones
+// (segments, window, dropout, ALiBi, positions, int8 scoring), each library
+// refusing the other's calls (cudaErrorInvalidValue).
 
 // The float32 twin of flash_fwd_bf16 (csrc/flash_fwd.cu), with the same
 // arguments: q (batch_heads, tq, d), k (batch_heads / group, tk, d), v
@@ -1424,98 +646,5 @@ extern "C" int flash_fwd_f32(const void* q, const void* k, const void* v,
 #endif
 #undef FWD_CASE
 #undef FWD_LAUNCH
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
-// The float32 twin of flash_bwd_dq_bf16 (csrc/flash_bwd.cu), with the same
-// arguments; dq is float32 (out_f32 must be set: a float32 operand's
-// gradient is float32). With int8 operands dq reads the int8 q of ExtArgs
-// and not q2, and the dequantized k~ as k.
-extern "C" int flash_bwd_dq_f32(const void* q2, const void* k, const void* v,
-                                const void* g, const void* lse2,
-                                const void* delta, void* dq, const void* mask,
-                                int mask_inner, long long mask_so,
-                                long long mask_si, long long mask_sr,
-                                int batch_heads, int group, int tq, int tk,
-                                int d, int dv, int causal, int causal_offset,
-                                int kv_offset, float scale, int out_f32,
-                                const void* ext, void* stream) {
-  const MaskArgs m = mask_args(mask, mask_inner, mask_so, mask_si, mask_sr);
-  const ExtArgs* e = static_cast<const ExtArgs*>(ext);
-  const ExtArgs none{};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!out_f32) return static_cast<int>(cudaErrorInvalidValue);
-#define DQ_LAUNCH(D, DV, E, Q)                                                \
-  return launch_dq<D, DV, E, Q>(                                              \
-      static_cast<const float*>(q2), static_cast<const float*>(k),           \
-      static_cast<const float*>(v), static_cast<const float*>(g),            \
-      static_cast<const float*>(lse2), static_cast<const float*>(delta),     \
-      static_cast<float*>(dq), m, batch_heads, group, tq, tk, causal,         \
-      causal_offset, kv_offset, scale, E ? *e : none, s)
-#if !defined(FLASH_EXT)
-  if (e != nullptr) return static_cast<int>(cudaErrorInvalidValue);
-#define DQ_CASE(D, DV)                                                        \
-  if (d == D && dv == DV) DQ_LAUNCH(D, DV, false, false);
-  FLASH_GRID(DQ_CASE)
-#elif FLASH_EXT == 2
-  if (e == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-#define DQ_CASE(D, DV)                                                        \
-  if (d == D && dv == DV) {                                                   \
-    if (e->q8 != nullptr) DQ_LAUNCH(D, DV, true, true);                       \
-    DQ_LAUNCH(D, DV, true, false);                                            \
-  }
-  FLASH_GRID(DQ_CASE)
-#endif
-#undef DQ_CASE
-#undef DQ_LAUNCH
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
-// The float32 twin of flash_bwd_dkv_bf16, with the same arguments; dk like
-// k and dv like v (each GQA group's query heads summed), float32. scale: the
-// softmax scale, which only int8 scoring's dk uses (dk reads the
-// dequantized q~ as q2, and the int8 k of ExtArgs and not k).
-extern "C" int flash_bwd_dkv_f32(const void* q2, const void* k,
-                                 const void* v, const void* g,
-                                 const void* lse2, const void* delta,
-                                 void* dk, void* dv, const void* mask,
-                                 int mask_inner, long long mask_so,
-                                 long long mask_si, long long mask_sr,
-                                 int batch_heads, int group, int tq, int tk,
-                                 int d, int d_v, int causal,
-                                 int causal_offset, int kv_offset,
-                                 float scale, int out_f32, const void* ext,
-                                 void* stream) {
-  const MaskArgs m = mask_args(mask, mask_inner, mask_so, mask_si, mask_sr);
-  const ExtArgs* e = static_cast<const ExtArgs*>(ext);
-  const ExtArgs none{};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!out_f32) return static_cast<int>(cudaErrorInvalidValue);
-  const bool quant = e != nullptr && e->q8 != nullptr;
-  const float dk_mul = quant ? scale : kLn2;   // kLn2 = 1 / log2(e)
-#define DKV_LAUNCH(D, DV, E, Q)                                               \
-  return launch_dkv<D, DV, E, Q>(                                             \
-      static_cast<const float*>(q2), static_cast<const float*>(k),           \
-      static_cast<const float*>(v), static_cast<const float*>(g),            \
-      static_cast<const float*>(lse2), static_cast<const float*>(delta),     \
-      static_cast<float*>(dk), static_cast<float*>(dv), m, batch_heads,      \
-      group, tq, tk, causal, causal_offset, kv_offset, dk_mul,                \
-      E ? *e : none, s)
-#if !defined(FLASH_EXT)
-  if (e != nullptr) return static_cast<int>(cudaErrorInvalidValue);
-#define DKV_CASE(D, DV)                                                       \
-  if (d == D && d_v == DV) DKV_LAUNCH(D, DV, false, false);
-  FLASH_GRID(DKV_CASE)
-#elif FLASH_EXT == 3
-  if (e == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-#define DKV_CASE(D, DV)                                                       \
-  if (d == D && d_v == DV) {                                                  \
-    if (quant) DKV_LAUNCH(D, DV, true, true);                                 \
-    DKV_LAUNCH(D, DV, true, false);                                           \
-  }
-  FLASH_GRID(DKV_CASE)
-#endif
-#undef DKV_CASE
-#undef DKV_LAUNCH
   return static_cast<int>(cudaErrorInvalidValue);
 }

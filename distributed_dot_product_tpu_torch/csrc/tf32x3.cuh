@@ -1,6 +1,6 @@
 // Float32-accurate products on the TF32 tensor cores (3xTF32), shared by
-// csrc/flash_f32.cu (K1-K4) and csrc/flash_decode.cu's float32 library
-// (K5/K5p): each operand x is split into big = cvt.rna.tf32(x) and small =
+// csrc/flash_f32.cu (K1/K2), csrc/flash_bwd_f32.cu (K3/K4) and
+// csrc/flash_decode.cu's float32 library (K5/K5p): each operand x is split into big = cvt.rna.tf32(x) and small =
 // cvt.rna.tf32(x - big), and small.big + big.small accumulate before
 // big.big on mma.sync m16n8k8; the dropped small.small term lies ~2^-22
 // below the product, where one TF32 product keeps ~2^-11 (without cvt.rna
@@ -54,15 +54,23 @@ __device__ __forceinline__ void mma_tf32(float* d, const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// d (16 x 8) += A . B to float32 accuracy: the small terms first.
+// d (16 x 8) += A . B to float32 accuracy from B's parts (bb0, bs0 of b0;
+// bb1, bs1 of b1): the small terms first.
+__device__ __forceinline__ void mma3_parts(float* d, const FragA& a,
+                                           uint32_t bb0, uint32_t bs0,
+                                           uint32_t bb1, uint32_t bs1) {
+  mma_tf32(d, a.small, bb0, bb1);
+  mma_tf32(d, a.big, bs0, bs1);
+  mma_tf32(d, a.big, bb0, bb1);
+}
+
+// The same with B split here.
 __device__ __forceinline__ void mma3(float* d, const FragA& a, float b0,
                                      float b1) {
   uint32_t bb0, bs0, bb1, bs1;
   split(b0, bb0, bs0);
   split(b1, bb1, bs1);
-  mma_tf32(d, a.small, bb0, bb1);
-  mma_tf32(d, a.big, bs0, bs1);
-  mma_tf32(d, a.big, bb0, bb1);
+  mma3_parts(d, a, bb0, bs0, bb1, bs1);
 }
 
 }  // namespace

@@ -14,8 +14,8 @@ side: their base instantiations (the serving and training paths), and
 with ``-DFLASH_EXT`` the instantiations that take segments, a window,
 dropout and int8 scoring (K3's and K4's apart). The float32 kernels are
 libraries of their own, so that the bf16 ones build from unchanged code:
-``csrc/flash_f32.cu`` (K1–K4, the Ext parts of K1/K2, K3 and K4
-apart) and
+``csrc/flash_f32.cu`` (K1/K2, its Ext part apart),
+``csrc/flash_bwd_f32.cu`` (K3/K4, the Ext parts of K3 and K4 apart) and
 ``csrc/flash_decode.cu`` again with ``-DDECODE_F32`` (K5/K5p). The
 library is opened with ``ctypes``; the wrappers pass device pointers and
 the CUDA stream as ``c_void_p``.
@@ -52,8 +52,9 @@ LIBRARIES = {
     'flash_decode': ('flash_decode', ()),
     'flash_f32': ('flash_f32', ()),
     'flash_f32_fwd_ext': ('flash_f32', ('-DFLASH_EXT=1',)),
-    'flash_f32_dq_ext': ('flash_f32', ('-DFLASH_EXT=2',)),
-    'flash_f32_dkv_ext': ('flash_f32', ('-DFLASH_EXT=3',)),
+    'flash_f32_bwd': ('flash_bwd_f32', ()),
+    'flash_f32_dq_ext': ('flash_bwd_f32', ('-DFLASH_EXT=2',)),
+    'flash_f32_dkv_ext': ('flash_bwd_f32', ('-DFLASH_EXT=3',)),
     'flash_decode_f32': ('flash_decode', ('-DDECODE_F32',)),
 }
 SOURCES = tuple(LIBRARIES)

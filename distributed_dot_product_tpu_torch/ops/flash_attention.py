@@ -84,8 +84,9 @@ reference. ``grad_dtype=torch.float32`` writes the gradients in float32
 
 On CUDA tensors each pass launches its hand-written kernel or raises
 (``csrc/flash_fwd.cu`` for K1 and K2, ``csrc/flash_bwd.cu`` for K3 and
-K4 on bf16 operands; ``csrc/flash_f32.cu`` for all four on float32
-operands, float32-accurate: 3xTF32 tensor-core products, never a cast to
+K4 on bf16 operands; ``csrc/flash_f32.cu`` for K1 and K2 and
+``csrc/flash_bwd_f32.cu`` for K3 and K4 on float32 operands,
+float32-accurate: 3xTF32 tensor-core products, never a cast to
 bf16; any number of (batch, head) rows, any head dim ``d`` and value
 width ``d_v`` from 1 to 256; float16 or operands of mixed dtypes raise
 ``TypeError``); on CPU tensors each runs its plain PyTorch version. The
@@ -701,7 +702,7 @@ _TILE = 64
 
 # The operand dtypes the CUDA kernels take, each with its own kernels:
 # bf16 (csrc/flash_fwd.cu, csrc/flash_bwd.cu) and float32, float32-accurate
-# (csrc/flash_f32.cu).
+# (csrc/flash_f32.cu, csrc/flash_bwd_f32.cu).
 _KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 
 
@@ -729,8 +730,10 @@ def _check_kernel_operands(named):
 def _library(kind, f32, ext):
     """``(library, symbol)`` of a kernel ``kind`` ('fwd', 'dq' or 'dkv'):
     the float32 or the bf16 kernels, their base or Ext instantiations."""
-    if f32:
-        lib = 'flash_f32' if ext is None else f'flash_f32_{kind}_ext'
+    if f32 and kind == 'fwd':
+        lib = 'flash_f32' if ext is None else 'flash_f32_fwd_ext'
+    elif f32:
+        lib = 'flash_f32_bwd' if ext is None else f'flash_f32_{kind}_ext'
     elif kind == 'fwd':
         lib = 'flash_fwd' if ext is None else 'flash_fwd_ext'
     else:

@@ -49,10 +49,13 @@ registry dropping its last layer's hook. Three sit in the benchmark CLI
 twin (``benchmark_cli`` must catch them): the nt row without the
 reference's ``perf_model``, paged ``decode-serve`` routed to the plain
 step (no K5p launched), and the matmul timings not fenced on the card.
-Three sit in the float32 kernels (``float32_path`` must catch them): the
+Five sit in the float32 kernels (``float32_path`` must catch them): the
 3xTF32 product cut to one TF32 product (what a kernel that is only
-TF32-accurate computes), K1–K4's P.V reading P in another reduction
-order than V's rows, and K5's second slice of V rows swapped. A
+TF32-accurate computes; K1–K5p all run it), K1/K2's P.V and K3/K4's
+dS.K, P^T.dO and dS^T.q2 reading the score accumulators in another
+reduction order than the B tile's rows, K4's split dO tile stored without
+its small parts (dV at TF32 accuracy), and K5's second slice of V rows
+swapped. A
 source with a ``/`` is a path in the package, one starting ``./`` a path
 from the repository root; a bare name is in ``csrc/``. Kernel libraries
 already built under ``build/kernels`` from unchanged sources are
@@ -343,6 +346,24 @@ FAULTS = {
         'flash_f32.cu',
         '    const FragA fa = frag_a(p[4 * ks], p[4 * ks + 2], p[4 * ks + 1],\n',
         '    const FragA fa = frag_a(p[4 * ks], p[4 * ks + 1], p[4 * ks + 2],\n',
+        ('float32_path',)),
+    # K3/K4's twin of it: dS.K (P^T.dO, dS^T.q2) reading dS in the
+    # accumulator's order against the split B tile's rows 2t, 2t + 1.
+    'f32_bwd_pv_reduction_order': (
+        'flash_bwd_f32.cu',
+        '      fa[m] = frag_a(p[4 * ks], p[4 * ks + 2], p[4 * ks + 1],\n',
+        '      fa[m] = frag_a(p[4 * ks], p[4 * ks + 1], p[4 * ks + 2],\n',
+        ('float32_path',)),
+    # K4's split dO tile stored with its small parts zero: dV (and dP^T)
+    # at TF32 accuracy.
+    'f32_bwd_do_small_part_zero': (
+        'flash_bwd_f32.cu',
+        '      split_rows<DV, kN>(reinterpret_cast<uint2*>(st + S::off_g(kN)),\n'
+        '                         g + qoff * DV, q0, tq, ptid);\n',
+        '      split_rows<DV, kN>(reinterpret_cast<uint2*>(st + S::off_g(kN)),\n'
+        '                         g + qoff * DV, q0, tq, ptid);\n'
+        '      for (int i = ptid; i < kN * DV; i += kWgThreads)\n'
+        '        reinterpret_cast<uint2*>(st + S::off_g(kN))[i].y = 0u;\n',
         ('float32_path',)),
     # K5's float32 P.V: the second slice's two V rows swapped.
     'k5_f32_v_rows_swapped': (

@@ -2,10 +2,25 @@
 """
 The kernel build's bookkeeping that runs without ``nvcc``: the
 ``ptxas -v`` report it keeps beside each library, read back as each
-kernel's registers and spill bytes (``chip_smoke.py`` prints them).
+kernel's registers and spill bytes (``chip_smoke.py`` prints them); the
+float32 backward's libraries, built from ``csrc/flash_bwd_f32.cu``, and
+the symbols their wrappers bind (a text check of the source); the
+anchors that ``scripts/torch_bwd_f32_sections.py`` and the float32 planted
+faults of ``scripts/torch_planted_faults.py`` plant at.
 """
 
+import importlib
+import re
+import sys
+from pathlib import Path
+
+import pytest
+
 from distributed_dot_product_tpu_torch.ops import _build
+
+fa = importlib.import_module(
+    'distributed_dot_product_tpu_torch.ops.flash_attention')
+REPO = Path(__file__).resolve().parent.parent
 
 LOG = """\
 ptxas info    : 0 bytes gmem
@@ -65,3 +80,121 @@ def test_included_headers_are_followed(tmp_path, monkeypatch):
     first = _build._target('flash_fwd')
     (tmp_path / 'inner.cuh').write_text('// inner v2\n')
     assert _build._target('flash_fwd') != first
+
+
+# The float32 backward (K3 f32, K4 f32) builds from csrc/flash_bwd_f32.cu:
+# its base library and the Ext parts of K3 and of K4, each with its flags;
+# K1/K2 f32 keep csrc/flash_f32.cu.
+F32_BWD = {'flash_f32_bwd': ('flash_bwd_f32', ()),
+           'flash_f32_dq_ext': ('flash_bwd_f32', ('-DFLASH_EXT=2',)),
+           'flash_f32_dkv_ext': ('flash_bwd_f32', ('-DFLASH_EXT=3',))}
+
+
+def test_float32_backward_libraries_build_from_their_source():
+    for name, entry in F32_BWD.items():
+        assert _build.LIBRARIES[name] == entry, name
+    assert _build.LIBRARIES['flash_f32'] == ('flash_f32', ())
+    assert _build.LIBRARIES['flash_f32_fwd_ext'] == ('flash_f32',
+                                                     ('-DFLASH_EXT=1',))
+    assert (_build._CSRC / 'flash_bwd_f32.cu').is_file()
+    # The float32 forward's source no longer defines the backward.
+    fwd = (_build._CSRC / 'flash_f32.cu').read_text()
+    assert 'flash_bwd_dq_f32' not in fwd and 'flash_bwd_dkv_f32' not in fwd
+
+
+def _active(body, flags):
+    """The lines of ``body`` that the preprocessor keeps under ``flags``
+    (``-DFLASH_EXT=n`` or none) in its ``#if !defined(FLASH_EXT)`` /
+    ``#elif FLASH_EXT == n`` / ``#endif`` chain."""
+    value = next((int(f.split('=')[1]) for f in flags
+                  if f.startswith('-DFLASH_EXT=')), None)
+    kept, state = [], None
+    for line in body.splitlines():
+        st = line.strip()
+        m = re.match(r'#elif FLASH_EXT == (\d+)', st)
+        if st.startswith('#if !defined(FLASH_EXT)'):
+            state = value is None
+        elif m:
+            state = value == int(m.group(1))
+        elif st.startswith('#endif'):
+            state = None
+        elif state is not False:
+            kept.append(line)
+    return '\n'.join(kept)
+
+
+@pytest.mark.parametrize('ext', [None, 'ext'], ids=['base', 'ext'])
+@pytest.mark.parametrize('kind', ['dq', 'dkv'])
+def test_float32_backward_symbol_defined_where_built(kind, ext):
+    """Each ``extern "C"`` symbol the float32 K3/K4 wrappers bind is defined
+    once in the source of the library they load, and the branch that
+    library's flags keep launches a kernel on the grid."""
+    lib, symbol = fa._library(kind, True, ext)
+    source, flags = _build.LIBRARIES[lib]
+    assert (lib, source) == ((f'flash_f32_{kind}_ext' if ext else
+                              'flash_f32_bwd'), 'flash_bwd_f32')
+    text = (_build._CSRC / f'{source}.cu').read_text()
+    head = f'extern "C" int {symbol}('
+    assert text.count(head) == 1
+    start = text.index(head)
+    end = text.index('\n}\n', start)
+    kept = _active(text[start:end], flags)
+    assert 'FLASH_GRID(' in kept and '_LAUNCH(' in kept
+    launches = re.findall(r'LAUNCH\(D, DV, (true|false), (true|false)\)',
+                          kept)
+    assert launches and all((e == 'true') == bool(ext)
+                            for e, _ in launches), launches
+
+
+def test_bwd_sections_script_plants_every_anchor():
+    """scripts/torch_bwd_f32_sections.py knows the package's float32
+    backward: every section anchor of K3 and K4 is there once."""
+    sys.path.insert(0, str(REPO / 'scripts'))
+    try:
+        sections = importlib.import_module('torch_bwd_f32_sections')
+    finally:
+        sys.path.remove(str(REPO / 'scripts'))
+    text = (_build._CSRC / 'flash_bwd_f32.cu').read_text()
+    recipe, planted = sections.plant(text)
+    assert recipe == 'split_once'
+    assert planted.count('SEC_FLUSH(0)') == 2
+    assert planted.count('SEC_FLUSH(8)') == 2
+    assert planted.count('SEC_T0 // [section]') == 2
+    # Nine marks a kernel, and the macro's definition.
+    assert planted.count('SEC_MARK(') == 2 * 9 + 1
+
+
+@pytest.mark.parametrize('fault', [
+    'f32_single_tf32_product', 'f32_pv_reduction_order',
+    'f32_bwd_pv_reduction_order', 'f32_bwd_do_small_part_zero',
+    'k5_f32_v_rows_swapped'])
+def test_float32_planted_fault_anchors_once(fault):
+    """Each float32 planted fault's text is there once in its source (the
+    script refuses a fault whose anchor moved)."""
+    sys.path.insert(0, str(REPO / 'scripts'))
+    try:
+        faults = importlib.import_module('torch_planted_faults').FAULTS
+    finally:
+        sys.path.remove(str(REPO / 'scripts'))
+    source, old, new, phases = faults[fault]
+    assert (_build._CSRC / source).read_text().count(old) == 1
+    assert new != old and phases == ('float32_path',)
+
+
+def _variants():
+    sys.path.insert(0, str(REPO / 'scripts'))
+    try:
+        return importlib.import_module('torch_bwd_f32_variants')
+    finally:
+        sys.path.remove(str(REPO / 'scripts'))
+
+
+@pytest.mark.parametrize('name', sorted(_variants().VARIANTS))
+def test_bwd_variant_edits_apply(name):
+    """Each named variant of scripts/torch_bwd_f32_variants.py edits the
+    package's float32 backward at anchors that are there once."""
+    variants = _variants()
+    text = (_build._CSRC / 'flash_bwd_f32.cu').read_text()
+    edits, _ = variants.VARIANTS[name]
+    out = variants.edited(text, edits)
+    assert (out == text) == (name == 'as_is')

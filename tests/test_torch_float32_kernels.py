@@ -1,7 +1,8 @@
 # -*- coding: utf-8 -*-
 """
 Float32 operands on the kernels' launch path (``csrc/flash_f32.cu`` for
-K1–K4, ``csrc/flash_decode.cu`` built with ``-DDECODE_F32`` for K5/K5p),
+K1/K2, ``csrc/flash_bwd_f32.cu`` for K3/K4, ``csrc/flash_decode.cu`` built
+with ``-DDECODE_F32`` for K5/K5p),
 checked on the CPU: there is no card here, so this test alone replaces
 each launch with a fake that records the library and symbol the wrapper
 asked for and runs the plain version on the operands the wrapper hands
@@ -329,8 +330,10 @@ def test_float32_reaches_k1_to_k4_as_float32(monkeypatch, features):
         dk, dv = fa._launch_dkv(q2, k, v, g, lse2, delta, None, True, 2, 0,
                                 scale, None, feat, None)
     assert not mode.bf16_ops
-    lib = {kind: 'flash_f32' if features == 'base' else f'flash_f32_{kind}_ext'
-           for kind in ('fwd', 'dq', 'dkv')}
+    lib = {kind: f'flash_f32_{kind}_ext' for kind in ('fwd', 'dq', 'dkv')}
+    if features == 'base':
+        lib = {'fwd': 'flash_f32', 'dq': 'flash_f32_bwd',
+               'dkv': 'flash_f32_bwd'}
     assert calls == [(lib['fwd'], 'flash_fwd_f32', None),
                      (lib['fwd'], 'flash_fwd_f32', None),
                      (lib['dq'], 'flash_bwd_dq_f32', 1),

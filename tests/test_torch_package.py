@@ -61,7 +61,9 @@ def test_import_loads_no_jax():
     [p.relative_to(REPO) for p in PORT.rglob('*.py')]
     + [Path('chip_smoke.py'), Path('scripts/torch_profile_generate.py'),
        Path('scripts/torch_profile_train.py'),
-       Path('scripts/torch_profile_serve.py')]),
+       Path('scripts/torch_profile_serve.py'),
+       Path('scripts/torch_bwd_f32_sections.py'),
+       Path('scripts/torch_bwd_f32_variants.py')]),
     ids=str)
 def test_no_reference_imports(path):
     bad = [m for m in _imports(REPO / path) if _banned(m)]
