@@ -139,9 +139,10 @@ Phases, one JSON line each (some several):
    grid pair and 80/80, 24/12, 160/160; causal with 70 rows without a key,
    a dense mask, segments with a window of 64 and dropout 0.1, ALiBi over
    shuffled positions with a window, int8 scoring; 96/96 also on GQA 4:1 at
-   T 1000 and 900, causal and Ext; K3/K4's shared memory, threads, blocks
-   and computing warps an SM (at least 8 at 96/96) and ptxas registers
-   and spills; K5/K5p at t_max 4096,
+   T 1000 and 900, causal and Ext; K1/K2's and K3/K4's shared memory,
+   threads, blocks and computing warps an SM (at least 8 at 96/96) and
+   ptxas registers and spills, and K1's TF32 HGMMA in its SASS at 96/96;
+   K5/K5p at t_max 4096,
    96/96, 256/256, 24/12, one row and verify k = 5, block_k 128 and 512,
    pages 16 and 48, the partials, a window, ALiBi and the int8 mirror):
    out, dv, decode out within 1e-4 on the row statistic, lse within 1e-5,
@@ -9299,6 +9300,20 @@ F32_FLOPS = 165e12
 F32_KERNELS = ('flash_attention', 'flash_attention_bounded',
                'flash_attention_dq', 'flash_attention_dkv', 'flash_decode',
                'flash_decode_paged')
+# The body each float32 kernel runs, named on the kernels line.
+_F32_FWD_BODY = ('flash_fwd_f32_kernel: S and P.V on 3xTF32 wgmma m64nNk8 '
+                 '(A from registers), K and V^T split once by a producer '
+                 'warpgroup, two consumer warpgroups')
+_F32_BWD_BODY = ('3xTF32 mma.sync m16n8k8 on operands split once by a '
+                 'producer warpgroup, two consumer warpgroups')
+_F32_DECODE_BODY = ('flash_decode_kernel (-DDECODE_F32): 3xTF32 mma.sync '
+                    'm16n8k8')
+F32_BODY = {'flash_attention': _F32_FWD_BODY,
+            'flash_attention_bounded': _F32_FWD_BODY,
+            'flash_attention_dq': 'flash_dq_f32_kernel: ' + _F32_BWD_BODY,
+            'flash_attention_dkv': 'flash_dkv_f32_kernel: ' + _F32_BWD_BODY,
+            'flash_decode': _F32_DECODE_BODY,
+            'flash_decode_paged': _F32_DECODE_BODY}
 # The entry points at full width: the README "Resilient serving" engine,
 # the LM (train_path's widths at dtype=None), the paper's module
 # (entry()'s shapes).
@@ -9774,6 +9789,65 @@ def _f32_bwd_occupancy():
                 fails.append(f'{name} at (96, 96): {k}')
     emit(row)
     return row, fails
+
+
+def _f32_fwd_occupancy():
+    """K1 f32 / K2 f32 (csrc/flash_f32.cu's base library) at (96, 96) and
+    (256, 256): the kernel's dynamic shared memory, threads a block, blocks
+    an SM, the computing warps an SM that makes (the producer warpgroup
+    aside) and ``ptxas``'s registers and spill bytes; at (96, 96) at least
+    8 computing warps an SM. Beside it the (96, 96) kernel's SASS
+    (``cuobjdump -sass`` of the built library): its HGMMA instructions with
+    TF32 operands (S and P.V on wgmma), which must be there. ``(row,
+    failures)``."""
+    import ctypes
+    from distributed_dot_product_tpu_torch.ops import _build
+    fn = _build.load('flash_f32').flash_fwd_f32_occupancy
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4
+    fn.restype = ctypes.c_int
+    res = _build.resources('flash_f32')
+    name = 'flash_fwd_f32_kernel'
+    row, fails = {'phase': 'float32_path', 'case': 'fwd_occupancy',
+                  'card': CARD, 'kernels': {}}, []
+    for d, dv in ((96, 96), (256, 256)):
+        vals = [ctypes.c_int() for _ in range(4)]
+        err = fn(d, dv, 0, *(ctypes.addressof(x) for x in vals))
+        smem, threads, blocks, computing = (x.value for x in vals)
+        regs = [rs for m, rs in res.items() if name in m
+                and f'ILi{d}ELi{dv}ELb0ELb0E' in m]
+        k = {'smem_bytes': smem, 'threads': threads, 'blocks_per_sm': blocks,
+             'computing_warps_per_sm': blocks * computing // 32,
+             'registers': regs[0][0] if regs else None,
+             'spill_bytes': regs[0][1] if regs else None, 'error': err}
+        row['kernels'][f'{name}<{d},{dv}>'] = k
+        if (d, dv) == (96, 96) and not (
+                err == 0 and k['computing_warps_per_sm'] >= 8):
+            fails.append(f'{name} at (96, 96): {k}')
+    row['sass_96'] = sass = _tf32_hgmma(_build, name + 'ILi96ELi96ELb0ELb0E')
+    if not sass.get('tf32_hgmma'):
+        fails.append(f'{name}<96,96> issues no TF32 HGMMA: {sass}')
+    emit(row)
+    return row, fails
+
+
+def _tf32_hgmma(build, mangled):
+    """The HGMMA instructions of the kernel whose mangled name holds
+    ``mangled`` in the built ``flash_f32`` library's SASS: ``{tf32_hgmma:
+    count with TF32 operands, shapes: {mnemonic: count}}``."""
+    tool = os.path.join(os.path.dirname(build._nvcc()), 'cuobjdump')
+    sass = subprocess.run([tool, '-sass', str(build._target('flash_f32'))],
+                          capture_output=True, text=True, timeout=300).stdout
+    body, inside = [], False
+    for line in sass.splitlines():
+        if 'Function :' in line:
+            inside = mangled in line
+        elif inside:
+            body.append(line)
+    shapes = {}
+    for m in re.findall(r'\b(HGMMA\.[\w.]+)', '\n'.join(body)):
+        shapes[m] = shapes.get(m, 0) + 1
+    return {'function_found': bool(body), 'shapes': shapes,
+            'tf32_hgmma': sum(n for m, n in shapes.items() if 'TF32' in m)}
 
 
 def f32_bound_ms(flops, nbytes):
@@ -10385,6 +10459,8 @@ def phase_float32_path(torch, ddp, flush):
     worst, fails = _f32_kernels(torch, ddp, gen)
     occupancy, f = _f32_bwd_occupancy()
     fails += f
+    fwd_occupancy, f = _f32_fwd_occupancy()
+    fails += f
     timing, f = _f32_timing(torch, ddp, flush, gen)
     fails += f
     readme, f = _f32_readme(torch, ddp)
@@ -10397,7 +10473,8 @@ def phase_float32_path(torch, ddp, flush):
     fails += f
     check(not fails, '; '.join(fails))
     return {'worst': worst, 'timing': timing,
-            'bwd_occupancy': occupancy['kernels'], 'launches': {
+            'bwd_occupancy': occupancy['kernels'],
+            'fwd_occupancy': fwd_occupancy['kernels'], 'launches': {
         'readme': readme['f32_launches'], 'engine': engine, 'lm': lm,
         'module': module}}
 
@@ -10863,7 +10940,7 @@ def main():
     for name in F32_KERNELS:
         t = f32['timing'][name]
         kernels.append(dict(
-            name=f'{name}_f32', route='cuda',
+            name=f'{name}_f32', route='cuda', body=F32_BODY[name],
             source=(base[name]['source'] if 'decode' in name
                     else csrc + ('flash_bwd_f32.cu' if name in (
                         'flash_attention_dq', 'flash_attention_dkv')

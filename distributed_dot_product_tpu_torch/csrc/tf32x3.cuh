@@ -1,12 +1,14 @@
 // Float32-accurate products on the TF32 tensor cores (3xTF32), shared by
 // csrc/flash_f32.cu (K1/K2), csrc/flash_bwd_f32.cu (K3/K4) and
-// csrc/flash_decode.cu's float32 library (K5/K5p): each operand x is split into big = cvt.rna.tf32(x) and small =
-// cvt.rna.tf32(x - big), and small.big + big.small accumulate before
-// big.big on mma.sync m16n8k8; the dropped small.small term lies ~2^-22
-// below the product, where one TF32 product keeps ~2^-11 (without cvt.rna
-// the tensor core truncates float32 to TF32). Three products at 495 TFLOP/s
-// of TF32 make 165 TFLOP/s of float32-accurate work on an H100. Each source
-// that includes it gets its own copy (an anonymous namespace).
+// csrc/flash_decode.cu's float32 library (K5/K5p): each operand x is
+// split into big = cvt.rna.tf32(x) and small = cvt.rna.tf32(x - big), and
+// small.big + big.small accumulate before big.big (mma.sync m16n8k8 here;
+// K1/K2's wgmma products take the same order); the dropped small.small
+// term lies ~2^-22 below the product, where one TF32 product keeps ~2^-11
+// (without cvt.rna the tensor core truncates float32 to TF32). Three
+// products at 495 TFLOP/s of TF32 make 165 TFLOP/s of float32-accurate
+// work on an H100. Each source that includes it gets its own copy (an
+// anonymous namespace).
 //
 // Fragment coordinates: lane = 4 g + t; A (16 x 8): a0 (g, t), a1 (g + 8,
 // t), a2 (g, t + 4), a3 (g + 8, t + 4); B (8 x 8): b0 (t, g), b1 (t + 4,
@@ -54,14 +56,26 @@ __device__ __forceinline__ void mma_tf32(float* d, const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// The three TF32 products of a 3xTF32 product in their order, the small
+// terms first: term(a_small, b_small) for A.small . B.big, A.big . B.small
+// and A.big . B.big (mma3_parts on mma.sync; csrc/flash_f32.cu's wgmma
+// products).
+template <typename Term>
+__device__ __forceinline__ void tf32x3_terms(Term&& term) {
+  term(true, false);
+  term(false, true);
+  term(false, false);
+}
+
 // d (16 x 8) += A . B to float32 accuracy from B's parts (bb0, bs0 of b0;
-// bb1, bs1 of b1): the small terms first.
+// bb1, bs1 of b1).
 __device__ __forceinline__ void mma3_parts(float* d, const FragA& a,
                                            uint32_t bb0, uint32_t bs0,
                                            uint32_t bb1, uint32_t bs1) {
-  mma_tf32(d, a.small, bb0, bb1);
-  mma_tf32(d, a.big, bs0, bs1);
-  mma_tf32(d, a.big, bb0, bb1);
+  tf32x3_terms([&](bool a_small, bool b_small) {
+    mma_tf32(d, a_small ? a.small : a.big, b_small ? bs0 : bb0,
+             b_small ? bs1 : bb1);
+  });
 }
 
 // The same with B split here.

@@ -9,13 +9,14 @@ float32 backward source.
 
 By default it times the package's own ``csrc/flash_bwd_f32.cu``.
 ``--source`` names another file that defines the float32 K3 and K4 (an
-older checkout's ``csrc/flash_f32.cu`` or ``flash_bwd_f32.cu``); it is
-timed beside the package's own in turns (that source, own, own, that
-source). Each body is built twice through the port's builder into a
-temporary directory, every build started at once: as it is, timed with
-CUDA events (cold L2, as ``chip_smoke.time_ms``), and with timers planted
-at the body's section boundaries (a body whose anchors no recipe below
-knows is timed without sections). Every warp sums the clock64 cycles its
+older checkout's ``csrc/flash_f32.cu`` or ``flash_bwd_f32.cu``, built
+with the headers beside it); it is timed beside the package's own in
+turns (that source, own, own, that source). Each body is built twice
+through the port's builder into a temporary directory, every build
+started at once: as it is, timed with CUDA events (cold L2, as
+``chip_smoke.time_ms``), and with timers planted at the body's section
+boundaries (a body whose anchors no recipe below knows is timed without
+sections). Every warp sums the clock64 cycles its
 lane 0 spends in each section and adds them to a device counter; a
 section's share of the summed cycles of the warps that compute, times the
 uninstrumented kernel time, is its time. A producer warp's own sections
@@ -157,57 +158,70 @@ RECIPES = {
 B, H, T, D = 4, 8, 4096, 96
 
 
-def plant(text):
+def plant(text, recipes=None, timers=TIMERS):
     """``(recipe name, planted text)``, or ``(None, None)`` when no recipe
-    knows the body or one of its anchors is not there once."""
-    recipe = next((name for name, (mark, _) in RECIPES.items()
+    of ``recipes`` (this script's by default) knows the body or one of its
+    anchors is not there once."""
+    recipes = RECIPES if recipes is None else recipes
+    recipe = next((name for name, (mark, _) in recipes.items()
                    if mark in text), None)
     if recipe is None:
         return None, None
-    for old, new in RECIPES[recipe][1]:
+    for old, new in recipes[recipe][1]:
         if text.count(old) != 1:
             return None, None
         text = text.replace(old, new)
     at = text.rfind('#include')
     at = text.index('\n', at) + 1
-    return recipe, text[:at] + TIMERS + text[at:]
+    return recipe, text[:at] + timers + text[at:]
 
 
-def csrc_copy(tmp, tag, text):
-    """A copy of csrc/ under ``tmp/tag`` whose flash_bwd_f32.cu is
-    ``text``; returns (csrc, build dir)."""
+def headers_of(path):
+    """The csrc/ directory a body at ``path`` builds with: the directory
+    it lies in when that holds the kernels' headers (another checkout's
+    csrc/, so that its body builds with its own headers), else the
+    package's."""
+    here = os.path.dirname(os.path.abspath(path))
+    return here if os.path.isfile(os.path.join(here, 'hopper.cuh')) else CSRC
+
+
+def csrc_copy(tmp, tag, text, name='flash_bwd_f32.cu', csrc=CSRC):
+    """A copy of ``csrc`` under ``tmp/tag`` whose ``name`` is ``text``;
+    returns (csrc, build dir)."""
     src = os.path.join(tmp, tag, 'csrc')
-    shutil.copytree(CSRC, src)
-    with open(os.path.join(src, 'flash_bwd_f32.cu'), 'w') as f:
+    shutil.copytree(csrc, src)
+    with open(os.path.join(src, name), 'w') as f:
         f.write(text)
     return src, os.path.join(tmp, tag, 'build')
 
 
-def point(build, where):
+def point(build, where, lib=LIB):
     """Points the port's builder at ``where`` = (csrc, build dir); the next
-    float32 K3/K4 call loads (and if need be builds) that library."""
+    call of a kernel of ``lib`` loads (and if need be builds) that
+    library."""
     build._CSRC = type(build._CSRC)(where[0])
     build._BUILD_DIR = type(build._BUILD_DIR)(where[1])
-    build._LIBS.pop(LIB, None)
+    build._LIBS.pop(lib, None)
 
 
-def build_together(build, places):
-    """Builds LIB in every place of ``places`` at once; returns each
-    place's ptxas report ``{kernel: (registers, spill bytes)}``."""
+def build_together(build, places, lib=LIB, beside=('flash_f32',)):
+    """Builds ``lib`` in every place of ``places`` at once, and the
+    package's own libraries ``beside``; returns each place's ptxas report
+    ``{kernel: (registers, spill bytes)}``."""
     saved = build._CSRC, build._BUILD_DIR
     jobs = {}
     try:
-        # The package's own float32 K1 (the forward's lse) beside them.
-        k1 = build._start('flash_f32')
+        own = {name: build._start(name) for name in beside}
         for tag, where in places.items():
-            point(build, where)
-            jobs[tag] = (where, build._start(LIB))
-        build._finish('flash_f32', k1)
+            point(build, where, lib)
+            jobs[tag] = (where, build._start(lib))
+        for name, job in own.items():
+            build._finish(name, job)
         reports = {}
         for tag, (where, job) in jobs.items():
-            build._finish(LIB, job)
-            point(build, where)
-            reports[tag] = build.resources(LIB)
+            build._finish(lib, job)
+            point(build, where, lib)
+            reports[tag] = build.resources(lib)
         return reports
     finally:
         build._CSRC, build._BUILD_DIR = saved
@@ -278,12 +292,14 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         places, recipes = {}, {}
         for tag, (_, text) in bodies.items():
-            places[tag] = csrc_copy(tmp, tag, text)
+            src = headers_of(os.path.join(ROOT, bodies[tag][0]))
+            places[tag] = csrc_copy(tmp, tag, text, csrc=src)
             recipe, planted = plant(text)
             recipes[tag] = recipe
             if planted is not None:
                 places[tag + '_timed'] = csrc_copy(tmp, tag + '_timed',
-                                                   planted)
+                                                   planted, csrc=src)
+        # The package's own float32 K1 (the forward's lse) beside them.
         reports = build_together(_build, places)
         # The forward (the package's own float32 K1) and the backward's
         # operands.

@@ -38,6 +38,10 @@ _PRODUCER = ('    // The producer: each tile the block sees into the next '
              'free stage.\n')
 _PRODUCER4 = ('    // The producer: each (head, query tile) item into the '
               'next free stage.\n')
+_ROLE = ('  const int wg = warpgroup_of_thread();   // the producer: wg == kWg\n'
+         '  if (wg == kWg) {\n')
+_DIVIDED = ('  const int wg = static_cast<int>(threadIdx.x) / kWgThreads;\n'
+            '  if (wg == kWg) {\n')
 _CONSUMER = "    // A consumer warpgroup: its 64 rows' dq.\n"
 _CONSUMER4 = "    // A consumer warpgroup: its 64 key rows' dk and dv.\n"
 
@@ -84,9 +88,8 @@ VARIANTS = {
          '} else if constexpr (false) {\n          // dV and dK side by')],
         True),
     'role_by_division': ([
-        ('  return __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / '
-         'kWgThreads,\n                     0);',
-         '  return static_cast<int>(threadIdx.x) / kWgThreads;')], True),
+        (_ROLE + _PRODUCER, _DIVIDED + _PRODUCER),
+        (_ROLE + _PRODUCER4, _DIVIDED + _PRODUCER4)], True),
     'one_tf32_mma': (_ONE_MMA, False),
     'no_b_loads': (_NO_B, False),
     'one_tf32_mma_no_b_loads': (_ONE_MMA + _NO_B, False),

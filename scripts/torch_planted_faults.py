@@ -49,13 +49,14 @@ registry dropping its last layer's hook. Three sit in the benchmark CLI
 twin (``benchmark_cli`` must catch them): the nt row without the
 reference's ``perf_model``, paged ``decode-serve`` routed to the plain
 step (no K5p launched), and the matmul timings not fenced on the card.
-Five sit in the float32 kernels (``float32_path`` must catch them): the
+Six sit in the float32 kernels (``float32_path`` must catch them): the
 3xTF32 product cut to one TF32 product (what a kernel that is only
-TF32-accurate computes; K1–K5p all run it), K1/K2's P.V and K3/K4's
-dS.K, P^T.dO and dS^T.q2 reading the score accumulators in another
-reduction order than the B tile's rows, K4's split dO tile stored without
-its small parts (dV at TF32 accuracy), and K5's second slice of V rows
-swapped. A
+TF32-accurate computes; K1–K5p all run it), K1/K2's V^T planes stored in
+another key order than P's fragments take and K3/K4's dS.K, P^T.dO and
+dS^T.q2 reading the score accumulators in another reduction order than
+the B tile's rows, K1/K2's split K tile and K4's split dO tile stored
+without their small parts (S, dV at TF32 accuracy), and K5's second slice
+of V rows swapped. A
 source with a ``/`` is a path in the package, one starting ``./`` a path
 from the repository root; a bare name is in ``csrc/``. Kernel libraries
 already built under ``build/kernels`` from unchanged sources are
@@ -337,15 +338,23 @@ FAULTS = {
     # The float32 kernels' products at TF32 accuracy: the small parts'
     # two products dropped, big.big alone.
     'f32_single_tf32_product': (
-        'tf32x3.cuh',
-        '  mma_tf32(d, a.small, bb0, bb1);\n  mma_tf32(d, a.big, bs0, bs1);\n',
-        '', ('float32_path',)),
-    # K1-K4's P fragments taken in the accumulator's order (columns 2t,
-    # 2t + 1 as k = t, t + 1) against V's rows read as 2t, 2t + 1.
+        'tf32x3.cuh', '  term(true, false);\n  term(false, true);\n', '',
+        ('float32_path',)),
+    # K1/K2's V^T planes stored with the keys in their own order against
+    # P's fragments, which take each slice's keys as 0, 2, 4, 6, 1, 3, 5, 7.
     'f32_pv_reduction_order': (
         'flash_f32.cu',
-        '    const FragA fa = frag_a(p[4 * ks], p[4 * ks + 2], p[4 * ks + 1],\n',
-        '    const FragA fa = frag_a(p[4 * ks], p[4 * ks + 1], p[4 * ks + 2],\n',
+        '        const int r = 8 * (p >> 1) + (p & 1) + 2 * e;   '
+        '// key of column 4p + e\n',
+        '        const int r = 4 * p + e;   // key of column 4p + e\n',
+        ('float32_path',)),
+    # K1/K2's K tile stored with its small parts zero: S at TF32 accuracy.
+    'f32_k_small_plane_zero': (
+        'flash_f32.cu',
+        "      *reinterpret_cast<uint4*>(small + off) = s;   "
+        "// K's small part\n",
+        "      *reinterpret_cast<uint4*>(small + off) = "
+        "make_uint4(0u, 0u, 0u, 0u);\n",
         ('float32_path',)),
     # K3/K4's twin of it: dS.K (P^T.dO, dS^T.q2) reading dS in the
     # accumulator's order against the split B tile's rows 2t, 2t + 1.

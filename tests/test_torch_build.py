@@ -3,10 +3,12 @@
 The kernel build's bookkeeping that runs without ``nvcc``: the
 ``ptxas -v`` report it keeps beside each library, read back as each
 kernel's registers and spill bytes (``chip_smoke.py`` prints them); the
-float32 backward's libraries, built from ``csrc/flash_bwd_f32.cu``, and
-the symbols their wrappers bind (a text check of the source); the
-anchors that ``scripts/torch_bwd_f32_sections.py`` and the float32 planted
-faults of ``scripts/torch_planted_faults.py`` plant at.
+float32 kernels' libraries, built from ``csrc/flash_bwd_f32.cu`` and
+``csrc/flash_f32.cu``, and the symbols their wrappers bind (a text check
+of the sources); the TF32 wgmma shapes the float32 forward runs; the
+anchors that ``scripts/torch_bwd_f32_sections.py``,
+``scripts/torch_fwd_f32_sections.py`` and the float32 planted faults of
+``scripts/torch_planted_faults.py`` plant at.
 """
 
 import importlib
@@ -167,7 +169,7 @@ def test_bwd_sections_script_plants_every_anchor():
 @pytest.mark.parametrize('fault', [
     'f32_single_tf32_product', 'f32_pv_reduction_order',
     'f32_bwd_pv_reduction_order', 'f32_bwd_do_small_part_zero',
-    'k5_f32_v_rows_swapped'])
+    'k5_f32_v_rows_swapped', 'f32_k_small_plane_zero'])
 def test_float32_planted_fault_anchors_once(fault):
     """Each float32 planted fault's text is there once in its source (the
     script refuses a fault whose anchor moved)."""
@@ -181,10 +183,74 @@ def test_float32_planted_fault_anchors_once(fault):
     assert new != old and phases == ('float32_path',)
 
 
-def _variants():
+# The float32 forward (K1 f32, K2 f32) builds from csrc/flash_f32.cu: its
+# base library and its Ext part, each with its flags.
+F32_FWD = {'flash_f32': ('flash_f32', ()),
+           'flash_f32_fwd_ext': ('flash_f32', ('-DFLASH_EXT=1',))}
+
+
+@pytest.mark.parametrize('ext', [None, 'ext'], ids=['base', 'ext'])
+def test_float32_forward_symbol_defined_where_built(ext):
+    """``flash_fwd_f32`` is defined once in csrc/flash_f32.cu, the source of
+    both of the float32 forward's libraries, and the branch each library's
+    flags keep launches the base or the Ext kernel on the grid."""
+    lib, symbol = fa._library('fwd', True, ext)
+    assert symbol == 'flash_fwd_f32'
+    assert lib == ('flash_f32_fwd_ext' if ext else 'flash_f32')
+    assert _build.LIBRARIES[lib] == F32_FWD[lib]
+    source, flags = _build.LIBRARIES[lib]
+    text = (_build._CSRC / f'{source}.cu').read_text()
+    head = f'extern "C" int {symbol}('
+    assert text.count(head) == 1
+    start = text.index(head)
+    kept = _active(text[start:text.index('\n}\n', start)], flags)
+    assert 'FLASH_GRID(' in kept and '_LAUNCH(' in kept
+    launches = re.findall(r'LAUNCH\(D, DV, (true|false), (true|false)\)',
+                          kept)
+    assert launches and all((e == 'true') == bool(ext)
+                            for e, _ in launches), launches
+    # Each library also answers for its own kernels' occupancy.
+    occ = 'extern "C" int flash_fwd_f32_occupancy('
+    assert text.count(occ) == 1
+
+
+@pytest.mark.parametrize('n', [16, 32, 64, 96])
+def test_tf32_wgmma_shapes_in_the_sources(n):
+    """The TF32 wgmma products (A from registers) the float32 forward's
+    plans use are in csrc/hopper.cuh, and csrc/flash_f32.cu runs S and P.V
+    on them, each three products in tf32x3_terms' order."""
+    hopper = (_build._CSRC / 'hopper.cuh').read_text()
+    assert f'struct WgmmaTf32<{n}> {{' in hopper
+    assert f'wgmma.mma_async.sync.aligned.m64n{n}k8.f32.tf32.tf32 ' in hopper
+    fwd = (_build._CSRC / 'flash_f32.cu').read_text()
+    assert fwd.count('WgmmaTf32<') == 2 and fwd.count('tf32x3_terms(') == 2
+    # No product loop splits a K or V element: only the producer's stores
+    # and the A fragments split.
+    assert 'mma3(' not in fwd and 'mma_tf32(' not in fwd
+
+
+def test_fwd_sections_script_plants_every_anchor():
+    """scripts/torch_fwd_f32_sections.py knows the package's float32
+    forward: every section anchor of K1/K2 is there once."""
     sys.path.insert(0, str(REPO / 'scripts'))
     try:
-        return importlib.import_module('torch_bwd_f32_variants')
+        sections = importlib.import_module('torch_fwd_f32_sections')
+    finally:
+        sys.path.remove(str(REPO / 'scripts'))
+    text = (_build._CSRC / 'flash_f32.cu').read_text()
+    recipe, planted = sections.plant(text)
+    assert recipe == 'wgmma_split_once'
+    assert planted.count('SEC_FLUSH(mvec != nullptr ? 8 : 0)') == 2
+    assert planted.count('SEC_T0 // [section]') == 1
+    # Ten marks, and the macro's definition.
+    assert planted.count('SEC_MARK(') == 10 + 1
+    assert 'extern "C" int fwd_sections(' in planted
+
+
+def _variants(name='torch_bwd_f32_variants'):
+    sys.path.insert(0, str(REPO / 'scripts'))
+    try:
+        return importlib.import_module(name)
     finally:
         sys.path.remove(str(REPO / 'scripts'))
 
@@ -195,6 +261,18 @@ def test_bwd_variant_edits_apply(name):
     package's float32 backward at anchors that are there once."""
     variants = _variants()
     text = (_build._CSRC / 'flash_bwd_f32.cu').read_text()
+    edits, _ = variants.VARIANTS[name]
+    out = variants.edited(text, edits)
+    assert (out == text) == (name == 'as_is')
+
+
+@pytest.mark.parametrize(
+    'name', sorted(_variants('torch_fwd_f32_variants').VARIANTS))
+def test_fwd_variant_edits_apply(name):
+    """Each named variant of scripts/torch_fwd_f32_variants.py edits the
+    package's float32 forward at anchors that are there once."""
+    variants = _variants('torch_fwd_f32_variants')
+    text = (_build._CSRC / 'flash_f32.cu').read_text()
     edits, _ = variants.VARIANTS[name]
     out = variants.edited(text, edits)
     assert (out == text) == (name == 'as_is')

@@ -63,7 +63,9 @@ def test_import_loads_no_jax():
        Path('scripts/torch_profile_train.py'),
        Path('scripts/torch_profile_serve.py'),
        Path('scripts/torch_bwd_f32_sections.py'),
-       Path('scripts/torch_bwd_f32_variants.py')]),
+       Path('scripts/torch_bwd_f32_variants.py'),
+       Path('scripts/torch_fwd_f32_sections.py'),
+       Path('scripts/torch_fwd_f32_variants.py')]),
     ids=str)
 def test_no_reference_imports(path):
     bad = [m for m in _imports(REPO / path) if _banned(m)]
