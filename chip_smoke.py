@@ -143,8 +143,11 @@ Phases, one JSON line each (some several):
    threads, blocks and computing warps an SM (at least 8 at 96/96) and
    ptxas registers and spills, and K1's TF32 HGMMA in its SASS at 96/96;
    K5/K5p at t_max 4096,
-   96/96, 256/256, 24/12, one row and verify k = 5, block_k 128 and 512,
-   pages 16 and 48, the partials, a window, ALiBi and the int8 mirror):
+   96/96, 256/256, 24/12, 7/5 and 12/3, one row and verify k = 5, block_k
+   128 and 512, pages 16 and 48, the partials, a window, ALiBi and the
+   int8 mirror; K5/K5p f32's shared memory, steps a warp keeps in flight
+   (at least 2 at 96/96), blocks an SM and ptxas registers and spills,
+   and no HMMA in the SASS of its 96/96 float32 kernel):
    out, dv, decode out within 1e-4 on the row statistic, lse within 1e-5,
    dq and dk within 1e-4 of a float64 evaluation on the scale of their
    terms; rows without a key exactly 0; the dropout keep pattern bit for
@@ -153,7 +156,8 @@ Phases, one JSON line each (some several):
    bit for bit the default split, every repeat bit for bit; each kernel
    timed at the LM's shape (K5 at the greedy shape, K5p the serving one)
    beside its bf16 kernel, its plain version, SDPA at float32 (its
-   backend named) and its bound (3xTF32's 165 TFLOP/s, 3.35 TB/s); README
+   backend named) and its bound (3xTF32's 165 TFLOP/s, K5/K5p FFMA's 67,
+   3.35 TB/s); README
    "Resilient serving" (KernelEngine(slots 8, t_max 4096) at serve_path's
    widths and its float32 default, slab and paged) under serve_path's
    burst, streams equal to the same engine's plain decode path, beside
@@ -9267,7 +9271,10 @@ F32_SHAPE = (2, 8, 2, 200, 200)
 # 64: GQA 4:1 at T 1000 (the last block's second warpgroup holds 40 rows)
 # and 900 (it holds none), causal and with the Ext features.
 F32_RAGGED = (('causal', (1, 8, 2, 1000, 1000)), ('ext', (1, 8, 2, 900, 900)))
-F32_DECODE_DIMS = ((96, 96), (256, 256), (24, 12))
+# K5/K5p: the main path's width, the widest, a pair off the grid, and two
+# whose rows are no multiple of 16 bytes (7/5: every row by 4-byte
+# cp.async; 12/3: K rows by bulk copy, V rows by cp.async).
+F32_DECODE_DIMS = ((96, 96), (256, 256), (24, 12), (7, 5), (12, 3))
 F32_PAGES = (16, 48)
 F32_BLOCK_K = (128, 512)
 F32_WINDOW = 1024
@@ -9295,8 +9302,10 @@ TOL_F32_LSE = 1e-5
 # single TF32 product ~5e-4. Their row statistic against the plain
 # version is printed beside it.
 # 3xTF32, the card's fastest float32-accurate rate (TF32's 495 over 3), for
-# the float32 kernels' operation bound.
+# the float32 kernels' operation bound; K5/K5p f32 run FFMA on the CUDA
+# cores (67 TFLOP/s float32 outside the tensor cores).
 F32_FLOPS = 165e12
+F32_FFMA_FLOPS = 67e12
 F32_KERNELS = ('flash_attention', 'flash_attention_bounded',
                'flash_attention_dq', 'flash_attention_dkv', 'flash_decode',
                'flash_decode_paged')
@@ -9306,8 +9315,11 @@ _F32_FWD_BODY = ('flash_fwd_f32_kernel: S and P.V on 3xTF32 wgmma m64nNk8 '
                  'warpgroup, two consumer warpgroups')
 _F32_BWD_BODY = ('3xTF32 mma.sync m16n8k8 on operands split once by a '
                  'producer warpgroup, two consumer warpgroups')
-_F32_DECODE_BODY = ('flash_decode_kernel (-DDECODE_F32): 3xTF32 mma.sync '
-                    'm16n8k8')
+_F32_DECODE_BODY = ('flash_decode_f32_kernel (-DDECODE_F32): exact float32 '
+                    'FFMA over the real query rows (lanes along d for S, '
+                    'one butterfly; along dv for P.V), each cache row '
+                    'fetched by one cp.async.bulk, two steps a warp in '
+                    'flight at (96, 96)')
 F32_BODY = {'flash_attention': _F32_FWD_BODY,
             'flash_attention_bounded': _F32_FWD_BODY,
             'flash_attention_dq': 'flash_dq_f32_kernel: ' + _F32_BWD_BODY,
@@ -9830,12 +9842,11 @@ def _f32_fwd_occupancy():
     return row, fails
 
 
-def _tf32_hgmma(build, mangled):
-    """The HGMMA instructions of the kernel whose mangled name holds
-    ``mangled`` in the built ``flash_f32`` library's SASS: ``{tf32_hgmma:
-    count with TF32 operands, shapes: {mnemonic: count}}``."""
+def _sass_of(build, lib, mangled):
+    """The SASS lines (``cuobjdump -sass`` of the built library ``lib``) of
+    the kernel whose mangled name holds ``mangled``."""
     tool = os.path.join(os.path.dirname(build._nvcc()), 'cuobjdump')
-    sass = subprocess.run([tool, '-sass', str(build._target('flash_f32'))],
+    sass = subprocess.run([tool, '-sass', str(build._target(lib))],
                           capture_output=True, text=True, timeout=300).stdout
     body, inside = [], False
     for line in sass.splitlines():
@@ -9843,6 +9854,14 @@ def _tf32_hgmma(build, mangled):
             inside = mangled in line
         elif inside:
             body.append(line)
+    return body
+
+
+def _tf32_hgmma(build, mangled):
+    """The HGMMA instructions of the kernel whose mangled name holds
+    ``mangled`` in the built ``flash_f32`` library's SASS: ``{tf32_hgmma:
+    count with TF32 operands, shapes: {mnemonic: count}}``."""
+    body = _sass_of(build, 'flash_f32', mangled)
     shapes = {}
     for m in re.findall(r'\b(HGMMA\.[\w.]+)', '\n'.join(body)):
         shapes[m] = shapes.get(m, 0) + 1
@@ -9850,10 +9869,60 @@ def _tf32_hgmma(build, mangled):
             'tf32_hgmma': sum(n for m, n in shapes.items() if 'TF32' in m)}
 
 
-def f32_bound_ms(flops, nbytes):
-    """``(ms, by)``: a float32 kernel's bound, operations at F32_FLOPS
-    (3xTF32) and bytes at the card's memory rate."""
-    t_ops = flops / F32_FLOPS
+def _f32_decode_occupancy():
+    """K5/K5p f32 (the ``flash_decode_f32`` library) at (96, 96) and (256,
+    256), one query row, slab: the block's dynamic shared memory, the steps
+    a warp keeps in flight (``flash_decode_stages``), blocks an SM
+    (clusters of one block the card holds at once, over its SMs), the
+    8-block clusters it holds at once (the greedy shape's), and ``ptxas``'s
+    registers and spill bytes of each instantiation; at (96, 96) at least 2
+    steps a warp. Beside it the SASS of the (96, 96) float32 kernel
+    (``cuobjdump -sass``): its FFMA and bulk copies, and no HMMA (the
+    products are FFMA; the int8 mirror's s8 products are another
+    instantiation). ``(row, failures)``."""
+    import ctypes
+    from distributed_dot_product_tpu_torch.ops import _build
+    import torch
+    lib = _build.load('flash_decode_f32')
+    for fn, n in ((lib.flash_decode_stages, 3),
+                  (lib.flash_decode_max_clusters, 7),
+                  (lib.flash_decode_smem, 8)):
+        fn.argtypes, fn.restype = [ctypes.c_int] * n, ctypes.c_int
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    res = _build.resources('flash_decode_f32')
+    name = 'flash_decode_f32_kernel'
+    row, fails = {'phase': 'float32_path', 'case': 'decode_f32_occupancy',
+                  'card': CARD, 'kernels': {}}, []
+    for d, dv in ((96, 96), (256, 256)):
+        k = {'smem_bytes': lib.flash_decode_smem(1, 1, d, dv, 0, COV_T_MAX,
+                                                 0, 1),
+             'steps_in_flight': lib.flash_decode_stages(d, dv, 0),
+             'int8_steps_in_flight': lib.flash_decode_stages(d, dv, 1),
+             'blocks_per_sm': lib.flash_decode_max_clusters(
+                 1, 1, d, dv, 0, 0, 1) / sms,
+             'clusters_of_8': lib.flash_decode_max_clusters(1, 1, d, dv, 0,
+                                                            0, 8),
+             'ptxas': {kernel_label(m): list(rs) for m, rs in res.items()
+                       if name in m and f'ILi{d}ELi{dv}E' in m}}
+        row['kernels'][f'{name}<{d},{dv}>'] = k
+        if (d, dv) == (96, 96) and not k['steps_in_flight'] >= 2:
+            fails.append(f'{name} at (96, 96): {k}')
+    body = _sass_of(_build, 'flash_decode_f32',
+                    name + 'ILi96ELi96ELb0ELb0E')
+    ops = {}
+    for m in re.findall(r'\b(HMMA|FFMA|UBLKCP|LDGSTS)\b', '\n'.join(body)):
+        ops[m] = ops.get(m, 0) + 1
+    row['sass_96'] = sass = {'function_found': bool(body), 'ops': ops}
+    if not body or ops.get('HMMA', 0) or not ops.get('FFMA', 0):
+        fails.append(f'{name}<96,96> SASS: {sass}')
+    emit(row)
+    return row, fails
+
+
+def f32_bound_ms(flops, nbytes, rate=F32_FLOPS):
+    """``(ms, by)``: a float32 kernel's bound, operations at ``rate``
+    (F32_FLOPS: 3xTF32) and bytes at the card's memory rate."""
+    t_ops = flops / rate
     t_bytes = nbytes / perf().DEFAULT_PEAKS.bytes_per_s
     return 1e3 * max(t_ops, t_bytes), ('operations' if t_ops > t_bytes
                                        else 'bytes')
@@ -10404,7 +10473,7 @@ def _f32_timing(torch, ddp, flush, gen):
                                         scale=scale),
           lambda: F.scaled_dot_product_attention(q5, ck, cv, attn_mask=mask,
                                                  scale=scale),
-          f32_bound_ms(4 * HEAD_DIM * bh * cols, nbytes))
+          f32_bound_ms(4 * HEAD_DIM * bh * cols, nbytes, F32_FFMA_FLOPS))
     ck16, cv16 = ck.bfloat16(), cv.bfloat16()
     pq, pkn, pvn, kp, vp, pvt, pap, table, prow = paged_case(torch, gen, dev)
     pq, pkn, pvn, kp, vp = (x.float() for x in (pq, pkn, pvn, kp, vp))
@@ -10429,7 +10498,8 @@ def _f32_timing(torch, ddp, flush, gen):
            lambda: F.scaled_dot_product_attention(pq, gk, gv,
                                                   attn_mask=pmask,
                                                   scale=scale),
-           f32_bound_ms(4 * HEAD_DIM * HEADS * pcols, pbytes))
+           f32_bound_ms(4 * HEAD_DIM * HEADS * pcols, pbytes,
+                        F32_FFMA_FLOPS))
     for name, (f32, b16, plain, lib, (bms, by)) in (
             ('flash_decode', k5), ('flash_decode_paged', k5p)):
         over = ('the slab' if name == 'flash_decode'
@@ -10461,6 +10531,8 @@ def phase_float32_path(torch, ddp, flush):
     fails += f
     fwd_occupancy, f = _f32_fwd_occupancy()
     fails += f
+    decode_occupancy, f = _f32_decode_occupancy()
+    fails += f
     timing, f = _f32_timing(torch, ddp, flush, gen)
     fails += f
     readme, f = _f32_readme(torch, ddp)
@@ -10474,7 +10546,8 @@ def phase_float32_path(torch, ddp, flush):
     check(not fails, '; '.join(fails))
     return {'worst': worst, 'timing': timing,
             'bwd_occupancy': occupancy['kernels'],
-            'fwd_occupancy': fwd_occupancy['kernels'], 'launches': {
+            'fwd_occupancy': fwd_occupancy['kernels'],
+            'decode_occupancy': decode_occupancy['kernels'], 'launches': {
         'readme': readme['f32_launches'], 'engine': engine, 'lm': lm,
         'module': module}}
 
@@ -10952,8 +11025,10 @@ def main():
             **f32['worst'][name],
             **{k: t[k] for k in ('ms', 'plain_ms', 'library_ms', 'library',
                                  'bound_ms', 'bound_by', 'bf16_ms')},
-            bound_rate='operations at 165 TFLOP/s (3xTF32), bytes at '
-                       '3.35 TB/s'))
+            bound_rate=('operations at 67 TFLOP/s (float32 FFMA)'
+                        if 'decode' in name else
+                        'operations at 165 TFLOP/s (3xTF32)')
+            + ', bytes at 3.35 TB/s'))
     print(smi, flush=True)
     emit({'kernels': kernels})
     emit({'ok': True, 'device': {'platform': 'gpu', 'kind': kind,

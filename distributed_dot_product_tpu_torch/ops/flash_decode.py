@@ -77,9 +77,10 @@ kernel initialises its running max).
 On CUDA tensors it launches ``csrc/flash_decode.cu`` (one kernel a
 call: split-K flash-decoding across a thread-block cluster per slot and
 kv head, merged in the same launch; bf16, or float32 through the same
-source built as a library of its own (``-DDECODE_F32``: 3xTF32
-products, float32-accurate, never a cast to bf16) — q, the new rows and
-the caches all of one of the two dtypes, else ``TypeError``; any head
+source built as a library of its own (``-DDECODE_F32``: exact float32
+FFMA products over the real query rows, never a cast to bf16) — q, the
+new rows and the caches all of one of the two dtypes, else
+``TypeError``; any head
 dim ``d`` and value width ``d_v`` from 1 to 256, read and appended in
 place at their true widths; paged, any page size) or raises; on CPU
 tensors it runs :func:`flash_decode_plain`.

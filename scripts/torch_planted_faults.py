@@ -49,14 +49,16 @@ registry dropping its last layer's hook. Three sit in the benchmark CLI
 twin (``benchmark_cli`` must catch them): the nt row without the
 reference's ``perf_model``, paged ``decode-serve`` routed to the plain
 step (no K5p launched), and the matmul timings not fenced on the card.
-Six sit in the float32 kernels (``float32_path`` must catch them): the
-3xTF32 product cut to one TF32 product (what a kernel that is only
-TF32-accurate computes; K1–K5p all run it), K1/K2's V^T planes stored in
+Eight sit in the float32 kernels (``float32_path`` must catch them):
+the 3xTF32 product cut to one TF32 product (what a kernel that is only
+TF32-accurate computes; K1–K4 run it), K1/K2's V^T planes stored in
 another key order than P's fragments take and K3/K4's dS.K, P^T.dO and
 dS^T.q2 reading the score accumulators in another reduction order than
 the B tile's rows, K1/K2's split K tile and K4's split dO tile stored
-without their small parts (S, dV at TF32 accuracy), and K5's second slice
-of V rows swapped. A
+without their small parts (S, dV at TF32 accuracy), and three in the
+float32 K5/K5p: two of a step's V rows swapped in P.V, a lane's partials
+left out of S's butterfly, and a verify row scoring the columns fetched
+for the later rows. A
 source with a ``/`` is a path in the package, one starting ``./`` a path
 from the repository root; a bare name is in ``csrc/``. Kernel libraries
 already built under ``build/kernels`` from unchanged sources are
@@ -374,11 +376,28 @@ FAULTS = {
         '      for (int i = ptid; i < kN * DV; i += kWgThreads)\n'
         '        reinterpret_cast<uint2*>(st + S::off_g(kN))[i].y = 0u;\n',
         ('float32_path',)),
-    # K5's float32 P.V: the second slice's two V rows swapped.
+    # K5's float32 P.V: the V rows of a step's columns 8 and 9 swapped.
     'k5_f32_v_rows_swapped': (
         'flash_decode.cu',
-        '          mma3(part, fa1, vs[8 * vp + 8 * dn], vs[9 * vp + 8 * dn]);\n',
-        '          mma3(part, fa1, vs[9 * vp + 8 * dn], vs[8 * vp + 8 * dn]);\n',
+        '          const float* vr = vst + cc * DV;\n',
+        '          const float* vr = vst + (cc == 8 ? 9 : cc == 9 ? 8 : cc) * '
+        'DV;\n',
+        ('float32_path',)),
+    # K5's float32 S: the butterfly that sums a column's lane partials
+    # leaves out one lane's (lane 16 drops lane 0's partials of columns
+    # 8-15 at the first halving).
+    'k5_f32_butterfly_drops_lane': (
+        'flash_decode.cu', '      part[i] = keep + got;\n',
+        '      part[i] = lane == 16 && half == 8 ? keep : keep + got;\n',
+        ('float32_path',)),
+    # K5/K5p's float32 softmax: a row's own span check dropped at its end,
+    # so a verify row scores the columns the launch fetched for the later
+    # rows (outside its span).
+    'k5p_f32_reads_unheld_column': (
+        'flash_decode.cu',
+        '        const bool ok = ((hmask >> c) & 1) && col >= rc.x && '
+        'col <= rc.y;\n',
+        '        const bool ok = ((hmask >> c) & 1) && col >= rc.x;\n',
         ('float32_path',)),
 }
 

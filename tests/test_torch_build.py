@@ -169,7 +169,8 @@ def test_bwd_sections_script_plants_every_anchor():
 @pytest.mark.parametrize('fault', [
     'f32_single_tf32_product', 'f32_pv_reduction_order',
     'f32_bwd_pv_reduction_order', 'f32_bwd_do_small_part_zero',
-    'k5_f32_v_rows_swapped', 'f32_k_small_plane_zero'])
+    'k5_f32_v_rows_swapped', 'f32_k_small_plane_zero',
+    'k5_f32_butterfly_drops_lane', 'k5p_f32_reads_unheld_column'])
 def test_float32_planted_fault_anchors_once(fault):
     """Each float32 planted fault's text is there once in its source (the
     script refuses a fault whose anchor moved)."""
@@ -276,3 +277,122 @@ def test_fwd_variant_edits_apply(name):
     edits, _ = variants.VARIANTS[name]
     out = variants.edited(text, edits)
     assert (out == text) == (name == 'as_is')
+
+
+def _decode_branches(text, f32):
+    """The lines of csrc/flash_decode.cu that the preprocessor keeps in
+    the float32 build (``f32``) or the bf16 one: its ``#ifdef DECODE_F32``
+    / ``#ifndef DECODE_F32`` ... ``#else`` ... ``#endif`` blocks (not
+    nested) resolved."""
+    kept, state = [], None
+    for line in text.splitlines():
+        st = line.strip()
+        if st == '#ifdef DECODE_F32':
+            state = f32
+        elif st == '#ifndef DECODE_F32':
+            state = not f32
+        elif st == '#else' and state is not None:
+            state = not state
+        elif st == '#endif' and state is not None:
+            state = None
+        elif state is not False:
+            kept.append(line)
+    return '\n'.join(kept)
+
+
+DECODE = _build._CSRC / 'flash_decode.cu'
+
+
+def test_float32_decode_library_builds_from_its_source():
+    """The float32 K5/K5p library is csrc/flash_decode.cu with
+    -DDECODE_F32 (the bf16 one the same source without it)."""
+    assert _build.LIBRARIES['flash_decode_f32'] == ('flash_decode',
+                                                    ('-DDECODE_F32',))
+    assert _build.LIBRARIES['flash_decode'] == ('flash_decode', ())
+    assert DECODE.is_file()
+
+
+@pytest.mark.parametrize('f32', [True, False], ids=['float32', 'bf16'])
+def test_decode_entry_points_defined_in_each_build(f32):
+    """Each build of csrc/flash_decode.cu defines the two C entry points
+    ops/flash_decode.py binds (``flash_decode_<suffix>`` and
+    ``flash_decode_paged_<suffix>``) once, its exports, and launches its own
+    kernel: the float32 build the FFMA kernel, with no 3xTF32 product and
+    no bf16 kernel; the bf16 build the mma.sync kernel."""
+    kept = _decode_branches(DECODE.read_text(), f32)
+    suffix = 'f32' if f32 else 'bf16'
+    assert kept.count(f'#define DECODE_SYMBOL(name) name##_{suffix}') == 1
+    for symbol in ('DECODE_SYMBOL(flash_decode)(',
+                   'DECODE_SYMBOL(flash_decode_paged)(',
+                   'flash_decode_chunk()', 'flash_decode_smem(',
+                   'flash_decode_max_clusters(', 'flash_decode_stages('):
+        assert kept.count(f'extern "C" int {symbol}') == 1, symbol
+    mine, other = (('flash_decode_f32_kernel', 'flash_decode_kernel') if f32
+                   else ('flash_decode_kernel', 'flash_decode_f32_kernel'))
+    assert f'  return {mine}<D, DV, PAGED, QUANT>;' in kept
+    assert f'{other}(const Args a)' not in kept
+    assert f'{mine}(const Args a)' in kept
+    # No 3xTF32 product anywhere in the decode source.
+    assert 'mma3(' not in kept and '#include "tf32x3.cuh"' not in kept
+    if f32:
+        assert 'cp.async.bulk.shared::cluster.global' in kept
+        assert 'fmaf(' in kept
+
+
+def _script(name):
+    sys.path.insert(0, str(REPO / 'scripts'))
+    try:
+        return importlib.import_module(name)
+    finally:
+        sys.path.remove(str(REPO / 'scripts'))
+
+
+def test_decode_sections_script_plants_every_anchor():
+    """scripts/torch_decode_sections.py knows the package's decode source:
+    every section anchor of the bf16 kernel, of the float32 one and of the
+    merge is there once, and each plan of ``--plans`` edits lines that are
+    there once."""
+    sections = _script('torch_decode_sections')
+    text = DECODE.read_text()
+    recipe, planted = sections.plant(text)
+    assert recipe == 'section_comments'
+    for kern in ('bf16', 'f32'):
+        assert planted.count(f'SEC_T0 // [section] decode {kern} start') == 1
+        assert planted.count(
+            f'SEC_MARK(7) SEC_STAMP(7) SEC_FLUSH // [section] decode {kern} '
+            f'done') == 1
+        # Each build keeps its own kernel's marks: eight, and the macro's
+        # definition.
+        kept = _decode_branches(planted, kern == 'f32')
+        assert kept.count('SEC_MARK(') == 8 + 1
+        assert kept.count('SEC_STAMP(') == 3 + 4 + 2
+    for k in (3, 4, 5, 6):
+        assert planted.count(f'SEC_STAMP({k}) // [section] decode merge') == 1
+    assert 'extern "C" int decode_sections(' in planted
+    for steps, blocks in sections.PLANS.values():
+        edited = sections.with_plan(text, steps, blocks)
+        assert f'constexpr int kF32MaxSteps = {steps};' in edited
+        assert f'constexpr int kF32Blocks = {blocks};' in edited
+        assert sections.plant(edited)[0] == 'section_comments'
+
+
+DECODE_FAULTS = ('k5_merge_arrival_order', 'k5_fresh_rows_not_substituted',
+                 'k5p_unallocated_page_scored',
+                 'k5_merge_before_peers_landed', 'k5p_unheld_column_scored',
+                 'k5_f32_v_rows_swapped', 'k5_f32_butterfly_drops_lane',
+                 'k5p_f32_reads_unheld_column')
+
+
+@pytest.mark.parametrize('fault', DECODE_FAULTS)
+def test_decode_planted_fault_anchors_once(fault):
+    """Each decode planted fault's text is there once in
+    csrc/flash_decode.cu, in code its own build compiles: a float32
+    fault in the float32 build alone, a bf16 one in the bf16 build."""
+    source, old, new, _ = _script('torch_planted_faults').FAULTS[fault]
+    assert source == 'flash_decode.cu'
+    text = DECODE.read_text()
+    assert text.count(old) == 1 and new != old
+    f32 = '_f32_' in fault
+    assert _decode_branches(text, f32).count(old) == 1
+    if f32:
+        assert old not in _decode_branches(text, False)

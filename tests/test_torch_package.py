@@ -59,13 +59,8 @@ def test_import_loads_no_jax():
 
 @pytest.mark.parametrize('path', sorted(
     [p.relative_to(REPO) for p in PORT.rglob('*.py')]
-    + [Path('chip_smoke.py'), Path('scripts/torch_profile_generate.py'),
-       Path('scripts/torch_profile_train.py'),
-       Path('scripts/torch_profile_serve.py'),
-       Path('scripts/torch_bwd_f32_sections.py'),
-       Path('scripts/torch_bwd_f32_variants.py'),
-       Path('scripts/torch_fwd_f32_sections.py'),
-       Path('scripts/torch_fwd_f32_variants.py')]),
+    + [Path('chip_smoke.py')]
+    + [p.relative_to(REPO) for p in (REPO / 'scripts').glob('torch_*.py')]),
     ids=str)
 def test_no_reference_imports(path):
     bad = [m for m in _imports(REPO / path) if _banned(m)]
